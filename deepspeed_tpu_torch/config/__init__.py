@@ -1,0 +1,12 @@
+"""Config system: the inference block (ported) of the JAX package's
+DeepSpeedConfig."""
+
+from .config import DeepSpeedConfig, DeepSpeedConfigError
+from .config_utils import load_config_json, loads_config_json
+
+__all__ = [
+    "DeepSpeedConfig",
+    "DeepSpeedConfigError",
+    "load_config_json",
+    "loads_config_json",
+]

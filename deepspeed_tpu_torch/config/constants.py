@@ -1,0 +1,185 @@
+"""Config keys and defaults for the serving slice of the port.
+
+The inference block's keys, defaults and comments, copied from the JAX
+package (deepspeed_tpu/config/constants.py) so the two parsers accept and
+reject the same configs. The training blocks wait for the training slice.
+"""
+
+#############################################
+# Inference serving (deepspeed_tpu_torch/inference/, docs/inference.md): the
+# continuous-batching KV-cache decode engine behind init_inference().
+# Absent from the reference, which stopped at training.
+#############################################
+INFERENCE = "inference"
+# Decode slots: the fixed batch width of the decode step. Every
+# admitted request occupies one slot until EOS/length; the KV cache is
+# [layers, slots, heads, max_seq_len, head_dim], so slots * max_seq_len
+# bounds cache device memory.
+INFERENCE_MAX_BATCH_SLOTS = "max_batch_slots"
+INFERENCE_MAX_BATCH_SLOTS_DEFAULT = 8
+# Hard cap on prompt + generated tokens per request (the KV cache's
+# position extent). 0 => the model's n_positions.
+INFERENCE_MAX_SEQ_LEN = "max_seq_len"
+INFERENCE_MAX_SEQ_LEN_DEFAULT = 0
+# Fixed prefill width: prompts are right-padded to this length so every
+# prefill has one shape (causality makes the padding columns inert). 0 =>
+# max_seq_len. Smaller values trade prompt-length headroom for prefill
+# FLOPs.
+INFERENCE_PREFILL_LEN = "prefill_len"
+INFERENCE_PREFILL_LEN_DEFAULT = 0
+# Bounded admission queue (the serving front door): submissions beyond
+# this depth are REJECTED (RequestRejected) rather than buffered without
+# bound — overload sheds at the door, not in device memory.
+INFERENCE_QUEUE_DEPTH = "queue_depth"
+INFERENCE_QUEUE_DEPTH_DEFAULT = 64
+# How long submit() may block waiting for queue room before rejecting.
+# 0 => reject immediately when full.
+INFERENCE_QUEUE_TIMEOUT = "queue_timeout_secs"
+INFERENCE_QUEUE_TIMEOUT_DEFAULT = 0.0
+# Token id that terminates a sequence (host-side check after each decode
+# step). null/-1 => generation runs to max_new_tokens/max_seq_len.
+INFERENCE_EOS_TOKEN_ID = "eos_token_id"
+INFERENCE_EOS_TOKEN_ID_DEFAULT = None
+# Param/cache storage dtype: "fp32" or "bf16" (bf16 halves weight+cache
+# memory; fp32 is the parity tests' mode).
+INFERENCE_DTYPE = "dtype"
+INFERENCE_DTYPE_DEFAULT = "fp32"
+# Sampling defaults (per-request temperature may override; top-k/top-p/
+# greedy are engine-wide).
+INFERENCE_SAMPLING = "sampling"
+INFERENCE_SAMPLING_TEMPERATURE = "temperature"
+INFERENCE_SAMPLING_TEMPERATURE_DEFAULT = 1.0
+INFERENCE_SAMPLING_TOP_K = "top_k"
+INFERENCE_SAMPLING_TOP_K_DEFAULT = 0  # 0 = disabled
+INFERENCE_SAMPLING_TOP_P = "top_p"
+INFERENCE_SAMPLING_TOP_P_DEFAULT = 1.0  # 1.0 = disabled
+INFERENCE_SAMPLING_GREEDY = "greedy"
+INFERENCE_SAMPLING_GREEDY_DEFAULT = False
+# Default per-request deadline, seconds from submission (null = no
+# deadline). A request is finished with reason "deadline" when it cannot
+# be admitted before its deadline (reject-on-admission) or when a decode
+# step finds it past-deadline in flight (slot reclaimed within one
+# step). Per-request deadline_secs on submit() overrides.
+INFERENCE_DEADLINE_SECS = "deadline_secs"
+INFERENCE_DEADLINE_SECS_DEFAULT = None
+# Decode-driver auto-restarts allowed after a decode crash before the
+# scheduler gives up and fail-finishes everything (0 = legacy behavior:
+# any crash drains the scheduler). A restart fails the in-flight
+# requests (their KV rows died with the crashed step), rebuilds the
+# decode state from the engine's pinned params, and keeps serving the
+# queue.
+INFERENCE_DRIVER_RESTART_BUDGET = "driver_restart_budget"
+INFERENCE_DRIVER_RESTART_BUDGET_DEFAULT = 0
+# Queue-pressure threshold (fraction of queue_depth) past which the
+# health state degrades and priority > 0 submissions are shed at the
+# front door (docs/inference.md "Self-healing serving").
+INFERENCE_DEGRADED_QUEUE_RATIO = "degraded_queue_ratio"
+INFERENCE_DEGRADED_QUEUE_RATIO_DEFAULT = 0.75
+# Block-paged KV cache (PagedAttention — docs/inference.md "Paged KV
+# cache"): page size in tokens. 0 => the legacy contiguous per-slot
+# cache ([layers, slots, heads, max_seq_len, head_dim], every slot
+# reserving max_seq_len rows). > 0 => a global pool of fixed-size pages
+# indirected through per-slot block tables; max_seq_len must divide by
+# it (the bitwise-parity contract needs identical logical cache
+# extents).
+INFERENCE_KV_BLOCK_SIZE = "kv_block_size"
+INFERENCE_KV_BLOCK_SIZE_DEFAULT = 0
+# Usable pages in the pool (excluding the null page). 0 => auto: slots *
+# (max_seq_len / kv_block_size) — the contiguous cache's capacity plus
+# ONE extra page (the never-allocated null page), so paging at the
+# default is a fragmentation win at essentially the same memory. Set
+# LOWER to serve more slots per byte: admission reserves only
+# ceil((prompt + max_new) / kv_block_size) pages per request, so short
+# traffic packs several requests into one contiguous slot's worth of
+# pages.
+INFERENCE_KV_POOL_BLOCKS = "kv_pool_blocks"
+INFERENCE_KV_POOL_BLOCKS_DEFAULT = 0
+# Cross-request prefix caching over the page pool: full prompt pages are
+# content-hashed (vLLM chain scheme), reference-counted, and shared, so
+# a templated prefix (system prompt, few-shot header) prefills ONCE
+# fleet-wide and later requests compute only their unique suffix.
+# "enabled" null => on whenever kv_block_size > 0; explicitly true
+# REQUIRES the paged cache. "suffix_buckets" fixes the padded suffix
+# widths the hit-path prefill pads to (null => a power-of-two ladder
+# from kv_block_size up to prefill_len).
+INFERENCE_PREFIX_CACHE = "prefix_cache"
+INFERENCE_PREFIX_CACHE_ENABLED = "enabled"
+INFERENCE_PREFIX_CACHE_ENABLED_DEFAULT = None
+INFERENCE_PREFIX_CACHE_SUFFIX_BUCKETS = "suffix_buckets"
+INFERENCE_PREFIX_CACHE_SUFFIX_BUCKETS_DEFAULT = None
+# Fused decode attention (docs/inference.md "Fused decode attention"):
+# swaps the paged decode step's gather-then-einsum attention for the
+# single-query paged decode kernel
+# (ops/decode_attention.py:paged_flash_decode) — the slot's live KV
+# pages are read in place through the block table with an online
+# softmax, no [slots, heads, max_len, hd] gathered temporary, and
+# zero-length (dead) slots early-out. Requires the paged cache
+# (kv_block_size > 0); the gather path stays the greedy-parity
+# reference. On CPU tensors the kernel's plain PyTorch version runs.
+INFERENCE_FUSED_DECODE = "fused_decode"
+INFERENCE_FUSED_DECODE_DEFAULT = False
+# Speculative decoding (docs/inference.md "Speculative decoding"): a
+# small DRAFT model proposes k greedy tokens per scheduler step and the
+# target verifies all of them in ONE fixed-shape batched step against
+# the paged cache — the accepted prefix plus the target's correction
+# token commit together, so a decode step yields up to k+1 tokens.
+# Greedy output is bitwise-identical to the non-speculative path by
+# construction (every committed token is the target's own argmax). k is
+# static (acceptance length is data);
+# draft_checkpoint optionally loads the draft's params through the
+# verified-load path (the draft module itself is passed to
+# init_inference as draft_model/draft_parameters). Requires the paged
+# cache and greedy sampling.
+INFERENCE_SPECULATIVE = "speculative"
+INFERENCE_SPECULATIVE_K = "k"
+INFERENCE_SPECULATIVE_K_DEFAULT = 4
+INFERENCE_SPECULATIVE_DRAFT_CHECKPOINT = "draft_checkpoint"
+INFERENCE_SPECULATIVE_DRAFT_CHECKPOINT_DEFAULT = ""
+# Host-memory spill tier (docs/inference.md "Host-memory spill tier"):
+# treats device memory as a cache over host DRAM. Refcount-0 prefix pages evicted
+# by the BlockPool LRU — and adapter rows evicted by the AdapterPool —
+# are copied D2H into a byte-budgeted host LRU instead of dropped, and
+# promoted back H2D on a chain-hash / name hit (vLLM swap tier +
+# S-LoRA host paging, PAPERS.md). Requires something spillable: the
+# paged KV cache (kv_block_size > 0) and/or adapters.
+INFERENCE_HOST_TIER = "host_tier"
+INFERENCE_HOST_TIER_ENABLED = "enabled"
+INFERENCE_HOST_TIER_ENABLED_DEFAULT = False
+# Host-RAM byte budget for parked pages/rows; LRU past it.
+INFERENCE_HOST_TIER_MAX_BYTES = "max_bytes"
+INFERENCE_HOST_TIER_MAX_BYTES_DEFAULT = 1 << 28  # 256 MiB
+# Share one tier across every engine in this process (the node agent
+# hosts all its replicas' engines in one process, so this is same-host
+# peer sharing: one tenant's warm template/adapter warms the fleet).
+# False => a private tier per engine.
+INFERENCE_HOST_TIER_PEER_SHARING = "peer_sharing"
+INFERENCE_HOST_TIER_PEER_SHARING_DEFAULT = True
+# Named share-group for peer sharing (engines sharing a group share a
+# tier and its byte budget). Lets tests / co-hosted tenants isolate.
+INFERENCE_HOST_TIER_SHARE_GROUP = "share_group"
+INFERENCE_HOST_TIER_SHARE_GROUP_DEFAULT = "node"
+# Lazy page growth + preemption (replaces worst-case admission
+# reservation): admission reserves only the PROMPT's pages, decode grows
+# a slot one page at a time, and under pool pressure the scheduler
+# preempts the most-recently-admitted request — its full pages register
+# (so they park in the LRU / spill to the host tier) and it resumes
+# suffix-only with zero lost work. Requires the tier and the paged
+# cache.
+INFERENCE_HOST_TIER_LAZY_ALLOC = "lazy_alloc"
+INFERENCE_HOST_TIER_LAZY_ALLOC_DEFAULT = False
+# Optional checkpoint to serve from: loaded through the resilience
+# verified-load path (manifest check + host-side parse + newest-valid
+# fallback) before params move to the device.
+INFERENCE_CHECKPOINT = "checkpoint"
+INFERENCE_CHECKPOINT_LOAD_DIR = "load_dir"
+INFERENCE_CHECKPOINT_LOAD_DIR_DEFAULT = ""
+INFERENCE_CHECKPOINT_TAG = "tag"
+INFERENCE_CHECKPOINT_TAG_DEFAULT = None  # None => the 'latest' pointer
+
+#############################################
+# Blocks the port parses only to refuse them (not yet ported).
+#############################################
+ADAPTERS = "adapters"
+ADAPTERS_ENABLED = "enabled"
+ADAPTERS_ENABLED_DEFAULT = False
+MESH = "mesh"

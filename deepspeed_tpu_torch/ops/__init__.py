@@ -1,0 +1,14 @@
+"""Ops: attention (flash forward kernel), paged decode attention (decode
+kernel), the transformer block, and the kernels' build/load layer. The
+``attention`` dispatcher stays in its module, where its name does not
+shadow the submodule."""
+
+from .attention import flash_attention, flash_fwd, mha_reference
+from .decode_attention import paged_flash_decode
+
+__all__ = [
+    "flash_attention",
+    "flash_fwd",
+    "mha_reference",
+    "paged_flash_decode",
+]

@@ -25,7 +25,11 @@ setup(
     version=open("deepspeed_tpu/version.py").read().split('"')[1],
     description="TPU-native training acceleration library "
     "(JAX/XLA/Pallas rebuild of the DeepSpeed capability surface)",
-    packages=find_packages(include=["deepspeed_tpu", "deepspeed_tpu.*"]),
+    packages=find_packages(include=[
+        "deepspeed_tpu", "deepspeed_tpu.*",
+        "deepspeed_tpu_torch", "deepspeed_tpu_torch.*",
+    ]),
+    package_data={"deepspeed_tpu_torch": ["csrc/*.cu"]},
     scripts=["bin/deepspeed", "bin/ds", "bin/ds_ssh"],
     ext_modules=ext_modules,
     python_requires=">=3.10",

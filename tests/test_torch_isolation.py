@@ -1,0 +1,56 @@
+"""The port stands alone: no file under deepspeed_tpu_torch/, and not
+chip_smoke.py, imports jax, flax or the JAX package (deepspeed_tpu)."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "deepspeed_tpu")
+
+
+def _sources():
+    files = sorted((ROOT / "deepspeed_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    return files
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def _forbidden(name):
+    top = name.split(".")[0]
+    return top in FORBIDDEN
+
+
+def test_the_scan_covers_the_package():
+    files = _sources()
+    assert len(files) > 20 and all(f.exists() for f in files)
+
+
+@pytest.mark.parametrize(
+    "path", _sources(), ids=lambda p: str(p.relative_to(ROOT))
+)
+def test_no_jax_flax_or_deepspeed_tpu_import(path):
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_scan_catches_a_forbidden_import(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text(
+        "import os\nfrom deepspeed_tpu.ops import attention\n"
+        "def f():\n    import jax.numpy as jnp\n"
+    )
+    assert [m for m in _imported_modules(probe) if _forbidden(m)] == [
+        "deepspeed_tpu.ops", "jax.numpy",
+    ]
+    assert not _forbidden("deepspeed_tpu_torch.ops")
