@@ -29,9 +29,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 
 Tolerances: float32 kernel vs plain atol = rtol = 1e-4 (same float32
 arithmetic in another summation order; observed errors sit near 1e-6);
-bfloat16 atol = rtol = 2e-2 (both round p and the output to bfloat16, at
-different points of the online softmax: one bf16 ulp of an O(1) output is
-up to 7.8e-3).
+bfloat16 atol = rtol = 1e-2 (both round p and the output to bfloat16, at
+different points of the online softmax: one bf16 ulp of an output in
+[1, 2) is 7.8e-3, and rtol 1e-2 covers one ulp at any magnitude).
 """
 
 import argparse
@@ -47,7 +47,7 @@ PEAK_FLOPS = {  # dense, H100 SXM at 700 W (NVIDIA data sheet)
     torch.bfloat16: 989e12,  # tensor cores
     torch.float32: 67e12,    # outside the tensor cores
 }
-TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 N_LAYER = 12
 FLASH_SOURCE = "deepspeed_tpu_torch/csrc/flash_fwd.cu"
 DECODE_SOURCE = "deepspeed_tpu_torch/csrc/paged_decode.cu"

@@ -1,16 +1,6 @@
-"""Adapter-pool bookkeeping (the scheduler's ``AdapterPoolFull``). LoRA
+"""Adapter-pool errors (the scheduler's ``AdapterPoolFull``). LoRA
 serving itself is not ported yet."""
 
-from .pool import (
-    IDENTITY_ADAPTER,
-    AdapterPool,
-    AdapterPoolFull,
-    AdapterUnavailable,
-)
+from .pool import AdapterPoolFull
 
-__all__ = [
-    "IDENTITY_ADAPTER",
-    "AdapterPool",
-    "AdapterPoolFull",
-    "AdapterUnavailable",
-]
+__all__ = ["AdapterPoolFull"]

@@ -80,8 +80,7 @@ def gpt2_prefill(model, tokens):
     ks, vs = [], []
     for layer in model.h:
         x, (k, v) = transformer_block_apply(
-            model.layer_config, layer, x, None, causal=True,
-            use_flash=model.config.use_flash, return_kv=True,
+            model.layer_config, layer, x, None, causal=True, return_kv=True,
         )
         ks.append(k)
         vs.append(v)

@@ -36,7 +36,6 @@ class GPT2Config:
     n_head: int = 12
     initializer_range: float = 0.02
     layer_norm_eps: float = 1e-5
-    use_flash: bool = True
 
     @property
     def vocab_padded(self):
@@ -129,7 +128,6 @@ class GPT2LMHeadModel(nn.Module):
         x = self.wte[input_ids] + self.wpe[None, :s, :]
         for layer in self.h:
             x = transformer_block_apply(
-                self.layer_config, layer, x, None, causal=True,
-                use_flash=self.config.use_flash,
+                self.layer_config, layer, x, None, causal=True
             )
         return self.final_norm_and_logits(x)

@@ -13,7 +13,8 @@ Entry points:
     kernel (or raises); on a CPU tensor it runs ``flash_fwd_plain``, the
     same function in plain PyTorch. Returns ``(out, lse)``.
   - ``flash_attention``: the JAX package's signature over ``flash_fwd``.
-  - ``attention``: dispatcher with the JAX package's routing rule.
+  - ``attention``: dispatcher between the two (padding masks and
+    ``FLASH_MIN_SEQ``, as in the JAX package).
 
 Only the forward is ported: the backward kernels and in-kernel dropout
 arrive with the training slice, so ``dropout_rate > 0`` raises.
@@ -24,14 +25,6 @@ import ctypes
 import torch
 
 NEG_INF = -1e30
-
-# Inherited from the JAX package, where they were measured on a TPU v5e
-# (GPT-2-large, seq 1024): the tile sizes the TPU kernel used, kept here
-# only for the dispatcher's routing rule (``pick_block``). Not measured
-# on the card; the CUDA kernel picks its own tiles and masks a ragged
-# last tile itself.
-DEFAULT_BLOCK_Q = 512
-DEFAULT_BLOCK_K = 512
 
 # Below this sequence length the dispatcher takes ``mha_reference``.
 # Inherited from the JAX package, which measured it on a TPU v5e (BERT-large
@@ -62,20 +55,6 @@ def mha_reference(q, k, v, mask=None, causal=False, sm_scale=None,
     return torch.einsum(
         "bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float()
     ).to(v.dtype)
-
-
-def pick_block(seq, maximum):
-    """Largest block <= maximum that divides ``seq``, halving from the
-    default; ``seq <= maximum`` returns ``seq``. 0 when nothing >= 8
-    divides. The JAX kernel needed a dividing block; the CUDA kernel does
-    not, but the dispatcher keeps the rule so both packages route the
-    same shapes to the same path."""
-    b = min(maximum, seq)
-    while b >= 8:
-        if seq % b == 0:
-            return b
-        b //= 2
-    return seq if seq <= maximum else 0
 
 
 def additive_mask_to_kv_valid(mask):
@@ -223,18 +202,15 @@ def flash_attention(q, k, v, mask=None, kv_mask=None, causal=False,
 
 
 def attention(q, k, v, mask=None, causal=False, sm_scale=None,
-              dropout_rate=0.0, use_flash=True):
-    """Dispatcher with the JAX package's routing rule on one device: the
-    flash kernel when both sequence lengths tile (``pick_block``), the
-    mask is a padding mask, and ``max(sq, sk) >= FLASH_MIN_SEQ``; the
-    plain reference otherwise."""
+              dropout_rate=0.0):
+    """Dispatcher: the flash kernel when the mask is a padding mask and
+    ``max(sq, sk) >= FLASH_MIN_SEQ``; the plain reference otherwise. The
+    JAX package also required both lengths to split into TPU tiles; the
+    CUDA kernel masks a ragged last tile itself, so any length routes."""
     sq, sk = q.shape[2], k.shape[2]
     kv_mask = additive_mask_to_kv_valid(mask)
     can_flash = (
-        use_flash
-        and pick_block(sq, DEFAULT_BLOCK_Q) > 0
-        and pick_block(sk, DEFAULT_BLOCK_K) > 0
-        and (mask is None or kv_mask is not None)
+        (mask is None or kv_mask is not None)
         and max(sq, sk) >= FLASH_MIN_SEQ
     )
     if can_flash:

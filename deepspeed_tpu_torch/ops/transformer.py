@@ -128,7 +128,7 @@ def _ffn_sublayer(cfg, p, x):
 
 
 def transformer_block_apply(cfg, p, hidden_states, attention_mask=None, *,
-                            causal=False, use_flash=True, return_kv=False):
+                            causal=False, return_kv=False):
     """Eval-mode block over ``p`` (a :class:`DeepSpeedTransformerLayer`).
 
     ``return_kv`` additionally returns the block's split-head key/value
@@ -154,9 +154,7 @@ def transformer_block_apply(cfg, p, hidden_states, attention_mask=None, *,
         return t.reshape(b, s, heads, head_dim).transpose(1, 2).contiguous()
 
     qh, kh, vh = split_heads(q), split_heads(k_), split_heads(v)
-    ctx = attention(
-        qh, kh, vh, mask=attention_mask, causal=causal, use_flash=use_flash
-    )
+    ctx = attention(qh, kh, vh, mask=attention_mask, causal=causal)
     ctx = ctx.transpose(1, 2).reshape(b, s, H)
     x = residual + F.linear(ctx, p.attn_ow, p.attn_ob)
     if not cfg.pre_layer_norm:

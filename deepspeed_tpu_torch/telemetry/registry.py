@@ -16,7 +16,6 @@ exporters that need a flat charset (Prometheus) sanitize on their side.
 import threading
 import time
 
-from ..utils.logging import logger
 
 # Default histogram thresholds for per-window wall times, in milliseconds.
 # Spans sub-10ms fused CPU windows to the minute-scale compiles that
@@ -309,44 +308,6 @@ class WireHistogram:
     @property
     def sum(self):
         return self._sum
-
-
-# ---------------------------------------------------------------------------
-# Suppressed-error accounting: best-effort probe paths (device metadata
-# probes, compile-cache verdict resets, model-spec lookups) deliberately
-# swallow failures — but NEVER silently (the no-silent-swallows audit,
-# docs/resilience.md). Each swallow debug-logs and counts here, on a
-# process-global diagnostics registry that exists before any engine or
-# telemetry block does, so "how often does this probe fail" is
-# answerable from counters instead of grep.
-# ---------------------------------------------------------------------------
-_DIAGNOSTICS = MetricsRegistry()
-
-
-def diagnostics_registry():
-    """The process-global internal-health registry (suppressed-error
-    counters); readable by tests and stall reports without any engine."""
-    return _DIAGNOSTICS
-
-
-def suppressed_errors_snapshot():
-    """Nonzero suppressed-error counters as ``{name: count}`` — what
-    stall reports, supervisor escalations, and flight-recorder dumps
-    attach (empty dict = no swallows so far)."""
-    return {k: v for k, v in _DIAGNOSTICS.snapshot().items() if v}
-
-
-def count_suppressed(site, exc=None):
-    """Account one deliberately swallowed exception at ``site``: a debug
-    log plus a total and a per-site counter. Call this from every
-    broad-except that intentionally continues — a swallow with no counter
-    is invisible exactly when it starts happening every step."""
-    logger.debug("suppressed error at %s: %r", site, exc)
-    _DIAGNOSTICS.counter(
-        "internal/suppressed_errors",
-        help="deliberately swallowed exceptions across best-effort paths",
-    ).inc()
-    _DIAGNOSTICS.counter(f"internal/suppressed_errors/{site}").inc()
 
 
 # The JAX package's recompile and persistent-compile-cache hooks

@@ -127,12 +127,16 @@ def test_additive_mask_to_kv_valid_matches_jax(shape):
         np.testing.assert_array_equal(got_t.numpy(), np.asarray(got_j))
 
 
-@pytest.mark.parametrize("s,routes_to_flash", [(256, True), (128, False)])
+@pytest.mark.parametrize(
+    "s,routes_to_flash", [(256, True), (128, False), (521, True)]
+)
 def test_attention_dispatch_follows_the_jax_routing_rule(s, routes_to_flash):
     """At S >= FLASH_MIN_SEQ the dispatcher takes the flash path (a row
     with no valid key -> zeros); below it the reference (-> a uniform
     average over the masked keys), as the JAX package routes on one
-    device."""
+    device. A length with no tile-sized divisor (521, prime) also takes
+    the flash path: the CUDA kernel masks a ragged last tile itself,
+    where the JAX package fell back to its reference."""
     b, h, d = 2, 2, 64
     q, k, v = _qkv(5, b, h, s, s, d)
     mask = _padding_mask(b, s, [s, 0])

@@ -5,8 +5,9 @@ at run time). On the card run
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerances as in chip_smoke.py: float32 atol = rtol = 1e-4 (another
-summation order), bfloat16 atol = rtol = 2e-2 (p and the output rounded
-to bfloat16 at different points of the online softmax).
+summation order), bfloat16 atol = rtol = 1e-2 (p and the output rounded
+to bfloat16 at different points of the online softmax; rtol 1e-2 covers
+one bf16 ulp, 2**-7 relative, at any magnitude).
 """
 
 import pytest
@@ -18,7 +19,7 @@ from deepspeed_tpu_torch.ops.decode_attention import (
     paged_flash_decode_plain,
 )
 
-TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
 @pytest.fixture

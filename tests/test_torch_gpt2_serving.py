@@ -52,7 +52,6 @@ def _port_model(jcfg, params):
         vocab_size=jcfg.vocab_size, n_positions=jcfg.n_positions,
         n_embd=jcfg.n_embd, n_layer=jcfg.n_layer, n_head=jcfg.n_head,
         layer_norm_eps=jcfg.layer_norm_eps,
-        use_flash=jcfg.use_flash,
     )
     model = GPT2LMHeadModel(cfg, device="cpu")
     model.load_state_dict(params_from_jax(jax.device_get(params)))
