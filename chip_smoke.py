@@ -6,15 +6,23 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
   1. probe   — require CUDA; print the card's name and power limit.
-  2. build   — compile every CUDA kernel of the slice from csrc/ (one nvcc
-               per source, all started together) and print the seconds.
+  2. build   — compile every CUDA kernel of both slices from csrc/ (one
+               nvcc per source, all started together) and print the
+               seconds.
   3. kernels — each kernel against its plain PyTorch version on the same
                inputs, float32 and bfloat16, at the serving path's shapes
                (plus a key-mask case, a fully masked row, a dead slot and
                a NULL page mid-table), with the tolerances below; then
                each kernel's time beside its plain version's, one PyTorch
                library call's where there is one, and its bound.
-  4. slice   — init_inference on GPT-2 small (random weights from --seed,
+     3b. training kernels — at GPT-2 small's training shape (B=8, H=12,
+               S=1024, D=64, causal): the forward with dropout, dQ and
+               dK/dV with and without a padding mask and dropout, in
+               f32, bf16 and fp16, and LAMB phase 1 over GPT-2 small's
+               real parameters (f32, bf16 and fp16 grads; FusedLamb's
+               trust ratios against the plain Lamb's). Then their times, bounds and library yardsticks
+               (SDPA forward and backward, timed only).
+  4. serve   — init_inference on GPT-2 small (random weights from --seed,
                bf16, paged KV, fused decode): 4 mixed-length prompts and
                a 5th that hits the prefix cache, 32 new tokens each. Both
                kernels' launch counters must move on this run (flash >= 12
@@ -24,18 +32,41 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                token must match the model's full forward on the prompt.
                Last, torch.profiler over a warm bf16 run: device time by
                kernel and the device's idle share.
-  5. report  — a JSON line of per-kernel numbers, the nvidia-smi line,
+  5. train   — deepspeed_tpu_torch.initialize() on GPT-2 small at full
+               width and depth (seq 1024, bf16, dropout 0.1, micro-batch
+               8, accumulation 2, clipping 1.0, WarmupLR): 8 train_batch
+               windows of Adam on one fixed batch from --seed (the loss
+               must be finite and fall, no step skipped, and flash_fwd,
+               flash_bwd_dq and flash_bwd_dkv each launched exactly 12
+               times per micro-step), then 3 windows of FusedLamb (6 LAMB
+               launches per step, trust ratios finite and inside
+               [min_coeff, max_coeff]), 3 windows of Adam in real float16
+               with dynamic loss scaling (a skip allowed, a step taken),
+               then one float32 micro-step at
+               dropout 0 whose gradients through the kernels must match
+               the gradients through the plain versions; step time,
+               tokens/s, peak memory and a torch.profiler window.
+  6. report  — a JSON line of per-kernel numbers, the nvidia-smi line,
                then the last line {"ok": true, "device": {...}}.
 
 Tolerances: float32 kernel vs plain atol = rtol = 1e-4 (same float32
 arithmetic in another summation order; observed errors sit near 1e-6);
 bfloat16 atol = rtol = 1e-2 (both round p and the output to bfloat16, at
 different points of the online softmax: one bf16 ulp of an output in
-[1, 2) is 7.8e-3, and rtol 1e-2 covers one ulp at any magnitude).
+[1, 2) is 7.8e-3, and rtol 1e-2 covers one ulp at any magnitude);
+float16 atol = rtol = 2e-3 (the same reasoning, at float16's 2**-10). The
+backward kernels' gradients are held with atol = tol * max|plain| (the
+tolerance relative to the tensor's own scale: dQ, dK and dV at this
+shape are ~1e-2, where an absolute 1e-2 would pass anything). LAMB: the
+moments and u to rtol 1e-5 (the kernel rounds as PyTorch does; u may
+differ by an ulp), the block partials and trust ratios to rtol 1e-5
+(float32 sums in another order). Whole-model float32 gradients, kernels
+vs plain: max|diff| <= 1e-4 * max|plain| per parameter.
 """
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -47,11 +78,19 @@ PEAK_FLOPS = {  # dense, H100 SXM at 700 W (NVIDIA data sheet)
     torch.bfloat16: 989e12,  # tensor cores
     torch.float32: 67e12,    # outside the tensor cores
 }
-TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2, torch.float16: 2e-3}
+LAMB_RTOL = 1e-5
 N_LAYER = 12
+TRAIN_SHAPE = (8, 12, 1024, 64)  # B, H, S, D: GPT-2 small, micro-batch 8
+DROPOUT = 0.1
 FLASH_SOURCE = "deepspeed_tpu_torch/csrc/flash_fwd.cu"
+BWD_SOURCE = "deepspeed_tpu_torch/csrc/flash_bwd.cu"
+LAMB_SOURCE = "deepspeed_tpu_torch/csrc/lamb_phase1.cu"
 DECODE_SOURCE = "deepspeed_tpu_torch/csrc/paged_decode.cu"
 FLASH_TPU = "deepspeed_tpu/ops/attention.py:140"
+DQ_TPU = "deepspeed_tpu/ops/attention.py:210"
+DKV_TPU = "deepspeed_tpu/ops/attention.py:262"
+LAMB_TPU = "deepspeed_tpu/ops/pallas.py:67"
 DECODE_TPU = "deepspeed_tpu/ops/decode_attention.py:66"
 
 
@@ -101,11 +140,15 @@ def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
-def check_close(name, got, want, dtype):
+def check_close(name, got, want, dtype, scaled=False):
+    """``got`` against ``want`` at TOL[dtype]; with ``scaled`` the absolute
+    tolerance is TOL times ``want``'s largest magnitude."""
     tol = TOL[dtype]
+    atol = tol * float(want.float().abs().max()) if scaled else tol
     err = max_err(got, want)
-    ok = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
-    log(f"  {name}: max_abs_err {err:.3e} (tol {tol:g}) {'ok' if ok else 'MISMATCH'}")
+    ok = torch.allclose(got.float(), want.float(), atol=atol, rtol=tol)
+    log(f"  {name}: max_abs_err {err:.3e} (atol {atol:.3g}, rtol {tol:g}) "
+        f"{'ok' if ok else 'MISMATCH'}")
     if not ok:
         fail(f"{name} disagrees with its plain version")
     return err
@@ -130,23 +173,36 @@ def flash_cases(device, gen):
     ]
 
 
-def flash_work(q, kv_mask, causal):
-    """Bytes and flops the function needs on these inputs: q, k, v (and
-    the mask) read once, out and lse written once; 4*D flops per visible
-    (query, key) pair."""
-    b, h, sq, d = q.shape
-    sk = sq
-    es = q.element_size()
-    nbytes = (4 * b * h * sq * d) * es + b * h * sq * 4
-    i = torch.arange(sq, device=q.device)[:, None]
-    j = torch.arange(sk, device=q.device)[None, :]
-    vis = (j <= i) if causal else torch.ones(sq, sk, dtype=torch.bool, device=q.device)
+def visible_pairs(q, kv_mask, causal):
+    """The (query, key) pairs that attend, over every batch row and head
+    (self-attention, Sq == Sk)."""
+    b, h, s, _ = q.shape
+    i = torch.arange(s, device=q.device)[:, None]
+    j = torch.arange(s, device=q.device)[None, :]
+    vis = (j <= i) if causal else torch.ones(s, s, dtype=torch.bool, device=q.device)
+    if kv_mask is not None:
+        return int((vis[None] & (kv_mask[:, None, :] != 0)).sum()) * h
+    return int(vis.sum()) * b * h
+
+
+def flash_work(q, kv_mask, causal, which="fwd"):
+    """Bytes and flops the function needs on these inputs, each input read
+    once and each output written once. fwd: q, k, v in, out and lse out;
+    4*D flops per visible pair (q k^T, p v). dq: q, k, v, dO, lse, delta
+    in, dQ out; 6*D flops a pair (s, dp, dQ). dkv: the same inputs, dK and
+    dV out; 8*D flops a pair (s, dp, dK, dV). The dropout hash is not
+    counted."""
+    b, h, s, d = q.shape
+    tensor = b * h * s * d * q.element_size()
+    rows = b * h * s * 4
+    nbytes, per_pair = {
+        "fwd": (4 * tensor + rows, 4 * d),
+        "dq": (5 * tensor + 2 * rows, 6 * d),
+        "dkv": (6 * tensor + 2 * rows, 8 * d),
+    }[which]
     if kv_mask is not None:
         nbytes += kv_mask.numel() * 4
-        pairs = int((vis[None] & (kv_mask[:, None, :] != 0)).sum()) * h
-    else:
-        pairs = int(vis.sum()) * b * h
-    return nbytes, 4 * d * pairs
+    return nbytes, per_pair * visible_pairs(q, kv_mask, causal)
 
 
 def decode_case(device, gen, dtype):
@@ -264,6 +320,261 @@ def phase_kernels(device, seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: the training kernels vs plain
+# ---------------------------------------------------------------------------
+def train_mask(device):
+    """A padding mask for the 8 training rows: full, ragged and one dead
+    row (index 2)."""
+    b, _, s, _ = TRAIN_SHAPE
+    mask = torch.zeros(b, s, dtype=torch.int32, device=device)
+    for row, n in enumerate((1024, 700, 0, 1000, 513, 1024, 64, 900)):
+        mask[row, :n] = 1
+    return mask
+
+
+def check_flash_training(device, gen):
+    """flash_fwd, flash_bwd_dq and flash_bwd_dkv against their plain
+    versions at the training shape, causal, with and without the padding
+    mask and dropout, float32 and bfloat16. The backward kernels take the
+    plain forward's out and lse, so both versions see the same inputs.
+    Returns the max errors by (kernel, dtype, case)."""
+    from deepspeed_tpu_torch.ops import attention as A
+
+    b, h, s, d = TRAIN_SHAPE
+    mask = train_mask(device)
+    base = [torch.randn(b, h, s, d, device=device, generator=gen)
+            for _ in range(4)]
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        q, k, v, dout = (t.to(dtype) for t in base)
+        for kv_mask in (None, mask):
+            for rate in (0.0, DROPOUT):
+                case = (("mask" if kv_mask is not None else "causal")
+                        + ("+dropout" if rate else ""))
+                tag = f"{str(dtype)[6:]} {case}"
+                args = (q, k, v, kv_mask, True, None, rate, 4321)
+                out, lse = A.flash_fwd(*args)
+                torch.cuda.synchronize()
+                ref, ref_lse = A.flash_fwd_plain(*args)
+                errs[("flash_fwd", dtype, case)] = check_close(
+                    f"flash_fwd {tag}", out, ref, dtype)
+                rows = ref_lse > -1e29
+                check_close(f"flash_fwd {tag} lse", lse[rows], ref_lse[rows],
+                            torch.float32)
+                delta = (dout.float() * ref.float()).sum(dim=-1)
+                bargs = (q, k, v, kv_mask, dout, ref_lse, delta, True, None,
+                         rate, 4321)
+                dq = A.flash_bwd_dq(*bargs)
+                dk, dv = A.flash_bwd_dkv(*bargs)
+                torch.cuda.synchronize()
+                want = (A.flash_bwd_dq_plain(*bargs),
+                        *A.flash_bwd_dkv_plain(*bargs))
+                for name, got, ref_g in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                            want):
+                    kernel = "flash_bwd_dq" if name == "dq" else "flash_bwd_dkv"
+                    err = check_close(f"{kernel} {name} {tag}", got, ref_g,
+                                      dtype, scaled=True)
+                    key = (kernel, dtype, case)
+                    errs[key] = max(errs.get(key, 0.0), err)
+                    if kv_mask is not None and not bool((got[2] == 0).all()):
+                        fail(f"{kernel} {name} {tag}: the dead row's "
+                             "gradient is not exact zeros")
+                del out, lse, ref, ref_lse, delta, dq, dk, dv, want
+    return errs
+
+
+def check_lamb(device, gen, seed):
+    """LAMB phase 1 over GPT-2 small's parameters (all 148 tensors in one
+    launch) against its plain version, float32 and bfloat16 grads; then
+    one FusedLamb step (6 launches) against the plain Lamb on the same
+    state. Returns (max relative partial error, max relative trust-ratio
+    error, the timing operands)."""
+    from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
+    from deepspeed_tpu_torch.ops.fused_lamb import (
+        FusedLamb, lamb_phase1, lamb_phase1_plain,
+    )
+    from deepspeed_tpu_torch.ops.optimizers import (
+        Lamb, bias_corrections, param_groups,
+    )
+
+    model = GPT2LMHeadModel(GPT2Config.small(), device=device, seed=seed)
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    names = [n for grp in param_groups(params).values() for n in grp]
+    ps = [params[n] for n in names]
+
+    def noise(scale):
+        return [torch.randn(p.shape, device=device, generator=gen) * scale
+                for p in ps]
+
+    g32, m0 = noise(1e-3), noise(1e-4)
+    v0 = [x * x for x in noise(1e-3)]
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01,
+              eps_inside_sqrt=False)
+    c1, c2 = bias_corrections(0.9, 0.999, 3)
+
+    def rel(got, want):
+        return float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+
+    worst_partial = 0.0
+    for gdtype in (torch.float32, torch.bfloat16, torch.float16):
+        gs = [g.to(gdtype) for g in g32]
+        runs = []
+        for fn in (lamb_phase1, lamb_phase1_plain):
+            ms, vs = [m.clone() for m in m0], [v.clone() for v in v0]
+            us = [torch.empty_like(p) for p in ps]
+            wsq, usq = fn(ps, gs, ms, vs, us, c1, c2, 0.5, **kw)
+            torch.cuda.synchronize()
+            runs.append((wsq, usq, ms, vs, us))
+        tag = f"lamb_phase1 {str(gdtype)[6:]} grads"
+        for what, i in (("m", 2), ("v", 3), ("u", 4)):
+            for got, want in zip(runs[0][i], runs[1][i]):
+                scale = float(want.abs().max())
+                if not torch.allclose(got, want, rtol=LAMB_RTOL,
+                                      atol=LAMB_RTOL * scale):
+                    fail(f"{tag}: {what} disagrees with the plain version "
+                         f"(max abs err {max_err(got, want):.3e})")
+        for what, i in (("sum p^2", 0), ("sum u^2", 1)):
+            err = rel(runs[0][i], runs[1][i])
+            worst_partial = max(worst_partial, err)
+            log(f"  {tag} block partials {what}: max rel err {err:.3e} "
+                f"(tol {LAMB_RTOL:g}) {'ok' if err <= LAMB_RTOL else 'MISMATCH'}")
+            if err > LAMB_RTOL:
+                fail(f"{tag}: the block partials disagree")
+
+    # one FusedLamb step (the kernel) against the plain Lamb
+    grads = dict(zip(names, g32))
+    steps = []
+    for opt in (FusedLamb(weight_decay=0.01), Lamb(weight_decay=0.01)):
+        ps_ = {n: p.clone() for n, p in params.items()}
+        state = opt.init(ps_)
+        for n, m, v in zip(names, m0, v0):
+            state["mu"][n].copy_(m)
+            state["nu"][n].copy_(v)
+        before = lamb_phase1.launches
+        aux = opt.apply(ps_, grads, state, 1e-3, grad_scale=0.5)
+        torch.cuda.synchronize()
+        steps.append((torch.stack(aux["lamb_coeffs"]), ps_,
+                      lamb_phase1.launches - before))
+    (fused, p_fused, n_fused), (plain, p_plain, _) = steps
+    if n_fused != 6:
+        fail(f"FusedLamb launched lamb_phase1 {n_fused} times for GPT-2 "
+             "small, expected 6 (5 large groups + 1 packed launch)")
+    ratio_err = rel(fused, plain)
+    log(f"  FusedLamb vs Lamb trust ratios ({len(fused)} groups): max rel "
+        f"err {ratio_err:.3e} (tol {LAMB_RTOL:g})")
+    if ratio_err > LAMB_RTOL:
+        fail("FusedLamb's trust ratios disagree with the plain Lamb's")
+    for n in names:
+        scale = float(p_plain[n].abs().max())
+        if not torch.allclose(p_fused[n], p_plain[n], rtol=LAMB_RTOL,
+                              atol=LAMB_RTOL * scale):
+            fail(f"FusedLamb's update of {n} disagrees with the plain Lamb's")
+    return worst_partial, ratio_err, (ps, g32, m0, v0, c1, c2, kw)
+
+
+def phase_train_kernels(device, seed, report):
+    """Phase 3b; adds the training kernels' entries to ``report`` and
+    moves the serving shape's flash_fwd numbers under ``serve``."""
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops import attention as A
+    from deepspeed_tpu_torch.ops.fused_lamb import (
+        lamb_phase1, lamb_phase1_plain,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    timer = Timer(device)
+    log("phase 3b: flash forward (dropout) and backward vs plain")
+    errs = check_flash_training(device, gen)
+    log("phase 3b: lamb_phase1 vs plain")
+    lamb_err, ratio_err, lamb_ops = check_lamb(device, gen, seed)
+
+    log("phase 3b: timing at the training shape (bf16, causal, dropout 0.1)")
+    b, h, s, d = TRAIN_SHAPE
+    q, k, v, dout = (torch.randn(b, h, s, d, device=device, generator=gen)
+                     .to(torch.bfloat16) for _ in range(4))
+    fargs = (q, k, v, None, True, None, DROPOUT, 7)
+    out, lse = A.flash_fwd(*fargs)
+    delta = (dout.float() * out.float()).sum(dim=-1)
+    bargs = (q, k, v, None, dout, lse, delta, True, None, DROPOUT, 7)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                              dropout_p=DROPOUT)
+    sdpa_bwd_ms = timer.ms(lambda: torch.autograd.grad(
+        sdpa_out, (qg, kg, vg), dout, retain_graph=True))
+    shape = "B=8 H=12 S=1024 D=64 causal dropout 0.1 bf16"
+    bf, f32 = torch.bfloat16, torch.float32
+    entries = {
+        "flash_fwd": (FLASH_SOURCE, FLASH_TPU, "fwd", A.flash_fwd,
+                      A.flash_fwd_plain, fargs,
+                      timer.ms(lambda: F.scaled_dot_product_attention(
+                          q, k, v, is_causal=True, dropout_p=DROPOUT)),
+                      "scaled_dot_product_attention forward, dropout 0.1"),
+        "flash_bwd_dq": (BWD_SOURCE, DQ_TPU, "dq", A.flash_bwd_dq,
+                         A.flash_bwd_dq_plain, bargs, sdpa_bwd_ms,
+                         "scaled_dot_product_attention backward (dQ, dK "
+                         "and dV together), dropout 0.1"),
+        "flash_bwd_dkv": (BWD_SOURCE, DKV_TPU, "dkv", A.flash_bwd_dkv,
+                          A.flash_bwd_dkv_plain, bargs, sdpa_bwd_ms,
+                          "scaled_dot_product_attention backward (dQ, dK "
+                          "and dV together), dropout 0.1"),
+    }
+    serve = report.pop("flash_fwd")
+    for name, (src, tpu, which, fn, plain, args, lib_ms, lib) in entries.items():
+        nbytes, flops = flash_work(q, None, True, which)
+        b_ms, b_by = bound(nbytes, flops, bf)
+        report[name] = dict(
+            name=name, route="cuda", source=src, replaces=tpu,
+            tpu_kernel=tpu, shape=shape,
+            max_abs_err=max(errs[(name, bf, c)] for c in
+                            ("causal", "mask", "causal+dropout",
+                             "mask+dropout")),
+            max_abs_err_f32=max(errs[(name, f32, c)] for c in
+                                ("causal", "mask", "causal+dropout",
+                                 "mask+dropout")),
+            max_abs_err_f16=max(errs[(name, torch.float16, c)] for c in
+                                ("causal", "mask", "causal+dropout",
+                                 "mask+dropout")),
+            ms=timer.ms(lambda: fn(*args)),
+            plain_ms=timer.ms(lambda: plain(*args), iters=5, warmup=1),
+            library_ms=lib_ms, library=lib,
+            bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
+            bound_flops=flops,
+        )
+    report["flash_fwd"]["serve"] = {
+        key: serve[key] for key in ("shape", "max_abs_err", "max_abs_err_f32",
+                                    "ms", "plain_ms", "library_ms",
+                                    "bound_ms", "bound_by")
+    }
+
+    # LAMB phase 1 over every GPT-2 small parameter in one launch (the
+    # step's 6 launches together), float32 grads
+    ps, g32, m0, v0, c1, c2, kw = lamb_ops
+    ms, vs = [m.clone() for m in m0], [v.clone() for v in v0]
+    us = [torch.empty_like(p) for p in ps]
+    largs = (ps, g32, ms, vs, us, c1, c2, 0.5)
+    n = sum(p.numel() for p in ps)
+    nblocks = sum(max(1, -(-p.numel() // 4096)) for p in ps)
+    # p, g, m, v read; m, v, u written (4 bytes each); two partials a block
+    nbytes = n * 7 * 4 + nblocks * 8
+    b_ms, b_by = bound(nbytes, 16 * n, f32)
+    report["lamb_phase1"] = dict(
+        name="lamb_phase1", route="cuda", source=LAMB_SOURCE,
+        replaces=LAMB_TPU, tpu_kernel=LAMB_TPU,
+        shape=f"GPT-2 small's {len(ps)} tensors ({n} float32 elements) in "
+              "one launch, float32 grads",
+        max_abs_err=lamb_err, max_abs_err_kind="max relative error of the "
+        "block partials", trust_ratio_max_rel_err=ratio_err,
+        ms=timer.ms(lambda: lamb_phase1(*largs, **kw)),
+        plain_ms=timer.ms(lambda: lamb_phase1_plain(*largs, **kw), iters=5,
+                          warmup=1),
+        library_ms=None, library=None,
+        bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes, bound_flops=16 * n,
+    )
+    return report
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the serving slice
 # ---------------------------------------------------------------------------
 def prompts_for(seed, vocab):
@@ -318,7 +629,6 @@ def phase_profile(model, prompts):
     time by kernel, and the device's idle share of the profiled wall time
     (the profiler's own host overhead inflates that wall time)."""
     import deepspeed_tpu_torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     engine = deepspeed_tpu_torch.init_inference(
@@ -336,6 +646,23 @@ def phase_profile(model, prompts):
             wall_ms = (time.monotonic() - t0) * 1e3
     finally:
         engine.close()
+    return device_breakdown(prof, wall_ms)
+
+
+# kernel-name fragments of the port's own kernels and of cuBLAS's GEMMs
+OWN_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+               "flash_bwd_dkv_kernel", "paged_decode_kernel",
+               "lamb_phase1_kernel")
+GEMM_KERNELS = ("gemm", "nvjet", "cutlass", "xmma")
+
+
+def device_breakdown(prof, wall_ms):
+    """Device time by kernel in a torch.profiler window, the same summed
+    over the port's kernels, cuBLAS's GEMMs and everything else, and the
+    device's idle share of the window's wall time (the profiler's own
+    host overhead inflates that wall time)."""
+    from torch.autograd import DeviceType
+
     # device-side kernel events only (the host ops' rows repeat the time
     # of the kernels they launched)
     device = sorted(
@@ -345,10 +672,19 @@ def phase_profile(model, prompts):
         key=lambda kv: -kv[1],
     )
     busy_ms = sum(ms for _, ms, _ in device)
+    by_class = {"port_kernels": 0.0, "gemm": 0.0, "other": 0.0}
+    for name, ms, _ in device:
+        if any(k in name for k in OWN_KERNELS):
+            by_class["port_kernels"] += ms
+        elif any(k in name.lower() for k in GEMM_KERNELS):
+            by_class["gemm"] += ms
+        else:
+            by_class["other"] += ms
     return {
         "wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
+        "device_ms_by_class": by_class,
         "top_device_ms": [
             {"name": name[:80], "ms": ms, "calls": n}
             for name, ms, n in device[:8]
@@ -431,6 +767,223 @@ def phase_slice(seed, card):
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the training slice
+# ---------------------------------------------------------------------------
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def launch_counters():
+    from deepspeed_tpu_torch.ops import attention as A
+    from deepspeed_tpu_torch.ops.fused_lamb import lamb_phase1
+
+    return {"flash_fwd": A.flash_fwd, "flash_bwd_dq": A.flash_bwd_dq,
+            "flash_bwd_dkv": A.flash_bwd_dkv, "lamb_phase1": lamb_phase1}
+
+
+def zero_launches():
+    for fn in launch_counters().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in launch_counters().items()}
+
+
+def train_config(optimizer, lr, precision):
+    """GPT-2 small's training config: 16 sequences a step as 2 micro-batches
+    of 8, ``precision`` (the bf16 or fp16 block), clipping 1.0, WarmupLR to
+    ``lr`` over 4 steps."""
+    return {
+        "train_batch_size": 16,
+        "train_micro_batch_size_per_gpu": 8,
+        "gradient_accumulation_steps": 2,
+        **precision,
+        "gradient_clipping": 1.0,
+        "optimizer": {"type": optimizer, "params": {"lr": lr}},
+        "scheduler": {"type": "WarmupLR", "params": {
+            "warmup_min_lr": 0.0, "warmup_max_lr": lr,
+            "warmup_num_steps": 4}},
+        "steps_per_print": 1000,
+    }
+
+
+def train_batches(seed, vocab):
+    """One fixed batch of 16 x 1024 token ids from ``seed``, as the two
+    micro-batches (input_ids, labels) of a window; the labels are the ids
+    (the model shifts them)."""
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, vocab, (16, 1024), generator=g).cuda()
+    return [(ids[:8], ids[:8]), (ids[8:], ids[8:])]
+
+
+def run_windows(engine, micro, n):
+    """``n`` train_batch windows; their mean losses and wall seconds."""
+    losses, secs = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        loss = float(engine.train_batch(iter(micro)))
+        torch.cuda.synchronize()
+        secs.append(time.monotonic() - t0)
+        losses.append(loss)
+    return losses, secs
+
+
+def check_launches(path, got, micro_steps, lamb_steps=0):
+    want = {name: N_LAYER * micro_steps for name in TRAIN_KERNELS}
+    want["lamb_phase1"] = 6 * lamb_steps
+    log(f"  launches {got} (want {want})")
+    if got != want:
+        fail(f"{path}: kernel launches {got} differ from {want}")
+
+
+BF16 = {"bf16": {"enabled": True}}
+
+
+def train_gpt2(seed, optimizer, lr, windows, precision=BF16):
+    """initialize() on GPT-2 small and ``windows`` train_batch windows;
+    returns the engine, the launches, the losses and the window times.
+    Fails unless every loss is finite and, without a loss scale (bf16),
+    no step was skipped; with one (fp16), unless at least one step was
+    taken."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
+
+    cfg = GPT2Config.small(dropout=DROPOUT)
+    micro = train_batches(seed, cfg.vocab_size)
+    model = GPT2LMHeadModel(cfg, device="cuda", seed=seed)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=model, config_params=train_config(optimizer, lr, precision)
+    )
+    zero_launches()
+    losses, secs = run_windows(engine, micro, windows)
+    launches = read_launches()
+    log(f"  losses {losses}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{optimizer}: a window's loss is not finite")
+    skips_ok = engine.loss_scale_state.dynamic
+    if (engine.global_steps + engine.skipped_steps != windows
+            or engine.global_steps < 1
+            or (engine.skipped_steps and not skips_ok)):
+        fail(f"{optimizer}: {engine.skipped_steps} skipped steps, "
+             f"{engine.global_steps} taken of {windows}")
+    return engine, micro, launches, losses, secs
+
+
+def grads_kernels_vs_plain(seed):
+    """One float32 micro-step of GPT-2 small at dropout 0: the gradients
+    through the kernels against the gradients through the plain versions
+    of the three attention kernels on the card. Returns the launches of
+    the kernel run and the worst max|diff| / max|plain| over the
+    parameters."""
+    from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
+    from deepspeed_tpu_torch.ops import attention as A
+
+    model = GPT2LMHeadModel(GPT2Config.small(dropout=0.0), device="cuda",
+                            seed=seed)
+    ids = train_batches(seed, model.config.vocab_size)[0][0]
+    params = list(model.parameters())
+
+    def grads():
+        loss = model(ids, ids, train=True)
+        return torch.autograd.grad(loss, params), float(loss.detach())
+
+    zero_launches()
+    (got, loss_k) = grads()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    kernels = (A.flash_fwd, A.flash_bwd_dq, A.flash_bwd_dkv)
+    A.flash_fwd, A.flash_bwd_dq, A.flash_bwd_dkv = (
+        A.flash_fwd_plain, A.flash_bwd_dq_plain, A.flash_bwd_dkv_plain)
+    try:
+        (want, loss_p) = grads()
+    finally:
+        A.flash_fwd, A.flash_bwd_dq, A.flash_bwd_dkv = kernels
+    worst = max(float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+                for g, w in zip(got, want))
+    log(f"  loss kernels {loss_k} plain {loss_p}; gradients max|diff| / "
+        f"max|plain| {worst:.3e} (tol {TOL[torch.float32]:g})")
+    if worst > TOL[torch.float32]:
+        fail("float32 gradients through the kernels disagree with the "
+             "plain versions'")
+    return launches, worst
+
+
+def phase_train(seed, card):
+    from torch.profiler import ProfilerActivity, profile
+
+    log("phase 5: GPT-2 small, Adam, bf16, dropout 0.1, 8 windows")
+    torch.cuda.reset_peak_memory_stats()
+    engine, micro, adam, losses, secs = train_gpt2(seed, "Adam", 1e-4, 8)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    check_launches("Adam", adam, engine.micro_steps)
+    if not losses[-1] < losses[0]:
+        fail(f"Adam: the loss did not fall ({losses[0]} -> {losses[-1]})")
+    warm = sorted(secs[1:])
+    step_s = warm[len(warm) // 2]
+    tok_s = 16 * 1024 / step_s
+    log(f"  step (window of 2 micro-batches of 8 x 1024) median "
+        f"{step_s * 1e3:.3f} ms over {len(warm)} warm windows, {tok_s:.1f} "
+        f"tokens/s, peak memory {peak_gb:.3f} GiB on {card}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        engine.train_batch(iter(micro))
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    train_prof = device_breakdown(prof, wall_ms)
+    log(json.dumps({"train_profile": train_prof}))
+    del engine, micro, prof
+    torch.cuda.empty_cache()
+
+    log("phase 5: GPT-2 small, FusedLamb, 3 windows")
+    engine, _, lamb, lamb_losses, _ = train_gpt2(seed, "FusedLamb", 1e-3, 3)
+    check_launches("FusedLamb", lamb, engine.micro_steps, engine.global_steps)
+    opt = engine.optimizer_obj
+    coeffs = engine.lamb_coeffs
+    log(f"  lamb_coeffs {coeffs.tolist()}")
+    if (len(coeffs) != 16 or not bool(torch.isfinite(coeffs).all())
+            or float(coeffs.min()) < opt.min_coeff
+            or float(coeffs.max()) > opt.max_coeff):
+        fail(f"FusedLamb: lamb_coeffs outside [{opt.min_coeff}, "
+             f"{opt.max_coeff}] or not one per group")
+    del engine
+    torch.cuda.empty_cache()
+
+    log("phase 5: GPT-2 small, Adam, real float16, loss scale from 2**16")
+    fp16 = {"fp16": {"enabled": True, "initial_scale_power": 16}}
+    engine, _, half, half_losses, _ = train_gpt2(seed, "Adam", 1e-4, 3, fp16)
+    check_launches("fp16", half, engine.micro_steps)
+    half_scale = engine.loss_scale_state.loss_scale
+    half_skipped = engine.skipped_steps
+    log(f"  loss scale {half_scale}, {half_skipped} skipped")
+    del engine
+    torch.cuda.empty_cache()
+
+    log("phase 5: one float32 micro-step, kernels vs plain")
+    f32_launches, grad_err = grads_kernels_vs_plain(seed)
+    check_launches("float32 micro-step", f32_launches, 1)
+
+    launches = {name: {"train_adam": adam[name], "train_fusedlamb": lamb[name],
+                       "train_fp16": half[name]}
+                for name in launch_counters()}
+    return launches, {
+        "adam_losses": losses,
+        "adam_window_s": secs,
+        "step_ms": step_s * 1e3,
+        "tokens_per_s": tok_s,
+        "peak_memory_gib": peak_gb,
+        "fusedlamb_losses": lamb_losses,
+        "fp16_losses": half_losses,
+        "fp16_loss_scale": half_scale,
+        "fp16_skipped_steps": half_skipped,
+        "lamb_coeffs": coeffs.tolist(),
+        "f32_grad_max_rel_err": grad_err,
+        "profile_device_idle_share": train_prof["device_idle_share"],
+        "profile_device_ms_by_class": train_prof["device_ms_by_class"],
+    }
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -464,17 +1017,21 @@ def main():
                 log(f"    {line.strip()}")
 
     kernels = phase_kernels(device, args.seed)
-    launches, slice_stats = phase_slice(args.seed, smi)
-    for name, n in launches.items():
-        kernels[name]["launches"] = n
-        kernels[name]["kernel_ms"] = kernels[name]["ms"]
+    phase_train_kernels(device, args.seed, kernels)
+    serve_launches, slice_stats = phase_slice(args.seed, smi)
+    launches, train_stats = phase_train(args.seed, smi)
+    launches["flash_fwd"]["serve"] = serve_launches["flash_fwd"]
+    launches["paged_decode"] = {"serve": serve_launches["paged_decode"]}
+    for name, by_path in launches.items():
+        kernels[name]["launches"] = sum(by_path.values())
+        kernels[name]["launches_by_path"] = by_path
     kernels["flash_fwd"]["launches_per_cold_prefill"] = (
-        launches["flash_fwd"] / slice_stats["cold_prefills"]
+        serve_launches["flash_fwd"] / slice_stats["cold_prefills"]
     )
     kernels["paged_decode"]["launches_per_decode_step"] = (
-        launches["paged_decode"] / slice_stats["decode_steps"]
+        serve_launches["paged_decode"] / slice_stats["decode_steps"]
     )
-    log(json.dumps({"slice": slice_stats, "card": smi}))
+    log(json.dumps({"slice": slice_stats, "train": train_stats, "card": smi}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,12 @@
 
 The JAX package (``deepspeed_tpu``) stays the reference; this package
 ports it slice by slice to PyTorch, with every Pallas kernel on a
-slice's path rewritten by hand in CUDA C++ for Hopper (``csrc/``). This
-slice is GPT-2 serving: ``init_inference`` over the paged KV cache with
-the prefix cache and fused decode attention. The package imports
-``torch`` and never ``jax`` or ``deepspeed_tpu``.
+slice's path rewritten by hand in CUDA C++ for Hopper (``csrc/``). Two
+slices are ported: GPT-2 serving (``init_inference`` over the paged KV
+cache with the prefix cache and fused decode attention) and single-device
+training (``initialize``: the engine, Adam/LAMB/FusedLamb, loss scaling,
+LR schedules, flash attention's backward and dropout). The package
+imports ``torch`` and never ``jax`` or ``deepspeed_tpu``.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``,
 which runs each kernel's plain PyTorch version instead.
@@ -15,13 +17,40 @@ from .config.config import DeepSpeedConfig, DeepSpeedConfigError
 from .convert import params_from_jax
 from .inference.engine import InferenceEngine, init_inference
 from .models.gpt2 import GPT2Config, GPT2LMHeadModel
+from .runtime.engine import DeepSpeedEngine, EngineOptimizerFacade
+
+
+def initialize(args=None, model=None, optimizer=None, model_parameters=None,
+               training_data=None, lr_scheduler=None, config_params=None,
+               mesh=None, rng_seed=0, device=None):
+    """Build a training engine; returns the reference's 4-tuple
+    ``(engine, optimizer, training_dataloader, lr_scheduler)``.
+
+    ``model`` is a ``torch.nn.Module`` whose ``forward(*batch)`` returns
+    the scalar loss (``GPT2LMHeadModel(input_ids, labels)``);
+    ``model_parameters`` is None or a state dict to load into it;
+    ``config_params`` a config dict or JSON path (or ``args.
+    deepspeed_config``). ``device`` defaults to ``"cuda"`` and raises
+    without a GPU. The dataloader is not ported, so the third element
+    is None."""
+    engine = DeepSpeedEngine(
+        model=model, optimizer=optimizer, model_parameters=model_parameters,
+        training_data=training_data, lr_scheduler=lr_scheduler,
+        config_params=config_params, mesh=mesh, rng_seed=rng_seed,
+        device=device, args=args,
+    )
+    return engine, EngineOptimizerFacade(engine), None, engine.lr_scheduler
+
 
 __all__ = [
     "DeepSpeedConfig",
     "DeepSpeedConfigError",
+    "DeepSpeedEngine",
+    "EngineOptimizerFacade",
     "GPT2Config",
     "GPT2LMHeadModel",
     "InferenceEngine",
     "init_inference",
+    "initialize",
     "params_from_jax",
 ]

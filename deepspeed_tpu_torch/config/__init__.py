@@ -1,5 +1,5 @@
-"""Config system: the inference block (ported) of the JAX package's
-DeepSpeedConfig."""
+"""Config system: the inference and training blocks (ported) of the JAX
+package's DeepSpeedConfig."""
 
 from .config import DeepSpeedConfig, DeepSpeedConfigError
 from .config_utils import load_config_json, loads_config_json

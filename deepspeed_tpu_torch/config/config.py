@@ -1,12 +1,15 @@
-"""Inference-config parser for the port (the serving slice).
+"""Config parser for the port: the serving and training blocks.
 
-The ``inference`` block of the JAX package's DeepSpeedConfig
-(deepspeed_tpu/config/config.py), with the same keys, defaults and
-rejections: a config the JAX engine refuses, this one refuses too. The
-training blocks (batch triangle, optimizer, ZeRO, ...) wait for the
-training slice; their keys are ignored here. ``world_size`` defaults to
-the initialised ``torch.distributed`` world size (1 without a group),
-where the JAX package read ``jax.device_count()``.
+The ``inference`` block and the training blocks (the batch triangle,
+``optimizer``, ``scheduler``, ``fp16``/``bf16``, ``gradient_clipping``,
+``zero_optimization``, ``steps_per_print``, ``data_types``) of the JAX
+package's DeepSpeedConfig (deepspeed_tpu/config/config.py), with the same
+keys, defaults and rejections: a config the JAX package refuses, this
+one refuses too. The batch triangle is resolved only for a training
+config (``training=True``, as ``initialize()`` builds it): an inference
+config names no batch size. ``world_size`` defaults to the initialised
+``torch.distributed`` world size (1 without a group), where the JAX
+package read ``jax.device_count()``.
 """
 
 from . import constants as C
@@ -15,6 +18,13 @@ from .config_utils import get_dict_param, get_scalar_param, load_config_json
 
 class DeepSpeedConfigError(Exception):
     pass
+
+
+def not_ported(what):
+    """The error for a part of the JAX package the port does not have yet."""
+    return DeepSpeedConfigError(
+        f"{what} is not yet ported to deepspeed_tpu_torch (see ROADMAP.md)"
+    )
 
 
 def _default_world_size():
@@ -26,9 +36,11 @@ def _default_world_size():
 
 
 class DeepSpeedConfig:
-    def __init__(self, config, param_dict=None, world_size=None):
+    def __init__(self, config, param_dict=None, world_size=None,
+                 training=False):
         """``config`` is a JSON path or a dict, or None when ``param_dict``
-        is given."""
+        is given. ``training`` resolves and checks the batch triangle and
+        the training blocks, as ``initialize()`` needs."""
         if param_dict is not None:
             self._param_dict = dict(param_dict)
         elif isinstance(config, dict):
@@ -41,6 +53,9 @@ class DeepSpeedConfig:
             _default_world_size() if world_size is None else int(world_size)
         )
         self._initialize(self._param_dict)
+        if training:
+            self._configure_batch_parameters()
+            self._check_training()
         self._check_inference()
 
     def _initialize(self, pd):
@@ -48,6 +63,7 @@ class DeepSpeedConfig:
             get_dict_param(pd, C.ADAPTERS), C.ADAPTERS_ENABLED,
             C.ADAPTERS_ENABLED_DEFAULT,
         )
+        self._initialize_training(pd)
 
         # inference block (docs/inference.md)
         inf_dict = get_dict_param(pd, C.INFERENCE)
@@ -174,6 +190,241 @@ class DeepSpeedConfig:
             ckpt_dict, C.INFERENCE_CHECKPOINT_TAG,
             C.INFERENCE_CHECKPOINT_TAG_DEFAULT,
         )
+
+    def _initialize_training(self, pd):
+        """The training blocks' keys, as the JAX parser reads them; the
+        data_types values are checked here, as there."""
+        self.train_batch_size = get_scalar_param(
+            pd, C.TRAIN_BATCH_SIZE, C.TRAIN_BATCH_SIZE_DEFAULT
+        )
+        self.train_micro_batch_size_per_gpu = get_scalar_param(
+            pd, C.TRAIN_MICRO_BATCH_SIZE_PER_GPU,
+            C.TRAIN_MICRO_BATCH_SIZE_PER_GPU_DEFAULT,
+        )
+        self.gradient_accumulation_steps = get_scalar_param(
+            pd, C.GRADIENT_ACCUMULATION_STEPS,
+            C.GRADIENT_ACCUMULATION_STEPS_DEFAULT,
+        )
+        self.steps_per_print = get_scalar_param(
+            pd, C.STEPS_PER_PRINT, C.STEPS_PER_PRINT_DEFAULT
+        )
+        self.sparse_gradients_enabled = get_scalar_param(
+            pd, C.SPARSE_GRADIENTS, C.SPARSE_GRADIENTS_DEFAULT
+        )
+        self.gradient_clipping = get_scalar_param(
+            pd, C.GRADIENT_CLIPPING, C.GRADIENT_CLIPPING_DEFAULT
+        )
+
+        # zero_optimization: an object, or the deprecated boolean form
+        # (true => stage 1)
+        raw_zero = pd.get(C.ZERO_OPTIMIZATION)
+        self._zero_keys = frozenset()
+        self.zero_offload_optimizer_device = C.ZERO_OFFLOAD_DEVICE_DEFAULT
+        if isinstance(raw_zero, bool):
+            self.zero_optimization_stage = (
+                C.ZERO_OPTIMIZATION_OPTIMIZER_STATES if raw_zero
+                else C.ZERO_OPTIMIZATION_DISABLED
+            )
+        elif isinstance(raw_zero, dict):
+            self._zero_keys = frozenset(raw_zero)
+            self.zero_optimization_stage = raw_zero.get(
+                C.ZERO_STAGE, C.ZERO_STAGE_DEFAULT
+            )
+            off = raw_zero.get(C.ZERO_OFFLOAD_OPTIMIZER)
+            if off is not None:
+                if not isinstance(off, dict):
+                    raise TypeError(
+                        f"'{C.ZERO_OFFLOAD_OPTIMIZER}' must be an object, "
+                        f"got {type(off).__name__}"
+                    )
+                device = off.get(
+                    C.ZERO_OFFLOAD_DEVICE, C.ZERO_OFFLOAD_DEVICE_DEFAULT
+                )
+                if device not in ("none", "cpu"):
+                    raise ValueError(
+                        f"{C.ZERO_OFFLOAD_OPTIMIZER}.{C.ZERO_OFFLOAD_DEVICE} "
+                        f"must be 'none' or 'cpu', got {device!r}"
+                    )
+                self.zero_offload_optimizer_device = device
+        elif raw_zero is None:
+            self.zero_optimization_stage = C.ZERO_STAGE_DEFAULT
+        else:
+            raise TypeError(
+                f"'{C.ZERO_OPTIMIZATION}' must be a bool or object, got "
+                f"{type(raw_zero).__name__}"
+            )
+        stage = self.zero_optimization_stage
+        self.zero_enabled = (
+            isinstance(stage, int) and not isinstance(stage, bool) and stage > 0
+        )
+
+        fp16_dict = get_dict_param(pd, C.FP16)
+        self.fp16_enabled = get_scalar_param(
+            fp16_dict, C.FP16_ENABLED, C.FP16_ENABLED_DEFAULT
+        )
+        self.loss_scale = get_scalar_param(
+            fp16_dict, C.FP16_LOSS_SCALE, C.FP16_LOSS_SCALE_DEFAULT
+        )
+        self.initial_scale_power = get_scalar_param(
+            fp16_dict, C.FP16_INITIAL_SCALE_POWER,
+            C.FP16_INITIAL_SCALE_POWER_DEFAULT,
+        )
+        self.loss_scale_window = get_scalar_param(
+            fp16_dict, C.FP16_LOSS_SCALE_WINDOW,
+            C.FP16_LOSS_SCALE_WINDOW_DEFAULT,
+        )
+        self.hysteresis = get_scalar_param(
+            fp16_dict, C.FP16_HYSTERESIS, C.FP16_HYSTERESIS_DEFAULT
+        )
+        self.min_loss_scale = get_scalar_param(
+            fp16_dict, C.FP16_MIN_LOSS_SCALE, C.FP16_MIN_LOSS_SCALE_DEFAULT
+        )
+        self.dynamic_loss_scale = self.loss_scale == 0
+        self.bf16_enabled = get_scalar_param(
+            get_dict_param(pd, C.BF16), C.BF16_ENABLED, C.BF16_ENABLED_DEFAULT
+        )
+
+        dt_dict = get_dict_param(pd, C.DATA_TYPES)
+        self.grad_accum_dtype = get_scalar_param(
+            dt_dict, C.GRAD_ACCUM_DTYPE, C.GRAD_ACCUM_DTYPE_DEFAULT
+        )
+        if self.grad_accum_dtype not in ("fp32", "bf16", "fp16"):
+            raise DeepSpeedConfigError(
+                f"{C.GRAD_ACCUM_DTYPE} must be one of fp32/bf16/fp16, got "
+                f"{self.grad_accum_dtype!r}"
+            )
+        self.optimizer_state_dtype = get_scalar_param(
+            dt_dict, C.OPTIMIZER_STATE_DTYPE, C.OPTIMIZER_STATE_DTYPE_DEFAULT
+        )
+        if self.optimizer_state_dtype not in ("fp32", "bf16", "int8"):
+            raise DeepSpeedConfigError(
+                f"{C.OPTIMIZER_STATE_DTYPE} must be one of fp32/bf16/int8, "
+                f"got {self.optimizer_state_dtype!r}"
+            )
+        self.master_dtype = get_scalar_param(
+            dt_dict, C.MASTER_DTYPE, C.MASTER_DTYPE_DEFAULT
+        )
+        if self.master_dtype not in ("fp32", "compensated"):
+            raise DeepSpeedConfigError(
+                f"{C.MASTER_DTYPE} must be 'fp32' or 'compensated', got "
+                f"{self.master_dtype!r}"
+            )
+
+        optimizer_dict = get_dict_param(pd, C.OPTIMIZER)
+        self.optimizer_name = optimizer_dict.get(C.TYPE)
+        if isinstance(self.optimizer_name, str):
+            self.optimizer_name = self.optimizer_name.lower()
+        self.optimizer_params = get_dict_param(
+            optimizer_dict, C.OPTIMIZER_PARAMS
+        )
+        scheduler_dict = get_dict_param(pd, C.SCHEDULER)
+        self.scheduler_name = scheduler_dict.get(C.TYPE)
+        self.scheduler_params = get_dict_param(
+            scheduler_dict, C.SCHEDULER_PARAMS
+        )
+
+    def _configure_batch_parameters(self):
+        """The batch triangle (JAX config.py:_configure_batch_parameters):
+        any two of train / micro / accum give the third, with
+        train == micro * accum * world_size; the same errors."""
+        train = self.train_batch_size
+        micro = self.train_micro_batch_size_per_gpu
+        accum = self.gradient_accumulation_steps
+        world = self.world_size
+        if all(v is not None for v in (train, micro, accum)):
+            pass  # verified below
+        elif train is not None and micro is not None:
+            accum, rem = divmod(train, micro * world)
+            if rem != 0:
+                raise DeepSpeedConfigError(
+                    f"{C.TRAIN_BATCH_SIZE}={train} is not divisible by "
+                    f"{C.TRAIN_MICRO_BATCH_SIZE_PER_GPU}={micro} * "
+                    f"world_size={world}"
+                )
+        elif train is not None and accum is not None:
+            micro, rem = divmod(train, accum * world)
+            if rem != 0:
+                raise DeepSpeedConfigError(
+                    f"{C.TRAIN_BATCH_SIZE}={train} is not divisible by "
+                    f"{C.GRADIENT_ACCUMULATION_STEPS}={accum} * "
+                    f"world_size={world}"
+                )
+        elif micro is not None and accum is not None:
+            train = micro * accum * world
+        elif train is not None:
+            accum = 1
+            micro, rem = divmod(train, world)
+            if rem != 0:
+                raise DeepSpeedConfigError(
+                    f"{C.TRAIN_BATCH_SIZE}={train} is not divisible by "
+                    f"world_size={world}"
+                )
+        elif micro is not None:
+            accum = 1
+            train = micro * world
+        else:
+            raise DeepSpeedConfigError(
+                f"At least one of {C.TRAIN_BATCH_SIZE} and "
+                f"{C.TRAIN_MICRO_BATCH_SIZE_PER_GPU} must be set in the config"
+            )
+        if train <= 0:
+            raise DeepSpeedConfigError(
+                f"Train batch size {train} must be positive"
+            )
+        if micro <= 0:
+            raise DeepSpeedConfigError(
+                f"Micro batch size {micro} must be positive"
+            )
+        if accum <= 0:
+            raise DeepSpeedConfigError(
+                f"Gradient accumulation steps {accum} must be positive"
+            )
+        if train != micro * accum * world:
+            raise DeepSpeedConfigError(
+                f"Check batch-related parameters: {C.TRAIN_BATCH_SIZE}="
+                f"{train} must equal {C.TRAIN_MICRO_BATCH_SIZE_PER_GPU}="
+                f"{micro} * {C.GRADIENT_ACCUMULATION_STEPS}={accum} * "
+                f"world_size={world}"
+            )
+        self.train_batch_size = train
+        self.train_micro_batch_size_per_gpu = micro
+        self.gradient_accumulation_steps = accum
+
+    def _check_training(self):
+        """The JAX parser's error checks on the training blocks (ZeRO
+        stage and keys, fp16 with bf16, the loss scale)."""
+        stage = self.zero_optimization_stage
+        if (
+            not isinstance(stage, int)
+            or isinstance(stage, bool)
+            or stage < 0
+            or stage > C.MAX_STAGE_ZERO_OPTIMIZATION
+        ):
+            raise DeepSpeedConfigError(
+                f"ZeRO stage {stage!r} not supported; stages are 0.."
+                f"{C.MAX_STAGE_ZERO_OPTIMIZATION} "
+                f"({C.MAX_STAGE_ZERO_OPTIMIZATION} = parameter partitioning)"
+            )
+        unknown = sorted(self._zero_keys - set(C.ZERO_VALID_KEYS))
+        if unknown:
+            raise DeepSpeedConfigError(
+                f"unknown {C.ZERO_OPTIMIZATION} key(s) {unknown}; valid: "
+                f"{sorted(C.ZERO_VALID_KEYS)}"
+            )
+        stage3_set = [k for k in C.ZERO_STAGE3_ONLY_KEYS if k in self._zero_keys]
+        if stage3_set and stage < C.ZERO_OPTIMIZATION_WEIGHTS:
+            raise DeepSpeedConfigError(
+                f"{C.ZERO_OPTIMIZATION} key(s) {stage3_set} configure "
+                f"stage-3 machinery but stage is {stage}; set "
+                f'"{C.ZERO_STAGE}": {C.ZERO_OPTIMIZATION_WEIGHTS} or '
+                "remove them"
+            )
+        if self.fp16_enabled and self.bf16_enabled:
+            raise DeepSpeedConfigError("fp16 and bf16 cannot both be enabled")
+        if self.loss_scale < 0:
+            raise DeepSpeedConfigError(
+                f"loss_scale must be >= 0, got {self.loss_scale}"
+            )
 
     def _check_inference(self):
         """Validate the inference block (docs/inference.md): a typo'd slot

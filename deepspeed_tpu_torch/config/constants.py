@@ -1,9 +1,125 @@
-"""Config keys and defaults for the serving slice of the port.
+"""Config keys and defaults for the ported slices (serving, training).
 
-The inference block's keys, defaults and comments, copied from the JAX
-package (deepspeed_tpu/config/constants.py) so the two parsers accept and
-reject the same configs. The training blocks wait for the training slice.
+The keys, defaults and comments of the blocks the port reads, copied
+from the JAX package (deepspeed_tpu/config/constants.py) so the two
+parsers accept and reject the same configs.
 """
+
+#############################################
+# Batch size (any two of the triangle determine the third:
+# train == micro * accum * world_size)
+#############################################
+TRAIN_BATCH_SIZE = "train_batch_size"
+TRAIN_BATCH_SIZE_DEFAULT = None
+TRAIN_MICRO_BATCH_SIZE_PER_GPU = "train_micro_batch_size_per_gpu"
+TRAIN_MICRO_BATCH_SIZE_PER_GPU_DEFAULT = None
+GRADIENT_ACCUMULATION_STEPS = "gradient_accumulation_steps"
+GRADIENT_ACCUMULATION_STEPS_DEFAULT = None
+
+#############################################
+# Optimizer and lr scheduler
+#############################################
+OPTIMIZER = "optimizer"
+OPTIMIZER_PARAMS = "params"
+TYPE = "type"
+SCHEDULER = "scheduler"
+SCHEDULER_PARAMS = "params"
+ADAM_OPTIMIZER = "adam"
+ADAMW_OPTIMIZER = "adamw"
+LAMB_OPTIMIZER = "lamb"
+FUSED_LAMB_OPTIMIZERS = ("fusedlamb", "fused_lamb")
+# optimizers the port's engine builds by name; the JAX package also has
+# SGD and Lion, which the port refuses until they are ported
+PORTED_OPTIMIZERS = (
+    ADAM_OPTIMIZER, ADAMW_OPTIMIZER, LAMB_OPTIMIZER, *FUSED_LAMB_OPTIMIZERS,
+)
+
+STEPS_PER_PRINT = "steps_per_print"
+STEPS_PER_PRINT_DEFAULT = 10
+
+SPARSE_GRADIENTS = "sparse_gradients"
+SPARSE_GRADIENTS_DEFAULT = False
+
+#############################################
+# FP16: loss scaling (0 = dynamic, > 0 static)
+#############################################
+FP16 = "fp16"
+FP16_ENABLED = "enabled"
+FP16_ENABLED_DEFAULT = False
+FP16_LOSS_SCALE = "loss_scale"
+FP16_LOSS_SCALE_DEFAULT = 0
+FP16_INITIAL_SCALE_POWER = "initial_scale_power"
+FP16_INITIAL_SCALE_POWER_DEFAULT = 32
+FP16_LOSS_SCALE_WINDOW = "loss_scale_window"
+FP16_LOSS_SCALE_WINDOW_DEFAULT = 1000
+FP16_HYSTERESIS = "hysteresis"
+FP16_HYSTERESIS_DEFAULT = 2
+FP16_MIN_LOSS_SCALE = "min_loss_scale"
+FP16_MIN_LOSS_SCALE_DEFAULT = 1
+
+BF16 = "bf16"
+BF16_ENABLED = "enabled"
+BF16_ENABLED_DEFAULT = False
+
+#############################################
+# data_types block: gradient-accumulation dtype ("fp32" accumulates
+# exactly; reduced types halve the grad buffer), optimizer-moment storage
+# and master-weight storage (the port takes fp32 only for the last two)
+#############################################
+DATA_TYPES = "data_types"
+GRAD_ACCUM_DTYPE = "grad_accum_dtype"
+GRAD_ACCUM_DTYPE_DEFAULT = "fp32"
+OPTIMIZER_STATE_DTYPE = "optimizer_state_dtype"
+OPTIMIZER_STATE_DTYPE_DEFAULT = "fp32"
+MASTER_DTYPE = "master_dtype"
+MASTER_DTYPE_DEFAULT = "fp32"
+
+GRADIENT_CLIPPING = "gradient_clipping"
+GRADIENT_CLIPPING_DEFAULT = 0.0
+
+#############################################
+# ZeRO optimization. At world size 1 every stage lays the state out as
+# stage 0 does (the JAX engine's dp = 1 layout).
+#############################################
+ZERO_OPTIMIZATION = "zero_optimization"
+ZERO_STAGE = "stage"
+ZERO_STAGE_DEFAULT = 0
+ZERO_OPTIMIZATION_DISABLED = 0
+ZERO_OPTIMIZATION_OPTIMIZER_STATES = 1
+ZERO_OPTIMIZATION_WEIGHTS = 3
+MAX_STAGE_ZERO_OPTIMIZATION = ZERO_OPTIMIZATION_WEIGHTS
+ZERO_OFFLOAD_OPTIMIZER = "offload_optimizer"
+ZERO_OFFLOAD_DEVICE = "device"
+ZERO_OFFLOAD_DEVICE_DEFAULT = "none"
+ZERO_STAGE3_GATHER_BLOCK = "stage3_gather_block"
+ZERO_STAGE3_LATENCY_HIDING = "stage3_latency_hiding"
+# every key the zero_optimization object accepts (anything else is
+# refused: a typo'd knob must not silently mean its default)
+ZERO_VALID_KEYS = (
+    ZERO_STAGE,
+    "allgather_partitions",
+    "allgather_bucket_size",
+    "allgather_size",
+    "reduce_scatter",
+    "reduce_bucket_size",
+    "overlap_comm",
+    "contiguous_gradients",
+    "load_from_fp32_weights",
+    "max_elements_per_comm",
+    "master_weights",
+    ZERO_OFFLOAD_OPTIMIZER,
+    ZERO_STAGE3_GATHER_BLOCK,
+    ZERO_STAGE3_LATENCY_HIDING,
+)
+ZERO_STAGE3_ONLY_KEYS = (ZERO_STAGE3_GATHER_BLOCK, ZERO_STAGE3_LATENCY_HIDING)
+
+#############################################
+# Training blocks the port parses only to refuse them (not yet ported)
+#############################################
+RESILIENCE = "resilience"
+TELEMETRY = "telemetry"
+DATA_PIPELINE = "data_pipeline"
+COMPILE_CACHE = "compile_cache"
 
 #############################################
 # Inference serving (deepspeed_tpu_torch/inference/, docs/inference.md): the

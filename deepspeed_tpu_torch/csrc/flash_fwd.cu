@@ -6,10 +6,12 @@
 // the weighted-value sum in float32), a causal mask aligned bottom-right
 // (key j visible to query i when j <= i + (Sk - Sq)), an optional per-key
 // validity vector kv_mask [B, Sk] (int32, nonzero = attend), rows with no
-// visible key written as exact zeros, and lse = m + log(l) per row. The
-// TPU kernel's in-kernel dropout is not ported (the training slice brings
-// it); its lse rode a 128-lane trailing dim for TPU tiling, here it is a
-// plain [B, H, Sq] float32 array.
+// visible key written as exact zeros, and lse = m + log(l) per row; with
+// dropout, the probabilities that weight V are dropped with the mask of
+// dropout.cuh and the kept ones divided by (1 - rate), while l and lse are
+// taken from the undropped p (as the TPU kernel does). The TPU kernel's
+// lse rode a 128-lane trailing dim for TPU tiling; here it is a plain
+// [B, H, Sq] float32 array.
 //
 // What bounds it on the H100: attention at the GPT-2 prefill shape
 // (B=1, H=12, S=1024, D=64, causal) is 2*2*B*H*S^2*D/2 = 1.6 GFLOP over
@@ -42,8 +44,11 @@
 // nothing, and returns cudaGetLastError().
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "dropout.cuh"
 
 namespace {
 
@@ -56,6 +61,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -64,6 +70,10 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // x rounded to T's precision and back (identity for float)
@@ -79,7 +89,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ kv_mask,
                  T* __restrict__ out, float* __restrict__ lse, int H, int Sq,
-                 int Sk, int causal, float sm_scale) {
+                 int Sk, int causal, float sm_scale, int dropout,
+                 uint32_t threshold, float keep, uint32_t seed) {
   constexpr int kDPT = D / kGroup;   // dims per thread (16 or 32)
   constexpr int kChunks = kDPT / 4;  // float4 chunks per thread
   __shared__ __align__(16) float ks[BK][D];
@@ -117,6 +128,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < kDPT; ++i) acc[i] = 0.f;
   float m = kNegInf;
   float l = 0.f;
+  const uint32_t row_key = dropout ? dropout_row_key(seed, bh, qi) : 0u;
 
   // keys this query tile can see (block-uniform, so every thread runs
   // the same number of tiles and reaches every barrier)
@@ -181,7 +193,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // masked entries contribute exactly 0 (also when m_new is -1e30)
       const float p = s[j] > 0.5f * kNegInf ? expf(s[j] - m_new) : 0.f;
       l += p;
-      const float pu = round_to<T>(p);
+      float pu;
+      if (dropout) {  // the TPU kernel's where(keep, p / (1 - rate), 0)
+        pu = dropout_keep(row_key, k0 + j, threshold) ? round_to<T>(p / keep)
+                                                      : 0.f;
+      } else {
+        pu = round_to<T>(p);
+      }
       const float4* vr = reinterpret_cast<const float4*>(&vs[j][0]);
 #pragma unroll
       for (int i = 0; i < kChunks; ++i) {
@@ -212,37 +230,46 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D, int BK>
 void launch(const void* q, const void* k, const void* v, const int* kv_mask,
             void* out, float* lse, int B, int H, int Sq, int Sk, int causal,
-            float sm_scale, cudaStream_t stream) {
+            float sm_scale, int dropout, uint32_t threshold, float keep,
+            uint32_t seed, cudaStream_t stream) {
   const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
   flash_fwd_kernel<T, D, BK><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), kv_mask, static_cast<T*>(out), lse, H, Sq, Sk,
-      causal, sm_scale);
+      causal, sm_scale, dropout, threshold, keep, seed);
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. D must be 64 or 128 (the wrapper checks).
+// dtype: 0 float32, 1 bfloat16, 2 float16. D must be 64 or 128 (the
+// wrapper checks). dropout: 0 off; else keep a pair when its bits >=
+// threshold and divide the kept probabilities by keep = 1 - rate.
 extern "C" int ds_flash_fwd(const void* q, const void* k, const void* v,
                             const int* kv_mask, void* out, float* lse, int B,
                             int H, int Sq, int Sk, int D, int dtype,
-                            int causal, float sm_scale, void* stream) {
+                            int causal, float sm_scale, int dropout,
+                            unsigned int threshold, float keep,
+                            unsigned int seed, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Sq <= 0 || B * H <= 0) return static_cast<int>(cudaGetLastError());
+#define DS_FLASH_FWD(T, DIM, BK)                                          \
+  launch<T, DIM, BK>(q, k, v, kv_mask, out, lse, B, H, Sq, Sk, causal,     \
+                     sm_scale, dropout, threshold, keep, seed, s)
   if (dtype == 0 && D == 64) {
-    launch<float, 64, 64>(q, k, v, kv_mask, out, lse, B, H, Sq, Sk, causal,
-                          sm_scale, s);
+    DS_FLASH_FWD(float, 64, 64);
   } else if (dtype == 0 && D == 128) {
-    launch<float, 128, 32>(q, k, v, kv_mask, out, lse, B, H, Sq, Sk, causal,
-                           sm_scale, s);
+    DS_FLASH_FWD(float, 128, 32);
   } else if (dtype == 1 && D == 64) {
-    launch<__nv_bfloat16, 64, 64>(q, k, v, kv_mask, out, lse, B, H, Sq, Sk,
-                                  causal, sm_scale, s);
+    DS_FLASH_FWD(__nv_bfloat16, 64, 64);
   } else if (dtype == 1 && D == 128) {
-    launch<__nv_bfloat16, 128, 32>(q, k, v, kv_mask, out, lse, B, H, Sq, Sk,
-                                   causal, sm_scale, s);
+    DS_FLASH_FWD(__nv_bfloat16, 128, 32);
+  } else if (dtype == 2 && D == 64) {
+    DS_FLASH_FWD(__half, 64, 64);
+  } else if (dtype == 2 && D == 128) {
+    DS_FLASH_FWD(__half, 128, 32);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef DS_FLASH_FWD
   return static_cast<int>(cudaGetLastError());
 }

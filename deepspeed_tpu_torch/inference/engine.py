@@ -29,6 +29,7 @@ import torch
 
 from ..config import constants as C
 from ..config.config import DeepSpeedConfig, DeepSpeedConfigError
+from ..config.config import not_ported as _not_ported
 from ..config.config_utils import load_config_json
 from ..models.gpt2 import GPT2LMHeadModel
 from ..telemetry.manager import register_inference_metrics
@@ -46,12 +47,6 @@ from .decode import (
 from .paging import NULL_BLOCK, BlockPool, PoolExhausted, hash_full_blocks
 from .sampling import sample_tokens
 from .scheduler import ContinuousBatchingScheduler, RequestRejected  # noqa: F401  (re-exported)
-
-
-def _not_ported(what):
-    return DeepSpeedConfigError(
-        f"{what} is not yet ported to deepspeed_tpu_torch (see ROADMAP.md)"
-    )
 
 
 class InferenceEngine:

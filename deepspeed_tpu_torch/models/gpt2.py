@@ -1,11 +1,14 @@
-"""GPT-2 for serving: config presets and the eval-mode LM.
+"""GPT-2: config presets and the LM, for serving and training.
 
-Port of deepspeed_tpu/models/gpt2.py for the serving slice: the same
-``GPT2Config`` fields that decode reads and the same size presets, and a
-``GPT2LMHeadModel`` whose eval forward is embeddings -> a Python loop
-over the blocks (ops/transformer.py) -> ``ln_f`` -> the tied LM head.
-The training fields (dropout, pipeline, MoE, remat, sparse gradients,
-ZeRO-3) wait for the training slice.
+Port of deepspeed_tpu/models/gpt2.py: the same ``GPT2Config`` fields and
+size presets, and a ``GPT2LMHeadModel`` whose forward is embeddings
+(with dropout in training) -> a Python loop over the blocks
+(ops/transformer.py; the JAX package scans a stacked layer) -> ``ln_f``
+-> the tied LM head, or with ``labels`` the scalar next-token loss
+through the blocked LM-head cross-entropy (ops/cross_entropy.py).
+``remat``, ``moe_experts`` and ``pipeline_stages`` are carried so that
+the training engine can refuse them (not ported); sparse gradients and
+ZeRO-3's gather seam are not ported.
 """
 
 import dataclasses
@@ -14,9 +17,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.cross_entropy import blocked_lm_head_loss, cross_entropy_ignore_index
 from ..ops.transformer import (
     DeepSpeedTransformerConfig,
     DeepSpeedTransformerLayer,
+    DropoutRNG,
+    dropout,
     layer_norm_apply,
     transformer_block_apply,
 )
@@ -34,8 +40,17 @@ class GPT2Config:
     n_embd: int = 768
     n_layer: int = 12
     n_head: int = 12
+    dropout: float = 0.1
     initializer_range: float = 0.02
     layer_norm_eps: float = 1e-5
+    # blocked LM-head cross-entropy: sequence positions per chunk of the
+    # tied head (ops/cross_entropy.py); 0 computes the whole logits plane
+    ce_block_rows: int = 512
+    # JAX-package features the port does not have yet (the training
+    # engine refuses a config that turns them on)
+    remat: bool = False
+    moe_experts: int = 0
+    pipeline_stages: int = 1
 
     @property
     def vocab_padded(self):
@@ -65,6 +80,8 @@ class GPT2Config:
             hidden_size=self.n_embd,
             heads=self.n_head,
             intermediate_size=4 * self.n_embd,
+            attn_dropout_ratio=self.dropout,
+            hidden_dropout_ratio=self.dropout,
             initializer_range=self.initializer_range,
             pre_layer_norm=True,  # GPT-2 is pre-LN
             layer_norm_eps=self.layer_norm_eps,
@@ -120,14 +137,44 @@ class GPT2LMHeadModel(nn.Module):
         )
         return F.linear(x, self.wte)
 
-    @torch.no_grad()
-    def forward(self, input_ids):
-        """Eval forward: ``input_ids`` [B, S] -> logits [B, S,
-        vocab_padded]."""
+    def hidden_states(self, input_ids, train=False, dropout_rng=None):
+        """Embeddings -> the blocks -> ``ln_f``: [B, S, n_embd]. In training
+        with a ``dropout_rng``, the embedding dropout and each block's
+        three dropout streams are drawn from it."""
         s = input_ids.shape[1]
-        x = self.wte[input_ids] + self.wpe[None, :s, :]
+        rng = dropout_rng if train else None
+        x = dropout(self.wte[input_ids] + self.wpe[None, :s, :],
+                    self.config.dropout, rng)
         for layer in self.h:
             x = transformer_block_apply(
-                self.layer_config, layer, x, None, causal=True
+                self.layer_config, layer, x, None, causal=True,
+                train=train, dropout_rng=rng,
             )
-        return self.final_norm_and_logits(x)
+        return layer_norm_apply(
+            self.layer_config, x, self.ln_f.weight, self.ln_f.bias
+        )
+
+    def forward(self, input_ids, labels=None, train=False, dropout_seed=None):
+        """``input_ids`` [B, S]. Without ``labels``: logits [B, S,
+        vocab_padded] (eval mode runs without autograd, the serving
+        path). With ``labels`` (usually ``input_ids``; the shift happens
+        here): the scalar mean next-token loss, logits[:, :-1] against
+        labels[:, 1:]. ``train`` with a ``dropout_seed`` applies dropout
+        (:class:`~deepspeed_tpu_torch.ops.transformer.DropoutRNG`)."""
+        if labels is None and not train:
+            with torch.no_grad():
+                return F.linear(self.hidden_states(input_ids), self.wte)
+        rng = None
+        if train and dropout_seed is not None and self.config.dropout > 0:
+            rng = DropoutRNG(dropout_seed, input_ids.device)
+        x = self.hidden_states(input_ids, train, rng)
+        if labels is None:
+            return F.linear(x, self.wte)
+        if self.config.ce_block_rows > 0:
+            return blocked_lm_head_loss(
+                x[:, :-1], self.wte, labels[:, 1:],
+                block_rows=self.config.ce_block_rows,
+            )
+        return cross_entropy_ignore_index(
+            F.linear(x[:, :-1], self.wte), labels[:, 1:]
+        )

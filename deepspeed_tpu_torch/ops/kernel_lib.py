@@ -4,8 +4,8 @@ Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library
 of its own with a plain C interface, loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds). Libraries land in
 ``build/torch_kernels/`` at the root of the checkout, named by a digest
-of the source and the flags, so an edited source rebuilds and an
-unchanged one is reused. ``build()`` starts one ``nvcc`` per source, all
+of the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source rebuilds and an unchanged one is reused. ``build()`` starts one ``nvcc`` per source, all
 at once. Nothing here runs at import: the CPU tests import every module
 on a machine with no ``nvcc``.
 
@@ -34,15 +34,35 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _F = ctypes.c_float
+# the dropout arguments of the flash kernels: on/off, threshold, keep
+# (1 - rate), seed
+_DROPOUT = [_I, _U, _F, _U]
 
 # source name -> {C entry point: argtypes}; every entry point returns int
 SIGNATURES = {
     "flash_fwd": {
         # q, k, v, kv_mask (or NULL), out, lse, B, H, Sq, Sk, D, dtype,
-        # causal, sm_scale, stream
+        # causal, sm_scale, dropout..., stream
         "ds_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _I, _F, _P],
+                         _I, _F, *_DROPOUT, _P],
+    },
+    "flash_bwd": {
+        # q, k, v, kv_mask (or NULL), dout, lse, delta, dq, B, H, Sq, Sk,
+        # D, dtype, causal, sm_scale, dropout..., stream
+        "ds_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _I, _I, _F, *_DROPOUT, _P],
+        # as above with dk, dv in place of dq
+        "ds_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                             _I, _I, _I, _I, _F, *_DROPOUT, _P],
+    },
+    "lamb_phase1": {
+        # table, ntensors, nblocks, wsq, usq, grad dtype, c1, c2,
+        # grad_scale, b1, 1-b1, b2, 1-b2, eps, weight_decay,
+        # eps_inside_sqrt, stream
+        "ds_lamb_phase1": [_P, _I, _I, _P, _P, _I, _F, _F, _F, _F, _F, _F,
+                           _F, _F, _F, _I, _P],
     },
     "paged_decode": {
         # q, k_pool, v_pool, block_tables, positions, out, B, heads, hd,
@@ -52,14 +72,14 @@ SIGNATURES = {
     },
 }
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _libs = {}
 _lock = threading.Lock()
 
 
 def dtype_code(dtype):
-    """The C interface's dtype code: 0 float32, 1 bfloat16."""
+    """The C interface's dtype code: 0 float32, 1 bfloat16, 2 float16."""
     return _DTYPE_CODES[dtype]
 
 
@@ -88,8 +108,11 @@ def nvcc_path():
 def library_path(name):
     """Where ``csrc/<name>.cu`` builds to: keyed by source and flags."""
     src = CSRC_DIR / f"{name}.cu"
+    data = src.read_bytes()
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        data += header.read_bytes()
     digest = hashlib.sha1(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        data + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 

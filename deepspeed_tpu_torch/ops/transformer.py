@@ -1,18 +1,21 @@
-"""The transformer block, eval mode, for serving.
+"""The transformer block: training and eval modes, and the decode paths.
 
 Port of deepspeed_tpu/ops/transformer.py: the same computation — qkv
-projection -> multi-head attention -> output projection -> residual ->
-LayerNorm -> FF1 -> tanh-approx GeLU -> FF2 -> residual -> LayerNorm, in
-pre- and post-LayerNorm order — over the reference's 12-tensor parameter
-layout (attn_qkvw/qkvb, attn_ow/ob, attn_nw/nb, inter_w/b, output_w/b,
-norm_w/b). Weights are stored as ``F.linear`` takes them, ``[out, in]``;
-the JAX package keeps ``[in, out]``, and ``convert.py`` is the one place
-that transposes.
+projection -> multi-head attention (with attention dropout) -> output
+projection -> dropout + residual -> LayerNorm -> FF1 -> tanh-approx GeLU
+-> FF2 -> dropout + residual -> LayerNorm, in pre- and post-LayerNorm
+order — over the reference's 12-tensor parameter layout (attn_qkvw/qkvb,
+attn_ow/ob, attn_nw/nb, inter_w/b, output_w/b, norm_w/b). Weights are
+stored as ``F.linear`` takes them, ``[out, in]``; the JAX package keeps
+``[in, out]``, and ``convert.py`` is the one place that transposes.
 
-Serving only: no dropout, no remat, no LoRA (the training and adapter
-slices bring those). The large projections stay ``F.linear`` (cuBLAS),
-as the JAX package left them to XLA; attention goes through the kernels
-of ops/attention.py (prefill) and ops/decode_attention.py (decode).
+In training mode the block's parameters stay differentiable and it draws
+three dropout streams from a :class:`DropoutRNG`: the attention kernels'
+mask seed and the two hidden dropouts. Remat, LoRA and the stochastic
+LayerNorm mode are not ported. The large projections stay ``F.linear``
+(cuBLAS), as the JAX package left them to XLA; attention goes through
+the kernels of ops/attention.py (prefill, training) and
+ops/decode_attention.py (decode).
 
 The paged functions update the KV pool IN PLACE (the JAX package returns
 a new pool from ``.at[].set()``); they return only the hidden states.
@@ -28,15 +31,48 @@ from .attention import NEG_INF, attention
 from .decode_attention import paged_flash_decode
 
 
+class DropoutRNG:
+    """One micro-step's dropout randomness, from ``seed``: attention-mask
+    seeds (``attn_seed``, one per layer) from a CPU ``torch.Generator``,
+    so drawing one never waits for the device, and hidden-dropout masks
+    (``keep``) from a generator on ``device``. The JAX package splits a
+    key per layer and per stream instead; the two give different masks
+    from one seed."""
+
+    def __init__(self, seed, device):
+        self._host = torch.Generator().manual_seed(int(seed))
+        self._device = torch.Generator(device=device).manual_seed(int(seed))
+        self.device = torch.device(device)
+
+    def attn_seed(self):
+        return int(torch.randint(0, 2**31 - 1, (), generator=self._host))
+
+    def keep(self, shape, rate):
+        """A keep mask: each element kept with probability 1 - rate."""
+        u = torch.rand(shape, generator=self._device, device=self.device)
+        return u < (1.0 - rate)
+
+
+def dropout(x, rate, rng):
+    """The JAX package's hidden dropout: ``where(keep, x / (1 - rate),
+    0)`` in x's dtype; identity when ``rng`` is None or ``rate`` is 0."""
+    if rng is None or rate <= 0:
+        return x
+    return torch.where(rng.keep(x.shape, rate), x / (1.0 - rate),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 @dataclasses.dataclass
 class DeepSpeedTransformerConfig:
     """The fields of the JAX package's DeepSpeedTransformerConfig that the
-    eval-mode block reads (dropout, memory-mode, remat and LoRA fields
-    arrive with the training and adapter slices)."""
+    block reads (the memory-mode, remat and LoRA fields are not
+    ported)."""
 
     hidden_size: int = -1
     heads: int = -1
     intermediate_size: int = -1  # -1 => 4*hidden
+    attn_dropout_ratio: float = 0.1
+    hidden_dropout_ratio: float = 0.1
     initializer_range: float = 0.02
     pre_layer_norm: bool = True
     layer_norm_eps: float = 1e-12
@@ -114,23 +150,31 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def _ffn_sublayer(cfg, p, x):
+def _ffn_sublayer(cfg, p, x, rng=None):
     residual = x
     ff_in = (
         layer_norm_apply(cfg, x, p.norm_w, p.norm_b)
         if cfg.pre_layer_norm else x
     )
     h = _gelu(F.linear(ff_in, p.inter_w, p.inter_b))
-    x = residual + F.linear(h, p.output_w, p.output_b)
+    h = dropout(F.linear(h, p.output_w, p.output_b),
+                cfg.hidden_dropout_ratio, rng)
+    x = residual + h
     if not cfg.pre_layer_norm:
         x = layer_norm_apply(cfg, x, p.norm_w, p.norm_b)
     return x
 
 
 def transformer_block_apply(cfg, p, hidden_states, attention_mask=None, *,
-                            causal=False, return_kv=False):
-    """Eval-mode block over ``p`` (a :class:`DeepSpeedTransformerLayer`).
+                            causal=False, return_kv=False, train=False,
+                            dropout_rng=None):
+    """The block over ``p`` (a :class:`DeepSpeedTransformerLayer`, or a
+    module whose tensors ``torch.func.functional_call`` swapped in).
 
+    ``train`` with a ``dropout_rng`` (:class:`DropoutRNG`) applies the
+    attention dropout (in the flash kernels, or in ``mha_reference`` for
+    short sequences) and the two hidden dropouts; without a
+    ``dropout_rng`` there is no dropout, as in the JAX package.
     ``return_kv`` additionally returns the block's split-head key/value
     projections ``(k, v)``, each [B, heads, S, hd] — the KV-cache prefill
     mode: exactly the values attention consumed."""
@@ -153,13 +197,20 @@ def transformer_block_apply(cfg, p, hidden_states, attention_mask=None, *,
         # [B,S,H] -> [B,heads,S,hd], contiguous for the kernel
         return t.reshape(b, s, heads, head_dim).transpose(1, 2).contiguous()
 
+    rng = dropout_rng if train else None
     qh, kh, vh = split_heads(q), split_heads(k_), split_heads(v)
-    ctx = attention(qh, kh, vh, mask=attention_mask, causal=causal)
+    ctx = attention(
+        qh, kh, vh, mask=attention_mask, causal=causal,
+        dropout_rate=cfg.attn_dropout_ratio if rng is not None else 0.0,
+        dropout_seed=rng.attn_seed() if rng is not None else None,
+    )
     ctx = ctx.transpose(1, 2).reshape(b, s, H)
-    x = residual + F.linear(ctx, p.attn_ow, p.attn_ob)
+    attn_out = dropout(F.linear(ctx, p.attn_ow, p.attn_ob),
+                       cfg.hidden_dropout_ratio, rng)
+    x = residual + attn_out
     if not cfg.pre_layer_norm:
         x = layer_norm_apply(cfg, x, p.attn_nw, p.attn_nb)
-    x = _ffn_sublayer(cfg, p, x)
+    x = _ffn_sublayer(cfg, p, x, rng)
     if return_kv:
         return x, (kh, vh)
     return x

@@ -1,0 +1,447 @@
+"""DeepSpeedEngine: the training engine, on one device.
+
+Port of the single-device subset of deepspeed_tpu/runtime/engine.py,
+with the reference's contract:
+
+    engine, optimizer, _, scheduler = deepspeed_tpu_torch.initialize(...)
+    loss = engine(batch)        # forward
+    engine.backward(loss)       # accumulate gradients
+    engine.step()               # optimizer step at the accumulation boundary
+
+or ``engine.train_batch(batches)`` for one whole window.
+
+What a step does, as in the JAX engine:
+  - the module's parameters are the fp32 masters; each micro-step casts
+    them to the compute dtype (fp32, bf16 or fp16: real float16 on every
+    device; the JAX engine's bf16 stand-in for fp16 is a TPU rule), and the
+    loss is differentiated with respect to those casts
+    (``torch.func.functional_call``), scaled by ``loss_scale / accum``;
+  - gradients accumulate in ``data_types.grad_accum_dtype``;
+  - at the boundary: the global gradient norm, the overflow test (fp16:
+    an inf/nan scan; bf16/fp32: the norm's -1 sentinel), unscale and clip
+    folded into one ``grad_scale`` for the optimizer, or the skip,
+    counted in ``skipped_steps``; then ``update_scale`` and the LR
+    schedule.
+
+There is no ``jit``: ``train_batch`` is a loop of forward/backward and
+one step, and the step reads its overflow decision on the host at once
+(the JAX engine defers it a window for bf16/fp32), so ``global_steps``
+and ``skipped_steps`` are exact after every step. Parameters, moments
+and the optimizer's scratch are updated in place.
+
+Not ported, refused with ``DeepSpeedConfigError("... not yet ported")``:
+more than one device (world size > 1, a mesh), the ``adapters``,
+``resilience``, ``telemetry``, ``data_pipeline`` and ``compile_cache``
+blocks, ``zero_optimization.offload_optimizer``, compensated masters,
+reduced-precision optimizer state, sparse gradients, ``training_data``
+(the dataloader), checkpoints, optimizers other than Adam/AdamW/Lamb/
+FusedLamb, and a model with remat, MoE or pipeline stages. ZeRO stages
+0-3 are accepted: at world size 1 the JAX engine lays every stage out as
+stage 0.
+"""
+
+import inspect
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+from torch.func import functional_call
+
+from ..config import constants as C
+from ..config.config import DeepSpeedConfig, not_ported
+from ..config.config_utils import load_config_json
+from ..ops.optimizers import Optimizer, build_optimizer, param_groups
+from ..utils.device import resolve_device
+from ..utils.logging import log_dist
+from ..utils.numerics import global_norm, has_overflow
+from .lr_schedules import build_lr_scheduler
+from .precision import loss_scale_state_from_config, update_scale
+
+_REFUSED_BLOCKS = (C.ADAPTERS, C.RESILIENCE, C.TELEMETRY, C.DATA_PIPELINE,
+                   C.COMPILE_CACHE)
+
+
+def _requested(raw, key):
+    """A config block is asked for unless absent, empty, or
+    ``{"enabled": false}``."""
+    block = raw.get(key)
+    if not block:
+        return False
+    return not (isinstance(block, dict) and block.get("enabled") is False)
+
+
+class EngineOptimizerFacade:
+    """What ``initialize()`` returns as ``optimizer``: the reference's
+    optimizer duck-type (loss_scale, overflow, lamb_coeffs) backed by
+    engine state."""
+
+    def __init__(self, engine):
+        self._engine = engine
+
+    @property
+    def loss_scale(self):
+        return float(self._engine.loss_scale_state.loss_scale)
+
+    @property
+    def cur_scale(self):
+        return self.loss_scale
+
+    @property
+    def overflow(self):
+        return self._engine.last_overflow
+
+    def get_lamb_coeffs(self):
+        return self._engine.lamb_coeffs
+
+    @property
+    def state(self):
+        return self._engine.optimizer_state
+
+    def zero_grad(self):
+        self._engine.zero_grad()
+
+
+class DeepSpeedEngine:
+    def __init__(self, model=None, optimizer=None, model_parameters=None,
+                 training_data=None, lr_scheduler=None, config_params=None,
+                 mesh=None, rng_seed=0, device=None, args=None):
+        # ---- config ---------------------------------------------------
+        raw = config_params
+        if raw is None and args is not None:
+            raw = getattr(args, "deepspeed_config", None)
+        if isinstance(raw, str):
+            raw = load_config_json(raw)
+        raw = dict(raw or {})
+        for key in _REFUSED_BLOCKS:
+            if _requested(raw, key):
+                raise not_ported(f"the {key!r} block")
+        if mesh is not None or raw.get(C.MESH):
+            raise not_ported("training over a device mesh")
+        self.config = DeepSpeedConfig(None, param_dict=raw, training=True)
+        cfg = self.config
+        if cfg.world_size > 1:
+            raise not_ported(
+                f"training across devices (world size {cfg.world_size})"
+            )
+        if cfg.zero_offload_optimizer_device != "none":
+            raise not_ported("zero_optimization.offload_optimizer")
+        if cfg.master_dtype != "fp32":
+            raise not_ported(f"data_types.master_dtype={cfg.master_dtype!r}")
+        if cfg.optimizer_state_dtype != "fp32":
+            raise not_ported(
+                f"data_types.optimizer_state_dtype="
+                f"{cfg.optimizer_state_dtype!r}"
+            )
+        if cfg.sparse_gradients_enabled:
+            raise not_ported("sparse_gradients")
+        if training_data is not None:
+            raise not_ported("training_data (the dataloader)")
+        self.device = resolve_device(device)
+
+        # ---- model ----------------------------------------------------
+        if not isinstance(model, torch.nn.Module):
+            raise TypeError("model must be a torch.nn.Module whose forward "
+                            "returns the scalar loss")
+        mcfg = getattr(model, "config", None)
+        for field, off in (("remat", False), ("moe_experts", 0),
+                           ("pipeline_stages", 1)):
+            if getattr(mcfg, field, off) != off:
+                raise not_ported(f"a model with {field}="
+                                 f"{getattr(mcfg, field)!r}")
+        self.module = model.to(device=self.device, dtype=torch.float32)
+        if model_parameters is not None:
+            if not isinstance(model_parameters, Mapping):
+                raise TypeError("model_parameters must be None or a state "
+                                "dict for the model")
+            self.module.load_state_dict(model_parameters)
+        sig = inspect.signature(self.module.forward).parameters
+        self._takes_train = "train" in sig
+        self._takes_seed = "dropout_seed" in sig
+
+        # ---- precision ------------------------------------------------
+        if cfg.fp16_enabled:
+            self.compute_dtype = torch.float16
+        elif cfg.bf16_enabled:
+            self.compute_dtype = torch.bfloat16
+        else:
+            self.compute_dtype = torch.float32
+        self.grad_accum_dtype = (
+            torch.float32 if cfg.grad_accum_dtype == "fp32"
+            else self.compute_dtype
+        )
+        self.loss_scale_state = loss_scale_state_from_config(cfg)
+        self.zero_stage = cfg.zero_optimization_stage
+
+        # ---- optimizer and schedule -------------------------------------
+        self.params = dict(self.module.named_parameters())
+        if optimizer is not None:
+            if not isinstance(optimizer, Optimizer):
+                raise TypeError("client optimizer must be a "
+                                "deepspeed_tpu_torch.ops.optimizers.Optimizer")
+            self.optimizer_obj = optimizer
+        else:
+            name = cfg.optimizer_name or C.ADAM_OPTIMIZER
+            if name not in C.PORTED_OPTIMIZERS:
+                raise not_ported(f"optimizer {name!r}")
+            self.optimizer_obj = build_optimizer(name, cfg.optimizer_params)
+        self.optimizer_state = self.optimizer_obj.init(self.params)
+        self._n_groups = len(param_groups(self.params))
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is None and cfg.scheduler_name is not None:
+            self.lr_scheduler = build_lr_scheduler(
+                cfg.scheduler_name, cfg.scheduler_params
+            )
+        self._base_lr = float(cfg.optimizer_params.get("lr", 1e-3))
+        self._use_mom = self.optimizer_obj.supports_mom
+        if (not self._use_mom and self.lr_scheduler is not None
+                and getattr(self.lr_scheduler, "get_mom", lambda: None)()
+                is not None):
+            log_dist(
+                "WARNING: the LR scheduler cycles momentum but optimizer "
+                f"{type(self.optimizer_obj).__name__} takes no per-step "
+                "coefficient (use 'Lamb' or 'Adam'); momentum cycling is "
+                "ignored", ranks=[0],
+            )
+
+        # ---- state ----------------------------------------------------
+        self._rng = torch.Generator().manual_seed(int(rng_seed))
+        self._grad_buffer = None
+        self._pending = None  # (loss, compute-dtype params) of a forward
+        self.micro_steps = 0
+        self.global_steps = 0
+        self.skipped_steps = 0
+        self.last_overflow = False
+        self.lamb_coeffs = torch.zeros(0)
+        self._training = True
+        log_dist(
+            f"DeepSpeedEngine initialized: device={self.device} "
+            f"zero_stage={self.zero_stage} dtype={self.compute_dtype} "
+            f"optimizer={type(self.optimizer_obj).__name__}", ranks=[0],
+        )
+
+    # ------------------------------------------------------------------
+    # configuration accessors (reference API surface)
+    # ------------------------------------------------------------------
+    def train_batch_size(self):
+        return self.config.train_batch_size
+
+    def train_micro_batch_size_per_gpu(self):
+        return self.config.train_micro_batch_size_per_gpu
+
+    def gradient_accumulation_steps(self):
+        return self.config.gradient_accumulation_steps
+
+    def steps_per_print(self):
+        return self.config.steps_per_print
+
+    def gradient_clipping(self):
+        return self.config.gradient_clipping
+
+    def fp16_enabled(self):
+        return self.config.fp16_enabled
+
+    def bfloat16_enabled(self):
+        return self.config.bf16_enabled
+
+    def is_gradient_accumulation_boundary(self):
+        return (self.micro_steps + 1) % self.gradient_accumulation_steps() == 0
+
+    def train(self, mode=True):
+        self._training = mode
+
+    def eval(self):
+        self._training = False
+
+    def get_lr(self):
+        return [self._current_lr()]
+
+    def _current_lr(self):
+        if self.lr_scheduler is None:
+            return self._base_lr
+        lr = self.lr_scheduler.get_lr()
+        return float(lr[0] if isinstance(lr, (list, tuple)) else lr)
+
+    def _current_mom(self):
+        """OneCycle's cycled momentum when the schedule has one, else the
+        optimizer's own b1."""
+        if self.lr_scheduler is not None and hasattr(self.lr_scheduler,
+                                                     "get_mom"):
+            mom = self.lr_scheduler.get_mom()
+            if mom is not None:
+                return float(mom[0] if isinstance(mom, (list, tuple)) else mom)
+        return float(self.optimizer_obj.b1)
+
+    def save_checkpoint(self, *args, **kwargs):
+        raise not_ported("save_checkpoint")
+
+    def load_checkpoint(self, *args, **kwargs):
+        raise not_ported("load_checkpoint")
+
+    # ------------------------------------------------------------------
+    # training API
+    # ------------------------------------------------------------------
+    def _batch(self, inputs):
+        """Inputs on the engine's device; floating ones in the compute
+        dtype (integer ids and labels untouched)."""
+        out = []
+        for x in inputs:
+            x = torch.as_tensor(x, device=self.device)
+            if x.is_floating_point():
+                x = x.to(self.compute_dtype)
+            out.append(x)
+        return tuple(out)
+
+    def _call(self, params, batch):
+        kwargs = {}
+        if self._takes_train:
+            kwargs["train"] = self._training
+        if self._takes_seed:
+            kwargs["dropout_seed"] = int(
+                torch.randint(0, 2**31 - 1, (), generator=self._rng)
+            )
+        return functional_call(self.module, params, batch, kwargs)
+
+    def forward(self, *inputs):
+        """Run the model on one micro-batch and return its loss. In train
+        mode the graph is kept for the following ``backward()``."""
+        if self._training and self._pending is not None:
+            raise RuntimeError(
+                "two forward() calls without backward() inside an "
+                "accumulation window"
+            )
+        batch = self._batch(inputs)
+        if not self._training:
+            with torch.no_grad():
+                return self._call(self._cast_params(grad=False), batch)
+        params = self._cast_params(grad=True)
+        loss = self._call(params, batch)
+        self._pending = (loss, params)
+        return loss
+
+    __call__ = forward
+
+    def _cast_params(self, grad):
+        """The fp32 masters in the compute dtype, as leaf tensors (with
+        ``grad``, requiring gradients) for ``functional_call``."""
+        out = {}
+        for name, p in self.params.items():
+            t = p.detach().to(self.compute_dtype)
+            out[name] = t.requires_grad_() if grad else t
+        return out
+
+    def backward(self, loss, allreduce_gradients=True):
+        """Differentiate the stashed forward's loss, scaled by
+        ``loss_scale / gradient_accumulation_steps``, and add the
+        gradients into the buffer in the accumulation dtype."""
+        del loss, allreduce_gradients
+        if self._pending is None:
+            raise RuntimeError(
+                "backward() called without a preceding forward() in train mode"
+            )
+        loss, params = self._pending
+        self._pending = None
+        scale = self.loss_scale_state.loss_scale
+        (loss.float() * scale / self.gradient_accumulation_steps()).backward()
+        grads = {
+            n: (t.grad if t.grad is not None else torch.zeros_like(t)).to(
+                self.grad_accum_dtype)
+            for n, t in params.items()
+        }
+        if self._grad_buffer is None:
+            self._grad_buffer = grads
+        else:
+            for n, g in grads.items():
+                self._grad_buffer[n].add_(g)
+        self.micro_steps += 1
+
+    def zero_grad(self):
+        self._grad_buffer = None
+
+    @torch.no_grad()
+    def step(self):
+        """At the accumulation boundary: the overflow test, the update or
+        the skip, the loss scale and the LR schedule."""
+        accum = self.gradient_accumulation_steps()
+        if (self.micro_steps == 0 or self.micro_steps % accum != 0
+                or self._grad_buffer is None):
+            return
+        grads = self._grad_buffer
+        raw_norm = global_norm(grads.values())  # -1.0 if inf/nan
+        if self.config.fp16_enabled:
+            overflow = has_overflow(grads.values())
+        else:
+            overflow = raw_norm < 0.0
+        # the step's one host sync: the skip decision and the norm
+        overflow, raw = torch.stack(
+            [overflow.float(), raw_norm.float()]
+        ).tolist()
+        overflow = bool(overflow)
+        inv_scale = np.float32(1.0) / np.float32(
+            self.loss_scale_state.loss_scale)
+        if overflow:
+            self.lamb_coeffs = torch.zeros(
+                self._n_groups if hasattr(self.optimizer_obj, "max_coeff")
+                else 0
+            )
+        else:
+            # unscale and clip as one factor (the JAX engine's grad_scale)
+            grad_norm = np.float32(raw) * inv_scale
+            gscale = inv_scale
+            clip = float(self.config.gradient_clipping or 0.0)
+            if clip > 0 and grad_norm > clip and grad_norm > 0:
+                gscale = gscale * (np.float32(clip) / grad_norm)
+            kw = {"mom": self._current_mom()} if self._use_mom else {}
+            aux = self.optimizer_obj.apply(
+                self.params, grads, self.optimizer_state,
+                self._current_lr(), grad_scale=float(gscale), **kw,
+            )
+            coeffs = aux.get("lamb_coeffs", [])
+            self.lamb_coeffs = (torch.stack(coeffs) if coeffs
+                                else torch.zeros(0))
+        self._grad_buffer = None
+        self.loss_scale_state = update_scale(self.loss_scale_state, overflow)
+        self.last_overflow = overflow
+        if overflow:
+            self.skipped_steps += 1
+            log_dist(
+                f"OVERFLOW: skipping step; loss scale -> "
+                f"{self.loss_scale_state.loss_scale}", ranks=[0],
+            )
+        else:
+            self.global_steps += 1
+            if self.lr_scheduler is not None:
+                self.lr_scheduler.step()
+        if self.global_steps and self.global_steps % self.steps_per_print() == 0:
+            log_dist(
+                f"step={self.global_steps}, skipped={self.skipped_steps}, "
+                f"lr={self.get_lr()}, loss_scale="
+                f"{self.loss_scale_state.loss_scale}", ranks=[0],
+            )
+
+    def train_batch(self, batch_iter_or_batches):
+        """One accumulation window: ``gradient_accumulation_steps``
+        micro-batches from the iterable (each a tuple of model inputs, or
+        one input), forward/backward each, then ``step()``. Returns the
+        window's mean unscaled loss."""
+        accum = self.gradient_accumulation_steps()
+        it = iter(batch_iter_or_batches)
+        losses = []
+        for _ in range(accum):
+            try:
+                batch = next(it)
+            except StopIteration:
+                if not losses:
+                    raise
+                raise RuntimeError(
+                    f"data iterator ran dry mid-window: collected "
+                    f"{len(losses)} of gradient_accumulation_steps={accum} "
+                    "micro-batches"
+                ) from None
+            if not isinstance(batch, (tuple, list)):
+                batch = (batch,)
+            loss = self.forward(*batch)
+            self.backward(loss)
+            losses.append(loss.detach().float())
+        self.step()
+        return torch.stack(losses).mean()
+

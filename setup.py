@@ -29,7 +29,7 @@ setup(
         "deepspeed_tpu", "deepspeed_tpu.*",
         "deepspeed_tpu_torch", "deepspeed_tpu_torch.*",
     ]),
-    package_data={"deepspeed_tpu_torch": ["csrc/*.cu"]},
+    package_data={"deepspeed_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     scripts=["bin/deepspeed", "bin/ds", "bin/ds_ssh"],
     ext_modules=ext_modules,
     python_requires=">=3.10",

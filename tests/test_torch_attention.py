@@ -151,9 +151,141 @@ def test_attention_dispatch_follows_the_jax_routing_rule(s, routes_to_flash):
     assert np.all(out[1] == 0.0) == routes_to_flash
 
 
-def test_dropout_is_refused_until_the_training_slice():
-    q = torch.zeros(1, 1, 256, 64)
-    with pytest.raises(NotImplementedError):
-        tattn.flash_attention(q, q, q, dropout_rate=0.1)
-    with pytest.raises(NotImplementedError):
-        tattn.attention(q, q, q, dropout_rate=0.1)
+@pytest.mark.parametrize("s", [128, 256])
+@pytest.mark.parametrize("causal,padded", [
+    (True, False), (False, True), (True, True),
+])
+def test_flash_gradients_match_jax_kernels(s, causal, padded):
+    """dQ, dK and dV: jax.grad through the JAX package's flash kernels
+    (forward and the _bwd_dq/_bwd_dkv Pallas kernels, interpret mode,
+    64-wide blocks) against autograd through the port's FlashAttention
+    (the plain versions of its three kernels). float32, 1e-5."""
+    import jax
+
+    b, h, d = 2, 2, 64
+    q, k, v = _qkv(10, b, h, s, s, d)
+    dout = np.random.default_rng(11).normal(size=(b, h, s, d)).astype(
+        np.float32)
+    kv_mask = None
+    if padded:
+        kv_mask = (np.arange(s)[None, :]
+                   < np.array([[s], [3 * s // 4]])).astype(np.int32)
+
+    def jax_loss(q, k, v):
+        out = jattn.flash_attention(
+            q, k, v, kv_mask=None if kv_mask is None else jnp.asarray(kv_mask),
+            causal=causal, block_q=64, block_k=64,
+        )
+        return jnp.sum(out * jnp.asarray(dout))
+
+    want = jax.grad(jax_loss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = tattn.flash_attention(
+        qt, kt, vt,
+        kv_mask=None if kv_mask is None else torch.from_numpy(kv_mask),
+        causal=causal,
+    )
+    got = torch.autograd.grad(out, (qt, kt, vt), torch.from_numpy(dout))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+
+
+def test_dropout_mask_is_the_kernels_hash():
+    """dropout_keep_mask spells out csrc/dropout.cuh's hash (lowbias32,
+    row key mix(mix(mix(seed) ^ bh) ^ q), bit mix(row ^ k)) in int64
+    tensor ops; here it is held against the same hash in Python ints."""
+    m32 = 0xFFFFFFFF
+
+    def mix(x):
+        x ^= x >> 16
+        x = (x * 0x7FEB352D) & m32
+        x ^= x >> 15
+        x = (x * 0x846CA68B) & m32
+        return x ^ (x >> 16)
+
+    seed, rate, (b, h, sq, sk) = 2**31 - 5, 0.3, (2, 3, 5, 7)
+    got = tattn.dropout_keep_mask(seed, (b, h, sq, sk), rate, "cpu")
+    threshold = int(rate * 2**32)
+    for bh in range(b * h):
+        for qi in range(sq):
+            row = mix(mix(mix(seed) ^ bh) ^ qi)
+            for kj in range(sk):
+                want = mix(row ^ kj) >= threshold
+                assert bool(got[bh // h, bh % h, qi, kj]) == want
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_dropout_keep_rate_within_four_sigma(rate):
+    """The keep rate over 2*12*256*256 pairs, overall and for each
+    (batch, head), lies within 4 sigma of 1 - rate; two seeds give
+    different masks."""
+    shape = (2, 12, 256, 256)
+    keep = tattn.dropout_keep_mask(1234, shape, rate, "cpu").double()
+    p = 1.0 - rate
+    n = keep.numel()
+    assert abs(keep.mean().item() - p) < 4 * (p * rate / n) ** 0.5
+    per_bh = keep.mean(dim=(2, 3))
+    n_bh = shape[2] * shape[3]
+    assert (per_bh - p).abs().max().item() < 4 * (p * rate / n_bh) ** 0.5
+    # two independent masks disagree on a pair with probability 2 p rate
+    other = tattn.dropout_keep_mask(1235, shape, rate, "cpu").double()
+    differ = 2 * p * rate
+    assert abs((keep != other).double().mean().item() - differ) < (
+        4 * (differ * (1 - differ) / n) ** 0.5
+    )
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_dropout_forward_equals_reference_with_the_same_mask(causal):
+    """One dropout meaning on every route: the flash forward (plain
+    version) with a seed equals mha_reference with the same seed."""
+    b, h, s, d = 2, 2, 256, 32
+    q, k, v = (torch.from_numpy(x) for x in _qkv(6, b, h, s, s, d))
+    mask = torch.from_numpy(_padding_mask(b, s, [256, 180]))
+    out = tattn.flash_attention(q, k, v, mask=mask, causal=causal,
+                                dropout_rate=0.1, dropout_seed=99)
+    ref = tattn.mha_reference(q, k, v, mask=mask, causal=causal,
+                              dropout_rate=0.1, dropout_seed=99)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), **TOL)
+    undropped = tattn.flash_attention(q, k, v, mask=mask, causal=causal)
+    assert not np.allclose(out.numpy(), undropped.numpy(), atol=1e-3)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_dropout_gradient_equals_autograd_through_reference(causal):
+    """The plain backward versions (dQ and dK/dV with the forward's mask
+    regenerated from the seed) give the gradients that autograd gives
+    through mha_reference with the same mask; float32, 1e-5."""
+    b, h, s, d = 2, 2, 256, 32
+    q, k, v = (torch.from_numpy(x).requires_grad_()
+               for x in _qkv(7, b, h, s, s, d))
+    mask = torch.from_numpy(_padding_mask(b, s, [256, 200]))
+    dout = torch.from_numpy(
+        np.random.default_rng(8).normal(size=(b, h, s, d)).astype(np.float32)
+    )
+    out = tattn.flash_attention(q, k, v, mask=mask, causal=causal,
+                                dropout_rate=0.2, dropout_seed=5)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    ref = tattn.mha_reference(q, k, v, mask=mask, causal=causal,
+                              dropout_rate=0.2, dropout_seed=5)
+    want = torch.autograd.grad(ref, (q, k, v), dout)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **TOL)
+
+
+def test_attention_routes_dropout_to_the_flash_path():
+    """The JAX rule sent dropout to its reference off the TPU; the port's
+    mask is the same on every route, so attention() keeps dropout on the
+    flash path (and has none without a seed, as the JAX path without an
+    rng)."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(9, 1, 2, 256, 256, 64))
+    out = tattn.attention(q, k, v, causal=True, dropout_rate=0.1,
+                          dropout_seed=3)
+    want = tattn.flash_attention(q, k, v, causal=True, dropout_rate=0.1,
+                                 dropout_seed=3)
+    np.testing.assert_array_equal(out.numpy(), want.numpy())
+    no_seed = tattn.attention(q, k, v, causal=True, dropout_rate=0.1)
+    np.testing.assert_array_equal(
+        no_seed.numpy(), tattn.flash_attention(q, k, v, causal=True).numpy()
+    )

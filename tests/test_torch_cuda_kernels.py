@@ -7,19 +7,33 @@ at run time). On the card run
 Tolerances as in chip_smoke.py: float32 atol = rtol = 1e-4 (another
 summation order), bfloat16 atol = rtol = 1e-2 (p and the output rounded
 to bfloat16 at different points of the online softmax; rtol 1e-2 covers
-one bf16 ulp, 2**-7 relative, at any magnitude).
+one bf16 ulp, 2**-7 relative, at any magnitude), float16 atol = rtol =
+2e-3 (the same for float16, whose ulp is 2**-10 relative). The backward kernels'
+gradients take atol = tol * max|plain| (their scale is ~1e-2, where an
+absolute 1e-2 would pass anything); LAMB's moments, update and block
+partials rtol 1e-5 (the same float32 roundings, sums in another order).
 """
 
 import pytest
 import torch
 
-from deepspeed_tpu_torch.ops.attention import flash_fwd, flash_fwd_plain
+import deepspeed_tpu_torch
+from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
+from deepspeed_tpu_torch.ops.attention import (
+    flash_bwd_dkv,
+    flash_bwd_dkv_plain,
+    flash_bwd_dq,
+    flash_bwd_dq_plain,
+    flash_fwd,
+    flash_fwd_plain,
+)
 from deepspeed_tpu_torch.ops.decode_attention import (
     paged_flash_decode,
     paged_flash_decode_plain,
 )
+from deepspeed_tpu_torch.ops.fused_lamb import lamb_phase1, lamb_phase1_plain
 
-TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2, torch.float16: 2e-3}
 
 
 @pytest.fixture
@@ -30,11 +44,27 @@ def cuda():
     return torch.device("cuda")
 
 
-def _close(got, want, dtype):
+def _close(got, want, dtype, scaled=False):
     tol = TOL[dtype]
+    atol = tol * float(want.float().abs().max()) if scaled else tol
     torch.testing.assert_close(
-        got.float(), want.float(), atol=tol, rtol=tol
+        got.float(), want.float(), atol=atol, rtol=tol
     )
+
+
+def _attention_case(cuda, dtype, d, sq, sk, masked, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    b, h = 2, 3
+    q, k, v, dout = (
+        torch.randn(b, h, s, d, device=cuda, generator=g).to(dtype)
+        for s in (sq, sk, sk, sq)
+    )
+    kv_mask = None
+    if masked:
+        kv_mask = torch.ones(b, sk, dtype=torch.int32, device=cuda)
+        kv_mask[0, sk // 2:] = 0
+        kv_mask[1] = 0  # a fully masked batch row
+    return q, k, v, dout, kv_mask
 
 
 @pytest.mark.cuda
@@ -103,7 +133,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="head_dim"):
         flash_fwd(q, q, q)
     with pytest.raises(TypeError):
-        flash_fwd(q.half()[..., :64], q.half()[..., :64], q.half()[..., :64])
+        flash_fwd(q.double()[..., :64], q.double()[..., :64],
+                  q.double()[..., :64])
     qd = torch.randn(2, 4, 64, device=cuda)
     pool = torch.randn(5, 8, 4, 64, device=cuda)
     with pytest.raises(TypeError, match="int32"):
@@ -111,3 +142,156 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
             qd, pool, pool, torch.zeros(2, 3, dtype=torch.int64, device=cuda),
             torch.zeros(2, dtype=torch.int32, device=cuda),
         )
+
+
+ATTENTION_CASES = [
+    (1024, 1024, True, False, 0.0),
+    (1024, 1024, True, False, 0.1),
+    (200, 333, True, True, 0.2),    # ragged tiles, diag offset, key mask
+    (256, 256, False, True, 0.1),
+    (1, 77, True, False, 0.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,sk,causal,masked,rate", ATTENTION_CASES)
+def test_flash_fwd_dropout_kernel_matches_plain(cuda, dtype, d, sq, sk,
+                                                causal, masked, rate):
+    """The forward with dropout: the kernel regenerates the plain
+    version's mask (csrc/dropout.cuh's hash), so the two agree to the
+    usual tolerance, and l/lse come from the undropped probabilities."""
+    q, k, v, _, kv_mask = _attention_case(cuda, dtype, d, sq, sk, masked, 2)
+    args = (q, k, v, kv_mask, causal, None, rate, 99)
+    out, lse = flash_fwd(*args)
+    torch.cuda.synchronize()
+    ref, ref_lse = flash_fwd_plain(*args)
+    _close(out, ref, dtype)
+    rows = ref_lse > -1e29
+    _close(lse[rows], ref_lse[rows], torch.float32)
+    if rate:
+        clean, clean_lse = flash_fwd_plain(q, k, v, kv_mask, causal)
+        _close(lse[rows], clean_lse[rows], torch.float32)
+        assert not torch.allclose(out.float(), clean.float(), atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,sk,causal,masked,rate", ATTENTION_CASES)
+def test_flash_bwd_kernels_match_plain(cuda, dtype, d, sq, sk, causal,
+                                       masked, rate):
+    q, k, v, dout, kv_mask = _attention_case(cuda, dtype, d, sq, sk, masked,
+                                             3)
+    out, lse = flash_fwd_plain(q, k, v, kv_mask, causal, None, rate, 5)
+    delta = (dout.float() * out.float()).sum(dim=-1)
+    args = (q, k, v, kv_mask, dout, lse, delta, causal, None, rate, 5)
+    before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    dq = flash_bwd_dq(*args)
+    dk, dv = flash_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = (flash_bwd_dq_plain(*args), *flash_bwd_dkv_plain(*args))
+    for got, ref in zip((dq, dk, dv), want):
+        _close(got, ref, dtype, scaled=True)
+        if masked:
+            assert bool((got[1] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gdtype", [torch.float32, torch.bfloat16,
+                                    torch.float16])
+@pytest.mark.parametrize("eps_inside_sqrt,weight_decay", [
+    (False, 0.0), (False, 0.01), (True, 0.01),
+])
+def test_lamb_phase1_kernel_matches_plain(cuda, gdtype, eps_inside_sqrt,
+                                          weight_decay):
+    """Tensors of 5, 1000, 4096, 40 000 and 70 000 elements in one launch
+    (ragged last blocks, a tensor of exactly one block)."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    sizes = [5, 1000, 4096, 40_000, 70_000]
+
+    def noise(scale):
+        return [torch.randn(n, device=cuda, generator=g) * scale
+                for n in sizes]
+
+    ps, gs, m0 = noise(1.0), [x.to(gdtype) for x in noise(1e-2)], noise(1e-3)
+    v0 = [x * x for x in noise(1e-2)]
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=weight_decay,
+              eps_inside_sqrt=eps_inside_sqrt)
+    runs = []
+    for fn in (lamb_phase1, lamb_phase1_plain):
+        ms, vs = [x.clone() for x in m0], [x.clone() for x in v0]
+        us = [torch.empty_like(p) for p in ps]
+        before = lamb_phase1.launches
+        wsq, usq = fn(ps, gs, ms, vs, us, 0.271, 0.003, 0.5, **kw)
+        torch.cuda.synchronize()
+        runs.append((wsq, usq, ms, vs, us, lamb_phase1.launches - before))
+    (kw_, ku, km, kv, kuu, n), (pw, pu, pm, pv, puu, n_plain) = runs
+    assert (n, n_plain) == (1, 0)
+    for got, want in zip(km + kv + kuu, pm + pv + puu):
+        torch.testing.assert_close(
+            got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    torch.testing.assert_close(kw_, pw, rtol=1e-5, atol=0)
+    torch.testing.assert_close(ku, pu, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_training_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    q = torch.randn(1, 2, 128, 64, device=cuda)
+    lse = torch.zeros(1, 2, 128, device=cuda)
+    with pytest.raises(TypeError):
+        h = q.double()
+        flash_bwd_dq(h, h, h, None, h, lse, lse)
+    with pytest.raises(ValueError, match="lse"):
+        flash_bwd_dkv(q, q, q, None, q, lse.double(), lse)
+    with pytest.raises(ValueError, match="dout"):
+        flash_bwd_dq(q, q, q, None, q[:, :1].contiguous(), lse, lse)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = q.transpose(2, 3).contiguous().transpose(2, 3)
+        flash_bwd_dkv(t, t, t, None, t, lse, lse)
+    p = [torch.zeros(10, device=cuda)]
+    with pytest.raises(TypeError):
+        lamb_phase1(p, [p[0].double()], p, p, p, 1.0, 1.0, b1=0.9, b2=0.999,
+                    eps=1e-8, weight_decay=0.0, eps_inside_sqrt=False)
+    with pytest.raises(RuntimeError):
+        lamb_phase1(p, [torch.zeros(10)], p, p, p, 1.0, 1.0, b1=0.9,
+                    b2=0.999, eps=1e-8, weight_decay=0.0,
+                    eps_inside_sqrt=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [
+    {"fp16": {"enabled": True, "initial_scale_power": 12}},
+    {"bf16": {"enabled": True}},
+])
+def test_reduced_precision_training_runs_through_the_kernels(cuda, block):
+    """initialize() on a 2-layer GPT-2 at S=256 (the flash route) in real
+    float16 (with loss scaling) or bfloat16: every micro-step launches the
+    three attention kernels once a layer, every step FusedLamb's phase-1
+    kernel, and the loss stays finite."""
+    model = GPT2LMHeadModel(GPT2Config(vocab_size=256, n_positions=256,
+                                       n_embd=128, n_layer=2, n_head=2,
+                                       dropout=0.1), device=cuda)
+    cfg = dict({"train_batch_size": 4, "train_micro_batch_size_per_gpu": 2,
+                "optimizer": {"type": "FusedLamb", "params": {"lr": 1e-3}}},
+               **block)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model,
+                                                config_params=cfg)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    ids = torch.randint(0, 256, (4, 256), device=cuda, generator=g)
+    before = {fn: fn.launches for fn in (flash_fwd, flash_bwd_dq,
+                                         flash_bwd_dkv, lamb_phase1)}
+    for _ in range(3):
+        loss = engine.train_batch([(ids[:2], ids[:2]), (ids[2:], ids[2:])])
+        assert torch.isfinite(loss)
+    torch.cuda.synchronize()
+    got = {fn: fn.launches - n for fn, n in before.items()}
+    assert got[flash_fwd] == got[flash_bwd_dq] == got[flash_bwd_dkv] == 12
+    # every group of this model is below multi_tensor_max: one packed launch
+    assert got[lamb_phase1] == engine.global_steps
+    assert engine.global_steps + engine.skipped_steps == 3

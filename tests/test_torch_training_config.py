@@ -1,0 +1,182 @@
+"""Port parity for the training blocks of the config: the port's parser
+against the JAX package's DeepSpeedConfig on the keys the training slice
+reads (the batch triangle, optimizer, scheduler, fp16/bf16, clipping,
+ZeRO stage, steps_per_print, data_types), with the rows of
+tests/unit/test_config.py for those keys; and the engine's refusals of
+what the port does not have yet."""
+
+import pytest
+import torch
+
+from deepspeed_tpu.config import DeepSpeedConfig as JConfig
+from deepspeed_tpu.config import DeepSpeedConfigError as JConfigError
+import deepspeed_tpu_torch
+from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
+from deepspeed_tpu_torch.config import DeepSpeedConfig, DeepSpeedConfigError
+
+TRAINING_ATTRS = (
+    "train_batch_size", "train_micro_batch_size_per_gpu",
+    "gradient_accumulation_steps", "steps_per_print", "gradient_clipping",
+    "zero_optimization_stage", "zero_enabled", "fp16_enabled", "loss_scale",
+    "initial_scale_power", "loss_scale_window", "hysteresis",
+    "min_loss_scale", "dynamic_loss_scale", "bf16_enabled",
+    "grad_accum_dtype", "optimizer_state_dtype", "master_dtype",
+    "optimizer_name", "optimizer_params", "scheduler_name",
+    "scheduler_params", "sparse_gradients_enabled",
+)
+
+
+def _attrs(cfg):
+    return {k: getattr(cfg, k) for k in TRAINING_ATTRS}
+
+
+@pytest.mark.parametrize("raw,world", [
+    # test_config.py's batch rows: any two of the triangle give the third
+    ({"train_batch_size": 32, "train_micro_batch_size_per_gpu": 4,
+      "gradient_accumulation_steps": 2}, 4),
+    ({"train_batch_size": 32, "train_micro_batch_size_per_gpu": 4}, 4),
+    ({"train_batch_size": 32, "train_micro_batch_size_per_gpu": 4}, 1),
+    ({"train_batch_size": 32, "gradient_accumulation_steps": 2}, 4),
+    ({"train_micro_batch_size_per_gpu": 4,
+      "gradient_accumulation_steps": 2}, 1),
+    ({"train_batch_size": 32}, 4),
+    ({"train_micro_batch_size_per_gpu": 4}, 2),
+])
+def test_batch_triangle_resolves_as_in_the_jax_parser(raw, world):
+    want = _attrs(JConfig(None, param_dict=raw, world_size=world))
+    got = _attrs(DeepSpeedConfig(None, param_dict=raw, world_size=world,
+                                 training=True))
+    assert got == want
+
+
+@pytest.mark.parametrize("raw", [
+    # ZeRO: the object, the deprecated boolean, and stage 3's knobs
+    {"train_batch_size": 8, "zero_optimization": {
+        "stage": 2, "allgather_bucket_size": 500, "overlap_comm": True}},
+    {"train_batch_size": 8, "zero_optimization": True},
+    {"train_batch_size": 8, "zero_optimization": {
+        "stage": 3, "stage3_gather_block": 2}},
+    # fp16 (dynamic and static loss scale) and bf16
+    {"train_batch_size": 8, "fp16": {
+        "enabled": True, "initial_scale_power": 16, "loss_scale_window": 500,
+        "hysteresis": 3, "min_loss_scale": 2}},
+    {"train_batch_size": 8, "fp16": {"enabled": True, "loss_scale": 128}},
+    {"train_batch_size": 8, "bf16": {"enabled": True}},
+    # optimizer, scheduler, clipping, printing, data types
+    {"train_batch_size": 8,
+     "optimizer": {"type": "FusedLamb",
+                   "params": {"lr": 1e-3, "weight_decay": 0.01}},
+     "scheduler": {"type": "WarmupLR",
+                   "params": {"warmup_num_steps": 10}},
+     "gradient_clipping": 1.0, "steps_per_print": 5},
+    {"train_batch_size": 8, "data_types": {"grad_accum_dtype": "bf16"}},
+    {"train_batch_size": 8, "sparse_gradients": True},
+])
+def test_training_blocks_parse_to_the_same_attributes(raw):
+    want = _attrs(JConfig(None, param_dict=raw, world_size=1))
+    got = _attrs(DeepSpeedConfig(None, param_dict=raw, world_size=1,
+                                 training=True))
+    assert got == want
+
+
+@pytest.mark.parametrize("raw", [
+    {"train_batch_size": 32, "train_micro_batch_size_per_gpu": 4,
+     "gradient_accumulation_steps": 3},      # inconsistent triangle
+    {},                                      # no batch size at all
+    {"train_batch_size": 30, "train_micro_batch_size_per_gpu": 4},
+    {"train_batch_size": 0},
+    {"train_batch_size": 8, "zero_optimization": {"stage": 4}},
+    {"train_batch_size": 8, "zero_optimization": {"stage": True}},
+    {"train_batch_size": 8, "zero_optimization": {"stage": 1.0}},
+    {"train_batch_size": 8, "zero_optimization": {"stage": 1, "bogus": 1}},
+    {"train_batch_size": 8, "zero_optimization": {
+        "stage": 2, "stage3_latency_hiding": True}},
+    {"train_batch_size": 8, "fp16": {"enabled": True},
+     "bf16": {"enabled": True}},
+    {"train_batch_size": 8, "data_types": {"grad_accum_dtype": "fp8"}},
+    {"train_batch_size": 8, "data_types": {"master_dtype": "fp16"}},
+])
+def test_both_parsers_refuse_the_same_training_blocks(raw):
+    with pytest.raises((JConfigError, TypeError, ValueError)):
+        JConfig(None, param_dict=raw, world_size=2)
+    with pytest.raises((DeepSpeedConfigError, TypeError, ValueError)):
+        DeepSpeedConfig(None, param_dict=raw, world_size=2, training=True)
+
+
+def test_an_inference_config_resolves_no_batch_triangle():
+    """init_inference passes no batch size: the triangle is resolved only
+    for a training config."""
+    cfg = DeepSpeedConfig(None, param_dict={"inference": {}}, world_size=1)
+    assert cfg.train_batch_size is None
+    with pytest.raises(DeepSpeedConfigError, match="train_batch_size"):
+        DeepSpeedConfig(None, param_dict={"inference": {}}, world_size=1,
+                        training=True)
+
+
+def _tiny():
+    return GPT2LMHeadModel(
+        GPT2Config(vocab_size=64, n_positions=16, n_embd=16, n_layer=1,
+                   n_head=2, dropout=0.0), device="cpu")
+
+
+@pytest.mark.parametrize("extra", [
+    {"adapters": {"enabled": True, "rank": 4}},
+    {"resilience": {"supervisor": {"enabled": True}}},
+    {"telemetry": {"enabled": True}},
+    {"data_pipeline": {"curriculum_learning": {"enabled": True}}},
+    {"compile_cache": {"enabled": True}},
+    {"mesh": {"data_parallel_size": 2}},
+    {"zero_optimization": {"stage": 2,
+                           "offload_optimizer": {"device": "cpu"}}},
+    {"data_types": {"master_dtype": "compensated"}},
+    {"data_types": {"optimizer_state_dtype": "bf16"}},
+    {"data_types": {"optimizer_state_dtype": "int8"}},
+    {"sparse_gradients": True},
+    {"optimizer": {"type": "SGD", "params": {"lr": 0.1}}},
+    {"optimizer": {"type": "Lion", "params": {"lr": 0.1}}},
+])
+def test_engine_refuses_what_is_not_ported(extra):
+    cfg = dict({"train_batch_size": 2}, **extra)
+    with pytest.raises(DeepSpeedConfigError, match="not yet ported"):
+        deepspeed_tpu_torch.initialize(model=_tiny(), config_params=cfg,
+                                       device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [
+    ("remat", True), ("moe_experts", 4), ("pipeline_stages", 2),
+])
+def test_engine_refuses_model_features_that_are_not_ported(field, value):
+    model = _tiny()
+    setattr(model.config, field, value)
+    with pytest.raises(DeepSpeedConfigError, match="not yet ported"):
+        deepspeed_tpu_torch.initialize(
+            model=model, config_params={"train_batch_size": 2}, device="cpu")
+
+
+def test_engine_refuses_data_checkpoints_and_a_second_device():
+    cfg = {"train_batch_size": 2}
+    with pytest.raises(DeepSpeedConfigError, match="not yet ported"):
+        deepspeed_tpu_torch.initialize(model=_tiny(), config_params=cfg,
+                                       training_data=[1, 2], device="cpu")
+    with pytest.raises(DeepSpeedConfigError, match="not yet ported"):
+        deepspeed_tpu_torch.initialize(model=_tiny(), config_params=cfg,
+                                       mesh=object(), device="cpu")
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=_tiny(), config_params=cfg, device="cpu")
+    for fn in (engine.save_checkpoint, engine.load_checkpoint):
+        with pytest.raises(DeepSpeedConfigError, match="not yet ported"):
+            fn("/nonexistent")
+
+
+@pytest.mark.parametrize("stage", [0, 1, 2, 3])
+def test_zero_stages_are_accepted_at_world_size_one(stage):
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=_tiny(),
+        config_params={"train_batch_size": 2,
+                       "zero_optimization": {"stage": stage}},
+        device="cpu",
+    )
+    assert engine.zero_stage == stage
+    ids = torch.randint(0, 64, (2, 16), generator=torch.Generator().manual_seed(0))
+    loss = engine.train_batch([(ids, ids)])
+    assert torch.isfinite(loss) and engine.global_steps == 1
