@@ -6,8 +6,8 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
   1. probe   — require CUDA; print the card's name and power limit.
-  2. build   — compile every CUDA kernel of both slices from csrc/ (one
-               nvcc per source, all started together) and print the
+  2. build   — compile every CUDA kernel of the three slices from csrc/
+               (one nvcc per source, all started together) and print the
                seconds.
   3. kernels — each kernel against its plain PyTorch version on the same
                inputs, float32 and bfloat16, at the serving path's shapes
@@ -20,8 +20,17 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                dK/dV with and without a padding mask and dropout, in
                f32, bf16 and fp16, and LAMB phase 1 over GPT-2 small's
                real parameters (f32, bf16 and fp16 grads; FusedLamb's
-               trust ratios against the plain Lamb's). Then their times, bounds and library yardsticks
-               (SDPA forward and backward, timed only).
+               trust ratios against the plain Lamb's). Then their times,
+               bounds and library yardsticks (SDPA forward and backward,
+               timed only).
+     3c. sgmv  — the SGMV kernel against its plain version at GPT-2
+               small's four LoRA target shapes, rank 16, B = 8, ids mixing
+               the identity row 0, repeats and the highest row, float32
+               and bfloat16 (identity rows exactly zero; in bfloat16 the
+               output must lie ten times nearer the plain version, which
+               rounds t, than the same arithmetic with t unrounded); then
+               its time (as Timer gives it, and on the device alone), its
+               plain version's and its bound at B = 8 and B = 64.
   4. serve   — init_inference on GPT-2 small (random weights from --seed,
                bf16, paged KV, fused decode): 4 mixed-length prompts and
                a 5th that hits the prefix cache, 32 new tokens each. Both
@@ -46,7 +55,23 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                dropout 0 whose gradients through the kernels must match
                the gradients through the plain versions; step time,
                tokens/s, peak memory and a torch.profiler window.
-  6. report  — a JSON line of per-kernel numbers, the nvidia-smi line,
+  6. adapters — the multi-LoRA slice on GPT-2 small. Fine-tune:
+               initialize() with adapters {rank 16} (seq 1024, bf16,
+               dropout 0.1, Adam, 4 windows): the loss finite and falling,
+               the base bitwise unchanged, exactly 2,359,296 trainable
+               parameters, the attention kernels launched exactly 12 times
+               per micro-step. Serve: init_inference with adapters {rank
+               16, pool_slots 4} (bf16, paged KV, fused decode) loads the
+               fine-tuned adapter and two synthetic ones from --seed and
+               decodes one batch of 8 requests mixing the three and the
+               base model: SGMV launched exactly 48 times per decode step
+               (4 targets x 12 layers); the base requests equal an
+               adapter-free engine's tokens; the batch equals solo runs
+               (prefix cache off); float32 fused and unfused decode give
+               identical greedy tokens; TTFT and decode tokens/s with and
+               without the adapters block; SGMV's share of a profiled
+               decode window.
+  7. report  — a JSON line of per-kernel numbers, the nvidia-smi line,
                then the last line {"ok": true, "device": {...}}.
 
 Tolerances: float32 kernel vs plain atol = rtol = 1e-4 (same float32
@@ -61,7 +86,12 @@ shape are ~1e-2, where an absolute 1e-2 would pass anything). LAMB: the
 moments and u to rtol 1e-5 (the kernel rounds as PyTorch does; u may
 differ by an ulp), the block partials and trust ratios to rtol 1e-5
 (float32 sums in another order). Whole-model float32 gradients, kernels
-vs plain: max|diff| <= 1e-4 * max|plain| per parameter.
+vs plain: max|diff| <= 1e-4 * max|plain| per parameter. SGMV: float32
+atol = rtol = 1e-4; bfloat16 atol = 1e-2 x each output row's largest
+magnitude (t is rounded to bfloat16 before the second product, and a
+summation in another order can move it by one bf16 ulp, 2**-8 relative),
+and its error against the plain version below a tenth of its error
+against the unrounded-t arithmetic (which pins where t is rounded).
 """
 
 import argparse
@@ -87,11 +117,18 @@ FLASH_SOURCE = "deepspeed_tpu_torch/csrc/flash_fwd.cu"
 BWD_SOURCE = "deepspeed_tpu_torch/csrc/flash_bwd.cu"
 LAMB_SOURCE = "deepspeed_tpu_torch/csrc/lamb_phase1.cu"
 DECODE_SOURCE = "deepspeed_tpu_torch/csrc/paged_decode.cu"
+SGMV_SOURCE = "deepspeed_tpu_torch/csrc/sgmv.cu"
 FLASH_TPU = "deepspeed_tpu/ops/attention.py:140"
 DQ_TPU = "deepspeed_tpu/ops/attention.py:210"
 DKV_TPU = "deepspeed_tpu/ops/attention.py:262"
 LAMB_TPU = "deepspeed_tpu/ops/pallas.py:67"
 DECODE_TPU = "deepspeed_tpu/ops/decode_attention.py:66"
+SGMV_TPU = "deepspeed_tpu/ops/decode_attention.py:206"
+LORA_RANK = 16
+LORA_POOL_SLOTS = 4
+# GPT-2 small's LoRA targets: (in, out)
+LORA_SHAPES = {"attn_qkvw": (768, 2304), "attn_ow": (768, 768),
+               "inter_w": (768, 3072), "output_w": (3072, 768)}
 
 
 def fail(msg):
@@ -109,17 +146,25 @@ def log(msg):
 class Timer:
     """CUDA-event time of one call, averaged over ``iters`` calls, with the
     50 MB L2 flushed before each (the serving path finds the next layer's
-    K/V cold)."""
+    K/V cold). The stream is idle when the call starts, so the time
+    includes the host's enqueue of the call (the Python wrapper, the
+    launch). With ``spin=True`` a device spin of SPIN_CYCLES (~0.5 ms) is
+    queued ahead of each call instead, the enqueue overlaps it, and the
+    events time the device work alone."""
+
+    SPIN_CYCLES = 1_000_000
 
     def __init__(self, device):
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
 
-    def ms(self, fn, iters=20, warmup=3):
+    def ms(self, fn, iters=20, warmup=3, spin=False):
         for _ in range(warmup):
             fn()
         total = 0.0
         for _ in range(iters):
             self.flush.zero_()
+            if spin:
+                torch.cuda._sleep(self.SPIN_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -575,6 +620,179 @@ def phase_train_kernels(device, seed, report):
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: the SGMV kernel vs plain
+# ---------------------------------------------------------------------------
+def sgmv_case(device, gen, dtype, din, dout, b):
+    """An adapter pool as the engine holds it (rank 16, pool_slots 4: rows
+    0..4, row 0 the zero identity), one layer's slice, and ``b`` slots
+    whose ids mix the identity, repeats and the highest row."""
+    rows = LORA_POOL_SLOTS + 1
+    a_pool = torch.randn(rows, din, LORA_RANK, device=device,
+                         generator=gen) * 0.02
+    b_pool = torch.randn(rows, LORA_RANK, dout, device=device,
+                         generator=gen) * 0.1
+    a_pool[0] = 0
+    b_pool[0] = 0
+    x = torch.randn(b, din, device=device, generator=gen)
+    pattern = [0, LORA_POOL_SLOTS, 2, 2, 1, 0, LORA_POOL_SLOTS, 3]
+    ids = torch.tensor([pattern[i % len(pattern)] for i in range(b)],
+                       dtype=torch.int32, device=device)
+    return (x.to(dtype), a_pool.to(dtype).contiguous(),
+            b_pool.to(dtype).contiguous(), ids)
+
+
+def sgmv_work(x, a_pool, b_pool, ids):
+    """Bytes and flops the function needs on these inputs: the DISTINCT
+    non-identity adapter rows of A and B read once (id 0 reads nothing),
+    x and ids read, the float32 output written; 2 * (in * r + r * out)
+    flops a non-identity slot."""
+    b, din = x.shape
+    rank, dout = b_pool.shape[1], b_pool.shape[2]
+    id_list = ids.tolist()
+    distinct = len({i for i in id_list if i != 0})
+    live = sum(1 for i in id_list if i != 0)
+    es = x.element_size()
+    nbytes = (distinct * (din * rank + rank * dout) * es + b * din * es
+              + b * 4 + b * dout * 4)
+    return nbytes, 2 * live * (din * rank + rank * dout)
+
+
+def sgmv_unrounded(x, a_pool, b_pool, ids):
+    """lora_sgmv_plain's arithmetic with t left in float32: what a kernel
+    that skipped the rounding of t to the pool's dtype would give."""
+    rows = ids.long()
+    t = torch.einsum("bi,bir->br", x.float(), a_pool[rows].float())
+    return torch.einsum("br,bro->bo", t, b_pool[rows].float())
+
+
+def check_t_rounding(tag, out, ref, scale, unrounded):
+    """The kernel rounds t where the plain version does: its output lies
+    at least ten times nearer the rounded reference than the unrounded
+    one (errors relative to each output row's scale)."""
+    err_r = float(((out - ref) / scale).abs().max())
+    err_u = float(((out - unrounded) / scale).abs().max())
+    ok = err_r < 0.1 * err_u
+    log(f"  {tag}: rounding of t: err vs rounded {err_r:.3e}, vs unrounded "
+        f"{err_u:.3e} {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"{tag}: the kernel does not round t as its plain version does")
+
+
+def phase_sgmv_kernels(device, seed, report):
+    """Phase 3c; adds the SGMV entry to ``report``."""
+    from deepspeed_tpu_torch.ops.decode_attention import (
+        lora_sgmv,
+        lora_sgmv_plain,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    timer = Timer(device)
+    log("phase 3c: sgmv vs plain (GPT-2 small's LoRA targets, rank 16, B=8)")
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for target, (din, dout) in LORA_SHAPES.items():
+            x, a_pool, b_pool, ids = sgmv_case(device, gen, dtype, din, dout,
+                                               8)
+            out = lora_sgmv(x, a_pool, b_pool, ids)
+            torch.cuda.synchronize()
+            ref = lora_sgmv_plain(x, a_pool, b_pool, ids)
+            tag = f"sgmv {str(dtype)[6:]} {target} ({din}->{dout})"
+            if out.dtype != torch.float32 or tuple(out.shape) != (8, dout):
+                fail(f"{tag}: output {out.dtype} {tuple(out.shape)}")
+            zero = (ids == 0).nonzero().flatten().tolist()
+            if not zero or not all(bool((out[i] == 0).all()) for i in zero):
+                fail(f"{tag}: an identity row is not exact zeros")
+            if dtype == torch.float32:
+                errs[(dtype, target)] = check_close(tag, out, ref, dtype)
+            else:
+                # relative to each output row's own scale
+                scale = ref.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
+                errs[(dtype, target)] = max_err(out, ref)
+                check_close(tag + " / row scale", out / scale, ref / scale,
+                            dtype)
+                check_t_rounding(tag, out, ref, scale,
+                                 sgmv_unrounded(x, a_pool, b_pool, ids))
+    log("phase 3c: sgmv timing (bf16), B = 8 and B = 64")
+    shapes = {}
+    for b in (8, 64):
+        for target, (din, dout) in LORA_SHAPES.items():
+            x, a_pool, b_pool, ids = sgmv_case(device, gen, torch.bfloat16,
+                                               din, dout, b)
+            nbytes, flops = sgmv_work(x, a_pool, b_pool, ids)
+            b_ms, b_by = bound(nbytes, flops, torch.bfloat16)
+            shapes[f"{target} B={b}"] = dict(
+                ms=timer.ms(lambda: lora_sgmv(x, a_pool, b_pool, ids)),
+                plain_ms=timer.ms(
+                    lambda: lora_sgmv_plain(x, a_pool, b_pool, ids)
+                ),
+                device_ms=timer.ms(lambda: lora_sgmv(x, a_pool, b_pool, ids),
+                                   spin=True),
+                bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
+                bound_flops=flops,
+            )
+            log(f"  {target} B={b}: {json.dumps(shapes[f'{target} B={b}'])}")
+    host = sgmv_host_costs(device, gen)
+    log(f"  host time per call: {json.dumps(host)}")
+    head = shapes["inter_w B=8"]  # the widest target at the serving batch
+    report["sgmv"] = dict(
+        name="sgmv", route="cuda", source=SGMV_SOURCE, replaces=SGMV_TPU,
+        tpu_kernel=SGMV_TPU,
+        shape="inter_w 768->3072, rank 16, B=8, pool rows 5, bf16",
+        max_abs_err=max(errs[(torch.bfloat16, t)] for t in LORA_SHAPES),
+        max_abs_err_f32=max(errs[(torch.float32, t)] for t in LORA_SHAPES),
+        ms=head["ms"], plain_ms=head["plain_ms"],
+        library_ms=None, library=None,
+        bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+        bound_bytes=head["bound_bytes"], bound_flops=head["bound_flops"],
+        by_shape=shapes,
+        device_ms=head["device_ms"], device_ms_kind="CUDA events around "
+        "one call queued behind a device spin: the kernel alone, without "
+        "the host wrapper and launch that ms includes",
+        host_us_per_call=host,
+    )
+    return report
+
+
+def sgmv_host_costs(device, gen, calls=200):
+    """Host wall time per call, in microseconds, of the SGMV wrapper, of
+    apply_lora's fused decode path around it (B=8) and of its gathered
+    path at the prefill shape (1 x 1024 tokens), each called ``calls``
+    times back to back with one synchronize at the end (the device keeps
+    up, so the host's call rate is what is measured)."""
+    from deepspeed_tpu_torch.ops.decode_attention import lora_sgmv
+    from deepspeed_tpu_torch.ops.transformer import apply_lora
+
+    din, dout = LORA_SHAPES["inter_w"]
+    x, a_pool, b_pool, ids = sgmv_case(device, gen, torch.bfloat16, din,
+                                       dout, 8)
+    lora = ({"inter_w": (a_pool, b_pool)}, ids, 1.0, True)
+    x3 = x[:, None, :]
+    y3 = torch.zeros(8, 1, dout, dtype=torch.bfloat16, device=device)
+    xp = torch.randn(1, 1024, din, device=device,
+                     generator=gen).to(torch.bfloat16)
+    yp = torch.zeros(1, 1024, dout, dtype=torch.bfloat16, device=device)
+    lora_p = ({"inter_w": (a_pool, b_pool)}, ids[1:2], 1.0, True)
+    cases = {
+        "lora_sgmv": lambda: lora_sgmv(x, a_pool, b_pool, ids),
+        "apply_lora_fused_decode": lambda: apply_lora(
+            None, None, lora, "inter_w", x3, y3),
+        "apply_lora_gathered_prefill": lambda: apply_lora(
+            None, None, lora_p, "inter_w", xp, yp),
+    }
+    out = {}
+    for name, fn in cases.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        out[name] = (t1 - t0) / calls * 1e6
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the serving slice
 # ---------------------------------------------------------------------------
 def prompts_for(seed, vocab):
@@ -603,24 +821,28 @@ def serve(model, dtype, fused, prompts, hit):
         t0 = time.monotonic()
         out = engine.generate(prompts, max_new_tokens=32)
         out += engine.generate([hit], max_new_tokens=32)
-        wall = time.monotonic() - t0
-        m = engine.metrics
-        stats = {
-            "wall_s": wall,
-            "cold_prefills": m.counter("infer/prefix_misses").value,
-            "prefix_hits": m.counter("infer/prefix_hits").value,
-            "decode_steps": m.histogram("infer/token_latency_ms").count,
-            "decode_ms_sum": m.histogram("infer/token_latency_ms").sum,
-            "tokens": m.counter("infer/tokens_generated").value,
-            "requests": m.counter("infer/requests_completed").value,
-            "ttft_ms_mean": m.histogram("infer/ttft_ms").sum
-            / max(1, m.histogram("infer/ttft_ms").count),
-            "prefill_ms_mean": m.histogram("infer/prefill_time_ms").sum
-            / max(1, m.histogram("infer/prefill_time_ms").count),
-        }
-        return out, stats
+        return out, engine_stats(engine, time.monotonic() - t0)
     finally:
         engine.close()
+
+
+def engine_stats(engine, wall):
+    """What a serving run counted: prefills, prefix hits, decode steps and
+    their summed wall time, tokens, requests, mean TTFT and prefill."""
+    m = engine.metrics
+    return {
+        "wall_s": wall,
+        "cold_prefills": m.counter("infer/prefix_misses").value,
+        "prefix_hits": m.counter("infer/prefix_hits").value,
+        "decode_steps": m.histogram("infer/token_latency_ms").count,
+        "decode_ms_sum": m.histogram("infer/token_latency_ms").sum,
+        "tokens": m.counter("infer/tokens_generated").value,
+        "requests": m.counter("infer/requests_completed").value,
+        "ttft_ms_mean": m.histogram("infer/ttft_ms").sum
+        / max(1, m.histogram("infer/ttft_ms").count),
+        "prefill_ms_mean": m.histogram("infer/prefill_time_ms").sum
+        / max(1, m.histogram("infer/prefill_time_ms").count),
+    }
 
 
 def phase_profile(model, prompts):
@@ -652,7 +874,7 @@ def phase_profile(model, prompts):
 # kernel-name fragments of the port's own kernels and of cuBLAS's GEMMs
 OWN_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                "flash_bwd_dkv_kernel", "paged_decode_kernel",
-               "lamb_phase1_kernel")
+               "lamb_phase1_kernel", "sgmv_kernel")
 GEMM_KERNELS = ("gemm", "nvjet", "cutlass", "xmma")
 
 
@@ -673,9 +895,14 @@ def device_breakdown(prof, wall_ms):
     )
     busy_ms = sum(ms for _, ms, _ in device)
     by_class = {"port_kernels": 0.0, "gemm": 0.0, "other": 0.0}
-    for name, ms, _ in device:
+    own = {k: 0.0 for k in OWN_KERNELS}
+    own_calls = {k: 0 for k in OWN_KERNELS}
+    for name, ms, n in device:
         if any(k in name for k in OWN_KERNELS):
             by_class["port_kernels"] += ms
+            kernel = next(k for k in OWN_KERNELS if k in name)
+            own[kernel] += ms
+            own_calls[kernel] += n
         elif any(k in name.lower() for k in GEMM_KERNELS):
             by_class["gemm"] += ms
         else:
@@ -685,6 +912,8 @@ def device_breakdown(prof, wall_ms):
         "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
         "device_ms_by_class": by_class,
+        "device_ms_by_own_kernel": own,
+        "calls_by_own_kernel": own_calls,
         "top_device_ms": [
             {"name": name[:80], "ms": ms, "calls": n}
             for name, ms, n in device[:8]
@@ -694,8 +923,6 @@ def device_breakdown(prof, wall_ms):
 
 def phase_slice(seed, card):
     from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
-    from deepspeed_tpu_torch.ops.attention import flash_fwd
-    from deepspeed_tpu_torch.ops.decode_attention import paged_flash_decode
 
     cfg = GPT2Config.small()
     model = GPT2LMHeadModel(cfg, device="cuda", seed=seed)
@@ -705,13 +932,13 @@ def phase_slice(seed, card):
     serve(model, "bf16", True, [prompts[0]], prompts[0][:8])
 
     log("phase 4: GPT-2 small, bf16, paged KV, fused decode")
-    flash_fwd.launches = 0
-    paged_flash_decode.launches = 0
+    zero_launches()
     out_bf16, st = serve(model, "bf16", True, prompts, hit)
     torch.cuda.synchronize()
-    launches = {"flash_fwd": flash_fwd.launches,
-                "paged_decode": paged_flash_decode.launches}
+    launches = read_launches()
     log(f"  launches {launches} stats {json.dumps(st)}")
+    if launches["sgmv"] or launches["flash_bwd_dq"] or launches["lamb_phase1"]:
+        fail(f"the adapter-free serving run launched {launches}")
     if st["prefix_hits"] < 1:
         fail("the 5th prompt did not hit the prefix cache")
     if launches["flash_fwd"] < N_LAYER * st["cold_prefills"]:
@@ -775,10 +1002,15 @@ TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 def launch_counters():
     from deepspeed_tpu_torch.ops import attention as A
+    from deepspeed_tpu_torch.ops.decode_attention import (
+        lora_sgmv,
+        paged_flash_decode,
+    )
     from deepspeed_tpu_torch.ops.fused_lamb import lamb_phase1
 
     return {"flash_fwd": A.flash_fwd, "flash_bwd_dq": A.flash_bwd_dq,
-            "flash_bwd_dkv": A.flash_bwd_dkv, "lamb_phase1": lamb_phase1}
+            "flash_bwd_dkv": A.flash_bwd_dkv, "lamb_phase1": lamb_phase1,
+            "paged_decode": paged_flash_decode, "sgmv": lora_sgmv}
 
 
 def zero_launches():
@@ -833,6 +1065,7 @@ def run_windows(engine, micro, n):
 def check_launches(path, got, micro_steps, lamb_steps=0):
     want = {name: N_LAYER * micro_steps for name in TRAIN_KERNELS}
     want["lamb_phase1"] = 6 * lamb_steps
+    want["paged_decode"] = want["sgmv"] = 0
     log(f"  launches {got} (want {want})")
     if got != want:
         fail(f"{path}: kernel launches {got} differ from {want}")
@@ -984,6 +1217,251 @@ def phase_train(seed, card):
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the multi-LoRA slice (LoRA fine-tune, adapter serving)
+# ---------------------------------------------------------------------------
+ADAPTER_PARAMS = 2_359_296  # 12 layers x 16 x (768+2304 + 768+768 + 768+3072 + 3072+768)
+
+
+def lora_finetune(seed):
+    """initialize() with the adapters block on GPT-2 small, 4 windows of
+    Adam. Returns the (armed) model, its base state, the tuned adapter
+    state, the launches and the stats."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
+    from deepspeed_tpu_torch.adapters import is_lora_name
+
+    cfg = GPT2Config.small(dropout=DROPOUT)
+    micro = train_batches(seed + 1, cfg.vocab_size)
+    model = GPT2LMHeadModel(cfg, device="cuda", seed=seed)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    config = {
+        "train_batch_size": 16, "train_micro_batch_size_per_gpu": 8,
+        "gradient_accumulation_steps": 2, **BF16, "gradient_clipping": 1.0,
+        "optimizer": {"type": "Adam", "params": {"lr": 1e-3}},
+        "adapters": {"enabled": True, "rank": LORA_RANK},
+        "steps_per_print": 1000,
+    }
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=model, config_params=config
+    )
+    n_train = sum(p.numel() for p in engine.params.values())
+    log(f"  trainable parameters {n_train} (want {ADAPTER_PARAMS}), "
+        f"{len(engine.frozen_base_params)} base tensors frozen")
+    if n_train != ADAPTER_PARAMS or not all(
+        is_lora_name(n) for n in engine.params
+    ):
+        fail("LoRA fine-tune: the trainable set is not the adapter")
+    zero_launches()
+    losses, secs = run_windows(engine, micro, 4)
+    launches = read_launches()
+    check_launches("LoRA fine-tune", launches, engine.micro_steps)
+    log(f"  losses {losses}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"LoRA fine-tune: the loss is not finite and falling {losses}")
+    if engine.global_steps != 4 or engine.skipped_steps:
+        fail(f"LoRA fine-tune: {engine.global_steps} steps taken, "
+             f"{engine.skipped_steps} skipped of 4")
+    for n, p in model.named_parameters():
+        if is_lora_name(n):
+            continue
+        if not torch.equal(p, before[n]) or not torch.equal(
+            engine.frozen_base_params[n], before[n].to(torch.bfloat16)
+        ):
+            fail(f"LoRA fine-tune: base tensor {n} changed")
+    log(f"  base bitwise unchanged ({len(before)} tensors)")
+    adapter = engine.adapter_state_dict()
+    if not any(t.any() for n, t in adapter.items() if n.endswith("_lora_b")):
+        fail("LoRA fine-tune: the B factors did not move")
+    warm = sorted(secs[1:])
+    stats = {"losses": losses, "window_s": secs,
+             "step_ms": warm[len(warm) // 2] * 1e3,
+             "trainable_params": n_train}
+    del engine
+    torch.cuda.empty_cache()
+    return model, before, adapter, launches, stats
+
+
+def synthetic_adapter(base, seed):
+    """A nonzero adapter from ``seed``: init_lora_params' A ~ N(0, 0.02),
+    and B ~ N(0, 0.1) in place of its zeros."""
+    from deepspeed_tpu_torch.adapters import init_lora_params
+
+    g = torch.Generator().manual_seed(seed)
+    state = init_lora_params(base, LORA_RANK, generator=g)
+    for name, t in state.items():
+        if name.endswith("_lora_b"):
+            t.copy_(torch.randn(t.shape, generator=g) * 0.1)
+    return state
+
+
+def adapter_engine(model, base, dtype, fused, adapters, prefix_cache=True):
+    """An engine serving ``base`` with the adapters block and ``adapters``
+    ({name: state}) loaded, or adapter-free when ``adapters`` is None."""
+    import deepspeed_tpu_torch
+
+    config = engine_config(dtype, fused)
+    if not prefix_cache:
+        config["inference"]["prefix_cache"] = {"enabled": False}
+    if adapters is not None:
+        config["adapters"] = {"enabled": True, "rank": LORA_RANK,
+                              "pool_slots": LORA_POOL_SLOTS}
+    engine = deepspeed_tpu_torch.init_inference(
+        model=model, model_parameters=base, config=config
+    )
+    for name, state in (adapters or {}).items():
+        engine.load_adapter(name, adapter_state=state)
+    return engine
+
+
+def run_batch(engine, prompts, names, max_new):
+    """One batch of requests, ``names[i]`` the adapter of prompt i."""
+    t0 = time.monotonic()
+    reqs = [engine.submit(p, max_new_tokens=max_new, adapter=n)
+            for p, n in zip(prompts, names)]
+    engine.scheduler.run_until_idle()
+    torch.cuda.synchronize()
+    out = [r.result() for r in reqs]
+    return out, engine_stats(engine, time.monotonic() - t0)
+
+
+def decode_rate(st):
+    return (st["tokens"] - st["requests"]) / (st["decode_ms_sum"] / 1e3)
+
+
+def phase_adapters(seed, card):
+    from deepspeed_tpu_torch.adapters import split_lora_params
+
+    log("phase 6: LoRA fine-tune, GPT-2 small, rank 16, bf16, 4 windows")
+    model, base, tuned, ft_launches, ft_stats = lora_finetune(seed)
+    base = split_lora_params(base)[0]
+    adapters = {"tuned": tuned,
+                "syn1": synthetic_adapter(base, seed + 11),
+                "syn2": synthetic_adapter(base, seed + 12)}
+    g = torch.Generator().manual_seed(seed + 3)
+    prompts = [torch.randint(0, model.config.vocab_size, (n,),
+                             generator=g).tolist()
+               for n in (16, 77, 180, 300, 40, 120, 250, 64)]
+    names = ["tuned", "syn1", "syn2", None] * 2
+    base_idx = [i for i, n in enumerate(names) if n is None]
+
+    log("phase 6: warm-up")
+    eng = adapter_engine(model, base, "bf16", True, adapters)
+    run_batch(eng, prompts[:2], names[:2], 2)
+    eng.close()
+
+    log("phase 6: serve 8 requests (3 adapters + base), bf16, fused decode")
+    eng = adapter_engine(model, base, "bf16", True, adapters)
+    zero_launches()
+    out, st = run_batch(eng, prompts, names, 32)
+    serve_launches = read_launches()
+    snap = eng.load_snapshot()
+    eng.close()
+    steps = st["decode_steps"]
+    log(f"  launches {serve_launches} stats {json.dumps(st)}")
+    want = {"sgmv": 4 * N_LAYER * steps, "paged_decode": N_LAYER * steps,
+            "flash_fwd": N_LAYER * st["cold_prefills"]}
+    for name, n in want.items():
+        if serve_launches[name] != n:
+            fail(f"adapter serving: {name} launched {serve_launches[name]} "
+                 f"times, want {n} ({steps} decode steps, "
+                 f"{st['cold_prefills']} cold prefills)")
+    log(f"  sgmv launched {serve_launches['sgmv']} = 48 x {steps} decode "
+        "steps")
+    if st["requests"] != 8 or any(len(o) != 32 for o in out):
+        fail(f"adapter serving: expected 8 x 32 tokens, got "
+             f"{[len(o) for o in out]}")
+    if snap["adapter_requests"] != {"tuned": 2, "syn1": 2, "syn2": 2}:
+        fail(f"adapter serving: per-adapter counts {snap['adapter_requests']}")
+
+    log("phase 6: the same batch on an adapter-free engine")
+    eng = adapter_engine(model, base, "bf16", True, None)
+    zero_launches()
+    plain_out, plain_st = run_batch(eng, prompts, [None] * 8, 32)
+    if read_launches()["sgmv"]:
+        fail("the adapter-free engine launched sgmv")
+    eng.close()
+    for i in base_idx:
+        if out[i] != plain_out[i]:
+            fail(f"request {i} (base model) differs from the adapter-free "
+                 "engine's tokens")
+    if all(out[i] == plain_out[i] for i in range(8) if names[i] != "tuned"):
+        fail("the synthetic adapters did not change any request's tokens")
+    log(f"  base requests {base_idx} equal the adapter-free engine's")
+
+    log("phase 6: mixed batch vs solo runs (prefix cache off)")
+    eng = adapter_engine(model, base, "bf16", True, adapters,
+                         prefix_cache=False)
+    mixed, _ = run_batch(eng, prompts, names, 16)
+    for i, (p, n) in enumerate(zip(prompts, names)):
+        solo = eng.generate([p], max_new_tokens=16, adapter=n)[0]
+        if solo != mixed[i]:
+            fail(f"request {i} (adapter {n}): the mixed batch differs from "
+                 "its solo run")
+    eng.close()
+    log("  mixed == solo for all 8 requests")
+
+    log("phase 6: float32, fused decode on and off")
+    outs = []
+    for fused in (True, False):
+        eng = adapter_engine(model, base, "fp32", fused, adapters)
+        outs.append(run_batch(eng, prompts, names, 32)[0])
+        eng.close()
+    for i, (a, b) in enumerate(zip(*outs)):
+        if a != b:
+            step = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            fail(f"request {i} (adapter {names[i]}): fused and unfused "
+                 f"greedy tokens differ at step {step}")
+    log("  fused == unfused for all 8 requests")
+
+    log("phase 6: profile of a warm adapter decode window")
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = adapter_engine(model, base, "bf16", True, adapters)
+    _, warm_st = run_batch(eng, prompts[:2], names[:2], 2)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        _, prof_st = run_batch(eng, prompts, names, 16)
+        wall_ms = (time.monotonic() - t0) * 1e3
+    eng.close()
+    prof_steps = prof_st["decode_steps"] - warm_st["decode_steps"]
+    prof = device_breakdown(prof, wall_ms)
+    sgmv_ms = prof["device_ms_by_own_kernel"]["sgmv_kernel"]
+    sgmv_share = sgmv_ms / prof["device_busy_ms"]
+    log(json.dumps({"adapter_profile": prof}))
+    log(f"  sgmv {sgmv_ms:.3f} ms of {prof['device_busy_ms']:.3f} ms device "
+        f"busy ({sgmv_share:.4f}) over {prof_steps} decode steps "
+        f"({sgmv_ms / prof_steps:.4f} ms a step) in a {wall_ms:.1f} ms "
+        f"window on {card}")
+
+    stats = {
+        "finetune": ft_stats,
+        "ttft_ms_mean": st["ttft_ms_mean"],
+        "decode_tokens_per_s": decode_rate(st),
+        "decode_steps": steps,
+        "cold_prefills": st["cold_prefills"],
+        "no_adapters_ttft_ms_mean": plain_st["ttft_ms_mean"],
+        "no_adapters_decode_tokens_per_s": decode_rate(plain_st),
+        "sgmv_launches_per_decode_step": serve_launches["sgmv"] / steps,
+        "profile_sgmv_device_ms": sgmv_ms,
+        "profile_sgmv_us_per_launch": sgmv_ms * 1e3
+        / max(1, prof["calls_by_own_kernel"]["sgmv_kernel"]),
+        "profile_sgmv_share_of_busy": sgmv_share,
+        "profile_decode_steps": prof_steps,
+        "profile_sgmv_ms_per_decode_step": sgmv_ms / prof_steps,
+        "profile_device_busy_ms": prof["device_busy_ms"],
+        "profile_device_idle_share": prof["device_idle_share"],
+        "profile_wall_ms": wall_ms,
+    }
+    log(f"  TTFT mean {st['ttft_ms_mean']:.3f} ms with adapters, "
+        f"{plain_st['ttft_ms_mean']:.3f} ms without; decode "
+        f"{stats['decode_tokens_per_s']:.1f} tokens/s with, "
+        f"{stats['no_adapters_decode_tokens_per_s']:.1f} without, on {card}")
+    return ({"adapters_finetune": ft_launches,
+             "adapters_serve": serve_launches}, stats)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1018,10 +1496,14 @@ def main():
 
     kernels = phase_kernels(device, args.seed)
     phase_train_kernels(device, args.seed, kernels)
+    phase_sgmv_kernels(device, args.seed, kernels)
     serve_launches, slice_stats = phase_slice(args.seed, smi)
     launches, train_stats = phase_train(args.seed, smi)
-    launches["flash_fwd"]["serve"] = serve_launches["flash_fwd"]
-    launches["paged_decode"] = {"serve": serve_launches["paged_decode"]}
+    adapter_launches, adapter_stats = phase_adapters(args.seed, smi)
+    for path, counts in [("serve", serve_launches),
+                         *adapter_launches.items()]:
+        for name, n in counts.items():
+            launches[name][path] = n
     for name, by_path in launches.items():
         kernels[name]["launches"] = sum(by_path.values())
         kernels[name]["launches_by_path"] = by_path
@@ -1031,7 +1513,16 @@ def main():
     kernels["paged_decode"]["launches_per_decode_step"] = (
         serve_launches["paged_decode"] / slice_stats["decode_steps"]
     )
-    log(json.dumps({"slice": slice_stats, "train": train_stats, "card": smi}))
+    kernels["sgmv"]["launches_per_decode_step"] = (
+        adapter_stats["sgmv_launches_per_decode_step"]
+    )
+    # device time of one decode step's 48 launches, from the profiled
+    # window of the main path (L2 warm, as decode finds it)
+    kernels["sgmv"]["decode_step_ms"] = (
+        adapter_stats["profile_sgmv_ms_per_decode_step"]
+    )
+    log(json.dumps({"slice": slice_stats, "train": train_stats,
+                    "adapters": adapter_stats, "card": smi}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,19 +2,22 @@
 
 The JAX package (``deepspeed_tpu``) stays the reference; this package
 ports it slice by slice to PyTorch, with every Pallas kernel on a
-slice's path rewritten by hand in CUDA C++ for Hopper (``csrc/``). Two
+slice's path rewritten by hand in CUDA C++ for Hopper (``csrc/``). Three
 slices are ported: GPT-2 serving (``init_inference`` over the paged KV
-cache with the prefix cache and fused decode attention) and single-device
+cache with the prefix cache and fused decode attention), single-device
 training (``initialize``: the engine, Adam/LAMB/FusedLamb, loss scaling,
-LR schedules, flash attention's backward and dropout). The package
-imports ``torch`` and never ``jax`` or ``deepspeed_tpu``.
+LR schedules, flash attention's backward and dropout), and multi-LoRA
+(the ``adapters`` block: LoRA fine-tune on a frozen base in
+``initialize``, and an adapter pool served through the SGMV kernel in
+``init_inference``). The package imports ``torch`` and never ``jax`` or
+``deepspeed_tpu``.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``,
 which runs each kernel's plain PyTorch version instead.
 """
 
 from .config.config import DeepSpeedConfig, DeepSpeedConfigError
-from .convert import params_from_jax
+from .convert import adapters_from_jax, params_from_jax
 from .inference.engine import InferenceEngine, init_inference
 from .models.gpt2 import GPT2Config, GPT2LMHeadModel
 from .runtime.engine import DeepSpeedEngine, EngineOptimizerFacade
@@ -43,6 +46,7 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
 
 
 __all__ = [
+    "adapters_from_jax",
     "DeepSpeedConfig",
     "DeepSpeedConfigError",
     "DeepSpeedEngine",

@@ -1,8 +1,9 @@
-"""Config parser for the port: the serving and training blocks.
+"""Config parser for the port: the serving, training and adapters blocks.
 
-The ``inference`` block and the training blocks (the batch triangle,
-``optimizer``, ``scheduler``, ``fp16``/``bf16``, ``gradient_clipping``,
-``zero_optimization``, ``steps_per_print``, ``data_types``) of the JAX
+The ``inference`` block, the ``adapters`` block and the training blocks
+(the batch triangle, ``optimizer``, ``scheduler``, ``fp16``/``bf16``,
+``gradient_clipping``, ``zero_optimization``, ``steps_per_print``,
+``data_types``) of the JAX
 package's DeepSpeedConfig (deepspeed_tpu/config/config.py), with the same
 keys, defaults and rejections: a config the JAX package refuses, this
 one refuses too. The batch triangle is resolved only for a training
@@ -57,11 +58,28 @@ class DeepSpeedConfig:
             self._configure_batch_parameters()
             self._check_training()
         self._check_inference()
+        self._check_adapters()
 
     def _initialize(self, pd):
+        # adapters block (adapters/, docs/adapters.md)
+        ad_dict = get_dict_param(pd, C.ADAPTERS)
         self.adapters_enabled = get_scalar_param(
-            get_dict_param(pd, C.ADAPTERS), C.ADAPTERS_ENABLED,
-            C.ADAPTERS_ENABLED_DEFAULT,
+            ad_dict, C.ADAPTERS_ENABLED, C.ADAPTERS_ENABLED_DEFAULT
+        )
+        self.adapters_rank = get_scalar_param(
+            ad_dict, C.ADAPTERS_RANK, C.ADAPTERS_RANK_DEFAULT
+        )
+        self.adapters_alpha = get_scalar_param(
+            ad_dict, C.ADAPTERS_ALPHA, C.ADAPTERS_ALPHA_DEFAULT
+        )
+        targets = ad_dict.get(C.ADAPTERS_TARGETS, C.ADAPTERS_TARGETS_DEFAULT)
+        # keep non-list values (a bare "attn_qkvw" would list() into
+        # characters) for _check_adapters to reject with a config error
+        self.adapters_targets = (
+            list(targets) if isinstance(targets, (list, tuple)) else targets
+        )
+        self.adapters_pool_slots = get_scalar_param(
+            ad_dict, C.ADAPTERS_POOL_SLOTS, C.ADAPTERS_POOL_SLOTS_DEFAULT
         )
         self._initialize_training(pd)
 
@@ -744,3 +762,62 @@ class DeepSpeedConfig:
                     f"page granularity (set {C.INFERENCE_KV_BLOCK_SIZE} "
                     f"> 0)"
                 )
+
+    def _check_adapters(self):
+        """Validate the adapters block (docs/adapters.md): a typo'd
+        target name or a zero rank must fail at initialize()/
+        init_inference(), not as a partially-adapted model that silently
+        trains or serves the wrong matrices."""
+        ad = C.ADAPTERS
+        if not isinstance(self.adapters_enabled, bool):
+            raise DeepSpeedConfigError(
+                f"{ad}.{C.ADAPTERS_ENABLED} must be a boolean, got "
+                f"{self.adapters_enabled!r}"
+            )
+        rank = self.adapters_rank
+        if not isinstance(rank, int) or isinstance(rank, bool) or rank < 1:
+            raise DeepSpeedConfigError(
+                f"{ad}.{C.ADAPTERS_RANK} must be an integer >= 1, got "
+                f"{rank!r}"
+            )
+        alpha = self.adapters_alpha
+        if (
+            not isinstance(alpha, (int, float))
+            or isinstance(alpha, bool)
+            or alpha < 0
+        ):
+            raise DeepSpeedConfigError(
+                f"{ad}.{C.ADAPTERS_ALPHA} must be a number >= 0 "
+                f"(0 = rank, scaling 1.0), got {alpha!r}"
+            )
+        targets = self.adapters_targets
+        if targets is not None:
+            from ..ops.transformer import LORA_TARGETS
+
+            if (
+                not isinstance(targets, list)
+                or not targets
+                or not all(isinstance(t, str) for t in targets)
+            ):
+                raise DeepSpeedConfigError(
+                    f"{ad}.{C.ADAPTERS_TARGETS} must be a non-empty list "
+                    f"of projection names or null (null = all of "
+                    f"{list(LORA_TARGETS)}), got {targets!r}"
+                )
+            unknown = [t for t in targets if t not in LORA_TARGETS]
+            if unknown:
+                raise DeepSpeedConfigError(
+                    f"{ad}.{C.ADAPTERS_TARGETS}: unknown target(s) "
+                    f"{unknown}; valid: {list(LORA_TARGETS)}"
+                )
+            if len(set(targets)) != len(targets):
+                raise DeepSpeedConfigError(
+                    f"{ad}.{C.ADAPTERS_TARGETS}: duplicate targets in "
+                    f"{targets}"
+                )
+        slots = self.adapters_pool_slots
+        if not isinstance(slots, int) or isinstance(slots, bool) or slots < 1:
+            raise DeepSpeedConfigError(
+                f"{ad}.{C.ADAPTERS_POOL_SLOTS} must be an integer >= 1 "
+                f"loadable adapters, got {slots!r}"
+            )

@@ -293,9 +293,34 @@ INFERENCE_CHECKPOINT_TAG = "tag"
 INFERENCE_CHECKPOINT_TAG_DEFAULT = None  # None => the 'latest' pointer
 
 #############################################
-# Blocks the port parses only to refuse them (not yet ported).
+# Multi-tenant LoRA adapters (adapters/, docs/adapters.md): one base
+# model, per-tenant rank-r A/B pairs. In initialize() the block freezes
+# the base and trains ONLY the adapter factors; in init_inference() it
+# allocates the device adapter pool that batched multi-LoRA decode reads
+# per slot (the SGMV kernel under inference.fused_decode).
 #############################################
 ADAPTERS = "adapters"
 ADAPTERS_ENABLED = "enabled"
 ADAPTERS_ENABLED_DEFAULT = False
+# Low-rank dimension r of every A [in, r] / B [r, out] pair.
+ADAPTERS_RANK = "rank"
+ADAPTERS_RANK_DEFAULT = 8
+# Delta scaling numerator: delta = (alpha / rank) * x @ A @ B.
+# 0 => alpha = rank (scaling 1.0).
+ADAPTERS_ALPHA = "alpha"
+ADAPTERS_ALPHA_DEFAULT = 0.0
+# Projection matrices adapted (ops/transformer.py LORA_TARGETS).
+# null => all four: attn_qkvw, attn_ow, inter_w, output_w.
+ADAPTERS_TARGETS = "targets"
+ADAPTERS_TARGETS_DEFAULT = None
+# Serving only: loadable slots in the device adapter pool (id 0, the
+# all-zeros identity, rides extra). Loading past this evicts the
+# least-recently-used IDLE adapter; a pool whose every adapter has live
+# requests rejects the load.
+ADAPTERS_POOL_SLOTS = "pool_slots"
+ADAPTERS_POOL_SLOTS_DEFAULT = 8
+
+#############################################
+# Blocks the port parses only to refuse them (not yet ported).
+#############################################
 MESH = "mesh"

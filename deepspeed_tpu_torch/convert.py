@@ -4,8 +4,11 @@ The JAX tree (``GPT2LMHeadModel.init(...)["params"]``, as numpy arrays)
 is ``transformer/{wte, wpe, ln_f/{scale, bias}, h/<12 keys>}``: the block
 parameters are stacked over layers (``[L, ...]``) and the weight matrices
 are ``[in, out]`` (``x @ W``). The port keeps one module per layer and
-stores weights ``[out, in]`` (``F.linear``). This module is the only
-place that knows about that transpose.
+stores the base weights ``[out, in]`` (``F.linear``): :func:`params_from_jax`
+is the only place that transposes them. The LoRA factors keep the JAX
+orientation, A ``[in, r]`` and B ``[r, out]`` (delta = ``(x @ A) @ B``),
+in the adapter pool and in per-layer parameters alike, so
+:func:`adapters_from_jax` only unstacks layers and never transposes.
 """
 
 import numpy as np
@@ -37,4 +40,22 @@ def params_from_jax(tree):
             if name in _MATRICES:
                 leaf = leaf.T
             state[f"h.{i}.{name}"] = tensor(leaf)
+    return state
+
+
+def adapters_from_jax(tree):
+    """JAX adapter tree (``init_lora_params`` output, or a LoRA fine-tune
+    engine's ``engine.params``, as numpy) -> the port's adapter state dict
+    ``{"h.<i>.<target>_lora_a": [in, r], "h.<i>.<target>_lora_b": [r,
+    out]}`` (float32 CPU tensors): the layer stacks split per layer, the
+    factors untransposed."""
+    state = {}
+    for name, stacked in tree["transformer"]["h"].items():
+        if not name.endswith(("_lora_a", "_lora_b")):
+            continue
+        stacked = np.asarray(stacked)
+        for i in range(stacked.shape[0]):
+            state[f"h.{i}.{name}"] = torch.from_numpy(
+                np.array(stacked[i], dtype=np.float32)
+            )
     return state

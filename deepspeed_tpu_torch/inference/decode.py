@@ -19,6 +19,12 @@ with page 0 the never-allocated NULL page. Unlike the JAX package, whose
 functions return a new pool, every function here that writes the pool
 writes it IN PLACE and returns the same ``KVPool``. The contiguous cache
 (``kv_block_size: 0``) is not ported yet.
+
+Multi-LoRA serving: every function takes an optional adapter pool
+(:func:`init_adapter_pool`) with per-request ``adapter_ids``; each layer
+hands its slice of the pool to the block as ``apply_lora``'s batched
+source, and decode routes those deltas through the SGMV kernel when
+``fused``.
 """
 
 import typing
@@ -26,6 +32,7 @@ import typing
 import torch
 
 from ..ops.transformer import (
+    resolve_lora_targets,
     transformer_block_apply,
     transformer_block_decode_paged,
     transformer_block_prefill_paged,
@@ -68,19 +75,58 @@ def init_kv_pool(config, num_blocks, block_size, dtype=torch.float32,
     )
 
 
+def init_adapter_pool(config, n_adapters, rank, targets=None,
+                      dtype=torch.float32, device=None):
+    """Zero-filled LoRA adapter pool for a GPT2Config: ``{target: (A [L,
+    n_adapters+1, in, rank], B [L, n_adapters+1, rank, out])}`` on
+    ``device`` in ``dtype``. Row 0 is the permanent all-zeros IDENTITY
+    adapter (id 0 = no adapter; its delta is exactly 0.0); rows
+    1..n_adapters are the loadable slots the engine's AdapterPool hands
+    out. The factors keep the JAX orientation (delta = ``(x @ A) @ B``)."""
+    layer_cfg = config.layer_config()
+    rank = int(rank)
+    rows = int(n_adapters) + 1  # + the identity row
+    device = resolve_device(device)
+    out = {}
+    for t in resolve_lora_targets(targets):
+        din, dout = layer_cfg.lora_dims(t)
+        out[t] = (
+            torch.zeros((config.n_layer, rows, din, rank), dtype=dtype,
+                        device=device),
+            torch.zeros((config.n_layer, rows, rank, dout), dtype=dtype,
+                        device=device),
+        )
+    return out
+
+
+def _layer_lora(adapters, adapter_ids, lora_scale, layer, fused=False):
+    """Layer ``layer``'s batched adapter source for ``apply_lora``: that
+    layer's ``{target: (A [n+1, in, r], B [n+1, r, out])}`` rows with the
+    per-slot ids, or None with no adapter pool (the adapter-free engine
+    runs exactly the pre-adapter arithmetic)."""
+    if adapters is None:
+        return None
+    pools = {t: (a[layer], b[layer]) for t, (a, b) in adapters.items()}
+    return (pools, adapter_ids, lora_scale, fused)
+
+
 @torch.no_grad()
-def gpt2_prefill(model, tokens):
+def gpt2_prefill(model, tokens, adapters=None, adapter_ids=None,
+                 lora_scale=1.0):
     """Full-sequence forward over ``tokens`` [B, S] that also returns each
     layer's k/v projections. Returns ``(logits [B, S, vocab_padded],
     k [L, B, heads, S, hd], v [...])``. Right-padded prompts are safe
     without a mask: causality keeps padding columns out of every real
-    row."""
+    row. ``adapters``/``adapter_ids`` [B]: the prompt prefills THROUGH
+    its tenant's adapter, so the pages seeding decode already carry the
+    adapted k/v (id 0 = base model)."""
     s = tokens.shape[1]
     x = model.wte[tokens.long()] + model.wpe[None, :s, :]
     ks, vs = [], []
-    for layer in model.h:
+    for i, layer in enumerate(model.h):
         x, (k, v) = transformer_block_apply(
             model.layer_config, layer, x, None, causal=True, return_kv=True,
+            lora=_layer_lora(adapters, adapter_ids, lora_scale, i),
         )
         ks.append(k)
         vs.append(v)
@@ -103,29 +149,37 @@ def write_prefill_to_pool(pool, ks, vs, block_ids, offsets):
 
 @torch.no_grad()
 def gpt2_decode_step_paged(model, tokens, positions, pool, block_tables,
+                           adapters=None, adapter_ids=None, lora_scale=1.0,
                            fused=False):
     """One incremental token for every slot over the paged pool.
     ``tokens``/``positions`` [slots] int32; ``block_tables`` [slots,
-    max_blocks] int32 (0 = null page). ``fused`` runs each layer's
-    attention through the paged decode kernel instead of the gathered
-    view. Writes this step's k/v into ``pool`` IN PLACE. Returns
+    max_blocks] int32 (0 = null page); ``adapter_ids`` [slots] int32
+    picks each slot's LoRA adapter from ``adapters`` (0 = identity).
+    ``fused`` runs each layer's attention through the paged decode kernel
+    and the LoRA deltas through the SGMV kernel instead of the gathered
+    views. Writes this step's k/v into ``pool`` IN PLACE. Returns
     ``(logits [slots, vocab_padded], pool)``."""
     x = model.wte[tokens.long()] + model.wpe[positions.long()]
     x = x[:, None, :]  # [slots, 1, H]
-    for layer, k_pool, v_pool in zip(model.h, pool.k, pool.v):
+    for i, (layer, k_pool, v_pool) in enumerate(
+        zip(model.h, pool.k, pool.v)
+    ):
         x = transformer_block_decode_paged(
             model.layer_config, layer, x, k_pool, v_pool, block_tables,
             positions, fused=fused,
+            lora=_layer_lora(adapters, adapter_ids, lora_scale, i, fused),
         )
     return model.final_norm_and_logits(x)[:, 0, :], pool
 
 
 @torch.no_grad()
-def gpt2_prefill_suffix(model, tokens, start_pos, pool, block_tables):
+def gpt2_prefill_suffix(model, tokens, start_pos, pool, block_tables,
+                        adapters=None, adapter_ids=None, lora_scale=1.0):
     """Prefill a prompt's UNIQUE SUFFIX against its cached prefix pages
     (the prefix-cache hit path). ``tokens`` [B, S] is the suffix padded to
     a bucket, ``start_pos`` [B] the cached prefix length (whole pages).
-    Writes the suffix's k/v into ``pool`` IN PLACE. Returns ``(logits
+    Writes the suffix's k/v into ``pool`` IN PLACE. ``adapters`` /
+    ``adapter_ids`` [B] as in :func:`gpt2_prefill`. Returns ``(logits
     [B, S, vocab_padded], pool)``; row ``suffix_len-1`` seeds
     generation."""
     s = tokens.shape[1]
@@ -134,9 +188,12 @@ def gpt2_prefill_suffix(model, tokens, start_pos, pool, block_tables):
     )[None, :]
     positions = torch.clamp(positions, max=model.wpe.shape[0] - 1)
     x = model.wte[tokens.long()] + model.wpe[positions]
-    for layer, k_pool, v_pool in zip(model.h, pool.k, pool.v):
+    for i, (layer, k_pool, v_pool) in enumerate(
+        zip(model.h, pool.k, pool.v)
+    ):
         x = transformer_block_prefill_paged(
             model.layer_config, layer, x, k_pool, v_pool, block_tables,
             start_pos,
+            lora=_layer_lora(adapters, adapter_ids, lora_scale, i),
         )
     return model.final_norm_and_logits(x), pool

@@ -15,14 +15,27 @@ three layers together:
                server mode.
 
 Ported: the paged KV cache with the cross-request prefix cache, fused
-decode attention (the paged decode kernel), greedy and sampled decoding.
+decode attention (the paged decode kernel), greedy and sampled decoding,
+and multi-LoRA serving (the ``adapters`` block): a device adapter pool
+read per slot by adapter id, through the SGMV kernel in fused decode,
+with ``load_adapter(name, adapter_state=...)``, per-slot pins, idle-LRU
+eviction and prefix-cache pages salted by adapter identity.
 Not yet ported, and refused with ``DeepSpeedConfigError``: the contiguous
-cache (``kv_block_size: 0``), the host tier, adapters, speculative
-decoding, a device mesh, serving from a checkpoint, and the telemetry
-block (metrics go to a private registry, as in the JAX engine without
-that block). The fleet's hooks (tracer injection, brownout) come with
-the fleet.
+cache (``kv_block_size: 0``), the host tier, speculative decoding, a
+device mesh, serving from a checkpoint (``inference.checkpoint`` and
+``load_adapter(load_dir=...)``), and the telemetry block (metrics go to
+a private registry, as in the JAX engine without that block). The
+fleet's hooks (tracer injection, brownout) come with the fleet.
+
+Adapter pool rows are written IN PLACE (the JAX engine swaps in a new
+pool between steps). ``load_adapter`` runs on a caller's thread while
+the scheduler drives on its own, so one engine lock serializes the row
+write with prefill and decode: a reload lands between two decode steps,
+never between two layers of one.
 """
+
+import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -31,8 +44,15 @@ from ..config import constants as C
 from ..config.config import DeepSpeedConfig, DeepSpeedConfigError
 from ..config.config import not_ported as _not_ported
 from ..config.config_utils import load_config_json
+from ..adapters.lora import adapter_layer_stacks, split_lora_params
+from ..adapters.pool import AdapterPool, AdapterUnavailable
 from ..models.gpt2 import GPT2LMHeadModel
-from ..telemetry.manager import register_inference_metrics
+from ..ops.decode_attention import SGMV_MAX_RANK
+from ..ops.transformer import lora_scaling, resolve_lora_targets
+from ..telemetry.manager import (
+    register_adapter_metrics,
+    register_inference_metrics,
+)
 from ..telemetry.registry import MetricsRegistry
 from ..telemetry.tracing import NOOP_TRACER
 from ..utils.device import resolve_device
@@ -41,6 +61,7 @@ from .decode import (
     gpt2_decode_step_paged,
     gpt2_prefill,
     gpt2_prefill_suffix,
+    init_adapter_pool,
     init_kv_pool,
     write_prefill_to_pool,
 )
@@ -84,8 +105,6 @@ class InferenceEngine:
             raise _not_ported("the telemetry block")
         self.config = DeepSpeedConfig(None, param_dict=raw)
         cfg = self.config
-        if cfg.adapters_enabled:
-            raise _not_ported("multi-LoRA adapter serving (the adapters block)")
         if cfg.inference_speculative_enabled:
             raise _not_ported("speculative decoding (inference.speculative)")
         if cfg.inference_host_tier_enabled:
@@ -149,16 +168,59 @@ class InferenceEngine:
         )
         self.fused_decode = bool(cfg.inference_fused_decode)
 
-        # ---- metrics --------------------------------------------------
-        self.metrics = register_inference_metrics(MetricsRegistry())
-
-        # ---- params: copy into the serving dtype on the device --------
+        # ---- params ---------------------------------------------------
         state = (
             model.state_dict() if model_parameters is None
             else model_parameters
         )
+
+        # ---- multi-tenant LoRA geometry -------------------------------
+        self.multi_lora = bool(cfg.adapters_enabled)
+        embedded = bool(split_lora_params(state)[1])
+        serve_cfg = mcfg
+        if getattr(mcfg, "lora_rank", 0) and not embedded:
+            # a fine-tune engine armed the shared config, but these are base
+            # parameters: serve the base model (adapters, if any, come
+            # through the pool)
+            serve_cfg = dataclasses.replace(
+                mcfg, lora_rank=0, lora_alpha=0.0, lora_targets=()
+            )
+        if self.multi_lora:
+            if embedded:
+                # per-tenant adapters ride the pool; *_lora_* tensors in
+                # the params would ALSO apply per-layer — a silent double
+                # application
+                raise DeepSpeedConfigError(
+                    "multi-LoRA serving wants the BASE parameters: "
+                    "model_parameters carries *_lora_* tensors — split "
+                    "them out (adapters.split_lora_params) and load them "
+                    "with engine.load_adapter() instead"
+                )
+            self.adapter_rank = int(cfg.adapters_rank)
+            self.adapter_targets = resolve_lora_targets(cfg.adapters_targets)
+            self.adapter_scale = lora_scaling(
+                self.adapter_rank, float(cfg.adapters_alpha or 0.0)
+            )
+            self.adapter_pool_slots = int(cfg.adapters_pool_slots)
+            if self.fused_decode and self.adapter_rank > SGMV_MAX_RANK:
+                raise DeepSpeedConfigError(
+                    f"adapters.rank={self.adapter_rank} exceeds the SGMV "
+                    f"kernel's limit of {SGMV_MAX_RANK} (SGMV_MAX_RANK: its "
+                    f"[rank] float32 vector lives in shared memory); lower "
+                    f"the rank or turn inference.fused_decode off"
+                )
+        else:
+            self.adapter_rank = 0
+            self.adapter_targets = ()
+            self.adapter_scale = 1.0
+            self.adapter_pool_slots = 0
+
+        # ---- metrics --------------------------------------------------
+        self.metrics = register_inference_metrics(MetricsRegistry())
+
+        # ---- params: copy into the serving dtype on the device --------
         self.model = GPT2LMHeadModel(
-            mcfg, device=self.device, dtype=self.compute_dtype
+            serve_cfg, device=self.device, dtype=self.compute_dtype
         )
         self.model.load_state_dict(state)
         self.model.requires_grad_(False)
@@ -173,6 +235,25 @@ class InferenceEngine:
         self._slot_prefix_len = {}  # slot -> cached-prefix tokens
         self._slot_hashes = {}  # slot -> prompt's full-page hash chain
         self._cache = self._init_cache()
+        # held around prefill, decode and adapter-pool row writes
+        self._device_lock = threading.RLock()
+
+        # ---- device adapter pool + host registry ----------------------
+        # {target: (A [L, n+1, in, r], B [L, n+1, r, out])}, row 0 the
+        # permanent identity; the AdapterPool owns name -> row, per-slot
+        # refcounts and idle-LRU eviction
+        self._slot_adapter_names = {}  # slot -> adapter name
+        if self.multi_lora:
+            self._adapter_pool = init_adapter_pool(
+                mcfg, self.adapter_pool_slots, self.adapter_rank,
+                self.adapter_targets, self.compute_dtype, self.device,
+            )
+            self.adapter_registry = AdapterPool(self.adapter_pool_slots)
+            self._slot_adapters = np.zeros(self.num_slots, np.int32)
+        else:
+            self._adapter_pool = None
+            self.adapter_registry = None
+            self._slot_adapters = None
 
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(int(rng_seed))
@@ -203,6 +284,21 @@ class InferenceEngine:
         self.metrics.gauge("infer/fused_decode").set(
             1 if self.fused_decode else 0
         )
+        if self.multi_lora:
+            register_adapter_metrics(self.metrics)
+            self._adapter_occupancy = self.metrics.gauge(
+                "adapters/pool_occupancy"
+            )
+            self.metrics.gauge("adapters/pool_slots").set(
+                self.adapter_pool_slots
+            )
+            self._adapter_loads = self.metrics.counter("adapters/loads")
+            self._adapter_evictions = self.metrics.counter(
+                "adapters/evictions"
+            )
+            self._adapter_requests = self.metrics.counter(
+                "adapters/requests"
+            )
 
         # ---- scheduler ------------------------------------------------
         self.scheduler = ContinuousBatchingScheduler(
@@ -230,7 +326,12 @@ class InferenceEngine:
             f"paged KV cache ({self.kv_pool_blocks} pages x "
             f"{self.kv_block_size} tokens, prefix cache "
             f"{'on' if self.prefix_cache_enabled else 'off'}, fused decode "
-            f"{'on' if self.fused_decode else 'off'})",
+            f"{'on' if self.fused_decode else 'off'})"
+            + (
+                f", LoRA pool of {self.adapter_pool_slots} adapters at rank "
+                f"{self.adapter_rank} on {list(self.adapter_targets)}"
+                if self.multi_lora else ""
+            ),
             ranks=[0],
         )
 
@@ -282,7 +383,13 @@ class InferenceEngine:
             )
         hashes = None
         if self.prefix_cache_enabled:
-            hashes = hash_full_blocks(prompt_tokens, self.kv_block_size)
+            # salted by the slot's adapter identity: adapted prefills
+            # write adapter-specific k/v, so pages never share across
+            # adapters (or across reloads of one adapter's weights)
+            hashes = hash_full_blocks(
+                prompt_tokens, self.kv_block_size,
+                salt=self._adapter_salt(slot),
+            )
             prefix_len, shared = self.block_pool.match_prefix(
                 prompt_tokens, hashes=hashes
             )
@@ -316,7 +423,9 @@ class InferenceEngine:
     def _register_decode_pages(self, slot, final_tokens):
         """Extend the prefix registry to the full pages this request
         completed during decode, so generated continuations become
-        shareable prefixes. Runs before the slot's pages release."""
+        shareable prefixes. Runs before the slot's pages release and
+        before its adapter pin drops (the chain salt needs the adapter
+        identity)."""
         if not self.prefix_cache_enabled:
             return
         blocks = self._slot_blocks.get(slot)
@@ -330,7 +439,9 @@ class InferenceEngine:
             return
         self.block_pool.register_prefix(
             valid, blocks[:n_full],
-            hashes=hash_full_blocks(valid, self.kv_block_size),
+            hashes=hash_full_blocks(
+                valid, self.kv_block_size, salt=self._adapter_salt(slot)
+            ),
         )
 
     def release_slot(self, slot, final_tokens=None):
@@ -338,9 +449,16 @@ class InferenceEngine:
         prefix pages decref; full prompt pages stay cached for the next
         request with that prefix) and NULL its block-table row so the
         dead slot's ride-along decode writes sink into the sacrificial
-        page."""
+        page. Also drops the slot's adapter pin; its id resets to the
+        identity, so the dead slot's ride-along decode reads the zero
+        rows, never another tenant's."""
         if final_tokens is not None:
             self._register_decode_pages(slot, final_tokens)
+        if self.multi_lora:
+            name = self._slot_adapter_names.pop(slot, None)
+            if name is not None:
+                self.adapter_registry.release(name)
+            self._slot_adapters[slot] = 0
         blocks = self._slot_blocks.pop(slot, None)
         self._slot_prefix_len.pop(slot, None)
         self._slot_hashes.pop(slot, None)
@@ -371,12 +489,170 @@ class InferenceEngine:
             ),
         }
 
+    # -- multi-tenant LoRA adapters --------------------------------------
+    def _require_multi_lora(self):
+        if not self.multi_lora:
+            raise DeepSpeedConfigError(
+                'this engine has no adapter pool; enable the "adapters" '
+                "config block to serve LoRA adapters"
+            )
+
+    def load_adapter(self, name, adapter_state=None, load_dir=None,
+                     tag=None):
+        """Install (or hot-reload) tenant adapter ``name`` into the device
+        pool and return its pool row index.
+
+        ``adapter_state`` is an adapter state dict: per-layer
+        ``h.<i>.<target>_lora_a`` [in, r] / ``_lora_b`` [r, out] tensors
+        (a fine-tune engine's :meth:`DeepSpeedEngine.adapter_state_dict`,
+        or :func:`deepspeed_tpu_torch.convert.adapters_from_jax`).
+        ``load_dir`` (adapter checkpoints) is not ported yet. Loading past
+        ``adapters.pool_slots`` evicts the least-recently-used IDLE
+        adapter; a pool whose every adapter has live requests raises
+        :class:`~deepspeed_tpu_torch.adapters.AdapterPoolFull`. The row is
+        written in place under the engine lock, between decode steps."""
+        self._require_multi_lora()
+        if load_dir is not None or tag is not None:
+            raise _not_ported(
+                "load_adapter(load_dir=...): adapter checkpoints"
+            )
+        if adapter_state is None:
+            raise ValueError(
+                "pass adapter_state (an adapter state dict of "
+                "h.<i>.<target>_lora_a/_lora_b tensors)"
+            )
+        stacks = adapter_layer_stacks(adapter_state, self.adapter_targets)
+        for t, (a, b) in stacks.items():
+            la, lb = self._adapter_pool[t]
+            want = (
+                (la.shape[0], *la.shape[2:]), (lb.shape[0], *lb.shape[2:]),
+            )
+            if (tuple(a.shape), tuple(b.shape)) != want:
+                raise ValueError(
+                    f"adapter {name!r} target {t}: shapes "
+                    f"{tuple(a.shape)}/{tuple(b.shape)} do not fit the "
+                    f"pool rows {want[0]}/{want[1]} (model/rank mismatch?)"
+                )
+        with self._device_lock:
+            idx, evicted = self.adapter_registry.assign(name)
+            with torch.no_grad():
+                for t, (a, b) in stacks.items():
+                    la, lb = self._adapter_pool[t]
+                    la[:, idx].copy_(a)
+                    lb[:, idx].copy_(b)
+        self._adapter_loads.inc()
+        if evicted is not None:
+            self._adapter_evictions.inc()
+            log_dist(
+                f"adapter pool full: evicted idle adapter {evicted!r} "
+                f"for {name!r} (row {idx})", ranks=[0],
+            )
+        self._adapter_occupancy.set(self.adapter_registry.used_slots)
+        log_dist(
+            f"loaded adapter {name!r} into pool row {idx} "
+            f"({self.adapter_registry.used_slots}/"
+            f"{self.adapter_pool_slots} slots)", ranks=[0],
+        )
+        return idx
+
+    def unload_adapter(self, name):
+        """Explicitly evict ``name`` (refused while live requests decode
+        against it); frees its pool row for the next load."""
+        self._require_multi_lora()
+        idx = self.adapter_registry.remove(name)
+        self._adapter_evictions.inc()
+        self._adapter_occupancy.set(self.adapter_registry.used_slots)
+        return idx
+
+    def resolve_adapter(self, name):
+        """Submit-time validation + per-adapter accounting: returns the
+        adapter's current pool row. Raises
+        :class:`~deepspeed_tpu_torch.adapters.AdapterUnavailable` (a
+        ValueError) for a name that is not loaded."""
+        self._require_multi_lora()
+        try:
+            idx = self.adapter_registry.index_of(name)
+        except KeyError:
+            raise AdapterUnavailable(
+                f"adapter {name!r} is not loaded (loaded: "
+                f"{self.adapter_registry.loaded}); call "
+                "engine.load_adapter() first"
+            ) from None
+        self.adapter_registry.count_request(name)
+        self._adapter_requests.inc()
+        self.metrics.counter(f"adapters/requests/{name}").inc()
+        return idx
+
+    def assign_slot_adapter(self, slot, name):
+        """Slot-join hook (scheduler._admit): pin ``name`` for the slot's
+        lifetime and point the slot's adapter id at its pool row. Returns
+        False when the adapter was evicted between submit and join — the
+        scheduler fail-finishes that request instead of serving it the
+        identity (or another tenant's) weights."""
+        if not self.multi_lora:
+            return True
+        if name is None:
+            # clear any stale name too: the slot's prefix-cache salt must
+            # be the BASE salt, not a previous occupant's adapter
+            self._slot_adapter_names.pop(slot, None)
+            self._slot_adapters[slot] = 0
+            return True
+        try:
+            idx = self.adapter_registry.acquire(name)
+        except KeyError:
+            return False
+        self._slot_adapters[slot] = idx
+        self._slot_adapter_names[slot] = name
+        return True
+
+    def _adapter_salt(self, slot):
+        """Prefix-cache hash salt for the slot's adapter: cached k/v are
+        a function of the weights that wrote them, so pages only share
+        within (adapter name, load generation) — base-model pages salt
+        None, and a reloaded adapter's fresh weights never match pages
+        its old weights produced."""
+        name = self._slot_adapter_names.get(slot)
+        if name is None:
+            return None
+        return f"{name}@{self.adapter_registry.generation_of(name)}"
+
+    def adapter_snapshot(self):
+        """Adapter-pool state for ``load_snapshot()``."""
+        if not self.multi_lora:
+            return {}
+        reg = self.adapter_registry
+        return {
+            "adapters_loaded": reg.loaded,
+            "adapter_pool_slots": self.adapter_pool_slots,
+            "adapter_pool_used": reg.used_slots,
+            "adapter_loads": reg.loads,
+            "adapter_evictions": reg.evictions,
+            "adapter_requests": dict(reg.requests),
+        }
+
+    def _lora_kwargs(self, slots):
+        """The decode functions' adapter arguments for ``slots`` (a slice
+        of the slot table), or none on an adapter-free engine."""
+        if not self.multi_lora:
+            return {}
+        return dict(
+            adapters=self._adapter_pool,
+            adapter_ids=self._to_device(self._slot_adapters[slots]),
+            lora_scale=self.adapter_scale,
+        )
+
     # -- device hooks (called by the scheduler) -------------------------
     def prefill_request(self, slot, prompt_tokens, temperature):
         """Run one request's prefill into ``slot``: cache rows 0..P-1
         written, first token sampled from the prompt's last logit row. A
-        cached-prefix hit prefills only the unique suffix. Returns the
-        first generated token (a host int)."""
+        cached-prefix hit prefills only the unique suffix. The prompt
+        prefills THROUGH the slot's adapter, so the pages seeding decode
+        carry the adapted k/v. Returns the first generated token (a host
+        int)."""
+        with self._device_lock:
+            return self._prefill_locked(slot, prompt_tokens, temperature)
+
+    def _prefill_locked(self, slot, prompt_tokens, temperature):
         plen = len(prompt_tokens)
         prefix_len = self._slot_prefix_len.get(slot, 0)
         if prefix_len > 0:
@@ -386,7 +662,10 @@ class InferenceEngine:
         else:
             padded = np.zeros((1, self.prefill_len), np.int32)
             padded[0, :plen] = prompt_tokens
-            logits, ks, vs = gpt2_prefill(self.model, self._to_device(padded))
+            logits, ks, vs = gpt2_prefill(
+                self.model, self._to_device(padded),
+                **self._lora_kwargs(slice(slot, slot + 1)),
+            )
             # position j -> (its page, its offset); padding rows past the
             # prompt carry the null page
             block_ids = np.zeros(self.prefill_len, np.int32)
@@ -440,6 +719,7 @@ class InferenceEngine:
             self._to_device(np.full(1, prefix_len, np.int32)),
             self._cache,
             self._to_device(self._block_tables[slot:slot + 1]),
+            **self._lora_kwargs(slice(slot, slot + 1)),
         )
         first = self._sample(
             logits[:, len(suffix) - 1, :], np.full(1, temperature, np.float32)
@@ -460,6 +740,12 @@ class InferenceEngine:
         self._sync_pool_metrics()
         self._lengths[:] = 0
         self._last_tokens[:] = 0
+        if self.multi_lora:
+            # adapter WEIGHTS survive a decode crash; only the slot pins
+            # die with the fail-finished in-flight requests, which the
+            # scheduler's crash recovery already released via release_slot
+            self._slot_adapters[:] = 0
+            self._slot_adapter_names.clear()
         log_dist(
             "inference decode state reset (driver restart)", ranks=[0],
         )
@@ -467,16 +753,19 @@ class InferenceEngine:
     def decode_tokens(self, active_slots):
         """One fixed-shape decode step over ALL slots; commits length /
         last-token bookkeeping for ``active_slots`` and returns their
-        sampled tokens as host ints (same order)."""
-        logits, _ = gpt2_decode_step_paged(
-            self.model,
-            self._to_device(self._last_tokens),
-            self._to_device(self._lengths),
-            self._cache,
-            self._to_device(self._block_tables),
-            fused=self.fused_decode,
-        )
-        next_tokens = self._sample(logits, self._temps).cpu().numpy()
+        sampled tokens as host ints (same order). Each slot decodes
+        through its adapter (per-slot ids, row 0 for the base model)."""
+        with self._device_lock:
+            logits, _ = gpt2_decode_step_paged(
+                self.model,
+                self._to_device(self._last_tokens),
+                self._to_device(self._lengths),
+                self._cache,
+                self._to_device(self._block_tables),
+                fused=self.fused_decode,
+                **self._lora_kwargs(slice(None)),
+            )
+            next_tokens = self._sample(logits, self._temps).cpu().numpy()
         out = []
         for slot in active_slots:
             token = int(next_tokens[slot])
@@ -497,16 +786,19 @@ class InferenceEngine:
         return self.scheduler.load_snapshot()
 
     def generate(self, prompts, max_new_tokens=32, temperature=None,
-                 eos_token_id=None):
+                 eos_token_id=None, adapter=None):
         """Synchronous batch generation: submit every prompt (token-id
         lists), drive the scheduler until all finish, return the
-        generated token-id lists in prompt order."""
+        generated token-id lists in prompt order. ``adapter`` names a
+        loaded LoRA adapter applied to every prompt (None = base
+        model)."""
         requests = []
         try:
             for p in prompts:
                 requests.append(self.submit(
                     p, max_new_tokens=max_new_tokens,
                     temperature=temperature, eos_token_id=eos_token_id,
+                    adapter=adapter,
                 ))
         except Exception:
             # a rejected/invalid later prompt must not orphan the earlier

@@ -8,7 +8,9 @@ size presets, and a ``GPT2LMHeadModel`` whose forward is embeddings
 through the blocked LM-head cross-entropy (ops/cross_entropy.py).
 ``remat``, ``moe_experts`` and ``pipeline_stages`` are carried so that
 the training engine can refuse them (not ported); sparse gradients and
-ZeRO-3's gather seam are not ported.
+ZeRO-3's gather seam are not ported. ``lora_rank > 0`` gives every block
+LoRA factors (ops/transformer.py:apply_lora), which the training and
+eval forward apply; the training engine's ``adapters`` block arms it.
 """
 
 import dataclasses
@@ -51,6 +53,13 @@ class GPT2Config:
     remat: bool = False
     moe_experts: int = 0
     pipeline_stages: int = 1
+    # LoRA adapters (adapters/): rank-r A/B pairs beside the block's
+    # projection matrices. 0 = off — the forward is then exactly the
+    # adapter-free model's. Usually armed by the training engine's
+    # "adapters" block rather than set by hand.
+    lora_rank: int = 0
+    lora_alpha: float = 0.0  # 0 => rank (scaling 1.0)
+    lora_targets: tuple = ()  # () => every LORA_TARGETS matrix
 
     @property
     def vocab_padded(self):
@@ -85,18 +94,24 @@ class GPT2Config:
             initializer_range=self.initializer_range,
             pre_layer_norm=True,  # GPT-2 is pre-LN
             layer_norm_eps=self.layer_norm_eps,
+            lora_rank=self.lora_rank,
+            lora_alpha=self.lora_alpha,
+            lora_targets=tuple(self.lora_targets),
         )
 
 
 class GPT2LMHeadModel(nn.Module):
     """GPT-2 with a tied LM head. Parameters: ``wte`` [vocab_padded,
     n_embd], ``wpe`` [n_positions, n_embd], ``h.<i>.*`` (the 12-tensor
-    block layout, weights [out, in]), ``ln_f.weight``/``ln_f.bias``.
+    block layout, weights [out, in]), ``ln_f.weight``/``ln_f.bias``, and
+    with ``config.lora_rank > 0`` the blocks' ``h.<i>.<target>_lora_a``
+    [in, r] / ``_lora_b`` [r, out].
 
     ``device`` defaults to ``"cuda"`` and raises without a GPU; pass
     ``device="cpu"`` to run the plain PyTorch versions of the kernels.
     Weights start N(0, initializer_range) from ``seed`` (biases zero,
-    norms one) — the JAX model's initializers, not its random stream."""
+    norms one), then LoRA A ~ N(0, initializer_range) and B = 0 — the JAX
+    model's initializers, not its random stream."""
 
     def __init__(self, config, device=None, dtype=torch.float32, seed=0):
         super().__init__()
@@ -128,6 +143,20 @@ class GPT2LMHeadModel(nn.Module):
         for layer in self.h:
             layer.reset_parameters(gen)
         self.ln_f.reset_parameters()
+        # drawn after every base tensor, so the base weights from a seed
+        # do not depend on whether LoRA is on
+        for layer in self.h:
+            layer.reset_lora_parameters(gen)
+
+    def add_lora_params(self):
+        """Carry ``config``'s LoRA fields (set after construction, as the
+        training engine arms them) into the block config and give every
+        block the zero-filled factors it lacks."""
+        self.layer_config.lora_rank = self.config.lora_rank
+        self.layer_config.lora_alpha = self.config.lora_alpha
+        self.layer_config.lora_targets = tuple(self.config.lora_targets)
+        for layer in self.h:
+            layer.add_lora_params()
 
     def final_norm_and_logits(self, x):
         """``ln_f`` (statistics and epsilon in float32) and the tied head:

@@ -1,4 +1,5 @@
-"""Single-query attention over the paged KV pool: the decode kernel.
+"""The decode kernels: single-query attention over the paged KV pool, and
+the multi-LoRA SGMV product.
 
 Port of ``paged_flash_decode`` in deepspeed_tpu/ops/decode_attention.py.
 The JAX package runs a Pallas kernel (``_flash_decode_kernel``) whose
@@ -14,8 +15,13 @@ unallocated table entries, wherever it sits in the table) is skipped
 whole; a slot with no live key gives exact zeros. The caller has already
 written this step's k/v into the pool.
 
-The multi-LoRA ``lora_sgmv`` kernel of the same JAX module is not ported
-yet (adapters are off on this slice).
+:func:`lora_sgmv` ports the same JAX module's ``lora_sgmv`` (the Pallas
+``_sgmv_kernel``, Punica's SGMV shape): each slot's LoRA delta
+``x @ A[id] @ B[id]`` read straight from the adapter pool by the slot's
+id, with no gathered ``[B, in, r]`` / ``[B, r, out]`` weight stacks. Here
+it is csrc/sgmv.cu: one thread block per (slot, tile of 1024 output
+columns), which reads its slot's id itself; id 0 (the identity row)
+writes exact zeros without reading the pool.
 """
 
 import ctypes
@@ -146,3 +152,99 @@ def paged_flash_decode(q, k_pool, v_pool, block_tables, positions,
 
 # launches of the CUDA kernel (the plain version is not counted)
 paged_flash_decode.launches = 0
+
+
+#: The largest LoRA rank csrc/sgmv.cu takes: its t vector ([rank] float32)
+#: sits in the 48 KB of dynamic shared memory a launch gets without an
+#: opt-in, the kernel's own refusal (``launch`` in sgmv.cu).
+#: ``init_inference`` refuses a larger rank under ``fused_decode`` instead
+#: of falling back to the gathered path.
+SGMV_MAX_RANK = 48 * 1024 // 4
+
+
+def lora_sgmv_plain(x, a_pool, b_pool, ids):
+    """The SGMV kernel's function in plain PyTorch: ``t = x @ A[id]``
+    accumulated in float32 and ROUNDED to B's dtype (the Pallas kernel's
+    ``t.astype(b_ref.dtype)``), then ``t @ B[id]`` accumulated in float32.
+    ``x`` [B, in]; ``a_pool`` [n+1, in, r]; ``b_pool`` [n+1, r, out];
+    ``ids`` [B] int32 (row 0 the all-zeros identity). Returns the UNSCALED
+    delta [B, out] in float32."""
+    rows = ids.long()
+    t = torch.einsum("bi,bir->br", x.float(), a_pool[rows].float())
+    t = t.to(b_pool.dtype).float()
+    return torch.einsum("br,bro->bo", t, b_pool[rows].float())
+
+
+def _sgmv_cuda(x, a_pool, b_pool, ids):
+    """Launch csrc/sgmv.cu on CUDA tensors. Raises on anything the kernel
+    does not take; never runs the plain version."""
+    from . import kernel_lib
+
+    tensors = (x, a_pool, b_pool, ids)
+    if not all(t.is_cuda for t in tensors):
+        raise RuntimeError(
+            "sgmv's CUDA kernel needs CUDA tensors, got "
+            + "/".join(str(t.device) for t in tensors)
+        )
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("sgmv's operands must lie on one device")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"sgmv takes float32 or bfloat16, got {x.dtype}")
+    if not (a_pool.dtype == b_pool.dtype == x.dtype):
+        raise TypeError("x and the A/B pools must share a dtype")
+    if ids.dtype != torch.int32:
+        raise TypeError("sgmv's ids must be int32")
+    if x.ndim != 2 or a_pool.ndim != 3 or b_pool.ndim != 3 or ids.ndim != 1:
+        raise ValueError(
+            "sgmv takes x [B, in], a_pool [n+1, in, r], b_pool [n+1, r, "
+            "out] and ids [B]"
+        )
+    b, din = x.shape
+    rows, _, rank = a_pool.shape
+    dout = b_pool.shape[2]
+    if tuple(a_pool.shape) != (rows, din, rank) or (
+        tuple(b_pool.shape[:2]) != (rows, rank)
+    ) or ids.shape[0] != b:
+        raise ValueError(
+            f"sgmv shapes do not match: x {tuple(x.shape)}, a_pool "
+            f"{tuple(a_pool.shape)}, b_pool {tuple(b_pool.shape)}, ids "
+            f"{tuple(ids.shape)}"
+        )
+    if not 1 <= rank <= SGMV_MAX_RANK:
+        raise ValueError(
+            f"sgmv takes ranks 1..{SGMV_MAX_RANK} (SGMV_MAX_RANK), got {rank}"
+        )
+    if b > 65535:
+        raise ValueError(f"sgmv takes B <= 65535, got {b}")
+    for name, t in zip(("x", "a_pool", "b_pool", "ids"), tensors):
+        if not t.is_contiguous():
+            raise ValueError(f"sgmv needs a contiguous {name}")
+    lib = kernel_lib.load("sgmv")
+    out = torch.empty((b, dout), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.ds_sgmv(
+            x.data_ptr(), a_pool.data_ptr(), b_pool.data_ptr(),
+            ids.data_ptr(), out.data_ptr(), b, rows, din, rank, dout,
+            kernel_lib.dtype_code(x.dtype), stream,
+        )
+    kernel_lib.check(err, "sgmv")
+    lora_sgmv.launches += 1
+    return out
+
+
+def lora_sgmv(x, a_pool, b_pool, ids):
+    """Per-slot LoRA delta for the decode step (replaces the JAX package's
+    Pallas ``_sgmv_kernel``): ``x`` [B, in] (one token per slot),
+    ``a_pool`` [n+1, in, r] / ``b_pool`` [n+1, r, out] (row 0 the
+    all-zeros identity), ``ids`` [B] int32. Returns the UNSCALED delta
+    ``x @ A[id] @ B[id]`` [B, out] in float32; the caller applies the
+    (alpha / r) scale and adds it to the base projection. CPU tensors run
+    :func:`lora_sgmv_plain`; CUDA tensors launch the kernel."""
+    if x.device.type == "cpu":
+        return lora_sgmv_plain(x, a_pool, b_pool, ids)
+    return _sgmv_cuda(x, a_pool, b_pool, ids)
+
+
+# launches of the CUDA kernel (the plain version is not counted)
+lora_sgmv.launches = 0

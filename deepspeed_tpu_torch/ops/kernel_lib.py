@@ -70,6 +70,11 @@ SIGNATURES = {
         "ds_paged_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _F, _P],
     },
+    "sgmv": {
+        # x, a_pool, b_pool, ids, out, B, rows, in, rank, out_dim, dtype,
+        # stream
+        "ds_sgmv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    },
 }
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}

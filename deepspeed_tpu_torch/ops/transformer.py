@@ -11,11 +11,19 @@ stored as ``F.linear`` takes them, ``[out, in]``; the JAX package keeps
 
 In training mode the block's parameters stay differentiable and it draws
 three dropout streams from a :class:`DropoutRNG`: the attention kernels'
-mask seed and the two hidden dropouts. Remat, LoRA and the stochastic
+mask seed and the two hidden dropouts. Remat and the stochastic
 LayerNorm mode are not ported. The large projections stay ``F.linear``
 (cuBLAS), as the JAX package left them to XLA; attention goes through
 the kernels of ops/attention.py (prefill, training) and
 ops/decode_attention.py (decode).
+
+LoRA (:func:`apply_lora`) adds a low-rank delta to the four projection
+matrices at the JAX package's four points (qkv; attention out before the
+hidden dropout; ``inter_w`` before GeLU; ``output_w`` before dropout),
+from per-layer ``{name}_lora_a``/``{name}_lora_b`` parameters (the
+fine-tune path) or from a batched per-slot adapter pool (serving). The
+LoRA factors keep the JAX orientation, A ``[in, r]`` and B ``[r, out]``
+(delta = ``(x @ A) @ B``), unlike the base weights.
 
 The paged functions update the KV pool IN PLACE (the JAX package returns
 a new pool from ``.at[].set()``); they return only the hidden states.
@@ -28,7 +36,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .attention import NEG_INF, attention
-from .decode_attention import paged_flash_decode
+from .decode_attention import lora_sgmv, paged_flash_decode
 
 
 class DropoutRNG:
@@ -65,8 +73,9 @@ def dropout(x, rate, rng):
 @dataclasses.dataclass
 class DeepSpeedTransformerConfig:
     """The fields of the JAX package's DeepSpeedTransformerConfig that the
-    block reads (the memory-mode, remat and LoRA fields are not
-    ported)."""
+    block reads (the memory-mode and remat fields are not ported).
+    ``lora_rank > 0`` gives each layer per-layer LoRA factors for
+    ``lora_targets`` (() => all of :data:`LORA_TARGETS`)."""
 
     hidden_size: int = -1
     heads: int = -1
@@ -76,6 +85,9 @@ class DeepSpeedTransformerConfig:
     initializer_range: float = 0.02
     pre_layer_norm: bool = True
     layer_norm_eps: float = 1e-12
+    lora_rank: int = 0
+    lora_alpha: float = 0.0  # 0 => rank (scaling 1.0)
+    lora_targets: tuple = ()
 
     @property
     def intermediate(self):
@@ -84,6 +96,12 @@ class DeepSpeedTransformerConfig:
             if self.intermediate_size > 0
             else 4 * self.hidden_size
         )
+
+    def lora_dims(self, target):
+        """``(in, out)`` of LoRA target ``target`` in this block."""
+        dims = {"H": self.hidden_size, "3H": 3 * self.hidden_size,
+                "I": self.intermediate}
+        return tuple(dims[d] for d in LORA_TARGET_DIMS[target])
 
 
 #: The reference's 12-tensor layout: name, shape in (H, I) terms with
@@ -104,9 +122,85 @@ TRANSFORMER_PARAM_LAYOUT = (
 )
 
 
+#: Projection matrices LoRA can target, with their (in, out) dims in the
+#: shape vocabulary of TRANSFORMER_PARAM_LAYOUT — every weight MATRIX of
+#: the block (biases/norms gain nothing from low-rank deltas).
+LORA_TARGETS = ("attn_qkvw", "attn_ow", "inter_w", "output_w")
+LORA_TARGET_DIMS = {
+    "attn_qkvw": ("H", "3H"),
+    "attn_ow": ("H", "H"),
+    "inter_w": ("H", "I"),
+    "output_w": ("I", "H"),
+}
+
+
+def resolve_lora_targets(targets):
+    """Normalize + validate a lora_targets value: () / None => every
+    target; anything naming an unknown matrix fails loudly (a typo'd
+    target would otherwise silently train/serve a partial adapter)."""
+    targets = tuple(targets) if targets else LORA_TARGETS
+    unknown = [t for t in targets if t not in LORA_TARGETS]
+    if unknown:
+        raise ValueError(
+            f"unknown LoRA target(s) {unknown}; valid: {list(LORA_TARGETS)}"
+        )
+    if len(set(targets)) != len(targets):
+        raise ValueError(f"duplicate LoRA targets in {targets}")
+    return targets
+
+
+def lora_scaling(rank, alpha=0.0):
+    """delta multiplier: alpha / rank (alpha 0/None => rank => 1.0)."""
+    return (float(alpha) if alpha else float(rank)) / float(rank)
+
+
+def apply_lora(cfg, p, lora, name, x, y):
+    """``y`` (the base projection of ``x``) plus projection ``name``'s
+    LoRA delta, from one of two adapter sources:
+
+    - ``lora = (pools, ids, scale, fused)`` — the batched multi-adapter
+      serving path: ``pools`` maps target -> (A [n_adapters+1, in, r],
+      B [n_adapters+1, r, out]) for this layer, ``ids`` [B] int32 picks
+      each slot's row (row 0 = the all-zeros identity). With ``fused``,
+      decode-shaped calls (``x.shape[1] == 1``) go through the SGMV
+      kernel (:func:`~deepspeed_tpu_torch.ops.decode_attention.lora_sgmv`,
+      a float32 delta) and add ``(scale * delta).to(y.dtype)``; every
+      other call gathers each slot's rows and runs both products in the
+      input dtype, as the JAX package's XLA path does.
+    - per-layer ``{name}_lora_a`` / ``{name}_lora_b`` parameters of ``p``
+      (the fine-tune path, ``cfg.lora_rank > 0``): one shared adapter,
+      differentiated with the rest of ``p``.
+
+    Returns ``y`` untouched when neither source names this projection."""
+    if lora is not None:
+        pools, ids, scale, fused = lora
+        ab = pools.get(name)
+        if ab is None:
+            return y
+        a, b = ab
+        if fused and x.shape[1] == 1:
+            delta = lora_sgmv(x[:, 0, :].contiguous(), a, b, ids)
+            return y + (scale * delta[:, None, :]).to(y.dtype)
+        rows = ids.long()
+        t = torch.einsum("bsi,bir->bsr", x, a[rows])
+        return y + (scale * torch.einsum("bsr,bro->bso", t, b[rows])).to(
+            y.dtype
+        )
+    if cfg.lora_rank > 0:
+        a = getattr(p, f"{name}_lora_a", None)
+        if a is None:
+            return y
+        b = getattr(p, f"{name}_lora_b")
+        scale = lora_scaling(cfg.lora_rank, cfg.lora_alpha)
+        return y + (scale * ((x @ a) @ b)).to(y.dtype)
+    return y
+
+
 class DeepSpeedTransformerLayer(nn.Module):
-    """One block's parameters (TRANSFORMER_PARAM_LAYOUT); the block
-    functions below take it as ``p``."""
+    """One block's parameters (TRANSFORMER_PARAM_LAYOUT, plus the LoRA
+    factors ``{t}_lora_a`` [in, r] / ``{t}_lora_b`` [r, out] when the
+    config's ``lora_rank > 0``); the block functions below take it as
+    ``p``."""
 
     def __init__(self, config, device=None, dtype=torch.float32):
         super().__init__()
@@ -117,11 +211,27 @@ class DeepSpeedTransformerLayer(nn.Module):
             setattr(self, name, nn.Parameter(torch.empty(
                 tuple(dims[d] for d in shape), device=device, dtype=dtype,
             )))
+        if config.lora_rank > 0:
+            self.add_lora_params()
+
+    def add_lora_params(self):
+        """Zero-filled LoRA factors for the config's rank and targets, on
+        the block's device and in its dtype (factors it has are kept)."""
+        r = int(self.config.lora_rank)
+        like = self.attn_qkvw
+        for t in resolve_lora_targets(self.config.lora_targets):
+            din, dout = self.config.lora_dims(t)
+            for suffix, shape in (("_lora_a", (din, r)),
+                                  ("_lora_b", (r, dout))):
+                if t + suffix not in self._parameters:
+                    setattr(self, t + suffix, nn.Parameter(torch.zeros(
+                        shape, device=like.device, dtype=like.dtype)))
 
     @torch.no_grad()
     def reset_parameters(self, generator=None):
         """N(0, initializer_range) weights, zero biases, unit norms — the
-        JAX layer's initializers (not its random stream)."""
+        JAX layer's initializers (not its random stream). The LoRA
+        factors are left to :meth:`reset_lora_parameters`."""
         for name, _, kind in TRANSFORMER_PARAM_LAYOUT:
             p = getattr(self, name)
             if kind == "normal":
@@ -130,6 +240,17 @@ class DeepSpeedTransformerLayer(nn.Module):
             elif kind == "ones":
                 p.fill_(1.0)
             else:
+                p.zero_()
+
+    @torch.no_grad()
+    def reset_lora_parameters(self, generator=None):
+        """A ~ N(0, initializer_range), B = 0: the initial delta is exactly
+        zero, so a fresh adapter starts from the base model."""
+        for name, p in self.named_parameters(recurse=False):
+            if name.endswith("_lora_a"):
+                p.normal_(0.0, self.config.initializer_range,
+                          generator=generator)
+            elif name.endswith("_lora_b"):
                 p.zero_()
 
 
@@ -150,14 +271,21 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def _ffn_sublayer(cfg, p, x, rng=None):
+def _project(cfg, p, lora, name, x, bias):
+    """``x``'s projection through weight ``name`` plus its LoRA delta."""
+    return apply_lora(
+        cfg, p, lora, name, x, F.linear(x, getattr(p, name), bias)
+    )
+
+
+def _ffn_sublayer(cfg, p, x, rng=None, lora=None):
     residual = x
     ff_in = (
         layer_norm_apply(cfg, x, p.norm_w, p.norm_b)
         if cfg.pre_layer_norm else x
     )
-    h = _gelu(F.linear(ff_in, p.inter_w, p.inter_b))
-    h = dropout(F.linear(h, p.output_w, p.output_b),
+    h = _gelu(_project(cfg, p, lora, "inter_w", ff_in, p.inter_b))
+    h = dropout(_project(cfg, p, lora, "output_w", h, p.output_b),
                 cfg.hidden_dropout_ratio, rng)
     x = residual + h
     if not cfg.pre_layer_norm:
@@ -167,7 +295,7 @@ def _ffn_sublayer(cfg, p, x, rng=None):
 
 def transformer_block_apply(cfg, p, hidden_states, attention_mask=None, *,
                             causal=False, return_kv=False, train=False,
-                            dropout_rng=None):
+                            dropout_rng=None, lora=None):
     """The block over ``p`` (a :class:`DeepSpeedTransformerLayer`, or a
     module whose tensors ``torch.func.functional_call`` swapped in).
 
@@ -177,7 +305,9 @@ def transformer_block_apply(cfg, p, hidden_states, attention_mask=None, *,
     ``dropout_rng`` there is no dropout, as in the JAX package.
     ``return_kv`` additionally returns the block's split-head key/value
     projections ``(k, v)``, each [B, heads, S, hd] — the KV-cache prefill
-    mode: exactly the values attention consumed."""
+    mode: exactly the values attention consumed. ``lora`` is the batched
+    adapter source of :func:`apply_lora` (serving prefill); per-layer
+    factors in ``p`` cover the fine-tune path."""
     H = cfg.hidden_size
     heads = cfg.heads
     head_dim = H // heads
@@ -190,7 +320,7 @@ def transformer_block_apply(cfg, p, hidden_states, attention_mask=None, *,
         layer_norm_apply(cfg, hidden_states, p.attn_nw, p.attn_nb)
         if cfg.pre_layer_norm else hidden_states
     )
-    qkv = F.linear(attn_in, p.attn_qkvw, p.attn_qkvb)
+    qkv = _project(cfg, p, lora, "attn_qkvw", attn_in, p.attn_qkvb)
     q, k_, v = qkv.split(H, dim=-1)
 
     def split_heads(t):
@@ -205,12 +335,12 @@ def transformer_block_apply(cfg, p, hidden_states, attention_mask=None, *,
         dropout_seed=rng.attn_seed() if rng is not None else None,
     )
     ctx = ctx.transpose(1, 2).reshape(b, s, H)
-    attn_out = dropout(F.linear(ctx, p.attn_ow, p.attn_ob),
+    attn_out = dropout(_project(cfg, p, lora, "attn_ow", ctx, p.attn_ob),
                        cfg.hidden_dropout_ratio, rng)
     x = residual + attn_out
     if not cfg.pre_layer_norm:
         x = layer_norm_apply(cfg, x, p.attn_nw, p.attn_nb)
-    x = _ffn_sublayer(cfg, p, x, rng)
+    x = _ffn_sublayer(cfg, p, x, rng, lora)
     if return_kv:
         return x, (kh, vh)
     return x
@@ -241,10 +371,11 @@ def _attend_gathered(q, k_full, v_full, positions, live=None):
     return ctx
 
 
-def _decode_block_core(cfg, p, hidden_states, attend):
+def _decode_block_core(cfg, p, hidden_states, attend, lora=None):
     """The shared single-token decode block: LN/qkv/attention/FFN, with
     the attention context behind ``attend(q, k_new, v_new) -> ctx``
-    (each [B, heads, hd])."""
+    (each [B, heads, hd]) and ``lora`` the batched adapter source of
+    :func:`apply_lora` (one adapter row per slot)."""
     H = cfg.hidden_size
     heads = cfg.heads
     head_dim = H // heads
@@ -255,19 +386,20 @@ def _decode_block_core(cfg, p, hidden_states, attend):
         layer_norm_apply(cfg, hidden_states, p.attn_nw, p.attn_nb)
         if cfg.pre_layer_norm else hidden_states
     )
-    qkv = F.linear(attn_in, p.attn_qkvw, p.attn_qkvb)  # [B, 1, 3H]
+    qkv = _project(cfg, p, lora, "attn_qkvw", attn_in, p.attn_qkvb)
     q, k_new, v_new = (
         t.reshape(b, heads, head_dim) for t in qkv.split(H, dim=-1)
     )
     ctx = attend(q.contiguous(), k_new, v_new).reshape(b, 1, H)
-    x = residual + F.linear(ctx, p.attn_ow, p.attn_ob)
+    x = residual + _project(cfg, p, lora, "attn_ow", ctx, p.attn_ob)
     if not cfg.pre_layer_norm:
         x = layer_norm_apply(cfg, x, p.attn_nw, p.attn_nb)
-    return _ffn_sublayer(cfg, p, x)
+    return _ffn_sublayer(cfg, p, x, lora=lora)
 
 
 def transformer_block_decode_paged(cfg, p, hidden_states, k_pool, v_pool,
-                                   block_tables, positions, fused=False):
+                                   block_tables, positions, fused=False,
+                                   lora=None):
     """One incremental-decode step over a block-paged KV cache.
 
     ``hidden_states`` [B, 1, H]; ``k_pool``/``v_pool`` [num_blocks,
@@ -278,7 +410,9 @@ def transformer_block_decode_paged(cfg, p, hidden_states, k_pool, v_pool,
     launches the paged decode kernel over the pool; otherwise the slot's
     pages are gathered into a contiguous view for
     :func:`_attend_gathered`. A slot whose table starts at the NULL page
-    gets an exact-zero context on both paths. Returns [B, 1, H]."""
+    gets an exact-zero context on both paths. ``lora``: the batched
+    adapter source (its ``fused`` flag routes the deltas through the
+    SGMV kernel). Returns [B, 1, H]."""
     block_size = k_pool.shape[1]
     max_blocks = block_tables.shape[1]
     b = hidden_states.shape[0]
@@ -302,18 +436,19 @@ def transformer_block_decode_paged(cfg, p, hidden_states, k_pool, v_pool,
         v_full = v_pool[tables].reshape(shape).transpose(1, 2)
         return _attend_gathered(q, k_full, v_full, positions, live=live)
 
-    return _decode_block_core(cfg, p, hidden_states, attend)
+    return _decode_block_core(cfg, p, hidden_states, attend, lora=lora)
 
 
 def transformer_block_prefill_paged(cfg, p, hidden_states, k_pool, v_pool,
-                                    block_tables, start_pos):
+                                    block_tables, start_pos, lora=None):
     """Suffix prefill through one block against cached prefix pages (the
     prefix-cache hit path). ``hidden_states`` [B, S, H] is the prompt's
     unique suffix padded to a bucket, its first token at absolute position
     ``start_pos`` [B]. Writes the suffix's k/v into the slot's pages IN
     PLACE (rows past the table's extent go to the NULL page), then runs
     causal attention over the whole gathered page view. Plain PyTorch, as
-    the JAX package's path is plain XLA. Returns [B, S, H]."""
+    the JAX package's path is plain XLA. ``lora``: the batched adapter
+    source of :func:`apply_lora`. Returns [B, S, H]."""
     H = cfg.hidden_size
     heads = cfg.heads
     head_dim = H // heads
@@ -328,7 +463,7 @@ def transformer_block_prefill_paged(cfg, p, hidden_states, k_pool, v_pool,
         layer_norm_apply(cfg, hidden_states, p.attn_nw, p.attn_nb)
         if cfg.pre_layer_norm else hidden_states
     )
-    qkv = F.linear(attn_in, p.attn_qkvw, p.attn_qkvb)  # [B, S, 3H]
+    qkv = _project(cfg, p, lora, "attn_qkvw", attn_in, p.attn_qkvb)
     q, k_new, v_new = qkv.split(H, dim=-1)
     qh = q.reshape(b, s, heads, head_dim).transpose(1, 2)  # [B, heads, S, hd]
 
@@ -356,7 +491,7 @@ def transformer_block_prefill_paged(cfg, p, hidden_states, k_pool, v_pool,
         "bhsk,bhkd->bhsd", probs.to(v_full.dtype).float(), v_full.float()
     ).to(v_full.dtype)
     ctx = ctx.transpose(1, 2).reshape(b, s, H)
-    x = residual + F.linear(ctx, p.attn_ow, p.attn_ob)
+    x = residual + _project(cfg, p, lora, "attn_ow", ctx, p.attn_ob)
     if not cfg.pre_layer_norm:
         x = layer_norm_apply(cfg, x, p.attn_nw, p.attn_nb)
-    return _ffn_sublayer(cfg, p, x)
+    return _ffn_sublayer(cfg, p, x, lora=lora)

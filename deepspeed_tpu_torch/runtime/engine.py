@@ -29,10 +29,16 @@ one step, and the step reads its overflow decision on the host at once
 and ``skipped_steps`` are exact after every step. Parameters, moments
 and the optimizer's scratch are updated in place.
 
+LoRA fine-tune (the ``adapters`` block): the base is frozen once in the
+compute dtype (no gradients, no optimizer state, no per-micro-step
+cast); only the ``*_lora_*`` factors are fp32 masters, differentiated
+and stepped; :meth:`DeepSpeedEngine.adapter_state_dict` hands them to a
+serving engine's ``load_adapter``.
+
 Not ported, refused with ``DeepSpeedConfigError("... not yet ported")``:
-more than one device (world size > 1, a mesh), the ``adapters``,
-``resilience``, ``telemetry``, ``data_pipeline`` and ``compile_cache``
-blocks, ``zero_optimization.offload_optimizer``, compensated masters,
+more than one device (world size > 1, a mesh), the ``resilience``,
+``telemetry``, ``data_pipeline`` and ``compile_cache`` blocks,
+``zero_optimization.offload_optimizer``, compensated masters,
 reduced-precision optimizer state, sparse gradients, ``training_data``
 (the dataloader), checkpoints, optimizers other than Adam/AdamW/Lamb/
 FusedLamb, and a model with remat, MoE or pipeline stages. ZeRO stages
@@ -47,8 +53,9 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from ..adapters import lora as lora_lib
 from ..config import constants as C
-from ..config.config import DeepSpeedConfig, not_ported
+from ..config.config import DeepSpeedConfig, DeepSpeedConfigError, not_ported
 from ..config.config_utils import load_config_json
 from ..ops.optimizers import Optimizer, build_optimizer, param_groups
 from ..utils.device import resolve_device
@@ -57,7 +64,7 @@ from ..utils.numerics import global_norm, has_overflow
 from .lr_schedules import build_lr_scheduler
 from .precision import loss_scale_state_from_config, update_scale
 
-_REFUSED_BLOCKS = (C.ADAPTERS, C.RESILIENCE, C.TELEMETRY, C.DATA_PIPELINE,
+_REFUSED_BLOCKS = (C.RESILIENCE, C.TELEMETRY, C.DATA_PIPELINE,
                    C.COMPILE_CACHE)
 
 
@@ -149,10 +156,12 @@ class DeepSpeedEngine:
                 raise not_ported(f"a model with {field}="
                                  f"{getattr(mcfg, field)!r}")
         self.module = model.to(device=self.device, dtype=torch.float32)
-        if model_parameters is not None:
-            if not isinstance(model_parameters, Mapping):
-                raise TypeError("model_parameters must be None or a state "
-                                "dict for the model")
+        if model_parameters is not None and not isinstance(
+            model_parameters, Mapping
+        ):
+            raise TypeError("model_parameters must be None or a state "
+                            "dict for the model")
+        if model_parameters is not None and not cfg.adapters_enabled:
             self.module.load_state_dict(model_parameters)
         sig = inspect.signature(self.module.forward).parameters
         self._takes_train = "train" in sig
@@ -171,9 +180,17 @@ class DeepSpeedEngine:
         )
         self.loss_scale_state = loss_scale_state_from_config(cfg)
         self.zero_stage = cfg.zero_optimization_stage
+        self.frozen_base_params = {}
+        if cfg.adapters_enabled:
+            self._configure_adapters(model_parameters, rng_seed)
 
         # ---- optimizer and schedule -------------------------------------
-        self.params = dict(self.module.named_parameters())
+        # the trainable fp32 masters: every parameter, or under the
+        # adapters block only the LoRA factors
+        self.params = {
+            n: p for n, p in self.module.named_parameters()
+            if n not in self.frozen_base_params
+        }
         if optimizer is not None:
             if not isinstance(optimizer, Optimizer):
                 raise TypeError("client optimizer must be a "
@@ -271,6 +288,83 @@ class DeepSpeedEngine:
                 return float(mom[0] if isinstance(mom, (list, tuple)) else mom)
         return float(self.optimizer_obj.b1)
 
+    def _configure_adapters(self, model_parameters, rng_seed):
+        """LoRA fine-tune wiring: arm the model config (or reject a
+        mismatch), split the ``*_lora_*`` tensors out of the parameters or
+        grow fresh factors from ``rng_seed`` (A ~ N(0, 0.02), B = 0, so the
+        first forward is the base model's), and freeze the base once in
+        the compute dtype. Only the factors stay trainable."""
+        cfg = self.config
+        rank = int(cfg.adapters_rank)
+        alpha = float(cfg.adapters_alpha or 0.0)
+        targets = lora_lib.resolve_lora_targets(cfg.adapters_targets)
+        module = self.module
+        mcfg = getattr(module, "config", None)
+        if not hasattr(mcfg, "lora_rank") or not hasattr(
+            module, "add_lora_params"
+        ):
+            raise DeepSpeedConfigError(
+                "the adapters block fine-tunes the GPT-2 family: pass a "
+                "GPT2LMHeadModel (its config carries lora_rank)"
+            )
+        if int(mcfg.lora_rank) == 0:
+            mcfg.lora_rank = rank
+            mcfg.lora_alpha = alpha
+            mcfg.lora_targets = targets
+        elif (
+            int(mcfg.lora_rank) != rank
+            or lora_lib.resolve_lora_targets(mcfg.lora_targets) != targets
+        ):
+            raise DeepSpeedConfigError(
+                f"model config carries lora_rank={mcfg.lora_rank}/targets="
+                f"{tuple(mcfg.lora_targets)} but the adapters block asks "
+                f"for rank={rank}/targets={targets}; make them agree (or "
+                "leave the model at lora_rank=0 and let the engine arm it)"
+            )
+        # split BEFORE arming adds zero-filled factors: a model built at
+        # lora_rank 0 brings no adapter, and grows a fresh one below
+        state = (
+            module.state_dict() if model_parameters is None
+            else model_parameters
+        )
+        base, adapters = lora_lib.split_lora_params(state)
+        module.add_lora_params()
+        if not adapters:
+            adapters = lora_lib.init_lora_params(
+                base, rank, targets=targets,
+                generator=torch.Generator().manual_seed(int(rng_seed)),
+            )
+        module.load_state_dict({**base, **adapters})
+        # the frozen base: read-only compute-dtype copies, never
+        # differentiated, never stepped, never cast again
+        self.frozen_base_params = {}
+        for n, p in module.named_parameters():
+            if not lora_lib.is_lora_name(n):
+                p.requires_grad_(False)
+                self.frozen_base_params[n] = p.detach().to(self.compute_dtype)
+        n_adapter = sum(
+            p.numel() for n, p in module.named_parameters()
+            if lora_lib.is_lora_name(n)
+        )
+        n_base = sum(p.numel() for p in self.frozen_base_params.values())
+        log_dist(
+            f"adapters: LoRA fine-tune — rank {rank} on {list(targets)}; "
+            f"{n_adapter} trainable adapter params, {n_base} base params "
+            f"frozen ({100.0 * n_adapter / max(n_base, 1):.2f}%)",
+            ranks=[0],
+        )
+
+    def adapter_state_dict(self):
+        """The fine-tuned LoRA factors (``h.<i>.<target>_lora_a`` /
+        ``_lora_b``, fp32 copies), the ``adapter_state`` that a serving
+        engine's ``load_adapter`` takes."""
+        if not self.frozen_base_params:
+            raise DeepSpeedConfigError(
+                "this engine fine-tunes no adapters; enable the "
+                '"adapters" config block'
+            )
+        return {n: p.detach().clone() for n, p in self.params.items()}
+
     def save_checkpoint(self, *args, **kwargs):
         raise not_ported("save_checkpoint")
 
@@ -322,8 +416,9 @@ class DeepSpeedEngine:
 
     def _cast_params(self, grad):
         """The fp32 masters in the compute dtype, as leaf tensors (with
-        ``grad``, requiring gradients) for ``functional_call``."""
-        out = {}
+        ``grad``, requiring gradients) for ``functional_call``, beside the
+        frozen base under the adapters block."""
+        out = dict(self.frozen_base_params)
         for name, p in self.params.items():
             t = p.detach().to(self.compute_dtype)
             out[name] = t.requires_grad_() if grad else t
@@ -345,7 +440,7 @@ class DeepSpeedEngine:
         grads = {
             n: (t.grad if t.grad is not None else torch.zeros_like(t)).to(
                 self.grad_accum_dtype)
-            for n, t in params.items()
+            for n, t in params.items() if n in self.params
         }
         if self._grad_buffer is None:
             self._grad_buffer = grads

@@ -1,8 +1,8 @@
-"""The serving engine's metric catalog and its registration.
+"""The serving engine's metric catalogs and their registration.
 
-The ``infer/*`` catalog of the JAX package's telemetry manager
-(deepspeed_tpu/telemetry/manager.py), under the same names, so dashboards
-read one stream set from either engine. The JAX engine also registers a
+The ``infer/*`` and ``adapters/*`` catalogs of the JAX package's
+telemetry manager (deepspeed_tpu/telemetry/manager.py), under the same
+names, so dashboards read one stream set from either engine. The JAX engine also registers a
 ``jax/recompiles`` counter fed by a ``jax.monitoring`` listener; PyTorch
 runs eagerly, so the port has no counterpart and leaves it out. The rest
 of the JAX manager (exporters, profiler window, watchdog) waits for a
@@ -52,5 +52,28 @@ def register_inference_metrics(registry):
     inference export carries the golden set (an absent stream means a
     broken emitter, not an idle one)."""
     for kind, name, help_text in INFERENCE_METRICS:
+        getattr(registry, kind)(name, help=help_text)
+    return registry
+
+
+# Multi-tenant LoRA serving (adapters/). Registered by InferenceEngine
+# ONLY when the adapters block is enabled — adapter-free engines keep
+# their exports at the INFERENCE_METRICS set. Per-adapter request
+# counters ride dynamically as adapters/requests/{name} (tenant names are
+# runtime values, not catalog constants).
+ADAPTER_METRICS = (
+    ("gauge", "adapters/pool_occupancy", "adapter pool rows holding a loaded adapter (the identity row 0 is not counted)"),
+    ("gauge", "adapters/pool_slots", "adapter pool capacity: loadable rows (adapters.pool_slots; identity row 0 rides extra)"),
+    ("counter", "adapters/loads", "adapters installed into the in-HBM pool (hot reloads included)"),
+    ("counter", "adapters/evictions", "adapters evicted from the pool (idle-LRU under load pressure, or explicit unload)"),
+    ("counter", "adapters/requests", "submissions carrying an adapter (per-adapter counts ride adapters/requests/{name})"),
+)
+
+
+def register_adapter_metrics(registry):
+    """Pre-register the adapters/* catalog on ``registry`` (same golden-
+    set contract as the other catalogs: an absent stream means a broken
+    emitter, not an idle pool)."""
+    for kind, name, help_text in ADAPTER_METRICS:
         getattr(registry, kind)(name, help=help_text)
     return registry

@@ -12,6 +12,9 @@ one bf16 ulp, 2**-7 relative, at any magnitude), float16 atol = rtol =
 gradients take atol = tol * max|plain| (their scale is ~1e-2, where an
 absolute 1e-2 would pass anything); LAMB's moments, update and block
 partials rtol 1e-5 (the same float32 roundings, sums in another order).
+SGMV: float32 1e-4; bfloat16 atol = 1e-2 x each row's largest magnitude
+(t is rounded to bfloat16 before the second product, and another
+summation order can move it by one bf16 ulp); identity rows exactly 0.
 """
 
 import pytest
@@ -28,6 +31,9 @@ from deepspeed_tpu_torch.ops.attention import (
     flash_fwd_plain,
 )
 from deepspeed_tpu_torch.ops.decode_attention import (
+    SGMV_MAX_RANK,
+    lora_sgmv,
+    lora_sgmv_plain,
     paged_flash_decode,
     paged_flash_decode_plain,
 )
@@ -295,3 +301,62 @@ def test_reduced_precision_training_runs_through_the_kernels(cuda, block):
     # every group of this model is below multi_tensor_max: one packed launch
     assert got[lamb_phase1] == engine.global_steps
     assert engine.global_steps + engine.skipped_steps == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("din,dout,rank", [
+    (768, 2304, 16), (768, 768, 16), (768, 3072, 16), (3072, 768, 16),
+    (40, 1100, 1), (130, 70, 33),
+])
+def test_sgmv_kernel_matches_plain(cuda, dtype, din, dout, rank):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    n, b = 4, 8
+    a_pool = (torch.randn(n + 1, din, rank, device=cuda, generator=g)
+              * 0.05).to(dtype)
+    b_pool = (torch.randn(n + 1, rank, dout, device=cuda, generator=g)
+              * 0.05).to(dtype)
+    a_pool[0] = 0
+    b_pool[0] = 0
+    x = torch.randn(b, din, device=cuda, generator=g).to(dtype)
+    ids = torch.tensor([0, 3, 3, n, 1, 0, 2, n], dtype=torch.int32,
+                       device=cuda)
+    before = lora_sgmv.launches
+    out = lora_sgmv(x, a_pool, b_pool, ids)
+    torch.cuda.synchronize()
+    assert lora_sgmv.launches == before + 1
+    assert out.dtype == torch.float32 and tuple(out.shape) == (b, dout)
+    ref = lora_sgmv_plain(x, a_pool, b_pool, ids)
+    tol = TOL[dtype]
+    scale = ref.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
+    torch.testing.assert_close(out / scale, ref / scale, atol=tol, rtol=0)
+    assert bool((out[0] == 0).all()) and bool((out[5] == 0).all())
+    if dtype == torch.bfloat16:
+        # the kernel rounds t to bf16 where the plain version does: its
+        # output lies far nearer that than the arithmetic with t unrounded
+        rows = ids.long()
+        t = torch.einsum("bi,bir->br", x.float(), a_pool[rows].float())
+        unrounded = torch.einsum("br,bro->bo", t, b_pool[rows].float())
+        err_rounded = ((out - ref) / scale).abs().max()
+        err_unrounded = ((out - unrounded) / scale).abs().max()
+        assert err_rounded < 0.1 * err_unrounded
+
+
+@pytest.mark.cuda
+def test_sgmv_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x = torch.randn(2, 16, device=cuda)
+    a = torch.zeros(3, 16, 4, device=cuda)
+    b = torch.zeros(3, 4, 8, device=cuda)
+    ids = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="int32"):
+        lora_sgmv(x, a, b, ids.long())
+    with pytest.raises(TypeError, match="share a dtype"):
+        lora_sgmv(x, a.bfloat16(), b, ids)
+    with pytest.raises(ValueError, match="shapes"):
+        lora_sgmv(x, a[:, :8], b, ids)
+    with pytest.raises(ValueError, match="SGMV_MAX_RANK"):
+        big = torch.zeros(2, 16, SGMV_MAX_RANK + 1, device=cuda)
+        lora_sgmv(x, big, torch.zeros(2, SGMV_MAX_RANK + 1, 8, device=cuda),
+                  ids)
+    with pytest.raises(RuntimeError, match="CUDA tensors"):
+        lora_sgmv(x, a.cpu(), b, ids)

@@ -320,7 +320,7 @@ def test_sampled_decoding_is_seeded_and_in_vocab(models):
     ({"host_tier": {"enabled": True}}, {}),
     ({"speculative": {"k": 2}}, {}),
     ({"checkpoint": {"load_dir": "/nonexistent"}}, {}),
-    ({}, {"adapters": {"enabled": True}}),
+    ({}, {"telemetry": {"enabled": True}}),
     ({}, {"mesh": {"model_parallel_size": 2}}),
 ])
 def test_engine_refuses_what_is_not_yet_ported(models, inference, extra):

@@ -120,7 +120,7 @@ def _tiny():
 
 
 @pytest.mark.parametrize("extra", [
-    {"adapters": {"enabled": True, "rank": 4}},
+    {"resilience": {"fault_injection": {"enabled": True}}},
     {"resilience": {"supervisor": {"enabled": True}}},
     {"telemetry": {"enabled": True}},
     {"data_pipeline": {"curriculum_learning": {"enabled": True}}},
