@@ -8,13 +8,19 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
   1. probe   — require CUDA; print the card's name and power limit.
   2. build   — compile every CUDA kernel of the three slices from csrc/
                (one nvcc per source, all started together) and print the
-               seconds.
+               seconds, ptxas's registers and spills per kernel, and the
+               count of HGMMA (wgmma) and UTMALDG (TMA load) instructions
+               in each kernel's SASS (cuobjdump -sass); fails unless every
+               bfloat16/float16 instantiation of the tensor-core forward
+               and dK/dV kernels holds both.
   3. kernels — each kernel against its plain PyTorch version on the same
                inputs, float32 and bfloat16, at the serving path's shapes
                (plus a key-mask case, a fully masked row, a dead slot and
                a NULL page mid-table), with the tolerances below; then
                each kernel's time beside its plain version's, one PyTorch
-               library call's where there is one, and its bound.
+               library call's where there is one, and its bound. The
+               forward and its SDPA yardstick are timed both ways (``ms``
+               and ``device_ms``, see Timer).
      3b. training kernels — at GPT-2 small's training shape (B=8, H=12,
                S=1024, D=64, causal): the forward with dropout, dQ and
                dK/dV with and without a padding mask and dropout, in
@@ -22,7 +28,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                real parameters (f32, bf16 and fp16 grads; FusedLamb's
                trust ratios against the plain Lamb's). Then their times,
                bounds and library yardsticks (SDPA forward and backward,
-               timed only).
+               timed only); the forward and dK/dV and their yardsticks
+               both ways, at dropout 0.1 and at 0 (the hash's share).
      3c. sgmv  — the SGMV kernel against its plain version at GPT-2
                small's four LoRA target shapes, rank 16, B = 8, ids mixing
                the identity row 0, repeats and the highest row, float32
@@ -74,6 +81,11 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
   7. report  — a JSON line of per-kernel numbers, the nvidia-smi line,
                then the last line {"ok": true, "device": {...}}.
 
+The attention kernels take two routes by dtype: bfloat16 and float16 the
+tensor-core forward and dK/dV kernels (wgmma + TMA), float32 the FMA
+kernels (the tensor cores take float32 only as TF32); dQ is the FMA
+kernel at every dtype.
+
 Tolerances: float32 kernel vs plain atol = rtol = 1e-4 (same float32
 arithmetic in another summation order; observed errors sit near 1e-6);
 bfloat16 atol = rtol = 1e-2 (both round p and the output to bfloat16, at
@@ -95,11 +107,13 @@ against the unrounded-t arithmetic (which pins where t is rounded).
 """
 
 import argparse
+import importlib.util
 import json
 import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -173,6 +187,76 @@ class Timer:
             end.synchronize()
             total += start.elapsed_time(end)
         return total / iters
+
+
+# the kernels that must run on the tensor cores, by library: every
+# bfloat16/float16 instantiation (2 dtypes x 2 head dims) holds wgmma
+# (HGMMA) and TMA loads (UTMALDG)
+TC_KERNELS = {"flash_fwd": "flash_fwd_kernel_tc",
+              "flash_bwd": "flash_bwd_dkv_kernel_tc"}
+# the FMA kernels' Timer readings at these shapes before the bf16/fp16
+# route moved to the tensor cores (H100 80GB HBM3, 700 W; PERF.md), printed
+# beside this run's readings, not part of the kernels line
+FMA_BEFORE_MS = {"flash_fwd": 2.204, "flash_fwd serve": 0.3129,
+                 "flash_bwd_dkv": 3.075}
+ROUTE = {"flash_fwd": "wgmma+tma (bf16, fp16); FMA (float32)",
+         "flash_bwd_dq": "FMA (every dtype)",
+         "flash_bwd_dkv": "wgmma+tma (bf16, fp16); FMA (float32)"}
+
+
+def cuobjdump_path():
+    """The toolkit's cuobjdump beside nvcc, or the copy Triton carries."""
+    from deepspeed_tpu_torch.ops import kernel_lib
+
+    candidates = [Path(kernel_lib.nvcc_path()).with_name("cuobjdump")]
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin:
+        candidates.append(Path(spec.origin).parent / "backends" / "nvidia"
+                          / "bin" / "cuobjdump")
+    for path in candidates:
+        if path.is_file():
+            return str(path)
+    fail(f"cuobjdump not found (looked at {[str(c) for c in candidates]})")
+
+
+def sass_counts(name):
+    """{kernel: [HGMMA, UTMALDG]} over the SASS of csrc/<name>.cu's library
+    (mangled kernel names, as cuobjdump prints them)."""
+    from deepspeed_tpu_torch.ops import kernel_lib
+
+    sass = subprocess.run(
+        [cuobjdump_path(), "-sass", str(kernel_lib.library_path(name))],
+        capture_output=True, text=True, check=True,
+    ).stdout
+    counts, func = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            func = line.split("Function : ", 1)[1].strip()
+            counts[func] = [0, 0]
+        elif func is not None:
+            counts[func][0] += "HGMMA" in line
+            counts[func][1] += "UTMALDG" in line
+    return counts
+
+
+def phase_sass():
+    """Print each kernel's HGMMA and UTMALDG counts; fail unless every
+    tensor-core kernel instantiation holds both."""
+    from deepspeed_tpu_torch.ops import kernel_lib
+
+    log("phase 2: SASS instruction counts (HGMMA = wgmma, UTMALDG = TMA load)")
+    out = {}
+    for name in kernel_lib.SIGNATURES:
+        counts = sass_counts(name)
+        out[name] = counts
+        for func, (hgmma, utmaldg) in counts.items():
+            log(f"  {name}: {func}: HGMMA {hgmma} UTMALDG {utmaldg}")
+    for name, fragment in TC_KERNELS.items():
+        tc = {f: c for f, c in out[name].items() if fragment in f}
+        if len(tc) != 4 or not all(h and u for h, u in tc.values()):
+            fail(f"{name}: the tensor-core kernels {fragment} lack HGMMA or "
+                 f"UTMALDG instructions: {tc}")
+    return out
 
 
 def bound(nbytes, flops, dtype):
@@ -318,19 +402,26 @@ def phase_kernels(device, seed):
     nbytes, flops = flash_work(q, None, True)
     b_ms, b_by = bound(nbytes, flops, torch.bfloat16)
     sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    kernel = lambda: flash_fwd(q, k, v, None, True)
     lib_err = max_err(sdpa(), flash_fwd_plain(q, k, v, None, True)[0])
     report["flash_fwd"] = dict(
-        name="flash_fwd", route="cuda", source=FLASH_SOURCE,
-        replaces=FLASH_TPU, tpu_kernel=FLASH_TPU,
+        name="flash_fwd", route="cuda", route_detail=ROUTE["flash_fwd"],
+        source=FLASH_SOURCE, replaces=FLASH_TPU, tpu_kernel=FLASH_TPU,
         shape="B=1 H=12 S=1024 D=64 causal bf16",
         max_abs_err=errs[(torch.bfloat16, "causal")],
         max_abs_err_f32=errs[(torch.float32, "causal")],
-        ms=timer.ms(lambda: flash_fwd(q, k, v, None, True)),
+        ms=timer.ms(kernel), device_ms=timer.ms(kernel, spin=True),
         plain_ms=timer.ms(lambda: flash_fwd_plain(q, k, v, None, True)),
-        library_ms=timer.ms(sdpa), library="scaled_dot_product_attention",
+        library_ms=timer.ms(sdpa),
+        library_device_ms=timer.ms(sdpa, spin=True),
+        library="scaled_dot_product_attention",
         library_max_abs_err=lib_err,
         bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes, bound_flops=flops,
     )
+    log(f"  flash_fwd (serving shape): {json.dumps(report['flash_fwd'])}")
+    log(f"  flash_fwd (serving shape): ms {report['flash_fwd']['ms']:.4f}, "
+        f"device_ms {report['flash_fwd']['device_ms']:.4f}; before_ms "
+        f"{FMA_BEFORE_MS['flash_fwd serve']} (the FMA kernel)")
 
     log("phase 3: paged_decode vs plain")
     for dtype in (torch.float32, torch.bfloat16):
@@ -534,61 +625,87 @@ def phase_train_kernels(device, seed, report):
     log("phase 3b: lamb_phase1 vs plain")
     lamb_err, ratio_err, lamb_ops = check_lamb(device, gen, seed)
 
-    log("phase 3b: timing at the training shape (bf16, causal, dropout 0.1)")
+    log("phase 3b: timing at the training shape (bf16, causal, dropout 0.1 "
+        "and 0)")
     b, h, s, d = TRAIN_SHAPE
     q, k, v, dout = (torch.randn(b, h, s, d, device=device, generator=gen)
                      .to(torch.bfloat16) for _ in range(4))
-    fargs = (q, k, v, None, True, None, DROPOUT, 7)
-    out, lse = A.flash_fwd(*fargs)
+    out, lse = A.flash_fwd(q, k, v, None, True, None, DROPOUT, 7)
     delta = (dout.float() * out.float()).sum(dim=-1)
-    bargs = (q, k, v, None, dout, lse, delta, True, None, DROPOUT, 7)
-    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
-                                              dropout_p=DROPOUT)
-    sdpa_bwd_ms = timer.ms(lambda: torch.autograd.grad(
-        sdpa_out, (qg, kg, vg), dout, retain_graph=True))
+
+    def args(name, rate):
+        if name == "flash_fwd":
+            return (q, k, v, None, True, None, rate, 7)
+        return (q, k, v, None, dout, lse, delta, True, None, rate, 7)
+
+    def sdpa_calls(rate):
+        """SDPA forward and backward (dQ, dK and dV together) at ``rate``:
+        the yardsticks, timed only."""
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                                  dropout_p=rate)
+        fwd = lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, dropout_p=rate)
+        bwd = lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), dout,
+                                          retain_graph=True)
+        return fwd, bwd
+
+    def both(fn):
+        """``fn``'s time as Timer gives it and on the device alone."""
+        return timer.ms(fn), timer.ms(fn, spin=True)
+
+    sdpa = {rate: [both(fn) for fn in sdpa_calls(rate)]
+            for rate in (DROPOUT, 0.0)}
     shape = "B=8 H=12 S=1024 D=64 causal dropout 0.1 bf16"
     bf, f32 = torch.bfloat16, torch.float32
+    bwd_lib = ("scaled_dot_product_attention backward (dQ, dK and dV "
+               "together), dropout 0.1")
     entries = {
         "flash_fwd": (FLASH_SOURCE, FLASH_TPU, "fwd", A.flash_fwd,
-                      A.flash_fwd_plain, fargs,
-                      timer.ms(lambda: F.scaled_dot_product_attention(
-                          q, k, v, is_causal=True, dropout_p=DROPOUT)),
+                      A.flash_fwd_plain, 0,
                       "scaled_dot_product_attention forward, dropout 0.1"),
         "flash_bwd_dq": (BWD_SOURCE, DQ_TPU, "dq", A.flash_bwd_dq,
-                         A.flash_bwd_dq_plain, bargs, sdpa_bwd_ms,
-                         "scaled_dot_product_attention backward (dQ, dK "
-                         "and dV together), dropout 0.1"),
+                         A.flash_bwd_dq_plain, 1, bwd_lib),
         "flash_bwd_dkv": (BWD_SOURCE, DKV_TPU, "dkv", A.flash_bwd_dkv,
-                          A.flash_bwd_dkv_plain, bargs, sdpa_bwd_ms,
-                          "scaled_dot_product_attention backward (dQ, dK "
-                          "and dV together), dropout 0.1"),
+                          A.flash_bwd_dkv_plain, 1, bwd_lib),
     }
     serve = report.pop("flash_fwd")
-    for name, (src, tpu, which, fn, plain, args, lib_ms, lib) in entries.items():
+    cases = ("causal", "mask", "causal+dropout", "mask+dropout")
+    for name, (src, tpu, which, fn, plain, lib_i, lib) in entries.items():
         nbytes, flops = flash_work(q, None, True, which)
         b_ms, b_by = bound(nbytes, flops, bf)
+        fargs = args(name, DROPOUT)
+        ms, device_ms = both(lambda: fn(*fargs))
+        lib_ms, lib_device_ms = sdpa[DROPOUT][lib_i]
         report[name] = dict(
-            name=name, route="cuda", source=src, replaces=tpu,
-            tpu_kernel=tpu, shape=shape,
-            max_abs_err=max(errs[(name, bf, c)] for c in
-                            ("causal", "mask", "causal+dropout",
-                             "mask+dropout")),
-            max_abs_err_f32=max(errs[(name, f32, c)] for c in
-                                ("causal", "mask", "causal+dropout",
-                                 "mask+dropout")),
-            max_abs_err_f16=max(errs[(name, torch.float16, c)] for c in
-                                ("causal", "mask", "causal+dropout",
-                                 "mask+dropout")),
-            ms=timer.ms(lambda: fn(*args)),
-            plain_ms=timer.ms(lambda: plain(*args), iters=5, warmup=1),
-            library_ms=lib_ms, library=lib,
+            name=name, route="cuda", route_detail=ROUTE[name], source=src,
+            replaces=tpu, tpu_kernel=tpu, shape=shape,
+            max_abs_err=max(errs[(name, bf, c)] for c in cases),
+            max_abs_err_f32=max(errs[(name, f32, c)] for c in cases),
+            max_abs_err_f16=max(errs[(name, torch.float16, c)]
+                                for c in cases),
+            ms=ms, device_ms=device_ms,
+            plain_ms=timer.ms(lambda: plain(*fargs), iters=5, warmup=1),
+            library_ms=lib_ms, library_device_ms=lib_device_ms, library=lib,
             bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
             bound_flops=flops,
         )
+        if name != "flash_bwd_dq":  # the redesigned kernels at dropout 0
+            zargs = args(name, 0.0)
+            ms0, device_ms0 = both(lambda: fn(*zargs))
+            lib_ms0, lib_device_ms0 = sdpa[0.0][lib_i]
+            report[name].update(
+                ms_dropout0=ms0, device_ms_dropout0=device_ms0,
+                library_ms_dropout0=lib_ms0,
+                library_device_ms_dropout0=lib_device_ms0)
+        log(f"  {name}: {json.dumps(report[name])}")
+        if name in FMA_BEFORE_MS:
+            log(f"  {name}: ms {ms:.4f}, device_ms {device_ms:.4f}; "
+                f"before_ms {FMA_BEFORE_MS[name]} (the FMA kernel)")
     report["flash_fwd"]["serve"] = {
         key: serve[key] for key in ("shape", "max_abs_err", "max_abs_err_f32",
-                                    "ms", "plain_ms", "library_ms",
+                                    "ms", "device_ms", "plain_ms",
+                                    "library_ms", "library_device_ms",
                                     "bound_ms", "bound_by")
     }
 
@@ -1491,8 +1608,10 @@ def main():
     for name, report in built.items():
         log(f"  {name}:")
         for line in report.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "entry function" in line):
                 log(f"    {line.strip()}")
+    phase_sass()
 
     kernels = phase_kernels(device, args.seed)
     phase_train_kernels(device, args.seed, kernels)

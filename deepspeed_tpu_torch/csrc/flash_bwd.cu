@@ -20,33 +20,54 @@
 // dQ, dK, dV written, 26 us of HBM time: operations bound it, narrowly.
 // (Split in two kernels, s and dp are formed by both: 7 products.)
 //
-// What this design does about it, first version: the S x S matrices never
-// touch device memory, and there are no atomics. The dQ kernel gives one
+// Neither kernel uses atomics: each output element is summed by one thread
+// in a fixed order, so the results are the same bit for bit from run to
+// run.
+//
+// dK/dV, bfloat16 and float16 — flash_bwd_dkv_kernel_tc, the tensor-core
+// kernel (FA3's structure without dQ). A block owns 128 keys of one
+// (batch, head): two consumer warpgroups of 64 keys each and one producer
+// warpgroup, whose registers go to the consumers (setmaxnreg 24 / 240).
+// The producer loads the block's K and V tiles once by TMA, then
+// streams tiles of Q and dO (3-D tensor maps, zero-filled past S) through a
+// two-stage ring, starting at the first query tile that can see the key
+// tile, and its 32 lanes stage each tile's lse (in log2 units), delta and
+// dropout row keys beside them. Each consumer forms S^T = K Q^T and
+// dP^T = V dO^T with wgmma from shared memory (all K-major), computes
+// P^T = exp(S^T - lse), the dropout and dS^T = P^T (dP^T - delta) in
+// float32 registers (masks only on the tiles that need them), rounds
+// P_drop^T and dS^T to the storage type in registers and accumulates
+// dV += P_drop^T dO and dK += dS^T Q with them as the register A operand
+// and dO, Q read MN-major from the same ring tiles. dK is scaled by
+// `scale` in the epilogue.
+//
+// dQ at every dtype and dK/dV in float32 — flash_bwd_dq_kernel and
+// flash_bwd_dkv_kernel, the first (FMA) versions (float32 stays off the
+// tensor cores, which take it only as TF32). The dQ kernel gives one
 // thread block to (bh, a tile of 32 query rows) and loops over the key
 // tiles up to the causal diagonal; the dK/dV kernel gives one block to
 // (bh, a tile of 32 key rows) and loops over the query tiles from the
 // diagonal on. In both, the loop's other operand is staged in shared
-// memory as float32 (K and V, or Q and dO), four threads share a row and
-// hold a quarter of its vectors and accumulators in registers, and each
-// dot product closes with two warp shuffles; a row's s and dp are formed
-// one pair at a time and used at once. Causal tiles are issued heaviest
-// first. The products run on the CUDA cores (FMA), not the tensor cores:
-// right and simple first; a tensor-core (mma/wgmma + TMA) version is later
-// work, and its distance from the bound is in PERF.md.
+// memory as float32, four threads share a row and hold a quarter of its
+// vectors and accumulators in registers, and each dot product closes with
+// two warp shuffles. Causal tiles are issued heaviest first.
 //
 // C interface: ds_flash_bwd_dq(...) and ds_flash_bwd_dkv(...) launch on the
-// given stream, allocate nothing, and return cudaGetLastError().
+// given stream, allocate nothing, and return cudaGetLastError() (or the
+// error that stopped them before the launch).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "dropout.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
 constexpr int kGroup = 4;               // threads per row
 constexpr int kRows = 32;               // rows a block owns
 constexpr int kThreads = kRows * kGroup;  // 128
@@ -295,59 +316,314 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D, int BS>
-int launch(const void* q, const void* k, const void* v, const int* kv_mask,
-           const void* dout, const float* lse, const float* delta, void* dq,
-           void* dk, void* dv, int B, int H, int Sq, int Sk, int causal,
-           float sm_scale, int dropout, uint32_t threshold, float keep,
-           uint32_t seed, cudaStream_t stream) {
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* dt = static_cast<const T*>(dout);
-  if (dq != nullptr) {
-    const dim3 grid((Sq + kRows - 1) / kRows, B * H);
-    flash_bwd_dq_kernel<T, D, BS><<<grid, kThreads, 0, stream>>>(
-        qt, kt, vt, kv_mask, dt, lse, delta, static_cast<T*>(dq), H, Sq, Sk,
-        causal, sm_scale, dropout, threshold, keep, seed);
-  } else {
-    const dim3 grid((Sk + kRows - 1) / kRows, B * H);
-    flash_bwd_dkv_kernel<T, D, BS><<<grid, kThreads, 0, stream>>>(
-        qt, kt, vt, kv_mask, dt, lse, delta, static_cast<T*>(dk),
-        static_cast<T*>(dv), H, Sq, Sk, causal, sm_scale, dropout, threshold,
-        keep, seed);
-  }
+int launch_dq(const void* q, const void* k, const void* v, const int* kv_mask,
+              const void* dout, const float* lse, const float* delta,
+              void* dq, int B, int H, int Sq, int Sk, int causal,
+              float sm_scale, int dropout, uint32_t threshold, float keep,
+              uint32_t seed, cudaStream_t stream) {
+  const dim3 grid((Sq + kRows - 1) / kRows, B * H);
+  flash_bwd_dq_kernel<T, D, BS><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), kv_mask, static_cast<const T*>(dout), lse,
+      delta, static_cast<T*>(dq), H, Sq, Sk, causal, sm_scale, dropout,
+      threshold, keep, seed);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Shared memory per block: 2 * BS * D * 4 bytes = 32 KB for both D.
-int dispatch(const void* q, const void* k, const void* v, const int* kv_mask,
-             const void* dout, const float* lse, const float* delta, void* dq,
-             void* dk, void* dv, int B, int H, int Sq, int Sk, int D,
-             int dtype, int causal, float sm_scale, int dropout,
-             uint32_t threshold, float keep, uint32_t seed, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Sq <= 0 || Sk <= 0 || B * H <= 0) {
-    return static_cast<int>(cudaGetLastError());
-  }
-#define DS_FLASH_BWD(T, DIM, BS)                                            \
-  return launch<T, DIM, BS>(q, k, v, kv_mask, dout, lse, delta, dq, dk, dv, \
-                            B, H, Sq, Sk, causal, sm_scale, dropout,        \
-                            threshold, keep, seed, s)
-  if (dtype == 0 && D == 64) DS_FLASH_BWD(float, 64, 64);
-  if (dtype == 0 && D == 128) DS_FLASH_BWD(float, 128, 32);
-  if (dtype == 1 && D == 64) DS_FLASH_BWD(__nv_bfloat16, 64, 64);
-  if (dtype == 1 && D == 128) DS_FLASH_BWD(__nv_bfloat16, 128, 32);
-  if (dtype == 2 && D == 64) DS_FLASH_BWD(__half, 64, 64);
-  if (dtype == 2 && D == 128) DS_FLASH_BWD(__half, 128, 32);
-#undef DS_FLASH_BWD
-  return static_cast<int>(cudaErrorInvalidValue);
+// float32 only: bfloat16 and float16 take tc::launch_dkv
+template <int D, int BS>
+int launch_dkv(const void* q, const void* k, const void* v,
+               const int* kv_mask, const void* dout, const float* lse,
+               const float* delta, void* dk, void* dv, int B, int H, int Sq,
+               int Sk, int causal, float sm_scale, int dropout,
+               uint32_t threshold, float keep, uint32_t seed,
+               cudaStream_t stream) {
+  const dim3 grid((Sk + kRows - 1) / kRows, B * H);
+  flash_bwd_dkv_kernel<float, D, BS><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), kv_mask, static_cast<const float*>(dout),
+      lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), H, Sq, Sk,
+      causal, sm_scale, dropout, threshold, keep, seed);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// dK/dV on the tensor cores (bfloat16, float16)
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int kBN = 128;                   // keys a block owns
+constexpr int kStages = 2;                 // the Q/dO ring
+constexpr int kConsumers = 256;             // two warpgroups of 64 keys
+constexpr int kThreads = kConsumers + 128;  // and one producer warpgroup
+constexpr float kLog2e = 1.4426950408889634f;
+
+// shared memory, byte offsets from a 1024-aligned base: the K and V
+// tiles, the Q and dO rings, each stage's row data (lse in log2 units,
+// delta, dropout row key: kBQ 4-byte values each), the mbarriers
+// (kv_full, full[kStages], empty[kStages])
+template <int D>
+struct Layout {
+  // queries a ring stage holds: 32 at D = 128 keeps dK, dV, S^T and dP^T
+  // of a thread (2 x 64 + 2 x 16 float32) within its registers
+  static constexpr int kBQ = D == 64 ? 64 : 32;
+  static constexpr int kKV = kBN * D * 2;  // the K (or V) tile
+  static constexpr int kQT = kBQ * D * 2;  // a Q (or dO) tile
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kKV;
+  static constexpr int kQ = kV + kKV;  // stage s at kQ + s * kQT
+  static constexpr int kDO = kQ + kStages * kQT;
+  static constexpr int kRows = kDO + kStages * kQT;
+  static constexpr int kRowBytes = 3 * kBQ * 4;
+  static constexpr int kBars = kRows + kStages * kRowBytes;
+  static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        const __grid_constant__ CUtensorMap tm_do,
+                        const int* __restrict__ kv_mask,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, T* __restrict__ dk,
+                        T* __restrict__ dv, int H, int Sq, int Sk, int causal,
+                        float sm_scale, float scale_log2, int dropout,
+                        uint32_t threshold, float inv_keep, uint32_t seed) {
+  using L = Layout<D>;
+  constexpr int kBQ = L::kBQ;
+  constexpr bool kHalf = std::is_same<T, __half>::value;
+  constexpr int kBoxes = D / 64;  // 64-column TMA boxes per row
+  extern __shared__ uint8_t smem[];
+  const uint32_t base = (sm90::smem_addr(smem) + 1023u) & ~1023u;
+  uint8_t* const sbase = smem + (base - sm90::smem_addr(smem));
+  const uint32_t kv_full = base + L::kBars;
+  const uint32_t full0 = kv_full + 8;  // full[s] at full0 + 8 * s
+  const uint32_t empty0 = full0 + 8 * kStages;
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kBN;  // low key tiles see the most queries
+  const int diag = Sk - Sq;
+  // the first query tile that can see the key tile: qi >= k0 - diag
+  const int t0 = causal ? max(0, k0 - diag) / kBQ : 0;
+  const int nt = (Sq + kBQ - 1) / kBQ;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    sm90::mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      // the TMA thread's arrival and the 32 lanes that stage the rows
+      sm90::mbar_init(full0 + 8 * s, 33);
+      sm90::mbar_init(empty0 + 8 * s, kConsumers);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {  // the producer warpgroup: its first warp works
+    sm90::setmaxnreg_dec<24>();
+    const int lane = tid - kConsumers;
+    if (lane >= 32) return;
+    if (lane == 0 && t0 < nt) {
+      sm90::mbar_arrive_tx(kv_full, 2 * L::kKV);
+      for (int c = 0; c < kBoxes; ++c) {
+        const uint32_t off = c * kBN * 128;
+        sm90::tma_load(base + L::kK + off, &tm_k, kv_full, 64 * c, k0, bh);
+        sm90::tma_load(base + L::kV + off, &tm_v, kv_full, 64 * c, k0, bh);
+      }
+    }
+    for (int t = t0; t < nt; ++t) {
+      const int i = t - t0;
+      const int s = i % kStages;
+      sm90::mbar_wait(empty0 + 8 * s, ((i / kStages) & 1) ^ 1);
+      const uint32_t full = full0 + 8 * s;
+      if (lane == 0) {
+        sm90::mbar_arrive_tx(full, 2 * L::kQT);
+        for (int c = 0; c < kBoxes; ++c) {
+          const uint32_t off = s * L::kQT + c * kBQ * 128;
+          sm90::tma_load(base + L::kQ + off, &tm_q, full, 64 * c, t * kBQ, bh);
+          sm90::tma_load(base + L::kDO + off, &tm_do, full, 64 * c, t * kBQ,
+                         bh);
+        }
+      }
+      float* rows = reinterpret_cast<float*>(sbase + L::kRows +
+                                             s * L::kRowBytes);
+      for (int r = lane; r < kBQ; r += 32) {
+        const int qi = t * kBQ + r;
+        const bool in = qi < Sq;
+        rows[r] = in ? lse[(size_t)bh * Sq + qi] * kLog2e : 0.f;
+        rows[kBQ + r] = in ? delta[(size_t)bh * Sq + qi] : 0.f;
+        reinterpret_cast<uint32_t*>(rows)[2 * kBQ + r] =
+            dropout ? dropout_row_key(seed, bh, qi) : 0u;
+      }
+      sm90::mbar_arrive(full);
+    }
+    return;
+  }
+
+  sm90::setmaxnreg_inc<240>();
+
+  // a consumer warpgroup: keys kw0 .. kw0 + 63; this thread holds keys
+  // key0 and key0 + 8 (rows of S^T), queries 8 j + col_off + {0, 1} of
+  // each tile (its columns)
+  const int wg = tid / 128;
+  const int lane = tid % 32;
+  const int kw0 = k0 + 64 * wg;
+  const int key0 = kw0 + 16 * ((tid % 128) / 32) + lane / 4;
+  const int col_off = 2 * (lane % 4);
+  bool key_ok[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key0 + 8 * h;
+    key_ok[h] = key < Sk &&
+                (kv_mask == nullptr || kv_mask[(size_t)(bh / H) * Sk + key] != 0);
+  }
+
+  float acc_k[D / 2], acc_v[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+
+  const uint32_t k_rows = base + L::kK + wg * 64 * 128;
+  const uint32_t v_rows = base + L::kV + wg * 64 * 128;
+  if (t0 < nt) sm90::mbar_wait(kv_full, 0);
+  for (int t = t0; t < nt; ++t) {
+    const int i = t - t0;
+    const int s = i % kStages;
+    const int q0 = t * kBQ;
+    sm90::mbar_wait(full0 + 8 * s, (i / kStages) & 1);
+    const uint32_t q_tile = base + L::kQ + s * L::kQT;
+    const uint32_t do_tile = base + L::kDO + s * L::kQT;
+    const float* lse2_s =
+        reinterpret_cast<const float*>(sbase + L::kRows + s * L::kRowBytes);
+    const float* delta_s = lse2_s + kBQ;
+    const uint32_t* key_s = reinterpret_cast<const uint32_t*>(lse2_s) + 2 * kBQ;
+
+    // S^T = K Q^T and dP^T = V dO^T, 64 x kBQ each, float32
+    float st[kBQ / 2], dpt[kBQ / 2];
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t a_off = (kk / 4) * kBN * 128 + 32 * (kk % 4);
+      const uint32_t b_off = (kk / 4) * kBQ * 128 + 32 * (kk % 4);
+      sm90::Wgmma<kBQ, kHalf>::ss(st, sm90::desc_k(k_rows + a_off),
+                                  sm90::desc_k(q_tile + b_off), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t a_off = (kk / 4) * kBN * 128 + 32 * (kk % 4);
+      const uint32_t b_off = (kk / 4) * kBQ * 128 + 32 * (kk % 4);
+      sm90::Wgmma<kBQ, kHalf>::ss(dpt, sm90::desc_k(v_rows + a_off),
+                                  sm90::desc_k(do_tile + b_off), kk > 0);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(st);
+    sm90::fence_regs(dpt);
+
+    // P^T, dropout, dS^T; masks only on the tiles that need them (a tile
+    // that needs none holds no row without a visible key, so its lse is
+    // finite)
+    const bool need_mask = kv_mask != nullptr || q0 + kBQ > Sq ||
+                           (causal && kw0 + 63 > q0 + diag);
+#pragma unroll
+    for (int j = 0; j < kBQ / 2; ++j) {
+      const int h = (j % 4) / 2;
+      const int r = 8 * (j / 4) + col_off + (j % 2);  // query in the tile
+      const int key = key0 + 8 * h;
+      float p = sm90::exp2_approx(fmaf(st[j], scale_log2, -lse2_s[r]));
+      if (need_mask) {
+        const int qi = q0 + r;
+        if (!(key_ok[h] && qi < Sq && (!causal || key <= qi + diag))) p = 0.f;
+      }
+      float dp = dpt[j];
+      float p_drop = p;
+      if (dropout) {
+        const bool keep = dropout_keep(key_s[r], key, threshold);
+        p_drop = keep ? p * inv_keep : 0.f;
+        dp = keep ? dp * inv_keep : 0.f;
+      }
+      st[j] = p_drop;
+      dpt[j] = p * (dp - delta_s[r]);
+    }
+
+    // dV += P_drop^T dO, dK += dS^T Q: A from registers, B MN-major
+    uint32_t pa[kBQ / 16][4], da[kBQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk) {
+      sm90::to_a_frag<T>(st, kk, pa[kk]);
+      sm90::to_a_frag<T>(dpt, kk, da[kk]);
+      sm90::fence_regs(pa[kk]);
+      sm90::fence_regs(da[kk]);
+    }
+    sm90::fence_regs(acc_k);
+    sm90::fence_regs(acc_v);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk) {
+      sm90::Wgmma<D, kHalf>::rs(
+          acc_v, pa[kk], sm90::desc_mn(do_tile + 2048 * kk, kBQ * 128), 1);
+      sm90::Wgmma<D, kHalf>::rs(
+          acc_k, da[kk], sm90::desc_mn(q_tile + 2048 * kk, kBQ * 128), 1);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc_k);
+    sm90::fence_regs(acc_v);
+    sm90::mbar_arrive(empty0 + 8 * s);
+  }
+
+  // epilogue: dK * scale and dV in T (a masked key's rows are exact zeros)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key0 + 8 * h;
+    if (key >= Sk) continue;
+    const size_t row = ((size_t)bh * Sk + key) * D + col_off;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(dk + row + 8 * j) =
+          sm90::pack2<T>(acc_k[4 * j + 2 * h] * sm_scale,
+                         acc_k[4 * j + 2 * h + 1] * sm_scale);
+      *reinterpret_cast<uint32_t*>(dv + row + 8 * j) = sm90::pack2<T>(
+          acc_v[4 * j + 2 * h], acc_v[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+template <typename T, int D>
+int launch_dkv(const void* q, const void* k, const void* v,
+               const int* kv_mask, const void* dout, const float* lse,
+               const float* delta, void* dk, void* dv, int B, int H, int Sq,
+               int Sk, int dtype, int causal, float sm_scale, int dropout,
+               uint32_t threshold, float keep, uint32_t seed,
+               cudaStream_t stream) {
+  constexpr int kBQ = Layout<D>::kBQ;
+  CUtensorMap tq, tk, tv, tdo;
+  int err = sm90::make_map(&tq, q, dtype, B * H, Sq, D, kBQ);
+  if (err == 0) err = sm90::make_map(&tdo, dout, dtype, B * H, Sq, D, kBQ);
+  if (err == 0) err = sm90::make_map(&tk, k, dtype, B * H, Sk, D, kBN);
+  if (err == 0) err = sm90::make_map(&tv, v, dtype, B * H, Sk, D, kBN);
+  if (err != 0) return err;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel_tc<T, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<D>::kBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(B * H, (Sk + kBN - 1) / kBN);
+  flash_bwd_dkv_kernel_tc<T, D>
+      <<<grid, kThreads, Layout<D>::kBytes, stream>>>(
+          tq, tk, tv, tdo, kv_mask, lse, delta, static_cast<T*>(dk),
+          static_cast<T*>(dv), H, Sq, Sk, causal, sm_scale,
+          sm_scale * kLog2e, dropout, threshold, 1.f / keep, seed);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
 // dtype: 0 float32, 1 bfloat16, 2 float16; D 64 or 128 (the wrapper
-// checks). lse and
-// delta are [B, H, Sq] float32. dropout as in ds_flash_fwd.
+// checks). lse and delta are [B, H, Sq] float32. dropout as in
+// ds_flash_fwd. dQ takes the FMA kernel at every dtype.
 extern "C" int ds_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const int* kv_mask, const void* dout,
                                const float* lse, const float* delta, void* dq,
@@ -355,11 +631,26 @@ extern "C" int ds_flash_bwd_dq(const void* q, const void* k, const void* v,
                                int causal, float sm_scale, int dropout,
                                unsigned int threshold, float keep,
                                unsigned int seed, void* stream) {
-  return dispatch(q, k, v, kv_mask, dout, lse, delta, dq, nullptr, nullptr, B,
-                  H, Sq, Sk, D, dtype, causal, sm_scale, dropout, threshold,
-                  keep, seed, stream);
+  if (Sq <= 0 || Sk <= 0 || B * H <= 0) {
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DS_FLASH_DQ(T, DIM, BS)                                             \
+  return launch_dq<T, DIM, BS>(q, k, v, kv_mask, dout, lse, delta, dq, B, H, \
+                               Sq, Sk, causal, sm_scale, dropout, threshold, \
+                               keep, seed, s)
+  if (dtype == 0 && D == 64) DS_FLASH_DQ(float, 64, 64);
+  if (dtype == 0 && D == 128) DS_FLASH_DQ(float, 128, 32);
+  if (dtype == 1 && D == 64) DS_FLASH_DQ(__nv_bfloat16, 64, 64);
+  if (dtype == 1 && D == 128) DS_FLASH_DQ(__nv_bfloat16, 128, 32);
+  if (dtype == 2 && D == 64) DS_FLASH_DQ(__half, 64, 64);
+  if (dtype == 2 && D == 128) DS_FLASH_DQ(__half, 128, 32);
+#undef DS_FLASH_DQ
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// dK/dV: float32 on the FMA kernel, bfloat16 and float16 on the
+// tensor-core kernel.
 extern "C" int ds_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 const int* kv_mask, const void* dout,
                                 const float* lse, const float* delta, void* dk,
@@ -367,7 +658,28 @@ extern "C" int ds_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 int dtype, int causal, float sm_scale,
                                 int dropout, unsigned int threshold, float keep,
                                 unsigned int seed, void* stream) {
-  return dispatch(q, k, v, kv_mask, dout, lse, delta, nullptr, dk, dv, B, H,
-                  Sq, Sk, D, dtype, causal, sm_scale, dropout, threshold, keep,
-                  seed, stream);
+  if (Sq <= 0 || Sk <= 0 || B * H <= 0) {
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DS_FLASH_DKV_TC(T, DIM)                                               \
+  return tc::launch_dkv<T, DIM>(q, k, v, kv_mask, dout, lse, delta, dk, dv, B, \
+                                H, Sq, Sk, dtype, causal, sm_scale, dropout,   \
+                                threshold, keep, seed, s)
+  if (dtype == 1 && D == 64) DS_FLASH_DKV_TC(__nv_bfloat16, 64);
+  if (dtype == 1 && D == 128) DS_FLASH_DKV_TC(__nv_bfloat16, 128);
+  if (dtype == 2 && D == 64) DS_FLASH_DKV_TC(__half, 64);
+  if (dtype == 2 && D == 128) DS_FLASH_DKV_TC(__half, 128);
+#undef DS_FLASH_DKV_TC
+  if (dtype == 0 && D == 64) {
+    return launch_dkv<64, 64>(q, k, v, kv_mask, dout, lse, delta, dk, dv, B,
+                              H, Sq, Sk, causal, sm_scale, dropout, threshold,
+                              keep, seed, s);
+  }
+  if (dtype == 0 && D == 128) {
+    return launch_dkv<128, 32>(q, k, v, kv_mask, dout, lse, delta, dk, dv, B,
+                               H, Sq, Sk, causal, sm_scale, dropout,
+                               threshold, keep, seed, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

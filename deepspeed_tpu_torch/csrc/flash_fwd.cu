@@ -13,42 +13,64 @@
 // lse rode a 128-lane trailing dim for TPU tiling; here it is a plain
 // [B, H, Sq] float32 array.
 //
-// What bounds it on the H100: attention at the GPT-2 prefill shape
-// (B=1, H=12, S=1024, D=64, causal) is 2*2*B*H*S^2*D/2 = 1.6 GFLOP over
-// (3+1)*B*H*S*D elements of traffic (q, k, v in, out written): in bf16
-// that is 1.6 us of tensor-core time at 989 TFLOP/s against 1.9 us of
-// HBM time at 3.35 TB/s, so the kernel should sit near the
-// compute/bandwidth ridge and neither a large working set nor the score
-// matrix may touch device memory.
+// What bounds it on the H100: attention at GPT-2 small's training shape
+// (B=8, H=12, S=1024, D=64, causal) is 4*D flops per visible (query, key)
+// pair, 12.9 GFLOP, 13 us of bf16 tensor-core time at 989 TFLOP/s, against
+// 51 MB of q, k, v, out and lse, 15 us of HBM time at 3.35 TB/s: the two
+// bounds meet, so the score matrix must never touch device memory and the
+// products must run on the tensor cores.
 //
-// What this design does about it: the S x S score matrix never leaves
-// registers. One thread block owns (b*h, a tile of BQ = 32 query rows);
-// a loop inside the block walks the K/V tiles (replacing the TPU grid's
-// sequential ik axis) and stops at the diagonal tile under causal, so
-// causal attention does half the work. Each K/V tile is staged once in
-// shared memory as float32 and read by all 32 rows of the block. Four
-// threads share a query row: each holds a quarter of q and of the output
-// accumulator in registers and the dot products are finished with two
-// warp shuffles. Query tiles are issued heaviest-first (last tiles have
-// the most keys under causal) to balance the tail. This first version
-// multiplies with FMA on the CUDA cores, not the tensor cores (no
-// mma/wgmma, no TMA): simple and right first; the tensor-core version is
-// later work, and its distance from the bound is in PERF.md.
+// Two routes, chosen by dtype in ds_flash_fwd:
 //
-// Numerics follow the TPU kernel: scores, m, l and the accumulator in
-// float32 whatever the input type; p is rounded to the input type before
-// the value product (the TPU kernel's p.astype(v.dtype)); masked scores
-// are -1e30 and contribute exactly 0.
+// bfloat16 and float16 — flash_fwd_kernel_tc, the tensor-core kernel. A
+// block owns 128 query rows of one (batch, head): two consumer warpgroups
+// of 64 rows each and one producer warpgroup, whose registers go to the
+// consumers (setmaxnreg 24 / 240). One producer thread loads the block's
+// Q tile once and keeps a three-stage ring of 128-key K and V tiles in
+// flight with TMA (3-D tensor maps over [B*H, S, D], so a ragged last
+// tile reads zeros, not the next head), signalled through mbarriers. Each
+// consumer forms S = Q K^T with wgmma from shared memory (both operands
+// K-major, 128-byte swizzle), keeps m, l and the rescale factor in
+// float32 registers, applies the causal/key/length mask only on the tiles
+// that need it and the dropout hash in the accumulator fragment itself
+// (each thread knows the (row, key) of its registers; a row's hash key is
+// computed once), rounds P to the storage type in registers and issues
+// O += P V with P as the register A operand and V read MN-major from the
+// ring. Within a warpgroup the work is software-pipelined: S of tile t is
+// issued together with P V of tile t - 1, and the softmax of tile t runs
+// while that P V is on the tensor cores. The loop stops at the diagonal
+// tile; query tiles are issued heaviest first. The epilogue divides by l
+// and writes out and lse. Softmax runs in the exp2 domain (scale * log2 e
+// folded into one FMA, the special-function unit's ex2); lse is converted
+// back to natural-log units at the edge.
+//
+// float32 — flash_fwd_kernel, the first (FMA) version, kept because the
+// tensor cores take float32 only as TF32 (about three digits), which would
+// break the port's float32 checks (1e-4, and float32 greedy-token
+// equality). One thread block owns (b*h, a tile of BQ = 32 query rows); a
+// loop walks the K/V tiles up to the causal diagonal, each staged once in
+// shared memory; four threads share a query row and finish each dot
+// product with two warp shuffles.
+//
+// Numerics follow the TPU kernel on both routes: scores, m, l and the
+// accumulator in float32; p is rounded to the input type before the value
+// product (the TPU kernel's p.astype(v.dtype)); masked scores contribute
+// exactly 0.
 //
 // C interface: ds_flash_fwd(...) launches on the given stream, allocates
-// nothing, and returns cudaGetLastError().
+// nothing, and returns cudaGetLastError() (or the error that stopped it
+// before the launch: a misaligned pointer, a tensor map that
+// cuTensorMapEncodeTiled refused).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "dropout.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -57,39 +79,15 @@ constexpr int kGroup = 4;                  // threads per query row
 constexpr int kBQ = 32;                    // query rows per block
 constexpr int kThreads = kBQ * kGroup;     // 128
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <>
-__device__ __forceinline__ __half from_f32<__half>(float x) {
-  return __float2half_rn(x);
-}
-
-// x rounded to T's precision and back (identity for float)
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
-
+// float32 only (bfloat16 and float16 take the tensor-core kernel).
 // D: head dim (64 or 128); BK: keys per staged tile. Shared memory is
 // 2 * BK * D * 4 bytes = 32 KB for both instantiations.
-template <typename T, int D, int BK>
+template <int D, int BK>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const int* __restrict__ kv_mask,
-                 T* __restrict__ out, float* __restrict__ lse, int H, int Sq,
-                 int Sk, int causal, float sm_scale, int dropout,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const int* __restrict__ kv_mask,
+                 float* __restrict__ out, float* __restrict__ lse, int H,
+                 int Sq, int Sk, int causal, float sm_scale, int dropout,
                  uint32_t threshold, float keep, uint32_t seed) {
   constexpr int kDPT = D / kGroup;   // dims per thread (16 or 32)
   constexpr int kChunks = kDPT / 4;  // float4 chunks per thread
@@ -108,9 +106,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const bool row_ok = qi < Sq;
   const int diag = Sk - Sq;
 
-  const T* qb = q + (size_t)bh * Sq * D;
-  const T* kb = k + (size_t)bh * Sk * D;
-  const T* vb = v + (size_t)bh * Sk * D;
+  const float* qb = q + (size_t)bh * Sq * D;
+  const float* kb = k + (size_t)bh * Sk * D;
+  const float* vb = v + (size_t)bh * Sk * D;
 
   // the thread's dims: float4 chunks c = g + kGroup * i, i < kChunks
   // (the four threads of a row read 64 contiguous bytes of a K/V row)
@@ -120,7 +118,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int d = 4 * (g + kGroup * i) + e;
-      qr[4 * i + e] = row_ok ? to_f32(qb[(size_t)qi * D + d]) : 0.f;
+      qr[4 * i + e] = row_ok ? qb[(size_t)qi * D + d] : 0.f;
     }
   }
   float acc[kDPT];
@@ -148,8 +146,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int kj = k0 + r;
       float kx = 0.f, vx = 0.f;
       if (kj < Sk) {
-        kx = to_f32(kb[(size_t)kj * D + c]);
-        vx = to_f32(vb[(size_t)kj * D + c]);
+        kx = kb[(size_t)kj * D + c];
+        vx = vb[(size_t)kj * D + c];
       }
       ks[r][c] = kx;
       vs[r][c] = vx;
@@ -193,13 +191,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // masked entries contribute exactly 0 (also when m_new is -1e30)
       const float p = s[j] > 0.5f * kNegInf ? expf(s[j] - m_new) : 0.f;
       l += p;
-      float pu;
-      if (dropout) {  // the TPU kernel's where(keep, p / (1 - rate), 0)
-        pu = dropout_keep(row_key, k0 + j, threshold) ? round_to<T>(p / keep)
-                                                      : 0.f;
-      } else {
-        pu = round_to<T>(p);
-      }
+      // the TPU kernel's where(keep, p / (1 - rate), 0)
+      const float pu =
+          !dropout ? p
+          : dropout_keep(row_key, k0 + j, threshold) ? p / keep
+                                                     : 0.f;
       const float4* vr = reinterpret_cast<const float4*>(&vs[j][0]);
 #pragma unroll
       for (int i = 0; i < kChunks; ++i) {
@@ -215,35 +211,313 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (row_ok) {
     const float ld = (l == 0.f) ? 1.f : l;  // no visible key -> zeros
-    T* orow = out + ((size_t)bh * Sq + qi) * D;
+    float* orow = out + ((size_t)bh * Sq + qi) * D;
 #pragma unroll
     for (int i = 0; i < kChunks; ++i) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        orow[4 * (g + kGroup * i) + e] = from_f32<T>(acc[4 * i + e] / ld);
+        orow[4 * (g + kGroup * i) + e] = acc[4 * i + e] / ld;
       }
     }
     if (g == 0) lse[(size_t)bh * Sq + qi] = m + logf(ld);
   }
 }
 
-template <typename T, int D, int BK>
+template <int D, int BK>
 void launch(const void* q, const void* k, const void* v, const int* kv_mask,
             void* out, float* lse, int B, int H, int Sq, int Sk, int causal,
             float sm_scale, int dropout, uint32_t threshold, float keep,
             uint32_t seed, cudaStream_t stream) {
   const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
-  flash_fwd_kernel<T, D, BK><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), kv_mask, static_cast<T*>(out), lse, H, Sq, Sk,
-      causal, sm_scale, dropout, threshold, keep, seed);
+  flash_fwd_kernel<D, BK><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), kv_mask, static_cast<float*>(out), lse, H,
+      Sq, Sk, causal, sm_scale, dropout, threshold, keep, seed);
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16, 2 float16. D must be 64 or 128 (the
-// wrapper checks). dropout: 0 off; else keep a pair when its bits >=
-// threshold and divide the kept probabilities by keep = 1 - rate.
+// ---------------------------------------------------------------------------
+// the tensor-core route (bfloat16, float16)
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int kBM = 128;                    // query rows a block owns
+constexpr int kBN = 128;                    // keys a K/V tile holds
+constexpr int kStages = 3;                  // the K/V ring
+constexpr int kConsumers = 256;             // two warpgroups of 64 rows
+constexpr int kThreads = kConsumers + 128;  // and one producer warpgroup
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// shared memory, byte offsets from a 1024-aligned base: the Q tile, the
+// K and V rings, the mbarriers (q_full, full[kStages], empty[kStages])
+template <int D>
+struct Layout {
+  static constexpr int kTile = kBN * D * 2;  // a K or V tile; Q's too
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kTile;       // stage s at kK + s * kTile
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kBars = kV + kStages * kTile;
+  static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const int* __restrict__ kv_mask, T* __restrict__ out,
+                    float* __restrict__ lse, int H, int Sq, int Sk, int causal,
+                    float scale_log2, int dropout, uint32_t threshold,
+                    float inv_keep, uint32_t seed) {
+  using L = Layout<D>;
+  constexpr bool kHalf = std::is_same<T, __half>::value;
+  constexpr int kBoxes = D / 64;  // 64-column TMA boxes per row
+  extern __shared__ uint8_t smem[];
+  const uint32_t base = (sm90::smem_addr(smem) + 1023u) & ~1023u;
+  const uint32_t q_full = base + L::kBars;
+  const uint32_t full0 = q_full + 8;  // full[s] at full0 + 8 * s
+  const uint32_t empty0 = full0 + 8 * kStages;
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBM;  // heaviest tiles first
+  const int diag = Sk - Sq;
+  // keys the block's rows can see: up to the diagonal of its last row
+  const int kend = causal ? min(Sk, min(q0 + kBM, Sq) + diag) : Sk;
+  const int ntiles = kend > 0 ? (kend + kBN - 1) / kBN : 0;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(full0 + 8 * s, 1);
+      sm90::mbar_init(empty0 + 8 * s, kConsumers);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {  // the producer warpgroup: one thread issues TMA
+    sm90::setmaxnreg_dec<24>();
+    if (tid == kConsumers && ntiles > 0) {
+      sm90::mbar_arrive_tx(q_full, kBM * D * 2);
+      for (int c = 0; c < kBoxes; ++c) {
+        sm90::tma_load(base + L::kQ + c * kBM * 128, &tm_q, q_full, 64 * c,
+                       q0, bh);
+      }
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % kStages;
+        sm90::mbar_wait(empty0 + 8 * s, ((t / kStages) & 1) ^ 1);
+        const uint32_t full = full0 + 8 * s;
+        sm90::mbar_arrive_tx(full, 2 * L::kTile);
+        for (int c = 0; c < kBoxes; ++c) {
+          const uint32_t off = s * L::kTile + c * kBN * 128;
+          sm90::tma_load(base + L::kK + off, &tm_k, full, 64 * c, t * kBN, bh);
+          sm90::tma_load(base + L::kV + off, &tm_v, full, 64 * c, t * kBN, bh);
+        }
+      }
+    }
+    return;
+  }
+  sm90::setmaxnreg_inc<240>();
+
+  // a consumer warpgroup: rows r0 .. r0 + 63; this thread holds rows
+  // row0 and row0 + 8, columns 8 j + col_off + {0, 1} of each tile
+  const int wg = tid / 128;
+  const int lane = tid % 32;
+  const int r0 = q0 + 64 * wg;
+  const int row0 = r0 + 16 * ((tid % 128) / 32) + lane / 4;
+  const int col_off = 2 * (lane % 4);
+  const int* mask_row = kv_mask ? kv_mask + (size_t)(bh / H) * Sk : nullptr;
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max, log2 units
+  float l[2] = {0.f, 0.f};              // this thread's part of the normaliser
+  uint32_t rkey[2] = {0u, 0u};
+  if (dropout) {
+    rkey[0] = dropout_row_key(seed, bh, row0);
+    rkey[1] = dropout_row_key(seed, bh, row0 + 8);
+  }
+  const uint32_t q_tile = base + L::kQ + wg * 64 * 128;
+
+  float sc[kBN / 2];          // S of the current tile, then its P
+  uint32_t pa[kBN / 16][4];   // P of the previous tile, as A fragments
+  float alpha[2];
+
+  // S = Q K^T of tile t, 64 x 128 float32, issued (not waited for)
+  auto issue_s = [&](int t) {
+    const uint32_t k_tile = base + L::kK + (t % kStages) * L::kTile;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kBN * 128 + 32 * (kk % 4);
+      sm90::Wgmma<kBN, kHalf>::ss(sc, sm90::desc_k(q_tile + off),
+                                  sm90::desc_k(k_tile + off), kk > 0);
+    }
+    sm90::wgmma_commit();
+  };
+  // O += P V of tile t (P from pa), issued
+  auto issue_pv = [&](int t) {
+    const uint32_t v_tile = base + L::kV + (t % kStages) * L::kTile;
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      sm90::Wgmma<D, kHalf>::rs(o, pa[kk],
+                                sm90::desc_mn(v_tile + 2048 * kk, kBN * 128),
+                                1);
+    }
+    sm90::wgmma_commit();
+  };
+  // the masks (only on the tiles that need them) and the online softmax
+  // of tile t in the exp2 domain: sc becomes the dropped P; m, alpha and
+  // the undropped row sums (into lsum) advance. A row that has seen no
+  // key yet keeps m = -inf and takes mu = 0, so its masked entries give
+  // exp2(-inf) = 0.
+  float lsum[2];
+  auto softmax = [&](int t) {
+    const int k0 = t * kBN;
+    if (mask_row != nullptr || k0 + kBN > Sk ||
+        (causal && k0 + kBN - 1 > r0 + diag)) {
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i) {
+        const int col = k0 + 8 * (i / 4) + col_off + (i % 2);
+        const int row = row0 + 8 * ((i % 4) / 2);
+        bool ok = col < Sk && (!causal || col <= row + diag);
+        if (ok && mask_row != nullptr) ok = mask_row[col] != 0;
+        if (!ok) sc[i] = -INFINITY;
+      }
+    }
+    float mu[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+        mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * h], sc[4 * j + 2 * h + 1]));
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[h], mx * scale_log2);
+      mu[h] = m_new == -INFINITY ? 0.f : m_new;
+      alpha[h] = sm90::exp2_approx(m[h] - mu[h]);
+      m[h] = m_new;
+      lsum[h] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) {
+      const int h = (i % 4) / 2;
+      float p = sm90::exp2_approx(fmaf(sc[i], scale_log2, -mu[h]));
+      lsum[h] += p;  // l from the undropped p
+      if (dropout) {
+        const int col = k0 + 8 * (i / 4) + col_off + (i % 2);
+        p = dropout_keep(rkey[h], col, threshold) ? p * inv_keep : 0.f;
+      }
+      sc[i] = p;
+    }
+  };
+  // P rounded to T as the A fragments of the next O += P V
+  auto pack_p = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      sm90::to_a_frag<T>(sc, kk, pa[kk]);
+      sm90::fence_regs(pa[kk]);
+    }
+  };
+
+  // Software pipeline within the warpgroup: S of tile t is issued with
+  // P V of tile t - 1, and the softmax of tile t runs while P V of t - 1
+  // is on the tensor cores. A ring stage (K and V of a tile) is released
+  // when its P V has completed.
+  if (ntiles > 0) {
+    sm90::mbar_wait(q_full, 0);
+    sm90::mbar_wait(full0, 0);
+    sm90::wgmma_fence();
+    issue_s(0);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sc);
+    softmax(0);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = lsum[h];
+    pack_p();
+  }
+  for (int t = 1; t < ntiles; ++t) {
+    sm90::mbar_wait(full0 + 8 * (t % kStages), (t / kStages) & 1);
+    sm90::fence_regs(o);
+    sm90::wgmma_fence();
+    issue_s(t);
+    issue_pv(t - 1);
+    sm90::wgmma_wait<1>();  // S of tile t is done
+    sm90::fence_regs(sc);
+    softmax(t);
+    sm90::wgmma_wait<0>();  // P V of tile t - 1 is done
+    sm90::fence_regs(o);
+    sm90::mbar_arrive(empty0 + 8 * ((t - 1) % kStages));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + lsum[h];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i % 4) / 2];
+    pack_p();
+  }
+  if (ntiles > 0) {
+    sm90::fence_regs(o);
+    sm90::wgmma_fence();
+    issue_pv(ntiles - 1);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(o);
+    sm90::mbar_arrive(empty0 + 8 * ((ntiles - 1) % kStages));
+  }
+
+  // epilogue: out = O / l in T, lse in natural-log units; a row with no
+  // visible key gives exact zeros and lse = -1e30 (as the plain version)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float lh = l[h];
+    lh += __shfl_xor_sync(0xffffffffu, lh, 1);
+    lh += __shfl_xor_sync(0xffffffffu, lh, 2);
+    const int row = row0 + 8 * h;
+    if (row >= Sq) continue;
+    const float inv = lh > 0.f ? 1.f / lh : 1.f;
+    T* orow = out + ((size_t)bh * Sq + row) * D + col_off;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(orow + 8 * j) = sm90::pack2<T>(
+          o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
+    }
+    if (lane % 4 == 0) {
+      lse[(size_t)bh * Sq + row] =
+          lh > 0.f ? (m[h] + log2f(lh)) * kLn2 : -1e30f;
+    }
+  }
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, const int* kv_mask,
+           void* out, float* lse, int B, int H, int Sq, int Sk, int dtype,
+           int causal, float sm_scale, int dropout, uint32_t threshold,
+           float keep, uint32_t seed, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int err = sm90::make_map(&tq, q, dtype, B * H, Sq, D, kBM);
+  if (err == 0) err = sm90::make_map(&tk, k, dtype, B * H, Sk, D, kBN);
+  if (err == 0) err = sm90::make_map(&tv, v, dtype, B * H, Sk, D, kBN);
+  if (err != 0) return err;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_kernel_tc<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Layout<D>::kBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(B * H, (Sq + kBM - 1) / kBM);
+  flash_fwd_kernel_tc<T, D><<<grid, kThreads, Layout<D>::kBytes, stream>>>(
+      tq, tk, tv, kv_mask, static_cast<T*>(out), lse, H, Sq, Sk, causal,
+      sm_scale * kLog2e, dropout, threshold, 1.f / keep, seed);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
+// dtype: 0 float32 (the FMA kernel), 1 bfloat16, 2 float16 (the
+// tensor-core kernel). D must be 64 or 128 (the wrapper checks). dropout:
+// 0 off; else keep a pair when its bits >= threshold and divide the kept
+// probabilities by keep = 1 - rate.
 extern "C" int ds_flash_fwd(const void* q, const void* k, const void* v,
                             const int* kv_mask, void* out, float* lse, int B,
                             int H, int Sq, int Sk, int D, int dtype,
@@ -252,24 +526,23 @@ extern "C" int ds_flash_fwd(const void* q, const void* k, const void* v,
                             unsigned int seed, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Sq <= 0 || B * H <= 0) return static_cast<int>(cudaGetLastError());
-#define DS_FLASH_FWD(T, DIM, BK)                                          \
-  launch<T, DIM, BK>(q, k, v, kv_mask, out, lse, B, H, Sq, Sk, causal,     \
-                     sm_scale, dropout, threshold, keep, seed, s)
+#define DS_FLASH_FWD_TC(T, DIM)                                              \
+  return tc::launch<T, DIM>(q, k, v, kv_mask, out, lse, B, H, Sq, Sk, dtype, \
+                            causal, sm_scale, dropout, threshold, keep, seed, \
+                            s)
+  if (dtype == 1 && D == 64) DS_FLASH_FWD_TC(__nv_bfloat16, 64);
+  if (dtype == 1 && D == 128) DS_FLASH_FWD_TC(__nv_bfloat16, 128);
+  if (dtype == 2 && D == 64) DS_FLASH_FWD_TC(__half, 64);
+  if (dtype == 2 && D == 128) DS_FLASH_FWD_TC(__half, 128);
+#undef DS_FLASH_FWD_TC
   if (dtype == 0 && D == 64) {
-    DS_FLASH_FWD(float, 64, 64);
+    launch<64, 64>(q, k, v, kv_mask, out, lse, B, H, Sq, Sk, causal,
+                   sm_scale, dropout, threshold, keep, seed, s);
   } else if (dtype == 0 && D == 128) {
-    DS_FLASH_FWD(float, 128, 32);
-  } else if (dtype == 1 && D == 64) {
-    DS_FLASH_FWD(__nv_bfloat16, 64, 64);
-  } else if (dtype == 1 && D == 128) {
-    DS_FLASH_FWD(__nv_bfloat16, 128, 32);
-  } else if (dtype == 2 && D == 64) {
-    DS_FLASH_FWD(__half, 64, 64);
-  } else if (dtype == 2 && D == 128) {
-    DS_FLASH_FWD(__half, 128, 32);
+    launch<128, 32>(q, k, v, kv_mask, out, lse, B, H, Sq, Sk, causal,
+                    sm_scale, dropout, threshold, keep, seed, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef DS_FLASH_FWD
   return static_cast<int>(cudaGetLastError());
 }

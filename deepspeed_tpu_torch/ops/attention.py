@@ -7,7 +7,11 @@ and differentiates them with two more (``_bwd_dq_kernel``,
 ``_bwd_dkv_kernel``) under a ``jax.custom_vjp``; here the same three
 functions are CUDA kernels written for Hopper (csrc/flash_fwd.cu,
 csrc/flash_bwd.cu), bound through ctypes (ops/kernel_lib.py), under a
-``torch.autograd.Function``.
+``torch.autograd.Function``. The C entry points route by dtype: bfloat16
+and float16 take the tensor-core forward and dK/dV kernels (wgmma + TMA,
+which need 16-byte-aligned operands); float32 takes the FMA kernels (the
+tensor cores take float32 only as TF32); dQ is the FMA kernel at every
+dtype.
 
 Entry points:
   - ``mha_reference``: plain attention over an additive mask (the
@@ -212,14 +216,19 @@ def flash_bwd_dkv_plain(q, k, v, kv_mask, dout, lse, delta, causal=False,
 def _check_cuda(name, q, k, v, kv_mask, *more):
     """Validate the operands a flash kernel takes; returns ``(b, h, sq, sk,
     d, kv_mask pointer or None)``. Raises on anything else."""
+    # plain loops and get_device(): this runs on every launch, and the
+    # serving path's prefill pays its host time once a layer
     tensors = (q, k, v) + more
-    if not all(t.is_cuda for t in tensors):
-        raise RuntimeError(
-            f"{name}'s CUDA kernel needs CUDA tensors, got "
-            f"{'/'.join(str(t.device) for t in tensors)}"
-        )
-    if any(t.device != q.device for t in tensors):
-        raise ValueError(f"{name}: every operand must lie on one device")
+    for t in tensors:
+        if not t.is_cuda:
+            raise RuntimeError(
+                f"{name}'s CUDA kernel needs CUDA tensors, got "
+                f"{'/'.join(str(t.device) for t in tensors)}"
+            )
+    index = q.get_device()
+    for t in tensors:
+        if t.get_device() != index:
+            raise ValueError(f"{name}: every operand must lie on one device")
     if q.dtype not in (torch.float32, torch.bfloat16, torch.float16):
         raise TypeError(
             f"{name} takes float32, bfloat16 or float16, got {q.dtype}")
@@ -238,8 +247,18 @@ def _check_cuda(name, q, k, v, kv_mask, *more):
         raise ValueError(f"{name} takes head_dim 64 or 128, got {d}")
     if b * h > 65535:
         raise ValueError(f"{name} takes B*H <= 65535, got {b * h}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name} needs contiguous operands")
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{name} needs contiguous operands")
+    if q.dtype != torch.float32:
+        for t in tensors:
+            if t.dtype == q.dtype and t.data_ptr() % 16:
+                raise ValueError(
+                    f"{name}: the tensor-core kernel loads its {q.dtype} "
+                    "operands by TMA, which needs 16-byte-aligned storage (a "
+                    "view with an odd storage offset is refused; pass "
+                    ".clone())"
+                )
     if kv_mask is None:
         return b, h, sq, sk, d, None
     if (
@@ -277,7 +296,20 @@ def _dropout_args(rate, seed):
 
 
 def _stream(device):
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of ``device``'s current stream: what
+    ``torch.cuda.current_stream(device).cuda_stream`` gives, without
+    building a Stream object on every launch."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def _launch(device, fn, *args):
+    """Call a C entry point with ``device`` current (the kernels launch on
+    the current device); the switch is skipped when it already is, since
+    the serving path pays this host time on every prefill layer."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(device):
+        return fn(*args)
 
 
 def _flash_fwd_cuda(q, k, v, kv_mask, causal, sm_scale, dropout_rate=0.0,
@@ -290,14 +322,14 @@ def _flash_fwd_cuda(q, k, v, kv_mask, causal, sm_scale, dropout_rate=0.0,
     lib = kernel_lib.load("flash_fwd")
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        err = lib.ds_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
-            out.data_ptr(), lse.data_ptr(),
-            b, h, sq, sk, d, kernel_lib.dtype_code(q.dtype),
-            int(bool(causal)), ctypes.c_float(sm_scale),
-            *_dropout_args(dropout_rate, dropout_seed), _stream(q.device),
-        )
+    err = _launch(
+        q.device, lib.ds_flash_fwd,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
+        out.data_ptr(), lse.data_ptr(),
+        b, h, sq, sk, d, kernel_lib.dtype_code(q.dtype),
+        int(bool(causal)), ctypes.c_float(sm_scale),
+        *_dropout_args(dropout_rate, dropout_seed), _stream(q.device),
+    )
     kernel_lib.check(err, "flash_fwd")
     flash_fwd.launches += 1
     return out, lse
@@ -333,15 +365,15 @@ def _flash_bwd_cuda(which, q, k, v, kv_mask, dout, lse, delta, causal,
     outs = (torch.empty_like(q),) if which == "dq" else (
         torch.empty_like(k), torch.empty_like(v))
     fn = lib.ds_flash_bwd_dq if which == "dq" else lib.ds_flash_bwd_dkv
-    with torch.cuda.device(q.device):
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            *(t.data_ptr() for t in outs),
-            b, h, sq, sk, d, kernel_lib.dtype_code(q.dtype),
-            int(bool(causal)), ctypes.c_float(sm_scale),
-            *_dropout_args(dropout_rate, dropout_seed), _stream(q.device),
-        )
+    err = _launch(
+        q.device, fn,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        *(t.data_ptr() for t in outs),
+        b, h, sq, sk, d, kernel_lib.dtype_code(q.dtype),
+        int(bool(causal)), ctypes.c_float(sm_scale),
+        *_dropout_args(dropout_rate, dropout_seed), _stream(q.device),
+    )
     kernel_lib.check(err, name)
     return outs
 

@@ -191,6 +191,58 @@ def test_flash_gradients_match_jax_kernels(s, causal, padded):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
 
 
+def test_rows_above_a_negative_diagonal_match_jax_kernels():
+    """Sq = 256 > Sk = 128 under causal, with a key mask: the diagonal is
+    aligned bottom-right (diag_offset = -128), so the first 128 query rows
+    see no key. The JAX kernels (_flash_fwd_impl and jax.grad through
+    flash_attention, interpret mode, 64-wide blocks) and the port's plain
+    versions, which the card holds the tensor-core kernels against, both
+    give exact zeros there (output and dQ), and agree everywhere to 1e-5
+    (out, lse of the rows that see a key, dQ, dK, dV); float32."""
+    import jax
+
+    b, h, sq, sk, d = 2, 2, 256, 128, 64
+    q, k, v = _qkv(12, b, h, sq, sk, d)
+    dout = np.random.default_rng(13).normal(size=(b, h, sq, d)).astype(
+        np.float32)
+    kv_mask = (np.arange(sk)[None, :] < np.array([[sk], [100]])).astype(
+        np.int32)
+    sm_scale = 1.0 / np.sqrt(d)
+    out_j, lse_j = jattn._flash_fwd_impl(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(kv_mask), 0, True, sm_scale, 0.0, 64, 64,
+    )
+    out_j = np.asarray(out_j)
+    lse_j = np.asarray(lse_j)[..., 0].reshape(b, h, sq)
+    out_t, lse_t = tattn.flash_fwd(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(kv_mask), causal=True,
+    )
+    dead = slice(0, sq - sk)
+    assert np.all(out_j[:, :, dead] == 0.0)
+    assert np.all(out_t.numpy()[:, :, dead] == 0.0)
+    np.testing.assert_allclose(out_t.numpy(), out_j, **TOL)
+    live = slice(sq - sk, sq)
+    np.testing.assert_allclose(lse_t.numpy()[:, :, live], lse_j[:, :, live],
+                               **TOL)
+
+    def jax_loss(q, k, v):
+        out = jattn.flash_attention(q, k, v, kv_mask=jnp.asarray(kv_mask),
+                                    causal=True, block_q=64, block_k=64)
+        return jnp.sum(out * jnp.asarray(dout))
+
+    want = jax.grad(jax_loss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = tattn.flash_attention(qt, kt, vt,
+                                kv_mask=torch.from_numpy(kv_mask), causal=True)
+    got = torch.autograd.grad(out, (qt, kt, vt), torch.from_numpy(dout))
+    assert np.all(np.asarray(want[0])[:, :, dead] == 0.0)
+    assert np.all(got[0].numpy()[:, :, dead] == 0.0)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+
+
 def test_dropout_mask_is_the_kernels_hash():
     """dropout_keep_mask spells out csrc/dropout.cuh's hash (lowbias32,
     row key mix(mix(mix(seed) ^ bh) ^ q), bit mix(row ^ k)) in int64

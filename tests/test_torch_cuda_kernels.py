@@ -4,7 +4,9 @@ at run time). On the card run
 
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py
 
-Tolerances as in chip_smoke.py: float32 atol = rtol = 1e-4 (another
+bfloat16 and float16 run the tensor-core forward and dK/dV kernels
+(wgmma + TMA), float32 the FMA kernels; dQ is the FMA kernel at every
+dtype. Tolerances as in chip_smoke.py: float32 atol = rtol = 1e-4 (another
 summation order), bfloat16 atol = rtol = 1e-2 (p and the output rounded
 to bfloat16 at different points of the online softmax; rtol 1e-2 covers
 one bf16 ulp, 2**-7 relative, at any magnitude), float16 atol = rtol =
@@ -74,13 +76,16 @@ def _attention_case(cuda, dtype, d, sq, sk, masked, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("sq,sk,causal,masked", [
     (1024, 1024, True, False),
     (200, 333, True, True),     # ragged tiles, diag offset, key mask
+    (333, 200, True, True),     # negative diag offset: rows with no key
     (256, 256, False, True),
     (1, 77, True, False),
+    (1000, 1000, True, False),  # not a multiple of the 128-row tiles
 ])
 def test_flash_fwd_kernel_matches_plain(cuda, dtype, d, sq, sk, causal,
                                         masked):
@@ -103,6 +108,7 @@ def test_flash_fwd_kernel_matches_plain(cuda, dtype, d, sq, sk, causal,
     _close(out, ref, dtype)
     rows = ref_lse > -1e29
     _close(lse[rows], ref_lse[rows], torch.float32)
+    assert bool((out[~rows] == 0).all())  # rows that see no key
     if masked:
         assert bool((out[1] == 0).all())
 
@@ -154,8 +160,10 @@ ATTENTION_CASES = [
     (1024, 1024, True, False, 0.0),
     (1024, 1024, True, False, 0.1),
     (200, 333, True, True, 0.2),    # ragged tiles, diag offset, key mask
+    (333, 200, True, True, 0.0),    # negative diag offset: rows with no key
     (256, 256, False, True, 0.1),
     (1, 77, True, False, 0.0),
+    (1000, 1000, True, False, 0.1),  # not a multiple of the 128-row tiles
 ]
 
 
@@ -177,6 +185,7 @@ def test_flash_fwd_dropout_kernel_matches_plain(cuda, dtype, d, sq, sk,
     _close(out, ref, dtype)
     rows = ref_lse > -1e29
     _close(lse[rows], ref_lse[rows], torch.float32)
+    assert bool((out[~rows] == 0).all())  # rows that see no key
     if rate:
         clean, clean_lse = flash_fwd_plain(q, k, v, kv_mask, causal)
         _close(lse[rows], clean_lse[rows], torch.float32)
@@ -206,6 +215,38 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, d, sq, sk, causal,
         _close(got, ref, dtype, scaled=True)
         if masked:
             assert bool((got[1] == 0).all())
+    assert bool((dq[lse <= -1e29] == 0).all())  # rows that see no key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_tensor_core_kernels_are_bitwise_repeatable(cuda, dtype, d):
+    """The tensor-core forward and dK/dV kernels use no atomics: two
+    launches on the same inputs give the same out, lse, dK and dV bit for
+    bit."""
+    q, k, v, dout, kv_mask = _attention_case(cuda, dtype, d, 1000, 1000,
+                                             True, 6)
+    fargs = (q, k, v, kv_mask, True, None, 0.1, 11)
+    out, lse = flash_fwd(*fargs)
+    delta = (dout.float() * out.float()).sum(dim=-1)
+    bargs = (q, k, v, kv_mask, dout, lse, delta, True, None, 0.1, 11)
+    first = (out, lse, *flash_bwd_dkv(*bargs))
+    again = (*flash_fwd(*fargs), *flash_bwd_dkv(*bargs))
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_tensor_core_wrappers_refuse_misaligned_storage(cuda):
+    """TMA needs 16-byte-aligned operands: a bf16 view that starts 2 bytes
+    into its storage is refused, not sent to another route."""
+    flat = torch.randn(1 * 2 * 256 * 64 + 1, device=cuda).to(torch.bfloat16)
+    q = flat[1:].view(1, 2, 256, 64)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_fwd(q, q, q)
 
 
 @pytest.mark.cuda
