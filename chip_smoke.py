@@ -4,6 +4,11 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py [--seed N]
 
+``--only-decode`` runs phases 1 and 2 for the paged decode kernel alone
+and its checks and timings of phase 3 (through the public wrapper only),
+so that a copy of this script placed at the root of another checkout of
+the repo (an older commit) times that checkout's kernel the same way.
+
 Phases (any failure exits non-zero; nothing is caught and ignored):
   1. probe   — require CUDA; print the card's name and power limit.
   2. build   — compile every CUDA kernel of the three slices from csrc/
@@ -11,8 +16,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                seconds, ptxas's registers and spills per kernel, and the
                count of HGMMA (wgmma) and UTMALDG (TMA load) instructions
                in each kernel's SASS (cuobjdump -sass); fails unless every
-               bfloat16/float16 instantiation of the tensor-core forward
-               and dK/dV kernels holds both.
+               bfloat16/float16 instantiation of the tensor-core forward,
+               dQ and dK/dV kernels holds both.
   3. kernels — each kernel against its plain PyTorch version on the same
                inputs, float32 and bfloat16, at the serving path's shapes
                (plus a key-mask case, a fully masked row, a dead slot and
@@ -20,7 +25,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                each kernel's time beside its plain version's, one PyTorch
                library call's where there is one, and its bound. The
                forward and its SDPA yardstick are timed both ways (``ms``
-               and ``device_ms``, see Timer).
+               and ``device_ms``, see Timer). Paged decode is also checked
+               and timed at a long-context shape (8 slots all at position
+               1023) and bitwise against itself over 10 calls, with its
+               wrapper's host time per call.
      3b. training kernels — at GPT-2 small's training shape (B=8, H=12,
                S=1024, D=64, causal): the forward with dropout, dQ and
                dK/dV with and without a padding mask and dropout, in
@@ -28,8 +36,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                real parameters (f32, bf16 and fp16 grads; FusedLamb's
                trust ratios against the plain Lamb's). Then their times,
                bounds and library yardsticks (SDPA forward and backward,
-               timed only); the forward and dK/dV and their yardsticks
-               both ways, at dropout 0.1 and at 0 (the hash's share).
+               timed only); the attention kernels and their yardsticks
+               both ways, at dropout 0.1 and at 0 (the hash's share);
+               LAMB phase 1 both ways.
      3c. sgmv  — the SGMV kernel against its plain version at GPT-2
                small's four LoRA target shapes, rank 16, B = 8, ids mixing
                the identity row 0, repeats and the highest row, float32
@@ -82,9 +91,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                then the last line {"ok": true, "device": {...}}.
 
 The attention kernels take two routes by dtype: bfloat16 and float16 the
-tensor-core forward and dK/dV kernels (wgmma + TMA), float32 the FMA
-kernels (the tensor cores take float32 only as TF32); dQ is the FMA
-kernel at every dtype.
+tensor-core forward, dQ and dK/dV kernels (wgmma + TMA), float32 the FMA
+kernels (the tensor cores take float32 only as TF32).
 
 Tolerances: float32 kernel vs plain atol = rtol = 1e-4 (same float32
 arithmetic in another summation order; observed errors sit near 1e-6);
@@ -190,17 +198,20 @@ class Timer:
 
 
 # the kernels that must run on the tensor cores, by library: every
-# bfloat16/float16 instantiation (2 dtypes x 2 head dims) holds wgmma
-# (HGMMA) and TMA loads (UTMALDG)
-TC_KERNELS = {"flash_fwd": "flash_fwd_kernel_tc",
-              "flash_bwd": "flash_bwd_dkv_kernel_tc"}
-# the FMA kernels' Timer readings at these shapes before the bf16/fp16
-# route moved to the tensor cores (H100 80GB HBM3, 700 W; PERF.md), printed
-# beside this run's readings, not part of the kernels line
+# bfloat16/float16 instantiation (2 dtypes x 2 head dims) of each holds
+# wgmma (HGMMA) and TMA loads (UTMALDG)
+TC_KERNELS = {"flash_fwd": ("flash_fwd_kernel_tc",),
+              "flash_bwd": ("flash_bwd_dkv_kernel_tc",
+                            "flash_bwd_dq_kernel_tc")}
+# each redesigned kernel's Timer reading at these shapes before its
+# redesign (the FMA attention kernels; paged decode with one block per
+# (head, slot); H100 80GB HBM3, 700 W; PERF.md), printed beside this
+# run's readings, not part of the kernels line
 FMA_BEFORE_MS = {"flash_fwd": 2.204, "flash_fwd serve": 0.3129,
-                 "flash_bwd_dkv": 3.075}
+                 "flash_bwd_dkv": 3.075, "flash_bwd_dq": 2.065,
+                 "paged_decode": 0.07853}
 ROUTE = {"flash_fwd": "wgmma+tma (bf16, fp16); FMA (float32)",
-         "flash_bwd_dq": "FMA (every dtype)",
+         "flash_bwd_dq": "wgmma+tma (bf16, fp16); FMA (float32)",
          "flash_bwd_dkv": "wgmma+tma (bf16, fp16); FMA (float32)"}
 
 
@@ -251,11 +262,12 @@ def phase_sass():
         out[name] = counts
         for func, (hgmma, utmaldg) in counts.items():
             log(f"  {name}: {func}: HGMMA {hgmma} UTMALDG {utmaldg}")
-    for name, fragment in TC_KERNELS.items():
-        tc = {f: c for f, c in out[name].items() if fragment in f}
-        if len(tc) != 4 or not all(h and u for h, u in tc.values()):
-            fail(f"{name}: the tensor-core kernels {fragment} lack HGMMA or "
-                 f"UTMALDG instructions: {tc}")
+    for name, fragments in TC_KERNELS.items():
+        for fragment in fragments:
+            tc = {f: c for f, c in out[name].items() if fragment in f}
+            if len(tc) != 4 or not all(h and u for h, u in tc.values()):
+                fail(f"{name}: the tensor-core kernels {fragment} lack HGMMA "
+                     f"or UTMALDG instructions: {tc}")
     return out
 
 
@@ -354,6 +366,29 @@ def decode_case(device, gen, dtype):
     return q, kp, vp, tables.contiguous(), positions
 
 
+def decode_long_case(device, gen, dtype):
+    """A long-context decode shape: decode_case's shapes with every slot
+    live at position 1023 (64 full pages each, no NULL page)."""
+    slots, heads, hd, bs, mb = 8, 12, 64, 16, 64
+    pages = slots * mb + 1
+    q = torch.randn(slots, heads, hd, device=device, generator=gen).to(dtype)
+    kp = torch.randn(pages, bs, heads, hd, device=device, generator=gen).to(dtype)
+    vp = torch.randn(pages, bs, heads, hd, device=device, generator=gen).to(dtype)
+    perm = torch.randperm(pages - 1, device=device, generator=gen) + 1
+    tables = perm.reshape(slots, mb).to(torch.int32).contiguous()
+    positions = torch.full((slots,), 1023, dtype=torch.int32, device=device)
+    return q, kp, vp, tables, positions
+
+
+DECODE_CASES = {"bench": decode_case, "long_context": decode_long_case}
+DECODE_SHAPES = {
+    "bench": "8 slots x 12 heads x hd 64, 16-token pages, 64 pages/slot, "
+             "positions 15..1023 (one dead slot, one NULL page), bf16",
+    "long_context": "8 slots x 12 heads x hd 64, 16-token pages, all at "
+                    "position 1023, bf16",
+}
+
+
 def decode_work(q, tables, positions, block_size):
     slots, heads, hd = q.shape
     es = q.element_size()
@@ -372,10 +407,6 @@ def phase_kernels(device, seed):
     import torch.nn.functional as F
 
     from deepspeed_tpu_torch.ops.attention import flash_fwd, flash_fwd_plain
-    from deepspeed_tpu_torch.ops.decode_attention import (
-        paged_flash_decode,
-        paged_flash_decode_plain,
-    )
 
     gen = torch.Generator(device=device).manual_seed(seed)
     timer = Timer(device)
@@ -423,36 +454,100 @@ def phase_kernels(device, seed):
         f"device_ms {report['flash_fwd']['device_ms']:.4f}; before_ms "
         f"{FMA_BEFORE_MS['flash_fwd serve']} (the FMA kernel)")
 
-    log("phase 3: paged_decode vs plain")
-    for dtype in (torch.float32, torch.bfloat16):
-        q, kp, vp, tables, positions = decode_case(device, gen, dtype)
-        out = paged_flash_decode(q, kp, vp, tables, positions)
+    report["paged_decode"] = phase_decode(device, gen, timer)
+    return report
+
+
+def host_us_per_call(fn, calls=200, rounds=5):
+    """Host wall time per call of ``fn``, in microseconds: ``rounds``
+    rounds of ``calls`` calls back to back, each ended by a synchronize
+    (the device keeps up, so the host's call rate is what is measured);
+    the median round, since other work on the host's shared cores only
+    ever adds time."""
+    fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per_call.append((time.perf_counter() - t0) / calls * 1e6)
         torch.cuda.synchronize()
-        ref = paged_flash_decode_plain(q, kp, vp, tables, positions)
-        tag = f"paged_decode {str(dtype)[6:]}"
-        errs[dtype] = check_close(tag, out, ref, dtype)
-        if not bool((out[3] == 0).all()):
-            fail(f"{tag}: the dead slot is not exact zeros")
-        # the NULL page mid-table is skipped: garbage there changes nothing
-        kp2 = kp.clone()
-        kp2[0] = 1e4
-        if not torch.equal(paged_flash_decode(q, kp2, vp, tables, positions), out):
-            fail(f"{tag}: the NULL page mid-table was not skipped")
-    nbytes, flops = decode_work(q, tables, positions, kp.shape[1])
-    b_ms, b_by = bound(nbytes, flops, torch.bfloat16)
-    report["paged_decode"] = dict(
+    return sorted(per_call)[rounds // 2]
+
+
+def phase_decode(device, gen, timer):
+    """Paged decode against its plain version (float32 and bfloat16, the
+    bench and long-context shapes; a dead slot exact zeros, the NULL page
+    mid-table skipped, 10 calls bitwise equal), then its times at both
+    shapes in bfloat16: ``ms`` and ``device_ms`` (Timer), the wrapper's
+    host microseconds a call, the plain version's time and the bound.
+    Uses the public wrappers only. Returns the kernels-line entry."""
+    from deepspeed_tpu_torch.ops.decode_attention import (
+        paged_flash_decode,
+        paged_flash_decode_plain,
+    )
+
+    log("phase 3: paged_decode vs plain")
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, case in DECODE_CASES.items():
+            q, kp, vp, tables, positions = case(device, gen, dtype)
+            out = paged_flash_decode(q, kp, vp, tables, positions)
+            torch.cuda.synchronize()
+            ref = paged_flash_decode_plain(q, kp, vp, tables, positions)
+            tag = f"paged_decode {str(dtype)[6:]} {shape}"
+            errs[(dtype, shape)] = check_close(tag, out, ref, dtype)
+            for _ in range(10):
+                if not torch.equal(
+                    paged_flash_decode(q, kp, vp, tables, positions), out
+                ):
+                    fail(f"{tag}: two calls on the same inputs differ")
+            if shape != "bench":
+                continue
+            if not bool((out[3] == 0).all()):
+                fail(f"{tag}: the dead slot is not exact zeros")
+            # the NULL page mid-table is skipped: garbage there changes
+            # nothing
+            kp2 = kp.clone()
+            kp2[0] = 1e4
+            if not torch.equal(
+                paged_flash_decode(q, kp2, vp, tables, positions), out
+            ):
+                fail(f"{tag}: the NULL page mid-table was not skipped")
+    log("  10 calls bitwise equal at every shape and dtype")
+    timings = {}
+    for shape, case in DECODE_CASES.items():
+        q, kp, vp, tables, positions = case(device, gen, torch.bfloat16)
+        nbytes, flops = decode_work(q, tables, positions, kp.shape[1])
+        b_ms, b_by = bound(nbytes, flops, torch.bfloat16)
+        fn = lambda: paged_flash_decode(q, kp, vp, tables, positions)
+        timings[shape] = dict(
+            shape=DECODE_SHAPES[shape],
+            max_abs_err=errs[(torch.bfloat16, shape)],
+            max_abs_err_f32=errs[(torch.float32, shape)],
+            ms=timer.ms(fn), device_ms=timer.ms(fn, spin=True),
+            host_us_per_call=host_us_per_call(fn),
+            plain_ms=timer.ms(
+                lambda: paged_flash_decode_plain(q, kp, vp, tables, positions)
+            ),
+            bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
+            bound_flops=flops,
+        )
+        log(f"  paged_decode {shape}: {json.dumps(timings[shape])}")
+    head = timings["bench"]
+    log(f"  paged_decode: ms {head['ms']:.5f}, device_ms "
+        f"{head['device_ms']:.5f}; before_ms {FMA_BEFORE_MS['paged_decode']} "
+        "(one block per (head, slot))")
+    return dict(
         name="paged_decode", route="cuda", source=DECODE_SOURCE,
         replaces=DECODE_TPU, tpu_kernel=DECODE_TPU,
-        shape="8 slots x 12 heads x hd 64, 16-token pages, 64 pages/slot, bf16",
-        max_abs_err=errs[torch.bfloat16], max_abs_err_f32=errs[torch.float32],
-        ms=timer.ms(lambda: paged_flash_decode(q, kp, vp, tables, positions)),
-        plain_ms=timer.ms(
-            lambda: paged_flash_decode_plain(q, kp, vp, tables, positions)
-        ),
+        **head, device_ms_kind="CUDA events around one call queued behind a "
+        "device spin: the kernel alone, without the host wrapper and launch "
+        "that ms includes",
         library_ms=None, library=None,
-        bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes, bound_flops=flops,
+        long_context=timings["long_context"],
     )
-    return report
 
 
 # ---------------------------------------------------------------------------
@@ -690,14 +785,13 @@ def phase_train_kernels(device, seed, report):
             bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
             bound_flops=flops,
         )
-        if name != "flash_bwd_dq":  # the redesigned kernels at dropout 0
-            zargs = args(name, 0.0)
-            ms0, device_ms0 = both(lambda: fn(*zargs))
-            lib_ms0, lib_device_ms0 = sdpa[0.0][lib_i]
-            report[name].update(
-                ms_dropout0=ms0, device_ms_dropout0=device_ms0,
-                library_ms_dropout0=lib_ms0,
-                library_device_ms_dropout0=lib_device_ms0)
+        zargs = args(name, 0.0)
+        ms0, device_ms0 = both(lambda: fn(*zargs))
+        lib_ms0, lib_device_ms0 = sdpa[0.0][lib_i]
+        report[name].update(
+            ms_dropout0=ms0, device_ms_dropout0=device_ms0,
+            library_ms_dropout0=lib_ms0,
+            library_device_ms_dropout0=lib_device_ms0)
         log(f"  {name}: {json.dumps(report[name])}")
         if name in FMA_BEFORE_MS:
             log(f"  {name}: ms {ms:.4f}, device_ms {device_ms:.4f}; "
@@ -720,6 +814,7 @@ def phase_train_kernels(device, seed, report):
     # p, g, m, v read; m, v, u written (4 bytes each); two partials a block
     nbytes = n * 7 * 4 + nblocks * 8
     b_ms, b_by = bound(nbytes, 16 * n, f32)
+    lamb_ms, lamb_device_ms = both(lambda: lamb_phase1(*largs, **kw))
     report["lamb_phase1"] = dict(
         name="lamb_phase1", route="cuda", source=LAMB_SOURCE,
         replaces=LAMB_TPU, tpu_kernel=LAMB_TPU,
@@ -727,7 +822,7 @@ def phase_train_kernels(device, seed, report):
               "one launch, float32 grads",
         max_abs_err=lamb_err, max_abs_err_kind="max relative error of the "
         "block partials", trust_ratio_max_rel_err=ratio_err,
-        ms=timer.ms(lambda: lamb_phase1(*largs, **kw)),
+        ms=lamb_ms, device_ms=lamb_device_ms,
         plain_ms=timer.ms(lambda: lamb_phase1_plain(*largs, **kw), iters=5,
                           warmup=1),
         library_ms=None, library=None,
@@ -896,17 +991,7 @@ def sgmv_host_costs(device, gen, calls=200):
         "apply_lora_gathered_prefill": lambda: apply_lora(
             None, None, lora_p, "inter_w", xp, yp),
     }
-    out = {}
-    for name, fn in cases.items():
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        t1 = time.perf_counter()
-        torch.cuda.synchronize()
-        out[name] = (t1 - t0) / calls * 1e6
-    return out
+    return {name: host_us_per_call(fn, calls) for name, fn in cases.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -1582,6 +1667,10 @@ def phase_adapters(seed, card):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--only-decode", action="store_true",
+                        help="build and check paged decode alone and print "
+                        "its timings (to time another checkout the same "
+                        "way)")
     args = parser.parse_args()
 
     # phase 1: probe
@@ -1599,6 +1688,16 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
+
+    if args.only_decode:
+        built = kernel_lib.build(["paged_decode"])
+        for line in built.get("paged_decode", "").splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {line.strip()}")
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        entry = phase_decode(device, gen, Timer(device))
+        print(json.dumps({"paged_decode": entry, "card": smi}))
+        return
 
     # phase 2: build
     t0 = time.monotonic()

@@ -8,10 +8,9 @@ and differentiates them with two more (``_bwd_dq_kernel``,
 functions are CUDA kernels written for Hopper (csrc/flash_fwd.cu,
 csrc/flash_bwd.cu), bound through ctypes (ops/kernel_lib.py), under a
 ``torch.autograd.Function``. The C entry points route by dtype: bfloat16
-and float16 take the tensor-core forward and dK/dV kernels (wgmma + TMA,
-which need 16-byte-aligned operands); float32 takes the FMA kernels (the
-tensor cores take float32 only as TF32); dQ is the FMA kernel at every
-dtype.
+and float16 take the tensor-core forward, dQ and dK/dV kernels (wgmma +
+TMA, which need 16-byte-aligned operands); float32 takes the FMA kernels
+(the tensor cores take float32 only as TF32).
 
 Entry points:
   - ``mha_reference``: plain attention over an additive mask (the

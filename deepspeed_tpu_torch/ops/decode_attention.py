@@ -5,9 +5,10 @@ Port of ``paged_flash_decode`` in deepspeed_tpu/ops/decode_attention.py.
 The JAX package runs a Pallas kernel (``_flash_decode_kernel``) whose
 grid walks (slot, logical page) with the block table as a scalar-prefetch
 operand; here the same function is a CUDA kernel written for Hopper
-(csrc/paged_decode.cu): one thread block per (head, slot), whose warps
-read the slot's block-table row and position themselves and walk its
-live pages in place.
+(csrc/paged_decode.cu): a grid of (head, slot, split) blocks, each of
+which reads its slot's block-table row and position itself and walks a
+fixed run of the slot's live pages in place; the splits of a (slot,
+head) merge in the same launch (:func:`decode_splits`).
 
 Semantics (both versions): keys at logical index ``<= positions[b]``
 attend; a page whose physical id is 0 (the NULL page: dead slots,
@@ -28,7 +29,8 @@ import ctypes
 
 import torch
 
-from .attention import NEG_INF
+from . import kernel_lib
+from .attention import NEG_INF, _launch, _stream
 
 
 def paged_flash_decode_plain(q, k_pool, v_pool, block_tables, positions,
@@ -63,68 +65,158 @@ def paged_flash_decode_plain(q, k_pool, v_pool, block_tables, positions,
     return (acc / l).to(v_pool.dtype)
 
 
-def _paged_decode_cuda(q, k_pool, v_pool, block_tables, positions,
-                       sm_scale):
-    """Launch csrc/paged_decode.cu on CUDA tensors. Raises on anything the
-    kernel does not take; never runs the plain version."""
-    from . import kernel_lib
+#: Blocks of csrc/paged_decode.cu that one SM holds at once (its 64 KB
+#: cp.async ring each, in the 227 KB of shared memory). The grid aims at
+#: one wave of them for the longest possible slot.
+DECODE_BLOCKS_PER_SM = 3
 
-    tensors = (q, k_pool, v_pool, block_tables, positions)
-    if not all(t.is_cuda for t in tensors):
+_sm_counts = {}     # device index -> SM count
+_configs = {}       # (b, heads, hd, max_blocks, device) -> launch config
+_checked_pools = {}  # pool key -> (heads, hd, dtype, device index)
+
+
+def decode_splits(b, heads, max_blocks, device):
+    """``(splits, pages_per_split)`` of the paged decode grid: as many
+    blocks per (slot, head) as fit ``b * heads * splits`` blocks into one
+    wave (:data:`DECODE_BLOCKS_PER_SM` on each SM), at least one, never
+    more splits than table columns. Depends on the shapes alone, never on
+    the positions (reading them would sync with the device)."""
+    index = device.index
+    sms = _sm_counts.get(index)
+    if sms is None:
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        _sm_counts[index] = sms
+    fit = DECODE_BLOCKS_PER_SM * sms // (b * heads)
+    splits = max(1, min(max_blocks, fit))
+    per = -(-max_blocks // splits)
+    return -(-max_blocks // per), per
+
+
+def _launch_config(b, heads, hd, max_blocks, index):
+    """``(splits, workspace pointer, counters pointer)`` for one launch
+    shape on device ``index``, made once: the split merge's float32
+    workspace and int32 ticket counters are allocated here (the counters
+    zeroed once; every launch leaves them zero again) and kept alive in
+    the cache. Calls of one shape on one device share them, so they must
+    not overlap on two streams."""
+    key = (b, heads, hd, max_blocks, index)
+    config = _configs.get(key)
+    if config is None:
+        device = torch.device("cuda", index)
+        splits, _ = decode_splits(b, heads, max_blocks, device)
+        if splits == 1:
+            config = (1, None, None)
+        else:
+            ws = torch.empty(b * heads * splits * (hd + 2),
+                             dtype=torch.float32, device=device)
+            counters = torch.zeros(b * heads, dtype=torch.int32,
+                                   device=device)
+            config = (splits, ws.data_ptr(), counters.data_ptr(), ws,
+                      counters)
+        if len(_configs) >= 64:
+            _configs.clear()
+        _configs[key] = config
+    return config
+
+
+def _check_pools(k_pool, v_pool):
+    """Validate the pools once per (storage, shape, stride, dtype,
+    device) — the engine allocates them once — and return ``(heads, hd,
+    dtype, device index)`` for the per-call match with q."""
+    key = (k_pool.data_ptr(), v_pool.data_ptr(), k_pool.shape,
+           v_pool.shape, k_pool.stride(), v_pool.stride(), k_pool.dtype,
+           v_pool.dtype, k_pool.get_device(), v_pool.get_device())
+    info = _checked_pools.get(key)
+    if info is not None:
+        return info
+    if not (k_pool.is_cuda and v_pool.is_cuda):
         raise RuntimeError(
-            "paged_decode's CUDA kernel needs CUDA tensors, got "
-            + "/".join(str(t.device) for t in tensors)
+            "paged_decode's CUDA kernel needs CUDA tensors, got pools on "
+            f"{k_pool.device}/{v_pool.device}"
         )
-    if len({t.device for t in tensors}) != 1:
+    if k_pool.device != v_pool.device:
         raise ValueError("paged_decode's operands must lie on one device")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(
-            f"paged_decode takes float32 or bfloat16, got {q.dtype}"
-        )
-    if not (k_pool.dtype == v_pool.dtype == q.dtype):
+    if k_pool.dtype != v_pool.dtype:
         raise TypeError("q and the k/v pools must share a dtype")
-    if block_tables.dtype != torch.int32 or positions.dtype != torch.int32:
-        raise TypeError("block_tables and positions must be int32")
-    if q.ndim != 3 or k_pool.ndim != 4:
+    if k_pool.ndim != 4 or v_pool.shape != k_pool.shape:
         raise ValueError(
-            "q must be [B, heads, hd] and the pools [num_blocks, "
-            "block_size, heads, hd]"
+            f"the pools must be [num_blocks, block_size, heads, hd], got "
+            f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}"
         )
-    b, heads, hd = q.shape
-    num_blocks, block_size = k_pool.shape[0], k_pool.shape[1]
-    if tuple(k_pool.shape) != (num_blocks, block_size, heads, hd) or (
-        v_pool.shape != k_pool.shape
-    ):
-        raise ValueError(
-            f"pool shapes {tuple(k_pool.shape)}/{tuple(v_pool.shape)} do "
-            f"not match q {tuple(q.shape)}"
-        )
-    if hd not in (64, 128):
-        raise ValueError(f"paged_decode takes head_dim 64 or 128, got {hd}")
-    if block_tables.ndim != 2 or block_tables.shape[0] != b or (
-        tuple(positions.shape) != (b,)
-    ):
-        raise ValueError(
-            f"block_tables must be [{b}, max_blocks] and positions [{b}]"
-        )
-    if b > 65535:
-        raise ValueError(f"paged_decode takes B <= 65535, got {b}")
-    for name, t in zip(("q", "k_pool", "v_pool", "block_tables",
-                        "positions"), tensors):
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
         if not t.is_contiguous():
             raise ValueError(f"paged_decode needs a contiguous {name}")
         if t.data_ptr() % 16:
             raise ValueError(f"paged_decode needs a 16-byte aligned {name}")
-    lib = kernel_lib.load("paged_decode")
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.ds_paged_decode(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
-            b, heads, hd, block_size, block_tables.shape[1],
-            kernel_lib.dtype_code(q.dtype), ctypes.c_float(sm_scale), stream,
+    info = (k_pool.shape[2], k_pool.shape[3], k_pool.dtype,
+            k_pool.get_device())
+    if len(_checked_pools) >= 64:
+        _checked_pools.clear()
+    _checked_pools[key] = info
+    return info
+
+
+def _paged_decode_cuda(q, k_pool, v_pool, block_tables, positions,
+                       sm_scale):
+    """Launch csrc/paged_decode.cu on CUDA tensors. Raises on anything the
+    kernel does not take; never runs the plain version. The pools are
+    checked once (:func:`_check_pools`); q, the table and the positions on
+    every call."""
+    if not q.is_cuda:
+        raise RuntimeError(
+            f"paged_decode's CUDA kernel needs CUDA tensors, got q on "
+            f"{q.device}"
         )
+    dtype = q.dtype
+    if dtype != torch.float32 and dtype != torch.bfloat16:
+        raise TypeError(f"paged_decode takes float32 or bfloat16, got {dtype}")
+    shape = q.shape
+    if len(shape) != 3:
+        raise ValueError("q must be [B, heads, hd]")
+    b, heads, hd = shape
+    if hd != 64 and hd != 128:
+        raise ValueError(f"paged_decode takes head_dim 64 or 128, got {hd}")
+    if b > 65535:
+        raise ValueError(f"paged_decode takes B <= 65535, got {b}")
+    q_ptr = q.data_ptr()
+    if q_ptr % 16 or not q.is_contiguous():
+        raise ValueError("paged_decode needs a contiguous, 16-byte aligned q")
+    if block_tables.dtype != torch.int32 or positions.dtype != torch.int32:
+        raise TypeError("block_tables and positions must be int32")
+    t_shape = block_tables.shape
+    if len(t_shape) != 2 or t_shape[0] != b or positions.shape != (b,):
+        raise ValueError(
+            f"block_tables must be [{b}, max_blocks] and positions [{b}]"
+        )
+    index = q.get_device()
+    if block_tables.get_device() != index or positions.get_device() != index:
+        raise ValueError("paged_decode's operands must lie on one device")
+    if not (block_tables.is_contiguous() and positions.is_contiguous()):
+        raise ValueError(
+            "paged_decode needs a contiguous block_tables and positions")
+    p_heads, p_hd, p_dtype, p_index = _check_pools(k_pool, v_pool)
+    if p_dtype != dtype:
+        raise TypeError("q and the k/v pools must share a dtype")
+    if p_index != index:
+        raise ValueError("paged_decode's operands must lie on one device")
+    if p_heads != heads or p_hd != hd:
+        raise ValueError(
+            f"pool shapes {tuple(k_pool.shape)}/{tuple(v_pool.shape)} do "
+            f"not match q {tuple(shape)}"
+        )
+    lib = kernel_lib.load("paged_decode")
+    max_blocks = t_shape[1]
+    splits, ws_ptr, counters_ptr = _launch_config(b, heads, hd, max_blocks,
+                                                  index)[:3]
+    out = torch.empty_like(q)
+    err = _launch(
+        q.device, lib.ds_paged_decode,
+        q_ptr, k_pool.data_ptr(), v_pool.data_ptr(),
+        block_tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
+        ws_ptr, counters_ptr, b, heads, hd, k_pool.shape[1], max_blocks,
+        splits, kernel_lib.dtype_code(dtype), ctypes.c_float(sm_scale),
+        _stream(q.device),
+    )
     kernel_lib.check(err, "paged_decode")
     paged_flash_decode.launches += 1
     return out
@@ -178,8 +270,6 @@ def lora_sgmv_plain(x, a_pool, b_pool, ids):
 def _sgmv_cuda(x, a_pool, b_pool, ids):
     """Launch csrc/sgmv.cu on CUDA tensors. Raises on anything the kernel
     does not take; never runs the plain version."""
-    from . import kernel_lib
-
     tensors = (x, a_pool, b_pool, ids)
     if not all(t.is_cuda for t in tensors):
         raise RuntimeError(

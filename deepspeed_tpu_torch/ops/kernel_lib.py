@@ -65,10 +65,11 @@ SIGNATURES = {
                            _F, _F, _F, _I, _P],
     },
     "paged_decode": {
-        # q, k_pool, v_pool, block_tables, positions, out, B, heads, hd,
-        # block_size, max_blocks, dtype, sm_scale, stream
-        "ds_paged_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _F, _P],
+        # q, k_pool, v_pool, block_tables, positions, out, workspace,
+        # counters (both NULL with one split), B, heads, hd, block_size,
+        # max_blocks, splits, dtype, sm_scale, stream
+        "ds_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _I, _I, _F, _P],
     },
     "sgmv": {
         # x, a_pool, b_pool, ids, out, B, rows, in, rank, out_dim, dtype,

@@ -4,9 +4,8 @@ at run time). On the card run
 
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py
 
-bfloat16 and float16 run the tensor-core forward and dK/dV kernels
-(wgmma + TMA), float32 the FMA kernels; dQ is the FMA kernel at every
-dtype. Tolerances as in chip_smoke.py: float32 atol = rtol = 1e-4 (another
+bfloat16 and float16 run the tensor-core forward, dQ and dK/dV kernels
+(wgmma + TMA), float32 the FMA kernels. Tolerances as in chip_smoke.py: float32 atol = rtol = 1e-4 (another
 summation order), bfloat16 atol = rtol = 1e-2 (p and the output rounded
 to bfloat16 at different points of the online softmax; rtol 1e-2 covers
 one bf16 ulp, 2**-7 relative, at any magnitude), float16 atol = rtol =
@@ -34,6 +33,7 @@ from deepspeed_tpu_torch.ops.attention import (
 )
 from deepspeed_tpu_torch.ops.decode_attention import (
     SGMV_MAX_RANK,
+    decode_splits,
     lora_sgmv,
     lora_sgmv_plain,
     paged_flash_decode,
@@ -139,6 +139,94 @@ def test_paged_decode_kernel_matches_plain(cuda, dtype, hd, bs):
     assert bool((out[1] == 0).all())
 
 
+def _decode_pool(cuda, dtype, slots, heads, hd, bs, mb, seed):
+    """q, pools and full random block tables (every page distinct)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    pages = slots * mb + 1
+    q = torch.randn(slots, heads, hd, device=cuda, generator=g).to(dtype)
+    kp = torch.randn(pages, bs, heads, hd, device=cuda, generator=g).to(dtype)
+    vp = torch.randn(pages, bs, heads, hd, device=cuda, generator=g).to(dtype)
+    tables = (torch.randperm(pages - 1, device=cuda, generator=g) + 1)
+    return q, kp, vp, tables.reshape(slots, mb).to(torch.int32)
+
+
+def _decode_split_case(cuda, dtype, hd, bs, case):
+    """``boundaries``: positions on the split boundaries the wrapper picks
+    (the last token of a run of pages, the first of the next, the one
+    after), the first and the last token of the table. ``long``: one slot
+    at position 1023 over a 128-page table. ``holes``: a dead slot, a NULL
+    page inside a split, a split whose pages are all NULL, position 0.
+    ``unsplit``: so many slots that one block per (slot, head) fills the
+    card (one split), a dead slot and mixed positions."""
+    heads = 12
+    if case == "long":
+        q, kp, vp, tables = _decode_pool(cuda, dtype, 1, heads, hd, bs, 128, 7)
+        positions = [1023]
+    elif case == "unsplit":
+        slots, mb = 48, 8
+        q, kp, vp, tables = _decode_pool(cuda, dtype, slots, heads, hd, bs,
+                                         mb, 10)
+        assert decode_splits(slots, heads, mb, cuda)[0] == 1
+        tables[0] = 0
+        positions = [(7 * i) % (mb * bs) for i in range(slots)]
+    else:
+        slots, mb = (8, 64) if case == "boundaries" else (4, 40)
+        q, kp, vp, tables = _decode_pool(cuda, dtype, slots, heads, hd, bs,
+                                         mb, 8)
+        splits, per = decode_splits(slots, heads, mb, cuda)
+        assert splits > 1
+        if case == "boundaries":
+            first, last = per * bs, (splits - 1) * per * bs
+            positions = [first - 1, first, first + 1, last - 1, last,
+                         last + 1, 0, mb * bs - 1]
+        else:
+            tables[0] = 0                  # dead slot
+            tables[1, per + 1] = 0         # a NULL page inside split 1
+            tables[2, per:2 * per] = 0     # split 1 all NULL pages
+            positions = [mb * bs - 1, mb * bs - 1, mb * bs - 1, 0]
+    positions = torch.tensor(positions, dtype=torch.int32, device=cuda)
+    return q, kp, vp, tables.contiguous(), positions
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,bs", [(64, 16), (128, 16), (64, 5), (64, 32)])
+@pytest.mark.parametrize("case", ["boundaries", "long", "holes", "unsplit"])
+def test_paged_decode_splits_match_plain(cuda, dtype, hd, bs, case):
+    """The context split across blocks and merged in the same launch (or
+    not split at all when the slots alone fill the card): one launch a
+    call, the plain version's result at the split boundaries, at a long
+    context, around NULL pages and dead slots, with pages of several
+    steps; garbage on the NULL page changes nothing."""
+    q, kp, vp, tables, positions = _decode_split_case(cuda, dtype, hd, bs,
+                                                      case)
+    before = paged_flash_decode.launches
+    out = paged_flash_decode(q, kp, vp, tables, positions)
+    torch.cuda.synchronize()
+    assert paged_flash_decode.launches == before + 1
+    _close(out, paged_flash_decode_plain(q, kp, vp, tables, positions),
+           dtype)
+    if case in ("holes", "unsplit"):
+        assert bool((out[0] == 0).all())
+        kp2, vp2 = kp.clone(), vp.clone()
+        kp2[0], vp2[0] = 1e4, -1e4
+        assert torch.equal(
+            paged_flash_decode(q, kp2, vp2, tables, positions), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_is_bitwise_repeatable(cuda, dtype):
+    """The last block of a (slot, head) merges every split in split
+    order, whichever block that is: 10 calls give the same bits."""
+    q, kp, vp, tables = _decode_pool(cuda, dtype, 8, 12, 64, 16, 64, 9)
+    positions = torch.full((8,), 1023, dtype=torch.int32, device=cuda)
+    first = paged_flash_decode(q, kp, vp, tables, positions)
+    for _ in range(9):
+        assert torch.equal(paged_flash_decode(q, kp, vp, tables, positions),
+                           first)
+
+
 @pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q = torch.randn(1, 2, 256, 96, device=cuda)
@@ -222,17 +310,17 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, d, sq, sk, causal,
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("d", [64, 128])
 def test_tensor_core_kernels_are_bitwise_repeatable(cuda, dtype, d):
-    """The tensor-core forward and dK/dV kernels use no atomics: two
-    launches on the same inputs give the same out, lse, dK and dV bit for
-    bit."""
+    """The tensor-core forward, dQ and dK/dV kernels use no atomics: two
+    launches on the same inputs give the same out, lse, dQ, dK and dV bit
+    for bit."""
     q, k, v, dout, kv_mask = _attention_case(cuda, dtype, d, 1000, 1000,
                                              True, 6)
     fargs = (q, k, v, kv_mask, True, None, 0.1, 11)
     out, lse = flash_fwd(*fargs)
     delta = (dout.float() * out.float()).sum(dim=-1)
     bargs = (q, k, v, kv_mask, dout, lse, delta, True, None, 0.1, 11)
-    first = (out, lse, *flash_bwd_dkv(*bargs))
-    again = (*flash_fwd(*fargs), *flash_bwd_dkv(*bargs))
+    first = (out, lse, flash_bwd_dq(*bargs), *flash_bwd_dkv(*bargs))
+    again = (*flash_fwd(*fargs), flash_bwd_dq(*bargs), *flash_bwd_dkv(*bargs))
     torch.cuda.synchronize()
     for a, b in zip(first, again):
         assert torch.equal(a, b)
