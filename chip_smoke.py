@@ -8,6 +8,10 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 and its checks and timings of phase 3 (through the public wrapper only),
 so that a copy of this script placed at the root of another checkout of
 the repo (an older commit) times that checkout's kernel the same way.
+``--only-kernels`` does the same for LAMB phase 1 and SGMV: their timings
+of phases 3b and 3c (both SGMV forms where the checkout has the epilogue
+form), the wrappers' host microseconds a call and the kernel launches of
+one fused apply_lora call.
 
 Phases (any failure exits non-zero; nothing is caught and ignored):
   1. probe   — require CUDA; print the card's name and power limit.
@@ -38,15 +42,24 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                bounds and library yardsticks (SDPA forward and backward,
                timed only); the attention kernels and their yardsticks
                both ways, at dropout 0.1 and at 0 (the hash's share);
-               LAMB phase 1 both ways.
-     3c. sgmv  — the SGMV kernel against its plain version at GPT-2
-               small's four LoRA target shapes, rank 16, B = 8, ids mixing
-               the identity row 0, repeats and the highest row, float32
-               and bfloat16 (identity rows exactly zero; in bfloat16 the
-               output must lie ten times nearer the plain version, which
-               rounds t, than the same arithmetic with t unrounded); then
-               its time (as Timer gives it, and on the device alone), its
-               plain version's and its bound at B = 8 and B = 64.
+               LAMB phase 1 both ways (all 148 tensors in one launch, the
+               largest leaf launch and the packed launch), with the share
+               of its byte bound the device time reaches; a launch on the
+               same tensors must build (upload) no device table.
+     3c. sgmv  — the SGMV kernel in both forms against their plain
+               versions at GPT-2 small's four LoRA target shapes, rank 16,
+               B = 8, ids mixing the identity row 0, repeats and the
+               highest row, float32 and bfloat16: the float32 delta
+               (identity rows exactly zero; in bfloat16 the output must lie
+               ten times nearer the plain version, which rounds t, than the
+               same arithmetic with t unrounded) and the epilogue form y +
+               (scale * delta).to(dtype) (bit for bit what PyTorch's three
+               ops give on the kernel's own delta; identity rows leave y
+               unchanged); then each form's time (as Timer gives it, and on
+               the device alone), its wrapper's host microseconds a call,
+               its plain version's time and its bound at B = 8 and B = 64,
+               and the host time and kernel launches of apply_lora's fused
+               decode path (one launch).
   4. serve   — init_inference on GPT-2 small (random weights from --seed,
                bf16, paged KV, fused decode): 4 mixed-length prompts and
                a 5th that hits the prefix cache, 32 new tokens each. Both
@@ -65,7 +78,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                flash_bwd_dq and flash_bwd_dkv each launched exactly 12
                times per micro-step), then 3 windows of FusedLamb (6 LAMB
                launches per step, trust ratios finite and inside
-               [min_coeff, max_coeff]), 3 windows of Adam in real float16
+               [min_coeff, max_coeff], LAMB's device tables built in the
+               first window only), 3 windows of Adam in real float16
                with dynamic loss scaling (a skip allowed, a step taken),
                then one float32 micro-step at
                dropout 0 whose gradients through the kernels must match
@@ -84,10 +98,21 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                (4 targets x 12 layers); the base requests equal an
                adapter-free engine's tokens; the batch equals solo runs
                (prefix cache off); float32 fused and unfused decode give
-               identical greedy tokens; TTFT and decode tokens/s with and
-               without the adapters block; SGMV's share of a profiled
-               decode window.
-  7. report  — a JSON line of per-kernel numbers, the nvidia-smi line,
+               identical greedy tokens; kernel launches per decode step
+               with and without adapters (torch.profiler over decode-only
+               steps); TTFT and decode tokens/s with and without the
+               adapters block; SGMV's share of a profiled decode window.
+  7. head dims — the flash forward and backward at d = 32, 48 and 96
+               (zero-padded to the kernels' 64 or 128) and paged decode at
+               hd 16, 32, 48, 80, 96 and 112 against their plain versions,
+               with their times; then a GPT-2 of 768 over 24 heads (head
+               dim 32, cut to 2 layers) through one training micro-step
+               (each attention kernel launched once a layer; float32
+               gradients through the kernels equal the plain versions') and
+               serving (a 300-token cold prefill through the flash forward,
+               fused decode through paged decode; float32 fused == unfused,
+               the first token the full forward's argmax).
+  8. report  — a JSON line of per-kernel numbers, the nvidia-smi line,
                then the last line {"ok": true, "device": {...}}.
 
 The attention kernels take two routes by dtype: bfloat16 and float16 the
@@ -106,12 +131,16 @@ shape are ~1e-2, where an absolute 1e-2 would pass anything). LAMB: the
 moments and u to rtol 1e-5 (the kernel rounds as PyTorch does; u may
 differ by an ulp), the block partials and trust ratios to rtol 1e-5
 (float32 sums in another order). Whole-model float32 gradients, kernels
-vs plain: max|diff| <= 1e-4 * max|plain| per parameter. SGMV: float32
+vs plain: max|diff| <= 1e-4 * max|plain| per parameter. LAMB's m, v
+and u must equal the plain version's bit for bit. SGMV: float32
 atol = rtol = 1e-4; bfloat16 atol = 1e-2 x each output row's largest
 magnitude (t is rounded to bfloat16 before the second product, and a
 summation in another order can move it by one bf16 ulp, 2**-8 relative),
 and its error against the plain version below a tenth of its error
-against the unrounded-t arithmetic (which pins where t is rounded).
+against the unrounded-t arithmetic (which pins where t is rounded); its
+epilogue form TOL of its dtype against its plain version (a delta that
+differs in its last bits can move the rounded y + scale * delta by one
+ulp of y) and bit for bit against PyTorch's ops on the kernel's delta.
 """
 
 import argparse
@@ -170,23 +199,25 @@ class Timer:
     50 MB L2 flushed before each (the serving path finds the next layer's
     K/V cold). The stream is idle when the call starts, so the time
     includes the host's enqueue of the call (the Python wrapper, the
-    launch). With ``spin=True`` a device spin of SPIN_CYCLES (~0.5 ms) is
-    queued ahead of each call instead, the enqueue overlaps it, and the
-    events time the device work alone."""
+    launch). With ``spin=True`` a device spin of ``spin_cycles`` (default
+    SPIN_CYCLES, ~0.5 ms) is queued ahead of each call instead, the
+    enqueue overlaps it, and the events time the device work alone; the
+    spin must outlast the host's enqueue of the call, or its excess is
+    counted as device time."""
 
     SPIN_CYCLES = 1_000_000
 
     def __init__(self, device):
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
 
-    def ms(self, fn, iters=20, warmup=3, spin=False):
+    def ms(self, fn, iters=20, warmup=3, spin=False, spin_cycles=SPIN_CYCLES):
         for _ in range(warmup):
             fn()
         total = 0.0
         for _ in range(iters):
             self.flush.zero_()
             if spin:
-                torch.cuda._sleep(self.SPIN_CYCLES)
+                torch.cuda._sleep(spin_cycles)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -614,23 +645,19 @@ def check_flash_training(device, gen):
     return errs
 
 
-def check_lamb(device, gen, seed):
-    """LAMB phase 1 over GPT-2 small's parameters (all 148 tensors in one
-    launch) against its plain version, float32 and bfloat16 grads; then
-    one FusedLamb step (6 launches) against the plain Lamb on the same
-    state. Returns (max relative partial error, max relative trust-ratio
-    error, the timing operands)."""
+def lamb_operands(device, gen, seed):
+    """GPT-2 small's 148 parameters in LAMB's group order, with float32
+    grads and moments from ``gen``: ``(ps, g32, m0, v0, c1, c2, kw,
+    [(group, tensors)], {name: param}, [names])``."""
     from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
-    from deepspeed_tpu_torch.ops.fused_lamb import (
-        FusedLamb, lamb_phase1, lamb_phase1_plain,
-    )
     from deepspeed_tpu_torch.ops.optimizers import (
-        Lamb, bias_corrections, param_groups,
+        bias_corrections, param_groups,
     )
 
     model = GPT2LMHeadModel(GPT2Config.small(), device=device, seed=seed)
     params = {n: p.detach() for n, p in model.named_parameters()}
     names = [n for grp in param_groups(params).values() for n in grp]
+    groups = [(g, len(grp)) for g, grp in param_groups(params).items()]
     ps = [params[n] for n in names]
 
     def noise(scale):
@@ -642,6 +669,22 @@ def check_lamb(device, gen, seed):
     kw = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01,
               eps_inside_sqrt=False)
     c1, c2 = bias_corrections(0.9, 0.999, 3)
+    return ps, g32, m0, v0, c1, c2, kw, groups, params, names
+
+
+def check_lamb(device, gen, seed):
+    """LAMB phase 1 over GPT-2 small's parameters (all 148 tensors in one
+    launch) against its plain version, float32 and bfloat16 grads; then
+    one FusedLamb step (6 launches) against the plain Lamb on the same
+    state. Returns (max relative partial error, max relative trust-ratio
+    error, the timing operands)."""
+    from deepspeed_tpu_torch.ops.fused_lamb import (
+        FusedLamb, lamb_phase1, lamb_phase1_plain,
+    )
+    from deepspeed_tpu_torch.ops.optimizers import Lamb
+
+    ops = lamb_operands(device, gen, seed)
+    ps, g32, m0, v0, c1, c2, kw, groups, params, names = ops
 
     def rel(got, want):
         return float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
@@ -658,12 +701,10 @@ def check_lamb(device, gen, seed):
             runs.append((wsq, usq, ms, vs, us))
         tag = f"lamb_phase1 {str(gdtype)[6:]} grads"
         for what, i in (("m", 2), ("v", 3), ("u", 4)):
-            for got, want in zip(runs[0][i], runs[1][i]):
-                scale = float(want.abs().max())
-                if not torch.allclose(got, want, rtol=LAMB_RTOL,
-                                      atol=LAMB_RTOL * scale):
-                    fail(f"{tag}: {what} disagrees with the plain version "
-                         f"(max abs err {max_err(got, want):.3e})")
+            if not all(torch.equal(got, want)
+                       for got, want in zip(runs[0][i], runs[1][i])):
+                fail(f"{tag}: {what} is not bitwise the plain version's")
+        log(f"  {tag}: m, v and u bitwise equal to the plain version's")
         for what, i in (("sum p^2", 0), ("sum u^2", 1)):
             err = rel(runs[0][i], runs[1][i])
             worst_partial = max(worst_partial, err)
@@ -700,7 +741,7 @@ def check_lamb(device, gen, seed):
         if not torch.allclose(p_fused[n], p_plain[n], rtol=LAMB_RTOL,
                               atol=LAMB_RTOL * scale):
             fail(f"FusedLamb's update of {n} disagrees with the plain Lamb's")
-    return worst_partial, ratio_err, (ps, g32, m0, v0, c1, c2, kw)
+    return worst_partial, ratio_err, ops
 
 
 def phase_train_kernels(device, seed, report):
@@ -803,32 +844,100 @@ def phase_train_kernels(device, seed, report):
                                     "bound_ms", "bound_by")
     }
 
-    # LAMB phase 1 over every GPT-2 small parameter in one launch (the
-    # step's 6 launches together), float32 grads
-    ps, g32, m0, v0, c1, c2, kw = lamb_ops
-    ms, vs = [m.clone() for m in m0], [v.clone() for v in v0]
-    us = [torch.empty_like(p) for p in ps]
-    largs = (ps, g32, ms, vs, us, c1, c2, 0.5)
-    n = sum(p.numel() for p in ps)
-    nblocks = sum(max(1, -(-p.numel() // 4096)) for p in ps)
-    # p, g, m, v read; m, v, u written (4 bytes each); two partials a block
-    nbytes = n * 7 * 4 + nblocks * 8
-    b_ms, b_by = bound(nbytes, 16 * n, f32)
-    lamb_ms, lamb_device_ms = both(lambda: lamb_phase1(*largs, **kw))
     report["lamb_phase1"] = dict(
-        name="lamb_phase1", route="cuda", source=LAMB_SOURCE,
-        replaces=LAMB_TPU, tpu_kernel=LAMB_TPU,
-        shape=f"GPT-2 small's {len(ps)} tensors ({n} float32 elements) in "
-              "one launch, float32 grads",
-        max_abs_err=lamb_err, max_abs_err_kind="max relative error of the "
-        "block partials", trust_ratio_max_rel_err=ratio_err,
-        ms=lamb_ms, device_ms=lamb_device_ms,
-        plain_ms=timer.ms(lambda: lamb_phase1_plain(*largs, **kw), iters=5,
-                          warmup=1),
-        library_ms=None, library=None,
-        bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes, bound_flops=16 * n,
+        time_lamb(device, timer, lamb_ops), max_abs_err=lamb_err,
+        max_abs_err_kind="max relative error of the block partials",
+        trust_ratio_max_rel_err=ratio_err,
     )
     return report
+
+
+def lamb_work(ps, gdtype):
+    """Bytes and flops of LAMB phase 1 over ``ps``: p, g, m, v read and m,
+    v, u written (4 bytes each, g its own size), two float32 partials a
+    4096-element block; 16 flops an element."""
+    n = sum(p.numel() for p in ps)
+    nblocks = sum(max(1, -(-p.numel() // 4096)) for p in ps)
+    gsize = torch.empty(0, dtype=gdtype).element_size()
+    return n * (6 * 4 + gsize) + nblocks * 8, 16 * n
+
+
+def time_lamb(device, timer, lamb_ops):
+    """LAMB phase 1's times on GPT-2 small's tensors, float32 grads: all
+    148 tensors in one launch (the step's 6 launches together), the
+    largest leaf launch (row 4: ``h.*.inter_w``'s 12 tensors) and the
+    packed launch of the 11 small groups (row 5), each as Timer gives it
+    and on the device alone, with its bound and the share of the bound
+    the device time reaches. Every launch after the first on the same
+    tensors must build no device table (none is uploaded)."""
+    from deepspeed_tpu_torch.ops.fused_lamb import (
+        lamb_phase1, lamb_phase1_plain,
+    )
+
+    ps, g32, m0, v0, c1, c2, kw, groups = lamb_ops[:8]
+    ms, vs = [m.clone() for m in m0], [v.clone() for v in v0]
+    us = [torch.empty_like(p) for p in ps]
+    # (shape, tensor indices) of the three launches
+    index, at = {}, 0
+    for name, n in groups:
+        index[name] = list(range(at, at + n))
+        at += n
+    small = [i for name, idx in index.items()
+             if sum(ps[j].numel() for j in idx) <= 1 << 21 for i in idx]
+    launches = {
+        "all": (f"GPT-2 small's {len(ps)} tensors in one launch",
+                list(range(len(ps)))),
+        "leaf": ("row 4, lamb_leaf_update: h.*.inter_w's 12 tensors",
+                 index["h.*.inter_w"]),
+        "packed": (f"row 5, lamb_multi_tensor_update: the {len(small)} "
+                   "tensors of the 11 small groups", small),
+    }
+    out = {}
+    for key, (shape, idx) in launches.items():
+        args = ([ps[i] for i in idx], [g32[i] for i in idx],
+                [ms[i] for i in idx], [vs[i] for i in idx],
+                [us[i] for i in idx], c1, c2, 0.5)
+        fn = lambda: lamb_phase1(*args, **kw)
+        fn()
+        builds = getattr(lamb_phase1, "table_builds", None)
+        # the wrapper walks every tensor on the host (up to ~0.9 ms a call
+        # for 148 tensors), so the spin that hides its enqueue is 10x the
+        # default
+        ms_ = timer.ms(fn)
+        device_ms = timer.ms(fn, spin=True,
+                             spin_cycles=10 * Timer.SPIN_CYCLES)
+        if builds is not None and lamb_phase1.table_builds != builds:
+            fail(f"lamb_phase1 ({key}): a launch on the same tensors built "
+                 f"its device table again ({lamb_phase1.table_builds - builds}"
+                 " builds)")
+        nbytes, flops = lamb_work(args[0], torch.float32)
+        b_ms, b_by = bound(nbytes, flops, torch.float32)
+        out[key] = dict(
+            shape=shape, ms=ms_, device_ms=device_ms,
+            host_us_per_call=host_us_per_call(fn, calls=50),
+            bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
+            bound_flops=flops, bound_fraction=b_ms / device_ms,
+            table_builds_after_first=(None if builds is None
+                                      else lamb_phase1.table_builds - builds),
+        )
+        if key == "all":
+            out[key]["plain_ms"] = timer.ms(
+                lambda: lamb_phase1_plain(*args, **kw), iters=5, warmup=1)
+        log(f"  lamb_phase1 {key}: {json.dumps(out[key])}")
+    head = out["all"]
+    return dict(
+        name="lamb_phase1", route="cuda", source=LAMB_SOURCE,
+        replaces=LAMB_TPU, tpu_kernel=LAMB_TPU,
+        shape=head["shape"] + f" ({sum(p.numel() for p in ps)} float32 "
+        "elements), float32 grads",
+        ms=head["ms"], device_ms=head["device_ms"], plain_ms=head["plain_ms"],
+        library_ms=None, library=None, bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], bound_bytes=head["bound_bytes"],
+        bound_flops=head["bound_flops"],
+        bound_fraction=head["bound_fraction"],
+        host_us_per_call=head["host_us_per_call"],
+        leaf=out["leaf"], packed=out["packed"],
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -853,20 +962,25 @@ def sgmv_case(device, gen, dtype, din, dout, b):
             b_pool.to(dtype).contiguous(), ids)
 
 
-def sgmv_work(x, a_pool, b_pool, ids):
+def sgmv_work(x, a_pool, b_pool, ids, add=False):
     """Bytes and flops the function needs on these inputs: the DISTINCT
     non-identity adapter rows of A and B read once (id 0 reads nothing),
-    x and ids read, the float32 output written; 2 * (in * r + r * out)
-    flops a non-identity slot."""
+    x and ids read, and the float32 delta written; 2 * (in * r + r * out)
+    flops a non-identity slot. With ``add`` (the epilogue form), y is read
+    and y_out written in the pools' dtype instead of the float32 delta,
+    and the scale and the add are 2 flops an output."""
     b, din = x.shape
     rank, dout = b_pool.shape[1], b_pool.shape[2]
     id_list = ids.tolist()
     distinct = len({i for i in id_list if i != 0})
     live = sum(1 for i in id_list if i != 0)
     es = x.element_size()
+    out_bytes = 2 * b * dout * es if add else b * dout * 4
     nbytes = (distinct * (din * rank + rank * dout) * es + b * din * es
-              + b * 4 + b * dout * 4)
-    return nbytes, 2 * live * (din * rank + rank * dout)
+              + b * 4 + out_bytes)
+    flops = 2 * live * (din * rank + rank * dout) + (2 * b * dout if add
+                                                     else 0)
+    return nbytes, flops
 
 
 def sgmv_unrounded(x, a_pool, b_pool, ids):
@@ -890,6 +1004,98 @@ def check_t_rounding(tag, out, ref, scale, unrounded):
         fail(f"{tag}: the kernel does not round t as its plain version does")
 
 
+# the epilogue's LoRA scale alpha / rank (alpha 12 at rank 16): not a
+# power of two, so that scale * delta rounds
+SGMV_SCALE = 0.75
+
+
+def check_sgmv_add(tag, x, a_pool, b_pool, ids, delta):
+    """The epilogue form against its plain version (TOL of its dtype) and
+    bit for bit against PyTorch's scale, cast and add on the kernel's own
+    delta; identity rows leave y unchanged. Returns the max error."""
+    from deepspeed_tpu_torch.ops.decode_attention import (
+        lora_sgmv_add,
+        lora_sgmv_add_plain,
+    )
+
+    dtype = x.dtype
+    gen = torch.Generator(device=x.device).manual_seed(ids.numel())
+    y = torch.randn(x.shape[0], b_pool.shape[2], device=x.device,
+                    generator=gen).to(dtype)
+    out = lora_sgmv_add(x, a_pool, b_pool, ids, y, SGMV_SCALE)
+    torch.cuda.synchronize()
+    if out.dtype != dtype or out.shape != y.shape:
+        fail(f"{tag} add: output {out.dtype} {tuple(out.shape)}")
+    err = check_close(tag + " add", out,
+                      lora_sgmv_add_plain(x, a_pool, b_pool, ids, y,
+                                          SGMV_SCALE), dtype)
+    if not torch.equal(out, y + (SGMV_SCALE * delta).to(dtype)):
+        fail(f"{tag} add: the epilogue differs from y + (scale * delta)"
+             ".to(dtype) on the kernel's own delta")
+    zero = (ids == 0).nonzero().flatten()
+    if not torch.equal(out[zero], y[zero]):
+        fail(f"{tag} add: an identity row changed y")
+    return err
+
+
+def sgmv_forms(x, a_pool, b_pool, ids):
+    """The delta form and, where the checkout has it, the epilogue form,
+    as zero-argument calls on these operands (y of the output's shape)."""
+    from deepspeed_tpu_torch.ops import decode_attention as D
+
+    forms = {"delta": lambda: D.lora_sgmv(x, a_pool, b_pool, ids)}
+    if hasattr(D, "lora_sgmv_add"):
+        y = torch.zeros(x.shape[0], b_pool.shape[2], dtype=x.dtype,
+                        device=x.device)
+        forms["add"] = lambda: D.lora_sgmv_add(x, a_pool, b_pool, ids, y,
+                                               SGMV_SCALE)
+    return forms
+
+
+def time_sgmv(device, gen, timer, batches=(8, 64)):
+    """Each form's time at GPT-2 small's four targets (bf16, rank 16):
+    ``ms`` and ``device_ms`` (Timer), the wrapper's host microseconds a
+    call (median of 5 rounds of 200 calls), the plain version's time and
+    the bound; keyed "<form> <target> B=<b>"."""
+    from deepspeed_tpu_torch.ops import decode_attention as D
+
+    shapes = {}
+    for b in batches:
+        for target, (din, dout) in LORA_SHAPES.items():
+            x, a_pool, b_pool, ids = sgmv_case(device, gen, torch.bfloat16,
+                                               din, dout, b)
+            y = torch.zeros(b, dout, dtype=torch.bfloat16, device=device)
+            plains = {
+                "delta": lambda: D.lora_sgmv_plain(x, a_pool, b_pool, ids),
+                "add": lambda: D.lora_sgmv_add_plain(x, a_pool, b_pool, ids,
+                                                     y, SGMV_SCALE),
+            }
+            for form, fn in sgmv_forms(x, a_pool, b_pool, ids).items():
+                nbytes, flops = sgmv_work(x, a_pool, b_pool, ids,
+                                          add=form == "add")
+                b_ms, b_by = bound(nbytes, flops, torch.bfloat16)
+                key = f"{form} {target} B={b}"
+                shapes[key] = dict(
+                    ms=timer.ms(fn, iters=100),
+                    device_ms=timer.ms(fn, iters=100, spin=True),
+                    host_us_per_call=host_us_per_call(fn),
+                    plain_ms=timer.ms(plains[form]),
+                    bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
+                    bound_flops=flops,
+                )
+                log(f"  sgmv {key}: {json.dumps(shapes[key])}")
+    # the launch floor the kernel is held against: one PyTorch elementwise
+    # kernel on one element, timed the same way
+    one = torch.zeros(1, dtype=torch.bfloat16, device=device)
+    floor = lambda: one.add_(1)
+    shapes["launch_floor"] = dict(
+        ms=timer.ms(floor, iters=100),
+        device_ms=timer.ms(floor, iters=100, spin=True),
+        what="one-element in-place add (a PyTorch elementwise kernel)")
+    log(f"  launch floor: {json.dumps(shapes['launch_floor'])}")
+    return shapes
+
+
 def phase_sgmv_kernels(device, seed, report):
     """Phase 3c; adds the SGMV entry to ``report``."""
     from deepspeed_tpu_torch.ops.decode_attention import (
@@ -899,8 +1105,9 @@ def phase_sgmv_kernels(device, seed, report):
 
     gen = torch.Generator(device=device).manual_seed(seed + 2)
     timer = Timer(device)
-    log("phase 3c: sgmv vs plain (GPT-2 small's LoRA targets, rank 16, B=8)")
-    errs = {}
+    log("phase 3c: sgmv vs plain (GPT-2 small's LoRA targets, rank 16, B=8), "
+        "the delta form and the epilogue form")
+    errs, add_errs = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         for target, (din, dout) in LORA_SHAPES.items():
             x, a_pool, b_pool, ids = sgmv_case(device, gen, dtype, din, dout,
@@ -924,74 +1131,80 @@ def phase_sgmv_kernels(device, seed, report):
                             dtype)
                 check_t_rounding(tag, out, ref, scale,
                                  sgmv_unrounded(x, a_pool, b_pool, ids))
-    log("phase 3c: sgmv timing (bf16), B = 8 and B = 64")
-    shapes = {}
-    for b in (8, 64):
-        for target, (din, dout) in LORA_SHAPES.items():
-            x, a_pool, b_pool, ids = sgmv_case(device, gen, torch.bfloat16,
-                                               din, dout, b)
-            nbytes, flops = sgmv_work(x, a_pool, b_pool, ids)
-            b_ms, b_by = bound(nbytes, flops, torch.bfloat16)
-            shapes[f"{target} B={b}"] = dict(
-                ms=timer.ms(lambda: lora_sgmv(x, a_pool, b_pool, ids)),
-                plain_ms=timer.ms(
-                    lambda: lora_sgmv_plain(x, a_pool, b_pool, ids)
-                ),
-                device_ms=timer.ms(lambda: lora_sgmv(x, a_pool, b_pool, ids),
-                                   spin=True),
-                bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
-                bound_flops=flops,
-            )
-            log(f"  {target} B={b}: {json.dumps(shapes[f'{target} B={b}'])}")
+            add_errs[(dtype, target)] = check_sgmv_add(tag, x, a_pool,
+                                                       b_pool, ids, out)
+    log("phase 3c: sgmv timing (bf16), both forms, B = 8 and B = 64")
+    shapes = time_sgmv(device, gen, timer)
     host = sgmv_host_costs(device, gen)
     log(f"  host time per call: {json.dumps(host)}")
-    head = shapes["inter_w B=8"]  # the widest target at the serving batch
+    # the main path's launch: the epilogue form at the widest target, B = 8
+    head, delta = shapes["add inter_w B=8"], shapes["delta inter_w B=8"]
     report["sgmv"] = dict(
         name="sgmv", route="cuda", source=SGMV_SOURCE, replaces=SGMV_TPU,
         tpu_kernel=SGMV_TPU,
-        shape="inter_w 768->3072, rank 16, B=8, pool rows 5, bf16",
-        max_abs_err=max(errs[(torch.bfloat16, t)] for t in LORA_SHAPES),
-        max_abs_err_f32=max(errs[(torch.float32, t)] for t in LORA_SHAPES),
+        shape="inter_w 768->3072, rank 16, B=8, pool rows 5, bf16; the "
+              "epilogue form (y + (scale * delta).to(bf16)), apply_lora's "
+              "one launch",
+        max_abs_err=max(add_errs[(torch.bfloat16, t)] for t in LORA_SHAPES),
+        max_abs_err_f32=max(add_errs[(torch.float32, t)]
+                            for t in LORA_SHAPES),
         ms=head["ms"], plain_ms=head["plain_ms"],
         library_ms=None, library=None,
         bound_ms=head["bound_ms"], bound_by=head["bound_by"],
         bound_bytes=head["bound_bytes"], bound_flops=head["bound_flops"],
-        by_shape=shapes,
         device_ms=head["device_ms"], device_ms_kind="CUDA events around "
         "one call queued behind a device spin: the kernel alone, without "
         "the host wrapper and launch that ms includes",
         host_us_per_call=host,
+        launch_floor=shapes.pop("launch_floor"),
+        delta_form=dict(
+            delta, max_abs_err=max(errs[(torch.bfloat16, t)]
+                                   for t in LORA_SHAPES),
+            max_abs_err_f32=max(errs[(torch.float32, t)]
+                                for t in LORA_SHAPES)),
+        by_shape=shapes,
     )
     return report
 
 
 def sgmv_host_costs(device, gen, calls=200):
-    """Host wall time per call, in microseconds, of the SGMV wrapper, of
-    apply_lora's fused decode path around it (B=8) and of its gathered
-    path at the prefill shape (1 x 1024 tokens), each called ``calls``
-    times back to back with one synchronize at the end (the device keeps
-    up, so the host's call rate is what is measured)."""
-    from deepspeed_tpu_torch.ops.decode_attention import lora_sgmv
+    """Host wall time per call, in microseconds (median of 5 rounds of
+    ``calls`` calls), of the SGMV wrappers (each form), of apply_lora's
+    fused decode path around them (B=8) and of its gathered path at the
+    prefill shape (1 x 1024 tokens), with the kernel launches one fused
+    apply_lora call makes (from torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     from deepspeed_tpu_torch.ops.transformer import apply_lora
 
     din, dout = LORA_SHAPES["inter_w"]
     x, a_pool, b_pool, ids = sgmv_case(device, gen, torch.bfloat16, din,
                                        dout, 8)
-    lora = ({"inter_w": (a_pool, b_pool)}, ids, 1.0, True)
+    lora = ({"inter_w": (a_pool, b_pool)}, ids, SGMV_SCALE, True)
     x3 = x[:, None, :]
     y3 = torch.zeros(8, 1, dout, dtype=torch.bfloat16, device=device)
     xp = torch.randn(1, 1024, din, device=device,
                      generator=gen).to(torch.bfloat16)
     yp = torch.zeros(1, 1024, dout, dtype=torch.bfloat16, device=device)
-    lora_p = ({"inter_w": (a_pool, b_pool)}, ids[1:2], 1.0, True)
-    cases = {
-        "lora_sgmv": lambda: lora_sgmv(x, a_pool, b_pool, ids),
-        "apply_lora_fused_decode": lambda: apply_lora(
-            None, None, lora, "inter_w", x3, y3),
-        "apply_lora_gathered_prefill": lambda: apply_lora(
-            None, None, lora_p, "inter_w", xp, yp),
-    }
-    return {name: host_us_per_call(fn, calls) for name, fn in cases.items()}
+    lora_p = ({"inter_w": (a_pool, b_pool)}, ids[1:2], SGMV_SCALE, True)
+    fused = lambda: apply_lora(None, None, lora, "inter_w", x3, y3)
+    cases = {f"lora_sgmv {form}": fn
+             for form, fn in sgmv_forms(x, a_pool, b_pool, ids).items()}
+    cases["apply_lora_fused_decode"] = fused
+    cases["apply_lora_gathered_prefill"] = lambda: apply_lora(
+        None, None, lora_p, "inter_w", xp, yp)
+    out = {name: host_us_per_call(fn, calls) for name, fn in cases.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            fused()
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0)
+    out["apply_lora_fused_decode_kernel_launches"] = kernels / 10
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1252,16 +1465,21 @@ def train_batches(seed, vocab):
 
 
 def run_windows(engine, micro, n):
-    """``n`` train_batch windows; their mean losses and wall seconds."""
-    losses, secs = [], []
+    """``n`` train_batch windows; their mean losses and wall seconds, and
+    the LAMB device tables each built (uploads to the card)."""
+    from deepspeed_tpu_torch.ops.fused_lamb import lamb_phase1
+
+    losses, secs, builds = [], [], []
     for _ in range(n):
+        before = lamb_phase1.table_builds
         torch.cuda.synchronize()
         t0 = time.monotonic()
         loss = float(engine.train_batch(iter(micro)))
         torch.cuda.synchronize()
         secs.append(time.monotonic() - t0)
         losses.append(loss)
-    return losses, secs
+        builds.append(lamb_phase1.table_builds - before)
+    return losses, secs, builds
 
 
 def check_launches(path, got, micro_steps, lamb_steps=0):
@@ -1292,9 +1510,9 @@ def train_gpt2(seed, optimizer, lr, windows, precision=BF16):
         model=model, config_params=train_config(optimizer, lr, precision)
     )
     zero_launches()
-    losses, secs = run_windows(engine, micro, windows)
+    losses, secs, builds = run_windows(engine, micro, windows)
     launches = read_launches()
-    log(f"  losses {losses}")
+    log(f"  losses {losses}; LAMB table builds per window {builds}")
     if not all(math.isfinite(x) for x in losses):
         fail(f"{optimizer}: a window's loss is not finite")
     skips_ok = engine.loss_scale_state.dynamic
@@ -1303,20 +1521,20 @@ def train_gpt2(seed, optimizer, lr, windows, precision=BF16):
             or (engine.skipped_steps and not skips_ok)):
         fail(f"{optimizer}: {engine.skipped_steps} skipped steps, "
              f"{engine.global_steps} taken of {windows}")
-    return engine, micro, launches, losses, secs
+    return engine, micro, launches, losses, secs, builds
 
 
-def grads_kernels_vs_plain(seed):
-    """One float32 micro-step of GPT-2 small at dropout 0: the gradients
-    through the kernels against the gradients through the plain versions
-    of the three attention kernels on the card. Returns the launches of
-    the kernel run and the worst max|diff| / max|plain| over the
-    parameters."""
+def grads_kernels_vs_plain(seed, cfg=None):
+    """One float32 micro-step of GPT-2 small (or ``cfg``) at dropout 0: the
+    gradients through the kernels against the gradients through the plain
+    versions of the three attention kernels on the card. Returns the
+    launches of the kernel run and the worst max|diff| / max|plain| over
+    the parameters."""
     from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
     from deepspeed_tpu_torch.ops import attention as A
 
-    model = GPT2LMHeadModel(GPT2Config.small(dropout=0.0), device="cuda",
-                            seed=seed)
+    cfg = cfg or GPT2Config.small(dropout=0.0)
+    model = GPT2LMHeadModel(cfg, device="cuda", seed=seed)
     ids = train_batches(seed, model.config.vocab_size)[0][0]
     params = list(model.parameters())
 
@@ -1350,7 +1568,7 @@ def phase_train(seed, card):
 
     log("phase 5: GPT-2 small, Adam, bf16, dropout 0.1, 8 windows")
     torch.cuda.reset_peak_memory_stats()
-    engine, micro, adam, losses, secs = train_gpt2(seed, "Adam", 1e-4, 8)
+    engine, micro, adam, losses, secs, _ = train_gpt2(seed, "Adam", 1e-4, 8)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     check_launches("Adam", adam, engine.micro_steps)
     if not losses[-1] < losses[0]:
@@ -1372,8 +1590,14 @@ def phase_train(seed, card):
     torch.cuda.empty_cache()
 
     log("phase 5: GPT-2 small, FusedLamb, 3 windows")
-    engine, _, lamb, lamb_losses, _ = train_gpt2(seed, "FusedLamb", 1e-3, 3)
+    engine, _, lamb, lamb_losses, lamb_secs, builds = train_gpt2(
+        seed, "FusedLamb", 1e-3, 3)
     check_launches("FusedLamb", lamb, engine.micro_steps, engine.global_steps)
+    # the first step builds the device tables; later steps find the same
+    # tensors (the engine keeps its cast gradient buffer) and upload none
+    if builds[0] < 1 or any(builds[1:]):
+        fail(f"FusedLamb: LAMB device tables built {builds} per window, want "
+             "some in the first and none after")
     opt = engine.optimizer_obj
     coeffs = engine.lamb_coeffs
     log(f"  lamb_coeffs {coeffs.tolist()}")
@@ -1387,7 +1611,8 @@ def phase_train(seed, card):
 
     log("phase 5: GPT-2 small, Adam, real float16, loss scale from 2**16")
     fp16 = {"fp16": {"enabled": True, "initial_scale_power": 16}}
-    engine, _, half, half_losses, _ = train_gpt2(seed, "Adam", 1e-4, 3, fp16)
+    engine, _, half, half_losses, _, _ = train_gpt2(seed, "Adam", 1e-4, 3,
+                                                    fp16)
     check_launches("fp16", half, engine.micro_steps)
     half_scale = engine.loss_scale_state.loss_scale
     half_skipped = engine.skipped_steps
@@ -1409,6 +1634,8 @@ def phase_train(seed, card):
         "tokens_per_s": tok_s,
         "peak_memory_gib": peak_gb,
         "fusedlamb_losses": lamb_losses,
+        "fusedlamb_window_s": lamb_secs,
+        "fusedlamb_table_builds_per_window": builds,
         "fp16_losses": half_losses,
         "fp16_loss_scale": half_scale,
         "fp16_skipped_steps": half_skipped,
@@ -1455,7 +1682,7 @@ def lora_finetune(seed):
     ):
         fail("LoRA fine-tune: the trainable set is not the adapter")
     zero_launches()
-    losses, secs = run_windows(engine, micro, 4)
+    losses, secs, _ = run_windows(engine, micro, 4)
     launches = read_launches()
     check_launches("LoRA fine-tune", launches, engine.micro_steps)
     log(f"  losses {losses}")
@@ -1531,6 +1758,37 @@ def decode_rate(st):
     return (st["tokens"] - st["requests"]) / (st["decode_ms_sum"] / 1e3)
 
 
+def count_kernels(prof):
+    """Kernel launches in a torch.profiler window (device kernels; the
+    host-to-device copies and memsets are not counted)."""
+    from torch.autograd import DeviceType
+
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0
+               and not e.key.startswith(("Memcpy", "Memset")))
+
+
+def decode_step_kernels(engine, prompts, names, steps=4):
+    """Kernel launches one decode step makes: every request admitted and
+    prefilled by a first scheduler step, then torch.profiler over
+    ``steps`` steps that only decode; the requests then run out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for p, n in zip(prompts, names):
+        engine.submit(p, max_new_tokens=steps + 4, adapter=n)
+    engine.scheduler.step()
+    torch.cuda.synchronize()
+    if len(engine.scheduler.active_slots) != len(prompts):
+        fail("decode_step_kernels: not every request was admitted")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            engine.scheduler.step()
+        torch.cuda.synchronize()
+    engine.scheduler.run_until_idle()
+    return count_kernels(prof) / steps
+
+
 def phase_adapters(seed, card):
     from deepspeed_tpu_torch.adapters import split_lora_params
 
@@ -1591,6 +1849,19 @@ def phase_adapters(seed, card):
         fail("the synthetic adapters did not change any request's tokens")
     log(f"  base requests {base_idx} equal the adapter-free engine's")
 
+    log("phase 6: kernel launches per decode step, with and without "
+        "adapters")
+    step_kernels = {}
+    for tag, ads, req_names in (("adapters", adapters, names),
+                                ("no_adapters", None, [None] * 8)):
+        eng = adapter_engine(model, base, "bf16", True, ads)
+        step_kernels[tag] = decode_step_kernels(eng, prompts, req_names)
+        eng.close()
+    lora_kernels = step_kernels["adapters"] - step_kernels["no_adapters"]
+    log(f"  kernel launches per decode step: {step_kernels['adapters']} "
+        f"with adapters, {step_kernels['no_adapters']} without: "
+        f"{lora_kernels} for LoRA (SGMV with its epilogue: 48 of them)")
+
     log("phase 6: mixed batch vs solo runs (prefix cache off)")
     eng = adapter_engine(model, base, "bf16", True, adapters,
                          prefix_cache=False)
@@ -1646,6 +1917,9 @@ def phase_adapters(seed, card):
         "no_adapters_ttft_ms_mean": plain_st["ttft_ms_mean"],
         "no_adapters_decode_tokens_per_s": decode_rate(plain_st),
         "sgmv_launches_per_decode_step": serve_launches["sgmv"] / steps,
+        "kernel_launches_per_decode_step": step_kernels["adapters"],
+        "no_adapters_kernel_launches_per_decode_step":
+            step_kernels["no_adapters"],
         "profile_sgmv_device_ms": sgmv_ms,
         "profile_sgmv_us_per_launch": sgmv_ms * 1e3
         / max(1, prof["calls_by_own_kernel"]["sgmv_kernel"]),
@@ -1664,12 +1938,246 @@ def phase_adapters(seed, card):
              "adapters_serve": serve_launches}, stats)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: head dims other than 64 and 128
+# ---------------------------------------------------------------------------
+HD_FLASH = (32, 48, 96)       # 768 over 24, 16 and 8 heads
+HD_DECODE = (16, 32, 48, 80, 96, 112)
+HD32_LAYERS = 2               # the head-dim-32 GPT-2, cut in depth
+
+
+def hd32_config(**kw):
+    """GPT-2 small's widths (768, seq 1024, vocab 50257) over 24 heads:
+    head dim 32; depth cut to HD32_LAYERS."""
+    from deepspeed_tpu_torch import GPT2Config
+
+    return GPT2Config.small(n_head=24, n_layer=HD32_LAYERS, **kw)
+
+
+def check_flash_head_dims(device, gen, timer):
+    """The flash forward and backward at d = 32, 48 and 96 (zero-padded to
+    the kernels' 64 or 128) against their plain versions at GPT-2 small's
+    width (768 = H x d), B=4, S=1024, causal, with and without a padding
+    mask and dropout, float32 and bfloat16; then the bf16 times (dropout
+    0.1) beside the bound of the UNPADDED function. Returns {d: entry}."""
+    from deepspeed_tpu_torch.ops import attention as A
+
+    mask = train_mask(device)[:4]
+    out = {}
+    for d in HD_FLASH:
+        h = 768 // d
+        base = [torch.randn(4, h, 1024, d, device=device, generator=gen)
+                for _ in range(4)]
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, dout = (t.to(dtype) for t in base)
+            for kv_mask, rate in ((None, 0.0), (mask, DROPOUT)):
+                tag = (f"d={d} {str(dtype)[6:]} "
+                       f"{'mask+dropout' if rate else 'causal'}")
+                args = (q, k, v, kv_mask, True, None, rate, 77)
+                o, lse = A.flash_fwd(*args)
+                torch.cuda.synchronize()
+                ref, ref_lse = A.flash_fwd_plain(*args)
+                if o.shape != q.shape:
+                    fail(f"flash_fwd {tag}: output {tuple(o.shape)}")
+                e = check_close(f"flash_fwd {tag}", o, ref, dtype)
+                delta = (dout.float() * ref.float()).sum(dim=-1)
+                bargs = (q, k, v, kv_mask, dout, ref_lse, delta, True, None,
+                         rate, 77)
+                got = (A.flash_bwd_dq(*bargs), *A.flash_bwd_dkv(*bargs))
+                torch.cuda.synchronize()
+                want = (A.flash_bwd_dq_plain(*bargs),
+                        *A.flash_bwd_dkv_plain(*bargs))
+                for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                    e = max(e, check_close(f"flash_bwd {name} {tag}", g, w,
+                                           dtype, scaled=True))
+                errs[dtype] = max(errs.get(dtype, 0.0), e)
+                del o, lse, ref, ref_lse, got, want
+        q, k, v, dout = (t.to(torch.bfloat16) for t in base)
+        o, lse = A.flash_fwd(q, k, v, None, True, None, DROPOUT, 7)
+        delta = (dout.float() * o.float()).sum(dim=-1)
+        entry = dict(shape=f"B=4 H={h} S=1024 D={d} causal dropout 0.1 bf16",
+                     max_abs_err=errs[torch.bfloat16],
+                     max_abs_err_f32=errs[torch.float32])
+        for name, fn, args, which in (
+            ("flash_fwd", A.flash_fwd, (q, k, v, None, True, None, DROPOUT,
+                                        7), "fwd"),
+            ("flash_bwd_dq", A.flash_bwd_dq, (q, k, v, None, dout, lse, delta,
+                                              True, None, DROPOUT, 7), "dq"),
+            ("flash_bwd_dkv", A.flash_bwd_dkv, (q, k, v, None, dout, lse,
+                                                delta, True, None, DROPOUT,
+                                                7), "dkv"),
+        ):
+            nbytes, flops = flash_work(q, None, True, which)
+            b_ms, b_by = bound(nbytes, flops, torch.bfloat16)
+            call = lambda: fn(*args)
+            entry[name] = dict(ms=timer.ms(call),
+                               device_ms=timer.ms(call, spin=True),
+                               bound_ms=b_ms, bound_by=b_by)
+        log(f"  flash d={d}: {json.dumps(entry)}")
+        out[d] = entry
+        del base, q, k, v, dout, o, lse, delta
+    return out
+
+
+def check_decode_head_dims(device, gen, timer):
+    """Paged decode at hd 16, 32, 48, 80, 96 and 112 against its plain
+    version at the bench shape's layout (8 slots x 12 heads, 16-token
+    pages, 64 pages a slot, a dead slot, a NULL page mid-table), float32
+    and bfloat16, 10 calls bitwise equal; then its bf16 times. Returns
+    {hd: entry}."""
+    from deepspeed_tpu_torch.ops.decode_attention import (
+        paged_flash_decode,
+        paged_flash_decode_plain,
+    )
+
+    slots, heads, bs, mb = 8, 12, 16, 64
+    positions = torch.tensor([15, 100, 1023, 0, 500, 257, 31, 700],
+                             dtype=torch.int32, device=device)
+    out = {}
+    for hd in HD_DECODE:
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            pages = slots * mb + 1
+            q = torch.randn(slots, heads, hd, device=device,
+                            generator=gen).to(dtype)
+            kp, vp = (torch.randn(pages, bs, heads, hd, device=device,
+                                  generator=gen).to(dtype) for _ in range(2))
+            perm = torch.randperm(pages - 1, device=device, generator=gen) + 1
+            tables = perm.reshape(slots, mb).to(torch.int32)
+            tables[3] = 0
+            tables[5, 3] = 0
+            tables = tables.contiguous()
+            o = paged_flash_decode(q, kp, vp, tables, positions)
+            torch.cuda.synchronize()
+            tag = f"paged_decode hd={hd} {str(dtype)[6:]}"
+            errs[dtype] = check_close(
+                tag, o, paged_flash_decode_plain(q, kp, vp, tables,
+                                                 positions), dtype)
+            if not bool((o[3] == 0).all()):
+                fail(f"{tag}: the dead slot is not exact zeros")
+            for _ in range(10):
+                if not torch.equal(
+                        paged_flash_decode(q, kp, vp, tables, positions), o):
+                    fail(f"{tag}: two calls on the same inputs differ")
+        fn = lambda: paged_flash_decode(q, kp, vp, tables, positions)
+        nbytes, flops = decode_work(q, tables, positions, bs)
+        b_ms, b_by = bound(nbytes, flops, torch.bfloat16)
+        out[hd] = dict(
+            shape=f"8 slots x 12 heads x hd {hd}, 16-token pages, bf16",
+            max_abs_err=errs[torch.bfloat16],
+            max_abs_err_f32=errs[torch.float32], ms=timer.ms(fn),
+            device_ms=timer.ms(fn, spin=True), bound_ms=b_ms, bound_by=b_by)
+        log(f"  paged_decode hd={hd}: {json.dumps(out[hd])}")
+    return out
+
+
+def phase_head_dims(seed, card):
+    """Phase 7: the kernels at head dims other than 64 and 128, then a
+    GPT-2 of 768 over 24 heads (head dim 32, HD32_LAYERS layers) through
+    one training micro-step (the flash forward and backward launched
+    once a layer; float32 gradients through the kernels equal to those
+    through the plain versions) and serving (a cold prefill of 300 tokens
+    through the flash forward, fused decode steps through paged decode;
+    float32 fused == unfused). Returns (launches by path, stats)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import GPT2LMHeadModel
+
+    device = torch.device("cuda")
+    gen = torch.Generator(device=device).manual_seed(seed + 4)
+    timer = Timer(device)
+    log("phase 7: flash forward and backward at d = 32, 48, 96 vs plain")
+    flash = check_flash_head_dims(device, gen, timer)
+    log("phase 7: paged decode at hd = 16, 32, 48, 80, 96, 112 vs plain")
+    decode = check_decode_head_dims(device, gen, timer)
+
+    log(f"phase 7: GPT-2 768 / 24 heads (hd 32, {HD32_LAYERS} layers), one "
+        "training micro-step, bf16, dropout 0.1")
+    cfg = hd32_config(dropout=DROPOUT)
+    model = GPT2LMHeadModel(cfg, device="cuda", seed=seed)
+    config = dict(train_config("Adam", 1e-4, BF16), train_batch_size=8,
+                  gradient_accumulation_steps=1)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model,
+                                                     config_params=config)
+    ids = train_batches(seed, cfg.vocab_size)[0][0]
+    zero_launches()
+    loss = float(engine.train_batch(iter([(ids, ids)])))
+    torch.cuda.synchronize()
+    train_launches = read_launches()
+    want = {n: HD32_LAYERS for n in TRAIN_KERNELS}
+    got = {n: train_launches[n] for n in TRAIN_KERNELS}
+    log(f"  loss {loss}, launches {train_launches}")
+    if not math.isfinite(loss) or got != want or engine.global_steps != 1:
+        fail(f"hd 32 training: loss {loss}, launches {got} (want {want}), "
+             f"{engine.global_steps} steps")
+    del engine
+    _, grad_err = grads_kernels_vs_plain(seed, hd32_config(dropout=0.0))
+
+    log("phase 7: the same model served, bf16, fused decode")
+    model = GPT2LMHeadModel(hd32_config(), device="cuda", seed=seed)
+    g = torch.Generator().manual_seed(seed + 5)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in (300, 40)]
+    zero_launches()
+    out_bf16, st = serve(model, "bf16", True, prompts[:1], prompts[1])
+    torch.cuda.synchronize()
+    serve_launches = read_launches()
+    log(f"  launches {serve_launches} stats {json.dumps(st)}")
+    if (serve_launches["flash_fwd"] < HD32_LAYERS
+            or serve_launches["paged_decode"]
+            != HD32_LAYERS * st["decode_steps"] or st["decode_steps"] < 1):
+        fail(f"hd 32 serving: launches {serve_launches} for "
+             f"{st['decode_steps']} decode steps")
+    if not all(len(o) == 32 and all(0 <= t < cfg.vocab_size for t in o)
+               for o in out_bf16):
+        fail("hd 32 serving: wrong token counts or tokens outside the vocab")
+    out_f, _ = serve(model, "fp32", True, prompts[:1], prompts[1])
+    out_u, _ = serve(model, "fp32", False, prompts[:1], prompts[1])
+    if out_f != out_u:
+        fail("hd 32 serving: float32 fused and unfused greedy tokens differ")
+    ref = model(torch.tensor([prompts[0]], device="cuda"))
+    if out_f[0][0] != int(ref[0, -1, :cfg.vocab_size].argmax()):
+        fail("hd 32 serving: the first token is not the full forward's "
+             "argmax")
+    log("  float32 fused == unfused; first token == full-forward argmax")
+    return ({"hd32_train": train_launches, "hd32_serve": serve_launches},
+            {"flash": flash, "paged_decode": decode, "hd32_loss": loss,
+             "hd32_f32_grad_max_rel_err": grad_err,
+             "hd32_decode_steps": st["decode_steps"],
+             "hd32_cold_prefills": st["cold_prefills"]})
+
+
+def only_kernels(device, seed):
+    """``--only-kernels``: LAMB phase 1 (rows 4-5) and SGMV (row 7) built
+    alone and timed as phases 3b and 3c time them, through the public
+    wrappers only, so that a copy of this script at the root of another
+    checkout times that checkout's kernels the same way."""
+    from deepspeed_tpu_torch.ops import kernel_lib
+
+    built = kernel_lib.build(["lamb_phase1", "sgmv"])
+    for name, report in built.items():
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    timer = Timer(device)
+    lamb = time_lamb(device, timer, lamb_operands(device, gen, seed))
+    sgmv = time_sgmv(device, gen, timer, batches=(8,))
+    host = sgmv_host_costs(device, gen)
+    log(f"  sgmv host time per call: {json.dumps(host)}")
+    return {"lamb_phase1": lamb, "sgmv": sgmv, "sgmv_host": host}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--only-decode", action="store_true",
                         help="build and check paged decode alone and print "
                         "its timings (to time another checkout the same "
+                        "way)")
+    parser.add_argument("--only-kernels", action="store_true",
+                        help="build LAMB phase 1 and SGMV alone and print "
+                        "their timings (to time another checkout the same "
                         "way)")
     args = parser.parse_args()
 
@@ -1699,6 +2207,12 @@ def main():
         print(json.dumps({"paged_decode": entry, "card": smi}))
         return
 
+    if args.only_kernels:
+        print(json.dumps({"only_kernels": only_kernels(device, args.seed),
+                          "checkout": str(Path(__file__).resolve().parent),
+                          "card": smi}))
+        return
+
     # phase 2: build
     t0 = time.monotonic()
     built = kernel_lib.build()
@@ -1718,8 +2232,9 @@ def main():
     serve_launches, slice_stats = phase_slice(args.seed, smi)
     launches, train_stats = phase_train(args.seed, smi)
     adapter_launches, adapter_stats = phase_adapters(args.seed, smi)
+    hd_launches, hd_stats = phase_head_dims(args.seed, smi)
     for path, counts in [("serve", serve_launches),
-                         *adapter_launches.items()]:
+                         *adapter_launches.items(), *hd_launches.items()]:
         for name, n in counts.items():
             launches[name][path] = n
     for name, by_path in launches.items():
@@ -1739,8 +2254,12 @@ def main():
     kernels["sgmv"]["decode_step_ms"] = (
         adapter_stats["profile_sgmv_ms_per_decode_step"]
     )
+    kernels["flash_fwd"]["head_dims"] = hd_stats["flash"]
+    kernels["paged_decode"]["head_dims"] = hd_stats["paged_decode"]
     log(json.dumps({"slice": slice_stats, "train": train_stats,
-                    "adapters": adapter_stats, "card": smi}))
+                    "adapters": adapter_stats, "card": smi,
+                    "head_dims": {k: v for k, v in hd_stats.items()
+                                  if k not in ("flash", "paged_decode")}}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -39,9 +39,11 @@
 // a step into the warp's ring in shared memory with 16-byte cp.async
 // (zero-filled past the position), and the ring keeps 16 KB of K and V
 // in flight per warp (4 steps of bfloat16 at hd 64): the copies of the
-// next steps run while a step is scored. A row is split over 8-32 lanes
-// and each lane reads back only the chunks it copied, so the warp needs
-// no barrier. A step takes one max and one sum reduction over the warp
+// next steps run while a step is scored. A row is split over 2-32 lanes
+// (its 16-byte chunks, rounded up to a power of two: at hd 48, 80, 96
+// and 112 the last lanes of a row are pad lanes that copy nothing and
+// hold zeros), a warp step covers up to 16 rows, and each lane reads
+// back only the chunks it copied, so the warp needs no barrier. A step takes one max and one sum reduction over the warp
 // (one softmax step a page for pages of 16 tokens), p is rounded to the
 // pool's type before the value product, and each lane keeps a partial
 // value sum for its slice of hd, reduced over the warp once at the end.
@@ -135,17 +137,31 @@ __device__ __forceinline__ void cp_async_wait() {
 // the step shape of a (T, HD) instantiation
 template <typename T, int HD>
 struct Step {
+  static_assert(HD % 16 == 0 && HD >= 16 && HD <= 128,
+                "head dims: the multiples of 16 up to 128");
   static constexpr int kE = 16 / sizeof(T);  // elements of a 16-byte chunk
-  static constexpr int kRC = HD / kE;        // chunks of a row: 8, 16 or 32
-  // tokens a step takes, and chunks a lane copies of each of K and V
-  static constexpr int kG = 256 / kRC < 16 ? 256 / kRC : 16;
-  static constexpr int kNC = kG * kRC / 32;
-  // ring stages: 16 KB of K and V per warp (4 steps, or 2 at kNC = 8)
+  static constexpr int kRC = HD / kE;        // chunks of a row: 2 .. 32
+  // lanes a row takes: kRC rounded up to a power of two, so that the
+  // lanes of a row are an aligned group for the xor shuffles; lanes past
+  // kRC in the group copy nothing and hold zeros (hd 48, 80, 96, 112)
+  static constexpr int kRL = kRC <= 2    ? 2
+                             : kRC <= 4  ? 4
+                             : kRC <= 8  ? 8
+                             : kRC <= 16 ? 16
+                                         : 32;
+  // tokens a step takes (rows of a warp step: up to 16 when a row takes
+  // fewer than 16 lanes), and chunks a lane copies of each of K and V
+  static constexpr int kG = 256 / kRL < 16 ? 256 / kRL : 16;
+  static constexpr int kNC = kG * kRL / 32;
+  // ring stages: 16 KB of K and V per warp (kStages * kNC = 16 chunks)
   static constexpr int kStages = 16 / kNC;
   static constexpr int kRingBytes = kWarps * kStages * 2 * kNC * 32 * 16;
+  static_assert(kRC <= kRL && 32 % kRL == 0, "a row's lanes fit a warp");
+  static_assert(kNC >= 1 && kStages * kNC == 16, "the ring's 16 chunks");
+  static_assert(kG * kRL == kNC * 32, "a step's tokens fill the warp");
 };
 
-// HD: head dim (64 or 128)
+// HD: head dim (a multiple of 16 up to 128)
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
@@ -161,7 +177,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   constexpr int kG = S::kG;
   constexpr int kNC = S::kNC;
   constexpr int kStages = S::kStages;
-  constexpr int kTokStride = 32 / kRC;  // a lane's tokens lie this far apart
+  constexpr int kRL = S::kRL;
+  constexpr int kTokStride = 32 / kRL;  // a lane's tokens lie this far apart
   extern __shared__ uint4 ring[];  // [kWarps][kStages][K, V][kNC][32 lanes]
   __shared__ float sm_m[kWarps];
   __shared__ float sm_l[kWarps];
@@ -174,8 +191,9 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   const int splits = gridDim.z;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int part = lane % kRC;      // the lane's chunk of a row
-  const int tok_lane = lane / kRC;  // its first token in a step
+  const int part = lane % kRL;      // the lane's chunk of a row
+  const int tok_lane = lane / kRL;  // its first token in a step
+  const bool active = part < kRC;   // past kRC: a pad lane (zeros)
   const size_t tok_stride = (size_t)heads * HD;
   const int* table = block_tables + (size_t)b * max_blocks;
   const int p0 = split * pages_per_split;
@@ -188,8 +206,9 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   const int pos = positions[b];
 
   float qv[kE];
-  unpack(__ldg(reinterpret_cast<const uint4*>(
-             q + ((size_t)b * heads + h) * HD + part * kE)),
+  unpack(active ? __ldg(reinterpret_cast<const uint4*>(
+                      q + ((size_t)b * heads + h) * HD + part * kE))
+                : make_uint4(0u, 0u, 0u, 0u),
          qv);
 
   const int n_pages = pos >= 0 ? min(max_blocks, pos / block_size + 1) : 0;
@@ -228,7 +247,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 #pragma unroll
       for (int c = 0; c < kNC; ++c) {
         const int t = tok_lane + c * kTokStride;
-        const bool ok = t < ntok;
+        const bool ok = active && t < ntok;
         const size_t at = ok ? off + t * tok_stride : 0;
         cp_async16(smem_addr(chunk(st, 0, c)), k_pool + at, ok);
         cp_async16(smem_addr(chunk(st, 1, c)), v_pool + at, ok);
@@ -250,7 +269,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   // the step in ring stage st: scores, one softmax step, the value sum
   auto consume = [&](int st, int ntok) {
     // scores: each lane's slice of a token's dot product, summed over the
-    // kRC lanes that share the token
+    // kRL lanes that share the token (a pad lane adds 0)
     float s[kNC];
 #pragma unroll
     for (int c = 0; c < kNC; ++c) {
@@ -261,7 +280,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 #pragma unroll
       for (int e = 0; e < kE; ++e) d = fmaf(qv[e], kf[e], d);
 #pragma unroll
-      for (int o = 1; o < kRC; o <<= 1) {
+      for (int o = 1; o < kRL; o <<= 1) {
         d += __shfl_xor_sync(0xffffffffu, d, o);
       }
       s[c] = tok_lane + c * kTokStride < ntok ? d * sm_scale : kNegInf;
@@ -271,7 +290,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 #pragma unroll
     for (int c = 1; c < kNC; ++c) mx = fmaxf(mx, s[c]);
 #pragma unroll
-    for (int o = kRC; o < 32; o <<= 1) {
+    for (int o = kRL; o < 32; o <<= 1) {
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
     }
     const float m_new = fmaxf(m, mx);
@@ -285,7 +304,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
       pu[c] = round_to<T>(p);
     }
 #pragma unroll
-    for (int o = kRC; o < 32; o <<= 1) {
+    for (int o = kRL; o < 32; o <<= 1) {
       psum += __shfl_xor_sync(0xffffffffu, psum, o);
     }
     l = l * alpha + psum;
@@ -325,7 +344,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 
   // the warp's value sum: add the lanes that share a slice of hd
 #pragma unroll
-  for (int o = kRC; o < 32; o <<= 1) {
+  for (int o = kRL; o < 32; o <<= 1) {
 #pragma unroll
     for (int e = 0; e < kE; ++e) {
       acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
@@ -415,7 +434,8 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. hd must be 64 or 128 (the wrapper checks).
+// dtype: 0 float32, 1 bfloat16. hd: a multiple of 16 up to 128 (the
+// wrapper checks; PAGED_DECODE_HEAD_DIMS in ops/decode_attention.py).
 // splits >= 1 blocks per (slot, head); with more than one, ws holds
 // B * heads * splits * (hd + 2) floats and counters B * heads int32 zeros
 // (left zero again by every launch).
@@ -435,10 +455,20 @@ extern "C" int ds_paged_decode(const void* q, const void* k_pool,
   return launch<T, HD>(q, k_pool, v_pool, block_tables, positions, out, ws, \
                        counters, B, heads, block_size, max_blocks, splits,  \
                        sm_scale, s)
-  if (dtype == 0 && hd == 64) DS_PAGED_DECODE(float, 64);
-  if (dtype == 0 && hd == 128) DS_PAGED_DECODE(float, 128);
-  if (dtype == 1 && hd == 64) DS_PAGED_DECODE(__nv_bfloat16, 64);
-  if (dtype == 1 && hd == 128) DS_PAGED_DECODE(__nv_bfloat16, 128);
+#define DS_PAGED_DECODE_HD(HD)                                  \
+  if (hd == HD) {                                               \
+    if (dtype == 0) DS_PAGED_DECODE(float, HD);                 \
+    if (dtype == 1) DS_PAGED_DECODE(__nv_bfloat16, HD);         \
+  }
+  DS_PAGED_DECODE_HD(16)
+  DS_PAGED_DECODE_HD(32)
+  DS_PAGED_DECODE_HD(48)
+  DS_PAGED_DECODE_HD(64)
+  DS_PAGED_DECODE_HD(80)
+  DS_PAGED_DECODE_HD(96)
+  DS_PAGED_DECODE_HD(112)
+  DS_PAGED_DECODE_HD(128)
+#undef DS_PAGED_DECODE_HD
 #undef DS_PAGED_DECODE
   return static_cast<int>(cudaErrorInvalidValue);
 }

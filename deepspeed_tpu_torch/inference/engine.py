@@ -48,6 +48,7 @@ from ..adapters.lora import adapter_layer_stacks, split_lora_params
 from ..adapters.pool import AdapterPool, AdapterUnavailable
 from ..models.gpt2 import GPT2LMHeadModel
 from ..ops.decode_attention import SGMV_MAX_RANK
+from ..ops.head_dims import check_head_dim, model_head_dim
 from ..ops.transformer import lora_scaling, resolve_lora_targets
 from ..telemetry.manager import (
     register_adapter_metrics,
@@ -116,6 +117,9 @@ class InferenceEngine:
                 "the contiguous KV cache (inference.kv_block_size: 0); set "
                 "kv_block_size > 0 for the paged cache"
             )
+        # what the card's kernels cannot take is refused here, not mid-step
+        check_head_dim(model_head_dim(mcfg), mcfg.n_positions, device,
+                       fused_decode=bool(cfg.inference_fused_decode))
         self.device = resolve_device(device)
 
         # ---- geometry -------------------------------------------------

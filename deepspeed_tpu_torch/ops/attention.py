@@ -24,6 +24,13 @@ Entry points:
   - ``attention``: dispatcher between the two (padding masks and
     ``FLASH_MIN_SEQ``, as in the JAX package).
 
+Head dims: the kernels are compiled at D = 64 and 128. On CUDA tensors
+the wrappers run any ``d <= 128`` at the next of the two
+(:func:`pad_head_dim`): q, k, v and dO are zero-padded along D and the
+outputs sliced back, which is exact, but at ``d = 32`` the kernels move
+twice the bytes the function needs. ``d > 128`` raises; the engines
+refuse such a model when they are built (ops/head_dims.py).
+
 Dropout: the TPU kernels seed the chip's generator per tile, so their
 masks depend on the tiling and cannot be reproduced. The port's keep bit
 is a hash of (seed, batch*head, query index, key index)
@@ -32,6 +39,7 @@ version and ``mha_reference`` draw the same mask from the same seed.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -41,6 +49,11 @@ NEG_INF = -1e30
 # Inherited from the JAX package, which measured it on a TPU v5e (BERT-large
 # seq 128 trained ~9% faster through XLA); not measured on the card.
 FLASH_MIN_SEQ = 256
+
+# The head dims the flash kernels are compiled at, and the largest the
+# wrappers take on CUDA tensors (zero-padded to the next compiled width).
+FLASH_HEAD_DIMS = (64, 128)
+FLASH_MAX_HEAD_DIM = FLASH_HEAD_DIMS[-1]
 
 _M32 = 0xFFFFFFFF
 
@@ -286,6 +299,46 @@ def _check_rows(name, q, dout, lse, delta):
             )
 
 
+def kernel_head_dim(d):
+    """The compiled width the flash kernels run head dim ``d`` at: the
+    smallest of ``FLASH_HEAD_DIMS`` that holds it. Raises above 128."""
+    for width in FLASH_HEAD_DIMS:
+        if d <= width:
+            return width
+    raise ValueError(
+        f"flash attention on CUDA takes head_dim <= {FLASH_MAX_HEAD_DIM} "
+        f"(zero-padded to one of {FLASH_HEAD_DIMS}), got {d}"
+    )
+
+
+def pad_head_dim(fn, q, k, v, *rest, sm_scale, **kw):
+    """Run flash function ``fn`` at the kernels' width: q, k, v and every
+    tensor of ``rest`` shaped like q (dO) zero-padded along D to
+    :func:`kernel_head_dim`, ``sm_scale`` (the caller's ``1/sqrt(d)``)
+    passed explicitly, and every [B, H, S, width] output sliced back to
+    ``d`` columns. Exact: the zero columns add exact zeros to q k^T and
+    to every product that writes a padded column, and lse and delta do
+    not change. The cost is bytes: at ``d = 32`` the kernels read and
+    write twice what the function needs (letting TMA zero-fill past ``d``
+    inside the kernels would remove it)."""
+    d = q.shape[-1]
+    width = kernel_head_dim(d)
+    if width == d:
+        return fn(q, k, v, *rest, sm_scale=sm_scale, **kw)
+    pad = (0, width - d)
+    shape = q.shape
+    rest = [torch.nn.functional.pad(t, pad)
+            if isinstance(t, torch.Tensor) and t.shape == shape else t
+            for t in rest]
+    out = fn(*(torch.nn.functional.pad(t, pad) for t in (q, k, v)), *rest,
+             sm_scale=sm_scale, **kw)
+
+    def cut(t):
+        return t[..., :d] if t.ndim == 4 else t
+
+    return tuple(map(cut, out)) if isinstance(out, tuple) else cut(out)
+
+
 def _dropout_args(rate, seed):
     """The kernels' dropout arguments: on/off, threshold, keep, seed."""
     if rate <= 0.0:
@@ -313,8 +366,9 @@ def _launch(device, fn, *args):
 
 def _flash_fwd_cuda(q, k, v, kv_mask, causal, sm_scale, dropout_rate=0.0,
                     dropout_seed=0):
-    """Launch csrc/flash_fwd.cu on CUDA tensors. Raises on anything the
-    kernel does not take; never runs the plain version."""
+    """Launch csrc/flash_fwd.cu on CUDA tensors at a compiled head dim
+    (64 or 128; :func:`pad_head_dim` brings the others there). Raises on
+    anything the kernel does not take; never runs the plain version."""
     from . import kernel_lib
 
     b, h, sq, sk, d, mask_ptr = _check_cuda("flash_fwd", q, k, v, kv_mask)
@@ -347,8 +401,9 @@ def flash_fwd(q, k, v, kv_mask=None, causal=False, sm_scale=None,
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, kv_mask, causal, sm_scale,
                                dropout_rate, dropout_seed)
-    return _flash_fwd_cuda(q, k, v, kv_mask, causal, float(sm_scale),
-                           dropout_rate, dropout_seed)
+    return pad_head_dim(_flash_fwd_cuda, q, k, v, kv_mask, causal,
+                        sm_scale=float(sm_scale), dropout_rate=dropout_rate,
+                        dropout_seed=dropout_seed)
 
 
 def _flash_bwd_cuda(which, q, k, v, kv_mask, dout, lse, delta, causal,
@@ -377,6 +432,10 @@ def _flash_bwd_cuda(which, q, k, v, kv_mask, dout, lse, delta, causal,
     return outs
 
 
+_flash_bwd_dq_cuda = functools.partial(_flash_bwd_cuda, "dq")
+_flash_bwd_dkv_cuda = functools.partial(_flash_bwd_cuda, "dkv")
+
+
 def flash_bwd_dq(q, k, v, kv_mask, dout, lse, delta, causal=False,
                  sm_scale=None, dropout_rate=0.0, dropout_seed=0):
     """dQ of flash attention (replaces the Pallas ``_bwd_dq_kernel``)
@@ -388,8 +447,9 @@ def flash_bwd_dq(q, k, v, kv_mask, dout, lse, delta, causal=False,
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, kv_mask, dout, lse, delta, causal,
                                   sm_scale, dropout_rate, dropout_seed)
-    (dq,) = _flash_bwd_cuda("dq", q, k, v, kv_mask, dout, lse, delta, causal,
-                            float(sm_scale), dropout_rate, dropout_seed)
+    (dq,) = pad_head_dim(_flash_bwd_dq_cuda, q, k, v, kv_mask, dout, lse,
+                         delta, causal, sm_scale=float(sm_scale),
+                         dropout_rate=dropout_rate, dropout_seed=dropout_seed)
     flash_bwd_dq.launches += 1
     return dq
 
@@ -404,9 +464,9 @@ def flash_bwd_dkv(q, k, v, kv_mask, dout, lse, delta, causal=False,
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, kv_mask, dout, lse, delta, causal,
                                    sm_scale, dropout_rate, dropout_seed)
-    dk, dv = _flash_bwd_cuda("dkv", q, k, v, kv_mask, dout, lse, delta,
-                             causal, float(sm_scale), dropout_rate,
-                             dropout_seed)
+    dk, dv = pad_head_dim(_flash_bwd_dkv_cuda, q, k, v, kv_mask, dout, lse,
+                          delta, causal, sm_scale=float(sm_scale),
+                          dropout_rate=dropout_rate, dropout_seed=dropout_seed)
     flash_bwd_dkv.launches += 1
     return dk, dv
 

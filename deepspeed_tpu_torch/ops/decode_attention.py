@@ -20,9 +20,12 @@ written this step's k/v into the pool.
 ``_sgmv_kernel``, Punica's SGMV shape): each slot's LoRA delta
 ``x @ A[id] @ B[id]`` read straight from the adapter pool by the slot's
 id, with no gathered ``[B, in, r]`` / ``[B, r, out]`` weight stacks. Here
-it is csrc/sgmv.cu: one thread block per (slot, tile of 1024 output
+it is csrc/sgmv.cu: one thread block per (slot, tile of 256 output
 columns), which reads its slot's id itself; id 0 (the identity row)
-writes exact zeros without reading the pool.
+writes exact zeros without reading the pool. :func:`lora_sgmv_add` is the
+same kernel with the LoRA add in its epilogue (``y + (scale *
+delta).to(y.dtype)``, bit for bit), the one launch of ``apply_lora``'s
+fused decode path.
 """
 
 import ctypes
@@ -64,6 +67,10 @@ def paged_flash_decode_plain(q, k_pool, v_pool, block_tables, positions,
     )
     return (acc / l).to(v_pool.dtype)
 
+
+#: The head dims csrc/paged_decode.cu is instantiated at: the multiples of
+#: 16 up to 128 (a row is whole 16-byte chunks in float32 and bfloat16).
+PAGED_DECODE_HEAD_DIMS = tuple(range(16, 129, 16))
 
 #: Blocks of csrc/paged_decode.cu that one SM holds at once (its 64 KB
 #: cp.async ring each, in the 227 KB of shared memory). The grid aims at
@@ -174,8 +181,9 @@ def _paged_decode_cuda(q, k_pool, v_pool, block_tables, positions,
     if len(shape) != 3:
         raise ValueError("q must be [B, heads, hd]")
     b, heads, hd = shape
-    if hd != 64 and hd != 128:
-        raise ValueError(f"paged_decode takes head_dim 64 or 128, got {hd}")
+    if hd not in PAGED_DECODE_HEAD_DIMS:
+        raise ValueError(
+            f"paged_decode takes head_dim {PAGED_DECODE_HEAD_DIMS}, got {hd}")
     if b > 65535:
         raise ValueError(f"paged_decode takes B <= 65535, got {b}")
     q_ptr = q.data_ptr()
@@ -246,11 +254,11 @@ def paged_flash_decode(q, k_pool, v_pool, block_tables, positions,
 paged_flash_decode.launches = 0
 
 
-#: The largest LoRA rank csrc/sgmv.cu takes: its t vector ([rank] float32)
-#: sits in the 48 KB of dynamic shared memory a launch gets without an
-#: opt-in, the kernel's own refusal (``launch`` in sgmv.cu).
-#: ``init_inference`` refuses a larger rank under ``fused_decode`` instead
-#: of falling back to the gathered path.
+#: The largest LoRA rank csrc/sgmv.cu takes: its t vector ([rank] float32,
+#: at most 48 KB) sits in shared memory beside 8 KB of scratch, which the
+#: kernel opts into (``kMaxSmem`` in sgmv.cu). ``init_inference`` refuses
+#: a larger rank under ``fused_decode`` instead of falling back to the
+#: gathered path.
 SGMV_MAX_RANK = 48 * 1024 // 4
 
 
@@ -267,56 +275,127 @@ def lora_sgmv_plain(x, a_pool, b_pool, ids):
     return torch.einsum("br,bro->bo", t, b_pool[rows].float())
 
 
-def _sgmv_cuda(x, a_pool, b_pool, ids):
-    """Launch csrc/sgmv.cu on CUDA tensors. Raises on anything the kernel
-    does not take; never runs the plain version."""
-    tensors = (x, a_pool, b_pool, ids)
-    if not all(t.is_cuda for t in tensors):
+def lora_sgmv_add_plain(x, a_pool, b_pool, ids, y, scale):
+    """The SGMV kernel's epilogue form in plain PyTorch: ``y + (scale *
+    delta).to(y.dtype)`` with ``delta`` :func:`lora_sgmv_plain`'s, shaped
+    as ``y``. ``x`` [B, in] or [B, 1, in]; ``y`` [B, out] or [B, 1,
+    out]."""
+    delta = lora_sgmv_plain(x.reshape(x.shape[0], -1), a_pool, b_pool, ids)
+    return y + (scale * delta.reshape(y.shape)).to(y.dtype)
+
+
+_checked_lora_pools = {}  # pool key -> (rows, din, rank, dout, dtype, index)
+
+
+def _check_lora_pools(a_pool, b_pool):
+    """Validate the adapter pools once per (storage, shape, stride, dtype,
+    device) — the engine allocates them once and writes rows in place — and
+    return ``(rows, in, rank, out, dtype, device index)`` for the per-call
+    match with x, ids and y."""
+    key = (a_pool.data_ptr(), b_pool.data_ptr(), a_pool.shape, b_pool.shape,
+           a_pool.stride(), b_pool.stride(), a_pool.dtype, b_pool.dtype,
+           a_pool.get_device(), b_pool.get_device())
+    info = _checked_lora_pools.get(key)
+    if info is not None:
+        return info
+    if not (a_pool.is_cuda and b_pool.is_cuda):
         raise RuntimeError(
-            "sgmv's CUDA kernel needs CUDA tensors, got "
-            + "/".join(str(t.device) for t in tensors)
+            "sgmv's CUDA kernel needs CUDA tensors, got pools on "
+            f"{a_pool.device}/{b_pool.device}"
         )
-    if len({t.device for t in tensors}) != 1:
+    if a_pool.device != b_pool.device:
         raise ValueError("sgmv's operands must lie on one device")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"sgmv takes float32 or bfloat16, got {x.dtype}")
-    if not (a_pool.dtype == b_pool.dtype == x.dtype):
+    if a_pool.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"sgmv takes float32 or bfloat16, got {a_pool.dtype}")
+    if a_pool.dtype != b_pool.dtype:
         raise TypeError("x and the A/B pools must share a dtype")
-    if ids.dtype != torch.int32:
-        raise TypeError("sgmv's ids must be int32")
-    if x.ndim != 2 or a_pool.ndim != 3 or b_pool.ndim != 3 or ids.ndim != 1:
+    if a_pool.ndim != 3 or b_pool.ndim != 3:
         raise ValueError(
-            "sgmv takes x [B, in], a_pool [n+1, in, r], b_pool [n+1, r, "
-            "out] and ids [B]"
+            "sgmv takes a_pool [n+1, in, r] and b_pool [n+1, r, out], got "
+            f"shapes {tuple(a_pool.shape)}/{tuple(b_pool.shape)}"
         )
-    b, din = x.shape
-    rows, _, rank = a_pool.shape
-    dout = b_pool.shape[2]
-    if tuple(a_pool.shape) != (rows, din, rank) or (
-        tuple(b_pool.shape[:2]) != (rows, rank)
-    ) or ids.shape[0] != b:
+    rows, din, rank = a_pool.shape
+    if tuple(b_pool.shape[:2]) != (rows, rank):
         raise ValueError(
-            f"sgmv shapes do not match: x {tuple(x.shape)}, a_pool "
-            f"{tuple(a_pool.shape)}, b_pool {tuple(b_pool.shape)}, ids "
-            f"{tuple(ids.shape)}"
+            f"sgmv pool shapes do not match: a_pool {tuple(a_pool.shape)}, "
+            f"b_pool {tuple(b_pool.shape)}"
         )
     if not 1 <= rank <= SGMV_MAX_RANK:
         raise ValueError(
             f"sgmv takes ranks 1..{SGMV_MAX_RANK} (SGMV_MAX_RANK), got {rank}"
         )
-    if b > 65535:
-        raise ValueError(f"sgmv takes B <= 65535, got {b}")
-    for name, t in zip(("x", "a_pool", "b_pool", "ids"), tensors):
+    for name, t in (("a_pool", a_pool), ("b_pool", b_pool)):
         if not t.is_contiguous():
             raise ValueError(f"sgmv needs a contiguous {name}")
+    info = (rows, din, rank, b_pool.shape[2], a_pool.dtype,
+            a_pool.get_device())
+    if len(_checked_lora_pools) >= 64:
+        _checked_lora_pools.clear()
+    _checked_lora_pools[key] = info
+    return info
+
+
+def _sgmv_cuda(x, a_pool, b_pool, ids, y=None, scale=1.0):
+    """Launch csrc/sgmv.cu on CUDA tensors: the float32 delta, or with
+    ``y`` the epilogue form ``y + (scale * delta).to(y.dtype)``. Raises on
+    anything the kernel does not take; never runs the plain version. The
+    pools are checked once (:func:`_check_lora_pools`); x, ids and y on
+    every call."""
+    if not (x.is_cuda and ids.is_cuda):
+        raise RuntimeError(
+            f"sgmv's CUDA kernel needs CUDA tensors, got x on {x.device}, "
+            f"ids on {ids.device}"
+        )
+    rows, din, rank, dout, dtype, index = _check_lora_pools(a_pool, b_pool)
+    shape = x.shape
+    b = shape[0]
+    if x.dtype != dtype:
+        raise TypeError("x and the A/B pools must share a dtype")
+    if ids.dtype != torch.int32:
+        raise TypeError("sgmv's ids must be int32")
+    if (len(shape) not in (2, 3) or shape[-1] != din
+            or (len(shape) == 3 and shape[1] != 1) or ids.shape != (b,)):
+        raise ValueError(
+            f"sgmv shapes do not match: x {tuple(shape)} (want [B, {din}] or "
+            f"[B, 1, {din}]), a_pool {tuple(a_pool.shape)}, b_pool "
+            f"{tuple(b_pool.shape)}, ids {tuple(ids.shape)}"
+        )
+    if b > 65535:
+        raise ValueError(f"sgmv takes B <= 65535, got {b}")
+    if x.get_device() != index or ids.get_device() != index:
+        raise ValueError("sgmv's operands must lie on one device")
+    if not (x.is_contiguous() and ids.is_contiguous()):
+        raise ValueError("sgmv needs a contiguous x and ids")
     lib = kernel_lib.load("sgmv")
-    out = torch.empty((b, dout), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.ds_sgmv(
-            x.data_ptr(), a_pool.data_ptr(), b_pool.data_ptr(),
-            ids.data_ptr(), out.data_ptr(), b, rows, din, rank, dout,
-            kernel_lib.dtype_code(x.dtype), stream,
+    code = kernel_lib.dtype_code(dtype)
+    if y is None:
+        out = torch.empty((b, dout), dtype=torch.float32, device=x.device)
+        err = _launch(
+            x.device, lib.ds_sgmv, x.data_ptr(), a_pool.data_ptr(),
+            b_pool.data_ptr(), ids.data_ptr(), out.data_ptr(), b, rows, din,
+            rank, dout, code, _stream(x.device),
+        )
+    else:
+        y_shape = y.shape
+        if y.dtype != dtype:
+            raise TypeError("sgmv_add: y must share the pools' dtype")
+        if (y_shape[0] != b or y_shape[-1] != dout
+                or len(y_shape) != len(shape)
+                or (len(y_shape) == 3 and y_shape[1] != 1)):
+            raise ValueError(
+                f"sgmv_add: y {tuple(y_shape)} does not match x "
+                f"{tuple(shape)} and out={dout}"
+            )
+        if y.get_device() != index:
+            raise ValueError("sgmv's operands must lie on one device")
+        if not y.is_contiguous():
+            raise ValueError("sgmv_add needs a contiguous y")
+        out = torch.empty_like(y)
+        err = _launch(
+            x.device, lib.ds_sgmv_add, x.data_ptr(), a_pool.data_ptr(),
+            b_pool.data_ptr(), ids.data_ptr(), y.data_ptr(), out.data_ptr(),
+            ctypes.c_float(scale), b, rows, din, rank, dout, code,
+            _stream(x.device),
         )
     kernel_lib.check(err, "sgmv")
     lora_sgmv.launches += 1
@@ -329,12 +408,27 @@ def lora_sgmv(x, a_pool, b_pool, ids):
     ``a_pool`` [n+1, in, r] / ``b_pool`` [n+1, r, out] (row 0 the
     all-zeros identity), ``ids`` [B] int32. Returns the UNSCALED delta
     ``x @ A[id] @ B[id]`` [B, out] in float32; the caller applies the
-    (alpha / r) scale and adds it to the base projection. CPU tensors run
+    (alpha / r) scale and adds it to the base projection (or calls
+    :func:`lora_sgmv_add`, which does both in the kernel). CPU tensors run
     :func:`lora_sgmv_plain`; CUDA tensors launch the kernel."""
     if x.device.type == "cpu":
         return lora_sgmv_plain(x, a_pool, b_pool, ids)
     return _sgmv_cuda(x, a_pool, b_pool, ids)
 
 
-# launches of the CUDA kernel (the plain version is not counted)
+def lora_sgmv_add(x, a_pool, b_pool, ids, y, scale):
+    """``y + (scale * lora_sgmv(x, ...)).to(y.dtype)`` in one launch: the
+    SGMV kernel with its epilogue, bit for bit what the three PyTorch ops
+    after :func:`lora_sgmv` compute. ``x`` [B, in] or [B, 1, in]; ``y``
+    [B, out] or [B, 1, out] (the base projection, contiguous, in the
+    pools' dtype). Returns a new tensor shaped as ``y``. Counts on
+    ``lora_sgmv.launches``. CPU tensors run :func:`lora_sgmv_add_plain`;
+    CUDA tensors launch the kernel."""
+    if x.device.type == "cpu":
+        return lora_sgmv_add_plain(x, a_pool, b_pool, ids, y, scale)
+    return _sgmv_cuda(x, a_pool, b_pool, ids, y, float(scale))
+
+
+# launches of the CUDA kernel, both forms (the plain versions are not
+# counted)
 lora_sgmv.launches = 0

@@ -22,9 +22,14 @@ parameters and the moments IN PLACE (the JAX functions return new
 arrays) and write ``u`` into caller-provided scratch tensors.
 
 ``lamb_phase1`` is the kernel's wrapper: on CUDA tensors it launches the
-kernel (or raises), on CPU tensors it runs ``lamb_phase1_plain``.
+kernel (or raises), on CPU tensors it runs ``lamb_phase1_plain``. The
+kernel's descriptor table and block map, and phase 2's segment map, are
+built once per set of tensor pointers and lengths and kept on the device,
+so a step whose tensors have not moved copies nothing to the GPU
+(``lamb_phase1.table_builds`` counts the builds).
 """
 
+import collections
 import ctypes
 import dataclasses
 
@@ -111,37 +116,90 @@ def _check_lists(ps, gs, ms, vs, us):
             raise ValueError("lamb_phase1: p, g, m, v and u differ in size")
 
 
+# the device tables, least recently used first: (device, grad size,
+# pointers and lengths) -> descriptor table and block map, and (device,
+# blocks, groups) -> phase 2's block -> group map
+_tables = collections.OrderedDict()
+_segments = collections.OrderedDict()
+_CACHED_TABLES = 64
+
+
+def _cached(cache, key):
+    hit = cache.get(key)
+    if hit is not None:
+        cache.move_to_end(key)
+    return hit
+
+
+def _keep(cache, key, value):
+    cache[key] = value
+    if len(cache) > _CACHED_TABLES:
+        cache.popitem(last=False)
+
+
+def _device_table(ps, gs, ms, vs, us, device):
+    """``(table, block_map, nblocks)`` on ``device`` for these tensors:
+    the kernel's 64-byte descriptors (p, g, m, v, u, n, first block, a
+    vector flag) and an int32 block -> tensor map. Built and uploaded once
+    per set of pointers and lengths and kept, so a step whose tensors have
+    not moved copies nothing to the device; every build counts on
+    ``lamb_phase1.table_builds``."""
+    gsize = gs[0].element_size()
+    key = (device.index, gsize, tuple(
+        (p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
+         u.data_ptr(), p.numel())
+        for p, g, m, v, u in zip(ps, gs, ms, vs, us)))
+    hit = _cached(_tables, key)
+    if hit is not None:
+        return hit
+    table = np.zeros((len(ps), 8), dtype=np.int64)
+    blocks = np.empty(len(ps), dtype=np.int64)
+    first = 0
+    for i, (*ptrs, n) in enumerate(key[2]):
+        # 16-byte vectors of 4 elements: p/m/v/u 16-byte aligned, g
+        # 4 * its element size, n a multiple of 4; else the scalar path
+        vec = (n % 4 == 0 and ptrs[1] % (4 * gsize) == 0
+               and all(ptr % 16 == 0 for ptr in ptrs[:1] + ptrs[2:]))
+        table[i] = (*ptrs, n, first, int(vec))
+        blocks[i] = _nblocks(n)
+        first += int(blocks[i])
+    if first >= 2**31:
+        raise ValueError(f"lamb_phase1: {first} blocks exceed the grid")
+    block_map = np.repeat(np.arange(len(ps), dtype=np.int32), blocks)
+    hit = (_upload(table, device), _upload(block_map, device), first)
+    _keep(_tables, key, hit)
+    lamb_phase1.table_builds += 1
+    return hit
+
+
 def _lamb_phase1_cuda(ps, gs, ms, vs, us, c1, c2, grad_scale, *, b1, b2,
                       eps, weight_decay, eps_inside_sqrt):
-    """Launch csrc/lamb_phase1.cu over the tensors, through a device
-    table of descriptors. Raises on what the kernel does not take."""
+    """Launch csrc/lamb_phase1.cu over the tensors, through the cached
+    device table (:func:`_device_table`). Raises on what the kernel does
+    not take."""
     from . import kernel_lib
+    from .attention import _launch, _stream
 
     _check_lists(ps, gs, ms, vs, us)
     device = ps[0].device
-    table = np.zeros((len(ps), 8), dtype=np.int64)
-    first = 0
-    for i, (p, g, m, v, u) in enumerate(zip(ps, gs, ms, vs, us)):
-        table[i, :7] = (p.data_ptr(), g.data_ptr(), m.data_ptr(),
-                        v.data_ptr(), u.data_ptr(), p.numel(), first)
-        first += _nblocks(p.numel())
-    if first >= 2**31:
-        raise ValueError(f"lamb_phase1: {first} blocks exceed the grid")
-    table_d = _upload(table, device)
-    wsq = torch.empty(first, dtype=torch.float32, device=device)
-    usq = torch.empty(first, dtype=torch.float32, device=device)
+    table_d, map_d, nblocks = _device_table(ps, gs, ms, vs, us, device)
+    wsq = torch.empty(nblocks, dtype=torch.float32, device=device)
+    usq = torch.empty(nblocks, dtype=torch.float32, device=device)
     lib = kernel_lib.load("lamb_phase1")
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.ds_lamb_phase1(
-            table_d.data_ptr(), len(ps), first, wsq.data_ptr(),
-            usq.data_ptr(), kernel_lib.dtype_code(gs[0].dtype),
-            ctypes.c_float(c1), ctypes.c_float(c2),
-            ctypes.c_float(grad_scale), ctypes.c_float(b1),
-            ctypes.c_float(1.0 - b1), ctypes.c_float(b2),
-            ctypes.c_float(1.0 - b2), ctypes.c_float(eps),
-            ctypes.c_float(weight_decay), int(bool(eps_inside_sqrt)), stream,
-        )
+    err = _launch(
+        device, lib.ds_lamb_phase1,
+        table_d.data_ptr(), map_d.data_ptr(), nblocks, wsq.data_ptr(),
+        usq.data_ptr(), kernel_lib.dtype_code(gs[0].dtype),
+        # 1/c1 and 1/c2 in float32: PyTorch's CUDA ops divide by a scalar
+        # through its reciprocal, and the kernel repeats their roundings
+        ctypes.c_float(np.float32(1.0) / np.float32(c1)),
+        ctypes.c_float(np.float32(1.0) / np.float32(c2)),
+        ctypes.c_float(grad_scale),
+        ctypes.c_float(b1), ctypes.c_float(1.0 - b1), ctypes.c_float(b2),
+        ctypes.c_float(1.0 - b2), ctypes.c_float(eps),
+        ctypes.c_float(weight_decay), int(bool(eps_inside_sqrt)),
+        _stream(device),
+    )
     kernel_lib.check(err, "lamb_phase1")
     lamb_phase1.launches += 1
     return wsq, usq
@@ -163,8 +221,24 @@ def lamb_phase1(ps, gs, ms, vs, us, c1, c2, grad_scale=None, *, b1, b2, eps,
     return _lamb_phase1_cuda(ps, gs, ms, vs, us, c1, c2, grad_scale, **kw)
 
 
-# launches of the CUDA kernel (the plain version is not counted)
+# launches of the CUDA kernel (the plain version is not counted), and
+# builds of the device tables (the descriptor table with its block map, and
+# phase 2's segment map), each an upload to a GPU: none on a step whose
+# tensors have not moved
 lamb_phase1.launches = 0
+lamb_phase1.table_builds = 0
+
+
+def _segment_map(blocks, groups, device):
+    """Phase 2's block -> group map on ``device``, uploaded once per
+    layout (counted on ``lamb_phase1.table_builds``)."""
+    key = (device, tuple(blocks), tuple(groups))
+    seg = _cached(_segments, key)
+    if seg is None:
+        seg = _upload(np.repeat(groups, blocks), device)
+        _keep(_segments, key, seg)
+        lamb_phase1.table_builds += 1
+    return seg
 
 
 def lamb_multi_tensor_update(ps, gs, ms, vs, us, c1, c2, lr, grad_scale=None,
@@ -182,7 +256,7 @@ def lamb_multi_tensor_update(ps, gs, ms, vs, us, c1, c2, lr, grad_scale=None,
     # phase 2: per-group sums of the block partials
     blocks = [_nblocks(t.numel()) for t in flat[0]]
     groups = [gi for gi, grp in enumerate(ps) for _ in grp]
-    seg = _upload(np.repeat(groups, blocks), wsq.device)
+    seg = _segment_map(blocks, groups, wsq.device)
     zeros = torch.zeros(len(ps), dtype=torch.float32, device=wsq.device)
     w_norm = torch.sqrt(zeros.index_add(0, seg, wsq))
     u_norm = torch.sqrt(zeros.index_add(0, seg, usq))

@@ -58,10 +58,10 @@ SIGNATURES = {
                              _I, _I, _I, _I, _F, *_DROPOUT, _P],
     },
     "lamb_phase1": {
-        # table, ntensors, nblocks, wsq, usq, grad dtype, c1, c2,
+        # table, block_map, nblocks, wsq, usq, grad dtype, 1/c1, 1/c2,
         # grad_scale, b1, 1-b1, b2, 1-b2, eps, weight_decay,
         # eps_inside_sqrt, stream
-        "ds_lamb_phase1": [_P, _I, _I, _P, _P, _I, _F, _F, _F, _F, _F, _F,
+        "ds_lamb_phase1": [_P, _P, _I, _P, _P, _I, _F, _F, _F, _F, _F, _F,
                            _F, _F, _F, _I, _P],
     },
     "paged_decode": {
@@ -75,6 +75,10 @@ SIGNATURES = {
         # x, a_pool, b_pool, ids, out, B, rows, in, rank, out_dim, dtype,
         # stream
         "ds_sgmv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # x, a_pool, b_pool, ids, y, y_out, scale, B, rows, in, rank,
+        # out_dim, dtype, stream
+        "ds_sgmv_add": [_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I,
+                        _P],
     },
 }
 

@@ -36,7 +36,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .attention import NEG_INF, attention
-from .decode_attention import lora_sgmv, paged_flash_decode
+from .decode_attention import lora_sgmv_add, paged_flash_decode
 
 
 class DropoutRNG:
@@ -163,10 +163,11 @@ def apply_lora(cfg, p, lora, name, x, y):
       B [n_adapters+1, r, out]) for this layer, ``ids`` [B] int32 picks
       each slot's row (row 0 = the all-zeros identity). With ``fused``,
       decode-shaped calls (``x.shape[1] == 1``) go through the SGMV
-      kernel (:func:`~deepspeed_tpu_torch.ops.decode_attention.lora_sgmv`,
-      a float32 delta) and add ``(scale * delta).to(y.dtype)``; every
-      other call gathers each slot's rows and runs both products in the
-      input dtype, as the JAX package's XLA path does.
+      kernel with its epilogue
+      (:func:`~deepspeed_tpu_torch.ops.decode_attention.lora_sgmv_add`:
+      ``y + (scale * delta).to(y.dtype)`` with the float32 delta, in one
+      launch); every other call gathers each slot's rows and runs both
+      products in the input dtype, as the JAX package's XLA path does.
     - per-layer ``{name}_lora_a`` / ``{name}_lora_b`` parameters of ``p``
       (the fine-tune path, ``cfg.lora_rank > 0``): one shared adapter,
       differentiated with the rest of ``p``.
@@ -179,8 +180,7 @@ def apply_lora(cfg, p, lora, name, x, y):
             return y
         a, b = ab
         if fused and x.shape[1] == 1:
-            delta = lora_sgmv(x[:, 0, :].contiguous(), a, b, ids)
-            return y + (scale * delta[:, None, :]).to(y.dtype)
+            return lora_sgmv_add(x, a, b, ids, y, scale)
         rows = ids.long()
         t = torch.einsum("bsi,bir->bsr", x, a[rows])
         return y + (scale * torch.einsum("bsr,bro->bso", t, b[rows])).to(

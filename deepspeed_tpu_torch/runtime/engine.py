@@ -57,6 +57,7 @@ from ..adapters import lora as lora_lib
 from ..config import constants as C
 from ..config.config import DeepSpeedConfig, DeepSpeedConfigError, not_ported
 from ..config.config_utils import load_config_json
+from ..ops.head_dims import check_head_dim, model_head_dim
 from ..ops.optimizers import Optimizer, build_optimizer, param_groups
 from ..utils.device import resolve_device
 from ..utils.logging import log_dist
@@ -143,13 +144,16 @@ class DeepSpeedEngine:
             raise not_ported("sparse_gradients")
         if training_data is not None:
             raise not_ported("training_data (the dataloader)")
+        # what the card's kernels cannot take is refused here, not mid-step
+        mcfg = getattr(model, "config", None)
+        check_head_dim(model_head_dim(mcfg),
+                       getattr(mcfg, "n_positions", 0), device)
         self.device = resolve_device(device)
 
         # ---- model ----------------------------------------------------
         if not isinstance(model, torch.nn.Module):
             raise TypeError("model must be a torch.nn.Module whose forward "
                             "returns the scalar loss")
-        mcfg = getattr(model, "config", None)
         for field, off in (("remat", False), ("moe_experts", 0),
                            ("pipeline_stages", 1)):
             if getattr(mcfg, field, off) != off:
@@ -223,6 +227,9 @@ class DeepSpeedEngine:
         # ---- state ----------------------------------------------------
         self._rng = torch.Generator().manual_seed(int(rng_seed))
         self._grad_buffer = None
+        # the accumulation buffer kept across windows when the gradients
+        # are cast into it (compute dtype != accumulation dtype)
+        self._grad_store = None
         self._pending = None  # (loss, compute-dtype params) of a forward
         self.micro_steps = 0
         self.global_steps = 0
@@ -438,15 +445,25 @@ class DeepSpeedEngine:
         scale = self.loss_scale_state.loss_scale
         (loss.float() * scale / self.gradient_accumulation_steps()).backward()
         grads = {
-            n: (t.grad if t.grad is not None else torch.zeros_like(t)).to(
-                self.grad_accum_dtype)
+            n: t.grad if t.grad is not None else torch.zeros_like(t)
             for n, t in params.items() if n in self.params
         }
-        if self._grad_buffer is None:
-            self._grad_buffer = grads
-        else:
+        if self._grad_buffer is not None:
             for n, g in grads.items():
                 self._grad_buffer[n].add_(g)
+        elif self._grad_store is not None:
+            # a window's first micro-step casts into the buffer kept from
+            # the last window: its storage never moves, so FusedLamb's
+            # cached device table of pointers stays valid
+            for n, g in grads.items():
+                self._grad_store[n].copy_(g)
+            self._grad_buffer = self._grad_store
+        else:
+            self._grad_buffer = {
+                n: g.to(self.grad_accum_dtype) for n, g in grads.items()}
+            if any(g.dtype != self.grad_accum_dtype for g in grads.values()):
+                # the cast copied: keep the buffer for the next windows
+                self._grad_store = self._grad_buffer
         self.micro_steps += 1
 
     def zero_grad(self):

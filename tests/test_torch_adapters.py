@@ -317,6 +317,77 @@ def test_sgmv_wrapper_never_runs_plain_for_a_non_cpu_tensor():
                                                        ids)))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("leading", [(), (1,)])
+def test_sgmv_add_plain_is_the_unfused_ops_bit_for_bit(dtype, leading):
+    """The epilogue form on CPU tensors (its plain version) is bit for bit
+    ``y + (scale * lora_sgmv_plain(...)).to(y.dtype)``, shaped as y, for
+    x/y [B, in]/[B, out] and [B, 1, in]/[B, 1, out]; the identity row
+    leaves y unchanged, and nothing is counted as a launch."""
+    x, a_pool, b_pool, ids = _sgmv_case(5, 32, 16, 96, 3, [3, 0, 1, 3, 2])
+    x, a_pool, b_pool = (torch.from_numpy(v).to(dtype)
+                         for v in (x, a_pool, b_pool))
+    ids = torch.from_numpy(ids)
+    y = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(5, 96)).astype(np.float32)).to(dtype)
+    scale = 0.75
+    xs = x.reshape(5, *leading, 32)
+    ys = y.reshape(5, *leading, 96)
+    before = tda.lora_sgmv.launches
+    got = tda.lora_sgmv_add(xs, a_pool, b_pool, ids, ys, scale)
+    assert tda.lora_sgmv.launches == before
+    want = ys + (scale * tda.lora_sgmv_plain(x, a_pool, b_pool, ids)
+                 .reshape(ys.shape)).to(dtype)
+    assert got.dtype == dtype and got.shape == ys.shape
+    assert torch.equal(got, want)
+    assert torch.equal(got.reshape(5, 96)[1], y[1])  # id 0
+    assert not torch.equal(got, ys)
+
+
+def test_engine_fused_decode_takes_the_sgmv_epilogue_and_matches_jax(
+        models, monkeypatch):
+    """apply_lora's fused decode branch is one call of lora_sgmv_add a
+    target (the kernel with its epilogue on the card): a batch mixing two
+    adapters and the base model (id 0) gives the JAX engine's greedy
+    tokens."""
+    _, jmodel, params, model = models
+    ada, adb = _synth_adapter(params, 3), _synth_adapter(params, 4)
+    calls = []
+    real = tops.lora_sgmv_add
+
+    def counted(*args):
+        calls.append(args[3].tolist())
+        return real(*args)
+
+    monkeypatch.setattr(tops, "lora_sgmv_add", counted)
+    ej = deepspeed_tpu.init_inference(
+        model=jmodel, model_parameters=params,
+        config={"inference": dict(_BLOCK, fused_decode=True),
+                "adapters": {"enabled": True, "rank": RANK,
+                             "pool_slots": 4}},
+    )
+    et = _port_engine(model, inference={"fused_decode": True})
+    try:
+        for e, conv in ((ej, lambda t: t), (et, adapters_from_jax)):
+            e.load_adapter("a", adapter_state=conv(ada))
+            e.load_adapter("b", adapter_state=conv(adb))
+        outs = []
+        for e in (ej, et):
+            reqs = [e.submit(_prompt(8, 21), max_new_tokens=6, adapter="b"),
+                    e.submit(_prompt(6, 22), max_new_tokens=6),
+                    e.submit(_prompt(7, 23), max_new_tokens=6, adapter="a")]
+            e.scheduler.run_until_idle()
+            outs.append([r.tokens for r in reqs])
+        assert outs[1] == outs[0]
+    finally:
+        ej.close()
+        et.close()
+    # 4 targets x 2 layers a decode step, and a batch held ids 0 and both
+    # adapters' rows
+    assert calls and len(calls) % 8 == 0
+    assert any(0 in ids and len(set(ids) - {0}) == 2 for ids in calls)
+
+
 # ---------------------------------------------------------------------------
 # apply_lora
 # ---------------------------------------------------------------------------

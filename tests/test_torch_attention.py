@@ -341,3 +341,115 @@ def test_attention_routes_dropout_to_the_flash_path():
     np.testing.assert_array_equal(
         no_seed.numpy(), tattn.flash_attention(q, k, v, causal=True).numpy()
     )
+
+
+# ---------------------------------------------------------------------------
+# head dims the kernels are not compiled at: zero-padded to 64 or 128
+# ---------------------------------------------------------------------------
+PAD_TOL = dict(atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("d", [8, 32, 48, 96])
+@pytest.mark.parametrize("causal,masked,rate", [
+    (True, False, 0.0), (False, True, 0.0), (True, True, 0.2),
+])
+def test_pad_head_dim_around_plain_equals_unpadded(d, causal, masked, rate):
+    """``pad_head_dim`` (what the CUDA wrappers run the kernels through at
+    d < 64 and 64 < d < 128) around the plain forward, dQ and dK/dV equals
+    the unpadded plain functions: out, lse and the three gradients, with
+    the caller's sm_scale = 1/sqrt(d). float32, 1e-6 (the padded columns
+    add exact zeros; only the summation's blocking may differ)."""
+    b, h, s = 2, 2, 96
+    q, k, v = (torch.from_numpy(x) for x in _qkv(20 + d, b, h, s, s, d))
+    dout = torch.from_numpy(np.random.default_rng(d).normal(
+        size=(b, h, s, d)).astype(np.float32))
+    kv_mask = None
+    if masked:
+        kv_mask = torch.from_numpy(
+            (np.arange(s)[None, :] < np.array([[s], [40]])).astype(np.int32))
+    scale = 1.0 / np.sqrt(d)
+    drop = dict(dropout_rate=rate, dropout_seed=3)
+    out, lse = tattn.pad_head_dim(tattn.flash_fwd_plain, q, k, v, kv_mask,
+                                  causal, sm_scale=scale, **drop)
+    want_out, want_lse = tattn.flash_fwd_plain(q, k, v, kv_mask, causal,
+                                               scale, **drop)
+    assert out.shape == (b, h, s, d) and lse.shape == (b, h, s)
+    np.testing.assert_allclose(out.numpy(), want_out.numpy(), **PAD_TOL)
+    np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), **PAD_TOL)
+    delta = (dout * want_out).sum(dim=-1)
+    bargs = (kv_mask, dout, want_lse, delta, causal)
+    dq = tattn.pad_head_dim(tattn.flash_bwd_dq_plain, q, k, v, *bargs,
+                            sm_scale=scale, **drop)
+    dk, dv = tattn.pad_head_dim(tattn.flash_bwd_dkv_plain, q, k, v, *bargs,
+                                sm_scale=scale, **drop)
+    want = (tattn.flash_bwd_dq_plain(q, k, v, *bargs, scale, **drop),
+            *tattn.flash_bwd_dkv_plain(q, k, v, *bargs, scale, **drop))
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.shape == (b, h, s, d)
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), **PAD_TOL)
+
+
+def test_kernel_head_dim_widths():
+    assert [tattn.kernel_head_dim(d) for d in (8, 32, 64, 80, 128)] == [
+        64, 64, 64, 128, 128]
+    with pytest.raises(ValueError, match="head_dim"):
+        tattn.kernel_head_dim(160)
+
+
+@pytest.mark.parametrize("causal,with_mask", [(True, False), (False, True)])
+def test_head_dim_32_matches_jax_kernel(causal, with_mask):
+    """A GPT-2 with 768 over 24 heads has head dim 32. The JAX flash kernel
+    (interpret mode) and reference against the port: its flash_attention
+    on CPU tensors, and the padded path the CUDA wrappers take
+    (``pad_head_dim`` around the plain forward). float32, 1e-5."""
+    b, h, s, d = 2, 2, 256, 32
+    q, k, v = _qkv(30, b, h, s, s, d)
+    mask = _padding_mask(b, s, [200, 150]) if with_mask else None
+    jmask = None if mask is None else jnp.asarray(mask)
+    o_jax = np.asarray(jattn.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), mask=jmask,
+        causal=causal))
+    o_ref = np.asarray(jattn.mha_reference(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), mask=jmask,
+        causal=causal))
+    args = [torch.from_numpy(x) for x in (q, k, v)]
+    tmask = None if mask is None else torch.from_numpy(mask)
+    o_port = tattn.flash_attention(*args, mask=tmask, causal=causal).numpy()
+    o_pad, _ = tattn.pad_head_dim(
+        tattn.flash_fwd_plain, *args, tattn.additive_mask_to_kv_valid(tmask),
+        causal, sm_scale=1.0 / np.sqrt(d))
+    for got in (o_port, o_pad.numpy()):
+        np.testing.assert_allclose(got, o_jax, **TOL)
+        np.testing.assert_allclose(got, o_ref, **TOL)
+
+
+def test_initialize_refuses_a_head_dim_the_flash_kernels_cannot_take():
+    """On a CUDA device, initialize() refuses a model whose head dim is
+    above 128 once its n_positions reaches FLASH_MIN_SEQ, when the engine
+    is built (no GPU needed: the decision comes before the device). Head
+    dim 32 is accepted, and CPU engines take any head dim."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
+    from deepspeed_tpu_torch.config import DeepSpeedConfigError
+    from deepspeed_tpu_torch.ops.head_dims import check_head_dim
+
+    cfg = {"train_batch_size": 2, "train_micro_batch_size_per_gpu": 2,
+           "optimizer": {"type": "Adam", "params": {"lr": 1e-3}}}
+
+    def model(n_embd, n_head, n_positions=256):
+        return GPT2LMHeadModel(GPT2Config(
+            vocab_size=64, n_positions=n_positions, n_embd=n_embd,
+            n_layer=1, n_head=n_head), device="cpu")
+
+    with pytest.raises(DeepSpeedConfigError, match="head dim 160"):
+        deepspeed_tpu_torch.initialize(model=model(320, 2), config_params=cfg,
+                                       device="cuda")
+    with pytest.raises(DeepSpeedConfigError, match="up to 128"):
+        check_head_dim(160, 256, "cuda")
+    check_head_dim(160, 255, "cuda")  # attention never reaches the kernels
+    check_head_dim(32, 1024, "cuda")
+    check_head_dim(32, 1024, None)
+    check_head_dim(160, 1024, "cpu")
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model(320, 2), config_params=cfg, device="cpu")
+    assert engine.device.type == "cpu"

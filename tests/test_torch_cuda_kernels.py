@@ -12,10 +12,15 @@ one bf16 ulp, 2**-7 relative, at any magnitude), float16 atol = rtol =
 2e-3 (the same for float16, whose ulp is 2**-10 relative). The backward kernels'
 gradients take atol = tol * max|plain| (their scale is ~1e-2, where an
 absolute 1e-2 would pass anything); LAMB's moments, update and block
-partials rtol 1e-5 (the same float32 roundings, sums in another order).
-SGMV: float32 1e-4; bfloat16 atol = 1e-2 x each row's largest magnitude
-(t is rounded to bfloat16 before the second product, and another
-summation order can move it by one bf16 ulp); identity rows exactly 0.
+partials rtol 1e-5 (the same float32 roundings, sums in another order),
+and on ragged or misaligned tensors m, v and u bit for bit and the
+partials 1e-6. SGMV: float32 1e-4; bfloat16 atol = 1e-2 x each row's
+largest magnitude (t is rounded to bfloat16 before the second product,
+and another summation order can move it by one bf16 ulp); identity rows
+exactly 0; the epilogue form TOL of its dtype against its plain version
+and bit for bit against PyTorch's scale, cast and add on the kernel's
+own delta. Head dims the kernels are not compiled at (d = 32, 48, 96;
+hd 16-112) take the same tolerances as 64 and 128.
 """
 
 import pytest
@@ -35,6 +40,8 @@ from deepspeed_tpu_torch.ops.decode_attention import (
     SGMV_MAX_RANK,
     decode_splits,
     lora_sgmv,
+    lora_sgmv_add,
+    lora_sgmv_add_plain,
     lora_sgmv_plain,
     paged_flash_decode,
     paged_flash_decode_plain,
@@ -115,7 +122,9 @@ def test_flash_fwd_kernel_matches_plain(cuda, dtype, d, sq, sk, causal,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd,bs", [(64, 16), (128, 8), (64, 5)])
+@pytest.mark.parametrize("hd,bs", [(64, 16), (128, 8), (64, 5), (16, 16),
+                                   (32, 16), (48, 16), (80, 16), (96, 8),
+                                   (112, 16)])
 def test_paged_decode_kernel_matches_plain(cuda, dtype, hd, bs):
     g = torch.Generator(device=cuda).manual_seed(1)
     slots, heads, mb = 6, 4, 12
@@ -190,7 +199,8 @@ def _decode_split_case(cuda, dtype, hd, bs, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd,bs", [(64, 16), (128, 16), (64, 5), (64, 32)])
+@pytest.mark.parametrize("hd,bs", [(64, 16), (128, 16), (64, 5), (64, 32),
+                                   (32, 16), (48, 5)])
 @pytest.mark.parametrize("case", ["boundaries", "long", "holes", "unsplit"])
 def test_paged_decode_splits_match_plain(cuda, dtype, hd, bs, case):
     """The context split across blocks and merged in the same launch (or
@@ -229,9 +239,15 @@ def test_paged_decode_is_bitwise_repeatable(cuda, dtype):
 
 @pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
-    q = torch.randn(1, 2, 256, 96, device=cuda)
+    q = torch.randn(1, 2, 256, 160, device=cuda)  # above 128: no width
     with pytest.raises(ValueError, match="head_dim"):
         flash_fwd(q, q, q)
+    with pytest.raises(ValueError, match="head_dim"):
+        qd, pool = (torch.randn(2, 4, 40, device=cuda),
+                    torch.randn(5, 8, 4, 40, device=cuda))
+        paged_flash_decode(
+            qd, pool, pool, torch.zeros(2, 3, dtype=torch.int32, device=cuda),
+            torch.zeros(2, dtype=torch.int32, device=cuda))
     with pytest.raises(TypeError):
         flash_fwd(q.double()[..., :64], q.double()[..., :64],
                   q.double()[..., :64])
@@ -304,6 +320,43 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, d, sq, sk, causal,
         if masked:
             assert bool((got[1] == 0).all())
     assert bool((dq[lse <= -1e29] == 0).all())  # rows that see no key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [32, 48, 96])
+@pytest.mark.parametrize("sq,sk,causal,masked,rate", [
+    (1024, 1024, True, False, 0.1),
+    (200, 333, True, True, 0.2),
+    (256, 256, False, True, 0.0),
+])
+def test_flash_kernels_take_padded_head_dims(cuda, dtype, d, sq, sk, causal,
+                                             masked, rate):
+    """Head dims the kernels are not compiled at run zero-padded to 64 or
+    128 (pad_head_dim): one launch each, d columns out, and the plain
+    versions' forward and gradients at d."""
+    q, k, v, dout, kv_mask = _attention_case(cuda, dtype, d, sq, sk, masked,
+                                             12)
+    before = (flash_fwd.launches, flash_bwd_dq.launches,
+              flash_bwd_dkv.launches)
+    out, lse = flash_fwd(q, k, v, kv_mask, causal, None, rate, 9)
+    ref, ref_lse = flash_fwd_plain(q, k, v, kv_mask, causal, None, rate, 9)
+    delta = (dout.float() * ref.float()).sum(dim=-1)
+    args = (q, k, v, kv_mask, dout, ref_lse, delta, causal, None, rate, 9)
+    dq = flash_bwd_dq(*args)
+    dk, dv = flash_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    assert (flash_fwd.launches, flash_bwd_dq.launches,
+            flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    assert out.shape == q.shape and dq.shape == q.shape
+    assert dk.shape == k.shape and dv.shape == v.shape
+    _close(out, ref, dtype)
+    rows = ref_lse > -1e29
+    _close(lse[rows], ref_lse[rows], torch.float32)
+    want = (flash_bwd_dq_plain(*args), *flash_bwd_dkv_plain(*args))
+    for got, want_g in zip((dq, dk, dv), want):
+        _close(got, want_g, dtype, scaled=True)
 
 
 @pytest.mark.cuda
@@ -436,7 +489,8 @@ def test_reduced_precision_training_runs_through_the_kernels(cuda, block):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("din,dout,rank", [
     (768, 2304, 16), (768, 768, 16), (768, 3072, 16), (3072, 768, 16),
-    (40, 1100, 1), (130, 70, 33),
+    (40, 1100, 1), (130, 70, 33), (768, 3072, 8), (768, 768, 64),
+    (768, 768, SGMV_MAX_RANK),
 ])
 def test_sgmv_kernel_matches_plain(cuda, dtype, din, dout, rank):
     g = torch.Generator(device=cuda).manual_seed(2)
@@ -482,10 +536,150 @@ def test_sgmv_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(TypeError, match="share a dtype"):
         lora_sgmv(x, a.bfloat16(), b, ids)
     with pytest.raises(ValueError, match="shapes"):
-        lora_sgmv(x, a[:, :8], b, ids)
+        lora_sgmv(x[:, :8].contiguous(), a, b, ids)
+    with pytest.raises(ValueError, match="contiguous"):
+        lora_sgmv(x, a.transpose(1, 2).contiguous().transpose(1, 2), b, ids)
     with pytest.raises(ValueError, match="SGMV_MAX_RANK"):
         big = torch.zeros(2, 16, SGMV_MAX_RANK + 1, device=cuda)
         lora_sgmv(x, big, torch.zeros(2, SGMV_MAX_RANK + 1, 8, device=cuda),
                   ids)
     with pytest.raises(RuntimeError, match="CUDA tensors"):
         lora_sgmv(x, a.cpu(), b, ids)
+
+
+# GPT-2 small's four LoRA targets at rank 16, and the ranks 1, 8, 64 and
+# SGMV_MAX_RANK (the vector and the scalar phases of the kernel)
+SGMV_SHAPES = [
+    (768, 2304, 16), (768, 768, 16), (768, 3072, 16), (3072, 768, 16),
+    (768, 2304, 1), (768, 3072, 8), (3072, 768, 64),
+    (768, 768, SGMV_MAX_RANK),
+]
+
+
+def _sgmv_operands(cuda, dtype, din, dout, rank, b, seed=3, n=4):
+    """Pools with the zero identity row, x, y and ids mixing the identity,
+    repeats and the highest row (ids [n] at B = 1)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    a_pool = (torch.randn(n + 1, din, rank, device=cuda, generator=g)
+              * 0.05).to(dtype)
+    b_pool = (torch.randn(n + 1, rank, dout, device=cuda, generator=g)
+              * 0.05).to(dtype)
+    a_pool[0] = 0
+    b_pool[0] = 0
+    x = torch.randn(b, din, device=cuda, generator=g).to(dtype)
+    y = torch.randn(b, dout, device=cuda, generator=g).to(dtype)
+    pattern = [0, 3, 3, n, 1, 0, 2, n]
+    ids = [n] if b == 1 else [pattern[i % len(pattern)] for i in range(b)]
+    return x, a_pool, b_pool, torch.tensor(ids, dtype=torch.int32,
+                                           device=cuda), y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("din,dout,rank,b", [
+    # B = 48 at SGMV_MAX_RANK would gather 2 x 1.8 GB in the plain version
+    (*shape, b) for shape in SGMV_SHAPES for b in (1, 8, 48)
+    if not (shape[2] == SGMV_MAX_RANK and b == 48)
+])
+def test_sgmv_both_forms_match_plain(cuda, dtype, din, dout, rank, b):
+    """The delta form and the epilogue form (y + (scale * delta).to(T) in
+    the kernel) against their plain versions, one launch each; the
+    epilogue form bit for bit what PyTorch's scale, cast and add give on
+    the kernel's own delta; identity rows exact zeros (epilogue: y
+    unchanged)."""
+    x, a_pool, b_pool, ids, y = _sgmv_operands(cuda, dtype, din, dout, rank,
+                                               b)
+    scale = 0.625
+    before = lora_sgmv.launches
+    delta = lora_sgmv(x, a_pool, b_pool, ids)
+    out = lora_sgmv_add(x, a_pool, b_pool, ids, y, scale)
+    torch.cuda.synchronize()
+    assert lora_sgmv.launches == before + 2
+    assert out.dtype == dtype and out.shape == y.shape
+    ref = lora_sgmv_plain(x, a_pool, b_pool, ids)
+    row = ref.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
+    torch.testing.assert_close(delta / row, ref / row, atol=TOL[dtype],
+                               rtol=0)
+    _close(out, lora_sgmv_add_plain(x, a_pool, b_pool, ids, y, scale), dtype)
+    assert torch.equal(out, y + (scale * delta).to(dtype))
+    zero = (ids == 0).nonzero().flatten()
+    assert bool((delta[zero] == 0).all())
+    assert torch.equal(out[zero], y[zero])
+    # [B, 1, in] / [B, 1, out], as apply_lora passes them
+    out3 = lora_sgmv_add(x[:, None], a_pool, b_pool, ids, y[:, None], scale)
+    assert torch.equal(out3[:, 0], out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sgmv_out_of_range_id_gives_nan(cuda, dtype):
+    x, a_pool, b_pool, ids, y = _sgmv_operands(cuda, dtype, 768, 3072, 16, 8)
+    ids[2], ids[5] = a_pool.shape[0], -1
+    delta = lora_sgmv(x, a_pool, b_pool, ids)
+    out = lora_sgmv_add(x, a_pool, b_pool, ids, y, 2.0)
+    for t in (delta, out):
+        assert bool(t[[2, 5]].isnan().all())
+        assert not bool(t[[0, 1, 3, 4, 6, 7]].isnan().any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("din,dout,rank", [(3072, 768, 16),
+                                           (768, 768, SGMV_MAX_RANK)])
+def test_sgmv_is_bitwise_repeatable(cuda, dtype, din, dout, rank):
+    """Every sum runs in a fixed order: 10 calls of each form give the
+    same bits."""
+    x, a_pool, b_pool, ids, y = _sgmv_operands(cuda, dtype, din, dout, rank,
+                                               8)
+    first = (lora_sgmv(x, a_pool, b_pool, ids),
+             lora_sgmv_add(x, a_pool, b_pool, ids, y, 0.5))
+    for _ in range(9):
+        assert torch.equal(lora_sgmv(x, a_pool, b_pool, ids), first[0])
+        assert torch.equal(lora_sgmv_add(x, a_pool, b_pool, ids, y, 0.5),
+                           first[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gdtype", [torch.float32, torch.bfloat16,
+                                    torch.float16])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_lamb_phase1_kernel_ragged_and_misaligned_tensors(cuda, gdtype,
+                                                          misaligned):
+    """Lengths 1, 3, 4097 and 4099 (a ragged last vector, the scalar path)
+    beside 4096 and 40 000 (the vector path), all in one launch; with
+    ``misaligned`` every tensor is a view 4 bytes (one element) into its
+    storage, off the 16-byte grid, so every descriptor takes the scalar
+    path. Against lamb_phase1_plain: m, v and u bit for bit (the kernel
+    repeats PyTorch's roundings, its division by a scalar through the
+    float32 reciprocal included), the block partials within 1e-6
+    relative."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    sizes = [1, 3, 4097, 4099, 4096, 40_000]
+    off = 1 if misaligned else 0
+
+    def make(scale, dtype=torch.float32):
+        out = []
+        for n in sizes:
+            base = torch.randn(n + off, device=cuda, generator=g) * scale
+            out.append(base.to(dtype)[off:])
+        return out
+
+    ps, gs, m0 = make(1.0), make(1e-2, gdtype), make(1e-3)
+    v0 = [x * x for x in make(1e-2)]
+    if misaligned:
+        assert all(t.data_ptr() % 16 for t in ps + m0)
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01,
+              eps_inside_sqrt=False)
+    runs = []
+    for fn in (lamb_phase1, lamb_phase1_plain):
+        ms = [x.clone() for x in m0]
+        vs = [x.clone() for x in v0]
+        us = [torch.empty(n + off, device=cuda)[off:] for n in sizes]
+        wsq, usq = fn(ps, gs, ms, vs, us, 0.271, 0.003, 0.5, **kw)
+        torch.cuda.synchronize()
+        runs.append((wsq, usq, ms, vs, us))
+    (kw_, ku, km, kv, kuu), (pw, pu, pm, pv, puu) = runs
+    for got, want in zip(km + kv + kuu, pm + pv + puu):
+        assert torch.equal(got, want)
+    torch.testing.assert_close(kw_, pw, rtol=1e-6, atol=0)
+    torch.testing.assert_close(ku, pu, rtol=1e-6, atol=0)

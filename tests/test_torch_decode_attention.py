@@ -231,3 +231,77 @@ def test_split_algebra_keeps_a_dead_slot_exact_zeros(splits):
     ).numpy()
     assert np.all(got[dead] == 0.0), "dead slot must emit exact zeros"
     assert np.all(np.isfinite(got))
+
+
+# ---------------------------------------------------------------------------
+# head dims: the kernel's instantiations and the engine's refusal of the rest
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("hd", [16, 32, 48, 80])
+def test_paged_decode_head_dims_match_jax_kernel(hd):
+    """The head dims the CUDA kernel now takes beside 64 and 128 (the JAX
+    kernel runs any): the port's function against the JAX kernel
+    (interpret mode) and the oracle. float32, 1e-5."""
+    q, kp, vp, tables, positions = _case(hd, hd=hd)
+    got = _port(q, kp, vp, tables, positions)
+    want = np.asarray(jax_decode(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(tables), jnp.asarray(positions),
+    ))
+    np.testing.assert_allclose(got, want, **TOL)
+    for slot in (0, 2, 3):
+        np.testing.assert_allclose(
+            got[slot], _oracle(q, kp, vp, tables, positions, slot), **TOL
+        )
+
+
+def test_paged_decode_head_dims_are_the_multiples_of_16_to_128():
+    from deepspeed_tpu_torch.ops.decode_attention import (
+        PAGED_DECODE_HEAD_DIMS,
+    )
+
+    assert PAGED_DECODE_HEAD_DIMS == (16, 32, 48, 64, 80, 96, 112, 128)
+
+
+def _tiny_model(n_embd, n_head):
+    from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
+
+    return GPT2LMHeadModel(GPT2Config(
+        vocab_size=97, n_positions=64, n_embd=n_embd, n_layer=1,
+        n_head=n_head), device="cpu")
+
+
+def test_init_inference_refuses_fused_decode_at_head_dims_the_kernel_lacks():
+    """On a CUDA device, init_inference refuses fused_decode for a head dim
+    the paged decode kernel is not instantiated at (the 8-dim test models:
+    n_embd 32 over 4 heads) when the engine is built, naming the head dims
+    it takes and the way out; no GPU is needed, since the decision comes
+    before the device. Head dim 32 is accepted; a CPU engine, or one with
+    fused_decode off, takes any head dim."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.config import DeepSpeedConfigError
+    from deepspeed_tpu_torch.ops.head_dims import check_head_dim
+
+    def config(fused):
+        return {"inference": {"max_batch_slots": 2, "kv_block_size": 8,
+                              "fused_decode": fused}}
+
+    with pytest.raises(DeepSpeedConfigError, match=r"16, 32, 48.*fused_decode off"):
+        deepspeed_tpu_torch.init_inference(
+            model=_tiny_model(32, 4), config=config(True), device="cuda")
+    with pytest.raises(DeepSpeedConfigError, match="got 8"):
+        check_head_dim(8, 64, "cuda", fused_decode=True)
+    with pytest.raises(DeepSpeedConfigError, match="got 40"):
+        check_head_dim(40, 64, None, fused_decode=True)
+    check_head_dim(32, 64, "cuda", fused_decode=True)
+    check_head_dim(8, 64, "cuda", fused_decode=False)
+    check_head_dim(8, 64, "cpu", fused_decode=True)
+    for n_embd, n_head in ((32, 4), (64, 2)):  # head dims 8 and 32
+        engine = deepspeed_tpu_torch.init_inference(
+            model=_tiny_model(n_embd, n_head), config=config(True),
+            device="cpu")
+        try:
+            assert engine.fused_decode
+            out = engine.generate([[1, 2, 3, 4, 5]], max_new_tokens=3)
+            assert len(out[0]) == 3
+        finally:
+            engine.close()

@@ -111,6 +111,86 @@ def test_lamb_phase1_partials_are_per_block_sums():
 SHAPES = {"a": (40, 50), "b": (300,), "c": (70, 1000)}
 
 
+def _lamb_lists(sizes, base=None):
+    """p, g, m, v, u lists of float32 tensors of ``sizes``; with ``base``
+    (a 1-D tensor) p is cut from it as views."""
+    if base is not None:
+        ps, at = [], 0
+        for n in sizes:
+            ps.append(base[at:at + n])
+            at += n
+    else:
+        ps = [torch.zeros(n) for n in sizes]
+    return [ps] + [[torch.zeros(n) for n in sizes] for _ in range(4)]
+
+
+def test_lamb_device_table_block_map_and_cache():
+    """The kernel's descriptor table and int32 block -> tensor map (no
+    search in the kernel): each tensor's n, first block and vector flag,
+    one map entry per 4096-element block; built once per set of pointers
+    and lengths and reused, rebuilt when a pointer or a length changes."""
+    sizes = [1, 3, 4096, 4097, 4099, 8192]
+    lists = _lamb_lists(sizes)
+    device = torch.device("cpu")
+    builds = tfl.lamb_phase1.table_builds
+    table, block_map, nblocks = tfl._device_table(*lists, device)
+    assert tfl.lamb_phase1.table_builds == builds + 1
+    blocks = [1, 1, 1, 2, 2, 2]
+    assert nblocks == sum(blocks) == block_map.numel()
+    assert block_map.dtype == torch.int32
+    assert block_map.tolist() == [i for i, n in enumerate(blocks)
+                                  for _ in range(n)]
+    rows = table.numpy()
+    assert rows.shape == (len(sizes), 8)
+    assert rows[:, 5].tolist() == sizes
+    assert rows[:, 6].tolist() == [0, 1, 2, 3, 5, 7]
+    for row, (p, g, m, v, u) in zip(rows, zip(*lists)):
+        assert row[:5].tolist() == [t.data_ptr() for t in (p, g, m, v, u)]
+    # vectors only where n % 4 == 0 and every pointer is aligned
+    aligned = [all(t.data_ptr() % 16 == 0 for t in ts) for ts in zip(*lists)]
+    assert rows[:, 7].tolist() == [
+        int(n % 4 == 0 and ok) for n, ok in zip(sizes, aligned)]
+    # the same tensors: the cached table, nothing built
+    again = tfl._device_table(*lists, device)
+    assert again[0] is table and again[1] is block_map
+    assert tfl.lamb_phase1.table_builds == builds + 1
+    # a moved tensor (new storage) or another length: rebuilt
+    lists[1][2] = torch.zeros(4096)
+    tfl._device_table(*lists, device)
+    assert tfl.lamb_phase1.table_builds == builds + 2
+    lists[0][5], lists[2][5] = lists[0][5][:8000], lists[2][5][:8000]
+    lists[1][5], lists[3][5] = lists[1][5][:8000], lists[3][5][:8000]
+    lists[4][5] = lists[4][5][:8000]
+    _, _, n2 = tfl._device_table(*lists, device)
+    assert tfl.lamb_phase1.table_builds == builds + 3 and n2 == nblocks
+
+
+def test_lamb_device_table_flags_a_misaligned_view_scalar():
+    """A view whose storage offset breaks 16-byte alignment goes down the
+    kernel's scalar path (its descriptor's flag), decided per tensor."""
+    base = torch.zeros(4096 * 3 + 1)
+    lists = _lamb_lists([4096, 4096], base=base[1:])  # 4 bytes off
+    aligned = _lamb_lists([4096, 4096])
+    for i in range(1, 5):
+        lists[i] = aligned[i]
+    table, _, _ = tfl._device_table(*lists, torch.device("cpu"))
+    assert table.numpy()[:, 7].tolist() == [0, 0]
+    table, _, _ = tfl._device_table(*aligned, torch.device("cpu"))
+    if all(t.data_ptr() % 16 == 0 for ts in aligned for t in ts):
+        assert table.numpy()[:, 7].tolist() == [1, 1]
+
+
+def test_lamb_segment_map_is_built_once_per_layout():
+    builds = tfl.lamb_phase1.table_builds
+    device = torch.device("cpu")
+    seg = tfl._segment_map([2, 1, 3], [0, 0, 1], device)
+    assert seg.tolist() == [0, 0, 0, 1, 1, 1]
+    assert tfl._segment_map([2, 1, 3], [0, 0, 1], device) is seg
+    assert tfl.lamb_phase1.table_builds == builds + 1
+    tfl._segment_map([2, 1, 4], [0, 0, 1], device)
+    assert tfl.lamb_phase1.table_builds == builds + 2
+
+
 def _jax_tree(arrays):
     return {k: jnp.asarray(v) for k, v in arrays.items()}
 

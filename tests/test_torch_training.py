@@ -130,6 +130,32 @@ def test_reduced_precision_training_runs(block, accum):
     assert opt.loss_scale == (256.0 if "fp16" in block else 1.0)
 
 
+def test_cast_gradient_buffer_keeps_its_storage_across_windows():
+    """When the gradients are cast into the accumulation dtype (bf16
+    compute, fp32 accumulation), every window accumulates into the same
+    buffer, so FusedLamb's cached device table of pointers stays valid; a
+    run with the buffer dropped between windows takes the same steps."""
+    a, _, _ = _engine(bf16={"enabled": True},
+                      optimizer={"type": "FusedLamb", "params": {"lr": 1e-2}})
+    b, _, _ = _engine(bf16={"enabled": True},
+                      optimizer={"type": "FusedLamb", "params": {"lr": 1e-2}})
+    micro = _batches(2)
+    ptrs = []
+    for _ in range(3):
+        a.train_batch(iter(micro))
+        b._grad_store = None  # the buffer made anew every window
+        b.train_batch(iter(micro))
+        ptrs.append([g.data_ptr() for g in a._grad_store.values()])
+        assert all(g.dtype == torch.float32 for g in a._grad_store.values())
+    assert ptrs[0] == ptrs[1] == ptrs[2]
+    for (n, p), (_, q) in zip(a.module.named_parameters(),
+                              b.module.named_parameters()):
+        torch.testing.assert_close(p, q, rtol=0, atol=0, msg=n)
+    same, _, _ = _engine()  # float32: the gradients are adopted, not cast
+    same.train_batch(iter(micro))
+    assert same._grad_store is None
+
+
 def test_lamb_coeffs_cover_every_group():
     engine, opt, _ = _engine(optimizer={"type": "FusedLamb",
                                         "params": {"lr": 1e-2}})
