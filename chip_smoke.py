@@ -103,21 +103,60 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                steps); TTFT and decode tokens/s with and without the
                adapters block; SGMV's share of a profiled decode window.
   7. head dims — the flash forward and backward at d = 32, 48 and 96
-               (zero-padded to the kernels' 64 or 128) and paged decode at
-               hd 16, 32, 48, 80, 96 and 112 against their plain versions,
-               with their times; then a GPT-2 of 768 over 24 heads (head
-               dim 32, cut to 2 layers) through one training micro-step
-               (each attention kernel launched once a layer; float32
-               gradients through the kernels equal the plain versions') and
-               serving (a 300-token cold prefill through the flash forward,
-               fused decode through paged decode; float32 fused == unfused,
-               the first token the full forward's argmax).
-  8. report  — a JSON line of per-kernel numbers, the nvidia-smi line,
-               then the last line {"ok": true, "device": {...}}.
+               (zero-padded to the kernels' 64 or 128) and at d = 192 and
+               256 (the D = 256 FMA kernels, every dtype, B*H 32, S 1024,
+               with SDPA timed beside them), and paged decode at hd 16,
+               32, 48, 80, 96 and 112 and at the tails 8, 12, 40 and 72
+               (rows that are not whole 16-byte chunks), against their
+               plain versions, with their times; then GPT-2s of 768 over
+               24 heads (head dim 32) and 4 heads (head dim 192), cut to
+               2 layers, through one training micro-step (each attention
+               kernel launched once a layer; float32 gradients through
+               the kernels equal the plain versions') and serving (a
+               300-token cold prefill through the flash forward; fused
+               decode at head dim 32, float32 fused == unfused; the
+               gathered decode at 192, above the paged decode kernel's
+               128), and 768 over 96 heads (head dim 8) served with fused
+               decode through the tail path (float32 fused == unfused);
+               the first token the full forward's argmax each time.
+  8. telemetry — GPT-2 small at full width and depth (FusedLamb, bf16,
+               8 windows) through initialize() with the full telemetry
+               block (jsonl and Prometheus exporters every 4 windows, the
+               watchdog, tracing at sample rate 1, a profiler window over
+               windows 1-2), tensorboard, wall_clock_breakdown and
+               memory_breakdown, beside the same run without them, in the
+               order off, on, on, off: the step median over windows 3-7,
+               and the device-to-host copies of the two profiled
+               non-export windows, which must not grow with telemetry on.
+               Everything the telemetry wrote to a temporary directory is
+               read back: metrics.jsonl with every name of the training
+               catalog (train/hbm_peak_bytes equal to
+               torch.cuda.max_memory_allocated(), train/model_tflops
+               6 N tokens/s), metrics.prom, the Chrome span trace (one
+               train.window a window), the profiler trace (the
+               window_fwd_bwd and window_optimizer_update ranges, with the
+               flash forward, dQ and dK/dV kernels launched inside the
+               first and LAMB's inside the second) and the monitor's
+               Train/* scalars at every step (TensorBoard event files, or
+               events.jsonl without the tensorboard package); the
+               watchdog reports no stall. Then the phase 4 requests served
+               with tracing off, on, on, off: TTFT and decode tokens/s,
+               the same greedy tokens, one request, queue and prefill span
+               per request and a span per decode step, and the infer/*
+               catalog in metrics.jsonl.
+  9. report  — a JSON line of per-kernel numbers (the D = 256 and decode
+               tail variants in entries of their own), the nvidia-smi
+               line, then the last line {"ok": true, "device": {...}}.
+
+``--cold-telemetry`` runs one telemetry-on training run whose first
+window builds the kernels in an empty build directory under a 5 s
+watchdog: the watchdog arms at the first completed window, so the build
+must not read as a stall.
 
 The attention kernels take two routes by dtype: bfloat16 and float16 the
-tensor-core forward, dQ and dK/dV kernels (wgmma + TMA), float32 the FMA
-kernels (the tensor cores take float32 only as TF32).
+tensor-core forward, dQ and dK/dV kernels (wgmma + TMA) at D = 64 and 128,
+float32 the FMA kernels (the tensor cores take float32 only as TF32), and
+every dtype the FMA kernels at D = 256.
 
 Tolerances: float32 kernel vs plain atol = rtol = 1e-4 (same float32
 arithmetic in another summation order; observed errors sit near 1e-6);
@@ -1291,6 +1330,8 @@ OWN_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                "flash_bwd_dkv_kernel", "paged_decode_kernel",
                "lamb_phase1_kernel", "sgmv_kernel")
 GEMM_KERNELS = ("gemm", "nvjet", "cutlass", "xmma")
+# the engine's and the telemetry profiler window's record_function ranges
+ANNOTATIONS = ("window_fwd_bwd", "window_optimizer_update", "train_window#")
 
 
 def device_breakdown(prof, wall_ms):
@@ -1301,11 +1342,14 @@ def device_breakdown(prof, wall_ms):
     from torch.autograd import DeviceType
 
     # device-side kernel events only (the host ops' rows repeat the time
-    # of the kernels they launched)
+    # of the kernels they launched, and a record_function range, such as
+    # the engine's window_fwd_bwd, has a device row spanning its kernels)
     device = sorted(
         ((e.key, e.self_device_time_total / 1e3, e.count)
          for e in prof.key_averages()
-         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+         and not getattr(e, "is_user_annotation", False)
+         and not e.key.startswith(ANNOTATIONS)),
         key=lambda kv: -kv[1],
     )
     busy_ms = sum(ms for _, ms, _ in device)
@@ -1942,16 +1986,18 @@ def phase_adapters(seed, card):
 # phase 7: head dims other than 64 and 128
 # ---------------------------------------------------------------------------
 HD_FLASH = (32, 48, 96)       # 768 over 24, 16 and 8 heads
+HD_WIDE = (192, 256)          # the D = 256 FMA kernels (192 zero-padded)
 HD_DECODE = (16, 32, 48, 80, 96, 112)
-HD32_LAYERS = 2               # the head-dim-32 GPT-2, cut in depth
+HD_TAIL = (8, 12, 40, 72)     # rows that are not whole 16-byte chunks
+HD32_LAYERS = 2               # the head-dim GPT-2s of phase 7, cut in depth
 
 
-def hd32_config(**kw):
-    """GPT-2 small's widths (768, seq 1024, vocab 50257) over 24 heads:
-    head dim 32; depth cut to HD32_LAYERS."""
+def hd_config(n_head, **kw):
+    """GPT-2 small's widths (768, seq 1024, vocab 50257) over ``n_head``
+    heads (head dim 768 / n_head); depth cut to HD32_LAYERS."""
     from deepspeed_tpu_torch import GPT2Config
 
-    return GPT2Config.small(n_head=24, n_layer=HD32_LAYERS, **kw)
+    return GPT2Config.small(n_head=n_head, n_layer=HD32_LAYERS, **kw)
 
 
 def check_flash_head_dims(device, gen, timer):
@@ -2020,11 +2066,109 @@ def check_flash_head_dims(device, gen, timer):
     return out
 
 
+def check_flash_wide(device, gen, timer):
+    """The D = 256 kernels (the FMA route in every dtype): the flash
+    forward and backward at d = 192 (zero-padded to 256) and 256 against
+    their plain versions at B*H = 32 (B=8, H=4), S=1024, causal, with and
+    without a padding mask and dropout, float32, bfloat16 and float16;
+    then the bf16 times (causal, dropout 0) beside the bound of the
+    unpadded function, the plain version's time and SDPA's (forward;
+    backward with dQ, dK and dV together). Returns {d: {kernel: entry}}."""
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops import attention as A
+
+    mask = train_mask(device)
+    out = {}
+    for d in HD_WIDE:
+        base = [torch.randn(8, 4, 1024, d, device=device, generator=gen)
+                for _ in range(4)]
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            q, k, v, dout = (t.to(dtype) for t in base)
+            for kv_mask, rate in ((None, 0.0), (mask, DROPOUT)):
+                tag = (f"d={d} {str(dtype)[6:]} "
+                       f"{'mask+dropout' if rate else 'causal'}")
+                args = (q, k, v, kv_mask, True, None, rate, 77)
+                o, lse = A.flash_fwd(*args)
+                torch.cuda.synchronize()
+                ref, ref_lse = A.flash_fwd_plain(*args)
+                if o.shape != q.shape:
+                    fail(f"flash_fwd {tag}: output {tuple(o.shape)}")
+                e = {"flash_fwd": check_close(f"flash_fwd {tag}", o, ref,
+                                              dtype)}
+                delta = (dout.float() * ref.float()).sum(dim=-1)
+                bargs = (q, k, v, kv_mask, dout, ref_lse, delta, True, None,
+                         rate, 77)
+                got = (A.flash_bwd_dq(*bargs), *A.flash_bwd_dkv(*bargs))
+                torch.cuda.synchronize()
+                want = (A.flash_bwd_dq_plain(*bargs),
+                        *A.flash_bwd_dkv_plain(*bargs))
+                for name, g, w in zip(("flash_bwd_dq", "flash_bwd_dkv",
+                                       "flash_bwd_dkv"), got, want):
+                    err = check_close(f"{name} {tag}", g, w, dtype,
+                                      scaled=True)
+                    e[name] = max(e.get(name, 0.0), err)
+                for name, err in e.items():
+                    key = (name, dtype)
+                    errs[key] = max(errs.get(key, 0.0), err)
+                del o, lse, ref, ref_lse, got, want
+        q, k, v, dout = (t.to(torch.bfloat16) for t in base)
+        o, lse = A.flash_fwd(q, k, v, None, True)
+        delta = (dout.float() * o.float()).sum(dim=-1)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        sdpa = {
+            "fwd": lambda: F.scaled_dot_product_attention(q, k, v,
+                                                          is_causal=True),
+            "bwd": lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), dout,
+                                               retain_graph=True),
+        }
+        lib = {key: (timer.ms(fn), timer.ms(fn, spin=True))
+               for key, fn in sdpa.items()}
+        fargs = (q, k, v, None, True)
+        bargs = (q, k, v, None, dout, lse, delta, True)
+        out[d] = {}
+        for name, fn, plain, args, which, lib_key in (
+            ("flash_fwd", A.flash_fwd, A.flash_fwd_plain, fargs, "fwd",
+             "fwd"),
+            ("flash_bwd_dq", A.flash_bwd_dq, A.flash_bwd_dq_plain, bargs,
+             "dq", "bwd"),
+            ("flash_bwd_dkv", A.flash_bwd_dkv, A.flash_bwd_dkv_plain, bargs,
+             "dkv", "bwd"),
+        ):
+            nbytes, flops = flash_work(q, None, True, which)
+            b_ms, b_by = bound(nbytes, flops, torch.bfloat16)
+            call = lambda: fn(*args)
+            out[d][name] = dict(
+                shape=f"B=8 H=4 S=1024 D={d} (kernel D=256) causal bf16",
+                max_abs_err=errs[(name, torch.bfloat16)],
+                max_abs_err_f32=errs[(name, torch.float32)],
+                max_abs_err_f16=errs[(name, torch.float16)],
+                ms=timer.ms(call, iters=10), device_ms=timer.ms(
+                    call, iters=10, spin=True, spin_cycles=20_000_000),
+                plain_ms=timer.ms(lambda: plain(*args), iters=3, warmup=1),
+                library_ms=lib[lib_key][0],
+                library_device_ms=lib[lib_key][1],
+                library=("scaled_dot_product_attention forward"
+                         if lib_key == "fwd" else
+                         "scaled_dot_product_attention backward (dQ, dK "
+                         "and dV together)"),
+                bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
+                bound_flops=flops)
+            log(f"  {name} d={d}: {json.dumps(out[d][name])}")
+        del base, q, k, v, dout, o, lse, delta, qg, kg, vg, sdpa_out
+        torch.cuda.empty_cache()
+    return out
+
+
 def check_decode_head_dims(device, gen, timer):
-    """Paged decode at hd 16, 32, 48, 80, 96 and 112 against its plain
-    version at the bench shape's layout (8 slots x 12 heads, 16-token
-    pages, 64 pages a slot, a dead slot, a NULL page mid-table), float32
-    and bfloat16, 10 calls bitwise equal; then its bf16 times. Returns
+    """Paged decode at hd 16, 32, 48, 80, 96 and 112, and at the tails 8,
+    12, 40 and 72 (rows that are not whole 16-byte chunks), against its
+    plain version at the bench shape's layout (8 slots x 12 heads,
+    16-token pages, 64 pages a slot, a dead slot, a NULL page
+    mid-table), float32 and bfloat16, 10 calls bitwise equal; then its
+    times in both dtypes, and the bf16 plain version's. Returns
     {hd: entry}."""
     from deepspeed_tpu_torch.ops.decode_attention import (
         paged_flash_decode,
@@ -2035,8 +2179,8 @@ def check_decode_head_dims(device, gen, timer):
     positions = torch.tensor([15, 100, 1023, 0, 500, 257, 31, 700],
                              dtype=torch.int32, device=device)
     out = {}
-    for hd in HD_DECODE:
-        errs = {}
+    for hd in HD_DECODE + HD_TAIL:
+        errs, calls = {}, {}
         for dtype in (torch.float32, torch.bfloat16):
             pages = slots * mb + 1
             q = torch.randn(slots, heads, hd, device=device,
@@ -2060,40 +2204,37 @@ def check_decode_head_dims(device, gen, timer):
                 if not torch.equal(
                         paged_flash_decode(q, kp, vp, tables, positions), o):
                     fail(f"{tag}: two calls on the same inputs differ")
+            calls[dtype] = (q, kp, vp, tables)
+        q, kp, vp, tables = calls[torch.bfloat16]
         fn = lambda: paged_flash_decode(q, kp, vp, tables, positions)
         nbytes, flops = decode_work(q, tables, positions, bs)
         b_ms, b_by = bound(nbytes, flops, torch.bfloat16)
+        q32, kp32, vp32, t32 = calls[torch.float32]
+        fn32 = lambda: paged_flash_decode(q32, kp32, vp32, t32, positions)
         out[hd] = dict(
             shape=f"8 slots x 12 heads x hd {hd}, 16-token pages, bf16",
             max_abs_err=errs[torch.bfloat16],
             max_abs_err_f32=errs[torch.float32], ms=timer.ms(fn),
-            device_ms=timer.ms(fn, spin=True), bound_ms=b_ms, bound_by=b_by)
+            device_ms=timer.ms(fn, spin=True),
+            device_ms_f32=timer.ms(fn32, spin=True),
+            plain_ms=timer.ms(lambda: paged_flash_decode_plain(
+                q, kp, vp, tables, positions), iters=5, warmup=1),
+            bound_ms=b_ms, bound_by=b_by,
+            bound_ms_f32=bound(*decode_work(q32, t32, positions, bs),
+                               torch.float32)[0])
         log(f"  paged_decode hd={hd}: {json.dumps(out[hd])}")
     return out
 
 
-def phase_head_dims(seed, card):
-    """Phase 7: the kernels at head dims other than 64 and 128, then a
-    GPT-2 of 768 over 24 heads (head dim 32, HD32_LAYERS layers) through
-    one training micro-step (the flash forward and backward launched
-    once a layer; float32 gradients through the kernels equal to those
-    through the plain versions) and serving (a cold prefill of 300 tokens
-    through the flash forward, fused decode steps through paged decode;
-    float32 fused == unfused). Returns (launches by path, stats)."""
+def hd_train(seed, n_head):
+    """One bf16 training micro-step (dropout 0.1) of the head-dim GPT-2
+    over ``n_head`` heads: each attention kernel launched once a layer;
+    then float32 gradients through the kernels against the plain
+    versions'. Returns (launches, loss, gradient error)."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch import GPT2LMHeadModel
 
-    device = torch.device("cuda")
-    gen = torch.Generator(device=device).manual_seed(seed + 4)
-    timer = Timer(device)
-    log("phase 7: flash forward and backward at d = 32, 48, 96 vs plain")
-    flash = check_flash_head_dims(device, gen, timer)
-    log("phase 7: paged decode at hd = 16, 32, 48, 80, 96, 112 vs plain")
-    decode = check_decode_head_dims(device, gen, timer)
-
-    log(f"phase 7: GPT-2 768 / 24 heads (hd 32, {HD32_LAYERS} layers), one "
-        "training micro-step, bf16, dropout 0.1")
-    cfg = hd32_config(dropout=DROPOUT)
+    cfg = hd_config(n_head, dropout=DROPOUT)
     model = GPT2LMHeadModel(cfg, device="cuda", seed=seed)
     config = dict(train_config("Adam", 1e-4, BF16), train_batch_size=8,
                   gradient_accumulation_steps=1)
@@ -2103,48 +2244,512 @@ def phase_head_dims(seed, card):
     zero_launches()
     loss = float(engine.train_batch(iter([(ids, ids)])))
     torch.cuda.synchronize()
-    train_launches = read_launches()
+    launches = read_launches()
     want = {n: HD32_LAYERS for n in TRAIN_KERNELS}
-    got = {n: train_launches[n] for n in TRAIN_KERNELS}
-    log(f"  loss {loss}, launches {train_launches}")
+    got = {n: launches[n] for n in TRAIN_KERNELS}
+    log(f"  loss {loss}, launches {launches}")
     if not math.isfinite(loss) or got != want or engine.global_steps != 1:
-        fail(f"hd 32 training: loss {loss}, launches {got} (want {want}), "
-             f"{engine.global_steps} steps")
+        fail(f"hd {768 // n_head} training: loss {loss}, launches {got} "
+             f"(want {want}), {engine.global_steps} steps")
     del engine
-    _, grad_err = grads_kernels_vs_plain(seed, hd32_config(dropout=0.0))
+    _, grad_err = grads_kernels_vs_plain(seed, hd_config(n_head,
+                                                         dropout=0.0))
+    return launches, loss, grad_err
 
-    log("phase 7: the same model served, bf16, fused decode")
-    model = GPT2LMHeadModel(hd32_config(), device="cuda", seed=seed)
+
+def hd_serve(seed, n_head, fused):
+    """The head-dim GPT-2 over ``n_head`` heads served in bf16 (a 300-token
+    cold prefill through the flash forward, a 40-token prompt; with
+    ``fused``, decode through paged decode), then in float32: with
+    ``fused``, fused == unfused greedy tokens; the first token the full
+    forward's argmax. Returns (launches, stats)."""
+    from deepspeed_tpu_torch import GPT2LMHeadModel
+
+    hd = 768 // n_head
+    cfg = hd_config(n_head)
+    model = GPT2LMHeadModel(cfg, device="cuda", seed=seed)
     g = torch.Generator().manual_seed(seed + 5)
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
                for n in (300, 40)]
     zero_launches()
-    out_bf16, st = serve(model, "bf16", True, prompts[:1], prompts[1])
+    out_bf16, st = serve(model, "bf16", fused, prompts[:1], prompts[1])
     torch.cuda.synchronize()
-    serve_launches = read_launches()
-    log(f"  launches {serve_launches} stats {json.dumps(st)}")
-    if (serve_launches["flash_fwd"] < HD32_LAYERS
-            or serve_launches["paged_decode"]
-            != HD32_LAYERS * st["decode_steps"] or st["decode_steps"] < 1):
-        fail(f"hd 32 serving: launches {serve_launches} for "
+    launches = read_launches()
+    log(f"  launches {launches} stats {json.dumps(st)}")
+    want_decode = HD32_LAYERS * st["decode_steps"] if fused else 0
+    if (launches["flash_fwd"] < HD32_LAYERS
+            or launches["paged_decode"] != want_decode
+            or st["decode_steps"] < 1):
+        fail(f"hd {hd} serving: launches {launches} for "
              f"{st['decode_steps']} decode steps")
     if not all(len(o) == 32 and all(0 <= t < cfg.vocab_size for t in o)
                for o in out_bf16):
-        fail("hd 32 serving: wrong token counts or tokens outside the vocab")
-    out_f, _ = serve(model, "fp32", True, prompts[:1], prompts[1])
-    out_u, _ = serve(model, "fp32", False, prompts[:1], prompts[1])
-    if out_f != out_u:
-        fail("hd 32 serving: float32 fused and unfused greedy tokens differ")
+        fail(f"hd {hd} serving: wrong token counts or tokens outside the "
+             "vocab")
+    out_f, _ = serve(model, "fp32", fused, prompts[:1], prompts[1])
+    if fused:
+        out_u, _ = serve(model, "fp32", False, prompts[:1], prompts[1])
+        if out_f != out_u:
+            fail(f"hd {hd} serving: float32 fused and unfused greedy tokens "
+                 "differ")
     ref = model(torch.tensor([prompts[0]], device="cuda"))
     if out_f[0][0] != int(ref[0, -1, :cfg.vocab_size].argmax()):
-        fail("hd 32 serving: the first token is not the full forward's "
+        fail(f"hd {hd} serving: the first token is not the full forward's "
              "argmax")
-    log("  float32 fused == unfused; first token == full-forward argmax")
-    return ({"hd32_train": train_launches, "hd32_serve": serve_launches},
-            {"flash": flash, "paged_decode": decode, "hd32_loss": loss,
-             "hd32_f32_grad_max_rel_err": grad_err,
-             "hd32_decode_steps": st["decode_steps"],
-             "hd32_cold_prefills": st["cold_prefills"]})
+    log(f"  float32{' fused == unfused;' if fused else ''} first token == "
+        "full-forward argmax")
+    return launches, st
+
+
+def phase_head_dims(seed, card):
+    """Phase 7: the kernels at head dims other than 64 and 128, then
+    GPT-2s of GPT-2 small's widths cut to HD32_LAYERS layers: 24 heads
+    (head dim 32) and 4 heads (head dim 192, the D = 256 kernels) through
+    one training micro-step (the flash forward and backward launched once
+    a layer; float32 gradients through the kernels equal to those through
+    the plain versions) and serving (a cold prefill of 300 tokens through
+    the flash forward; fused decode at head dim 32, the gathered decode at
+    192, which the paged decode kernel does not take); and 96 heads (head
+    dim 8, the decode kernel's tail path) served with fused decode, float32
+    fused == unfused. Returns (launches by path, stats)."""
+    device = torch.device("cuda")
+    gen = torch.Generator(device=device).manual_seed(seed + 4)
+    timer = Timer(device)
+    log("phase 7: flash forward and backward at d = 32, 48, 96 vs plain")
+    flash = check_flash_head_dims(device, gen, timer)
+    log("phase 7: the D = 256 kernels at d = 192 and 256 vs plain")
+    wide = check_flash_wide(device, gen, timer)
+    log("phase 7: paged decode at hd = 16, 32, 48, 80, 96, 112 and the "
+        "tails 8, 12, 40, 72 vs plain")
+    decode = check_decode_head_dims(device, gen, timer)
+
+    launches, stats = {}, {}
+    for n_head, train, fused in ((24, True, True), (4, True, False),
+                                 (96, False, True)):
+        hd = 768 // n_head
+        if train:
+            log(f"phase 7: GPT-2 768 / {n_head} heads (hd {hd}, "
+                f"{HD32_LAYERS} layers), one training micro-step, bf16, "
+                "dropout 0.1")
+            launches[f"hd{hd}_train"], loss, err = hd_train(seed, n_head)
+            stats[f"hd{hd}_loss"] = loss
+            stats[f"hd{hd}_f32_grad_max_rel_err"] = err
+        log(f"phase 7: the same model served, bf16, fused decode "
+            f"{'on' if fused else 'off'}")
+        launches[f"hd{hd}_serve"], st = hd_serve(seed, n_head, fused)
+        stats[f"hd{hd}_decode_steps"] = st["decode_steps"]
+        stats[f"hd{hd}_cold_prefills"] = st["cold_prefills"]
+    return launches, dict(stats, flash=flash, flash_wide=wide,
+                          paged_decode=decode)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the telemetry core on the training and serving paths
+# ---------------------------------------------------------------------------
+TEL_WINDOWS = 8       # training windows a run
+TEL_INTERVAL = 4      # telemetry.interval: exports after windows 4 and 8
+TEL_PROFILE = (1, 2)  # telemetry.profile: windows 1 and 2, no export in them
+TEL_STEADY = slice(3, TEL_WINDOWS)  # the windows the step median reads
+
+
+def telemetry_block(out_dir, profile=True, timeout=120.0, poll=1.0):
+    """The full telemetry block: jsonl and Prometheus exporters every
+    TEL_INTERVAL windows, the watchdog, tracing at sample rate 1 (Chrome
+    export) and, with ``profile``, the TEL_PROFILE profiler window."""
+    block = {"enabled": True, "output_path": out_dir, "job_name": "gpt2",
+             "interval": TEL_INTERVAL, "exporters": ["jsonl", "prometheus"],
+             "watchdog": {"timeout": timeout, "poll_interval": poll},
+             "tracing": {"enabled": True, "sample_rate": 1.0}}
+    if profile:
+        block["profile"] = {"start_step": TEL_PROFILE[0],
+                            "num_steps": TEL_PROFILE[1]}
+    return block
+
+
+def tel_train(seed, out_dir, on, **block_kw):
+    """GPT-2 small (full width and depth, seq 1024, bf16, dropout 0.1,
+    FusedLamb) trained TEL_WINDOWS windows through initialize(); ``on``
+    adds the full telemetry block, ``tensorboard``, ``wall_clock_breakdown``
+    and ``memory_breakdown``. Without it, a torch.profiler of this script
+    covers the same windows TEL_PROFILE names. Returns the run's record:
+    window seconds, losses, launches, the engine's telemetry (closed) and
+    the profiler trace's path."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = GPT2Config.small(dropout=DROPOUT)
+    micro = train_batches(seed, cfg.vocab_size)
+    model = GPT2LMHeadModel(cfg, device="cuda", seed=seed)
+    config = dict(train_config("FusedLamb", 1e-3, BF16),
+                  steps_per_print=TEL_INTERVAL)
+    if on:
+        config.update(
+            telemetry=telemetry_block(out_dir, **block_kw),
+            tensorboard={"enabled": True, "output_path": out_dir,
+                         "job_name": "monitor"},
+            wall_clock_breakdown=True, memory_breakdown=True)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=model, config_params=config)
+    first, last = TEL_PROFILE[0], TEL_PROFILE[0] + TEL_PROFILE[1] - 1
+    trace = engine.telemetry.profiler.trace_path if (
+        on and engine.telemetry.profiler is not None) else None
+    prof = None
+    zero_launches()
+    secs, losses = [], []
+    for w in range(TEL_WINDOWS):
+        if not on and w == first:
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            prof.start()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        losses.append(engine.train_batch(iter(micro)))
+        torch.cuda.synchronize()
+        secs.append(time.monotonic() - t0)
+        if prof is not None and w == last:
+            prof.stop()
+            trace = str(Path(out_dir) / "baseline_profile.json")
+            prof.export_chrome_trace(trace)
+            prof = None
+    launches = read_launches()
+    hbm = torch.cuda.max_memory_allocated()
+    stalls = (engine.telemetry.watchdog.stall_count
+              if engine.telemetry.watchdog is not None else None)
+    n_params = engine._n_params
+    timers = sorted(engine.timers.timers)
+    engine.close()
+    losses = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"telemetry {'on' if on else 'off'}: a loss is not finite")
+    check_launches(f"telemetry {'on' if on else 'off'}", launches,
+                   engine.micro_steps, engine.global_steps)
+    del engine, model
+    torch.cuda.empty_cache()
+    steady = sorted(secs[TEL_STEADY])
+    return dict(secs=secs, losses=losses, launches=launches, hbm=hbm,
+                stalls=stalls, n_params=n_params, timers=timers, trace=trace,
+                step_ms=steady[len(steady) // 2] * 1e3)
+
+
+def trace_events(path):
+    with open(path) as f:
+        data = json.load(f)
+    return data["traceEvents"] if isinstance(data, dict) else data
+
+
+def dtoh_copies(path):
+    """Device-to-host copies in a torch.profiler Chrome trace."""
+    return sum(1 for e in trace_events(path)
+               if "Memcpy DtoH" in str(e.get("name", "")))
+
+
+def kernels_in_ranges(path, fragments, range_name):
+    """Which kernels of ``fragments`` the trace shows launched inside a
+    ``range_name`` range: a kernel event whose correlation id is that of
+    a runtime launch whose host time lies inside the range."""
+    events = trace_events(path)
+    ranges = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+              if e.get("name") == range_name and e.get("ph") == "X"]
+    if not ranges:
+        fail(f"profiler trace {path} has no {range_name} range")
+    launch_ts = {}  # the runtime's or the driver's launch call
+    for e in events:
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and \
+                "correlation" in e.get("args", {}):
+            launch_ts[e["args"]["correlation"]] = e["ts"]
+    found = {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        frag = next((f for f in fragments if f in e.get("name", "")), None)
+        ts = launch_ts.get(e.get("args", {}).get("correlation"))
+        if frag is None or ts is None:
+            continue
+        if any(a <= ts <= b for a, b in ranges):
+            found[frag] = found.get(frag, 0) + 1
+    return found
+
+
+def read_jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def check_training_sinks(out_dir, run):
+    """Read back what the telemetry run wrote: metrics.jsonl with every
+    name of the ported catalog, metrics.prom, the Chrome span trace, the
+    profiler trace (the window ranges, and the port's kernels inside
+    them) and the monitor's events. Returns the numbers it read."""
+    from deepspeed_tpu_torch.telemetry.manager import ENGINE_METRICS
+    from deepspeed_tpu_torch.telemetry.tracing import load_chrome_trace
+
+    job = Path(out_dir) / "gpt2"
+    for name in ("metrics.jsonl", "metrics.prom", "trace.json"):
+        if not (job / name).is_file():
+            fail(f"telemetry: {job / name} was not written")
+    records = read_jsonl(job / "metrics.jsonl")
+    tags = {r["tag"] for r in records}
+    missing = sorted(n for _, n, _ in ENGINE_METRICS if n not in tags)
+    if missing:
+        fail(f"telemetry: metrics.jsonl lacks {missing}")
+    last = {r["tag"]: r for r in records if r["step"] == TEL_WINDOWS}
+    steps = sorted({r["step"] for r in records})
+    if steps != [TEL_INTERVAL, TEL_WINDOWS]:
+        fail(f"telemetry: exports at steps {steps}, want "
+             f"{[TEL_INTERVAL, TEL_WINDOWS]}")
+    got = {t: last[t]["value"] for t in (
+        "train/hbm_peak_bytes", "train/model_tflops", "train/tokens_per_sec",
+        "train/loss", "train/global_steps", "train/grad_norm",
+        "train/learning_rate", "device/bytes_in_use")}
+    if got["train/hbm_peak_bytes"] != run["hbm"]:
+        fail(f"telemetry: train/hbm_peak_bytes {got['train/hbm_peak_bytes']}"
+             f" != torch.cuda.max_memory_allocated() {run['hbm']}")
+    want_tflops = 6.0 * run["n_params"] * got["train/tokens_per_sec"] / 1e12
+    if not (got["train/tokens_per_sec"] > 0 and math.isclose(
+            got["train/model_tflops"], want_tflops, rel_tol=1e-9)):
+        fail(f"telemetry: train/model_tflops {got['train/model_tflops']} is "
+             f"not 6 N tokens/s / 1e12 = {want_tflops}")
+    if (got["train/global_steps"] != TEL_WINDOWS
+            or not math.isclose(got["train/loss"], run["losses"][-1],
+                                rel_tol=1e-6)):
+        fail(f"telemetry: the last export {got} does not match the run "
+             f"(loss {run['losses'][-1]})")
+    prom = (job / "metrics.prom").read_text()
+    if "# TYPE train_loss gauge" not in prom or "train_hbm_peak_bytes" \
+            not in prom:
+        fail("telemetry: metrics.prom lacks the train families")
+    spans = load_chrome_trace(str(job / "trace.json"))
+    windows = [e for e in spans if e["name"] == "train.window"]
+    if len(windows) != TEL_WINDOWS:
+        fail(f"telemetry: {len(windows)} train.window spans, want "
+             f"{TEL_WINDOWS}")
+    if not run["trace"] or not Path(run["trace"]).is_file():
+        fail(f"telemetry: no profiler trace at {run['trace']}")
+    names = {e.get("name") for e in trace_events(run["trace"])}
+    for r in ("window_fwd_bwd", "window_optimizer_update",
+              *(f"train_window#{w}" for w in range(
+                  TEL_PROFILE[0], TEL_PROFILE[0] + TEL_PROFILE[1]))):
+        if r not in names:
+            fail(f"telemetry: the profiler trace has no {r} range")
+    fwd_bwd = kernels_in_ranges(
+        run["trace"], ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                       "flash_bwd_dkv_kernel"), "window_fwd_bwd")
+    update = kernels_in_ranges(run["trace"], ("lamb_phase1_kernel",),
+                               "window_optimizer_update")
+    per = N_LAYER * 2 * TEL_PROFILE[1]  # layers x micro-steps x windows
+    want = {"flash_fwd_kernel": per, "flash_bwd_dq_kernel": per,
+            "flash_bwd_dkv_kernel": per}
+    if fwd_bwd != want or update.get("lamb_phase1_kernel") != 6 * \
+            TEL_PROFILE[1]:
+        fail(f"telemetry: the profiler trace holds {fwd_bwd} inside "
+             f"window_fwd_bwd (want {want}) and {update} inside "
+             "window_optimizer_update (want 6 a window)")
+    monitor = Path(out_dir) / "monitor"
+    if (monitor / "events.jsonl").is_file():
+        mtags = {(e["tag"], e["step"])
+                 for e in read_jsonl(monitor / "events.jsonl")}
+        monitor_file = "events.jsonl"
+    else:
+        # PyTorch's TensorBoard writer (the tensorboard package is
+        # installed): read its event files back with that package
+        from tensorboard.backend.event_processing.event_accumulator import (
+            EventAccumulator,
+        )
+
+        tb = sorted(p.name for p in monitor.glob("events.out.tfevents*"))
+        if not tb:
+            fail(f"telemetry: the monitor wrote nothing under {monitor}")
+        acc = EventAccumulator(str(monitor))
+        acc.Reload()
+        mtags = {(tag, e.step) for tag in acc.Tags()["scalars"]
+                 for e in acc.Scalars(tag)}
+        monitor_file = tb[0]
+    want_m = {(t, s) for t in ("Train/loss", "Train/lr", "Train/loss_scale",
+                               "Train/grad_norm")
+              for s in range(1, TEL_WINDOWS + 1)}
+    if not want_m <= mtags:
+        fail(f"telemetry: the monitor's {monitor_file} lacks "
+             f"{sorted(want_m - mtags)[:4]}")
+    return dict(last_export=got, fwd_bwd_kernels=fwd_bwd,
+                update_kernels=update, monitor_file=monitor_file,
+                catalog_names=len(ENGINE_METRICS))
+
+
+def tel_serve(model, prompts, hit, out_dir):
+    """The phase 4 requests (4 prompts and a prefix hit, 32 new tokens,
+    bf16, fused decode) with telemetry and tracing on (``out_dir``) or
+    off (None). Returns (tokens, stats)."""
+    import deepspeed_tpu_torch
+
+    config = engine_config("bf16", True)
+    if out_dir is not None:
+        config["telemetry"] = telemetry_block(out_dir, profile=False)
+    engine = deepspeed_tpu_torch.init_inference(model=model, config=config)
+    try:
+        t0 = time.monotonic()
+        out = engine.generate(prompts, max_new_tokens=32)
+        out += engine.generate([hit], max_new_tokens=32)
+        st = engine_stats(engine, time.monotonic() - t0)
+    finally:
+        engine.close()
+    st["decode_tokens_per_s"] = (st["tokens"] - st["requests"]) / (
+        st["decode_ms_sum"] / 1e3)
+    return out, st
+
+
+def check_serving_sinks(out_dir, st):
+    """Read back the traced serving run: one sched.request, queue and
+    prefill span per request, decode-step spans, and the infer/*
+    catalog in metrics.jsonl."""
+    from deepspeed_tpu_torch.telemetry.manager import INFERENCE_METRICS
+    from deepspeed_tpu_torch.telemetry.tracing import load_chrome_trace
+
+    job = Path(out_dir) / "gpt2"
+    for name in ("metrics.jsonl", "metrics.prom", "trace.json"):
+        if not (job / name).is_file():
+            fail(f"serving telemetry: {job / name} was not written")
+    spans = load_chrome_trace(str(job / "trace.json"))
+    counts = {}
+    for e in spans:
+        counts[e["name"]] = counts.get(e["name"], 0) + 1
+    n = int(st["requests"])
+    for name in ("sched.request", "sched.queue", "sched.prefill"):
+        if counts.get(name) != n:
+            fail(f"serving telemetry: {counts.get(name)} {name} spans for "
+                 f"{n} requests")
+    if counts.get("sched.decode_step", 0) < st["decode_steps"]:
+        fail(f"serving telemetry: {counts.get('sched.decode_step')} decode "
+             f"step spans for {st['decode_steps']} decode steps")
+    tags = {r["tag"] for r in read_jsonl(job / "metrics.jsonl")}
+    missing = sorted(n for _, n, _ in INFERENCE_METRICS if n not in tags)
+    if missing:
+        fail(f"serving telemetry: metrics.jsonl lacks {missing}")
+    return counts
+
+
+def phase_telemetry(seed, card):
+    """Phase 8: the telemetry core at full width and depth. Training:
+    GPT-2 small with FusedLamb, TEL_WINDOWS windows, runs in the order
+    off, on, on, off (the full telemetry block, tensorboard and the
+    breakdowns); the step median over the steady windows, the device-to-
+    host copies of the two profiled non-export windows in each run, and
+    every sink the telemetry wrote read back. Serving: the phase 4
+    requests with tracing (sample rate 1) off, on, on, off; TTFT and
+    decode tokens/s, and the traced run's spans and metrics read back.
+    Returns (launches by path, stats)."""
+    import tempfile
+
+    from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
+
+    runs, checks, launches = [], None, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, on in enumerate((False, True, True, False)):
+            out_dir = str(Path(tmp) / f"train{i}")
+            Path(out_dir).mkdir()
+            log(f"phase 8: GPT-2 small, FusedLamb, {TEL_WINDOWS} windows, "
+                f"telemetry {'on' if on else 'off'}")
+            run = tel_train(seed, out_dir, on)
+            run["on"] = on
+            run["dtoh_per_window"] = dtoh_copies(run["trace"]) / TEL_PROFILE[1]
+            log(f"  step median {run['step_ms']:.3f} ms, DtoH copies a "
+                f"non-export window {run['dtoh_per_window']}, losses "
+                f"{run['losses']}, timers {run['timers']}, watchdog stalls "
+                f"{run['stalls']}")
+            if on:
+                if run["stalls"] != 0:
+                    fail(f"telemetry: the watchdog reported {run['stalls']} "
+                         "stalls")
+                if run["timers"] != ["backward", "forward", "step",
+                                     "train_batch_window"]:
+                    fail(f"telemetry: wall_clock_breakdown timers "
+                         f"{run['timers']}")
+                checks = check_training_sinks(out_dir, run)
+                log(f"  sinks read back: {json.dumps(checks)}")
+                launches["telemetry_train"] = run["launches"]
+            runs.append(run)
+        on_dtoh = {r["dtoh_per_window"] for r in runs if r["on"]}
+        off_dtoh = {r["dtoh_per_window"] for r in runs if not r["on"]}
+        if max(on_dtoh) > min(off_dtoh):
+            fail(f"telemetry: a non-export window made {on_dtoh} device-to-"
+                 f"host copies with the telemetry on, {off_dtoh} without")
+
+        cfg = GPT2Config.small()
+        model = GPT2LMHeadModel(cfg, device="cuda", seed=seed)
+        prompts, hit = prompts_for(seed, cfg.vocab_size)
+        tel_serve(model, [prompts[0]], prompts[0][:8], None)  # warm-up
+        serving, traced = [], None
+        for i, on in enumerate((False, True, True, False)):
+            out_dir = str(Path(tmp) / f"serve{i}") if on else None
+            log(f"phase 8: serving, tracing {'on' if on else 'off'}")
+            zero_launches()
+            out, st = tel_serve(model, prompts, hit, out_dir)
+            torch.cuda.synchronize()
+            got = read_launches()
+            if (got["paged_decode"] != N_LAYER * st["decode_steps"]
+                    or got["flash_fwd"] < N_LAYER * st["cold_prefills"]):
+                fail(f"serving telemetry: launches {got} for "
+                     f"{st['decode_steps']} decode steps")
+            if serving and out != serving[0]["tokens"]:
+                fail("serving telemetry: greedy tokens differ with tracing "
+                     "on and off")
+            log(f"  TTFT mean {st['ttft_ms_mean']:.3f} ms, decode "
+                f"{st['decode_tokens_per_s']:.1f} tokens/s over "
+                f"{st['decode_steps']} steps on {card}")
+            if on and traced is None:
+                traced = check_serving_sinks(out_dir, st)
+                launches["telemetry_serve"] = got
+                log(f"  spans read back: {json.dumps(traced)}")
+            serving.append(dict(on=on, tokens=out, ttft_ms=st["ttft_ms_mean"],
+                                decode_tokens_per_s=st[
+                                    "decode_tokens_per_s"]))
+    return launches, {
+        "train_order": ["off", "on", "on", "off"],
+        "train_step_ms": [r["step_ms"] for r in runs],
+        "train_dtoh_per_non_export_window": [r["dtoh_per_window"]
+                                             for r in runs],
+        "train_window_s": [r["secs"] for r in runs],
+        "train_last_export": checks["last_export"],
+        "profile_kernels_in_window_fwd_bwd": checks["fwd_bwd_kernels"],
+        "profile_kernels_in_window_optimizer_update":
+            checks["update_kernels"],
+        "monitor_file": checks["monitor_file"],
+        "serve_order": ["off", "on", "on", "off"],
+        "serve_ttft_ms": [r["ttft_ms"] for r in serving],
+        "serve_decode_tokens_per_s": [r["decode_tokens_per_s"]
+                                      for r in serving],
+        "serve_span_counts": traced,
+    }
+
+
+def cold_build_telemetry(seed, card):
+    """``--cold-telemetry``: one telemetry-on training run (no profiler)
+    whose first window builds the kernels in an empty build directory,
+    with a watchdog timeout of 5 s polled every 0.5 s. The watchdog arms
+    at the first completed window, so the build inside it must not read
+    as a stall."""
+    import shutil
+    import tempfile
+
+    from deepspeed_tpu_torch.ops import kernel_lib
+
+    kernel_lib.BUILD_DIR.parent.mkdir(parents=True, exist_ok=True)
+    cold = Path(tempfile.mkdtemp(prefix="cold-",
+                                 dir=kernel_lib.BUILD_DIR.parent))
+    kernel_lib.BUILD_DIR = cold
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            run = tel_train(seed, tmp, True, profile=False, timeout=5.0,
+                            poll=0.5)
+    finally:
+        shutil.rmtree(cold)
+    log(f"  first window {run['secs'][0]:.1f} s (the build), later windows "
+        f"{[round(x, 3) for x in run['secs'][1:]]} s, watchdog stalls "
+        f"{run['stalls']} on {card}")
+    if run["stalls"] != 0:
+        fail(f"cold build: the watchdog reported {run['stalls']} stalls")
+    return {"first_window_s": run["secs"][0], "window_s": run["secs"],
+            "watchdog_timeout_s": 5.0, "stalls": run["stalls"]}
 
 
 def only_kernels(device, seed):
@@ -2179,6 +2784,10 @@ def main():
                         help="build LAMB phase 1 and SGMV alone and print "
                         "their timings (to time another checkout the same "
                         "way)")
+    parser.add_argument("--cold-telemetry", action="store_true",
+                        help="one telemetry-on training run whose first "
+                        "window builds the kernels in an empty build "
+                        "directory, under a 5 s watchdog")
     args = parser.parse_args()
 
     # phase 1: probe
@@ -2213,6 +2822,12 @@ def main():
                           "card": smi}))
         return
 
+    if args.cold_telemetry:
+        print(json.dumps({"cold_telemetry": cold_build_telemetry(args.seed,
+                                                                 smi),
+                          "card": smi}))
+        return
+
     # phase 2: build
     t0 = time.monotonic()
     built = kernel_lib.build()
@@ -2233,8 +2848,10 @@ def main():
     launches, train_stats = phase_train(args.seed, smi)
     adapter_launches, adapter_stats = phase_adapters(args.seed, smi)
     hd_launches, hd_stats = phase_head_dims(args.seed, smi)
+    tel_launches, tel_stats = phase_telemetry(args.seed, smi)
     for path, counts in [("serve", serve_launches),
-                         *adapter_launches.items(), *hd_launches.items()]:
+                         *adapter_launches.items(), *hd_launches.items(),
+                         *tel_launches.items()]:
         for name, n in counts.items():
             launches[name][path] = n
     for name, by_path in launches.items():
@@ -2255,11 +2872,41 @@ def main():
         adapter_stats["profile_sgmv_ms_per_decode_step"]
     )
     kernels["flash_fwd"]["head_dims"] = hd_stats["flash"]
-    kernels["paged_decode"]["head_dims"] = hd_stats["paged_decode"]
+    kernels["paged_decode"]["head_dims"] = {
+        hd: e for hd, e in hd_stats["paged_decode"].items()
+        if hd not in HD_TAIL}
+    # the D = 256 instantiations (head dims 129-256) and paged decode's
+    # tail path (head dims that are not whole 16-byte rows), each with the
+    # launches of the phase 7 paths that run them
+    for name, src, tpu in (("flash_fwd", FLASH_SOURCE, FLASH_TPU),
+                           ("flash_bwd_dq", BWD_SOURCE, DQ_TPU),
+                           ("flash_bwd_dkv", BWD_SOURCE, DKV_TPU)):
+        by_path = {p: hd_launches[p][name]
+                   for p in ("hd192_train", "hd192_serve")}
+        kernels[f"{name} d256"] = dict(
+            name=f"{name} d256", route="cuda",
+            route_detail="FMA, every dtype (head dims 129-256, zero-padded)",
+            source=src, replaces=tpu, tpu_kernel=tpu,
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            **hd_stats["flash_wide"][256][name],
+            d192=hd_stats["flash_wide"][192][name])
+    tail = hd_stats["paged_decode"]
+    kernels["paged_decode tail"] = dict(
+        name="paged_decode tail", route="cuda",
+        route_detail="head dims not a multiple of 16: 8-, 4- or 2-byte "
+        "copies, pad lanes zero", source=DECODE_SOURCE,
+        replaces=DECODE_TPU, tpu_kernel=DECODE_TPU,
+        launches=hd_launches["hd8_serve"]["paged_decode"],
+        launches_by_path={"hd8_serve":
+                          hd_launches["hd8_serve"]["paged_decode"]},
+        **tail[8], library_ms=None, library=None,
+        tails={hd: tail[hd] for hd in HD_TAIL})
     log(json.dumps({"slice": slice_stats, "train": train_stats,
                     "adapters": adapter_stats, "card": smi,
+                    "telemetry": tel_stats,
                     "head_dims": {k: v for k, v in hd_stats.items()
-                                  if k not in ("flash", "paged_decode")}}))
+                                  if k not in ("flash", "flash_wide",
+                                               "paged_decode")}}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

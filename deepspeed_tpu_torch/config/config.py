@@ -1,20 +1,29 @@
-"""Config parser for the port: the serving, training and adapters blocks.
+"""Config parser for the port: the serving, training, adapters and
+observability blocks.
 
-The ``inference`` block, the ``adapters`` block and the training blocks
+The ``inference`` block, the ``adapters`` block, the training blocks
 (the batch triangle, ``optimizer``, ``scheduler``, ``fp16``/``bf16``,
-``gradient_clipping``, ``zero_optimization``, ``steps_per_print``,
-``data_types``) of the JAX
-package's DeepSpeedConfig (deepspeed_tpu/config/config.py), with the same
-keys, defaults and rejections: a config the JAX package refuses, this
-one refuses too. The batch triangle is resolved only for a training
+``gradient_clipping``, ``zero_optimization`` through
+:class:`~.zero_config.DeepSpeedZeroConfig`, ``activation_checkpointing``,
+``steps_per_print``, ``data_types``) and the observability blocks
+(``tensorboard``, ``wall_clock_breakdown``, ``memory_breakdown``,
+``telemetry`` with its ``tracing`` sub-block) of the JAX package's
+DeepSpeedConfig (deepspeed_tpu/config/config.py), with the same keys,
+defaults and rejections, error text included: a config the JAX package
+refuses, this one refuses too. The batch triangle is resolved only for a training
 config (``training=True``, as ``initialize()`` builds it): an inference
 config names no batch size. ``world_size`` defaults to the initialised
 ``torch.distributed`` world size (1 without a group), where the JAX
 package read ``jax.device_count()``.
 """
 
+from ..utils.logging import logger
 from . import constants as C
+from .activation_checkpointing_config import (
+    DeepSpeedActivationCheckpointingConfig,
+)
 from .config_utils import get_dict_param, get_scalar_param, load_config_json
+from .zero_config import DeepSpeedZeroConfig
 
 
 class DeepSpeedConfigError(Exception):
@@ -57,8 +66,10 @@ class DeepSpeedConfig:
         if training:
             self._configure_batch_parameters()
             self._check_training()
+        self._check_telemetry()
         self._check_inference()
         self._check_adapters()
+        self._do_warning_check()
 
     def _initialize(self, pd):
         # adapters block (adapters/, docs/adapters.md)
@@ -82,6 +93,7 @@ class DeepSpeedConfig:
             ad_dict, C.ADAPTERS_POOL_SLOTS, C.ADAPTERS_POOL_SLOTS_DEFAULT
         )
         self._initialize_training(pd)
+        self._initialize_observability(pd)
 
         # inference block (docs/inference.md)
         inf_dict = get_dict_param(pd, C.INFERENCE)
@@ -209,6 +221,116 @@ class DeepSpeedConfig:
             C.INFERENCE_CHECKPOINT_TAG_DEFAULT,
         )
 
+    def _initialize_observability(self, pd):
+        """The timers (``wall_clock_breakdown``), ``memory_breakdown``,
+        the monitor (``tensorboard``) and the ``telemetry`` block, as the
+        JAX parser reads them."""
+        self.wall_clock_breakdown = get_scalar_param(
+            pd, C.WALL_CLOCK_BREAKDOWN, C.WALL_CLOCK_BREAKDOWN_DEFAULT
+        )
+        self.memory_breakdown = get_scalar_param(
+            pd, C.MEMORY_BREAKDOWN, C.MEMORY_BREAKDOWN_DEFAULT
+        )
+        tb_dict = get_dict_param(pd, C.TENSORBOARD)
+        self.tensorboard_enabled = get_scalar_param(
+            tb_dict, C.TENSORBOARD_ENABLED, C.TENSORBOARD_ENABLED_DEFAULT
+        )
+        self.tensorboard_output_path = get_scalar_param(
+            tb_dict, C.TENSORBOARD_OUTPUT_PATH, C.TENSORBOARD_OUTPUT_PATH_DEFAULT
+        )
+        self.tensorboard_job_name = get_scalar_param(
+            tb_dict, C.TENSORBOARD_JOB_NAME, C.TENSORBOARD_JOB_NAME_DEFAULT
+        )
+
+        # telemetry block (telemetry/, docs/observability.md)
+        tel_dict = get_dict_param(pd, C.TELEMETRY)
+        self.telemetry_enabled = get_scalar_param(
+            tel_dict, C.TELEMETRY_ENABLED, C.TELEMETRY_ENABLED_DEFAULT
+        )
+        self.telemetry_output_path = get_scalar_param(
+            tel_dict, C.TELEMETRY_OUTPUT_PATH, C.TELEMETRY_OUTPUT_PATH_DEFAULT
+        )
+        self.telemetry_job_name = get_scalar_param(
+            tel_dict, C.TELEMETRY_JOB_NAME, C.TELEMETRY_JOB_NAME_DEFAULT
+        )
+        self.telemetry_interval = get_scalar_param(
+            tel_dict, C.TELEMETRY_INTERVAL, C.TELEMETRY_INTERVAL_DEFAULT
+        )
+        # keep a non-list value (a bare string would list() into
+        # characters, an int would TypeError) for _check_telemetry to
+        # reject with a config error instead
+        exporters = tel_dict.get(
+            C.TELEMETRY_EXPORTERS, C.TELEMETRY_EXPORTERS_DEFAULT
+        )
+        self.telemetry_exporters = (
+            list(exporters) if isinstance(exporters, (list, tuple))
+            else exporters
+        )
+        self.telemetry_prometheus_path = get_scalar_param(
+            tel_dict,
+            C.TELEMETRY_PROMETHEUS_PATH,
+            C.TELEMETRY_PROMETHEUS_PATH_DEFAULT,
+        )
+        profile_dict = get_dict_param(tel_dict, C.TELEMETRY_PROFILE)
+        self.telemetry_profile_start_step = get_scalar_param(
+            profile_dict,
+            C.TELEMETRY_PROFILE_START_STEP,
+            C.TELEMETRY_PROFILE_START_STEP_DEFAULT,
+        )
+        self.telemetry_profile_num_steps = get_scalar_param(
+            profile_dict,
+            C.TELEMETRY_PROFILE_NUM_STEPS,
+            C.TELEMETRY_PROFILE_NUM_STEPS_DEFAULT,
+        )
+        self.telemetry_profile_output_path = get_scalar_param(
+            profile_dict,
+            C.TELEMETRY_PROFILE_OUTPUT_PATH,
+            C.TELEMETRY_PROFILE_OUTPUT_PATH_DEFAULT,
+        )
+        watchdog_dict = get_dict_param(tel_dict, C.TELEMETRY_WATCHDOG)
+        self.telemetry_watchdog_enabled = self.telemetry_enabled and get_scalar_param(
+            watchdog_dict,
+            C.TELEMETRY_WATCHDOG_ENABLED,
+            C.TELEMETRY_WATCHDOG_ENABLED_DEFAULT,
+        )
+        self.telemetry_watchdog_timeout = get_scalar_param(
+            watchdog_dict,
+            C.TELEMETRY_WATCHDOG_TIMEOUT,
+            C.TELEMETRY_WATCHDOG_TIMEOUT_DEFAULT,
+        )
+        self.telemetry_watchdog_poll_interval = get_scalar_param(
+            watchdog_dict,
+            C.TELEMETRY_WATCHDOG_POLL_INTERVAL,
+            C.TELEMETRY_WATCHDOG_POLL_INTERVAL_DEFAULT,
+        )
+        # tracing sub-block (telemetry/tracing.py): request tracing +
+        # flight recorder. Like the watchdog it rides the telemetry
+        # master switch — tracing with no telemetry block is inert.
+        tracing_dict = get_dict_param(tel_dict, C.TELEMETRY_TRACING)
+        self._telemetry_tracing_keys = list(tracing_dict)
+        self.telemetry_tracing_enabled = self.telemetry_enabled and (
+            get_scalar_param(
+                tracing_dict,
+                C.TELEMETRY_TRACING_ENABLED,
+                C.TELEMETRY_TRACING_ENABLED_DEFAULT,
+            )
+        )
+        self.telemetry_tracing_sample_rate = get_scalar_param(
+            tracing_dict,
+            C.TELEMETRY_TRACING_SAMPLE_RATE,
+            C.TELEMETRY_TRACING_SAMPLE_RATE_DEFAULT,
+        )
+        self.telemetry_tracing_ring_events = get_scalar_param(
+            tracing_dict,
+            C.TELEMETRY_TRACING_RING_EVENTS,
+            C.TELEMETRY_TRACING_RING_EVENTS_DEFAULT,
+        )
+        self.telemetry_tracing_export = get_scalar_param(
+            tracing_dict,
+            C.TELEMETRY_TRACING_EXPORT,
+            C.TELEMETRY_TRACING_EXPORT_DEFAULT,
+        )
+
     def _initialize_training(self, pd):
         """The training blocks' keys, as the JAX parser reads them; the
         data_types values are checked here, as there."""
@@ -235,45 +357,16 @@ class DeepSpeedConfig:
 
         # zero_optimization: an object, or the deprecated boolean form
         # (true => stage 1)
-        raw_zero = pd.get(C.ZERO_OPTIMIZATION)
-        self._zero_keys = frozenset()
-        self.zero_offload_optimizer_device = C.ZERO_OFFLOAD_DEVICE_DEFAULT
-        if isinstance(raw_zero, bool):
-            self.zero_optimization_stage = (
-                C.ZERO_OPTIMIZATION_OPTIMIZER_STATES if raw_zero
-                else C.ZERO_OPTIMIZATION_DISABLED
-            )
-        elif isinstance(raw_zero, dict):
-            self._zero_keys = frozenset(raw_zero)
-            self.zero_optimization_stage = raw_zero.get(
-                C.ZERO_STAGE, C.ZERO_STAGE_DEFAULT
-            )
-            off = raw_zero.get(C.ZERO_OFFLOAD_OPTIMIZER)
-            if off is not None:
-                if not isinstance(off, dict):
-                    raise TypeError(
-                        f"'{C.ZERO_OFFLOAD_OPTIMIZER}' must be an object, "
-                        f"got {type(off).__name__}"
-                    )
-                device = off.get(
-                    C.ZERO_OFFLOAD_DEVICE, C.ZERO_OFFLOAD_DEVICE_DEFAULT
-                )
-                if device not in ("none", "cpu"):
-                    raise ValueError(
-                        f"{C.ZERO_OFFLOAD_OPTIMIZER}.{C.ZERO_OFFLOAD_DEVICE} "
-                        f"must be 'none' or 'cpu', got {device!r}"
-                    )
-                self.zero_offload_optimizer_device = device
-        elif raw_zero is None:
-            self.zero_optimization_stage = C.ZERO_STAGE_DEFAULT
-        else:
-            raise TypeError(
-                f"'{C.ZERO_OPTIMIZATION}' must be a bool or object, got "
-                f"{type(raw_zero).__name__}"
-            )
+        self.zero_config = DeepSpeedZeroConfig(pd)
+        self.zero_optimization_stage = self.zero_config.stage
         stage = self.zero_optimization_stage
         self.zero_enabled = (
             isinstance(stage, int) and not isinstance(stage, bool) and stage > 0
+        )
+        # parsed only: remat is not ported (the engine refuses a model
+        # that asks for it)
+        self.activation_checkpointing_config = (
+            DeepSpeedActivationCheckpointingConfig(pd)
         )
 
         fp16_dict = get_dict_param(pd, C.FP16)
@@ -411,6 +504,22 @@ class DeepSpeedConfig:
     def _check_training(self):
         """The JAX parser's error checks on the training blocks (ZeRO
         stage and keys, fp16 with bf16, the loss scale)."""
+        self._check_zero()
+        if self.fp16_enabled and self.bf16_enabled:
+            raise DeepSpeedConfigError("fp16 and bf16 cannot both be enabled")
+        if self.loss_scale < 0:
+            raise DeepSpeedConfigError(
+                f"loss_scale must be >= 0, got {self.loss_scale}"
+            )
+
+    def _check_zero(self):
+        """Validate the zero_optimization block. Every key must be known
+        (a typo'd knob must not silently mean its default), the stage
+        must be a real stage, and the stage-3 overlap knobs are REJECTED
+        below stage 3 — a config that spells out stage-3 machinery while
+        a typo'd stage leaves params replicated should fail at init, not
+        train at the wrong memory profile."""
+        zc = self.zero_config
         stage = self.zero_optimization_stage
         if (
             not isinstance(stage, int)
@@ -421,15 +530,18 @@ class DeepSpeedConfig:
             raise DeepSpeedConfigError(
                 f"ZeRO stage {stage!r} not supported; stages are 0.."
                 f"{C.MAX_STAGE_ZERO_OPTIMIZATION} "
-                f"({C.MAX_STAGE_ZERO_OPTIMIZATION} = parameter partitioning)"
+                f"({C.MAX_STAGE_ZERO_OPTIMIZATION} = parameter "
+                "partitioning)"
             )
-        unknown = sorted(self._zero_keys - set(C.ZERO_VALID_KEYS))
+        unknown = sorted(set(zc.explicit_keys) - set(C.ZERO_VALID_KEYS))
         if unknown:
             raise DeepSpeedConfigError(
                 f"unknown {C.ZERO_OPTIMIZATION} key(s) {unknown}; valid: "
                 f"{sorted(C.ZERO_VALID_KEYS)}"
             )
-        stage3_set = [k for k in C.ZERO_STAGE3_ONLY_KEYS if k in self._zero_keys]
+        stage3_set = [
+            k for k in C.ZERO_STAGE3_ONLY_KEYS if k in zc.explicit_keys
+        ]
         if stage3_set and stage < C.ZERO_OPTIMIZATION_WEIGHTS:
             raise DeepSpeedConfigError(
                 f"{C.ZERO_OPTIMIZATION} key(s) {stage3_set} configure "
@@ -437,11 +549,150 @@ class DeepSpeedConfig:
                 f'"{C.ZERO_STAGE}": {C.ZERO_OPTIMIZATION_WEIGHTS} or '
                 "remove them"
             )
-        if self.fp16_enabled and self.bf16_enabled:
-            raise DeepSpeedConfigError("fp16 and bf16 cannot both be enabled")
-        if self.loss_scale < 0:
+        gb = zc.stage3_gather_block
+        if not isinstance(gb, int) or isinstance(gb, bool) or gb < 1:
             raise DeepSpeedConfigError(
-                f"loss_scale must be >= 0, got {self.loss_scale}"
+                f"{C.ZERO_OPTIMIZATION}.{C.ZERO_STAGE3_GATHER_BLOCK} "
+                f"must be an integer >= 1, got {gb!r}"
+            )
+        if not isinstance(zc.stage3_latency_hiding, bool):
+            raise DeepSpeedConfigError(
+                f"{C.ZERO_OPTIMIZATION}.{C.ZERO_STAGE3_LATENCY_HIDING} "
+                f"must be a bool, got {zc.stage3_latency_hiding!r}"
+            )
+
+    def _check_telemetry(self):
+        """Validate the telemetry block (like the tensorboard block, but
+        with cross-field constraints worth failing loudly on)."""
+        if not isinstance(self.telemetry_exporters, list) or not all(
+            isinstance(e, str) for e in self.telemetry_exporters
+        ):
+            raise DeepSpeedConfigError(
+                f"{C.TELEMETRY}.{C.TELEMETRY_EXPORTERS} must be a list of "
+                f"strings, got {self.telemetry_exporters!r}"
+            )
+        for exporter in self.telemetry_exporters:
+            if exporter not in C.TELEMETRY_VALID_EXPORTERS:
+                raise DeepSpeedConfigError(
+                    f"unknown telemetry exporter {exporter!r}; valid: "
+                    f"{list(C.TELEMETRY_VALID_EXPORTERS)}"
+                )
+        if (
+            not isinstance(self.telemetry_interval, int)
+            or isinstance(self.telemetry_interval, bool)
+            or self.telemetry_interval < 1
+        ):
+            raise DeepSpeedConfigError(
+                f"{C.TELEMETRY}.{C.TELEMETRY_INTERVAL} must be an integer "
+                f">= 1, got {self.telemetry_interval!r}"
+            )
+        # type-check numerics up front: a string like "600" would hit the
+        # range comparisons below as a raw TypeError instead of a config
+        # error naming the field
+        for field, value, want_int in (
+            (f"{C.TELEMETRY_PROFILE}.{C.TELEMETRY_PROFILE_START_STEP}",
+             self.telemetry_profile_start_step, True),
+            (f"{C.TELEMETRY_PROFILE}.{C.TELEMETRY_PROFILE_NUM_STEPS}",
+             self.telemetry_profile_num_steps, True),
+            (f"{C.TELEMETRY_WATCHDOG}.{C.TELEMETRY_WATCHDOG_TIMEOUT}",
+             self.telemetry_watchdog_timeout, False),
+            (f"{C.TELEMETRY_WATCHDOG}.{C.TELEMETRY_WATCHDOG_POLL_INTERVAL}",
+             self.telemetry_watchdog_poll_interval, False),
+        ):
+            if value is None and not want_int:
+                continue  # watchdog fields accept null (poll -> timeout/4)
+            ok = (
+                isinstance(value, int) if want_int
+                else isinstance(value, (int, float))
+            ) and not isinstance(value, bool)
+            if not ok:
+                raise DeepSpeedConfigError(
+                    f"{C.TELEMETRY}.{field} must be "
+                    f"{'an integer' if want_int else 'a number'}, "
+                    f"got {value!r}"
+                )
+        if self.telemetry_profile_start_step < -1:
+            raise DeepSpeedConfigError(
+                f"{C.TELEMETRY}.{C.TELEMETRY_PROFILE}."
+                f"{C.TELEMETRY_PROFILE_START_STEP} must be >= 0 (or -1 for "
+                f"disabled), got {self.telemetry_profile_start_step}"
+            )
+        if (
+            self.telemetry_profile_start_step >= 0
+            and self.telemetry_profile_num_steps < 1
+        ):
+            raise DeepSpeedConfigError(
+                f"{C.TELEMETRY}.{C.TELEMETRY_PROFILE}."
+                f"{C.TELEMETRY_PROFILE_NUM_STEPS} must be >= 1 when a "
+                f"profile window is armed, got "
+                f"{self.telemetry_profile_num_steps}"
+            )
+        if self.telemetry_watchdog_enabled and not (
+            self.telemetry_watchdog_timeout
+            and self.telemetry_watchdog_timeout > 0
+        ):
+            raise DeepSpeedConfigError(
+                f"{C.TELEMETRY}.{C.TELEMETRY_WATCHDOG}."
+                f"{C.TELEMETRY_WATCHDOG_TIMEOUT} must be > 0 seconds, got "
+                f"{self.telemetry_watchdog_timeout!r}"
+            )
+        if (
+            self.telemetry_watchdog_poll_interval is not None
+            and self.telemetry_watchdog_poll_interval <= 0
+        ):
+            raise DeepSpeedConfigError(
+                f"{C.TELEMETRY}.{C.TELEMETRY_WATCHDOG}."
+                f"{C.TELEMETRY_WATCHDOG_POLL_INTERVAL} must be > 0 seconds "
+                f"(or null for timeout/4), got "
+                f"{self.telemetry_watchdog_poll_interval!r}"
+            )
+        self._check_tracing()
+
+    def _check_tracing(self):
+        """Validate the telemetry.tracing sub-block (telemetry/tracing.py):
+        a typo'd sample_rate must fail at init, not silently mean
+        'sample everything'."""
+        prefix = f"{C.TELEMETRY}.{C.TELEMETRY_TRACING}"
+        known = (
+            C.TELEMETRY_TRACING_ENABLED,
+            C.TELEMETRY_TRACING_SAMPLE_RATE,
+            C.TELEMETRY_TRACING_RING_EVENTS,
+            C.TELEMETRY_TRACING_EXPORT,
+        )
+        unknown = [
+            k for k in self._telemetry_tracing_keys if k not in known
+        ]
+        if unknown:
+            raise DeepSpeedConfigError(
+                f"unknown {prefix} key(s) {unknown}; valid: {list(known)}"
+            )
+        rate = self.telemetry_tracing_sample_rate
+        if (
+            not isinstance(rate, (int, float))
+            or isinstance(rate, bool)
+            or not 0.0 <= float(rate) <= 1.0
+        ):
+            raise DeepSpeedConfigError(
+                f"{prefix}.{C.TELEMETRY_TRACING_SAMPLE_RATE} must be a "
+                f"number within [0, 1], got {rate!r}"
+            )
+        ring = self.telemetry_tracing_ring_events
+        if (
+            not isinstance(ring, int)
+            or isinstance(ring, bool)
+            or ring < 1
+        ):
+            raise DeepSpeedConfigError(
+                f"{prefix}.{C.TELEMETRY_TRACING_RING_EVENTS} must be an "
+                f"integer >= 1, got {ring!r}"
+            )
+        if self.telemetry_tracing_export not in (
+            C.TELEMETRY_TRACING_VALID_EXPORTS
+        ):
+            raise DeepSpeedConfigError(
+                f"unknown {prefix}.{C.TELEMETRY_TRACING_EXPORT} "
+                f"{self.telemetry_tracing_export!r}; valid: "
+                f"{list(C.TELEMETRY_TRACING_VALID_EXPORTS)}"
             )
 
     def _check_inference(self):
@@ -821,3 +1072,30 @@ class DeepSpeedConfig:
                 f"{ad}.{C.ADAPTERS_POOL_SLOTS} must be an integer >= 1 "
                 f"loadable adapters, got {slots!r}"
             )
+
+    def _do_warning_check(self):
+        if self.zero_enabled and not (self.fp16_enabled or self.bf16_enabled):
+            # DeepSpeed hard-errored here (ZeRO required fp16); the JAX
+            # package warns, and so does the port
+            logger.warning(
+                "ZeRO is enabled without fp16/bf16; proceeding with fp32 "
+                "(the reference implementation required fp16 here)."
+            )
+        vocab_size = self._param_dict.get("vocabulary_size")
+        if vocab_size is not None and vocab_size % 8 != 0:
+            logger.warning(
+                "vocabulary_size %d is not divisible by 8; pad for "
+                "tensor-core-friendly matmul tiling",
+                vocab_size,
+            )
+        if C.MAX_GRAD_NORM in self._param_dict:
+            logger.warning(
+                "max_grad_norm is deprecated; use gradient_clipping instead"
+            )
+
+    def print(self, name="DeepSpeedConfig"):
+        logger.info("%s:", name)
+        for key in sorted(self.__dict__):
+            if key.startswith("_"):
+                continue
+            logger.info("  %s %s", f"{key} ".ljust(32, "."), self.__dict__[key])

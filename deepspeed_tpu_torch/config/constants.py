@@ -82,42 +82,170 @@ GRADIENT_CLIPPING_DEFAULT = 0.0
 # stage 0 does (the JAX engine's dp = 1 layout).
 #############################################
 ZERO_OPTIMIZATION = "zero_optimization"
+
 ZERO_STAGE = "stage"
 ZERO_STAGE_DEFAULT = 0
+
 ZERO_OPTIMIZATION_DISABLED = 0
 ZERO_OPTIMIZATION_OPTIMIZER_STATES = 1
+ZERO_OPTIMIZATION_GRADIENTS = 2
 ZERO_OPTIMIZATION_WEIGHTS = 3
 MAX_STAGE_ZERO_OPTIMIZATION = ZERO_OPTIMIZATION_WEIGHTS
+
+ZERO_ALLGATHER_PARTITIONS = "allgather_partitions"
+ZERO_ALLGATHER_PARTITIONS_DEFAULT = True
+
+ZERO_ALLGATHER_BUCKET_SIZE = "allgather_bucket_size"
+ZERO_ALLGATHER_BUCKET_SIZE_DEFAULT = 500000000
+ZERO_ALLGATHER_BUCKET_SIZE_DEPRECATED = "allgather_size"
+
+ZERO_REDUCE_SCATTER = "reduce_scatter"
+ZERO_REDUCE_SCATTER_DEFAULT = True
+
+ZERO_REDUCE_BUCKET_SIZE = "reduce_bucket_size"
+ZERO_REDUCE_BUCKET_SIZE_DEFAULT = 500000000
+
+ZERO_OVERLAP_COMM = "overlap_comm"
+ZERO_OVERLAP_COMM_DEFAULT = False
+
+ZERO_CONTIGUOUS_GRADIENTS = "contiguous_gradients"
+ZERO_CONTIGUOUS_GRADIENTS_DEFAULT = False
+
+ZERO_LOAD_FROM_FP32_WEIGHTS = "load_from_fp32_weights"
+ZERO_LOAD_FROM_FP32_WEIGHTS_DEFAULT = True
+
+ZERO_MAX_ELEMENTS_PER_COMM = "max_elements_per_comm"
+ZERO_MAX_ELEMENTS_PER_COMM_DEFAULT = 500000000
+
+ZERO_MASTER_WEIGHTS = "master_weights"
+ZERO_MASTER_WEIGHTS_DEFAULT = True
+
 ZERO_OFFLOAD_OPTIMIZER = "offload_optimizer"
 ZERO_OFFLOAD_DEVICE = "device"
 ZERO_OFFLOAD_DEVICE_DEFAULT = "none"
+
+# stage-3 collective/compute overlap knobs (parsed and checked; the port
+# runs no stage-3 layout until distributed ZeRO is ported)
 ZERO_STAGE3_GATHER_BLOCK = "stage3_gather_block"
+ZERO_STAGE3_GATHER_BLOCK_DEFAULT = 2
 ZERO_STAGE3_LATENCY_HIDING = "stage3_latency_hiding"
+ZERO_STAGE3_LATENCY_HIDING_DEFAULT = True
+
 # every key the zero_optimization object accepts (anything else is
 # refused: a typo'd knob must not silently mean its default)
 ZERO_VALID_KEYS = (
     ZERO_STAGE,
-    "allgather_partitions",
-    "allgather_bucket_size",
-    "allgather_size",
-    "reduce_scatter",
-    "reduce_bucket_size",
-    "overlap_comm",
-    "contiguous_gradients",
-    "load_from_fp32_weights",
-    "max_elements_per_comm",
-    "master_weights",
+    ZERO_ALLGATHER_PARTITIONS,
+    ZERO_ALLGATHER_BUCKET_SIZE,
+    ZERO_ALLGATHER_BUCKET_SIZE_DEPRECATED,
+    ZERO_REDUCE_SCATTER,
+    ZERO_REDUCE_BUCKET_SIZE,
+    ZERO_OVERLAP_COMM,
+    ZERO_CONTIGUOUS_GRADIENTS,
+    ZERO_LOAD_FROM_FP32_WEIGHTS,
+    ZERO_MAX_ELEMENTS_PER_COMM,
+    ZERO_MASTER_WEIGHTS,
     ZERO_OFFLOAD_OPTIMIZER,
     ZERO_STAGE3_GATHER_BLOCK,
     ZERO_STAGE3_LATENCY_HIDING,
 )
-ZERO_STAGE3_ONLY_KEYS = (ZERO_STAGE3_GATHER_BLOCK, ZERO_STAGE3_LATENCY_HIDING)
+# knobs that configure stage-3-only machinery
+ZERO_STAGE3_ONLY_KEYS = (
+    ZERO_STAGE3_GATHER_BLOCK,
+    ZERO_STAGE3_LATENCY_HIDING,
+)
+
+#############################################
+# Activation checkpointing (parsed only: remat is not ported yet)
+#############################################
+ACTIVATION_CHECKPOINTING = "activation_checkpointing"
+
+ACT_CKPT_PARTITION_ACTIVATIONS = "partition_activations"
+ACT_CKPT_PARTITION_ACTIVATIONS_DEFAULT = False
+
+ACT_CKPT_NUMBER_CHECKPOINTS = "number_checkpoints"
+ACT_CKPT_NUMBER_CHECKPOINTS_DEFAULT = None
+
+ACT_CKPT_CONTIGUOUS_MEMORY_OPTIMIZATION = "contiguous_memory_optimization"
+ACT_CKPT_CONTIGUOUS_MEMORY_OPTIMIZATION_DEFAULT = False
+
+ACT_CKPT_SYNCHRONIZE_CHECKPOINT_BOUNDARY = "synchronize_checkpoint_boundary"
+ACT_CKPT_SYNCHRONIZE_CHECKPOINT_BOUNDARY_DEFAULT = False
+
+ACT_CKPT_CPU_CHECKPOINTING = "cpu_checkpointing"
+ACT_CKPT_CPU_CHECKPOINTING_DEFAULT = False
+
+ACT_CKPT_PROFILE = "profile"
+ACT_CKPT_PROFILE_DEFAULT = False
+
+# the deprecated spelling of gradient_clipping (warned about)
+MAX_GRAD_NORM = "max_grad_norm"
+
+#############################################
+# Observability: the timers, the monitor and the telemetry block
+#############################################
+WALL_CLOCK_BREAKDOWN = "wall_clock_breakdown"
+WALL_CLOCK_BREAKDOWN_DEFAULT = False
+
+MEMORY_BREAKDOWN = "memory_breakdown"
+MEMORY_BREAKDOWN_DEFAULT = False
+
+TENSORBOARD = "tensorboard"
+TENSORBOARD_ENABLED = "enabled"
+TENSORBOARD_ENABLED_DEFAULT = False
+TENSORBOARD_OUTPUT_PATH = "output_path"
+TENSORBOARD_OUTPUT_PATH_DEFAULT = ""
+TENSORBOARD_JOB_NAME = "job_name"
+TENSORBOARD_JOB_NAME_DEFAULT = "DeepSpeedJobName"
+
+TELEMETRY = "telemetry"
+TELEMETRY_ENABLED = "enabled"
+TELEMETRY_ENABLED_DEFAULT = False
+TELEMETRY_OUTPUT_PATH = "output_path"
+TELEMETRY_OUTPUT_PATH_DEFAULT = ""
+TELEMETRY_JOB_NAME = "job_name"
+TELEMETRY_JOB_NAME_DEFAULT = "DeepSpeedJobName"
+# export every N accumulation windows: the one host sync that settles the
+# loss, grad norm and loss scale happens at these boundaries only
+TELEMETRY_INTERVAL = "interval"
+TELEMETRY_INTERVAL_DEFAULT = 1
+TELEMETRY_EXPORTERS = "exporters"
+TELEMETRY_EXPORTERS_DEFAULT = ("jsonl", "prometheus")
+TELEMETRY_VALID_EXPORTERS = ("jsonl", "prometheus", "tensorboard")
+TELEMETRY_PROMETHEUS_PATH = "prometheus_path"
+TELEMETRY_PROMETHEUS_PATH_DEFAULT = ""
+# profiler window (torch.profiler), counted in accumulation windows
+TELEMETRY_PROFILE = "profile"
+TELEMETRY_PROFILE_START_STEP = "start_step"
+TELEMETRY_PROFILE_START_STEP_DEFAULT = -1
+TELEMETRY_PROFILE_NUM_STEPS = "num_steps"
+TELEMETRY_PROFILE_NUM_STEPS_DEFAULT = 3
+TELEMETRY_PROFILE_OUTPUT_PATH = "output_path"
+TELEMETRY_PROFILE_OUTPUT_PATH_DEFAULT = ""
+# step-heartbeat watchdog (rides the telemetry master switch)
+TELEMETRY_WATCHDOG = "watchdog"
+TELEMETRY_WATCHDOG_ENABLED = "enabled"
+TELEMETRY_WATCHDOG_ENABLED_DEFAULT = True
+TELEMETRY_WATCHDOG_TIMEOUT = "timeout"
+TELEMETRY_WATCHDOG_TIMEOUT_DEFAULT = 600.0
+TELEMETRY_WATCHDOG_POLL_INTERVAL = "poll_interval"
+TELEMETRY_WATCHDOG_POLL_INTERVAL_DEFAULT = None  # => timeout / 4
+# request/step tracing and the flight recorder
+TELEMETRY_TRACING = "tracing"
+TELEMETRY_TRACING_ENABLED = "enabled"
+TELEMETRY_TRACING_ENABLED_DEFAULT = False
+TELEMETRY_TRACING_SAMPLE_RATE = "sample_rate"
+TELEMETRY_TRACING_SAMPLE_RATE_DEFAULT = 1.0
+TELEMETRY_TRACING_RING_EVENTS = "ring_events"
+TELEMETRY_TRACING_RING_EVENTS_DEFAULT = 512
+TELEMETRY_TRACING_EXPORT = "export"
+TELEMETRY_TRACING_EXPORT_DEFAULT = "chrome"
+TELEMETRY_TRACING_VALID_EXPORTS = ("chrome", "none")
 
 #############################################
 # Training blocks the port parses only to refuse them (not yet ported)
 #############################################
 RESILIENCE = "resilience"
-TELEMETRY = "telemetry"
 DATA_PIPELINE = "data_pipeline"
 COMPILE_CACHE = "compile_cache"
 

@@ -73,6 +73,14 @@
 // its vectors and accumulators in registers, and each dot product closes
 // with two warp shuffles. Causal tiles are issued heaviest first.
 //
+// Head dim 256, every storage type — the same FMA kernels, templated on
+// the storage type: T is loaded as float32, ds and p_drop are rounded to
+// T before their products and the outputs to T, as the tensor-core
+// kernels do. Eight threads share a row there (32 of its dims each, so
+// dK/dV's four row vectors fit in registers), and a tile stages 16 rows
+// (32 KB of static shared memory). No tensor-core kernel is compiled at
+// D = 256; these are simple kernels that are right, bound by their FMAs.
+//
 // C interface: ds_flash_bwd_dq(...) and ds_flash_bwd_dkv(...) launch on the
 // given stream, allocate nothing, and return cudaGetLastError() (or the
 // error that stopped them before the launch).
@@ -89,48 +97,52 @@
 
 namespace {
 
-constexpr int kGroup = 4;               // threads per row
-constexpr int kRows = 32;               // rows a block owns
-constexpr int kThreads = kRows * kGroup;  // 128
+constexpr int kRows = 32;  // rows a block owns
 
-// the thread's quarter of a D-vector: float4 chunks c = g + kGroup * i
-template <int D>
-__device__ __forceinline__ void load_quarter(const float* row, bool ok, int g,
-                                             float* out) {
+// The FMA kernels: float32 at D = 64 and 128, every storage type at
+// D = 256. T: storage type (loaded as float32; ds and p_drop rounded to T
+// before their products, the outputs rounded to T); G: threads that share
+// a row, each holding the float4 chunks c = g + G * i of its D-vectors.
+
+template <typename T, int D, int G>
+__device__ __forceinline__ void load_share(const T* row, bool ok, int g,
+                                           float* out) {
 #pragma unroll
-  for (int i = 0; i < D / kGroup / 4; ++i) {
+  for (int i = 0; i < D / G / 4; ++i) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      out[4 * i + e] = ok ? row[4 * (g + kGroup * i) + e] : 0.f;
+      out[4 * i + e] = ok ? sm90::to_f32(row[4 * (g + G * i) + e]) : 0.f;
     }
   }
 }
 
-template <int D>
-__device__ __forceinline__ float dot_quarter(const float* mine,
-                                             const float* shared_row, int g) {
+template <int D, int G>
+__device__ __forceinline__ float dot_share(const float* mine,
+                                           const float* shared_row, int g) {
   const float4* r = reinterpret_cast<const float4*>(shared_row);
   float part = 0.f;
 #pragma unroll
-  for (int i = 0; i < D / kGroup / 4; ++i) {
-    const float4 x = r[g + kGroup * i];
+  for (int i = 0; i < D / G / 4; ++i) {
+    const float4 x = r[g + G * i];
     part = fmaf(mine[4 * i + 0], x.x, part);
     part = fmaf(mine[4 * i + 1], x.y, part);
     part = fmaf(mine[4 * i + 2], x.z, part);
     part = fmaf(mine[4 * i + 3], x.w, part);
   }
-  part += __shfl_xor_sync(0xffffffffu, part, 1);
-  part += __shfl_xor_sync(0xffffffffu, part, 2);
+#pragma unroll
+  for (int o = 1; o < G; o <<= 1) {
+    part += __shfl_xor_sync(0xffffffffu, part, o);
+  }
   return part;
 }
 
-template <int D>
-__device__ __forceinline__ void axpy_quarter(float a, const float* shared_row,
-                                             int g, float* acc) {
+template <int D, int G>
+__device__ __forceinline__ void axpy_share(float a, const float* shared_row,
+                                           int g, float* acc) {
   const float4* r = reinterpret_cast<const float4*>(shared_row);
 #pragma unroll
-  for (int i = 0; i < D / kGroup / 4; ++i) {
-    const float4 x = r[g + kGroup * i];
+  for (int i = 0; i < D / G / 4; ++i) {
+    const float4 x = r[g + G * i];
     acc[4 * i + 0] = fmaf(a, x.x, acc[4 * i + 0]);
     acc[4 * i + 1] = fmaf(a, x.y, acc[4 * i + 1]);
     acc[4 * i + 2] = fmaf(a, x.z, acc[4 * i + 2]);
@@ -138,31 +150,29 @@ __device__ __forceinline__ void axpy_quarter(float a, const float* shared_row,
   }
 }
 
-template <int D>
-__device__ __forceinline__ void store_quarter(float* row, int g, float scale,
-                                              const float* acc) {
+template <typename T, int D, int G>
+__device__ __forceinline__ void store_share(T* row, int g, float scale,
+                                            const float* acc) {
 #pragma unroll
-  for (int i = 0; i < D / kGroup / 4; ++i) {
+  for (int i = 0; i < D / G / 4; ++i) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      row[4 * (g + kGroup * i) + e] = acc[4 * i + e] * scale;
+      row[4 * (g + G * i) + e] = sm90::from_f32<T>(acc[4 * i + e] * scale);
     }
   }
 }
 
 // dQ: one block per (bh, query tile); BK keys staged per step.
-template <int D, int BK>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
-                    const int* __restrict__ kv_mask,
-                    const float* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq,
-                    int H,
+template <typename T, int D, int BK, int G>
+__global__ void __launch_bounds__(kRows * G)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const int* __restrict__ kv_mask,
+                    const T* __restrict__ dout, const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq, int H,
                     int Sq, int Sk, int causal, float sm_scale, int dropout,
                     uint32_t threshold, float keep, uint32_t seed) {
-  constexpr int kDPT = D / kGroup;
+  constexpr int kThreads = kRows * G;
+  constexpr int kDPT = D / G;
   __shared__ __align__(16) float ks[BK][D];
   __shared__ __align__(16) float vs[BK][D];
   __shared__ int valid_s[BK];
@@ -172,16 +182,16 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int tid = threadIdx.x;
-  const int g = tid % kGroup;
-  const int qi = qt * kRows + tid / kGroup;
+  const int g = tid % G;
+  const int qi = qt * kRows + tid / G;
   const bool row_ok = qi < Sq;
   const int diag = Sk - Sq;
 
-  const float* kb = k + (size_t)bh * Sk * D;
-  const float* vb = v + (size_t)bh * Sk * D;
+  const T* kb = k + (size_t)bh * Sk * D;
+  const T* vb = v + (size_t)bh * Sk * D;
   float qr[kDPT], dor[kDPT], acc[kDPT];
-  load_quarter<D>(q + ((size_t)bh * Sq + qi) * D, row_ok, g, qr);
-  load_quarter<D>(dout + ((size_t)bh * Sq + qi) * D, row_ok, g, dor);
+  load_share<T, D, G>(q + ((size_t)bh * Sq + qi) * D, row_ok, g, qr);
+  load_share<T, D, G>(dout + ((size_t)bh * Sq + qi) * D, row_ok, g, dor);
 #pragma unroll
   for (int i = 0; i < kDPT; ++i) acc[i] = 0.f;
   const float lse_i = row_ok ? lse[(size_t)bh * Sq + qi] : 0.f;
@@ -202,8 +212,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int r = idx / D;
       const int c = idx % D;
       const int kj = k0 + r;
-      ks[r][c] = kj < Sk ? kb[(size_t)kj * D + c] : 0.f;
-      vs[r][c] = kj < Sk ? vb[(size_t)kj * D + c] : 0.f;
+      ks[r][c] = kj < Sk ? sm90::to_f32(kb[(size_t)kj * D + c]) : 0.f;
+      vs[r][c] = kj < Sk ? sm90::to_f32(vb[(size_t)kj * D + c]) : 0.f;
     }
     for (int r = tid; r < BK; r += kThreads) {
       const int kj = k0 + r;
@@ -214,36 +224,36 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 #pragma unroll 4
     for (int j = 0; j < BK; ++j) {
-      const float s = dot_quarter<D>(qr, &ks[j][0], g) * sm_scale;
-      float dp = dot_quarter<D>(dor, &vs[j][0], g);
+      const float s = dot_share<D, G>(qr, &ks[j][0], g) * sm_scale;
+      float dp = dot_share<D, G>(dor, &vs[j][0], g);
       const int kj = k0 + j;
       const bool ok = row_ok && valid_s[j] && (!causal || kj <= qi + diag);
       const float p = ok ? expf(s - lse_i) : 0.f;
       if (dropout) {
         dp = dropout_keep(row_key, kj, threshold) ? dp / keep : 0.f;
       }
-      const float ds = p * (dp - delta_i);
-      axpy_quarter<D>(ds, &ks[j][0], g, acc);
+      // ds rounded to T before the product (ds.astype(k.dtype))
+      const float ds = sm90::round_to<T>(p * (dp - delta_i));
+      axpy_share<D, G>(ds, &ks[j][0], g, acc);
     }
   }
   if (row_ok) {
-    store_quarter<D>(dq + ((size_t)bh * Sq + qi) * D, g, sm_scale, acc);
+    store_share<T, D, G>(dq + ((size_t)bh * Sq + qi) * D, g, sm_scale, acc);
   }
 }
 
 // dK, dV: one block per (bh, key tile); BQ queries staged per step.
-template <int D, int BQ>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const int* __restrict__ kv_mask,
-                     const float* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, int H, int Sq, int Sk, int causal,
+template <typename T, int D, int BQ, int G>
+__global__ void __launch_bounds__(kRows * G)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const int* __restrict__ kv_mask,
+                     const T* __restrict__ dout, const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dk,
+                     T* __restrict__ dv, int H, int Sq, int Sk, int causal,
                      float sm_scale, int dropout, uint32_t threshold,
                      float keep, uint32_t seed) {
-  constexpr int kDPT = D / kGroup;
+  constexpr int kThreads = kRows * G;
+  constexpr int kDPT = D / G;
   __shared__ __align__(16) float qs[BQ][D];
   __shared__ __align__(16) float dos[BQ][D];
   __shared__ float lse_s[BQ], delta_s[BQ];
@@ -253,17 +263,17 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int tid = threadIdx.x;
-  const int g = tid % kGroup;
-  const int kj = kt * kRows + tid / kGroup;
+  const int g = tid % G;
+  const int kj = kt * kRows + tid / G;
   const int diag = Sk - Sq;
   const bool key_ok =
       kj < Sk && (kv_mask == nullptr || kv_mask[(size_t)b * Sk + kj] != 0);
 
-  const float* qb = q + (size_t)bh * Sq * D;
-  const float* db = dout + (size_t)bh * Sq * D;
+  const T* qb = q + (size_t)bh * Sq * D;
+  const T* db = dout + (size_t)bh * Sq * D;
   float kr[kDPT], vr[kDPT], acc_k[kDPT], acc_v[kDPT];
-  load_quarter<D>(k + ((size_t)bh * Sk + kj) * D, kj < Sk, g, kr);
-  load_quarter<D>(v + ((size_t)bh * Sk + kj) * D, kj < Sk, g, vr);
+  load_share<T, D, G>(k + ((size_t)bh * Sk + kj) * D, kj < Sk, g, kr);
+  load_share<T, D, G>(v + ((size_t)bh * Sk + kj) * D, kj < Sk, g, vr);
 #pragma unroll
   for (int i = 0; i < kDPT; ++i) acc_k[i] = acc_v[i] = 0.f;
 
@@ -280,8 +290,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int r = idx / D;
       const int c = idx % D;
       const int qi = q0 + r;
-      qs[r][c] = qi < Sq ? qb[(size_t)qi * D + c] : 0.f;
-      dos[r][c] = qi < Sq ? db[(size_t)qi * D + c] : 0.f;
+      qs[r][c] = qi < Sq ? sm90::to_f32(qb[(size_t)qi * D + c]) : 0.f;
+      dos[r][c] = qi < Sq ? sm90::to_f32(db[(size_t)qi * D + c]) : 0.f;
     }
     for (int r = tid; r < BQ; r += kThreads) {
       const int qi = q0 + r;
@@ -293,8 +303,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 #pragma unroll 4
     for (int i = 0; i < BQ; ++i) {
-      const float s = dot_quarter<D>(kr, &qs[i][0], g) * sm_scale;
-      float dp = dot_quarter<D>(vr, &dos[i][0], g);
+      const float s = dot_share<D, G>(kr, &qs[i][0], g) * sm_scale;
+      float dp = dot_share<D, G>(vr, &dos[i][0], g);
       const int qi = q0 + i;
       const bool ok = key_ok && qi < Sq && (!causal || kj <= qi + diag);
       const float p = ok ? expf(s - lse_s[i]) : 0.f;
@@ -308,35 +318,35 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
           dp = 0.f;
         }
       }
-      const float ds = p * (dp - delta_s[i]);
-      axpy_quarter<D>(p_drop, &dos[i][0], g, acc_v);
-      axpy_quarter<D>(ds, &qs[i][0], g, acc_k);
+      // both operands rounded to T before their products
+      const float ds = sm90::round_to<T>(p * (dp - delta_s[i]));
+      axpy_share<D, G>(sm90::round_to<T>(p_drop), &dos[i][0], g, acc_v);
+      axpy_share<D, G>(ds, &qs[i][0], g, acc_k);
     }
   }
   if (kj < Sk) {
-    store_quarter<D>(dk + ((size_t)bh * Sk + kj) * D, g, sm_scale, acc_k);
-    store_quarter<D>(dv + ((size_t)bh * Sk + kj) * D, g, 1.f, acc_v);
+    store_share<T, D, G>(dk + ((size_t)bh * Sk + kj) * D, g, sm_scale,
+                         acc_k);
+    store_share<T, D, G>(dv + ((size_t)bh * Sk + kj) * D, g, 1.f, acc_v);
   }
 }
 
-// float32 only: bfloat16 and float16 take tc::launch_dq
-template <int D, int BS>
+template <typename T, int D, int BS, int G>
 int launch_dq(const void* q, const void* k, const void* v, const int* kv_mask,
               const void* dout, const float* lse, const float* delta,
               void* dq, int B, int H, int Sq, int Sk, int causal,
               float sm_scale, int dropout, uint32_t threshold, float keep,
               uint32_t seed, cudaStream_t stream) {
   const dim3 grid((Sq + kRows - 1) / kRows, B * H);
-  flash_bwd_dq_kernel<D, BS><<<grid, kThreads, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), kv_mask, static_cast<const float*>(dout),
-      lse, delta, static_cast<float*>(dq), H, Sq, Sk, causal, sm_scale,
-      dropout, threshold, keep, seed);
+  flash_bwd_dq_kernel<T, D, BS, G><<<grid, kRows * G, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), kv_mask, static_cast<const T*>(dout), lse,
+      delta, static_cast<T*>(dq), H, Sq, Sk, causal, sm_scale, dropout,
+      threshold, keep, seed);
   return static_cast<int>(cudaGetLastError());
 }
 
-// float32 only: bfloat16 and float16 take tc::launch_dkv
-template <int D, int BS>
+template <typename T, int D, int BS, int G>
 int launch_dkv(const void* q, const void* k, const void* v,
                const int* kv_mask, const void* dout, const float* lse,
                const float* delta, void* dk, void* dv, int B, int H, int Sq,
@@ -344,11 +354,11 @@ int launch_dkv(const void* q, const void* k, const void* v,
                uint32_t threshold, float keep, uint32_t seed,
                cudaStream_t stream) {
   const dim3 grid((Sk + kRows - 1) / kRows, B * H);
-  flash_bwd_dkv_kernel<D, BS><<<grid, kThreads, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), kv_mask, static_cast<const float*>(dout),
-      lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), H, Sq, Sk,
-      causal, sm_scale, dropout, threshold, keep, seed);
+  flash_bwd_dkv_kernel<T, D, BS, G><<<grid, kRows * G, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), kv_mask, static_cast<const T*>(dout), lse,
+      delta, static_cast<T*>(dk), static_cast<T*>(dv), H, Sq, Sk, causal,
+      sm_scale, dropout, threshold, keep, seed);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -872,8 +882,8 @@ int launch_dq(const void* q, const void* k, const void* v,
 
 }  // namespace tc
 
-// dtype: 0 float32, 1 bfloat16, 2 float16; D 64 or 128 (the wrapper
-// checks). lse and delta are [B, H, Sq] float32. dropout as in
+// dtype: 0 float32, 1 bfloat16, 2 float16; D 64, 128 or 256 (the wrapper
+// checks; D = 256 takes the FMA kernel in every dtype). lse and delta are [B, H, Sq] float32. dropout as in
 // ds_flash_fwd. float32 takes the FMA kernel, bfloat16 and float16 the
 // tensor-core kernel.
 extern "C" int ds_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -897,15 +907,23 @@ extern "C" int ds_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (dtype == 2 && D == 128) DS_FLASH_DQ_TC(__half, 128);
 #undef DS_FLASH_DQ_TC
   if (dtype == 0 && D == 64) {
-    return launch_dq<64, 64>(q, k, v, kv_mask, dout, lse, delta, dq, B, H,
-                             Sq, Sk, causal, sm_scale, dropout, threshold,
-                             keep, seed, s);
+    return launch_dq<float, 64, 64, 4>(q, k, v, kv_mask, dout, lse, delta, dq,
+                                       B, H, Sq, Sk, causal, sm_scale, dropout,
+                                       threshold, keep, seed, s);
   }
   if (dtype == 0 && D == 128) {
-    return launch_dq<128, 32>(q, k, v, kv_mask, dout, lse, delta, dq, B, H,
-                              Sq, Sk, causal, sm_scale, dropout, threshold,
-                              keep, seed, s);
+    return launch_dq<float, 128, 32, 4>(q, k, v, kv_mask, dout, lse, delta,
+                                        dq, B, H, Sq, Sk, causal, sm_scale,
+                                        dropout, threshold, keep, seed, s);
   }
+#define DS_FLASH_DQ_256(T)                                                  \
+  return launch_dq<T, 256, 16, 8>(q, k, v, kv_mask, dout, lse, delta, dq, B, \
+                                  H, Sq, Sk, causal, sm_scale, dropout,      \
+                                  threshold, keep, seed, s)
+  if (D == 256 && dtype == 0) DS_FLASH_DQ_256(float);
+  if (D == 256 && dtype == 1) DS_FLASH_DQ_256(__nv_bfloat16);
+  if (D == 256 && dtype == 2) DS_FLASH_DQ_256(__half);
+#undef DS_FLASH_DQ_256
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -932,14 +950,23 @@ extern "C" int ds_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (dtype == 2 && D == 128) DS_FLASH_DKV_TC(__half, 128);
 #undef DS_FLASH_DKV_TC
   if (dtype == 0 && D == 64) {
-    return launch_dkv<64, 64>(q, k, v, kv_mask, dout, lse, delta, dk, dv, B,
-                              H, Sq, Sk, causal, sm_scale, dropout, threshold,
-                              keep, seed, s);
+    return launch_dkv<float, 64, 64, 4>(q, k, v, kv_mask, dout, lse, delta, dk,
+                                        dv, B, H, Sq, Sk, causal, sm_scale,
+                                        dropout, threshold, keep, seed, s);
   }
   if (dtype == 0 && D == 128) {
-    return launch_dkv<128, 32>(q, k, v, kv_mask, dout, lse, delta, dk, dv, B,
-                               H, Sq, Sk, causal, sm_scale, dropout,
-                               threshold, keep, seed, s);
+    return launch_dkv<float, 128, 32, 4>(q, k, v, kv_mask, dout, lse, delta,
+                                         dk, dv, B, H, Sq, Sk, causal,
+                                         sm_scale, dropout, threshold, keep,
+                                         seed, s);
   }
+#define DS_FLASH_DKV_256(T)                                                 \
+  return launch_dkv<T, 256, 16, 8>(q, k, v, kv_mask, dout, lse, delta, dk,  \
+                                   dv, B, H, Sq, Sk, causal, sm_scale,      \
+                                   dropout, threshold, keep, seed, s)
+  if (D == 256 && dtype == 0) DS_FLASH_DKV_256(float);
+  if (D == 256 && dtype == 1) DS_FLASH_DKV_256(__nv_bfloat16);
+  if (D == 256 && dtype == 2) DS_FLASH_DKV_256(__half);
+#undef DS_FLASH_DKV_256
   return static_cast<int>(cudaErrorInvalidValue);
 }

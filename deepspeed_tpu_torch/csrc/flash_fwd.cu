@@ -52,6 +52,15 @@
 // shared memory; four threads share a query row and finish each dot
 // product with two warp shuffles.
 //
+// Head dim 256, every storage type — the same FMA kernel, templated on the
+// storage type T: it loads T, computes in float32 and rounds p and the
+// output to T as the tensor-core kernel does. No tensor-core kernel is
+// compiled at D = 256 (the wrappers zero-pad head dims 129..255 to it;
+// no GPT-2/BERT configuration has them). Eight threads share a query row
+// there, so each holds 32 of its dims, and a tile stages 16 keys (32 KB of
+// static shared memory). It is bound by its FMAs, far below the card's
+// tensor-core rate: a simple kernel that is right.
+//
 // Numerics follow the TPU kernel on both routes: scores, m, l and the
 // accumulator in float32; p is rounded to the input type before the value
 // product (the TPU kernel's p.astype(v.dtype)); masked scores contribute
@@ -75,21 +84,23 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kGroup = 4;                  // threads per query row
-constexpr int kBQ = 32;                    // query rows per block
-constexpr int kThreads = kBQ * kGroup;     // 128
+constexpr int kBQ = 32;  // query rows per block
 
-// float32 only (bfloat16 and float16 take the tensor-core kernel).
-// D: head dim (64 or 128); BK: keys per staged tile. Shared memory is
-// 2 * BK * D * 4 bytes = 32 KB for both instantiations.
-template <int D, int BK>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const int* __restrict__ kv_mask,
-                 float* __restrict__ out, float* __restrict__ lse, int H,
+// The FMA kernel: float32 at D = 64 and 128, and every storage type at
+// D = 256 (no tensor-core kernel there). T: storage type (loaded as
+// float32, p and the output rounded to T); D: head dim; BK: keys per
+// staged tile; G: threads that share a query row (each holds D / G of its
+// dims). Shared memory is 2 * BK * D * 4 bytes = 32 KB for every
+// instantiation (BK = 64, 32, 16 at D = 64, 128, 256).
+template <typename T, int D, int BK, int G>
+__global__ void __launch_bounds__(kBQ * G)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const int* __restrict__ kv_mask,
+                 T* __restrict__ out, float* __restrict__ lse, int H,
                  int Sq, int Sk, int causal, float sm_scale, int dropout,
                  uint32_t threshold, float keep, uint32_t seed) {
-  constexpr int kDPT = D / kGroup;   // dims per thread (16 or 32)
+  constexpr int kThreads = kBQ * G;
+  constexpr int kDPT = D / G;       // dims per thread (16, 32 or 32)
   constexpr int kChunks = kDPT / 4;  // float4 chunks per thread
   __shared__ __align__(16) float ks[BK][D];
   __shared__ __align__(16) float vs[BK][D];
@@ -100,25 +111,25 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int tid = threadIdx.x;
-  const int row = tid / kGroup;
-  const int g = tid % kGroup;  // this thread's quarter of the row
+  const int row = tid / G;
+  const int g = tid % G;  // this thread's share of the row
   const int qi = qt * kBQ + row;
   const bool row_ok = qi < Sq;
   const int diag = Sk - Sq;
 
-  const float* qb = q + (size_t)bh * Sq * D;
-  const float* kb = k + (size_t)bh * Sk * D;
-  const float* vb = v + (size_t)bh * Sk * D;
+  const T* qb = q + (size_t)bh * Sq * D;
+  const T* kb = k + (size_t)bh * Sk * D;
+  const T* vb = v + (size_t)bh * Sk * D;
 
-  // the thread's dims: float4 chunks c = g + kGroup * i, i < kChunks
-  // (the four threads of a row read 64 contiguous bytes of a K/V row)
+  // the thread's dims: float4 chunks c = g + G * i, i < kChunks (the G
+  // threads of a row read 16 * G contiguous floats of a K/V row)
   float qr[kDPT];
 #pragma unroll
   for (int i = 0; i < kChunks; ++i) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int d = 4 * (g + kGroup * i) + e;
-      qr[4 * i + e] = row_ok ? qb[(size_t)qi * D + d] : 0.f;
+      const int d = 4 * (g + G * i) + e;
+      qr[4 * i + e] = row_ok ? sm90::to_f32(qb[(size_t)qi * D + d]) : 0.f;
     }
   }
   float acc[kDPT];
@@ -146,8 +157,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int kj = k0 + r;
       float kx = 0.f, vx = 0.f;
       if (kj < Sk) {
-        kx = kb[(size_t)kj * D + c];
-        vx = vb[(size_t)kj * D + c];
+        kx = sm90::to_f32(kb[(size_t)kj * D + c]);
+        vx = sm90::to_f32(vb[(size_t)kj * D + c]);
       }
       ks[r][c] = kx;
       vs[r][c] = vx;
@@ -167,14 +178,16 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float part = 0.f;
 #pragma unroll
       for (int i = 0; i < kChunks; ++i) {
-        const float4 x = kr[g + kGroup * i];
+        const float4 x = kr[g + G * i];
         part = fmaf(qr[4 * i + 0], x.x, part);
         part = fmaf(qr[4 * i + 1], x.y, part);
         part = fmaf(qr[4 * i + 2], x.z, part);
         part = fmaf(qr[4 * i + 3], x.w, part);
       }
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
+#pragma unroll
+      for (int o = 1; o < G; o <<= 1) {
+        part += __shfl_xor_sync(0xffffffffu, part, o);
+      }
       const int kj = k0 + j;
       const bool ok = valid_s[j] && (!causal || kj <= qi + diag);
       const float sj = ok ? part * sm_scale : kNegInf;
@@ -191,15 +204,16 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       // masked entries contribute exactly 0 (also when m_new is -1e30)
       const float p = s[j] > 0.5f * kNegInf ? expf(s[j] - m_new) : 0.f;
       l += p;
-      // the TPU kernel's where(keep, p / (1 - rate), 0)
-      const float pu =
+      // the TPU kernel's where(keep, p / (1 - rate), 0), rounded to T
+      // before the value product (p.astype(v.dtype))
+      const float pu = sm90::round_to<T>(
           !dropout ? p
           : dropout_keep(row_key, k0 + j, threshold) ? p / keep
-                                                     : 0.f;
+                                                     : 0.f);
       const float4* vr = reinterpret_cast<const float4*>(&vs[j][0]);
 #pragma unroll
       for (int i = 0; i < kChunks; ++i) {
-        const float4 x = vr[g + kGroup * i];
+        const float4 x = vr[g + G * i];
         acc[4 * i + 0] = fmaf(pu, x.x, acc[4 * i + 0]);
         acc[4 * i + 1] = fmaf(pu, x.y, acc[4 * i + 1]);
         acc[4 * i + 2] = fmaf(pu, x.z, acc[4 * i + 2]);
@@ -211,28 +225,29 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   if (row_ok) {
     const float ld = (l == 0.f) ? 1.f : l;  // no visible key -> zeros
-    float* orow = out + ((size_t)bh * Sq + qi) * D;
+    T* orow = out + ((size_t)bh * Sq + qi) * D;
 #pragma unroll
     for (int i = 0; i < kChunks; ++i) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        orow[4 * (g + kGroup * i) + e] = acc[4 * i + e] / ld;
+        orow[4 * (g + G * i) + e] = sm90::from_f32<T>(acc[4 * i + e] / ld);
       }
     }
     if (g == 0) lse[(size_t)bh * Sq + qi] = m + logf(ld);
   }
 }
 
-template <int D, int BK>
-void launch(const void* q, const void* k, const void* v, const int* kv_mask,
-            void* out, float* lse, int B, int H, int Sq, int Sk, int causal,
-            float sm_scale, int dropout, uint32_t threshold, float keep,
-            uint32_t seed, cudaStream_t stream) {
+template <typename T, int D, int BK, int G>
+int launch(const void* q, const void* k, const void* v, const int* kv_mask,
+           void* out, float* lse, int B, int H, int Sq, int Sk, int causal,
+           float sm_scale, int dropout, uint32_t threshold, float keep,
+           uint32_t seed, cudaStream_t stream) {
   const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
-  flash_fwd_kernel<D, BK><<<grid, kThreads, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), kv_mask, static_cast<float*>(out), lse, H,
-      Sq, Sk, causal, sm_scale, dropout, threshold, keep, seed);
+  flash_fwd_kernel<T, D, BK, G><<<grid, kBQ * G, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), kv_mask, static_cast<T*>(out), lse, H, Sq,
+      Sk, causal, sm_scale, dropout, threshold, keep, seed);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -515,7 +530,8 @@ int launch(const void* q, const void* k, const void* v, const int* kv_mask,
 }  // namespace tc
 
 // dtype: 0 float32 (the FMA kernel), 1 bfloat16, 2 float16 (the
-// tensor-core kernel). D must be 64 or 128 (the wrapper checks). dropout:
+// tensor-core kernel at D = 64 and 128, the FMA kernel at D = 256). D must
+// be 64, 128 or 256 (the wrapper checks). dropout:
 // 0 off; else keep a pair when its bits >= threshold and divide the kept
 // probabilities by keep = 1 - rate.
 extern "C" int ds_flash_fwd(const void* q, const void* k, const void* v,
@@ -536,13 +552,22 @@ extern "C" int ds_flash_fwd(const void* q, const void* k, const void* v,
   if (dtype == 2 && D == 128) DS_FLASH_FWD_TC(__half, 128);
 #undef DS_FLASH_FWD_TC
   if (dtype == 0 && D == 64) {
-    launch<64, 64>(q, k, v, kv_mask, out, lse, B, H, Sq, Sk, causal,
-                   sm_scale, dropout, threshold, keep, seed, s);
-  } else if (dtype == 0 && D == 128) {
-    launch<128, 32>(q, k, v, kv_mask, out, lse, B, H, Sq, Sk, causal,
-                    sm_scale, dropout, threshold, keep, seed, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return launch<float, 64, 64, 4>(q, k, v, kv_mask, out, lse, B, H, Sq, Sk,
+                                    causal, sm_scale, dropout, threshold, keep,
+                                    seed, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 0 && D == 128) {
+    return launch<float, 128, 32, 4>(q, k, v, kv_mask, out, lse, B, H, Sq,
+                                     Sk, causal, sm_scale, dropout, threshold,
+                                     keep, seed, s);
+  }
+#define DS_FLASH_FWD_256(T)                                                 \
+  return launch<T, 256, 16, 8>(q, k, v, kv_mask, out, lse, B, H, Sq, Sk,    \
+                               causal, sm_scale, dropout, threshold, keep, \
+                               seed, s)
+  if (D == 256 && dtype == 0) DS_FLASH_FWD_256(float);
+  if (D == 256 && dtype == 1) DS_FLASH_FWD_256(__nv_bfloat16);
+  if (D == 256 && dtype == 2) DS_FLASH_FWD_256(__half);
+#undef DS_FLASH_FWD_256
+  return static_cast<int>(cudaErrorInvalidValue);
 }

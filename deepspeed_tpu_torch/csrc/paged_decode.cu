@@ -51,6 +51,17 @@
 // block loads its slot's position and its run of the block table at
 // once, before it knows which pages are live.
 //
+// Head dims that are not multiples of 16. The kernel is instantiated at
+// the multiples of 16 up to 128 and runs a head dim hd at the next of
+// them; the pool keeps its row stride of hd (it is not re-laid out). A
+// row of hd * sizeof(T) bytes is then not always whole 16-byte chunks,
+// and its chunks are not 16-byte aligned (hd 12 in bfloat16 is 24
+// bytes), so each chunk is copied with the widest cp.async that every
+// chunk start of such rows is aligned to (8 or 4 bytes; bfloat16 rows of
+// odd length take plain 2-byte loads), and the pieces past hd are
+// zero-filled. The lanes past hd hold zeros: they add 0 to q . k and to
+// the value sum, and are never stored.
+//
 // The merge, in the same launch. With more than one split each block
 // writes its partial (acc[hd], m, l) to a float32 workspace, fences, and
 // takes a ticket from a per-(slot, head) int32 counter. The block that
@@ -125,6 +136,54 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                "l"(src), "r"(ok ? 16 : 0)
                : "memory");
 }
+// 8 or 4 bytes global -> shared (the rows that are not whole 16-byte
+// chunks); ok = false writes zeros and reads nothing
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 8 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+// One 16-byte ring chunk of a row from src, of which the first nv
+// elements lie inside the row (the rest, and all of it when !ok, are
+// zero-filled). gran is the widest copy that every chunk start of a row
+// of hd elements is aligned to: 16 (hd * sizeof(T) a multiple of 16), 8,
+// 4, or 2, where bfloat16 rows of odd length take plain 2-byte loads.
+template <typename T>
+__device__ __forceinline__ void copy_chunk(uint4* dst, const T* src, bool ok,
+                                           int nv, int gran) {
+  constexpr int kE = 16 / sizeof(T);
+  const uint32_t sdst = smem_addr(dst);
+  const char* csrc = reinterpret_cast<const char*>(src);
+  const int nbytes = ok ? nv * static_cast<int>(sizeof(T)) : 0;
+  if (gran == 16) {
+    cp_async16(sdst, src, ok);
+  } else if (gran == 8) {
+    cp_async8(sdst, csrc, nbytes > 0);
+    cp_async8(sdst + 8, csrc + 8, nbytes > 8);
+  } else if (gran == 4) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      cp_async4(sdst + 4 * i, csrc + 4 * i, nbytes > 4 * i);
+    }
+  } else {
+    uint16_t h[kE * sizeof(T) / 2];
+    const uint16_t* s16 = reinterpret_cast<const uint16_t*>(src);
+#pragma unroll
+    for (int i = 0; i < kE * static_cast<int>(sizeof(T)) / 2; ++i) {
+      h[i] = 2 * i < nbytes ? s16[i] : uint16_t(0);
+    }
+    *dst = *reinterpret_cast<const uint4*>(h);
+  }
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -161,7 +220,9 @@ struct Step {
   static_assert(kG * kRL == kNC * 32, "a step's tokens fill the warp");
 };
 
-// HD: head dim (a multiple of 16 up to 128)
+// HD: the instantiation's width (a multiple of 16 up to 128); hd: the
+// head dim, HD - 16 < hd <= HD (the lanes past hd hold zeros: they add 0
+// to q . k and are never stored); gran: see copy_chunk.
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
@@ -169,8 +230,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                     const int* __restrict__ block_tables,
                     const int* __restrict__ positions, T* __restrict__ out,
                     float* __restrict__ ws, int* __restrict__ counters,
-                    int heads, int block_size, int max_blocks,
-                    int pages_per_split, float sm_scale) {
+                    int heads, int hd, int gran, int block_size,
+                    int max_blocks, int pages_per_split, float sm_scale) {
   using S = Step<T, HD>;
   constexpr int kE = S::kE;
   constexpr int kRC = S::kRC;
@@ -193,8 +254,12 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   const int lane = threadIdx.x % 32;
   const int part = lane % kRL;      // the lane's chunk of a row
   const int tok_lane = lane / kRL;  // its first token in a step
-  const bool active = part < kRC;   // past kRC: a pad lane (zeros)
-  const size_t tok_stride = (size_t)heads * HD;
+  // chunks of a row that hold elements of it; past them (pad lanes, and
+  // chunks past hd) a lane copies nothing and holds zeros
+  const int live_chunks = (hd + kE - 1) / kE;
+  const bool active = part < live_chunks;
+  const int nv = min(kE, hd - part * kE);  // the chunk's elements in the row
+  const size_t tok_stride = (size_t)heads * hd;
   const int* table = block_tables + (size_t)b * max_blocks;
   const int p0 = split * pages_per_split;
   const int p_end = min(max_blocks, p0 + pages_per_split);
@@ -206,10 +271,15 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   const int pos = positions[b];
 
   float qv[kE];
-  unpack(active ? __ldg(reinterpret_cast<const uint4*>(
-                      q + ((size_t)b * heads + h) * HD + part * kE))
-                : make_uint4(0u, 0u, 0u, 0u),
-         qv);
+  const T* qrow = q + ((size_t)b * heads + h) * hd + part * kE;
+  if (gran == 16) {
+    unpack(active ? __ldg(reinterpret_cast<const uint4*>(qrow))
+                  : make_uint4(0u, 0u, 0u, 0u),
+           qv);
+  } else {
+#pragma unroll
+    for (int e = 0; e < kE; ++e) qv[e] = active && e < nv ? to_f32(qrow[e]) : 0.f;
+  }
 
   const int n_pages = pos >= 0 ? min(max_blocks, pos / block_size + 1) : 0;
   const int p1 = min(n_pages, p_end);
@@ -243,14 +313,14 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
         fphys == 0 ? 0 : min(min(kG, block_size - t0), pos - tok0 + 1);
     if (ntok > 0) {
       const size_t off = ((size_t)fphys * block_size + t0) * tok_stride +
-                         (size_t)h * HD + part * kE;
+                         (size_t)h * hd + part * kE;
 #pragma unroll
       for (int c = 0; c < kNC; ++c) {
         const int t = tok_lane + c * kTokStride;
         const bool ok = active && t < ntok;
         const size_t at = ok ? off + t * tok_stride : 0;
-        cp_async16(smem_addr(chunk(st, 0, c)), k_pool + at, ok);
-        cp_async16(smem_addr(chunk(st, 1, c)), v_pool + at, ok);
+        copy_chunk(chunk(st, 0, c), k_pool + at, ok, nv, gran);
+        copy_chunk(chunk(st, 1, c), v_pool + at, ok, nv, gran);
       }
     }
     if (++fg == steps) {
@@ -374,19 +444,19 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
       ba += sm_acc[w][d] * f;
     }
   }
-  T* orow = out + ((size_t)b * heads + h) * HD;
+  T* orow = out + ((size_t)b * heads + h) * hd;
   if (splits == 1) {
-    if (d < HD) orow[d] = from_f32<T>(ba / (bl == 0.f ? 1.f : bl));
+    if (d < hd) orow[d] = from_f32<T>(ba / (bl == 0.f ? 1.f : bl));
     return;
   }
 
   // write the partial, take a ticket; the last block merges every split
-  float* slot = ws + ((size_t)b * heads + h) * splits * (HD + 2);
-  float* mine = slot + (size_t)split * (HD + 2);
-  if (d < HD) mine[d] = ba;
+  float* slot = ws + ((size_t)b * heads + h) * splits * (hd + 2);
+  float* mine = slot + (size_t)split * (hd + 2);
+  if (d < hd) mine[d] = ba;
   if (d == 0) {
-    mine[HD] = bm;
-    mine[HD + 1] = bl;
+    mine[hd] = bm;
+    mine[hd + 1] = bl;
   }
   __threadfence();
   __syncthreads();
@@ -395,16 +465,16 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   __syncthreads();
   if (!sm_last) return;
   __threadfence();
-  if (d < HD) {
+  if (d < hd) {
     float gm = kNegInf;
     for (int z = 0; z < splits; ++z) {
-      gm = fmaxf(gm, __ldcg(slot + (size_t)z * (HD + 2) + HD));
+      gm = fmaxf(gm, __ldcg(slot + (size_t)z * (hd + 2) + hd));
     }
     float gl = 0.f, ga = 0.f;
     for (int z = 0; z < splits; ++z) {
-      const float* pz = slot + (size_t)z * (HD + 2);
-      const float f = expf(__ldcg(pz + HD) - gm);
-      gl += __ldcg(pz + HD + 1) * f;
+      const float* pz = slot + (size_t)z * (hd + 2);
+      const float f = expf(__ldcg(pz + hd) - gm);
+      gl += __ldcg(pz + hd + 1) * f;
       ga += __ldcg(pz + d) * f;
     }
     orow[d] = from_f32<T>(ga / (gl == 0.f ? 1.f : gl));  // no key -> zeros
@@ -415,8 +485,13 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 template <typename T, int HD>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const int* block_tables, const int* positions, void* out,
-           float* ws, int* counters, int B, int heads, int block_size,
+           float* ws, int* counters, int B, int heads, int hd, int block_size,
            int max_blocks, int splits, float sm_scale, cudaStream_t stream) {
+  const int bytes = hd * static_cast<int>(sizeof(T));
+  const int gran = bytes % 16 == 0 ? 16
+                   : bytes % 8 == 0 ? 8
+                   : bytes % 4 == 0 ? 4
+                                    : 2;
   constexpr int kRing = Step<T, HD>::kRingBytes;
   static const cudaError_t attr = cudaFuncSetAttribute(
       paged_decode_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -427,15 +502,16 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
   paged_decode_kernel<T, HD><<<grid, kThreads, kRing, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool),
       static_cast<const T*>(v_pool), block_tables, positions,
-      static_cast<T*>(out), ws, counters, heads, block_size, max_blocks,
-      pages_per_split, sm_scale);
+      static_cast<T*>(out), ws, counters, heads, hd, gran, block_size,
+      max_blocks, pages_per_split, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. hd: a multiple of 16 up to 128 (the
-// wrapper checks; PAGED_DECODE_HEAD_DIMS in ops/decode_attention.py).
+// dtype: 0 float32, 1 bfloat16. hd: 1 to 128, run at the next multiple
+// of 16 (the wrapper checks; PAGED_DECODE_HEAD_DIMS in
+// ops/decode_attention.py).
 // splits >= 1 blocks per (slot, head); with more than one, ws holds
 // B * heads * splits * (hd + 2) floats and counters B * heads int32 zeros
 // (left zero again by every launch).
@@ -451,12 +527,14 @@ extern "C" int ds_paged_decode(const void* q, const void* k_pool,
       (splits > 1 && (ws == nullptr || counters == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (hd < 1 || hd > 128) return static_cast<int>(cudaErrorInvalidValue);
+  const int width = (hd + 15) / 16 * 16;
 #define DS_PAGED_DECODE(T, HD)                                               \
   return launch<T, HD>(q, k_pool, v_pool, block_tables, positions, out, ws, \
-                       counters, B, heads, block_size, max_blocks, splits,  \
-                       sm_scale, s)
+                       counters, B, heads, hd, block_size, max_blocks,      \
+                       splits, sm_scale, s)
 #define DS_PAGED_DECODE_HD(HD)                                  \
-  if (hd == HD) {                                               \
+  if (width == HD) {                                            \
     if (dtype == 0) DS_PAGED_DECODE(float, HD);                 \
     if (dtype == 1) DS_PAGED_DECODE(__nv_bfloat16, HD);         \
   }

@@ -20,12 +20,18 @@ and multi-LoRA serving (the ``adapters`` block): a device adapter pool
 read per slot by adapter id, through the SGMV kernel in fused decode,
 with ``load_adapter(name, adapter_state=...)``, per-slot pins, idle-LRU
 eviction and prefix-cache pages salted by adapter identity.
+The ``telemetry`` block (telemetry/manager.py): the ``infer/*`` catalog
+in the telemetry's registry, its exporters fed by the scheduler every
+``16 * telemetry.interval`` decode steps and at ``close()``, and the
+request tracer (``telemetry.tracing``) handed to the scheduler, whose
+request, queue, prefill and decode-step spans carry the JAX engine's
+names and attributes. Without the block, metrics go to a private
+registry and the tracer is the no-op one.
 Not yet ported, and refused with ``DeepSpeedConfigError``: the contiguous
 cache (``kv_block_size: 0``), the host tier, speculative decoding, a
-device mesh, serving from a checkpoint (``inference.checkpoint`` and
-``load_adapter(load_dir=...)``), and the telemetry block (metrics go to
-a private registry, as in the JAX engine without that block). The
-fleet's hooks (tracer injection, brownout) come with the fleet.
+device mesh, and serving from a checkpoint (``inference.checkpoint`` and
+``load_adapter(load_dir=...)``). The fleet's hooks (tracer injection,
+brownout) come with the fleet.
 
 Adapter pool rows are written IN PLACE (the JAX engine swaps in a new
 pool between steps). ``load_adapter`` runs on a caller's thread while
@@ -51,11 +57,11 @@ from ..ops.decode_attention import SGMV_MAX_RANK
 from ..ops.head_dims import check_head_dim, model_head_dim
 from ..ops.transformer import lora_scaling, resolve_lora_targets
 from ..telemetry.manager import (
+    build_telemetry,
     register_adapter_metrics,
     register_inference_metrics,
 )
 from ..telemetry.registry import MetricsRegistry
-from ..telemetry.tracing import NOOP_TRACER
 from ..utils.device import resolve_device
 from ..utils.logging import log_dist
 from .decode import (
@@ -102,8 +108,6 @@ class InferenceEngine:
             raw = load_config_json(config)
         if mesh is not None or raw.get(C.MESH):
             raise _not_ported("serving over a device mesh")
-        if (raw.get("telemetry") or {}).get("enabled"):
-            raise _not_ported("the telemetry block")
         self.config = DeepSpeedConfig(None, param_dict=raw)
         cfg = self.config
         if cfg.inference_speculative_enabled:
@@ -219,8 +223,22 @@ class InferenceEngine:
             self.adapter_scale = 1.0
             self.adapter_pool_slots = 0
 
-        # ---- metrics --------------------------------------------------
-        self.metrics = register_inference_metrics(MetricsRegistry())
+        # ---- telemetry + metrics --------------------------------------
+        self.telemetry = build_telemetry(
+            cfg, rank=0, n_params=sum(
+                int(np.prod(t.shape)) for t in state.values()),
+            device=self.device,
+        )
+        registry = (
+            self.telemetry.registry
+            if self.telemetry.enabled else MetricsRegistry()
+        )
+        self.metrics = register_inference_metrics(registry)
+        # request tracer: the telemetry.tracing block's, or the no-op one
+        self.tracer = self.telemetry.tracer
+        # per-slot span attrs captured at prefill time (prefix hit or
+        # cold, suffix bucket, adapter) for the scheduler's prefill span
+        self._slot_trace_attrs = {}
 
         # ---- params: copy into the serving dtype on the device --------
         self.model = GPT2LMHeadModel(
@@ -316,11 +334,12 @@ class InferenceEngine:
                 0.0 if cfg.inference_greedy else cfg.inference_temperature
             ),
             registry=self.metrics,
-            telemetry=None,
+            telemetry=self.telemetry,
+            export_interval=getattr(self.telemetry, "interval", 1) * 16,
             deadline_secs=cfg.inference_deadline_secs,
             driver_restart_budget=cfg.inference_driver_restart_budget,
             degraded_queue_ratio=cfg.inference_degraded_queue_ratio,
-            tracer=NOOP_TRACER,
+            tracer=self.tracer,
         )
         log_dist(
             f"init_inference: {self.num_slots} decode slots x "
@@ -695,10 +714,30 @@ class InferenceEngine:
                 prompt_tokens, self._slot_blocks[slot],
                 hashes=self._slot_hashes.get(slot),
             )
+        if self.tracer.enabled:
+            attrs = {
+                "prompt_tokens": plen,
+                "prefix_hit": prefix_len > 0,
+                "prefix_len": int(prefix_len),
+            }
+            if prefix_len > 0:
+                attrs["suffix_bucket"] = self._suffix_bucket(
+                    plen - prefix_len, prefix_len
+                )
+            adapter = self._slot_adapter_names.get(slot)
+            if adapter is not None:
+                attrs["adapter"] = adapter
+            self._slot_trace_attrs[slot] = attrs
         self._lengths[slot] = plen
         self._last_tokens[slot] = first
         self._temps[slot] = temperature
         return first
+
+    def prefill_trace_attrs(self, slot):
+        """Scheduler hook: the span attrs captured by the slot's latest
+        prefill (prefix hit or cold, suffix bucket, adapter name), the
+        facts only the engine knows."""
+        return self._slot_trace_attrs.pop(slot, {})
 
     def _suffix_bucket(self, suffix_len, prefix_len):
         """Smallest suffix width that holds the suffix and keeps every
@@ -828,6 +867,9 @@ class InferenceEngine:
 
     def close(self):
         self.scheduler.shutdown()
+        if self.telemetry.enabled:
+            self.telemetry.export()
+            self.telemetry.close()
 
 
 def init_inference(

@@ -10,7 +10,8 @@ csrc/flash_bwd.cu), bound through ctypes (ops/kernel_lib.py), under a
 ``torch.autograd.Function``. The C entry points route by dtype: bfloat16
 and float16 take the tensor-core forward, dQ and dK/dV kernels (wgmma +
 TMA, which need 16-byte-aligned operands); float32 takes the FMA kernels
-(the tensor cores take float32 only as TF32).
+(the tensor cores take float32 only as TF32), and so does every dtype at
+head dim 256.
 
 Entry points:
   - ``mha_reference``: plain attention over an additive mask (the
@@ -24,12 +25,13 @@ Entry points:
   - ``attention``: dispatcher between the two (padding masks and
     ``FLASH_MIN_SEQ``, as in the JAX package).
 
-Head dims: the kernels are compiled at D = 64 and 128. On CUDA tensors
-the wrappers run any ``d <= 128`` at the next of the two
-(:func:`pad_head_dim`): q, k, v and dO are zero-padded along D and the
-outputs sliced back, which is exact, but at ``d = 32`` the kernels move
-twice the bytes the function needs. ``d > 128`` raises; the engines
-refuse such a model when they are built (ops/head_dims.py).
+Head dims: the kernels are compiled at D = 64, 128 and 256 (the last on
+the FMA route only). On CUDA tensors the wrappers run any ``d <= 256`` at
+the next of the three (:func:`pad_head_dim`): q, k, v and dO are
+zero-padded along D and the outputs sliced back, which is exact, but at
+``d = 32`` the kernels move twice the bytes the function needs.
+``d > 256`` raises; the engines refuse such a model when they are built
+(ops/head_dims.py).
 
 Dropout: the TPU kernels seed the chip's generator per tile, so their
 masks depend on the tiling and cannot be reproduced. The port's keep bit
@@ -52,7 +54,9 @@ FLASH_MIN_SEQ = 256
 
 # The head dims the flash kernels are compiled at, and the largest the
 # wrappers take on CUDA tensors (zero-padded to the next compiled width).
-FLASH_HEAD_DIMS = (64, 128)
+# 64 and 128 run on the tensor cores in bfloat16/float16; 256 runs the FMA
+# kernels in every dtype.
+FLASH_HEAD_DIMS = (64, 128, 256)
 FLASH_MAX_HEAD_DIM = FLASH_HEAD_DIMS[-1]
 
 _M32 = 0xFFFFFFFF
@@ -255,14 +259,16 @@ def _check_cuda(name, q, k, v, kv_mask, *more):
             f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do not match "
             f"q {tuple(q.shape)}"
         )
-    if d not in (64, 128):
-        raise ValueError(f"{name} takes head_dim 64 or 128, got {d}")
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(
+            f"{name} takes head_dim {' or '.join(map(str, FLASH_HEAD_DIMS))}"
+            f", got {d}")
     if b * h > 65535:
         raise ValueError(f"{name} takes B*H <= 65535, got {b * h}")
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name} needs contiguous operands")
-    if q.dtype != torch.float32:
+    if q.dtype != torch.float32 and d != 256:
         for t in tensors:
             if t.dtype == q.dtype and t.data_ptr() % 16:
                 raise ValueError(
@@ -301,7 +307,7 @@ def _check_rows(name, q, dout, lse, delta):
 
 def kernel_head_dim(d):
     """The compiled width the flash kernels run head dim ``d`` at: the
-    smallest of ``FLASH_HEAD_DIMS`` that holds it. Raises above 128."""
+    smallest of ``FLASH_HEAD_DIMS`` that holds it. Raises above 256."""
     for width in FLASH_HEAD_DIMS:
         if d <= width:
             return width
@@ -367,7 +373,7 @@ def _launch(device, fn, *args):
 def _flash_fwd_cuda(q, k, v, kv_mask, causal, sm_scale, dropout_rate=0.0,
                     dropout_seed=0):
     """Launch csrc/flash_fwd.cu on CUDA tensors at a compiled head dim
-    (64 or 128; :func:`pad_head_dim` brings the others there). Raises on
+    (64, 128 or 256; :func:`pad_head_dim` brings the others there). Raises on
     anything the kernel does not take; never runs the plain version."""
     from . import kernel_lib
 

@@ -69,8 +69,12 @@ def paged_flash_decode_plain(q, k_pool, v_pool, block_tables, positions,
 
 
 #: The head dims csrc/paged_decode.cu is instantiated at: the multiples of
-#: 16 up to 128 (a row is whole 16-byte chunks in float32 and bfloat16).
+#: 16 up to 128. Any head dim from 1 to :data:`PAGED_DECODE_MAX_HEAD_DIM`
+#: runs at the next of them: a row that is not whole 16-byte chunks is
+#: copied in 8-, 4- or 2-byte pieces, its tail lanes hold zeros, and the
+#: pool keeps its row stride of hd.
 PAGED_DECODE_HEAD_DIMS = tuple(range(16, 129, 16))
+PAGED_DECODE_MAX_HEAD_DIM = PAGED_DECODE_HEAD_DIMS[-1]
 
 #: Blocks of csrc/paged_decode.cu that one SM holds at once (its 64 KB
 #: cp.async ring each, in the 227 KB of shared memory). The grid aims at
@@ -181,9 +185,10 @@ def _paged_decode_cuda(q, k_pool, v_pool, block_tables, positions,
     if len(shape) != 3:
         raise ValueError("q must be [B, heads, hd]")
     b, heads, hd = shape
-    if hd not in PAGED_DECODE_HEAD_DIMS:
+    if not 1 <= hd <= PAGED_DECODE_MAX_HEAD_DIM:
         raise ValueError(
-            f"paged_decode takes head_dim {PAGED_DECODE_HEAD_DIMS}, got {hd}")
+            f"paged_decode takes head_dim 1 to {PAGED_DECODE_MAX_HEAD_DIM}, "
+            f"got {hd}")
     if b > 65535:
         raise ValueError(f"paged_decode takes B <= 65535, got {b}")
     q_ptr = q.data_ptr()

@@ -35,9 +35,24 @@ cast); only the ``*_lora_*`` factors are fp32 masters, differentiated
 and stepped; :meth:`DeepSpeedEngine.adapter_state_dict` hands them to a
 serving engine's ``load_adapter``.
 
+Observability, as in the JAX engine: ``tensorboard`` writes the
+``Train/*`` scalars (utils/monitor.py) at each applied step;
+``wall_clock_breakdown`` times forward, backward and step (and a
+``train_batch`` window) with CUDA events (utils/timers.py) and logs them
+every ``steps_per_print`` steps; ``memory_breakdown`` logs the device's
+allocated and peak bytes there; the ``telemetry`` block
+(telemetry/manager.py) feeds the ``train/*`` catalog, its exporters, the
+profiler window, the watchdog and the tracer from the window hooks. The
+micro-step loop of ``train_batch`` runs inside a ``window_fwd_bwd``
+profiler range and the update inside ``window_optimizer_update``, the
+names of the JAX engine's ``named_scope``s. None of it adds a host sync:
+the step's one sync also carries the window loss when the monitor
+needs it, the timers read their events only when they log, and the
+telemetry settles device values only at its export boundaries.
+
 Not ported, refused with ``DeepSpeedConfigError("... not yet ported")``:
 more than one device (world size > 1, a mesh), the ``resilience``,
-``telemetry``, ``data_pipeline`` and ``compile_cache`` blocks,
+``data_pipeline`` and ``compile_cache`` blocks,
 ``zero_optimization.offload_optimizer``, compensated masters,
 reduced-precision optimizer state, sparse gradients, ``training_data``
 (the dataloader), checkpoints, optimizers other than Adam/AdamW/Lamb/
@@ -59,14 +74,22 @@ from ..config.config import DeepSpeedConfig, DeepSpeedConfigError, not_ported
 from ..config.config_utils import load_config_json
 from ..ops.head_dims import check_head_dim, model_head_dim
 from ..ops.optimizers import Optimizer, build_optimizer, param_groups
+from ..telemetry.manager import build_telemetry
 from ..utils.device import resolve_device
 from ..utils.logging import log_dist
+from ..utils.monitor import Monitor
 from ..utils.numerics import global_norm, has_overflow
+from ..utils.timers import SynchronizedWallClockTimer, device_fence
 from .lr_schedules import build_lr_scheduler
 from .precision import loss_scale_state_from_config, update_scale
 
-_REFUSED_BLOCKS = (C.RESILIENCE, C.TELEMETRY, C.DATA_PIPELINE,
-                   C.COMPILE_CACHE)
+_REFUSED_BLOCKS = (C.RESILIENCE, C.DATA_PIPELINE, C.COMPILE_CACHE)
+
+# the JAX engine's timer names
+FORWARD_TIMER = "forward"
+BACKWARD_TIMER = "backward"
+STEP_TIMER = "step"
+TRAIN_BATCH_TIMER = "train_batch_window"
 
 
 def _requested(raw, key):
@@ -131,7 +154,7 @@ class DeepSpeedEngine:
             raise not_ported(
                 f"training across devices (world size {cfg.world_size})"
             )
-        if cfg.zero_offload_optimizer_device != "none":
+        if cfg.zero_config.offload_optimizer_device != "none":
             raise not_ported("zero_optimization.offload_optimizer")
         if cfg.master_dtype != "fp32":
             raise not_ported(f"data_types.master_dtype={cfg.master_dtype!r}")
@@ -231,12 +254,35 @@ class DeepSpeedEngine:
         # are cast into it (compute dtype != accumulation dtype)
         self._grad_store = None
         self._pending = None  # (loss, compute-dtype params) of a forward
+        self._window_losses = []  # the window's unscaled losses (device)
+        self._last_window_loss = None
         self.micro_steps = 0
         self.global_steps = 0
         self.skipped_steps = 0
         self.last_overflow = False
         self.lamb_coeffs = torch.zeros(0)
         self._training = True
+
+        # ---- observability ---------------------------------------------
+        # the rank-0 Train/* scalar stream (the tensorboard block)
+        self.monitor = Monitor(
+            enabled=cfg.tensorboard_enabled,
+            output_path=cfg.tensorboard_output_path,
+            job_name=cfg.tensorboard_job_name,
+        )
+        self.wall_clock_breakdown = cfg.wall_clock_breakdown
+        self.memory_breakdown = cfg.memory_breakdown
+        self.timers = SynchronizedWallClockTimer(device=self.device)
+        self._tb_windows = 0  # train_batch windows since the last print
+        self._window_timed = False  # a train_batch window timer runs
+        self._window_open = False  # the telemetry's window has started
+        self._n_params = sum(
+            p.numel() for p in self.module.parameters())
+        # the telemetry block: a no-op facade when it is absent
+        self.telemetry = build_telemetry(
+            cfg, rank=0, n_params=self._n_params, timers=self.timers,
+            fence_fn=device_fence(self.device), device=self.device,
+        )
         log_dist(
             f"DeepSpeedEngine initialized: device={self.device} "
             f"zero_stage={self.zero_stage} dtype={self.compute_dtype} "
@@ -410,16 +456,61 @@ class DeepSpeedEngine:
                 "two forward() calls without backward() inside an "
                 "accumulation window"
             )
+        if self._training and self.telemetry.enabled:
+            # every micro-step is liveness, not just the window's end
+            self.telemetry.heartbeat()
+            self._open_window()
+            self.telemetry.count_batch(*self._batch_tokens(inputs))
+        elif not self._training:
+            # eval forwards are liveness, not windows
+            self.telemetry.heartbeat()
+        if self.wall_clock_breakdown:
+            self.timers(FORWARD_TIMER).start()
         batch = self._batch(inputs)
         if not self._training:
             with torch.no_grad():
-                return self._call(self._cast_params(grad=False), batch)
-        params = self._cast_params(grad=True)
-        loss = self._call(params, batch)
-        self._pending = (loss, params)
+                loss = self._call(self._cast_params(grad=False), batch)
+        else:
+            params = self._cast_params(grad=True)
+            loss = self._call(params, batch)
+            self._pending = (loss, params)
+        if self.wall_clock_breakdown:
+            self.timers(FORWARD_TIMER).stop()
         return loss
 
     __call__ = forward
+
+    def _open_window(self):
+        """The telemetry's window start, once a window, at its first
+        micro-step: ``train_batch`` opens it before its profiler ranges,
+        so that a profiler window armed there holds the whole window."""
+        if (self.telemetry.enabled and not self._window_open
+                and self.micro_steps % self.gradient_accumulation_steps()
+                == 0):
+            self._window_open = True
+            self.telemetry.on_window_start()
+
+    @staticmethod
+    def _batch_tokens(inputs):
+        """(tokens, samples) of one micro-batch from its first tensor-like
+        input: rows are samples; rows x dim 1 are tokens only for a 2-d
+        integer input (the (batch, seq) ids of an LM batch), else tokens
+        == samples (the JAX engine's rule)."""
+        for x in inputs:
+            shape = getattr(x, "shape", None)
+            if shape:
+                samples = int(shape[0])
+                dtype = getattr(x, "dtype", None)
+                if isinstance(dtype, torch.dtype):
+                    integer = not (dtype.is_floating_point
+                                   or dtype.is_complex or dtype == torch.bool)
+                else:
+                    integer = dtype is not None and np.issubdtype(
+                        dtype, np.integer)
+                is_ids = len(shape) == 2 and integer
+                return (samples * int(shape[1]) if is_ids else samples,
+                        samples)
+        return 0, 0
 
     def _cast_params(self, grad):
         """The fp32 masters in the compute dtype, as leaf tensors (with
@@ -440,8 +531,11 @@ class DeepSpeedEngine:
             raise RuntimeError(
                 "backward() called without a preceding forward() in train mode"
             )
+        if self.wall_clock_breakdown:
+            self.timers(BACKWARD_TIMER).start()
         loss, params = self._pending
         self._pending = None
+        self._window_losses.append(loss.detach().float())
         scale = self.loss_scale_state.loss_scale
         (loss.float() * scale / self.gradient_accumulation_steps()).backward()
         grads = {
@@ -465,31 +559,64 @@ class DeepSpeedEngine:
                 # the cast copied: keep the buffer for the next windows
                 self._grad_store = self._grad_buffer
         self.micro_steps += 1
+        if self.wall_clock_breakdown:
+            self.timers(BACKWARD_TIMER).stop()
 
     def zero_grad(self):
         self._grad_buffer = None
+        self._window_losses = []
 
     @torch.no_grad()
     def step(self):
         """At the accumulation boundary: the overflow test, the update or
-        the skip, the loss scale and the LR schedule."""
+        the skip, the loss scale and the LR schedule; then the step line,
+        the timers, the monitor and the telemetry."""
         accum = self.gradient_accumulation_steps()
         if (self.micro_steps == 0 or self.micro_steps % accum != 0
                 or self._grad_buffer is None):
             return
+        if self.wall_clock_breakdown:
+            self.timers(STEP_TIMER).start()
+        with torch.profiler.record_function("window_optimizer_update"):
+            overflow, grad_norm, window_loss, host_loss = self._update()
+        if self.wall_clock_breakdown:
+            self.timers(STEP_TIMER).stop()
+            if self._window_timed:
+                # a train_batch window ends with its update, before the
+                # step line reads the timers
+                self.timers(TRAIN_BATCH_TIMER).stop()
+                self._window_timed = False
+                self._tb_windows += 1
+        self._finish_step(overflow, grad_norm, window_loss, host_loss)
+
+    def _update(self):
+        """The update or the skip. Returns ``(overflow, grad_norm,
+        window_loss, host_loss)``: the post-unscale gradient norm as a
+        host float (-1.0 on a skip), the window's mean unscaled loss as a
+        device tensor, and that loss as a host float when the monitor
+        needs it (else None)."""
         grads = self._grad_buffer
+        window_loss = None
+        if self._window_losses:
+            window_loss = torch.stack(self._window_losses).mean()
+        self._window_losses = []
         raw_norm = global_norm(grads.values())  # -1.0 if inf/nan
         if self.config.fp16_enabled:
             overflow = has_overflow(grads.values())
         else:
             overflow = raw_norm < 0.0
-        # the step's one host sync: the skip decision and the norm
-        overflow, raw = torch.stack(
-            [overflow.float(), raw_norm.float()]
-        ).tolist()
-        overflow = bool(overflow)
+        # the step's one host sync: the skip decision and the norm, and
+        # the window loss when the monitor writes it
+        synced = [overflow.float(), raw_norm.float()]
+        want_loss = self.monitor.enabled and window_loss is not None
+        if want_loss:
+            synced.append(window_loss)
+        synced = torch.stack(synced).tolist()
+        overflow, raw = bool(synced[0]), synced[1]
+        host_loss = synced[2] if want_loss else None
         inv_scale = np.float32(1.0) / np.float32(
             self.loss_scale_state.loss_scale)
+        grad_norm = -1.0
         if overflow:
             self.lamb_coeffs = torch.zeros(
                 self._n_groups if hasattr(self.optimizer_obj, "max_coeff")
@@ -510,9 +637,24 @@ class DeepSpeedEngine:
             coeffs = aux.get("lamb_coeffs", [])
             self.lamb_coeffs = (torch.stack(coeffs) if coeffs
                                 else torch.zeros(0))
+            grad_norm = float(grad_norm)
         self._grad_buffer = None
         self.loss_scale_state = update_scale(self.loss_scale_state, overflow)
         self.last_overflow = overflow
+        return overflow, grad_norm, window_loss, host_loss
+
+    def _finish_step(self, overflow, grad_norm, window_loss, host_loss):
+        """Post-update host bookkeeping (the JAX engine's _finish_step):
+        step counters and the LR schedule, the step line and the
+        breakdowns, the monitor's Train/* scalars and the telemetry's
+        window end."""
+        self._last_window_loss = window_loss
+        self._window_open = False
+        # the JAX engine's async bf16/fp32 path queues the LR read before
+        # the schedule steps, its fp16 path reads it after; the monitor
+        # follows each (the JAX engine writes each at the step index the
+        # window settles at, which the port knows at once)
+        lr_before = self._current_lr()
         if overflow:
             self.skipped_steps += 1
             log_dist(
@@ -529,31 +671,100 @@ class DeepSpeedEngine:
                 f"lr={self.get_lr()}, loss_scale="
                 f"{self.loss_scale_state.loss_scale}", ranks=[0],
             )
+            if self.wall_clock_breakdown:
+                self._log_breakdown()
+            if self.memory_breakdown:
+                log_dist(SynchronizedWallClockTimer.memory_usage(self.device),
+                         ranks=[0])
+        if self.monitor.enabled and not overflow:
+            lr = (self._current_lr() if self.config.fp16_enabled
+                  else lr_before)
+            scalars = {"Train/lr": lr,
+                       "Train/loss_scale": float(
+                           self.loss_scale_state.loss_scale)}
+            if host_loss is not None:
+                scalars["Train/loss"] = host_loss
+            if grad_norm >= 0.0:
+                scalars["Train/grad_norm"] = grad_norm
+            self.monitor.write_scalars(scalars, self.global_steps)
+        if self.telemetry.enabled:
+            # the window loss goes in as a device tensor: the telemetry
+            # settles it only at its export boundaries
+            self.telemetry.on_window_end(
+                loss=window_loss,
+                grad_norm=grad_norm,
+                loss_scale=self.loss_scale_state.loss_scale,
+                lr=self.get_lr()[0],
+                global_steps=self.global_steps,
+                skipped_steps=self.skipped_steps,
+                micro_steps=self.micro_steps,
+            )
+
+    def _log_breakdown(self):
+        """The wall-clock breakdown at a print boundary: the train_batch
+        window's mean and samples/s, then forward/backward/step per
+        printed step (the JAX engine's lines). Reading the timers waits
+        for their last events: the breakdown's only syncs."""
+        if self.timers.has_timer(TRAIN_BATCH_TIMER):
+            n_windows = max(1, self._tb_windows)
+            win_s = self.timers(TRAIN_BATCH_TIMER).elapsed(
+                reset=True) / n_windows
+            self._tb_windows = 0
+            if win_s > 0:
+                sps = self.train_batch_size() / win_s
+                log_dist(
+                    f"train_batch window: {win_s * 1e3:.1f} ms avg "
+                    f"| {sps:.1f} samples/s", ranks=[0],
+                )
+        names = [n for n in (FORWARD_TIMER, BACKWARD_TIMER, STEP_TIMER)
+                 if self.timers.has_timer(n)]
+        if names:
+            self.timers.log(names, normalizer=self.steps_per_print())
+
+    def flush_monitor(self):
+        """Flush the monitor's scalars and settle the telemetry's trailing
+        windows (one host sync) into its exporters. Call before reading
+        the sinks at the end of training."""
+        if self.monitor.enabled and self.monitor.writer is not None:
+            self.monitor.writer.flush()
+        self.telemetry.flush()
+
+    def close(self):
+        """Flush and close the monitor and the telemetry (its exporters,
+        trace files, profiler window and watchdog)."""
+        self.flush_monitor()
+        self.monitor.close()
+        self.telemetry.close()
 
     def train_batch(self, batch_iter_or_batches):
         """One accumulation window: ``gradient_accumulation_steps``
         micro-batches from the iterable (each a tuple of model inputs, or
         one input), forward/backward each, then ``step()``. Returns the
-        window's mean unscaled loss."""
+        window's mean unscaled loss (a device tensor)."""
         accum = self.gradient_accumulation_steps()
         it = iter(batch_iter_or_batches)
-        losses = []
-        for _ in range(accum):
-            try:
-                batch = next(it)
-            except StopIteration:
-                if not losses:
-                    raise
-                raise RuntimeError(
-                    f"data iterator ran dry mid-window: collected "
-                    f"{len(losses)} of gradient_accumulation_steps={accum} "
-                    "micro-batches"
-                ) from None
-            if not isinstance(batch, (tuple, list)):
-                batch = (batch,)
-            loss = self.forward(*batch)
-            self.backward(loss)
-            losses.append(loss.detach().float())
+        # a clean end of the data (StopIteration at a window boundary)
+        # leaves here, before the window opens
+        batch = next(it)
+        if self._training:
+            self._open_window()
+        if self.wall_clock_breakdown:
+            self.timers(TRAIN_BATCH_TIMER).start()
+            self._window_timed = True
+        with torch.profiler.record_function("window_fwd_bwd"):
+            for i in range(accum):
+                if i:
+                    try:
+                        batch = next(it)
+                    except StopIteration:
+                        raise RuntimeError(
+                            f"data iterator ran dry mid-window: collected "
+                            f"{i} of gradient_accumulation_steps={accum} "
+                            "micro-batches"
+                        ) from None
+                if not isinstance(batch, (tuple, list)):
+                    batch = (batch,)
+                loss = self.forward(*batch)
+                self.backward(loss)
         self.step()
-        return torch.stack(losses).mean()
-
+        return self._last_window_loss

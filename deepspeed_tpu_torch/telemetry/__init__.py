@@ -1,17 +1,61 @@
-"""Telemetry: the metrics registry, the request tracer, and the serving
-engine's ``infer/*`` catalog (ported from the JAX package)."""
+"""Telemetry: the metrics registry, exporters, the profiler window, the
+step-heartbeat watchdog, the request/step tracer, and the engines'
+metric catalogs (ported from the JAX package's telemetry/).
 
-from .manager import INFERENCE_METRICS, register_inference_metrics
+``manager.build_telemetry`` wires all of it from an engine's config. The
+JAX package's fleet hub and time-series store come with the serving
+fleet.
+"""
+
+from .exporters import (
+    JsonlExporter,
+    MetricExporter,
+    PrometheusTextfileExporter,
+    SummaryWriterExporter,
+    prometheus_name,
+    render_prometheus,
+)
+from .manager import (
+    ENGINE_METRICS,
+    INFERENCE_METRICS,
+    Telemetry,
+    build_telemetry,
+    register_inference_metrics,
+)
+from .profiling import ProfilerWindow
 from .registry import Counter, Gauge, Histogram, MetricsRegistry
-from .tracing import NOOP_TRACER, TraceContext
+from .tracing import (
+    NOOP_TRACER,
+    NoopTracer,
+    SpanTracer,
+    TraceContext,
+    build_tracer,
+    load_chrome_trace,
+)
+from .watchdog import StepHeartbeatWatchdog
 
 __all__ = [
     "Counter",
+    "ENGINE_METRICS",
     "Gauge",
     "Histogram",
     "INFERENCE_METRICS",
+    "JsonlExporter",
+    "MetricExporter",
     "MetricsRegistry",
     "NOOP_TRACER",
+    "NoopTracer",
+    "PrometheusTextfileExporter",
+    "ProfilerWindow",
+    "SpanTracer",
+    "StepHeartbeatWatchdog",
+    "SummaryWriterExporter",
+    "Telemetry",
     "TraceContext",
+    "build_telemetry",
+    "build_tracer",
+    "load_chrome_trace",
+    "prometheus_name",
+    "render_prometheus",
     "register_inference_metrics",
 ]

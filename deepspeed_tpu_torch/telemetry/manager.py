@@ -1,13 +1,107 @@
-"""The serving engine's metric catalogs and their registration.
+"""Engine-facing telemetry facade: registry, exporters, profiler window,
+watchdog and tracer, and the engines' metric catalogs.
 
-The ``infer/*`` and ``adapters/*`` catalogs of the JAX package's
-telemetry manager (deepspeed_tpu/telemetry/manager.py), under the same
-names, so dashboards read one stream set from either engine. The JAX engine also registers a
-``jax/recompiles`` counter fed by a ``jax.monitoring`` listener; PyTorch
-runs eagerly, so the port has no counterpart and leaves it out. The rest
-of the JAX manager (exporters, profiler window, watchdog) waits for a
-later slice.
+Port of deepspeed_tpu/telemetry/manager.py. One ``Telemetry`` instance
+per engine, built from the config's ``"telemetry"`` block by
+:func:`build_telemetry`. The training engine calls ``on_window_start``
+at each accumulation window's first micro-step, ``count_batch`` per
+micro-batch, ``heartbeat`` for liveness, and ``on_window_end`` after the
+update; everything else (metric materialization cadence, export fan-out,
+the profiler window, heartbeats) happens here.
+
+No host sync per window: ``on_window_end`` receives the loss as a raw
+device tensor and materializes it (``float()``, one host sync) only at
+an export boundary, every ``interval`` windows, or at ``flush()`` for the
+trailing windows. With telemetry disabled no hook touches a device
+value.
+
+The catalogs carry the JAX package's names, so dashboards read one
+stream set from either engine. Absent by design: the JAX engine's
+``jax/recompiles``, ``jax/compile_cache_hits`` and
+``jax/compile_cache_misses`` counters (``jax.monitoring`` listeners);
+PyTorch runs eagerly and the CUDA kernels build once per process. The
+``resilience/*``, ``dataloader/*`` and ZeRO-3 rows are registered (the
+catalog is a golden set) and stay 0 until the modules that feed them are
+ported; the JAX facade's hooks for them (the dataloader depth, the
+window stager, the ZeRO-3 layout) come with those modules.
 """
+
+import atexit
+import contextlib
+import os
+import time
+import weakref
+
+import torch
+
+from ..utils.logging import logger, warn_once
+from .exporters import build_exporter
+from .profiling import ProfilerWindow
+from .registry import (
+    DEFAULT_TIME_BUCKETS_MS,
+    MetricsRegistry,
+    suppressed_errors_snapshot,
+)
+from .tracing import NOOP_TRACER, build_tracer
+from .watchdog import StepHeartbeatWatchdog
+
+# The training engine's metric catalog (docs/observability.md documents
+# each). Instruments are pre-registered at construction so every export
+# carries the full golden set: an absent stream means a broken emitter,
+# not an idle one.
+ENGINE_METRICS = (
+    ("gauge", "train/loss", "mean unscaled loss of the last settled window"),
+    ("gauge", "train/learning_rate", "learning rate applied to the last window"),
+    ("gauge", "train/loss_scale", "dynamic loss scale (fp16) or 1.0"),
+    ("gauge", "train/grad_norm", "post-unscale global gradient norm"),
+    ("gauge", "train/tokens_per_sec", "tokens consumed per second over the last export interval"),
+    ("gauge", "train/samples_per_sec", "samples consumed per second over the last export interval"),
+    ("gauge", "train/model_tflops", "model TFLOPS (6*N*tokens/sec) over the last export interval"),
+    # gauges, not counters: these mirror engine counts that are revised
+    # DOWNWARD — deferred-overflow reconciliation decrements global_steps
+    # one window late and an in-process load_checkpoint rolls all three
+    # back. A Prometheus counter that decreases reads as a reset-to-zero,
+    # so rate() would extrapolate a huge spike on every reconciliation.
+    ("gauge", "train/global_steps", "optimizer updates applied"),
+    ("gauge", "train/skipped_steps", "windows skipped by overflow/non-finite grad norm"),
+    ("gauge", "train/micro_steps", "micro-steps (forward+backward) run"),
+    ("gauge", "device/bytes_in_use", "device bytes allocated by PyTorch's caching allocator (torch.cuda.memory_allocated; 0 on the CPU)"),
+    ("gauge", "device/peak_bytes_in_use", "peak device bytes allocated (torch.cuda.max_memory_allocated; 0 on the CPU)"),
+    # per-WINDOW HBM high-water (vs device/* above, which samples at the
+    # export cadence): micro_batch headroom becomes visible in the
+    # trajectory instead of inferred from crash logs. 0 on the CPU.
+    ("gauge", "train/hbm_peak_bytes", "per-device HBM high-water (torch.cuda.max_memory_allocated) sampled at every window boundary; 0 on the CPU"),
+    # ZeRO-3 layout gauges (docs/performance.md "ZeRO-3 & collective
+    # overlap"): set once at engine init, 0 below stage 3
+    ("gauge", "train/zero3_param_shard_bytes", "per-chip persistent parameter bytes under ZeRO-3 dp sharding (sharded tree / dp + replicated leaves); 0 below stage 3"),
+    ("gauge", "train/zero3_gather_bytes_per_window", "estimated per-chip all-gather traffic per window for ZeRO-3 just-in-time weight gathers (forward + backward re-gather); 0 below stage 3"),
+    # dataloader/* is the data-pipeline namespace (docs/performance.md
+    # "Input pipeline & compile cache"): the loader's prefetch queue and
+    # the window stager (runtime/staging.py) export here together
+    ("gauge", "dataloader/queue_depth", "prefetch queue depth (sampled at batch handoff AND from the producer, so epoch-boundary refill is visible)"),
+    ("gauge", "dataloader/staging_occupancy", "staged-but-unconsumed windows in the staging buffers"),
+    ("counter", "dataloader/h2d_bytes", "host->device bytes dispatched by the input-staging pipeline"),
+    ("histogram", "dataloader/staging_wait_ms", "critical-path wait for a staged window at dispatch (near-zero = staging fully overlapped with device compute)"),
+    ("histogram", "dataloader/staging_time_ms", "background wall time to assemble one window (pull + stack + device_put dispatch)"),
+    ("histogram", "train/window_time_ms", "host wall time per accumulation window"),
+    # resilience streams (deepspeed_tpu/resilience/, docs/resilience.md):
+    # the ResilienceManager registers into this same registry, so retry
+    # storms and corruption fallbacks export next to the loss curves
+    ("counter", "resilience/io_retries", "transient checkpoint-I/O failures retried with backoff"),
+    ("counter", "resilience/corruption_fallbacks", "corrupt/missing checkpoint candidates skipped on load"),
+    ("counter", "resilience/preemption_saves", "final checkpoints committed by the preemption drain"),
+    ("counter", "resilience/checkpoints_pruned", "checkpoint directories deleted by retention GC"),
+    ("histogram", "resilience/save_time_ms", "wall time of save_checkpoint, end to end"),
+    ("histogram", "resilience/load_time_ms", "wall time of load_checkpoint, end to end"),
+    # self-healing run supervision + fault injection (resilience/faults.py,
+    # resilience/supervisor.py, docs/resilience.md)
+    ("counter", "resilience/rollbacks", "in-process rollbacks to the last committed checkpoint (run supervisor)"),
+    ("counter", "resilience/anomalies", "anomalous windows detected by the run supervisor (non-finite loss, loss spike, stall escalation, window failure)"),
+    ("counter", "resilience/faults_injected", "faults fired by the config-armed fault-injection registry"),
+)
+
+
+
 
 # The inference engine's metric catalog (docs/inference.md,
 # docs/observability.md); the InferenceEngine registers these into its
@@ -77,3 +171,444 @@ def register_adapter_metrics(registry):
     for kind, name, help_text in ADAPTER_METRICS:
         getattr(registry, kind)(name, help=help_text)
     return registry
+
+
+def hbm_peak_bytes(device=None):
+    """Per-device HBM high-water (``torch.cuda.max_memory_allocated``),
+    or None on the CPU. The probe behind the ``train/hbm_peak_bytes``
+    gauge."""
+    if device is None or torch.device(device).type != "cuda":
+        return None
+    return int(torch.cuda.max_memory_allocated(device))
+
+
+class Telemetry:
+    def __init__(
+        self,
+        enabled=False,
+        exporters=(),
+        interval=1,
+        n_params=0,
+        profiler=None,
+        watchdog=None,
+        registry=None,
+        tracer=None,
+        device=None,
+    ):
+        self.enabled = enabled
+        # the engine's device: memory gauges read it (None or the CPU:
+        # they stay 0)
+        self.device = device
+        self.registry = registry or MetricsRegistry()
+        self.exporters = list(exporters)
+        self.interval = max(1, int(interval))
+        self.n_params = int(n_params)
+        self.profiler = profiler
+        self.watchdog = watchdog
+        # request/step tracer (tracing.py): the zero-overhead NOOP
+        # passthrough unless the telemetry.tracing block armed one
+        self.tracer = tracer if tracer is not None else NOOP_TRACER
+        # lazy per-run trace the training spans parent under (one
+        # trace_id for the run's window/staging/checkpoint spans)
+        self._train_ctx = None
+        self._window_start_mono = None
+        self._windows_ended = 0
+        self._windows_since_export = 0
+        self._pending_values = None
+        self._window_start = None
+        self._last_export_time = None
+        self._tokens_since_export = 0
+        self._samples_since_export = 0
+        # per-window HBM sampling stops probing after the first "platform
+        # reports no memory stats" answer (CPU backends)
+        self._hbm_stats_absent = False
+        if not enabled:
+            return
+        for kind, name, help_text in ENGINE_METRICS:
+            getattr(self.registry, kind)(name, help=help_text)
+        if self.watchdog is not None:
+            self.watchdog.start()
+            # the polling thread keeps the watchdog itself alive, so a
+            # dropped engine (retry loop, notebook rebuild) would leak the
+            # thread and fire a spurious stall report ~timeout later;
+            # stop it as soon as this facade is collected (the bound
+            # method references the watchdog, not self — no self-cycle)
+            weakref.finalize(self, self.watchdog.stop)
+        # Close at interpreter exit (weakly — engines created and dropped
+        # in tests are not kept alive): stops the watchdog, terminates a
+        # still-open trace window, and flushes/closes the sinks for jobs
+        # that never call close() themselves. close() flips enabled off,
+        # so an explicit close makes this a no-op.
+        ref = weakref.ref(self)
+
+        def _close_at_exit():
+            t = ref()
+            if t is not None and t.enabled:
+                try:
+                    t.close()
+                except Exception as e:  # interpreter exit: log, go on
+                    logger.warning("telemetry close at exit failed: %r", e)
+
+        # kept so close() can unregister: a sweep/notebook that builds N
+        # engines in one process must not accumulate N dead callbacks
+        self._atexit_cb = _close_at_exit
+        atexit.register(_close_at_exit)
+
+    # -- engine hooks ---------------------------------------------------
+    def on_window_start(self):
+        if not self.enabled:
+            return
+        if self.profiler is not None:
+            self.profiler.on_window_start()
+        self._window_start = time.time()
+        if self.tracer.enabled:
+            self._window_start_mono = time.monotonic()
+
+    def count_batch(self, tokens, samples):
+        if not self.enabled:
+            return
+        self._tokens_since_export += int(tokens)
+        self._samples_since_export += int(samples)
+
+    def on_window_end(
+        self,
+        loss=None,
+        grad_norm=None,
+        loss_scale=None,
+        lr=None,
+        global_steps=0,
+        skipped_steps=0,
+        micro_steps=0,
+    ):
+        """Window bookkeeping; ``loss``/``grad_norm``/``loss_scale`` may be
+        raw device tensors: they are only materialized at export
+        boundaries (see module docstring)."""
+        if not self.enabled:
+            return
+        if self.profiler is not None:
+            self.profiler.on_window_end()
+        now = time.time()
+        # true window duration (first dispatch -> update dispatched), not
+        # the end-to-end gap: the gap also counts dataloader wait and eval
+        # phases between windows, which would poison the histogram
+        if self._window_start is not None:
+            hist = self.registry.histogram(
+                "train/window_time_ms", buckets=DEFAULT_TIME_BUCKETS_MS
+            )
+            span = None
+            if self.tracer.enabled and self._window_start_mono is not None:
+                span = self._record_train_span(
+                    "train.window", self._window_start_mono,
+                    time.monotonic(),
+                    attrs={
+                        "window": self._windows_ended + 1,
+                        "global_steps": int(global_steps),
+                        "micro_steps": int(micro_steps),
+                    },
+                )
+                self._window_start_mono = None
+            hist.observe(
+                (now - self._window_start) * 1000.0,
+                # only SAMPLED traces reach the export file: an exemplar
+                # pointing at an unsampled trace is a dead link
+                trace_id=(
+                    span["trace_id"] if span and span["sampled"] else None
+                ),
+            )
+            self._window_start = None
+        self._windows_ended += 1
+        self._sample_hbm_peak()
+        if self.watchdog is not None:
+            self.watchdog.beat(step=self._windows_ended)
+        self.registry.gauge("train/global_steps").set(global_steps)
+        self.registry.gauge("train/skipped_steps").set(skipped_steps)
+        self.registry.gauge("train/micro_steps").set(micro_steps)
+        self._windows_since_export += 1
+        if self._windows_since_export >= self.interval:
+            self._materialize(loss, grad_norm, loss_scale, lr, now)
+            self.export(step=global_steps)
+            self._windows_since_export = 0
+            self._pending_values = None
+        else:
+            # raw device refs only (no host sync): flush() settles these
+            # so the trailing windows % interval are not lost when the
+            # run ends between export boundaries
+            self._pending_values = (loss, grad_norm, loss_scale, lr,
+                                    global_steps)
+
+    def heartbeat(self):
+        """Non-window liveness beat: eval forwards call this so a long
+        eval epoch is not read as a stall. Does not advance the
+        last-completed-window index in stall reports."""
+        if self.enabled and self.watchdog is not None:
+            self.watchdog.beat()
+
+    @contextlib.contextmanager
+    def liveness_exempt(self):
+        """Suspend stall detection for a phase with no step cadence of its
+        own — a checkpoint save can legitimately outlast the watchdog
+        timeout, and a single beat before/after it would not keep a
+        LONGER-than-timeout save from firing a false stall mid-phase.
+        The stall clock restarts when the phase exits."""
+        if self.enabled and self.watchdog is not None:
+            self.watchdog.pause()
+            try:
+                yield
+            finally:
+                self.watchdog.resume()
+        else:
+            yield
+
+    def _sample_hbm_peak(self):
+        """Per-window HBM high-water sample (train/hbm_peak_bytes): one
+        cheap host call where the platform reports memory stats, a no-op
+        (after the first probe) everywhere else."""
+        if self._hbm_stats_absent:
+            return
+        peak = hbm_peak_bytes(self.device)
+        if peak is None:
+            self._hbm_stats_absent = True  # CPU etc.: stop probing
+            return
+        self.registry.gauge("train/hbm_peak_bytes").set(peak)
+
+    def train_trace_ctx(self):
+        """The run's lazily-started train trace context: window, staging,
+        checkpoint, and rollback spans all parent here, so Perfetto shows
+        the run as ONE connected track (None while tracing is off)."""
+        if self._train_ctx is None:
+            self._train_ctx = self.tracer.child_of(None)
+        return self._train_ctx
+
+    def _record_train_span(self, name, t0, t1, attrs=None):
+        return self.tracer.record(
+            name, t0, t1, ctx=self.train_trace_ctx(), attrs=attrs
+        )
+
+    # -- internals ------------------------------------------------------
+    def _materialize(self, loss, grad_norm, loss_scale, lr, now):
+        """Resolve device values and derived rates into gauges. The
+        float() calls below are the subsystem's only host syncs."""
+        reg = self.registry
+        if loss is not None:
+            reg.gauge("train/loss").set(float(loss))
+        if grad_norm is not None:
+            gn = float(grad_norm)
+            # -1.0 is the engine's non-finite sentinel (skipped update);
+            # a skipped window keeps the previous finite norm on the gauge
+            if gn >= 0.0:
+                reg.gauge("train/grad_norm").set(gn)
+        if loss_scale is not None:
+            reg.gauge("train/loss_scale").set(float(loss_scale))
+        if lr is not None:
+            reg.gauge("train/learning_rate").set(float(lr))
+        if self._last_export_time is not None:
+            elapsed = now - self._last_export_time
+            if elapsed > 0:
+                tps = self._tokens_since_export / elapsed
+                reg.gauge("train/tokens_per_sec").set(tps)
+                reg.gauge("train/samples_per_sec").set(
+                    self._samples_since_export / elapsed
+                )
+                # bench.py's model-flops accounting: 6*N per token
+                # (fwd 2N + bwd 4N), the measured-throughput MFU numerator
+                reg.gauge("train/model_tflops").set(
+                    6.0 * self.n_params * tps / 1e12
+                )
+        self._last_export_time = now
+        self._tokens_since_export = 0
+        self._samples_since_export = 0
+        self._set_memory_gauges()
+
+    def _set_memory_gauges(self):
+        device = self.device
+        if device is None or torch.device(device).type != "cuda":
+            return  # gauges stay 0 on the CPU
+        self.registry.gauge("device/bytes_in_use").set(
+            torch.cuda.memory_allocated(device)
+        )
+        self.registry.gauge("device/peak_bytes_in_use").set(
+            torch.cuda.max_memory_allocated(device)
+        )
+
+    def export(self, step=None):
+        if not self.enabled:
+            return
+        metrics = self.registry.collect()
+        for exporter in self.exporters:
+            try:
+                exporter.export(metrics, step)
+            except Exception as e:
+                # once per exporter: a full disk fails EVERY export and
+                # would bury the log at the default interval=1 cadence
+                warn_once(
+                    f"telemetry-exporter-{type(exporter).__name__}",
+                    "telemetry exporter %s failed: %s",
+                    type(exporter).__name__, e,
+                )
+
+    def flush(self):
+        """Settle and export any windows past the last export boundary
+        (one host sync), then flush the sinks — without this a run ending
+        mid-interval would record state stale by up to interval-1
+        windows."""
+        if self.enabled and self._pending_values is not None:
+            loss, grad_norm, loss_scale, lr, global_steps = (
+                self._pending_values
+            )
+            self._materialize(loss, grad_norm, loss_scale, lr, time.time())
+            self.export(step=global_steps)
+            self._windows_since_export = 0
+            self._pending_values = None
+        for exporter in self.exporters:
+            try:
+                exporter.flush()
+            except Exception as e:
+                warn_once(
+                    f"telemetry-exporter-flush-{type(exporter).__name__}",
+                    "telemetry exporter %s flush failed: %s",
+                    type(exporter).__name__, e,
+                )
+        self.tracer.flush()
+
+    def close(self):
+        if self.watchdog is not None:
+            self.watchdog.stop()
+        if self.profiler is not None:
+            self.profiler.close()
+        self.flush()
+        for exporter in self.exporters:
+            try:
+                exporter.close()
+            except Exception as e:
+                warn_once(
+                    f"telemetry-exporter-close-{type(exporter).__name__}",
+                    "telemetry exporter %s close failed: %s",
+                    type(exporter).__name__, e,
+                )
+        self.tracer.close()
+        self.enabled = False
+        cb = getattr(self, "_atexit_cb", None)
+        if cb is not None:
+            atexit.unregister(cb)
+            self._atexit_cb = None
+
+
+def build_telemetry(config, rank=0, n_params=0, timers=None, fence_fn=None,
+                    device=None):
+    """Construct the engine's Telemetry from a validated DeepSpeedConfig.
+
+    Rank policy: jsonl/tensorboard exporters and the profiler trace run on
+    process 0 only (the reference's tensorboard convention); the
+    Prometheus textfile is written by EVERY process (pod scrapers are
+    per-host — the filename gains a ``.rank{N}`` suffix on multi-process
+    meshes) and the watchdog runs everywhere, because the stalled rank is
+    exactly the one rank-0 gating would silence. ``device`` is the
+    engine's: the memory gauges and the profiler's CUDA activity follow
+    it (the CPU when the caller asked for the CPU).
+    """
+    if not getattr(config, "telemetry_enabled", False):
+        return Telemetry(enabled=False)
+
+    base = config.telemetry_output_path or os.path.join(
+        os.path.expanduser("~"), "telemetry"
+    )
+    out_dir = os.path.join(base, config.telemetry_job_name)
+    os.makedirs(out_dir, exist_ok=True)
+
+    process_count = config.world_size
+    prometheus_path = config.telemetry_prometheus_path or os.path.join(
+        out_dir, "metrics.prom"
+    )
+    if process_count > 1:
+        # rank goes BEFORE the extension: textfile collectors glob
+        # '*.prom', so 'metrics.prom.rank1' would never be scraped
+        root, ext = os.path.splitext(prometheus_path)
+        prometheus_path = f"{root}.rank{rank}{ext}"
+
+    if (
+        "tensorboard" in config.telemetry_exporters
+        and getattr(config, "tensorboard_enabled", False)
+        and rank == 0
+    ):
+        # both sinks are legitimate alone: the legacy block writes exact
+        # per-step Train/* curves (overflow-settled indices), the exporter
+        # samples registry gauges at the export cadence. Together they put
+        # two near-duplicate stream families in tensorboard — flag it.
+        logger.warning(
+            "both the 'tensorboard' config block and the telemetry "
+            "'tensorboard' exporter are enabled: expect duplicate "
+            "Train/* (per-step) and train/* (sampled) scalar streams"
+        )
+
+    exporters = []
+    for name in config.telemetry_exporters:
+        if name != "prometheus" and rank != 0:
+            continue
+        exporters.append(
+            build_exporter(
+                name, out_dir, config.telemetry_job_name,
+                prometheus_path=prometheus_path,
+            )
+        )
+
+    profiler = None
+    if config.telemetry_profile_start_step >= 0 and rank == 0:
+        profiler = ProfilerWindow(
+            start_step=config.telemetry_profile_start_step,
+            num_steps=config.telemetry_profile_num_steps,
+            output_path=config.telemetry_profile_output_path
+            or os.path.join(out_dir, "profile"),
+            fence=fence_fn,
+            device=device,
+        )
+
+    registry = MetricsRegistry()
+    # request tracing + flight recorder (tracing.py): NOOP unless the
+    # telemetry.tracing block arms it; the trace file and flight dumps
+    # land in the same output directory as the metric sinks
+    tracer = build_tracer(config, out_dir=out_dir)
+    watchdog = None
+    if config.telemetry_watchdog_enabled:
+        from ..utils.timers import SynchronizedWallClockTimer
+
+        def _stall_context():
+            context = {
+                "device_memory": SynchronizedWallClockTimer.memory_usage(
+                    device),
+                "metrics": registry.snapshot(),
+            }
+            if timers is not None:
+                context["timers_s"] = {
+                    k: round(v, 3) for k, v in timers.snapshot().items()
+                }
+            # the suppressed-errors diagnostics registry rides every
+            # stall report: deliberately swallowed exceptions surface at
+            # exactly the moment someone is debugging a stall
+            context["suppressed_errors"] = (
+                suppressed_errors_snapshot() or "none"
+            )
+            if tracer.enabled:
+                # dump the flight recorder's last-N spans/events next to
+                # the sinks; the report carries the path
+                context["flight_recorder"] = tracer.dump_flight(
+                    "watchdog_stall"
+                )
+            return context
+
+        watchdog = StepHeartbeatWatchdog(
+            timeout=config.telemetry_watchdog_timeout,
+            poll_interval=config.telemetry_watchdog_poll_interval,
+            context_fn=_stall_context,
+        )
+
+    return Telemetry(
+        enabled=True,
+        exporters=exporters,
+        interval=config.telemetry_interval,
+        n_params=n_params,
+        profiler=profiler,
+        watchdog=watchdog,
+        registry=registry,
+        tracer=tracer,
+        device=device,
+    )

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from deepspeed_tpu_torch.ops import attention as tattn
@@ -344,18 +345,19 @@ def test_attention_routes_dropout_to_the_flash_path():
 
 
 # ---------------------------------------------------------------------------
-# head dims the kernels are not compiled at: zero-padded to 64 or 128
+# head dims the kernels are not compiled at: zero-padded to 64, 128 or 256
 # ---------------------------------------------------------------------------
 PAD_TOL = dict(atol=1e-6, rtol=1e-6)
 
 
-@pytest.mark.parametrize("d", [8, 32, 48, 96])
+@pytest.mark.parametrize("d", [8, 32, 48, 96, 130, 192])
 @pytest.mark.parametrize("causal,masked,rate", [
     (True, False, 0.0), (False, True, 0.0), (True, True, 0.2),
 ])
 def test_pad_head_dim_around_plain_equals_unpadded(d, causal, masked, rate):
     """``pad_head_dim`` (what the CUDA wrappers run the kernels through at
-    d < 64 and 64 < d < 128) around the plain forward, dQ and dK/dV equals
+    d < 64, 64 < d < 128 and 128 < d < 256) around the plain forward, dQ
+    and dK/dV equals
     the unpadded plain functions: out, lse and the three gradients, with
     the caller's sm_scale = 1/sqrt(d). float32, 1e-6 (the padded columns
     add exact zeros; only the summation's blocking may differ)."""
@@ -390,10 +392,11 @@ def test_pad_head_dim_around_plain_equals_unpadded(d, causal, masked, rate):
 
 
 def test_kernel_head_dim_widths():
-    assert [tattn.kernel_head_dim(d) for d in (8, 32, 64, 80, 128)] == [
-        64, 64, 64, 128, 128]
+    assert [tattn.kernel_head_dim(d)
+            for d in (8, 32, 64, 80, 128, 129, 160, 192, 256)] == [
+        64, 64, 64, 128, 128, 256, 256, 256, 256]
     with pytest.raises(ValueError, match="head_dim"):
-        tattn.kernel_head_dim(160)
+        tattn.kernel_head_dim(257)
 
 
 @pytest.mark.parametrize("causal,with_mask", [(True, False), (False, True)])
@@ -425,9 +428,9 @@ def test_head_dim_32_matches_jax_kernel(causal, with_mask):
 
 def test_initialize_refuses_a_head_dim_the_flash_kernels_cannot_take():
     """On a CUDA device, initialize() refuses a model whose head dim is
-    above 128 once its n_positions reaches FLASH_MIN_SEQ, when the engine
+    above 256 once its n_positions reaches FLASH_MIN_SEQ, when the engine
     is built (no GPU needed: the decision comes before the device). Head
-    dim 32 is accepted, and CPU engines take any head dim."""
+    dims 32 and 129-256 are accepted, and CPU engines take any head dim."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
     from deepspeed_tpu_torch.config import DeepSpeedConfigError
@@ -441,15 +444,72 @@ def test_initialize_refuses_a_head_dim_the_flash_kernels_cannot_take():
             vocab_size=64, n_positions=n_positions, n_embd=n_embd,
             n_layer=1, n_head=n_head), device="cpu")
 
-    with pytest.raises(DeepSpeedConfigError, match="head dim 160"):
-        deepspeed_tpu_torch.initialize(model=model(320, 2), config_params=cfg,
+    with pytest.raises(DeepSpeedConfigError, match="head dim 320"):
+        deepspeed_tpu_torch.initialize(model=model(640, 2), config_params=cfg,
                                        device="cuda")
-    with pytest.raises(DeepSpeedConfigError, match="up to 128"):
-        check_head_dim(160, 256, "cuda")
-    check_head_dim(160, 255, "cuda")  # attention never reaches the kernels
+    with pytest.raises(DeepSpeedConfigError, match="up to 256"):
+        check_head_dim(257, 256, "cuda")
+    check_head_dim(320, 255, "cuda")  # attention never reaches the kernels
     check_head_dim(32, 1024, "cuda")
     check_head_dim(32, 1024, None)
-    check_head_dim(160, 1024, "cpu")
+    check_head_dim(320, 1024, "cpu")
     engine, *_ = deepspeed_tpu_torch.initialize(
-        model=model(320, 2), config_params=cfg, device="cpu")
+        model=model(640, 2), config_params=cfg, device="cpu")
     assert engine.device.type == "cpu"
+
+
+@pytest.mark.parametrize("head_dim", [129, 160, 192, 255, 256])
+def test_check_head_dim_takes_129_to_256_on_cuda(head_dim):
+    """The D = 256 kernels take head dims 129-256 on the card: no refusal
+    on a CUDA device argument at any n_positions, and 257 still refused."""
+    from deepspeed_tpu_torch.config import DeepSpeedConfigError
+    from deepspeed_tpu_torch.ops.head_dims import check_head_dim
+
+    for n_positions in (256, 1024, 4096):
+        check_head_dim(head_dim, n_positions, "cuda")
+        check_head_dim(head_dim, n_positions, None)
+    with pytest.raises(DeepSpeedConfigError, match="head dim 257"):
+        check_head_dim(257, 1024, "cuda")
+
+
+@pytest.mark.parametrize("d", [160, 192])
+@pytest.mark.parametrize("causal,with_mask", [(True, False), (False, True)])
+def test_head_dims_above_128_match_jax_kernel(d, causal, with_mask):
+    """Head dims the card now runs at D = 256: the JAX flash kernel
+    (interpret mode) against the port's function on CPU tensors and the
+    padded path the CUDA wrappers take, forward and gradients. float32,
+    1e-5."""
+    b, h, s = 1, 2, 256
+    q, k, v = _qkv(40 + d, b, h, s, s, d)
+    mask = _padding_mask(b, s, [200]) if with_mask else None
+    jmask = None if mask is None else jnp.asarray(mask)
+    o_jax = np.asarray(jattn.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), mask=jmask,
+        causal=causal))
+    args = [torch.from_numpy(x) for x in (q, k, v)]
+    tmask = None if mask is None else torch.from_numpy(mask)
+    kv = tattn.additive_mask_to_kv_valid(tmask)
+    o_pad, lse = tattn.pad_head_dim(tattn.flash_fwd_plain, *args, kv, causal,
+                                    sm_scale=1.0 / np.sqrt(d))
+    assert o_pad.shape == (b, h, s, d)
+    np.testing.assert_allclose(o_pad.numpy(), o_jax, **TOL)
+    np.testing.assert_allclose(
+        tattn.flash_attention(*args, mask=tmask, causal=causal).numpy(),
+        o_jax, **TOL)
+    dout = torch.from_numpy(np.random.default_rng(d).normal(
+        size=(b, h, s, d)).astype(np.float32))
+    delta = (dout * o_pad).sum(dim=-1)
+    bargs = (kv, dout, lse, delta, causal)
+    dq = tattn.pad_head_dim(tattn.flash_bwd_dq_plain, *args, *bargs,
+                            sm_scale=1.0 / np.sqrt(d))
+    dk, dv = tattn.pad_head_dim(tattn.flash_bwd_dkv_plain, *args, *bargs,
+                                sm_scale=1.0 / np.sqrt(d))
+
+    def jloss(q_, k_, v_):
+        o = jattn.flash_attention(q_, k_, v_, mask=jmask, causal=causal)
+        return jnp.sum(o * jnp.asarray(dout.numpy()))
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for got, ref in zip((dq, dk, dv), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)

@@ -95,3 +95,157 @@ def test_both_parsers_refuse_the_same_blocks(block):
 
 def test_world_size_defaults_to_one_without_a_process_group():
     assert DeepSpeedConfig(None, param_dict={}).world_size == 1
+
+
+# ---------------------------------------------------------------------------
+# the training blocks this slice reads: zero_optimization, activation
+# checkpointing, tensorboard, the breakdowns and telemetry (with tracing)
+# ---------------------------------------------------------------------------
+_OBSERVED = ("zero_", "activation_checkpointing", "tensorboard_",
+             "telemetry_", "wall_clock_breakdown", "memory_breakdown")
+
+
+def _training_both(extra):
+    raw = dict({"train_batch_size": 8}, **extra)
+    return (JConfig(None, param_dict=raw, world_size=1),
+            DeepSpeedConfig(None, param_dict=raw, world_size=1,
+                            training=True))
+
+
+def _observed_attrs(cfg):
+    out = {}
+    for k, v in vars(cfg).items():
+        if not k.startswith(_OBSERVED) or k == "zero_allow_untested_optimizer":
+            continue
+        # the sub-configs compare by their parsed fields
+        out[k] = v.repr_dict() if hasattr(v, "repr_dict") else v
+    return out
+
+
+@pytest.mark.parametrize("extra", [
+    {},
+    # test_config.py's ZeRO cases
+    {"fp16": {"enabled": True},
+     "zero_optimization": {"stage": 2, "allgather_bucket_size": 1234,
+                           "overlap_comm": True}},
+    {"fp16": {"enabled": True}, "zero_optimization": True},
+    {"zero_optimization": False},
+    {"zero_optimization": {"stage": 3, "stage3_gather_block": 4,
+                           "stage3_latency_hiding": False}},
+    {"zero_optimization": {"stage": 3}},
+    {"zero_optimization": {"stage": 1, "allgather_size": 77,
+                           "offload_optimizer": {"pin_memory": True}}},
+    # activation checkpointing and the observability switches
+    {"activation_checkpointing": {"partition_activations": True,
+                                  "number_checkpoints": 4,
+                                  "cpu_checkpointing": True}},
+    {"wall_clock_breakdown": True, "memory_breakdown": True},
+    {"tensorboard": {"enabled": True, "output_path": "/tmp/tb",
+                     "job_name": "run7"}},
+    # test_telemetry.py's accepted telemetry blocks
+    {"telemetry": {"enabled": True}},
+    {"telemetry": {"enabled": True, "interval": 4,
+                   "exporters": ["jsonl", "prometheus", "tensorboard"],
+                   "prometheus_path": "/tmp/x.prom",
+                   "profile": {"start_step": 3, "num_steps": 2,
+                               "output_path": "/tmp/prof"},
+                   "watchdog": {"enabled": False, "timeout": 30,
+                                "poll_interval": 2.5}}},
+    {"telemetry": {"enabled": False, "watchdog": {"timeout": 1}}},
+    {"telemetry": {"enabled": True, "watchdog": {"poll_interval": None}}},
+    {"telemetry": {"enabled": True,
+                   "tracing": {"enabled": True, "sample_rate": 0.25,
+                               "ring_events": 64, "export": "none"}}},
+    {"telemetry": {"enabled": True, "tracing": {"sample_rate": 1}}},
+])
+def test_training_blocks_parse_to_the_same_attributes(extra):
+    jcfg, tcfg = _training_both(extra)
+    want = _observed_attrs(jcfg)
+    got = _observed_attrs(tcfg)
+    assert got == want
+    assert "telemetry_enabled" in got and "zero_config" in got
+
+
+@pytest.mark.parametrize("extra", [
+    # test_config.py's refused ZeRO blocks
+    {"zero_optimization": {"stage": 4}},
+    *({"zero_optimization": {"stage": s}} for s in (-1, True, "2", 1.5)),
+    *({"zero_optimization": {"stage": 3, k: 1}}
+      for k in ("stag", "stage3_gather_blocks", "overlap_com", "zero3")),
+    *({"zero_optimization": {"stage": s, k: v}}
+      for s in (0, 1, 2)
+      for k, v in (("stage3_gather_block", 2),
+                   ("stage3_latency_hiding", True))),
+    *({"zero_optimization": {"stage": 3, "stage3_gather_block": g}}
+      for g in (0, -1, True, "2", 1.5)),
+    *({"zero_optimization": {"stage": 3, "stage3_latency_hiding": h}}
+      for h in (1, "true", None)),
+    # test_telemetry.py's refused telemetry blocks
+    {"telemetry": {"enabled": True, "exporters": ["jsonl", "statsd"]}},
+    {"telemetry": {"enabled": True, "exporters": "jsonl"}},
+    {"telemetry": {"enabled": True, "exporters": 5}},
+    {"telemetry": {"enabled": True, "profile": {"start_step": "20"}}},
+    {"telemetry": {"enabled": True,
+                   "profile": {"start_step": 2, "num_steps": "2"}}},
+    {"telemetry": {"enabled": True, "watchdog": {"timeout": "600"}}},
+    {"telemetry": {"enabled": True, "watchdog": {"poll_interval": "5"}}},
+    {"telemetry": {"enabled": True, "interval": 0}},
+    {"telemetry": {"enabled": True, "interval": True}},
+    {"telemetry": {"enabled": True,
+                   "profile": {"start_step": 2, "num_steps": 0}}},
+    {"telemetry": {"enabled": True, "profile": {"start_step": -2}}},
+    {"telemetry": {"enabled": True, "watchdog": {"timeout": 0}}},
+    {"telemetry": {"enabled": True, "watchdog": {"poll_interval": -1}}},
+    # the tracing sub-block (test_tracing.py's rules)
+    {"telemetry": {"enabled": True, "tracing": {"sample_rte": 0.5}}},
+    {"telemetry": {"enabled": True, "tracing": {"sample_rate": 1.5}}},
+    {"telemetry": {"enabled": True, "tracing": {"sample_rate": "all"}}},
+    {"telemetry": {"enabled": True, "tracing": {"sample_rate": True}}},
+    {"telemetry": {"enabled": True, "tracing": {"ring_events": 0}}},
+    {"telemetry": {"enabled": True, "tracing": {"ring_events": 2.5}}},
+    {"telemetry": {"enabled": True, "tracing": {"export": "otlp"}}},
+])
+def test_both_parsers_refuse_the_same_training_blocks_with_the_same_text(
+        extra):
+    with pytest.raises(JConfigError) as jerr:
+        JConfig(None, param_dict=dict({"train_batch_size": 8}, **extra),
+                world_size=1)
+    with pytest.raises(DeepSpeedConfigError) as terr:
+        DeepSpeedConfig(None, param_dict=dict({"train_batch_size": 8},
+                                              **extra),
+                        world_size=1, training=True)
+    assert str(terr.value) == str(jerr.value)
+
+
+def test_inference_configs_take_the_telemetry_block_too():
+    cfg = DeepSpeedConfig(None, param_dict={
+        "inference": {}, "telemetry": {"enabled": True,
+                                       "tracing": {"enabled": True}}})
+    assert cfg.telemetry_enabled and cfg.telemetry_tracing_enabled
+    with pytest.raises(DeepSpeedConfigError, match="sample_rate"):
+        DeepSpeedConfig(None, param_dict={
+            "telemetry": {"enabled": True,
+                          "tracing": {"sample_rate": 2}}})
+
+
+def test_config_print_lists_the_public_attributes(caplog):
+    from deepspeed_tpu_torch.utils.logging import logger
+
+    lines = []
+
+    class Capture(__import__("logging").Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    h = Capture()
+    logger.addHandler(h)
+    try:
+        DeepSpeedConfig(None, param_dict={"train_batch_size": 8,
+                                          "wall_clock_breakdown": True},
+                        training=True).print()
+    finally:
+        logger.removeHandler(h)
+    assert lines[0] == "DeepSpeedConfig:"
+    assert any(l.startswith("  wall_clock_breakdown ") and l.endswith("True")
+               for l in lines)
+    assert not any(l.lstrip().startswith("_") for l in lines[1:])

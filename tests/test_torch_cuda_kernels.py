@@ -19,8 +19,8 @@ largest magnitude (t is rounded to bfloat16 before the second product,
 and another summation order can move it by one bf16 ulp); identity rows
 exactly 0; the epilogue form TOL of its dtype against its plain version
 and bit for bit against PyTorch's scale, cast and add on the kernel's
-own delta. Head dims the kernels are not compiled at (d = 32, 48, 96;
-hd 16-112) take the same tolerances as 64 and 128.
+own delta. Head dims the kernels are not compiled at (d = 32, 48, 96,
+192; hd 1-127) and D = 256 take the same tolerances as 64 and 128.
 """
 
 import pytest
@@ -124,7 +124,11 @@ def test_flash_fwd_kernel_matches_plain(cuda, dtype, d, sq, sk, causal,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd,bs", [(64, 16), (128, 8), (64, 5), (16, 16),
                                    (32, 16), (48, 16), (80, 16), (96, 8),
-                                   (112, 16)])
+                                   (112, 16),
+                                   # tails: rows that are not whole 16-byte
+                                   # chunks (8-, 4- and 2-byte copies)
+                                   (8, 16), (12, 16), (40, 5), (72, 16),
+                                   (1, 16), (3, 8), (10, 16), (127, 8)])
 def test_paged_decode_kernel_matches_plain(cuda, dtype, hd, bs):
     g = torch.Generator(device=cuda).manual_seed(1)
     slots, heads, mb = 6, 4, 12
@@ -200,7 +204,8 @@ def _decode_split_case(cuda, dtype, hd, bs, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd,bs", [(64, 16), (128, 16), (64, 5), (64, 32),
-                                   (32, 16), (48, 5)])
+                                   (32, 16), (48, 5), (8, 16), (12, 16),
+                                   (40, 5), (5, 16)])
 @pytest.mark.parametrize("case", ["boundaries", "long", "holes", "unsplit"])
 def test_paged_decode_splits_match_plain(cuda, dtype, hd, bs, case):
     """The context split across blocks and merged in the same launch (or
@@ -239,12 +244,12 @@ def test_paged_decode_is_bitwise_repeatable(cuda, dtype):
 
 @pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
-    q = torch.randn(1, 2, 256, 160, device=cuda)  # above 128: no width
+    q = torch.randn(1, 2, 256, 260, device=cuda)  # above 256: no width
     with pytest.raises(ValueError, match="head_dim"):
         flash_fwd(q, q, q)
-    with pytest.raises(ValueError, match="head_dim"):
-        qd, pool = (torch.randn(2, 4, 40, device=cuda),
-                    torch.randn(5, 8, 4, 40, device=cuda))
+    with pytest.raises(ValueError, match="head_dim"):  # above 128
+        qd, pool = (torch.randn(2, 4, 160, device=cuda),
+                    torch.randn(5, 8, 4, 160, device=cuda))
         paged_flash_decode(
             qd, pool, pool, torch.zeros(2, 3, dtype=torch.int32, device=cuda),
             torch.zeros(2, dtype=torch.int32, device=cuda))
@@ -325,7 +330,7 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, d, sq, sk, causal,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
-@pytest.mark.parametrize("d", [32, 48, 96])
+@pytest.mark.parametrize("d", [32, 48, 96, 192, 256])
 @pytest.mark.parametrize("sq,sk,causal,masked,rate", [
     (1024, 1024, True, False, 0.1),
     (200, 333, True, True, 0.2),
@@ -333,9 +338,10 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, d, sq, sk, causal,
 ])
 def test_flash_kernels_take_padded_head_dims(cuda, dtype, d, sq, sk, causal,
                                              masked, rate):
-    """Head dims the kernels are not compiled at run zero-padded to 64 or
-    128 (pad_head_dim): one launch each, d columns out, and the plain
-    versions' forward and gradients at d."""
+    """Head dims the kernels are not compiled at run zero-padded to 64, 128
+    or 256 (pad_head_dim): one launch each, d columns out, and the plain
+    versions' forward and gradients at d. D = 256 is the FMA kernels in
+    every dtype."""
     q, k, v, dout, kv_mask = _attention_case(cuda, dtype, d, sq, sk, masked,
                                              12)
     before = (flash_fwd.launches, flash_bwd_dq.launches,

@@ -236,11 +236,13 @@ def test_split_algebra_keeps_a_dead_slot_exact_zeros(splits):
 # ---------------------------------------------------------------------------
 # head dims: the kernel's instantiations and the engine's refusal of the rest
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("hd", [16, 32, 48, 80])
+@pytest.mark.parametrize("hd", [16, 32, 48, 80, 1, 8, 12, 40, 72])
 def test_paged_decode_head_dims_match_jax_kernel(hd):
-    """The head dims the CUDA kernel now takes beside 64 and 128 (the JAX
-    kernel runs any): the port's function against the JAX kernel
-    (interpret mode) and the oracle. float32, 1e-5."""
+    """The head dims the CUDA kernel takes beside 64 and 128 (the JAX
+    kernel runs any; the port's kernel every head dim up to 128, rows
+    that are not whole 16-byte chunks copied in narrower pieces): the
+    port's function against the JAX kernel (interpret mode) and the
+    oracle. float32, 1e-5."""
     q, kp, vp, tables, positions = _case(hd, hd=hd)
     got = _port(q, kp, vp, tables, positions)
     want = np.asarray(jax_decode(
@@ -272,11 +274,12 @@ def _tiny_model(n_embd, n_head):
 
 def test_init_inference_refuses_fused_decode_at_head_dims_the_kernel_lacks():
     """On a CUDA device, init_inference refuses fused_decode for a head dim
-    the paged decode kernel is not instantiated at (the 8-dim test models:
-    n_embd 32 over 4 heads) when the engine is built, naming the head dims
-    it takes and the way out; no GPU is needed, since the decision comes
-    before the device. Head dim 32 is accepted; a CPU engine, or one with
-    fused_decode off, takes any head dim."""
+    the paged decode kernel does not take (above 128) when the engine is
+    built, naming the head dims it takes and the way out; no GPU is
+    needed, since the decision comes before the device. Every head dim up
+    to 128 is accepted (the 8-dim test models, n_embd 32 over 4 heads,
+    among them); a CPU engine, or one with fused_decode off, takes any
+    head dim."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.config import DeepSpeedConfigError
     from deepspeed_tpu_torch.ops.head_dims import check_head_dim
@@ -285,16 +288,17 @@ def test_init_inference_refuses_fused_decode_at_head_dims_the_kernel_lacks():
         return {"inference": {"max_batch_slots": 2, "kv_block_size": 8,
                               "fused_decode": fused}}
 
-    with pytest.raises(DeepSpeedConfigError, match=r"16, 32, 48.*fused_decode off"):
+    with pytest.raises(DeepSpeedConfigError, match=r"up to 128.*fused_decode off"):
         deepspeed_tpu_torch.init_inference(
-            model=_tiny_model(32, 4), config=config(True), device="cuda")
-    with pytest.raises(DeepSpeedConfigError, match="got 8"):
-        check_head_dim(8, 64, "cuda", fused_decode=True)
-    with pytest.raises(DeepSpeedConfigError, match="got 40"):
-        check_head_dim(40, 64, None, fused_decode=True)
-    check_head_dim(32, 64, "cuda", fused_decode=True)
-    check_head_dim(8, 64, "cuda", fused_decode=False)
-    check_head_dim(8, 64, "cpu", fused_decode=True)
+            model=_tiny_model(320, 2), config=config(True), device="cuda")
+    with pytest.raises(DeepSpeedConfigError, match="got 160"):
+        check_head_dim(160, 64, "cuda", fused_decode=True)
+    with pytest.raises(DeepSpeedConfigError, match="got 129"):
+        check_head_dim(129, 64, None, fused_decode=True)
+    for hd in (1, 8, 12, 32, 40, 72, 127, 128):
+        check_head_dim(hd, 64, "cuda", fused_decode=True)
+    check_head_dim(160, 64, "cuda", fused_decode=False)
+    check_head_dim(160, 64, "cpu", fused_decode=True)
     for n_embd, n_head in ((32, 4), (64, 2)):  # head dims 8 and 32
         engine = deepspeed_tpu_torch.init_inference(
             model=_tiny_model(n_embd, n_head), config=config(True),
@@ -305,3 +309,26 @@ def test_init_inference_refuses_fused_decode_at_head_dims_the_kernel_lacks():
             assert len(out[0]) == 3
         finally:
             engine.close()
+
+
+@pytest.mark.parametrize("n_embd,n_head", [(32, 4), (48, 4), (40, 1)])
+def test_tiny_models_build_with_fused_decode_on_a_cuda_argument(n_embd,
+                                                               n_head):
+    """Head dims 8, 12 and 40 (the tiny test models) pass the engine's
+    head-dim check with fused decode on a CUDA device argument: without a
+    GPU the build stops only at the device itself."""
+    import torch
+
+    import deepspeed_tpu_torch
+
+    config = {"inference": {"max_batch_slots": 2, "kv_block_size": 8,
+                            "fused_decode": True}}
+    if torch.cuda.is_available():
+        engine = deepspeed_tpu_torch.init_inference(
+            model=_tiny_model(n_embd, n_head), config=config, device="cuda")
+        assert engine.fused_decode
+        engine.close()
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        deepspeed_tpu_torch.init_inference(
+            model=_tiny_model(n_embd, n_head), config=config, device="cuda")

@@ -320,7 +320,7 @@ def test_sampled_decoding_is_seeded_and_in_vocab(models):
     ({"host_tier": {"enabled": True}}, {}),
     ({"speculative": {"k": 2}}, {}),
     ({"checkpoint": {"load_dir": "/nonexistent"}}, {}),
-    ({}, {"telemetry": {"enabled": True}}),
+    ({}, {"mesh": {"data_parallel_size": 2}}),
     ({}, {"mesh": {"model_parallel_size": 2}}),
 ])
 def test_engine_refuses_what_is_not_yet_ported(models, inference, extra):

@@ -54,3 +54,32 @@ def test_the_scan_catches_a_forbidden_import(tmp_path):
         "deepspeed_tpu.ops", "jax.numpy",
     ]
     assert not _forbidden("deepspeed_tpu_torch.ops")
+
+
+def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
+    """The AST scan cannot see a module named in a string
+    (``importlib.import_module``); a fresh interpreter that imports the
+    port, its telemetry, timers, monitor and ZeRO config must end with
+    neither ``jax`` nor ``deepspeed_tpu`` in ``sys.modules``."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys\n"
+        "import deepspeed_tpu_torch\n"
+        "import deepspeed_tpu_torch.telemetry\n"
+        "import deepspeed_tpu_torch.utils.timers\n"
+        "import deepspeed_tpu_torch.utils.monitor\n"
+        "import deepspeed_tpu_torch.config.zero_config\n"
+        "import deepspeed_tpu_torch.config.activation_checkpointing_config\n"
+        "import deepspeed_tpu_torch.version\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'deepspeed_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=str(ROOT), capture_output=True,
+        text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr

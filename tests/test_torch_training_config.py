@@ -122,7 +122,8 @@ def _tiny():
 @pytest.mark.parametrize("extra", [
     {"resilience": {"fault_injection": {"enabled": True}}},
     {"resilience": {"supervisor": {"enabled": True}}},
-    {"telemetry": {"enabled": True}},
+    {"zero_optimization": {"stage": 1,
+                           "offload_optimizer": {"device": "cpu"}}},
     {"data_pipeline": {"curriculum_learning": {"enabled": True}}},
     {"compile_cache": {"enabled": True}},
     {"mesh": {"data_parallel_size": 2}},
