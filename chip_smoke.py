@@ -8,6 +8,8 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 and its checks and timings of phase 3 (through the public wrapper only),
 so that a copy of this script placed at the root of another checkout of
 the repo (an older commit) times that checkout's kernel the same way.
+``--only-flash`` does the same for the three flash kernels (bf16, causal)
+at D = 64, 128 and 256, with ptxas's registers and spills.
 ``--only-kernels`` does the same for LAMB phase 1 and SGMV: their timings
 of phases 3b and 3c (both SGMV forms where the checkout has the epilogue
 form), the wrappers' host microseconds a call and the kernel launches of
@@ -19,9 +21,13 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                (one nvcc per source, all started together) and print the
                seconds, ptxas's registers and spills per kernel, and the
                count of HGMMA (wgmma) and UTMALDG (TMA load) instructions
-               in each kernel's SASS (cuobjdump -sass); fails unless every
-               bfloat16/float16 instantiation of the tensor-core forward,
-               dQ and dK/dV kernels holds both.
+               in each kernel's SASS (cuobjdump -sass); fails unless the
+               tensor-core forward and dQ have 6 bfloat16/float16
+               instantiations each (D = 64, 128, 256) and dK/dV 4 (D = 64,
+               128), every one holding both. Then torch.profiler's kernel
+               names show which kernel a D = 256 call launches: bf16/fp16
+               forward and dQ the tensor-core kernels, dK/dV and float32
+               the FMA ones (ops/attention.py:flash_route).
   3. kernels — each kernel against its plain PyTorch version on the same
                inputs, float32 and bfloat16, at the serving path's shapes
                (plus a key-mask case, a fully masked row, a dead slot and
@@ -104,9 +110,12 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                adapters block; SGMV's share of a profiled decode window.
   7. head dims — the flash forward and backward at d = 32, 48 and 96
                (zero-padded to the kernels' 64 or 128) and at d = 192 and
-               256 (the D = 256 FMA kernels, every dtype, B*H 32, S 1024,
-               with SDPA timed beside them), and paged decode at hd 16,
-               32, 48, 80, 96 and 112 and at the tails 8, 12, 40 and 72
+               256 (the D = 256 kernels, every dtype, B*H 32, S 1024,
+               with SDPA timed beside them), the tensor-core kernels
+               at D = 128 (bf16, B=8 H=6 S=1024, causal: each against
+               its plain version, then timed as at D = 256), and paged
+               decode at hd 16, 32, 48, 80, 96 and 112 and at the tails
+               8, 12, 40 and 72
                (rows that are not whole 16-byte chunks), against their
                plain versions, with their times; then GPT-2s of 768 over
                24 heads (head dim 32) and 4 heads (head dim 192), cut to
@@ -153,10 +162,11 @@ window builds the kernels in an empty build directory under a 5 s
 watchdog: the watchdog arms at the first completed window, so the build
 must not read as a stall.
 
-The attention kernels take two routes by dtype: bfloat16 and float16 the
-tensor-core forward, dQ and dK/dV kernels (wgmma + TMA) at D = 64 and 128,
-float32 the FMA kernels (the tensor cores take float32 only as TF32), and
-every dtype the FMA kernels at D = 256.
+The attention kernels take two routes (ops/attention.py:flash_route):
+bfloat16 and float16 the tensor-core forward and dQ kernels (wgmma + TMA)
+at D = 64, 128 and 256 and the tensor-core dK/dV kernel at D = 64 and
+128; float32 the FMA kernels (the tensor cores take float32 only as
+TF32), and every dtype the FMA dK/dV kernel at D = 256.
 
 Tolerances: float32 kernel vs plain atol = rtol = 1e-4 (same float32
 arithmetic in another summation order; observed errors sit near 1e-6);
@@ -267,22 +277,29 @@ class Timer:
         return total / iters
 
 
-# the kernels that must run on the tensor cores, by library: every
-# bfloat16/float16 instantiation (2 dtypes x 2 head dims) of each holds
-# wgmma (HGMMA) and TMA loads (UTMALDG)
-TC_KERNELS = {"flash_fwd": ("flash_fwd_kernel_tc",),
-              "flash_bwd": ("flash_bwd_dkv_kernel_tc",
-                            "flash_bwd_dq_kernel_tc")}
+# the kernels that must run on the tensor cores, by library, and how many
+# instantiations of each: every bfloat16/float16 one (2 dtypes x the head
+# dims of its tensor-core route, ops/attention.py:flash_route) holds wgmma
+# (HGMMA) and TMA loads (UTMALDG)
+TC_KERNELS = {"flash_fwd": {"flash_fwd_kernel_tc": 2 * 3},
+              "flash_bwd": {"flash_bwd_dkv_kernel_tc": 2 * 2,
+                            "flash_bwd_dq_kernel_tc": 2 * 3}}
 # each redesigned kernel's Timer reading at these shapes before its
-# redesign (the FMA attention kernels; paged decode with one block per
-# (head, slot); H100 80GB HBM3, 700 W; PERF.md), printed beside this
-# run's readings, not part of the kernels line
+# redesign (the FMA attention kernels, at D = 64 and at D = 256; paged
+# decode with one block per (head, slot); H100 80GB HBM3, 700 W; PERF.md),
+# printed beside this run's readings, not part of the kernels line
 FMA_BEFORE_MS = {"flash_fwd": 2.204, "flash_fwd serve": 0.3129,
                  "flash_bwd_dkv": 3.075, "flash_bwd_dq": 2.065,
+                 "flash_fwd d256": 2.281, "flash_bwd_dq d256": 4.746,
                  "paged_decode": 0.07853}
 ROUTE = {"flash_fwd": "wgmma+tma (bf16, fp16); FMA (float32)",
          "flash_bwd_dq": "wgmma+tma (bf16, fp16); FMA (float32)",
-         "flash_bwd_dkv": "wgmma+tma (bf16, fp16); FMA (float32)"}
+         "flash_bwd_dkv": "wgmma+tma (bf16, fp16); FMA (float32)",
+         "flash_fwd d256": "wgmma+tma (bf16, fp16; 64-key tiles, no "
+                           "producer warpgroup); FMA (float32)",
+         "flash_bwd_dq d256": "wgmma+tma (bf16, fp16; 32-key tiles, no "
+                              "producer warpgroup); FMA (float32)",
+         "flash_bwd_dkv d256": "FMA, every dtype"}
 
 
 def cuobjdump_path():
@@ -332,12 +349,12 @@ def phase_sass():
         out[name] = counts
         for func, (hgmma, utmaldg) in counts.items():
             log(f"  {name}: {func}: HGMMA {hgmma} UTMALDG {utmaldg}")
-    for name, fragments in TC_KERNELS.items():
-        for fragment in fragments:
+    for name, families in TC_KERNELS.items():
+        for fragment, want in families.items():
             tc = {f: c for f, c in out[name].items() if fragment in f}
-            if len(tc) != 4 or not all(h and u for h, u in tc.values()):
-                fail(f"{name}: the tensor-core kernels {fragment} lack HGMMA "
-                     f"or UTMALDG instructions: {tc}")
+            if len(tc) != want or not all(h and u for h, u in tc.values()):
+                fail(f"{name}: want {want} instantiations of {fragment}, "
+                     f"each with HGMMA and UTMALDG instructions: {tc}")
     return out
 
 
@@ -2066,16 +2083,72 @@ def check_flash_head_dims(device, gen, timer):
     return out
 
 
-def check_flash_wide(device, gen, timer):
-    """The D = 256 kernels (the FMA route in every dtype): the flash
-    forward and backward at d = 192 (zero-padded to 256) and 256 against
-    their plain versions at B*H = 32 (B=8, H=4), S=1024, causal, with and
-    without a padding mask and dropout, float32, bfloat16 and float16;
-    then the bf16 times (causal, dropout 0) beside the bound of the
-    unpadded function, the plain version's time and SDPA's (forward;
-    backward with dQ, dK and dV together). Returns {d: {kernel: entry}}."""
+# B, H, S, D of the flash timings at each compiled head dim
+FLASH_SHAPES = {"d64": TRAIN_SHAPE,          # rows 1-3
+                "d128": (8, 6, 1024, 128),   # rows 1m-3m
+                "d256": (8, 4, 1024, 256)}   # rows 1w-3w
+
+
+def time_flash(timer, q, k, v, dout, shape):
+    """The three flash kernels' bf16 times at ``q``'s shape (causal,
+    dropout 0): ``ms`` and ``device_ms`` (Timer both ways), the plain
+    version's, SDPA's (forward; backward with dQ, dK and dV together) and
+    the bound of the function at q's head dim (the unpadded one where the
+    wrappers pad). Returns {kernel: entry}."""
     import torch.nn.functional as F
 
+    from deepspeed_tpu_torch.ops import attention as A
+
+    o, lse = A.flash_fwd(q, k, v, None, True)
+    delta = (dout.float() * o.float()).sum(dim=-1)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    sdpa = {
+        "fwd": lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=True),
+        "bwd": lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), dout,
+                                           retain_graph=True),
+    }
+    lib = {key: (timer.ms(fn), timer.ms(fn, spin=True))
+           for key, fn in sdpa.items()}
+    fargs = (q, k, v, None, True)
+    bargs = (q, k, v, None, dout, lse, delta, True)
+    out = {}
+    for name, fn, plain, args, which, lib_key in (
+        ("flash_fwd", A.flash_fwd, A.flash_fwd_plain, fargs, "fwd", "fwd"),
+        ("flash_bwd_dq", A.flash_bwd_dq, A.flash_bwd_dq_plain, bargs, "dq",
+         "bwd"),
+        ("flash_bwd_dkv", A.flash_bwd_dkv, A.flash_bwd_dkv_plain, bargs,
+         "dkv", "bwd"),
+    ):
+        nbytes, flops = flash_work(q, None, True, which)
+        b_ms, b_by = bound(nbytes, flops, torch.bfloat16)
+        call = lambda: fn(*args)
+        out[name] = dict(
+            shape=shape,
+            ms=timer.ms(call, iters=10), device_ms=timer.ms(
+                call, iters=10, spin=True, spin_cycles=20_000_000),
+            plain_ms=timer.ms(lambda: plain(*args), iters=3, warmup=1),
+            library_ms=lib[lib_key][0],
+            library_device_ms=lib[lib_key][1],
+            library=("scaled_dot_product_attention forward"
+                     if lib_key == "fwd" else
+                     "scaled_dot_product_attention backward (dQ, dK "
+                     "and dV together)"),
+            bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
+            bound_flops=flops)
+    del o, lse, delta, qg, kg, vg, sdpa_out
+    return out
+
+
+def check_flash_wide(device, gen, timer):
+    """The D = 256 kernels (bf16/fp16 forward and dQ on the tensor cores,
+    dK/dV and float32 on the FMA units): the flash forward and backward at
+    d = 192 (zero-padded to 256) and 256 against their plain versions at
+    B*H = 32 (B=8, H=4), S=1024, causal, with and without a padding mask
+    and dropout, float32, bfloat16 and float16; then the bf16 times
+    (causal, dropout 0) beside the bound of the unpadded function, the
+    plain version's time and SDPA's. Returns {d: {kernel: entry}}."""
     from deepspeed_tpu_torch.ops import attention as A
 
     mask = train_mask(device)
@@ -2114,51 +2187,100 @@ def check_flash_wide(device, gen, timer):
                     errs[key] = max(errs.get(key, 0.0), err)
                 del o, lse, ref, ref_lse, got, want
         q, k, v, dout = (t.to(torch.bfloat16) for t in base)
-        o, lse = A.flash_fwd(q, k, v, None, True)
-        delta = (dout.float() * o.float()).sum(dim=-1)
-        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-        sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-        sdpa = {
-            "fwd": lambda: F.scaled_dot_product_attention(q, k, v,
-                                                          is_causal=True),
-            "bwd": lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), dout,
-                                               retain_graph=True),
-        }
-        lib = {key: (timer.ms(fn), timer.ms(fn, spin=True))
-               for key, fn in sdpa.items()}
-        fargs = (q, k, v, None, True)
-        bargs = (q, k, v, None, dout, lse, delta, True)
-        out[d] = {}
-        for name, fn, plain, args, which, lib_key in (
-            ("flash_fwd", A.flash_fwd, A.flash_fwd_plain, fargs, "fwd",
-             "fwd"),
-            ("flash_bwd_dq", A.flash_bwd_dq, A.flash_bwd_dq_plain, bargs,
-             "dq", "bwd"),
-            ("flash_bwd_dkv", A.flash_bwd_dkv, A.flash_bwd_dkv_plain, bargs,
-             "dkv", "bwd"),
-        ):
-            nbytes, flops = flash_work(q, None, True, which)
-            b_ms, b_by = bound(nbytes, flops, torch.bfloat16)
-            call = lambda: fn(*args)
-            out[d][name] = dict(
-                shape=f"B=8 H=4 S=1024 D={d} (kernel D=256) causal bf16",
-                max_abs_err=errs[(name, torch.bfloat16)],
-                max_abs_err_f32=errs[(name, torch.float32)],
-                max_abs_err_f16=errs[(name, torch.float16)],
-                ms=timer.ms(call, iters=10), device_ms=timer.ms(
-                    call, iters=10, spin=True, spin_cycles=20_000_000),
-                plain_ms=timer.ms(lambda: plain(*args), iters=3, warmup=1),
-                library_ms=lib[lib_key][0],
-                library_device_ms=lib[lib_key][1],
-                library=("scaled_dot_product_attention forward"
-                         if lib_key == "fwd" else
-                         "scaled_dot_product_attention backward (dQ, dK "
-                         "and dV together)"),
-                bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
-                bound_flops=flops)
-            log(f"  {name} d={d}: {json.dumps(out[d][name])}")
-        del base, q, k, v, dout, o, lse, delta, qg, kg, vg, sdpa_out
+        out[d] = time_flash(
+            timer, q, k, v, dout,
+            f"B=8 H=4 S=1024 D={d} (kernel D=256) causal bf16")
+        for name, entry in out[d].items():
+            entry.update(max_abs_err=errs[(name, torch.bfloat16)],
+                         max_abs_err_f32=errs[(name, torch.float32)],
+                         max_abs_err_f16=errs[(name, torch.float16)])
+            log(f"  {name} d={d}: {json.dumps(entry)}")
+            before = FMA_BEFORE_MS.get(f"{name} d256")
+            if before is not None:
+                log(f"  {name} d={d}: ms {entry['ms']:.4f}, device_ms "
+                    f"{entry['device_ms']:.4f}; before_ms {before} at d=256 "
+                    "(the FMA kernel)")
+        del base, q, k, v, dout
         torch.cuda.empty_cache()
+    return out
+
+
+def check_wide_routes(device):
+    """Which kernel each D = 256 call launches, by torch.profiler's kernel
+    names: the tensor-core forward and dQ in bfloat16 and float16, the FMA
+    kernels for dK/dV and for float32 (ops/attention.py:flash_route).
+    Returns {"<dtype> <kernel>": kernel name}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepspeed_tpu_torch.ops import attention as A
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        q, k, v, dout = (torch.randn(1, 2, 256, 256, device=device)
+                         .to(dtype) for _ in range(4))
+        rows = torch.zeros(1, 2, 256, device=device)
+        bargs = (q, k, v, None, dout, rows, rows, True)
+        for kernel, fn, args in (("fwd", A.flash_fwd, (q, k, v, None, True)),
+                                 ("dq", A.flash_bwd_dq, bargs),
+                                 ("dkv", A.flash_bwd_dkv, bargs)):
+            fragment = {"fwd": "flash_fwd_kernel", "dq": "flash_bwd_dq_kernel",
+                        "dkv": "flash_bwd_dkv_kernel"}[kernel]
+            fn(*args)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                torch.cuda._sleep(Timer.SPIN_CYCLES)  # let the trace start
+                for _ in range(3):
+                    fn(*args)
+                torch.cuda.synchronize()
+            kernels = [e.key for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA]
+            names = [n for n in kernels if fragment in n]
+            route = A.flash_route(dtype, 256, kernel)
+            on_tc = [n for n in names if fragment + "_tc" in n]
+            if len(names) != 1 or bool(on_tc) != (route == "wgmma"):
+                fail(f"D = 256 {dtype} {kernel}: launched {names} (every "
+                     f"kernel of the window: {kernels}), want the {route} "
+                     "kernel")
+            out[f"{str(dtype)[6:]} {kernel}"] = names[0]
+            log(f"  D=256 {str(dtype)[6:]} {kernel} ({route}): {names[0]}")
+    return out
+
+
+def check_flash_d128(device, gen, timer):
+    """The tensor-core kernels at D = 128 (ROADMAP B5): bf16, B=8 H=6
+    S=1024 D=128 causal (GPT-2 small's width over 6 heads), each kernel
+    once against its plain version, then the times of time_flash.
+    Returns {kernel: entry}."""
+    from deepspeed_tpu_torch.ops import attention as A
+
+    b, h, s, d = FLASH_SHAPES["d128"]
+    q, k, v, dout = (torch.randn(b, h, s, d, device=device,
+                                 generator=gen).to(torch.bfloat16)
+                     for _ in range(4))
+    o, lse = A.flash_fwd(q, k, v, None, True)
+    torch.cuda.synchronize()
+    ref, ref_lse = A.flash_fwd_plain(q, k, v, None, True)
+    errs = {"flash_fwd": check_close("flash_fwd d=128 bf16 causal", o, ref,
+                                     torch.bfloat16)}
+    delta = (dout.float() * ref.float()).sum(dim=-1)
+    bargs = (q, k, v, None, dout, ref_lse, delta, True)
+    got = (A.flash_bwd_dq(*bargs), *A.flash_bwd_dkv(*bargs))
+    torch.cuda.synchronize()
+    want = (A.flash_bwd_dq_plain(*bargs), *A.flash_bwd_dkv_plain(*bargs))
+    for name, g, w in zip(("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dkv"),
+                          got, want):
+        errs[name] = max(errs.get(name, 0.0), check_close(
+            f"{name} d=128 bf16 causal", g, w, torch.bfloat16, scaled=True))
+    del o, lse, ref, ref_lse, delta, got, want
+    out = time_flash(timer, q, k, v, dout,
+                     f"B={b} H={h} S={s} D={d} causal bf16")
+    for name, entry in out.items():
+        entry["max_abs_err"] = errs[name]
+        log(f"  {name} d=128: {json.dumps(entry)}")
+    del q, k, v, dout
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2319,6 +2441,8 @@ def phase_head_dims(seed, card):
     flash = check_flash_head_dims(device, gen, timer)
     log("phase 7: the D = 256 kernels at d = 192 and 256 vs plain")
     wide = check_flash_wide(device, gen, timer)
+    log("phase 7: the tensor-core kernels at D = 128 (B=8 H=6 S=1024)")
+    d128 = check_flash_d128(device, gen, timer)
     log("phase 7: paged decode at hd = 16, 32, 48, 80, 96, 112 and the "
         "tails 8, 12, 40, 72 vs plain")
     decode = check_decode_head_dims(device, gen, timer)
@@ -2340,6 +2464,7 @@ def phase_head_dims(seed, card):
         stats[f"hd{hd}_decode_steps"] = st["decode_steps"]
         stats[f"hd{hd}_cold_prefills"] = st["cold_prefills"]
     return launches, dict(stats, flash=flash, flash_wide=wide,
+                          flash_d128=d128,
                           paged_decode=decode)
 
 
@@ -2752,6 +2877,36 @@ def cold_build_telemetry(seed, card):
             "watchdog_timeout_s": 5.0, "stalls": run["stalls"]}
 
 
+def only_flash(device, seed):
+    """``--only-flash``: the flash kernels built alone (ptxas's registers
+    and spills printed) and timed as time_flash times them (bf16, causal,
+    dropout 0) at D = 64, 128 and 256, through the public wrappers only,
+    so that a copy of this script at the root of another checkout times
+    that checkout's kernels the same way."""
+    from deepspeed_tpu_torch.ops import kernel_lib
+
+    built = kernel_lib.build(["flash_fwd", "flash_bwd"])
+    for name, report in built.items():
+        for line in report.splitlines():
+            if ("registers" in line or "spill" in line
+                    or "entry function" in line):
+                log(f"  {name}: {line.strip()}")
+    gen = torch.Generator(device=device).manual_seed(seed + 5)
+    timer = Timer(device)
+    out = {}
+    for tag, (b, h, s, d) in FLASH_SHAPES.items():
+        q, k, v, dout = (torch.randn(b, h, s, d, device=device, generator=gen)
+                         .to(torch.bfloat16) for _ in range(4))
+        out[tag] = time_flash(timer, q, k, v, dout,
+                              f"B={b} H={h} S={s} D={d} causal bf16")
+        for name, entry in out[tag].items():
+            log(f"  {name} {tag}: device_ms {entry['device_ms']:.5f} "
+                f"ms {entry['ms']:.5f}")
+        del q, k, v, dout
+        torch.cuda.empty_cache()
+    return out
+
+
 def only_kernels(device, seed):
     """``--only-kernels``: LAMB phase 1 (rows 4-5) and SGMV (row 7) built
     alone and timed as phases 3b and 3c time them, through the public
@@ -2780,6 +2935,10 @@ def main():
                         help="build and check paged decode alone and print "
                         "its timings (to time another checkout the same "
                         "way)")
+    parser.add_argument("--only-flash", action="store_true",
+                        help="build the flash kernels alone and print their "
+                        "timings at D = 64, 128 and 256 (to time another "
+                        "checkout the same way)")
     parser.add_argument("--only-kernels", action="store_true",
                         help="build LAMB phase 1 and SGMV alone and print "
                         "their timings (to time another checkout the same "
@@ -2816,6 +2975,12 @@ def main():
         print(json.dumps({"paged_decode": entry, "card": smi}))
         return
 
+    if args.only_flash:
+        print(json.dumps({"only_flash": only_flash(device, args.seed),
+                          "checkout": str(Path(__file__).resolve().parent),
+                          "card": smi}))
+        return
+
     if args.only_kernels:
         print(json.dumps({"only_kernels": only_kernels(device, args.seed),
                           "checkout": str(Path(__file__).resolve().parent),
@@ -2840,6 +3005,8 @@ def main():
                     or "entry function" in line):
                 log(f"    {line.strip()}")
     phase_sass()
+    log("phase 2: the kernel each D = 256 call launches (torch.profiler)")
+    routes = check_wide_routes(device)
 
     kernels = phase_kernels(device, args.seed)
     phase_train_kernels(device, args.seed, kernels)
@@ -2877,19 +3044,24 @@ def main():
         if hd not in HD_TAIL}
     # the D = 256 instantiations (head dims 129-256) and paged decode's
     # tail path (head dims that are not whole 16-byte rows), each with the
-    # launches of the phase 7 paths that run them
-    for name, src, tpu in (("flash_fwd", FLASH_SOURCE, FLASH_TPU),
-                           ("flash_bwd_dq", BWD_SOURCE, DQ_TPU),
-                           ("flash_bwd_dkv", BWD_SOURCE, DKV_TPU)):
+    # launches of the phase 7 paths that run them; the D = 128 tensor-core
+    # timings ride their kernels' entries (no main path runs D = 128)
+    for name, src, tpu, which in (
+            ("flash_fwd", FLASH_SOURCE, FLASH_TPU, "fwd"),
+            ("flash_bwd_dq", BWD_SOURCE, DQ_TPU, "dq"),
+            ("flash_bwd_dkv", BWD_SOURCE, DKV_TPU, "dkv")):
         by_path = {p: hd_launches[p][name]
                    for p in ("hd192_train", "hd192_serve")}
         kernels[f"{name} d256"] = dict(
             name=f"{name} d256", route="cuda",
-            route_detail="FMA, every dtype (head dims 129-256, zero-padded)",
-            source=src, replaces=tpu, tpu_kernel=tpu,
+            route_detail=ROUTE[f"{name} d256"] + " (head dims 129-256, "
+            "zero-padded)", source=src, replaces=tpu, tpu_kernel=tpu,
+            launched_kernel={dt: routes[f"{dt} {which}"]
+                             for dt in ("float32", "bfloat16", "float16")},
             launches=sum(by_path.values()), launches_by_path=by_path,
             **hd_stats["flash_wide"][256][name],
             d192=hd_stats["flash_wide"][192][name])
+        kernels[name]["d128"] = hd_stats["flash_d128"][name]
     tail = hd_stats["paged_decode"]
     kernels["paged_decode tail"] = dict(
         name="paged_decode tail", route="cuda",
@@ -2906,6 +3078,7 @@ def main():
                     "telemetry": tel_stats,
                     "head_dims": {k: v for k, v in hd_stats.items()
                                   if k not in ("flash", "flash_wide",
+                                               "flash_d128",
                                                "paged_decode")}}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)

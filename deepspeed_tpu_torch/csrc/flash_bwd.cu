@@ -24,10 +24,11 @@
 // in a fixed order, so the results are the same bit for bit from run to
 // run.
 //
-// dK/dV, bfloat16 and float16 — flash_bwd_dkv_kernel_tc, the tensor-core
-// kernel (FA3's structure without dQ). A block owns 128 keys of one
-// (batch, head): two consumer warpgroups of 64 keys each and one producer
-// warpgroup, whose registers go to the consumers (setmaxnreg 24 / 240).
+// dK/dV, bfloat16 and float16 at D = 64 and 128 —
+// flash_bwd_dkv_kernel_tc, the tensor-core kernel (FA3's structure
+// without dQ). A block owns 128 keys of one (batch, head): two consumer
+// warpgroups of 64 keys each and one producer warpgroup, whose registers
+// go to the consumers (setmaxnreg 24 / 240).
 // The producer loads the block's K and V tiles once by TMA, then
 // streams tiles of Q and dO (3-D tensor maps, zero-filled past S) through a
 // two-stage ring, starting at the first query tile that can see the key
@@ -42,25 +43,31 @@
 // `scale` in the epilogue.
 //
 // dQ, bfloat16 and float16 — flash_bwd_dq_kernel_tc, the same structure
-// turned around (the forward's shape). A block owns 128 query rows of one
-// (batch, head): two consumer warpgroups of 64 rows each and one producer
-// warpgroup (setmaxnreg 24 / 240). The producer loads the block's Q and
-// dO tiles once by TMA, then streams K and V tiles through a two-stage
-// ring from key tile 0 up to the causal diagonal, and its 32 lanes stage
-// each tile's key validity (the length and kv_mask) beside it. Each
-// consumer thread computes the lse (log2 units), delta and dropout row key
-// of its two rows once and keeps them in shared memory, since registers
-// are the scarcer (ptxas holds a 384-thread block to 168 a thread,
-// whatever setmaxnreg gives the consumers at run time). The ring holds
-// 64-key tiles at both head dims: at 128 keys and D = 64 S, dP and dQ
-// spill and serialise the wgmmas. Per key tile it forms
-// S = Q K^T and dP = dO V^T with wgmma from shared memory (both K-major),
-// computes P = exp2(S scale log2 e - lse), the masks (only on the tiles
-// that need them), the dropout of dP and dS = P (dP - delta) in float32
-// registers, rounds dS to the storage type as the register A operand
-// (the Pallas kernel's ds.astype(k.dtype)) and accumulates dQ += dS K with
-// K read MN-major from the same ring tile. The epilogue scales by `scale`
-// and stores in T. Query tiles are issued heaviest first.
+// turned around (the forward's shape), at D = 64, 128 and 256. A block
+// owns 128 query rows of one (batch, head): two consumer warpgroups of 64
+// rows each. The block's Q and dO tiles are loaded once by TMA, then K and
+// V tiles stream through a ring from key tile 0 up to the causal
+// diagonal. Each consumer thread computes the lse (log2 units), delta and
+// dropout row key of its two rows once and keeps them in shared memory,
+// since registers are the scarcer. Per key tile it forms S = Q K^T and
+// dP = dO V^T with wgmma from shared memory (both K-major), computes
+// P = exp2(S scale log2 e - lse), the masks (only on the tiles that need
+// them), the dropout of dP and
+// dS = P (dP - delta) in float32 registers, rounds dS to the storage type
+// as the register A operand (the Pallas kernel's ds.astype(k.dtype)) and
+// accumulates dQ += dS K with K read MN-major from the same ring tile.
+// The epilogue scales by `scale` and stores in T. Query tiles are issued
+// heaviest first. The tiles depend on the head dim (tc::DqCfg): at D = 64
+// and 128, 64-key tiles in a two-stage ring fed by a producer warpgroup
+// (setmaxnreg 24 / 240; ptxas holds a 384-thread block to 168 registers
+// a thread, whatever setmaxnreg gives the consumers at run time, and 128
+// keys at D = 64 spilled S, dP and dQ and serialised the wgmmas), whose
+// first warp stages each tile's key validity (the length and kv_mask)
+// beside it. At D = 256 dQ alone is 128 float32 registers a thread: the
+// block has no producer warpgroup (256 threads, up to 255 registers each),
+// consumer thread 0 issues the loads, the consumers read the key mask
+// from device memory, the tiles hold 32 keys in a three-stage ring, and
+// dQ += dS K runs as two 128-column products a k16 step.
 //
 // dQ and dK/dV in float32 — flash_bwd_dq_kernel and flash_bwd_dkv_kernel,
 // the first (FMA) versions (the tensor cores take float32 only as TF32,
@@ -73,13 +80,14 @@
 // its vectors and accumulators in registers, and each dot product closes
 // with two warp shuffles. Causal tiles are issued heaviest first.
 //
-// Head dim 256, every storage type — the same FMA kernels, templated on
-// the storage type: T is loaded as float32, ds and p_drop are rounded to
-// T before their products and the outputs to T, as the tensor-core
-// kernels do. Eight threads share a row there (32 of its dims each, so
-// dK/dV's four row vectors fit in registers), and a tile stages 16 rows
-// (32 KB of static shared memory). No tensor-core kernel is compiled at
-// D = 256; these are simple kernels that are right, bound by their FMAs.
+// dK/dV at head dim 256, every storage type — the same FMA kernel,
+// templated on the storage type: T is loaded as float32, ds and p_drop
+// are rounded to T before their products and the outputs to T, as the
+// tensor-core kernels do. Eight threads share a row there (32 of its dims
+// each, so dK/dV's four row vectors fit in registers), and a tile stages
+// 16 rows (32 KB of static shared memory): a simple kernel that is right,
+// bound by its FMAs. The dQ FMA kernel at D = 256 takes the same shape,
+// for float32 only.
 //
 // C interface: ds_flash_bwd_dq(...) and ds_flash_bwd_dkv(...) launch on the
 // given stream, allocate nothing, and return cudaGetLastError() (or the
@@ -99,8 +107,8 @@ namespace {
 
 constexpr int kRows = 32;  // rows a block owns
 
-// The FMA kernels: float32 at D = 64 and 128, every storage type at
-// D = 256. T: storage type (loaded as float32; ds and p_drop rounded to T
+// The FMA kernels: float32, and dK/dV in every storage type at D = 256.
+// T: storage type (loaded as float32; ds and p_drop rounded to T
 // before their products, the outputs rounded to T); G: threads that share
 // a row, each holding the float4 chunks c = g + G * i of its D-vectors.
 
@@ -369,12 +377,11 @@ int launch_dkv(const void* q, const void* k, const void* v,
 // ---------------------------------------------------------------------------
 namespace tc {
 
-constexpr int kBN = 128;                   // keys a dK/dV block owns
-constexpr int kBM = 128;                   // query rows a dQ block owns
-constexpr int kStages = 2;                 // dK/dV's Q/dO ring, dQ's K/V ring
-constexpr int kBK = 64;                    // keys a dQ ring stage holds
-constexpr int kConsumers = 256;             // two warpgroups of 64 keys
-constexpr int kThreads = kConsumers + 128;  // and one producer warpgroup
+constexpr int kBN = 128;                    // keys a dK/dV block owns
+constexpr int kBM = 128;                    // query rows a dQ block owns
+constexpr int kStages = 2;                  // dK/dV's Q/dO ring
+constexpr int kConsumers = 256;             // two warpgroups of 64 rows
+constexpr int kThreads = kConsumers + 128;  // dK/dV: and a producer warpgroup
 constexpr float kLog2e = 1.4426950408889634f;
 
 // shared memory, byte offsets from a 1024-aligned base: the K and V
@@ -637,27 +644,58 @@ int launch_dkv(const void* q, const void* k, const void* v,
 }
 
 
+// The dQ kernel's tiles by head dim. D = 64 and 128: 64-key K/V tiles in
+// a two-stage ring fed by a producer warpgroup (a 384-thread block;
+// 128-key tiles at D = 64 spilled S, dP and dQ and serialised the
+// wgmmas), whose first warp also stages each tile's key validity (the
+// consumers reading the key mask from device memory instead ran 12-26%
+// slower at these widths). D = 256: dQ alone is 128 float32 registers a
+// thread, past the 168 that ptxas gives a 384-thread block; so 32-key
+// tiles (S and dP 16 registers each) in a three-stage ring (Q and dO 64 KB
+// each + 3 x (16 + 16) KB = 224 KB) and no producer warpgroup (256
+// threads, up to 255 registers each): consumer thread 0 issues the loads
+// right after its warpgroup has issued S and dP, so a wait for the other
+// warpgroup to release a stage overlaps its own wgmma, and the consumers
+// read the key mask from device memory.
+template <int D>
+struct DqCfg {
+  static constexpr int kBK = 64;  // keys a ring stage holds
+  static constexpr int kStages = 2;
+  static constexpr bool kProducer = true;
+  static constexpr int kThreads = kConsumers + 128;
+};
+template <>
+struct DqCfg<256> {
+  static constexpr int kBK = 32;
+  static constexpr int kStages = 3;
+  static constexpr bool kProducer = false;
+  static constexpr int kThreads = kConsumers;
+};
+
 // shared memory of the dQ kernel, byte offsets from a 1024-aligned base:
 // the Q and dO tiles, the K and V rings, each stage's key validity (kBK
-// int32), the block's row data (lse in log2 units, delta, dropout row
-// key: kBM 4-byte values each), the mbarriers (qdo_full, full[kStages],
-// empty[kStages])
+// int32, where a producer stages it), the block's row data (lse in log2
+// units, delta, dropout row key: kBM 4-byte values each), the mbarriers
+// (qdo_full, full[kStages], empty[kStages])
 template <int D>
 struct DqLayout {
-  static constexpr int kQT = kBM * D * 2;  // the Q (or dO) tile
-  static constexpr int kKT = kBK * D * 2;  // a K (or V) tile
+  static constexpr int kStages = DqCfg<D>::kStages;
+  static constexpr int kQT = kBM * D * 2;             // the Q (or dO) tile
+  static constexpr int kKT = DqCfg<D>::kBK * D * 2;  // a K (or V) tile
   static constexpr int kQ = 0;
   static constexpr int kDO = kQ + kQT;
   static constexpr int kK = kDO + kQT;  // stage s at kK + s * kKT
   static constexpr int kV = kK + kStages * kKT;
   static constexpr int kValid = kV + kStages * kKT;
-  static constexpr int kRows = kValid + kStages * kBK * 4;
+  static constexpr int kRows =
+      kValid + (DqCfg<D>::kProducer ? kStages * DqCfg<D>::kBK * 4 : 0);
   static constexpr int kBars = kRows + 3 * kBM * 4;
   static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
+  static_assert(kBytes <= 232448, "a block has 227 KB of shared memory");
 };
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(DqCfg<D>::kThreads, 1)
 flash_bwd_dq_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
@@ -668,9 +706,16 @@ flash_bwd_dq_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
                        int H, int Sq, int Sk, int causal, float sm_scale,
                        float scale_log2, int dropout, uint32_t threshold,
                        float inv_keep, uint32_t seed) {
+  using C = DqCfg<D>;
   using L = DqLayout<D>;
+  constexpr int kBK = C::kBK;
+  constexpr int kStages = C::kStages;
   constexpr bool kHalf = std::is_same<T, __half>::value;
   constexpr int kBoxes = D / 64;  // 64-column TMA boxes per row
+  // dQ += dS K runs as kNH products of kNW columns (wgmma's n is at most
+  // 128 here): dQ is kNH arrays of a 64 x kNW accumulator
+  constexpr int kNW = D < 128 ? D : 128;
+  constexpr int kNH = D / kNW;
   extern __shared__ uint8_t smem[];
   const uint32_t base = (sm90::smem_addr(smem) + 1023u) & ~1023u;
   uint8_t* const sbase = smem + (base - sm90::smem_addr(smem));
@@ -689,52 +734,70 @@ flash_bwd_dq_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
   if (tid == 0) {
     sm90::mbar_init(qdo_full, 1);
     for (int s = 0; s < kStages; ++s) {
-      // the TMA thread's arrival and the 32 lanes that stage the validity
-      sm90::mbar_init(full0 + 8 * s, 33);
+      // the TMA thread's arrival, and the 32 lanes that stage the
+      // validity where a producer warp does
+      sm90::mbar_init(full0 + 8 * s, C::kProducer ? 33 : 1);
       sm90::mbar_init(empty0 + 8 * s, kConsumers);
     }
     sm90::fence_barrier_init();
   }
   __syncthreads();
+  const int* mask_row = kv_mask ? kv_mask + (size_t)(bh / H) * Sk : nullptr;
+  int* const valid0 = reinterpret_cast<int*>(sbase + L::kValid);
 
-  if (tid >= kConsumers) {  // the producer warpgroup: its first warp works
-    sm90::setmaxnreg_dec<24>();
-    const int lane = tid - kConsumers;
-    if (lane >= 32) return;
-    if (lane == 0 && nt > 0) {
-      sm90::mbar_arrive_tx(qdo_full, 2 * L::kQT);
-      for (int c = 0; c < kBoxes; ++c) {
-        const uint32_t off = c * kBM * 128;
-        sm90::tma_load(base + L::kQ + off, &tm_q, qdo_full, 64 * c, q0, bh);
-        sm90::tma_load(base + L::kDO + off, &tm_do, qdo_full, 64 * c, q0,
-                       bh);
-      }
+  // The TMA loads, each issued by one thread: the block's Q and dO tiles,
+  // and key tile j's K and V into ring stage j % kStages once every
+  // consumer has released what the stage held.
+  auto load_qdo = [&]() {
+    sm90::mbar_arrive_tx(qdo_full, 2 * L::kQT);
+    for (int c = 0; c < kBoxes; ++c) {
+      const uint32_t off = c * kBM * 128;
+      sm90::tma_load(base + L::kQ + off, &tm_q, qdo_full, 64 * c, q0, bh);
+      sm90::tma_load(base + L::kDO + off, &tm_do, qdo_full, 64 * c, q0, bh);
     }
-    const int* mask_row =
-        kv_mask ? kv_mask + (size_t)(bh / H) * Sk : nullptr;
-    for (int t = 0; t < nt; ++t) {
-      const int s = t % kStages;
-      sm90::mbar_wait(empty0 + 8 * s, ((t / kStages) & 1) ^ 1);
-      const uint32_t full = full0 + 8 * s;
-      if (lane == 0) {
-        sm90::mbar_arrive_tx(full, 2 * L::kKT);
-        for (int c = 0; c < kBoxes; ++c) {
-          const uint32_t off = s * L::kKT + c * kBK * 128;
-          sm90::tma_load(base + L::kK + off, &tm_k, full, 64 * c, t * kBK, bh);
-          sm90::tma_load(base + L::kV + off, &tm_v, full, 64 * c, t * kBK, bh);
+  };
+  auto load_kv = [&](int j) {
+    const int s = j % kStages;
+    sm90::mbar_wait(empty0 + 8 * s, ((j / kStages) & 1) ^ 1);
+    const uint32_t full = full0 + 8 * s;
+    sm90::mbar_arrive_tx(full, 2 * L::kKT);
+    for (int c = 0; c < kBoxes; ++c) {
+      const uint32_t off = s * L::kKT + c * kBK * 128;
+      sm90::tma_load(base + L::kK + off, &tm_k, full, 64 * c, j * kBK, bh);
+      sm90::tma_load(base + L::kV + off, &tm_v, full, 64 * c, j * kBK, bh);
+    }
+  };
+
+  if constexpr (C::kProducer) {
+    if (tid >= kConsumers) {  // the producer warpgroup: its first warp
+      sm90::setmaxnreg_dec<24>();
+      const int lane = tid - kConsumers;
+      if (lane >= 32) return;
+      if (lane == 0 && nt > 0) load_qdo();
+      for (int t = 0; t < nt; ++t) {
+        const int s = t % kStages;
+        if (lane == 0) {
+          load_kv(t);
+        } else {
+          sm90::mbar_wait(empty0 + 8 * s, ((t / kStages) & 1) ^ 1);
         }
+        int* valid = valid0 + s * kBK;
+        for (int r = lane; r < kBK; r += 32) {
+          const int key = t * kBK + r;
+          valid[r] = key < Sk && (mask_row == nullptr || mask_row[key] != 0);
+        }
+        sm90::mbar_arrive(full0 + 8 * s);
       }
-      int* valid = reinterpret_cast<int*>(sbase + L::kValid + s * kBK * 4);
-      for (int r = lane; r < kBK; r += 32) {
-        const int key = t * kBK + r;
-        valid[r] = key < Sk && (mask_row == nullptr || mask_row[key] != 0);
-      }
-      sm90::mbar_arrive(full);
+      return;
     }
-    return;
+    sm90::setmaxnreg_inc<240>();
+  } else if (tid == 0 && nt > 0) {
+    load_qdo();
+    for (int j = 0; j < kStages - 1 && j < nt; ++j) load_kv(j);
   }
-
-  sm90::setmaxnreg_inc<240>();
+  // the consumer thread that issues the ring's loads (none where a
+  // producer warpgroup does)
+  const bool loader = !C::kProducer && tid == 0;
 
   // a consumer warpgroup: rows r0 .. r0 + 63; this thread holds rows
   // row0 and row0 + 8, keys 8 j + col_off + {0, 1} of each tile
@@ -758,9 +821,16 @@ flash_bwd_dq_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
         dropout ? dropout_row_key(seed, bh, row) : 0u;
   }
 
-  float acc[D / 2];
+  float acc[kNH][kNW / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int n = 0; n < kNH; ++n) {
+#pragma unroll
+    for (int i = 0; i < kNW / 2; ++i) acc[n][i] = 0.f;
+  }
+  auto fence_acc = [&]() {
+#pragma unroll
+    for (int n = 0; n < kNH; ++n) sm90::fence_regs(acc[n]);
+  };
 
   const uint32_t q_rows = base + L::kQ + wg * 64 * 128;
   const uint32_t do_rows = base + L::kDO + wg * 64 * 128;
@@ -771,8 +841,6 @@ flash_bwd_dq_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
     sm90::mbar_wait(full0 + 8 * s, (t / kStages) & 1);
     const uint32_t k_tile = base + L::kK + s * L::kKT;
     const uint32_t v_tile = base + L::kV + s * L::kKT;
-    const int* valid =
-        reinterpret_cast<const int*>(sbase + L::kValid + s * kBK * 4);
 
     // S = Q K^T and dP = dO V^T, 64 x kBK each, float32
     float sc[kBK / 2], dp[kBK / 2];
@@ -792,6 +860,12 @@ flash_bwd_dq_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
                                   sm90::desc_k(v_tile + b_off), kk > 0);
     }
     sm90::wgmma_commit();
+    // without a producer, the loader refills the stage that tile t - 1
+    // left with tile t + kStages - 1 while S and dP are on the tensor cores
+    if constexpr (!C::kProducer) {
+      if (loader && t + kStages - 1 < nt) load_kv(t + kStages - 1);
+      __syncwarp();
+    }
     sm90::wgmma_wait<0>();
     sm90::fence_regs(sc);
     sm90::fence_regs(dp);
@@ -803,12 +877,19 @@ flash_bwd_dq_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int j = 0; j < kBK / 2; ++j) {
       const int h = (j % 4) / 2;
-      const int c = 8 * (j / 4) + col_off + (j % 2);  // key in the tile
-      const int key = k0 + c;
+      const int key = k0 + 8 * (j / 4) + col_off + (j % 2);
       const int r = row0 + 8 * h - q0;  // the row in the block
       float p = sm90::exp2_approx(fmaf(sc[j], scale_log2, -rows[r]));
       if (need_mask) {
-        if (!(valid[c] && (!causal || key <= q0 + r + diag))) p = 0.f;
+        bool ok;
+        if constexpr (C::kProducer) {
+          ok = valid0[s * kBK + (key - k0)] &&
+               (!causal || key <= q0 + r + diag);
+        } else {
+          ok = key < Sk && (!causal || key <= q0 + r + diag);
+          if (ok && mask_row != nullptr) ok = mask_row[key] != 0;
+        }
+        if (!ok) p = 0.f;
       }
       float d = dp[j];
       if (dropout) {
@@ -819,23 +900,29 @@ flash_bwd_dq_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
       sc[j] = p * (d - rows[kBM + r]);
     }
 
-    // dQ += dS K: dS from registers, K MN-major from the same ring tile
+    // dQ += dS K: dS from registers, K MN-major from the same ring tile;
+    // product n writes columns n * kNW .. + kNW - 1, kNW / 64 boxes in
     uint32_t da[kBK / 16][4];
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
       sm90::to_a_frag<T>(sc, kk, da[kk]);
       sm90::fence_regs(da[kk]);
     }
-    sm90::fence_regs(acc);
+    fence_acc();
     sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
-      sm90::Wgmma<D, kHalf>::rs(
-          acc, da[kk], sm90::desc_mn(k_tile + 2048 * kk, kBK * 128), 1);
+#pragma unroll
+      for (int n = 0; n < kNH; ++n) {
+        const uint32_t box = n * (kNW / 64) * kBK * 128;
+        sm90::Wgmma<kNW, kHalf>::rs(
+            acc[n], da[kk],
+            sm90::desc_mn(k_tile + box + 2048 * kk, kBK * 128), 1);
+      }
     }
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
-    sm90::fence_regs(acc);
+    fence_acc();
     sm90::mbar_arrive(empty0 + 8 * s);
   }
 
@@ -846,10 +933,13 @@ flash_bwd_dq_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
     if (row >= Sq) continue;
     T* drow = dq + ((size_t)bh * Sq + row) * D + col_off;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<uint32_t*>(drow + 8 * j) =
-          sm90::pack2<T>(acc[4 * j + 2 * h] * sm_scale,
-                         acc[4 * j + 2 * h + 1] * sm_scale);
+    for (int n = 0; n < kNH; ++n) {
+#pragma unroll
+      for (int j = 0; j < kNW / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(drow + n * kNW + 8 * j) =
+            sm90::pack2<T>(acc[n][4 * j + 2 * h] * sm_scale,
+                           acc[n][4 * j + 2 * h + 1] * sm_scale);
+      }
     }
   }
 }
@@ -861,19 +951,20 @@ int launch_dq(const void* q, const void* k, const void* v,
               int dtype, int causal, float sm_scale, int dropout,
               uint32_t threshold, float keep, uint32_t seed,
               cudaStream_t stream) {
+  using C = DqCfg<D>;
   using L = DqLayout<D>;
   CUtensorMap tq, tk, tv, tdo;
   int err = sm90::make_map(&tq, q, dtype, B * H, Sq, D, kBM);
   if (err == 0) err = sm90::make_map(&tdo, dout, dtype, B * H, Sq, D, kBM);
-  if (err == 0) err = sm90::make_map(&tk, k, dtype, B * H, Sk, D, kBK);
-  if (err == 0) err = sm90::make_map(&tv, v, dtype, B * H, Sk, D, kBK);
+  if (err == 0) err = sm90::make_map(&tk, k, dtype, B * H, Sk, D, C::kBK);
+  if (err == 0) err = sm90::make_map(&tv, v, dtype, B * H, Sk, D, C::kBK);
   if (err != 0) return err;
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_bwd_dq_kernel_tc<T, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(B * H, (Sq + kBM - 1) / kBM);
-  flash_bwd_dq_kernel_tc<T, D><<<grid, kThreads, L::kBytes, stream>>>(
+  flash_bwd_dq_kernel_tc<T, D><<<grid, C::kThreads, L::kBytes, stream>>>(
       tq, tk, tv, tdo, kv_mask, lse, delta, static_cast<T*>(dq), H, Sq, Sk,
       causal, sm_scale, sm_scale * kLog2e, dropout, threshold, 1.f / keep,
       seed);
@@ -883,7 +974,7 @@ int launch_dq(const void* q, const void* k, const void* v,
 }  // namespace tc
 
 // dtype: 0 float32, 1 bfloat16, 2 float16; D 64, 128 or 256 (the wrapper
-// checks; D = 256 takes the FMA kernel in every dtype). lse and delta are [B, H, Sq] float32. dropout as in
+// checks). lse and delta are [B, H, Sq] float32. dropout as in
 // ds_flash_fwd. float32 takes the FMA kernel, bfloat16 and float16 the
 // tensor-core kernel.
 extern "C" int ds_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -903,32 +994,24 @@ extern "C" int ds_flash_bwd_dq(const void* q, const void* k, const void* v,
                                threshold, keep, seed, s)
   if (dtype == 1 && D == 64) DS_FLASH_DQ_TC(__nv_bfloat16, 64);
   if (dtype == 1 && D == 128) DS_FLASH_DQ_TC(__nv_bfloat16, 128);
+  if (dtype == 1 && D == 256) DS_FLASH_DQ_TC(__nv_bfloat16, 256);
   if (dtype == 2 && D == 64) DS_FLASH_DQ_TC(__half, 64);
   if (dtype == 2 && D == 128) DS_FLASH_DQ_TC(__half, 128);
+  if (dtype == 2 && D == 256) DS_FLASH_DQ_TC(__half, 256);
 #undef DS_FLASH_DQ_TC
-  if (dtype == 0 && D == 64) {
-    return launch_dq<float, 64, 64, 4>(q, k, v, kv_mask, dout, lse, delta, dq,
-                                       B, H, Sq, Sk, causal, sm_scale, dropout,
-                                       threshold, keep, seed, s);
-  }
-  if (dtype == 0 && D == 128) {
-    return launch_dq<float, 128, 32, 4>(q, k, v, kv_mask, dout, lse, delta,
-                                        dq, B, H, Sq, Sk, causal, sm_scale,
-                                        dropout, threshold, keep, seed, s);
-  }
-#define DS_FLASH_DQ_256(T)                                                  \
-  return launch_dq<T, 256, 16, 8>(q, k, v, kv_mask, dout, lse, delta, dq, B, \
-                                  H, Sq, Sk, causal, sm_scale, dropout,      \
-                                  threshold, keep, seed, s)
-  if (D == 256 && dtype == 0) DS_FLASH_DQ_256(float);
-  if (D == 256 && dtype == 1) DS_FLASH_DQ_256(__nv_bfloat16);
-  if (D == 256 && dtype == 2) DS_FLASH_DQ_256(__half);
-#undef DS_FLASH_DQ_256
+#define DS_FLASH_DQ_FMA(DIM, BK, G)                                           \
+  return launch_dq<float, DIM, BK, G>(q, k, v, kv_mask, dout, lse, delta, dq, \
+                                      B, H, Sq, Sk, causal, sm_scale,         \
+                                      dropout, threshold, keep, seed, s)
+  if (dtype == 0 && D == 64) DS_FLASH_DQ_FMA(64, 64, 4);
+  if (dtype == 0 && D == 128) DS_FLASH_DQ_FMA(128, 32, 4);
+  if (dtype == 0 && D == 256) DS_FLASH_DQ_FMA(256, 16, 8);
+#undef DS_FLASH_DQ_FMA
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // dK/dV: float32 on the FMA kernel, bfloat16 and float16 on the
-// tensor-core kernel.
+// tensor-core kernel at D = 64 and 128 and on the FMA kernel at D = 256.
 extern "C" int ds_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 const int* kv_mask, const void* dout,
                                 const float* lse, const float* delta, void* dk,

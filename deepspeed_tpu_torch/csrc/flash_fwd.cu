@@ -18,22 +18,23 @@
 // pair, 12.9 GFLOP, 13 us of bf16 tensor-core time at 989 TFLOP/s, against
 // 51 MB of q, k, v, out and lse, 15 us of HBM time at 3.35 TB/s: the two
 // bounds meet, so the score matrix must never touch device memory and the
-// products must run on the tensor cores.
+// products must run on the tensor cores. At D = 256 (B=8, H=4, S=1024,
+// causal) the same holds: 17.2 GFLOP, 17 us, against 67 MB, 20 us.
 //
 // Two routes, chosen by dtype in ds_flash_fwd:
 //
-// bfloat16 and float16 — flash_fwd_kernel_tc, the tensor-core kernel. A
-// block owns 128 query rows of one (batch, head): two consumer warpgroups
-// of 64 rows each and one producer warpgroup, whose registers go to the
-// consumers (setmaxnreg 24 / 240). One producer thread loads the block's
-// Q tile once and keeps a three-stage ring of 128-key K and V tiles in
-// flight with TMA (3-D tensor maps over [B*H, S, D], so a ragged last
-// tile reads zeros, not the next head), signalled through mbarriers. Each
-// consumer forms S = Q K^T with wgmma from shared memory (both operands
-// K-major, 128-byte swizzle), keeps m, l and the rescale factor in
-// float32 registers, applies the causal/key/length mask only on the tiles
-// that need it and the dropout hash in the accumulator fragment itself
-// (each thread knows the (row, key) of its registers; a row's hash key is
+// bfloat16 and float16 — flash_fwd_kernel_tc, the tensor-core kernel, at
+// D = 64, 128 and 256. A block owns 128 query rows of one (batch, head):
+// two consumer warpgroups of 64 rows each. The block's Q tile is loaded
+// once and a ring of K and V tiles is kept in flight with TMA (3-D tensor
+// maps over [B*H, S, D], so a ragged last tile reads zeros, not the next
+// head), signalled through mbarriers; a K stage is released when its S
+// has completed and a V stage when its P V has. Each consumer forms
+// S = Q K^T with wgmma from shared memory (both operands K-major,
+// 128-byte swizzle), keeps m, l and the rescale factor in float32
+// registers, applies the causal/key/length mask only on the tiles that
+// need it and the dropout hash in the accumulator fragment itself (each
+// thread knows the (row, key) of its registers; a row's hash key is
 // computed once), rounds P to the storage type in registers and issues
 // O += P V with P as the register A operand and V read MN-major from the
 // ring. Within a warpgroup the work is software-pipelined: S of tile t is
@@ -44,22 +45,27 @@
 // folded into one FMA, the special-function unit's ex2); lse is converted
 // back to natural-log units at the edge.
 //
+// The tiles depend on the head dim (tc::Cfg): at D = 64 and 128, 128-key
+// tiles in a three-stage ring fed by a third, producer warpgroup, whose
+// registers go to the consumers (setmaxnreg 24 / 240). At D = 256 a
+// thread's O is 128 float32 registers, S of a 64-key tile 32 more and P
+// of the previous tile 16, which a 384-thread block (168 registers a
+// thread at compile time) cannot hold; so the block has no producer
+// warpgroup (256 threads, up to 255 registers each), consumer thread 0
+// issues the loads, the tiles hold 64 keys in a two-stage ring (Q 64 KB
+// + 2 x (32 + 32) KB), and O += P V runs as two 128-column products a k16
+// step.
+//
 // float32 — flash_fwd_kernel, the first (FMA) version, kept because the
 // tensor cores take float32 only as TF32 (about three digits), which would
 // break the port's float32 checks (1e-4, and float32 greedy-token
 // equality). One thread block owns (b*h, a tile of BQ = 32 query rows); a
 // loop walks the K/V tiles up to the causal diagonal, each staged once in
-// shared memory; four threads share a query row and finish each dot
-// product with two warp shuffles.
-//
-// Head dim 256, every storage type — the same FMA kernel, templated on the
-// storage type T: it loads T, computes in float32 and rounds p and the
-// output to T as the tensor-core kernel does. No tensor-core kernel is
-// compiled at D = 256 (the wrappers zero-pad head dims 129..255 to it;
-// no GPT-2/BERT configuration has them). Eight threads share a query row
-// there, so each holds 32 of its dims, and a tile stages 16 keys (32 KB of
-// static shared memory). It is bound by its FMAs, far below the card's
-// tensor-core rate: a simple kernel that is right.
+// shared memory; four threads share a query row (eight at D = 256, each
+// holding 32 of its dims, with 16-key tiles: 32 KB of static shared
+// memory) and finish each dot product with warp shuffles. It is templated
+// on the storage type, which it loads as float32 and rounds p and the
+// output to; float32 is the one it is instantiated for.
 //
 // Numerics follow the TPU kernel on both routes: scores, m, l and the
 // accumulator in float32; p is rounded to the input type before the value
@@ -86,8 +92,7 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr int kBQ = 32;  // query rows per block
 
-// The FMA kernel: float32 at D = 64 and 128, and every storage type at
-// D = 256 (no tensor-core kernel there). T: storage type (loaded as
+// The FMA kernel (float32). T: storage type (loaded as
 // float32, p and the output rounded to T); D: head dim; BK: keys per
 // staged tile; G: threads that share a query row (each holds D / G of its
 // dims). Shared memory is 2 * BK * D * 4 bytes = 32 KB for every
@@ -257,28 +262,53 @@ int launch(const void* q, const void* k, const void* v, const int* kv_mask,
 // ---------------------------------------------------------------------------
 namespace tc {
 
-constexpr int kBM = 128;                    // query rows a block owns
-constexpr int kBN = 128;                    // keys a K/V tile holds
-constexpr int kStages = 3;                  // the K/V ring
-constexpr int kConsumers = 256;             // two warpgroups of 64 rows
-constexpr int kThreads = kConsumers + 128;  // and one producer warpgroup
+constexpr int kBM = 128;         // query rows a block owns
+constexpr int kConsumers = 256;  // two warpgroups of 64 rows
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
+// The tiles by head dim. D = 64 and 128: 128-key K/V tiles in a
+// three-stage ring, fed by a producer warpgroup whose registers go to the
+// consumers (a 384-thread block). D = 256: one K or V tile of 128 keys is
+// 64 KB, and O alone is 128 float32 registers a thread, past the 168 that
+// ptxas gives a 384-thread block; so 64-key tiles in a two-stage ring (Q
+// 64 KB + 2 x (32 + 32) KB = 192 KB) and no producer warpgroup (256
+// threads, up to 255 registers each): consumer thread 0 issues the TMA
+// loads right after its warpgroup has issued its products, so a wait for
+// the other warpgroup to release a stage overlaps its own wgmma.
+template <int D>
+struct Cfg {
+  static constexpr int kBN = 128;  // keys a K/V tile holds
+  static constexpr int kStages = 3;
+  static constexpr bool kProducer = true;
+  static constexpr int kThreads = kConsumers + 128;
+};
+template <>
+struct Cfg<256> {
+  static constexpr int kBN = 64;
+  static constexpr int kStages = 2;
+  static constexpr bool kProducer = false;
+  static constexpr int kThreads = kConsumers;
+};
+
 // shared memory, byte offsets from a 1024-aligned base: the Q tile, the
-// K and V rings, the mbarriers (q_full, full[kStages], empty[kStages])
+// K and V rings, the mbarriers (q_full, k_full[kStages], v_full[kStages],
+// k_empty[kStages], v_empty[kStages])
 template <int D>
 struct Layout {
-  static constexpr int kTile = kBN * D * 2;  // a K or V tile; Q's too
+  static constexpr int kStages = Cfg<D>::kStages;
+  static constexpr int kQT = kBM * D * 2;          // the Q tile
+  static constexpr int kKV = Cfg<D>::kBN * D * 2;  // a K or V tile
   static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kTile;       // stage s at kK + s * kTile
-  static constexpr int kV = kK + kStages * kTile;
-  static constexpr int kBars = kV + kStages * kTile;
-  static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
+  static constexpr int kK = kQ + kQT;  // stage s at kK + s * kKV
+  static constexpr int kV = kK + kStages * kKV;
+  static constexpr int kBars = kV + kStages * kKV;
+  static constexpr int kBytes = kBars + 8 * (1 + 4 * kStages) + 1024;
+  static_assert(kBytes <= 232448, "a block has 227 KB of shared memory");
 };
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
 flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v,
@@ -286,14 +316,23 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
                     float* __restrict__ lse, int H, int Sq, int Sk, int causal,
                     float scale_log2, int dropout, uint32_t threshold,
                     float inv_keep, uint32_t seed) {
+  using C = Cfg<D>;
   using L = Layout<D>;
+  constexpr int kBN = C::kBN;
+  constexpr int kStages = C::kStages;
   constexpr bool kHalf = std::is_same<T, __half>::value;
   constexpr int kBoxes = D / 64;  // 64-column TMA boxes per row
+  // O += P V runs as kNH products of kNW columns (wgmma's n is at most
+  // 128 here): O is kNH arrays of a 64 x kNW accumulator
+  constexpr int kNW = D < 128 ? D : 128;
+  constexpr int kNH = D / kNW;
   extern __shared__ uint8_t smem[];
   const uint32_t base = (sm90::smem_addr(smem) + 1023u) & ~1023u;
   const uint32_t q_full = base + L::kBars;
-  const uint32_t full0 = q_full + 8;  // full[s] at full0 + 8 * s
-  const uint32_t empty0 = full0 + 8 * kStages;
+  const uint32_t k_full0 = q_full + 8;  // k_full[s] at k_full0 + 8 * s
+  const uint32_t v_full0 = k_full0 + 8 * kStages;
+  const uint32_t k_empty0 = v_full0 + 8 * kStages;
+  const uint32_t v_empty0 = k_empty0 + 8 * kStages;
 
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBM;  // heaviest tiles first
@@ -306,36 +345,61 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
   if (tid == 0) {
     sm90::mbar_init(q_full, 1);
     for (int s = 0; s < kStages; ++s) {
-      sm90::mbar_init(full0 + 8 * s, 1);
-      sm90::mbar_init(empty0 + 8 * s, kConsumers);
+      sm90::mbar_init(k_full0 + 8 * s, 1);
+      sm90::mbar_init(v_full0 + 8 * s, 1);
+      sm90::mbar_init(k_empty0 + 8 * s, kConsumers);
+      sm90::mbar_init(v_empty0 + 8 * s, kConsumers);
     }
     sm90::fence_barrier_init();
   }
   __syncthreads();
 
-  if (tid >= kConsumers) {  // the producer warpgroup: one thread issues TMA
-    sm90::setmaxnreg_dec<24>();
-    if (tid == kConsumers && ntiles > 0) {
-      sm90::mbar_arrive_tx(q_full, kBM * D * 2);
-      for (int c = 0; c < kBoxes; ++c) {
-        sm90::tma_load(base + L::kQ + c * kBM * 128, &tm_q, q_full, 64 * c,
-                       q0, bh);
-      }
-      for (int t = 0; t < ntiles; ++t) {
-        const int s = t % kStages;
-        sm90::mbar_wait(empty0 + 8 * s, ((t / kStages) & 1) ^ 1);
-        const uint32_t full = full0 + 8 * s;
-        sm90::mbar_arrive_tx(full, 2 * L::kTile);
-        for (int c = 0; c < kBoxes; ++c) {
-          const uint32_t off = s * L::kTile + c * kBN * 128;
-          sm90::tma_load(base + L::kK + off, &tm_k, full, 64 * c, t * kBN, bh);
-          sm90::tma_load(base + L::kV + off, &tm_v, full, 64 * c, t * kBN, bh);
+  // The TMA loads, each issued by one thread: the block's Q tile, and the
+  // K (or V) tile j into ring stage j % kStages once every consumer has
+  // released what the stage held. K and V are released apart: K when its
+  // S has completed, V when its P V has.
+  auto load_q = [&]() {
+    sm90::mbar_arrive_tx(q_full, L::kQT);
+    for (int c = 0; c < kBoxes; ++c) {
+      sm90::tma_load(base + L::kQ + c * kBM * 128, &tm_q, q_full, 64 * c, q0,
+                     bh);
+    }
+  };
+  auto load_kv = [&](const CUtensorMap* map, int ring, uint32_t full0,
+                     uint32_t empty0, int j) {
+    const int s = j % kStages;
+    sm90::mbar_wait(empty0 + 8 * s, ((j / kStages) & 1) ^ 1);
+    const uint32_t full = full0 + 8 * s;
+    sm90::mbar_arrive_tx(full, L::kKV);
+    for (int c = 0; c < kBoxes; ++c) {
+      sm90::tma_load(base + ring + s * L::kKV + c * kBN * 128, map, full,
+                     64 * c, j * kBN, bh);
+    }
+  };
+  auto load_k = [&](int j) { load_kv(&tm_k, L::kK, k_full0, k_empty0, j); };
+  auto load_v = [&](int j) { load_kv(&tm_v, L::kV, v_full0, v_empty0, j); };
+
+  if constexpr (C::kProducer) {
+    if (tid >= kConsumers) {  // the producer warpgroup: one thread loads
+      sm90::setmaxnreg_dec<24>();
+      if (tid == kConsumers && ntiles > 0) {
+        load_q();
+        for (int t = 0; t < ntiles; ++t) {
+          load_k(t);
+          load_v(t);
         }
       }
+      return;
     }
-    return;
+    sm90::setmaxnreg_inc<240>();
+  } else if (tid == 0 && ntiles > 0) {
+    load_q();
+    load_k(0);
+    load_v(0);
   }
-  sm90::setmaxnreg_inc<240>();
+  // the consumer thread that issues the ring's loads (none where a
+  // producer warpgroup does)
+  const bool loader = !C::kProducer && tid == 0;
 
   // a consumer warpgroup: rows r0 .. r0 + 63; this thread holds rows
   // row0 and row0 + 8, columns 8 j + col_off + {0, 1} of each tile
@@ -346,9 +410,12 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
   const int col_off = 2 * (lane % 4);
   const int* mask_row = kv_mask ? kv_mask + (size_t)(bh / H) * Sk : nullptr;
 
-  float o[D / 2];
+  float o[kNH][kNW / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int n = 0; n < kNH; ++n) {
+#pragma unroll
+    for (int i = 0; i < kNW / 2; ++i) o[n][i] = 0.f;
+  }
   float m[2] = {-INFINITY, -INFINITY};  // running max, log2 units
   float l[2] = {0.f, 0.f};              // this thread's part of the normaliser
   uint32_t rkey[2] = {0u, 0u};
@@ -362,25 +429,31 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
   uint32_t pa[kBN / 16][4];   // P of the previous tile, as A fragments
   float alpha[2];
 
-  // S = Q K^T of tile t, 64 x 128 float32, issued (not waited for)
+  // S = Q K^T of tile t, 64 x kBN float32, issued (not waited for)
   auto issue_s = [&](int t) {
-    const uint32_t k_tile = base + L::kK + (t % kStages) * L::kTile;
+    const uint32_t k_tile = base + L::kK + (t % kStages) * L::kKV;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / 4) * kBN * 128 + 32 * (kk % 4);
-      sm90::Wgmma<kBN, kHalf>::ss(sc, sm90::desc_k(q_tile + off),
-                                  sm90::desc_k(k_tile + off), kk > 0);
+      const uint32_t a_off = (kk / 4) * kBM * 128 + 32 * (kk % 4);
+      const uint32_t b_off = (kk / 4) * kBN * 128 + 32 * (kk % 4);
+      sm90::Wgmma<kBN, kHalf>::ss(sc, sm90::desc_k(q_tile + a_off),
+                                  sm90::desc_k(k_tile + b_off), kk > 0);
     }
     sm90::wgmma_commit();
   };
-  // O += P V of tile t (P from pa), issued
+  // O += P V of tile t (P from pa), issued; product n writes columns
+  // n * kNW .. + kNW - 1, which start kNW / 64 boxes into the V tile
   auto issue_pv = [&](int t) {
-    const uint32_t v_tile = base + L::kV + (t % kStages) * L::kTile;
+    const uint32_t v_tile = base + L::kV + (t % kStages) * L::kKV;
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk) {
-      sm90::Wgmma<D, kHalf>::rs(o, pa[kk],
-                                sm90::desc_mn(v_tile + 2048 * kk, kBN * 128),
-                                1);
+#pragma unroll
+      for (int n = 0; n < kNH; ++n) {
+        const uint32_t box = n * (kNW / 64) * kBN * 128;
+        sm90::Wgmma<kNW, kHalf>::rs(
+            o[n], pa[kk], sm90::desc_mn(v_tile + box + 2048 * kk, kBN * 128),
+            1);
+      }
     }
     sm90::wgmma_commit();
   };
@@ -439,48 +512,70 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
       sm90::fence_regs(pa[kk]);
     }
   };
+  auto fence_o = [&]() {
+#pragma unroll
+    for (int n = 0; n < kNH; ++n) sm90::fence_regs(o[n]);
+  };
 
   // Software pipeline within the warpgroup: S of tile t is issued with
-  // P V of tile t - 1, and the softmax of tile t runs while P V of t - 1
-  // is on the tensor cores. A ring stage (K and V of a tile) is released
-  // when its P V has completed.
+  // P V of tile t - 1, and the softmax of tile t runs while that P V is
+  // on the tensor cores. Without a producer, the loader refills the ring
+  // right after the issue: K of tile t + 1 into the stage K of t - 1 left,
+  // V of tile t into the stage V of t - 2 left (both released in the
+  // previous step), so each load has a step to land.
   if (ntiles > 0) {
     sm90::mbar_wait(q_full, 0);
-    sm90::mbar_wait(full0, 0);
+    sm90::mbar_wait(k_full0, 0);
     sm90::wgmma_fence();
     issue_s(0);
+    if (loader && ntiles > 1) load_k(1);
+    __syncwarp();
     sm90::wgmma_wait<0>();
     sm90::fence_regs(sc);
+    sm90::mbar_arrive(k_empty0);
     softmax(0);
 #pragma unroll
     for (int h = 0; h < 2; ++h) l[h] = lsum[h];
     pack_p();
   }
   for (int t = 1; t < ntiles; ++t) {
-    sm90::mbar_wait(full0 + 8 * (t % kStages), (t / kStages) & 1);
-    sm90::fence_regs(o);
+    sm90::mbar_wait(k_full0 + 8 * (t % kStages), (t / kStages) & 1);
+    sm90::mbar_wait(v_full0 + 8 * ((t - 1) % kStages),
+                    ((t - 1) / kStages) & 1);
+    fence_o();
     sm90::wgmma_fence();
     issue_s(t);
     issue_pv(t - 1);
+    if (loader) {
+      if (t + 1 < ntiles) load_k(t + 1);
+      load_v(t);
+    }
+    __syncwarp();
     sm90::wgmma_wait<1>();  // S of tile t is done
     sm90::fence_regs(sc);
+    sm90::mbar_arrive(k_empty0 + 8 * (t % kStages));
     softmax(t);
     sm90::wgmma_wait<0>();  // P V of tile t - 1 is done
-    sm90::fence_regs(o);
-    sm90::mbar_arrive(empty0 + 8 * ((t - 1) % kStages));
+    fence_o();
+    sm90::mbar_arrive(v_empty0 + 8 * ((t - 1) % kStages));
 #pragma unroll
     for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + lsum[h];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i % 4) / 2];
+    for (int n = 0; n < kNH; ++n) {
+#pragma unroll
+      for (int i = 0; i < kNW / 2; ++i) o[n][i] *= alpha[(i % 4) / 2];
+    }
     pack_p();
   }
   if (ntiles > 0) {
-    sm90::fence_regs(o);
+    const int t = ntiles - 1;
+    sm90::mbar_wait(v_full0 + 8 * (t % kStages), (t / kStages) & 1);
+    fence_o();
     sm90::wgmma_fence();
-    issue_pv(ntiles - 1);
+    issue_pv(t);
     sm90::wgmma_wait<0>();
-    sm90::fence_regs(o);
-    sm90::mbar_arrive(empty0 + 8 * ((ntiles - 1) % kStages));
+    fence_o();
+    sm90::mbar_arrive(v_empty0 + 8 * (t % kStages));
   }
 
   // epilogue: out = O / l in T, lse in natural-log units; a row with no
@@ -495,9 +590,13 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
     const float inv = lh > 0.f ? 1.f / lh : 1.f;
     T* orow = out + ((size_t)bh * Sq + row) * D + col_off;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<uint32_t*>(orow + 8 * j) = sm90::pack2<T>(
-          o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
+    for (int n = 0; n < kNH; ++n) {
+#pragma unroll
+      for (int j = 0; j < kNW / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(orow + n * kNW + 8 * j) =
+            sm90::pack2<T>(o[n][4 * j + 2 * h] * inv,
+                           o[n][4 * j + 2 * h + 1] * inv);
+      }
     }
     if (lane % 4 == 0) {
       lse[(size_t)bh * Sq + row] =
@@ -511,17 +610,18 @@ int launch(const void* q, const void* k, const void* v, const int* kv_mask,
            void* out, float* lse, int B, int H, int Sq, int Sk, int dtype,
            int causal, float sm_scale, int dropout, uint32_t threshold,
            float keep, uint32_t seed, cudaStream_t stream) {
+  using C = Cfg<D>;
   CUtensorMap tq, tk, tv;
   int err = sm90::make_map(&tq, q, dtype, B * H, Sq, D, kBM);
-  if (err == 0) err = sm90::make_map(&tk, k, dtype, B * H, Sk, D, kBN);
-  if (err == 0) err = sm90::make_map(&tv, v, dtype, B * H, Sk, D, kBN);
+  if (err == 0) err = sm90::make_map(&tk, k, dtype, B * H, Sk, D, C::kBN);
+  if (err == 0) err = sm90::make_map(&tv, v, dtype, B * H, Sk, D, C::kBN);
   if (err != 0) return err;
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_kernel_tc<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       Layout<D>::kBytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(B * H, (Sq + kBM - 1) / kBM);
-  flash_fwd_kernel_tc<T, D><<<grid, kThreads, Layout<D>::kBytes, stream>>>(
+  flash_fwd_kernel_tc<T, D><<<grid, C::kThreads, Layout<D>::kBytes, stream>>>(
       tq, tk, tv, kv_mask, static_cast<T*>(out), lse, H, Sq, Sk, causal,
       sm_scale * kLog2e, dropout, threshold, 1.f / keep, seed);
   return static_cast<int>(cudaGetLastError());
@@ -530,10 +630,9 @@ int launch(const void* q, const void* k, const void* v, const int* kv_mask,
 }  // namespace tc
 
 // dtype: 0 float32 (the FMA kernel), 1 bfloat16, 2 float16 (the
-// tensor-core kernel at D = 64 and 128, the FMA kernel at D = 256). D must
-// be 64, 128 or 256 (the wrapper checks). dropout:
-// 0 off; else keep a pair when its bits >= threshold and divide the kept
-// probabilities by keep = 1 - rate.
+// tensor-core kernel). D must be 64, 128 or 256 (the wrapper checks).
+// dropout: 0 off; else keep a pair when its bits >= threshold and divide
+// the kept probabilities by keep = 1 - rate.
 extern "C" int ds_flash_fwd(const void* q, const void* k, const void* v,
                             const int* kv_mask, void* out, float* lse, int B,
                             int H, int Sq, int Sk, int D, int dtype,
@@ -548,26 +647,18 @@ extern "C" int ds_flash_fwd(const void* q, const void* k, const void* v,
                             s)
   if (dtype == 1 && D == 64) DS_FLASH_FWD_TC(__nv_bfloat16, 64);
   if (dtype == 1 && D == 128) DS_FLASH_FWD_TC(__nv_bfloat16, 128);
+  if (dtype == 1 && D == 256) DS_FLASH_FWD_TC(__nv_bfloat16, 256);
   if (dtype == 2 && D == 64) DS_FLASH_FWD_TC(__half, 64);
   if (dtype == 2 && D == 128) DS_FLASH_FWD_TC(__half, 128);
+  if (dtype == 2 && D == 256) DS_FLASH_FWD_TC(__half, 256);
 #undef DS_FLASH_FWD_TC
-  if (dtype == 0 && D == 64) {
-    return launch<float, 64, 64, 4>(q, k, v, kv_mask, out, lse, B, H, Sq, Sk,
-                                    causal, sm_scale, dropout, threshold, keep,
-                                    seed, s);
-  }
-  if (dtype == 0 && D == 128) {
-    return launch<float, 128, 32, 4>(q, k, v, kv_mask, out, lse, B, H, Sq,
-                                     Sk, causal, sm_scale, dropout, threshold,
-                                     keep, seed, s);
-  }
-#define DS_FLASH_FWD_256(T)                                                 \
-  return launch<T, 256, 16, 8>(q, k, v, kv_mask, out, lse, B, H, Sq, Sk,    \
-                               causal, sm_scale, dropout, threshold, keep, \
-                               seed, s)
-  if (D == 256 && dtype == 0) DS_FLASH_FWD_256(float);
-  if (D == 256 && dtype == 1) DS_FLASH_FWD_256(__nv_bfloat16);
-  if (D == 256 && dtype == 2) DS_FLASH_FWD_256(__half);
-#undef DS_FLASH_FWD_256
+#define DS_FLASH_FWD_FMA(DIM, BK, G)                                         \
+  return launch<float, DIM, BK, G>(q, k, v, kv_mask, out, lse, B, H, Sq, Sk, \
+                                   causal, sm_scale, dropout, threshold,     \
+                                   keep, seed, s)
+  if (dtype == 0 && D == 64) DS_FLASH_FWD_FMA(64, 64, 4);
+  if (dtype == 0 && D == 128) DS_FLASH_FWD_FMA(128, 32, 4);
+  if (dtype == 0 && D == 256) DS_FLASH_FWD_FMA(256, 16, 8);
+#undef DS_FLASH_FWD_FMA
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -7,11 +7,12 @@ and differentiates them with two more (``_bwd_dq_kernel``,
 ``_bwd_dkv_kernel``) under a ``jax.custom_vjp``; here the same three
 functions are CUDA kernels written for Hopper (csrc/flash_fwd.cu,
 csrc/flash_bwd.cu), bound through ctypes (ops/kernel_lib.py), under a
-``torch.autograd.Function``. The C entry points route by dtype: bfloat16
-and float16 take the tensor-core forward, dQ and dK/dV kernels (wgmma +
-TMA, which need 16-byte-aligned operands); float32 takes the FMA kernels
-(the tensor cores take float32 only as TF32), and so does every dtype at
-head dim 256.
+``torch.autograd.Function``. The C entry points route by dtype and head
+dim (:func:`flash_route`): bfloat16 and float16 take the tensor-core
+forward, dQ and dK/dV kernels (wgmma + TMA, which need 16-byte-aligned
+operands), except dK/dV at head dim 256, which takes the FMA kernel;
+float32 takes the FMA kernels (the tensor cores take float32 only as
+TF32).
 
 Entry points:
   - ``mha_reference``: plain attention over an additive mask (the
@@ -25,8 +26,7 @@ Entry points:
   - ``attention``: dispatcher between the two (padding masks and
     ``FLASH_MIN_SEQ``, as in the JAX package).
 
-Head dims: the kernels are compiled at D = 64, 128 and 256 (the last on
-the FMA route only). On CUDA tensors the wrappers run any ``d <= 256`` at
+Head dims: the kernels are compiled at D = 64, 128 and 256. On CUDA tensors the wrappers run any ``d <= 256`` at
 the next of the three (:func:`pad_head_dim`): q, k, v and dO are
 zero-padded along D and the outputs sliced back, which is exact, but at
 ``d = 32`` the kernels move twice the bytes the function needs.
@@ -54,10 +54,24 @@ FLASH_MIN_SEQ = 256
 
 # The head dims the flash kernels are compiled at, and the largest the
 # wrappers take on CUDA tensors (zero-padded to the next compiled width).
-# 64 and 128 run on the tensor cores in bfloat16/float16; 256 runs the FMA
-# kernels in every dtype.
 FLASH_HEAD_DIMS = (64, 128, 256)
 FLASH_MAX_HEAD_DIM = FLASH_HEAD_DIMS[-1]
+
+
+def flash_route(dtype, d, kernel):
+    """The route csrc/flash_fwd.cu and csrc/flash_bwd.cu take for
+    ``kernel`` ("fwd", "dq" or "dkv") at compiled head dim ``d``:
+    ``"wgmma"`` (the tensor-core kernel: wgmma + TMA, which needs
+    16-byte-aligned operands) or ``"fma"``. float32 takes the FMA kernels
+    (the tensor cores take float32 only as TF32); so does dK/dV at
+    D = 256, in every dtype."""
+    if kernel not in ("fwd", "dq", "dkv"):
+        raise ValueError(f"kernel must be fwd, dq or dkv, got {kernel!r}")
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"no flash kernel is compiled at head dim {d}")
+    if dtype == torch.float32 or (kernel == "dkv" and d == 256):
+        return "fma"
+    return "wgmma"
 
 _M32 = 0xFFFFFFFF
 
@@ -229,9 +243,10 @@ def flash_bwd_dkv_plain(q, k, v, kv_mask, dout, lse, delta, causal=False,
     return (sm_scale * dk).to(k.dtype), dv.to(v.dtype)
 
 
-def _check_cuda(name, q, k, v, kv_mask, *more):
-    """Validate the operands a flash kernel takes; returns ``(b, h, sq, sk,
-    d, kv_mask pointer or None)``. Raises on anything else."""
+def _check_cuda(name, kernel, q, k, v, kv_mask, *more):
+    """Validate the operands flash kernel ``kernel`` ("fwd", "dq" or
+    "dkv") takes; returns ``(b, h, sq, sk, d, kv_mask pointer or None)``.
+    Raises on anything else."""
     # plain loops and get_device(): this runs on every launch, and the
     # serving path's prefill pays its host time once a layer
     tensors = (q, k, v) + more
@@ -268,7 +283,7 @@ def _check_cuda(name, q, k, v, kv_mask, *more):
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError(f"{name} needs contiguous operands")
-    if q.dtype != torch.float32 and d != 256:
+    if flash_route(q.dtype, d, kernel) == "wgmma":
         for t in tensors:
             if t.dtype == q.dtype and t.data_ptr() % 16:
                 raise ValueError(
@@ -377,7 +392,8 @@ def _flash_fwd_cuda(q, k, v, kv_mask, causal, sm_scale, dropout_rate=0.0,
     anything the kernel does not take; never runs the plain version."""
     from . import kernel_lib
 
-    b, h, sq, sk, d, mask_ptr = _check_cuda("flash_fwd", q, k, v, kv_mask)
+    b, h, sq, sk, d, mask_ptr = _check_cuda("flash_fwd", "fwd", q, k, v,
+                                            kv_mask)
     lib = kernel_lib.load("flash_fwd")
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -418,8 +434,8 @@ def _flash_bwd_cuda(which, q, k, v, kv_mask, dout, lse, delta, causal,
     from . import kernel_lib
 
     name = f"flash_bwd_{which}"
-    b, h, sq, sk, d, mask_ptr = _check_cuda(name, q, k, v, kv_mask, dout,
-                                            lse, delta)
+    b, h, sq, sk, d, mask_ptr = _check_cuda(name, which, q, k, v, kv_mask,
+                                            dout, lse, delta)
     _check_rows(name, q, dout, lse, delta)
     lib = kernel_lib.load("flash_bwd")
     outs = (torch.empty_like(q),) if which == "dq" else (

@@ -399,6 +399,28 @@ def test_kernel_head_dim_widths():
         tattn.kernel_head_dim(257)
 
 
+def test_flash_route_table():
+    """bfloat16/float16 run the tensor-core (wgmma + TMA) forward and dQ at
+    every compiled width and dK/dV at 64 and 128; dK/dV at 256 and every
+    float32 kernel run on the FMA units."""
+    table = {
+        (dtype, d, kernel): tattn.flash_route(dtype, d, kernel)
+        for dtype in (torch.float32, torch.bfloat16, torch.float16)
+        for d in tattn.FLASH_HEAD_DIMS
+        for kernel in ("fwd", "dq", "dkv")
+    }
+    fma = {key for key, route in table.items() if route == "fma"}
+    assert fma == (
+        {(torch.float32, d, k) for d in (64, 128, 256)
+         for k in ("fwd", "dq", "dkv")}
+        | {(torch.bfloat16, 256, "dkv"), (torch.float16, 256, "dkv")})
+    assert set(table.values()) == {"fma", "wgmma"}
+    with pytest.raises(ValueError, match="head dim"):
+        tattn.flash_route(torch.bfloat16, 192, "fwd")
+    with pytest.raises(ValueError, match="kernel"):
+        tattn.flash_route(torch.bfloat16, 256, "bwd")
+
+
 @pytest.mark.parametrize("causal,with_mask", [(True, False), (False, True)])
 def test_head_dim_32_matches_jax_kernel(causal, with_mask):
     """A GPT-2 with 768 over 24 heads has head dim 32. The JAX flash kernel

@@ -5,7 +5,12 @@ at run time). On the card run
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py
 
 bfloat16 and float16 run the tensor-core forward, dQ and dK/dV kernels
-(wgmma + TMA), float32 the FMA kernels. Tolerances as in chip_smoke.py: float32 atol = rtol = 1e-4 (another
+(wgmma + TMA; at D = 256 dK/dV is the FMA kernel), float32 the FMA
+kernels. The D = 256 tensor-core cases alone:
+
+    python -m pytest -m cuda tests/test_torch_cuda_kernels.py -k 256
+
+Tolerances as in chip_smoke.py: float32 atol = rtol = 1e-4 (another
 summation order), bfloat16 atol = rtol = 1e-2 (p and the output rounded
 to bfloat16 at different points of the online softmax; rtol 1e-2 covers
 one bf16 ulp, 2**-7 relative, at any magnitude), float16 atol = rtol =
@@ -340,8 +345,7 @@ def test_flash_kernels_take_padded_head_dims(cuda, dtype, d, sq, sk, causal,
                                              masked, rate):
     """Head dims the kernels are not compiled at run zero-padded to 64, 128
     or 256 (pad_head_dim): one launch each, d columns out, and the plain
-    versions' forward and gradients at d. D = 256 is the FMA kernels in
-    every dtype."""
+    versions' forward and gradients at d."""
     q, k, v, dout, kv_mask = _attention_case(cuda, dtype, d, sq, sk, masked,
                                              12)
     before = (flash_fwd.launches, flash_bwd_dq.launches,
@@ -367,11 +371,70 @@ def test_flash_kernels_take_padded_head_dims(cuda, dtype, d, sq, sk, causal,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("sq,sk", [(200, 328), (333, 200)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_d256_tensor_core_forward_and_dq_match_plain(cuda, dtype, d, sq, sk,
+                                                     causal, masked, rate):
+    """bfloat16/float16 at D = 256 (d = 192 zero-padded to it): the
+    tensor-core forward and dQ (64- and 32-key tiles, no producer
+    warpgroup), one launch each, against their plain versions at the
+    tolerances of D = 64 and 128. Sq != Sk with ragged last tiles; (333,
+    200) leaves rows that see no key, which stay exact zeros."""
+    q, k, v, dout, kv_mask = _attention_case(cuda, dtype, d, sq, sk, masked,
+                                             21)
+    fargs = (q, k, v, kv_mask, causal, None, rate, 13)
+    before = (flash_fwd.launches, flash_bwd_dq.launches)
+    out, lse = flash_fwd(*fargs)
+    ref, ref_lse = flash_fwd_plain(*fargs)
+    delta = (dout.float() * ref.float()).sum(dim=-1)
+    bargs = (q, k, v, kv_mask, dout, ref_lse, delta, causal, None, rate, 13)
+    dq = flash_bwd_dq(*bargs)
+    torch.cuda.synchronize()
+    assert (flash_fwd.launches, flash_bwd_dq.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert out.shape == q.shape and dq.shape == q.shape
+    _close(out, ref, dtype)
+    rows = ref_lse > -1e29
+    _close(lse[rows], ref_lse[rows], torch.float32)
+    assert bool((out[~rows] == 0).all())  # rows that see no key
+    _close(dq, flash_bwd_dq_plain(*bargs), dtype, scaled=True)
+    assert bool((dq[~rows] == 0).all())
+    if masked:
+        assert bool((out[1] == 0).all()) and bool((dq[1] == 0).all())
+
+
+@pytest.mark.cuda
+def test_tma_alignment_check_follows_the_route(cuda):
+    """At D = 256 the bfloat16 forward and dQ load by TMA and refuse a view
+    that starts 2 bytes into its storage; dK/dV there is the FMA kernel,
+    which takes it."""
+    n = 1 * 2 * 256 * 256
+    flat = torch.randn(n + 1, device=cuda).to(torch.bfloat16)
+    x = flat[1:].view(1, 2, 256, 256)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    lse = torch.zeros(1, 2, 256, device=cuda)
+    args = (x, x, x, None, x, lse, lse, True)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_fwd(x, x, x)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_bwd_dq(*args)
+    dk, dv = flash_bwd_dkv(*args)
+    want = flash_bwd_dkv_plain(*args)
+    torch.cuda.synchronize()
+    _close(dk, want[0], torch.bfloat16, scaled=True)
+    _close(dv, want[1], torch.bfloat16, scaled=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_tensor_core_kernels_are_bitwise_repeatable(cuda, dtype, d):
     """The tensor-core forward, dQ and dK/dV kernels use no atomics: two
     launches on the same inputs give the same out, lse, dQ, dK and dV bit
-    for bit."""
+    for bit (at D = 256 dK/dV is the FMA kernel, which uses none either)."""
     q, k, v, dout, kv_mask = _attention_case(cuda, dtype, d, 1000, 1000,
                                              True, 6)
     fargs = (q, k, v, kv_mask, True, None, 0.1, 11)
