@@ -22,11 +22,11 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                seconds, ptxas's registers and spills per kernel, and the
                count of HGMMA (wgmma) and UTMALDG (TMA load) instructions
                in each kernel's SASS (cuobjdump -sass); fails unless the
-               tensor-core forward and dQ have 6 bfloat16/float16
-               instantiations each (D = 64, 128, 256) and dK/dV 4 (D = 64,
-               128), every one holding both. Then torch.profiler's kernel
-               names show which kernel a D = 256 call launches: bf16/fp16
-               forward and dQ the tensor-core kernels, dK/dV and float32
+               tensor-core forward, dQ and dK/dV have 6 bfloat16/float16
+               instantiations each (D = 64, 128, 256), every one holding
+               both, or if ptxas spilled in dK/dV at D = 128 or 256. Then
+               torch.profiler's kernel names show which kernel a D = 256
+               call launches: bf16/fp16 the tensor-core kernels, float32
                the FMA ones (ops/attention.py:flash_route).
   3. kernels — each kernel against its plain PyTorch version on the same
                inputs, float32 and bfloat16, at the serving path's shapes
@@ -121,7 +121,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                24 heads (head dim 32) and 4 heads (head dim 192), cut to
                2 layers, through one training micro-step (each attention
                kernel launched once a layer; float32 gradients through
-               the kernels equal the plain versions') and serving (a
+               the kernels equal the plain versions', and at head dim 192
+               bfloat16 ones too, within the scaled tolerance per
+               parameter, both paths reported against float32 gradients
+               of the same weights) and serving (a
                300-token cold prefill through the flash forward; fused
                decode at head dim 32, float32 fused == unfused; the
                gathered decode at 192, above the paged decode kernel's
@@ -163,10 +166,9 @@ watchdog: the watchdog arms at the first completed window, so the build
 must not read as a stall.
 
 The attention kernels take two routes (ops/attention.py:flash_route):
-bfloat16 and float16 the tensor-core forward and dQ kernels (wgmma + TMA)
-at D = 64, 128 and 256 and the tensor-core dK/dV kernel at D = 64 and
-128; float32 the FMA kernels (the tensor cores take float32 only as
-TF32), and every dtype the FMA dK/dV kernel at D = 256.
+bfloat16 and float16 the tensor-core forward, dQ and dK/dV kernels
+(wgmma + TMA) at D = 64, 128 and 256; float32 the FMA kernels (the
+tensor cores take float32 only as TF32).
 
 Tolerances: float32 kernel vs plain atol = rtol = 1e-4 (same float32
 arithmetic in another summation order; observed errors sit near 1e-6);
@@ -282,15 +284,23 @@ class Timer:
 # dims of its tensor-core route, ops/attention.py:flash_route) holds wgmma
 # (HGMMA) and TMA loads (UTMALDG)
 TC_KERNELS = {"flash_fwd": {"flash_fwd_kernel_tc": 2 * 3},
-              "flash_bwd": {"flash_bwd_dkv_kernel_tc": 2 * 2,
+              "flash_bwd": {"flash_bwd_dkv_kernel_tc": 2 * 3,
                             "flash_bwd_dq_kernel_tc": 2 * 3}}
+# the tensor-core instantiations whose ptxas report must show no spill
+# (mangled-name fragments: dK/dV at D = 128 and 256)
+NO_SPILL = {"flash_bwd": ("flash_bwd_dkv_kernel_tcI13__nv_bfloat16Li128E",
+                          "flash_bwd_dkv_kernel_tcI6__halfLi128E",
+                          "flash_bwd_dkv_kernel_tcI13__nv_bfloat16Li256E",
+                          "flash_bwd_dkv_kernel_tcI6__halfLi256E")}
 # each redesigned kernel's Timer reading at these shapes before its
-# redesign (the FMA attention kernels, at D = 64 and at D = 256; paged
-# decode with one block per (head, slot); H100 80GB HBM3, 700 W; PERF.md),
+# redesign (the FMA attention kernels, at D = 64 and at D = 256; dK/dV at
+# D = 128 in the 384-thread tensor-core block that spilled; paged decode
+# with one block per (head, slot); H100 80GB HBM3, 700 W; PERF.md),
 # printed beside this run's readings, not part of the kernels line
 FMA_BEFORE_MS = {"flash_fwd": 2.204, "flash_fwd serve": 0.3129,
                  "flash_bwd_dkv": 3.075, "flash_bwd_dq": 2.065,
                  "flash_fwd d256": 2.281, "flash_bwd_dq d256": 4.746,
+                 "flash_bwd_dkv d256": 3.659, "flash_bwd_dkv d128": 0.2419,
                  "paged_decode": 0.07853}
 ROUTE = {"flash_fwd": "wgmma+tma (bf16, fp16); FMA (float32)",
          "flash_bwd_dq": "wgmma+tma (bf16, fp16); FMA (float32)",
@@ -299,7 +309,9 @@ ROUTE = {"flash_fwd": "wgmma+tma (bf16, fp16); FMA (float32)",
                            "producer warpgroup); FMA (float32)",
          "flash_bwd_dq d256": "wgmma+tma (bf16, fp16; 32-key tiles, no "
                               "producer warpgroup); FMA (float32)",
-         "flash_bwd_dkv d256": "FMA, every dtype"}
+         "flash_bwd_dkv d256": "wgmma+tma (bf16, fp16; two passes, dK "
+                               "then dV, 32-query tiles, no producer "
+                               "warpgroup); FMA (float32)"}
 
 
 def cuobjdump_path():
@@ -335,6 +347,52 @@ def sass_counts(name):
             counts[func][0] += "HGMMA" in line
             counts[func][1] += "UTMALDG" in line
     return counts
+
+
+def ptxas_report(log_text):
+    """{mangled kernel: (registers, spill store bytes, spill load bytes)}
+    from ptxas's -v report."""
+    out, func = {}, None
+    regs = stores = loads = 0
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            func = line.split("'")[1]
+            regs = stores = loads = 0
+        elif func is not None and "spill stores" in line:
+            words = line.replace(",", "").split()
+            stores = int(words[words.index("spill") - 2])
+            loads = int(words[words.index("loads") - 3])
+            out[func] = (regs, stores, loads)
+        elif func is not None and "Used" in line and "registers" in line:
+            words = line.split()
+            regs = int(words[words.index("Used") + 1])
+            out[func] = (regs, stores, loads)
+    return out
+
+
+def check_spills():
+    """Fail if ptxas spilled in an instantiation NO_SPILL names (read from
+    the build's saved report). Returns {kernel: (registers, stores,
+    loads)} for them."""
+    from deepspeed_tpu_torch.ops import kernel_lib
+
+    out = {}
+    for name, fragments in NO_SPILL.items():
+        path = kernel_lib.library_path(name).with_suffix(".log")
+        report = ptxas_report(path.read_text())
+        for fragment in fragments:
+            hits = {f: r for f, r in report.items() if fragment in f}
+            if len(hits) != 1:
+                fail(f"{name}: ptxas reported {len(hits)} kernels matching "
+                     f"{fragment}")
+            (func, (regs, stores, loads)), = hits.items()
+            log(f"  {fragment}: {regs} registers, spill stores {stores} "
+                f"bytes, spill loads {loads} bytes")
+            if stores or loads:
+                fail(f"{name}: {fragment} spills ({stores} bytes stored, "
+                     f"{loads} loaded)")
+            out[fragment] = (regs, stores, loads)
+    return out
 
 
 def phase_sass():
@@ -1585,43 +1643,70 @@ def train_gpt2(seed, optimizer, lr, windows, precision=BF16):
     return engine, micro, launches, losses, secs, builds
 
 
-def grads_kernels_vs_plain(seed, cfg=None):
-    """One float32 micro-step of GPT-2 small (or ``cfg``) at dropout 0: the
-    gradients through the kernels against the gradients through the plain
-    versions of the three attention kernels on the card. Returns the
-    launches of the kernel run and the worst max|diff| / max|plain| over
-    the parameters."""
+def grads_kernels_vs_plain(seed, cfg=None, dtype=torch.float32):
+    """One micro-step of GPT-2 small (or ``cfg``) at dropout 0, its
+    parameters in ``dtype``: the gradients through the kernels against the
+    gradients through the plain versions of the three attention kernels on
+    the card. float32: the worst max|diff| / max|plain| over the
+    parameters within TOL. Reduced precision: each parameter's gradient
+    within check_close's scaled tolerance of the plain one's (atol TOL x
+    max|plain|, rtol TOL), and both paths' worst max|diff| / max|ref|
+    against a float32 reference of the same weights (plain versions)
+    reported beside it, since both round the whole model. Returns the
+    launches of the kernel run and the worst max|diff| / max|plain|."""
     from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
     from deepspeed_tpu_torch.ops import attention as A
 
     cfg = cfg or GPT2Config.small(dropout=0.0)
-    model = GPT2LMHeadModel(cfg, device="cuda", seed=seed)
+    model = GPT2LMHeadModel(cfg, device="cuda", dtype=dtype, seed=seed)
     ids = train_batches(seed, model.config.vocab_size)[0][0]
-    params = list(model.parameters())
 
-    def grads():
-        loss = model(ids, ids, train=True)
-        return torch.autograd.grad(loss, params), float(loss.detach())
+    def grads(m, plain=False):
+        kernels = (A.flash_fwd, A.flash_bwd_dq, A.flash_bwd_dkv)
+        if plain:
+            A.flash_fwd, A.flash_bwd_dq, A.flash_bwd_dkv = (
+                A.flash_fwd_plain, A.flash_bwd_dq_plain,
+                A.flash_bwd_dkv_plain)
+        try:
+            loss = m(ids, ids, train=True)
+            return ([g.float() for g in torch.autograd.grad(
+                loss, list(m.parameters()))], float(loss.detach()))
+        finally:
+            A.flash_fwd, A.flash_bwd_dq, A.flash_bwd_dkv = kernels
+
+    def worst(a, b):
+        return max(float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+                   for x, y in zip(a, b))
 
     zero_launches()
-    (got, loss_k) = grads()
+    got, loss_k = grads(model)
     torch.cuda.synchronize()
     launches = read_launches()
-    kernels = (A.flash_fwd, A.flash_bwd_dq, A.flash_bwd_dkv)
-    A.flash_fwd, A.flash_bwd_dq, A.flash_bwd_dkv = (
-        A.flash_fwd_plain, A.flash_bwd_dq_plain, A.flash_bwd_dkv_plain)
-    try:
-        (want, loss_p) = grads()
-    finally:
-        A.flash_fwd, A.flash_bwd_dq, A.flash_bwd_dkv = kernels
-    worst = max(float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
-                for g, w in zip(got, want))
-    log(f"  loss kernels {loss_k} plain {loss_p}; gradients max|diff| / "
-        f"max|plain| {worst:.3e} (tol {TOL[torch.float32]:g})")
-    if worst > TOL[torch.float32]:
-        fail("float32 gradients through the kernels disagree with the "
-             "plain versions'")
-    return launches, worst
+    want, loss_p = grads(model, plain=True)
+    err = worst(got, want)
+    tol = TOL[dtype]
+    log(f"  {str(dtype)[6:]}: loss kernels {loss_k} plain {loss_p}; "
+        f"gradients max|diff| / max|plain| {err:.3e} (tol {tol:g})")
+    if dtype == torch.float32:
+        if err > tol:
+            fail("float32 gradients through the kernels disagree with the "
+                 "plain versions'")
+        return launches, err
+    for (name, _), g, w in zip(model.named_parameters(), got, want):
+        atol = tol * float(w.abs().max())
+        if not torch.allclose(g, w, atol=atol, rtol=tol):
+            fail(f"{dtype} gradient of {name} through the kernels disagrees "
+                 f"with the plain versions' (max|diff| "
+                 f"{float((g - w).abs().max()):.3e}, atol {atol:.3e})")
+    ref_model = GPT2LMHeadModel(cfg, device="cuda", seed=seed)
+    with torch.no_grad():
+        for r, p in zip(ref_model.parameters(), model.parameters()):
+            r.copy_(p.float())
+    ref, _ = grads(ref_model, plain=True)
+    log(f"  against float32 gradients of the same weights: kernels "
+        f"{worst(got, ref):.3e}, plain {worst(want, ref):.3e}")
+    del ref_model
+    return launches, err
 
 
 def phase_train(seed, card):
@@ -2003,7 +2088,7 @@ def phase_adapters(seed, card):
 # phase 7: head dims other than 64 and 128
 # ---------------------------------------------------------------------------
 HD_FLASH = (32, 48, 96)       # 768 over 24, 16 and 8 heads
-HD_WIDE = (192, 256)          # the D = 256 FMA kernels (192 zero-padded)
+HD_WIDE = (192, 256)          # the D = 256 kernels (192 zero-padded)
 HD_DECODE = (16, 32, 48, 80, 96, 112)
 HD_TAIL = (8, 12, 40, 72)     # rows that are not whole 16-byte chunks
 HD32_LAYERS = 2               # the head-dim GPT-2s of phase 7, cut in depth
@@ -2142,8 +2227,8 @@ def time_flash(timer, q, k, v, dout, shape):
 
 
 def check_flash_wide(device, gen, timer):
-    """The D = 256 kernels (bf16/fp16 forward and dQ on the tensor cores,
-    dK/dV and float32 on the FMA units): the flash forward and backward at
+    """The D = 256 kernels (bf16/fp16 on the tensor cores, float32 on the
+    FMA units): the flash forward and backward at
     d = 192 (zero-padded to 256) and 256 against their plain versions at
     B*H = 32 (B=8, H=4), S=1024, causal, with and without a padding mask
     and dropout, float32, bfloat16 and float16; then the bf16 times
@@ -2207,8 +2292,8 @@ def check_flash_wide(device, gen, timer):
 
 def check_wide_routes(device):
     """Which kernel each D = 256 call launches, by torch.profiler's kernel
-    names: the tensor-core forward and dQ in bfloat16 and float16, the FMA
-    kernels for dK/dV and for float32 (ops/attention.py:flash_route).
+    names: the tensor-core forward, dQ and dK/dV in bfloat16 and float16,
+    the FMA kernels in float32 (ops/attention.py:flash_route).
     Returns {"<dtype> <kernel>": kernel name}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2279,6 +2364,11 @@ def check_flash_d128(device, gen, timer):
     for name, entry in out.items():
         entry["max_abs_err"] = errs[name]
         log(f"  {name} d=128: {json.dumps(entry)}")
+        before = FMA_BEFORE_MS.get(f"{name} d128")
+        if before is not None:
+            log(f"  {name} d=128: ms {entry['ms']:.4f}, device_ms "
+                f"{entry['device_ms']:.4f}; before_ms {before} (the "
+                "384-thread kernel, which spilled)")
     del q, k, v, dout
     torch.cuda.empty_cache()
     return out
@@ -2348,11 +2438,13 @@ def check_decode_head_dims(device, gen, timer):
     return out
 
 
-def hd_train(seed, n_head):
+def hd_train(seed, n_head, bf16_grads=False):
     """One bf16 training micro-step (dropout 0.1) of the head-dim GPT-2
     over ``n_head`` heads: each attention kernel launched once a layer;
     then float32 gradients through the kernels against the plain
-    versions'. Returns (launches, loss, gradient error)."""
+    versions' (the FMA route), and with ``bf16_grads`` bfloat16 ones too
+    (the tensor-core route). Returns (launches, loss, {dtype: gradient
+    error})."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch import GPT2LMHeadModel
 
@@ -2374,8 +2466,13 @@ def hd_train(seed, n_head):
         fail(f"hd {768 // n_head} training: loss {loss}, launches {got} "
              f"(want {want}), {engine.global_steps} steps")
     del engine
-    _, grad_err = grads_kernels_vs_plain(seed, hd_config(n_head,
-                                                         dropout=0.0))
+    grad_err = {}
+    for dtype in (torch.float32, torch.bfloat16)[:1 + bf16_grads]:
+        grad_launches, grad_err[str(dtype)[6:]] = grads_kernels_vs_plain(
+            seed, hd_config(n_head, dropout=0.0), dtype)
+        if any(grad_launches[n] != HD32_LAYERS for n in TRAIN_KERNELS):
+            fail(f"hd {768 // n_head} {dtype} gradients: launches "
+                 f"{grad_launches}")
     return launches, loss, grad_err
 
 
@@ -2429,7 +2526,8 @@ def phase_head_dims(seed, card):
     (head dim 32) and 4 heads (head dim 192, the D = 256 kernels) through
     one training micro-step (the flash forward and backward launched once
     a layer; float32 gradients through the kernels equal to those through
-    the plain versions) and serving (a cold prefill of 300 tokens through
+    the plain versions, and at head dim 192 bfloat16 ones, the tensor-core
+    route) and serving (a cold prefill of 300 tokens through
     the flash forward; fused decode at head dim 32, the gathered decode at
     192, which the paged decode kernel does not take); and 96 heads (head
     dim 8, the decode kernel's tail path) served with fused decode, float32
@@ -2455,9 +2553,11 @@ def phase_head_dims(seed, card):
             log(f"phase 7: GPT-2 768 / {n_head} heads (hd {hd}, "
                 f"{HD32_LAYERS} layers), one training micro-step, bf16, "
                 "dropout 0.1")
-            launches[f"hd{hd}_train"], loss, err = hd_train(seed, n_head)
+            launches[f"hd{hd}_train"], loss, err = hd_train(
+                seed, n_head, bf16_grads=hd > 128)
             stats[f"hd{hd}_loss"] = loss
-            stats[f"hd{hd}_f32_grad_max_rel_err"] = err
+            for dt, e in err.items():
+                stats[f"hd{hd}_{dt}_grad_max_rel_err"] = e
         log(f"phase 7: the same model served, bf16, fused decode "
             f"{'on' if fused else 'off'}")
         launches[f"hd{hd}_serve"], st = hd_serve(seed, n_head, fused)
@@ -3005,6 +3105,8 @@ def main():
                     or "entry function" in line):
                 log(f"    {line.strip()}")
     phase_sass()
+    log("phase 2: ptxas registers and spills of dK/dV at D = 128 and 256")
+    check_spills()
     log("phase 2: the kernel each D = 256 call launches (torch.profiler)")
     routes = check_wide_routes(device)
 

@@ -24,23 +24,33 @@
 // in a fixed order, so the results are the same bit for bit from run to
 // run.
 //
-// dK/dV, bfloat16 and float16 at D = 64 and 128 —
-// flash_bwd_dkv_kernel_tc, the tensor-core kernel (FA3's structure
-// without dQ). A block owns 128 keys of one (batch, head): two consumer
-// warpgroups of 64 keys each and one producer warpgroup, whose registers
-// go to the consumers (setmaxnreg 24 / 240).
-// The producer loads the block's K and V tiles once by TMA, then
-// streams tiles of Q and dO (3-D tensor maps, zero-filled past S) through a
-// two-stage ring, starting at the first query tile that can see the key
-// tile, and its 32 lanes stage each tile's lse (in log2 units), delta and
-// dropout row keys beside them. Each consumer forms S^T = K Q^T and
-// dP^T = V dO^T with wgmma from shared memory (all K-major), computes
-// P^T = exp(S^T - lse), the dropout and dS^T = P^T (dP^T - delta) in
-// float32 registers (masks only on the tiles that need them), rounds
-// P_drop^T and dS^T to the storage type in registers and accumulates
-// dV += P_drop^T dO and dK += dS^T Q with them as the register A operand
-// and dO, Q read MN-major from the same ring tiles. dK is scaled by
-// `scale` in the epilogue.
+// dK/dV, bfloat16 and float16 — flash_bwd_dkv_kernel_tc, the tensor-core
+// kernel (FA3's structure without dQ), at D = 64, 128 and 256. A block owns
+// 128 keys of one (batch, head): two consumer warpgroups of 64 keys each.
+// The block's K and V tiles are loaded once by TMA, then tiles of Q and dO
+// (3-D tensor maps, zero-filled past S) stream through a ring, starting at
+// the first query tile that can see the key tile, and one warp stages each
+// tile's lse (in log2 units), delta and dropout row keys beside them. Each
+// consumer forms S^T = K Q^T and dP^T = V dO^T with wgmma from shared
+// memory (all K-major), computes P^T = exp(S^T - lse), the dropout and
+// dS^T = P^T (dP^T - delta) in float32 registers (masks only on the tiles
+// that need them), rounds P_drop^T and dS^T to the storage type in
+// registers and accumulates dV += P_drop^T dO and dK += dS^T Q with them
+// as the register A operand and dO, Q read MN-major from the same ring
+// tiles. dK is scaled by `scale` in the epilogue. The tiles depend on the
+// head dim (tc::DkvCfg): at D = 64, 64-query tiles in a two-stage ring fed
+// by a producer warpgroup (setmaxnreg 24 / 240). At D = 128 a thread's dK
+// and dV are 128 float32 registers, past the 168 that ptxas gives a
+// 384-thread block: the block has no producer warpgroup (256 threads, up
+// to 255 registers each), consumer warp 0 loads the ring right after its
+// warpgroup has issued its products, 32-query tiles stream through four
+// stages, and tile t's S^T and dP^T go to the tensor cores ahead of tile
+// t - 1's dK/dV products, which then run under tile t's softmax. At
+// D = 256 dK or dV alone is 128 registers: a block accumulates one of
+// them (two passes over the key tile, blockIdx.z 0 dK and 1 dV; the dV
+// pass forms no dP^T and loads no V), S^T is formed in both (5 products
+// of 2*D flops a visible pair instead of 4), and each product over D runs
+// as two 128-column wgmmas a k16 step.
 //
 // dQ, bfloat16 and float16 — flash_bwd_dq_kernel_tc, the same structure
 // turned around (the forward's shape), at D = 64, 128 and 256. A block
@@ -80,14 +90,10 @@
 // its vectors and accumulators in registers, and each dot product closes
 // with two warp shuffles. Causal tiles are issued heaviest first.
 //
-// dK/dV at head dim 256, every storage type — the same FMA kernel,
-// templated on the storage type: T is loaded as float32, ds and p_drop
-// are rounded to T before their products and the outputs to T, as the
-// tensor-core kernels do. Eight threads share a row there (32 of its dims
-// each, so dK/dV's four row vectors fit in registers), and a tile stages
-// 16 rows (32 KB of static shared memory): a simple kernel that is right,
-// bound by its FMAs. The dQ FMA kernel at D = 256 takes the same shape,
-// for float32 only.
+// At head dim 256 the FMA kernels take eight threads a row (32 of its
+// dims each, so dK/dV's four row vectors fit in registers) and stage 16
+// rows a tile (32 KB of static shared memory): simple kernels that are
+// right, bound by their FMAs.
 //
 // C interface: ds_flash_bwd_dq(...) and ds_flash_bwd_dkv(...) launch on the
 // given stream, allocate nothing, and return cudaGetLastError() (or the
@@ -107,19 +113,17 @@ namespace {
 
 constexpr int kRows = 32;  // rows a block owns
 
-// The FMA kernels: float32, and dK/dV in every storage type at D = 256.
-// T: storage type (loaded as float32; ds and p_drop rounded to T
-// before their products, the outputs rounded to T); G: threads that share
-// a row, each holding the float4 chunks c = g + G * i of its D-vectors.
+// The FMA kernels (float32). G: threads that share a row, each holding
+// the float4 chunks c = g + G * i of its D-vectors.
 
-template <typename T, int D, int G>
-__device__ __forceinline__ void load_share(const T* row, bool ok, int g,
+template <int D, int G>
+__device__ __forceinline__ void load_share(const float* row, bool ok, int g,
                                            float* out) {
 #pragma unroll
   for (int i = 0; i < D / G / 4; ++i) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      out[4 * i + e] = ok ? sm90::to_f32(row[4 * (g + G * i) + e]) : 0.f;
+      out[4 * i + e] = ok ? row[4 * (g + G * i) + e] : 0.f;
     }
   }
 }
@@ -158,25 +162,28 @@ __device__ __forceinline__ void axpy_share(float a, const float* shared_row,
   }
 }
 
-template <typename T, int D, int G>
-__device__ __forceinline__ void store_share(T* row, int g, float scale,
+template <int D, int G>
+__device__ __forceinline__ void store_share(float* row, int g, float scale,
                                             const float* acc) {
 #pragma unroll
   for (int i = 0; i < D / G / 4; ++i) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      row[4 * (g + G * i) + e] = sm90::from_f32<T>(acc[4 * i + e] * scale);
+      row[4 * (g + G * i) + e] = acc[4 * i + e] * scale;
     }
   }
 }
 
 // dQ: one block per (bh, query tile); BK keys staged per step.
-template <typename T, int D, int BK, int G>
+template <int D, int BK, int G>
 __global__ void __launch_bounds__(kRows * G)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ kv_mask,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq, int H,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const int* __restrict__ kv_mask,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dq,
+                    int H,
                     int Sq, int Sk, int causal, float sm_scale, int dropout,
                     uint32_t threshold, float keep, uint32_t seed) {
   constexpr int kThreads = kRows * G;
@@ -195,11 +202,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const bool row_ok = qi < Sq;
   const int diag = Sk - Sq;
 
-  const T* kb = k + (size_t)bh * Sk * D;
-  const T* vb = v + (size_t)bh * Sk * D;
+  const float* kb = k + (size_t)bh * Sk * D;
+  const float* vb = v + (size_t)bh * Sk * D;
   float qr[kDPT], dor[kDPT], acc[kDPT];
-  load_share<T, D, G>(q + ((size_t)bh * Sq + qi) * D, row_ok, g, qr);
-  load_share<T, D, G>(dout + ((size_t)bh * Sq + qi) * D, row_ok, g, dor);
+  load_share<D, G>(q + ((size_t)bh * Sq + qi) * D, row_ok, g, qr);
+  load_share<D, G>(dout + ((size_t)bh * Sq + qi) * D, row_ok, g, dor);
 #pragma unroll
   for (int i = 0; i < kDPT; ++i) acc[i] = 0.f;
   const float lse_i = row_ok ? lse[(size_t)bh * Sq + qi] : 0.f;
@@ -220,8 +227,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = idx / D;
       const int c = idx % D;
       const int kj = k0 + r;
-      ks[r][c] = kj < Sk ? sm90::to_f32(kb[(size_t)kj * D + c]) : 0.f;
-      vs[r][c] = kj < Sk ? sm90::to_f32(vb[(size_t)kj * D + c]) : 0.f;
+      ks[r][c] = kj < Sk ? kb[(size_t)kj * D + c] : 0.f;
+      vs[r][c] = kj < Sk ? vb[(size_t)kj * D + c] : 0.f;
     }
     for (int r = tid; r < BK; r += kThreads) {
       const int kj = k0 + r;
@@ -240,24 +247,24 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (dropout) {
         dp = dropout_keep(row_key, kj, threshold) ? dp / keep : 0.f;
       }
-      // ds rounded to T before the product (ds.astype(k.dtype))
-      const float ds = sm90::round_to<T>(p * (dp - delta_i));
-      axpy_share<D, G>(ds, &ks[j][0], g, acc);
+      axpy_share<D, G>(p * (dp - delta_i), &ks[j][0], g, acc);
     }
   }
   if (row_ok) {
-    store_share<T, D, G>(dq + ((size_t)bh * Sq + qi) * D, g, sm_scale, acc);
+    store_share<D, G>(dq + ((size_t)bh * Sq + qi) * D, g, sm_scale, acc);
   }
 }
 
 // dK, dV: one block per (bh, key tile); BQ queries staged per step.
-template <typename T, int D, int BQ, int G>
+template <int D, int BQ, int G>
 __global__ void __launch_bounds__(kRows * G)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const int* __restrict__ kv_mask,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int H, int Sq, int Sk, int causal,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const int* __restrict__ kv_mask,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int H, int Sq, int Sk, int causal,
                      float sm_scale, int dropout, uint32_t threshold,
                      float keep, uint32_t seed) {
   constexpr int kThreads = kRows * G;
@@ -277,11 +284,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const bool key_ok =
       kj < Sk && (kv_mask == nullptr || kv_mask[(size_t)b * Sk + kj] != 0);
 
-  const T* qb = q + (size_t)bh * Sq * D;
-  const T* db = dout + (size_t)bh * Sq * D;
+  const float* qb = q + (size_t)bh * Sq * D;
+  const float* db = dout + (size_t)bh * Sq * D;
   float kr[kDPT], vr[kDPT], acc_k[kDPT], acc_v[kDPT];
-  load_share<T, D, G>(k + ((size_t)bh * Sk + kj) * D, kj < Sk, g, kr);
-  load_share<T, D, G>(v + ((size_t)bh * Sk + kj) * D, kj < Sk, g, vr);
+  load_share<D, G>(k + ((size_t)bh * Sk + kj) * D, kj < Sk, g, kr);
+  load_share<D, G>(v + ((size_t)bh * Sk + kj) * D, kj < Sk, g, vr);
 #pragma unroll
   for (int i = 0; i < kDPT; ++i) acc_k[i] = acc_v[i] = 0.f;
 
@@ -298,8 +305,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = idx / D;
       const int c = idx % D;
       const int qi = q0 + r;
-      qs[r][c] = qi < Sq ? sm90::to_f32(qb[(size_t)qi * D + c]) : 0.f;
-      dos[r][c] = qi < Sq ? sm90::to_f32(db[(size_t)qi * D + c]) : 0.f;
+      qs[r][c] = qi < Sq ? qb[(size_t)qi * D + c] : 0.f;
+      dos[r][c] = qi < Sq ? db[(size_t)qi * D + c] : 0.f;
     }
     for (int r = tid; r < BQ; r += kThreads) {
       const int qi = q0 + r;
@@ -326,35 +333,32 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           dp = 0.f;
         }
       }
-      // both operands rounded to T before their products
-      const float ds = sm90::round_to<T>(p * (dp - delta_s[i]));
-      axpy_share<D, G>(sm90::round_to<T>(p_drop), &dos[i][0], g, acc_v);
-      axpy_share<D, G>(ds, &qs[i][0], g, acc_k);
+      axpy_share<D, G>(p_drop, &dos[i][0], g, acc_v);
+      axpy_share<D, G>(p * (dp - delta_s[i]), &qs[i][0], g, acc_k);
     }
   }
   if (kj < Sk) {
-    store_share<T, D, G>(dk + ((size_t)bh * Sk + kj) * D, g, sm_scale,
-                         acc_k);
-    store_share<T, D, G>(dv + ((size_t)bh * Sk + kj) * D, g, 1.f, acc_v);
+    store_share<D, G>(dk + ((size_t)bh * Sk + kj) * D, g, sm_scale, acc_k);
+    store_share<D, G>(dv + ((size_t)bh * Sk + kj) * D, g, 1.f, acc_v);
   }
 }
 
-template <typename T, int D, int BS, int G>
+template <int D, int BS, int G>
 int launch_dq(const void* q, const void* k, const void* v, const int* kv_mask,
               const void* dout, const float* lse, const float* delta,
               void* dq, int B, int H, int Sq, int Sk, int causal,
               float sm_scale, int dropout, uint32_t threshold, float keep,
               uint32_t seed, cudaStream_t stream) {
   const dim3 grid((Sq + kRows - 1) / kRows, B * H);
-  flash_bwd_dq_kernel<T, D, BS, G><<<grid, kRows * G, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), kv_mask, static_cast<const T*>(dout), lse,
-      delta, static_cast<T*>(dq), H, Sq, Sk, causal, sm_scale, dropout,
-      threshold, keep, seed);
+  flash_bwd_dq_kernel<D, BS, G><<<grid, kRows * G, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), kv_mask, static_cast<const float*>(dout),
+      lse, delta, static_cast<float*>(dq), H, Sq, Sk, causal, sm_scale,
+      dropout, threshold, keep, seed);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D, int BS, int G>
+template <int D, int BS, int G>
 int launch_dkv(const void* q, const void* k, const void* v,
                const int* kv_mask, const void* dout, const float* lse,
                const float* delta, void* dk, void* dv, int B, int H, int Sq,
@@ -362,11 +366,11 @@ int launch_dkv(const void* q, const void* k, const void* v,
                uint32_t threshold, float keep, uint32_t seed,
                cudaStream_t stream) {
   const dim3 grid((Sk + kRows - 1) / kRows, B * H);
-  flash_bwd_dkv_kernel<T, D, BS, G><<<grid, kRows * G, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), kv_mask, static_cast<const T*>(dout), lse,
-      delta, static_cast<T*>(dk), static_cast<T*>(dv), H, Sq, Sk, causal,
-      sm_scale, dropout, threshold, keep, seed);
+  flash_bwd_dkv_kernel<D, BS, G><<<grid, kRows * G, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), kv_mask, static_cast<const float*>(dout),
+      lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), H, Sq, Sk,
+      causal, sm_scale, dropout, threshold, keep, seed);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -377,12 +381,52 @@ int launch_dkv(const void* q, const void* k, const void* v,
 // ---------------------------------------------------------------------------
 namespace tc {
 
-constexpr int kBN = 128;                    // keys a dK/dV block owns
-constexpr int kBM = 128;                    // query rows a dQ block owns
-constexpr int kStages = 2;                  // dK/dV's Q/dO ring
-constexpr int kConsumers = 256;             // two warpgroups of 64 rows
-constexpr int kThreads = kConsumers + 128;  // dK/dV: and a producer warpgroup
+constexpr int kBN = 128;         // keys a dK/dV block owns
+constexpr int kBM = 128;         // query rows a dQ block owns
+constexpr int kConsumers = 256;  // two warpgroups of 64 rows
 constexpr float kLog2e = 1.4426950408889634f;
+
+// dK/dV's tiles by head dim. D = 64: 64-query Q/dO tiles in a two-stage
+// ring fed by a producer warpgroup (a 384-thread block; ptxas holds its
+// threads to 168 registers, whatever setmaxnreg gives the consumers at
+// run time). D = 128: a thread's dK and dV are 2 x 64 float32 registers,
+// which spilled in that block, so the block has no producer warpgroup (256
+// threads, up to 255 registers each), 32-query tiles (S^T and dP^T 16
+// registers each) and a four-stage ring that consumer warp 0 fills; tile
+// t's S^T and dP^T are issued ahead of tile t - 1's dK/dV products, which
+// run under tile t's softmax (kOverlap; 248 registers). D = 256: dK or dV
+// alone is 128 registers, so a block accumulates one of them (two passes
+// over the same key tile, blockIdx.z 0 dK and 1 dV, each forming S^T) in
+// the D = 128 block shape; K and V 64 KB each and three stages of Q and dO
+// (16 KB each) fill 224 KB. The overlapped schedule spilled there (255
+// registers) and gained 1%, so each tile's products run in turn.
+template <int D>
+struct DkvCfg {
+  static constexpr int kBQ = 64;  // queries a ring stage holds
+  static constexpr int kStages = 2;
+  static constexpr bool kProducer = true;
+  static constexpr int kThreads = kConsumers + 128;
+  static constexpr int kPasses = 1;
+  static constexpr bool kOverlap = false;
+};
+template <>
+struct DkvCfg<128> {
+  static constexpr int kBQ = 32;
+  static constexpr int kStages = 4;
+  static constexpr bool kProducer = false;
+  static constexpr int kThreads = kConsumers;
+  static constexpr int kPasses = 1;
+  static constexpr bool kOverlap = true;
+};
+template <>
+struct DkvCfg<256> {
+  static constexpr int kBQ = 32;
+  static constexpr int kStages = 3;
+  static constexpr bool kProducer = false;
+  static constexpr int kThreads = kConsumers;
+  static constexpr int kPasses = 2;
+  static constexpr bool kOverlap = false;
+};
 
 // shared memory, byte offsets from a 1024-aligned base: the K and V
 // tiles, the Q and dO rings, each stage's row data (lse in log2 units,
@@ -390,9 +434,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 // (kv_full, full[kStages], empty[kStages])
 template <int D>
 struct Layout {
-  // queries a ring stage holds: 32 at D = 128 keeps dK, dV, S^T and dP^T
-  // of a thread (2 x 64 + 2 x 16 float32) within its registers
-  static constexpr int kBQ = D == 64 ? 64 : 32;
+  static constexpr int kBQ = DkvCfg<D>::kBQ;
+  static constexpr int kStages = DkvCfg<D>::kStages;
   static constexpr int kKV = kBN * D * 2;  // the K (or V) tile
   static constexpr int kQT = kBQ * D * 2;  // a Q (or dO) tile
   static constexpr int kK = 0;
@@ -403,22 +446,22 @@ struct Layout {
   static constexpr int kRowBytes = 3 * kBQ * 4;
   static constexpr int kBars = kRows + kStages * kRowBytes;
   static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
+  static_assert(kBytes <= 232448, "a block has 227 KB of shared memory");
 };
 
+// D = 64: two consumer warpgroups of 64 keys and a producer warpgroup,
+// whose registers go to the consumers (setmaxnreg 24 / 240).
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dkv_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
-                        const __grid_constant__ CUtensorMap tm_k,
-                        const __grid_constant__ CUtensorMap tm_v,
-                        const __grid_constant__ CUtensorMap tm_do,
-                        const int* __restrict__ kv_mask,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta, T* __restrict__ dk,
-                        T* __restrict__ dv, int H, int Sq, int Sk, int causal,
-                        float sm_scale, float scale_log2, int dropout,
-                        uint32_t threshold, float inv_keep, uint32_t seed) {
+__device__ __forceinline__ void dkv_producer_form(
+    const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+    const CUtensorMap& tm_v, const CUtensorMap& tm_do,
+    const int* __restrict__ kv_mask, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+    int H, int Sq, int Sk, int causal, float sm_scale, float scale_log2,
+    int dropout, uint32_t threshold, float inv_keep, uint32_t seed) {
   using L = Layout<D>;
   constexpr int kBQ = L::kBQ;
+  constexpr int kStages = L::kStages;
   constexpr bool kHalf = std::is_same<T, __half>::value;
   constexpr int kBoxes = D / 64;  // 64-column TMA boxes per row
   extern __shared__ uint8_t smem[];
@@ -616,6 +659,363 @@ flash_bwd_dkv_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+
+// which outputs a pass of the 256-thread form accumulates
+constexpr int kOutDV = 1;
+constexpr int kOutDK = 2;
+
+// D = 128 and 256: two consumer warpgroups of 64 keys and no producer
+// warpgroup. Warp 0 loads the block's K (and V) tiles once, then each
+// query tile into ring stage (t - t0) % kStages once every consumer has
+// released what the stage held: lane 0 issues the TMA copies, and the 32
+// lanes stage the tile's rows, all arriving on the stage's full barrier.
+// It loads the next tile right after its warpgroup has issued tile t's
+// S^T (and dP^T), so a wait for the other warpgroup to release a stage
+// overlaps its own wgmma.
+template <typename T, int D, int kOut>
+__device__ __forceinline__ void dkv_consumers_form(
+    const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+    const CUtensorMap& tm_v, const CUtensorMap& tm_do,
+    const int* __restrict__ kv_mask, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+    int H, int Sq, int Sk, int causal, float sm_scale, float scale_log2,
+    int dropout, uint32_t threshold, float inv_keep, uint32_t seed) {
+  using L = Layout<D>;
+  constexpr int kBQ = L::kBQ;
+  constexpr int kStages = L::kStages;
+  constexpr bool kHalf = std::is_same<T, __half>::value;
+  constexpr int kBoxes = D / 64;  // 64-column TMA boxes per row
+  constexpr bool kDV = (kOut & kOutDV) != 0;
+  constexpr bool kDK = (kOut & kOutDK) != 0;
+  // an output is kNH 64 x 128 accumulators (wgmma's n is at most 128
+  // here); acc[0] is dV where the pass takes it, acc[kNO - 1] dK
+  constexpr int kNH = D / 128;
+  constexpr int kNO = int(kDV) + int(kDK);
+  extern __shared__ uint8_t smem[];
+  const uint32_t base = (sm90::smem_addr(smem) + 1023u) & ~1023u;
+  uint8_t* const sbase = smem + (base - sm90::smem_addr(smem));
+  const uint32_t kv_full = base + L::kBars;
+  const uint32_t full0 = kv_full + 8;  // full[s] at full0 + 8 * s
+  const uint32_t empty0 = full0 + 8 * kStages;
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kBN;  // low key tiles see the most queries
+  const int diag = Sk - Sq;
+  // the first query tile that can see the key tile: qi >= k0 - diag
+  const int t0 = causal ? max(0, k0 - diag) / kBQ : 0;
+  const int nt = (Sq + kBQ - 1) / kBQ;
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  if (tid == 0) {
+    sm90::mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      // the TMA thread's arrival and the 32 lanes that stage the rows
+      sm90::mbar_init(full0 + 8 * s, 33);
+      sm90::mbar_init(empty0 + 8 * s, kConsumers);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const bool loader = tid < 32;  // warp 0
+  auto load_q = [&](int t) {
+    const int i = t - t0;
+    const int s = i % kStages;
+    sm90::mbar_wait(empty0 + 8 * s, ((i / kStages) & 1) ^ 1);
+    const uint32_t full = full0 + 8 * s;
+    if (lane == 0) {
+      sm90::mbar_arrive_tx(full, 2 * L::kQT);
+      for (int c = 0; c < kBoxes; ++c) {
+        const uint32_t off = s * L::kQT + c * kBQ * 128;
+        sm90::tma_load(base + L::kQ + off, &tm_q, full, 64 * c, t * kBQ, bh);
+        sm90::tma_load(base + L::kDO + off, &tm_do, full, 64 * c, t * kBQ,
+                       bh);
+      }
+    }
+    float* rows =
+        reinterpret_cast<float*>(sbase + L::kRows + s * L::kRowBytes);
+    for (int r = lane; r < kBQ; r += 32) {
+      const int qi = t * kBQ + r;
+      const bool in = qi < Sq;
+      rows[r] = in ? lse[(size_t)bh * Sq + qi] * kLog2e : 0.f;
+      rows[kBQ + r] = kDK && in ? delta[(size_t)bh * Sq + qi] : 0.f;
+      reinterpret_cast<uint32_t*>(rows)[2 * kBQ + r] =
+          dropout ? dropout_row_key(seed, bh, qi) : 0u;
+    }
+    sm90::mbar_arrive(full);
+  };
+  if (loader && t0 < nt) {
+    if (lane == 0) {
+      sm90::mbar_arrive_tx(kv_full, (kDK ? 2 : 1) * L::kKV);  // dV: no V
+      for (int c = 0; c < kBoxes; ++c) {
+        const uint32_t off = c * kBN * 128;
+        sm90::tma_load(base + L::kK + off, &tm_k, kv_full, 64 * c, k0, bh);
+        if constexpr (kDK) {
+          sm90::tma_load(base + L::kV + off, &tm_v, kv_full, 64 * c, k0, bh);
+        }
+      }
+    }
+    for (int t = t0; t < t0 + kStages - 1 && t < nt; ++t) load_q(t);
+  }
+
+  // a consumer warpgroup: keys kw0 .. kw0 + 63; this thread holds keys
+  // key0 and key0 + 8 (rows of S^T), queries 8 j + col_off + {0, 1} of
+  // each tile (its columns)
+  const int wg = tid / 128;
+  const int kw0 = k0 + 64 * wg;
+  const int key0 = kw0 + 16 * ((tid % 128) / 32) + lane / 4;
+  const int col_off = 2 * (lane % 4);
+  bool key_ok[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key0 + 8 * h;
+    key_ok[h] = key < Sk &&
+                (kv_mask == nullptr || kv_mask[(size_t)(bh / H) * Sk + key] != 0);
+  }
+
+  float acc[kNO][kNH][64];
+#pragma unroll
+  for (int o = 0; o < kNO; ++o) {
+#pragma unroll
+    for (int n = 0; n < kNH; ++n) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[o][n][i] = 0.f;
+    }
+  }
+  auto fence_acc = [&]() {
+#pragma unroll
+    for (int o = 0; o < kNO; ++o) {
+#pragma unroll
+      for (int n = 0; n < kNH; ++n) sm90::fence_regs(acc[o][n]);
+    }
+  };
+
+  const uint32_t k_rows = base + L::kK + wg * 64 * 128;
+  const uint32_t v_rows = base + L::kV + wg * 64 * 128;
+  const uint32_t* const rows0 =
+      reinterpret_cast<const uint32_t*>(sbase + L::kRows);
+  float st[kBQ / 2], dpt[kBQ / 2];
+  uint32_t pa[kBQ / 16][4], da[kBQ / 16][4];
+
+  // S^T = K Q^T (and dP^T = V dO^T) of the tile in stage s, 64 x kBQ
+  // each, float32
+  auto issue_s = [&](int s) {
+    const uint32_t q_tile = base + L::kQ + s * L::kQT;
+    const uint32_t do_tile = base + L::kDO + s * L::kQT;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t a_off = (kk / 4) * kBN * 128 + 32 * (kk % 4);
+      const uint32_t b_off = (kk / 4) * kBQ * 128 + 32 * (kk % 4);
+      sm90::Wgmma<kBQ, kHalf>::ss(st, sm90::desc_k(k_rows + a_off),
+                                  sm90::desc_k(q_tile + b_off), kk > 0);
+    }
+    if constexpr (kDK) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t a_off = (kk / 4) * kBN * 128 + 32 * (kk % 4);
+        const uint32_t b_off = (kk / 4) * kBQ * 128 + 32 * (kk % 4);
+        sm90::Wgmma<kBQ, kHalf>::ss(dpt, sm90::desc_k(v_rows + a_off),
+                                    sm90::desc_k(do_tile + b_off), kk > 0);
+      }
+    }
+    sm90::wgmma_commit();
+  };
+
+  // P^T, dropout, dS^T of query tile t in stage s, in place (st becomes
+  // P_drop^T, dpt dS^T); masks only on the tiles that need them (a tile
+  // that needs none holds no row without a visible key, so its lse is
+  // finite)
+  auto softmax = [&](int t, int s) {
+    const int q0 = t * kBQ;
+    const float* lse2_s = reinterpret_cast<const float*>(
+        rows0 + s * L::kRowBytes / 4);
+    const float* delta_s = lse2_s + kBQ;
+    const uint32_t* key_s = rows0 + s * L::kRowBytes / 4 + 2 * kBQ;
+    const bool need_mask = kv_mask != nullptr || q0 + kBQ > Sq ||
+                           (causal && kw0 + 63 > q0 + diag);
+#pragma unroll
+    for (int j = 0; j < kBQ / 2; ++j) {
+      const int h = (j % 4) / 2;
+      const int r = 8 * (j / 4) + col_off + (j % 2);  // query in the tile
+      const int key = key0 + 8 * h;
+      float p = sm90::exp2_approx(fmaf(st[j], scale_log2, -lse2_s[r]));
+      if (need_mask) {
+        const int qi = q0 + r;
+        if (!(key_ok[h] && qi < Sq && (!causal || key <= qi + diag))) p = 0.f;
+      }
+      float dp = kDK ? dpt[j] : 0.f;
+      float p_drop = p;
+      if (dropout) {
+        const bool keep = dropout_keep(key_s[r], key, threshold);
+        p_drop = keep ? p * inv_keep : 0.f;
+        dp = keep ? dp * inv_keep : 0.f;
+      }
+      if constexpr (kDV) st[j] = p_drop;
+      if constexpr (kDK) dpt[j] = p * (dp - delta_s[r]);
+    }
+  };
+
+  // P_drop^T and dS^T rounded to T, as wgmma's register A operand
+  auto make_frags = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk) {
+      if constexpr (kDV) {
+        sm90::to_a_frag<T>(st, kk, pa[kk]);
+        sm90::fence_regs(pa[kk]);
+      }
+      if constexpr (kDK) {
+        sm90::to_a_frag<T>(dpt, kk, da[kk]);
+        sm90::fence_regs(da[kk]);
+      }
+    }
+  };
+
+  // dV += P_drop^T dO, dK += dS^T Q with the fragments, dO and Q read
+  // MN-major from stage s; product n writes columns 128 n .. 128 n + 127,
+  // two 64-column boxes in (the caller fences the accumulators and
+  // issues wgmma_fence first)
+  auto issue_dkv = [&](int s) {
+    const uint32_t q_tile = base + L::kQ + s * L::kQT;
+    const uint32_t do_tile = base + L::kDO + s * L::kQT;
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk) {
+#pragma unroll
+      for (int n = 0; n < kNH; ++n) {
+        const uint32_t off = n * 2 * kBQ * 128 + 2048 * kk;
+        if constexpr (kDV) {
+          sm90::Wgmma<128, kHalf>::rs(
+              acc[0][n], pa[kk], sm90::desc_mn(do_tile + off, kBQ * 128), 1);
+        }
+        if constexpr (kDK) {
+          sm90::Wgmma<128, kHalf>::rs(acc[kNO - 1][n], da[kk],
+                                      sm90::desc_mn(q_tile + off, kBQ * 128),
+                                      1);
+        }
+      }
+    }
+    sm90::wgmma_commit();
+  };
+
+  if (t0 < nt) sm90::mbar_wait(kv_full, 0);
+  if constexpr (!DkvCfg<D>::kOverlap) {
+    for (int t = t0; t < nt; ++t) {
+      const int i = t - t0;
+      const int s = i % kStages;
+      sm90::mbar_wait(full0 + 8 * s, (i / kStages) & 1);
+      sm90::wgmma_fence();
+      issue_s(s);
+      // warp 0 refills the stage that tile t - 1 left while S^T and dP^T
+      // are on the tensor cores
+      if (loader && t + kStages - 1 < nt) load_q(t + kStages - 1);
+      __syncwarp();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(st);
+      if constexpr (kDK) sm90::fence_regs(dpt);
+      softmax(t, s);
+      make_frags();
+      fence_acc();
+      sm90::wgmma_fence();
+      issue_dkv(s);
+      sm90::wgmma_wait<0>();
+      fence_acc();
+      sm90::mbar_arrive(empty0 + 8 * s);
+    }
+  } else if (t0 < nt) {
+    // tile t's S^T and dP^T go to the tensor cores ahead of tile t - 1's
+    // dK/dV products, whose run overlaps tile t's softmax; tile t - 1's
+    // stage is released once they are done, so the ring runs kStages - 2
+    // tiles ahead. The first tile is peeled off, so that every wait of
+    // the loop covers the same groups.
+    sm90::mbar_wait(full0, 0);
+    sm90::wgmma_fence();
+    issue_s(0);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(st);
+    if constexpr (kDK) sm90::fence_regs(dpt);
+    softmax(t0, 0);
+    make_frags();
+    for (int t = t0 + 1; t < nt; ++t) {
+      const int i = t - t0;
+      const int s = i % kStages;
+      const int s_prev = (i + kStages - 1) % kStages;
+      sm90::mbar_wait(full0 + 8 * s, (i / kStages) & 1);
+      fence_acc();
+      sm90::wgmma_fence();
+      issue_s(s);
+      issue_dkv(s_prev);
+      if (loader && t + kStages - 2 < nt) load_q(t + kStages - 2);
+      __syncwarp();
+      sm90::wgmma_wait<1>();
+      sm90::fence_regs(st);
+      if constexpr (kDK) sm90::fence_regs(dpt);
+      softmax(t, s);
+      sm90::wgmma_wait<0>();
+      fence_acc();
+      sm90::mbar_arrive(empty0 + 8 * s_prev);
+      make_frags();
+    }
+    fence_acc();
+    sm90::wgmma_fence();
+    issue_dkv((nt - 1 - t0) % kStages);
+    sm90::wgmma_wait<0>();
+    fence_acc();
+  }
+
+  // epilogue: dK * scale and dV in T (a masked key's rows are exact zeros)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key0 + 8 * h;
+    if (key >= Sk) continue;
+    const size_t row = ((size_t)bh * Sk + key) * D + col_off;
+#pragma unroll
+    for (int n = 0; n < kNH; ++n) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const size_t c = row + 128 * n + 8 * j;
+        if constexpr (kDK) {
+          const float* a = acc[kNO - 1][n];
+          *reinterpret_cast<uint32_t*>(dk + c) = sm90::pack2<T>(
+              a[4 * j + 2 * h] * sm_scale, a[4 * j + 2 * h + 1] * sm_scale);
+        }
+        if constexpr (kDV) {
+          const float* a = acc[0][n];
+          *reinterpret_cast<uint32_t*>(dv + c) =
+              sm90::pack2<T>(a[4 * j + 2 * h], a[4 * j + 2 * h + 1]);
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(DkvCfg<D>::kThreads, 1)
+flash_bwd_dkv_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        const __grid_constant__ CUtensorMap tm_do,
+                        const int* __restrict__ kv_mask,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, T* __restrict__ dk,
+                        T* __restrict__ dv, int H, int Sq, int Sk, int causal,
+                        float sm_scale, float scale_log2, int dropout,
+                        uint32_t threshold, float inv_keep, uint32_t seed) {
+#define DS_DKV_FORM(...)                                                     \
+  __VA_ARGS__(tm_q, tm_k, tm_v, tm_do, kv_mask, lse, delta, dk, dv, H, Sq, \
+              Sk, causal, sm_scale, scale_log2, dropout, threshold,        \
+              inv_keep, seed)
+  if constexpr (DkvCfg<D>::kProducer) {
+    DS_DKV_FORM(dkv_producer_form<T, D>);
+  } else if constexpr (DkvCfg<D>::kPasses == 1) {
+    DS_DKV_FORM(dkv_consumers_form<T, D, kOutDV | kOutDK>);
+  } else if (blockIdx.z == 0) {
+    DS_DKV_FORM(dkv_consumers_form<T, D, kOutDK>);
+  } else {
+    DS_DKV_FORM(dkv_consumers_form<T, D, kOutDV>);
+  }
+#undef DS_DKV_FORM
+}
+
 template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v,
                const int* kv_mask, const void* dout, const float* lse,
@@ -623,23 +1023,24 @@ int launch_dkv(const void* q, const void* k, const void* v,
                int Sk, int dtype, int causal, float sm_scale, int dropout,
                uint32_t threshold, float keep, uint32_t seed,
                cudaStream_t stream) {
-  constexpr int kBQ = Layout<D>::kBQ;
+  using C = DkvCfg<D>;
+  using L = Layout<D>;
   CUtensorMap tq, tk, tv, tdo;
-  int err = sm90::make_map(&tq, q, dtype, B * H, Sq, D, kBQ);
-  if (err == 0) err = sm90::make_map(&tdo, dout, dtype, B * H, Sq, D, kBQ);
+  int err = sm90::make_map(&tq, q, dtype, B * H, Sq, D, C::kBQ);
+  if (err == 0) err = sm90::make_map(&tdo, dout, dtype, B * H, Sq, D, C::kBQ);
   if (err == 0) err = sm90::make_map(&tk, k, dtype, B * H, Sk, D, kBN);
   if (err == 0) err = sm90::make_map(&tv, v, dtype, B * H, Sk, D, kBN);
   if (err != 0) return err;
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel_tc<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<D>::kBytes);
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid(B * H, (Sk + kBN - 1) / kBN);
-  flash_bwd_dkv_kernel_tc<T, D>
-      <<<grid, kThreads, Layout<D>::kBytes, stream>>>(
-          tq, tk, tv, tdo, kv_mask, lse, delta, static_cast<T*>(dk),
-          static_cast<T*>(dv), H, Sq, Sk, causal, sm_scale,
-          sm_scale * kLog2e, dropout, threshold, 1.f / keep, seed);
+  // dK and dV, or (two passes) dK in blockIdx.z 0 and dV in 1
+  const dim3 grid(B * H, (Sk + kBN - 1) / kBN, C::kPasses);
+  flash_bwd_dkv_kernel_tc<T, D><<<grid, C::kThreads, L::kBytes, stream>>>(
+      tq, tk, tv, tdo, kv_mask, lse, delta, static_cast<T*>(dk),
+      static_cast<T*>(dv), H, Sq, Sk, causal, sm_scale, sm_scale * kLog2e,
+      dropout, threshold, 1.f / keep, seed);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1000,9 +1401,9 @@ extern "C" int ds_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (dtype == 2 && D == 256) DS_FLASH_DQ_TC(__half, 256);
 #undef DS_FLASH_DQ_TC
 #define DS_FLASH_DQ_FMA(DIM, BK, G)                                           \
-  return launch_dq<float, DIM, BK, G>(q, k, v, kv_mask, dout, lse, delta, dq, \
-                                      B, H, Sq, Sk, causal, sm_scale,         \
-                                      dropout, threshold, keep, seed, s)
+  return launch_dq<DIM, BK, G>(q, k, v, kv_mask, dout, lse, delta, dq, B, H, \
+                               Sq, Sk, causal, sm_scale, dropout, threshold,  \
+                               keep, seed, s)
   if (dtype == 0 && D == 64) DS_FLASH_DQ_FMA(64, 64, 4);
   if (dtype == 0 && D == 128) DS_FLASH_DQ_FMA(128, 32, 4);
   if (dtype == 0 && D == 256) DS_FLASH_DQ_FMA(256, 16, 8);
@@ -1011,7 +1412,7 @@ extern "C" int ds_flash_bwd_dq(const void* q, const void* k, const void* v,
 }
 
 // dK/dV: float32 on the FMA kernel, bfloat16 and float16 on the
-// tensor-core kernel at D = 64 and 128 and on the FMA kernel at D = 256.
+// tensor-core kernel.
 extern "C" int ds_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 const int* kv_mask, const void* dout,
                                 const float* lse, const float* delta, void* dk,
@@ -1029,27 +1430,18 @@ extern "C" int ds_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 threshold, keep, seed, s)
   if (dtype == 1 && D == 64) DS_FLASH_DKV_TC(__nv_bfloat16, 64);
   if (dtype == 1 && D == 128) DS_FLASH_DKV_TC(__nv_bfloat16, 128);
+  if (dtype == 1 && D == 256) DS_FLASH_DKV_TC(__nv_bfloat16, 256);
   if (dtype == 2 && D == 64) DS_FLASH_DKV_TC(__half, 64);
   if (dtype == 2 && D == 128) DS_FLASH_DKV_TC(__half, 128);
+  if (dtype == 2 && D == 256) DS_FLASH_DKV_TC(__half, 256);
 #undef DS_FLASH_DKV_TC
-  if (dtype == 0 && D == 64) {
-    return launch_dkv<float, 64, 64, 4>(q, k, v, kv_mask, dout, lse, delta, dk,
-                                        dv, B, H, Sq, Sk, causal, sm_scale,
-                                        dropout, threshold, keep, seed, s);
-  }
-  if (dtype == 0 && D == 128) {
-    return launch_dkv<float, 128, 32, 4>(q, k, v, kv_mask, dout, lse, delta,
-                                         dk, dv, B, H, Sq, Sk, causal,
-                                         sm_scale, dropout, threshold, keep,
-                                         seed, s);
-  }
-#define DS_FLASH_DKV_256(T)                                                 \
-  return launch_dkv<T, 256, 16, 8>(q, k, v, kv_mask, dout, lse, delta, dk,  \
-                                   dv, B, H, Sq, Sk, causal, sm_scale,      \
-                                   dropout, threshold, keep, seed, s)
-  if (D == 256 && dtype == 0) DS_FLASH_DKV_256(float);
-  if (D == 256 && dtype == 1) DS_FLASH_DKV_256(__nv_bfloat16);
-  if (D == 256 && dtype == 2) DS_FLASH_DKV_256(__half);
-#undef DS_FLASH_DKV_256
+#define DS_FLASH_DKV_FMA(DIM, BQ, G)                                           \
+  return launch_dkv<DIM, BQ, G>(q, k, v, kv_mask, dout, lse, delta, dk, dv, B, \
+                                H, Sq, Sk, causal, sm_scale, dropout,         \
+                                threshold, keep, seed, s)
+  if (dtype == 0 && D == 64) DS_FLASH_DKV_FMA(64, 64, 4);
+  if (dtype == 0 && D == 128) DS_FLASH_DKV_FMA(128, 32, 4);
+  if (dtype == 0 && D == 256) DS_FLASH_DKV_FMA(256, 16, 8);
+#undef DS_FLASH_DKV_FMA
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -10,9 +10,8 @@ csrc/flash_bwd.cu), bound through ctypes (ops/kernel_lib.py), under a
 ``torch.autograd.Function``. The C entry points route by dtype and head
 dim (:func:`flash_route`): bfloat16 and float16 take the tensor-core
 forward, dQ and dK/dV kernels (wgmma + TMA, which need 16-byte-aligned
-operands), except dK/dV at head dim 256, which takes the FMA kernel;
-float32 takes the FMA kernels (the tensor cores take float32 only as
-TF32).
+operands) at every compiled head dim; float32 takes the FMA kernels (the
+tensor cores take float32 only as TF32).
 
 Entry points:
   - ``mha_reference``: plain attention over an additive mask (the
@@ -62,14 +61,13 @@ def flash_route(dtype, d, kernel):
     """The route csrc/flash_fwd.cu and csrc/flash_bwd.cu take for
     ``kernel`` ("fwd", "dq" or "dkv") at compiled head dim ``d``:
     ``"wgmma"`` (the tensor-core kernel: wgmma + TMA, which needs
-    16-byte-aligned operands) or ``"fma"``. float32 takes the FMA kernels
-    (the tensor cores take float32 only as TF32); so does dK/dV at
-    D = 256, in every dtype."""
+    16-byte-aligned operands) or ``"fma"``. Only float32 takes the FMA
+    kernels (the tensor cores take float32 only as TF32)."""
     if kernel not in ("fwd", "dq", "dkv"):
         raise ValueError(f"kernel must be fwd, dq or dkv, got {kernel!r}")
     if d not in FLASH_HEAD_DIMS:
         raise ValueError(f"no flash kernel is compiled at head dim {d}")
-    if dtype == torch.float32 or (kernel == "dkv" and d == 256):
+    if dtype == torch.float32:
         return "fma"
     return "wgmma"
 

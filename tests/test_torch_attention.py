@@ -400,9 +400,9 @@ def test_kernel_head_dim_widths():
 
 
 def test_flash_route_table():
-    """bfloat16/float16 run the tensor-core (wgmma + TMA) forward and dQ at
-    every compiled width and dK/dV at 64 and 128; dK/dV at 256 and every
-    float32 kernel run on the FMA units."""
+    """bfloat16/float16 run the tensor-core (wgmma + TMA) forward, dQ and
+    dK/dV at every compiled width; only the float32 kernels run on the FMA
+    units."""
     table = {
         (dtype, d, kernel): tattn.flash_route(dtype, d, kernel)
         for dtype in (torch.float32, torch.bfloat16, torch.float16)
@@ -410,10 +410,8 @@ def test_flash_route_table():
         for kernel in ("fwd", "dq", "dkv")
     }
     fma = {key for key, route in table.items() if route == "fma"}
-    assert fma == (
-        {(torch.float32, d, k) for d in (64, 128, 256)
-         for k in ("fwd", "dq", "dkv")}
-        | {(torch.bfloat16, 256, "dkv"), (torch.float16, 256, "dkv")})
+    assert fma == {(torch.float32, d, k) for d in (64, 128, 256)
+                   for k in ("fwd", "dq", "dkv")}
     assert set(table.values()) == {"fma", "wgmma"}
     with pytest.raises(ValueError, match="head dim"):
         tattn.flash_route(torch.bfloat16, 192, "fwd")
@@ -494,10 +492,11 @@ def test_check_head_dim_takes_129_to_256_on_cuda(head_dim):
         check_head_dim(257, 1024, "cuda")
 
 
-@pytest.mark.parametrize("d", [160, 192])
+@pytest.mark.parametrize("d", [160, 192, 256])
 @pytest.mark.parametrize("causal,with_mask", [(True, False), (False, True)])
 def test_head_dims_above_128_match_jax_kernel(d, causal, with_mask):
-    """Head dims the card now runs at D = 256: the JAX flash kernel
+    """Head dims the card runs at D = 256, and 256 itself (the kernels' own
+    width, where pad_head_dim pads nothing): the JAX flash kernel
     (interpret mode) against the port's function on CPU tensors and the
     padded path the CUDA wrappers take, forward and gradients. float32,
     1e-5."""

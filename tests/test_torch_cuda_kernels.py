@@ -5,10 +5,11 @@ at run time). On the card run
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py
 
 bfloat16 and float16 run the tensor-core forward, dQ and dK/dV kernels
-(wgmma + TMA; at D = 256 dK/dV is the FMA kernel), float32 the FMA
-kernels. The D = 256 tensor-core cases alone:
+(wgmma + TMA) at every compiled width, float32 the FMA kernels. The D = 256
+tensor-core cases alone, and the dK/dV cases:
 
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py -k 256
+    python -m pytest -m cuda tests/test_torch_cuda_kernels.py -k dkv
 
 Tolerances as in chip_smoke.py: float32 atol = rtol = 1e-4 (another
 summation order), bfloat16 atol = rtol = 1e-2 (p and the output rounded
@@ -407,10 +408,45 @@ def test_d256_tensor_core_forward_and_dq_match_plain(cuda, dtype, d, sq, sk,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [128, 192, 256])
+@pytest.mark.parametrize("sq,sk", [(200, 328), (333, 200), (1000, 1000)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_tensor_core_dkv_matches_plain(cuda, dtype, d, sq, sk, causal,
+                                       masked, rate):
+    """bfloat16/float16 dK/dV at D = 128 (256-thread blocks, dK and dV in
+    one pass) and D = 256 (two passes; d = 192 zero-padded to it): one
+    launch, against the plain version at the scaled tolerances. (200, 328)
+    puts the causal diagonal 128 keys right, (333, 200) leaves rows that
+    see no key, and no length is a multiple of the 32-query or 128-key
+    tiles; the mask drops the second half of batch row 0's keys and every
+    key of row 1, whose dK and dV rows stay exact zeros."""
+    q, k, v, dout, kv_mask = _attention_case(cuda, dtype, d, sq, sk, masked,
+                                             31)
+    ref, lse = flash_fwd_plain(q, k, v, kv_mask, causal, None, rate, 17)
+    delta = (dout.float() * ref.float()).sum(dim=-1)
+    args = (q, k, v, kv_mask, dout, lse, delta, causal, None, rate, 17)
+    before = flash_bwd_dkv.launches
+    dk, dv = flash_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    assert flash_bwd_dkv.launches == before + 1
+    assert dk.shape == k.shape and dv.shape == v.shape
+    want_k, want_v = flash_bwd_dkv_plain(*args)
+    _close(dk, want_k, dtype, scaled=True)
+    _close(dv, want_v, dtype, scaled=True)
+    if masked:
+        for grad in (dk, dv):
+            assert bool((grad[1] == 0).all())
+            assert bool((grad[0, :, sk // 2:] == 0).all())
+
+
+@pytest.mark.cuda
 def test_tma_alignment_check_follows_the_route(cuda):
-    """At D = 256 the bfloat16 forward and dQ load by TMA and refuse a view
-    that starts 2 bytes into its storage; dK/dV there is the FMA kernel,
-    which takes it."""
+    """At D = 256 the bfloat16 forward, dQ and dK/dV load by TMA and refuse
+    a view that starts 2 bytes into its storage; float32 takes the FMA
+    kernels, which take a view 4 bytes in."""
     n = 1 * 2 * 256 * 256
     flat = torch.randn(n + 1, device=cuda).to(torch.bfloat16)
     x = flat[1:].view(1, 2, 256, 256)
@@ -421,11 +457,21 @@ def test_tma_alignment_check_follows_the_route(cuda):
         flash_fwd(x, x, x)
     with pytest.raises(ValueError, match="16-byte"):
         flash_bwd_dq(*args)
-    dk, dv = flash_bwd_dkv(*args)
-    want = flash_bwd_dkv_plain(*args)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_bwd_dkv(*args)
+    flat32 = torch.randn(4 * n + 1, device=cuda)
+    q, k, v, dout = (flat32[1 + i * n:1 + (i + 1) * n].view(1, 2, 256, 256)
+                     for i in range(4))
+    assert q.is_contiguous() and q.data_ptr() % 16
+    out, lse32 = flash_fwd(q, k, v, None, True)
+    delta = (dout * out).sum(dim=-1)
+    fargs = (q, k, v, None, dout, lse32, delta, True)
+    got = (flash_bwd_dq(*fargs), *flash_bwd_dkv(*fargs))
     torch.cuda.synchronize()
-    _close(dk, want[0], torch.bfloat16, scaled=True)
-    _close(dv, want[1], torch.bfloat16, scaled=True)
+    _close(out, flash_fwd_plain(q, k, v, None, True)[0], torch.float32)
+    want = (flash_bwd_dq_plain(*fargs), *flash_bwd_dkv_plain(*fargs))
+    for g, w in zip(got, want):
+        _close(g, w, torch.float32, scaled=True)
 
 
 @pytest.mark.cuda
@@ -434,7 +480,7 @@ def test_tma_alignment_check_follows_the_route(cuda):
 def test_tensor_core_kernels_are_bitwise_repeatable(cuda, dtype, d):
     """The tensor-core forward, dQ and dK/dV kernels use no atomics: two
     launches on the same inputs give the same out, lse, dQ, dK and dV bit
-    for bit (at D = 256 dK/dV is the FMA kernel, which uses none either)."""
+    for bit, at D = 256 too (dK/dV's two passes, one output each)."""
     q, k, v, dout, kv_mask = _attention_case(cuda, dtype, d, 1000, 1000,
                                              True, 6)
     fargs = (q, k, v, kv_mask, True, None, 0.1, 11)
