@@ -9,7 +9,8 @@ and its checks and timings of phase 3 (through the public wrapper only),
 so that a copy of this script placed at the root of another checkout of
 the repo (an older commit) times that checkout's kernel the same way.
 ``--only-flash`` does the same for the three flash kernels (bf16, causal)
-at D = 64, 128 and 256, with ptxas's registers and spills.
+at D = 64, 128 and 256, and the float32 (FMA) forward at the same shapes,
+with ptxas's registers and spills.
 ``--only-kernels`` does the same for LAMB phase 1 and SGMV: their timings
 of phases 3b and 3c (both SGMV forms where the checkout has the epilogue
 form), the wrappers' host microseconds a call and the kernel launches of
@@ -24,7 +25,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                in each kernel's SASS (cuobjdump -sass); fails unless the
                tensor-core forward, dQ and dK/dV have 6 bfloat16/float16
                instantiations each (D = 64, 128, 256), every one holding
-               both, or if ptxas spilled in dK/dV at D = 128 or 256. Then
+               both, or if ptxas spilled in the forward, dQ or dK/dV at
+               D = 128 or in dK/dV at D = 256. Then
                torch.profiler's kernel names show which kernel a D = 256
                call launches: bf16/fp16 the tensor-core kernels, float32
                the FMA ones (ops/attention.py:flash_route).
@@ -118,16 +120,17 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                8, 12, 40 and 72
                (rows that are not whole 16-byte chunks), against their
                plain versions, with their times; then GPT-2s of 768 over
-               24 heads (head dim 32) and 4 heads (head dim 192), cut to
-               2 layers, through one training micro-step (each attention
-               kernel launched once a layer; float32 gradients through
-               the kernels equal the plain versions', and at head dim 192
-               bfloat16 ones too, within the scaled tolerance per
-               parameter, both paths reported against float32 gradients
-               of the same weights) and serving (a
+               24 heads (head dim 32), 4 heads (head dim 192) and 6 heads
+               (head dim 128, the D = 128 kernels' first engine path), cut
+               to 2 layers, through one training micro-step (each
+               attention kernel launched once a layer; float32 gradients
+               through the kernels equal the plain versions', and at head
+               dims 128 and 192 bfloat16 ones too, within the scaled
+               tolerance per parameter, both paths reported against
+               float32 gradients of the same weights) and serving (a
                300-token cold prefill through the flash forward; fused
-               decode at head dim 32, float32 fused == unfused; the
-               gathered decode at 192, above the paged decode kernel's
+               decode at head dims 32 and 128, float32 fused == unfused;
+               the gathered decode at 192, above the paged decode kernel's
                128), and 768 over 96 heads (head dim 8) served with fused
                decode through the tail path (float32 fused == unfused);
                the first token the full forward's argmax each time.
@@ -287,24 +290,49 @@ TC_KERNELS = {"flash_fwd": {"flash_fwd_kernel_tc": 2 * 3},
               "flash_bwd": {"flash_bwd_dkv_kernel_tc": 2 * 3,
                             "flash_bwd_dq_kernel_tc": 2 * 3}}
 # the tensor-core instantiations whose ptxas report must show no spill
-# (mangled-name fragments: dK/dV at D = 128 and 256)
-NO_SPILL = {"flash_bwd": ("flash_bwd_dkv_kernel_tcI13__nv_bfloat16Li128E",
+# (mangled-name fragments: the forward, dQ and dK/dV at D = 128, dK/dV at
+# D = 256)
+NO_SPILL = {"flash_fwd": ("flash_fwd_kernel_tcI13__nv_bfloat16Li128E",
+                          "flash_fwd_kernel_tcI6__halfLi128E"),
+            "flash_bwd": ("flash_bwd_dq_kernel_tcI13__nv_bfloat16Li128E",
+                          "flash_bwd_dq_kernel_tcI6__halfLi128E",
+                          "flash_bwd_dkv_kernel_tcI13__nv_bfloat16Li128E",
                           "flash_bwd_dkv_kernel_tcI6__halfLi128E",
                           "flash_bwd_dkv_kernel_tcI13__nv_bfloat16Li256E",
                           "flash_bwd_dkv_kernel_tcI6__halfLi256E")}
 # each redesigned kernel's Timer reading at these shapes before its
-# redesign (the FMA attention kernels, at D = 64 and at D = 256; dK/dV at
-# D = 128 in the 384-thread tensor-core block that spilled; paged decode
-# with one block per (head, slot); H100 80GB HBM3, 700 W; PERF.md),
-# printed beside this run's readings, not part of the kernels line
+# redesign (the FMA attention kernels, at D = 64 and at D = 256; the
+# forward, dQ and dK/dV at D = 128 in the 384-thread tensor-core block,
+# D128_BEFORE_FORM, which dQ keeps; paged decode with one block per (head,
+# slot); H100 80GB HBM3, 700 W; PERF.md), printed beside this run's
+# readings, not part of the kernels line
 FMA_BEFORE_MS = {"flash_fwd": 2.204, "flash_fwd serve": 0.3129,
                  "flash_bwd_dkv": 3.075, "flash_bwd_dq": 2.065,
                  "flash_fwd d256": 2.281, "flash_bwd_dq d256": 4.746,
                  "flash_bwd_dkv d256": 3.659, "flash_bwd_dkv d128": 0.2419,
+                 "flash_fwd d128": 0.1155, "flash_bwd_dq d128": 0.09935,
                  "paged_decode": 0.07853}
+# the form each D = 128 reading of FMA_BEFORE_MS was taken of
+D128_BEFORE_FORM = {
+    "flash_fwd": "the 384-thread kernel with a producer warpgroup, which "
+                 "spilled 232 bytes",
+    "flash_bwd_dq": "the same 384-thread kernel with a producer "
+                    "warpgroup as now, 168 registers, no spill: no "
+                    "256-thread form beat it by more than 1%",
+    "flash_bwd_dkv": "the 384-thread kernel with a producer warpgroup, "
+                     "which spilled 856 bytes"}
 ROUTE = {"flash_fwd": "wgmma+tma (bf16, fp16); FMA (float32)",
          "flash_bwd_dq": "wgmma+tma (bf16, fp16); FMA (float32)",
          "flash_bwd_dkv": "wgmma+tma (bf16, fp16); FMA (float32)",
+         "flash_fwd d128": "wgmma+tma (bf16, fp16; 128-key tiles, three "
+                           "stages, no producer warpgroup); FMA (float32)",
+         "flash_bwd_dq d128": "wgmma+tma (bf16, fp16; 64-key tiles, two "
+                              "stages, a producer warpgroup: the D = 64 "
+                              "form); FMA (float32)",
+         "flash_bwd_dkv d128": "wgmma+tma (bf16, fp16; 32-query tiles, "
+                               "four stages, tile t's S^T and dP^T ahead "
+                               "of tile t - 1's dK/dV products, no "
+                               "producer warpgroup); FMA (float32)",
          "flash_fwd d256": "wgmma+tma (bf16, fp16; 64-key tiles, no "
                            "producer warpgroup); FMA (float32)",
          "flash_bwd_dq d256": "wgmma+tma (bf16, fp16; 32-key tiles, no "
@@ -2089,7 +2117,7 @@ def phase_adapters(seed, card):
 # ---------------------------------------------------------------------------
 HD_FLASH = (32, 48, 96)       # 768 over 24, 16 and 8 heads
 HD_WIDE = (192, 256)          # the D = 256 kernels (192 zero-padded)
-HD_DECODE = (16, 32, 48, 80, 96, 112)
+HD_DECODE = (16, 32, 48, 80, 96, 112, 128)
 HD_TAIL = (8, 12, 40, 72)     # rows that are not whole 16-byte chunks
 HD32_LAYERS = 2               # the head-dim GPT-2s of phase 7, cut in depth
 
@@ -2334,10 +2362,12 @@ def check_wide_routes(device):
 
 
 def check_flash_d128(device, gen, timer):
-    """The tensor-core kernels at D = 128 (ROADMAP B5): bf16, B=8 H=6
-    S=1024 D=128 causal (GPT-2 small's width over 6 heads), each kernel
-    once against its plain version, then the times of time_flash.
-    Returns {kernel: entry}."""
+    """The tensor-core kernels at D = 128 (the forward and dK/dV in
+    256-thread blocks, dQ in the 384-thread one of D = 64): bf16, B=8
+    H=6 S=1024 D=128 causal (GPT-2 small's width over 6 heads, the hd-128
+    model's attention at micro-batch 8), each kernel once against its
+    plain version, then the times of time_flash. Returns {kernel:
+    entry}."""
     from deepspeed_tpu_torch.ops import attention as A
 
     b, h, s, d = FLASH_SHAPES["d128"]
@@ -2367,19 +2397,19 @@ def check_flash_d128(device, gen, timer):
         before = FMA_BEFORE_MS.get(f"{name} d128")
         if before is not None:
             log(f"  {name} d=128: ms {entry['ms']:.4f}, device_ms "
-                f"{entry['device_ms']:.4f}; before_ms {before} (the "
-                "384-thread kernel, which spilled)")
+                f"{entry['device_ms']:.4f}; before_ms {before} "
+                f"({D128_BEFORE_FORM[name]})")
     del q, k, v, dout
     torch.cuda.empty_cache()
     return out
 
 
 def check_decode_head_dims(device, gen, timer):
-    """Paged decode at hd 16, 32, 48, 80, 96 and 112, and at the tails 8,
-    12, 40 and 72 (rows that are not whole 16-byte chunks), against its
-    plain version at the bench shape's layout (8 slots x 12 heads,
-    16-token pages, 64 pages a slot, a dead slot, a NULL page
-    mid-table), float32 and bfloat16, 10 calls bitwise equal; then its
+    """Paged decode at hd 16, 32, 48, 80, 96, 112 and 128 (the hd-128
+    model's serving width), and at the tails 8, 12, 40 and 72 (rows that
+    are not whole 16-byte chunks), against its plain version at the
+    bench shape's layout (8 slots x 12 heads, 16-token pages, 64 pages a
+    slot, a dead slot, a NULL page mid-table), float32 and bfloat16, 10 calls bitwise equal; then its
     times in both dtypes, and the bf16 plain version's. Returns
     {hd: entry}."""
     from deepspeed_tpu_torch.ops.decode_attention import (
@@ -2481,7 +2511,9 @@ def hd_serve(seed, n_head, fused):
     cold prefill through the flash forward, a 40-token prompt; with
     ``fused``, decode through paged decode), then in float32: with
     ``fused``, fused == unfused greedy tokens; the first token the full
-    forward's argmax. Returns (launches, stats)."""
+    forward's argmax. Last, the flash forward on bf16 tensors at the two
+    prompts' shapes, causal, against its plain version. Returns
+    (launches, stats)."""
     from deepspeed_tpu_torch import GPT2LMHeadModel
 
     hd = 768 // n_head
@@ -2517,18 +2549,34 @@ def hd_serve(seed, n_head, fused):
              "argmax")
     log(f"  float32{' fused == unfused;' if fused else ''} first token == "
         "full-forward argmax")
+    # the flash forward at the shapes the bf16 prefills gave it, against
+    # its plain version (outside the counted run)
+    from deepspeed_tpu_torch.ops import attention as A
+
+    gq = torch.Generator(device="cuda").manual_seed(seed + 6)
+    err = 0.0
+    for n in (300, 40):
+        q, k, v = (torch.randn(1, n_head, n, hd, device="cuda", generator=gq)
+                   .to(torch.bfloat16) for _ in range(3))
+        o, _ = A.flash_fwd(q, k, v, None, True)
+        torch.cuda.synchronize()
+        err = max(err, check_close(
+            f"flash_fwd hd={hd} B=1 H={n_head} S={n} bf16 causal", o,
+            A.flash_fwd_plain(q, k, v, None, True)[0], torch.bfloat16))
+    st["prefill_flash_fwd_max_abs_err"] = err
     return launches, st
 
 
 def phase_head_dims(seed, card):
-    """Phase 7: the kernels at head dims other than 64 and 128, then
-    GPT-2s of GPT-2 small's widths cut to HD32_LAYERS layers: 24 heads
-    (head dim 32) and 4 heads (head dim 192, the D = 256 kernels) through
-    one training micro-step (the flash forward and backward launched once
-    a layer; float32 gradients through the kernels equal to those through
-    the plain versions, and at head dim 192 bfloat16 ones, the tensor-core
-    route) and serving (a cold prefill of 300 tokens through
-    the flash forward; fused decode at head dim 32, the gathered decode at
+    """Phase 7: the kernels at head dims other than 64, then GPT-2s of
+    GPT-2 small's widths cut to HD32_LAYERS layers: 24 heads (head dim
+    32), 4 heads (head dim 192, the D = 256 kernels) and 6 heads (head dim
+    128, the D = 128 kernels unpadded) through one training micro-step
+    (the flash forward and backward launched once a layer; float32
+    gradients through the kernels equal to those through the plain
+    versions, and at head dims 128 and 192 bfloat16 ones, the tensor-core
+    route) and serving (a cold prefill of 300 tokens through the flash
+    forward; fused decode at head dims 32 and 128, the gathered decode at
     192, which the paged decode kernel does not take); and 96 heads (head
     dim 8, the decode kernel's tail path) served with fused decode, float32
     fused == unfused. Returns (launches by path, stats)."""
@@ -2547,14 +2595,14 @@ def phase_head_dims(seed, card):
 
     launches, stats = {}, {}
     for n_head, train, fused in ((24, True, True), (4, True, False),
-                                 (96, False, True)):
+                                 (6, True, True), (96, False, True)):
         hd = 768 // n_head
         if train:
             log(f"phase 7: GPT-2 768 / {n_head} heads (hd {hd}, "
                 f"{HD32_LAYERS} layers), one training micro-step, bf16, "
                 "dropout 0.1")
             launches[f"hd{hd}_train"], loss, err = hd_train(
-                seed, n_head, bf16_grads=hd > 128)
+                seed, n_head, bf16_grads=hd >= 128)
             stats[f"hd{hd}_loss"] = loss
             for dt, e in err.items():
                 stats[f"hd{hd}_{dt}_grad_max_rel_err"] = e
@@ -2563,6 +2611,8 @@ def phase_head_dims(seed, card):
         launches[f"hd{hd}_serve"], st = hd_serve(seed, n_head, fused)
         stats[f"hd{hd}_decode_steps"] = st["decode_steps"]
         stats[f"hd{hd}_cold_prefills"] = st["cold_prefills"]
+        stats[f"hd{hd}_prefill_flash_fwd_max_abs_err"] = st[
+            "prefill_flash_fwd_max_abs_err"]
     return launches, dict(stats, flash=flash, flash_wide=wide,
                           flash_d128=d128,
                           paged_decode=decode)
@@ -2980,9 +3030,11 @@ def cold_build_telemetry(seed, card):
 def only_flash(device, seed):
     """``--only-flash``: the flash kernels built alone (ptxas's registers
     and spills printed) and timed as time_flash times them (bf16, causal,
-    dropout 0) at D = 64, 128 and 256, through the public wrappers only,
-    so that a copy of this script at the root of another checkout times
-    that checkout's kernels the same way."""
+    dropout 0) at D = 64, 128 and 256, and the float32 forward (the FMA
+    kernel) at the same shapes, through the public wrappers only, so that
+    a copy of this script at the root of another checkout times that
+    checkout's kernels the same way."""
+    from deepspeed_tpu_torch.ops import attention as A
     from deepspeed_tpu_torch.ops import kernel_lib
 
     built = kernel_lib.build(["flash_fwd", "flash_bwd"])
@@ -2999,10 +3051,16 @@ def only_flash(device, seed):
                          .to(torch.bfloat16) for _ in range(4))
         out[tag] = time_flash(timer, q, k, v, dout,
                               f"B={b} H={h} S={s} D={d} causal bf16")
+        q32, k32, v32 = (t.float() for t in (q, k, v))
+        call = lambda: A.flash_fwd(q32, k32, v32, None, True)
+        out[tag]["flash_fwd f32"] = dict(
+            shape=f"B={b} H={h} S={s} D={d} causal float32",
+            ms=timer.ms(call, iters=10),
+            device_ms=timer.ms(call, iters=10, spin=True))
         for name, entry in out[tag].items():
             log(f"  {name} {tag}: device_ms {entry['device_ms']:.5f} "
                 f"ms {entry['ms']:.5f}")
-        del q, k, v, dout
+        del q, k, v, dout, q32, k32, v32
         torch.cuda.empty_cache()
     return out
 
@@ -3105,7 +3163,8 @@ def main():
                     or "entry function" in line):
                 log(f"    {line.strip()}")
     phase_sass()
-    log("phase 2: ptxas registers and spills of dK/dV at D = 128 and 256")
+    log("phase 2: ptxas registers and spills of the forward, dQ and dK/dV "
+        "at D = 128 and of dK/dV at D = 256")
     check_spills()
     log("phase 2: the kernel each D = 256 call launches (torch.profiler)")
     routes = check_wide_routes(device)
@@ -3144,14 +3203,22 @@ def main():
     kernels["paged_decode"]["head_dims"] = {
         hd: e for hd, e in hd_stats["paged_decode"].items()
         if hd not in HD_TAIL}
-    # the D = 256 instantiations (head dims 129-256) and paged decode's
-    # tail path (head dims that are not whole 16-byte rows), each with the
-    # launches of the phase 7 paths that run them; the D = 128 tensor-core
-    # timings ride their kernels' entries (no main path runs D = 128)
+    # the D = 128 instantiations (head dims 65-128), the D = 256 ones
+    # (129-256) and paged decode's tail path (head dims that are not whole
+    # 16-byte rows), each with the launches of the phase 7 paths that run
+    # them
     for name, src, tpu, which in (
             ("flash_fwd", FLASH_SOURCE, FLASH_TPU, "fwd"),
             ("flash_bwd_dq", BWD_SOURCE, DQ_TPU, "dq"),
             ("flash_bwd_dkv", BWD_SOURCE, DKV_TPU, "dkv")):
+        by_path = {p: hd_launches[p][name]
+                   for p in ("hd128_train", "hd128_serve")}
+        kernels[f"{name} d128"] = dict(
+            name=f"{name} d128", route="cuda",
+            route_detail=ROUTE[f"{name} d128"] + " (head dims 65-128)",
+            source=src, replaces=tpu, tpu_kernel=tpu,
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            **hd_stats["flash_d128"][name])
         by_path = {p: hd_launches[p][name]
                    for p in ("hd192_train", "hd192_serve")}
         kernels[f"{name} d256"] = dict(
@@ -3163,7 +3230,6 @@ def main():
             launches=sum(by_path.values()), launches_by_path=by_path,
             **hd_stats["flash_wide"][256][name],
             d192=hd_stats["flash_wide"][192][name])
-        kernels[name]["d128"] = hd_stats["flash_d128"][name]
     tail = hd_stats["paged_decode"]
     kernels["paged_decode tail"] = dict(
         name="paged_decode tail", route="cuda",

@@ -45,16 +45,19 @@
 // folded into one FMA, the special-function unit's ex2); lse is converted
 // back to natural-log units at the edge.
 //
-// The tiles depend on the head dim (tc::Cfg): at D = 64 and 128, 128-key
-// tiles in a three-stage ring fed by a third, producer warpgroup, whose
-// registers go to the consumers (setmaxnreg 24 / 240). At D = 256 a
-// thread's O is 128 float32 registers, S of a 64-key tile 32 more and P
-// of the previous tile 16, which a 384-thread block (168 registers a
-// thread at compile time) cannot hold; so the block has no producer
-// warpgroup (256 threads, up to 255 registers each), consumer thread 0
-// issues the loads, the tiles hold 64 keys in a two-stage ring (Q 64 KB
-// + 2 x (32 + 32) KB), and O += P V runs as two 128-column products a k16
-// step.
+// The tiles depend on the head dim (tc::Cfg): at D = 64, 128-key tiles in
+// a three-stage ring fed by a third, producer warpgroup, whose registers
+// go to the consumers (setmaxnreg 24 / 240). A 384-thread block gets 168
+// registers a thread at compile time, whatever setmaxnreg gives at run
+// time: at D = 128 a thread's O (64 float32 registers), S of a 128-key
+// tile (64) and P of the previous tile (32) spilled there and serialised
+// the wgmmas. So at D = 128 and 256 the block has no producer warpgroup
+// (256 threads, up to 255 registers each) and consumer thread 0 issues
+// the loads right after its warpgroup's products. D = 128 keeps 128-key
+// tiles in a three-stage ring (Q 32 KB + 3 x (32 + 32) KB; two stages and
+// 64-key tiles each ran about 10% slower). At D = 256 O alone is 128
+// registers, so the tiles hold 64 keys in a two-stage ring (Q 64 KB + 2 x
+// (32 + 32) KB), and O += P V runs as two 128-column products a k16 step.
 //
 // float32 — flash_fwd_kernel, the first (FMA) version, kept because the
 // tensor cores take float32 only as TF32 (about three digits), which would
@@ -63,9 +66,7 @@
 // loop walks the K/V tiles up to the causal diagonal, each staged once in
 // shared memory; four threads share a query row (eight at D = 256, each
 // holding 32 of its dims, with 16-key tiles: 32 KB of static shared
-// memory) and finish each dot product with warp shuffles. It is templated
-// on the storage type, which it loads as float32 and rounds p and the
-// output to; float32 is the one it is instantiated for.
+// memory) and finish each dot product with warp shuffles.
 //
 // Numerics follow the TPU kernel on both routes: scores, m, l and the
 // accumulator in float32; p is rounded to the input type before the value
@@ -92,16 +93,15 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr int kBQ = 32;  // query rows per block
 
-// The FMA kernel (float32). T: storage type (loaded as
-// float32, p and the output rounded to T); D: head dim; BK: keys per
-// staged tile; G: threads that share a query row (each holds D / G of its
-// dims). Shared memory is 2 * BK * D * 4 bytes = 32 KB for every
-// instantiation (BK = 64, 32, 16 at D = 64, 128, 256).
-template <typename T, int D, int BK, int G>
+// The FMA kernel (float32). D: head dim; BK: keys per staged tile; G:
+// threads that share a query row (each holds D / G of its dims). Shared
+// memory is 2 * BK * D * 4 bytes = 32 KB for every instantiation (BK = 64,
+// 32, 16 at D = 64, 128, 256).
+template <int D, int BK, int G>
 __global__ void __launch_bounds__(kBQ * G)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const int* __restrict__ kv_mask,
-                 T* __restrict__ out, float* __restrict__ lse, int H,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const int* __restrict__ kv_mask,
+                 float* __restrict__ out, float* __restrict__ lse, int H,
                  int Sq, int Sk, int causal, float sm_scale, int dropout,
                  uint32_t threshold, float keep, uint32_t seed) {
   constexpr int kThreads = kBQ * G;
@@ -122,9 +122,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const bool row_ok = qi < Sq;
   const int diag = Sk - Sq;
 
-  const T* qb = q + (size_t)bh * Sq * D;
-  const T* kb = k + (size_t)bh * Sk * D;
-  const T* vb = v + (size_t)bh * Sk * D;
+  const float* qb = q + (size_t)bh * Sq * D;
+  const float* kb = k + (size_t)bh * Sk * D;
+  const float* vb = v + (size_t)bh * Sk * D;
 
   // the thread's dims: float4 chunks c = g + G * i, i < kChunks (the G
   // threads of a row read 16 * G contiguous floats of a K/V row)
@@ -134,7 +134,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int d = 4 * (g + G * i) + e;
-      qr[4 * i + e] = row_ok ? sm90::to_f32(qb[(size_t)qi * D + d]) : 0.f;
+      qr[4 * i + e] = row_ok ? qb[(size_t)qi * D + d] : 0.f;
     }
   }
   float acc[kDPT];
@@ -162,8 +162,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int kj = k0 + r;
       float kx = 0.f, vx = 0.f;
       if (kj < Sk) {
-        kx = sm90::to_f32(kb[(size_t)kj * D + c]);
-        vx = sm90::to_f32(vb[(size_t)kj * D + c]);
+        kx = kb[(size_t)kj * D + c];
+        vx = vb[(size_t)kj * D + c];
       }
       ks[r][c] = kx;
       vs[r][c] = vx;
@@ -209,12 +209,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // masked entries contribute exactly 0 (also when m_new is -1e30)
       const float p = s[j] > 0.5f * kNegInf ? expf(s[j] - m_new) : 0.f;
       l += p;
-      // the TPU kernel's where(keep, p / (1 - rate), 0), rounded to T
-      // before the value product (p.astype(v.dtype))
-      const float pu = sm90::round_to<T>(
-          !dropout ? p
-          : dropout_keep(row_key, k0 + j, threshold) ? p / keep
-                                                     : 0.f);
+      // the TPU kernel's where(keep, p / (1 - rate), 0)
+      const float pu = !dropout                                  ? p
+                       : dropout_keep(row_key, k0 + j, threshold) ? p / keep
+                                                                  : 0.f;
       const float4* vr = reinterpret_cast<const float4*>(&vs[j][0]);
 #pragma unroll
       for (int i = 0; i < kChunks; ++i) {
@@ -230,28 +228,28 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (row_ok) {
     const float ld = (l == 0.f) ? 1.f : l;  // no visible key -> zeros
-    T* orow = out + ((size_t)bh * Sq + qi) * D;
+    float* orow = out + ((size_t)bh * Sq + qi) * D;
 #pragma unroll
     for (int i = 0; i < kChunks; ++i) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        orow[4 * (g + G * i) + e] = sm90::from_f32<T>(acc[4 * i + e] / ld);
+        orow[4 * (g + G * i) + e] = acc[4 * i + e] / ld;
       }
     }
     if (g == 0) lse[(size_t)bh * Sq + qi] = m + logf(ld);
   }
 }
 
-template <typename T, int D, int BK, int G>
+template <int D, int BK, int G>
 int launch(const void* q, const void* k, const void* v, const int* kv_mask,
            void* out, float* lse, int B, int H, int Sq, int Sk, int causal,
            float sm_scale, int dropout, uint32_t threshold, float keep,
            uint32_t seed, cudaStream_t stream) {
   const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
-  flash_fwd_kernel<T, D, BK, G><<<grid, kBQ * G, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), kv_mask, static_cast<T*>(out), lse, H, Sq,
-      Sk, causal, sm_scale, dropout, threshold, keep, seed);
+  flash_fwd_kernel<D, BK, G><<<grid, kBQ * G, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), kv_mask, static_cast<float*>(out), lse,
+      H, Sq, Sk, causal, sm_scale, dropout, threshold, keep, seed);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -267,21 +265,31 @@ constexpr int kConsumers = 256;  // two warpgroups of 64 rows
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// The tiles by head dim. D = 64 and 128: 128-key K/V tiles in a
-// three-stage ring, fed by a producer warpgroup whose registers go to the
-// consumers (a 384-thread block). D = 256: one K or V tile of 128 keys is
-// 64 KB, and O alone is 128 float32 registers a thread, past the 168 that
-// ptxas gives a 384-thread block; so 64-key tiles in a two-stage ring (Q
-// 64 KB + 2 x (32 + 32) KB = 192 KB) and no producer warpgroup (256
-// threads, up to 255 registers each): consumer thread 0 issues the TMA
-// loads right after its warpgroup has issued its products, so a wait for
-// the other warpgroup to release a stage overlaps its own wgmma.
+// The tiles by head dim. D = 64: 128-key K/V tiles in a three-stage ring,
+// fed by a producer warpgroup whose registers go to the consumers (a
+// 384-thread block). D = 128: O, S and P (64 + 64 + 32 float32 registers
+// a thread) spilled past the 168 that ptxas gives a 384-thread block; so
+// no producer warpgroup (256 threads, up to 255 registers each): consumer
+// thread 0 issues the TMA loads right after its warpgroup has issued its
+// products, so a wait for the other warpgroup to release a stage overlaps
+// its own wgmma. 128-key tiles in a three-stage ring (Q 32 KB + 3 x
+// (32 + 32) KB = 224 KB), so the loader runs two tiles ahead. D = 256: one
+// K or V tile of 128 keys is 64 KB,
+// and O alone is 128 registers; so 64-key tiles in a two-stage ring (Q
+// 64 KB + 2 x (32 + 32) KB = 192 KB), no producer warpgroup either.
 template <int D>
 struct Cfg {
   static constexpr int kBN = 128;  // keys a K/V tile holds
   static constexpr int kStages = 3;
   static constexpr bool kProducer = true;
   static constexpr int kThreads = kConsumers + 128;
+};
+template <>
+struct Cfg<128> {
+  static constexpr int kBN = 128;
+  static constexpr int kStages = 3;
+  static constexpr bool kProducer = false;
+  static constexpr int kThreads = kConsumers;
 };
 template <>
 struct Cfg<256> {
@@ -394,8 +402,10 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
     sm90::setmaxnreg_inc<240>();
   } else if (tid == 0 && ntiles > 0) {
     load_q();
-    load_k(0);
-    load_v(0);
+    for (int j = 0; j < kStages - 1 && j < ntiles; ++j) {
+      load_k(j);
+      load_v(j);
+    }
   }
   // the consumer thread that issues the ring's loads (none where a
   // producer warpgroup does)
@@ -520,15 +530,16 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
   // Software pipeline within the warpgroup: S of tile t is issued with
   // P V of tile t - 1, and the softmax of tile t runs while that P V is
   // on the tensor cores. Without a producer, the loader refills the ring
-  // right after the issue: K of tile t + 1 into the stage K of t - 1 left,
-  // V of tile t into the stage V of t - 2 left (both released in the
-  // previous step), so each load has a step to land.
+  // right after the issue: K of tile t + kStages - 1 into the stage K of
+  // t - 1 left, V of tile t + kStages - 2 into the stage V of t - 2 left
+  // (both released in the previous step), so each load has kStages - 1
+  // steps to land.
   if (ntiles > 0) {
     sm90::mbar_wait(q_full, 0);
     sm90::mbar_wait(k_full0, 0);
     sm90::wgmma_fence();
     issue_s(0);
-    if (loader && ntiles > 1) load_k(1);
+    if (loader && kStages - 1 < ntiles) load_k(kStages - 1);
     __syncwarp();
     sm90::wgmma_wait<0>();
     sm90::fence_regs(sc);
@@ -547,8 +558,8 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
     issue_s(t);
     issue_pv(t - 1);
     if (loader) {
-      if (t + 1 < ntiles) load_k(t + 1);
-      load_v(t);
+      if (t + kStages - 1 < ntiles) load_k(t + kStages - 1);
+      if (t + kStages - 2 < ntiles) load_v(t + kStages - 2);
     }
     __syncwarp();
     sm90::wgmma_wait<1>();  // S of tile t is done
@@ -652,10 +663,10 @@ extern "C" int ds_flash_fwd(const void* q, const void* k, const void* v,
   if (dtype == 2 && D == 128) DS_FLASH_FWD_TC(__half, 128);
   if (dtype == 2 && D == 256) DS_FLASH_FWD_TC(__half, 256);
 #undef DS_FLASH_FWD_TC
-#define DS_FLASH_FWD_FMA(DIM, BK, G)                                         \
-  return launch<float, DIM, BK, G>(q, k, v, kv_mask, out, lse, B, H, Sq, Sk, \
-                                   causal, sm_scale, dropout, threshold,     \
-                                   keep, seed, s)
+#define DS_FLASH_FWD_FMA(DIM, BK, G)                                  \
+  return launch<DIM, BK, G>(q, k, v, kv_mask, out, lse, B, H, Sq, Sk, \
+                            causal, sm_scale, dropout, threshold, keep, \
+                            seed, s)
   if (dtype == 0 && D == 64) DS_FLASH_FWD_FMA(64, 64, 4);
   if (dtype == 0 && D == 128) DS_FLASH_FWD_FMA(128, 32, 4);
   if (dtype == 0 && D == 256) DS_FLASH_FWD_FMA(256, 16, 8);

@@ -210,31 +210,6 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
-// one value of the FMA kernels' storage type T (float32, bfloat16 or
-// float16) as float32, and back with round-to-nearest-even
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <>
-__device__ __forceinline__ __half from_f32<__half>(float x) {
-  return __float2half(x);
-}
-// x rounded to T (the plain versions' .to(dtype).float())
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
-
 // two floats as one register of the 16-bit type T (the lower column low)
 template <typename T>
 __device__ __forceinline__ uint32_t pack2(float lo, float hi);

@@ -492,14 +492,10 @@ def test_check_head_dim_takes_129_to_256_on_cuda(head_dim):
         check_head_dim(257, 1024, "cuda")
 
 
-@pytest.mark.parametrize("d", [160, 192, 256])
-@pytest.mark.parametrize("causal,with_mask", [(True, False), (False, True)])
-def test_head_dims_above_128_match_jax_kernel(d, causal, with_mask):
-    """Head dims the card runs at D = 256, and 256 itself (the kernels' own
-    width, where pad_head_dim pads nothing): the JAX flash kernel
-    (interpret mode) against the port's function on CPU tensors and the
-    padded path the CUDA wrappers take, forward and gradients. float32,
-    1e-5."""
+def _check_head_dim_vs_jax(d, causal, with_mask):
+    """The JAX flash kernel (interpret mode) against the port's function on
+    CPU tensors and the padded path the CUDA wrappers take (pad_head_dim),
+    forward and the three gradients, at head dim ``d``. float32, 1e-5."""
     b, h, s = 1, 2, 256
     q, k, v = _qkv(40 + d, b, h, s, s, d)
     mask = _padding_mask(b, s, [200]) if with_mask else None
@@ -534,3 +530,20 @@ def test_head_dims_above_128_match_jax_kernel(d, causal, with_mask):
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     for got, ref in zip((dq, dk, dv), want):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("d", [160, 192, 256])
+@pytest.mark.parametrize("causal,with_mask", [(True, False), (False, True)])
+def test_head_dims_above_128_match_jax_kernel(d, causal, with_mask):
+    """Head dims the card runs at D = 256, and 256 itself (the kernels' own
+    width, where pad_head_dim pads nothing)."""
+    _check_head_dim_vs_jax(d, causal, with_mask)
+
+
+@pytest.mark.parametrize("d", [96, 128])
+@pytest.mark.parametrize("causal,with_mask", [(True, False), (False, True)])
+def test_head_dims_65_to_128_match_jax_kernel(d, causal, with_mask):
+    """Head dims the card runs at D = 128 (the tensor-core forward in a
+    256-thread block), and 128 itself, where pad_head_dim pads
+    nothing."""
+    _check_head_dim_vs_jax(d, causal, with_mask)

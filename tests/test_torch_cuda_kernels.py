@@ -11,6 +11,12 @@ tensor-core cases alone, and the dK/dV cases:
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py -k 256
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py -k dkv
 
+The forward and dQ at D = 128 and 256 (d = 96 and 192 zero-padded to
+them):
+
+    python -m pytest -m cuda tests/test_torch_cuda_kernels.py \
+        -k "d256_tensor_core_forward_and_dq"
+
 Tolerances as in chip_smoke.py: float32 atol = rtol = 1e-4 (another
 summation order), bfloat16 atol = rtol = 1e-2 (p and the output rounded
 to bfloat16 at different points of the online softmax; rtol 1e-2 covers
@@ -372,18 +378,21 @@ def test_flash_kernels_take_padded_head_dims(cuda, dtype, d, sq, sk, causal,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [192, 256])
-@pytest.mark.parametrize("sq,sk", [(200, 328), (333, 200)])
+@pytest.mark.parametrize("d", [96, 128, 192, 256])
+@pytest.mark.parametrize("sq,sk", [(200, 328), (333, 200), (1000, 1000)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_d256_tensor_core_forward_and_dq_match_plain(cuda, dtype, d, sq, sk,
                                                      causal, masked, rate):
-    """bfloat16/float16 at D = 256 (d = 192 zero-padded to it): the
-    tensor-core forward and dQ (64- and 32-key tiles, no producer
-    warpgroup), one launch each, against their plain versions at the
-    tolerances of D = 64 and 128. Sq != Sk with ragged last tiles; (333,
-    200) leaves rows that see no key, which stay exact zeros."""
+    """bfloat16/float16 at D = 128 (d = 96 zero-padded to it: the forward
+    in a 256-thread block with 128-key tiles, dQ in the 384-thread block
+    of D = 64) and D = 256 (d = 192 zero-padded to it: 256-thread blocks,
+    64- and 32-key tiles): the tensor-core forward and dQ, one launch
+    each, against their plain versions at the tolerances of D = 64.
+    Sq != Sk with ragged last tiles: (200, 328) puts the causal diagonal
+    128 keys right, (333, 200) leaves rows that see no key, which stay
+    exact zeros, and (1000, 1000) is not a multiple of any tile."""
     q, k, v, dout, kv_mask = _attention_case(cuda, dtype, d, sq, sk, masked,
                                              21)
     fargs = (q, k, v, kv_mask, causal, None, rate, 13)
@@ -480,7 +489,9 @@ def test_tma_alignment_check_follows_the_route(cuda):
 def test_tensor_core_kernels_are_bitwise_repeatable(cuda, dtype, d):
     """The tensor-core forward, dQ and dK/dV kernels use no atomics: two
     launches on the same inputs give the same out, lse, dQ, dK and dV bit
-    for bit, at D = 256 too (dK/dV's two passes, one output each)."""
+    for bit, in every form: the 384-thread one at D = 64 (and dQ's at
+    128), the 256-thread ones at D = 128 and 256 (dK/dV's two passes at
+    256, one output each)."""
     q, k, v, dout, kv_mask = _attention_case(cuda, dtype, d, 1000, 1000,
                                              True, 6)
     fargs = (q, k, v, kv_mask, True, None, 0.1, 11)
