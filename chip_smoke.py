@@ -188,11 +188,49 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                their moments); load_adapter(load_dir=) decodes what
                load_adapter(adapter_state=) does, 48 SGMV launches a
                decode step, and a rank-8 pool refuses it.
+  11. data and remat — GPT-2 small at full width and depth with phase
+               5's training config (bf16, 8 x 2 micro-batches of 1024,
+               dropout 0.1, WarmupLR), its data synthetic token ids from
+               --seed passed to initialize() as training_data. (a) The
+               data_pipeline block (2 staging buffers: the engine's stager
+               over the loader's pinned batches, copied on a copy stream)
+               against the same loader's windows fed as lists, 7 windows
+               of Adam a run, in the order lists, staged, staged, lists:
+               losses, parameters and the seed generator equal bit for
+               bit; the step ms (median of windows 5-7 of both runs) and
+               the device's idle share over profiled windows 2-3 for
+               both; the stager's copy stream must not be the compute
+               stream, and the staged runs' Chrome traces must show no
+               host-to-device copy on the compute stream. In window 4 of
+               each staged run a spin kernel holds the compute stream
+               for about a second, and the copy of the window staged
+               meanwhile must finish while it is still held (the copy
+               runs on the copy stream, overlapping compute). Then the
+               same at one micro-batch a window (6 windows, lists then
+               staged), where the loader stages its own batches and
+               train_batch adds no stager: bit for bit, the step ms, and
+               the same probe on the loader's stager in window 3. (b)
+               Remat off,
+               "full" and
+               "dots_with_no_batch_dims_saveable+flash_out+flash_lse", 4
+               windows of FusedLamb a run, in the order off, full,
+               selective, selective, full, off: the peak memory (reset
+               before each), the step ms, the launches (the forward
+               12, 24 and 12 per micro-step, dQ and dK/dV 12), the losses
+               equal to remat off's bit for bit and the peak under "full"
+               below remat off's; then one float32 micro-step under each
+               remat mode, its gradients through the kernels against the
+               plain versions' (as phase 5). (c) A supervised staged run of
+               the phase 10 float-weighted GPT-2 fed by the loader through
+               a ReplayableDataSource (loader.iter_from), checkpointed after
+               window 2: grads.nan in window 3 and then one staging.worker
+               death each roll it back, and its losses, parameters and seed
+               generator equal an unpoisoned run's bit for bit.
   9. report  — a JSON line of per-kernel numbers (the D = 256 and decode
                tail variants in entries of their own; the launches of
-               every path, phase 10's included), the nvidia-smi line, then
-               the last line {"ok": true, "device": {...}}. It comes after
-               phase 10.
+               every path, phases 10 and 11 included), the nvidia-smi
+               line, then the last line {"ok": true, "device": {...}}. It
+               comes after phase 11.
 
 ``--cold-telemetry`` runs one telemetry-on training run whose first
 window builds the kernels in an empty build directory under a 5 s
@@ -3568,6 +3606,532 @@ def res_lora(seed, root, windows, launches):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the data path and remat
+# ---------------------------------------------------------------------------
+DATA_WINDOWS = 7
+LOADER_WINDOWS = 6
+# the spin kernel that holds the compute stream in the copy-overlap probe:
+# about a second at the H100's clock, far longer than staging a window
+HOLD_CYCLES = 2_000_000_000
+REMAT_WINDOWS = 4
+REMAT_SPECS = {"off": None, "full": "full",
+               "selective": "dots_with_no_batch_dims_saveable+flash_out"
+                            "+flash_lse"}
+# forward launches a layer per micro-step under each remat mode: "full"
+# runs the forward kernel again in the backward's recompute, the selective
+# spec keeps its out and lse
+REMAT_FWD_PER_LAYER = {"off": 1, "full": 2, "selective": 1}
+
+
+def data_arrays(seed, vocab, rows, weighted=False):
+    """``rows`` synthetic sequences of 1024 token ids from ``seed`` as the
+    arrays of a dataset: (ids, labels), and a float weight of ones with
+    ``weighted``."""
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, vocab, (rows, 1024), generator=g)
+    out = (ids.numpy(), ids.numpy().copy())
+    if weighted:
+        out += (torch.ones(rows).numpy(),)
+    return out
+
+
+def data_engine(seed, data, staged, optimizer="Adam", lr=1e-4, model=None,
+                resilience=None, accum=2):
+    """initialize() with ``training_data``: GPT-2 small, phase 5's config
+    (bf16, 8 x ``accum`` micro-batches of 1024, dropout 0.1, WarmupLR), and
+    the data_pipeline block (2 staging buffers) when ``staged``. Returns the
+    engine and its loader."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
+
+    if model is None:
+        model = GPT2LMHeadModel(GPT2Config.small(dropout=DROPOUT),
+                                device="cuda", seed=seed)
+    config = train_config(optimizer, lr, BF16)
+    config.update(train_batch_size=8 * accum,
+                  gradient_accumulation_steps=accum)
+    if staged:
+        config["data_pipeline"] = {"enabled": True, "staging_buffers": 2}
+    if resilience:
+        config["resilience"] = {"retry": {"backoff_base": 0.01},
+                                **resilience}
+    engine, _, loader, _ = deepspeed_tpu_torch.initialize(
+        model=model, config_params=config, training_data=data,
+        rng_seed=seed)
+    return engine, loader
+
+
+def htod_streams(path):
+    """The host-to-device copies of a torch.profiler Chrome trace by
+    stream (the trace's tid), and the stream the flash forward ran on."""
+    by_stream, compute = {}, set()
+    for e in trace_events(path):
+        name = str(e.get("name", ""))
+        if "Memcpy HtoD" in name:
+            tid = str(e.get("tid"))
+            by_stream[tid] = by_stream.get(tid, 0) + 1
+        elif "flash_fwd_kernel" in name and e.get("ph") == "X":
+            compute.add(str(e.get("tid")))
+    return by_stream, compute
+
+
+def profiled_windows(engine, source, trace_path, n=2):
+    """``n`` train_batch windows under torch.profiler: their losses, the
+    device breakdown over them (the idle share) and the Chrome trace
+    written to ``trace_path``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        losses = [float(engine.train_batch(source())) for _ in range(n)]
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    prof.export_chrome_trace(trace_path)
+    return losses, device_breakdown(prof, wall_ms)
+
+
+def copy_overlap_probe(stager_of, step):
+    """Runs ``step()`` (one train_batch window) with the compute stream
+    first held in a spin kernel (``torch.cuda._sleep``), while a probe
+    thread waits on the host for the first host-to-device copy that the
+    stager ``stager_of()`` issues after the hold was queued (the next
+    window, staged once ``step`` takes one). That copy finishing while the
+    compute stream is still held shows it ran on another stream,
+    overlapping the compute stream's work: a copy queued on the compute
+    stream would wait for the spin. Returns ``step()``'s result and the
+    probe's record; fails when the copy is not seen or waited for the
+    hold."""
+    import threading
+
+    stager = stager_of()
+    compute = torch.cuda.current_stream()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    held = torch.cuda.Event(enable_timing=True)
+    start.record(compute)
+    torch.cuda._sleep(HOLD_CYCLES)
+    held.record(compute)
+    before = list(stager._slot_events)
+    seen = {}
+    t0 = time.monotonic()
+
+    def probe():
+        try:
+            while True:
+                new = [e for e, b in zip(stager._slot_events, before)
+                       if e is not b and e is not None]
+                if new:
+                    break
+                if time.monotonic() - t0 > 30.0:
+                    seen["error"] = "no window was staged within 30 s"
+                    return
+                time.sleep(0.001)
+            new[0].synchronize()
+            seen["copy_done_ms"] = (time.monotonic() - t0) * 1e3
+            seen["compute_still_held"] = not held.query()
+        except Exception as e:  # reported by the main thread
+            seen["error"] = repr(e)
+
+    thread = threading.Thread(target=probe, daemon=True)
+    thread.start()
+    out = step()
+    thread.join(timeout=60.0)
+    torch.cuda.synchronize()
+    seen["hold_ms"] = start.elapsed_time(held)
+    log(f"  copy-overlap probe: {seen}")
+    if thread.is_alive() or "error" in seen:
+        fail(f"copy-overlap probe: {seen.get('error', 'probe thread hung')}")
+    if not seen["compute_still_held"]:
+        fail(f"copy-overlap probe: the staged copy finished only after the "
+             f"compute stream's {seen['hold_ms']:.1f} ms hold: {seen}")
+    return out, seen
+
+
+def engine_state(engine):
+    return ({n: p.detach().clone() for n, p in engine.params.items()},
+            engine._rng.get_state())
+
+
+def same_state(tag, got, want):
+    params_g, rng_g = got
+    params_w, rng_w = want
+    differ = [n for n in params_w if not torch.equal(params_g[n],
+                                                     params_w[n])]
+    log(f"  {tag}: {len(params_w) - len(differ)} of {len(params_w)} "
+        f"parameters equal, seed generator equal: "
+        f"{torch.equal(rng_g, rng_w)}")
+    if differ or not torch.equal(rng_g, rng_w):
+        fail(f"{tag}: parameters {differ[:4]} or the seed generator differ")
+
+
+def median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if len(xs) % 2 else (
+        xs[len(xs) // 2 - 1] + xs[len(xs) // 2]) / 2
+
+
+def data_run(seed, data, path, root, tag):
+    """One phase 11a run of ``path`` ("lists" or "staged"): its losses,
+    final state, launches, warm window times (windows 5 on), the profile
+    of windows 2-3 and, staged, the copy-overlap probe of window 4."""
+    staged = path == "staged"
+    engine, loader = data_engine(seed, data, staged)
+    it = iter(loader)
+
+    def source():
+        return it if staged else [next(it), next(it)]
+
+    zero_launches()
+    losses, secs, probe = [], [], None
+    trace = os.path.join(root, f"data_{tag}.json")
+    for w in range(DATA_WINDOWS - 1):  # w = 1 runs windows 2 and 3
+        if w == 1:
+            got, prof = profiled_windows(engine, source, trace)
+            losses += got
+            continue
+        if w == 2 and staged:
+            loss, probe = copy_overlap_probe(
+                lambda: engine._stager,
+                lambda: engine.train_batch(source()))
+            losses.append(float(loss))
+            continue
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        losses.append(float(engine.train_batch(source())))
+        torch.cuda.synchronize()
+        if w >= 3:
+            secs.append(time.monotonic() - t0)
+    launches = read_launches()
+    check_launches(f"phase 11a {tag}", launches, engine.micro_steps)
+    by_stream, compute = htod_streams(trace)
+    copy_stream = None
+    if engine._stager is not None:
+        copy_stream = engine._stager._copy_stream.stream_id
+        if copy_stream == torch.cuda.current_stream().stream_id:
+            fail("phase 11a: the stager copies on the compute stream")
+    run = {
+        "losses": losses, "state": engine_state(engine),
+        "launches": launches, "warm_window_s": secs,
+        "profile_device_idle_share": prof["device_idle_share"],
+        "profile_device_busy_ms": prof["device_busy_ms"],
+        "profile_wall_ms": prof["wall_ms"],
+        "htod_by_stream": by_stream, "compute_streams": sorted(compute),
+        "stager_used": engine._stager is not None,
+        "copy_stream_id": copy_stream, "copy_probe": probe,
+    }
+    log(f"  {tag}: losses {losses}; warm windows {secs} s; profiled "
+        f"windows 2-3 idle share {prof['device_idle_share']:.4f} (busy "
+        f"{prof['device_busy_ms']:.1f} of {prof['wall_ms']:.1f} ms); HtoD "
+        f"copies by stream {by_stream}, compute stream {sorted(compute)}")
+    engine.close_data_pipeline()
+    del engine, loader
+    torch.cuda.empty_cache()
+    return run
+
+
+def data_staged_vs_lists(seed, card, root):
+    """Phase 11a: the staged loader against the same windows as lists,
+    in the order lists, staged, staged, lists."""
+    from deepspeed_tpu_torch import GPT2Config
+
+    vocab = GPT2Config.small().vocab_size
+    data = data_arrays(seed + 11, vocab, 16 * DATA_WINDOWS)
+    runs = [data_run(seed, data, path, root, f"{path}{i}")
+            for i, path in enumerate(("lists", "staged", "staged",
+                                      "lists"))]
+    want = runs[0]
+    for i, r in enumerate(runs[1:], 1):
+        same_bits(f"phase 11a run {i} losses vs run 0", r["losses"],
+                  want["losses"])
+        same_state(f"phase 11a run {i} vs run 0", r["state"], want["state"])
+    out = {}
+    for path in ("lists", "staged"):
+        mine = [r for r in runs if (r["stager_used"] == (path == "staged"))]
+        if len(mine) != 2:
+            fail(f"phase 11a: {len(mine)} runs of {path} used the stager "
+                 "as asked, want 2")
+        secs = [s for r in mine for s in r["warm_window_s"]]
+        out[path] = {
+            "losses": want["losses"],
+            "launches": {k: sum(r["launches"][k] for r in mine)
+                         for k in mine[0]["launches"]},
+            "step_ms": median(secs) * 1e3,
+            "step_ms_by_run": [median(r["warm_window_s"]) * 1e3
+                               for r in mine],
+            "profile_device_idle_share": [
+                r["profile_device_idle_share"] for r in mine],
+            "profile_device_busy_ms": [r["profile_device_busy_ms"]
+                                       for r in mine],
+            "profile_wall_ms": [r["profile_wall_ms"] for r in mine],
+            "htod_by_stream": [r["htod_by_stream"] for r in mine],
+            "compute_streams": [r["compute_streams"] for r in mine],
+        }
+        log(f"  {path}: step {out[path]['step_ms']:.3f} ms (median of "
+            f"windows 5-{DATA_WINDOWS} of two runs; by run "
+            f"{out[path]['step_ms_by_run']}); idle share "
+            f"{out[path]['profile_device_idle_share']}; on {card}")
+    # the copy-overlap probe of each staged run shows the copies run on
+    # the copy stream beside the compute stream's work; the traces of
+    # windows 2-3 must show no host-to-device copy on the compute stream.
+    # The profiler does not hold every copy in every run (a list-path
+    # window has shown 2 of its 4, a staged one none), so the copies it
+    # shows on other streams are recorded, not counted on.
+    out["staged"]["copy_probe"] = [r["copy_probe"] for r in runs
+                                   if r["stager_used"]]
+    on_copy = 0
+    for r in runs:
+        if not r["stager_used"]:
+            continue
+        on_compute = sum(n for t, n in r["htod_by_stream"].items()
+                         if t in r["compute_streams"])
+        on_copy += sum(r["htod_by_stream"].values()) - on_compute
+        if len(r["compute_streams"]) != 1 or on_compute:
+            fail(f"phase 11a: the staged run copied host-to-device on the "
+                 f"compute stream {r['compute_streams']}: "
+                 f"{r['htod_by_stream']}")
+    out["staged"]["htod_seen_on_copy_stream"] = on_copy
+    log(f"  staged: {on_copy} host-to-device copies seen on the copy stream, "
+        "none on the compute stream")
+    return out
+
+
+def loader_run(seed, data, staged):
+    """One phase 11a run at one micro-batch a window: the loader staging
+    its own batches (the data_pipeline block) or its host batches fed as
+    lists. Its losses, final state, launches, warm window times (windows
+    4 on) and, staged, the copy-overlap probe of window 3 on the loader's
+    stager."""
+    engine, loader = data_engine(seed, data, staged, accum=1)
+    it = iter(loader)
+    zero_launches()
+    losses, secs, probe = [], [], None
+    for w in range(LOADER_WINDOWS):
+        if w == 2 and staged:
+            loss, probe = copy_overlap_probe(lambda: it.stager,
+                                             lambda: engine.train_batch(it))
+            losses.append(float(loss))
+            continue
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        losses.append(float(engine.train_batch(it if staged else [next(it)])))
+        torch.cuda.synchronize()
+        if w >= 3:
+            secs.append(time.monotonic() - t0)
+    launches = read_launches()
+    check_launches(f"phase 11a accum 1 {'staged' if staged else 'lists'}",
+                   launches, engine.micro_steps)
+    stager = getattr(it, "stager", None)
+    if (stager is not None) != staged or engine._stager is not None:
+        fail(f"phase 11a accum 1: the loader's stager {stager}, the "
+             f"engine's {engine._stager}; want only the loader's, staged")
+    state = engine_state(engine)
+    engine.close_data_pipeline()
+    if staged and not stager.closed:
+        fail("phase 11a accum 1: close_data_pipeline left the loader's "
+             "stager running")
+    log(f"  accum 1 {'staged' if staged else 'lists'}: losses {losses}; "
+        f"warm windows {secs} s")
+    del engine, loader, it
+    torch.cuda.empty_cache()
+    return {"losses": losses, "state": state, "launches": launches,
+            "step_ms": median(secs) * 1e3, "copy_probe": probe}
+
+
+def loader_staged_vs_lists(seed, card):
+    """Phase 11a at one micro-batch a window, where the loader stages its
+    own batches and train_batch adds no stager: equal bit for bit to the
+    same batches fed as lists."""
+    from deepspeed_tpu_torch import GPT2Config
+
+    data = data_arrays(seed + 13, GPT2Config.small().vocab_size,
+                       8 * LOADER_WINDOWS)
+    want = loader_run(seed, data, False)
+    got = loader_run(seed, data, True)
+    same_bits("phase 11a accum 1 staged losses vs lists", got["losses"],
+              want["losses"])
+    same_state("phase 11a accum 1 staged vs lists", got["state"],
+               want["state"])
+    out = {}
+    for path, r in (("lists", want), ("staged", got)):
+        out[path] = {k: r[k] for k in ("losses", "launches", "step_ms")}
+        log(f"  accum 1 {path}: step {r['step_ms']:.3f} ms (median of "
+            f"windows 4-{LOADER_WINDOWS}); on {card}")
+    out["staged"]["copy_probe"] = got["copy_probe"]
+    return out
+
+
+def remat_run(seed, micro, mode):
+    """One phase 11b run under remat ``mode``: 3 windows of FusedLamb;
+    its losses, peak memory, warm window times and launches."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
+
+    spec = REMAT_SPECS[mode]
+    kw = {} if spec is None else {"remat": True, "remat_policy": spec}
+    model = GPT2LMHeadModel(GPT2Config.small(dropout=DROPOUT, **kw),
+                            device="cuda", seed=seed)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=model, config_params=train_config("FusedLamb", 1e-3, BF16),
+        rng_seed=seed)
+    zero_launches()
+    losses, secs, _ = run_windows(engine, micro, REMAT_WINDOWS)
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_launches()
+    m = engine.micro_steps
+    want = {name: N_LAYER * m for name in TRAIN_KERNELS}
+    want["flash_fwd"] = N_LAYER * m * REMAT_FWD_PER_LAYER[mode]
+    want["lamb_phase1"] = 6 * engine.global_steps
+    want["paged_decode"] = want["sgmv"] = 0
+    log(f"  remat {mode}: losses {losses}; launches {launches}; peak "
+        f"{peak} bytes; windows {secs} s")
+    if launches != want:
+        fail(f"phase 11b remat {mode}: launches {launches} differ from "
+             f"{want}")
+    del engine, model
+    torch.cuda.empty_cache()
+    return {"losses": losses, "peak_bytes": peak, "warm_window_s": secs[1:],
+            "launches": launches,
+            "launches_per_micro_step": {k: v / m for k, v in launches.items()
+                                        if k in TRAIN_KERNELS}}
+
+
+def remat_runs(seed, card):
+    """Phase 11b: remat off, "full" and the selective spec, in the order
+    off, full, selective, selective, full, off."""
+    from deepspeed_tpu_torch import GPT2Config
+
+    micro = train_batches(seed, GPT2Config.small().vocab_size)
+    order = ("off", "full", "selective", "selective", "full", "off")
+    by_mode = {mode: [] for mode in REMAT_SPECS}
+    for mode in order:
+        by_mode[mode].append(remat_run(seed, micro, mode))
+    runs = {}
+    for mode, rs in by_mode.items():
+        secs = [s for r in rs for s in r["warm_window_s"]]
+        runs[mode] = {
+            "spec": REMAT_SPECS[mode], "losses": rs[0]["losses"],
+            "peak_bytes": [r["peak_bytes"] for r in rs],
+            "step_ms": median(secs) * 1e3,
+            "step_ms_by_run": [median(r["warm_window_s"]) * 1e3 for r in rs],
+            "launches": {k: sum(r["launches"][k] for r in rs)
+                         for k in rs[0]["launches"]},
+            "launches_per_micro_step": rs[0]["launches_per_micro_step"],
+        }
+        log(f"  remat {mode}: step {runs[mode]['step_ms']:.3f} ms (median "
+            f"of windows 2-{REMAT_WINDOWS} of two runs; by run "
+            f"{runs[mode]['step_ms_by_run']}); peak "
+            f"{runs[mode]['peak_bytes']} bytes; on {card}")
+        for r in rs:
+            same_bits(f"phase 11b remat {mode} losses vs off", r["losses"],
+                      by_mode["off"][0]["losses"])
+    if not max(runs["full"]["peak_bytes"]) < min(runs["off"]["peak_bytes"]):
+        fail(f"phase 11b: remat full peaks at {runs['full']['peak_bytes']} "
+             f"bytes, not below remat off's {runs['off']['peak_bytes']}")
+    for mode in ("full", "selective"):
+        log(f"phase 11b: one float32 micro-step under remat {mode}, "
+            "kernels vs plain")
+        cfg = GPT2Config.small(dropout=0.0, remat=True,
+                               remat_policy=REMAT_SPECS[mode])
+        f32, err = grads_kernels_vs_plain(seed, cfg)
+        want = {name: N_LAYER for name in TRAIN_KERNELS}
+        want["flash_fwd"] = N_LAYER * REMAT_FWD_PER_LAYER[mode]
+        want["lamb_phase1"] = want["paged_decode"] = want["sgmv"] = 0
+        if f32 != want:
+            fail(f"phase 11b float32 remat {mode}: launches {f32} differ "
+                 f"from {want}")
+        runs[mode]["f32_grad_max_rel_err"] = err
+        runs[mode]["f32_launches"] = f32
+    return runs
+
+
+def supervised_loader_runs(seed, card, root):
+    """Phase 11c: a supervised, staged run fed by the loader through a
+    ReplayableDataSource heals a poisoned window and a dead staging
+    worker, bit for bit."""
+    from deepspeed_tpu_torch import GPT2Config
+    from deepspeed_tpu_torch.resilience import ReplayableDataSource
+
+    cfg = GPT2Config.small(dropout=DROPOUT)
+    data = data_arrays(seed + 12, cfg.vocab_size, 16 * 5, weighted=True)
+    sup = {"supervisor": {"enabled": True, "nonfinite_window": 1}}
+
+    def run(faults):
+        model = weighted_gpt2_class()(cfg, device="cuda", seed=seed)
+        res = dict(sup)
+        if faults:
+            res["fault_injection"] = {"enabled": True, "faults": faults}
+        engine, loader = data_engine(seed, data, True, model=model,
+                                     resilience=res)
+        src = ReplayableDataSource(loader.iter_from)
+        losses = [float(engine.train_batch(src)) for _ in range(2)]
+        engine.save_checkpoint(os.path.join(root, "sup"))
+        losses += [float(engine.train_batch(src)) for _ in range(3)]
+        torch.cuda.synchronize()
+        snap = engine.resilience.registry.snapshot()
+        counts = {k: snap.get(f"resilience/{k}", 0)
+                  for k in ("rollbacks", "anomalies", "faults_injected")}
+        state = engine_state(engine)
+        engine.close_data_pipeline()
+        del engine, loader, model
+        torch.cuda.empty_cache()
+        shutil.rmtree(os.path.join(root, "sup"), ignore_errors=True)
+        return losses, counts, state
+
+    log("phase 11c: supervised staged run from the loader, unpoisoned")
+    want, _, want_state = run(None)
+    log("phase 11c: the same with grads.nan in window 3, then one "
+        "staging.worker death")
+    got, counts, got_state = run([
+        {"site": "grads.nan", "after": 2, "times": 1},
+        {"site": "staging.worker", "after": 5, "times": 1},
+    ])
+    log(f"  counters {counts}")
+    if counts["rollbacks"] != 2 or counts["faults_injected"] != 2:
+        fail(f"phase 11c: {counts}, want 2 rollbacks of 2 injected faults")
+    same_bits("phase 11c healed losses", got, want)
+    same_state("phase 11c healed run", got_state, want_state)
+    return {"losses": got, "counters": counts}
+
+
+def phase_data_remat(seed, card):
+    """Phase 11. The profiler traces and checkpoints go to one temporary
+    directory, deleted at the end."""
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="ds_data_remat_")
+    try:
+        log(f"phase 11a: the staged loader against the list path, "
+            f"{DATA_WINDOWS} windows of Adam")
+        data = data_staged_vs_lists(seed, card, root)
+        log(f"phase 11a: the loader staging its own batches at accum 1 "
+            f"against the list path, {LOADER_WINDOWS} windows of Adam")
+        loader = loader_staged_vs_lists(seed, card)
+        log(f"phase 11b: remat off, full and selective, {REMAT_WINDOWS} "
+            "windows of FusedLamb each, in the order off, full, selective, "
+            "selective, full, off")
+        remat = remat_runs(seed, card)
+        supervised = supervised_loader_runs(seed, card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {name: {} for name in launch_counters()}
+    for path, r in data.items():
+        for name, n in r["launches"].items():
+            launches[name][f"data_{path}"] = n
+    for path, r in loader.items():
+        for name, n in r["launches"].items():
+            launches[name][f"data_accum1_{path}"] = n
+    for mode, r in remat.items():
+        for name, n in r["launches"].items():
+            launches[name][f"remat_{mode}"] = n
+    return launches, {"card": card, "data": data, "data_accum1": loader,
+                      "remat": remat, "supervised": supervised}
+
+
 def only_flash(device, seed):
     """``--only-flash``: the flash kernels built alone (ptxas's registers
     and spills printed) and timed as time_flash times them (bf16, causal,
@@ -3719,11 +4283,14 @@ def main():
     hd_launches, hd_stats = phase_head_dims(args.seed, smi)
     tel_launches, tel_stats = phase_telemetry(args.seed, smi)
     res_launches, res_stats = phase_resilience(args.seed, smi)
+    data_launches, data_stats = phase_data_remat(args.seed, smi)
     for path, counts in [("serve", serve_launches),
                          *adapter_launches.items(), *hd_launches.items(),
                          *tel_launches.items(), *res_launches.items()]:
         for name, n in counts.items():
             launches[name][path] = n
+    for name, by_path in data_launches.items():
+        launches[name].update(by_path)
     for name, by_path in launches.items():
         kernels[name]["launches"] = sum(by_path.values())
         kernels[name]["launches_by_path"] = by_path
@@ -3786,6 +4353,7 @@ def main():
     log(json.dumps({"slice": slice_stats, "train": train_stats,
                     "adapters": adapter_stats, "card": smi,
                     "telemetry": tel_stats, "resilience": res_stats,
+                    "data_remat": data_stats,
                     "head_dims": {k: v for k, v in hd_stats.items()
                                   if k not in ("flash", "flash_wide",
                                                "flash_d128",

@@ -11,8 +11,12 @@ LR schedules, flash attention's backward and dropout), and multi-LoRA
 ``initialize``, and an adapter pool served through the SGMV kernel in
 ``init_inference``). Checkpoints and resilience (``resilience/``,
 ``runtime/checkpointing.py``) let a run on the card save, resume, heal
-and hand its weights or its adapter to a serving engine. The package
-imports ``torch`` and never ``jax`` or ``deepspeed_tpu``.
+and hand its weights or its adapter to a serving engine. The data path
+(``runtime/dataloader.py``, the staged loader of ``runtime/staging.py``
+on a copy stream) and activation checkpointing (GPT-2's ``remat``, the
+transformer's memory modes, ``checkpointing.py``) let it train from a
+dataset and trade recompute for memory. The package imports ``torch`` and
+never ``jax`` or ``deepspeed_tpu``.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``,
 which runs each kernel's plain PyTorch version instead.
@@ -22,12 +26,13 @@ from .config.config import DeepSpeedConfig, DeepSpeedConfigError
 from .convert import adapters_from_jax, params_from_jax
 from .inference.engine import InferenceEngine, init_inference
 from .models.gpt2 import GPT2Config, GPT2LMHeadModel
+from .runtime.dataloader import DeepSpeedDataLoader
 from .runtime.engine import DeepSpeedEngine, EngineOptimizerFacade
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                training_data=None, lr_scheduler=None, config_params=None,
-               mesh=None, rng_seed=0, device=None):
+               mesh=None, rng_seed=0, device=None, collate_fn=None):
     """Build a training engine; returns the reference's 4-tuple
     ``(engine, optimizer, training_dataloader, lr_scheduler)``.
 
@@ -36,21 +41,25 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     ``model_parameters`` is None or a state dict to load into it;
     ``config_params`` a config dict or JSON path (or ``args.
     deepspeed_config``). ``device`` defaults to ``"cuda"`` and raises
-    without a GPU. The dataloader is not ported, so the third element
-    is None."""
+    without a GPU. With ``training_data`` (a tuple of arrays, a map
+    dataset or an iterable of batches; ``collate_fn`` batches a map
+    dataset) the third element is a :class:`DeepSpeedDataLoader` of
+    micro-batches, else None."""
     engine = DeepSpeedEngine(
         model=model, optimizer=optimizer, model_parameters=model_parameters,
         training_data=training_data, lr_scheduler=lr_scheduler,
         config_params=config_params, mesh=mesh, rng_seed=rng_seed,
-        device=device, args=args,
+        device=device, args=args, collate_fn=collate_fn,
     )
-    return engine, EngineOptimizerFacade(engine), None, engine.lr_scheduler
+    return (engine, EngineOptimizerFacade(engine),
+            engine.training_dataloader, engine.lr_scheduler)
 
 
 __all__ = [
     "adapters_from_jax",
     "DeepSpeedConfig",
     "DeepSpeedConfigError",
+    "DeepSpeedDataLoader",
     "DeepSpeedEngine",
     "EngineOptimizerFacade",
     "GPT2Config",

@@ -1,5 +1,5 @@
 """Config parser for the port: the serving, training, adapters,
-observability and resilience blocks.
+observability, resilience and data-pipeline blocks.
 
 The ``inference`` block, the ``adapters`` block, the training blocks
 (the batch triangle, ``optimizer``, ``scheduler``, ``fp16``/``bf16``,
@@ -7,8 +7,9 @@ The ``inference`` block, the ``adapters`` block, the training blocks
 :class:`~.zero_config.DeepSpeedZeroConfig`, ``activation_checkpointing``,
 ``steps_per_print``, ``data_types``), the observability blocks
 (``tensorboard``, ``wall_clock_breakdown``, ``memory_breakdown``,
-``telemetry`` with its ``tracing`` sub-block) and the ``resilience`` block
-(with its ``fault_injection`` and ``supervisor`` sub-blocks) of the JAX package's
+``telemetry`` with its ``tracing`` sub-block), the ``resilience`` block
+(with its ``fault_injection`` and ``supervisor`` sub-blocks) and the
+``data_pipeline`` and ``compile_cache`` blocks of the JAX package's
 DeepSpeedConfig (deepspeed_tpu/config/config.py), with the same keys,
 defaults and rejections, error text included: a config the JAX package
 refuses, this one refuses too. The batch triangle is resolved only for a training
@@ -71,6 +72,7 @@ class DeepSpeedConfig:
             self._check_training()
         self._check_telemetry()
         self._check_resilience()
+        self._check_data_pipeline()
         self._check_inference()
         self._check_adapters()
         self._do_warning_check()
@@ -99,6 +101,7 @@ class DeepSpeedConfig:
         self._initialize_training(pd)
         self._initialize_observability(pd)
         self._initialize_resilience(pd)
+        self._initialize_data_pipeline(pd)
 
         # inference block (docs/inference.md)
         inf_dict = get_dict_param(pd, C.INFERENCE)
@@ -349,6 +352,37 @@ class DeepSpeedConfig:
             sup_dict,
             C.RESILIENCE_SUPERVISOR_MIN_HISTORY,
             C.RESILIENCE_SUPERVISOR_MIN_HISTORY_DEFAULT,
+        )
+
+    def _initialize_data_pipeline(self, pd):
+        """The ``data_pipeline`` block (runtime/staging.py) and the
+        ``compile_cache`` block (runtime/compile_cache.py), as the JAX
+        parser reads them."""
+        dp_dict = get_dict_param(pd, C.DATA_PIPELINE)
+        self.data_pipeline_enabled = get_scalar_param(
+            dp_dict, C.DATA_PIPELINE_ENABLED, C.DATA_PIPELINE_ENABLED_DEFAULT
+        )
+        self.data_pipeline_staging_buffers = get_scalar_param(
+            dp_dict,
+            C.DATA_PIPELINE_STAGING_BUFFERS,
+            C.DATA_PIPELINE_STAGING_BUFFERS_DEFAULT,
+        )
+        self.data_pipeline_stage_to_device = get_scalar_param(
+            dp_dict,
+            C.DATA_PIPELINE_STAGE_TO_DEVICE,
+            C.DATA_PIPELINE_STAGE_TO_DEVICE_DEFAULT,
+        )
+        cc_dict = get_dict_param(pd, C.COMPILE_CACHE)
+        self.compile_cache_enabled = get_scalar_param(
+            cc_dict, C.COMPILE_CACHE_ENABLED, C.COMPILE_CACHE_ENABLED_DEFAULT
+        )
+        self.compile_cache_dir = get_scalar_param(
+            cc_dict, C.COMPILE_CACHE_DIR, C.COMPILE_CACHE_DIR_DEFAULT
+        )
+        self.compile_cache_min_compile_time_secs = get_scalar_param(
+            cc_dict,
+            C.COMPILE_CACHE_MIN_COMPILE_SECS,
+            C.COMPILE_CACHE_MIN_COMPILE_SECS_DEFAULT,
         )
 
     def _initialize_observability(self, pd):
@@ -1143,6 +1177,49 @@ class DeepSpeedConfig:
                     f"page granularity (set {C.INFERENCE_KV_BLOCK_SIZE} "
                     f"> 0)"
                 )
+
+    def _check_data_pipeline(self):
+        """Validate the data_pipeline and compile_cache blocks: a typo'd
+        buffer count or cache threshold must fail at init, not as a
+        wedged staging thread / silently-disabled cache at step 1."""
+        for field, value in (
+            (f"{C.DATA_PIPELINE}.{C.DATA_PIPELINE_ENABLED}",
+             self.data_pipeline_enabled),
+            (f"{C.DATA_PIPELINE}.{C.DATA_PIPELINE_STAGE_TO_DEVICE}",
+             self.data_pipeline_stage_to_device),
+            (f"{C.COMPILE_CACHE}.{C.COMPILE_CACHE_ENABLED}",
+             self.compile_cache_enabled),
+        ):
+            if not isinstance(value, bool):
+                raise DeepSpeedConfigError(
+                    f"{field} must be a boolean, got {value!r}"
+                )
+        if (
+            not isinstance(self.data_pipeline_staging_buffers, int)
+            or isinstance(self.data_pipeline_staging_buffers, bool)
+            or self.data_pipeline_staging_buffers < 1
+        ):
+            raise DeepSpeedConfigError(
+                f"{C.DATA_PIPELINE}.{C.DATA_PIPELINE_STAGING_BUFFERS} must "
+                f"be an integer >= 1 (2 = double buffering), got "
+                f"{self.data_pipeline_staging_buffers!r}"
+            )
+        if not isinstance(self.compile_cache_dir, str):
+            raise DeepSpeedConfigError(
+                f"{C.COMPILE_CACHE}.{C.COMPILE_CACHE_DIR} must be a path "
+                f"string ('' for the default), got {self.compile_cache_dir!r}"
+            )
+        secs = self.compile_cache_min_compile_time_secs
+        if (
+            not isinstance(secs, (int, float))
+            or isinstance(secs, bool)
+            or secs < 0
+        ):
+            raise DeepSpeedConfigError(
+                f"{C.COMPILE_CACHE}.{C.COMPILE_CACHE_MIN_COMPILE_SECS} must "
+                f"be a number >= 0 seconds (0 caches everything), got "
+                f"{secs!r}"
+            )
 
     def _check_resilience(self):
         """Validate the resilience block (docs/resilience.md): a typo'd

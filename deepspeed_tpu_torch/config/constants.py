@@ -34,6 +34,10 @@ PORTED_OPTIMIZERS = (
     ADAM_OPTIMIZER, ADAMW_OPTIMIZER, LAMB_OPTIMIZER, *FUSED_LAMB_OPTIMIZERS,
 )
 
+# the data loader's routes (deepspeed_io): a train loader shuffles
+ROUTE_TRAIN = "train"
+ROUTE_EVAL = "eval"
+
 STEPS_PER_PRINT = "steps_per_print"
 STEPS_PER_PRINT_DEFAULT = 10
 
@@ -329,11 +333,34 @@ RESILIENCE_SUPERVISOR_SPIKE_WINDOW_DEFAULT = 32
 RESILIENCE_SUPERVISOR_MIN_HISTORY = "min_history"
 RESILIENCE_SUPERVISOR_MIN_HISTORY_DEFAULT = 8
 
-#############################################
-# Training blocks the port parses only to refuse them (not yet ported)
-#############################################
+# Overlapped input staging (deepspeed_tpu_torch/runtime/staging.py). While
+# window N computes on the card, a background worker pulls window N+1's
+# micro-batches, copies them into pinned host slots and issues their
+# host-to-device copies on a copy stream.
 DATA_PIPELINE = "data_pipeline"
+DATA_PIPELINE_ENABLED = "enabled"
+DATA_PIPELINE_ENABLED_DEFAULT = False
+# Max staged-but-unconsumed windows (2 = double buffering); also the number
+# of pinned host slots the copy stream reads from.
+DATA_PIPELINE_STAGING_BUFFERS = "staging_buffers"
+DATA_PIPELINE_STAGING_BUFFERS_DEFAULT = 2
+# Issue the host-to-device copy on the staging worker (true) or only
+# overlap the host pull and copy on the consuming thread (false).
+DATA_PIPELINE_STAGE_TO_DEVICE = "stage_to_device"
+DATA_PIPELINE_STAGE_TO_DEVICE_DEFAULT = True
+
+# The kernel build cache (deepspeed_tpu_torch/runtime/compile_cache.py):
+# where ops/kernel_lib.py keeps its nvcc libraries, so that a restart reuses
+# them. cache_dir "" => build/torch_kernels/ in the checkout.
 COMPILE_CACHE = "compile_cache"
+COMPILE_CACHE_ENABLED = "enabled"
+COMPILE_CACHE_ENABLED_DEFAULT = False
+COMPILE_CACHE_DIR = "cache_dir"
+COMPILE_CACHE_DIR_DEFAULT = ""
+# Validated as in the JAX package; no counterpart (every library is cached
+# whole).
+COMPILE_CACHE_MIN_COMPILE_SECS = "min_compile_time_secs"
+COMPILE_CACHE_MIN_COMPILE_SECS_DEFAULT = 1.0
 
 #############################################
 # Inference serving (deepspeed_tpu_torch/inference/, docs/inference.md): the

@@ -6,9 +6,11 @@ size presets, and a ``GPT2LMHeadModel`` whose forward is embeddings
 (ops/transformer.py; the JAX package scans a stacked layer) -> ``ln_f``
 -> the tied LM head, or with ``labels`` the scalar next-token loss
 through the blocked LM-head cross-entropy (ops/cross_entropy.py).
-``remat``, ``moe_experts`` and ``pipeline_stages`` are carried so that
-the training engine can refuse them (not ported); sparse gradients and
-ZeRO-3's gather seam are not ported. ``lora_rank > 0`` gives every block
+``remat`` (with ``remat_policy``) checkpoints every block as the JAX
+model does (ops/transformer.py: the layer config's memory mode).
+``moe_experts`` and ``pipeline_stages`` are carried so that the training
+engine can refuse them (not ported); sparse gradients and ZeRO-3's gather
+seam are not ported. ``lora_rank > 0`` gives every block
 LoRA factors (ops/transformer.py:apply_lora), which the training and
 eval forward apply; the training engine's ``adapters`` block arms it.
 """
@@ -48,9 +50,12 @@ class GPT2Config:
     # blocked LM-head cross-entropy: sequence positions per chunk of the
     # tied head (ops/cross_entropy.py); 0 computes the whole logits plane
     ce_block_rows: int = 512
+    # remat of every block in the backward (ops/transformer.py:
+    # resolve_remat_policy reads the policy)
+    remat: bool = False
+    remat_policy: str = "full"
     # JAX-package features the port does not have yet (the training
     # engine refuses a config that turns them on)
-    remat: bool = False
     moe_experts: int = 0
     pipeline_stages: int = 1
     # LoRA adapters (adapters/): rank-r A/B pairs beside the block's
@@ -94,6 +99,8 @@ class GPT2Config:
             initializer_range=self.initializer_range,
             pre_layer_norm=True,  # GPT-2 is pre-LN
             layer_norm_eps=self.layer_norm_eps,
+            normalize_invertible=self.remat,  # the JAX model's flag reuse
+            remat_policy=self.remat_policy,
             lora_rank=self.lora_rank,
             lora_alpha=self.lora_alpha,
             lora_targets=tuple(self.lora_targets),

@@ -551,6 +551,13 @@ def flash_attention(q, k, v, mask=None, kv_mask=None, causal=False,
     )
 
 
+def routes_to_flash(mask, sq, sk):
+    """Whether :func:`attention` takes the flash kernels: a padding mask
+    (or none) and ``max(sq, sk) >= FLASH_MIN_SEQ``."""
+    return ((mask is None or additive_mask_to_kv_valid(mask) is not None)
+            and max(sq, sk) >= FLASH_MIN_SEQ)
+
+
 def attention(q, k, v, mask=None, causal=False, sm_scale=None,
               dropout_rate=0.0, dropout_seed=None):
     """Dispatcher: the flash kernels when the mask is a padding mask and
@@ -565,11 +572,7 @@ def attention(q, k, v, mask=None, causal=False, sm_scale=None,
         dropout_rate = 0.0
     sq, sk = q.shape[2], k.shape[2]
     kv_mask = additive_mask_to_kv_valid(mask)
-    can_flash = (
-        (mask is None or kv_mask is not None)
-        and max(sq, sk) >= FLASH_MIN_SEQ
-    )
-    if can_flash:
+    if routes_to_flash(mask, sq, sk):
         return flash_attention(
             q, k, v, kv_mask=kv_mask, causal=causal, sm_scale=sm_scale,
             dropout_rate=dropout_rate, dropout_seed=dropout_seed or 0,

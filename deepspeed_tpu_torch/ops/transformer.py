@@ -11,11 +11,16 @@ stored as ``F.linear`` takes them, ``[out, in]``; the JAX package keeps
 
 In training mode the block's parameters stay differentiable and it draws
 three dropout streams from a :class:`DropoutRNG`: the attention kernels'
-mask seed and the two hidden dropouts. Remat and the stochastic
-LayerNorm mode are not ported. The large projections stay ``F.linear``
-(cuBLAS), as the JAX package left them to XLA; attention goes through
-the kernels of ops/attention.py (prefill, training) and
-ops/decode_attention.py (decode).
+mask seed and the two hidden dropouts, all drawn before the block runs,
+as the JAX block draws its keys. The memory modes (``normalize_invertible``,
+``gelu_checkpoint``, ``attn_dropout_checkpoint``; GPT-2's ``remat``) wrap
+the block in ``torch.utils.checkpoint`` under ``remat_policy``
+(:func:`resolve_remat_policy`); since the block's randomness is drawn
+outside the checkpointed region, the recompute repeats the forward's
+masks and seeds exactly. The stochastic LayerNorm mode is not ported. The
+large projections stay ``F.linear`` (cuBLAS), as the JAX package left
+them to XLA; attention goes through the kernels of ops/attention.py
+(prefill, training) and ops/decode_attention.py (decode).
 
 LoRA (:func:`apply_lora`) adds a low-rank delta to the four projection
 matrices at the JAX package's four points (qkv; attention out before the
@@ -30,12 +35,14 @@ a new pool from ``.at[].set()``); they return only the hidden states.
 """
 
 import dataclasses
+import types
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .attention import NEG_INF, attention
+from ..config.config import not_ported
+from .attention import NEG_INF, attention, routes_to_flash
 from .decode_attention import lora_sgmv_add, paged_flash_decode
 
 
@@ -66,16 +73,24 @@ def dropout(x, rate, rng):
     0)`` in x's dtype; identity when ``rng`` is None or ``rate`` is 0."""
     if rng is None or rate <= 0:
         return x
-    return torch.where(rng.keep(x.shape, rate), x / (1.0 - rate),
+    return _apply_keep(x, rng.keep(x.shape, rate), rate)
+
+
+def _apply_keep(x, keep, rate):
+    """Hidden dropout with a keep mask drawn beforehand (None: identity)."""
+    if keep is None:
+        return x
+    return torch.where(keep, x / (1.0 - rate),
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 @dataclasses.dataclass
 class DeepSpeedTransformerConfig:
     """The fields of the JAX package's DeepSpeedTransformerConfig that the
-    block reads (the memory-mode and remat fields are not ported).
-    ``lora_rank > 0`` gives each layer per-layer LoRA factors for
-    ``lora_targets`` (() => all of :data:`LORA_TARGETS`)."""
+    block reads. Any memory-mode flag turns remat of the block on, with
+    ``remat_policy`` (:func:`resolve_remat_policy`). ``lora_rank > 0``
+    gives each layer per-layer LoRA factors for ``lora_targets`` (() =>
+    all of :data:`LORA_TARGETS`)."""
 
     hidden_size: int = -1
     heads: int = -1
@@ -85,6 +100,14 @@ class DeepSpeedTransformerConfig:
     initializer_range: float = 0.02
     pre_layer_norm: bool = True
     layer_norm_eps: float = 1e-12
+    # the reference's memory modes: each maps onto remat of the block
+    normalize_invertible: bool = False
+    gelu_checkpoint: bool = False
+    attn_dropout_checkpoint: bool = False
+    # "full" recomputes the whole block in the backward; any other value
+    # is a '+'-separated spec of JAX checkpoint policies and checkpoint
+    # names (resolve_remat_policy)
+    remat_policy: str = "full"
     lora_rank: int = 0
     lora_alpha: float = 0.0  # 0 => rank (scaling 1.0)
     lora_targets: tuple = ()
@@ -97,11 +120,125 @@ class DeepSpeedTransformerConfig:
             else 4 * self.hidden_size
         )
 
+    @property
+    def use_remat(self):
+        """Any reference memory-mode flag maps onto remat of the block."""
+        return (
+            self.normalize_invertible
+            or self.gelu_checkpoint
+            or self.attn_dropout_checkpoint
+        )
+
     def lora_dims(self, target):
         """``(in, out)`` of LoRA target ``target`` in this block."""
         dims = {"H": self.hidden_size, "3H": 3 * self.hidden_size,
                 "I": self.intermediate}
         return tuple(dims[d] for d in LORA_TARGET_DIMS[target])
+
+
+#: The public names of ``jax.checkpoint_policies`` (JAX 0.9): a remat
+#: spec part the JAX package accepts. Those in :data:`_SAVED_OPS` are
+#: mapped; the rest (the name- and offload-policy factories) are refused
+#: as not ported.
+JAX_CHECKPOINT_POLICIES = (
+    "checkpoint_dots", "checkpoint_dots_with_no_batch_dims",
+    "dots_saveable", "dots_with_no_batch_dims_saveable",
+    "everything_saveable", "nothing_saveable",
+    "offload_dot_with_no_batch_dims", "save_and_offload_only_these_names",
+    "save_any_names_but_these", "save_anything_except_these_names",
+    "save_from_both_policies", "save_only_these_names",
+)
+#: The JAX package's checkpoint names (deepspeed_tpu/ops/attention.py:
+#: CHECKPOINT_NAMES). ``zero3_gathered`` tags ZeRO-3's gathered weights,
+#: which the port does not have yet.
+CHECKPOINT_NAMES = ("attn_probs", "flash_out", "flash_lse", "zero3_gathered")
+
+_EVERYTHING = "everything"
+_aten = torch.ops.aten
+#: What each mapped part saves in the block's recompute (the outputs of
+#: these aten ops; everything else is recomputed): a JAX "dot" is a matmul
+#: (``F.linear`` lowers to mm/addmm, ``einsum`` to bmm); one "with no batch
+#: dims" has no batch dimension (mm/addmm); ``attn_probs`` is the plain
+#: attention's softmax. ``flash_out``/``flash_lse`` are kept by the
+#: block's structure instead (transformer_block_apply).
+_SAVED_OPS = {
+    "dots_saveable": (_aten.mm, _aten.addmm, _aten.bmm, _aten.baddbmm),
+    "checkpoint_dots": (_aten.mm, _aten.addmm, _aten.bmm, _aten.baddbmm),
+    "dots_with_no_batch_dims_saveable": (_aten.mm, _aten.addmm),
+    "checkpoint_dots_with_no_batch_dims": (_aten.mm, _aten.addmm),
+    "nothing_saveable": (),
+    "everything_saveable": _EVERYTHING,
+    "attn_probs": (_aten._softmax,),
+    "flash_out": (),
+    "flash_lse": (),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class RematPolicy:
+    """A resolved remat spec: the aten ops whose outputs the recompute
+    keeps (``saved_ops``, or ``everything``), and whether the flash
+    kernels' output and log-sum-exp are kept (``keep_flash``: both
+    ``flash_out`` and ``flash_lse`` named), in which case attention runs
+    outside the checkpointed segments and its forward kernel is not run
+    again."""
+
+    saved_ops: tuple = ()
+    everything: bool = False
+    keep_flash: bool = False
+
+    def policy_fn(self, ctx, op, *args, **kwargs):
+        from torch.utils.checkpoint import CheckpointPolicy
+
+        del ctx, args, kwargs
+        if self.everything or op.overloadpacket in self.saved_ops:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    def context_fn(self):
+        from torch.utils.checkpoint import (
+            create_selective_checkpoint_contexts,
+        )
+
+        return create_selective_checkpoint_contexts(self.policy_fn)
+
+
+def resolve_remat_policy(spec):
+    """Resolve a remat-policy spec: '+'-separated parts, each a
+    ``jax.checkpoint_policies`` name or a checkpoint name to keep (e.g.
+    "dots_with_no_batch_dims_saveable+flash_out+flash_lse" keeps the
+    weight-matmul outputs and the flash kernel's residuals, so the
+    backward recomputes only the cheap elementwise chains). Accepts and
+    rejects what the JAX package does (a typo'd part is a ValueError); a
+    JAX name the port cannot map is refused as not ported. Returns a
+    :class:`RematPolicy`."""
+    saved, everything, names = set(), False, set()
+    for part in spec.split("+"):
+        if part in _SAVED_OPS:
+            ops = _SAVED_OPS[part]
+            if ops is _EVERYTHING:
+                everything = True
+            else:
+                saved.update(ops)
+            if part in CHECKPOINT_NAMES:
+                names.add(part)
+        elif part in JAX_CHECKPOINT_POLICIES or part in CHECKPOINT_NAMES or (
+                part.startswith("__") and part.endswith("__")):
+            # the JAX package accepts it (a policy factory, an attribute
+            # of any Python object, or ZeRO-3's gather tag)
+            raise not_ported(f"remat policy part {part!r}")
+        else:
+            # a typo'd policy name must fail loudly, not silently become a
+            # never-matching name-saver that recomputes everything
+            raise ValueError(
+                f"unknown remat policy part {part!r}: neither a "
+                f"jax.checkpoint_policies attribute nor a known checkpoint "
+                f"name {CHECKPOINT_NAMES}"
+            )
+    return RematPolicy(
+        saved_ops=tuple(sorted(saved, key=str)), everything=everything,
+        keep_flash={"flash_out", "flash_lse"} <= names,
+    )
 
 
 #: The reference's 12-tensor layout: name, shape in (H, I) terms with
@@ -278,19 +415,30 @@ def _project(cfg, p, lora, name, x, bias):
     )
 
 
-def _ffn_sublayer(cfg, p, x, rng=None, lora=None):
+def _ffn_sublayer(cfg, p, x, keep=None, lora=None):
     residual = x
     ff_in = (
         layer_norm_apply(cfg, x, p.norm_w, p.norm_b)
         if cfg.pre_layer_norm else x
     )
     h = _gelu(_project(cfg, p, lora, "inter_w", ff_in, p.inter_b))
-    h = dropout(_project(cfg, p, lora, "output_w", h, p.output_b),
-                cfg.hidden_dropout_ratio, rng)
+    h = _apply_keep(_project(cfg, p, lora, "output_w", h, p.output_b),
+                    keep, cfg.hidden_dropout_ratio)
     x = residual + h
     if not cfg.pre_layer_norm:
         x = layer_norm_apply(cfg, x, p.norm_w, p.norm_b)
     return x
+
+
+def _block_tensors(p):
+    """The block's parameter tensors by name (the layout's, and the LoRA
+    factors ``p`` has). Read once, in the forward: ``functional_call``
+    swaps the tensors in only for the forward's duration, so a recompute
+    must not read them from ``p`` again."""
+    names = [n for n, _, _ in TRANSFORMER_PARAM_LAYOUT]
+    names += [n for n in LORA_TARGETS for n in (n + "_lora_a", n + "_lora_b")
+              if getattr(p, n, None) is not None]
+    return names, [getattr(p, n) for n in names]
 
 
 def transformer_block_apply(cfg, p, hidden_states, attention_mask=None, *,
@@ -302,10 +450,18 @@ def transformer_block_apply(cfg, p, hidden_states, attention_mask=None, *,
     ``train`` with a ``dropout_rng`` (:class:`DropoutRNG`) applies the
     attention dropout (in the flash kernels, or in ``mha_reference`` for
     short sequences) and the two hidden dropouts; without a
-    ``dropout_rng`` there is no dropout, as in the JAX package.
-    ``return_kv`` additionally returns the block's split-head key/value
-    projections ``(k, v)``, each [B, heads, S, hd] — the KV-cache prefill
-    mode: exactly the values attention consumed. ``lora`` is the batched
+    ``dropout_rng`` there is no dropout, as in the JAX package. The seed
+    and the two keep masks are drawn before the block runs. With a memory
+    mode on (``cfg.use_remat``) and autograd recording, the block runs
+    under ``torch.utils.checkpoint`` with ``cfg.remat_policy``: "full"
+    recomputes it all in the backward (the flash forward kernel runs
+    twice); a selective spec keeps what :func:`resolve_remat_policy` names,
+    and with ``flash_out`` and ``flash_lse`` both named (and the flash
+    route taken) only the segments before and after attention are
+    checkpointed, so the forward kernel runs once. ``return_kv``
+    additionally returns the block's split-head key/value projections
+    ``(k, v)``, each [B, heads, S, hd] — the KV-cache prefill mode: exactly
+    the values attention consumed (no remat). ``lora`` is the batched
     adapter source of :func:`apply_lora` (serving prefill); per-layer
     factors in ``p`` cover the fine-tune path."""
     H = cfg.hidden_size
@@ -315,35 +471,86 @@ def transformer_block_apply(cfg, p, hidden_states, attention_mask=None, *,
         raise ValueError("hidden_size must divide into heads")
     b, s, _ = hidden_states.shape
 
-    residual = hidden_states
-    attn_in = (
-        layer_norm_apply(cfg, hidden_states, p.attn_nw, p.attn_nb)
-        if cfg.pre_layer_norm else hidden_states
-    )
-    qkv = _project(cfg, p, lora, "attn_qkvw", attn_in, p.attn_qkvb)
-    q, k_, v = qkv.split(H, dim=-1)
-
-    def split_heads(t):
-        # [B,S,H] -> [B,heads,S,hd], contiguous for the kernel
-        return t.reshape(b, s, heads, head_dim).transpose(1, 2).contiguous()
-
+    # every random draw before the (optionally checkpointed) block, so
+    # that a recompute repeats the forward's seed and masks
     rng = dropout_rng if train else None
-    qh, kh, vh = split_heads(q), split_heads(k_), split_heads(v)
-    ctx = attention(
-        qh, kh, vh, mask=attention_mask, causal=causal,
-        dropout_rate=cfg.attn_dropout_ratio if rng is not None else 0.0,
-        dropout_seed=rng.attn_seed() if rng is not None else None,
-    )
-    ctx = ctx.transpose(1, 2).reshape(b, s, H)
-    attn_out = dropout(_project(cfg, p, lora, "attn_ow", ctx, p.attn_ob),
-                       cfg.hidden_dropout_ratio, rng)
-    x = residual + attn_out
-    if not cfg.pre_layer_norm:
-        x = layer_norm_apply(cfg, x, p.attn_nw, p.attn_nb)
-    x = _ffn_sublayer(cfg, p, x, rng, lora)
-    if return_kv:
-        return x, (kh, vh)
-    return x
+    attn_seed = keep_attn = keep_ffn = None
+    if rng is not None:
+        attn_seed = rng.attn_seed()
+        if cfg.hidden_dropout_ratio > 0:
+            keep_attn = rng.keep((b, s, H), cfg.hidden_dropout_ratio)
+            keep_ffn = rng.keep((b, s, H), cfg.hidden_dropout_ratio)
+
+    def qkv_heads(q_p, x):
+        attn_in = (
+            layer_norm_apply(cfg, x, q_p.attn_nw, q_p.attn_nb)
+            if cfg.pre_layer_norm else x
+        )
+        qkv = _project(cfg, q_p, lora, "attn_qkvw", attn_in, q_p.attn_qkvb)
+        # [B,S,H] -> [B,heads,S,hd], contiguous for the kernel
+        return tuple(
+            t.reshape(b, s, heads, head_dim).transpose(1, 2).contiguous()
+            for t in qkv.split(H, dim=-1)
+        )
+
+    def attend(qh, kh, vh):
+        return attention(
+            qh, kh, vh, mask=attention_mask, causal=causal,
+            dropout_rate=cfg.attn_dropout_ratio if rng is not None else 0.0,
+            dropout_seed=attn_seed,
+        )
+
+    def finish(o_p, x, ctx, keep_a, keep_f):
+        ctx = ctx.transpose(1, 2).reshape(b, s, H)
+        attn_out = _apply_keep(
+            _project(cfg, o_p, lora, "attn_ow", ctx, o_p.attn_ob),
+            keep_a, cfg.hidden_dropout_ratio)
+        x = x + attn_out
+        if not cfg.pre_layer_norm:
+            x = layer_norm_apply(cfg, x, o_p.attn_nw, o_p.attn_nb)
+        return _ffn_sublayer(cfg, o_p, x, keep_f, lora)
+
+    remat = (cfg.use_remat and not return_kv and torch.is_grad_enabled())
+    if not remat:
+        qh, kh, vh = qkv_heads(p, hidden_states)
+        x = finish(p, hidden_states, attend(qh, kh, vh), keep_attn, keep_ffn)
+        return (x, (kh, vh)) if return_kv else x
+
+    from torch.utils.checkpoint import checkpoint
+
+    names, tensors = _block_tensors(p)
+
+    def params(ts):
+        return types.SimpleNamespace(**dict(zip(names, ts)))
+
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if cfg.remat_policy == "full":
+        policy = None
+    else:
+        policy = resolve_remat_policy(cfg.remat_policy)
+        kw["context_fn"] = policy.context_fn
+    if policy is not None and policy.keep_flash and routes_to_flash(
+            attention_mask, s, s):
+        # attention outside the checkpointed segments: its autograd
+        # Function keeps the kernel's out and lse, and the forward kernel
+        # is not launched again
+        def head(x, *ts):
+            return qkv_heads(params(ts), x)
+
+        def tail(x, ctx, keep_a, keep_f, *ts):
+            return finish(params(ts), x, ctx, keep_a, keep_f)
+
+        qh, kh, vh = checkpoint(head, hidden_states, *tensors, **kw)
+        ctx = attend(qh, kh, vh)
+        return checkpoint(tail, hidden_states, ctx, keep_attn, keep_ffn,
+                          *tensors, **kw)
+
+    def block(x, keep_a, keep_f, *ts):
+        q_p = params(ts)
+        return finish(q_p, x, attend(*qkv_heads(q_p, x)), keep_a, keep_f)
+
+    return checkpoint(block, hidden_states, keep_attn, keep_ffn, *tensors,
+                      **kw)
 
 
 def _attend_gathered(q, k_full, v_full, positions, live=None):

@@ -29,9 +29,10 @@ Detectors (config ``"resilience": {"supervisor": {...}}``):
 
 Rollback semantics (bitwise-reproducible — tests pin this):
 
-1. the engine's half-run window is discarded (``engine.discard_window``:
-   the stashed forward, the gradient buffer and the window's losses
-   belong to the discarded timeline);
+1. the staged input pipeline closes (``engine.close_data_pipeline``: its
+   prefetched windows belong to the discarded timeline), and the engine's
+   half-run window is discarded (``engine.discard_window``: the stashed
+   forward, the gradient buffer and the window's losses);
 2. ``engine.load_checkpoint(resume_dir)`` restores params, optimizer
    state, loss scale, counters AND the dropout-seed generator (the model
    file carries its state) through the manifest-verified,
@@ -75,10 +76,13 @@ class ReplayableDataSource:
 
     ``factory(start)`` must return an iterator positioned at micro-batch
     ``start`` of a deterministic stream. The source is a plain persistent
-    iterator (``train_batch`` consumes it unchanged), tracks its
-    position, and rebuilds from the factory on :meth:`rewind` — the
-    supervisor rewinds it to the restored checkpoint's ``micro_steps``
-    after a rollback. Position updates are GIL-atomic int bumps.
+    iterator (``train_batch`` and its window stager consume it
+    unchanged), tracks its position, and rebuilds from the factory on
+    :meth:`rewind` — the supervisor rewinds it to the restored
+    checkpoint's ``micro_steps`` after a rollback. Rewind only with the
+    stager closed (the supervisor orders this); position updates are
+    GIL-atomic int bumps. Over a data loader the factory is
+    ``loader.iter_from``.
     """
 
     def __init__(self, factory, start=0):
@@ -261,7 +265,11 @@ class TrainingSupervisor:
             f"{self.max_rollbacks}): {reason}; restoring from {resume}",
             ranks=[-1],
         )
-        # the half-run window belongs to the discarded timeline
+        # staged windows and the half-run window belong to the discarded
+        # timeline
+        close = getattr(engine, "close_data_pipeline", None)
+        if close is not None:
+            close()
         engine.discard_window()
         path, _ = engine.load_checkpoint(resume)
         if path is None:

@@ -66,17 +66,32 @@ spiking window, a watchdog stall or a recoverable window failure. Under
 the adapters block a checkpoint holds only the LoRA factors and their
 moments, with the adapter geometry in ``client_state["adapters"]``.
 
+The data path, as in the JAX engine: ``training_data`` builds a
+:class:`~.dataloader.DeepSpeedDataLoader` (``deepspeed_io``; pinned CPU
+batches on a CUDA device), which ``initialize()`` returns third. The
+``data_pipeline`` block stages ``train_batch`` windows from a persistent
+iterator on a background worker (runtime/staging.py): window N+1 is pulled
+and copied to the card on a copy stream while window N computes, with the
+dropout seeds pre-drawn in the unstaged order, so a staged run equals an
+unstaged one bit for bit (losses, parameters and the seed generator). At
+one micro-batch a window the loader stages itself. ``close_data_pipeline``
+stops every worker; the preemption drain and a supervisor's rollback call
+it. The ``compile_cache`` block points the kernel build cache
+(runtime/compile_cache.py), and ``activation_checkpointing`` configures
+the activation API (checkpointing.py). A model with ``remat`` checkpoints
+its blocks (ops/transformer.py).
+
 Not ported, refused with ``DeepSpeedConfigError("... not yet ported")``:
-more than one device (world size > 1, a mesh), the ``data_pipeline`` and
-``compile_cache`` blocks, ``zero_optimization.offload_optimizer``,
-compensated masters, reduced-precision optimizer state, sparse gradients,
-``training_data`` (the dataloader), optimizers other than Adam/AdamW/Lamb/
-FusedLamb, and a model with remat, MoE or pipeline stages. ZeRO stages
-0-3 are accepted: at world size 1 the JAX engine lays every stage out as
-stage 0.
+more than one device (world size > 1, a mesh), ``zero_optimization.
+offload_optimizer``, compensated masters, reduced-precision optimizer
+state, sparse gradients, optimizers other than Adam/AdamW/Lamb/FusedLamb,
+a remat policy the port cannot map, and a model with MoE or pipeline
+stages. ZeRO stages 0-3 are accepted: at world size 1 the JAX engine lays
+every stage out as stage 0.
 """
 
 import inspect
+import weakref
 from collections.abc import Mapping
 
 import numpy as np
@@ -89,6 +104,7 @@ from ..config.config import DeepSpeedConfig, DeepSpeedConfigError, not_ported
 from ..config.config_utils import load_config_json
 from ..ops.head_dims import check_head_dim, model_head_dim
 from ..ops.optimizers import Optimizer, build_optimizer, param_groups
+from ..ops.transformer import resolve_remat_policy
 from ..resilience import SupervisorEscalation, build_resilience
 from ..resilience.supervisor import build_supervisor
 from ..telemetry.manager import build_telemetry
@@ -96,11 +112,16 @@ from ..utils.device import resolve_device
 from ..utils.logging import log_dist, warn_once
 from ..utils.monitor import Monitor
 from ..utils.numerics import global_norm, has_overflow
-from ..utils.timers import SynchronizedWallClockTimer, device_fence
+from ..utils.timers import (
+    SynchronizedWallClockTimer,
+    ThroughputTimer,
+    device_fence,
+)
+from .compile_cache import configure_compile_cache
+from .dataloader import DeepSpeedDataLoader
 from .lr_schedules import build_lr_scheduler
 from .precision import loss_scale_state_from_config, update_scale
-
-_REFUSED_BLOCKS = (C.DATA_PIPELINE, C.COMPILE_CACHE)
+from .staging import WindowStager, ragged_window_error
 
 # the JAX engine's timer names
 FORWARD_TIMER = "forward"
@@ -132,13 +153,16 @@ def _poison_first_float_leaf(batch):
     return tuple(out)
 
 
-def _requested(raw, key):
-    """A config block is asked for unless absent, empty, or
-    ``{"enabled": false}``."""
-    block = raw.get(key)
-    if not block:
-        return False
-    return not (isinstance(block, dict) and block.get("enabled") is False)
+def _draw_seed(gen):
+    """One micro-step's dropout seed from the engine's generator."""
+    return int(torch.randint(0, 2**31 - 1, (), generator=gen))
+
+
+def _split_window_keys(gen, accum):
+    """One window's seed draws: ``(gen, [accum] seeds)``. The single
+    authority for the window stager's pre-draw (runtime/staging.py),
+    which must draw exactly what the unstaged micro-steps draw."""
+    return gen, [_draw_seed(gen) for _ in range(accum)]
 
 
 class EngineOptimizerFacade:
@@ -175,7 +199,8 @@ class EngineOptimizerFacade:
 class DeepSpeedEngine:
     def __init__(self, model=None, optimizer=None, model_parameters=None,
                  training_data=None, lr_scheduler=None, config_params=None,
-                 mesh=None, rng_seed=0, device=None, args=None):
+                 mesh=None, rng_seed=0, device=None, args=None,
+                 collate_fn=None):
         # ---- config ---------------------------------------------------
         raw = config_params
         if raw is None and args is not None:
@@ -183,9 +208,6 @@ class DeepSpeedEngine:
         if isinstance(raw, str):
             raw = load_config_json(raw)
         raw = dict(raw or {})
-        for key in _REFUSED_BLOCKS:
-            if _requested(raw, key):
-                raise not_ported(f"the {key!r} block")
         if mesh is not None or raw.get(C.MESH):
             raise not_ported("training over a device mesh")
         self.config = DeepSpeedConfig(None, param_dict=raw, training=True)
@@ -205,23 +227,33 @@ class DeepSpeedEngine:
             )
         if cfg.sparse_gradients_enabled:
             raise not_ported("sparse_gradients")
-        if training_data is not None:
-            raise not_ported("training_data (the dataloader)")
         # what the card's kernels cannot take is refused here, not mid-step
         mcfg = getattr(model, "config", None)
         check_head_dim(model_head_dim(mcfg),
                        getattr(mcfg, "n_positions", 0), device)
         self.device = resolve_device(device)
+        # the kernel build cache, before anything builds (a no-op unless
+        # the block enables it)
+        configure_compile_cache(cfg)
+        # the activation API's flags (checkpointing.py), as the JAX engine
+        # sets them
+        from .. import checkpointing as act_ckpt
+
+        act_ckpt.configure(None, deepspeed_config=cfg)
 
         # ---- model ----------------------------------------------------
         if not isinstance(model, torch.nn.Module):
             raise TypeError("model must be a torch.nn.Module whose forward "
                             "returns the scalar loss")
-        for field, off in (("remat", False), ("moe_experts", 0),
-                           ("pipeline_stages", 1)):
+        for field, off in (("moe_experts", 0), ("pipeline_stages", 1)):
             if getattr(mcfg, field, off) != off:
                 raise not_ported(f"a model with {field}="
                                  f"{getattr(mcfg, field)!r}")
+        policy = getattr(mcfg, "remat_policy", "full")
+        if getattr(mcfg, "remat", False) and policy != "full":
+            # a typo or a policy the port cannot map fails here, not in
+            # the first backward
+            resolve_remat_policy(policy)
         self.module = model.to(device=self.device, dtype=torch.float32)
         if model_parameters is not None and not isinstance(
             model_parameters, Mapping
@@ -302,6 +334,9 @@ class DeepSpeedEngine:
         self.last_overflow = False
         self.lamb_coeffs = torch.zeros(0)
         self._training = True
+        # the seeds of a staged window's micro-steps, pre-drawn by the
+        # stager (consumed by _call in order)
+        self._window_seeds = []
 
         # ---- observability ---------------------------------------------
         # the rank-0 Train/* scalar stream (the tensorboard block)
@@ -313,6 +348,13 @@ class DeepSpeedEngine:
         self.wall_clock_breakdown = cfg.wall_clock_breakdown
         self.memory_breakdown = cfg.memory_breakdown
         self.timers = SynchronizedWallClockTimer(device=self.device)
+        self.tput_timer = ThroughputTimer(
+            batch_size=cfg.train_micro_batch_size_per_gpu
+            * cfg.gradient_accumulation_steps,
+            num_workers=1,
+            steps_per_output=cfg.steps_per_print,
+            fence_fn=device_fence(self.device),
+        )
         self._tb_windows = 0  # train_batch windows since the last print
         self._window_timed = False  # a train_batch window timer runs
         self._window_open = False  # the telemetry's window has started
@@ -354,6 +396,27 @@ class DeepSpeedEngine:
             # a watchdog stall report arms a rollback at the next boundary
             self.telemetry.watchdog.add_stall_listener(
                 self.supervisor.notify_stall)
+
+        # ---- input staging (runtime/staging.py) ------------------------
+        # made at the first iterator-fed train_batch, torn down on a source
+        # change, exhaustion, the preemption drain or a rollback
+        self._staging_enabled = cfg.data_pipeline_enabled
+        self._staging_buffers = cfg.data_pipeline_staging_buffers
+        self._stage_to_device = cfg.data_pipeline_stage_to_device
+        self._stager = None
+        self._stager_source = None
+        self._stager_finalizer = None
+        # consecutive source replacements whose stager served <= 1
+        # window: the mark of a fresh iterator per call (_ensure_stager)
+        self._stager_churn = 0
+        self._last_unstaged_source = None
+        # loaders built by deepspeed_io, weakly held: close_data_pipeline
+        # reaches their staging workers too
+        self._data_loaders = []
+        self.collate_fn = collate_fn
+        self.training_dataloader = None
+        if training_data is not None:
+            self.training_dataloader = self.deepspeed_io(training_data)
         log_dist(
             f"DeepSpeedEngine initialized: device={self.device} "
             f"zero_stage={self.zero_stage} dtype={self.compute_dtype} "
@@ -552,6 +615,7 @@ class DeepSpeedEngine:
         self._pending = None
         self._grad_buffer = None
         self._window_losses = []
+        self._window_seeds = []
         self._window_open = False
         if self._window_timed:
             self.timers(TRAIN_BATCH_TIMER).stop()
@@ -576,8 +640,9 @@ class DeepSpeedEngine:
         if self._takes_train:
             kwargs["train"] = self._training
         if self._takes_seed:
-            kwargs["dropout_seed"] = int(
-                torch.randint(0, 2**31 - 1, (), generator=self._rng)
+            kwargs["dropout_seed"] = (
+                self._window_seeds.pop(0) if self._window_seeds
+                else _draw_seed(self._rng)
             )
         return functional_call(self.module, params, batch, kwargs)
 
@@ -799,6 +864,8 @@ class DeepSpeedEngine:
             self.global_steps += 1
             if self.lr_scheduler is not None:
                 self.lr_scheduler.step()
+        # close the samples/s window the data loader opened at its handoff
+        self.tput_timer.stop(report_speed=True)
         if self.global_steps and self.global_steps % self.steps_per_print() == 0:
             log_dist(
                 f"step={self.global_steps}, skipped={self.skipped_steps}, "
@@ -864,6 +931,13 @@ class DeepSpeedEngine:
                 "checkpoint will be written",
             )
             return
+        if res.preemption_exit_after_save:
+            # the process exits after this save: stop the staging workers
+            # (bounded waits). The staged-but-unconsumed windows are
+            # dropped; the restart replays the data order from this
+            # checkpoint. A drain that keeps training keeps the pipeline,
+            # whose pulled windows it still needs.
+            self.close_data_pipeline()
         tag = f"{res.preemption_tag_prefix}_global_step{self.global_steps}"
         log_dist(
             f"preemption drain: saving final checkpoint {tag} to "
@@ -904,8 +978,10 @@ class DeepSpeedEngine:
         self.telemetry.flush()
 
     def close(self):
-        """Flush and close the monitor and the telemetry (its exporters,
-        trace files, profiler window and watchdog)."""
+        """Stop the data pipeline's workers, then flush and close the
+        monitor and the telemetry (its exporters, trace files, profiler
+        window and watchdog)."""
+        self.close_data_pipeline()
         self.flush_monitor()
         self.monitor.close()
         self.telemetry.close()
@@ -943,42 +1019,206 @@ class DeepSpeedEngine:
             return loss
 
     def _train_batch_once(self, batch_iter_or_batches):
+        """One window: ``accum`` micro-batches, forward/backward each, then
+        the step. With the ``data_pipeline`` block and a persistent
+        iterator (the same object across calls: a generator, a loader's
+        iterator), the window comes from the stager, already on the card;
+        the numerics are the same either way."""
         accum = self.gradient_accumulation_steps()
+        if self._staging_enabled:
+            stager = self._ensure_stager(batch_iter_or_batches)
+            if stager is not None:
+                return self._train_batch_staged(stager)
         it = iter(batch_iter_or_batches)
-        # a clean end of the data (StopIteration at a window boundary)
-        # leaves here, before the window opens
-        batch = next(it)
-        poison = False
+        batches = []
+        for _ in range(accum):
+            try:
+                batch = next(it)
+            except StopIteration:
+                if not batches:
+                    # a clean end of the data at a window boundary: the
+                    # end-of-stream signal of a loop "until the data runs
+                    # out"
+                    raise
+                # mid-window dry is a data-sizing bug; a bare StopIteration
+                # would silently end an enclosing generator
+                raise ragged_window_error(len(batches), accum) from None
+            if not isinstance(batch, (tuple, list)):
+                batch = (batch,)
+            batches.append(tuple(batch))
         if self.faults.enabled:
-            # the window's placement on the device, then its dispatch: the
-            # JAX engine's staging.device_put and grads.nan seams
+            # the window's placement on the device: the JAX engine's
+            # staging.device_put seam
             self.faults.maybe_raise("staging.device_put")
-            poison = self.faults.fire("grads.nan") is not None
+        return self._run_window(batches)
+
+    def _run_window(self, batches):
+        """Forward/backward over the window's micro-batches, then the
+        step: the shared tail of the staged and unstaged paths. Returns
+        the window's mean unscaled loss (a device tensor)."""
+        poison = (self.faults.enabled
+                  and self.faults.fire("grads.nan") is not None)
         if self._training:
             self._open_window()
         if self.wall_clock_breakdown:
             self.timers(TRAIN_BATCH_TIMER).start()
             self._window_timed = True
         with torch.profiler.record_function("window_fwd_bwd"):
-            for i in range(accum):
-                if i:
-                    try:
-                        batch = next(it)
-                    except StopIteration:
-                        err = RuntimeError(
-                            f"data iterator ran dry mid-window: collected "
-                            f"{i} of gradient_accumulation_steps={accum} "
-                            "micro-batches"
-                        )
-                        # the caller's data sizing, not the supervisor's to
-                        # heal
-                        err.ds_unrecoverable = True
-                        raise err from None
-                if not isinstance(batch, (tuple, list)):
-                    batch = (batch,)
+            for batch in batches:
                 if poison:
                     batch = _poison_first_float_leaf(batch)
                 loss = self.forward(*batch)
                 self.backward(loss)
         self.step()
         return self._last_window_loss
+
+    def _ensure_stager(self, source):
+        """The window stager serving ``source``, made at its first sight.
+        None (= run unstaged) when staging cannot help: a source that is
+        not an iterator, batches a loader staged already, or a caller
+        passing a fresh iterator object every window (detected by churn),
+        which leaves the stager nothing to pull ahead."""
+        if self._stager is not None:
+            if source is self._stager_source:
+                return self._stager
+            # a new source: the old stream's staged windows belong to a
+            # dead timeline, and their pulled-ahead data is lost
+            dropped = self._stager.unconsumed_micro_batches()
+            if dropped:
+                warn_once(
+                    "stager-source-changed-dropped-data",
+                    "window stager torn down on a source change with %d "
+                    "staged-but-unconsumed micro-batches (already pulled "
+                    "from the previous iterator) — alternating live "
+                    "iterators across train_batch() calls loses their "
+                    "prefetched items; exhaust one stream before "
+                    "switching, or disable data_pipeline staging",
+                    dropped,
+                )
+            churned = self._stager.windows_served <= 1
+            self._close_stager()
+            self._stager_churn = self._stager_churn + 1 if churned else 0
+        if self._stager_churn >= 2:
+            # two single-window stagers in a row: the caller passes a new
+            # iterator each call. Not a latch: the same source seen twice
+            # re-engages staging.
+            if source is not self._last_unstaged_source:
+                self._last_unstaged_source = source
+                warn_once(
+                    "stager-fresh-iterator-churn",
+                    "data_pipeline staging paused for this engine: "
+                    "train_batch() keeps receiving a NEW iterator object "
+                    "per window, so nothing can be staged ahead — pass "
+                    "one persistent iterator (a generator / "
+                    "itertools.cycle / a dataloader iterator) to overlap "
+                    "input staging",
+                )
+                return None
+            self._stager_churn = 0
+            self._last_unstaged_source = None
+        if getattr(source, "already_staged", False):
+            # the loader's worker staged these batches (one micro-batch a
+            # window): a second stager would copy them again
+            return None
+        try:
+            if iter(source) is not source:
+                return None
+        except TypeError:
+            return None
+        # The stager owns the seed chain while attached: it draws each
+        # window's seeds from its own copy of the generator, and the state
+        # after the draw comes back with the window. It holds no engine
+        # reference (the fault hook closes over the injector only), and
+        # the finalizer closes it when the engine is collected: an
+        # abandoned engine leaks no thread.
+        rng = None
+        if self._takes_seed:
+            rng = torch.Generator()
+            rng.set_state(self._rng.get_state())
+        faults = self.faults
+        fault_fn = faults.maybe_raise if faults.enabled else None
+        tel_on = self.telemetry.enabled
+        self._stager = WindowStager(
+            source=source,
+            accum=self.gradient_accumulation_steps(),
+            device=self.device,
+            rng=rng,
+            split_fn=_split_window_keys if rng is not None else None,
+            buffers=self._staging_buffers,
+            stage_to_device=self._stage_to_device,
+            telemetry=self.telemetry if tel_on else None,
+            fault_fn=fault_fn,
+        )
+        self._stager_source = source
+        self._stager_finalizer = weakref.finalize(self, self._stager.close)
+        return self._stager
+
+    def close_data_pipeline(self):
+        """Stop the staging workers (the engine's window stager and those
+        of loaders ``deepspeed_io`` built) and drop their staged-but-
+        unconsumed windows. Runs on source exhaustion or change, engine
+        collection, the preemption drain and a supervisor's rollback;
+        call it when abandoning an engine mid-stream."""
+        self._close_stager()
+        for ref in self._data_loaders:
+            loader = ref()
+            if loader is not None:
+                loader.close_staging()
+
+    def _close_stager(self):
+        if self._stager is not None:
+            if self._stager_finalizer is not None:
+                self._stager_finalizer.detach()
+                self._stager_finalizer = None
+            self._stager.close()
+            self._stager = None
+            self._stager_source = None
+
+    def _train_batch_staged(self, stager):
+        """Consume one staged window: its micro-batches are on the card
+        (or copied now, without stage_to_device) and its seeds drawn."""
+        try:
+            window = stager.get_window()
+        except Exception:
+            # a clean end (StopIteration) and a staging failure alike end
+            # this stream
+            self._close_stager()
+            raise
+        # the compute stream waits for the window's copy
+        window.wait()
+        if window.keys is not None:
+            # adopt the pre-drawn chain
+            self._window_seeds = list(window.keys)
+            self._rng.set_state(window.rng_after)
+        return self._run_window(window.arrays)
+
+    def deepspeed_io(self, dataset, batch_size=None, route=C.ROUTE_TRAIN):
+        """Build the data loader (the reference's deepspeed_io). Training
+        loaders shuffle (seeded) and feed the throughput timer and the
+        ``dataloader/*`` telemetry; their batches are pinned on a CUDA
+        device. With the ``data_pipeline`` block at one micro-batch a
+        window (and ``stage_to_device``) the loader stages itself and
+        ``train_batch`` adds no stager; otherwise the engine's stager
+        consumes its host batches."""
+        if batch_size is None:
+            batch_size = self.train_micro_batch_size_per_gpu()
+        is_train = route == C.ROUTE_TRAIN
+        loader_stages = (
+            is_train and self._staging_enabled and self._stage_to_device
+            and self.gradient_accumulation_steps() == 1
+        )
+        loader = DeepSpeedDataLoader(
+            dataset,
+            batch_size=batch_size,
+            collate_fn=self.collate_fn,
+            shuffle=is_train,
+            tput_timer=self.tput_timer if is_train else None,
+            telemetry=self.telemetry if is_train else None,
+            stage_to_device=loader_stages,
+            staging_buffers=self._staging_buffers,
+            device=self.device,
+        )
+        # weak: close_data_pipeline must not pin the loader (and its
+        # dataset) to the engine
+        self._data_loaders.append(weakref.ref(loader))
+        return loader

@@ -20,10 +20,10 @@ stream set from either engine. Absent by design: the JAX engine's
 ``jax/recompiles``, ``jax/compile_cache_hits`` and
 ``jax/compile_cache_misses`` counters (``jax.monitoring`` listeners);
 PyTorch runs eagerly and the CUDA kernels build once per process. The
-``resilience/*``, ``dataloader/*`` and ZeRO-3 rows are registered (the
-catalog is a golden set) and stay 0 until the modules that feed them are
-ported; the JAX facade's hooks for them (the dataloader depth, the
-window stager, the ZeRO-3 layout) come with those modules.
+``dataloader/*`` rows are fed by the data loader and the window stager
+(runtime/dataloader.py, runtime/staging.py) through the hooks below; the
+ZeRO-3 rows are registered (the catalog is a golden set) and stay 0 until
+ZeRO-3 is ported.
 """
 
 import atexit
@@ -383,6 +383,44 @@ class Telemetry:
         return self.tracer.record(
             name, t0, t1, ctx=self.train_trace_ctx(), attrs=attrs
         )
+
+    # -- data pipeline (runtime/dataloader.py, runtime/staging.py) -------
+    def set_dataloader_depth(self, depth):
+        if not self.enabled:
+            return
+        self.registry.gauge("dataloader/queue_depth").set(depth)
+
+    def set_staging_occupancy(self, depth):
+        if not self.enabled:
+            return
+        self.registry.gauge("dataloader/staging_occupancy").set(depth)
+
+    def observe_staging_wait(self, ms):
+        if not self.enabled:
+            return
+        self.registry.histogram(
+            "dataloader/staging_wait_ms", buckets=DEFAULT_TIME_BUCKETS_MS
+        ).observe(ms)
+
+    def observe_staging_time(self, ms):
+        if not self.enabled:
+            return
+        if self.tracer.enabled:
+            # the staging worker just assembled one window: its span from
+            # the measured duration (called from the worker thread; the
+            # tracer is thread-safe)
+            now = time.monotonic()
+            self._record_train_span(
+                "train.stage_window", now - ms / 1e3, now
+            )
+        self.registry.histogram(
+            "dataloader/staging_time_ms", buckets=DEFAULT_TIME_BUCKETS_MS
+        ).observe(ms)
+
+    def count_h2d_bytes(self, nbytes):
+        if not self.enabled:
+            return
+        self.registry.counter("dataloader/h2d_bytes").inc(nbytes)
 
     # -- internals ------------------------------------------------------
     def _materialize(self, loss, grad_norm, loss_scale, lr, now):

@@ -35,6 +35,8 @@ own delta. Head dims the kernels are not compiled at (d = 32, 48, 96,
 192; hd 1-127) and D = 256 take the same tolerances as 64 and 128.
 """
 
+import time
+
 import pytest
 import torch
 
@@ -809,3 +811,183 @@ def test_lamb_phase1_kernel_ragged_and_misaligned_tensors(cuda, gdtype,
         assert torch.equal(got, want)
     torch.testing.assert_close(kw_, pw, rtol=1e-6, atol=0)
     torch.testing.assert_close(ku, pu, rtol=1e-6, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the data path and remat on the card
+# ---------------------------------------------------------------------------
+REMAT_FWD_PER_LAYER = {None: 1, "full": 2,
+                       "dots_with_no_batch_dims_saveable+flash_out+flash_lse":
+                       1, "dots_saveable": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", list(REMAT_FWD_PER_LAYER))
+def test_remat_launches_per_layer_and_gradients(cuda, policy):
+    """A 2-layer GPT-2 at S=256 (the flash route), bf16, one micro-step
+    with dropout: the forward kernel launches once a layer without remat
+    and under a spec that keeps flash_out and flash_lse, twice under
+    "full" and a spec that recomputes attention; dQ and dK/dV once. The
+    gradients equal the remat-off model's bit for bit (the same kernels on
+    the same inputs, the seed and masks drawn before the block)."""
+    from deepspeed_tpu_torch.ops import attention as A
+
+    def grads(remat_policy):
+        kw = {} if remat_policy is None else {"remat": True,
+                                              "remat_policy": remat_policy}
+        model = GPT2LMHeadModel(GPT2Config(
+            vocab_size=256, n_positions=256, n_embd=128, n_layer=2,
+            n_head=2, dropout=0.1, **kw), device=cuda, dtype=torch.bfloat16)
+        ids = torch.randint(0, 256, (2, 256), device=cuda,
+                            generator=torch.Generator(cuda).manual_seed(0))
+        counts = (A.flash_fwd.launches, A.flash_bwd_dq.launches,
+                  A.flash_bwd_dkv.launches)
+        loss = model(ids, ids, train=True, dropout_seed=7)
+        loss.backward()
+        torch.cuda.synchronize()
+        got = tuple(f.launches - c for f, c in zip(
+            (A.flash_fwd, A.flash_bwd_dq, A.flash_bwd_dkv), counts))
+        return got, [p.grad for p in model.parameters()]
+
+    launches, got = grads(policy)
+    assert launches == (2 * REMAT_FWD_PER_LAYER[policy], 2, 2)
+    _, want = grads(None)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_stager_copies_on_its_own_stream(cuda):
+    """The window stager copies pinned host windows to the card on a copy
+    stream other than the compute stream, records an event per window that
+    the compute stream waits on, keeps its slots to ``buffers`` and hands
+    back the host values exactly."""
+    from deepspeed_tpu_torch.runtime.staging import WindowStager
+
+    host = [(torch.arange(i * 1000, (i + 1) * 1000).reshape(10, 100),
+             torch.full((10,), float(i))) for i in range(6)]
+    stager = WindowStager(iter(host), accum=2, device=cuda, buffers=2)
+    try:
+        assert stager._copy_stream != torch.cuda.current_stream()
+        for w in range(3):
+            window = stager.get_window()
+            assert window.event is not None
+            window.wait()
+            for (ids, x), (hid, hx) in zip(window.arrays,
+                                           host[2 * w: 2 * w + 2]):
+                assert ids.is_cuda and x.is_cuda
+                assert torch.equal(ids.cpu(), hid) and torch.equal(x.cpu(), hx)
+        assert len([s for s in stager._pinned if s is not None]) <= 2
+        assert all(t.is_pinned() for s in stager._pinned if s for t in s)
+        with pytest.raises(StopIteration):
+            stager.get_window()
+    finally:
+        stager.close()
+    assert not stager.alive()
+
+
+@pytest.mark.cuda
+def test_staged_training_equals_unstaged_on_the_card(cuda):
+    """initialize() with training_data on the card: the loader's batches
+    are pinned, and a staged run (accum 2: the engine's stager over the
+    loader) equals the unstaged one bit for bit with dropout on."""
+    import numpy as np
+
+    ids = np.random.default_rng(0).integers(0, 256, (16, 256))
+    runs = []
+    for staged in (False, True):
+        model = GPT2LMHeadModel(GPT2Config(
+            vocab_size=256, n_positions=256, n_embd=128, n_layer=2,
+            n_head=2, dropout=0.1), device=cuda)
+        engine, _, loader, _ = deepspeed_tpu_torch.initialize(
+            model=model, training_data=(ids, ids.copy()), config_params={
+                "train_micro_batch_size_per_gpu": 2,
+                "gradient_accumulation_steps": 2,
+                "bf16": {"enabled": True},
+                "optimizer": {"type": "Adam", "params": {"lr": 1e-3}},
+                "data_pipeline": {"enabled": staged}})
+        first = next(iter(loader))
+        assert first[0].is_pinned() and not first[0].is_cuda
+        it = iter(loader)
+        losses = [float(engine.train_batch(it)) for _ in range(4)]
+        assert (engine._stager is not None) == staged
+        runs.append((losses, [p.detach().clone() for p in
+                              engine.module.parameters()],
+                     engine._rng.get_state()))
+        engine.close_data_pipeline()
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    assert torch.equal(runs[0][2], runs[1][2])
+
+
+@pytest.mark.cuda
+def test_stager_copy_overlaps_a_held_compute_stream(cuda):
+    """With the compute stream held in a spin kernel, the window the
+    stager stages meanwhile finishes its copy before the spin does: the
+    copy runs on the copy stream, beside the compute stream's work (a
+    copy queued on the compute stream would wait for the spin)."""
+    from deepspeed_tpu_torch.runtime.staging import WindowStager
+
+    host = [(torch.arange(i * 4096, (i + 1) * 4096).reshape(4, 1024),)
+            for i in range(4)]
+    stager = WindowStager(iter(host), accum=1, device=cuda, buffers=2)
+    try:
+        stager.get_window().wait()  # windows 1 and 2 staged: slots warm
+        torch.cuda.synchronize()
+        held = torch.cuda.Event()
+        torch.cuda._sleep(1_000_000_000)
+        held.record()
+        before = list(stager._slot_events)
+        window = stager.get_window()  # frees a slot: window 3 is staged
+        deadline = time.monotonic() + 30.0
+        while all(e is b for e, b in zip(stager._slot_events, before)):
+            assert time.monotonic() < deadline, "window 3 was not staged"
+            time.sleep(0.001)
+        new = [e for e, b in zip(stager._slot_events, before) if e is not b]
+        new[0].synchronize()
+        assert not held.query(), "the copy waited for the compute stream"
+        window.wait()
+        torch.cuda.synchronize()
+        assert torch.equal(window.arrays[0][0].cpu(), host[1][0])
+    finally:
+        stager.close()
+
+
+@pytest.mark.cuda
+def test_loader_staged_training_equals_unstaged_at_accum_1_on_the_card(
+        cuda):
+    """At one micro-batch a window the loader stages its own batches (on
+    the card when handed over) and train_batch adds no stager; the run
+    equals the unstaged one bit for bit with dropout on, and
+    close_data_pipeline stops the loader's stager."""
+    import numpy as np
+
+    ids = np.random.default_rng(0).integers(0, 256, (12, 256))
+    runs = []
+    for staged in (False, True):
+        model = GPT2LMHeadModel(GPT2Config(
+            vocab_size=256, n_positions=256, n_embd=128, n_layer=2,
+            n_head=2, dropout=0.1), device=cuda)
+        engine, _, loader, _ = deepspeed_tpu_torch.initialize(
+            model=model, training_data=(ids, ids.copy()), config_params={
+                "train_micro_batch_size_per_gpu": 2,
+                "gradient_accumulation_steps": 1,
+                "bf16": {"enabled": True},
+                "optimizer": {"type": "Adam", "params": {"lr": 1e-3}},
+                "data_pipeline": {"enabled": staged}})
+        it = iter(loader)
+        first = next(it)
+        assert first[0].is_cuda == staged
+        assert first[0].is_pinned() != staged
+        losses = [float(engine.train_batch(it)) for _ in range(5)]
+        assert engine._stager is None
+        assert (getattr(it, "stager", None) is not None) == staged
+        runs.append((losses, [p.detach().clone() for p in
+                              engine.module.parameters()],
+                     engine._rng.get_state()))
+        engine.close_data_pipeline()
+        if staged:
+            assert it.stager.closed
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    assert torch.equal(runs[0][2], runs[1][2])

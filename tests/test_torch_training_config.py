@@ -122,8 +122,13 @@ def _tiny():
 @pytest.mark.parametrize("extra", [
     {"zero_optimization": {"stage": 1,
                            "offload_optimizer": {"device": "cpu"}}},
-    {"data_pipeline": {"curriculum_learning": {"enabled": True}}},
-    {"compile_cache": {"enabled": True}},
+    # the data_pipeline and compile_cache blocks are ported; these two
+    # places hold what stays refused: ZeRO-3 with optimizer offload, and
+    # partition_activations on a model-parallel mesh
+    {"zero_optimization": {"stage": 3,
+                           "offload_optimizer": {"device": "cpu"}}},
+    {"mesh": {"model_parallel_size": 2},
+     "activation_checkpointing": {"partition_activations": True}},
     {"mesh": {"data_parallel_size": 2}},
     {"zero_optimization": {"stage": 2,
                            "offload_optimizer": {"device": "cpu"}}},
@@ -162,18 +167,27 @@ def test_engine_accepts_and_arms_the_resilience_block(block, armed):
 def test_engine_refuses_model_features_that_are_not_ported(field, value):
     model = _tiny()
     setattr(model.config, field, value)
+    if field == "remat":
+        # remat is ported; a JAX remat policy the port cannot map is not
+        model.config.remat_policy = "save_only_these_names"
     with pytest.raises(DeepSpeedConfigError, match="not yet ported"):
         deepspeed_tpu_torch.initialize(
             model=model, config_params={"train_batch_size": 2}, device="cpu")
 
 
 def test_engine_refuses_data_checkpoints_and_a_second_device(tmp_path):
-    """The dataloader and a mesh are refused; checkpoints are ported
-    (save, then load into a fresh engine)."""
+    """A loader over a mesh and a mesh are refused; the data loader and
+    checkpoints are ported (initialize() returns the loader; save, then
+    load into a fresh engine)."""
+    from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
+
     cfg = {"train_batch_size": 2}
     with pytest.raises(DeepSpeedConfigError, match="not yet ported"):
-        deepspeed_tpu_torch.initialize(model=_tiny(), config_params=cfg,
-                                       training_data=[1, 2], device="cpu")
+        DeepSpeedDataLoader([1, 2], batch_size=1, mesh=object())
+    _, _, loader, _ = deepspeed_tpu_torch.initialize(
+        model=_tiny(), config_params=cfg, training_data=[1, 2],
+        device="cpu")
+    assert isinstance(loader, DeepSpeedDataLoader) and len(loader) == 1
     with pytest.raises(DeepSpeedConfigError, match="not yet ported"):
         deepspeed_tpu_torch.initialize(model=_tiny(), config_params=cfg,
                                        mesh=object(), device="cpu")
