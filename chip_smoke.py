@@ -226,11 +226,48 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                window 2: grads.nan in window 3 and then one staging.worker
                death each roll it back, and its losses, parameters and seed
                generator equal an unpoisoned run's bit for bit.
-  9. report  — a JSON line of per-kernel numbers (the D = 256 and decode
-               tail variants in entries of their own; the launches of
-               every path, phases 10 and 11 included), the nvidia-smi
-               line, then the last line {"ok": true, "device": {...}}. It
-               comes after phase 11.
+  12. BERT and the optimizer state layouts — (a) the flash forward, dQ
+               and dK/dV non-causal at BERT-large's shape (B=8, H=16,
+               S=512, D=64) with a padding mask of ragged lengths and a
+               dead row, dropout 0 and 0.1, float32, bfloat16 and float16,
+               against their plain versions at phase 3b's tolerances (the
+               dead row exact zeros); their times (rows 1b-3b) beside SDPA
+               with the same boolean mask and the bound of this mask's
+               visible pairs; flash against mha_reference, forward and
+               backward, at seq 128, 256, 384 and 512 (where
+               FLASH_MIN_SEQ belongs). (b) BERT-large (24 x 1024, 16
+               heads, vocab 30592) pretraining at seq 512 through
+               initialize(): lengths drawn in 128-512, 15% masked-LM
+               labels, NSP labels, bf16, dropout 0.1, FusedLamb, 8 x 2
+               micro-batches, 4 windows on one batch: the loss finite and
+               falling, 24 forward, dQ and dK/dV launches a micro-step and
+               LAMB's launches a step (6), step ms, peak memory and a
+               profiled window's idle share; then one float32 micro-step
+               of BERT-large cut to 2 layers, gradients through the
+               kernels against the plain versions. (c) BERT-large QA at
+               seq 384, Adam, 3 windows (the loss falls), then the
+               trained module's train=False start/end logits through the
+               kernels against the plain versions. (d) GPT-2 small at
+               phase 5's shape, weights on the bf16 grid, 3 windows each
+               of Adam (fp32 state), bf16 and int8 moments, compensated
+               masters, bf16 parameters without codes, optimizer offload,
+               Lion and SGD (momentum 0.9): step ms and peak memory (reset
+               before each run); every loss finite and falling; offload
+               equal to the fp32 Adam run bit for bit (losses, masters,
+               published parameters); compensated nearer the fp32 run
+               (parameters and losses) than bf16 parameters without
+               codes; int8 and offload save, and a fresh engine loads and
+               trains one window bit for bit (offload's state back in
+               pinned memory). ``--only-phase12`` builds the kernels and
+               runs this phase alone.
+  9. report  — a JSON line of per-kernel numbers (the D = 256, decode
+               tail and BERT (rows 1b-3b) variants in entries of their
+               own; the launches of every path, phases 10 to 12
+               included), the nvidia-smi line, then the last line {"ok":
+               true, "device": {...}}. It comes after phase 12.
+
+``--only-phase12`` builds every kernel and runs phase 12 alone, printing
+its numbers as one JSON line.
 
 ``--cold-telemetry`` runs one telemetry-on training run whose first
 window builds the kernels in an empty build directory under a 5 s
@@ -4132,6 +4169,645 @@ def phase_data_remat(seed, card):
                       "remat": remat, "supervised": supervised}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: BERT (non-causal padded flash) and the optimizer state layouts
+# ---------------------------------------------------------------------------
+BERT_SHAPE = (8, 16, 512, 64)  # B, H, S, D: BERT-large, micro-batch 8
+BERT_SEQ, BERT_QA_SEQ = 512, 384
+BERT_WINDOWS, BERT_QA_WINDOWS, LAYOUT_WINDOWS = 4, 3, 3
+BERT_LR = 1e-3
+CROSSOVER_SEQS = (128, 256, 384, 512)
+# lengths of BERT_SHAPE's rows for the kernel checks: full, ragged and a
+# dead row (index 2)
+BERT_LENGTHS = (512, 300, 0, 129, 511, 128, 400, 64)
+
+
+def bert_mask(device, lengths, s):
+    mask = torch.zeros(len(lengths), s, dtype=torch.int32, device=device)
+    for row, n in enumerate(lengths):
+        mask[row, :n] = 1
+    return mask
+
+
+def check_flash_bert(device, gen):
+    """flash_fwd, flash_bwd_dq and flash_bwd_dkv non-causal at BERT-large's
+    shape with the padding mask (ragged lengths, a dead row), dropout 0 and
+    0.1, float32, bfloat16 and float16, against their plain versions at
+    phase 3b's tolerances; the dead row's output and gradients exact zeros.
+    Returns the max errors by (kernel, dtype)."""
+    from deepspeed_tpu_torch.ops import attention as A
+
+    b, h, s, d = BERT_SHAPE
+    mask = bert_mask(device, BERT_LENGTHS, s)
+    dead = BERT_LENGTHS.index(0)
+    base = [torch.randn(b, h, s, d, device=device, generator=gen)
+            for _ in range(4)]
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        q, k, v, dout = (t.to(dtype) for t in base)
+        for rate in (0.0, DROPOUT):
+            tag = f"{str(dtype)[6:]} non-causal mask" + (
+                "+dropout" if rate else "")
+            args = (q, k, v, mask, False, None, rate, 2468)
+            out, lse = A.flash_fwd(*args)
+            torch.cuda.synchronize()
+            ref, ref_lse = A.flash_fwd_plain(*args)
+            err = check_close(f"flash_fwd {tag}", out, ref, dtype)
+            errs[("flash_fwd", dtype)] = max(errs.get(("flash_fwd", dtype),
+                                                  0.0), err)
+            rows = ref_lse > -1e29
+            check_close(f"flash_fwd {tag} lse", lse[rows], ref_lse[rows],
+                        torch.float32)
+            if not bool((out[dead] == 0).all()):
+                fail(f"flash_fwd {tag}: the dead row is not exact zeros")
+            delta = (dout.float() * ref.float()).sum(dim=-1)
+            bargs = (q, k, v, mask, dout, ref_lse, delta, False, None, rate,
+                     2468)
+            got = (A.flash_bwd_dq(*bargs), *A.flash_bwd_dkv(*bargs))
+            torch.cuda.synchronize()
+            want = (A.flash_bwd_dq_plain(*bargs),
+                    *A.flash_bwd_dkv_plain(*bargs))
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                kernel = "flash_bwd_dq" if name == "dq" else "flash_bwd_dkv"
+                err = check_close(f"{kernel} {name} {tag}", g, w, dtype,
+                                  scaled=True)
+                errs[(kernel, dtype)] = max(errs.get((kernel, dtype), 0.0),
+                                            err)
+                if not bool((g[dead] == 0).all()):
+                    fail(f"{kernel} {name} {tag}: the dead row's gradient "
+                         "is not exact zeros")
+            del out, lse, ref, ref_lse, delta, got, want
+    return errs
+
+
+def time_flash_bert(device, gen, timer, errs):
+    """Rows 1b-3b: the three kernels at BERT-large's shape, bf16,
+    non-causal with the padding mask and dropout 0.1: Timer both ways, the
+    plain version, SDPA with the same boolean mask (forward; its whole
+    backward) and the bound of this mask's visible pairs."""
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops import attention as A
+
+    b, h, s, d = BERT_SHAPE
+    bf = torch.bfloat16
+    mask = bert_mask(device, BERT_LENGTHS, s)
+    q, k, v, dout = (torch.randn(b, h, s, d, device=device, generator=gen)
+                     .to(bf) for _ in range(4))
+    out, lse = A.flash_fwd(q, k, v, mask, False, None, DROPOUT, 11)
+    delta = (dout.float() * out.float()).sum(dim=-1)
+    keep = (mask != 0)[:, None, None, :]
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=keep,
+                                              dropout_p=DROPOUT)
+    lib = {
+        "fwd": lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=keep, dropout_p=DROPOUT),
+        "bwd": lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), dout,
+                                           retain_graph=True),
+    }
+    lib_ms = {key: (timer.ms(fn), timer.ms(fn, spin=True))
+              for key, fn in lib.items()}
+    fargs = (q, k, v, mask, False, None, DROPOUT, 11)
+    bargs = (q, k, v, mask, dout, lse, delta, False, None, DROPOUT, 11)
+    shape = ("B=8 H=16 S=512 D=64 non-causal, padding mask (lengths "
+             f"{list(BERT_LENGTHS)}), dropout 0.1, bf16")
+    bwd_lib = ("scaled_dot_product_attention backward with the same "
+               "boolean mask (dQ, dK and dV together), dropout 0.1")
+    out_rows = {}
+    for name, src, tpu, fn, plain, args, which, key, lib_name in (
+        ("flash_fwd", FLASH_SOURCE, FLASH_TPU, A.flash_fwd, A.flash_fwd_plain,
+         fargs, "fwd", "fwd", "scaled_dot_product_attention forward with "
+         "the same boolean mask, dropout 0.1"),
+        ("flash_bwd_dq", BWD_SOURCE, DQ_TPU, A.flash_bwd_dq,
+         A.flash_bwd_dq_plain, bargs, "dq", "bwd", bwd_lib),
+        ("flash_bwd_dkv", BWD_SOURCE, DKV_TPU, A.flash_bwd_dkv,
+         A.flash_bwd_dkv_plain, bargs, "dkv", "bwd", bwd_lib),
+    ):
+        nbytes, flops = flash_work(q, mask, False, which)
+        b_ms, b_by = bound(nbytes, flops, bf)
+        call = lambda: fn(*args)
+        out_rows[f"{name} bert"] = dict(
+            name=f"{name} bert", route="cuda",
+            route_detail=ROUTE[name] + "; non-causal, padding mask",
+            source=src, replaces=tpu, tpu_kernel=tpu, shape=shape,
+            max_abs_err=errs[(name, bf)],
+            max_abs_err_f32=errs[(name, torch.float32)],
+            max_abs_err_f16=errs[(name, torch.float16)],
+            ms=timer.ms(call), device_ms=timer.ms(call, spin=True),
+            plain_ms=timer.ms(lambda: plain(*args), iters=3, warmup=1),
+            library_ms=lib_ms[key][0], library_device_ms=lib_ms[key][1],
+            library=lib_name, bound_ms=b_ms, bound_by=b_by,
+            bound_bytes=nbytes, bound_flops=flops)
+        log(f"  {name} bert: {json.dumps(out_rows[f'{name} bert'])}")
+    del out, lse, delta, qg, kg, vg, sdpa_out
+    return out_rows
+
+
+def flash_crossover(device, gen, timer):
+    """Flash (forward + backward through the kernels) against
+    mha_reference (forward + backward through PyTorch) at BERT-large's
+    attention (B=8, H=16, D=64, bf16, a padding mask of lengths 3/4 of S
+    and S, no dropout) at each of CROSSOVER_SEQS: where FLASH_MIN_SEQ
+    should sit on this card. Timer both ways: as it gives it (host
+    enqueue and autograd included) and behind a 20M-cycle spin (the
+    device work alone)."""
+    from deepspeed_tpu_torch.ops import attention as A
+
+    out = {}
+    b, h, _, d = BERT_SHAPE
+    for s in CROSSOVER_SEQS:
+        q, k, v, dout = (torch.randn(b, h, s, d, device=device, generator=gen)
+                         .to(torch.bfloat16).requires_grad_()
+                         for _ in range(4))
+        mask = bert_mask(device, [s, s * 3 // 4] * (b // 2), s)
+        additive = torch.where(mask[:, None, None, :] > 0, 0.0,
+                               A.NEG_INF).float()
+
+        def flash():
+            o = A.flash_attention(q, k, v, kv_mask=mask)
+            return torch.autograd.grad(o, (q, k, v), dout)
+
+        def plain():
+            o = A.mha_reference(q, k, v, mask=additive)
+            return torch.autograd.grad(o, (q, k, v), dout)
+
+        out[s] = {"flash_ms": timer.ms(flash, iters=10),
+                  "mha_reference_ms": timer.ms(plain, iters=10),
+                  "flash_device_ms": timer.ms(flash, iters=10, spin=True,
+                                              spin_cycles=20_000_000),
+                  "mha_reference_device_ms": timer.ms(
+                      plain, iters=10, spin=True, spin_cycles=20_000_000)}
+        log(f"  seq {s}: flash fwd+bwd {out[s]['flash_ms']:.4f} ms "
+            f"(device {out[s]['flash_device_ms']:.4f}), mha_reference "
+            f"fwd+bwd {out[s]['mha_reference_ms']:.4f} ms (device "
+            f"{out[s]['mha_reference_device_ms']:.4f})")
+        del q, k, v, dout
+    return out
+
+
+def bert_batches(seed, cfg, seq, kind, micro=8, accum=2):
+    """``accum`` micro-batches of ``micro`` sequences on the card: lengths
+    drawn in [128, seq], ids in the valid positions (0 past them), two
+    segments, and for pretraining 15% of the valid positions as masked-LM
+    labels (the rest -100) and NSP labels, for QA start/end positions
+    inside the valid part."""
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for _ in range(accum):
+        lengths = torch.randint(128, seq + 1, (micro,), generator=g)
+        pos = torch.arange(seq)[None, :]
+        valid = pos < lengths[:, None]
+        ids = torch.where(valid, torch.randint(
+            1, cfg.vocab_size, (micro, seq), generator=g), 0)
+        tt = (pos >= (lengths[:, None] // 2)).long() * valid
+        mask = valid.int()
+        if kind == "pretraining":
+            pick = (torch.rand(micro, seq, generator=g) < 0.15) & valid
+            labels = torch.where(pick, ids, -100)
+            tail = (labels, torch.randint(0, 2, (micro,), generator=g))
+        else:
+            start = (torch.rand(micro, generator=g) * (lengths - 8)).long()
+            tail = (start, start + torch.randint(0, 8, (micro,),
+                                                 generator=g))
+        out.append(tuple(t.cuda() for t in (ids, mask, tt, *tail)))
+    return out
+
+
+def bert_config(optimizer, lr):
+    return {
+        "train_batch_size": 16,
+        "train_micro_batch_size_per_gpu": 8,
+        "gradient_accumulation_steps": 2,
+        "bf16": {"enabled": True},
+        "gradient_clipping": 1.0,
+        "optimizer": {"type": optimizer, "params": {"lr": lr,
+                                                    "weight_decay": 0.01}},
+        "steps_per_print": 1000,
+    }
+
+
+def lamb_launches_per_step(engine):
+    """FusedLamb's launches a step for the engine's groups: one per group
+    above multi_tensor_max, one for the rest when there are two or more."""
+    from deepspeed_tpu_torch.ops.optimizers import param_groups
+
+    limit = engine.optimizer_obj.multi_tensor_max
+    sizes = [sum(engine.params[n].numel() for n in names)
+             for names in param_groups(engine.params).values()]
+    small = sum(1 for n in sizes if limit and n <= limit)
+    return len(sizes) if small < 2 else len(sizes) - small + 1
+
+
+def bert_train(seed, card, kind, optimizer, lr, seq, windows, profile):
+    """initialize() on BERT-large at full width and depth and ``windows``
+    train_batch windows on one fixed batch: losses, window times, peak
+    memory, the launches of the run (counts set to 0 just before it) and
+    per micro-step, and a profiled window."""
+    import deepspeed_tpu_torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from deepspeed_tpu_torch import (BertConfig, BertForPreTraining,
+                                     BertForQuestionAnswering)
+
+    cfg = BertConfig.bert_large(max_position_embeddings=512)
+    cls = BertForPreTraining if kind == "pretraining" else (
+        BertForQuestionAnswering)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = cls(cfg, device="cuda", seed=seed)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=model, config_params=bert_config(optimizer, lr), rng_seed=seed)
+    micro = bert_batches(seed, cfg, seq, kind)
+    zero_launches()
+    losses, secs, _ = run_windows(engine, micro, windows)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  {kind}: losses {losses}; windows {secs} s; peak {peak} bytes; "
+        f"launches {launches}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"phase 12 {kind}: the loss is not finite or did not fall "
+             f"({losses})")
+    if engine.skipped_steps or engine.global_steps != windows:
+        fail(f"phase 12 {kind}: {engine.skipped_steps} skipped steps")
+    m = engine.micro_steps
+    want = {k: cfg.num_hidden_layers * m for k in TRAIN_KERNELS}
+    want["lamb_phase1"] = (lamb_launches_per_step(engine) * windows
+                           if optimizer == "FusedLamb" else 0)
+    if any(launches[k] != want[k] for k in want):
+        fail(f"phase 12 {kind}: launches {launches}, want {want}")
+    per_micro = {k: launches[k] / m for k in TRAIN_KERNELS}
+    per_micro["lamb_phase1_per_step"] = launches["lamb_phase1"] / windows
+    log(f"  {kind}: launches per micro-step {per_micro}")
+    prof_stats = None
+    if profile:
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            engine.train_batch(iter(micro))
+            torch.cuda.synchronize()
+            wall_ms = (time.monotonic() - t0) * 1e3
+        prof_stats = device_breakdown(prof, wall_ms)
+        log(json.dumps({f"bert_{kind}_profile": prof_stats}))
+        del prof
+    stats = {"losses": losses, "window_s": secs,
+             "step_ms": median(secs[1:]) * 1e3, "peak_bytes": peak,
+             "launches": launches, "launches_per_micro_step": per_micro,
+             "tokens_per_step": 16 * seq,
+             "profile_device_idle_share": (prof_stats or {}).get(
+                 "device_idle_share"),
+             "profile_device_ms_by_class": (prof_stats or {}).get(
+                 "device_ms_by_class")}
+    return engine, micro, stats
+
+
+def bert_grads_kernels_vs_plain(seed):
+    """One float32 micro-step of BERT-large cut to 2 layers at seq 512,
+    dropout 0, padded rows: gradients through the kernels against those
+    through the plain versions, max|diff| / max|plain| per parameter
+    within TOL[float32]. Returns the launches and the worst error."""
+    from deepspeed_tpu_torch import BertConfig, BertForPreTraining
+    from deepspeed_tpu_torch.ops import attention as A
+
+    import dataclasses
+
+    cfg = dataclasses.replace(
+        BertConfig.bert_large(hidden_dropout_prob=0.0,
+                              attention_probs_dropout_prob=0.0),
+        num_hidden_layers=2)
+    model = BertForPreTraining(cfg, device="cuda", seed=seed)
+    batch = bert_batches(seed, cfg, BERT_SEQ, "pretraining", accum=1)[0]
+
+    def grads(plain):
+        kernels = (A.flash_fwd, A.flash_bwd_dq, A.flash_bwd_dkv)
+        if plain:
+            A.flash_fwd, A.flash_bwd_dq, A.flash_bwd_dkv = (
+                A.flash_fwd_plain, A.flash_bwd_dq_plain,
+                A.flash_bwd_dkv_plain)
+        try:
+            loss = model(*batch, train=True)
+            return [g.float() for g in torch.autograd.grad(
+                loss, list(model.parameters()))]
+        finally:
+            A.flash_fwd, A.flash_bwd_dq, A.flash_bwd_dkv = kernels
+
+    zero_launches()
+    got = grads(False)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = grads(True)
+    err = max(float((a - w).abs().max() / w.abs().max().clamp_min(1e-30))
+              for a, w in zip(got, want))
+    log(f"  float32 BERT-large (2 layers) micro-step: gradients max|diff| / "
+        f"max|plain| {err:.3e} (tol {TOL[torch.float32]:g}); launches "
+        f"{launches}")
+    if err > TOL[torch.float32]:
+        fail("BERT float32 gradients through the kernels disagree with the "
+             "plain versions'")
+    if any(launches[k] != 2 for k in TRAIN_KERNELS):
+        fail(f"BERT 2-layer micro-step launches {launches}, want 2 each")
+    del model
+    return launches, err
+
+
+def bert_qa_logits_vs_plain(engine, micro):
+    """The trained QA module's train=False start/end logits (its float32
+    masters) through the kernels against the plain versions: the flash
+    forward launches once a layer, the logits within TOL[float32] of
+    their scale."""
+    from deepspeed_tpu_torch.ops import attention as A
+
+    model = engine.module
+    ids, mask, tt = micro[0][:3]
+    kernels = (A.flash_fwd, A.flash_bwd_dq, A.flash_bwd_dkv)
+    zero_launches()
+    with torch.no_grad():
+        got = model(ids, mask, tt, train=False)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        A.flash_fwd = A.flash_fwd_plain
+        try:
+            want = model(ids, mask, tt, train=False)
+        finally:
+            A.flash_fwd, A.flash_bwd_dq, A.flash_bwd_dkv = kernels
+    errs = [check_close(f"QA {name} logits (kernels vs plain)", g, w,
+                        torch.float32, scaled=True)
+            for name, g, w in zip(("start", "end"), got, want)]
+    if launches["flash_fwd"] != model.config.num_hidden_layers:
+        fail(f"QA eval forward launched {launches}")
+    return launches, max(errs)
+
+
+LAYOUT_RUNS = {
+    # name: (optimizer, lr, config extra, client optimizer)
+    "adam_fp32": ("Adam", 1e-4, {}, None),
+    "adam_bf16_state": ("Adam", 1e-4,
+                        {"data_types": {"optimizer_state_dtype": "bf16"}},
+                        None),
+    "adam_int8_state": ("Adam", 1e-4,
+                        {"data_types": {"optimizer_state_dtype": "int8"}},
+                        None),
+    "adam_compensated": ("Adam", 1e-4,
+                         {"data_types": {"master_dtype": "compensated"}},
+                         None),
+    # bf16 parameters without codes: compensated storage with a client
+    # Adam, which the engine leaves uncompensated (the JAX rule)
+    "adam_bf16_params": ("Adam", 1e-4,
+                         {"data_types": {"master_dtype": "compensated"}},
+                         "Adam"),
+    "adam_offload": ("Adam", 1e-4, {"zero_optimization": {
+        "offload_optimizer": {"device": "cpu"}}}, None),
+    "lion": ("Lion", 3e-5, {}, None),
+    "sgd": ("SGD", 1e-1, {}, None),
+}
+
+
+def layout_config(optimizer, lr, extra):
+    cfg = {
+        "train_batch_size": 16,
+        "train_micro_batch_size_per_gpu": 8,
+        "gradient_accumulation_steps": 2,
+        **BF16,
+        "gradient_clipping": 1.0,
+        "optimizer": {"type": optimizer, "params": dict(
+            {"lr": lr}, **({"momentum": 0.9} if optimizer == "SGD" else {}))},
+        "steps_per_print": 1000,
+    }
+    cfg.update(extra)
+    return cfg
+
+
+def layout_engine(seed, name):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
+    from deepspeed_tpu_torch.ops.optimizers import Adam
+
+    optimizer, lr, extra, client = LAYOUT_RUNS[name]
+    model = GPT2LMHeadModel(GPT2Config.small(dropout=DROPOUT), device="cuda",
+                            seed=seed)
+    with torch.no_grad():
+        # weights on the bf16 grid: every layout starts from the same
+        # values (compensated codes start at zero, as in the JAX engine,
+        # and would otherwise drop the init's rounding error)
+        for p in model.parameters():
+            p.copy_(p.to(torch.bfloat16))
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=model, config_params=layout_config(optimizer, lr, extra),
+        optimizer=Adam() if client else None, rng_seed=seed)
+    return engine
+
+
+def host_state(engine):
+    """The engine's masters, module parameters and optimizer state on the
+    host (for bit-for-bit comparisons)."""
+    def leaves(tree, prefix=""):
+        if isinstance(tree, torch.Tensor):
+            yield prefix, tree.detach().cpu()
+        elif isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from leaves(tree[k], f"{prefix}/{k}")
+
+    return {"params": {n: p.detach().cpu() for n, p in engine.params.items()},
+            "module": {n: p.detach().cpu()
+                       for n, p in engine.module_params.items()},
+            "state": dict(leaves(engine.optimizer_state))}
+
+
+def same_host_state(tag, got, want):
+    for part in ("params", "module", "state"):
+        if set(got[part]) != set(want[part]):
+            fail(f"{tag}: {part} names differ")
+        for n, w in want[part].items():
+            if got[part][n].dtype != w.dtype or not torch.equal(
+                    got[part][n], w):
+                fail(f"{tag}: {part} {n} differs")
+
+
+def layout_runs(seed, card):
+    """Phase 12d: GPT-2 small at full width and depth, phase 5's training
+    shape without a schedule, LAYOUT_WINDOWS windows of each layout on the
+    same fixed batch: the step ms, the peak memory (reset before each run)
+    and the launches; offload equal to the fp32 Adam run bit for bit;
+    compensated nearer the fp32 run than bf16 parameters without codes;
+    int8 and offload resume bit for bit through a checkpoint."""
+    import tempfile
+
+    from deepspeed_tpu_torch import GPT2Config
+
+    from deepspeed_tpu_torch.ops import quant
+
+    micro = train_batches(seed, GPT2Config.small().vocab_size)
+    out, masters, resume = {}, {}, {}
+    root = tempfile.mkdtemp(prefix="ds_layouts_")
+    try:
+        for name in LAYOUT_RUNS:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            engine = layout_engine(seed, name)
+            zero_launches()
+            losses, secs, _ = run_windows(engine, micro, LAYOUT_WINDOWS)
+            launches = read_launches()
+            peak = torch.cuda.max_memory_allocated()
+            log(f"  {name}: losses {losses}; windows {secs} s; peak {peak} "
+                f"bytes")
+            if not all(math.isfinite(x) for x in losses) or not (
+                    losses[-1] < losses[0]):
+                fail(f"phase 12d {name}: the loss is not finite or did not "
+                     f"fall ({losses})")
+            check_launches(f"phase 12d {name}", launches, engine.micro_steps)
+            out[name] = {"losses": losses, "window_s": secs,
+                         "step_ms": median(secs[1:]) * 1e3,
+                         "peak_bytes": peak, "launches": launches}
+            state = host_state(engine)
+            if name == "adam_compensated":
+                # the master the codes carry
+                comp = engine.optimizer_state["comp"]
+                state["params"] = {
+                    n: quant.decode_master(p.detach(), comp[n]).cpu()
+                    for n, p in engine.params.items()}
+            masters[name] = state
+            if name == "adam_offload":
+                compare_offload(state, masters["adam_fp32"])
+            if name in ("adam_int8_state", "adam_offload"):
+                resume[name] = resume_check(seed, name, engine, micro, root)
+            del engine
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    base = masters["adam_fp32"]["params"]
+    if out["adam_offload"]["losses"] != out["adam_fp32"]["losses"]:
+        fail("phase 12d: offload's losses differ from the on-device Adam "
+             "run's")
+    log("  offload == on-device Adam: losses, masters and published "
+        "parameters bit for bit")
+
+    # compensated against bf16 parameters without codes, both against the
+    # fp32-master run: parameter distance and loss gap
+    def distance(params):
+        return math.sqrt(sum(float(((params[n].float() - base[n]) ** 2).sum())
+                             for n in base))
+
+    dist = {k: distance(masters[k]["params"])
+            for k in ("adam_compensated", "adam_bf16_params")}
+    gap = {k: sum(abs(a - b) for a, b in zip(out[k]["losses"],
+                                             out["adam_fp32"]["losses"]))
+           for k in dist}
+    log(f"  distance to the fp32 masters {dist}; summed loss gap {gap}")
+    if not dist["adam_compensated"] < dist["adam_bf16_params"]:
+        fail("phase 12d: compensated parameters are not nearer the fp32 "
+             "masters than bf16 parameters without codes")
+    if not gap["adam_compensated"] <= gap["adam_bf16_params"]:
+        fail("phase 12d: compensated losses track the fp32 run no closer "
+             "than bf16 parameters without codes")
+    del masters
+    torch.cuda.empty_cache()
+    return out, {"distance_to_fp32_masters": dist, "loss_gap": gap,
+                 "resume": resume}
+
+
+def compare_offload(offload, base):
+    """Offload's masters against the on-device Adam run's, and its device
+    parameters against those masters in bf16, bit for bit."""
+    for n, p in base["params"].items():
+        if not torch.equal(offload["params"][n], p):
+            fail(f"phase 12d: offload's master {n} differs from the "
+                 "on-device Adam run's")
+        if not torch.equal(offload["module"][n], p.to(torch.bfloat16)):
+            fail(f"phase 12d: offload's published {n} is not the master "
+                 "in bf16")
+
+
+def resume_check(seed, name, engine, micro, root):
+    """Save after the run's windows, train one more window; a fresh engine
+    of another seed loads the checkpoint and trains the same window: the
+    loss, masters, parameters and every state tensor bit for bit."""
+    t0 = time.monotonic()
+    engine.save_checkpoint(root, tag=name)
+    save_s = time.monotonic() - t0
+    cont = run_windows(engine, micro, 1)[0]
+    want = host_state(engine)
+    fresh = layout_engine(seed + 1, name)
+    fresh.load_checkpoint(root, tag=name)
+    got = run_windows(fresh, micro, 1)[0]
+    if got != cont:
+        fail(f"phase 12d {name}: resumed loss {got} != {cont}")
+    same_host_state(f"phase 12d {name} resume", host_state(fresh), want)
+    if name == "adam_offload" and not all(
+            p.is_pinned() for p in fresh.params.values()):
+        fail("phase 12d: restored offload masters are not pinned")
+    log(f"  {name}: resumed bit for bit (save {save_s:.2f} s)")
+    del fresh
+    shutil.rmtree(os.path.join(root, name), ignore_errors=True)
+    return {"loss": cont, "save_s": save_s}
+
+
+def phase_bert_layouts(seed, card):
+    """Phase 12. Returns ({kernel: {path: launches}}, stats, rows 1b-3b)."""
+    device = torch.device("cuda")
+    gen = torch.Generator(device=device).manual_seed(seed + 12)
+    timer = Timer(device)
+    log("phase 12a: flash forward, dQ and dK/dV non-causal with a padding "
+        "mask at BERT-large's shape vs plain")
+    errs = check_flash_bert(device, gen)
+    rows = time_flash_bert(device, gen, timer, errs)
+    log("phase 12a: the FLASH_MIN_SEQ crossover (flash vs mha_reference, "
+        "forward + backward)")
+    crossover = flash_crossover(device, gen, timer)
+    del timer
+    torch.cuda.empty_cache()
+    launches = {name: {} for name in launch_counters()}
+    log(f"phase 12b: BERT-large pretraining, seq {BERT_SEQ}, FusedLamb, "
+        f"bf16, dropout 0.1, micro-batch 8 x 2, {BERT_WINDOWS} windows")
+    engine, _, pre = bert_train(seed, card, "pretraining", "FusedLamb",
+                                BERT_LR, BERT_SEQ, BERT_WINDOWS, True)
+    coeffs = engine.lamb_coeffs
+    if not bool(torch.isfinite(coeffs).all()):
+        fail("phase 12b: LAMB trust ratios not finite")
+    pre["lamb_coeffs_min_max"] = [float(coeffs.min()), float(coeffs.max())]
+    pre["lamb_launches_per_step"] = lamb_launches_per_step(engine)
+    del engine
+    torch.cuda.empty_cache()
+    for name, n in pre["launches"].items():
+        launches[name]["bert_pretraining"] = n
+    log("phase 12b: one float32 micro-step, kernels vs plain (2 layers)")
+    f32_launches, grad_err = bert_grads_kernels_vs_plain(seed)
+    pre["f32_grad_max_rel_err"] = grad_err
+    for name, n in f32_launches.items():
+        launches[name]["bert_f32_grads"] = n
+    torch.cuda.empty_cache()
+    log(f"phase 12c: BERT-large QA, seq {BERT_QA_SEQ}, Adam, "
+        f"{BERT_QA_WINDOWS} windows")
+    engine, micro, qa = bert_train(seed, card, "qa", "Adam", 1e-4,
+                                   BERT_QA_SEQ, BERT_QA_WINDOWS, False)
+    for name, n in qa["launches"].items():
+        launches[name]["bert_qa"] = n
+    eval_launches, qa["eval_logits_max_rel_err"] = bert_qa_logits_vs_plain(
+        engine, micro)
+    for name, n in eval_launches.items():
+        launches[name]["bert_qa_eval"] = n
+    del engine, micro
+    torch.cuda.empty_cache()
+    log(f"phase 12d: optimizer state layouts on GPT-2 small, "
+        f"{LAYOUT_WINDOWS} windows each")
+    layouts, layout_checks = layout_runs(seed, card)
+    for run, r in layouts.items():
+        for name, n in r["launches"].items():
+            launches[name][f"layout_{run}"] = n
+    for row in rows.values():
+        row["launches"] = sum(
+            launches[row["name"].split()[0]].get(p, 0)
+            for p in ("bert_pretraining", "bert_qa", "bert_qa_eval",
+                      "bert_f32_grads"))
+        row["launches_by_path"] = {
+            p: launches[row["name"].split()[0]].get(p, 0)
+            for p in ("bert_pretraining", "bert_qa", "bert_qa_eval",
+                      "bert_f32_grads")}
+    return launches, {"card": card, "crossover": crossover,
+                      "bert_pretraining": pre, "bert_qa": qa,
+                      "layouts": layouts, "layout_checks": layout_checks}, rows
+
+
 def only_flash(device, seed):
     """``--only-flash``: the flash kernels built alone (ptxas's registers
     and spills printed) and timed as time_flash times them (bf16, causal,
@@ -4206,6 +4882,9 @@ def main():
                         help="build LAMB phase 1 and SGMV alone and print "
                         "their timings (to time another checkout the same "
                         "way)")
+    parser.add_argument("--only-phase12", action="store_true",
+                        help="build every kernel and run phase 12 alone "
+                        "(BERT and the optimizer state layouts)")
     parser.add_argument("--cold-telemetry", action="store_true",
                         help="one telemetry-on training run whose first "
                         "window builds the kernels in an empty build "
@@ -4256,6 +4935,13 @@ def main():
                           "card": smi}))
         return
 
+    if args.only_phase12:
+        kernel_lib.build()
+        launches, stats, rows = phase_bert_layouts(args.seed, smi)
+        print(json.dumps({"phase12": stats, "rows": rows,
+                          "launches": launches, "card": smi}))
+        return
+
     # phase 2: build
     t0 = time.monotonic()
     built = kernel_lib.build()
@@ -4284,12 +4970,15 @@ def main():
     tel_launches, tel_stats = phase_telemetry(args.seed, smi)
     res_launches, res_stats = phase_resilience(args.seed, smi)
     data_launches, data_stats = phase_data_remat(args.seed, smi)
+    bert_launches, bert_stats, bert_rows = phase_bert_layouts(args.seed, smi)
     for path, counts in [("serve", serve_launches),
                          *adapter_launches.items(), *hd_launches.items(),
                          *tel_launches.items(), *res_launches.items()]:
         for name, n in counts.items():
             launches[name][path] = n
     for name, by_path in data_launches.items():
+        launches[name].update(by_path)
+    for name, by_path in bert_launches.items():
         launches[name].update(by_path)
     for name, by_path in launches.items():
         kernels[name]["launches"] = sum(by_path.values())
@@ -4350,10 +5039,13 @@ def main():
                           hd_launches["hd8_serve"]["paged_decode"]},
         **tail[8], library_ms=None, library=None,
         tails={hd: tail[hd] for hd in HD_TAIL})
+    # rows 1b-3b: BERT's non-causal padded attention, with the launches of
+    # phase 12's BERT paths
+    kernels.update(bert_rows)
     log(json.dumps({"slice": slice_stats, "train": train_stats,
                     "adapters": adapter_stats, "card": smi,
                     "telemetry": tel_stats, "resilience": res_stats,
-                    "data_remat": data_stats,
+                    "data_remat": data_stats, "bert_layouts": bert_stats,
                     "head_dims": {k: v for k, v in hd_stats.items()
                                   if k not in ("flash", "flash_wide",
                                                "flash_d128",

@@ -15,16 +15,22 @@ and hand its weights or its adapter to a serving engine. The data path
 (``runtime/dataloader.py``, the staged loader of ``runtime/staging.py``
 on a copy stream) and activation checkpointing (GPT-2's ``remat``, the
 transformer's memory modes, ``checkpointing.py``) let it train from a
-dataset and trade recompute for memory. The package imports ``torch`` and
-never ``jax`` or ``deepspeed_tpu``.
+dataset and trade recompute for memory. Every optimizer of the JAX
+package (Adam, AdamW, Lamb, FusedLamb, SGD, Lion) and its state layouts
+(bf16/int8 moments, compensated masters, optimizer offload to pinned
+host memory) train through ``initialize``, and so does BERT
+(``BertForPreTraining``, ``BertForQuestionAnswering``), whose padded,
+non-causal attention runs through the same flash kernels. The package
+imports ``torch`` and never ``jax`` or ``deepspeed_tpu``.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``,
 which runs each kernel's plain PyTorch version instead.
 """
 
 from .config.config import DeepSpeedConfig, DeepSpeedConfigError
-from .convert import adapters_from_jax, params_from_jax
+from .convert import adapters_from_jax, bert_params_from_jax, params_from_jax
 from .inference.engine import InferenceEngine, init_inference
+from .models.bert import BertConfig, BertForPreTraining, BertForQuestionAnswering
 from .models.gpt2 import GPT2Config, GPT2LMHeadModel
 from .runtime.dataloader import DeepSpeedDataLoader
 from .runtime.engine import DeepSpeedEngine, EngineOptimizerFacade
@@ -57,6 +63,10 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
 
 __all__ = [
     "adapters_from_jax",
+    "bert_params_from_jax",
+    "BertConfig",
+    "BertForPreTraining",
+    "BertForQuestionAnswering",
     "DeepSpeedConfig",
     "DeepSpeedConfigError",
     "DeepSpeedDataLoader",

@@ -527,6 +527,10 @@ class DeepSpeedConfig:
         self.zero_enabled = (
             isinstance(stage, int) and not isinstance(stage, bool) and stage > 0
         )
+        self.zero_allow_untested_optimizer = get_scalar_param(
+            pd, C.ZERO_ALLOW_UNTESTED_OPTIMIZER,
+            C.ZERO_ALLOW_UNTESTED_OPTIMIZER_DEFAULT,
+        )
         # parsed only: remat is not ported (the engine refuses a model
         # that asks for it)
         self.activation_checkpointing_config = (

@@ -27,11 +27,14 @@ SCHEDULER_PARAMS = "params"
 ADAM_OPTIMIZER = "adam"
 ADAMW_OPTIMIZER = "adamw"
 LAMB_OPTIMIZER = "lamb"
+SGD_OPTIMIZER = "sgd"
+LION_OPTIMIZER = "lion"
 FUSED_LAMB_OPTIMIZERS = ("fusedlamb", "fused_lamb")
-# optimizers the port's engine builds by name; the JAX package also has
-# SGD and Lion, which the port refuses until they are ported
+# optimizers the port's engine builds by name: every one of the JAX
+# package's
 PORTED_OPTIMIZERS = (
-    ADAM_OPTIMIZER, ADAMW_OPTIMIZER, LAMB_OPTIMIZER, *FUSED_LAMB_OPTIMIZERS,
+    ADAM_OPTIMIZER, ADAMW_OPTIMIZER, LAMB_OPTIMIZER, SGD_OPTIMIZER,
+    LION_OPTIMIZER, *FUSED_LAMB_OPTIMIZERS,
 )
 
 # the data loader's routes (deepspeed_io): a train loader shuffles
@@ -125,6 +128,9 @@ ZERO_MASTER_WEIGHTS = "master_weights"
 ZERO_MASTER_WEIGHTS_DEFAULT = True
 
 ZERO_OFFLOAD_OPTIMIZER = "offload_optimizer"
+ZERO_ALLOW_UNTESTED_OPTIMIZER = "zero_allow_untested_optimizer"
+ZERO_ALLOW_UNTESTED_OPTIMIZER_DEFAULT = False
+ZERO_TESTED_OPTIMIZERS = (ADAM_OPTIMIZER, ADAMW_OPTIMIZER, LAMB_OPTIMIZER)
 ZERO_OFFLOAD_DEVICE = "device"
 ZERO_OFFLOAD_DEVICE_DEFAULT = "none"
 

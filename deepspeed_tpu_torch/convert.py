@@ -1,4 +1,5 @@
-"""Carry the JAX package's GPT-2 parameters into the port's modules.
+"""Carry the JAX package's GPT-2 and BERT parameters into the port's
+modules.
 
 The JAX tree (``GPT2LMHeadModel.init(...)["params"]``, as numpy arrays)
 is ``transformer/{wte, wpe, ln_f/{scale, bias}, h/<12 keys>}``: the block
@@ -9,6 +10,11 @@ is the only place that transposes them. The LoRA factors keep the JAX
 orientation, A ``[in, r]`` and B ``[r, out]`` (delta = ``(x @ A) @ B``),
 in the adapter pool and in per-layer parameters alike, so
 :func:`adapters_from_jax` only unstacks layers and never transposes.
+:func:`bert_params_from_jax` does for BERT what :func:`params_from_jax`
+does for GPT-2: ``bert/encoder/layer/<12 keys>`` unstacked into
+``bert.encoder.layer.<i>.<key>`` (matrices transposed), flax's Dense
+``kernel`` [in, out] into ``weight`` [out, in] and LayerNorm ``scale``
+into ``weight``.
 """
 
 import numpy as np
@@ -18,28 +24,65 @@ import torch
 _MATRICES = ("attn_qkvw", "attn_ow", "inter_w", "output_w")
 
 
-def params_from_jax(tree):
-    """JAX GPT-2 parameter tree (numpy leaves) -> a state dict for
-    :class:`deepspeed_tpu_torch.models.gpt2.GPT2LMHeadModel` (float32 CPU
-    tensors; ``load_state_dict`` casts and moves them)."""
-    tp = tree["transformer"]
+def _tensor(a):
+    return torch.from_numpy(np.array(a, dtype=np.float32))
 
-    def tensor(a):
-        return torch.from_numpy(np.array(a, dtype=np.float32))
 
-    state = {
-        "wte": tensor(tp["wte"]),
-        "wpe": tensor(tp["wpe"]),
-        "ln_f.weight": tensor(tp["ln_f"]["scale"]),
-        "ln_f.bias": tensor(tp["ln_f"]["bias"]),
-    }
-    for name, stacked in tp["h"].items():
+def _unstack_blocks(stacked_tree, prefix, state):
+    """A JAX block tree stacked over layers into ``prefix.<i>.<key>``."""
+    for name, stacked in stacked_tree.items():
         stacked = np.asarray(stacked)
         for i in range(stacked.shape[0]):
             leaf = stacked[i]
             if name in _MATRICES:
                 leaf = leaf.T
-            state[f"h.{i}.{name}"] = tensor(leaf)
+            state[f"{prefix}.{i}.{name}"] = _tensor(leaf)
+
+
+def params_from_jax(tree):
+    """JAX GPT-2 parameter tree (numpy leaves) -> a state dict for
+    :class:`deepspeed_tpu_torch.models.gpt2.GPT2LMHeadModel` (float32 CPU
+    tensors; ``load_state_dict`` casts and moves them)."""
+    tp = tree["transformer"]
+    state = {
+        "wte": _tensor(tp["wte"]),
+        "wpe": _tensor(tp["wpe"]),
+        "ln_f.weight": _tensor(tp["ln_f"]["scale"]),
+        "ln_f.bias": _tensor(tp["ln_f"]["bias"]),
+    }
+    _unstack_blocks(tp["h"], "h", state)
+    return state
+
+
+def _flax_module(tree, prefix, state):
+    """A flax Dense (``kernel``, ``bias``) or LayerNorm (``scale``,
+    ``bias``) into ``prefix.weight`` / ``prefix.bias``."""
+    if "kernel" in tree:
+        state[f"{prefix}.weight"] = _tensor(np.asarray(tree["kernel"]).T)
+    else:
+        state[f"{prefix}.weight"] = _tensor(tree["scale"])
+    state[f"{prefix}.bias"] = _tensor(tree["bias"])
+
+
+def bert_params_from_jax(tree):
+    """JAX BERT parameter tree (``BertForPreTraining`` or
+    ``BertForQuestionAnswering``, numpy leaves) -> a state dict for the
+    port's model of the same kind (float32 CPU tensors)."""
+    bert = tree["bert"]
+    emb = bert["embeddings"]
+    state = {
+        f"bert.embeddings.{k}": _tensor(emb[k])
+        for k in ("word_embeddings", "position_embeddings",
+                  "token_type_embeddings")
+    }
+    _flax_module(emb["LayerNorm"], "bert.embeddings.LayerNorm", state)
+    _unstack_blocks(bert["encoder"]["layer"], "bert.encoder.layer", state)
+    _flax_module(bert["pooler"], "bert.pooler", state)
+    for head in ("transform", "transform_ln", "nsp", "qa_outputs"):
+        if head in tree:
+            _flax_module(tree[head], head, state)
+    if "mlm_bias" in tree:
+        state["mlm_bias"] = _tensor(tree["mlm_bias"])
     return state
 
 

@@ -1,5 +1,18 @@
-"""Models: GPT-2 (serving slice)."""
+"""Models: GPT-2 (serving and training) and BERT (pretraining and QA)."""
 
+from .bert import (
+    BertConfig,
+    BertForPreTraining,
+    BertForQuestionAnswering,
+    BertModel,
+)
 from .gpt2 import GPT2Config, GPT2LMHeadModel
 
-__all__ = ["GPT2Config", "GPT2LMHeadModel"]
+__all__ = [
+    "BertConfig",
+    "BertForPreTraining",
+    "BertForQuestionAnswering",
+    "BertModel",
+    "GPT2Config",
+    "GPT2LMHeadModel",
+]

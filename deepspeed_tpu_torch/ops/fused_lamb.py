@@ -311,6 +311,10 @@ class FusedLamb(Lamb):
     multi_tensor_max: int = 1 << 21
 
     def __post_init__(self):
+        if self.state_dtype != "fp32":
+            # the kernel reads and writes float32 moments
+            raise ValueError("FusedLamb's kernel reads fp32 moments; use "
+                             "'Lamb' for a reduced state_dtype")
         self._scratch = {}  # name -> u, float32, the size of the param
 
     @torch.no_grad()

@@ -21,13 +21,23 @@ from .decode_attention import PAGED_DECODE_MAX_HEAD_DIM
 
 
 def model_head_dim(config):
-    """``n_embd // n_head`` of a GPT-2-style config, or None for a model
+    """The head dim of a GPT-2 config (``n_embd // n_head``) or a BERT
+    config (``hidden_size // num_attention_heads``), or None for a model
     without those fields."""
-    n_embd = getattr(config, "n_embd", None)
-    n_head = getattr(config, "n_head", None)
-    if not n_embd or not n_head:
+    width = getattr(config, "n_embd", None) or getattr(
+        config, "hidden_size", None)
+    heads = getattr(config, "n_head", None) or getattr(
+        config, "num_attention_heads", None)
+    if not width or not heads:
         return None
-    return n_embd // n_head
+    return width // heads
+
+
+def model_max_positions(config):
+    """The longest sequence a GPT-2 (``n_positions``) or BERT
+    (``max_position_embeddings``) config takes; 0 for another model."""
+    return (getattr(config, "n_positions", None)
+            or getattr(config, "max_position_embeddings", None) or 0)
 
 
 def check_head_dim(head_dim, n_positions, device, fused_decode=False):

@@ -5,15 +5,25 @@ the role of each file are the JAX package's; the serializer is PyTorch's
 own (``torch.save``, read back with ``torch.load(..., weights_only=True,
 map_location="cpu")``), under upstream DeepSpeed's file names:
 
-  <dir>/<tag>/mp_rank_00_model_states.pt   — the trainable fp32 masters
-      as a state dict (``module``), the step counters, dp/mp world sizes
+  <dir>/<tag>/mp_rank_00_model_states.pt   — the trainable parameters
+      as the module holds them (``module``: the fp32 masters, the
+      compute-dtype parameters of a compensated engine, or under
+      optimizer offload the device's compute-dtype copies), the step
+      counters, dp/mp world sizes
       and ZeRO stage, the loss scaler's state, the LR schedule's state,
       ``client_state`` and the engine's dropout-seed generator state
       (``rng_state``).
   <dir>/<tag>/zero_pp_rank_0_mp_rank_00optim_states.pt — the optimizer
       state: ``{"master": fp32 masters, "inner": step and moments}`` when
-      the compute dtype is below fp32, the bare inner state otherwise
-      (the module file then IS the master), with ``num_shards`` 1.
+      the compute dtype is below fp32 or the masters are offloaded (a
+      compensated engine's master is its parameters in float32, its
+      codes in ``inner["comp"]``), the bare inner state otherwise (the
+      module file then IS the master), with ``num_shards`` 1. Moments
+      stored in int8 are ``{"q", "scale"}`` dicts, one per parameter
+      group. The canonical ``{master, inner}`` layout crosses layouts: a
+      master in the file overrides the module file's weights, so an
+      offload checkpoint resumes an on-device engine exactly and the
+      other way round.
   <dir>/<tag>/MANIFEST.json — per-file sha256 commit record
       (resilience/manifest.py; absent on saves with resilience off).
   <dir>/latest              — tag pointer.
@@ -30,8 +40,10 @@ the engine on the host before one engine field changes. A
 ``latest``-driven load walks back to the newest valid tag; an explicit
 tag never substitutes another. The restore copies into the engine's
 existing tensors (``copy_``): the engine updates its parameters and
-moments in place, and FusedLamb's device tables are keyed by their
-addresses, so a resume builds no new table.
+moments in place, FusedLamb's device tables are keyed by their
+addresses, so a resume builds no new table, and an offload engine's
+state stays in its pinned host buffers (its device parameters are then
+published from the restored masters).
 
 A checkpoint is untrusted input: ``weights_only`` loading takes tensors,
 primitives and containers of them only, and ``save_checkpoint`` refuses a
@@ -160,14 +172,21 @@ def _host_tree(tree):
     return tree
 
 
+def _module_params(engine):
+    """The parameters the module file holds (see the module docstring)."""
+    return getattr(engine, "module_params", engine.params)
+
+
 def _canonical_opt_state(engine):
     """The optimizer file's payload: ``{"master", "inner"}`` when the fp32
-    masters differ from what the compute dtype runs on, the bare inner
-    state for an fp32 engine (its module file is the master)."""
+    masters differ from what the module computes with, the bare inner
+    state for an fp32 engine without offload (its module file is the
+    master)."""
     inner = _host_tree(engine.optimizer_state)
-    if engine.compute_dtype == torch.float32:
+    if (engine.compute_dtype == torch.float32
+            and not getattr(engine, "host_offload", False)):
         return inner
-    return {"master": {n: _host(p) for n, p in engine.params.items()},
+    return {"master": {n: _host(p).float() for n, p in engine.params.items()},
             "inner": inner}
 
 
@@ -190,7 +209,7 @@ def save_checkpoint(engine, save_dir, tag=None, client_state=None):
     scaler = engine.loss_scale_state
     sched = engine.lr_scheduler
     state = {
-        "module": {n: _host(p) for n, p in engine.params.items()},
+        "module": {n: _host(p) for n, p in _module_params(engine).items()},
         "global_steps": int(engine.global_steps),
         "skipped_steps": int(engine.skipped_steps),
         "micro_steps": int(engine.micro_steps),
@@ -367,7 +386,8 @@ def _split_optimizer_payload(staged):
 def _check_compatible(engine, staged, load_optimizer_states):
     """Every shape and key of the staged checkpoint against the engine,
     before anything is applied."""
-    _check_tree(staged.state["module"], dict(engine.params), "module")
+    _check_tree(staged.state["module"], dict(_module_params(engine)),
+                "module")
     if load_optimizer_states and staged.shards:
         master, inner = _split_optimizer_payload(staged)
         if master is not None:
@@ -402,6 +422,9 @@ def _apply_checkpoint(engine, staged, load_optimizer_states,
     # (the same values; fp32 engines save no separate master)
     _copy_tree(engine.params, master if master is not None
                else state["module"])
+    if getattr(engine, "host_offload", False):
+        # the device's compute-dtype parameters from the restored masters
+        engine.publish_params()
     engine.global_steps = int(state["global_steps"])
     engine.skipped_steps = int(state["skipped_steps"])
     engine.micro_steps = int(state["micro_steps"])

@@ -81,13 +81,25 @@ it. The ``compile_cache`` block points the kernel build cache
 the activation API (checkpointing.py). A model with ``remat`` checkpoints
 its blocks (ops/transformer.py).
 
+Optimizers and state layouts, as in the JAX engine: Adam, AdamW, Lamb,
+FusedLamb, SGD and Lion (ops/optimizers.py); ``data_types.
+optimizer_state_dtype`` stores Adam's and Lamb's moments as bf16 or int8
+(ops/quant.py); ``data_types.master_dtype = "compensated"`` keeps the
+parameters in the compute dtype with int8 Kahan codes in place of fp32
+masters; ``zero_optimization.offload_optimizer`` keeps the fp32 masters
+and the optimizer state in pinned host memory: at the boundary the
+gradients are copied to the host (queued before the step's one sync),
+the overflow test and the norm run on the device as on the on-device
+path, the update runs on the host, and the new compute-dtype parameters
+are copied back only after a step that was taken. ``train_batch`` then
+bypasses the window stager, as the JAX engine does.
+
 Not ported, refused with ``DeepSpeedConfigError("... not yet ported")``:
-more than one device (world size > 1, a mesh), ``zero_optimization.
-offload_optimizer``, compensated masters, reduced-precision optimizer
-state, sparse gradients, optimizers other than Adam/AdamW/Lamb/FusedLamb,
-a remat policy the port cannot map, and a model with MoE or pipeline
-stages. ZeRO stages 0-3 are accepted: at world size 1 the JAX engine lays
-every stage out as stage 0.
+more than one device (world size > 1, a mesh), sparse gradients, the
+adapters block with offload or compensated masters, a remat policy the
+port cannot map, and a model with MoE or pipeline stages. ZeRO stages
+0-3 are accepted: at world size 1 the JAX engine lays every stage out as
+stage 0.
 """
 
 import inspect
@@ -102,7 +114,7 @@ from ..adapters import lora as lora_lib
 from ..config import constants as C
 from ..config.config import DeepSpeedConfig, DeepSpeedConfigError, not_ported
 from ..config.config_utils import load_config_json
-from ..ops.head_dims import check_head_dim, model_head_dim
+from ..ops.head_dims import check_head_dim, model_head_dim, model_max_positions
 from ..ops.optimizers import Optimizer, build_optimizer, param_groups
 from ..ops.transformer import resolve_remat_policy
 from ..resilience import SupervisorEscalation, build_resilience
@@ -216,21 +228,12 @@ class DeepSpeedEngine:
             raise not_ported(
                 f"training across devices (world size {cfg.world_size})"
             )
-        if cfg.zero_config.offload_optimizer_device != "none":
-            raise not_ported("zero_optimization.offload_optimizer")
-        if cfg.master_dtype != "fp32":
-            raise not_ported(f"data_types.master_dtype={cfg.master_dtype!r}")
-        if cfg.optimizer_state_dtype != "fp32":
-            raise not_ported(
-                f"data_types.optimizer_state_dtype="
-                f"{cfg.optimizer_state_dtype!r}"
-            )
         if cfg.sparse_gradients_enabled:
             raise not_ported("sparse_gradients")
         # what the card's kernels cannot take is refused here, not mid-step
         mcfg = getattr(model, "config", None)
-        check_head_dim(model_head_dim(mcfg),
-                       getattr(mcfg, "n_positions", 0), device)
+        check_head_dim(model_head_dim(mcfg), model_max_positions(mcfg),
+                       device)
         self.device = resolve_device(device)
         # the kernel build cache, before anything builds (a no-op unless
         # the block enables it)
@@ -279,28 +282,53 @@ class DeepSpeedEngine:
         )
         self.loss_scale_state = loss_scale_state_from_config(cfg)
         self.zero_stage = cfg.zero_optimization_stage
+        # the masters' layout, by the JAX engine's rules. Compensated
+        # masters (data_types.master_dtype): the parameters stored in the
+        # compute dtype with an int8 rounding-error code each in the
+        # optimizer state, no float32 master and no cast copies. Optimizer
+        # offload (zero_optimization.offload_optimizer): the float32
+        # masters and the optimizer state in pinned host memory, the
+        # compute-dtype parameters on the device.
+        self.compensated_master = (
+            cfg.master_dtype == "compensated"
+            and self.compute_dtype != torch.float32
+        )
+        self.host_offload = (
+            cfg.zero_config.offload_optimizer_device == "cpu")
+        if self.host_offload and self.compensated_master:
+            raise DeepSpeedConfigError(
+                "offload_optimizer and master_dtype='compensated' are "
+                "alternative memory strategies — pick one (docs/memory.md)"
+            )
         self.frozen_base_params = {}
         if cfg.adapters_enabled:
+            if self.host_offload or self.compensated_master:
+                raise not_ported(
+                    "the adapters block with optimizer offload or "
+                    "compensated masters")
             self._configure_adapters(model_parameters, rng_seed)
+        if self.compensated_master:
+            self.module.to(dtype=self.compute_dtype)
 
         # ---- optimizer and schedule -------------------------------------
-        # the trainable fp32 masters: every parameter, or under the
-        # adapters block only the LoRA factors
+        # the trainable masters: every parameter, or under the adapters
+        # block only the LoRA factors (float32 on the device; in the
+        # compute dtype when compensated; with offload, float32 copies in
+        # pinned host memory while the module holds the compute dtype)
         self.params = {
             n: p for n, p in self.module.named_parameters()
             if n not in self.frozen_base_params
         }
-        if optimizer is not None:
-            if not isinstance(optimizer, Optimizer):
-                raise TypeError("client optimizer must be a "
-                                "deepspeed_tpu_torch.ops.optimizers.Optimizer")
-            self.optimizer_obj = optimizer
-        else:
-            name = cfg.optimizer_name or C.ADAM_OPTIMIZER
-            if name not in C.PORTED_OPTIMIZERS:
-                raise not_ported(f"optimizer {name!r}")
-            self.optimizer_obj = build_optimizer(name, cfg.optimizer_params)
+        # the module's compute-dtype parameters beside host masters, and
+        # the pinned buffers of the step's copies (offload on the card)
+        self._compute_params = None
+        self._host_grads = self._host_out = None
+        if self.host_offload:
+            self._offload_masters()
+        self.optimizer_obj = self._configure_optimizer(optimizer)
         self.optimizer_state = self.optimizer_obj.init(self.params)
+        if self.host_offload:
+            self.optimizer_state = self._pinned(self.optimizer_state)
         self._n_groups = len(param_groups(self.params))
         self.lr_scheduler = lr_scheduler
         if lr_scheduler is None and cfg.scheduler_name is not None:
@@ -467,13 +495,144 @@ class DeepSpeedEngine:
 
     def _current_mom(self):
         """OneCycle's cycled momentum when the schedule has one, else the
-        optimizer's own b1."""
+        optimizer's own coefficient (``b1``, or SGD's ``momentum``)."""
         if self.lr_scheduler is not None and hasattr(self.lr_scheduler,
                                                      "get_mom"):
             mom = self.lr_scheduler.get_mom()
             if mom is not None:
                 return float(mom[0] if isinstance(mom, (list, tuple)) else mom)
-        return float(self.optimizer_obj.b1)
+        opt = self.optimizer_obj
+        if hasattr(opt, "b1"):
+            return float(opt.b1)
+        return float(getattr(opt, "momentum", 0.0))
+
+    def _check_zero_optimizer_tested(self, name):
+        """ZeRO with an optimizer outside the tested set needs the
+        ``zero_allow_untested_optimizer`` opt-in, as in the JAX engine."""
+        if (self.zero_stage < 1 or name in C.ZERO_TESTED_OPTIMIZERS
+                or name in C.FUSED_LAMB_OPTIMIZERS):
+            return
+        if not self.config.zero_allow_untested_optimizer:
+            raise DeepSpeedConfigError(
+                f"optimizer {name!r} is untested with ZeRO (sharded "
+                "optimizer-state specs are derived per optimizer). Add "
+                f'{{"{C.ZERO_ALLOW_UNTESTED_OPTIMIZER}": true}} to the '
+                "config to proceed anyway."
+            )
+        log_dist(
+            f"WARNING: running ZeRO with untested optimizer {name!r} "
+            f"({C.ZERO_ALLOW_UNTESTED_OPTIMIZER}=true) — proceed with "
+            "caution", ranks=[0],
+        )
+
+    def _configure_optimizer(self, client):
+        """The client optimizer, or the config's with its state layout:
+        ``optimizer_state_dtype`` for the optimizers that store moments
+        (Adam, AdamW, Lamb; FusedLamb's kernel reads float32 moments) and
+        compensation for Adam/AdamW under compensated masters. The JAX
+        engine's checks and messages."""
+        if client is not None:
+            if not isinstance(client, Optimizer):
+                raise TypeError("client optimizer must be a "
+                                "deepspeed_tpu_torch.ops.optimizers.Optimizer")
+            self._check_zero_optimizer_tested(type(client).__name__.lower())
+            return client
+        cfg = self.config
+        name = cfg.optimizer_name or C.ADAM_OPTIMIZER
+        self._check_zero_optimizer_tested(name)
+        opt = build_optimizer(name, cfg.optimizer_params)
+        sd = cfg.optimizer_state_dtype
+        if sd != "fp32":
+            if not hasattr(opt, "state_dtype"):
+                raise DeepSpeedConfigError(
+                    f"optimizer {name!r} does not support "
+                    f"{C.OPTIMIZER_STATE_DTYPE}={sd!r} (Adam/AdamW/Lamb do)"
+                )
+            if type(opt).__name__ == "FusedLamb":
+                raise DeepSpeedConfigError(
+                    "FusedLamb's Pallas kernel reads fp32 moments; use "
+                    "optimizer type 'Lamb' with reduced "
+                    f"{C.OPTIMIZER_STATE_DTYPE}"
+                )
+            opt.state_dtype = sd
+            log_dist(f"optimizer moments stored as {sd} (fp32 update math; "
+                     "ops/quant.py)", ranks=[0])
+        if self.compensated_master:
+            if not hasattr(opt, "master_compensation"):
+                raise DeepSpeedConfigError(
+                    f"optimizer {name!r} does not support "
+                    f"{C.MASTER_DTYPE}='compensated' (Adam/AdamW do)"
+                )
+            opt.master_compensation = True
+            log_dist(
+                "compensated master weights: params stored in the compute "
+                "dtype + int8 Kahan error codes in the optimizer state "
+                "(ops/quant.py)", ranks=[0],
+            )
+        return opt
+
+    def _offload_masters(self):
+        """Optimizer offload: copy the float32 masters into pinned host
+        memory, turn the module's parameters into the compute dtype on the
+        device, and keep pinned buffers for the step's gradient copies in
+        and parameter copies out. Pinning needs the card: a CPU engine's
+        masters are plain host tensors."""
+        pin = self.device.type == "cuda"
+        masters = {}
+        for n, p in self.params.items():
+            host = torch.empty(p.shape, dtype=torch.float32, pin_memory=pin)
+            host.copy_(p.detach())
+            masters[n] = host
+        self.module.to(dtype=self.compute_dtype)
+        self._compute_params = dict(self.module.named_parameters())
+        self.params = masters
+        if pin:
+            self._host_grads = {
+                n: torch.empty(p.shape, dtype=self.grad_accum_dtype,
+                               pin_memory=True)
+                for n, p in masters.items()}
+            self._host_out = {
+                n: torch.empty(p.shape, dtype=self.compute_dtype,
+                               pin_memory=True)
+                for n, p in masters.items()}
+        log_dist(
+            "ZeRO-Offload: fp32 master + optimizer moments on host cpu; "
+            "accelerator holds compute-dtype params/grads (per-step d2h "
+            "grads + h2d params)", ranks=[0],
+        )
+
+    def _pinned(self, tree):
+        """``tree`` with every tensor in pinned host memory (offload on a
+        CUDA engine; unchanged on a CPU engine)."""
+        if self.device.type != "cuda":
+            return tree
+        if isinstance(tree, torch.Tensor):
+            return tree.pin_memory()
+        if isinstance(tree, dict):
+            return {k: self._pinned(v) for k, v in tree.items()}
+        return tree
+
+    @property
+    def module_params(self):
+        """The module's trainable parameters as the model computes with
+        them: the masters, or under offload the device's compute-dtype
+        copies (what a checkpoint's module file holds)."""
+        return (self._compute_params if self._compute_params is not None
+                else self.params)
+
+    @torch.no_grad()
+    def publish_params(self):
+        """Offload: the host masters cast to the compute dtype and copied
+        into the device's parameters (through pinned buffers, without
+        waiting, on a CUDA engine)."""
+        for n, master in self.params.items():
+            dst = self._compute_params[n]
+            if self._host_out is not None:
+                staged = self._host_out[n]
+                staged.copy_(master)
+                dst.copy_(staged, non_blocking=True)
+            else:
+                dst.copy_(master)
 
     def _configure_adapters(self, model_parameters, rng_seed):
         """LoRA fine-tune wiring: arm the model config (or reject a
@@ -711,11 +870,13 @@ class DeepSpeedEngine:
         return 0, 0
 
     def _cast_params(self, grad):
-        """The fp32 masters in the compute dtype, as leaf tensors (with
-        ``grad``, requiring gradients) for ``functional_call``, beside the
-        frozen base under the adapters block."""
+        """The trainable parameters in the compute dtype, as leaf tensors
+        (with ``grad``, requiring gradients) for ``functional_call``,
+        beside the frozen base under the adapters block. The fp32 masters
+        are cast; compensated and offloaded layouts already hold the
+        compute dtype, and are used without a copy."""
         out = dict(self.frozen_base_params)
-        for name, p in self.params.items():
+        for name, p in self.module_params.items():
             t = p.detach().to(self.compute_dtype)
             out[name] = t.requires_grad_() if grad else t
         return out
@@ -798,6 +959,15 @@ class DeepSpeedEngine:
         if self._window_losses:
             window_loss = torch.stack(self._window_losses).mean()
         self._window_losses = []
+        if self._host_grads is not None:
+            # offload on the card: the gradients' copies to pinned host
+            # buffers are queued first, and the step's one sync below
+            # waits for them (a CPU engine's gradients are on the host)
+            for n, g in grads.items():
+                self._host_grads[n].copy_(g, non_blocking=True)
+        # the overflow test and the norm run where the gradients are, as
+        # on the on-device path, so that offload's clip factor is that
+        # path's bit for bit
         raw_norm = global_norm(grads.values())  # -1.0 if inf/nan
         if self.config.fp16_enabled:
             overflow = has_overflow(grads.values())
@@ -828,10 +998,16 @@ class DeepSpeedEngine:
             if clip > 0 and grad_norm > clip and grad_norm > 0:
                 gscale = gscale * (np.float32(clip) / grad_norm)
             kw = {"mom": self._current_mom()} if self._use_mom else {}
+            if self._host_grads is not None:
+                grads = self._host_grads
             aux = self.optimizer_obj.apply(
                 self.params, grads, self.optimizer_state,
                 self._current_lr(), grad_scale=float(gscale), **kw,
             )
+            if self.host_offload:
+                # the new compute-dtype parameters go to the device only
+                # after a step that was taken
+                self.publish_params()
             coeffs = aux.get("lamb_coeffs", [])
             self.lamb_coeffs = (torch.stack(coeffs) if coeffs
                                 else torch.zeros(0))
@@ -1025,7 +1201,9 @@ class DeepSpeedEngine:
         iterator), the window comes from the stager, already on the card;
         the numerics are the same either way."""
         accum = self.gradient_accumulation_steps()
-        if self._staging_enabled:
+        if self._staging_enabled and not self.host_offload:
+            # offload steps on the host: the JAX engine bypasses its
+            # stager there, and so does the port
             stager = self._ensure_stager(batch_iter_or_batches)
             if stager is not None:
                 return self._train_batch_staged(stager)

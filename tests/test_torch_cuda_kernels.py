@@ -991,3 +991,171 @@ def test_loader_staged_training_equals_unstaged_at_accum_1_on_the_card(
     assert runs[0][0] == runs[1][0]
     assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
     assert torch.equal(runs[0][2], runs[1][2])
+
+
+# ---------------------------------------------------------------------------
+# BERT's route: non-causal, padded, dropout; the optimizer state layouts
+# ---------------------------------------------------------------------------
+def _bert_mask(cuda, b, s):
+    """Ragged valid lengths with a dead row (index 1)."""
+    lengths = [s, 0, s // 2 + 7, 128][:b]
+    mask = torch.zeros(b, s, dtype=torch.int32, device=cuda)
+    for row, n in enumerate(lengths):
+        mask[row, :n] = 1
+    return mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_noncausal_padded_at_the_bert_shape(cuda, dtype, rate):
+    """BERT-large's attention (16 heads, D = 64, S = 512), non-causal with
+    a padding mask of ragged lengths and a dead row: the forward, dQ and
+    dK/dV kernels against their plain versions; the dead row's output and
+    gradients exact zeros, and query rows past a row's length still
+    attend to its valid keys (nonzero output)."""
+    b, h, s, d = 4, 16, 512, 64
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v, dout = (torch.randn(b, h, s, d, device=cuda, generator=g)
+                     .to(dtype) for _ in range(4))
+    mask = _bert_mask(cuda, b, s)
+    args = (q, k, v, mask, False, None, rate, 17)
+    out, lse = flash_fwd(*args)
+    torch.cuda.synchronize()
+    ref, ref_lse = flash_fwd_plain(*args)
+    _close(out, ref, dtype)
+    assert bool((out[1] == 0).all())
+    assert bool((out[2, :, s - 1] != 0).any())  # a query past the length
+    delta = (dout.float() * ref.float()).sum(dim=-1)
+    bargs = (q, k, v, mask, dout, ref_lse, delta, False, None, rate, 17)
+    dq = flash_bwd_dq(*bargs)
+    dk, dv = flash_bwd_dkv(*bargs)
+    torch.cuda.synchronize()
+    want = (flash_bwd_dq_plain(*bargs), *flash_bwd_dkv_plain(*bargs))
+    for got, ref_g in zip((dq, dk, dv), want):
+        _close(got, ref_g, dtype, scaled=True)
+        assert bool((got[1] == 0).all())
+    # padded keys take no gradient
+    assert bool((dk[2, :, s // 2 + 7:] == 0).all())
+    assert bool((dv[2, :, s // 2 + 7:] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["pretraining", "qa"])
+def test_bert_gradients_through_the_kernels(cuda, kind):
+    """A 2-layer BERT at seq 256 (the flash route), float32, dropout 0,
+    padded rows: each attention kernel launches once a layer, and the
+    gradients through the kernels equal those through the plain versions
+    to 1e-4 of each tensor's scale, or 1e-7 where that scale is below
+    1e-3 (gradients that are zero in exact arithmetic, the QA head's bias
+    and the last norm bias under QA, carry ~3e-8 of rounding on both
+    routes)."""
+    from deepspeed_tpu_torch import (BertConfig, BertForPreTraining,
+                                     BertForQuestionAnswering)
+    from deepspeed_tpu_torch.ops import attention as A
+
+    cfg = BertConfig(vocab_size=512, hidden_size=128, num_hidden_layers=2,
+                     num_attention_heads=2, intermediate_size=256,
+                     max_position_embeddings=256, hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0)
+    cls = BertForPreTraining if kind == "pretraining" else (
+        BertForQuestionAnswering)
+    model = cls(cfg, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    ids = torch.randint(0, 512, (3, 256), device=cuda, generator=g)
+    mask = _bert_mask(cuda, 3, 256)
+    mask[1, :40] = 1  # no dead row in a model batch
+    tt = torch.zeros_like(ids)
+    if kind == "pretraining":
+        labels = torch.where(torch.rand(ids.shape, device=cuda, generator=g)
+                             < 0.15, ids, -100)
+        extra = (labels, torch.tensor([0, 1, 0], device=cuda))
+    else:
+        extra = (torch.tensor([3, 10, 50], device=cuda),
+                 torch.tensor([5, 20, 60], device=cuda))
+
+    def grads(plain):
+        kernels = (A.flash_fwd, A.flash_bwd_dq, A.flash_bwd_dkv)
+        if plain:
+            A.flash_fwd, A.flash_bwd_dq, A.flash_bwd_dkv = (
+                A.flash_fwd_plain, A.flash_bwd_dq_plain,
+                A.flash_bwd_dkv_plain)
+        try:
+            counts = [f.launches for f in kernels]
+            loss = model(ids, mask, tt, *extra, train=True)
+            out = torch.autograd.grad(loss, list(model.parameters()),
+                                      allow_unused=True)
+            torch.cuda.synchronize()
+            return out, [f.launches - c for f, c in zip(kernels, counts)]
+        finally:
+            A.flash_fwd, A.flash_bwd_dq, A.flash_bwd_dkv = kernels
+
+    got, launches = grads(False)
+    assert launches == [2, 2, 2]
+    want, _ = grads(True)
+    for (name, _), a, w in zip(model.named_parameters(), got, want):
+        if w is None:
+            assert a is None
+            continue
+        scale = float(w.abs().max())
+        assert float((a - w).abs().max()) <= 1e-4 * max(scale, 1e-3), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["offload", "int8", "compensated"])
+def test_state_layouts_on_the_card(cuda, layout):
+    """A 2-layer GPT-2 (seq 256, bf16, dropout 0.1), Adam, 3 windows.
+    Offload: the masters and moments in pinned host memory and the run
+    equal to the on-device one bit for bit (losses, masters, published
+    parameters). int8 and compensated: finite falling losses and a
+    bit-for-bit resume through a checkpoint."""
+    import tempfile
+
+    def engine_for(extra, seed=0):
+        model = GPT2LMHeadModel(GPT2Config(
+            vocab_size=256, n_positions=256, n_embd=128, n_layer=2,
+            n_head=2, dropout=0.1), device=cuda, seed=seed)
+        engine, *_ = deepspeed_tpu_torch.initialize(model=model, config_params=dict({
+            "train_micro_batch_size_per_gpu": 4,
+            "gradient_accumulation_steps": 2,
+            "bf16": {"enabled": True}, "gradient_clipping": 1.0,
+            "optimizer": {"type": "Adam", "params": {"lr": 1e-3}}}, **extra))
+        return engine
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    ids = torch.randint(0, 256, (8, 256), device=cuda, generator=g)
+    micro = [(ids[:4], ids[:4]), (ids[4:], ids[4:])]
+
+    def run(engine, n):
+        return [float(engine.train_batch(iter(micro))) for _ in range(n)]
+
+    if layout == "offload":
+        on_dev = engine_for({})
+        off = engine_for({"zero_optimization": {
+            "offload_optimizer": {"device": "cpu"}}})
+        for n, p in off.params.items():
+            assert p.is_pinned() and not p.is_cuda and p.dtype == torch.float32
+            assert off.module_params[n].is_cuda
+            assert off.module_params[n].dtype == torch.bfloat16
+        assert all(t.is_pinned() for t in off.optimizer_state["mu"].values())
+        assert run(off, 3) == run(on_dev, 3)
+        for n, p in on_dev.params.items():
+            assert torch.equal(off.params[n], p.cpu()), n
+            assert torch.equal(off.module_params[n],
+                               p.to(torch.bfloat16)), n
+        return
+    extra = ({"data_types": {"optimizer_state_dtype": "int8"}}
+             if layout == "int8"
+             else {"data_types": {"master_dtype": "compensated"}})
+    first = engine_for(extra)
+    losses = run(first, 3)
+    assert all(torch.isfinite(torch.tensor(losses))) and losses[-1] < losses[0]
+    with tempfile.TemporaryDirectory() as d:
+        first.save_checkpoint(d, tag="t")
+        cont = run(first, 2)
+        fresh = engine_for(extra, seed=5)
+        fresh.load_checkpoint(d, tag="t")
+        assert run(fresh, 2) == cont
+    for n, p in first.params.items():
+        assert torch.equal(fresh.params[n], p), n

@@ -119,31 +119,65 @@ def _tiny():
                    n_head=2, dropout=0.0), device="cpu")
 
 
+# the optimizer state layouts, SGD and Lion are ported: those places
+# (extra0, 1, 4-7, 9, 10) now hold combinations that stay refused (the
+# adapters block with offload or compensated masters, and each of them
+# with a mesh or sparse gradients); test_engine_accepts_the_ported_layouts
+# builds the configs they held before
 @pytest.mark.parametrize("extra", [
-    {"zero_optimization": {"stage": 1,
+    {"adapters": {"enabled": True, "rank": 4},
+     "zero_optimization": {"stage": 1,
                            "offload_optimizer": {"device": "cpu"}}},
-    # the data_pipeline and compile_cache blocks are ported; these two
-    # places hold what stays refused: ZeRO-3 with optimizer offload, and
-    # partition_activations on a model-parallel mesh
-    {"zero_optimization": {"stage": 3,
-                           "offload_optimizer": {"device": "cpu"}}},
+    {"adapters": {"enabled": True, "rank": 4}, "bf16": {"enabled": True},
+     "data_types": {"master_dtype": "compensated"}},
     {"mesh": {"model_parallel_size": 2},
      "activation_checkpointing": {"partition_activations": True}},
     {"mesh": {"data_parallel_size": 2}},
-    {"zero_optimization": {"stage": 2,
+    {"sparse_gradients": True, "zero_optimization": {"stage": 2}},
+    {"adapters": {"enabled": True, "rank": 4}, "fp16": {"enabled": True},
+     "data_types": {"master_dtype": "compensated"}},
+    {"mesh": {"data_parallel_size": 2},
+     "data_types": {"optimizer_state_dtype": "int8"}},
+    {"mesh": {"data_parallel_size": 2},
+     "zero_optimization": {"stage": 2,
                            "offload_optimizer": {"device": "cpu"}}},
-    {"data_types": {"master_dtype": "compensated"}},
-    {"data_types": {"optimizer_state_dtype": "bf16"}},
-    {"data_types": {"optimizer_state_dtype": "int8"}},
     {"sparse_gradients": True},
-    {"optimizer": {"type": "SGD", "params": {"lr": 0.1}}},
-    {"optimizer": {"type": "Lion", "params": {"lr": 0.1}}},
+    {"mesh": {"model_parallel_size": 2},
+     "optimizer": {"type": "SGD", "params": {"lr": 0.1}}},
+    {"sparse_gradients": True,
+     "optimizer": {"type": "Lion", "params": {"lr": 0.1}}},
 ])
 def test_engine_refuses_what_is_not_ported(extra):
     cfg = dict({"train_batch_size": 2}, **extra)
     with pytest.raises(DeepSpeedConfigError, match="not yet ported"):
         deepspeed_tpu_torch.initialize(model=_tiny(), config_params=cfg,
                                        device="cpu")
+
+
+@pytest.mark.parametrize("extra", [
+    {"zero_optimization": {"stage": 1,
+                           "offload_optimizer": {"device": "cpu"}}},
+    {"zero_optimization": {"stage": 3,
+                           "offload_optimizer": {"device": "cpu"}}},
+    {"zero_optimization": {"stage": 2,
+                           "offload_optimizer": {"device": "cpu"}}},
+    {"bf16": {"enabled": True}, "data_types": {"master_dtype": "compensated"}},
+    {"data_types": {"optimizer_state_dtype": "bf16"}},
+    {"data_types": {"optimizer_state_dtype": "int8"}},
+    {"optimizer": {"type": "SGD", "params": {"lr": 0.1}}},
+    {"optimizer": {"type": "Lion", "params": {"lr": 0.1}}},
+], ids=["offload_stage1", "offload_stage3", "offload_stage2", "compensated",
+        "bf16_state", "int8_state", "sgd", "lion"])
+def test_engine_accepts_the_ported_layouts(extra):
+    """What the engine refused before the optimizers and state layouts
+    were ported now builds and takes a step."""
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=_tiny(), config_params=dict({"train_batch_size": 2}, **extra),
+        device="cpu")
+    ids = torch.randint(0, 64, (2, 16),
+                        generator=torch.Generator().manual_seed(0))
+    loss = engine.train_batch([(ids, ids)])
+    assert torch.isfinite(loss) and engine.global_steps == 1
 
 
 @pytest.mark.parametrize("block,armed", [
