@@ -260,14 +260,50 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                trains one window bit for bit (offload's state back in
                pinned memory). ``--only-phase12`` builds the kernels and
                runs this phase alone.
+  13. the rest of inference — GPT-2 small at full width and depth
+               (random N(0, 0.02) weights from --seed), each check in
+               float32 for the token equality, then bf16 for the times;
+               a bf16 trajectory that parts from another route's is
+               reported (request, step, the target's top-2 logit gap
+               there) and the gap must lie under BF16_FLIP_TOL. (a) The
+               contiguous cache (kv_block_size 0, 8 slots, max_seq_len
+               1024): 8 prompts of 128-512 tokens, 64 new tokens each,
+               the last joining mid-decode; float32 tokens equal the
+               paged engine's (fused decode) and the full forward's
+               greedy rollout; bf16: flash_fwd 12 launches a cold
+               prefill, no paged decode, TTFT, decode tokens/s and the
+               cache's bytes. (b) The host tier (kv_block_size 16, fused
+               decode, lazy_alloc, max_bytes 2 GiB, a 256-page pool): 24
+               requests in 3 waves over three 512-token templates with
+               32-128-token suffixes, 384 new tokens each; spills,
+               promotions and preemptions each > 0, every promoted page
+               (up to 64) equal to its spilled bytes bit for bit, float32
+               tokens equal to a 512-page pool's; a second engine in the
+               share group warms its first templated request from its
+               peer (peer_fetches > 0); multi-LoRA with 3 adapters and 2
+               pool rows, the evicted adapter parked and auto-loaded
+               (its generation restored, tokens equal the all-resident
+               run's; SGMV launches counted); host_tier.copy armed once:
+               the template serves cold and copy_faults is 1. bf16: TTFT,
+               decode tokens/s, ms a page spilled and promoted. (c)
+               Speculative decoding (k = 4, kv_block_size 16, max_seq_len
+               512): the GPT-2 small target with blocks 3-12's output
+               projections and biases zero, with the agreeing draft (its
+               first 2 blocks) and an independent random 2 x 768 draft; 8
+               prompts of 128-256 tokens, 128 new tokens each; float32
+               tokens equal the non-speculative engine's; bf16:
+               acceptance, tokens a target step, decode tokens/s against
+               the non-speculative engine, and the draft's flash_fwd
+               launches a prefill (2). The launches of (a)-(c) go under
+               the paths "contig", "host_tier" and "spec".
   9. report  — a JSON line of per-kernel numbers (the D = 256, decode
                tail and BERT (rows 1b-3b) variants in entries of their
-               own; the launches of every path, phases 10 to 12
+               own; the launches of every path, phases 10 to 13
                included), the nvidia-smi line, then the last line {"ok":
-               true, "device": {...}}. It comes after phase 12.
+               true, "device": {...}}. It comes after phase 13.
 
 ``--only-phase12`` builds every kernel and runs phase 12 alone, printing
-its numbers as one JSON line.
+its numbers as one JSON line; ``--only-phase13`` the same for phase 13.
 
 ``--cold-telemetry`` runs one telemetry-on training run whose first
 window builds the kernels in an empty build directory under a 5 s
@@ -4808,6 +4844,671 @@ def phase_bert_layouts(seed, card):
                       "layouts": layouts, "layout_checks": layout_checks}, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the rest of inference — the contiguous cache, the host tier
+# and speculative decoding
+# ---------------------------------------------------------------------------
+INF_SLOTS = 8
+CONTIG_LENGTHS = (128, 183, 238, 293, 348, 403, 457, 512)
+CONTIG_NEW = 64
+TIER_POOL = 256          # pages; 8 slots x 64 pages would need 512
+TIER_BYTES = 2 << 30
+TIER_NEW = 384
+TIER_SUFFIXES = (32, 46, 59, 73, 87, 101, 114, 128)
+TIER_WAVES = ((0,) * 8, (1,) * 8, (2,) * 4 + (0,) * 4)  # template per slot
+TIER_PAGE_CHECKS = 64    # promoted pages held bit for bit against the tier
+SPEC_K = 4
+SPEC_LENGTHS = (128, 146, 164, 183, 201, 219, 238, 256)
+SPEC_NEW = 128
+SPEC_MAX_SEQ = 512
+# a bfloat16 greedy trajectory may leave another route's at a near-tie:
+# the target's top-2 logit gap at the first divergence must lie under
+# 2**-4 (8 bf16 ulps at logits of magnitude 1-2; the two attention routes
+# round p and the output at different points, a few ulps per layer)
+BF16_FLIP_TOL = 0.0625
+
+
+def inf_engine(model, dtype, draft=None, extra=None, **inference):
+    """An engine over ``model`` with 8 slots, greedy, ``dtype``, and the
+    ``inference`` keys (``extra``: other top-level config blocks)."""
+    import deepspeed_tpu_torch
+
+    block = {"max_batch_slots": INF_SLOTS, "dtype": dtype,
+             "sampling": {"greedy": True}}
+    block.update(inference)
+    return deepspeed_tpu_torch.init_inference(
+        model=model, config={"inference": block, **(extra or {})},
+        draft_model=draft)
+
+
+def random_tokens(g, n, vocab):
+    return torch.randint(0, vocab, (n,), generator=g).tolist()
+
+
+def run_requests(engine, prompts, new, join_after=None):
+    """Serve ``prompts`` (``new`` tokens each); with ``join_after`` the
+    last prompt joins after that many scheduler steps of the others."""
+    t0 = time.monotonic()
+    head = prompts if join_after is None else prompts[:-1]
+    reqs = [engine.submit(p, max_new_tokens=new) for p in head]
+    if join_after is not None:
+        for _ in range(join_after):
+            engine.scheduler.step()
+        reqs.append(engine.submit(prompts[-1], max_new_tokens=new))
+    engine.scheduler.run_until_idle()
+    torch.cuda.synchronize()
+    return [r.result() for r in reqs], engine_stats(
+        engine, time.monotonic() - t0)
+
+
+def top2_gap(model, tokens, vocab):
+    """The top-2 logit gap of ``model``'s next-token logits after
+    ``tokens`` (its full forward)."""
+    with torch.no_grad():
+        logits = model(torch.tensor([tokens], device=model.wte.device))[
+            0, -1, :vocab]
+    top2 = torch.topk(logits.float(), 2).values
+    return float(top2[0] - top2[1])
+
+
+def same_tokens(tag, prompts, got, want, model, vocab):
+    """Float32 greedy tokens must be equal; on a difference fail with the
+    first position and the top-2 gap there."""
+    for r, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            step = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                        min(len(a), len(b)))
+            gap = top2_gap(model, prompts[r] + b[:step], vocab)
+            fail(f"{tag}: request {r} differs at step {step} (lengths "
+                 f"{len(a)}/{len(b)}, top-2 logit gap {gap:.3e})")
+
+
+def bf16_divergence(tag, prompts, got, want, model, vocab):
+    """Report where two bfloat16 trajectories part (first request and
+    position, the target's top-2 logit gap there) and require the gap to
+    be a near-tie, under BF16_FLIP_TOL."""
+    for r, (a, b) in enumerate(zip(got, want)):
+        if a == b:
+            continue
+        step = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                    min(len(a), len(b)))
+        gap = top2_gap(model, prompts[r] + b[:step], vocab)
+        log(f"  {tag}: bf16 trajectories part at request {r} step {step}, "
+            f"top-2 logit gap {gap:.4e} (tolerance {BF16_FLIP_TOL})")
+        if gap >= BF16_FLIP_TOL:
+            fail(f"{tag}: bf16 divergence at a top-2 gap of {gap:.4e} >= "
+                 f"{BF16_FLIP_TOL}: not a near-tie")
+        return {"request": r, "step": step, "top2_gap": gap}
+    return None
+
+
+def rollout_check(tag, model, prompts, outs, vocab):
+    """Each request's tokens are the full forward's greedy rollout: one
+    teacher-forced forward over prompt + tokens, whose argmax at every
+    position from the prompt's last equals the next token."""
+    for r, (p, out) in enumerate(zip(prompts, outs)):
+        ids = torch.tensor([p + out[:-1]], device=model.wte.device)
+        with torch.no_grad():
+            logits = model(ids)[0, len(p) - 1:, :vocab]
+        if not bool(torch.isfinite(logits).all()):
+            fail(f"{tag}: request {r}: full-forward logits not finite")
+        want = logits.argmax(-1).tolist()
+        if want != out:
+            step = next(i for i, (x, y) in enumerate(zip(want, out))
+                        if x != y)
+            top2 = torch.topk(logits[step].float(), 2).values
+            fail(f"{tag}: request {r} leaves the full forward's rollout at "
+                 f"step {step} (top-2 gap {float(top2[0] - top2[1]):.3e})")
+
+
+def check_window(tag, got, must, must_not=()):
+    for name in must:
+        if got[name] <= 0:
+            fail(f"{tag}: {name} launched no time on this path ({got})")
+    for name in must_not:
+        if got[name]:
+            fail(f"{tag}: {name} launched {got[name]} times ({got})")
+
+
+def phase_contig(seed, card, model, vocab):
+    """Phase 13a. Returns (launches, stats)."""
+    g = torch.Generator().manual_seed(seed + 130)
+    prompts = [random_tokens(g, n, vocab) for n in CONTIG_LENGTHS]
+    contig = dict(max_seq_len=1024)
+    paged = dict(max_seq_len=1024, kv_block_size=16, fused_decode=True)
+    log("phase 13a: contiguous cache, float32: tokens vs the paged engine "
+        "and the full forward's rollout")
+    e = inf_engine(model, "fp32", **contig)
+    out_c, _ = run_requests(e, prompts, CONTIG_NEW, join_after=2)
+    e.close()
+    e = inf_engine(model, "fp32", **paged)
+    out_p, _ = run_requests(e, prompts, CONTIG_NEW, join_after=2)
+    e.close()
+    same_tokens("13a contiguous vs paged (fp32)", prompts, out_c, out_p,
+                model, vocab)
+    rollout_check("13a contiguous (fp32)", model, prompts, out_c, vocab)
+    log(f"  float32: contiguous == paged == rollout for {len(prompts)} "
+        f"requests x {CONTIG_NEW} tokens")
+    torch.cuda.empty_cache()
+
+    log("phase 13a: contiguous cache, bf16 (the measured path)")
+    warm = inf_engine(model, "bf16", **contig)
+    run_requests(warm, prompts[:1], 4)
+    warm.close()
+    e = inf_engine(model, "bf16", **contig)
+    zero_launches()
+    out_cb, st = run_requests(e, prompts, CONTIG_NEW, join_after=2)
+    launches = read_launches()
+    cache_bytes = e.metrics.gauge("infer/kv_cache_bytes").value
+    bf16_model = e.model
+    check_window("13a contig", launches, ("flash_fwd",),
+                 ("paged_decode", "sgmv", "flash_bwd_dq"))
+    # the contiguous cache has no prefix cache: every prefill is cold
+    if launches["flash_fwd"] != N_LAYER * st["requests"]:
+        fail(f"13a: flash_fwd launched {launches['flash_fwd']} times for "
+             f"{st['requests']} cold prefills (want {N_LAYER} each)")
+    want_bytes = INF_SLOTS * 1024 * N_LAYER * 2 * 768 * 2
+    if cache_bytes != want_bytes:
+        fail(f"13a: cache bytes {cache_bytes} != {want_bytes}")
+    ep = inf_engine(model, "bf16", **paged)
+    out_pb, st_p = run_requests(ep, prompts, CONTIG_NEW, join_after=2)
+    ep.close()
+    div = bf16_divergence("13a contiguous vs paged", prompts, out_cb,
+                          out_pb, bf16_model, vocab)
+    e.close()
+    stats = {
+        "ttft_ms_mean": st["ttft_ms_mean"],
+        "prefill_ms_mean": st["prefill_ms_mean"],
+        "decode_tokens_per_s": decode_rate(st),
+        "decode_steps": st["decode_steps"],
+        "cold_prefills": st["requests"],
+        "flash_fwd_per_cold_prefill": launches["flash_fwd"]
+        / st["requests"],
+        "cache_bytes": cache_bytes,
+        "paged_ttft_ms_mean": st_p["ttft_ms_mean"],
+        "paged_decode_tokens_per_s": decode_rate(st_p),
+        "bf16_divergence": div,
+        "wall_s": st["wall_s"],
+    }
+    log(f"  contiguous bf16: TTFT {st['ttft_ms_mean']:.3f} ms, decode "
+        f"{decode_rate(st):.1f} tokens/s (paged {decode_rate(st_p):.1f}), "
+        f"cache {cache_bytes} bytes, launches {launches} on {card}")
+    return launches, stats
+
+
+def tier_prompts(seed, vocab):
+    g = torch.Generator().manual_seed(seed + 131)
+    templates = [random_tokens(g, 512, vocab) for _ in range(3)]
+    waves = [[templates[t] + random_tokens(g, s, vocab)
+              for t, s in zip(wave, TIER_SUFFIXES)] for wave in TIER_WAVES]
+    return templates, waves
+
+
+class TierProbe:
+    """Wraps a host-tier engine's seams: times each page spill and each
+    promoted chain (host clock: the device-to-host copy and its wait, the
+    sha1, the placement), and holds every promoted page (up to
+    TIER_PAGE_CHECKS) bit for bit against its tier entry once the slot's
+    reservation has put it in the pool."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.spill_ms, self.promote_ms, self.promoted = [], [], 0
+        self.checked = 0
+        self._pending = None
+        self.first_prefill = {}  # prompt -> when its first prefill ended
+        spill, promote = engine._spill_kv_page, engine._promote_chain
+        reserve, prefill = engine.reserve_request, engine.prefill_request
+
+        def timed_prefill(slot, prompt, temperature):
+            first = prefill(slot, prompt, temperature)
+            # a preempted request resumes with its tokens appended: only
+            # its first admission counts toward time to first token
+            self.first_prefill.setdefault(tuple(prompt), time.monotonic())
+            return first
+
+        def timed_spill(block_id, chain_hash):
+            t0 = time.perf_counter()
+            spill(block_id, chain_hash)
+            self.spill_ms.append((time.perf_counter() - t0) * 1e3)
+
+        def timed_promote(hashes, start, plen):
+            t0 = time.perf_counter()
+            out = promote(hashes, start, plen)
+            if out:
+                self.promote_ms.append((time.perf_counter() - t0) * 1e3)
+                self.promoted += len(out)
+            # the tier entries (the spilled bytes, verified against their
+            # spill-time digest) of the chain, page start onward
+            entries = engine.host_tier._entries
+            self._pending = (start, [entries[h].arrays for h, _, _ in out
+                                     if h in entries])
+            return out
+
+        def checked_reserve(slot, prompt, max_new):
+            self._pending = None
+            prefix_len = reserve(slot, prompt, max_new)
+            if self._pending is not None:
+                start, arrays = self._pending
+                # the pages promoted into this slot (the chain may have
+                # been cut to fit a suffix bucket)
+                n = prefix_len // engine.kv_block_size - start
+                blocks = engine._slot_blocks[slot]
+                for i in range(max(0, min(n, len(arrays)))):
+                    if self.checked >= TIER_PAGE_CHECKS:
+                        break
+                    b = blocks[start + i]
+                    for pool, want in zip(
+                            (engine._cache.k, engine._cache.v), arrays[i]):
+                        if not torch.equal(pool[:, b].cpu(), want):
+                            fail(f"13b: promoted page {b} differs from its "
+                                 "spilled bytes")
+                    self.checked += 1
+            return prefix_len
+
+        engine._spill_kv_page = timed_spill
+        engine.block_pool._spill_fn = timed_spill
+        engine._promote_chain = timed_promote
+        engine.reserve_request = checked_reserve
+        engine.prefill_request = timed_prefill
+
+    def ttft_ms(self, requests):
+        """Time to first token of each request's first admission (the
+        infer/ttft_ms histogram also counts a preempted request's resume,
+        measured from its submission)."""
+        return [(self.first_prefill[tuple(r.prompt_tokens)]
+                 - r.submitted_at) * 1e3 for r in requests]
+
+    def spill_parts(self, pages=32):
+        """Where a page spill's host time goes, over ``pages`` pages of the
+        pool: the pinned allocation of its k and v rows (kept alive, as
+        the tier keeps them, so each is a fresh allocation; and the same
+        bytes as one allocation), the copies and the wait on the stream,
+        and the sha1 the tier takes of them."""
+        from deepspeed_tpu_torch.inference.host_tier import _digest
+
+        cache = self.engine._cache
+        parts = {"pin_alloc_ms": 0.0, "copy_wait_ms": 0.0, "sha1_ms": 0.0,
+                 "pin_alloc_one_buffer_ms": 0.0}
+        held = []
+        for b in range(1, pages + 1):
+            rows = (cache.k[:, b], cache.v[:, b])
+            t0 = time.perf_counter()
+            host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    for t in rows]
+            t1 = time.perf_counter()
+            for h, t in zip(host, rows):
+                h.copy_(t, non_blocking=True)
+            torch.cuda.current_stream().synchronize()
+            t2 = time.perf_counter()
+            _digest(host)
+            t3 = time.perf_counter()
+            one = torch.empty((2,) + tuple(rows[0].shape),
+                              dtype=rows[0].dtype, pin_memory=True)
+            t4 = time.perf_counter()
+            held.extend((host, one))
+            for key, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                parts[key] += dt * 1e3 / pages
+        return parts
+
+    def stats(self):
+        per_page = (sum(self.promote_ms) / self.promoted
+                    if self.promoted else None)
+        return {"spills_timed": len(self.spill_ms),
+                "spill_ms_per_page": (sum(self.spill_ms) / len(self.spill_ms)
+                                      if self.spill_ms else None),
+                "promote_ms_per_page_fetched": per_page,
+                "pages_fetched": self.promoted,
+                "pages_checked_bitwise": self.checked}
+
+
+def tier_block(group, **kw):
+    return dict({"enabled": True, "max_bytes": TIER_BYTES,
+                 "share_group": group, "lazy_alloc": True}, **kw)
+
+
+def tier_run(engine, waves, probe=None):
+    """The 24 requests, wave after wave; with a probe, the mean time to
+    first token of their first admissions."""
+    outs, ttft, t0 = [], [], time.monotonic()
+    for wave in waves:
+        reqs = [engine.submit(p, max_new_tokens=TIER_NEW) for p in wave]
+        engine.scheduler.run_until_idle()
+        torch.cuda.synchronize()
+        outs.extend(r.result() for r in reqs)
+        if probe is not None:
+            ttft.extend(probe.ttft_ms(reqs))
+    st = engine_stats(engine, time.monotonic() - t0)
+    if ttft:
+        st["ttft_ms_first_admission_mean"] = sum(ttft) / len(ttft)
+        st["ttft_ms_first_admission_max"] = max(ttft)
+    return outs, st
+
+
+def tier_counts(engine):
+    snap = engine.kv_snapshot()
+    return {k[len("host_tier_"):]: v for k, v in snap.items()
+            if k.startswith("host_tier_")}
+
+
+def phase_tier(seed, card, model, vocab):
+    """Phase 13b. Returns (launches, stats)."""
+    templates, waves = tier_prompts(seed, vocab)
+    flat = [p for wave in waves for p in wave]
+    paged = dict(max_seq_len=1024, kv_block_size=16, fused_decode=True)
+    log(f"phase 13b: host tier, float32: 24 requests in 3 waves on a "
+        f"{TIER_POOL}-page pool (lazy growth) vs a pool that holds all")
+    a = inf_engine(model, "fp32", kv_pool_blocks=TIER_POOL,
+                   host_tier=tier_block("p13-f32"), **paged)
+    probe = TierProbe(a)
+    out_t, st_t = tier_run(a, waves, probe)
+    counts = tier_counts(a)
+    ref = inf_engine(model, "fp32", kv_pool_blocks=INF_SLOTS * 64, **paged)
+    out_r, _ = tier_run(ref, waves)
+    same_tokens("13b tier vs resident (fp32)", flat, out_t, out_r, model,
+                vocab)
+    for key in ("spills", "promotions", "preemptions"):
+        if counts[key] <= 0:
+            fail(f"13b: host_tier/{key} is {counts[key]} ({counts})")
+    if probe.checked == 0:
+        fail("13b: no promoted page was held against its spilled bytes")
+    log(f"  float32: tier == resident for 24 requests; {counts}; "
+        f"{probe.stats()}")
+    # a peer engine in the same share group: its first templated request
+    # promotes the pages engine A parked
+    peer_prompt = templates[0] + random_tokens(
+        torch.Generator().manual_seed(seed + 132), 40, vocab)
+    b = inf_engine(model, "fp32", kv_pool_blocks=TIER_POOL,
+                   host_tier=tier_block("p13-f32"), **paged)
+    if b.host_tier is not a.host_tier:
+        fail("13b: the two engines of one share group hold two tiers")
+    out_b, _ = run_requests(b, [peer_prompt], 32)
+    peer = tier_counts(b)
+    out_rb, _ = run_requests(ref, [peer_prompt], 32)
+    same_tokens("13b peer vs resident (fp32)", [peer_prompt], out_b, out_rb,
+                model, vocab)
+    if peer["peer_fetches"] <= 0:
+        fail(f"13b: the peer engine's first request fetched nothing from "
+             f"its peer ({peer})")
+    for e in (b, a, ref):
+        e.close()
+    torch.cuda.empty_cache()
+
+    log("phase 13b: adapters through the tier (3 adapters, 2 pool rows), "
+        "float32")
+    base = {k: v for k, v in model.state_dict().items()}
+    adapters = {n: synthetic_adapter(base, seed + 133 + i)
+                for i, n in enumerate("abc")}
+    g = torch.Generator().manual_seed(seed + 134)
+    ad_prompts = [random_tokens(g, 64, vocab) for _ in range(2)]
+    ad_f32 = adapter_tier_run(model, "fp32", "p13-ad-f32", adapters,
+                              ad_prompts, True)
+    ad_ref = adapter_tier_run(model, "fp32", None, adapters, ad_prompts,
+                              False)
+    if ad_f32["tokens"] != ad_ref["tokens"]:
+        fail(f"13b: the auto-loaded adapter's tokens differ from the "
+             f"all-resident run's ({ad_f32['tokens']} vs "
+             f"{ad_ref['tokens']})")
+    log(f"  adapter b evicted, parked and auto-loaded: tokens == "
+        f"all-resident; {ad_f32['counts']}")
+
+    log("phase 13b: host_tier.copy armed once (oserror): the template "
+        "serves cold")
+    fault = fault_run(model, seed, vocab)
+    log(f"  {fault}")
+    torch.cuda.empty_cache()
+
+    log("phase 13b: bf16 (the measured path)")
+    warm = inf_engine(model, "bf16", kv_pool_blocks=TIER_POOL,
+                      host_tier=tier_block("p13-warm"), **paged)
+    run_requests(warm, flat[:1], 4)
+    warm.close()
+    a = inf_engine(model, "bf16", kv_pool_blocks=TIER_POOL,
+                   host_tier=tier_block("p13-bf16"), **paged)
+    probe = TierProbe(a)
+    zero_launches()
+    _, st = tier_run(a, waves, probe)
+    ad_bf16 = adapter_tier_run(model, "bf16", "p13-ad-bf16", adapters,
+                               ad_prompts, True)
+    launches = read_launches()
+    counts_b = tier_counts(a)
+    spill_parts = probe.spill_parts()
+    a.close()
+    check_window("13b host_tier", launches,
+                 ("flash_fwd", "paged_decode", "sgmv"),
+                 ("flash_bwd_dq", "lamb_phase1"))
+    for key in ("spills", "promotions", "preemptions"):
+        if counts_b[key] <= 0:
+            fail(f"13b bf16: host_tier/{key} is {counts_b[key]}")
+    page_bytes = N_LAYER * 16 * 2 * 768 * 2
+    stats = {
+        "ttft_ms_mean": st["ttft_ms_mean"],
+        "ttft_ms_first_admission_mean": st["ttft_ms_first_admission_mean"],
+        "ttft_ms_first_admission_max": st["ttft_ms_first_admission_max"],
+        "prefill_ms_mean": st["prefill_ms_mean"],
+        "decode_tokens_per_s": decode_rate(st),
+        "decode_steps": st["decode_steps"],
+        "cold_prefills": st["cold_prefills"],
+        "prefix_hits": st["prefix_hits"],
+        "wall_s": st["wall_s"],
+        "counts": counts_b, "probe": probe.stats(),
+        "spill_parts": spill_parts,
+        "f32_ttft_ms_first_admission_mean":
+            st_t["ttft_ms_first_admission_mean"],
+        "page_bytes": page_bytes,
+        "f32_counts": counts, "f32_peer_counts": peer,
+        "adapters": {"f32": ad_f32["counts"], "bf16": ad_bf16["counts"],
+                     "bf16_sgmv_launches": ad_bf16["sgmv_launches"]},
+        "fault": fault,
+    }
+    log(f"  spill parts (ms a page): {spill_parts}")
+    log(f"  host tier bf16: TTFT {st['ttft_ms_mean']:.3f} ms (first "
+        f"admissions {st['ttft_ms_first_admission_mean']:.3f}), decode "
+        f"{decode_rate(st):.1f} tokens/s, {counts_b}, {probe.stats()}, "
+        f"launches {launches} on {card}")
+    return launches, stats
+
+
+def adapter_tier_run(model, dtype, group, adapters, prompts, tier):
+    """Load a and b into a pool of 2 rows (3 without the tier: all
+    resident), serve a, load c (b, idle, is evicted and parked), then
+    serve b. Returns b's tokens, the tier counts and the SGMV launches."""
+    engine = inf_engine(
+        model, dtype, max_seq_len=1024, kv_block_size=16,
+        fused_decode=True,
+        **({"host_tier": tier_block(group, lazy_alloc=False)}
+           if tier else {}),
+        extra={"adapters": {"enabled": True, "rank": LORA_RANK,
+                            "pool_slots": 2 if tier else 3}})
+    try:
+        for name in "ab":
+            engine.load_adapter(name, adapter_state=adapters[name])
+        gen_b = engine.adapter_registry.generation_of("b")
+        engine.generate([prompts[0]], max_new_tokens=8, adapter="a")
+        engine.load_adapter("c", adapter_state=adapters["c"])
+        if tier and "b" in engine.adapter_registry.loaded:
+            fail("13b: adapter b was not evicted")
+        before = launch_counters()["sgmv"].launches
+        out = engine.generate([prompts[1]], max_new_tokens=16,
+                              adapter="b")[0]
+        sgmv = launch_counters()["sgmv"].launches - before
+        counts = tier_counts(engine) if tier else {}
+        if tier:
+            if engine.adapter_registry.generation_of("b") != gen_b:
+                fail("13b: the auto-load did not restore b's generation")
+            if counts["promotions"] < 1 or counts["spills"] < 1:
+                fail(f"13b: adapter b did not spill and promote ({counts})")
+        return {"tokens": out, "counts": counts, "sgmv_launches": sgmv}
+    finally:
+        engine.close()
+
+
+def fault_run(model, seed, vocab):
+    """A 6-page pool with host_tier.copy armed once (oserror): the first
+    spill (the template's first page) is skipped, so the template's
+    second serve reads cold, equal to its first; copy_faults counts 1."""
+    g = torch.Generator().manual_seed(seed + 135)
+    template = random_tokens(g, 40, vocab)
+    churn = [random_tokens(g, 32, vocab) for _ in range(3)]
+    engine = inf_engine(
+        model, "fp32", max_seq_len=1024, kv_block_size=16,
+        kv_pool_blocks=6, host_tier=tier_block("p13-fault",
+                                               lazy_alloc=False),
+        extra={"resilience": {"fault_injection": {"enabled": True,
+               "faults": [{"site": "host_tier.copy", "times": 1,
+                           "args": {"mode": "oserror"}}]}}})
+    try:
+        first = engine.generate([template], max_new_tokens=8)[0]
+        run_requests(engine, churn, 8)
+        misses = engine.metrics.counter("infer/prefix_misses").value
+        second = engine.generate([template], max_new_tokens=8)[0]
+        counts = tier_counts(engine)
+        cold = engine.metrics.counter("infer/prefix_misses").value - misses
+    finally:
+        engine.close()
+    if counts["copy_faults"] != 1:
+        fail(f"13b fault: copy_faults {counts['copy_faults']} != 1")
+    if second != first or cold != 1 or counts["promotions"] != 0:
+        fail(f"13b fault: the template did not serve cold and equal "
+             f"(cold {cold}, {counts})")
+    return {"counts": counts, "second_serve_cold": True}
+
+
+def spec_models(seed):
+    """The GPT-2 small target with blocks 3-12's attn_ow/output_w and
+    biases zeroed (they add 0.0 to the residual stream, at full cost), the
+    agreeing draft (the target's first 2 blocks, embeddings and ln_f) and
+    an independent random 2-layer draft."""
+    from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
+
+    target = GPT2LMHeadModel(GPT2Config.small(), device="cuda", seed=seed)
+    with torch.no_grad():
+        for layer in target.h[2:]:
+            for name in ("attn_ow", "output_w", "attn_ob", "output_b"):
+                getattr(layer, name).zero_()
+    dcfg = GPT2Config.small(n_layer=2)
+    agreeing = GPT2LMHeadModel(dcfg, device="cuda", seed=seed)
+    agreeing.load_state_dict({k: v for k, v in target.state_dict().items()
+                              if not k.startswith("h.")
+                              or int(k.split(".")[1]) < 2})
+    independent = GPT2LMHeadModel(dcfg, device="cuda", seed=seed + 1)
+    return target, {"agreeing": agreeing, "independent": independent}
+
+
+def spec_stats(engine, st):
+    """A speculative run's numbers. ``tokens_per_target_step``: tokens one
+    slot commits a verify step (the accepted proposals plus the target's
+    own token), 1 + k * acceptance."""
+    snap = engine.metrics.snapshot()
+    slot_steps = snap["infer/spec_proposed"] / SPEC_K
+    return {
+        "ttft_ms_mean": st["ttft_ms_mean"],
+        "decode_tokens_per_s": decode_rate(st),
+        "decode_steps": st["decode_steps"],
+        "tokens_per_target_step": (
+            (snap["infer/spec_accepted"] + slot_steps) / max(1, slot_steps)),
+        "acceptance": snap["infer/spec_acceptance_rate"],
+        "proposed": snap["infer/spec_proposed"],
+        "accepted": snap["infer/spec_accepted"],
+        "cold_prefills": st["cold_prefills"],
+        "requests": st["requests"],
+    }
+
+
+def phase_spec(seed, card, vocab):
+    """Phase 13c. Returns (launches, stats)."""
+    target, drafts = spec_models(seed)
+    g = torch.Generator().manual_seed(seed + 136)
+    prompts = [random_tokens(g, n, vocab) for n in SPEC_LENGTHS]
+    paged = dict(max_seq_len=SPEC_MAX_SEQ, kv_block_size=16)
+    spec = dict(paged, speculative={"k": SPEC_K})
+    log(f"phase 13c: speculative (k={SPEC_K}), float32: tokens vs the "
+        f"non-speculative engine")
+    e = inf_engine(target, "fp32", fused_decode=True, **paged)
+    out_ref, _ = run_requests(e, prompts, SPEC_NEW)
+    e.close()
+    for name, draft in drafts.items():
+        e = inf_engine(target, "fp32", draft=draft, **spec)
+        out, st = run_requests(e, prompts, SPEC_NEW)
+        s = spec_stats(e, st)
+        e.close()
+        same_tokens(f"13c {name} draft (fp32)", prompts, out, out_ref,
+                    target, vocab)
+        log(f"  {name} draft: spec == non-spec; acceptance "
+            f"{s['acceptance']:.4f}, {s['tokens_per_target_step']:.3f} "
+            f"tokens a target step")
+    torch.cuda.empty_cache()
+
+    log("phase 13c: bf16 (the measured path)")
+    ref = inf_engine(target, "bf16", fused_decode=True, **paged)
+    run_requests(ref, prompts[:1], 4)
+    out_refb, st_ref = run_requests(ref, prompts, SPEC_NEW)
+    bf16_target = ref.model
+    stats = {"non_speculative": {
+        "ttft_ms_mean": st_ref["ttft_ms_mean"],
+        "decode_tokens_per_s": decode_rate(st_ref),
+        "decode_steps": st_ref["decode_steps"]}}
+    warm = inf_engine(target, "bf16", draft=drafts["agreeing"], **spec)
+    run_requests(warm, prompts[:1], 4)
+    warm.close()
+    zero_launches()
+    per_draft = {}
+    for name, draft in drafts.items():
+        before = read_launches()
+        e = inf_engine(target, "bf16", draft=draft, **spec)
+        out, st = run_requests(e, prompts, SPEC_NEW)
+        s = spec_stats(e, st)
+        e.close()
+        after = read_launches()
+        flash = after["flash_fwd"] - before["flash_fwd"]
+        s["draft_flash_fwd_per_prefill"] = (
+            flash - N_LAYER * s["cold_prefills"]) / s["requests"]
+        if s["draft_flash_fwd_per_prefill"] != 2:
+            fail(f"13c {name}: flash_fwd {flash} for {s['cold_prefills']} "
+                 f"target prefills and {s['requests']} draft prefills: the "
+                 "draft's is not 2 a prefill")
+        s["bf16_divergence"] = bf16_divergence(
+            f"13c {name} draft vs non-spec", prompts, out, out_refb,
+            bf16_target, vocab)
+        s["speedup_vs_non_speculative"] = (
+            s["decode_tokens_per_s"] / decode_rate(st_ref))
+        per_draft[name] = s
+        log(f"  {name} draft bf16: acceptance {s['acceptance']:.4f}, "
+            f"{s['tokens_per_target_step']:.3f} tokens a target step, "
+            f"decode {s['decode_tokens_per_s']:.1f} tokens/s vs "
+            f"{decode_rate(st_ref):.1f} non-speculative on {card}")
+    launches = read_launches()
+    ref.close()
+    check_window("13c spec", launches, ("flash_fwd",),
+                 ("paged_decode", "sgmv", "flash_bwd_dq"))
+    stats.update(per_draft)
+    return launches, stats
+
+
+def phase_inference_rest(seed, card):
+    """Phase 13. Returns ({path: launches}, stats)."""
+    from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
+
+    cfg = GPT2Config.small()
+    model = GPT2LMHeadModel(cfg, device="cuda", seed=seed)
+    model.requires_grad_(False)
+    vocab = cfg.vocab_size
+    t0 = time.monotonic()
+    launches, stats = {}, {"card": card}
+    launches["contig"], stats["contig"] = phase_contig(seed, card, model,
+                                                       vocab)
+    torch.cuda.empty_cache()
+    launches["host_tier"], stats["host_tier"] = phase_tier(seed, card, model,
+                                                           vocab)
+    del model
+    torch.cuda.empty_cache()
+    launches["spec"], stats["spec"] = phase_spec(seed, card, vocab)
+    torch.cuda.empty_cache()
+    stats["wall_s"] = time.monotonic() - t0
+    log(f"phase 13: {stats['wall_s']:.1f} s")
+    return launches, stats
+
+
 def only_flash(device, seed):
     """``--only-flash``: the flash kernels built alone (ptxas's registers
     and spills printed) and timed as time_flash times them (bf16, causal,
@@ -4885,6 +5586,10 @@ def main():
     parser.add_argument("--only-phase12", action="store_true",
                         help="build every kernel and run phase 12 alone "
                         "(BERT and the optimizer state layouts)")
+    parser.add_argument("--only-phase13", action="store_true",
+                        help="build every kernel and run phase 13 alone "
+                        "(the contiguous cache, the host tier and "
+                        "speculative decoding)")
     parser.add_argument("--cold-telemetry", action="store_true",
                         help="one telemetry-on training run whose first "
                         "window builds the kernels in an empty build "
@@ -4942,6 +5647,13 @@ def main():
                           "launches": launches, "card": smi}))
         return
 
+    if args.only_phase13:
+        kernel_lib.build()
+        launches, stats = phase_inference_rest(args.seed, smi)
+        print(json.dumps({"phase13": stats, "launches": launches,
+                          "card": smi}))
+        return
+
     # phase 2: build
     t0 = time.monotonic()
     built = kernel_lib.build()
@@ -4971,9 +5683,11 @@ def main():
     res_launches, res_stats = phase_resilience(args.seed, smi)
     data_launches, data_stats = phase_data_remat(args.seed, smi)
     bert_launches, bert_stats, bert_rows = phase_bert_layouts(args.seed, smi)
+    inf_launches, inf_stats = phase_inference_rest(args.seed, smi)
     for path, counts in [("serve", serve_launches),
                          *adapter_launches.items(), *hd_launches.items(),
-                         *tel_launches.items(), *res_launches.items()]:
+                         *tel_launches.items(), *res_launches.items(),
+                         *inf_launches.items()]:
         for name, n in counts.items():
             launches[name][path] = n
     for name, by_path in data_launches.items():
@@ -5046,6 +5760,7 @@ def main():
                     "adapters": adapter_stats, "card": smi,
                     "telemetry": tel_stats, "resilience": res_stats,
                     "data_remat": data_stats, "bert_layouts": bert_stats,
+                    "inference_rest": inf_stats,
                     "head_dims": {k: v for k, v in hd_stats.items()
                                   if k not in ("flash", "flash_wide",
                                                "flash_d128",

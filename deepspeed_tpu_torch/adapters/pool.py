@@ -103,12 +103,19 @@ class AdapterPool:
             return self._active.get(name, 0)
 
     # -- load / evict ---------------------------------------------------
-    def assign(self, name):
+    def assign(self, name, generation=None):
         """Slot index for (re)loading ``name``: its current index when
         already loaded (a reload — new generation, same row), else a free
         slot, else the LRU idle adapter's slot (evicting it). Raises
         :class:`AdapterPoolFull` when every slot is pinned by live
-        requests. Returns ``(index, evicted_name_or_None)``."""
+        requests. Returns ``(index, evicted_name_or_None)``.
+
+        ``generation`` restores a specific load generation instead of
+        minting a fresh one — the host-tier auto-load re-installs a
+        spilled adapter's ORIGINAL weights, so its original generation
+        (and therefore its salted prefix pages) must stay valid. The
+        counter fast-forwards past any restored value so a later true
+        reload still mints a strictly newer generation."""
         with self._lock:
             evicted = None
             if name in self._index:
@@ -126,8 +133,13 @@ class AdapterPool:
             else:
                 raise AdapterPoolFull(self.n_slots)
             self._index[name] = idx
-            self._generation[name] = self._next_gen
-            self._next_gen += 1
+            if generation is None:
+                generation = self._next_gen
+                self._next_gen += 1
+            else:
+                generation = int(generation)
+                self._next_gen = max(self._next_gen, generation + 1)
+            self._generation[name] = generation
             if name not in self._idle_lru and self._active.get(name, 0) == 0:
                 self._idle_lru[name] = None
             self.loads += 1

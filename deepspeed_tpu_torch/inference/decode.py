@@ -1,7 +1,8 @@
-"""GPT-2 KV-cache decode over the paged pool: prefill + incremental step.
+"""GPT-2 KV-cache decode: prefill + incremental step, over a contiguous
+cache or the paged pool.
 
-Port of the paged half of deepspeed_tpu/inference/decode.py. Serving is
-split into the usual two phases:
+Port of deepspeed_tpu/inference/decode.py. Serving is split into the
+usual two phases:
 
   PREFILL  runs the prompt once through the full-sequence forward and
            keeps each layer's split-head key/value projections (the
@@ -9,16 +10,19 @@ split into the usual two phases:
            ``transformer_block_apply(..., return_kv=True)``); the flash
            forward kernel carries its attention.
   DECODE   feeds ONE token per slot through
+           ``transformer_block_decode`` (contiguous) or
            ``transformer_block_decode_paged``: qkv for the new position,
-           k/v written into the pool, attention over the slot's pages
-           (the paged decode kernel when ``fused``).
+           k/v written into the cache, attention over the slot's rows or
+           pages (the paged decode kernel when ``fused``).
 
-The cache is a global pool of fixed-size pages ``[layers, num_blocks,
-block_size, heads, head_dim]`` indirected through per-slot block tables,
-with page 0 the never-allocated NULL page. Unlike the JAX package, whose
-functions return a new pool, every function here that writes the pool
-writes it IN PLACE and returns the same ``KVPool``. The contiguous cache
-(``kv_block_size: 0``) is not ported yet.
+Two cache layouts. The contiguous cache (``kv_block_size: 0``, and the
+speculative draft's own cache) is one ``[layers, slots, heads, max_len,
+head_dim]`` block per slot. The paged cache is a global pool of
+fixed-size pages ``[layers, num_blocks, block_size, heads, head_dim]``
+indirected through per-slot block tables, with page 0 the
+never-allocated NULL page. Unlike the JAX package, whose functions
+return a new cache, every function here that writes a cache writes it
+IN PLACE and returns the same ``KVCache``/``KVPool``.
 
 Multi-LoRA serving: every function takes an optional adapter pool
 (:func:`init_adapter_pool`) with per-request ``adapter_ids``; each layer
@@ -34,10 +38,45 @@ import torch
 from ..ops.transformer import (
     resolve_lora_targets,
     transformer_block_apply,
+    transformer_block_decode,
     transformer_block_decode_paged,
     transformer_block_prefill_paged,
 )
 from ..utils.device import resolve_device
+
+
+class KVCache(typing.NamedTuple):
+    """Contiguous decode cache: ``k``/``v`` each ``[layers, slots, heads,
+    max_len, head_dim]``."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @property
+    def num_slots(self):
+        return self.k.shape[1]
+
+    @property
+    def max_len(self):
+        return self.k.shape[3]
+
+
+def init_kv_cache(config, num_slots, max_len, dtype=torch.float32,
+                  device=None):
+    """Zero-filled contiguous cache for a GPT2Config: ``[L, slots, heads,
+    max_len, hd]`` on ``device`` in ``dtype``."""
+    shape = (
+        config.n_layer,
+        int(num_slots),
+        config.n_head,
+        int(max_len),
+        config.n_embd // config.n_head,
+    )
+    device = resolve_device(device)
+    return KVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+    )
 
 
 class KVPool(typing.NamedTuple):
@@ -134,6 +173,17 @@ def gpt2_prefill(model, tokens, adapters=None, adapter_ids=None,
 
 
 @torch.no_grad()
+def write_prefill_to_cache(cache, slot, ks, vs):
+    """Install one prefilled request's k/v ([L, 1, heads, S, hd]) into
+    ``slot`` of the contiguous cache, positions 0..S-1, IN PLACE. Returns
+    ``cache``."""
+    s = ks.shape[3]
+    cache.k[:, slot, :, :s] = ks[:, 0].to(cache.k.dtype)
+    cache.v[:, slot, :, :s] = vs[:, 0].to(cache.v.dtype)
+    return cache
+
+
+@torch.no_grad()
 def write_prefill_to_pool(pool, ks, vs, block_ids, offsets):
     """Install one cold-prefilled request's k/v ([L, 1, heads, S, hd])
     into its pages IN PLACE: position ``j`` lands at ``(block_ids[j],
@@ -145,6 +195,36 @@ def write_prefill_to_pool(pool, ks, vs, block_ids, offsets):
     pool.k[:, block_ids, offsets] = ks[:, 0].transpose(1, 2).to(pool.k.dtype)
     pool.v[:, block_ids, offsets] = vs[:, 0].transpose(1, 2).to(pool.v.dtype)
     return pool
+
+
+def _embed_positions(model, tokens, positions):
+    """Token plus position embeddings for one decode step, [slots, 1, H].
+    A position past the table reads its last row, as JAX's gather clamps
+    an out-of-bounds index (only the speculative draft's proposals near
+    the length cap get there, and they are never committed)."""
+    pos = torch.clamp(positions.long(), max=model.wpe.shape[0] - 1)
+    return (model.wte[tokens.long()] + model.wpe[pos])[:, None, :]
+
+
+@torch.no_grad()
+def gpt2_decode_step(model, tokens, positions, cache, adapters=None,
+                     adapter_ids=None, lora_scale=1.0):
+    """One incremental token for every slot over the contiguous cache.
+    ``tokens``/``positions`` [slots] int32 (each slot's previous token and
+    its position == tokens already cached); ``adapter_ids`` [slots] as in
+    :func:`gpt2_decode_step_paged`. Writes this step's k/v into ``cache``
+    IN PLACE (a position past ``max_len`` writes nothing). Dead slots ride
+    along at their stale position. Returns ``(logits [slots,
+    vocab_padded], cache)``."""
+    x = _embed_positions(model, tokens, positions)
+    for i, (layer, k_cache, v_cache) in enumerate(
+        zip(model.h, cache.k, cache.v)
+    ):
+        x = transformer_block_decode(
+            model.layer_config, layer, x, k_cache, v_cache, positions,
+            lora=_layer_lora(adapters, adapter_ids, lora_scale, i),
+        )
+    return model.final_norm_and_logits(x)[:, 0, :], cache
 
 
 @torch.no_grad()
@@ -159,8 +239,7 @@ def gpt2_decode_step_paged(model, tokens, positions, pool, block_tables,
     and the LoRA deltas through the SGMV kernel instead of the gathered
     views. Writes this step's k/v into ``pool`` IN PLACE. Returns
     ``(logits [slots, vocab_padded], pool)``."""
-    x = model.wte[tokens.long()] + model.wpe[positions.long()]
-    x = x[:, None, :]  # [slots, 1, H]
+    x = _embed_positions(model, tokens, positions)
     for i, (layer, k_pool, v_pool) in enumerate(
         zip(model.h, pool.k, pool.v)
     ):

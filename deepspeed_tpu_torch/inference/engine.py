@@ -1,22 +1,24 @@
 """InferenceEngine: the serving façade behind ``init_inference``.
 
-Port of deepspeed_tpu/inference/engine.py for the PAGED cache. It glues
-three layers together:
+Port of deepspeed_tpu/inference/engine.py. It glues three layers
+together:
 
   params     — the caller's GPT-2 weights, copied into the engine's own
                model in the serving dtype on the serving device (the
                caller's module is left as it was).
   decode     — prefill / decode-and-sample over inference/decode.py and
-               inference/sampling.py; the page pool is updated in place.
+               inference/sampling.py; the KV cache (contiguous or paged)
+               is updated in place.
   scheduling — the ContinuousBatchingScheduler (scheduler.py, unchanged
                from the JAX package) owning the bounded admission queue
                and the slot table; ``generate`` is the synchronous
                convenience over it, ``submit`` + ``serve_forever`` the
                server mode.
 
-Ported: the paged KV cache with the cross-request prefix cache, fused
-decode attention (the paged decode kernel), greedy and sampled decoding,
-and multi-LoRA serving (the ``adapters`` block): a device adapter pool
+Ported: the contiguous KV cache (``kv_block_size: 0``), the paged KV
+cache with the cross-request prefix cache, fused decode attention (the
+paged decode kernel), greedy and sampled decoding, and multi-LoRA
+serving (the ``adapters`` block): a device adapter pool
 read per slot by adapter id, through the SGMV kernel in fused decode,
 with ``load_adapter(name, adapter_state=...)``, per-slot pins, idle-LRU
 eviction and prefix-cache pages salted by adapter identity.
@@ -35,10 +37,17 @@ same way, its rank, scale and targets checked against the pool before a
 row is written. The resilience instruments (``resilience/*``) live on the
 engine's metrics registry, and the ``decode.step`` fault site fires at
 each decode step, which the scheduler's driver auto-restart absorbs.
-Not yet ported, and refused with ``DeepSpeedConfigError``: the contiguous
-cache (``kv_block_size: 0``), the host tier, speculative decoding and a
-device mesh. The fleet's hooks (tracer injection, brownout) come with
-the fleet.
+The host-memory spill tier (``inference.host_tier``,
+inference/host_tier.py): evicted prefix pages and adapter rows park in
+pinned host memory and promote back on a chain-hash or adapter-name hit,
+through a copy stream ordered by events; ``lazy_alloc`` grows a slot's
+pages during decode and preempts under pressure; engines of one
+``share_group`` share one tier. Speculative decoding
+(``inference.speculative`` with ``draft_model``): a small draft on its
+own contiguous cache proposes k greedy tokens and the target verifies
+them in one suffix-prefill step over the paged cache. Not yet ported,
+and refused with ``DeepSpeedConfigError``: a device mesh. The fleet's
+hooks (tracer injection, brownout) come with the fleet.
 
 Adapter pool rows are written IN PLACE (the JAX engine swaps in a new
 pool between steps). ``load_adapter`` runs on a caller's thread while
@@ -49,7 +58,10 @@ never between two layers of one.
 
 import dataclasses
 import threading
+import time
 import types
+import typing
+import uuid
 
 import numpy as np
 import torch
@@ -63,7 +75,7 @@ from ..adapters.lora import (
     adapter_layer_stacks,
     split_lora_params,
 )
-from ..adapters.pool import AdapterPool, AdapterUnavailable
+from ..adapters.pool import AdapterPool, AdapterPoolFull, AdapterUnavailable
 from ..models.gpt2 import GPT2LMHeadModel
 from ..ops.decode_attention import SGMV_MAX_RANK
 from ..ops.head_dims import check_head_dim, model_head_dim
@@ -73,22 +85,78 @@ from ..runtime.checkpointing import load_module_state
 from ..telemetry.manager import (
     build_telemetry,
     register_adapter_metrics,
+    register_host_tier_metrics,
     register_inference_metrics,
 )
 from ..telemetry.registry import MetricsRegistry
 from ..utils.device import resolve_device
-from ..utils.logging import log_dist
+from ..utils.logging import log_dist, logger
 from .decode import (
+    gpt2_decode_step,
     gpt2_decode_step_paged,
     gpt2_prefill,
     gpt2_prefill_suffix,
     init_adapter_pool,
+    init_kv_cache,
     init_kv_pool,
+    write_prefill_to_cache,
     write_prefill_to_pool,
 )
+from .host_tier import HostTier
 from .paging import NULL_BLOCK, BlockPool, PoolExhausted, hash_full_blocks
-from .sampling import sample_tokens
+from .sampling import mask_padded_vocab, sample_tokens
 from .scheduler import ContinuousBatchingScheduler, RequestRejected  # noqa: F401  (re-exported)
+
+
+class _Placed(typing.NamedTuple):
+    """A host-tier promotion's device tensors and the event that marks
+    their copy (on the tier's copy stream)."""
+
+    arrays: tuple
+    event: object
+
+
+def _device_placer(device):
+    """The host tier's ``place_fn`` for an engine on ``device``: on CUDA
+    the host-to-device copies of a promoted entry (pinned memory, so
+    they are asynchronous) run on a copy stream of their own and record
+    an event, which the consumer's stream waits on before it reads them
+    (:func:`_landed`) — as ``runtime/staging.py`` orders its windows. On
+    the CPU the identity (None)."""
+    if device.type != "cuda":
+        return None
+    stream = torch.cuda.Stream(device=device)
+
+    def place(arrays):
+        with torch.cuda.stream(stream):
+            out = tuple(a.to(device, non_blocking=True) for a in arrays)
+            event = torch.cuda.Event()
+            event.record(stream)
+        return _Placed(out, event)
+
+    return place
+
+
+def _landed(placed):
+    """The placed arrays, ready for the current stream: it waits on the
+    copy's event, and the tensors are marked as used on it (the caching
+    allocator then keeps their memory until its work on them is done)."""
+    if not isinstance(placed, _Placed):
+        return tuple(placed)
+    if not placed.arrays:
+        return ()
+    stream = torch.cuda.current_stream(placed.arrays[0].device)
+    stream.wait_event(placed.event)
+    for t in placed.arrays:
+        t.record_stream(stream)
+    return placed.arrays
+
+
+def _is_gpt2_config(cfg):
+    return cfg is not None and all(
+        hasattr(cfg, a) for a in ("n_layer", "n_head", "n_embd",
+                                  "n_positions", "layer_config")
+    )
 
 
 class InferenceEngine:
@@ -100,12 +168,11 @@ class InferenceEngine:
         mesh=None,
         rng_seed=0,
         device=None,
+        draft_model=None,
+        draft_parameters=None,
     ):
         mcfg = getattr(model, "config", None)
-        if mcfg is None or not all(
-            hasattr(mcfg, a) for a in ("n_layer", "n_head", "n_embd",
-                                       "n_positions", "layer_config")
-        ):
+        if not _is_gpt2_config(mcfg):
             raise DeepSpeedConfigError(
                 "init_inference serves the GPT-2 family: pass a "
                 "GPT2LMHeadModel (a module whose .config carries "
@@ -124,19 +191,6 @@ class InferenceEngine:
             raise _not_ported("serving over a device mesh")
         self.config = DeepSpeedConfig(None, param_dict=raw)
         cfg = self.config
-        if cfg.inference_speculative_enabled:
-            raise _not_ported("speculative decoding (inference.speculative)")
-        if cfg.inference_host_tier_enabled:
-            raise _not_ported("the host-memory spill tier (inference.host_tier)")
-        if int(cfg.inference_kv_block_size) == 0:
-            raise _not_ported(
-                "the contiguous KV cache (inference.kv_block_size: 0); set "
-                "kv_block_size > 0 for the paged cache"
-            )
-        # what the card's kernels cannot take is refused here, not mid-step
-        check_head_dim(model_head_dim(mcfg), mcfg.n_positions, device,
-                       fused_decode=bool(cfg.inference_fused_decode))
-        self.device = resolve_device(device)
 
         # ---- geometry -------------------------------------------------
         self.max_seq_len = cfg.inference_max_seq_len or mcfg.n_positions
@@ -159,34 +213,119 @@ class InferenceEngine:
 
         # ---- paged-cache geometry (docs/inference.md "Paged KV cache") -
         self.kv_block_size = int(cfg.inference_kv_block_size)
-        self.paged = True
-        if self.max_seq_len % self.kv_block_size != 0:
-            raise DeepSpeedConfigError(
-                f"resolved max_seq_len={self.max_seq_len} is not a "
-                f"multiple of inference.kv_block_size="
-                f"{self.kv_block_size} (model n_positions="
-                f"{mcfg.n_positions}); the paged cache's logical "
-                f"extent must equal the contiguous cache's"
+        self.paged = self.kv_block_size > 0
+        if self.paged:
+            if self.max_seq_len % self.kv_block_size != 0:
+                raise DeepSpeedConfigError(
+                    f"resolved max_seq_len={self.max_seq_len} is not a "
+                    f"multiple of inference.kv_block_size="
+                    f"{self.kv_block_size} (model n_positions="
+                    f"{mcfg.n_positions}); the paged cache's logical "
+                    f"extent must equal the contiguous cache's"
+                )
+            self.blocks_per_slot = self.max_seq_len // self.kv_block_size
+            self.kv_pool_blocks = (
+                int(cfg.inference_kv_pool_blocks)
+                or self.num_slots * self.blocks_per_slot
             )
-        self.blocks_per_slot = self.max_seq_len // self.kv_block_size
-        self.kv_pool_blocks = (
-            int(cfg.inference_kv_pool_blocks)
-            or self.num_slots * self.blocks_per_slot
-        )
-        enabled = cfg.inference_prefix_cache_enabled
-        self.prefix_cache_enabled = True if enabled is None else enabled
-        buckets = cfg.inference_prefix_cache_suffix_buckets
-        if buckets is None:
-            # power-of-two ladder from one page up to the prefill window
-            buckets, b = [], self.kv_block_size
-            while b < self.prefill_len:
-                buckets.append(b)
-                b *= 2
-            buckets.append(self.prefill_len)
-        self._suffix_buckets = sorted(
-            {min(int(b), self.prefill_len) for b in buckets}
-        )
+            enabled = cfg.inference_prefix_cache_enabled
+            self.prefix_cache_enabled = True if enabled is None else enabled
+            buckets = cfg.inference_prefix_cache_suffix_buckets
+            if buckets is None:
+                # power-of-two ladder from one page up to the prefill
+                # window
+                buckets, b = [], self.kv_block_size
+                while b < self.prefill_len:
+                    buckets.append(b)
+                    b *= 2
+                buckets.append(self.prefill_len)
+            self._suffix_buckets = sorted(
+                {min(int(b), self.prefill_len) for b in buckets}
+            )
+        else:
+            self.blocks_per_slot = 0
+            self.kv_pool_blocks = 0
+            self.prefix_cache_enabled = False
+            self._suffix_buckets = []
+
+        # ---- fused decode attention -----------------------------------
         self.fused_decode = bool(cfg.inference_fused_decode)
+        if self.fused_decode and not self.paged:
+            # config validation catches the explicit case; engine-derived
+            # geometry re-checks here
+            raise DeepSpeedConfigError(
+                "inference.fused_decode requires the paged cache "
+                "(kv_block_size > 0): the kernel streams KV pages "
+                "through the block table"
+            )
+
+        # ---- speculative decoding geometry ----------------------------
+        self.speculative = bool(cfg.inference_speculative_enabled)
+        self.spec_k = int(cfg.inference_speculative_k)
+        if self.speculative and self.fused_decode:
+            # the speculative step's compute is the draft's contiguous
+            # decode plus the target's multi-token verify: the
+            # single-query paged decode kernel serves no token there, so
+            # the flag (and its gauge) goes off
+            log_dist(
+                "inference.fused_decode is inert under speculative "
+                "decoding (the verify step is a multi-token suffix "
+                "prefill, the draft rides its own contiguous cache) — "
+                "disabling the flag so telemetry reports what actually "
+                "served",
+                ranks=[0],
+            )
+            self.fused_decode = False
+        dcfg = None
+        if self.speculative:
+            if not self.paged:
+                raise DeepSpeedConfigError(
+                    "inference.speculative requires the paged cache "
+                    "(kv_block_size > 0): the batched verify step "
+                    "writes through the block tables"
+                )
+            if draft_model is None:
+                raise DeepSpeedConfigError(
+                    'the "speculative" inference block is configured '
+                    "but init_inference received no draft: pass "
+                    "draft_model (a smaller GPT-2 module) and "
+                    "draft_parameters (its param tree)"
+                )
+            if not cfg.inference_greedy and cfg.inference_temperature > 0:
+                raise DeepSpeedConfigError(
+                    "speculative decoding preserves exact output for "
+                    "GREEDY decoding only (every committed token is the "
+                    "target's own argmax); set inference.sampling.greedy "
+                    "or temperature 0"
+                )
+            dcfg = getattr(draft_model, "config", None)
+            if not _is_gpt2_config(dcfg):
+                raise DeepSpeedConfigError(
+                    "draft_model must be a GPT-2-family module (a "
+                    ".config with n_layer/n_head/n_embd/n_positions)"
+                )
+            if getattr(dcfg, "vocab_size", None) != getattr(
+                mcfg, "vocab_size", None
+            ):
+                raise DeepSpeedConfigError(
+                    f"draft vocab_size={getattr(dcfg, 'vocab_size', None)}"
+                    f" != target vocab_size="
+                    f"{getattr(mcfg, 'vocab_size', None)}: proposals are "
+                    "token ids — the vocabularies must match exactly"
+                )
+            if dcfg.n_positions < self.max_seq_len:
+                raise DeepSpeedConfigError(
+                    f"draft n_positions={dcfg.n_positions} < resolved "
+                    f"max_seq_len={self.max_seq_len}: the draft must "
+                    "reach every position the target serves"
+                )
+        self.draft_config = dcfg
+        # what the card's kernels cannot take is refused here, not mid-step
+        check_head_dim(model_head_dim(mcfg), mcfg.n_positions, device,
+                       fused_decode=self.fused_decode)
+        if dcfg is not None:
+            check_head_dim(model_head_dim(dcfg), dcfg.n_positions, device)
+        self.device = resolve_device(device)
 
         # ---- params ---------------------------------------------------
         state = (
@@ -211,6 +350,29 @@ class InferenceEngine:
             cfg, telemetry=types.SimpleNamespace(
                 enabled=True, registry=self.metrics),
         )
+
+        # ---- host-memory spill tier ------------------------------------
+        # device memory as a cache over host RAM: evicted prefix pages and
+        # adapter rows park on the host (keyed by chain hash / adapter
+        # name) and promote back on a hit. peer_sharing joins the
+        # process-level share-group tier, so co-hosted engines warm each
+        # other.
+        self.host_tier = None
+        self.lazy_kv_alloc = False
+        if cfg.inference_host_tier_enabled:
+            self._tier_client_id = f"engine-{uuid.uuid4().hex[:8]}"
+            kw = dict(max_bytes=cfg.inference_host_tier_max_bytes,
+                      place_fn=_device_placer(self.device))
+            if cfg.inference_host_tier_peer_sharing:
+                self.host_tier = HostTier.shared(
+                    cfg.inference_host_tier_share_group, **kw)
+            else:
+                self.host_tier = HostTier(**kw)
+            self.host_tier.retain()
+            self.lazy_kv_alloc = (
+                bool(cfg.inference_host_tier_lazy_alloc) and self.paged
+            )
+            register_host_tier_metrics(self.metrics)
 
         # ---- params: the verified checkpoint load ----------------------
         self.loaded_tag = None
@@ -283,14 +445,20 @@ class InferenceEngine:
         self.model.requires_grad_(False)
         self.model.eval()
 
-        # ---- page pool + host-side allocator --------------------------
-        self.block_pool = BlockPool(self.kv_pool_blocks, self.kv_block_size)
-        self._block_tables = np.zeros(
-            (self.num_slots, self.blocks_per_slot), np.int32
-        )
-        self._slot_blocks = {}  # slot -> this request's page ids
-        self._slot_prefix_len = {}  # slot -> cached-prefix tokens
-        self._slot_hashes = {}  # slot -> prompt's full-page hash chain
+        # ---- KV cache + host-side allocator ---------------------------
+        if self.paged:
+            # page free list, prefix-hash registry, refcounts, eviction
+            # LRU (inference/paging.py); with the host tier, an evicted
+            # registered page spills to host RAM instead of dropping
+            self.block_pool = self._new_block_pool()
+            self._block_tables = np.zeros(
+                (self.num_slots, self.blocks_per_slot), np.int32
+            )
+            self._slot_blocks = {}  # slot -> this request's page ids
+            self._slot_prefix_len = {}  # slot -> cached-prefix tokens
+            self._slot_hashes = {}  # slot -> prompt's full-page hash chain
+        else:
+            self.block_pool = None
         self._cache = self._init_cache()
         # held around prefill, decode and adapter-pool row writes
         self._device_lock = threading.RLock()
@@ -301,6 +469,11 @@ class InferenceEngine:
         # refcounts and idle-LRU eviction
         self._slot_adapter_names = {}  # slot -> adapter name
         self._adapter_template = None  # load_adapter(load_dir=)'s names
+        # name -> load generation, mirrored at assign time: the registry
+        # drops an evicted tenant's generation before assign returns, but
+        # the host-tier spill parks the ORIGINAL generation with the rows
+        # (the auto-load restore keeps its salted prefix pages valid)
+        self._adapter_generations = {}
         if self.multi_lora:
             self._adapter_pool = init_adapter_pool(
                 mcfg, self.adapter_pool_slots, self.adapter_rank,
@@ -329,6 +502,47 @@ class InferenceEngine:
             top_p=float(cfg.inference_top_p),
         )
 
+        # ---- speculative decoding state -------------------------------
+        # the draft rides its own CONTIGUOUS cache (it shares nothing)
+        # and the target's slot/length bookkeeping: rejected proposals'
+        # rows sit past the committed length, where the position mask
+        # hides them until a later step overwrites them
+        self.draft = None
+        if self.speculative:
+            draft_state = (
+                draft_model.state_dict() if draft_parameters is None
+                else draft_parameters
+            )
+            ckpt = cfg.inference_speculative_draft_checkpoint
+            if ckpt:
+                loaded, _, dtag = load_module_state(
+                    ckpt, draft_state, resilience=self.resilience,
+                )
+                if loaded is None:
+                    raise RuntimeError(
+                        f"no loadable draft checkpoint under {ckpt!r} "
+                        "(see the resilience/corruption_fallbacks "
+                        "counter and logs)"
+                    )
+                draft_state = loaded
+                log_dist(f"speculative draft serving checkpoint {dtag}",
+                         ranks=[0])
+            self.draft = GPT2LMHeadModel(
+                dcfg, device=self.device, dtype=self.compute_dtype
+            )
+            self.draft.load_state_dict(draft_state)
+            self.draft.requires_grad_(False)
+            self.draft.eval()
+            self._draft_cache = self._init_draft_cache()
+            # per-slot token at index lengths-1 (the committed token
+            # BEFORE the uncached last): the propose step's sync step
+            # re-feeds it to close the full-acceptance cache hole
+            self._spec_prev_tokens = np.zeros(self.num_slots, np.int32)
+        # per-step draft/verify/commit phase stats, read by the
+        # scheduler's sched.spec_* spans (None when the last step was not
+        # speculative)
+        self.spec_step_stats = None
+
         # ---- KV metric streams ----------------------------------------
         self._kv_occupancy = self.metrics.gauge("infer/kv_pool_occupancy")
         self._kv_bytes = self.metrics.gauge("infer/kv_cache_bytes")
@@ -342,6 +556,9 @@ class InferenceEngine:
         self.metrics.gauge("infer/fused_decode").set(
             1 if self.fused_decode else 0
         )
+        self._spec_proposed = self.metrics.counter("infer/spec_proposed")
+        self._spec_accepted = self.metrics.counter("infer/spec_accepted")
+        self._spec_rate = self.metrics.gauge("infer/spec_acceptance_rate")
         if self.multi_lora:
             register_adapter_metrics(self.metrics)
             self._adapter_occupancy = self.metrics.gauge(
@@ -357,6 +574,19 @@ class InferenceEngine:
             self._adapter_requests = self.metrics.counter(
                 "adapters/requests"
             )
+        if self.host_tier is not None:
+            self._ht_occupancy = self.metrics.gauge(
+                "host_tier/occupancy_bytes")
+            self._ht_entries = self.metrics.gauge("host_tier/entries")
+            self._ht_spills = self.metrics.counter("host_tier/spills")
+            self._ht_promotions = self.metrics.counter(
+                "host_tier/promotions")
+            self._ht_peer_fetches = self.metrics.counter(
+                "host_tier/peer_fetches")
+            self._ht_preemptions = self.metrics.counter(
+                "host_tier/preemptions")
+            self._ht_copy_faults = self.metrics.counter(
+                "host_tier/copy_faults")
 
         # ---- scheduler ------------------------------------------------
         self.scheduler = ContinuousBatchingScheduler(
@@ -382,26 +612,71 @@ class InferenceEngine:
             f"max_seq_len {self.max_seq_len} (prefill window "
             f"{self.prefill_len}), dtype {cfg.inference_dtype} on "
             f"{self.device}, queue depth {cfg.inference_queue_depth}, "
-            f"paged KV cache ({self.kv_pool_blocks} pages x "
-            f"{self.kv_block_size} tokens, prefix cache "
-            f"{'on' if self.prefix_cache_enabled else 'off'}, fused decode "
-            f"{'on' if self.fused_decode else 'off'})"
+            + (
+                f"paged KV cache ({self.kv_pool_blocks} pages x "
+                f"{self.kv_block_size} tokens, prefix cache "
+                f"{'on' if self.prefix_cache_enabled else 'off'}, fused "
+                f"decode {'on' if self.fused_decode else 'off'})"
+                if self.paged else "contiguous KV cache"
+            )
             + (
                 f", LoRA pool of {self.adapter_pool_slots} adapters at rank "
                 f"{self.adapter_rank} on {list(self.adapter_targets)}"
                 if self.multi_lora else ""
-            ),
+            )
+            + (f", host tier of {self.host_tier.max_bytes} bytes"
+               + (" (lazy page growth)" if self.lazy_kv_alloc else "")
+               if self.host_tier is not None else "")
+            + (f", speculative decoding (k={self.spec_k}, "
+               f"{dcfg.n_layer}-layer draft)" if self.speculative else "")
+            + (f", serving checkpoint {self.loaded_tag}"
+               if self.loaded_tag else ""),
             ranks=[0],
         )
 
     def _init_cache(self):
-        return init_kv_pool(
-            self.model_config, self.kv_pool_blocks, self.kv_block_size,
+        """Fresh zeroed decode cache: the contiguous per-slot block or the
+        paged page pool, per the engine's mode."""
+        if self.paged:
+            return init_kv_pool(
+                self.model_config, self.kv_pool_blocks, self.kv_block_size,
+                self.compute_dtype, self.device,
+            )
+        return init_kv_cache(
+            self.model_config, self.num_slots, self.max_seq_len,
             self.compute_dtype, self.device,
+        )
+
+    def _init_draft_cache(self):
+        return init_kv_cache(
+            self.draft_config, self.num_slots, self.max_seq_len,
+            self.compute_dtype, self.device,
+        )
+
+    def _new_block_pool(self):
+        return BlockPool(
+            self.kv_pool_blocks, self.kv_block_size,
+            spill_fn=(self._spill_kv_page if self.host_tier is not None
+                      else None),
         )
 
     def _to_device(self, array):
         return torch.from_numpy(np.ascontiguousarray(array)).to(self.device)
+
+    def _to_host(self, tensors):
+        """Host copies of device ``tensors`` (taken before the caller
+        frees or overwrites their rows): on CUDA into pinned memory,
+        every copy queued before one wait on the stream."""
+        if self.device.type != "cuda":
+            return [t.clone(memory_format=torch.contiguous_format)
+                    for t in tensors]
+        out = []
+        for t in tensors:
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            out.append(host)
+        torch.cuda.current_stream(self.device).synchronize()
+        return out
 
     def _sample(self, logits, temperatures):
         return sample_tokens(
@@ -417,6 +692,18 @@ class InferenceEngine:
         total = min(int(prompt_len) + int(max_new_tokens), self.max_seq_len)
         return self.block_pool.blocks_for(total)
 
+    def kv_blocks_needed_now(self, prompt_len, max_new_tokens):
+        """Pages admission actually reserves: the worst case by default;
+        under ``host_tier.lazy_alloc`` only the PROMPT's pages — decode
+        grows the slot one page at a time (ensure_decode_capacity) and
+        the scheduler preempts under pressure instead of gating admission
+        on tokens that may never be generated."""
+        if self.lazy_kv_alloc:
+            return self.block_pool.blocks_for(
+                min(int(prompt_len), self.max_seq_len)
+            )
+        return self.kv_blocks_needed(prompt_len, max_new_tokens)
+
     def kv_blocks_available(self):
         """Pages an admission could obtain right now (free + evictable
         cached): the REJECT_CAPACITY gate's denominator."""
@@ -427,13 +714,16 @@ class InferenceEngine:
 
     def reserve_request(self, slot, prompt_tokens, max_new_tokens):
         """Slot-join page allocation: look up the longest cached prefix
-        (acquiring shared references on its pages), then allocate private
-        pages for everything else this request may write. Raises
+        (acquiring shared references on its pages), extend it with the
+        contiguous run of pages parked in the host tier, then allocate
+        private pages for everything else this request may write. Raises
         :class:`paging.PoolExhausted` — the scheduler defers the request
         — with no pages held. Returns the cached prefix length in tokens
-        (0 = cold)."""
+        (0 = cold; always 0 on the contiguous cache)."""
+        if not self.paged:
+            return 0
         plen = len(prompt_tokens)
-        needed = self.kv_blocks_needed(plen, max_new_tokens)
+        needed = self.kv_blocks_needed_now(plen, max_new_tokens)
         # cheap pressure short-circuit before the O(prompt) hash chain
         min_private = needed - (plen - 1) // self.kv_block_size
         if self.block_pool.available_blocks < min_private:
@@ -454,7 +744,22 @@ class InferenceEngine:
             )
         else:
             prefix_len, shared = 0, []
-        if prefix_len and self._suffix_bucket(
+        # host-tier promotion: the spilled pages that continue the device
+        # match (possibly parked by a peer engine) land in freshly
+        # allocated private pages — the tier saves the prefill COMPUTE,
+        # not the allocation — then register so they share like any
+        # cached prefix
+        promoted = []
+        if self.prefix_cache_enabled and self.host_tier is not None:
+            promoted = self._promote_chain(hashes, len(shared), plen)
+        while promoted:
+            # the combined prefix still needs a suffix width; shrink the
+            # promotion until one fits
+            pl = (len(shared) + len(promoted)) * self.kv_block_size
+            if self._suffix_bucket(plen - pl, pl) is not None:
+                break
+            promoted.pop()
+        if not promoted and prefix_len and self._suffix_bucket(
             plen - prefix_len, prefix_len
         ) is None:
             # no suffix width fits this (suffix, prefix) pair: fall back
@@ -463,10 +768,30 @@ class InferenceEngine:
             prefix_len, shared = 0, []
         try:
             private = self.block_pool.alloc(needed - len(shared))
-        except PoolExhausted:
+        except Exception:
             if shared:
                 self.block_pool.release(shared)
             raise
+        if promoted:
+            # the parked rows into the first promoted-count private pages
+            # (their host-to-device copies were queued on the tier's copy
+            # stream at fetch; each waits here on its own event), then
+            # publish their hashes
+            with self._device_lock, torch.no_grad():
+                for i, (_, (k_rows, v_rows), peer) in enumerate(promoted):
+                    self._cache.k[:, private[i]] = k_rows.to(
+                        self._cache.k.dtype)
+                    self._cache.v[:, private[i]] = v_rows.to(
+                        self._cache.v.dtype)
+                    self._ht_promotions.inc()
+                    if peer:
+                        self._ht_peer_fetches.inc()
+            self.block_pool.register_prefix(
+                prompt_tokens,
+                [private[i] for i in range(len(promoted))],
+                hashes=[h for h, _, _ in promoted],
+            )
+            prefix_len = (len(shared) + len(promoted)) * self.kv_block_size
         if self.prefix_cache_enabled:
             (self._prefix_hits if prefix_len else self._prefix_misses).inc()
         blocks = shared + private
@@ -479,12 +804,134 @@ class InferenceEngine:
         self._sync_pool_metrics()
         return prefix_len
 
+    # -- host-tier seams -------------------------------------------------
+    def _ht_fault_mode(self):
+        """Consult the ``host_tier.copy`` chaos site at a copy seam.
+        Returns None (no fault), "oserror" (skip the copy — a spill is
+        dropped, a promotion reads cold), or "garble" (park a corrupted
+        payload for the checksum walk to catch). Counted either way."""
+        spec = self.resilience.faults.fire("host_tier.copy")
+        if spec is None:
+            return None
+        self._ht_copy_faults.inc()
+        return spec.args.get("mode", "oserror")
+
+    def _spill_kv_page(self, block_id, chain_hash):
+        """BlockPool eviction seam: park the evicted registered page's
+        k/v rows in the host tier while they are still intact (the
+        allocator frees the id right after). Never raises — a failed
+        spill degrades to the tier-less behaviour (the page drops)."""
+        mode = self._ht_fault_mode()
+        if mode is not None and mode != "garble":
+            logger.warning(
+                "host-tier spill of page %d skipped (injected "
+                "host_tier.copy fault): the page drops as without the "
+                "tier", block_id,
+            )
+            return
+        with self._device_lock:
+            rows = self._to_host(
+                (self._cache.k[:, block_id], self._cache.v[:, block_id]))
+        stored = self.host_tier.put(
+            chain_hash, rows, meta={"kind": "kv"},
+            origin=self._tier_client_id, corrupt=(mode == "garble"),
+        )
+        if stored:
+            self._ht_spills.inc()
+
+    def _promote_chain(self, hashes, start, plen):
+        """Fetch the contiguous run of spilled pages extending the device
+        prefix match at page index ``start``. Every fetch is queued on
+        the tier's worker first, then consumed in order, so page i+1's
+        copy overlaps page i's. Returns a list of ``(chain_hash, (k_rows,
+        v_rows), is_peer_fetch)`` with the rows on the device; any
+        failure (chaos fault, checksum drop, raced eviction, geometry
+        mismatch) truncates the run — the rest re-prefills cold, wrong
+        pages are never served."""
+        tier = self.host_tier
+        eligible = hashes or []
+        if eligible and plen == len(eligible) * self.kv_block_size:
+            # same N-1 rule as match_prefix: the whole prompt can never
+            # be served from cache
+            eligible = eligible[:-1]
+        handles = []
+        for h in eligible[start:]:
+            if not tier.contains(h):
+                break
+            if self._ht_fault_mode() is not None:
+                logger.warning(
+                    "host-tier promotion truncated (injected "
+                    "host_tier.copy fault): the remaining prefix "
+                    "re-prefills cold"
+                )
+                break
+            handle = tier.fetch_async(h, requester=self._tier_client_id)
+            if handle is None:
+                break
+            handles.append((h, handle))
+        out, failed = [], False
+        # one page's [L, bs, heads, hd] rows: the pool minus the page axis
+        k_shape = (self._cache.k.shape[0],) + tuple(self._cache.k.shape[2:])
+        for h, handle in handles:
+            if failed:
+                try:
+                    handle.result()  # drain to unpin the tier entry
+                except Exception:
+                    pass
+                continue
+            try:
+                k_rows, v_rows = _landed(handle.result())
+            except Exception:
+                self._ht_copy_faults.inc()
+                logger.warning(
+                    "host-tier promotion of %s failed at placement; "
+                    "falling back to cold prefill", h,
+                )
+                failed = True
+                continue
+            if tuple(k_rows.shape) != k_shape:
+                # a peer with a different pool geometry parked this entry
+                failed = True
+                continue
+            out.append((h, (k_rows, v_rows), handle.peer))
+        return out
+
+    def ensure_decode_capacity(self, active_slots):
+        """Lazy page growth (host_tier.lazy_alloc): before a decode step,
+        extend every active slot's page list to cover the rows the step
+        will write (one token, or the speculative burst). Raises
+        :class:`paging.PoolExhausted` when the pool cannot grow a slot
+        even after evicting every cached page — the scheduler preempts
+        and retries."""
+        if not (self.paged and self.lazy_kv_alloc):
+            return
+        budget = (self.spec_k + 1) if self.speculative else 1
+        for slot in active_slots:
+            blocks = self._slot_blocks.get(slot)
+            if blocks is None:
+                continue
+            required = self.block_pool.blocks_for(
+                min(int(self._lengths[slot]) + budget, self.max_seq_len)
+            )
+            while len(blocks) < required:
+                new = self.block_pool.alloc(1)
+                self._block_tables[slot][len(blocks)] = new[0]
+                blocks.extend(new)
+        self._sync_pool_metrics()
+
+    def count_preemption(self):
+        """Scheduler hook: one request preempted under page pressure (its
+        pages parked, the request re-queued for suffix resume)."""
+        if self.host_tier is not None:
+            self._ht_preemptions.inc()
+
     def _register_decode_pages(self, slot, final_tokens):
         """Extend the prefix registry to the full pages this request
         completed during decode, so generated continuations become
-        shareable prefixes. Runs before the slot's pages release and
-        before its adapter pin drops (the chain salt needs the adapter
-        identity)."""
+        shareable (and spillable) prefixes — and a preempted request's
+        resume matches everything but its final partial page. Runs before
+        the slot's pages release and before its adapter pin drops (the
+        chain salt needs the adapter identity)."""
         if not self.prefix_cache_enabled:
             return
         blocks = self._slot_blocks.get(slot)
@@ -510,14 +957,18 @@ class InferenceEngine:
         dead slot's ride-along decode writes sink into the sacrificial
         page. Also drops the slot's adapter pin; its id resets to the
         identity, so the dead slot's ride-along decode reads the zero
-        rows, never another tenant's."""
-        if final_tokens is not None:
+        rows, never another tenant's. ``final_tokens`` (prompt +
+        generated) registers the request's full pages first, so they park
+        in the LRU (and spill to the host tier) instead of dropping."""
+        if self.paged and final_tokens is not None:
             self._register_decode_pages(slot, final_tokens)
         if self.multi_lora:
             name = self._slot_adapter_names.pop(slot, None)
             if name is not None:
                 self.adapter_registry.release(name)
             self._slot_adapters[slot] = 0
+        if not self.paged:
+            return
         blocks = self._slot_blocks.pop(slot, None)
         self._slot_prefix_len.pop(slot, None)
         self._slot_hashes.pop(slot, None)
@@ -532,21 +983,41 @@ class InferenceEngine:
         if pool.reclaimed > self._reclaimed_synced:
             self._kv_reclaimed.inc(pool.reclaimed - self._reclaimed_synced)
             self._reclaimed_synced = pool.reclaimed
+        if self.host_tier is not None:
+            self._ht_occupancy.set(self.host_tier.occupancy_bytes)
+            self._ht_entries.set(self.host_tier.entries)
 
     def kv_snapshot(self):
-        """Pool/prefix-cache state for ``load_snapshot()``."""
-        hits = self._prefix_hits.value
-        misses = self._prefix_misses.value
-        return {
-            "kv_blocks_total": self.block_pool.num_blocks,
-            "kv_blocks_free": self.block_pool.available_blocks,
-            "kv_blocks_used": self.block_pool.used_blocks,
-            "prefix_hits": hits,
-            "prefix_misses": misses,
-            "prefix_hit_rate": (
-                hits / (hits + misses) if hits + misses else 0.0
-            ),
-        }
+        """Pool/prefix-cache (and host-tier) state for
+        ``load_snapshot()``."""
+        if not self.paged:
+            out = {}
+        else:
+            hits = self._prefix_hits.value
+            misses = self._prefix_misses.value
+            out = {
+                "kv_blocks_total": self.block_pool.num_blocks,
+                "kv_blocks_free": self.block_pool.available_blocks,
+                "kv_blocks_used": self.block_pool.used_blocks,
+                "prefix_hits": hits,
+                "prefix_misses": misses,
+                "prefix_hit_rate": (
+                    hits / (hits + misses) if hits + misses else 0.0
+                ),
+            }
+        if self.host_tier is not None:
+            # the engine's own counters plus the (possibly peer-shared)
+            # tier's occupancy
+            out.update({
+                "host_tier_occupancy_bytes": self.host_tier.occupancy_bytes,
+                "host_tier_entries": self.host_tier.entries,
+                "host_tier_spills": self._ht_spills.value,
+                "host_tier_promotions": self._ht_promotions.value,
+                "host_tier_peer_fetches": self._ht_peer_fetches.value,
+                "host_tier_preemptions": self._ht_preemptions.value,
+                "host_tier_copy_faults": self._ht_copy_faults.value,
+            })
+        return out
 
     # -- multi-tenant LoRA adapters --------------------------------------
     def _require_multi_lora(self):
@@ -555,6 +1026,27 @@ class InferenceEngine:
                 'this engine has no adapter pool; enable the "adapters" '
                 "config block to serve LoRA adapters"
             )
+
+    def _check_adapter_rows(self, name, stacks):
+        """Refuse adapter stacks that do not fit the pool rows."""
+        for t, (a, b) in stacks.items():
+            la, lb = self._adapter_pool[t]
+            want = (
+                (la.shape[0], *la.shape[2:]), (lb.shape[0], *lb.shape[2:]),
+            )
+            if (tuple(a.shape), tuple(b.shape)) != want:
+                raise ValueError(
+                    f"adapter {name!r} target {t}: shapes "
+                    f"{tuple(a.shape)}/{tuple(b.shape)} do not fit the "
+                    f"pool rows {want[0]}/{want[1]} (model/rank mismatch?)"
+                )
+
+    def _write_adapter_rows(self, idx, stacks):
+        with torch.no_grad():
+            for t, (a, b) in stacks.items():
+                la, lb = self._adapter_pool[t]
+                la[:, idx].copy_(a)
+                lb[:, idx].copy_(b)
 
     def load_adapter(self, name, adapter_state=None, load_dir=None,
                      tag=None):
@@ -572,7 +1064,8 @@ class InferenceEngine:
         this pool's rank, scale and targets through the checkpoint's
         ``client_state["adapters"]`` before any row is written. Loading past
         ``adapters.pool_slots`` evicts the least-recently-used IDLE
-        adapter; a pool whose every adapter has live requests raises
+        adapter (parked in the host tier when the engine has one); a pool
+        whose every adapter has live requests raises
         :class:`~deepspeed_tpu_torch.adapters.AdapterPoolFull`. The row is
         written in place under the engine lock, between decode steps."""
         self._require_multi_lora()
@@ -585,24 +1078,22 @@ class InferenceEngine:
         if load_dir is not None:
             adapter_state = self._adapter_checkpoint(load_dir, tag)
         stacks = adapter_layer_stacks(adapter_state, self.adapter_targets)
-        for t, (a, b) in stacks.items():
-            la, lb = self._adapter_pool[t]
-            want = (
-                (la.shape[0], *la.shape[2:]), (lb.shape[0], *lb.shape[2:]),
-            )
-            if (tuple(a.shape), tuple(b.shape)) != want:
-                raise ValueError(
-                    f"adapter {name!r} target {t}: shapes "
-                    f"{tuple(a.shape)}/{tuple(b.shape)} do not fit the "
-                    f"pool rows {want[0]}/{want[1]} (model/rank mismatch?)"
-                )
+        self._check_adapter_rows(name, stacks)
         with self._device_lock:
             idx, evicted = self.adapter_registry.assign(name)
-            with torch.no_grad():
-                for t, (a, b) in stacks.items():
-                    la, lb = self._adapter_pool[t]
-                    la[:, idx].copy_(a)
-                    lb[:, idx].copy_(b)
+            if evicted is not None:
+                # park the outgoing tenant's rows while they are still in
+                # the pool (the write below overwrites row idx); a later
+                # submit for the evicted name auto-loads from the tier
+                self._spill_adapter_row(evicted, idx)
+            # an explicit (re)load carries FRESH weights under a NEW
+            # generation: a tier copy of the old weights is stale
+            if self.host_tier is not None:
+                self.host_tier.discard(f"adapter/{name}")
+            self._adapter_generations[name] = (
+                self.adapter_registry.generation_of(name)
+            )
+            self._write_adapter_rows(idx, stacks)
         self._adapter_loads.inc()
         if evicted is not None:
             self._adapter_evictions.inc()
@@ -658,27 +1149,143 @@ class InferenceEngine:
 
     def unload_adapter(self, name):
         """Explicitly evict ``name`` (refused while live requests decode
-        against it); frees its pool row for the next load."""
+        against it); frees its pool row for the next load. An explicit
+        unload is intentional removal: any host-tier copy drops too, so
+        the tenant cannot silently come back through auto-load."""
         self._require_multi_lora()
         idx = self.adapter_registry.remove(name)
+        self._adapter_generations.pop(name, None)
+        if self.host_tier is not None:
+            self.host_tier.discard(f"adapter/{name}")
         self._adapter_evictions.inc()
         self._adapter_occupancy.set(self.adapter_registry.used_slots)
         return idx
 
+    def _spill_adapter_row(self, name, idx):
+        """Park an evicted adapter's pool rows (still at row ``idx``) in
+        the host tier, keyed ``adapter/<name>`` with its load generation —
+        the auto-load restore re-installs the SAME weights under the SAME
+        generation, so the tenant's salted prefix pages stay valid. Never
+        raises (a chaos fault drops the park; the adapter is then simply
+        gone, as without the tier)."""
+        if self.host_tier is None:
+            return
+        mode = self._ht_fault_mode()
+        if mode is not None and mode != "garble":
+            logger.warning(
+                "host-tier spill of adapter %r skipped (injected "
+                "host_tier.copy fault)", name,
+            )
+            return
+        targets = sorted(self._adapter_pool)
+        rows = []
+        for t in targets:
+            a, b = self._adapter_pool[t]
+            rows.extend((a[:, idx], b[:, idx]))
+        stored = self.host_tier.put(
+            f"adapter/{name}",
+            self._to_host(rows),
+            meta={
+                "kind": "adapter",
+                "generation": self._adapter_generations.get(name),
+                "targets": targets,
+            },
+            origin=self._tier_client_id,
+            corrupt=(mode == "garble"),
+        )
+        if stored:
+            self._ht_spills.inc()
+
+    def _auto_load_adapter_from_tier(self, name):
+        """Re-install a spilled adapter from the host tier. Returns
+        "loaded" (now resident, original generation restored),
+        "deferred" (the tier holds it but every pool slot is pinned by
+        live requests — retry when traffic drains, exactly like a KV page
+        shortfall), or False (not in the tier / promotion failed — the
+        adapter is genuinely unavailable)."""
+        if not self.multi_lora or self.host_tier is None:
+            return False
+        key = f"adapter/{name}"
+        if not self.host_tier.contains(key):
+            return False
+        if self._ht_fault_mode() is not None:
+            logger.warning(
+                "host-tier auto-load of adapter %r skipped (injected "
+                "host_tier.copy fault)", name,
+            )
+            return False
+        got = self.host_tier.fetch(key, requester=self._tier_client_id)
+        if got is None:
+            return False
+        placed, meta, origin = got
+        arrays = _landed(placed)
+        targets = meta.get("targets") or []
+        if sorted(self._adapter_pool) != list(targets) or len(arrays) != (
+            2 * len(targets)
+        ):
+            return False
+        stacks = {
+            t: (arrays[2 * i], arrays[2 * i + 1])
+            for i, t in enumerate(targets)
+        }
+        try:
+            self._check_adapter_rows(name, stacks)
+        except ValueError:
+            return False  # a peer with a different pool geometry
+        with self._device_lock:
+            try:
+                idx, evicted = self.adapter_registry.assign(
+                    name, generation=meta.get("generation")
+                )
+            except AdapterPoolFull:
+                return "deferred"
+            if evicted is not None:
+                self._spill_adapter_row(evicted, idx)
+                self._adapter_evictions.inc()
+            self._adapter_generations[name] = (
+                self.adapter_registry.generation_of(name)
+            )
+            self._write_adapter_rows(idx, stacks)
+        # the host copy stays: it equals the rows just installed bit for
+        # bit, and peers in the share group warm from it
+        self._adapter_loads.inc()
+        self._ht_promotions.inc()
+        if origin is not None and origin != self._tier_client_id:
+            self._ht_peer_fetches.inc()
+        self._adapter_occupancy.set(self.adapter_registry.used_slots)
+        log_dist(
+            f"auto-loaded adapter {name!r} from the host tier into pool "
+            f"row {idx} (generation "
+            f"{self.adapter_registry.generation_of(name)} restored)",
+            ranks=[0],
+        )
+        return "loaded"
+
     def resolve_adapter(self, name):
         """Submit-time validation + per-adapter accounting: returns the
-        adapter's current pool row. Raises
+        adapter's current pool row. A known-but-not-resident name (its
+        rows parked in the host tier) auto-loads here — or, when every
+        pool slot is pinned, is accepted anyway (returns None) and the
+        slot join retries the auto-load. Raises
         :class:`~deepspeed_tpu_torch.adapters.AdapterUnavailable` (a
-        ValueError) for a name that is not loaded."""
+        ValueError) for a name this engine cannot serve."""
         self._require_multi_lora()
         try:
             idx = self.adapter_registry.index_of(name)
         except KeyError:
-            raise AdapterUnavailable(
-                f"adapter {name!r} is not loaded (loaded: "
-                f"{self.adapter_registry.loaded}); call "
-                "engine.load_adapter() first"
-            ) from None
+            state = self._auto_load_adapter_from_tier(name)
+            if state == "loaded":
+                idx = self.adapter_registry.index_of(name)
+            elif state == "deferred":
+                self._adapter_requests.inc()
+                self.metrics.counter(f"adapters/requests/{name}").inc()
+                return None
+            else:
+                raise AdapterUnavailable(
+                    f"adapter {name!r} is not loaded (loaded: "
+                    f"{self.adapter_registry.loaded}); call "
+                    "engine.load_adapter() first"
+                ) from None
         self.adapter_registry.count_request(name)
         self._adapter_requests.inc()
         self.metrics.counter(f"adapters/requests/{name}").inc()
@@ -689,7 +1296,11 @@ class InferenceEngine:
         lifetime and point the slot's adapter id at its pool row. Returns
         False when the adapter was evicted between submit and join — the
         scheduler fail-finishes that request instead of serving it the
-        identity (or another tenant's) weights."""
+        identity (or another tenant's) weights. With the host tier, an
+        evicted-but-parked adapter auto-loads here instead; one that
+        cannot land because every pool slot is pinned raises
+        :class:`~deepspeed_tpu_torch.adapters.AdapterPoolFull`, which the
+        scheduler turns into a deferral."""
         if not self.multi_lora:
             return True
         if name is None:
@@ -701,7 +1312,13 @@ class InferenceEngine:
         try:
             idx = self.adapter_registry.acquire(name)
         except KeyError:
-            return False
+            state = self._auto_load_adapter_from_tier(name)
+            if state == "loaded":
+                idx = self.adapter_registry.acquire(name)
+            elif state == "deferred":
+                raise AdapterPoolFull(self.adapter_pool_slots) from None
+            else:
+                return False
         self._slot_adapters[slot] = idx
         self._slot_adapter_names[slot] = name
         return True
@@ -731,14 +1348,16 @@ class InferenceEngine:
             "adapter_requests": dict(reg.requests),
         }
 
-    def _lora_kwargs(self, slots):
+    def _lora_kwargs(self, slots, ids=None):
         """The decode functions' adapter arguments for ``slots`` (a slice
-        of the slot table), or none on an adapter-free engine."""
+        of the slot table; ``ids`` the slot ids already on the device),
+        or none on an adapter-free engine."""
         if not self.multi_lora:
             return {}
         return dict(
             adapters=self._adapter_pool,
-            adapter_ids=self._to_device(self._slot_adapters[slots]),
+            adapter_ids=(self._to_device(self._slot_adapters[slots])
+                         if ids is None else ids),
             lora_scale=self.adapter_scale,
         )
 
@@ -747,15 +1366,16 @@ class InferenceEngine:
         """Run one request's prefill into ``slot``: cache rows 0..P-1
         written, first token sampled from the prompt's last logit row. A
         cached-prefix hit prefills only the unique suffix. The prompt
-        prefills THROUGH the slot's adapter, so the pages seeding decode
-        carry the adapted k/v. Returns the first generated token (a host
+        prefills THROUGH the slot's adapter, so the rows seeding decode
+        carry the adapted k/v; a speculative engine also prefills the
+        draft's own cache. Returns the first generated token (a host
         int)."""
         with self._device_lock:
             return self._prefill_locked(slot, prompt_tokens, temperature)
 
     def _prefill_locked(self, slot, prompt_tokens, temperature):
         plen = len(prompt_tokens)
-        prefix_len = self._slot_prefix_len.get(slot, 0)
+        prefix_len = self._slot_prefix_len.get(slot, 0) if self.paged else 0
         if prefix_len > 0:
             first = self._prefill_suffix(
                 slot, prompt_tokens, prefix_len, temperature
@@ -767,25 +1387,39 @@ class InferenceEngine:
                 self.model, self._to_device(padded),
                 **self._lora_kwargs(slice(slot, slot + 1)),
             )
-            # position j -> (its page, its offset); padding rows past the
-            # prompt carry the null page
-            block_ids = np.zeros(self.prefill_len, np.int32)
-            block_ids[:plen] = np.repeat(
-                self._slot_blocks[slot], self.kv_block_size
-            )[:plen]
-            offsets = (
-                np.arange(self.prefill_len, dtype=np.int32)
-                % self.kv_block_size
-            )
-            write_prefill_to_pool(
-                self._cache, ks, vs,
-                self._to_device(block_ids), self._to_device(offsets),
-            )
+            if self.paged:
+                # position j -> (its page, its offset); padding rows past
+                # the prompt carry the null page
+                block_ids = np.zeros(self.prefill_len, np.int32)
+                block_ids[:plen] = np.repeat(
+                    self._slot_blocks[slot], self.kv_block_size
+                )[:plen]
+                offsets = (
+                    np.arange(self.prefill_len, dtype=np.int32)
+                    % self.kv_block_size
+                )
+                write_prefill_to_pool(
+                    self._cache, ks, vs,
+                    self._to_device(block_ids), self._to_device(offsets),
+                )
+            else:
+                write_prefill_to_cache(self._cache, slot, ks, vs)
             first = self._sample(
                 logits[:, plen - 1, :], np.full(1, temperature, np.float32)
             )
             first = int(first[0])
-        if self.prefix_cache_enabled:
+        if self.speculative:
+            # the draft mirrors the slot: a full prompt prefill into its
+            # own contiguous cache (a target-side prefix hit says nothing
+            # about the draft's cache)
+            dpad = np.zeros((1, self.prefill_len), np.int32)
+            dpad[0, :plen] = prompt_tokens
+            _, dks, dvs = gpt2_prefill(self.draft, self._to_device(dpad))
+            write_prefill_to_cache(self._draft_cache, slot, dks, dvs)
+            # index lengths-1 == the last PROMPT token (already cached by
+            # the draft prefill; the sync rewrite is value-identical)
+            self._spec_prev_tokens[slot] = int(prompt_tokens[-1])
+        if self.paged and self.prefix_cache_enabled:
             # publish this prompt's full pages so later requests share
             # them (no-op for pages already in the registry)
             self.block_pool.register_prefix(
@@ -848,17 +1482,22 @@ class InferenceEngine:
         return int(first[0])
 
     def reset_decode_state(self):
-        """Rebuild the decode-side state (page pool, slot bookkeeping,
-        block tables) from scratch; the weights are untouched — the
-        driver auto-restart path after a decode crash."""
+        """Rebuild the decode-side state (KV cache or page pool, the
+        draft's cache, slot bookkeeping, block tables) from scratch; the
+        weights are untouched — the driver auto-restart path after a
+        decode crash."""
         self._cache = self._init_cache()
-        self.block_pool = BlockPool(self.kv_pool_blocks, self.kv_block_size)
-        self._reclaimed_synced = 0
-        self._block_tables[:] = NULL_BLOCK
-        self._slot_blocks.clear()
-        self._slot_prefix_len.clear()
-        self._slot_hashes.clear()
-        self._sync_pool_metrics()
+        if self.paged:
+            self.block_pool = self._new_block_pool()
+            self._reclaimed_synced = 0
+            self._block_tables[:] = NULL_BLOCK
+            self._slot_blocks.clear()
+            self._slot_prefix_len.clear()
+            self._slot_hashes.clear()
+            self._sync_pool_metrics()
+        if self.speculative:
+            self._draft_cache = self._init_draft_cache()
+            self._spec_prev_tokens[:] = 0
         self._lengths[:] = 0
         self._last_tokens[:] = 0
         if self.multi_lora:
@@ -875,20 +1514,29 @@ class InferenceEngine:
         """One fixed-shape decode step over ALL slots; commits length /
         last-token bookkeeping for ``active_slots`` and returns their
         sampled tokens as host ints (same order). Each slot decodes
-        through its adapter (per-slot ids, row 0 for the base model)."""
+        through its adapter (per-slot ids, row 0 for the base model). On
+        a SPECULATIVE engine each entry is instead a LIST of 1..k+1
+        committed tokens (the accepted draft prefix plus the target's
+        correction), which the scheduler commits in order."""
         # fault site: a decode-driver crash, which the scheduler's driver
         # auto-restart absorbs
         self.resilience.faults.maybe_raise("decode.step")
+        if self.speculative:
+            return self._decode_tokens_spec(active_slots)
         with self._device_lock:
-            logits, _ = gpt2_decode_step_paged(
-                self.model,
-                self._to_device(self._last_tokens),
-                self._to_device(self._lengths),
-                self._cache,
-                self._to_device(self._block_tables),
-                fused=self.fused_decode,
-                **self._lora_kwargs(slice(None)),
-            )
+            tokens = self._to_device(self._last_tokens)
+            positions = self._to_device(self._lengths)
+            lora = self._lora_kwargs(slice(None))
+            if self.paged:
+                logits, _ = gpt2_decode_step_paged(
+                    self.model, tokens, positions, self._cache,
+                    self._to_device(self._block_tables),
+                    fused=self.fused_decode, **lora,
+                )
+            else:
+                logits, _ = gpt2_decode_step(
+                    self.model, tokens, positions, self._cache, **lora,
+                )
             next_tokens = self._sample(logits, self._temps).cpu().numpy()
         out = []
         for slot in active_slots:
@@ -896,6 +1544,123 @@ class InferenceEngine:
             self._lengths[slot] += 1
             self._last_tokens[slot] = token
             out.append(token)
+        return out
+
+    def _draft_propose(self, prev_tokens, tokens, positions):
+        """One sync step + k greedy draft steps: proposals [slots, k], on
+        the device, with no host sync between the steps.
+
+        The SYNC step re-feeds the token at index ``positions - 1`` (the
+        burst's second-to-last commit): after a FULLY accepted cycle the
+        target committed k+1 tokens but the draft's steps wrote only k
+        cache rows, leaving the last accepted proposal's row a hole the
+        next steps would attend as garbage (the draft's acceptance falls
+        to about 0.67 even with draft == target). For hole-free slots
+        the rewrite recomputes the same k/v from the same cache prefix."""
+        vocab = self._sampling_statics["vocab_size"]
+        gpt2_decode_step(self.draft, prev_tokens,
+                         torch.clamp(positions - 1, min=0), self._draft_cache)
+        props = []
+        for _ in range(self.spec_k):
+            logits, _ = gpt2_decode_step(
+                self.draft, tokens, positions, self._draft_cache)
+            tokens = torch.argmax(
+                mask_padded_vocab(logits.float(), vocab), dim=-1
+            ).to(torch.int32)
+            props.append(tokens)
+            positions = positions + 1
+        return torch.stack(props, dim=1)
+
+    def _spec_verify(self, verify_tokens, start, tables, lora):
+        """ONE fixed-shape batched target step over the k+1 verify tokens
+        [last, d_1..d_k] per slot: suffix-prefill arithmetic against the
+        paged cache (k/v written through the block tables, rows past the
+        sequence cap into the null page), greedy-argmaxed per row. Row i
+        is the target's own next token after consuming verify token i."""
+        logits, _ = gpt2_prefill_suffix(
+            self.model, verify_tokens, start, self._cache, tables, **lora)
+        return torch.argmax(
+            mask_padded_vocab(logits.float(),
+                              self._sampling_statics["vocab_size"]),
+            dim=-1,
+        ).to(torch.int32)
+
+    def _decode_tokens_spec(self, active_slots):
+        """One speculative decode cycle: the draft proposes ``k`` greedy
+        tokens per slot, the target verifies all of them in ONE batched
+        step against the paged cache, and the accepted prefix plus the
+        target's correction token commit — every committed token is the
+        target's own argmax, so greedy output equals the sequential
+        path's by construction. Returns one token LIST per active slot.
+
+        The cycle's inputs go up in one copy before any launch, and the
+        proposals and the verify result come down in one copy: that copy
+        is the cycle's only wait on the device. Rejected proposals' k/v
+        sit at positions BEYOND the committed length, so the position
+        mask hides them until a later cycle overwrites those rows."""
+        k = self.spec_k
+        n = self.num_slots
+        t0 = time.monotonic()
+        with self._device_lock:
+            host = np.concatenate([
+                self._spec_prev_tokens, self._last_tokens, self._lengths,
+                self._block_tables.reshape(-1),
+                self._slot_adapters if self.multi_lora
+                else np.zeros(0, np.int32),
+            ]).astype(np.int32)
+            dev = self._to_device(host)
+            prev, last, lengths = dev[:n], dev[n:2 * n], dev[2 * n:3 * n]
+            end = 3 * n + self._block_tables.size
+            tables = dev[3 * n:end].reshape(self._block_tables.shape)
+            lora = self._lora_kwargs(slice(None), ids=dev[end:])
+            props = self._draft_propose(prev, last, lengths)
+            t1 = time.monotonic()
+            greedy = self._spec_verify(
+                torch.cat([last[:, None], props], dim=1), lengths, tables,
+                lora)
+            both = torch.cat([props, greedy], dim=1).cpu().numpy()
+        props, greedy = both[:, :k], both[:, k:]
+        t2 = time.monotonic()
+        out = []
+        proposed = accepted = committed = 0
+        for slot in active_slots:
+            g, pr = greedy[slot], props[slot]
+            j = 0
+            while j < k and pr[j] == g[j]:
+                j += 1
+            # d_1..d_j matched the target's own choices; g[j] is the
+            # target's token at the first divergence (the BONUS token
+            # when everything matched)
+            toks = [int(t) for t in pr[:j]] + [int(g[j])]
+            self._lengths[slot] += len(toks)
+            # token at the new index lengths-1: the burst's second-to-last
+            # commit, or the previous last for a 1-token burst — what the
+            # next propose's sync step re-feeds
+            self._spec_prev_tokens[slot] = (
+                toks[-2] if len(toks) >= 2 else self._last_tokens[slot]
+            )
+            self._last_tokens[slot] = toks[-1]
+            proposed += k
+            accepted += j
+            committed += len(toks)
+            out.append(toks)
+        t3 = time.monotonic()
+        self._spec_proposed.inc(proposed)
+        self._spec_accepted.inc(accepted)
+        total = self._spec_proposed.value
+        self._spec_rate.set(
+            self._spec_accepted.value / total if total else 0.0
+        )
+        # phase stats for the scheduler's sched.spec_* spans (host clock:
+        # the draft's span ends when its launches are queued, the verify
+        # span at the cycle's one device wait)
+        self.spec_step_stats = {
+            "draft_t0": t0, "draft_t1": t1,
+            "verify_t0": t1, "verify_t1": t2,
+            "commit_t0": t2, "commit_t1": t3,
+            "proposed": proposed, "accepted": accepted,
+            "committed": committed,
+        }
         return out
 
     # -- serving API ----------------------------------------------------
@@ -948,6 +1713,11 @@ class InferenceEngine:
 
     def close(self):
         self.scheduler.shutdown()
+        if self.host_tier is not None:
+            # drop this engine's share-group reference; the last engine
+            # out closes the tier's worker and retires the group
+            self.host_tier.release()
+            self.host_tier = None
         if self.telemetry.enabled:
             self.telemetry.export()
             self.telemetry.close()
@@ -960,17 +1730,26 @@ def init_inference(
     mesh=None,
     rng_seed=0,
     device=None,
+    draft_model=None,
+    draft_parameters=None,
 ):
     """Build a serving engine around ``model`` (a
     :class:`~deepspeed_tpu_torch.models.gpt2.GPT2LMHeadModel`).
 
     ``config`` is a dict or JSON path whose ``"inference"`` block sizes
-    the engine (docs/inference.md); ``model_parameters`` is an optional
-    state dict (e.g. from :func:`deepspeed_tpu_torch.convert.params_from_jax`)
-    served in place of the model's own weights. ``device`` defaults to
-    ``"cuda"`` and raises without a GPU; ``device="cpu"`` runs the
-    kernels' plain PyTorch versions. ``mesh`` is refused (not yet
-    ported). Returns an :class:`InferenceEngine`."""
+    the engine (docs/inference.md): the contiguous cache
+    (``kv_block_size: 0``, the default) or the paged one, the
+    ``host_tier`` block and the ``speculative`` block among them.
+    ``model_parameters`` is an optional state dict (e.g. from
+    :func:`deepspeed_tpu_torch.convert.params_from_jax`) served in place
+    of the model's own weights. ``draft_model`` (a smaller GPT-2 with the
+    same vocabulary) and ``draft_parameters`` (its state dict, default
+    its own weights) supply the draft of speculative decoding;
+    ``speculative.draft_checkpoint`` replaces the draft's weights through
+    the verified load. ``device`` defaults to ``"cuda"`` and raises
+    without a GPU; ``device="cpu"`` runs the kernels' plain PyTorch
+    versions. ``mesh`` is refused (not yet ported). Returns an
+    :class:`InferenceEngine`."""
     return InferenceEngine(
         model=model,
         config=config,
@@ -978,4 +1757,6 @@ def init_inference(
         mesh=mesh,
         rng_seed=rng_seed,
         device=device,
+        draft_model=draft_model,
+        draft_parameters=draft_parameters,
     )

@@ -604,6 +604,35 @@ def _decode_block_core(cfg, p, hidden_states, attend, lora=None):
     return _ffn_sublayer(cfg, p, x, lora=lora)
 
 
+def transformer_block_decode(cfg, p, hidden_states, k_cache, v_cache,
+                             positions, lora=None):
+    """One incremental-decode step over a CONTIGUOUS KV cache.
+
+    ``hidden_states`` [B, 1, H]; ``k_cache``/``v_cache`` [B, heads,
+    max_len, hd] (one layer's cache); ``positions`` [B] int32, this
+    token's position (== tokens already cached for the row). Writes the
+    token's k/v at ``positions`` IN PLACE, then attends over cache
+    positions ``<= positions`` through :func:`_attend_gathered`. A write
+    at ``positions >= max_len`` is dropped (as JAX's scatter drops an
+    out-of-bounds update), without a host sync: the row rewrites its own
+    last entry. ``lora``: the batched adapter source. Returns [B, 1, H]."""
+    b = hidden_states.shape[0]
+    max_len = k_cache.shape[2]
+    rows = torch.arange(b, device=hidden_states.device)
+    pos = positions.long()
+    keep = (pos < max_len)[:, None, None]
+    idx = torch.clamp(pos, max=max_len - 1)
+
+    def attend(q, k_new, v_new):
+        k_cache[rows, :, idx] = torch.where(
+            keep, k_new.to(k_cache.dtype), k_cache[rows, :, idx])
+        v_cache[rows, :, idx] = torch.where(
+            keep, v_new.to(v_cache.dtype), v_cache[rows, :, idx])
+        return _attend_gathered(q, k_cache, v_cache, positions)
+
+    return _decode_block_core(cfg, p, hidden_states, attend, lora=lora)
+
+
 def transformer_block_decode_paged(cfg, p, hidden_states, k_pool, v_pool,
                                    block_tables, positions, fused=False,
                                    lora=None):

@@ -173,6 +173,31 @@ def register_adapter_metrics(registry):
     return registry
 
 
+# Host-memory spill tier (inference/host_tier.py). Registered by
+# InferenceEngine ONLY when the inference.host_tier block is enabled —
+# tier-free engines keep their exports at the INFERENCE_METRICS set.
+# Counters are the ENGINE's view (its own spills/promotions); the
+# occupancy/entries gauges mirror the (possibly peer-shared) tier itself.
+HOST_TIER_METRICS = (
+    ("gauge", "host_tier/occupancy_bytes", "host RAM held by parked KV pages and adapter rows in this engine's spill tier (shared across co-hosted engines under peer_sharing)"),
+    ("gauge", "host_tier/entries", "entries parked in the spill tier (KV pages + adapter rows)"),
+    ("counter", "host_tier/spills", "device-to-host parks by this engine: evicted prefix pages and adapter rows copied to host RAM instead of dropped"),
+    ("counter", "host_tier/promotions", "host-to-device promotions by this engine: chain-hash / adapter-name hits served from the spill tier"),
+    ("counter", "host_tier/peer_fetches", "promotions whose entry was parked by a DIFFERENT co-hosted engine (one tenant's warm template/adapter warming a peer)"),
+    ("counter", "host_tier/preemptions", "requests preempted under page pressure (lazy_alloc): pages parked, request re-queued for suffix-only resume"),
+    ("counter", "host_tier/copy_faults", "faults absorbed at the copy seam (host_tier.copy chaos + failed placements): the spill was skipped or the promotion fell back to a cold re-prefill"),
+)
+
+
+def register_host_tier_metrics(registry):
+    """Pre-register the host_tier/* catalog on ``registry`` (same
+    golden-set contract: an absent stream means a broken emitter, not an
+    idle tier)."""
+    for kind, name, help_text in HOST_TIER_METRICS:
+        getattr(registry, kind)(name, help=help_text)
+    return registry
+
+
 def hbm_peak_bytes(device=None):
     """Per-device HBM high-water (``torch.cuda.max_memory_allocated``),
     or None on the CPU. The probe behind the ``train/hbm_peak_bytes``

@@ -1159,3 +1159,153 @@ def test_state_layouts_on_the_card(cuda, layout):
         assert run(fresh, 2) == cont
     for n, p in first.params.items():
         assert torch.equal(fresh.params[n], p), n
+
+
+# ---------------------------------------------------------------------------
+# the rest of inference on the card: the contiguous cache, the host tier
+# and speculative decoding
+# ---------------------------------------------------------------------------
+def _serving_model(cuda, n_head, n_embd=256, n_layer=2, seed=0):
+    cfg = GPT2Config(vocab_size=512, n_positions=256, n_embd=n_embd,
+                     n_layer=n_layer, n_head=n_head)
+    return GPT2LMHeadModel(cfg, device=cuda, seed=seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_contiguous_decode_step_matches_the_paged_kernel_step(cuda,
+                                                             head_dim):
+    """Eight decode steps over the contiguous cache (plain attention)
+    against the paged cache through the paged decode kernel, from the
+    same prefilled k/v: float32 logits within TOL, the same greedy
+    tokens fed to both, and the kernel launched once a layer a step."""
+    from deepspeed_tpu_torch.inference import decode as D
+
+    model = _serving_model(cuda, n_head=256 // head_dim)
+    model.requires_grad_(False)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    lengths = [37, 5, 64]
+    slots, max_len, bs = len(lengths), 128, 16
+    cache = D.init_kv_cache(model.config, slots, max_len, device=cuda)
+    pool = D.init_kv_pool(model.config, slots * max_len // bs, bs,
+                          device=cuda)
+    tables = torch.zeros(slots, max_len // bs, dtype=torch.int32,
+                         device=cuda)
+    for s, n in enumerate(lengths):
+        ids = torch.randint(0, 512, (1, 64), device=cuda, generator=gen)
+        _, ks, vs = D.gpt2_prefill(model, ids)
+        D.write_prefill_to_cache(cache, s, ks, vs)
+        pages = torch.arange(1 + s * (max_len // bs),
+                             1 + (s + 1) * (max_len // bs), device=cuda)
+        tables[s] = pages.to(torch.int32)
+        pos = torch.arange(64, device=cuda)
+        D.write_prefill_to_pool(pool, ks, vs,
+                                tables[s].long()[pos // bs].int(),
+                                (pos % bs).int())
+    tokens = torch.tensor([1, 2, 3], dtype=torch.int32, device=cuda)
+    positions = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    paged_flash_decode.launches = 0
+    for _ in range(8):
+        lc, _ = D.gpt2_decode_step(model, tokens, positions, cache)
+        lp, _ = D.gpt2_decode_step_paged(model, tokens, positions, pool,
+                                         tables, fused=True)
+        _close(lc, lp, torch.float32)
+        tokens = lc.argmax(-1).to(torch.int32)
+        positions = positions + 1
+    torch.cuda.synchronize()
+    assert paged_flash_decode.launches == 8 * model.config.n_layer
+
+
+def _tier_engine(model, dtype, group, **inference):
+    block = {"max_batch_slots": 4, "max_seq_len": 64, "prefill_len": 48,
+             "kv_block_size": 16, "kv_pool_blocks": 6, "dtype": dtype,
+             "sampling": {"greedy": True},
+             "host_tier": {"enabled": True, "share_group": group}}
+    block.update(inference)
+    return deepspeed_tpu_torch.init_inference(
+        model=model, config={"inference": block})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_host_tier_page_round_trip_is_bitwise_on_the_card(cuda, dtype):
+    """A template's pages spill to pinned host memory under churn and
+    promote back through the copy stream: every parked entry holds the
+    bytes its page held, every promoted page holds its entry's bytes,
+    and the template's second serve equals its first."""
+    model = _serving_model(cuda, n_head=4)
+    engine = _tier_engine(model, dtype, f"card-rt-{dtype}")
+    gen = torch.Generator().manual_seed(5)
+
+    def prompt(n):
+        return torch.randint(0, 512, (n,), generator=gen).tolist()
+
+    try:
+        template = prompt(32) + prompt(8)
+        first = engine.generate([template], max_new_tokens=8)[0]
+        pages = {h: (engine._cache.k[:, b].clone(),
+                     engine._cache.v[:, b].clone())
+                 for h, b in engine.block_pool._registry.items()}
+        rs = [engine.submit(prompt(32), max_new_tokens=8)
+              for _ in range(3)]
+        engine.scheduler.run_until_idle()
+        assert all(len(r.result(0)) == 8 for r in rs)
+        tier = engine.host_tier
+        assert engine.kv_snapshot()["host_tier_spills"] >= 2
+        for h, (k, v) in pages.items():
+            if tier.contains(h):
+                parked = tier._entries[h].arrays
+                assert all(t.is_pinned() for t in parked)
+                assert torch.equal(parked[0].to(cuda), k)
+                assert torch.equal(parked[1].to(cuda), v)
+        parked = {h: tier._entries[h].arrays for h in tier.keys()}
+        second = engine.generate([template], max_new_tokens=8)[0]
+        assert engine.kv_snapshot()["host_tier_promotions"] >= 1
+        promoted = [h for h in parked if h in engine.block_pool._registry]
+        assert promoted
+        for h in promoted:
+            b = engine.block_pool._registry[h]
+            assert torch.equal(engine._cache.k[:, b].cpu(), parked[h][0])
+            assert torch.equal(engine._cache.v[:, b].cpu(), parked[h][1])
+        assert second == first
+    finally:
+        engine.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("draft", ["agreeing", "random"])
+def test_speculative_equals_nonspeculative_on_the_card(cuda, draft):
+    """Float32, a 2-layer target: the speculative engine's greedy tokens
+    equal the non-speculative engine's (fused paged decode), with an
+    agreeing 1-layer draft (the target's first block; the second block's
+    output projections zero) and with an independent random draft."""
+    target = _serving_model(cuda, n_head=4)
+    target.requires_grad_(False)
+    dmodel = _serving_model(cuda, n_head=4, n_layer=1, seed=7)
+    if draft == "agreeing":
+        with torch.no_grad():
+            for name in ("attn_ow", "output_w", "attn_ob", "output_b"):
+                getattr(target.h[1], name).zero_()
+        state = {k: v for k, v in target.state_dict().items()
+                 if not k.startswith("h.1.")}
+        dmodel.load_state_dict(state)
+    block = {"max_batch_slots": 4, "max_seq_len": 128, "kv_block_size": 16,
+             "sampling": {"greedy": True}}
+    ref = deepspeed_tpu_torch.init_inference(
+        model=target, config={"inference": dict(block, fused_decode=True)})
+    spec = deepspeed_tpu_torch.init_inference(
+        model=target, draft_model=dmodel,
+        config={"inference": dict(block, speculative={"k": 4})})
+    gen = torch.Generator().manual_seed(9)
+    prompts = [torch.randint(0, 512, (n,), generator=gen).tolist()
+               for n in (9, 30, 17)]
+    try:
+        assert spec.generate(prompts, max_new_tokens=24) == \
+            ref.generate(prompts, max_new_tokens=24)
+        snap = spec.metrics.snapshot()
+        assert snap["infer/spec_proposed"] > 0
+        if draft == "agreeing":
+            assert snap["infer/spec_acceptance_rate"] > 0.8, snap
+    finally:
+        ref.close()
+        spec.close()

@@ -60,8 +60,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
     """The AST scan cannot see a module named in a string
     (``importlib.import_module``); a fresh interpreter that imports the
     port, its telemetry, timers, monitor, ZeRO config, resilience,
-    checkpoints, data path, activation API, quantized optimizer state and
-    BERT must end with
+    checkpoints, data path, activation API, quantized optimizer state,
+    BERT and the host spill tier must end with
     neither ``jax`` nor ``deepspeed_tpu`` in ``sys.modules``."""
     import subprocess
     import sys
@@ -84,6 +84,7 @@ def test_importing_the_port_loads_neither_jax_nor_the_jax_package():
         "import deepspeed_tpu_torch.checkpointing\n"
         "import deepspeed_tpu_torch.ops.quant\n"
         "import deepspeed_tpu_torch.models.bert\n"
+        "import deepspeed_tpu_torch.inference.host_tier\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'deepspeed_tpu'))\n"
         "print(bad)\n"
