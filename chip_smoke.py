@@ -296,14 +296,39 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                the non-speculative engine, and the draft's flash_fwd
                launches a prefill (2). The launches of (a)-(c) go under
                the paths "contig", "host_tier" and "spec".
+  14. data parallel — (a) the DS_TPU_* environment at world size 1
+               reaches init_distributed through initialize(
+               dist_init_required=True): the group is NCCL, the port's
+               all-reduce, reduce-scatter and all-gather leave one rank's
+               CUDA tensors as they are, and GPT-2 small trains 3 windows
+               at ZeRO stage 2 (paths "dp_nccl1"). (b) Two ranks share the
+               one card over a gloo group this phase makes (NCCL refuses
+               two ranks on one device), each a subprocess of this script
+               loading the kernels phase 2 built, under a timeout: GPT-2
+               small at full width and depth, micro-batch 4 a rank (8
+               rows a step), float32 Adam at stages 0-3 (5 windows),
+               bfloat16 Adam at stages 0-3 and FusedLamb at stages 1 and
+               3 (3 windows). Every rank returns the global loss; float32
+               stages 1-3 equal stage 0 and the dp = 2 run equals a dp = 1
+               run over the same 8 rows (rtol 2e-4); bfloat16 losses fall;
+               flash forward, dQ and dK/dV launch 12 times a micro-step on
+               each rank and lamb_phase1 on the shards under FusedLamb
+               (paths "dp2_rank0", "dp2_rank1"); the stage-3 gauges equal
+               the accounting from the shapes; each rank's memory after
+               initialize() and peak over the windows, per stage. The
+               float32 stage-1 run saves a checkpoint (one optimizer file a
+               rank), which a dp = 1 engine loads with the same eval
+               fingerprint (rtol 1e-5). Times here are two processes
+               sharing one card and its host, not a dp = 2 speed.
   9. report  — a JSON line of per-kernel numbers (the D = 256, decode
                tail and BERT (rows 1b-3b) variants in entries of their
-               own; the launches of every path, phases 10 to 13
+               own; the launches of every path, phases 10 to 14
                included), the nvidia-smi line, then the last line {"ok":
-               true, "device": {...}}. It comes after phase 13.
+               true, "device": {...}}. It comes after phase 14.
 
 ``--only-phase12`` builds every kernel and runs phase 12 alone, printing
-its numbers as one JSON line; ``--only-phase13`` the same for phase 13.
+its numbers as one JSON line; ``--only-phase13`` and ``--only-phase14``
+the same for phases 13 and 14.
 
 ``--cold-telemetry`` runs one telemetry-on training run whose first
 window builds the kernels in an empty build directory under a 5 s
@@ -340,6 +365,7 @@ ulp of y) and bit for bit against PyTorch's ops on the kernel's delta.
 """
 
 import argparse
+import gc
 import importlib.util
 import json
 import math
@@ -5509,6 +5535,341 @@ def phase_inference_rest(seed, card):
     return launches, stats
 
 
+# ---------------------------------------------------------------------------
+# phase 14: data parallel (ZeRO stages 0-3, checkpoints across dp)
+# ---------------------------------------------------------------------------
+P14_ROWS, P14_MICRO, P14_DP = 8, 4, 2
+# (name, optimizer, precision, ZeRO stage, windows)
+P14_RUNS = (
+    [(f"adam-fp32-s{st}", "Adam", "fp32", st, 5) for st in range(4)]
+    + [(f"adam-bf16-s{st}", "Adam", "bf16", st, 3) for st in range(4)]
+    + [(f"fusedlamb-bf16-s{st}", "FusedLamb", "bf16", st, 3)
+       for st in (1, 3)])
+P14_SAVE = "adam-fp32-s1"
+P14_RTOL = 2e-4
+
+
+def p14_config(optimizer, precision, stage, micro, dp):
+    cfg = {"train_batch_size": micro * dp,
+           "train_micro_batch_size_per_gpu": micro,
+           "gradient_accumulation_steps": 1,
+           "optimizer": {"type": optimizer, "params": {"lr": 1e-4}},
+           "zero_optimization": {"stage": stage},
+           "gradient_clipping": 1.0, "steps_per_print": 1000}
+    if precision == "bf16":
+        cfg["bf16"] = {"enabled": True}
+    return cfg
+
+
+def p14_rows(seed):
+    """The global batch: 8 x 1024 token ids from ``seed``."""
+    from deepspeed_tpu_torch import GPT2Config
+
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, GPT2Config.small().vocab_size, (P14_ROWS, 1024),
+                         generator=g)
+
+
+def p14_fingerprint(engine, seed, rank, dp):
+    """The eval loss of a fixed 8-row batch, averaged over the ranks."""
+    import torch.distributed as dist
+
+    ids = p14_rows(seed + 1)
+    per = P14_ROWS // dp
+    mine = ids[rank * per:(rank + 1) * per].cuda()
+    engine.eval()
+    with torch.no_grad():
+        loss = engine(mine, mine).detach().float().clone()
+    engine.train()
+    if dp > 1:
+        dist.all_reduce(loss)
+    return float(loss) / dp
+
+
+def p14_expected_zero3_bytes(model, dp, itemsize):
+    """The stage-3 accounting from the shapes alone: a tensor with a dim
+    dp divides keeps 1/dp of its bytes and moves (dp-1)/dp of them twice
+    a window (forward gather, backward re-gather); any other stays
+    whole."""
+    resident = gather = 0
+    for p in model.parameters():
+        nbytes = p.numel() * itemsize
+        if any(d % dp == 0 for d in p.shape):
+            resident += nbytes // dp
+            gather += 2 * (nbytes * (dp - 1) // dp)
+        else:
+            resident += nbytes
+    return resident, gather
+
+
+def p14_train(name, optimizer, precision, stage, windows, seed, rank, dp,
+              micro):
+    """One run of GPT-2 small through initialize() on this rank's rows:
+    losses, launches, memory (after init, and the peak of the windows),
+    the stage-3 gauges and their accounting; the engine is returned."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
+
+    gc.collect()  # the last run's engine, before the memory is read
+    torch.cuda.empty_cache()
+    model = GPT2LMHeadModel(GPT2Config.small(dropout=0.0), device="cuda",
+                            seed=seed)
+    # from the full shapes, before stage 3 shards the module
+    itemsize = 2 if precision == "bf16" else 4
+    expected = (list(p14_expected_zero3_bytes(model, dp, itemsize))
+                if stage == 3 and dp > 1 else [0, 0])
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model,
+        config_params=p14_config(optimizer, precision, stage, micro, dp))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rows = p14_rows(seed)[rank * micro:(rank + 1) * micro].cuda()
+    zero_launches()
+    t0 = time.monotonic()
+    losses = [float(engine.train_batch(iter([(rows, rows)])))
+              for _ in range(windows)]
+    torch.cuda.synchronize()
+    out = {"losses": losses, "launches": read_launches(),
+           "window_s": (time.monotonic() - t0) / windows,
+           "held_gb": held / 1e9,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "skipped": engine.skipped_steps,
+           "zero3_bytes": [engine._zero3_shard_bytes,
+                           engine._zero3_gather_bytes]}
+    out["zero3_expected"] = expected
+    return engine, model, out
+
+
+def phase14_rank(spec_path):
+    """One of phase 14's two ranks (a subprocess): joins the gloo group the
+    phase made, runs every P14_RUNS entry, saves the P14_SAVE checkpoint
+    with its fingerprint, and writes its results as JSON."""
+    import torch.distributed as dist
+
+    spec = json.loads(Path(spec_path).read_text())
+    rank = spec["rank"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the group initialize() finds and uses as it is
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{spec['port']}", rank=rank,
+        world_size=P14_DP)
+    results = {}
+    for name, optimizer, precision, stage, windows in P14_RUNS:
+        engine, model, out = p14_train(name, optimizer, precision, stage,
+                                       windows, spec["seed"], rank, P14_DP,
+                                       P14_MICRO)
+        if name == P14_SAVE:
+            engine.save_checkpoint(spec["ckpt"], tag="dp2")
+            out["fingerprint"] = p14_fingerprint(engine, spec["seed"], rank,
+                                                 P14_DP)
+        results[name] = out
+        del engine, model
+    Path(spec["out"]).write_text(json.dumps(results))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def p14_nccl_world1(seed):
+    """(a) The DS_TPU_* environment at world size 1 reaches
+    init_distributed through initialize(): an NCCL group; the port's
+    collectives on CUDA tensors through it, and GPT-2 small trains 3
+    windows at stage 2."""
+    import socket
+
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch.runtime import dist as dist_lib
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {dist_lib.COORD_ENV: f"localhost:{port}", dist_lib.NPROC_ENV: "1",
+           dist_lib.PID_ENV: "0"}
+    os.environ.update(env)
+    try:
+        import deepspeed_tpu_torch
+        from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
+
+        model = GPT2LMHeadModel(GPT2Config.small(dropout=0.0), device="cuda",
+                                seed=seed)
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=model, dist_init_required=True,
+            config_params=p14_config("Adam", "bf16", 2, P14_ROWS, 1))
+        backend = dist.get_backend()
+        if backend != "nccl":
+            fail(f"phase 14a: the DS_TPU_* bootstrap made a {backend} group")
+        x = torch.full((8,), 3.0, device="cuda")
+        dist_lib.all_reduce(x)
+        rs = torch.empty(8, device="cuda")
+        dist_lib.reduce_scatter(rs, torch.arange(8.0, device="cuda"))
+        ag = torch.empty(8, device="cuda")
+        dist_lib.all_gather(ag, torch.arange(8.0, device="cuda"),
+                            async_op=True).wait()
+        want = torch.arange(8.0, device="cuda")
+        if not (x.eq(3.0).all() and torch.equal(rs, want)
+                and torch.equal(ag, want)):
+            fail("phase 14a: NCCL collectives at world size 1 changed "
+                 "their input")
+        rows = p14_rows(seed).cuda()
+        zero_launches()
+        losses = [float(engine.train_batch(iter([(rows, rows)])))
+                  for _ in range(3)]
+        launches = read_launches()
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"phase 14a: losses {losses}")
+        check_launches("phase 14a", launches, 3)
+        log(f"  14a: NCCL world size 1 ({backend}); stage-2 losses {losses}")
+        del engine, model
+        return launches, {"backend": backend, "losses": losses}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+        torch.cuda.empty_cache()
+
+
+def p14_spawn(seed, root, timeout_s=420):
+    """(b) Two ranks on the one card: NCCL refuses two ranks on one device
+    ("Duplicate GPU detected"), so the ranks join a gloo group this phase
+    makes (gloo takes the port's collectives on CUDA tensors). The kernels
+    are built already (phase 2), so the ranks
+    load them from the cache. Fails if a rank fails or outlives
+    ``timeout_s``; returns every rank's results."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    for rank in range(P14_DP):
+        spec = root / f"rank{rank}.json"
+        spec.write_text(json.dumps({
+            "rank": rank, "port": port, "seed": seed,
+            "ckpt": str(root / "ckpt"), "out": str(root / f"out{rank}.json")}))
+        log_file = open(root / f"rank{rank}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--phase14-rank", str(spec)],
+            stdout=log_file, stderr=subprocess.STDOUT), log_file))
+    deadline = time.monotonic() + timeout_s
+    failed = []
+    for rank, (proc, log_file) in enumerate(procs):
+        try:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            for other, _ in procs:
+                other.kill()
+            proc.wait()
+            failed.append(f"rank {rank} hung past {timeout_s} s")
+        log_file.close()
+        if proc.returncode != 0 and not failed:
+            failed.append(f"rank {rank} exited {proc.returncode}")
+    if failed:
+        for rank in range(P14_DP):
+            tail = (root / f"rank{rank}.log").read_text()[-3000:]
+            log(f"--- phase 14 rank {rank} log tail ---\n{tail}")
+        fail(f"phase 14b: {failed}")
+    return [json.loads((root / f"out{r}.json").read_text())
+            for r in range(P14_DP)]
+
+
+def p14_close(tag, got, want):
+    ok = all(math.isclose(a, b, rel_tol=P14_RTOL)
+             for a, b in zip(got, want)) and len(got) == len(want)
+    if not ok:
+        fail(f"phase 14: {tag}: {got} != {want} (rtol {P14_RTOL})")
+
+
+def phase_data_parallel(seed, card):
+    """Phase 14. Returns ({kernel: {path: launches}}, stats)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
+
+    t0 = time.monotonic()
+    stats = {"card": card}
+    launches = {name: {} for name in launch_counters()}
+    a_launches, stats["nccl_world1"] = p14_nccl_world1(seed)
+    for name, n in a_launches.items():
+        launches[name]["dp_nccl1"] = n
+    root = Path("build") / "phase14"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    ranks = p14_spawn(seed, root)
+    # the dp = 1 run over the same 8 rows (micro-batch 8), float32 Adam
+    engine, model, ref = p14_train("dp1", "Adam", "fp32", 0, 5, seed, 0, 1,
+                                   P14_ROWS)
+    del engine, model
+    torch.cuda.empty_cache()
+    runs = {}
+    for name, optimizer, precision, stage, windows in P14_RUNS:
+        per_rank = [r[name] for r in ranks]
+        losses = per_rank[0]["losses"]
+        for r in per_rank[1:]:
+            if r["losses"] != losses:
+                fail(f"phase 14: {name}: ranks return different losses")
+        if not all(math.isfinite(v) for v in losses) or per_rank[0][
+                "skipped"]:
+            fail(f"phase 14: {name}: losses {losses}")
+        if precision == "bf16" and not losses[-1] < losses[0]:
+            fail(f"phase 14: {name}: bf16 losses do not fall: {losses}")
+        for rank, r in enumerate(per_rank):
+            got = r["launches"]
+            for k in TRAIN_KERNELS:
+                if got[k] != N_LAYER * windows:
+                    fail(f"phase 14: {name} rank {rank}: {k} launched "
+                         f"{got[k]} times, want {N_LAYER * windows}")
+            if optimizer == "FusedLamb" and got["lamb_phase1"] < windows:
+                fail(f"phase 14: {name} rank {rank}: lamb_phase1 launched "
+                     f"{got['lamb_phase1']} times on the shards")
+            if r["zero3_bytes"] != r["zero3_expected"]:
+                fail(f"phase 14: {name}: stage-3 gauges {r['zero3_bytes']} "
+                     f"!= the accounting {r['zero3_expected']}")
+            for k, n in got.items():
+                path = f"dp2_rank{rank}"
+                launches[k][path] = launches[k].get(path, 0) + n
+        runs[name] = {
+            "losses": losses,
+            "window_s": [r["window_s"] for r in per_rank],
+            "held_gb": [r["held_gb"] for r in per_rank],
+            "peak_gb": [r["peak_gb"] for r in per_rank],
+            "zero3_bytes": per_rank[0]["zero3_bytes"]}
+        log(f"  {name}: losses {losses}; held GB {runs[name]['held_gb']}, "
+            f"peak GB {runs[name]['peak_gb']}, s/window "
+            f"{runs[name]['window_s']}")
+    base = runs["adam-fp32-s0"]["losses"]
+    for st in (1, 2, 3):
+        p14_close(f"float32 stage {st} vs stage 0",
+                  runs[f"adam-fp32-s{st}"]["losses"], base)
+    p14_close("dp 2 vs dp 1 on the same 8 rows", base, ref["losses"])
+    # a dp = 2 checkpoint loads at dp = 1 with an equal fingerprint
+    model = GPT2LMHeadModel(GPT2Config.small(dropout=0.0), device="cuda",
+                            seed=seed + 7)
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model, config_params=p14_config("Adam", "fp32", 1, P14_ROWS,
+                                              1))
+    path, _ = engine.load_checkpoint(str(root / "ckpt"))
+    fp1 = p14_fingerprint(engine, seed, 0, 1)
+    fp2 = ranks[0][P14_SAVE]["fingerprint"]
+    if path is None or not math.isclose(fp1, fp2, rel_tol=1e-5):
+        fail(f"phase 14: the dp 2 checkpoint at dp 1: fingerprint {fp1} "
+             f"!= {fp2}")
+    shards = sorted(f.name for f in (root / "ckpt" / "dp2").iterdir()
+                    if f.name.startswith("zero_pp_rank_"))
+    if len(shards) != P14_DP:
+        fail(f"phase 14: optimizer shard files {shards}")
+    del engine, model
+    torch.cuda.empty_cache()
+    stats.update(runs=runs, dp1_losses=ref["losses"],
+                 dp1_peak_gb=ref["peak_gb"], dp1_held_gb=ref["held_gb"],
+                 fingerprint_dp2=fp2, fingerprint_dp1=fp1,
+                 wall_s=time.monotonic() - t0)
+    log(f"phase 14: {stats['wall_s']:.1f} s")
+    return launches, stats
+
+
 def only_flash(device, seed):
     """``--only-flash``: the flash kernels built alone (ptxas's registers
     and spills printed) and timed as time_flash times them (bf16, causal,
@@ -5590,6 +5951,11 @@ def main():
                         help="build every kernel and run phase 13 alone "
                         "(the contiguous cache, the host tier and "
                         "speculative decoding)")
+    parser.add_argument("--only-phase14", action="store_true",
+                        help="build every kernel and run phase 14 alone "
+                        "(data parallel: ZeRO stages 0-3 on two ranks)")
+    parser.add_argument("--phase14-rank", metavar="SPEC",
+                        help=argparse.SUPPRESS)
     parser.add_argument("--cold-telemetry", action="store_true",
                         help="one telemetry-on training run whose first "
                         "window builds the kernels in an empty build "
@@ -5600,6 +5966,9 @@ def main():
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
         sys.exit(2)
+    if args.phase14_rank:
+        phase14_rank(args.phase14_rank)
+        return
     from deepspeed_tpu_torch.ops import kernel_lib
 
     smi = subprocess.run(
@@ -5647,6 +6016,13 @@ def main():
                           "launches": launches, "card": smi}))
         return
 
+    if args.only_phase14:
+        kernel_lib.build()
+        launches, stats = phase_data_parallel(args.seed, smi)
+        print(json.dumps({"phase14": stats, "launches": launches,
+                          "card": smi}))
+        return
+
     if args.only_phase13:
         kernel_lib.build()
         launches, stats = phase_inference_rest(args.seed, smi)
@@ -5684,6 +6060,7 @@ def main():
     data_launches, data_stats = phase_data_remat(args.seed, smi)
     bert_launches, bert_stats, bert_rows = phase_bert_layouts(args.seed, smi)
     inf_launches, inf_stats = phase_inference_rest(args.seed, smi)
+    dp_launches, dp_stats = phase_data_parallel(args.seed, smi)
     for path, counts in [("serve", serve_launches),
                          *adapter_launches.items(), *hd_launches.items(),
                          *tel_launches.items(), *res_launches.items(),
@@ -5693,6 +6070,8 @@ def main():
     for name, by_path in data_launches.items():
         launches[name].update(by_path)
     for name, by_path in bert_launches.items():
+        launches[name].update(by_path)
+    for name, by_path in dp_launches.items():
         launches[name].update(by_path)
     for name, by_path in launches.items():
         kernels[name]["launches"] = sum(by_path.values())
@@ -5761,6 +6140,7 @@ def main():
                     "telemetry": tel_stats, "resilience": res_stats,
                     "data_remat": data_stats, "bert_layouts": bert_stats,
                     "inference_rest": inf_stats,
+                    "data_parallel": dp_stats,
                     "head_dims": {k: v for k, v in hd_stats.items()
                                   if k not in ("flash", "flash_wide",
                                                "flash_d128",

@@ -20,8 +20,12 @@ package (Adam, AdamW, Lamb, FusedLamb, SGD, Lion) and its state layouts
 (bf16/int8 moments, compensated masters, optimizer offload to pinned
 host memory) train through ``initialize``, and so does BERT
 (``BertForPreTraining``, ``BertForQuestionAnswering``), whose padded,
-non-causal attention runs through the same flash kernels. The package
-imports ``torch`` and never ``jax`` or ``deepspeed_tpu``.
+non-causal attention runs through the same flash kernels. Training runs
+data parallel across processes (``runtime/dist.py``, ``parallel/``) at
+ZeRO stages 0-3 (``runtime/zero.py``, the stage-3 gather stack of
+``models/stack.py``), with sharded checkpoints and sparse embedding
+gradients (``runtime/sparse.py``). The package imports ``torch`` and
+never ``jax`` or ``deepspeed_tpu``.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``,
 which runs each kernel's plain PyTorch version instead.
@@ -38,7 +42,8 @@ from .runtime.engine import DeepSpeedEngine, EngineOptimizerFacade
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                training_data=None, lr_scheduler=None, config_params=None,
-               mesh=None, rng_seed=0, device=None, collate_fn=None):
+               mesh=None, rng_seed=0, device=None, collate_fn=None, mpu=None,
+               dist_init_required=None):
     """Build a training engine; returns the reference's 4-tuple
     ``(engine, optimizer, training_dataloader, lr_scheduler)``.
 
@@ -50,12 +55,19 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     without a GPU. With ``training_data`` (a tuple of arrays, a map
     dataset or an iterable of batches; ``collate_fn`` batches a map
     dataset) the third element is a :class:`DeepSpeedDataLoader` of
-    micro-batches, else None."""
+    micro-batches, else None.
+
+    Data parallel: under the launcher's ``DS_TPU_*`` environment (or in a
+    torch.distributed group the caller made) every process calls this
+    with its own device; ``mesh`` (a ``parallel.ProcessMesh``) or the
+    config's ``mesh`` block sets the data-parallel size (default: the
+    world), and ``dist_init_required``/``mpu`` are the reference's."""
     engine = DeepSpeedEngine(
         model=model, optimizer=optimizer, model_parameters=model_parameters,
         training_data=training_data, lr_scheduler=lr_scheduler,
         config_params=config_params, mesh=mesh, rng_seed=rng_seed,
-        device=device, args=args, collate_fn=collate_fn,
+        device=device, args=args, collate_fn=collate_fn, mpu=mpu,
+        dist_init_required=dist_init_required,
     )
     return (engine, EngineOptimizerFacade(engine),
             engine.training_dataloader, engine.lr_scheduler)

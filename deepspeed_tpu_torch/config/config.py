@@ -14,9 +14,11 @@ DeepSpeedConfig (deepspeed_tpu/config/config.py), with the same keys,
 defaults and rejections, error text included: a config the JAX package
 refuses, this one refuses too. The batch triangle is resolved only for a training
 config (``training=True``, as ``initialize()`` builds it): an inference
-config names no batch size. ``world_size`` defaults to the initialised
-``torch.distributed`` world size (1 without a group), where the JAX
-package read ``jax.device_count()``.
+config names no batch size. ``world_size`` is the batch triangle's
+data-parallel size: the training engine passes its mesh's data axis
+(parallel/mesh.py), as the JAX engine passes its mesh's; without it the
+default is the initialised ``torch.distributed`` world size (1 without a
+group), where the JAX package read ``jax.device_count()``.
 """
 
 import os

@@ -568,6 +568,11 @@ ADAPTERS_POOL_SLOTS = "pool_slots"
 ADAPTERS_POOL_SLOTS_DEFAULT = 8
 
 #############################################
-# Blocks the port parses only to refuse them (not yet ported).
+# The process mesh (parallel/mesh.py): data parallel across processes;
+# the model, sequence and pipeline axes are refused (not yet ported).
 #############################################
 MESH = "mesh"
+MESH_DATA_PARALLEL_SIZE = "data_parallel_size"
+MESH_MODEL_PARALLEL_SIZE = "model_parallel_size"
+MESH_SEQUENCE_PARALLEL_SIZE = "sequence_parallel_size"
+MESH_PIPELINE_PARALLEL_SIZE = "pipeline_parallel_size"

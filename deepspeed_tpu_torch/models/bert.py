@@ -28,10 +28,17 @@ by name they fall in the JAX tree's order, so LAMB's per-group trust
 ratios (ops/optimizers.py:param_groups) line up with the JAX leaves.
 ``convert.py:bert_params_from_jax`` carries JAX weights across.
 
-Not ported (refused when the model is built): sparse embedding
-gradients and ZeRO-3's layer-wise gather (``sparse_gradients``,
-``zero3_gather``), a device ``mesh``, and LoRA adapters on BERT
-(``lora_rank > 0``).
+Data parallel (``configure_data_parallel`` of the task models, set by
+the training engine): the rank decorrelates dropout, every
+cross-entropy divides by the data group's count of valid labels (which
+differs between ranks on padded batches), at ZeRO stage 3 the encoder's
+blocks run through the gather stack of models/stack.py, and with the
+engine's ``sparse_gradients`` the word table's lookup gradient goes
+through runtime/sparse.py.
+
+Not ported (refused when the model is built): the config fields
+``sparse_gradients``, ``zero3_gather`` and ``mesh`` (the engine arms
+data parallelism itself), and LoRA adapters on BERT (``lora_rank > 0``).
 """
 
 import dataclasses
@@ -52,6 +59,8 @@ from ..ops.transformer import (
     transformer_block_apply,
 )
 from ..utils.device import resolve_device
+from ..runtime.sparse import sparse_embedding_lookup
+from .stack import zero3_stack
 
 
 def _round_up(x, m):
@@ -181,12 +190,16 @@ class BertEmbeddings(nn.Module):
         self.token_type_embeddings = nn.Parameter(torch.empty(
             config.type_vocab_size, h, device=device, dtype=dtype))
         self.LayerNorm = _LayerNorm(h, device, dtype)
+        self.sparse_lookup = None
 
     def forward(self, layer_cfg, input_ids, token_type_ids=None, rng=None):
         """[B, S] ids -> [B, S, H]: word + position (+ token type), the
         LayerNorm, then the hidden dropout from ``rng``."""
         s = input_ids.shape[1]
-        x = self.word_embeddings[input_ids] + self.position_embeddings[None, :s]
+        word = (self.word_embeddings[input_ids] if self.sparse_lookup is None
+                else sparse_embedding_lookup(self.word_embeddings, input_ids,
+                                             *self.sparse_lookup))
+        x = word + self.position_embeddings[None, :s]
         if token_type_ids is not None:
             x = x + self.token_type_embeddings[token_type_ids]
         x = layer_norm_apply(layer_cfg, x, self.LayerNorm.weight,
@@ -203,8 +216,16 @@ class BertEncoder(nn.Module):
             DeepSpeedTransformerLayer(layer_cfg, device, dtype)
             for _ in range(config.num_hidden_layers)
         )
+        self.zero3_gather = None
 
     def forward(self, layer_cfg, x, additive_mask, train, rng):
+        if self.zero3_gather is not None:
+            return zero3_stack(
+                self.zero3_gather, layer_cfg, list(self.layer), x,
+                lambda cfg, p, h, r: transformer_block_apply(
+                    cfg, p, h, additive_mask, causal=False, train=train,
+                    dropout_rng=r),
+                rng if train else None)
         for layer in self.layer:
             x = transformer_block_apply(
                 layer_cfg, layer, x, additive_mask, causal=False,
@@ -259,14 +280,30 @@ class BertModel(nn.Module):
 
 class _BertHead(nn.Module):
     """Shared by the two task models: the encoder under ``bert``, the
-    dropout generator of a training forward, and the initializers."""
+    data-parallel settings, the dropout generator of a training forward,
+    and the initializers."""
+
+    #: the stage-3 stack's tensors: ``bert.encoder.layer.<i>.<tensor>``
+    zero3_block_prefix = "bert.encoder.layer."
+    data_rank = 0
+    count_fn = None
+
+    def configure_data_parallel(self, data_rank=0, count_fn=None,
+                                zero3=None, sparse=None):
+        """As GPT2LMHeadModel.configure_data_parallel: the rank, the
+        losses' divisor, the stage-3 arming of the encoder and the sparse
+        word-table gradient."""
+        self.data_rank = int(data_rank)
+        self.count_fn = count_fn
+        self.bert.encoder.zero3_gather = zero3
+        self.bert.embeddings.sparse_lookup = sparse
 
     def _rng(self, input_ids, train, dropout_seed):
         cfg = self.config
         if (train and dropout_seed is not None
                 and (cfg.hidden_dropout_prob > 0
                      or cfg.attention_probs_dropout_prob > 0)):
-            return DropoutRNG(dropout_seed, input_ids.device)
+            return DropoutRNG(dropout_seed, input_ids.device, self.data_rank)
         return None
 
     @torch.no_grad()
@@ -321,10 +358,12 @@ class BertForPreTraining(_BertHead):
         logits = F.linear(h, word, self.mlm_bias)
         loss = torch.zeros((), dtype=torch.float32, device=input_ids.device)
         if masked_lm_labels is not None:
-            loss = loss + cross_entropy_ignore_index(logits, masked_lm_labels)
+            loss = loss + cross_entropy_ignore_index(
+                logits, masked_lm_labels, count_fn=self.count_fn)
         if next_sentence_label is not None:
             loss = loss + cross_entropy_ignore_index(
-                self.nsp(pooled), next_sentence_label)
+                self.nsp(pooled), next_sentence_label,
+                count_fn=self.count_fn)
         return loss
 
 
@@ -361,5 +400,8 @@ class BertForQuestionAnswering(_BertHead):
         start_logits, end_logits = logits[..., 0], logits[..., 1]
         if start_positions is None or end_positions is None:
             return start_logits, end_logits
-        return 0.5 * (cross_entropy_ignore_index(start_logits, start_positions)
-                      + cross_entropy_ignore_index(end_logits, end_positions))
+        return 0.5 * (
+            cross_entropy_ignore_index(start_logits, start_positions,
+                                       count_fn=self.count_fn)
+            + cross_entropy_ignore_index(end_logits, end_positions,
+                                         count_fn=self.count_fn))

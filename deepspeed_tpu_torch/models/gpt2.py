@@ -9,8 +9,12 @@ through the blocked LM-head cross-entropy (ops/cross_entropy.py).
 ``remat`` (with ``remat_policy``) checkpoints every block as the JAX
 model does (ops/transformer.py: the layer config's memory mode).
 ``moe_experts`` and ``pipeline_stages`` are carried so that the training
-engine can refuse them (not ported); sparse gradients and ZeRO-3's gather
-seam are not ported. ``lora_rank > 0`` gives every block
+engine can refuse them (not ported). Data parallel
+(:meth:`GPT2LMHeadModel.configure_data_parallel`, set by the training
+engine): the rank decorrelates dropout, the loss divides by the data
+group's token count, at ZeRO stage 3 the blocks run through the gather
+stack of models/stack.py, and with the engine's ``sparse_gradients`` the
+``wte`` lookup's gradient goes through runtime/sparse.py. ``lora_rank > 0`` gives every block
 LoRA factors (ops/transformer.py:apply_lora), which the training and
 eval forward apply; the training engine's ``adapters`` block arms it.
 """
@@ -31,6 +35,8 @@ from ..ops.transformer import (
     transformer_block_apply,
 )
 from ..utils.device import resolve_device
+from ..runtime.sparse import sparse_embedding_lookup
+from .stack import zero3_stack
 
 
 def _round_up(x, multiple):
@@ -139,7 +145,24 @@ class GPT2LMHeadModel(nn.Module):
         self.ln_f = nn.LayerNorm(
             e, eps=config.layer_norm_eps, device=device, dtype=dtype
         )
+        self.configure_data_parallel()
         self.reset_parameters(seed)
+
+    #: the stage-3 stack's tensors: ``h.<i>.<block tensor>``
+    zero3_block_prefix = "h."
+
+    def configure_data_parallel(self, data_rank=0, count_fn=None,
+                                zero3=None, sparse=None):
+        """The data-parallel settings the training engine hands the model:
+        ``data_rank`` (dropout decorrelation, ops/transformer.py:
+        DropoutRNG), ``count_fn`` (the loss's divisor, ops/cross_entropy.
+        py), ``zero3`` (a :class:`~.stack.Zero3Arming`, or None for the
+        plain block loop) and ``sparse`` (``(group, world)``: ``wte``'s
+        lookup gradient through runtime/sparse.py, or None)."""
+        self.data_rank = int(data_rank)
+        self.count_fn = count_fn
+        self.zero3_gather = zero3
+        self.sparse_lookup = sparse
 
     @torch.no_grad()
     def reset_parameters(self, seed=0):
@@ -179,13 +202,23 @@ class GPT2LMHeadModel(nn.Module):
         three dropout streams are drawn from it."""
         s = input_ids.shape[1]
         rng = dropout_rng if train else None
-        x = dropout(self.wte[input_ids] + self.wpe[None, :s, :],
-                    self.config.dropout, rng)
-        for layer in self.h:
-            x = transformer_block_apply(
-                self.layer_config, layer, x, None, causal=True,
-                train=train, dropout_rng=rng,
-            )
+        emb = (self.wte[input_ids] if self.sparse_lookup is None
+               else sparse_embedding_lookup(self.wte, input_ids,
+                                            *self.sparse_lookup))
+        x = dropout(emb + self.wpe[None, :s, :], self.config.dropout, rng)
+        if self.zero3_gather is not None:
+            x = zero3_stack(
+                self.zero3_gather, self.layer_config, list(self.h), x,
+                lambda cfg, p, h, r: transformer_block_apply(
+                    cfg, p, h, None, causal=True, train=train,
+                    dropout_rng=r),
+                rng)
+        else:
+            for layer in self.h:
+                x = transformer_block_apply(
+                    self.layer_config, layer, x, None, causal=True,
+                    train=train, dropout_rng=rng,
+                )
         return layer_norm_apply(
             self.layer_config, x, self.ln_f.weight, self.ln_f.bias
         )
@@ -202,15 +235,16 @@ class GPT2LMHeadModel(nn.Module):
                 return F.linear(self.hidden_states(input_ids), self.wte)
         rng = None
         if train and dropout_seed is not None and self.config.dropout > 0:
-            rng = DropoutRNG(dropout_seed, input_ids.device)
+            rng = DropoutRNG(dropout_seed, input_ids.device, self.data_rank)
         x = self.hidden_states(input_ids, train, rng)
         if labels is None:
             return F.linear(x, self.wte)
         if self.config.ce_block_rows > 0:
             return blocked_lm_head_loss(
                 x[:, :-1], self.wte, labels[:, 1:],
-                block_rows=self.config.ce_block_rows,
+                block_rows=self.config.ce_block_rows, count_fn=self.count_fn,
             )
         return cross_entropy_ignore_index(
-            F.linear(x[:, :-1], self.wte), labels[:, 1:]
+            F.linear(x[:, :-1], self.wte), labels[:, 1:],
+            count_fn=self.count_fn,
         )

@@ -27,9 +27,15 @@ def _valid(labels, ignore_values):
     return valid
 
 
-def _count(labels, ignore_values):
-    """max(valid positions, 1) as a float32 tensor (no host sync)."""
-    return _valid(labels, ignore_values).sum().clamp(min=1).float()
+def _count(labels, ignore_values, count_fn=None):
+    """max(valid positions, 1) as a float32 tensor (no host sync), or
+    ``count_fn`` of the valid positions: the divisor of a data-parallel
+    rank, max(the data group's count, 1) / dp, so that the ranks' losses
+    average to the global batch's mean."""
+    count = _valid(labels, ignore_values).sum().float()
+    if count_fn is not None:
+        return count_fn(count)
+    return count.clamp(min=1)
 
 
 def _nll_sum(logits, labels, ignore_values):
@@ -43,20 +49,23 @@ def _nll_sum(logits, labels, ignore_values):
     return torch.where(valid, nll, torch.zeros_like(nll)).sum()
 
 
-def cross_entropy_ignore_index(logits, labels, ignore_values=(-1, -100)):
-    """Mean CE of ``logits`` [..., V] against ``labels`` [...]."""
+def cross_entropy_ignore_index(logits, labels, ignore_values=(-1, -100),
+                               count_fn=None):
+    """Mean CE of ``logits`` [..., V] against ``labels`` [...] (the
+    divisor through ``count_fn``, see :func:`_count`)."""
     return _nll_sum(logits, labels, ignore_values) / _count(
-        labels, ignore_values
+        labels, ignore_values, count_fn
     )
 
 
 def blocked_lm_head_loss(hidden, word_table, labels, block_rows=512,
-                         ignore_values=(-1, -100)):
+                         ignore_values=(-1, -100), count_fn=None):
     """Mean CE of ``hidden @ word_table.T`` against ``labels``.
 
     ``hidden`` [B, T, H] (already shifted for next-token prediction),
     ``word_table`` [V, H] (the tied embedding), ``labels`` [B, T]
-    integers; ``block_rows`` sequence positions per chunk."""
+    integers; ``block_rows`` sequence positions per chunk; ``count_fn``
+    as :func:`cross_entropy_ignore_index`."""
     t = hidden.shape[1]
     block = min(block_rows, t)
 
@@ -70,4 +79,4 @@ def blocked_lm_head_loss(hidden, word_table, labels, block_rows=512,
             chunk, hidden[:, start:stop], word_table, labels[:, start:stop],
             use_reentrant=False,
         )
-    return num / _count(labels, ignore_values)
+    return num / _count(labels, ignore_values, count_fn)

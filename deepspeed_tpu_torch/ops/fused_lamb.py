@@ -263,11 +263,15 @@ def _group_sums(partials, seg):
 
 def lamb_multi_tensor_update(ps, gs, ms, vs, us, c1, c2, lr, grad_scale=None,
                              *, b1, b2, eps, weight_decay, min_coeff,
-                             max_coeff, eps_inside_sqrt):
+                             max_coeff, eps_inside_sqrt, norm_reduce=None,
+                             skip=None):
     """LAMB over MANY groups in ONE phase-1 launch. ``ps``, ``gs``, ``ms``,
     ``vs``, ``us`` are lists of groups, each a list of tensors. Updates
     p, m and v in place; returns the trust ratios, one 0-d tensor per
-    group."""
+    group. Over ZeRO shards, ``skip`` (lists of bools like ``ps``) leaves
+    out of the norms the tensors another rank counts, and ``norm_reduce``
+    sums the ``[groups, 2]`` partial squared norms over the data group
+    in place before the ratios."""
     flat = [[t for grp in lst for t in grp] for lst in (ps, gs, ms, vs, us)]
     wsq, usq = lamb_phase1(
         *flat, c1, c2, grad_scale, b1=b1, b2=b2, eps=eps,
@@ -275,11 +279,22 @@ def lamb_multi_tensor_update(ps, gs, ms, vs, us, c1, c2, lr, grad_scale=None,
     )
     # phase 2: per-group sums of the block partials
     blocks = [_nblocks(t.numel()) for t in flat[0]]
+    if skip is not None:
+        first = 0
+        for n, out in zip(blocks, (s for grp in skip for s in grp)):
+            if out:
+                wsq[first:first + n] = 0.0
+                usq[first:first + n] = 0.0
+            first += n
     groups = [gi for gi, grp in enumerate(ps) for _ in grp]
     seg = _segment_map(blocks, groups, wsq.device)
-    w_norm = torch.sqrt(_group_sums(wsq, seg))
-    u_norm = torch.sqrt(_group_sums(usq, seg))
-    ratios = trust_ratio(w_norm, u_norm, min_coeff, max_coeff)
+    sums = torch.stack([_group_sums(wsq, seg), _group_sums(usq, seg)])
+    if norm_reduce is not None:
+        sums = sums.t().contiguous()
+        norm_reduce(sums)
+        sums = sums.t()
+    ratios = trust_ratio(torch.sqrt(sums[0]), torch.sqrt(sums[1]),
+                         min_coeff, max_coeff)
     # phase 3: p -= lr * ratio * u, group by group
     for gi, (grp_p, grp_u) in enumerate(zip(ps, us)):
         coef = lr * ratios[gi]
@@ -329,12 +344,20 @@ class FusedLamb(Lamb):
                   weight_decay=self.weight_decay, min_coeff=self.min_coeff,
                   max_coeff=self.max_coeff,
                   eps_inside_sqrt=self.eps_inside_sqrt)
+        sharded = self.norm_reduce is not None
 
         def lists(names):
             return ([params[n] for n in names], [grads[n] for n in names],
                     [state["mu"][n] for n in names],
                     [state["nu"][n] for n in names],
                     [self._scratch[n] for n in names])
+
+        def over_shards(names_of_groups):
+            if not sharded:
+                return {}
+            return {"norm_reduce": self.norm_reduce,
+                    "skip": [[n in self.norm_skip for n in names]
+                             for names in names_of_groups]}
 
         groups = param_groups(params)
         small = [
@@ -349,12 +372,13 @@ class FusedLamb(Lamb):
             packed = [lists(groups[g]) for g in small]
             got = lamb_multi_tensor_update(
                 *(list(col) for col in zip(*packed)), c1, c2, lr, grad_scale,
-                **kw,
+                **kw, **over_shards([groups[g] for g in small]),
             )
             ratios.update(zip(small, got))
         for g, names in groups.items():
             if g not in ratios:
                 ratios[g] = lamb_leaf_update(
-                    *lists(names), c1, c2, lr, grad_scale, **kw
+                    *lists(names), c1, c2, lr, grad_scale, **kw,
+                    **over_shards([names]),
                 )
         return {"lamb_coeffs": [ratios[g] for g in groups]}

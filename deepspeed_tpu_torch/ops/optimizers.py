@@ -353,7 +353,16 @@ class Lamb(Optimizer, _Moments):
       ratio = clamp(||p|| / ||u||, min_coeff, max_coeff)  if both > 0
       p <- p - lr * ratio * u
     ``aux['lamb_coeffs']`` holds the ratios in group order.
-    ``state_dtype``: see the module docstring."""
+    ``state_dtype``: see the module docstring.
+
+    Over ZeRO shards (runtime/zero.py) the engine sets ``norm_reduce``, a
+    function that sums a ``[groups, 2]`` tensor of partial ``(||p||^2,
+    ||u||^2)`` over the data group in place, and ``norm_skip``, the
+    tensors another rank counts (replicated ones): every group's phase 1
+    runs first, one reduction follows, then the ratios and the updates."""
+
+    norm_reduce = None
+    norm_skip = frozenset()
 
     b1: float = 0.9
     b2: float = 0.999
@@ -387,43 +396,76 @@ class Lamb(Optimizer, _Moments):
         v_store.copy_(v_new)
         return m_new, update
 
+    def _phase1(self, group, names, params, grads, state, b1, divisors,
+                grad_scale):
+        """One group's moments (written) and updates ``u`` (returned)."""
+        quantized = self.state_dtype == "int8"
+        if quantized:
+            total = sum(params[n].numel() for n in names)
+            m_flat = quant.dequantize(state["mu"][group], (total,))
+            m_new_flat = torch.empty_like(m_flat)
+        updates, off = [], 0
+        for n in names:
+            p = params[n]
+            k = p.numel()
+            m = (_group_slice(n, p, m_flat, off) if quantized
+                 else state["mu"][n].float())
+            m_new, u = self._update(p, _scaled_f32(grads[n], grad_scale),
+                                    m, state["nu"][n], b1, divisors)
+            if quantized:
+                _group_slice(n, p, m_new_flat, off).copy_(m_new)
+            else:
+                state["mu"][n].copy_(m_new)
+            updates.append(u)
+            off += k
+        if quantized:
+            quant.quantize_into(state["mu"][group], m_new_flat)
+        return updates
+
+    def _apply_ratio(self, names, params, updates, w_sq, u_sq, lr):
+        ratio = trust_ratio(torch.sqrt(w_sq), torch.sqrt(u_sq),
+                            self.min_coeff, self.max_coeff)
+        for n, u in zip(names, updates):
+            params[n].copy_(params[n] - lr * ratio * u)
+        return ratio
+
     @torch.no_grad()
     def apply(self, params, grads, state, lr, grad_scale=None, mom=None):
         state["step"] += 1
         b1 = self.b1 if mom is None else mom
         divisors = _Divisors(*bias_corrections(b1, self.b2, state["step"],
                                                self.bias_correction))
-        coeffs = []
-        for group, names in param_groups(params).items():
-            quantized = self.state_dtype == "int8"
-            if quantized:
-                total = sum(params[n].numel() for n in names)
-                m_flat = quant.dequantize(state["mu"][group], (total,))
-                m_new_flat = torch.empty_like(m_flat)
-            updates, off = [], 0
-            for n in names:
-                p = params[n]
-                k = p.numel()
-                m = (_group_slice(n, p, m_flat, off) if quantized
-                     else state["mu"][n].float())
-                m_new, u = self._update(p, _scaled_f32(grads[n], grad_scale),
-                                        m, state["nu"][n], b1, divisors)
-                if quantized:
-                    _group_slice(n, p, m_new_flat, off).copy_(m_new)
-                else:
-                    state["mu"][n].copy_(m_new)
-                updates.append(u)
-                off += k
-            if quantized:
-                quant.quantize_into(state["mu"][group], m_new_flat)
-            w_norm = torch.sqrt(sum(torch.sum(params[n] * params[n])
-                                    for n in names))
-            u_norm = torch.sqrt(sum(torch.sum(u * u) for u in updates))
-            ratio = trust_ratio(w_norm, u_norm, self.min_coeff, self.max_coeff)
-            coeffs.append(ratio)
-            for n, u in zip(names, updates):
-                params[n].copy_(params[n] - lr * ratio * u)
-        return {"lamb_coeffs": coeffs}
+        groups = param_groups(params)
+        if self.norm_reduce is None:
+            coeffs = []
+            for group, names in groups.items():
+                updates = self._phase1(group, names, params, grads, state,
+                                       b1, divisors, grad_scale)
+                w_sq = sum(torch.sum(params[n] * params[n]) for n in names)
+                u_sq = sum(torch.sum(u * u) for u in updates)
+                coeffs.append(self._apply_ratio(names, params, updates,
+                                                w_sq, u_sq, lr))
+            return {"lamb_coeffs": coeffs}
+        # over shards: every group's partial sums, one reduction, then
+        # the ratios (the same for every rank) and the updates
+        pending, sums = [], []
+        for group, names in groups.items():
+            updates = self._phase1(group, names, params, grads, state, b1,
+                                   divisors, grad_scale)
+            zero = torch.zeros((), dtype=torch.float32,
+                               device=params[names[0]].device)
+            kept = [(n, u) for n, u in zip(names, updates)
+                    if n not in self.norm_skip]
+            sums.append(torch.stack([
+                sum((torch.sum(params[n] * params[n]) for n, _ in kept),
+                    zero),
+                sum((torch.sum(u * u) for _, u in kept), zero)]))
+            pending.append((names, updates))
+        sums = torch.stack(sums)
+        self.norm_reduce(sums)
+        return {"lamb_coeffs": [
+            self._apply_ratio(names, params, updates, s[0], s[1], lr)
+            for (names, updates), s in zip(pending, sums)]}
 
 
 @dataclasses.dataclass

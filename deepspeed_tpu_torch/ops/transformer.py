@@ -46,21 +46,35 @@ from .attention import NEG_INF, attention, routes_to_flash
 from .decode_attention import lora_sgmv_add, paged_flash_decode
 
 
+#: The data rank's offset of the dropout seeds (the JAX package's sharded
+#: flash attention adds ``data_rank * 7_368_787`` to its kernel seed).
+DATA_RANK_SEED_STRIDE = 7_368_787
+
+
 class DropoutRNG:
     """One micro-step's dropout randomness, from ``seed``: attention-mask
     seeds (``attn_seed``, one per layer) from a CPU ``torch.Generator``,
     so drawing one never waits for the device, and hidden-dropout masks
     (``keep``) from a generator on ``device``. The JAX package splits a
     key per layer and per stream instead; the two give different masks
-    from one seed."""
+    from one seed.
 
-    def __init__(self, seed, device):
+    ``data_rank`` decorrelates data-parallel ranks, which draw the same
+    ``seed``: every attention seed is offset by ``data_rank *``
+    :data:`DATA_RANK_SEED_STRIDE`, and the keep masks' generator starts
+    from ``seed`` offset the same way (rank 0 draws what a single process
+    draws)."""
+
+    def __init__(self, seed, device, data_rank=0):
+        self._offset = int(data_rank) * DATA_RANK_SEED_STRIDE
         self._host = torch.Generator().manual_seed(int(seed))
-        self._device = torch.Generator(device=device).manual_seed(int(seed))
+        self._device = torch.Generator(device=device).manual_seed(
+            (int(seed) + self._offset) % 2**63)
         self.device = torch.device(device)
 
     def attn_seed(self):
-        return int(torch.randint(0, 2**31 - 1, (), generator=self._host))
+        drawn = int(torch.randint(0, 2**31 - 1, (), generator=self._host))
+        return (drawn + self._offset) % (2**31 - 1)
 
     def keep(self, shape, rate):
         """A keep mask: each element kept with probability 1 - rate."""

@@ -1,4 +1,5 @@
-"""Checkpoint save/load with a crash-safe commit protocol, on one device.
+"""Checkpoint save/load with a crash-safe commit protocol, on one device
+or across data-parallel ranks.
 
 Port of deepspeed_tpu/runtime/checkpointing.py. The directory layout and
 the role of each file are the JAX package's; the serializer is PyTorch's
@@ -49,8 +50,18 @@ A checkpoint is untrusted input: ``weights_only`` loading takes tensors,
 primitives and containers of them only, and ``save_checkpoint`` refuses a
 ``client_state`` that holds anything else.
 
-Not ported: more than one data-parallel rank (the optimizer file is
-always the one shard of world size 1).
+Across data-parallel ranks at ZeRO stage >= 1 (runtime/zero.py) every
+rank writes its own ``zero_pp_rank_<r>_mp_rank_00optim_states.pt``: its
+shards of the canonical ``{"master", "inner"}`` state, with
+``num_shards`` and the layout that cut them (``layout``: each leaf's
+shard dim, or the members and padded size of a flat int8 group). Rank 0
+writes the model file (the full parameters: at stage 3 gathered from the
+shards). A barrier comes before the manifest, which rank 0 writes over
+every file, and another after ``latest`` is published. A load merges
+every saved shard into the canonical layout of one rank (the state a
+dp = 1 engine holds) and cuts this engine's shards from it, so a
+checkpoint saved at one data-parallel size loads at any other, and
+master and non-master layouts cross.
 """
 
 import dataclasses
@@ -59,13 +70,19 @@ import logging
 import os
 import time
 
+import math
+
 import torch
 
+from ..ops import quant
+from ..ops.optimizers import jax_element_order
 from ..resilience import atomic_io
 from ..resilience import manifest as manifest_lib
 from ..resilience import retention
 from ..resilience.manager import ResilienceManager
 from ..utils.logging import log_dist, warn_once
+from . import dist as dist_lib
+from .zero import from_chunks, shard_of
 
 MODEL_FILE = "mp_rank_{mp:02d}_model_states.pt"
 OPTIM_FILE = "zero_pp_rank_{dp}_mp_rank_{mp:02d}optim_states.pt"
@@ -177,14 +194,145 @@ def _module_params(engine):
     return getattr(engine, "module_params", engine.params)
 
 
+def _layout(engine):
+    """The engine's ZeRO layout when its optimizer steps shards, else
+    None (one rank, or stage 0)."""
+    zero = getattr(engine, "_zero", None)
+    return zero if zero is not None and zero.sharded else None
+
+
+def _full_module_params(engine):
+    """The module file's parameters in full: at stage 3 gathered from
+    every rank's shards (a collective: every rank calls it)."""
+    params = _module_params(engine)
+    zero = _layout(engine)
+    if zero is None or zero.stage < 3:
+        return params
+    return {n: zero.gather_full(n, p) for n, p in params.items()}
+
+
+def _full_shapes(engine):
+    zero = getattr(engine, "_zero", None)
+    if zero is not None:
+        return dict(zero.shapes)
+    return {n: tuple(p.shape) for n, p in _module_params(engine).items()}
+
+
+def _describe(zero):
+    """The layout an optimizer shard file records (primitives only)."""
+    return {name: {"dim": -1 if leaf.dim is None else int(leaf.dim),
+                   "pad_to": int(leaf.pad_to),
+                   "members": [[n, list(shape)] for n, shape in leaf.members]}
+            for name, leaf in zero.leaves.items()}
+
+
+def _is_quantized(v):
+    return isinstance(v, dict) and set(v) == {"q", "scale"}
+
+
+def _member_from_flat(name, shape, flat):
+    """Tensor ``name`` of ``shape`` from its part of a flat group (JAX
+    element order)."""
+    like = jax_element_order(name, torch.empty(shape, device="meta"))
+    t = flat.reshape(like.shape)
+    return jax_element_order(name, t).contiguous()
+
+
+def _merge_leaf(name, info, vals):
+    """One leaf-keyed entry of every rank's shard -> its canonical
+    entries (one per parameter; a quantized group keeps its group key,
+    trimmed to one rank's block count)."""
+    members = [(n, tuple(shape)) for n, shape in info["members"]]
+    if _is_quantized(vals[0]):
+        total = sum(math.prod(s) for _, s in members)
+        nb = max(1, math.ceil(total / quant.BLOCK))
+        return {name: {
+            "q": torch.cat([v["q"] for v in vals])[:nb * quant.BLOCK],
+            "scale": torch.cat([v["scale"] for v in vals])[:nb]}}
+    if info["pad_to"]:
+        flat = torch.cat([v.reshape(-1) for v in vals])
+        out, off = {}, 0
+        for n, shape in members:
+            k = math.prod(shape)
+            out[n] = _member_from_flat(n, shape, flat[off:off + k])
+            off += k
+        return out
+    if info["dim"] < 0:
+        return {name: vals[0]}
+    (n, shape), = members
+    return {name: from_chunks(torch.cat([v.reshape(-1) for v in vals]),
+                              shape, info["dim"]).contiguous()}
+
+
+def _merge_tree(layout, vals):
+    """Every rank's copy of one state (sub)tree -> the canonical tree:
+    dicts keyed by leaf names are merged leaf by leaf, anything else is
+    rank 0's."""
+    first = vals[0]
+    if isinstance(first, dict) and first and set(first) <= set(layout):
+        out = {}
+        for name in first:
+            out.update(_merge_leaf(name, layout[name],
+                                   [v[name] for v in vals]))
+        return out
+    if isinstance(first, dict):
+        return {k: _merge_tree(layout, [v[k] for v in vals]) for k in first}
+    return first
+
+
+def _merge_shards(payloads):
+    """The optimizer files of every rank -> one canonical payload."""
+    layout = payloads[0]["layout"]
+    states = [p["optimizer_state"] for p in payloads]
+    return {"num_shards": 1,
+            "optimizer_state": {
+                "master": _merge_tree(layout, [s["master"] for s in states]),
+                "inner": _merge_tree(layout, [s["inner"] for s in states])}}
+
+
+def _shard_leaf(zero, name, canonical, template):
+    """This rank's shard of leaf ``name`` from the canonical entries."""
+    leaf = zero.leaves[name]
+    if _is_quantized(template):
+        c = canonical[name]
+        q = torch.zeros(leaf.pad_to, dtype=c["q"].dtype)
+        q[:c["q"].numel()] = c["q"]
+        sc = torch.zeros(leaf.pad_to // quant.BLOCK, dtype=c["scale"].dtype)
+        sc[:c["scale"].numel()] = c["scale"]
+        e = leaf.numel
+        return {"q": q[zero.rank * e:(zero.rank + 1) * e].clone(),
+                "scale": sc[zero.rank * e // quant.BLOCK:
+                            (zero.rank + 1) * e // quant.BLOCK].clone()}
+    if leaf.flat:
+        buf = zero._pack(leaf, canonical)
+        return buf.reshape(zero.dp, -1)[zero.rank].clone()
+    if leaf.replicated:
+        return canonical[name]
+    return shard_of(canonical[name], leaf.dim, zero.dp, zero.rank)
+
+
+def _reshard_tree(zero, canonical, template):
+    """The canonical tree cut to this rank's shards, in the shape of the
+    engine's ``template``."""
+    if (isinstance(template, dict) and template
+            and set(template) <= set(zero.leaves)):
+        return {n: _shard_leaf(zero, n, canonical, t)
+                for n, t in template.items()}
+    if isinstance(template, dict):
+        return {k: _reshard_tree(zero, canonical[k], t)
+                for k, t in template.items()}
+    return canonical
+
+
 def _canonical_opt_state(engine):
     """The optimizer file's payload: ``{"master", "inner"}`` when the fp32
-    masters differ from what the module computes with, the bare inner
-    state for an fp32 engine without offload (its module file is the
-    master)."""
+    masters differ from what the module computes with (or are this rank's
+    shards), the bare inner state for an fp32 engine without offload (its
+    module file is the master)."""
     inner = _host_tree(engine.optimizer_state)
     if (engine.compute_dtype == torch.float32
-            and not getattr(engine, "host_offload", False)):
+            and not getattr(engine, "host_offload", False)
+            and _layout(engine) is None):
         return inner
     return {"master": {n: _host(p).float() for n, p in engine.params.items()},
             "inner": inner}
@@ -204,16 +352,21 @@ def save_checkpoint(engine, save_dir, tag=None, client_state=None):
     mp_rank = 0
     ckpt_dir = os.path.join(save_dir, str(tag))
     os.makedirs(ckpt_dir, exist_ok=True)
+    zero = _layout(engine)
+    dp = int(getattr(engine, "dp_world_size", 1))
+    rank = int(getattr(engine, "data_rank", 0))
+    group = getattr(engine, "_dp_group", None)
 
-    # ---- model states file -------------------------------------------
+    # ---- model states file (rank 0) -----------------------------------
     scaler = engine.loss_scale_state
     sched = engine.lr_scheduler
+    module = {n: _host(p) for n, p in _full_module_params(engine).items()}
     state = {
-        "module": {n: _host(p) for n, p in _module_params(engine).items()},
+        "module": module,
         "global_steps": int(engine.global_steps),
         "skipped_steps": int(engine.skipped_steps),
         "micro_steps": int(engine.micro_steps),
-        "dp_world_size": 1,
+        "dp_world_size": dp,
         "mp_world_size": 1,
         "zero_stage": int(engine.zero_stage),
         "loss_scaler": {
@@ -230,16 +383,34 @@ def save_checkpoint(engine, save_dir, tag=None, client_state=None):
         # draws the seeds the original run would have
         "rng_state": engine._rng.get_state(),
     }
-    model_path = os.path.join(ckpt_dir, MODEL_FILE.format(mp=mp_rank))
-    _write_blob(res, model_path, _serialize(state))
-    del state
+    if rank == 0:
+        model_path = os.path.join(ckpt_dir, MODEL_FILE.format(mp=mp_rank))
+        _write_blob(res, model_path, _serialize(state))
+    del state, module
 
-    # ---- optimizer state file (one shard at world size 1) ------------
-    payload = {"num_shards": 1,
-               "optimizer_state": _canonical_opt_state(engine)}
-    optim_path = os.path.join(ckpt_dir, OPTIM_FILE.format(dp=0, mp=mp_rank))
-    _write_blob(res, optim_path, _serialize(payload))
-    del payload
+    # ---- optimizer state files: one per rank over shards, else rank 0's
+    if zero is not None:
+        payload = {"num_shards": dp, "rank": rank, "layout": _describe(zero),
+                   "optimizer_state": _canonical_opt_state(engine)}
+        optim_path = os.path.join(ckpt_dir,
+                                  OPTIM_FILE.format(dp=rank, mp=mp_rank))
+        _write_blob(res, optim_path, _serialize(payload))
+        del payload
+    elif rank == 0:
+        payload = {"num_shards": 1,
+                   "optimizer_state": _canonical_opt_state(engine)}
+        optim_path = os.path.join(ckpt_dir,
+                                  OPTIM_FILE.format(dp=0, mp=mp_rank))
+        _write_blob(res, optim_path, _serialize(payload))
+        del payload
+    if dp > 1:
+        # every rank's file is written before the manifest covers them
+        dist_lib.barrier(group)
+    if rank != 0:
+        # rank 0 commits; the others wait until 'latest' is published
+        dist_lib.barrier(group)
+        res.observe_save(started)
+        return True
 
     if res.enabled:
         # commit record LAST: hash the completed directory, publish the
@@ -272,6 +443,8 @@ def save_checkpoint(engine, save_dir, tag=None, client_state=None):
             save_dir, res.keep_last_n, protect={str(tag)},
             on_delete=res.count_pruned,
         )
+    if dp > 1:
+        dist_lib.barrier(group)
     res.observe_save(started)
     log_dist(f"Saved checkpoint {tag} to {save_dir}", ranks=[0])
     return True
@@ -344,12 +517,10 @@ def _stage_checkpoint(load_dir, tag, load_optimizer_states, res):
                     f"{num_shards} shard files but only {len(shards)} "
                     "are present"
                 )
-            if num_shards != 1:
-                raise manifest_lib.CheckpointCorruptionError(
-                    f"checkpoint {tag}: {num_shards} optimizer shards; "
-                    "resharding a checkpoint saved across data-parallel "
-                    "ranks is not yet ported to deepspeed_tpu_torch"
-                )
+            if num_shards > 1:
+                # every rank's shards merged into one rank's layout; the
+                # engine cuts its own shards from it at apply time
+                shards = [_merge_shards(shards[:num_shards])]
     return _Staged(str(tag), ckpt_dir, state, shards)
 
 
@@ -383,13 +554,31 @@ def _split_optimizer_payload(staged):
     return None, opt
 
 
+def _resharded(engine, staged, load_optimizer_states):
+    """``(master, inner)`` of the staged (canonical) checkpoint in the
+    engine's layout: as saved on one rank, or cut to this rank's shards
+    (the master from the module file when the file has none). ``(None,
+    None)`` without optimizer state to load."""
+    if not (load_optimizer_states and staged.shards):
+        return None, None
+    master, inner = _split_optimizer_payload(staged)
+    zero = _layout(engine)
+    if zero is None:
+        return master, inner
+    if master is None:
+        master = {n: t.float() for n, t in staged.state["module"].items()}
+    return (_reshard_tree(zero, master, engine.params),
+            _reshard_tree(zero, inner, engine.optimizer_state))
+
+
 def _check_compatible(engine, staged, load_optimizer_states):
     """Every shape and key of the staged checkpoint against the engine,
     before anything is applied."""
-    _check_tree(staged.state["module"], dict(_module_params(engine)),
-                "module")
-    if load_optimizer_states and staged.shards:
-        master, inner = _split_optimizer_payload(staged)
+    module = staged.state["module"]
+    _check_tree(module, {n: torch.empty(s, device="meta")
+                         for n, s in _full_shapes(engine).items()}, "module")
+    master, inner = _resharded(engine, staged, load_optimizer_states)
+    if inner is not None:
         if master is not None:
             _check_tree(master, dict(engine.params), "optimizer master")
         _check_tree(inner, engine.optimizer_state, "optimizer state")
@@ -414,14 +603,32 @@ def _apply_checkpoint(engine, staged, load_optimizer_states,
     """Mutate the engine from a fully staged and checked checkpoint. No
     file I/O (and no torn-state abort path) exists past this point."""
     state = staged.state
-    master = None
-    if load_optimizer_states and staged.shards:
-        master, inner = _split_optimizer_payload(staged)
+    master, inner = _resharded(engine, staged, load_optimizer_states)
+    if inner is not None:
         _copy_tree(engine.optimizer_state, inner)
-    # exact fp32 resume: the optimizer file's master, else the module's
-    # (the same values; fp32 engines save no separate master)
-    _copy_tree(engine.params, master if master is not None
-               else state["module"])
+    zero = _layout(engine)
+    if zero is not None:
+        # this rank's master shards, and the module's compute-dtype
+        # parameters (stage 3: its persistent shards) from the full
+        # masters of the canonical state
+        full = None
+        if load_optimizer_states and staged.shards:
+            full = _split_optimizer_payload(staged)[0]
+        if full is None:
+            full = state["module"]
+        if master is None:
+            master = _reshard_tree(
+                zero, {n: t.float() for n, t in full.items()}, engine.params)
+        _copy_tree(engine.params, master)
+        with torch.no_grad():
+            for n, p in engine.module_params.items():
+                p.copy_(full[n] if zero.stage < 3
+                        else zero.persistent_shard(n, full[n]))
+    else:
+        # exact fp32 resume: the optimizer file's master, else the
+        # module's (the same values; fp32 engines save no separate master)
+        _copy_tree(engine.params, master if master is not None
+                   else state["module"])
     if getattr(engine, "host_offload", False):
         # the device's compute-dtype parameters from the restored masters
         engine.publish_params()

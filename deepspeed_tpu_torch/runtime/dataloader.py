@@ -25,9 +25,13 @@ copied to ``device`` on its worker thread, they arrive on the card, and
 the iterator is marked ``already_staged`` so that ``train_batch`` adds no
 second stager.
 
-Not ported (A6): the JAX loader's mesh placement and its multi-process
-slicing (each process loading its own rows of a global batch); a mesh or
-a world size above 1 is refused.
+Across data-parallel processes (a ``mesh`` whose data axis is above 1,
+or an initialised torch.distributed world of more than one process),
+``batch_size`` is the global batch and each rank loads its own rows: every
+rank computes the same seeded order, and rank ``r`` of ``n`` takes rows
+``r*batch_size/n`` to ``(r+1)*batch_size/n`` of each batch, as the JAX
+loader's processes do (the reference's DistributedSampler contract). A
+ragged last batch cannot split evenly, so ``drop_last`` is forced on.
 """
 
 import weakref
@@ -99,15 +103,38 @@ class DeepSpeedDataLoader:
         device=None,
         pin_memory=None,
     ):
-        if mesh is not None:
-            raise not_ported("a data loader that places batches on a mesh")
         import torch.distributed as dist
 
-        if dist.is_available() and dist.is_initialized() and (
-                dist.get_world_size() > 1):
+        # this process's share of each global batch: the mesh's data rank,
+        # else the initialised world's rank
+        from ..parallel.mesh import ProcessMesh
+
+        if mesh is not None and not isinstance(mesh, ProcessMesh):
             raise not_ported(
-                "a data loader across processes (each loading its own rows)"
-            )
+                f"a data loader that places batches on a "
+                f"{type(mesh).__name__} mesh (the port takes a "
+                "deepspeed_tpu_torch.parallel.ProcessMesh)")
+        if mesh is not None:
+            self.rank, self.num_ranks = mesh.data_rank, mesh.dp_size
+        elif dist.is_available() and dist.is_initialized():
+            self.rank, self.num_ranks = dist.get_rank(), dist.get_world_size()
+        else:
+            self.rank, self.num_ranks = 0, 1
+        if self.num_ranks > 1:
+            if batch_size % self.num_ranks != 0:
+                raise ValueError(
+                    f"batch_size={batch_size} must divide across "
+                    f"{self.num_ranks} processes"
+                )
+            if not drop_last:
+                from ..utils.logging import log_dist
+
+                log_dist(
+                    "multi-process loader forces drop_last=True (a ragged "
+                    "final batch cannot split evenly across processes)",
+                    ranks=[0],
+                )
+                drop_last = True
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate_fn = collate_fn or _default_collate
@@ -210,8 +237,12 @@ class DeepSpeedDataLoader:
             # one host conversion an epoch, not a batch
             arrays = [_host_array(a) for a in self.dataset]
 
+        per_rank = self.batch_size // self.num_ranks
+
         def assemble(b):
             idx = order[b * self.batch_size : (b + 1) * self.batch_size]
+            if self.num_ranks > 1:
+                idx = idx[self.rank * per_rank : (self.rank + 1) * per_rank]
             if self._mode == "arrays":
                 return tuple(
                     host_ops.gather_rows(a, idx) if a.ndim >= 1 else a

@@ -1,7 +1,6 @@
-"""DeepSpeedEngine: the training engine, on one device.
+"""DeepSpeedEngine: the training engine, on one device or data parallel.
 
-Port of the single-device subset of deepspeed_tpu/runtime/engine.py,
-with the reference's contract:
+Port of deepspeed_tpu/runtime/engine.py, with the reference's contract:
 
     engine, optimizer, _, scheduler = deepspeed_tpu_torch.initialize(...)
     loss = engine(batch)        # forward
@@ -94,14 +93,37 @@ path, the update runs on the host, and the new compute-dtype parameters
 are copied back only after a step that was taken. ``train_batch`` then
 bypasses the window stager, as the JAX engine does.
 
+Data parallel across processes (one rank per device, runtime/dist.py;
+the process mesh of parallel/mesh.py, a ``mesh`` argument or config
+block whose only axis above 1 is data): each rank feeds its own rows of
+the global batch, and the loss and the update are the global batch's,
+as the JAX engine's on a mesh of the same data size. ZeRO (runtime/
+zero.py): stage 0 all-reduces the gradients at the boundary; from stage
+1 the fp32 masters and the optimizer state exist only for this rank's
+shards (outside fp32 the module holds compute-dtype parameters), the
+gradients are reduce-scattered to the shards and the new parameters
+all-gathered after the update; at stage 2 every gradient is
+reduce-scattered into the shard buffer as soon as the backward produces
+it (a hook on each parameter) and freed; at stage 3 the parameters
+persist as shards and the model gathers them a block of layers at a time
+(models/stack.py). Every rank takes the same decision at the boundary:
+the global norm and the fp16 overflow flag are reduced over the data
+group, LAMB's per-group norms too. The model's losses divide by the data
+group's label count (BERT's differs between ranks) and its dropout draws
+are offset by the data rank. ``sparse_gradients`` routes the embedding
+tables' gradients through the CSR all-gather of runtime/sparse.py. At
+world size 1 every stage is stage 0, as in the JAX engine.
+
 Not ported, refused with ``DeepSpeedConfigError("... not yet ported")``:
-more than one device (world size > 1, a mesh), sparse gradients, the
-adapters block with offload or compensated masters, a remat policy the
-port cannot map, and a model with MoE or pipeline stages. ZeRO stages
-0-3 are accepted: at world size 1 the JAX engine lays every stage out as
-stage 0.
+a model, sequence or pipeline mesh axis above 1 (ROADMAP A7), the
+adapters block with offload or compensated masters (and
+at data parallel > 1), compensated masters at data parallel > 1, a remat
+policy the port cannot map, and a model with MoE or pipeline stages.
+Optimizer offload at data parallel > 1 is refused with the JAX engine's
+message.
 """
 
+import functools
 import inspect
 import weakref
 from collections.abc import Mapping
@@ -115,8 +137,11 @@ from ..config import constants as C
 from ..config.config import DeepSpeedConfig, DeepSpeedConfigError, not_ported
 from ..config.config_utils import load_config_json
 from ..ops.head_dims import check_head_dim, model_head_dim, model_max_positions
+from ..models.stack import BLOCK_TENSORS, Zero3Arming, gather_tensors
 from ..ops.optimizers import Optimizer, build_optimizer, param_groups
 from ..ops.transformer import resolve_remat_policy
+from ..parallel.mesh import ProcessMesh, mesh_from_config
+from ..parallel.mpu import as_mpu
 from ..resilience import SupervisorEscalation, build_resilience
 from ..resilience.supervisor import build_supervisor
 from ..telemetry.manager import build_telemetry
@@ -129,11 +154,17 @@ from ..utils.timers import (
     ThroughputTimer,
     device_fence,
 )
+from . import dist as dist_lib
 from .compile_cache import configure_compile_cache
 from .dataloader import DeepSpeedDataLoader
 from .lr_schedules import build_lr_scheduler
 from .precision import loss_scale_state_from_config, update_scale
 from .staging import WindowStager, ragged_window_error
+from .zero import (
+    ZERO_OPTIMIZATION_GRADIENTS,
+    ZERO_OPTIMIZATION_WEIGHTS,
+    ZeroLayout,
+)
 
 # the JAX engine's timer names
 FORWARD_TIMER = "forward"
@@ -212,7 +243,7 @@ class DeepSpeedEngine:
     def __init__(self, model=None, optimizer=None, model_parameters=None,
                  training_data=None, lr_scheduler=None, config_params=None,
                  mesh=None, rng_seed=0, device=None, args=None,
-                 collate_fn=None):
+                 collate_fn=None, mpu=None, dist_init_required=None):
         # ---- config ---------------------------------------------------
         raw = config_params
         if raw is None and args is not None:
@@ -220,21 +251,28 @@ class DeepSpeedEngine:
         if isinstance(raw, str):
             raw = load_config_json(raw)
         raw = dict(raw or {})
-        if mesh is not None or raw.get(C.MESH):
-            raise not_ported("training over a device mesh")
-        self.config = DeepSpeedConfig(None, param_dict=raw, training=True)
-        cfg = self.config
-        if cfg.world_size > 1:
-            raise not_ported(
-                f"training across devices (world size {cfg.world_size})"
-            )
-        if cfg.sparse_gradients_enabled:
-            raise not_ported("sparse_gradients")
         # what the card's kernels cannot take is refused here, not mid-step
         mcfg = getattr(model, "config", None)
         check_head_dim(model_head_dim(mcfg), model_max_positions(mcfg),
                        device)
         self.device = resolve_device(device)
+        # ---- data parallel: the process group, then the mesh (its data
+        # size is the batch triangle's world size) ------------------------
+        dist_lib.init_distributed(dist_init_required, device=self.device)
+        if mesh is None:
+            mesh = mesh_from_config(raw.get(C.MESH) or {})
+        elif not isinstance(mesh, ProcessMesh):
+            raise not_ported(
+                f"training over a {type(mesh).__name__} mesh (the port "
+                "takes a deepspeed_tpu_torch.parallel.ProcessMesh)")
+        self.mesh = mesh
+        self.mpu = as_mpu(mpu, mesh)
+        self.dp_world_size = mesh.dp_size
+        self.data_rank = mesh.data_rank
+        self._dp_group = mesh.data_group
+        self.config = DeepSpeedConfig(None, param_dict=raw, training=True,
+                                      world_size=self.dp_world_size)
+        cfg = self.config
         # the kernel build cache, before anything builds (a no-op unless
         # the block enables it)
         configure_compile_cache(cfg)
@@ -300,6 +338,19 @@ class DeepSpeedEngine:
                 "offload_optimizer and master_dtype='compensated' are "
                 "alternative memory strategies — pick one (docs/memory.md)"
             )
+        if self.dp_world_size > 1:
+            if self.host_offload:
+                # the JAX engine's refusal of offload on a multi-process mesh
+                raise DeepSpeedConfigError(
+                    "offload_optimizer requires a single-process mesh; on "
+                    "multi-host pods use ZeRO sharding (stage>=1 divides "
+                    "optimizer state by dp) or "
+                    "data_types.master_dtype='compensated' instead"
+                )
+            if self.compensated_master:
+                raise not_ported("compensated masters at data parallel > 1")
+            if cfg.adapters_enabled:
+                raise not_ported("the adapters block at data parallel > 1")
         self.frozen_base_params = {}
         if cfg.adapters_enabled:
             if self.host_offload or self.compensated_master:
@@ -323,8 +374,25 @@ class DeepSpeedEngine:
         # the pinned buffers of the step's copies (offload on the card)
         self._compute_params = None
         self._host_grads = self._host_out = None
+        self._n_params = sum(
+            p.numel() for p in self.module.parameters())
         if self.host_offload:
             self._offload_masters()
+        # ZeRO's layout over the data group (None in one process), the
+        # gradient shards of a window, and whether the fp32 masters are
+        # the module's stage-3 shards themselves
+        self._zero = None
+        self._shard_store = None
+        self._masters_alias = False
+        self.zero3_gather_enabled = False
+        self._zero3_shard_bytes = self._zero3_gather_bytes = 0
+        self._engine_gather = None
+        if self.dp_world_size > 1:
+            self._shard_over_data()
+        elif hasattr(self.module, "configure_data_parallel"):
+            # one process: the model's defaults, whatever an earlier
+            # data-parallel engine set on it
+            self.module.configure_data_parallel()
         self.optimizer_obj = self._configure_optimizer(optimizer)
         self.optimizer_state = self.optimizer_obj.init(self.params)
         if self.host_offload:
@@ -379,20 +447,24 @@ class DeepSpeedEngine:
         self.tput_timer = ThroughputTimer(
             batch_size=cfg.train_micro_batch_size_per_gpu
             * cfg.gradient_accumulation_steps,
-            num_workers=1,
+            num_workers=self.dp_world_size,
             steps_per_output=cfg.steps_per_print,
             fence_fn=device_fence(self.device),
         )
         self._tb_windows = 0  # train_batch windows since the last print
         self._window_timed = False  # a train_batch window timer runs
         self._window_open = False  # the telemetry's window has started
-        self._n_params = sum(
-            p.numel() for p in self.module.parameters())
         # the telemetry block: a no-op facade when it is absent
         self.telemetry = build_telemetry(
-            cfg, rank=0, n_params=self._n_params, timers=self.timers,
-            fence_fn=device_fence(self.device), device=self.device,
+            cfg, rank=self.mesh.rank, n_params=self._n_params,
+            timers=self.timers, fence_fn=device_fence(self.device),
+            device=self.device,
         )
+        if self._zero3_shard_bytes or self._zero3_gather_bytes:
+            # static stage-3 layout gauges: what the dp sharding buys per
+            # rank and what each window pays in gather traffic for it
+            self.telemetry.set_zero3_layout(self._zero3_shard_bytes,
+                                            self._zero3_gather_bytes)
 
         # ---- resilience (docs/resilience.md) ---------------------------
         # the commit protocol's policy, handed to the checkpoint paths; its
@@ -447,7 +519,8 @@ class DeepSpeedEngine:
             self.training_dataloader = self.deepspeed_io(training_data)
         log_dist(
             f"DeepSpeedEngine initialized: device={self.device} "
-            f"zero_stage={self.zero_stage} dtype={self.compute_dtype} "
+            f"dp={self.dp_world_size} zero_stage={self.zero_stage} "
+            f"dtype={self.compute_dtype} "
             f"optimizer={type(self.optimizer_obj).__name__}", ranks=[0],
         )
 
@@ -536,6 +609,7 @@ class DeepSpeedEngine:
                 raise TypeError("client optimizer must be a "
                                 "deepspeed_tpu_torch.ops.optimizers.Optimizer")
             self._check_zero_optimizer_tested(type(client).__name__.lower())
+            self._apply_zero_state_policies(client)
             return client
         cfg = self.config
         name = cfg.optimizer_name or C.ADAM_OPTIMIZER
@@ -569,7 +643,164 @@ class DeepSpeedEngine:
                 "dtype + int8 Kahan error codes in the optimizer state "
                 "(ops/quant.py)", ranks=[0],
             )
+        self._apply_zero_state_policies(opt)
         return opt
+
+    def _apply_zero_state_policies(self, opt):
+        """What an optimizer over ZeRO shards needs (built and client
+        optimizers alike), as the JAX engine's policies: no chunked
+        updates (a single-device memory measure; the shards already divide
+        the working set by dp), and for LAMB the reduction of its per-group
+        norms over the data group, each replicated tensor counted on rank 0
+        only. FusedLamb's kernel runs on this rank's shards: the JAX
+        engine gathers the sharded state at its kernel's boundary and
+        warns; the port does not gather."""
+        if self._zero is None or not self._zero.sharded:
+            return
+        if hasattr(opt, "chunk_elements"):
+            opt.chunk_elements = 1 << 62
+        if getattr(opt, "state_dtype", "fp32") == "int8":
+            log_dist(
+                "int8 optimizer moments shard over the data axis (flat "
+                "layout in the JAX element order, blocks padded to a "
+                f"multiple of {max(256, self.dp_world_size)})", ranks=[0],
+            )
+        if hasattr(opt, "norm_reduce"):
+            opt.norm_reduce = self._all_reduce
+            opt.norm_skip = (self._zero.replicated_leaves()
+                             if self.data_rank else frozenset())
+        if type(opt).__name__ == "FusedLamb":
+            log_dist(
+                "FusedLamb at ZeRO stage >= 1: the phase-1 kernel runs on "
+                "this rank's shards and the per-group partial norms are "
+                "all-reduced (no gather at the kernel boundary)", ranks=[0],
+            )
+
+    def _all_reduce(self, t):
+        dist_lib.all_reduce(t, self._dp_group)
+
+    def _global_count(self, count):
+        """A loss's divisor on this rank: max(the data group's count of
+        valid labels, 1) / dp, so that the ranks' mean loss is the global
+        batch's (models' ``count_fn``)."""
+        total = count.detach().clone()
+        dist_lib.all_reduce(total, self._dp_group)
+        return total.clamp(min=1) / self.dp_world_size
+
+    def _shard_over_data(self):
+        """ZeRO over the data group (dp > 1): the layout; the model's
+        data-parallel settings; from stage 1 this rank's fp32 master
+        shards (``self.params``) beside the module's compute-dtype
+        parameters (``module_params``), at stage 3 the persistent shards,
+        the gather arming and the layout gauges."""
+        cfg = self.config
+        stage = self.zero_stage
+        full = self.params
+        zero = self._zero = ZeroLayout(
+            {n: tuple(p.shape) for n, p in full.items()},
+            self.dp_world_size, self.data_rank, self._dp_group, stage,
+            flat_groups=cfg.optimizer_state_dtype == "int8")
+        module = self.module
+        zero3 = None
+        if zero.sharded:
+            zero3 = self._shard_params(full)
+        if hasattr(module, "configure_data_parallel"):
+            # the rank (dropout), the losses' divisor, the stage-3 stack
+            # and the sparse embedding gradients (``sparse_gradients``)
+            module.configure_data_parallel(
+                data_rank=self.data_rank, count_fn=self._global_count,
+                zero3=zero3,
+                sparse=((self._dp_group, self.dp_world_size)
+                        if cfg.sparse_gradients_enabled else None))
+
+    def _shard_params(self, full):
+        """From stage 1: this rank's master shards, the module's
+        compute-dtype parameters beside them (stage 3: its persistent
+        shards), the stage-3 gather arming (returned) and gauges."""
+        zero = self._zero
+        stage = self.zero_stage
+        module = self.module
+        masters = zero.shard_leaves(full, dtype=torch.float32)
+        if stage >= ZERO_OPTIMIZATION_WEIGHTS:
+            with torch.no_grad():
+                for n, p in full.items():
+                    p.data = zero.persistent_shard(n, p.data)
+        module.to(dtype=self.compute_dtype)
+        self._compute_params = dict(module.named_parameters())
+        if self.compute_dtype == torch.float32:
+            if (stage >= ZERO_OPTIMIZATION_WEIGHTS
+                    and zero.persistent_matches_leaves()):
+                # fp32 shards are the masters themselves, as the JAX
+                # engine's sharded fp32 params are
+                masters = {n: p.data
+                           for n, p in self._compute_params.items()}
+                self._masters_alias = True
+            elif stage < ZERO_OPTIMIZATION_WEIGHTS:
+                # stages 1-2 in fp32: a master that is a contiguous part
+                # of the module's parameter (a dim-0 shard, a replicated
+                # tensor) is a view of it, not a copy; the update writes
+                # the module's slice, the all-gather the rest
+                for n in masters:
+                    if n not in self._compute_params:
+                        continue  # a flat int8 group
+                    view = zero.leaf_view(n, self._compute_params[n].data)
+                    if view is not None:
+                        masters[n] = view
+        self.params = masters
+        if stage < ZERO_OPTIMIZATION_WEIGHTS:
+            return None
+        itemsize = torch.finfo(self.compute_dtype).bits // 8
+        (self._zero3_shard_bytes,
+         self._zero3_gather_bytes) = zero.zero3_bytes(itemsize)
+        return self._arm_zero3_gather()
+
+    def _arm_zero3_gather(self):
+        """The arming of the model's stage-3 stack (models/stack.py) over
+        its block tensors (returned; None without a seam), and the gather
+        of every other sharded parameter at the forward here. A model
+        without the seam (``zero3_block_prefix``) trains all the same,
+        with every sharded parameter gathered at the forward."""
+        zero = self._zero
+        zc = self.config.zero_config
+        module = self.module
+        prefix = getattr(module, "zero3_block_prefix", None)
+        dims, shapes, block = {}, {}, set()
+        if prefix is not None:
+            for n, shape in zero.shapes.items():
+                tensor = n.rpartition(".")[2]
+                if n.startswith(prefix) and tensor in BLOCK_TENSORS:
+                    d = zero.param_specs[n]
+                    if dims.setdefault(tensor, d) != d or shapes.setdefault(
+                            tensor, shape) != shape:
+                        raise ValueError(
+                            f"ZeRO-3: block tensor {tensor} differs "
+                            "between layers; the stack needs one layout")
+                    block.add(n)
+        arming = None
+        if block:
+            arming = Zero3Arming(
+                dims, shapes, self._dp_group, self.dp_world_size,
+                block=int(zc.stage3_gather_block),
+                latency_hiding=bool(zc.stage3_latency_hiding))
+            self.zero3_gather_enabled = True
+            log_dist(
+                f"ZeRO-3: layer-wise gather armed over {len(dims)} block "
+                f"tensors (gather_block={zc.stage3_gather_block}; the "
+                "backward re-gathers)", ranks=[0])
+        else:
+            log_dist(
+                "ZeRO-3: model exposes no layer-gather seam "
+                "(zero3_block_prefix); every sharded parameter is gathered "
+                "at the forward", ranks=[0])
+        rest = [n for n in zero.shapes
+                if n not in block and zero.param_specs[n] is not None]
+        if rest:
+            self._engine_gather = Zero3Arming(
+                {n: zero.param_specs[n] for n in rest},
+                {n: zero.shapes[n] for n in rest}, self._dp_group,
+                self.dp_world_size,
+                latency_hiding=bool(zc.stage3_latency_hiding))
+        return arming
 
     def _offload_masters(self):
         """Optimizer offload: copy the float32 masters into pinned host
@@ -611,6 +842,14 @@ class DeepSpeedEngine:
         if isinstance(tree, dict):
             return {k: self._pinned(v) for k, v in tree.items()}
         return tree
+
+    def full_parameters(self):
+        """The module's trainable parameters in full, in the dtype it
+        computes with: at ZeRO stage 3 gathered from every rank's shards
+        (a collective: every rank calls it)."""
+        from .checkpointing import _full_module_params
+
+        return _full_module_params(self)
 
     @property
     def module_params(self):
@@ -795,6 +1034,13 @@ class DeepSpeedEngine:
         return tuple(out)
 
     def _call(self, params, batch):
+        if self._engine_gather is not None:
+            # stage 3: the sharded tensors outside the model's stack,
+            # gathered for this forward (their backward reduce-scatters)
+            names = list(self._engine_gather.dims)
+            full = gather_tensors(self._engine_gather,
+                                  [(n, params[n]) for n in names])
+            params = {**params, **dict(zip(names, full))}
         kwargs = {}
         if self._takes_train:
             kwargs["train"] = self._training
@@ -876,10 +1122,24 @@ class DeepSpeedEngine:
         are cast; compensated and offloaded layouts already hold the
         compute dtype, and are used without a copy."""
         out = dict(self.frozen_base_params)
+        hook = (grad and self._zero is not None
+                and self.zero_stage == ZERO_OPTIMIZATION_GRADIENTS)
         for name, p in self.module_params.items():
             t = p.detach().to(self.compute_dtype)
             out[name] = t.requires_grad_() if grad else t
+            if hook:
+                # stage 2: each gradient is reduce-scattered the moment
+                # the backward has produced it, and freed
+                t.register_post_accumulate_grad_hook(
+                    functools.partial(self._grad_ready, name))
         return out
+
+    def _grad_ready(self, name, t):
+        """Stage 2's hook: the fresh gradient of ``name`` into the shard
+        buffer (its leaf's members all in, for a flat int8 group)."""
+        g = t.grad.to(self.grad_accum_dtype)
+        t.grad = None
+        self._zero.reduce_one(name, g, self._shards(), self._hooked)
 
     def backward(self, loss, allreduce_gradients=True):
         """Differentiate the stashed forward's loss, scaled by
@@ -896,12 +1156,38 @@ class DeepSpeedEngine:
         self._pending = None
         self._window_losses.append(loss.detach().float())
         scale = self.loss_scale_state.loss_scale
-        (loss.float() * scale / self.gradient_accumulation_steps()).backward()
+        # data parallel: each rank's share of the global batch's mean (the
+        # collectives sum over the ranks)
+        denom = self.gradient_accumulation_steps() * self.dp_world_size
+        hooked = self._zero is not None and self.zero_stage == 2
+        if hooked:
+            # what the stage-2 hooks reduced this micro-step, and whether
+            # they copy into the shard buffer or add to it
+            self._hooked = {"first": self._grad_buffer is None, "done": set(),
+                            "pending": {}}
+        (loss.float() * scale / denom).backward()
+        if hooked:
+            # a parameter the loss does not reach reduces zeros, so that
+            # every rank issues every collective
+            self._zero.reduce_missing(
+                {n: t for n, t in params.items()
+                 if n not in self.frozen_base_params},
+                self._shards(), self._hooked)
+            self._grad_buffer = self._shards()
+            self.micro_steps += 1
+            if self.wall_clock_breakdown:
+                self.timers(BACKWARD_TIMER).stop()
+            return
         grads = {
             n: t.grad if t.grad is not None else torch.zeros_like(t)
-            for n, t in params.items() if n in self.params
+            for n, t in params.items() if n not in self.frozen_base_params
         }
-        if self._grad_buffer is not None:
+        if self._zero is not None and self.zero_stage >= 3:
+            # the accumulation buffer is this rank's shards
+            self._grad_buffer = self._zero.add_persistent_grads(
+                {n: g.to(self.grad_accum_dtype) for n, g in grads.items()},
+                self._shards(), self._grad_buffer is None)
+        elif self._grad_buffer is not None:
             for n, g in grads.items():
                 self._grad_buffer[n].add_(g)
         elif self._grad_store is not None:
@@ -920,6 +1206,77 @@ class DeepSpeedEngine:
         self.micro_steps += 1
         if self.wall_clock_breakdown:
             self.timers(BACKWARD_TIMER).stop()
+
+    def _shards(self):
+        """The persistent buffer of this rank's gradient shards (the
+        accumulation dtype), made at first use."""
+        if self._shard_store is None:
+            self._shard_store = self._zero.empty_leaves(
+                self.grad_accum_dtype, self.device)
+        return self._shard_store
+
+    def _reduce_at_boundary(self, grads):
+        """The window's gradients summed over the data group: stage 0
+        all-reduces the full buffer in place, stage 1 reduce-scatters it
+        to the shards; from stage 2 the buffer already is the shards."""
+        if self.zero_stage == 0:
+            for g in grads.values():
+                dist_lib.all_reduce(g, self._dp_group)
+            return grads
+        if self.zero_stage == 1:
+            # fresh shards: only the full buffer persists between windows
+            return self._zero.reduce_grads(grads, {}, True)
+        return grads
+
+    def _norm_and_overflow(self, grads):
+        """``(raw_norm, overflow)`` as device tensors: the global norm of
+        the unscaled-by-nothing gradients (-1.0 when inf/nan) and the skip
+        flag (fp16: any inf/nan; else the norm's sentinel). Over shards
+        both are reduced over the data group, each replicated tensor
+        counted on rank 0 only, so every rank decides alike."""
+        if self._zero is None or not self._zero.sharded:
+            raw_norm = global_norm(grads.values())  # -1.0 if inf/nan
+            if self.config.fp16_enabled:
+                return raw_norm, has_overflow(grads.values())
+            return raw_norm, raw_norm < 0.0
+        skip = self._zero.replicated_leaves() if self.data_rank else ()
+        sq = torch.zeros((), dtype=torch.float32, device=self.device)
+        for n, g in grads.items():
+            if n not in skip:
+                g = g.float()
+                sq = sq + torch.sum(g * g)
+        both = torch.stack([sq, has_overflow(grads.values()).float()])
+        dist_lib.all_reduce(both, self._dp_group)
+        norm = torch.sqrt(both[0])
+        raw_norm = torch.where(torch.isfinite(norm), norm,
+                               torch.full_like(norm, -1.0))
+        if self.config.fp16_enabled:
+            return raw_norm, both[1] > 0
+        return raw_norm, raw_norm < 0.0
+
+    @torch.no_grad()
+    def _publish_shards(self):
+        """After an update over shards: the module's parameters from the
+        new masters (all-gathered at stages 1-2; at stage 3 this rank's
+        persistent shards, through the full tensors one leaf at a time
+        where the layouts differ)."""
+        zero = self._zero
+        if self.zero_stage < ZERO_OPTIMIZATION_WEIGHTS:
+            zero.gather_into(self.params, self._compute_params)
+        elif self._masters_alias:
+            return
+        elif zero.persistent_matches_leaves():
+            for n, master in self.params.items():
+                self._compute_params[n].copy_(master)
+        else:
+            for name, leaf in zero.leaves.items():
+                full = {n: torch.empty(shape, dtype=self.compute_dtype,
+                                       device=self.device)
+                        for n, shape in leaf.members}
+                zero.gather_into(self.params, full, names=(name,))
+                for n, t in full.items():
+                    self._compute_params[n].copy_(
+                        zero.persistent_shard(n, t))
 
     def zero_grad(self):
         self._grad_buffer = None
@@ -965,16 +1322,19 @@ class DeepSpeedEngine:
             # waits for them (a CPU engine's gradients are on the host)
             for n, g in grads.items():
                 self._host_grads[n].copy_(g, non_blocking=True)
+        if self._zero is not None:
+            grads = self._reduce_at_boundary(grads)
         # the overflow test and the norm run where the gradients are, as
         # on the on-device path, so that offload's clip factor is that
         # path's bit for bit
-        raw_norm = global_norm(grads.values())  # -1.0 if inf/nan
-        if self.config.fp16_enabled:
-            overflow = has_overflow(grads.values())
-        else:
-            overflow = raw_norm < 0.0
+        raw_norm, overflow = self._norm_and_overflow(grads)
         # the step's one host sync: the skip decision and the norm, and
         # the window loss when the monitor writes it
+        if window_loss is not None and self.dp_world_size > 1:
+            # the global batch's mean: the ranks' losses averaged
+            window_loss = window_loss.clone()
+            dist_lib.all_reduce(window_loss, self._dp_group)
+            window_loss = window_loss / self.dp_world_size
         synced = [overflow.float(), raw_norm.float()]
         want_loss = self.monitor.enabled and window_loss is not None
         if want_loss:
@@ -1008,11 +1368,17 @@ class DeepSpeedEngine:
                 # the new compute-dtype parameters go to the device only
                 # after a step that was taken
                 self.publish_params()
+            elif self._zero is not None and self._zero.sharded:
+                self._publish_shards()
             coeffs = aux.get("lamb_coeffs", [])
             self.lamb_coeffs = (torch.stack(coeffs) if coeffs
                                 else torch.zeros(0))
             grad_norm = float(grad_norm)
         self._grad_buffer = None
+        # the gradient shards live from a window's first backward to its
+        # update only: between windows the forward's activations have the
+        # memory
+        self._shard_store = None
         self.loss_scale_state = update_scale(self.loss_scale_state, overflow)
         self.last_overflow = overflow
         return overflow, grad_norm, window_loss, host_loss
@@ -1379,7 +1745,9 @@ class DeepSpeedEngine:
         ``train_batch`` adds no stager; otherwise the engine's stager
         consumes its host batches."""
         if batch_size is None:
-            batch_size = self.train_micro_batch_size_per_gpu()
+            # the global micro-batch: each rank loads its own rows of it
+            batch_size = (self.train_micro_batch_size_per_gpu()
+                          * self.dp_world_size)
         is_train = route == C.ROUTE_TRAIN
         loader_stages = (
             is_train and self._staging_enabled and self._stage_to_device
@@ -1388,6 +1756,7 @@ class DeepSpeedEngine:
         loader = DeepSpeedDataLoader(
             dataset,
             batch_size=batch_size,
+            mesh=self.mesh,
             collate_fn=self.collate_fn,
             shuffle=is_train,
             tput_timer=self.tput_timer if is_train else None,

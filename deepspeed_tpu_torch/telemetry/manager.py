@@ -409,6 +409,15 @@ class Telemetry:
             name, t0, t1, ctx=self.train_trace_ctx(), attrs=attrs
         )
 
+    def set_zero3_layout(self, shard_bytes, gather_bytes_per_window):
+        """Static ZeRO-3 layout gauges (engine init, stage 3 only)."""
+        if not self.enabled:
+            return
+        self.registry.gauge("train/zero3_param_shard_bytes").set(
+            shard_bytes)
+        self.registry.gauge("train/zero3_gather_bytes_per_window").set(
+            gather_bytes_per_window)
+
     # -- data pipeline (runtime/dataloader.py, runtime/staging.py) -------
     def set_dataloader_depth(self, depth):
         if not self.enabled:

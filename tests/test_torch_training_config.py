@@ -123,7 +123,11 @@ def _tiny():
 # (extra0, 1, 4-7, 9, 10) now hold combinations that stay refused (the
 # adapters block with offload or compensated masters, and each of them
 # with a mesh or sparse gradients); test_engine_accepts_the_ported_layouts
-# builds the configs they held before
+# builds the configs they held before. A data axis above 1 and sparse
+# gradients are ported too (tests/test_torch_dist.py,
+# tests/test_torch_zero*.py, tests/test_torch_sparse.py): extra3, 4 and 6-8
+# and extra10 now hold model, sequence and pipeline axes, which stay
+# refused
 @pytest.mark.parametrize("extra", [
     {"adapters": {"enabled": True, "rank": 4},
      "zero_optimization": {"stage": 1,
@@ -132,19 +136,20 @@ def _tiny():
      "data_types": {"master_dtype": "compensated"}},
     {"mesh": {"model_parallel_size": 2},
      "activation_checkpointing": {"partition_activations": True}},
-    {"mesh": {"data_parallel_size": 2}},
-    {"sparse_gradients": True, "zero_optimization": {"stage": 2}},
+    {"mesh": {"sequence_parallel_size": 2}},
+    {"mesh": {"pipeline_parallel_size": 2},
+     "zero_optimization": {"stage": 2}},
     {"adapters": {"enabled": True, "rank": 4}, "fp16": {"enabled": True},
      "data_types": {"master_dtype": "compensated"}},
-    {"mesh": {"data_parallel_size": 2},
+    {"mesh": {"pipeline_parallel_size": 2},
      "data_types": {"optimizer_state_dtype": "int8"}},
-    {"mesh": {"data_parallel_size": 2},
+    {"mesh": {"sequence_parallel_size": 2},
      "zero_optimization": {"stage": 2,
                            "offload_optimizer": {"device": "cpu"}}},
-    {"sparse_gradients": True},
+    {"mesh": {"model_parallel_size": 2}},
     {"mesh": {"model_parallel_size": 2},
      "optimizer": {"type": "SGD", "params": {"lr": 0.1}}},
-    {"sparse_gradients": True,
+    {"mesh": {"sequence_parallel_size": 2},
      "optimizer": {"type": "Lion", "params": {"lr": 0.1}}},
 ])
 def test_engine_refuses_what_is_not_ported(extra):

@@ -1,0 +1,508 @@
+"""Rank processes for the port's data-parallel tests (not a test module).
+
+``spawn(world, cases, workdir)`` starts ``world`` processes of this file,
+each with the launcher's environment (``DS_TPU_COORDINATOR_ADDRESS``,
+``DS_TPU_NUM_PROCESSES``, ``DS_TPU_PROCESS_ID``), so every spawn also
+runs the port's bootstrap: the first ``initialize()`` creates the gloo
+group. Each rank runs every case in order and saves ``{case name:
+result}`` to ``rank<r>.pt``; ``spawn`` returns the ranks' results. One
+spawn per test module carries all of its cases, so each case is counted
+without paying a torch start-up of its own.
+
+The data of every case is made here from seeds with numpy (the test
+process makes the same global batches for the JAX engine): a window is
+``accum`` micro-batches of ``micro * dp`` rows, and rank ``r`` feeds rows
+``r*micro:(r+1)*micro`` of each.
+"""
+
+import json
+import os
+import socket
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+IN_DIM, HIDDEN, CLASSES = 16, 64, 10
+VOCAB, SEQ = 256, 32
+
+
+# ---------------------------------------------------------------------------
+# data and weights (shared with the JAX side of the tests)
+# ---------------------------------------------------------------------------
+def mlp_weights(seed=0):
+    """The MLP's weights in the JAX layout ({linear, head} x {kernel,
+    bias})."""
+    rng = np.random.default_rng(seed)
+    return {
+        "linear": {"kernel": (0.3 * rng.normal(size=(IN_DIM, HIDDEN))
+                              ).astype(np.float32),
+                   "bias": (0.1 * rng.normal(size=(HIDDEN,))
+                            ).astype(np.float32)},
+        "head": {"kernel": (0.3 * rng.normal(size=(HIDDEN, CLASSES))
+                            ).astype(np.float32),
+                 "bias": (0.1 * rng.normal(size=(CLASSES,))
+                          ).astype(np.float32)},
+    }
+
+
+def windows(model, steps, accum, rows, seed=0):
+    """``steps`` windows of ``accum`` global micro-batches (``rows`` rows
+    each): MLP ``(x, y)``, GPT-2 ``(ids, ids)``."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(steps):
+        win = []
+        for _ in range(accum):
+            if model == "mlp":
+                win.append((rng.normal(size=(rows, IN_DIM)).astype(np.float32),
+                            rng.integers(0, CLASSES, (rows,)).astype(np.int32)))
+            else:
+                ids = rng.integers(0, VOCAB, (rows, SEQ)).astype(np.int32)
+                win.append((ids, ids))
+        out.append(win)
+    return out
+
+
+def rank_rows(batch, rank, dp):
+    """Rank ``rank``'s rows of a global micro-batch."""
+    per = batch[0].shape[0] // dp
+    return tuple(x[rank * per:(rank + 1) * per] for x in batch)
+
+
+def config(stage, opt, dtype, micro, accum, dp, lr=1e-2, **extra):
+    cfg = {
+        "train_batch_size": micro * accum * dp,
+        "train_micro_batch_size_per_gpu": micro,
+        "gradient_accumulation_steps": accum,
+        "optimizer": {"type": opt, "params": {"lr": lr}},
+        "zero_optimization": {"stage": stage},
+        "gradient_clipping": 1.0,
+        "steps_per_print": 1000,
+    }
+    if dtype == "int8":
+        cfg["data_types"] = {"optimizer_state_dtype": "int8"}
+    elif dtype in ("bf16", "fp16"):
+        cfg[dtype] = {"enabled": True}
+    cfg.update(extra)
+    return cfg
+
+
+# ---------------------------------------------------------------------------
+# the port's side (runs in the rank processes)
+# ---------------------------------------------------------------------------
+def torch_mlp(weights):
+    import torch
+    import torch.nn.functional as F
+
+    class SimpleModel(torch.nn.Module):
+        """tests/unit/simple_model.py's SimpleModel: linear -> head ->
+        mean cross-entropy."""
+
+        def __init__(self):
+            super().__init__()
+            self.linear = torch.nn.Linear(IN_DIM, HIDDEN)
+            self.head = torch.nn.Linear(HIDDEN, CLASSES)
+
+        def forward(self, x, y):
+            logits = self.head(self.linear(x)).float()
+            return F.cross_entropy(logits, y.long())
+
+    m = SimpleModel()
+    with torch.no_grad():
+        for name in ("linear", "head"):
+            getattr(m, name).weight.copy_(
+                torch.from_numpy(weights[name]["kernel"].T.copy()))
+            getattr(m, name).bias.copy_(
+                torch.from_numpy(weights[name]["bias"]))
+    return m
+
+
+def _model(case, workdir):
+    import torch
+
+    import deepspeed_tpu_torch as dst
+
+    if case["model"] == "mlp":
+        return torch_mlp(mlp_weights(case.get("seed", 0)))
+    if case["model"] == "gpt2":
+        m = dst.GPT2LMHeadModel(dst.GPT2Config(
+            vocab_size=VOCAB, n_positions=SEQ, n_embd=64, n_layer=2,
+            n_head=4, dropout=case.get("dropout", 0.0),
+            remat=case.get("remat", False)), device="cpu")
+    else:
+        from deepspeed_tpu_torch.models.bert import BertConfig
+
+        m = dst.BertForPreTraining(BertConfig(**case["bert"]), device="cpu")
+    state = workdir / case.get("weights", "none")
+    if state.exists():
+        m.load_state_dict(torch.load(state, weights_only=True))
+    return m
+
+
+def _feed(engine, case, rank, dp):
+    import torch
+
+    losses = []
+    for win in windows(case["model"], case["steps"], case["accum"],
+                       case["micro"] * dp, case.get("data_seed", 0)):
+        mine = [tuple(torch.from_numpy(x) for x in rank_rows(b, rank, dp))
+                for b in win]
+        losses.append(float(engine.train_batch(iter(mine))))
+    return losses
+
+
+def case_train(case, rank, dp, workdir):
+    import deepspeed_tpu_torch as dst
+
+    engine, *_ = dst.initialize(
+        model=_model(case, workdir), device="cpu",
+        config_params=config(case["stage"], case["opt"], case["dtype"],
+                             case["micro"], case["accum"], dp,
+                             lr=case.get("lr", 1e-2), **case.get("extra", {})))
+    out = {"losses": _feed(engine, case, rank, dp),
+           "skipped": engine.skipped_steps,
+           "coeffs": [float(c) for c in engine.lamb_coeffs],
+           "zero3_bytes": (engine._zero3_shard_bytes,
+                           engine._zero3_gather_bytes),
+           "zero3_armed": engine.zero3_gather_enabled}
+    full = engine.full_parameters()
+    if rank == 0:
+        out["params"] = {n: p.detach().float().numpy().copy()
+                         for n, p in full.items()}
+    return out
+
+
+def case_overflow(case, rank, dp, workdir):
+    """fp16: rank 1's micro-batch holds an inf; every rank must skip."""
+    import torch
+
+    import deepspeed_tpu_torch as dst
+
+    engine, *_ = dst.initialize(
+        model=_model(case, workdir), device="cpu",
+        config_params=config(case["stage"], "Adam", "fp16", 2, 1, dp,
+                             fp16={"enabled": True,
+                                   "initial_scale_power": 4}))
+    before = {n: p.detach().clone() for n, p in engine.full_parameters().items()}
+    x, y = rank_rows(windows("mlp", 1, 1, 2 * dp)[0][0], rank, dp)
+    x = torch.from_numpy(x.copy())
+    if rank == 1:
+        x[0, 0] = float("inf")
+    engine.train_batch(iter([(x, torch.from_numpy(y))]))
+    after = engine.full_parameters()
+    return {"skipped": engine.skipped_steps,
+            "global_steps": engine.global_steps,
+            "scale": float(engine.loss_scale_state.loss_scale),
+            "unchanged": all(torch.equal(before[n], after[n])
+                             for n in before)}
+
+
+def case_dropout(case, rank, dp, workdir):
+    """Every rank feeds the SAME rows with dropout on: the ranks' losses
+    differ only through their masks."""
+    import torch
+
+    import deepspeed_tpu_torch as dst
+
+    engine, *_ = dst.initialize(
+        model=_model(case, workdir), device="cpu",
+        config_params=config(0, "Adam", "fp32", 2, 1, dp))
+    ids = torch.from_numpy(windows("gpt2", 1, 1, 2)[0][0][0]).long()
+    loss = engine(ids, ids)
+    engine.backward(loss)
+    return {"loss": float(loss.detach())}
+
+
+def case_bert(case, rank, dp, workdir):
+    """One micro-step of BERT pretraining at stage 0: the rank's batch,
+    its loss, and the gradients summed over the data group (the global
+    batch's gradient)."""
+    import torch
+    import torch.distributed as dist
+
+    import deepspeed_tpu_torch as dst
+
+    engine, *_ = dst.initialize(
+        model=_model(case, workdir), device="cpu",
+        config_params=config(0, "Adam", "fp32", case["micro"], 1, dp))
+    batch = np.load(workdir / case["batch"])
+    mine = [torch.from_numpy(batch[k][rank * case["micro"]:
+                                      (rank + 1) * case["micro"]])
+            for k in ("ids", "mask", "types", "mlm", "nsp")]
+    loss = engine(*mine)
+    engine.backward(loss)
+    total = loss.detach().clone()
+    dist.all_reduce(total)
+    grads = {}
+    for n, g in engine._grad_buffer.items():
+        g = g.clone()
+        dist.all_reduce(g)
+        grads[n] = g.numpy()
+    out = {"loss": float(total) / dp}
+    if rank == 0:
+        out["grads"] = grads
+    return out
+
+
+def case_checkpoint(case, rank, dp, workdir):
+    """Train 2 windows and save (``mode`` save), or load; then the eval
+    fingerprint and 2 more windows (the second one's loss depends on the
+    restored optimizer state). The global batches are the same at every
+    data size."""
+    import torch
+
+    import deepspeed_tpu_torch as dst
+
+    engine, *_ = dst.initialize(
+        model=_model(case, workdir), device="cpu",
+        config_params=config(case["stage"], case["opt"], case["dtype"],
+                             case["micro_global"] // dp, 1, dp, lr=1e-3,
+                             resilience={"enabled": True}))
+    out = {}
+    data = windows("gpt2", 4, 1, case["micro_global"], 0)
+    ckpt = Path(case["dir"])
+
+    def run(win):
+        rows = [tuple(torch.from_numpy(x) for x in rank_rows(b, rank, dp))
+                for b in win]
+        return float(engine.train_batch(iter(rows)))
+
+    if case["mode"] == "save":
+        out["train"] = [run(w) for w in data[:2]]
+        engine.save_checkpoint(str(ckpt), tag="t2")
+        out["files"] = sorted(os.listdir(ckpt / "t2"))
+        out["manifest"] = json.loads((ckpt / "t2" / "MANIFEST.json"
+                                      ).read_text())["files"]
+    else:
+        path, _ = engine.load_checkpoint(str(ckpt))
+        out["loaded"] = path is not None
+        out["global_steps"] = engine.global_steps
+    out["fingerprint"] = fingerprint(engine, rank, dp)
+    out["resume"] = [run(w) for w in data[2:]]
+    return out
+
+
+def fingerprint(engine, rank, dp):
+    """The eval loss of a fixed global batch, averaged over the ranks."""
+    import torch
+    import torch.distributed as dist
+
+    ids = windows("gpt2", 1, 1, 4, seed=99)[0][0][0]
+    per = 4 // dp
+    mine = torch.from_numpy(ids[rank * per:(rank + 1) * per]).long()
+    engine.eval()
+    loss = engine(mine, mine).detach().clone()
+    engine.train()
+    if dp > 1:
+        dist.all_reduce(loss)
+    return float(loss) / dp
+
+
+def case_dist(case, rank, dp, workdir):
+    """The bootstrap, the mesh and mpu, and the collectives."""
+    import torch
+    import torch.distributed as dist
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.runtime import dist as dist_lib
+
+    engine, *_ = dst.initialize(
+        model=torch_mlp(mlp_weights()), device="cpu",
+        config_params=config(0, "Adam", "fp32", 2, 1, dp))
+    mpu = engine.mpu
+    out = {
+        "backend": dist.get_backend(), "world": dist.get_world_size(),
+        "rank": dist.get_rank(), "coords": engine.mesh.coords,
+        "dp": mpu.get_data_parallel_world_size(),
+        "dp_rank": mpu.get_data_parallel_rank(),
+        "mp": mpu.get_model_parallel_world_size(),
+        "mp_rank": mpu.get_model_parallel_rank(),
+        "group_size": dist.get_world_size(mpu.get_data_parallel_group()),
+        "mp_group": mpu.get_model_parallel_group(),
+        "init_again": dist_lib.init_distributed(),
+    }
+    g = mpu.get_data_parallel_group()
+    t = torch.full((4,), float(rank + 1))
+    dist_lib.all_reduce(t, g)
+    out["all_reduce"] = t.tolist()
+    inp = torch.arange(2 * dp, dtype=torch.float32) + 10 * rank
+    res = torch.empty(2)
+    dist_lib.reduce_scatter(res, inp, g)
+    out["reduce_scatter"] = res.tolist()
+    gathered = torch.empty(2 * dp)
+    handle = dist_lib.all_gather(gathered, torch.full((2,), float(rank)), g,
+                                 async_op=True)
+    handle.wait()
+    out["all_gather"] = gathered.tolist()
+    return out
+
+
+def case_gather_order(case, rank, dp, workdir):
+    """Stage 3 at one layer a gather block: the blocks each gather issues
+    for, in order, marked forward or backward, over one micro-step, and
+    the gathered buffers still referenced between the forward and the
+    backward."""
+    import torch
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import stack
+
+    engine, *_ = dst.initialize(
+        model=_model(case, workdir), device="cpu",
+        config_params=config(3, "Adam", "fp32", 2, 1, dp, **case["extra"]))
+    order, made = [], []
+    issue = stack._Gathers.issue
+
+    def recording(self, b):
+        # the model's stack (the engine gathers wte, wpe and ln_f apart)
+        stacked = self.arming is not engine._engine_gather
+        if stacked and b not in self.pending and 0 <= b < len(self.blocks):
+            order.append(("bwd" if self.backward else "fwd", b))
+        issue(self, b)
+        made.append(self)
+
+    stack._Gathers.issue = recording
+    try:
+        ids = torch.from_numpy(rank_rows(
+            windows("gpt2", 1, 1, 2 * dp)[0][0], rank, dp)[0]).long()
+        loss = engine(ids, ids)
+        held = sum(len(g.pending) for g in set(made)
+                   if g.arming is not engine._engine_gather)
+        engine.backward(loss)
+    finally:
+        stack._Gathers.issue = issue
+    return {"order": order, "pending_after_forward": held}
+
+
+def sparse_rows(rank, rows=12, cols=5, k=4):
+    """Rank ``rank``'s row-sparse gradient: ``k`` of ``rows`` rows."""
+    rng = np.random.default_rng(100 + rank)
+    dense = np.zeros((rows, cols), np.float32)
+    dense[rng.choice(rows, k, replace=False)] = rng.normal(
+        size=(k, cols)).astype(np.float32)
+    return dense
+
+
+def case_sparse(case, rank, dp, workdir):
+    """The sparse all-reduce of every rank's CSR gradient."""
+    import torch
+
+    from deepspeed_tpu_torch.runtime import dist as dist_lib
+    from deepspeed_tpu_torch.runtime.sparse import (
+        CSRTensor,
+        sparse_all_reduce,
+    )
+
+    dist_lib.init_distributed(device="cpu")
+    csr = CSRTensor.from_dense(torch.from_numpy(sparse_rows(rank)),
+                               max_rows=case["max_rows"])
+    return {"dense": sparse_all_reduce(csr).numpy()}
+
+
+CASES = {
+    "train": case_train, "overflow": case_overflow, "dropout": case_dropout,
+    "bert": case_bert, "checkpoint": case_checkpoint, "dist": case_dist,
+    "sparse": case_sparse, "gather_order": case_gather_order,
+}
+
+
+def main(spec_path):
+    import torch
+
+    torch.set_num_threads(1)
+    spec = json.loads(Path(spec_path).read_text())
+    workdir = Path(spec["workdir"])
+    rank = int(os.environ["DS_TPU_PROCESS_ID"])
+    dp = int(os.environ["DS_TPU_NUM_PROCESSES"])
+    results = {}
+    for case in spec["cases"]:
+        results[case["name"]] = CASES[case["kind"]](case, rank, dp, workdir)
+    torch.save(results, workdir / f"rank{rank}.pt")
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the test process's side
+# ---------------------------------------------------------------------------
+_HANDED_OUT = set()  # ports given to spawns of this process
+
+
+def free_port():
+    """A free local port, never one handed out before in this process
+    (spawns started together must not share a rendezvous)."""
+    while True:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        if port not in _HANDED_OUT:
+            _HANDED_OUT.add(port)
+            return port
+
+
+def start(world, cases, workdir):
+    """Start ``world`` rank processes running ``cases``; returns a handle
+    for :func:`finish` (the caller can compute meanwhile)."""
+    workdir = Path(workdir)
+    workdir.mkdir(parents=True, exist_ok=True)
+    spec = workdir / "spec.json"
+    spec.write_text(json.dumps({"workdir": str(workdir), "cases": cases}))
+    port = free_port()
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ,
+                   DS_TPU_COORDINATOR_ADDRESS=f"localhost:{port}",
+                   DS_TPU_NUM_PROCESSES=str(world),
+                   DS_TPU_PROCESS_ID=str(rank),
+                   PYTHONPATH=os.pathsep.join(
+                       [str(ROOT), os.environ.get("PYTHONPATH", "")]),
+                   OMP_NUM_THREADS="1")
+        log = open(workdir / f"rank{rank}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, __file__, str(spec)], env=env, stdout=log,
+            stderr=subprocess.STDOUT), log))
+    return world, workdir, procs, cases
+
+
+def finish(handle, timeout=120, retries=1):
+    """Wait for the ranks (killing them all past ``timeout`` seconds);
+    returns ``[rank 0's results, rank 1's, ...]`` or raises with the
+    logs of the ranks that failed. A spawn whose rendezvous port was
+    taken meanwhile (another process bound it between ``free_port`` and
+    rank 0's listen) starts again on a new port, ``retries`` times."""
+    world, workdir, procs, cases = handle
+    deadline = time.monotonic() + timeout
+    failed = []
+    for rank, (proc, log) in enumerate(procs):
+        try:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            for p, _ in procs:
+                p.kill()
+            proc.wait()
+        log.close()
+        if proc.returncode != 0:
+            failed.append(rank)
+    if failed:
+        logs = "\n".join(
+            f"--- rank {r} ---\n"
+            + (workdir / f"rank{r}.log").read_text()[-4000:] for r in failed)
+        if retries > 0 and "EADDRINUSE" in logs:
+            return finish(start(world, cases, workdir), timeout, retries - 1)
+        raise RuntimeError(f"ranks {failed} failed:\n{logs}")
+    import torch
+
+    return [torch.load(workdir / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, str(ROOT))
+    main(sys.argv[1])
