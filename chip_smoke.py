@@ -231,9 +231,13 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                S=512, D=64) with a padding mask of ragged lengths and a
                dead row, dropout 0 and 0.1, float32, bfloat16 and float16,
                against their plain versions at phase 3b's tolerances (the
-               dead row exact zeros); their times (rows 1b-3b) beside SDPA
-               with the same boolean mask and the bound of this mask's
-               visible pairs; flash against mha_reference, forward and
+               dead row exact zeros); the same under the mask patterns
+               (lengths at the key tiles' edges, left padding, holes, a
+               dead row) at D = 64, 128 and 256, and an all-ones mask bit
+               for bit no mask in bf16; their times (rows 1b-3b) beside
+               SDPA with the same boolean mask, the bound of this mask's
+               visible pairs and the shares of empty, full and mixed key
+               tiles; flash against mha_reference, forward and
                backward, at seq 128, 256, 384 and 512 (where
                FLASH_MIN_SEQ belongs). (b) BERT-large (24 x 1024, 16
                heads, vocab 30592) pretraining at seq 512 through
@@ -328,7 +332,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 
 ``--only-phase12`` builds every kernel and runs phase 12 alone, printing
 its numbers as one JSON line; ``--only-phase13`` and ``--only-phase14``
-the same for phases 13 and 14.
+the same for phases 13 and 14. ``--only-bert-attention`` builds the
+flash kernels, checks them under BERT's padding mask and the mask
+patterns of phase 12a, and times rows 1b-3b (copy the script to the root
+of an unpacked parent under build/ to time both trees in one call).
 
 ``--cold-telemetry`` runs one telemetry-on training run whose first
 window builds the kernels in an empty build directory under a 5 s
@@ -4302,6 +4309,130 @@ def check_flash_bert(device, gen):
     return errs
 
 
+# lengths at the key tiles' edges (64-key dQ tiles, 128-key forward and
+# dK/dV tiles; 32- and 64-key tiles at D = 256)
+EDGE_LENGTHS = (63, 64, 65, 127, 128, 129, 255, 256, 257)
+MASK_PATTERNS = ("edges", "left", "hole", "dead")
+
+
+def mask_pattern(pattern, s, device):
+    """A [9, s] int32 key mask: ``edges`` right padding at EDGE_LENGTHS,
+    ``left`` left padding at them, ``hole`` rows whose middle keys are
+    masked (one spans a whole 128-key tile) beside full rows, ``dead`` a
+    row with no valid key between ragged ones, ``ones`` every key valid
+    (tests/test_torch_cuda_kernels.py builds the same masks)."""
+    b = len(EDGE_LENGTHS)
+    mask = torch.zeros(b, s, dtype=torch.int32)
+    if pattern == "ones":
+        mask[:] = 1
+    for row, n in enumerate(EDGE_LENGTHS):
+        if pattern == "edges":
+            mask[row, :n] = 1
+        elif pattern == "left":
+            mask[row, s - n:] = 1
+        elif pattern == "hole":
+            mask[row] = 1
+            if row % 2:
+                mask[row, n // 2:n // 2 + 64 + n] = 0
+        elif pattern == "dead":
+            mask[row, :max(0, n - 8 * row)] = 1 if row != 4 else 0
+    return mask.to(device)
+
+
+def tile_classes(mask, tile):
+    """The shares of (batch row, key tile of ``tile`` keys) pairs with no
+    valid key, every key valid, and some: what the tensor-core kernels
+    skip, run mask-free and mask (csrc/key_tiles.cuh)."""
+    b, s = mask.shape
+    n = (s + tile - 1) // tile
+    padded = torch.zeros(b, n * tile, dtype=torch.int32, device=mask.device)
+    padded[:, :s] = mask != 0
+    valid = padded.view(b, n, tile).sum(dim=-1)
+    width = torch.full((n,), tile, device=mask.device)
+    width[-1] = s - (n - 1) * tile
+    pairs = b * n
+    empty = int((valid == 0).sum())
+    full = int((valid == width).sum())
+    return {"tile_keys": tile, "pairs": pairs, "empty": empty / pairs,
+            "full": full / pairs, "mixed": (pairs - empty - full) / pairs}
+
+
+def check_flash_mask_patterns(device, gen):
+    """The forward, dQ and dK/dV under MASK_PATTERNS at S = 512, D = 64,
+    128 and 256, non-causal, float32, bfloat16 and float16, dropout 0 and
+    0.1, against their plain versions at phase 3b's tolerances; rows that
+    see no key and masked keys' gradient rows exact zeros; and an all-ones
+    mask bit for bit kv_mask=None's in bfloat16 (every tile full: the
+    mask-free path). Returns {D: {kernel: max error}} and the checks'
+    count."""
+    from deepspeed_tpu_torch.ops import attention as A
+
+    s, h = BERT_SHAPE[2], 4
+    errs, checks = {}, 0
+    for d in (64, 128, 256):
+        base = [torch.randn(len(EDGE_LENGTHS), h, s, d, device=device,
+                            generator=gen) for _ in range(4)]
+        per = errs.setdefault(d, {})
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            q, k, v, dout = (t.to(dtype) for t in base)
+            for pattern in MASK_PATTERNS:
+                mask = mask_pattern(pattern, s, device)
+                for rate in (0.0, DROPOUT):
+                    tag = (f"d{d} {str(dtype)[6:]} {pattern}"
+                           + (" +dropout" if rate else ""))
+                    fargs = (q, k, v, mask, False, None, rate, 4321)
+                    out, lse = A.flash_fwd(*fargs)
+                    ref, ref_lse = A.flash_fwd_plain(*fargs)
+                    delta = (dout.float() * ref.float()).sum(dim=-1)
+                    bargs = (q, k, v, mask, dout, ref_lse, delta, False,
+                             None, rate, 4321)
+                    got = (A.flash_bwd_dq(*bargs), *A.flash_bwd_dkv(*bargs))
+                    torch.cuda.synchronize()
+                    want = (A.flash_bwd_dq_plain(*bargs),
+                            *A.flash_bwd_dkv_plain(*bargs))
+                    e = check_close(f"flash_fwd {tag}", out, ref, dtype)
+                    per["flash_fwd"] = max(per.get("flash_fwd", 0.0), e)
+                    rows = ref_lse > -1e29
+                    check_close(f"flash_fwd {tag} lse", lse[rows],
+                                ref_lse[rows], torch.float32)
+                    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                        kernel = ("flash_bwd_dq" if name == "dq"
+                                  else "flash_bwd_dkv")
+                        e = check_close(f"{kernel} {name} {tag}", g, w,
+                                        dtype, scaled=True)
+                        per[kernel] = max(per.get(kernel, 0.0), e)
+                    dead_keys = (mask == 0)[:, None, :, None].expand_as(
+                        got[1])
+                    if not (bool((out[~rows] == 0).all())
+                            and bool((got[0][~rows] == 0).all())
+                            and bool((got[1][dead_keys] == 0).all())
+                            and bool((got[2][dead_keys] == 0).all())):
+                        fail(f"flash {tag}: a row with no key or a masked "
+                             "key's gradient is not exact zeros")
+                    checks += 1
+                    del out, lse, ref, ref_lse, delta, got, want
+        q, k, v, dout = (t.to(torch.bfloat16) for t in base)
+        ones = mask_pattern("ones", s, device)
+        for rate in (0.0, DROPOUT):
+            results = []
+            for mask in (ones, None):
+                out, lse = A.flash_fwd(q, k, v, mask, False, None, rate, 77)
+                delta = (dout.float() * out.float()).sum(dim=-1)
+                bargs = (q, k, v, mask, dout, lse, delta, False, None, rate,
+                         77)
+                results.append((out, lse, A.flash_bwd_dq(*bargs),
+                                *A.flash_bwd_dkv(*bargs)))
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(*results)):
+                fail(f"flash d{d} bf16 rate {rate}: an all-ones mask is not "
+                     "kv_mask=None bit for bit")
+            log(f"  d{d} bf16 rate {rate}: all-ones mask == no mask, bit "
+                "for bit (out, lse, dq, dk, dv)")
+        del base, q, k, v, dout
+        torch.cuda.empty_cache()
+    return errs, checks
+
+
 def time_flash_bert(device, gen, timer, errs):
     """Rows 1b-3b: the three kernels at BERT-large's shape, bf16,
     non-causal with the padding mask and dropout 0.1: Timer both ways, the
@@ -4360,7 +4491,10 @@ def time_flash_bert(device, gen, timer, errs):
             plain_ms=timer.ms(lambda: plain(*args), iters=3, warmup=1),
             library_ms=lib_ms[key][0], library_device_ms=lib_ms[key][1],
             library=lib_name, bound_ms=b_ms, bound_by=b_by,
-            bound_bytes=nbytes, bound_flops=flops)
+            bound_bytes=nbytes, bound_flops=flops,
+            # the key tiles this mask leaves empty, full and mixed at the
+            # kernel's tile width (dK/dV: its 128-key blocks)
+            tiles=tile_classes(mask, 64 if which == "dq" else 128))
         log(f"  {name} bert: {json.dumps(out_rows[f'{name} bert'])}")
     del out, lse, delta, qg, kg, vg, sdpa_out
     return out_rows
@@ -4812,6 +4946,9 @@ def phase_bert_layouts(seed, card):
     log("phase 12a: flash forward, dQ and dK/dV non-causal with a padding "
         "mask at BERT-large's shape vs plain")
     errs = check_flash_bert(device, gen)
+    log("phase 12a: the mask patterns (lengths at the tiles' edges, left "
+        "padding, holes, dead rows; all-ones == no mask) at D = 64, 128, 256")
+    pattern_errs, pattern_checks = check_flash_mask_patterns(device, gen)
     rows = time_flash_bert(device, gen, timer, errs)
     log("phase 12a: the FLASH_MIN_SEQ crossover (flash vs mha_reference, "
         "forward + backward)")
@@ -4866,6 +5003,8 @@ def phase_bert_layouts(seed, card):
             for p in ("bert_pretraining", "bert_qa", "bert_qa_eval",
                       "bert_f32_grads")}
     return launches, {"card": card, "crossover": crossover,
+                      "mask_patterns": {"checks": pattern_checks,
+                                        "max_abs_err": pattern_errs},
                       "bert_pretraining": pre, "bert_qa": qa,
                       "layouts": layouts, "layout_checks": layout_checks}, rows
 
@@ -5908,6 +6047,29 @@ def only_flash(device, seed):
     return out
 
 
+def only_bert_attention(device, seed):
+    """``--only-bert-attention``: the flash kernels built alone (ptxas's
+    registers and spills printed), phase 12a's checks against the plain
+    versions (BERT's padding mask and, where this script has them, the
+    mask patterns) and rows 1b-3b timed, through the public wrappers
+    only, so that a copy of this script at the root of another checkout
+    times that checkout's kernels the same way."""
+    from deepspeed_tpu_torch.ops import kernel_lib
+
+    built = kernel_lib.build(["flash_fwd", "flash_bwd"])
+    for name, report in built.items():
+        for line in report.splitlines():
+            if ("registers" in line or "spill" in line
+                    or "entry function" in line):
+                log(f"  {name}: {line.strip()}")
+    gen = torch.Generator(device=device).manual_seed(seed + 12)
+    timer = Timer(device)
+    errs = check_flash_bert(device, gen)
+    _, checks = check_flash_mask_patterns(device, gen)
+    return {"rows": time_flash_bert(device, gen, timer, errs),
+            "mask_pattern_checks": checks}
+
+
 def only_kernels(device, seed):
     """``--only-kernels``: LAMB phase 1 (rows 4-5) and SGMV (row 7) built
     alone and timed as phases 3b and 3c time them, through the public
@@ -5939,6 +6101,11 @@ def main():
     parser.add_argument("--only-flash", action="store_true",
                         help="build the flash kernels alone and print their "
                         "timings at D = 64, 128 and 256 (to time another "
+                        "checkout the same way)")
+    parser.add_argument("--only-bert-attention", action="store_true",
+                        help="build the flash kernels alone, check them "
+                        "under BERT's padding mask and the mask patterns "
+                        "and print rows 1b-3b's timings (to time another "
                         "checkout the same way)")
     parser.add_argument("--only-kernels", action="store_true",
                         help="build LAMB phase 1 and SGMV alone and print "
@@ -5993,6 +6160,13 @@ def main():
 
     if args.only_flash:
         print(json.dumps({"only_flash": only_flash(device, args.seed),
+                          "checkout": str(Path(__file__).resolve().parent),
+                          "card": smi}))
+        return
+
+    if args.only_bert_attention:
+        print(json.dumps({"only_bert_attention": only_bert_attention(
+            device, args.seed),
                           "checkout": str(Path(__file__).resolve().parent),
                           "card": smi}))
         return

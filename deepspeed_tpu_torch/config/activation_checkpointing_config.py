@@ -4,9 +4,10 @@ Port of deepspeed_tpu/config/activation_checkpointing_config.py: the
 ``activation_checkpointing`` block parsed with the JAX package's keys and
 defaults (partition_activations, contiguous_memory_optimization,
 cpu_checkpointing, number_checkpoints, synchronize_checkpoint_boundary,
-profile). The port parses the block only: activation checkpointing
-(remat) is not ported yet, and the training engine refuses a model that
-asks for it.
+profile). The training engine hands the parsed block to
+``deepspeed_tpu_torch.checkpointing.configure``, as the JAX engine does;
+a model's own remat (``remat`` / ``remat_policy`` on its config) runs
+through ``torch.utils.checkpoint`` (ops/transformer.py).
 """
 
 from . import constants as C

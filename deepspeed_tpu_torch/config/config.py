@@ -533,8 +533,8 @@ class DeepSpeedConfig:
             pd, C.ZERO_ALLOW_UNTESTED_OPTIMIZER,
             C.ZERO_ALLOW_UNTESTED_OPTIMIZER_DEFAULT,
         )
-        # parsed only: remat is not ported (the engine refuses a model
-        # that asks for it)
+        # the engine hands it to checkpointing.configure (remat itself is
+        # the model's remat / remat_policy)
         self.activation_checkpointing_config = (
             DeepSpeedActivationCheckpointingConfig(pd)
         )

@@ -166,7 +166,7 @@ ZERO_STAGE3_ONLY_KEYS = (
 )
 
 #############################################
-# Activation checkpointing (parsed only: remat is not ported yet)
+# Activation checkpointing (read by checkpointing.configure)
 #############################################
 ACTIVATION_CHECKPOINTING = "activation_checkpointing"
 

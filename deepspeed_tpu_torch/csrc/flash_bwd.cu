@@ -37,7 +37,11 @@
 // that need them), rounds P_drop^T and dS^T to the storage type in
 // registers and accumulates dV += P_drop^T dO and dK += dS^T Q with them
 // as the register A operand and dO, Q read MN-major from the same ring
-// tiles. dK is scaled by `scale` in the epilogue. The tiles depend on the
+// tiles. dK is scaled by `scale` in the epilogue. Under a key mask the
+// block first learns how its 128 keys stand (two block votes): all masked,
+// it walks no query tile and writes zero dK and dV; all valid, it takes the
+// mask-free path; else each thread masks with its keys' validity, held in
+// registers. The tiles depend on the
 // head dim (tc::DkvCfg): at D = 64, 64-query tiles in a two-stage ring fed
 // by a producer warpgroup (setmaxnreg 24 / 240). At D = 128 a thread's dK
 // and dV are 128 float32 registers, past the 168 that ptxas gives a
@@ -71,13 +75,15 @@
 // and 128, 64-key tiles in a two-stage ring fed by a producer warpgroup
 // (setmaxnreg 24 / 240; ptxas holds a 384-thread block to 168 registers
 // a thread, whatever setmaxnreg gives the consumers at run time, and 128
-// keys at D = 64 spilled S, dP and dQ and serialised the wgmmas), whose
-// first warp stages each tile's key validity (the length and kv_mask)
-// beside it. At D = 256 dQ alone is 128 float32 registers a thread: the
-// block has no producer warpgroup (256 threads, up to 255 registers each),
-// consumer thread 0 issues the loads, the consumers read the key mask
-// from device memory, the tiles hold 32 keys in a three-stage ring, and
-// dQ += dS K runs as two 128-column products a k16 step.
+// keys at D = 64 spilled S, dP and dQ and serialised the wgmmas). At
+// D = 256 dQ alone is 128 float32 registers a thread: the block has no
+// producer warpgroup (256 threads, up to 255 registers each), consumer
+// thread 0 issues the loads, the tiles hold 32 keys in a three-stage
+// ring, and dQ += dS K runs as two 128-column products a k16 step. Under
+// a key mask the block sorts its key tiles as the forward does
+// (key_tiles.cuh) and walks only the non-empty ones, a mixed tile's
+// validity read from shared memory (at D = 64 and 128 staged there by the
+// producer's first warp, as the length's always is).
 //
 // dQ and dK/dV in float32 — flash_bwd_dq_kernel and flash_bwd_dkv_kernel,
 // the first (FMA) versions (the tensor cores take float32 only as TF32,
@@ -107,6 +113,7 @@
 #include <type_traits>
 
 #include "dropout.cuh"
+#include "key_tiles.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -431,7 +438,7 @@ struct DkvCfg<256> {
 // shared memory, byte offsets from a 1024-aligned base: the K and V
 // tiles, the Q and dO rings, each stage's row data (lse in log2 units,
 // delta, dropout row key: kBQ 4-byte values each), the mbarriers
-// (kv_full, full[kStages], empty[kStages])
+// (kv_full, full[kStages], empty[kStages]), how the block's keys stand
 template <int D>
 struct Layout {
   static constexpr int kBQ = DkvCfg<D>::kBQ;
@@ -445,9 +452,34 @@ struct Layout {
   static constexpr int kRows = kDO + kStages * kQT;
   static constexpr int kRowBytes = 3 * kBQ * 4;
   static constexpr int kBars = kRows + kStages * kRowBytes;
-  static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
+  static constexpr int kKeys = kBars + 8 * (1 + 2 * kStages);  // block_keys
+  static constexpr int kBytes = kKeys + 8 + 1024;
   static_assert(kBytes <= 232448, "a block has 227 KB of shared memory");
 };
+
+// Under a key mask, how the block's kBN keys stand (every thread of the
+// block calls it): kKeysNone, no key valid (the block walks no query tile
+// and writes zero dK and dV); kKeysAll, every key below Sk valid (the
+// mask-free path); kKeysSome, the rest (each thread masks with its keys'
+// validity, held in registers). Under a mask also written to shared
+// memory at `at`, where the loop reads it (no register held across it).
+constexpr int kKeysNone = 0;
+constexpr int kKeysAll = 1;
+constexpr int kKeysSome = 2;
+__device__ __forceinline__ int block_keys(const int* __restrict__ kv_mask,
+                                          int bh, int H, int Sk, int k0,
+                                          int* at) {
+  if (kv_mask == nullptr) return kKeysAll;
+  const int key = k0 + static_cast<int>(threadIdx.x);
+  const bool in = threadIdx.x < kBN && key < Sk;
+  const bool ok = in && kv_mask[(size_t)(bh / H) * Sk + key] != 0;
+  const int keys = !__syncthreads_or(ok)          ? kKeysNone
+                   : __syncthreads_and(ok || !in) ? kKeysAll
+                                                  : kKeysSome;
+  if (threadIdx.x == 0) *at = keys;
+  __syncthreads();
+  return keys;
+}
 
 // D = 64: two consumer warpgroups of 64 keys and a producer warpgroup,
 // whose registers go to the consumers (setmaxnreg 24 / 240).
@@ -476,7 +508,7 @@ __device__ __forceinline__ void dkv_producer_form(
   const int diag = Sk - Sq;
   // the first query tile that can see the key tile: qi >= k0 - diag
   const int t0 = causal ? max(0, k0 - diag) / kBQ : 0;
-  const int nt = (Sq + kBQ - 1) / kBQ;
+  int nt = (Sq + kBQ - 1) / kBQ;
 
   const int tid = threadIdx.x;
   if (tid == 0) {
@@ -489,6 +521,15 @@ __device__ __forceinline__ void dkv_producer_form(
     sm90::fence_barrier_init();
   }
   __syncthreads();
+  if (block_keys(kv_mask, bh, H, Sk, k0,
+                 reinterpret_cast<int*>(sbase + L::kKeys)) == kKeysNone) {
+    nt = t0;  // no load, no wait: zeros out
+  }
+  // whether the block's keys are partly masked, read where it is needed
+  auto keys_some = [&]() {
+    return kv_mask != nullptr &&
+           *reinterpret_cast<const int*>(sbase + L::kKeys) == kKeysSome;
+  };
 
   if (tid >= kConsumers) {  // the producer warpgroup: its first warp works
     sm90::setmaxnreg_dec<24>();
@@ -590,10 +631,11 @@ __device__ __forceinline__ void dkv_producer_form(
     sm90::fence_regs(st);
     sm90::fence_regs(dpt);
 
-    // P^T, dropout, dS^T; masks only on the tiles that need them (a tile
+    // P^T, dropout, dS^T; masks only on the tiles that need them: keys
+    // of the block masked, the ragged edge, the causal diagonal (a tile
     // that needs none holds no row without a visible key, so its lse is
     // finite)
-    const bool need_mask = kv_mask != nullptr || q0 + kBQ > Sq ||
+    const bool need_mask = keys_some() || q0 + kBQ > Sq ||
                            (causal && kw0 + 63 > q0 + diag);
 #pragma unroll
     for (int j = 0; j < kBQ / 2; ++j) {
@@ -703,7 +745,7 @@ __device__ __forceinline__ void dkv_consumers_form(
   const int diag = Sk - Sq;
   // the first query tile that can see the key tile: qi >= k0 - diag
   const int t0 = causal ? max(0, k0 - diag) / kBQ : 0;
-  const int nt = (Sq + kBQ - 1) / kBQ;
+  int nt = (Sq + kBQ - 1) / kBQ;
 
   const int tid = threadIdx.x;
   const int lane = tid % 32;
@@ -717,6 +759,15 @@ __device__ __forceinline__ void dkv_consumers_form(
     sm90::fence_barrier_init();
   }
   __syncthreads();
+  if (block_keys(kv_mask, bh, H, Sk, k0,
+                 reinterpret_cast<int*>(sbase + L::kKeys)) == kKeysNone) {
+    nt = t0;  // no load, no wait: zeros out
+  }
+  // whether the block's keys are partly masked, read where it is needed
+  auto keys_some = [&]() {
+    return kv_mask != nullptr &&
+           *reinterpret_cast<const int*>(sbase + L::kKeys) == kKeysSome;
+  };
 
   const bool loader = tid < 32;  // warp 0
   auto load_q = [&](int t) {
@@ -823,16 +874,16 @@ __device__ __forceinline__ void dkv_consumers_form(
   };
 
   // P^T, dropout, dS^T of query tile t in stage s, in place (st becomes
-  // P_drop^T, dpt dS^T); masks only on the tiles that need them (a tile
-  // that needs none holds no row without a visible key, so its lse is
-  // finite)
+  // P_drop^T, dpt dS^T); masks only on the tiles that need them: keys of
+  // the block masked, the ragged edge, the causal diagonal (a tile that
+  // needs none holds no row without a visible key, so its lse is finite)
   auto softmax = [&](int t, int s) {
     const int q0 = t * kBQ;
     const float* lse2_s = reinterpret_cast<const float*>(
         rows0 + s * L::kRowBytes / 4);
     const float* delta_s = lse2_s + kBQ;
     const uint32_t* key_s = rows0 + s * L::kRowBytes / 4 + 2 * kBQ;
-    const bool need_mask = kv_mask != nullptr || q0 + kBQ > Sq ||
+    const bool need_mask = keys_some() || q0 + kBQ > Sq ||
                            (causal && kw0 + 63 > q0 + diag);
 #pragma unroll
     for (int j = 0; j < kBQ / 2; ++j) {
@@ -1048,22 +1099,28 @@ int launch_dkv(const void* q, const void* k, const void* v,
 // The dQ kernel's tiles by head dim. D = 64 and 128: 64-key K/V tiles in
 // a two-stage ring fed by a producer warpgroup (a 384-thread block;
 // 128-key tiles at D = 64 spilled S, dP and dQ and serialised the
-// wgmmas), whose first warp also stages each tile's key validity (the
-// consumers reading the key mask from device memory instead ran 12-26%
-// slower at these widths). D = 256: dQ alone is 128 float32 registers a
-// thread, past the 168 that ptxas gives a 384-thread block; so 32-key
-// tiles (S and dP 16 registers each) in a three-stage ring (Q and dO 64 KB
-// each + 3 x (16 + 16) KB = 224 KB) and no producer warpgroup (256
-// threads, up to 255 registers each): consumer thread 0 issues the loads
-// right after its warpgroup has issued S and dP, so a wait for the other
-// warpgroup to release a stage overlaps its own wgmma, and the consumers
-// read the key mask from device memory.
+// wgmmas). D = 256: dQ alone is 128 float32 registers a thread, past the
+// 168 that ptxas gives a 384-thread block; so 32-key tiles (S and dP 16
+// registers each) in a three-stage ring (Q and dO 64 KB each + 3 x (16 +
+// 16) KB = 224 KB) and no producer warpgroup (256 threads, up to 255
+// registers each): consumer thread 0 issues the loads right after its
+// warpgroup has issued S and dP, so a wait for the other warpgroup to
+// release a stage overlaps its own wgmma. Under a key mask every form walks
+// only the non-empty key tiles (key_tiles.cuh; kMaskKeys is the keys a
+// block sorts in shared memory, D = 256 having 456 bytes left beside its
+// ring). At D = 64 and 128 the producer's first warp stages each walked
+// tile's key validity (the length and the mask) beside it, as before the
+// walk: the consumers reading the mask from device memory per element ran
+// 12-26% slower there, and any mask code in their loop spilled or slowed
+// the 168-register form. At D = 256 a mixed tile's consumers read the
+// tile's bits a word at a time.
 template <int D>
 struct DqCfg {
   static constexpr int kBK = 64;  // keys a ring stage holds
   static constexpr int kStages = 2;
   static constexpr bool kProducer = true;
   static constexpr int kThreads = kConsumers + 128;
+  static constexpr int kMaskKeys = 16384;
 };
 template <>
 struct DqCfg<256> {
@@ -1071,13 +1128,16 @@ struct DqCfg<256> {
   static constexpr int kStages = 3;
   static constexpr bool kProducer = false;
   static constexpr int kThreads = kConsumers;
+  static constexpr int kMaskKeys = 2048;
 };
 
 // shared memory of the dQ kernel, byte offsets from a 1024-aligned base:
 // the Q and dO tiles, the K and V rings, each stage's key validity (kBK
-// int32, where a producer stages it), the block's row data (lse in log2
-// units, delta, dropout row key: kBM 4-byte values each), the mbarriers
-// (qdo_full, full[kStages], empty[kStages])
+// int32, then the walked tile's first key and whether it is mixed, where
+// a producer stages them), the key tiles (key_tiles.cuh), the block's row
+// data (lse in log2 units, delta, dropout row key: kBM
+// 4-byte values each), the mbarriers (qdo_full, full[kStages],
+// empty[kStages])
 template <int D>
 struct DqLayout {
   static constexpr int kStages = DqCfg<D>::kStages;
@@ -1088,8 +1148,12 @@ struct DqLayout {
   static constexpr int kK = kDO + kQT;  // stage s at kK + s * kKT
   static constexpr int kV = kK + kStages * kKT;
   static constexpr int kValid = kV + kStages * kKT;
-  static constexpr int kRows =
-      kValid + (DqCfg<D>::kProducer ? kStages * DqCfg<D>::kBK * 4 : 0);
+  // a stage's staged ints: kBK validities, the tile's first key, mixed
+  static constexpr int kStaged = DqCfg<D>::kBK + 4;
+  static constexpr int kTiles =
+      kValid + (DqCfg<D>::kProducer ? kStages * kStaged * 4 : 0);
+  using Tiles = key_tiles::Smem<DqCfg<D>::kBK, DqCfg<D>::kMaskKeys>;
+  static constexpr int kRows = kTiles + Tiles::kBytes;
   static constexpr int kBars = kRows + 3 * kBM * 4;
   static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
   static_assert(kBytes <= 232448, "a block has 227 KB of shared memory");
@@ -1129,7 +1193,7 @@ flash_bwd_dq_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
   const int diag = Sk - Sq;
   // keys the block's rows can see: up to the diagonal of its last row
   const int kend = causal ? min(Sk, min(q0 + kBM, Sq) + diag) : Sk;
-  const int nt = kend > 0 ? (kend + kBK - 1) / kBK : 0;
+  int nt = kend > 0 ? (kend + kBK - 1) / kBK : 0;
 
   const int tid = threadIdx.x;
   if (tid == 0) {
@@ -1143,11 +1207,23 @@ flash_bwd_dq_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
     sm90::fence_barrier_init();
   }
   __syncthreads();
-  const int* mask_row = kv_mask ? kv_mask + (size_t)(bh / H) * Sk : nullptr;
   int* const valid0 = reinterpret_cast<int*>(sbase + L::kValid);
+  // the batch's mask row, formed where it is used (not held in registers
+  // across the loop)
+  auto mask_row = [&]() { return kv_mask + (size_t)(bh / H) * Sk; };
+  // under a mask: walk only the non-empty key tiles (a row with no valid
+  // key walks none and writes zeros)
+  uint8_t* const tiles = sbase + L::kTiles;  // the key tiles' region
+  if (kv_mask != nullptr) {
+    nt = key_tiles::prepare<kBK, C::kMaskKeys>(tiles, mask_row(), Sk, nt);
+  }
+  // walk entry t: the absolute key tile and whether it is mixed
+  auto entry = [&](int t) {
+    return key_tiles::entry<kBK, C::kMaskKeys>(tiles, kv_mask != nullptr, t);
+  };
 
   // The TMA loads, each issued by one thread: the block's Q and dO tiles,
-  // and key tile j's K and V into ring stage j % kStages once every
+  // and walk entry j's K and V into ring stage j % kStages once every
   // consumer has released what the stage held.
   auto load_qdo = [&]() {
     sm90::mbar_arrive_tx(qdo_full, 2 * L::kQT);
@@ -1162,10 +1238,11 @@ flash_bwd_dq_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
     sm90::mbar_wait(empty0 + 8 * s, ((j / kStages) & 1) ^ 1);
     const uint32_t full = full0 + 8 * s;
     sm90::mbar_arrive_tx(full, 2 * L::kKT);
+    const int k0 = key_tiles::tile_of(entry(j)) * kBK;
     for (int c = 0; c < kBoxes; ++c) {
       const uint32_t off = s * L::kKT + c * kBK * 128;
-      sm90::tma_load(base + L::kK + off, &tm_k, full, 64 * c, j * kBK, bh);
-      sm90::tma_load(base + L::kV + off, &tm_v, full, 64 * c, j * kBK, bh);
+      sm90::tma_load(base + L::kK + off, &tm_k, full, 64 * c, k0, bh);
+      sm90::tma_load(base + L::kV + off, &tm_v, full, 64 * c, k0, bh);
     }
   };
 
@@ -1182,10 +1259,24 @@ flash_bwd_dq_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
         } else {
           sm90::mbar_wait(empty0 + 8 * s, ((t / kStages) & 1) ^ 1);
         }
-        int* valid = valid0 + s * kBK;
-        for (int r = lane; r < kBK; r += 32) {
-          const int key = t * kBK + r;
-          valid[r] = key < Sk && (mask_row == nullptr || mask_row[key] != 0);
+        // the walked tile's key validity (length and mask), first key and
+        // class beside it
+        const uint32_t e = entry(t);
+        const int j = key_tiles::tile_of(e);
+        int* valid = valid0 + s * L::kStaged;
+        if (lane == 0) {
+          valid[kBK] = j * kBK;
+          valid[kBK + 1] = key_tiles::is_mixed(e);
+        }
+#pragma unroll
+        for (int w = 0; w < kBK / 32; ++w) {
+          const int key = j * kBK + 32 * w + lane;
+          bool ok = key < Sk;
+          if (kv_mask != nullptr) {
+            ok = ok && ((key_tiles::tile_word<kBK, C::kMaskKeys>(
+                             tiles, mask_row(), Sk, j, w) >> lane) & 1u);
+          }
+          valid[32 * w + lane] = ok;
         }
         sm90::mbar_arrive(full0 + 8 * s);
       }
@@ -1236,9 +1327,13 @@ flash_bwd_dq_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t q_rows = base + L::kQ + wg * 64 * 128;
   const uint32_t do_rows = base + L::kDO + wg * 64 * 128;
   if (nt > 0) sm90::mbar_wait(qdo_full, 0);
-  for (int t = 0; t < nt; ++t) {
+  // the walk's length, re-read where it is compared (not held in a
+  // register across the loop): the table's count under a mask
+  const int* const walk_len =
+      valid0 + (L::kTiles - L::kValid + L::Tiles::kCount) / 4;
+  const int nt_all = kend > 0 ? (kend + kBK - 1) / kBK : 0;
+  for (int t = 0; t < (kv_mask != nullptr ? *walk_len : nt_all); ++t) {
     const int s = t % kStages;
-    const int k0 = t * kBK;
     sm90::mbar_wait(full0 + 8 * s, (t / kStages) & 1);
     const uint32_t k_tile = base + L::kK + s * L::kKT;
     const uint32_t v_tile = base + L::kV + s * L::kKT;
@@ -1270,35 +1365,75 @@ flash_bwd_dq_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
     sm90::wgmma_wait<0>();
     sm90::fence_regs(sc);
     sm90::fence_regs(dp);
+    // the walked tile, read only now (held across the products, or read
+    // through a pointer to the tile table, it pushed the 384-thread form
+    // past its 168 registers): where a producer staged it, beside the
+    // tile's validity
+    int k0;
+    bool mixed;
+    if constexpr (C::kProducer) {
+      k0 = valid0[s * L::kStaged + kBK];
+      mixed = valid0[s * L::kStaged + kBK + 1] != 0;
+    } else {
+      const uint32_t e = entry(t);
+      k0 = key_tiles::tile_of(e) * kBK;
+      mixed = key_tiles::is_mixed(e);
+    }
 
-    // P, dropout, dS; masks only on the tiles that need them (a tile that
-    // needs none holds no row without a visible key, so its lse is finite)
-    const bool need_mask = kv_mask != nullptr || k0 + kBK > Sk ||
-                           (causal && k0 + kBK - 1 > r0 + diag);
+    // P, dropout, dS; masks only on the tiles that need them: a mixed
+    // tile, the ragged edge, the causal diagonal (a tile that needs none
+    // holds no row without a visible key, so its lse is finite). Compiled
+    // twice: with the key mask (a mixed tile) and without, so that the
+    // mask's ballots and branches stay out of the other tiles' code; the
+    // producer form reads the validity its producer staged.
+    auto p_ds = [&](auto key_mask) {
+      constexpr bool kKeyMask = decltype(key_mask)::value;
+      const bool need_mask = mixed || k0 + kBK > Sk ||
+                             (causal && k0 + kBK - 1 > r0 + diag);
+      uint32_t word = ~0u;  // the key validity of columns 32 w .. + 31
 #pragma unroll
-    for (int j = 0; j < kBK / 2; ++j) {
-      const int h = (j % 4) / 2;
-      const int key = k0 + 8 * (j / 4) + col_off + (j % 2);
-      const int r = row0 + 8 * h - q0;  // the row in the block
-      float p = sm90::exp2_approx(fmaf(sc[j], scale_log2, -rows[r]));
-      if (need_mask) {
-        bool ok;
-        if constexpr (C::kProducer) {
-          ok = valid0[s * kBK + (key - k0)] &&
-               (!causal || key <= q0 + r + diag);
-        } else {
-          ok = key < Sk && (!causal || key <= q0 + r + diag);
-          if (ok && mask_row != nullptr) ok = mask_row[key] != 0;
+      for (int j = 0; j < kBK / 2; ++j) {
+        const int h = (j % 4) / 2;
+        const int key = k0 + 8 * (j / 4) + col_off + (j % 2);
+        const int r = row0 + 8 * h - q0;  // the row in the block
+        float p = sm90::exp2_approx(fmaf(sc[j], scale_log2, -rows[r]));
+        if constexpr (kKeyMask) {
+          if (j % 16 == 0) {
+            word = key_tiles::tile_word<kBK, C::kMaskKeys>(
+                tiles, mask_row(), Sk, k0 / kBK, j / 16);
+          }
         }
-        if (!ok) p = 0.f;
+        if (need_mask) {
+          bool ok;
+          if constexpr (C::kProducer) {
+            ok = valid0[s * L::kStaged + (key - k0)] &&
+                 (!causal || key <= q0 + r + diag);
+          } else {
+            ok = key < Sk && (!causal || key <= q0 + r + diag);
+            if constexpr (kKeyMask) {
+              // the key's bit in word j / 16: 8 ((j / 4) % 4) + col_off +
+              // j % 2
+              ok = ok &&
+                   ((word >> (8 * ((j / 4) % 4) + col_off + (j % 2))) & 1u);
+            }
+          }
+          if (!ok) p = 0.f;
+        }
+        float d = dp[j];
+        if (dropout) {
+          const uint32_t rkey =
+              reinterpret_cast<const uint32_t*>(rows)[2 * kBM + r];
+          d = dropout_keep(rkey, key, threshold) ? d * inv_keep : 0.f;
+        }
+        sc[j] = p * (d - rows[kBM + r]);
       }
-      float d = dp[j];
-      if (dropout) {
-        const uint32_t rkey =
-            reinterpret_cast<const uint32_t*>(rows)[2 * kBM + r];
-        d = dropout_keep(rkey, key, threshold) ? d * inv_keep : 0.f;
-      }
-      sc[j] = p * (d - rows[kBM + r]);
+    };
+    if constexpr (C::kProducer) {
+      p_ds(std::false_type{});
+    } else if (mixed) {
+      p_ds(std::true_type{});
+    } else {
+      p_ds(std::false_type{});
     }
 
     // dQ += dS K: dS from registers, K MN-major from the same ring tile;

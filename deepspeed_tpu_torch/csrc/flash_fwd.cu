@@ -45,6 +45,14 @@
 // folded into one FMA, the special-function unit's ex2); lse is converted
 // back to natural-log units at the edge.
 //
+// Under a key mask (BERT's padding) the block first sorts the key tiles it
+// would walk into empty, full and mixed (key_tiles.cuh: one pass over its
+// batch's mask row with warp ballots, into shared memory), then the loader
+// and the consumers walk only the non-empty tiles: a full tile takes the
+// mask-free path, a mixed one reads its validity bits from shared memory
+// (not the mask from device memory per score element), and a row with no
+// valid key walks none and takes the epilogue's zeros.
+//
 // The tiles depend on the head dim (tc::Cfg): at D = 64, 128-key tiles in
 // a three-stage ring fed by a third, producer warpgroup, whose registers
 // go to the consumers (setmaxnreg 24 / 240). A 384-thread block gets 168
@@ -86,6 +94,7 @@
 #include <type_traits>
 
 #include "dropout.cuh"
+#include "key_tiles.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -277,12 +286,15 @@ constexpr float kLn2 = 0.6931471805599453f;
 // K or V tile of 128 keys is 64 KB,
 // and O alone is 128 registers; so 64-key tiles in a two-stage ring (Q
 // 64 KB + 2 x (32 + 32) KB = 192 KB), no producer warpgroup either.
+// kMaskKeys: the keys whose validity a block sorts into tiles in shared
+// memory (key_tiles.cuh); D = 128 has 1.9 KB left beside its ring.
 template <int D>
 struct Cfg {
   static constexpr int kBN = 128;  // keys a K/V tile holds
   static constexpr int kStages = 3;
   static constexpr bool kProducer = true;
   static constexpr int kThreads = kConsumers + 128;
+  static constexpr int kMaskKeys = 16384;
 };
 template <>
 struct Cfg<128> {
@@ -290,6 +302,7 @@ struct Cfg<128> {
   static constexpr int kStages = 3;
   static constexpr bool kProducer = false;
   static constexpr int kThreads = kConsumers;
+  static constexpr int kMaskKeys = 8192;
 };
 template <>
 struct Cfg<256> {
@@ -297,11 +310,12 @@ struct Cfg<256> {
   static constexpr int kStages = 2;
   static constexpr bool kProducer = false;
   static constexpr int kThreads = kConsumers;
+  static constexpr int kMaskKeys = 16384;
 };
 
 // shared memory, byte offsets from a 1024-aligned base: the Q tile, the
-// K and V rings, the mbarriers (q_full, k_full[kStages], v_full[kStages],
-// k_empty[kStages], v_empty[kStages])
+// K and V rings, the key tiles (key_tiles.cuh), the mbarriers (q_full,
+// k_full[kStages], v_full[kStages], k_empty[kStages], v_empty[kStages])
 template <int D>
 struct Layout {
   static constexpr int kStages = Cfg<D>::kStages;
@@ -310,7 +324,9 @@ struct Layout {
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + kQT;  // stage s at kK + s * kKV
   static constexpr int kV = kK + kStages * kKV;
-  static constexpr int kBars = kV + kStages * kKV;
+  static constexpr int kTiles = kV + kStages * kKV;
+  using Tiles = key_tiles::Smem<Cfg<D>::kBN, Cfg<D>::kMaskKeys>;
+  static constexpr int kBars = kTiles + Tiles::kBytes;
   static constexpr int kBytes = kBars + 8 * (1 + 4 * kStages) + 1024;
   static_assert(kBytes <= 232448, "a block has 227 KB of shared memory");
 };
@@ -336,6 +352,8 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
   constexpr int kNH = D / kNW;
   extern __shared__ uint8_t smem[];
   const uint32_t base = (sm90::smem_addr(smem) + 1023u) & ~1023u;
+  // the key tiles' region (key_tiles.cuh)
+  uint8_t* const tiles = smem + (base - sm90::smem_addr(smem)) + L::kTiles;
   const uint32_t q_full = base + L::kBars;
   const uint32_t k_full0 = q_full + 8;  // k_full[s] at k_full0 + 8 * s
   const uint32_t v_full0 = k_full0 + 8 * kStages;
@@ -347,7 +365,10 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
   const int diag = Sk - Sq;
   // keys the block's rows can see: up to the diagonal of its last row
   const int kend = causal ? min(Sk, min(q0 + kBM, Sq) + diag) : Sk;
-  const int ntiles = kend > 0 ? (kend + kBN - 1) / kBN : 0;
+  int ntiles = kend > 0 ? (kend + kBN - 1) / kBN : 0;
+  // the batch's mask row, formed where it is used (not held in registers
+  // across the loop)
+  auto mask_row = [&]() { return kv_mask + (size_t)(bh / H) * Sk; };
 
   const int tid = threadIdx.x;
   if (tid == 0) {
@@ -361,10 +382,20 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
     sm90::fence_barrier_init();
   }
   __syncthreads();
+  // under a mask: walk only the non-empty key tiles (a row with no valid
+  // key walks none and takes the epilogue's zeros)
+  if (kv_mask != nullptr) {
+    ntiles =
+        key_tiles::prepare<kBN, C::kMaskKeys>(tiles, mask_row(), Sk, ntiles);
+  }
+  // walk entry t: the absolute key tile and whether it is mixed
+  auto entry = [&](int t) {
+    return key_tiles::entry<kBN, C::kMaskKeys>(tiles, kv_mask != nullptr, t);
+  };
 
   // The TMA loads, each issued by one thread: the block's Q tile, and the
-  // K (or V) tile j into ring stage j % kStages once every consumer has
-  // released what the stage held. K and V are released apart: K when its
+  // K (or V) tile of walk entry j into ring stage j % kStages once every
+  // consumer has released what the stage held. K and V are released apart: K when its
   // S has completed, V when its P V has.
   auto load_q = [&]() {
     sm90::mbar_arrive_tx(q_full, L::kQT);
@@ -381,7 +412,7 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
     sm90::mbar_arrive_tx(full, L::kKV);
     for (int c = 0; c < kBoxes; ++c) {
       sm90::tma_load(base + ring + s * L::kKV + c * kBN * 128, map, full,
-                     64 * c, j * kBN, bh);
+                     64 * c, key_tiles::tile_of(entry(j)) * kBN, bh);
     }
   };
   auto load_k = [&](int j) { load_kv(&tm_k, L::kK, k_full0, k_empty0, j); };
@@ -418,7 +449,6 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
   const int r0 = q0 + 64 * wg;
   const int row0 = r0 + 16 * ((tid % 128) / 32) + lane / 4;
   const int col_off = 2 * (lane % 4);
-  const int* mask_row = kv_mask ? kv_mask + (size_t)(bh / H) * Sk : nullptr;
 
   float o[kNH][kNW / 2];
 #pragma unroll
@@ -467,24 +497,45 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
     }
     sm90::wgmma_commit();
   };
-  // the masks (only on the tiles that need them) and the online softmax
-  // of tile t in the exp2 domain: sc becomes the dropped P; m, alpha and
-  // the undropped row sums (into lsum) advance. A row that has seen no
-  // key yet keeps m = -inf and takes mu = 0, so its masked entries give
+  // the masks (only on the tiles that need them: a mixed tile, the
+  // ragged edge, the causal diagonal) and the online softmax of walk entry
+  // t in the exp2 domain: sc becomes the dropped P; m, alpha and the
+  // undropped row sums (into lsum) advance. A row that has seen no key yet
+  // keeps m = -inf and takes mu = 0, so its masked entries give
   // exp2(-inf) = 0.
   float lsum[2];
   auto softmax = [&](int t) {
-    const int k0 = t * kBN;
-    if (mask_row != nullptr || k0 + kBN > Sk ||
-        (causal && k0 + kBN - 1 > r0 + diag)) {
+    const uint32_t e = entry(t);
+    const int k0 = key_tiles::tile_of(e) * kBN;
+    const bool mixed = key_tiles::is_mixed(e);
+    // compiled twice: with the key mask (a mixed tile) and without, so
+    // that the mask's ballots and branches stay out of the other tiles'
+    // code
+    auto mask = [&](auto key_mask) {
+      constexpr bool kKeyMask = decltype(key_mask)::value;
+      uint32_t word = ~0u;  // the key validity of columns 32 w .. + 31
 #pragma unroll
       for (int i = 0; i < kBN / 2; ++i) {
+        if constexpr (kKeyMask) {
+          if (i % 16 == 0) {
+            word = key_tiles::tile_word<kBN, C::kMaskKeys>(
+                tiles, mask_row(), Sk, k0 / kBN, i / 16);
+          }
+        }
         const int col = k0 + 8 * (i / 4) + col_off + (i % 2);
         const int row = row0 + 8 * ((i % 4) / 2);
         bool ok = col < Sk && (!causal || col <= row + diag);
-        if (ok && mask_row != nullptr) ok = mask_row[col] != 0;
+        if constexpr (kKeyMask) {
+          // the key's bit in word i / 16: 8 ((i / 4) % 4) + col_off + i % 2
+          ok = ok && ((word >> (8 * ((i / 4) % 4) + col_off + (i % 2))) & 1u);
+        }
         if (!ok) sc[i] = -INFINITY;
       }
+    };
+    if (mixed) {
+      mask(std::true_type{});
+    } else if (k0 + kBN > Sk || (causal && k0 + kBN - 1 > r0 + diag)) {
+      mask(std::false_type{});
     }
     float mu[2];
 #pragma unroll

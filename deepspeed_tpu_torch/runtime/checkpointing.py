@@ -57,7 +57,10 @@ shards of the canonical ``{"master", "inner"}`` state, with
 shard dim, or the members and padded size of a flat int8 group). Rank 0
 writes the model file (the full parameters: at stage 3 gathered from the
 shards). A barrier comes before the manifest, which rank 0 writes over
-every file, and another after ``latest`` is published. A load merges
+every file; then rank 0's outcome (published, or the error its
+verification or publish raised) is all-reduced, so every rank returns or
+raises alike. A load first has the ranks agree on the tag they staged
+(else every rank loads nothing). A load merges
 every saved shard into the canonical layout of one rank (the state a
 dp = 1 engine holds) and cuts this engine's shards from it, so a
 checkpoint saved at one data-parallel size loads at any other, and
@@ -65,6 +68,7 @@ master and non-master layouts cross.
 """
 
 import dataclasses
+import hashlib
 import io
 import logging
 import os
@@ -338,6 +342,65 @@ def _canonical_opt_state(engine):
             "inner": inner}
 
 
+# rank 0's commit outcome, all-reduced to the other ranks at dp > 1
+_COMMITTED = 0
+_COMMIT_CORRUPT = 1  # the post-save verification failed
+_COMMIT_IO = 2       # an I/O error outlasted its retries
+_COMMIT_FAILED = 3   # anything else
+
+
+def _commit(res, save_dir, ckpt_dir, tag, engine):
+    """Rank 0's commit: the manifest over every file, its re-verification
+    and the publish of ``latest``."""
+    if not res.enabled:
+        with open(os.path.join(save_dir, LATEST_FILE), "w") as f:
+            f.write(str(tag))
+        return
+    # commit record LAST: hash the completed directory, publish the
+    # manifest atomically, then re-verify the whole checkpoint from disk
+    # before the tag becomes reachable
+    manifest_lib.write_manifest(
+        ckpt_dir, tag,
+        meta={"global_steps": int(engine.global_steps)},
+        fsync=res.fsync, retry=res.retry, on_retry=res.on_retry,
+    )
+    status, reason = manifest_lib.verify_checkpoint(ckpt_dir)
+    if status != manifest_lib.VALID:
+        raise manifest_lib.CheckpointCorruptionError(
+            f"post-save verification of {ckpt_dir} failed "
+            f"({reason}); 'latest' not published — the previous "
+            "checkpoint remains the resume point"
+        )
+    res.retrying(
+        lambda: atomic_io.atomic_write_text(
+            os.path.join(save_dir, LATEST_FILE), str(tag),
+            fsync=res.fsync,
+        ),
+        op_name="publish_latest",
+    )
+
+
+def _share_commit_outcome(engine, group, outcome):
+    """All-reduce rank 0's outcome (the others send 0) in place of a
+    bare barrier; returns it on every rank."""
+    t = torch.tensor([outcome], dtype=torch.int32, device=engine.device)
+    dist_lib.all_reduce(t, group)
+    return int(t.item())
+
+
+def _raise_commit_outcome(outcome, ckpt_dir):
+    """On a rank other than 0: raise what rank 0 raised, by class."""
+    if outcome == _COMMITTED:
+        return
+    what = f"rank 0 failed to commit {ckpt_dir}; 'latest' not published"
+    if outcome == _COMMIT_CORRUPT:
+        raise manifest_lib.CheckpointCorruptionError(
+            f"{what} (its post-save verification failed)")
+    if outcome == _COMMIT_IO:
+        raise OSError(f"{what} (an I/O error outlasted its retries)")
+    raise RuntimeError(what)
+
+
 def save_checkpoint(engine, save_dir, tag=None, client_state=None):
     """Write the model and optimizer files, then the manifest, re-verify
     it and publish ``latest``; retention GC last. Raises
@@ -407,44 +470,31 @@ def save_checkpoint(engine, save_dir, tag=None, client_state=None):
         # every rank's file is written before the manifest covers them
         dist_lib.barrier(group)
     if rank != 0:
-        # rank 0 commits; the others wait until 'latest' is published
-        dist_lib.barrier(group)
+        # rank 0 commits; the others wait for its outcome and fail alike
+        _raise_commit_outcome(_share_commit_outcome(engine, group, 0),
+                              ckpt_dir)
         res.observe_save(started)
         return True
 
-    if res.enabled:
-        # commit record LAST: hash the completed directory, publish the
-        # manifest atomically, then re-verify the whole checkpoint from
-        # disk before the tag becomes reachable
-        manifest_lib.write_manifest(
-            ckpt_dir, tag,
-            meta={"global_steps": int(engine.global_steps)},
-            fsync=res.fsync, retry=res.retry, on_retry=res.on_retry,
-        )
-        status, reason = manifest_lib.verify_checkpoint(ckpt_dir)
-        if status != manifest_lib.VALID:
-            raise manifest_lib.CheckpointCorruptionError(
-                f"post-save verification of {ckpt_dir} failed "
-                f"({reason}); 'latest' not published — the previous "
-                "checkpoint remains the resume point"
-            )
-        res.retrying(
-            lambda: atomic_io.atomic_write_text(
-                os.path.join(save_dir, LATEST_FILE), str(tag),
-                fsync=res.fsync,
-            ),
-            op_name="publish_latest",
-        )
-    else:
-        with open(os.path.join(save_dir, LATEST_FILE), "w") as f:
-            f.write(str(tag))
+    outcome = _COMMIT_FAILED
+    try:
+        _commit(res, save_dir, ckpt_dir, tag, engine)
+        outcome = _COMMITTED
+    except manifest_lib.CheckpointCorruptionError:
+        outcome = _COMMIT_CORRUPT
+        raise
+    except OSError:
+        outcome = _COMMIT_IO
+        raise
+    finally:
+        # reached even when the commit raises, so no rank is left waiting
+        if dp > 1:
+            _share_commit_outcome(engine, group, outcome)
     if res.enabled and res.keep_last_n > 0:
         retention.prune_checkpoints(
             save_dir, res.keep_last_n, protect={str(tag)},
             on_delete=res.count_pruned,
         )
-    if dp > 1:
-        dist_lib.barrier(group)
     res.observe_save(started)
     log_dist(f"Saved checkpoint {tag} to {save_dir}", ranks=[0])
     return True
@@ -653,11 +703,45 @@ def _apply_checkpoint(engine, staged, load_optimizer_states,
         engine.lr_scheduler.load_state_dict(state["lr_scheduler"])
 
 
-def _stage_with_fallback(load_dir, tag, load_optimizer_states, res):
+def _stage_with_fallback(load_dir, tag, load_optimizer_states, res,
+                         engine=None):
     """Resolve ``tag`` (None => the 'latest' pointer), walk candidates
     newest-first on corruption, and stage the first loadable one entirely
     on host. The shared verified-load front half of ``load_checkpoint``
-    and ``load_module_state``. Returns a ``_Staged`` or None."""
+    and ``load_module_state``. Returns a ``_Staged`` or None.
+
+    Across data-parallel ranks (``engine`` at dp > 1) the ranks then
+    compare what they staged: on a flaky shared mount they can see
+    different corruption and fall back to different tags. Every rank
+    gathers the first 8 bytes of each rank's tag's sha256 (a rank that
+    staged nothing sends 0) and, if any differ, every rank logs the
+    disagreement and returns None, as the JAX package does."""
+    staged = _stage_walk(load_dir, tag, load_optimizer_states, res)
+    if int(getattr(engine, "dp_world_size", 1)) > 1:
+        mine = 0
+        if staged is not None:
+            mine = int.from_bytes(
+                hashlib.sha256(staged.tag.encode()).digest()[:8], "little",
+                signed=True)
+        dp = engine.dp_world_size
+        everyone = torch.empty(dp, dtype=torch.int64, device=engine.device)
+        dist_lib.all_gather(
+            everyone, torch.tensor([mine], dtype=torch.int64,
+                                   device=engine.device), engine._dp_group)
+        if len(set(everyone.tolist())) > 1:
+            log_dist(
+                f"checkpoint tag disagreement across ranks (this rank "
+                f"staged {staged.tag if staged is not None else 'nothing'} "
+                f"from {load_dir}); failing the load on every rank — "
+                "inspect the shared filesystem and retry",
+                ranks=[-1], level=logging.ERROR,
+            )
+            return None
+    return staged
+
+
+def _stage_walk(load_dir, tag, load_optimizer_states, res):
+    """One rank's candidate walk of :func:`_stage_with_fallback`."""
     explicit_tag = tag is not None
     if tag is None:
         latest = os.path.join(load_dir, LATEST_FILE)
@@ -721,7 +805,8 @@ def load_checkpoint(engine, load_dir, tag=None, load_optimizer_states=True,
     with the engine untouched too."""
     res = _resilience_of(engine)
     started = time.monotonic()
-    staged = _stage_with_fallback(load_dir, tag, load_optimizer_states, res)
+    staged = _stage_with_fallback(load_dir, tag, load_optimizer_states, res,
+                                  engine)
     if staged is None:
         return None, {}
     _check_compatible(engine, staged, load_optimizer_states)

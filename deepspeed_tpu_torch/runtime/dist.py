@@ -17,9 +17,10 @@ Two parts of the JAX module are left out:
 - ``shard_map``, a shim over two JAX versions' spelling of one function.
 
 The collectives are a few functions on tensors over a process group:
-:func:`all_reduce` (a sum in place), :func:`reduce_scatter` (a sum of
-``dp`` equal chunks, this rank's chunk out), :func:`all_gather` (every
-rank's chunk, in rank order) and :func:`barrier`. Each can be issued
+:func:`all_reduce` (a sum in place, or another reduce op),
+:func:`reduce_scatter` (a sum of ``dp`` equal chunks, this rank's chunk
+out), :func:`all_gather` (every rank's chunk, in rank order) and
+:func:`barrier`. Each can be issued
 asynchronously (``async_op=True`` returns the work handle; its
 ``wait()`` finishes it). Two ranks that share one card talk over gloo
 (NCCL refuses two ranks on one device): gloo takes all three ops on CUDA
@@ -93,9 +94,11 @@ def init_distributed(dist_init_required=None, device=None):
     return True
 
 
-def all_reduce(tensor, group=None, async_op=False):
-    """Sum ``tensor`` over ``group`` in place."""
-    return dist.all_reduce(tensor, group=group, async_op=async_op)
+def all_reduce(tensor, group=None, async_op=False, op=None):
+    """Sum ``tensor`` over ``group`` in place (or reduce it with ``op``, a
+    ``torch.distributed.ReduceOp``)."""
+    return dist.all_reduce(tensor, op=dist.ReduceOp.SUM if op is None else op,
+                           group=group, async_op=async_op)
 
 
 def reduce_scatter(out, inp, group=None, async_op=False):

@@ -1461,7 +1461,24 @@ class DeepSpeedEngine:
         disposition (or disarm and train on with ``exit_after_save``
         false)."""
         res = self.resilience
-        if res.preemption is None or not res.preemption_armed:
+        if res.preemption is None:
+            return
+        armed = res.preemption_armed
+        if self.dp_world_size > 1:
+            # every rank sees the OR of the ranks' flags at the same step
+            # boundary: a signal reaches one process, and a rank that
+            # entered save_checkpoint alone would wait in its barrier while
+            # the others ran the next window's collectives (the JAX
+            # engine's allgather of the flag; one int a boundary, only
+            # with the drain enabled)
+            flag = torch.tensor([int(armed)], dtype=torch.int32,
+                                device=self.device)
+            dist_lib.all_reduce(flag, self._dp_group,
+                                op=torch.distributed.ReduceOp.MAX)
+            armed = bool(flag.item())
+            if armed and not res.preemption_armed:
+                res.preemption.arm()  # mirror the other rank's signal
+        if not armed:
             return
         save_dir = res.preemption_save_dir or self._last_checkpoint_dir
         if not save_dir:

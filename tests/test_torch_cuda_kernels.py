@@ -17,6 +17,12 @@ them):
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py \
         -k "d256_tensor_core_forward_and_dq"
 
+The padding-mask patterns (lengths at the tiles' edges, left padding,
+holes, dead rows, an all-ones mask bit for bit against no mask, and rows
+longer than a block sorts in shared memory):
+
+    python -m pytest -m cuda tests/test_torch_cuda_kernels.py -k mask
+
 Tolerances as in chip_smoke.py: float32 atol = rtol = 1e-4 (another
 summation order), bfloat16 atol = rtol = 1e-2 (p and the output rounded
 to bfloat16 at different points of the online softmax; rtol 1e-2 covers
@@ -505,6 +511,146 @@ def test_tensor_core_kernels_are_bitwise_repeatable(cuda, dtype, d):
     torch.cuda.synchronize()
     for a, b in zip(first, again):
         assert torch.equal(a, b)
+
+
+# lengths at the key tiles' edges (64-key dQ tiles, 128-key forward and
+# dK/dV tiles; 32- and 64-key tiles at D = 256)
+EDGE_LENGTHS = (63, 64, 65, 127, 128, 129, 255, 256, 257)
+
+
+def mask_pattern(pattern, s):
+    """A [B, s] int32 key mask (host): ``edges`` right padding at
+    EDGE_LENGTHS; ``left`` left padding at those lengths; ``hole`` rows
+    whose middle keys are masked (one spans a whole 128-key tile) beside a
+    full row; ``dead`` a row with no valid key between ragged ones;
+    ``ones`` every key valid."""
+    b = len(EDGE_LENGTHS)
+    mask = torch.zeros(b, s, dtype=torch.int32)
+    if pattern == "ones":
+        mask[:] = 1
+    for row, n in enumerate(EDGE_LENGTHS):
+        if pattern == "edges":
+            mask[row, :n] = 1
+        elif pattern == "left":
+            mask[row, s - n:] = 1
+        elif pattern == "hole":
+            mask[row] = 1
+            if row % 2:
+                mask[row, n // 2:n // 2 + 64 + n] = 0
+        elif pattern == "dead":
+            mask[row, :max(0, n - 8 * row)] = 1 if row != 4 else 0
+    return mask
+
+
+def _mask_case(cuda, dtype, d, s, pattern, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    mask = mask_pattern(pattern, s).to(cuda)
+    q, k, v, dout = (
+        torch.randn(mask.shape[0], 2, s, d, device=cuda, generator=g)
+        .to(dtype) for _ in range(4))
+    return q, k, v, dout, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("pattern", ["edges", "left", "hole", "dead"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_mask_patterns_match_plain(cuda, dtype, d, pattern, causal,
+                                         rate):
+    """The forward, dQ and dK/dV under padding masks whose valid keys end,
+    start or stop at the key tiles' edges (the tensor-core kernels walk
+    only the tiles with a valid key and mask only the mixed ones), one
+    launch each, against the plain versions: rows that see no key and
+    masked keys' gradient rows exact zeros."""
+    s = 384
+    q, k, v, dout, mask = _mask_case(cuda, dtype, d, s, pattern, 41)
+    fargs = (q, k, v, mask, causal, None, rate, 23)
+    before = (flash_fwd.launches, flash_bwd_dq.launches,
+              flash_bwd_dkv.launches)
+    out, lse = flash_fwd(*fargs)
+    ref, ref_lse = flash_fwd_plain(*fargs)
+    delta = (dout.float() * ref.float()).sum(dim=-1)
+    bargs = (q, k, v, mask, dout, ref_lse, delta, causal, None, rate, 23)
+    dq = flash_bwd_dq(*bargs)
+    dk, dv = flash_bwd_dkv(*bargs)
+    torch.cuda.synchronize()
+    assert (flash_fwd.launches, flash_bwd_dq.launches,
+            flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    _close(out, ref, dtype)
+    rows = ref_lse > -1e29
+    _close(lse[rows], ref_lse[rows], torch.float32)
+    want = (flash_bwd_dq_plain(*bargs), *flash_bwd_dkv_plain(*bargs))
+    for got, ref_g in zip((dq, dk, dv), want):
+        _close(got, ref_g, dtype, scaled=True)
+    assert bool((out[~rows] == 0).all()) and bool((dq[~rows] == 0).all())
+    masked = (mask == 0)[:, None, :, None].expand_as(dk)
+    assert bool((dk[masked] == 0).all()) and bool((dv[masked] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_all_ones_mask_equals_no_mask_bitwise(cuda, dtype, d, causal,
+                                                    rate):
+    """A mask that keeps every key sorts every tile full, so the
+    tensor-core kernels take the mask-free path: out, lse, dQ, dK and dV
+    equal kv_mask=None's bit for bit (Sk = 1000 leaves a ragged tile)."""
+    s = 1000
+    q, k, v, dout, _ = _attention_case(cuda, dtype, d, s, s, False, 43)
+    ones = torch.ones(q.shape[0], s, dtype=torch.int32, device=cuda)
+    results = []
+    for mask in (ones, None):
+        out, lse = flash_fwd(q, k, v, mask, causal, None, rate, 29)
+        delta = (dout.float() * out.float()).sum(dim=-1)
+        bargs = (q, k, v, mask, dout, lse, delta, causal, None, rate, 29)
+        results.append((out, lse, flash_bwd_dq(*bargs),
+                        *flash_bwd_dkv(*bargs)))
+    torch.cuda.synchronize()
+    for a, b in zip(*results):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d,sk", [(128, 8192 + 200), (256, 2048 + 52),
+                                  (64, 16384 + 72)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_mask_past_the_tile_room(cuda, dtype, d, sk, rate):
+    """A mask row longer than a block sorts in shared memory (the forward
+    at D = 128 above 8192 keys, dQ at D = 256 above 2048, both at D = 64
+    above 16384) is walked whole, each warp forming a mixed tile's bits
+    from the mask in device memory: still the plain versions' results,
+    dead rows zeros."""
+    g = torch.Generator(device=cuda).manual_seed(47)
+    b, h, sq = 3, 1, 100
+    q, dout = (torch.randn(b, h, sq, d, device=cuda, generator=g).to(dtype)
+               for _ in range(2))
+    k, v = (torch.randn(b, h, sk, d, device=cuda, generator=g).to(dtype)
+            for _ in range(2))
+    mask = torch.ones(b, sk, dtype=torch.int32, device=cuda)
+    mask[0, sk // 3:sk // 2] = 0  # a hole
+    mask[0, sk - 70:] = 0         # a ragged tail
+    mask[1] = 0                   # a dead row
+    fargs = (q, k, v, mask, False, None, rate, 31)
+    out, lse = flash_fwd(*fargs)
+    ref, ref_lse = flash_fwd_plain(*fargs)
+    delta = (dout.float() * ref.float()).sum(dim=-1)
+    bargs = (q, k, v, mask, dout, ref_lse, delta, False, None, rate, 31)
+    dq = flash_bwd_dq(*bargs)
+    dk, dv = flash_bwd_dkv(*bargs)
+    torch.cuda.synchronize()
+    _close(out, ref, dtype)
+    rows = ref_lse > -1e29
+    _close(lse[rows], ref_lse[rows], torch.float32)
+    want = (flash_bwd_dq_plain(*bargs), *flash_bwd_dkv_plain(*bargs))
+    for got, ref_g in zip((dq, dk, dv), want):
+        _close(got, ref_g, dtype, scaled=True)
+    assert bool((out[1] == 0).all()) and bool((dq[1] == 0).all())
 
 
 @pytest.mark.cuda

@@ -403,10 +403,99 @@ def case_sparse(case, rank, dp, workdir):
     return {"dense": sparse_all_reduce(csr).numpy()}
 
 
+def _resilient_mlp(dp, stage, **resilience):
+    """An MLP engine at ZeRO ``stage`` with the resilience block
+    ``{"enabled": True, **resilience}``."""
+    import deepspeed_tpu_torch as dst
+
+    engine, *_ = dst.initialize(
+        model=torch_mlp(mlp_weights()), device="cpu",
+        config_params=config(stage, "Adam", "fp32", 2, 1, dp,
+                             resilience={"enabled": True, **resilience}))
+    return engine
+
+
+def _mlp_window(engine, rank, dp, seed):
+    """One window of the MLP's rows (this rank's), its loss."""
+    import torch
+
+    batch = windows("mlp", 1, 1, 2 * dp, seed)[0][0]
+    mine = tuple(torch.from_numpy(x) for x in rank_rows(batch, rank, dp))
+    return float(engine.train_batch(iter([mine])))
+
+
+def case_preempt(case, rank, dp, workdir):
+    """A SIGTERM to rank 1 alone between two windows: at the next step
+    boundary every rank drains into the same tag (the drain keeps
+    training), and a third window runs on every rank."""
+    import signal
+
+    ckpt = workdir / case["dir"]
+    engine = _resilient_mlp(dp, 1, preemption={
+        "enabled": True, "save_dir": str(ckpt), "exit_after_save": False})
+    losses = [_mlp_window(engine, rank, dp, 0)]
+    if rank == 1:
+        os.kill(os.getpid(), signal.SIGTERM)
+    losses.append(_mlp_window(engine, rank, dp, 1))
+    saved = sorted(os.listdir(ckpt)) if ckpt.exists() else []
+    losses.append(_mlp_window(engine, rank, dp, 2))
+    return {"saved": saved, "losses": losses,
+            "latest": (ckpt / "latest").read_text() if saved else None,
+            "armed": engine.resilience.preemption_armed,
+            "global_steps": engine.global_steps}
+
+
+def case_load_disagree(case, rank, dp, workdir):
+    """Two tags saved; a fresh engine on each rank loads from 'latest',
+    rank 1 with one injected read fault (no retry), so it alone falls
+    back to the older tag: every rank must load nothing. A second load,
+    the fault spent, takes the newest tag on every rank."""
+    ckpt = workdir / case["dir"]
+    engine = _resilient_mlp(dp, 1)
+    for step, tag in enumerate(("t1", "t2")):
+        _mlp_window(engine, rank, dp, step)
+        engine.save_checkpoint(str(ckpt), tag=tag)
+    faults = {}
+    if rank == 1:
+        faults = {"retry": {"max_attempts": 1}, "fault_injection": {
+            "enabled": True,
+            "faults": [{"site": "checkpoint.read", "times": 1}]}}
+    fresh = _resilient_mlp(dp, 1, **faults)
+    path, client = fresh.load_checkpoint(str(ckpt))
+    out = {"path": path, "client": client, "steps": fresh.global_steps}
+    path, _ = fresh.load_checkpoint(str(ckpt))
+    out["again"] = Path(path).name if path else None
+    out["steps_again"] = fresh.global_steps
+    return out
+
+
+def case_commit_fail(case, rank, dp, workdir):
+    """Rank 0's post-save verification fails: every rank raises the
+    same error class, and 'latest' is not published."""
+    from deepspeed_tpu_torch.resilience import manifest
+
+    ckpt = workdir / case["dir"]
+    engine = _resilient_mlp(dp, 1)
+    _mlp_window(engine, rank, dp, 0)
+    verify = manifest.verify_checkpoint
+    if rank == 0:
+        manifest.verify_checkpoint = lambda d: (manifest.CORRUPT, "injected")
+    try:
+        engine.save_checkpoint(str(ckpt), tag="bad")
+        raised = None
+    except Exception as e:  # the class is the result
+        raised = type(e).__name__
+    finally:
+        manifest.verify_checkpoint = verify
+    return {"raised": raised, "latest": (ckpt / "latest").exists()}
+
+
 CASES = {
     "train": case_train, "overflow": case_overflow, "dropout": case_dropout,
     "bert": case_bert, "checkpoint": case_checkpoint, "dist": case_dist,
     "sparse": case_sparse, "gather_order": case_gather_order,
+    "preempt": case_preempt, "load_disagree": case_load_disagree,
+    "commit_fail": case_commit_fail,
 }
 
 
