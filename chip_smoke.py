@@ -167,7 +167,7 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                seeded windows; run B trains 3, saves with checkpoint.write
                armed once (io_retries 1), and a fresh engine loads and
                trains 3 more: B's last losses, steps, skips, loss scale and
-               LR equal A's bit for bit. Save and load ms (median of 3),
+               LR equal A's bit for bit. Save and load ms (one each),
                bytes per file, MB/s and one sha256 pass's share. Serving
                run B's directory (inference.checkpoint.load_dir, bf16,
                paged KV, fused decode) gives the trained module's greedy
@@ -310,7 +310,7 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                two ranks on one device), each a subprocess of this script
                loading the kernels phase 2 built, under a timeout: GPT-2
                small at full width and depth, micro-batch 4 a rank (8
-               rows a step), float32 Adam at stages 0-3 (5 windows),
+               rows a step), float32 Adam at stages 0-3 (3 windows),
                bfloat16 Adam at stages 0-3 and FusedLamb at stages 1 and
                3 (3 windows). Every rank returns the global loss; float32
                stages 1-3 equal stage 0 and the dp = 2 run equals a dp = 1
@@ -324,15 +324,43 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                rank), which a dp = 1 engine loads with the same eval
                fingerprint (rtol 1e-5). Times here are two processes
                sharing one card and its host, not a dp = 2 speed.
+  15. the launcher and the lifted refusals — (a) ``python -m
+               deepspeed_tpu_torch.launcher.runner --num_gpus 1`` starts
+               this script's rank (``--phase15-rank``), which parses its
+               arguments with add_config_arguments and calls
+               initialize(args=...): bound to cuda:0 from LOCAL_RANK, an
+               NCCL group, GPT-2 small at full width and depth (bf16,
+               FusedLamb, ZeRO stage 2, 3 windows; launches as phase 14a:
+               12 of each attention kernel a micro-step, 6 LAMB a step;
+               path "launcher_rank0"); a second launch whose rank exits 3
+               must make the runner exit 3. (b) Phase 14b's two gloo ranks
+               on the one card (``--phase15b-rank``): bf16 compensated
+               masters at stages 1 and 2, the adapters block (rank 16,
+               float32) at stages 0-3, and stage 3 with remat "full" and
+               "nothing_saveable+zero3_gathered" (float32), 3 windows
+               each (the remat runs launch the forward twice a layer);
+               each equals its dp = 1 run over the same 8 rows at
+               P14_RTOL, the tagged stage-3 run "full"'s (paths
+               "a6b_dp2_rank0/1"). (c) One process: BERT-large at seq 512
+               with LoRA factors (rank 16) on BERT_LENGTHS rows, one
+               float32 micro-step: 24 launches of each attention kernel,
+               the factors' gradients within TOL[float32] x max|plain| of
+               the plain versions' (path "bert_lora"); BERT-large with
+               use_flash=False: no flash launch, and its loss equal to the
+               flash route's through the plain versions (rtol 1e-5; path
+               "bert_no_flash"); GPT-2 small with stochastic_mode in bf16
+               trains 3 windows of Adam (finite losses, 12 launches a
+               micro-step; path "stochastic") and its LayerNorm output
+               differs from the default path's.
   9. report  — a JSON line of per-kernel numbers (the D = 256, decode
                tail and BERT (rows 1b-3b) variants in entries of their
-               own; the launches of every path, phases 10 to 14
+               own; the launches of every path, phases 10 to 15
                included), the nvidia-smi line, then the last line {"ok":
-               true, "device": {...}}. It comes after phase 14.
+               true, "device": {...}}. It comes after phase 15.
 
 ``--only-phase12`` builds every kernel and runs phase 12 alone, printing
-its numbers as one JSON line; ``--only-phase13`` and ``--only-phase14``
-the same for phases 13 and 14. ``--only-bert-attention`` builds the
+its numbers as one JSON line; ``--only-phase13``, ``--only-phase14``
+and ``--only-phase15`` the same for phases 13, 14 and 15. ``--only-bert-attention`` builds the
 flash kernels, checks them under BERT's padding mask and the mask
 patterns of phase 12a, and times rows 1b-3b (copy the script to the root
 of an unpacked parent under build/ to time both trees in one call).
@@ -3398,16 +3426,15 @@ def resilience_runs(seed, card, root):
     same_bits("run B counters, loss scale and LR", res_state(resumed),
               want_state)
 
-    log("phase 10: save and load times (median of 3), bytes, hashing")
+    # one timed save and load each, to keep the script inside its time
+    # limit
+    log("phase 10: save and load times (one each), bytes, hashing")
     dir_t = os.path.join(root, "timing")
-    saves, loads = [], []
-    for _ in range(3):
-        saves.append(timed(resumed.save_checkpoint, dir_t)[1])
-    for _ in range(3):
-        (path, _), ms = timed(resumed.load_checkpoint, dir_t)
-        if path is None:
-            fail("timing: a load found nothing")
-        loads.append(ms)
+    saves = [timed(resumed.save_checkpoint, dir_t)[1]]
+    (path, _), ms = timed(resumed.load_checkpoint, dir_t)
+    if path is None:
+        fail("timing: a load found nothing")
+    loads = [ms]
     tag_dir = os.path.join(dir_t, f"global_step{RES_WINDOWS}")
     files = dir_bytes(tag_dir)
     state_bytes = sum(n for f, n in files.items() if f != "MANIFEST.json")
@@ -3416,12 +3443,10 @@ def resilience_runs(seed, card, root):
         if f != "MANIFEST.json":
             manifest.file_sha256(os.path.join(tag_dir, f))
     hash_ms = (time.monotonic() - t0) * 1e3
-    save_ms = sorted(saves)[1]
-    load_ms = sorted(loads)[1]
+    save_ms, load_ms = saves[0], loads[0]
     parts = save_breakdown(resumed, dir_t)
     stats.update({
-        "save_ms": saves, "load_ms": loads, "save_ms_median": save_ms,
-        "load_ms_median": load_ms, "bytes_by_file": files,
+        "save_ms": save_ms, "load_ms": load_ms, "bytes_by_file": files,
         "checkpoint_bytes": state_bytes,
         "save_mb_per_s": state_bytes / 1e6 / (save_ms / 1e3),
         "load_mb_per_s": state_bytes / 1e6 / (load_ms / 1e3),
@@ -3431,8 +3456,7 @@ def resilience_runs(seed, card, root):
         # a verified load hashes once
         "load_hash_share": hash_ms / load_ms,
     })
-    log(f"  save {save_ms:.1f} ms (of {saves}), load {load_ms:.1f} ms (of "
-        f"{loads}); files {files}; {stats['save_mb_per_s']:.1f} MB/s saved, "
+    log(f"  save {save_ms:.1f} ms, load {load_ms:.1f} ms; files {files}; {stats['save_mb_per_s']:.1f} MB/s saved, "
         f"{stats['load_mb_per_s']:.1f} MB/s loaded; one sha256 pass "
         f"{hash_ms:.1f} ms: {stats['save_hash_share']:.3f} of a save, "
         f"{stats['load_hash_share']:.3f} of a load; on {card}")
@@ -5680,7 +5704,7 @@ def phase_inference_rest(seed, card):
 P14_ROWS, P14_MICRO, P14_DP = 8, 4, 2
 # (name, optimizer, precision, ZeRO stage, windows)
 P14_RUNS = (
-    [(f"adam-fp32-s{st}", "Adam", "fp32", st, 5) for st in range(4)]
+    [(f"adam-fp32-s{st}", "Adam", "fp32", st, 3) for st in range(4)]
     + [(f"adam-bf16-s{st}", "Adam", "bf16", st, 3) for st in range(4)]
     + [(f"fusedlamb-bf16-s{st}", "FusedLamb", "bf16", st, 3)
        for st in (1, 3)])
@@ -5688,7 +5712,7 @@ P14_SAVE = "adam-fp32-s1"
 P14_RTOL = 2e-4
 
 
-def p14_config(optimizer, precision, stage, micro, dp):
+def p14_config(optimizer, precision, stage, micro, dp, extra=None):
     cfg = {"train_batch_size": micro * dp,
            "train_micro_batch_size_per_gpu": micro,
            "gradient_accumulation_steps": 1,
@@ -5697,6 +5721,7 @@ def p14_config(optimizer, precision, stage, micro, dp):
            "gradient_clipping": 1.0, "steps_per_print": 1000}
     if precision == "bf16":
         cfg["bf16"] = {"enabled": True}
+    cfg.update(extra or {})
     return cfg
 
 
@@ -5742,8 +5767,9 @@ def p14_expected_zero3_bytes(model, dp, itemsize):
 
 
 def p14_train(name, optimizer, precision, stage, windows, seed, rank, dp,
-              micro):
-    """One run of GPT-2 small through initialize() on this rank's rows:
+              micro, extra=None, model_kw=None):
+    """One run of GPT-2 small through initialize() on this rank's rows
+    (``extra``: more config blocks; ``model_kw``: GPT2Config fields):
     losses, launches, memory (after init, and the peak of the windows),
     the stage-3 gauges and their accounting; the engine is returned."""
     import deepspeed_tpu_torch
@@ -5751,15 +5777,16 @@ def p14_train(name, optimizer, precision, stage, windows, seed, rank, dp,
 
     gc.collect()  # the last run's engine, before the memory is read
     torch.cuda.empty_cache()
-    model = GPT2LMHeadModel(GPT2Config.small(dropout=0.0), device="cuda",
-                            seed=seed)
+    model = GPT2LMHeadModel(GPT2Config.small(dropout=0.0, **(model_kw or {})),
+                            device="cuda", seed=seed)
     # from the full shapes, before stage 3 shards the module
     itemsize = 2 if precision == "bf16" else 4
     expected = (list(p14_expected_zero3_bytes(model, dp, itemsize))
                 if stage == 3 and dp > 1 else [0, 0])
     engine, *_ = deepspeed_tpu_torch.initialize(
         model=model,
-        config_params=p14_config(optimizer, precision, stage, micro, dp))
+        config_params=p14_config(optimizer, precision, stage, micro, dp,
+                                 extra))
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -5870,7 +5897,8 @@ def p14_nccl_world1(seed):
         torch.cuda.empty_cache()
 
 
-def p14_spawn(seed, root, timeout_s=420):
+def p14_spawn(seed, root, timeout_s=420, flag="--phase14-rank",
+              phase="14b"):
     """(b) Two ranks on the one card: NCCL refuses two ranks on one device
     ("Duplicate GPU detected"), so the ranks join a gloo group this phase
     makes (gloo takes the port's collectives on CUDA tensors). The kernels
@@ -5890,8 +5918,8 @@ def p14_spawn(seed, root, timeout_s=420):
             "ckpt": str(root / "ckpt"), "out": str(root / f"out{rank}.json")}))
         log_file = open(root / f"rank{rank}.log", "w")
         procs.append((subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()),
-             "--phase14-rank", str(spec)],
+            [sys.executable, str(Path(__file__).resolve()), flag,
+             str(spec)],
             stdout=log_file, stderr=subprocess.STDOUT), log_file))
     deadline = time.monotonic() + timeout_s
     failed = []
@@ -5909,8 +5937,8 @@ def p14_spawn(seed, root, timeout_s=420):
     if failed:
         for rank in range(P14_DP):
             tail = (root / f"rank{rank}.log").read_text()[-3000:]
-            log(f"--- phase 14 rank {rank} log tail ---\n{tail}")
-        fail(f"phase 14b: {failed}")
+            log(f"--- phase {phase} rank {rank} log tail ---\n{tail}")
+        fail(f"phase {phase}: {failed}")
     return [json.loads((root / f"out{r}.json").read_text())
             for r in range(P14_DP)]
 
@@ -5938,7 +5966,7 @@ def phase_data_parallel(seed, card):
     root.mkdir(parents=True)
     ranks = p14_spawn(seed, root)
     # the dp = 1 run over the same 8 rows (micro-batch 8), float32 Adam
-    engine, model, ref = p14_train("dp1", "Adam", "fp32", 0, 5, seed, 0, 1,
+    engine, model, ref = p14_train("dp1", "Adam", "fp32", 0, 3, seed, 0, 1,
                                    P14_ROWS)
     del engine, model
     torch.cuda.empty_cache()
@@ -6006,6 +6034,410 @@ def phase_data_parallel(seed, card):
                  fingerprint_dp2=fp2, fingerprint_dp1=fp1,
                  wall_s=time.monotonic() - t0)
     log(f"phase 14: {stats['wall_s']:.1f} s")
+    return launches, stats
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the launcher, and what the engine took over from the JAX one
+# ---------------------------------------------------------------------------
+P15_LAUNCH_WINDOWS = 3
+P15_Z3G = "nothing_saveable+zero3_gathered"
+P15_COMPENSATED = {"data_types": {"master_dtype": "compensated"}}
+P15_ADAPTERS = {"adapters": {"enabled": True, "rank": LORA_RANK}}
+# (name, optimizer, precision, stage, windows, config blocks, GPT2Config
+# fields, the dp = 1 run it must equal)
+P15_RUNS = (
+    [(f"compensated-bf16-s{st}", "Adam", "bf16", st, 3, P15_COMPENSATED,
+      {}, "compensated") for st in (1, 2)]
+    + [(f"adapters-fp32-s{st}", "Adam", "fp32", st, 3, P15_ADAPTERS, {},
+        "adapters") for st in range(4)]
+    + [(f"remat-{p}-s3", "Adam", "fp32", 3, 3, {},
+        {"remat": True, "remat_policy": p}, "remat")
+       for p in ("full", P15_Z3G)])
+# the dp = 1 runs over the same 8 rows: (precision, config, model fields)
+P15_REFS = {"compensated": ("bf16", P15_COMPENSATED, {}),
+            "adapters": ("fp32", P15_ADAPTERS, {}),
+            "remat": ("fp32", {}, {"remat": True})}
+
+
+def phase15_launched_rank(argv):
+    """Phase 15a's rank, started by the port's runner: its arguments
+    through add_config_arguments, initialize(args=...) over the
+    launcher's environment, bound to cuda:<LOCAL_RANK> in an NCCL group;
+    GPT-2 small trains P15_LAUNCH_WINDOWS windows. Writes its results as
+    JSON, or exits with the spec's code at once."""
+    import torch.distributed as dist
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--phase15-rank", dest="spec", required=True)
+    args = deepspeed_tpu_torch.add_config_arguments(parser).parse_args(argv)
+    spec = json.loads(Path(args.spec).read_text())
+    if spec.get("exit"):
+        sys.exit(spec["exit"])
+    cfg = GPT2Config.small(dropout=DROPOUT)
+    model = GPT2LMHeadModel(cfg, device="cuda", seed=spec["seed"])
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        args=args, model=model, dist_init_required=True)
+    micro = train_batches(spec["seed"], cfg.vocab_size)
+    zero_launches()
+    losses, secs, _ = run_windows(engine, micro, P15_LAUNCH_WINDOWS)
+    out = {"losses": losses, "window_s": secs, "launches": read_launches(),
+           "backend": dist.get_backend(), "world": dist.get_world_size(),
+           "device": torch.cuda.current_device(),
+           "env": {k: os.environ.get(k) for k in (
+               "LOCAL_RANK", "RANK", "WORLD_SIZE", "CUDA_VISIBLE_DEVICES",
+               "DS_TPU_PROCESS_ID", "DS_TPU_NUM_PROCESSES")},
+           "zero_stage": engine.zero_stage,
+           "global_steps": engine.global_steps,
+           "skipped_steps": engine.skipped_steps}
+    Path(spec["out"]).write_text(json.dumps(out))
+    dist.destroy_process_group()
+
+
+def p15_launch(root, seed, spec_extra, timeout_s=300):
+    """``python -m deepspeed_tpu_torch.launcher.runner --num_gpus 1`` over
+    this script's phase 15a rank; returns (exit code, seconds, the rank's
+    results or None)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    tag = "fail" if spec_extra.get("exit") else "train"
+    spec = root / f"{tag}.json"
+    out = root / f"{tag}_out.json"
+    spec.write_text(json.dumps({"seed": seed, "out": str(out),
+                                **spec_extra}))
+    ds_config = root / "ds_config.json"
+    ds_config.write_text(json.dumps(dict(
+        train_config("FusedLamb", 1e-3, BF16),
+        zero_optimization={"stage": 2})))
+    checkout = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "deepspeed_tpu_torch.launcher.runner",
+           "--hostfile", str(root / "no_hostfile"), "--num_gpus", "1",
+           "--master_port", str(port), str(checkout / "chip_smoke.py"),
+           "--phase15-rank", str(spec), "--deepspeed", "--deepspeed_config",
+           str(ds_config)]
+    t0 = time.monotonic()
+    with open(root / f"{tag}.log", "w") as log_file:
+        proc = subprocess.Popen(cmd, cwd=str(checkout), stdout=log_file,
+                                stderr=subprocess.STDOUT)
+        try:
+            rc = proc.wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            log((root / f"{tag}.log").read_text()[-3000:])
+            fail(f"phase 15a: the runner ({tag}) outlived {timeout_s} s")
+    secs = time.monotonic() - t0
+    if rc != spec_extra.get("exit", 0) or (tag == "train"
+                                           and not out.exists()):
+        log((root / f"{tag}.log").read_text()[-3000:])
+    return rc, secs, (json.loads(out.read_text()) if out.exists() else None)
+
+
+def phase15_launcher(seed, root):
+    """(a) The launcher on the card: one rank through the port's runner
+    (NCCL on cuda:0 from LOCAL_RANK; GPT-2 small, bf16, FusedLamb, ZeRO
+    stage 2, P15_LAUNCH_WINDOWS windows), then a rank that exits 3 on
+    purpose: the runner must exit 3."""
+    rc, secs, got = p15_launch(root, seed, {})
+    if rc != 0 or got is None:
+        fail(f"phase 15a: the launched run exited {rc}")
+    env = got["env"]
+    if (got["backend"] != "nccl" or got["device"] != 0 or got["world"] != 1
+            or env["LOCAL_RANK"] != "0" or env["RANK"] != "0"
+            or env["WORLD_SIZE"] != "1"):
+        fail(f"phase 15a: the launched rank is {got['backend']} on cuda:"
+             f"{got['device']} with {env}")
+    if not all(math.isfinite(v) for v in got["losses"]) or got[
+            "skipped_steps"]:
+        fail(f"phase 15a: losses {got['losses']}, skipped "
+             f"{got['skipped_steps']}")
+    # as phase 14a: 12 launches of each attention kernel a micro-step, and
+    # FusedLamb's 6 a step (at world size 1 stage 2 is stage 0)
+    check_launches("phase 15a", got["launches"], 2 * P15_LAUNCH_WINDOWS,
+                   lamb_steps=P15_LAUNCH_WINDOWS)
+    fail_rc, fail_secs, _ = p15_launch(root, seed, {"exit": 3})
+    if fail_rc != 3:
+        fail(f"phase 15a: a rank exited 3 and the runner exited {fail_rc}")
+    log(f"  15a: launched rank {got['backend']} on cuda:{got['device']} "
+        f"(env {env}); losses {got['losses']}; runner {secs:.1f} s; the "
+        f"failing launch exited {fail_rc} in {fail_secs:.1f} s")
+    return got["launches"], {
+        "losses": got["losses"], "window_s": got["window_s"],
+        "env": env, "backend": got["backend"], "runner_s": secs,
+        "fail_rc": fail_rc, "fail_s": fail_secs}
+
+
+def phase15b_rank(spec_path):
+    """One of phase 15b's two ranks (a subprocess): joins the gloo group
+    the phase made and runs every P15_RUNS entry."""
+    import torch.distributed as dist
+
+    spec = json.loads(Path(spec_path).read_text())
+    rank = spec["rank"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{spec['port']}", rank=rank,
+        world_size=P14_DP)
+    results = {}
+    for name, optimizer, precision, stage, windows, extra, mkw, _ in P15_RUNS:
+        engine, model, out = p14_train(name, optimizer, precision, stage,
+                                       windows, spec["seed"], rank, P14_DP,
+                                       P14_MICRO, extra, mkw)
+        out["zero3_armed"] = engine.zero3_gather_enabled
+        out["trainable"] = sum(p.numel() for p in engine.params.values())
+        results[name] = out
+        del engine, model
+    Path(spec["out"]).write_text(json.dumps(results))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase15_refusals_dp2(seed, root):
+    """(b) Compensated masters (bf16, stages 1-2), the adapters block
+    (rank 16, stages 0-3) and stage 3 under remat "full" and
+    P15_Z3G, on two gloo ranks sharing the card (phase 14b's spawn): each
+    equals its dp = 1 run over the same 8 rows at P14_RTOL; the tagged
+    stage-3 run equals "full"'s. Returns ({kernel: {path: n}}, stats)."""
+    ranks = p14_spawn(seed, root, flag="--phase15b-rank", phase="15b")
+    refs = {}
+    for key, (precision, extra, mkw) in P15_REFS.items():
+        engine, model, refs[key] = p14_train(
+            f"dp1-{key}", "Adam", precision, 0, 3, seed, 0, 1, P14_ROWS,
+            extra, mkw)
+        del engine, model
+        torch.cuda.empty_cache()
+    launches, runs = {}, {}
+    for name, _, precision, stage, windows, extra, mkw, ref in P15_RUNS:
+        per_rank = [r[name] for r in ranks]
+        losses = per_rank[0]["losses"]
+        if any(r["losses"] != losses for r in per_rank[1:]):
+            fail(f"phase 15b: {name}: ranks return different losses")
+        if not all(math.isfinite(v) for v in losses) or per_rank[0][
+                "skipped"]:
+            fail(f"phase 15b: {name}: losses {losses}")
+        p14_close(f"15b {name} vs its dp = 1 run", losses,
+                  refs[ref]["losses"])
+        # under remat at stage 3 the gather block is the checkpointed
+        # region, so the backward runs the flash forward again
+        want = {k: N_LAYER * windows for k in TRAIN_KERNELS}
+        if mkw.get("remat"):
+            want["flash_fwd"] *= 2
+        for rank, r in enumerate(per_rank):
+            for k in TRAIN_KERNELS:
+                if r["launches"][k] != want[k]:
+                    fail(f"phase 15b: {name} rank {rank}: {k} launched "
+                         f"{r['launches'][k]} times, want {want[k]}")
+            for k, n in r["launches"].items():
+                by_path = launches.setdefault(k, {})
+                path = f"a6b_dp2_rank{rank}"
+                by_path[path] = by_path.get(path, 0) + n
+        runs[name] = {"losses": losses,
+                      "window_s": [r["window_s"] for r in per_rank],
+                      "peak_gb": [r["peak_gb"] for r in per_rank],
+                      "held_gb": [r["held_gb"] for r in per_rank],
+                      "zero3_armed": per_rank[0]["zero3_armed"],
+                      "trainable_per_rank": per_rank[0]["trainable"]}
+        log(f"  15b {name}: losses {losses} (dp 1: {refs[ref]['losses']}); "
+            f"held GB {runs[name]['held_gb']}, peak GB "
+            f"{runs[name]['peak_gb']}")
+    tagged = runs[f"remat-{P15_Z3G}-s3"]
+    if not (tagged["zero3_armed"] and runs["remat-full-s3"]["zero3_armed"]):
+        fail("phase 15b: the stage-3 gather stack was not armed")
+    bitwise = tagged["losses"] == runs["remat-full-s3"]["losses"]
+    p14_close("15b zero3_gathered vs full", tagged["losses"],
+              runs["remat-full-s3"]["losses"])
+    return launches, {"runs": runs,
+                      "dp1": {k: {"losses": v["losses"],
+                                  "peak_gb": v["peak_gb"]}
+                              for k, v in refs.items()},
+                      "zero3_gathered_bitwise_full": bitwise}
+
+
+def p15_bert_lora_batch(seed, vocab, seq):
+    """8 rows of BERT_LENGTHS at ``seq``: ids in the valid positions, two
+    segments, 15% masked-LM labels and NSP labels, on the card."""
+    g = torch.Generator().manual_seed(seed)
+    mask = bert_mask("cpu", BERT_LENGTHS, seq)
+    valid = mask > 0
+    ids = torch.where(valid, torch.randint(1, vocab, (len(BERT_LENGTHS), seq),
+                                           generator=g), 0)
+    tt = (torch.arange(seq)[None, :] >= seq // 2).long() * valid
+    pick = (torch.rand(ids.shape, generator=g) < 0.15) & valid
+    labels = torch.where(pick, ids, -100)
+    nsp = torch.randint(0, 2, (len(BERT_LENGTHS),), generator=g)
+    return tuple(t.cuda() for t in (ids, mask, tt, labels, nsp))
+
+
+def p15_grads(model, batch, plain, names=None):
+    """The loss and float32 gradients of ``model`` on ``batch`` (train
+    mode, no dropout seed), through the kernels or their plain versions;
+    only the parameters in ``names`` when given, none for an empty set
+    (the forward alone)."""
+    from deepspeed_tpu_torch.ops import attention as A
+
+    params = [p for n, p in model.named_parameters()
+              if names is None or n in names]
+    kernels = (A.flash_fwd, A.flash_bwd_dq, A.flash_bwd_dkv)
+    if plain:
+        A.flash_fwd, A.flash_bwd_dq, A.flash_bwd_dkv = (
+            A.flash_fwd_plain, A.flash_bwd_dq_plain, A.flash_bwd_dkv_plain)
+    try:
+        with torch.set_grad_enabled(bool(params)):
+            loss = model(*batch, train=True)
+        if not params:
+            return float(loss), []
+        return float(loss.detach()), [
+            g.float() for g in torch.autograd.grad(loss, params)]
+    finally:
+        A.flash_fwd, A.flash_bwd_dq, A.flash_bwd_dkv = kernels
+
+
+def phase15_one_process(seed):
+    """(c) BERT-large with LoRA factors (rank 16) and without flash, and
+    GPT-2 small's stochastic_mode. Returns ({kernel: {path: n}}, stats)."""
+    import dataclasses
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import (BertConfig, BertForPreTraining,
+                                     GPT2Config, GPT2LMHeadModel)
+    from deepspeed_tpu_torch.ops import transformer as T
+
+    launches, stats = {}, {}
+    # BERT-large with the model's own LoRA factors, float32, one
+    # micro-step at seq 512 through the kernels and through the plain
+    # versions
+    cfg = BertConfig.bert_large(hidden_dropout_prob=0.0,
+                                attention_probs_dropout_prob=0.0,
+                                lora_rank=LORA_RANK, lora_alpha=32.0)
+    model = BertForPreTraining(cfg, device="cuda", seed=seed)
+    with torch.no_grad():  # B = 0 at init: give both factors a gradient
+        g = torch.Generator(device="cuda").manual_seed(seed + 3)
+        for n, p in model.named_parameters():
+            if n.endswith("_lora_b"):
+                p.normal_(0.0, 0.02, generator=g)
+    factors = {n for n, _ in model.named_parameters() if "_lora_" in n}
+    if len(factors) != 2 * 4 * cfg.num_hidden_layers:
+        fail(f"phase 15c: BERT-large carries {len(factors)} LoRA factors")
+    batch = p15_bert_lora_batch(seed, cfg.vocab_size, BERT_SEQ)
+    zero_launches()
+    loss_k, got = p15_grads(model, batch, False, factors)
+    torch.cuda.synchronize()
+    lora_launches = read_launches()
+    loss_p, want = p15_grads(model, batch, True, factors)
+    err = max(float((a - w).abs().max() / w.abs().max().clamp_min(1e-30))
+              for a, w in zip(got, want))
+    log(f"  15c BERT-large LoRA rank {LORA_RANK}: loss kernels {loss_k} "
+        f"plain {loss_p}; factor gradients max|diff| / max|plain| "
+        f"{err:.3e} (tol {TOL[torch.float32]:g}); launches {lora_launches}")
+    if err > TOL[torch.float32]:
+        fail("phase 15c: BERT LoRA factor gradients through the kernels "
+             "disagree with the plain versions'")
+    if any(lora_launches[k] != cfg.num_hidden_layers for k in TRAIN_KERNELS):
+        fail(f"phase 15c: BERT LoRA launches {lora_launches}, want "
+             f"{cfg.num_hidden_layers} each a micro-step")
+    stats["bert_lora"] = {"loss_kernels": loss_k, "loss_plain": loss_p,
+                          "factor_grad_err": err,
+                          "factors": len(factors)}
+    for k, n in lora_launches.items():
+        launches.setdefault(k, {})["bert_lora"] = n
+    del model, got, want
+    torch.cuda.empty_cache()
+
+    # BERT-large with use_flash=False: no flash launch; its loss equals
+    # the flash route's through the plain versions on the same batch
+    base_cfg = BertConfig.bert_large(hidden_dropout_prob=0.0,
+                                     attention_probs_dropout_prob=0.0)
+    micro = bert_batches(seed, base_cfg, BERT_SEQ, "pretraining",
+                         accum=1)[0]
+    losses = {}
+    for use_flash in (False, True):
+        model = BertForPreTraining(
+            dataclasses.replace(base_cfg, use_flash=use_flash),
+            device="cuda", seed=seed)
+        zero_launches()
+        if use_flash:
+            losses["plain"], _ = p15_grads(model, micro, True, set())
+        else:
+            losses["no_flash"], _ = p15_grads(model, micro, False, set())
+            noflash_launches = read_launches()
+        del model
+        torch.cuda.empty_cache()
+    log(f"  15c BERT-large use_flash=False: loss {losses['no_flash']} vs "
+        f"the plain versions' {losses['plain']}; launches {noflash_launches}")
+    if any(noflash_launches[k] for k in TRAIN_KERNELS):
+        fail(f"phase 15c: use_flash=False launched {noflash_launches}")
+    if not math.isclose(losses["no_flash"], losses["plain"],
+                        rel_tol=LAMB_RTOL):
+        fail(f"phase 15c: use_flash=False loss {losses['no_flash']} != "
+             f"{losses['plain']}")
+    stats["bert_no_flash"] = losses
+    for k, n in noflash_launches.items():
+        launches.setdefault(k, {})["bert_no_flash"] = n
+
+    # GPT-2 small with stochastic_mode in bf16: trains, and its LayerNorm
+    # output differs from the default path's
+    gcfg = GPT2Config.small(dropout=DROPOUT)
+    model = GPT2LMHeadModel(gcfg, device="cuda", seed=seed)
+    model.layer_config.stochastic_mode = True
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model, config_params=train_config("Adam", 1e-4, BF16))
+    micro = train_batches(seed, gcfg.vocab_size)
+    zero_launches()
+    losses, secs, _ = run_windows(engine, micro, 3)
+    st_launches = read_launches()
+    if not all(math.isfinite(v) for v in losses) or engine.skipped_steps:
+        fail(f"phase 15c: stochastic_mode losses {losses}")
+    check_launches("phase 15c stochastic_mode", st_launches, 6)
+    x = (torch.randn(8, 1024, 768, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(
+                         seed)) * 3 + 1).to(torch.bfloat16)
+    w = torch.ones(768, device="cuda")
+    b = torch.zeros(768, device="cuda")
+    relaxed = T.layer_norm_apply(model.layer_config, x, w, b)
+    default = T.layer_norm_apply(
+        dataclasses.replace(model.layer_config, stochastic_mode=False),
+        x, w, b)
+    differ = float((relaxed.float() - default.float()).abs().max())
+    if differ == 0.0:
+        fail("phase 15c: stochastic_mode's LayerNorm equals the default's")
+    log(f"  15c stochastic_mode: losses {losses}; LayerNorm max|relaxed - "
+        f"default| {differ:.3e}")
+    stats["stochastic"] = {"losses": losses, "window_s": secs,
+                           "layer_norm_max_diff": differ}
+    for k, n in st_launches.items():
+        launches.setdefault(k, {})["stochastic"] = n
+    del engine, model
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
+def phase_launcher_and_refusals(seed, card):
+    """Phase 15. Returns ({kernel: {path: launches}}, stats)."""
+    t0 = time.monotonic()
+    root = Path("build") / "phase15"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    launches = {name: {} for name in launch_counters()}
+    a_launches, a_stats = phase15_launcher(seed, root)
+    for k, n in a_launches.items():
+        launches[k]["launcher_rank0"] = n
+    b_root = root / "dp2"
+    b_root.mkdir()
+    b_launches, b_stats = phase15_refusals_dp2(seed, b_root)
+    c_launches, c_stats = phase15_one_process(seed)
+    for part in (b_launches, c_launches):
+        for k, by_path in part.items():
+            launches[k].update(by_path)
+    stats = {"card": card, "launcher": a_stats, "dp2": b_stats,
+             "one_process": c_stats, "wall_s": time.monotonic() - t0}
+    log(f"phase 15: {stats['wall_s']:.1f} s")
     return launches, stats
 
 
@@ -6092,6 +6524,14 @@ def only_kernels(device, seed):
 
 
 def main():
+    if sys.argv[1:2] == ["--phase15-rank"]:
+        # a rank the port's runner started: its own arguments
+        # (add_config_arguments), the card required
+        if not torch.cuda.is_available():
+            print("FAIL: no CUDA device", file=sys.stderr)
+            sys.exit(2)
+        phase15_launched_rank(sys.argv[1:])
+        return
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--only-decode", action="store_true",
@@ -6121,7 +6561,14 @@ def main():
     parser.add_argument("--only-phase14", action="store_true",
                         help="build every kernel and run phase 14 alone "
                         "(data parallel: ZeRO stages 0-3 on two ranks)")
+    parser.add_argument("--only-phase15", action="store_true",
+                        help="build every kernel and run phase 15 alone "
+                        "(the launcher, and A6b: compensated masters and "
+                        "adapters at dp 2, zero3_gathered, BERT LoRA and "
+                        "use_flash=False, stochastic_mode)")
     parser.add_argument("--phase14-rank", metavar="SPEC",
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--phase15b-rank", metavar="SPEC",
                         help=argparse.SUPPRESS)
     parser.add_argument("--cold-telemetry", action="store_true",
                         help="one telemetry-on training run whose first "
@@ -6135,6 +6582,9 @@ def main():
         sys.exit(2)
     if args.phase14_rank:
         phase14_rank(args.phase14_rank)
+        return
+    if args.phase15b_rank:
+        phase15b_rank(args.phase15b_rank)
         return
     from deepspeed_tpu_torch.ops import kernel_lib
 
@@ -6197,6 +6647,13 @@ def main():
                           "card": smi}))
         return
 
+    if args.only_phase15:
+        kernel_lib.build()
+        launches, stats = phase_launcher_and_refusals(args.seed, smi)
+        print(json.dumps({"phase15": stats, "launches": launches,
+                          "card": smi}))
+        return
+
     if args.only_phase13:
         kernel_lib.build()
         launches, stats = phase_inference_rest(args.seed, smi)
@@ -6235,6 +6692,7 @@ def main():
     bert_launches, bert_stats, bert_rows = phase_bert_layouts(args.seed, smi)
     inf_launches, inf_stats = phase_inference_rest(args.seed, smi)
     dp_launches, dp_stats = phase_data_parallel(args.seed, smi)
+    a6b_launches, a6b_stats = phase_launcher_and_refusals(args.seed, smi)
     for path, counts in [("serve", serve_launches),
                          *adapter_launches.items(), *hd_launches.items(),
                          *tel_launches.items(), *res_launches.items(),
@@ -6246,6 +6704,8 @@ def main():
     for name, by_path in bert_launches.items():
         launches[name].update(by_path)
     for name, by_path in dp_launches.items():
+        launches[name].update(by_path)
+    for name, by_path in a6b_launches.items():
         launches[name].update(by_path)
     for name, by_path in launches.items():
         kernels[name]["launches"] = sum(by_path.values())
@@ -6315,6 +6775,7 @@ def main():
                     "data_remat": data_stats, "bert_layouts": bert_stats,
                     "inference_rest": inf_stats,
                     "data_parallel": dp_stats,
+                    "launcher_and_refusals": a6b_stats,
                     "head_dims": {k: v for k, v in hd_stats.items()
                                   if k not in ("flash", "flash_wide",
                                                "flash_d128",

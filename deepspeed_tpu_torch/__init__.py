@@ -24,20 +24,32 @@ non-causal attention runs through the same flash kernels. Training runs
 data parallel across processes (``runtime/dist.py``, ``parallel/``) at
 ZeRO stages 0-3 (``runtime/zero.py``, the stage-3 gather stack of
 ``models/stack.py``), with sharded checkpoints and sparse embedding
-gradients (``runtime/sparse.py``). The package imports ``torch`` and
-never ``jax`` or ``deepspeed_tpu``.
+gradients (``runtime/sparse.py``). ``python -m
+deepspeed_tpu_torch.launcher.runner`` starts such a run, one process per
+GPU of each host (``launcher/``); a script parses the launcher's
+``--deepspeed``/``--deepspeed_config`` with :func:`add_config_arguments`
+and hands the result to ``initialize(args=...)``. The package imports
+``torch`` and never ``jax`` or ``deepspeed_tpu``.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``,
 which runs each kernel's plain PyTorch version instead.
 """
 
+from . import adapters, checkpointing
 from .config.config import DeepSpeedConfig, DeepSpeedConfigError
 from .convert import adapters_from_jax, bert_params_from_jax, params_from_jax
 from .inference.engine import InferenceEngine, init_inference
 from .models.bert import BertConfig, BertForPreTraining, BertForQuestionAnswering
 from .models.gpt2 import GPT2Config, GPT2LMHeadModel
+from .ops.optimizers import SGD, Adam, Lamb, Lion, Optimizer
+from .ops.transformer import (
+    DeepSpeedTransformerConfig,
+    DeepSpeedTransformerLayer,
+)
 from .runtime.dataloader import DeepSpeedDataLoader
+from .runtime.dist import init_distributed
 from .runtime.engine import DeepSpeedEngine, EngineOptimizerFacade
+from .version import __version__
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
@@ -73,21 +85,73 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
             engine.training_dataloader, engine.lr_scheduler)
 
 
+def _add_core_arguments(parser):
+    group = parser.add_argument_group("DeepSpeed", "DeepSpeed configurations")
+    group.add_argument(
+        "--deepspeed",
+        default=False,
+        action="store_true",
+        help="Enable DeepSpeed (helper flag for user scripts)",
+    )
+    group.add_argument(
+        "--deepspeed_config", default=None, type=str, help="DeepSpeed json config file"
+    )
+    group.add_argument(
+        "--deepscale",
+        default=False,
+        action="store_true",
+        help="Deprecated alias for --deepspeed",
+    )
+    group.add_argument(
+        "--deepscale_config",
+        default=None,
+        type=str,
+        help="Deprecated alias for --deepspeed_config",
+    )
+    group.add_argument(
+        "--deepspeed_mpi",
+        default=False,
+        action="store_true",
+        help="Run via MPI-style multi-host discovery",
+    )
+    return parser
+
+
+def add_config_arguments(parser):
+    """Add the DeepSpeed arguments to an argparse parser (the JAX
+    package's and upstream's flags and defaults); ``initialize(args=...)``
+    reads ``args.deepspeed_config`` (or the deprecated
+    ``deepscale_config``)."""
+    return _add_core_arguments(parser)
+
+
 __all__ = [
+    "adapters",
     "adapters_from_jax",
+    "add_config_arguments",
     "bert_params_from_jax",
     "BertConfig",
     "BertForPreTraining",
     "BertForQuestionAnswering",
+    "checkpointing",
     "DeepSpeedConfig",
     "DeepSpeedConfigError",
     "DeepSpeedDataLoader",
     "DeepSpeedEngine",
+    "DeepSpeedTransformerConfig",
+    "DeepSpeedTransformerLayer",
     "EngineOptimizerFacade",
     "GPT2Config",
     "GPT2LMHeadModel",
     "InferenceEngine",
+    "init_distributed",
     "init_inference",
     "initialize",
+    "Adam",
+    "Lamb",
+    "Lion",
+    "Optimizer",
     "params_from_jax",
+    "SGD",
+    "__version__",
 ]

@@ -161,7 +161,7 @@ def checkpoint(function, *args):
     if PARTITION_ACTIVATIONS and _model_parallel_size() > 1:
         raise not_ported(
             "activation_checkpointing.partition_activations at "
-            "model-parallel size > 1"
+            "model-parallel size > 1 (ROADMAP A7a)"
         )
     # the recompute runs on the tracker's states as they were at the
     # forward (a fork inside ``function`` repeats its stream), and leaves
@@ -264,7 +264,7 @@ def configure(
     if PARTITION_ACTIVATIONS and _model_parallel_size() > 1:
         raise not_ported(
             "activation_checkpointing.partition_activations at "
-            "model-parallel size > 1"
+            "model-parallel size > 1 (ROADMAP A7a)"
         )
     _CONFIGURED = True
 

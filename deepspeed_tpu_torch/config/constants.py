@@ -576,3 +576,13 @@ MESH_DATA_PARALLEL_SIZE = "data_parallel_size"
 MESH_MODEL_PARALLEL_SIZE = "model_parallel_size"
 MESH_SEQUENCE_PARALLEL_SIZE = "sequence_parallel_size"
 MESH_PIPELINE_PARALLEL_SIZE = "pipeline_parallel_size"
+
+#############################################
+# Launcher / distributed rendezvous
+#############################################
+# the arguments add_config_arguments adds, as initialize(args=...) reads them
+DEEPSPEED_CONFIG_ARG = "deepspeed_config"
+DEEPSCALE_CONFIG_ARG = "deepscale_config"  # deprecated alias
+# reference: deepspeed/pt/deepspeed_constants.py TORCH_DISTRIBUTED_DEFAULT_PORT
+# (the torch.distributed TCP store's port, as upstream)
+TORCH_DISTRIBUTED_DEFAULT_PORT = 29500

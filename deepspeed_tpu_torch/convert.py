@@ -12,7 +12,8 @@ in the adapter pool and in per-layer parameters alike, so
 :func:`adapters_from_jax` only unstacks layers and never transposes.
 :func:`bert_params_from_jax` does for BERT what :func:`params_from_jax`
 does for GPT-2: ``bert/encoder/layer/<12 keys>`` unstacked into
-``bert.encoder.layer.<i>.<key>`` (matrices transposed), flax's Dense
+``bert.encoder.layer.<i>.<key>`` (matrices transposed; a LoRA model's
+``<target>_lora_a``/``_lora_b`` factors carried untransposed), flax's Dense
 ``kernel`` [in, out] into ``weight`` [out, in] and LayerNorm ``scale``
 into ``weight``.
 """

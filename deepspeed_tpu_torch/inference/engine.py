@@ -188,7 +188,7 @@ class InferenceEngine:
         else:  # JSON path
             raw = load_config_json(config)
         if mesh is not None or raw.get(C.MESH):
-            raise _not_ported("serving over a device mesh")
+            raise _not_ported("serving over a device mesh (ROADMAP A7a)")
         self.config = DeepSpeedConfig(None, param_dict=raw)
         cfg = self.config
 

@@ -15,7 +15,10 @@ the training engine's model contract.
 Attention routes as everywhere in the port (ops/attention.py): the
 flash kernels, non-causal with the padding mask as a per-key validity
 vector and in-kernel dropout, at ``seq >= FLASH_MIN_SEQ``; the plain
-reference below. The memory-mode flags (``normalize_invertible``,
+reference below. ``use_flash=False`` sends every attention call to the
+plain reference (``mha_reference``), as the JAX model's switch does.
+``lora_rank > 0`` gives every block LoRA factors
+(ops/transformer.py:apply_lora), as GPT-2's. The memory-mode flags (``normalize_invertible``,
 ``gelu_checkpoint``, ``attn_dropout_checkpoint``) turn on remat of every
 block with ``remat_policy``, as in the JAX model.
 
@@ -36,9 +39,9 @@ blocks run through the gather stack of models/stack.py, and with the
 engine's ``sparse_gradients`` the word table's lookup gradient goes
 through runtime/sparse.py.
 
-Not ported (refused when the model is built): the config fields
-``sparse_gradients``, ``zero3_gather`` and ``mesh`` (the engine arms
-data parallelism itself), and LoRA adapters on BERT (``lora_rank > 0``).
+Refused when the model is built: the config fields ``sparse_gradients``
+and ``zero3_gather`` (the training engine arms both itself, through
+``configure_data_parallel``) and ``mesh`` (a model axis, ROADMAP A7).
 """
 
 import dataclasses
@@ -87,14 +90,14 @@ class BertConfig:
     gelu_checkpoint: bool = False
     attn_dropout_checkpoint: bool = False
     remat_policy: str = "full"
-    # JAX-package features the port does not have yet (the model refuses
-    # them when it is built)
+    # LoRA factors on every block (ops/transformer.py:apply_lora)
+    lora_rank: int = 0
+    lora_alpha: float = 0.0
+    lora_targets: tuple = ()  # () => every LORA_TARGETS matrix
+    # fields the model refuses when it is built (check_ported)
     mesh: object = dataclasses.field(default=None, hash=False, compare=False)
     sparse_gradients: bool = dataclasses.field(
         default=False, hash=False, compare=False)
-    lora_rank: int = 0
-    lora_alpha: float = 0.0
-    lora_targets: tuple = ()
     zero3_gather: object = dataclasses.field(
         default=None, hash=False, compare=False)
 
@@ -133,23 +136,26 @@ class BertConfig:
             gelu_checkpoint=self.gelu_checkpoint,
             attn_dropout_checkpoint=self.attn_dropout_checkpoint,
             remat_policy=self.remat_policy,
+            lora_rank=self.lora_rank,
+            lora_alpha=self.lora_alpha,
+            lora_targets=tuple(self.lora_targets),
         )
 
     def check_ported(self):
         """Raise ``not_ported`` for a field that needs a later part of the
         port."""
         if self.sparse_gradients:
-            raise not_ported("BERT with sparse_gradients")
+            raise not_ported(
+                "BERT with sparse_gradients set on its config (the JAX "
+                "model's device-mesh seam, ROADMAP A7; the training "
+                "engine's sparse_gradients key arms the port's)")
         if self.zero3_gather is not None:
-            raise not_ported("BERT with ZeRO-3's layer-wise gather")
+            raise not_ported(
+                "BERT with zero3_gather set on its config (the JAX model's "
+                "device-mesh seam, ROADMAP A7; ZeRO stage 3 in the training "
+                "engine arms the port's)")
         if self.mesh is not None:
-            raise not_ported("BERT over a device mesh")
-        if self.lora_rank > 0:
-            raise not_ported("LoRA adapters on BERT (lora_rank > 0)")
-        if not self.use_flash:
-            # the JAX model's switch for the plain reference everywhere;
-            # the port's dispatcher always routes by sequence length
-            raise not_ported("BERT with use_flash=False")
+            raise not_ported("BERT over a device mesh (ROADMAP A7)")
 
 
 class _LayerNorm(nn.Module):
@@ -218,18 +224,18 @@ class BertEncoder(nn.Module):
         )
         self.zero3_gather = None
 
-    def forward(self, layer_cfg, x, additive_mask, train, rng):
+    def forward(self, layer_cfg, x, additive_mask, train, rng, use_flash):
         if self.zero3_gather is not None:
             return zero3_stack(
                 self.zero3_gather, layer_cfg, list(self.layer), x,
                 lambda cfg, p, h, r: transformer_block_apply(
                     cfg, p, h, additive_mask, causal=False, train=train,
-                    dropout_rng=r),
+                    dropout_rng=r, use_flash=use_flash),
                 rng if train else None)
         for layer in self.layer:
             x = transformer_block_apply(
                 layer_cfg, layer, x, additive_mask, causal=False,
-                train=train, dropout_rng=rng,
+                train=train, dropout_rng=rng, use_flash=use_flash,
             )
         return x
 
@@ -266,6 +272,9 @@ class BertModel(nn.Module):
         for layer in self.encoder.layer:
             layer.reset_parameters(gen)
         self.pooler.weight.normal_(0.0, std, generator=gen)
+        # drawn after every base tensor, as GPT-2's
+        for layer in self.encoder.layer:
+            layer.reset_lora_parameters(gen)
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
                 train=False, rng=None):
@@ -273,7 +282,7 @@ class BertModel(nn.Module):
         rng = rng if train else None
         x = self.embeddings(self.layer_config, input_ids, token_type_ids, rng)
         x = self.encoder(self.layer_config, x, additive_mask(attention_mask),
-                         train, rng)
+                         train, rng, self.config.use_flash)
         pooled = torch.tanh(self.pooler(x[:, 0]))
         return x, pooled, self.embeddings.word_embeddings
 

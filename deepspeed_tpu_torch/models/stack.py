@@ -21,7 +21,11 @@ reference, and the backward re-gathers its block when it unpacks one;
 only the gathers re-run, as under the JAX package's ``save_anything_
 except_these_names("zero3_gathered")`` policy. With remat on, the gather
 block (its gathers included) is the checkpointed region, under the
-model's remat policy, and the recompute gathers again. Either way the
+model's remat policy, and the recompute gathers again; a remat spec that
+names ``zero3_gathered`` (ops/transformer.py:resolve_remat_policy) keeps
+the gathered tensors as residuals instead, as the JAX policy saves the
+tagged gathers: the gather runs outside the checkpointed region, and the
+recompute takes the forward's tensors. Either way the
 gradient of a gathered tensor is reduce-scattered back to its shard
 (:class:`_Gather`'s backward), summed over the data group.
 
@@ -220,8 +224,7 @@ def zero3_stack(arming, layer_cfg, layers, x, layer_fn, rng=None):
     grad = torch.is_grad_enabled()
     remat = grad and layer_cfg.use_remat
 
-    def run_block(b, x, draws, shards):
-        full = _Gather.apply(gathers, b, *shards)
+    def compute(b, x, draws, *full):
         it = iter(full)
         for j in range(gb):
             layer = layers[b * gb + j]
@@ -233,15 +236,26 @@ def zero3_stack(arming, layer_cfg, layers, x, layer_fn, rng=None):
                          None if d is None else _Replay(d[0], d[1]))
         return x
 
+    def run_block(b, x, draws, shards):
+        return compute(b, x, draws, *_Gather.apply(gathers, b, *shards))
+
+    policy = None
+    if remat and layer_cfg.remat_policy != "full":
+        policy = resolve_remat_policy(layer_cfg.remat_policy)
     for b in range(len(blocks)):
         draws = [_predraw(layer_cfg, rng, x.shape) for _ in range(gb)]
         shards = [t for _, t in blocks[b]]
         if remat:
             kw = dict(use_reentrant=False, preserve_rng_state=False)
-            if layer_cfg.remat_policy != "full":
-                kw["context_fn"] = resolve_remat_policy(
-                    layer_cfg.remat_policy).context_fn
-            x = checkpoint(run_block, b, x, draws, shards, **kw)
+            if policy is not None:
+                kw["context_fn"] = policy.context_fn
+            if policy is not None and policy.keep_gathered:
+                # the gathered tensors are the region's inputs: kept for
+                # the backward, which gathers nothing again
+                full = _Gather.apply(gathers, b, *shards)
+                x = checkpoint(compute, b, x, draws, *full, **kw)
+            else:
+                x = checkpoint(run_block, b, x, draws, shards, **kw)
         elif grad:
             with torch.autograd.graph.saved_tensors_hooks(
                     *_regather_hooks(gathers, b)):

@@ -559,9 +559,10 @@ def routes_to_flash(mask, sq, sk):
 
 
 def attention(q, k, v, mask=None, causal=False, sm_scale=None,
-              dropout_rate=0.0, dropout_seed=None):
+              dropout_rate=0.0, dropout_seed=None, use_flash=True):
     """Dispatcher: the flash kernels when the mask is a padding mask and
-    ``max(sq, sk) >= FLASH_MIN_SEQ``; the plain reference otherwise.
+    ``max(sq, sk) >= FLASH_MIN_SEQ``; the plain reference otherwise, and
+    always with ``use_flash=False`` (the JAX dispatcher's switch).
     Without a ``dropout_seed`` there is no dropout (the JAX path's
     no-rng rule). The JAX package also required both lengths to split
     into TPU tiles (the CUDA kernels mask a ragged last tile themselves,
@@ -572,7 +573,7 @@ def attention(q, k, v, mask=None, causal=False, sm_scale=None,
         dropout_rate = 0.0
     sq, sk = q.shape[2], k.shape[2]
     kv_mask = additive_mask_to_kv_valid(mask)
-    if routes_to_flash(mask, sq, sk):
+    if use_flash and routes_to_flash(mask, sq, sk):
         return flash_attention(
             q, k, v, kv_mask=kv_mask, causal=causal, sm_scale=sm_scale,
             dropout_rate=dropout_rate, dropout_seed=dropout_seed or 0,

@@ -17,7 +17,9 @@ as the JAX block draws its keys. The memory modes (``normalize_invertible``,
 the block in ``torch.utils.checkpoint`` under ``remat_policy``
 (:func:`resolve_remat_policy`); since the block's randomness is drawn
 outside the checkpointed region, the recompute repeats the forward's
-masks and seeds exactly. The stochastic LayerNorm mode is not ported. The
+masks and seeds exactly. ``stochastic_mode`` keeps the LayerNorm
+statistics in bf16 under bf16 compute (:func:`layer_norm_apply`), plain
+PyTorch as the JAX path is XLA. The
 large projections stay ``F.linear`` (cuBLAS), as the JAX package left
 them to XLA; attention goes through the kernels of ops/attention.py
 (prefill, training) and ops/decode_attention.py (decode).
@@ -41,7 +43,6 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..config.config import not_ported
 from .attention import NEG_INF, attention, routes_to_flash
 from .decode_attention import lora_sgmv_add, paged_flash_decode
 
@@ -125,6 +126,10 @@ class DeepSpeedTransformerConfig:
     lora_rank: int = 0
     lora_alpha: float = 0.0  # 0 => rank (scaling 1.0)
     lora_targets: tuple = ()
+    # the reference's relaxed-precision variant: under bf16 compute the
+    # LayerNorm statistics stay in bf16 (layer_norm_apply); a no-op
+    # otherwise
+    stochastic_mode: bool = False
 
     @property
     def intermediate(self):
@@ -152,8 +157,7 @@ class DeepSpeedTransformerConfig:
 
 #: The public names of ``jax.checkpoint_policies`` (JAX 0.9): a remat
 #: spec part the JAX package accepts. Those in :data:`_SAVED_OPS` are
-#: mapped; the rest (the name- and offload-policy factories) are refused
-#: as not ported.
+#: mapped; the rest (:data:`JAX_POLICY_FACTORIES`) are refused.
 JAX_CHECKPOINT_POLICIES = (
     "checkpoint_dots", "checkpoint_dots_with_no_batch_dims",
     "dots_saveable", "dots_with_no_batch_dims_saveable",
@@ -162,9 +166,20 @@ JAX_CHECKPOINT_POLICIES = (
     "save_any_names_but_these", "save_anything_except_these_names",
     "save_from_both_policies", "save_only_these_names",
 )
+#: The names of :data:`JAX_CHECKPOINT_POLICIES` that are policy
+#: factories: ``jax.checkpoint_policies.save_only_these_names("n")``
+#: returns a policy, the factory itself is none. The JAX package accepts
+#: one as a spec part, and its first backward raises ``TypeError`` (the
+#: factory is called with a primitive's parameters); the port raises the
+#: same class when the spec is resolved.
+JAX_POLICY_FACTORIES = (
+    "offload_dot_with_no_batch_dims", "save_and_offload_only_these_names",
+    "save_any_names_but_these", "save_anything_except_these_names",
+    "save_from_both_policies", "save_only_these_names",
+)
 #: The JAX package's checkpoint names (deepspeed_tpu/ops/attention.py:
-#: CHECKPOINT_NAMES). ``zero3_gathered`` tags ZeRO-3's gathered weights,
-#: which the port does not have yet.
+#: CHECKPOINT_NAMES). ``zero3_gathered`` tags ZeRO-3's gathered weights
+#: (models/stack.py).
 CHECKPOINT_NAMES = ("attn_probs", "flash_out", "flash_lse", "zero3_gathered")
 
 _EVERYTHING = "everything"
@@ -185,6 +200,7 @@ _SAVED_OPS = {
     "attn_probs": (_aten._softmax,),
     "flash_out": (),
     "flash_lse": (),
+    "zero3_gathered": (),
 }
 
 
@@ -195,11 +211,15 @@ class RematPolicy:
     kernels' output and log-sum-exp are kept (``keep_flash``: both
     ``flash_out`` and ``flash_lse`` named), in which case attention runs
     outside the checkpointed segments and its forward kernel is not run
-    again."""
+    again, and whether ZeRO-3's gathered weights are kept as residuals
+    (``keep_gathered``: ``zero3_gathered`` named), in which case the
+    stage-3 stack gathers outside the checkpointed region and the
+    backward does not gather again."""
 
     saved_ops: tuple = ()
     everything: bool = False
     keep_flash: bool = False
+    keep_gathered: bool = False
 
     def policy_fn(self, ctx, op, *args, **kwargs):
         from torch.utils.checkpoint import CheckpointPolicy
@@ -223,9 +243,12 @@ def resolve_remat_policy(spec):
     "dots_with_no_batch_dims_saveable+flash_out+flash_lse" keeps the
     weight-matmul outputs and the flash kernel's residuals, so the
     backward recomputes only the cheap elementwise chains). Accepts and
-    rejects what the JAX package does (a typo'd part is a ValueError); a
-    JAX name the port cannot map is refused as not ported. Returns a
-    :class:`RematPolicy`."""
+    rejects what the JAX package does: a typo'd part is a ValueError, and
+    a part the JAX package accepts but cannot run as a policy (a policy
+    factory of :data:`JAX_POLICY_FACTORIES`, or a dunder attribute of the
+    ``SimpleNamespace`` that ``jax.checkpoint_policies`` is) is a
+    TypeError, raised here where the JAX package raises it at the first
+    backward. Returns a :class:`RematPolicy`."""
     saved, everything, names = set(), False, set()
     for part in spec.split("+"):
         if part in _SAVED_OPS:
@@ -236,11 +259,18 @@ def resolve_remat_policy(spec):
                 saved.update(ops)
             if part in CHECKPOINT_NAMES:
                 names.add(part)
-        elif part in JAX_CHECKPOINT_POLICIES or part in CHECKPOINT_NAMES or (
-                part.startswith("__") and part.endswith("__")):
-            # the JAX package accepts it (a policy factory, an attribute
-            # of any Python object, or ZeRO-3's gather tag)
-            raise not_ported(f"remat policy part {part!r}")
+        elif part in JAX_POLICY_FACTORIES or (
+                part.startswith("__")
+                and hasattr(types.SimpleNamespace(), part)):
+            # jax.checkpoint_policies is a SimpleNamespace: its dunder
+            # attributes pass the JAX package's hasattr check
+            raise TypeError(
+                f"remat policy part {part!r}: the JAX package accepts it "
+                "(an attribute of jax.checkpoint_policies) but cannot run "
+                "it as a policy (its first backward raises TypeError); "
+                "name a policy such as 'dots_saveable', or a checkpoint "
+                f"name of {CHECKPOINT_NAMES}"
+            )
         else:
             # a typo'd policy name must fail loudly, not silently become a
             # never-matching name-saver that recomputes everything
@@ -252,6 +282,7 @@ def resolve_remat_policy(spec):
     return RematPolicy(
         saved_ops=tuple(sorted(saved, key=str)), everything=everything,
         keep_flash={"flash_out", "flash_lse"} <= names,
+        keep_gathered="zero3_gathered" in names,
     )
 
 
@@ -405,11 +436,50 @@ class DeepSpeedTransformerLayer(nn.Module):
                 p.zero_()
 
 
+_STOCHASTIC_NOTICED = [False, False]  # [active-path notice, no-op notice]
+
+
+def _notice_stochastic_once(active, dtype=None):
+    """The JAX package's one-time notice that ``stochastic_mode`` is on
+    (``active``, under bf16) or ignored (any other compute dtype)."""
+    idx = 0 if active else 1
+    if _STOCHASTIC_NOTICED[idx]:
+        return
+    _STOCHASTIC_NOTICED[idx] = True
+    from ..utils.logging import log_dist
+
+    if active:
+        log_dist(
+            "stochastic_mode: relaxed-precision transformer path active — "
+            "LayerNorm statistics in bf16 (fp32 upcast skipped). Matches "
+            "the reference's __STOCHASTIC_MODE__ kernel contract: faster, "
+            "pretraining-safe, not bit-deterministic vs the default path.",
+            ranks=[0],
+        )
+    else:
+        log_dist(
+            f"stochastic_mode requested but compute dtype is {dtype}; the "
+            "relaxed LayerNorm path applies only under bf16 (fp16's range "
+            "would overflow the statistics) — running the default "
+            "fp32-statistics path.",
+            ranks=[0],
+        )
+
+
 def layer_norm_apply(cfg, x, scale, bias):
     """The block's LayerNorm (shared by every serving path): statistics,
     the epsilon and the affine in float32 (1e-12 underflows in bf16), the
-    result in x's dtype. The JAX package's bf16-statistics
-    ``stochastic_mode`` is a training option and is not ported."""
+    result in x's dtype. With ``cfg.stochastic_mode`` and a bf16 ``x``,
+    the JAX package's relaxed path: the mean and variance (accumulated in
+    float32, as ``jnp.mean``/``jnp.var`` do) rounded to bf16, the epsilon
+    joined in float32, and the normalisation and affine in bf16."""
+    if cfg.stochastic_mode and x.dtype == torch.bfloat16:
+        x32 = x.float()
+        mean = x32.mean(dim=-1, keepdim=True)
+        var = x32.var(dim=-1, unbiased=False, keepdim=True)
+        inv = torch.rsqrt(var.to(x.dtype).float() + cfg.layer_norm_eps)
+        y = (x - mean.to(x.dtype)) * inv.to(x.dtype)
+        return y * scale.to(x.dtype) + bias.to(x.dtype)
     xs = x.float()
     mean = xs.mean(dim=-1, keepdim=True)
     var = xs.var(dim=-1, unbiased=False, keepdim=True)
@@ -457,7 +527,7 @@ def _block_tensors(p):
 
 def transformer_block_apply(cfg, p, hidden_states, attention_mask=None, *,
                             causal=False, return_kv=False, train=False,
-                            dropout_rng=None, lora=None):
+                            dropout_rng=None, lora=None, use_flash=True):
     """The block over ``p`` (a :class:`DeepSpeedTransformerLayer`, or a
     module whose tensors ``torch.func.functional_call`` swapped in).
 
@@ -477,13 +547,18 @@ def transformer_block_apply(cfg, p, hidden_states, attention_mask=None, *,
     ``(k, v)``, each [B, heads, S, hd] — the KV-cache prefill mode: exactly
     the values attention consumed (no remat). ``lora`` is the batched
     adapter source of :func:`apply_lora` (serving prefill); per-layer
-    factors in ``p`` cover the fine-tune path."""
+    factors in ``p`` cover the fine-tune path. ``use_flash=False`` sends
+    attention to the plain reference at every length (the JAX block's
+    switch)."""
     H = cfg.hidden_size
     heads = cfg.heads
     head_dim = H // heads
     if head_dim * heads != H:
         raise ValueError("hidden_size must divide into heads")
     b, s, _ = hidden_states.shape
+    if cfg.stochastic_mode:
+        _notice_stochastic_once(hidden_states.dtype == torch.bfloat16,
+                                hidden_states.dtype)
 
     # every random draw before the (optionally checkpointed) block, so
     # that a recompute repeats the forward's seed and masks
@@ -511,7 +586,7 @@ def transformer_block_apply(cfg, p, hidden_states, attention_mask=None, *,
         return attention(
             qh, kh, vh, mask=attention_mask, causal=causal,
             dropout_rate=cfg.attn_dropout_ratio if rng is not None else 0.0,
-            dropout_seed=attn_seed,
+            dropout_seed=attn_seed, use_flash=use_flash,
         )
 
     def finish(o_p, x, ctx, keep_a, keep_f):
@@ -543,8 +618,8 @@ def transformer_block_apply(cfg, p, hidden_states, attention_mask=None, *,
     else:
         policy = resolve_remat_policy(cfg.remat_policy)
         kw["context_fn"] = policy.context_fn
-    if policy is not None and policy.keep_flash and routes_to_flash(
-            attention_mask, s, s):
+    if policy is not None and policy.keep_flash and use_flash and (
+            routes_to_flash(attention_mask, s, s)):
         # attention outside the checkpointed segments: its autograd
         # Function keeps the kernel's out and lse, and the forward kernel
         # is not launched again

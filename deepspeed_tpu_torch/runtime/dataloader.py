@@ -113,7 +113,8 @@ class DeepSpeedDataLoader:
             raise not_ported(
                 f"a data loader that places batches on a "
                 f"{type(mesh).__name__} mesh (the port takes a "
-                "deepspeed_tpu_torch.parallel.ProcessMesh)")
+                "deepspeed_tpu_torch.parallel.ProcessMesh; device meshes "
+                "come with ROADMAP A7)")
         if mesh is not None:
             self.rank, self.num_ranks = mesh.data_rank, mesh.dp_size
         elif dist.is_available() and dist.is_initialized():

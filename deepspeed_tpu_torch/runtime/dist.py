@@ -1,13 +1,16 @@
 """Distributed bootstrap and the port's collectives, over torch.distributed.
 
-Port of deepspeed_tpu/runtime/dist.py. The per-node launcher exports
-``DS_TPU_COORDINATOR_ADDRESS`` (``host:port``), ``DS_TPU_NUM_PROCESSES``
-and ``DS_TPU_PROCESS_ID``; :func:`init_distributed` turns them into
+Port of deepspeed_tpu/runtime/dist.py. The port's launcher
+(``python -m deepspeed_tpu_torch.launcher.runner``, launcher/launch.py)
+starts one process per GPU slot and exports ``DS_TPU_COORDINATOR_ADDRESS``
+(``host:port``), ``DS_TPU_NUM_PROCESSES`` and ``DS_TPU_PROCESS_ID`` (the
+global rank), and ``LOCAL_RANK`` (the process's index on its host);
+:func:`init_distributed` turns them into
 ``torch.distributed.init_process_group(init_method="tcp://<address>",
 rank=, world_size=)``, one process per device: ``nccl`` when the engine's
-device is CUDA, ``gloo`` on the CPU. A group the caller already made is
-used as it is (the JAX package accepts a ``jax.distributed`` the user
-started the same way).
+device is CUDA, bound to ``cuda:<LOCAL_RANK>``, ``gloo`` on the CPU. A
+group the caller already made is used as it is (the JAX package accepts
+a ``jax.distributed`` the user started the same way).
 
 Two parts of the JAX module are left out:
 
@@ -38,9 +41,21 @@ from ..utils.logging import logger
 COORD_ENV = "DS_TPU_COORDINATOR_ADDRESS"
 NPROC_ENV = "DS_TPU_NUM_PROCESSES"
 PID_ENV = "DS_TPU_PROCESS_ID"
+LOCAL_RANK_ENV = "LOCAL_RANK"
 
 def is_initialized():
     return dist.is_available() and dist.is_initialized()
+
+
+def local_device_index(process_id):
+    """The CUDA device a process binds: ``LOCAL_RANK`` when the launcher
+    exported it (its index among its host's slots, which its
+    ``CUDA_VISIBLE_DEVICES`` lists), else ``process_id`` modulo the
+    visible devices, for a process started by hand without it."""
+    local = os.environ.get(LOCAL_RANK_ENV)
+    if local is not None and local.strip():
+        return int(local)
+    return process_id % torch.cuda.device_count()
 
 
 def init_distributed(dist_init_required=None, device=None):
@@ -68,8 +83,9 @@ def init_distributed(dist_init_required=None, device=None):
         if dist_init_required:
             raise RuntimeError(
                 f"dist_init_required=True with {NPROC_ENV}={num_processes} "
-                f"but {COORD_ENV} is unset; start via bin/deepspeed or "
-                "export the DS_TPU_* variables"
+                f"but {COORD_ENV} is unset; start via python -m "
+                "deepspeed_tpu_torch.launcher.runner or export the DS_TPU_* "
+                "variables"
             )
         return False
     if not dist.is_available():
@@ -81,8 +97,7 @@ def init_distributed(dist_init_required=None, device=None):
     device = torch.device("cpu" if device is None else device)
     backend = "nccl" if device.type == "cuda" else "gloo"
     if backend == "nccl" and device.index is None:
-        # one process per card: the launcher numbers processes per host
-        torch.cuda.set_device(process_id % torch.cuda.device_count())
+        torch.cuda.set_device(local_device_index(process_id))
     dist.init_process_group(
         backend=backend, init_method=f"tcp://{coordinator}",
         rank=process_id, world_size=num_processes,

@@ -114,13 +114,20 @@ are offset by the data rank. ``sparse_gradients`` routes the embedding
 tables' gradients through the CSR all-gather of runtime/sparse.py. At
 world size 1 every stage is stage 0, as in the JAX engine.
 
+Compensated masters at data parallel > 1 keep the compute-dtype
+parameters replicated at stages 0-2 (sharded at stage 3) and their int8
+codes in the sharded optimizer state, as the moments; the adapters block
+at data parallel > 1 keeps its frozen base replicated, and only the LoRA
+factors go through the ZeRO layout, the gradient reduction and the
+checkpoints (at stage 3 the layer-wise gather is not armed, as in the
+JAX engine: the factors are gathered at the forward). The adapters block
+takes optimizer offload and compensated masters, which then hold only
+the factors.
+
 Not ported, refused with ``DeepSpeedConfigError("... not yet ported")``:
-a model, sequence or pipeline mesh axis above 1 (ROADMAP A7), the
-adapters block with offload or compensated masters (and
-at data parallel > 1), compensated masters at data parallel > 1, a remat
-policy the port cannot map, and a model with MoE or pipeline stages.
-Optimizer offload at data parallel > 1 is refused with the JAX engine's
-message.
+a model, sequence or pipeline mesh axis above 1 and a model with MoE or
+pipeline stages (ROADMAP A7). Optimizer offload at data parallel > 1 is
+refused with the JAX engine's message.
 """
 
 import functools
@@ -247,7 +254,9 @@ class DeepSpeedEngine:
         # ---- config ---------------------------------------------------
         raw = config_params
         if raw is None and args is not None:
-            raw = getattr(args, "deepspeed_config", None)
+            # the launcher's flag, or its deprecated alias
+            raw = (getattr(args, C.DEEPSPEED_CONFIG_ARG, None)
+                   or getattr(args, C.DEEPSCALE_CONFIG_ARG, None))
         if isinstance(raw, str):
             raw = load_config_json(raw)
         raw = dict(raw or {})
@@ -264,7 +273,8 @@ class DeepSpeedEngine:
         elif not isinstance(mesh, ProcessMesh):
             raise not_ported(
                 f"training over a {type(mesh).__name__} mesh (the port "
-                "takes a deepspeed_tpu_torch.parallel.ProcessMesh)")
+                "takes a deepspeed_tpu_torch.parallel.ProcessMesh; device "
+                "meshes come with ROADMAP A7)")
         self.mesh = mesh
         self.mpu = as_mpu(mpu, mesh)
         self.dp_world_size = mesh.dp_size
@@ -289,7 +299,7 @@ class DeepSpeedEngine:
         for field, off in (("moe_experts", 0), ("pipeline_stages", 1)):
             if getattr(mcfg, field, off) != off:
                 raise not_ported(f"a model with {field}="
-                                 f"{getattr(mcfg, field)!r}")
+                                 f"{getattr(mcfg, field)!r} (ROADMAP A7)")
         policy = getattr(mcfg, "remat_policy", "full")
         if getattr(mcfg, "remat", False) and policy != "full":
             # a typo or a policy the port cannot map fails here, not in
@@ -347,16 +357,8 @@ class DeepSpeedEngine:
                     "optimizer state by dp) or "
                     "data_types.master_dtype='compensated' instead"
                 )
-            if self.compensated_master:
-                raise not_ported("compensated masters at data parallel > 1")
-            if cfg.adapters_enabled:
-                raise not_ported("the adapters block at data parallel > 1")
         self.frozen_base_params = {}
         if cfg.adapters_enabled:
-            if self.host_offload or self.compensated_master:
-                raise not_ported(
-                    "the adapters block with optimizer offload or "
-                    "compensated masters")
             self._configure_adapters(model_parameters, rng_seed)
         if self.compensated_master:
             self.module.to(dtype=self.compute_dtype)
@@ -366,10 +368,7 @@ class DeepSpeedEngine:
         # block only the LoRA factors (float32 on the device; in the
         # compute dtype when compensated; with offload, float32 copies in
         # pinned host memory while the module holds the compute dtype)
-        self.params = {
-            n: p for n, p in self.module.named_parameters()
-            if n not in self.frozen_base_params
-        }
+        self.params = self._trainable_module_params()
         # the module's compute-dtype parameters beside host masters, and
         # the pinned buffers of the step's copies (offload on the card)
         self._compute_params = None
@@ -720,26 +719,31 @@ class DeepSpeedEngine:
         zero = self._zero
         stage = self.zero_stage
         module = self.module
-        masters = zero.shard_leaves(full, dtype=torch.float32)
+        # compensated masters are the compute-dtype parameters themselves,
+        # their int8 codes sharded with the optimizer state
+        masters = zero.shard_leaves(
+            full, dtype=(self.compute_dtype if self.compensated_master
+                         else torch.float32))
         if stage >= ZERO_OPTIMIZATION_WEIGHTS:
             with torch.no_grad():
                 for n, p in full.items():
                     p.data = zero.persistent_shard(n, p.data)
         module.to(dtype=self.compute_dtype)
-        self._compute_params = dict(module.named_parameters())
-        if self.compute_dtype == torch.float32:
+        self._compute_params = self._trainable_module_params()
+        if self.compute_dtype == torch.float32 or self.compensated_master:
             if (stage >= ZERO_OPTIMIZATION_WEIGHTS
                     and zero.persistent_matches_leaves()):
-                # fp32 shards are the masters themselves, as the JAX
-                # engine's sharded fp32 params are
+                # the shards are the masters themselves, as the JAX
+                # engine's sharded fp32 (or compensated) params are
                 masters = {n: p.data
                            for n, p in self._compute_params.items()}
                 self._masters_alias = True
             elif stage < ZERO_OPTIMIZATION_WEIGHTS:
-                # stages 1-2 in fp32: a master that is a contiguous part
-                # of the module's parameter (a dim-0 shard, a replicated
-                # tensor) is a view of it, not a copy; the update writes
-                # the module's slice, the all-gather the rest
+                # stages 1-2 in fp32 (or compensated): a master that is a
+                # contiguous part of the module's parameter (a dim-0
+                # shard, a replicated tensor) is a view of it, not a copy;
+                # the update writes the module's slice, the all-gather the
+                # rest
                 for n in masters:
                     if n not in self._compute_params:
                         continue  # a flat int8 group
@@ -763,7 +767,17 @@ class DeepSpeedEngine:
         zero = self._zero
         zc = self.config.zero_config
         module = self.module
-        prefix = getattr(module, "zero3_block_prefix", None)
+        seam = prefix = getattr(module, "zero3_block_prefix", None)
+        if prefix is not None and (
+                self.frozen_base_params
+                or getattr(getattr(module, "config", None), "lora_rank", 0)):
+            # the stack gathers the block layout only, not the factors
+            log_dist(
+                "ZeRO-3: layer-wise gather seam not armed (LoRA adapters "
+                "do not compose with the zero3 stack yet); params stay "
+                "dp-sharded and every sharded parameter is gathered at "
+                "the forward", ranks=[0])
+            prefix = None
         dims, shapes, block = {}, {}, set()
         if prefix is not None:
             for n, shape in zero.shapes.items():
@@ -787,7 +801,7 @@ class DeepSpeedEngine:
                 f"ZeRO-3: layer-wise gather armed over {len(dims)} block "
                 f"tensors (gather_block={zc.stage3_gather_block}; the "
                 "backward re-gathers)", ranks=[0])
-        else:
+        elif seam is None:
             log_dist(
                 "ZeRO-3: model exposes no layer-gather seam "
                 "(zero3_block_prefix); every sharded parameter is gathered "
@@ -815,7 +829,7 @@ class DeepSpeedEngine:
             host.copy_(p.detach())
             masters[n] = host
         self.module.to(dtype=self.compute_dtype)
-        self._compute_params = dict(self.module.named_parameters())
+        self._compute_params = self._trainable_module_params()
         self.params = masters
         if pin:
             self._host_grads = {
@@ -831,6 +845,12 @@ class DeepSpeedEngine:
             "accelerator holds compute-dtype params/grads (per-step d2h "
             "grads + h2d params)", ranks=[0],
         )
+
+    def _trainable_module_params(self):
+        """The module's parameters that are trained (under the adapters
+        block the frozen base is not among them)."""
+        return {n: p for n, p in self.module.named_parameters()
+                if n not in self.frozen_base_params}
 
     def _pinned(self, tree):
         """``tree`` with every tensor in pinned host memory (offload on a

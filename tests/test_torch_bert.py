@@ -258,6 +258,20 @@ def test_presets_and_the_padded_vocab():
 def test_what_bert_refuses(field, value):
     cfg = BertConfig(**_kw(16))
     setattr(cfg, field, value)
+    if field == "lora_rank":
+        # taken since LoRA on BERT was ported: the blocks carry the JAX
+        # model's factors, by name and shape
+        jmodel = jbert.BertForPreTraining(jbert.BertConfig(
+            **_kw(16), lora_rank=value))
+        args = [jnp.asarray(a) for a in _batch("pretraining", 16)]
+        params = jmodel.init({"params": jax.random.PRNGKey(0)}, *args,
+                             train=False)["params"]
+        want = {n: tuple(t.shape) for n, t in bert_params_from_jax(
+            jax.device_get(params)).items() if "_lora_" in n}
+        got = {n: tuple(p.shape) for n, p in BertForPreTraining(
+            cfg, device="cpu").named_parameters() if "_lora_" in n}
+        assert got == want and len(got) == 2 * 4 * 2
+        return
     with pytest.raises(DeepSpeedConfigError, match="not yet ported"):
         BertForPreTraining(cfg, device="cpu")
 

@@ -13,9 +13,11 @@
   every mapped spec.
 - The forward's plain-version runs per layer: 2 under "full", 1 under a
   spec that keeps flash_out and flash_lse.
-- The spec strings: every string the JAX package accepts is accepted or
-  refused as not ported, every string it rejects is rejected (the typo
-  check of tests/unit/test_attention_sharded.py)."""
+- The spec strings: every string the JAX package accepts is accepted, or
+  raises TypeError where the JAX package's first backward raises it (a
+  policy factory or a dunder attribute as a part), and every string it
+  rejects is rejected (the typo check of
+  tests/unit/test_attention_sharded.py)."""
 
 import importlib
 
@@ -191,6 +193,7 @@ SPECS = [
     "save_anything_except_these_names", "offload_dot_with_no_batch_dims",
     "save_from_both_policies", "save_and_offload_only_these_names",
     "save_any_names_but_these", "zero3_gathered", "dots_saveable+__doc__",
+    "dots_saveable+__foo__",
 ]
 
 
@@ -208,8 +211,13 @@ def test_spec_strings_are_accepted_and_rejected_as_jax_does(spec):
         return
     try:
         policy = resolve_remat_policy(spec)
-    except DeepSpeedConfigError as e:
-        assert "not yet ported" in str(e)
+    except TypeError as e:
+        assert "cannot run it as a policy" in str(e)
+        # the JAX package accepted the spec; its first backward raises
+        jpolicy = jtransformer.resolve_remat_policy(spec)
+        with pytest.raises(TypeError):
+            jax.grad(jax.checkpoint(lambda x: jnp.sum(jnp.sin(x @ x)),
+                                    policy=jpolicy))(jnp.ones((2, 2)))
         return
     assert policy.keep_flash == ("flash_out" in spec and "flash_lse" in spec)
 
@@ -228,7 +236,7 @@ def test_memory_modes_and_the_engine_refusal():
                  "attn_dropout_checkpoint"):
         assert DeepSpeedTransformerConfig(**{flag: True}).use_remat
     model = _model(64, "save_only_these_names")
-    with pytest.raises(DeepSpeedConfigError, match="not yet ported"):
+    with pytest.raises(TypeError, match="cannot run it as a policy"):
         deepspeed_tpu_torch.initialize(
             model=model, config_params={"train_batch_size": 2},
             device="cpu")

@@ -127,7 +127,9 @@ def _tiny():
 # gradients are ported too (tests/test_torch_dist.py,
 # tests/test_torch_zero*.py, tests/test_torch_sparse.py): extra3, 4 and 6-8
 # and extra10 now hold model, sequence and pipeline axes, which stay
-# refused
+# refused. The adapters block with offload or compensated masters is
+# ported too, as the JAX engine takes it: extra0, 1 and 5 now build, train
+# a step and leave the frozen base as it was
 @pytest.mark.parametrize("extra", [
     {"adapters": {"enabled": True, "rank": 4},
      "zero_optimization": {"stage": 1,
@@ -154,6 +156,20 @@ def _tiny():
 ])
 def test_engine_refuses_what_is_not_ported(extra):
     cfg = dict({"train_batch_size": 2}, **extra)
+    if "adapters" in extra:
+        engine, *_ = deepspeed_tpu_torch.initialize(
+            model=_tiny(), config_params=cfg, device="cpu")
+        base = {n: t.clone() for n, t in engine.frozen_base_params.items()}
+        ids = torch.randint(0, 64, (2, 16),
+                            generator=torch.Generator().manual_seed(0))
+        loss = engine.train_batch([(ids, ids)])
+        # fp16's first window may overflow at the initial scale and skip
+        assert torch.isfinite(loss)
+        assert engine.global_steps + engine.skipped_steps == 1
+        assert set(engine.params) == set(engine.adapter_state_dict())
+        assert all(torch.equal(base[n], t)
+                   for n, t in engine.frozen_base_params.items())
+        return
     with pytest.raises(DeepSpeedConfigError, match="not yet ported"):
         deepspeed_tpu_torch.initialize(model=_tiny(), config_params=cfg,
                                        device="cpu")
@@ -207,8 +223,15 @@ def test_engine_refuses_model_features_that_are_not_ported(field, value):
     model = _tiny()
     setattr(model.config, field, value)
     if field == "remat":
-        # remat is ported; a JAX remat policy the port cannot map is not
+        # remat is ported; a policy factory is refused with the JAX
+        # package's error class (TypeError), where the JAX package raises
+        # it at the first backward
         model.config.remat_policy = "save_only_these_names"
+        with pytest.raises(TypeError, match="cannot run it as a policy"):
+            deepspeed_tpu_torch.initialize(
+                model=model, config_params={"train_batch_size": 2},
+                device="cpu")
+        return
     with pytest.raises(DeepSpeedConfigError, match="not yet ported"):
         deepspeed_tpu_torch.initialize(
             model=model, config_params={"train_batch_size": 2}, device="cpu")

@@ -132,7 +132,8 @@ def _model(case, workdir):
         m = dst.GPT2LMHeadModel(dst.GPT2Config(
             vocab_size=VOCAB, n_positions=SEQ, n_embd=64, n_layer=2,
             n_head=4, dropout=case.get("dropout", 0.0),
-            remat=case.get("remat", False)), device="cpu")
+            remat=case.get("remat", False),
+            remat_policy=case.get("remat_policy", "full")), device="cpu")
     else:
         from deepspeed_tpu_torch.models.bert import BertConfig
 
@@ -158,8 +159,15 @@ def _feed(engine, case, rank, dp):
 def case_train(case, rank, dp, workdir):
     import deepspeed_tpu_torch as dst
 
+    import torch
+
+    # the engine's model_parameters (a state dict file: e.g. the base and
+    # a LoRA adapter to fine-tune), else the model's own weights
+    state = case.get("model_parameters")
     engine, *_ = dst.initialize(
         model=_model(case, workdir), device="cpu",
+        model_parameters=(None if state is None else torch.load(
+            workdir / state, weights_only=True)),
         config_params=config(case["stage"], case["opt"], case["dtype"],
                              case["micro"], case["accum"], dp,
                              lr=case.get("lr", 1e-2), **case.get("extra", {})))
