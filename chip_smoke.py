@@ -159,7 +159,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                the same greedy tokens, one request, queue and prefill span
                per request and a span per decode step, and the infer/*
                catalog in metrics.jsonl.
-  10. resilience — GPT-2 small at full width and depth with phase 5's
+  10. resilience — GPT-2 small at full width, cut to CUT_LAYERS (4)
+               layers to keep the script inside its limit, with phase 5's
                training config (bf16, 8 x 2 micro-batches of 1024,
                dropout 0.1, Adam, WarmupLR) and the resilience block, every
                checkpoint under one temporary directory (its disk's free
@@ -184,11 +185,13 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                during a window commits preempt_global_step<N> at the next
                boundary (preemption_saves 1), and the handler's removal
                restores the disposition. A rank-16 LoRA fine-tune (2
-               windows) saves only the adapter (2,359,296 parameters and
-               their moments); load_adapter(load_dir=) decodes what
-               load_adapter(adapter_state=) does, 48 SGMV launches a
-               decode step, and a rank-8 pool refuses it.
-  11. data and remat — GPT-2 small at full width and depth with phase
+               windows) saves only the adapter (196,608 parameters a
+               layer and their moments); load_adapter(load_dir=) decodes
+               what load_adapter(adapter_state=) does, 4 SGMV launches a
+               layer and decode step, and a rank-8 pool refuses it. The
+               launch counts of phases 10 and 11 are per CUT_LAYERS.
+  11. data and remat — GPT-2 small at full width, cut to CUT_LAYERS
+               layers, with phase
                5's training config (bf16, 8 x 2 micro-batches of 1024,
                dropout 0.1, WarmupLR), its data synthetic token ids from
                --seed passed to initialize() as training_data. (a) The
@@ -216,7 +219,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                windows of FusedLamb a run, in the order off, full,
                selective, selective, full, off: the peak memory (reset
                before each), the step ms, the launches (the forward
-               12, 24 and 12 per micro-step, dQ and dK/dV 12), the losses
+               1, 2 and 1 a layer and micro-step, dQ and dK/dV 1), the
+               losses
                equal to remat off's bit for bit and the peak under "full"
                below remat off's; then one float32 micro-step under each
                remat mode, its gradients through the kernels against the
@@ -352,15 +356,35 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                trains 3 windows of Adam (finite losses, 12 launches a
                micro-step; path "stochastic") and its LayerNorm output
                differs from the default path's.
+  16. tensor parallel — two ranks on the one card over a gloo group the
+               phase makes (``--phase16-rank``), a model line of GPT-2
+               small at full width and depth at mp 2 (6 heads and 25,152
+               vocab rows a rank, initialize(param_specs=partition_specs(
+               model))), 2 rows x 1024 a micro-step, 2 micro-steps a
+               window, 3 windows: (a) bf16 FusedLamb, dropout 0.1, ZeRO
+               stage 2: the same losses on both ranks, 12 launches of each
+               attention kernel a micro-step and 6 of LAMB a step on each
+               rank (paths "mp2_rank0", "mp2_rank1"), the memory a rank
+               holds after initialize() and its peak, the window seconds
+               (two ranks on one card over gloo: not an mp 2 speed); the
+               flash forward, dQ and dK/dV at the rank's shape [2, 6, 1024,
+               64] and LAMB phase 1 over the rank's parameter shards
+               against their plain versions (phase 3b's tolerances). (b)
+               float32 Adam at dropout 0: losses and whole parameters
+               equal an mp 1 run in this process (P16_RTOL, atol 1e-5);
+               its checkpoint loads at mp 1 with the same eval
+               fingerprint (rtol 1e-5); GPT-2's blocks through the
+               activation API's checkpoint with partition_activations off
+               and on: the same loss and gradients, the peak lower.
   9. report  — a JSON line of per-kernel numbers (the D = 256, decode
                tail and BERT (rows 1b-3b) variants in entries of their
-               own; the launches of every path, phases 10 to 15
+               own; the launches of every path, phases 10 to 16
                included), the nvidia-smi line, then the last line {"ok":
-               true, "device": {...}}. It comes after phase 15.
+               true, "device": {...}}. It comes after phase 16.
 
 ``--only-phase12`` builds every kernel and runs phase 12 alone, printing
-its numbers as one JSON line; ``--only-phase13``, ``--only-phase14``
-and ``--only-phase15`` the same for phases 13, 14 and 15. ``--only-bert-attention`` builds the
+its numbers as one JSON line; ``--only-phase13``, ``--only-phase14``,
+``--only-phase15`` and ``--only-phase16`` the same for phases 13 to 16. ``--only-bert-attention`` builds the
 flash kernels, checks them under BERT's padding mask and the mask
 patterns of phase 12a, and times rows 1b-3b (copy the script to the root
 of an unpacked parent under build/ to time both trees in one call).
@@ -421,6 +445,9 @@ PEAK_FLOPS = {  # dense, H100 SXM at 700 W (NVIDIA data sheet)
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2, torch.float16: 2e-3}
 LAMB_RTOL = 1e-5
 N_LAYER = 12
+# phases 10 and 11 run GPT-2 small's width at this depth, to keep the
+# script inside its time limit (their paths do not depend on the depth)
+CUT_LAYERS = 4
 TRAIN_SHAPE = (8, 12, 1024, 64)  # B, H, S, D: GPT-2 small, micro-batch 8
 DROPOUT = 0.1
 FLASH_SOURCE = "deepspeed_tpu_torch/csrc/flash_fwd.cu"
@@ -1834,8 +1861,8 @@ def run_windows(engine, micro, n):
     return losses, secs, builds
 
 
-def check_launches(path, got, micro_steps, lamb_steps=0):
-    want = {name: N_LAYER * micro_steps for name in TRAIN_KERNELS}
+def check_launches(path, got, micro_steps, lamb_steps=0, layers=N_LAYER):
+    want = {name: layers * micro_steps for name in TRAIN_KERNELS}
     want["lamb_phase1"] = 6 * lamb_steps
     want["paged_decode"] = want["sgmv"] = 0
     log(f"  launches {got} (want {want})")
@@ -3274,7 +3301,7 @@ def res_engine(seed, optimizer="Adam", lr=1e-4, resilience=None,
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch import GPT2Config
 
-    cfg = GPT2Config.small(dropout=DROPOUT)
+    cfg = GPT2Config.small(dropout=DROPOUT, n_layer=CUT_LAYERS)
     model = weighted_gpt2_class()(cfg, device="cuda",
                                   seed=seed if model_seed is None
                                   else model_seed)
@@ -3421,7 +3448,8 @@ def resilience_runs(seed, card, root):
     zero_launches()
     got = windows_losses(resumed, windows[3:])
     launches["resume_adam"] = read_launches()
-    check_launches("resumed Adam", launches["resume_adam"], 6)
+    check_launches("resumed Adam", launches["resume_adam"], 6,
+                   layers=CUT_LAYERS)
     same_bits("run B windows 4-6 after the resume", got, want[3:])
     same_bits("run B counters, loss scale and LR", res_state(resumed),
               want_state)
@@ -3503,7 +3531,8 @@ def resilience_runs(seed, card, root):
     zero_launches()
     lamb_got = windows_losses(engine, windows[2:4])
     launches["resume_fusedlamb"] = read_launches()
-    check_launches("reloaded FusedLamb", launches["resume_fusedlamb"], 4, 2)
+    check_launches("reloaded FusedLamb", launches["resume_fusedlamb"], 4, 2,
+                   layers=CUT_LAYERS)
     grown = lamb_phase1.table_builds - builds
     same_bits("FusedLamb windows 3-4 after a reload", lamb_got, lamb_want)
     log(f"  LAMB table builds after the reload: {grown}")
@@ -3603,7 +3632,7 @@ def res_serving(seed, ckpt_dir, trained, launches):
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
 
-    cfg = GPT2Config.small()
+    cfg = GPT2Config.small(n_layer=CUT_LAYERS)
     prompts, _ = prompts_for(seed, cfg.vocab_size)
     config = engine_config("bf16", True)
     direct = deepspeed_tpu_torch.init_inference(model=trained, config=config)
@@ -3662,7 +3691,7 @@ def res_lora(seed, root, windows, launches):
     from deepspeed_tpu_torch.adapters import split_lora_params
     from deepspeed_tpu_torch.config import DeepSpeedConfigError
 
-    cfg = GPT2Config.small(dropout=DROPOUT)
+    cfg = GPT2Config.small(dropout=DROPOUT, n_layer=CUT_LAYERS)
     model = GPT2LMHeadModel(cfg, device="cuda", seed=seed)
     base = {n: p.detach().clone() for n, p in model.state_dict().items()}
     config = train_config("Adam", 1e-3, BF16)
@@ -3679,8 +3708,10 @@ def res_lora(seed, root, windows, launches):
                         weights_only=True)
     n_saved = sum(t.numel() for t in saved["module"].values())
     log(f"  adapter checkpoint: {n_saved} parameters (want "
-        f"{ADAPTER_PARAMS}), files {files}, save {save_ms:.1f} ms")
-    if n_saved != ADAPTER_PARAMS or any("_lora_" not in n
+        f"{ADAPTER_PARAMS * CUT_LAYERS // N_LAYER}), files {files}, save "
+        f"{save_ms:.1f} ms")
+    if n_saved != ADAPTER_PARAMS * CUT_LAYERS // N_LAYER or any(
+            "_lora_" not in n
                                         for n in saved["module"]):
         fail("LoRA: the checkpoint holds more than the adapter")
     optim = torch.load(
@@ -3716,9 +3747,9 @@ def res_lora(seed, root, windows, launches):
     if got != want:
         fail("LoRA: the checkpoint's adapter decodes other tokens than its "
              "adapter_state")
-    if per_step != 4 * N_LAYER:  # 48: one per target and layer
+    if per_step != 4 * CUT_LAYERS:  # one per target and layer
         fail(f"LoRA: {per_step} SGMV launches a decode step, want "
-             f"{4 * N_LAYER}")
+             f"{4 * CUT_LAYERS}")
     small_cfg = engine_config("bf16", True)
     small_cfg["adapters"] = {"enabled": True, "rank": 8,
                              "pool_slots": LORA_POOL_SLOTS}
@@ -3776,8 +3807,9 @@ def data_engine(seed, data, staged, optimizer="Adam", lr=1e-4, model=None,
     from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
 
     if model is None:
-        model = GPT2LMHeadModel(GPT2Config.small(dropout=DROPOUT),
-                                device="cuda", seed=seed)
+        model = GPT2LMHeadModel(
+            GPT2Config.small(dropout=DROPOUT, n_layer=CUT_LAYERS),
+            device="cuda", seed=seed)
     config = train_config(optimizer, lr, BF16)
     config.update(train_batch_size=8 * accum,
                   gradient_accumulation_steps=accum)
@@ -3934,7 +3966,8 @@ def data_run(seed, data, path, root, tag):
         if w >= 3:
             secs.append(time.monotonic() - t0)
     launches = read_launches()
-    check_launches(f"phase 11a {tag}", launches, engine.micro_steps)
+    check_launches(f"phase 11a {tag}", launches, engine.micro_steps,
+                   layers=CUT_LAYERS)
     by_stream, compute = htod_streams(trace)
     copy_stream = None
     if engine._stager is not None:
@@ -4051,7 +4084,7 @@ def loader_run(seed, data, staged):
             secs.append(time.monotonic() - t0)
     launches = read_launches()
     check_launches(f"phase 11a accum 1 {'staged' if staged else 'lists'}",
-                   launches, engine.micro_steps)
+                   launches, engine.micro_steps, layers=CUT_LAYERS)
     stager = getattr(it, "stager", None)
     if (stager is not None) != staged or engine._stager is not None:
         fail(f"phase 11a accum 1: the loader's stager {stager}, the "
@@ -4100,8 +4133,9 @@ def remat_run(seed, micro, mode):
 
     spec = REMAT_SPECS[mode]
     kw = {} if spec is None else {"remat": True, "remat_policy": spec}
-    model = GPT2LMHeadModel(GPT2Config.small(dropout=DROPOUT, **kw),
-                            device="cuda", seed=seed)
+    model = GPT2LMHeadModel(
+        GPT2Config.small(dropout=DROPOUT, n_layer=CUT_LAYERS, **kw),
+        device="cuda", seed=seed)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4113,8 +4147,8 @@ def remat_run(seed, micro, mode):
     peak = torch.cuda.max_memory_allocated()
     launches = read_launches()
     m = engine.micro_steps
-    want = {name: N_LAYER * m for name in TRAIN_KERNELS}
-    want["flash_fwd"] = N_LAYER * m * REMAT_FWD_PER_LAYER[mode]
+    want = {name: CUT_LAYERS * m for name in TRAIN_KERNELS}
+    want["flash_fwd"] = CUT_LAYERS * m * REMAT_FWD_PER_LAYER[mode]
     want["lamb_phase1"] = 6 * engine.global_steps
     want["paged_decode"] = want["sgmv"] = 0
     log(f"  remat {mode}: losses {losses}; launches {launches}; peak "
@@ -4165,11 +4199,11 @@ def remat_runs(seed, card):
     for mode in ("full", "selective"):
         log(f"phase 11b: one float32 micro-step under remat {mode}, "
             "kernels vs plain")
-        cfg = GPT2Config.small(dropout=0.0, remat=True,
+        cfg = GPT2Config.small(dropout=0.0, remat=True, n_layer=CUT_LAYERS,
                                remat_policy=REMAT_SPECS[mode])
         f32, err = grads_kernels_vs_plain(seed, cfg)
-        want = {name: N_LAYER for name in TRAIN_KERNELS}
-        want["flash_fwd"] = N_LAYER * REMAT_FWD_PER_LAYER[mode]
+        want = {name: CUT_LAYERS for name in TRAIN_KERNELS}
+        want["flash_fwd"] = CUT_LAYERS * REMAT_FWD_PER_LAYER[mode]
         want["lamb_phase1"] = want["paged_decode"] = want["sgmv"] = 0
         if f32 != want:
             fail(f"phase 11b float32 remat {mode}: launches {f32} differ "
@@ -4186,7 +4220,7 @@ def supervised_loader_runs(seed, card, root):
     from deepspeed_tpu_torch import GPT2Config
     from deepspeed_tpu_torch.resilience import ReplayableDataSource
 
-    cfg = GPT2Config.small(dropout=DROPOUT)
+    cfg = GPT2Config.small(dropout=DROPOUT, n_layer=CUT_LAYERS)
     data = data_arrays(seed + 12, cfg.vocab_size, 16 * 5, weighted=True)
     sup = {"supervisor": {"enabled": True, "nonfinite_window": 1}}
 
@@ -5898,7 +5932,7 @@ def p14_nccl_world1(seed):
 
 
 def p14_spawn(seed, root, timeout_s=420, flag="--phase14-rank",
-              phase="14b"):
+              phase="14b", world=P14_DP):
     """(b) Two ranks on the one card: NCCL refuses two ranks on one device
     ("Duplicate GPU detected"), so the ranks join a gloo group this phase
     makes (gloo takes the port's collectives on CUDA tensors). The kernels
@@ -5911,7 +5945,7 @@ def p14_spawn(seed, root, timeout_s=420, flag="--phase14-rank",
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
     procs = []
-    for rank in range(P14_DP):
+    for rank in range(world):
         spec = root / f"rank{rank}.json"
         spec.write_text(json.dumps({
             "rank": rank, "port": port, "seed": seed,
@@ -5935,12 +5969,12 @@ def p14_spawn(seed, root, timeout_s=420, flag="--phase14-rank",
         if proc.returncode != 0 and not failed:
             failed.append(f"rank {rank} exited {proc.returncode}")
     if failed:
-        for rank in range(P14_DP):
+        for rank in range(world):
             tail = (root / f"rank{rank}.log").read_text()[-3000:]
             log(f"--- phase {phase} rank {rank} log tail ---\n{tail}")
         fail(f"phase {phase}: {failed}")
     return [json.loads((root / f"out{r}.json").read_text())
-            for r in range(P14_DP)]
+            for r in range(world)]
 
 
 def p14_close(tag, got, want):
@@ -6441,6 +6475,386 @@ def phase_launcher_and_refusals(seed, card):
     return launches, stats
 
 
+# ---------------------------------------------------------------------------
+# phase 16: tensor parallelism (the model axis) on two ranks of the card
+# ---------------------------------------------------------------------------
+P16_MP = 2
+P16_MICRO, P16_ACCUM, P16_WINDOWS = 2, 2, 3
+P16_RTOL = 2e-4
+
+
+def p16_batches(seed):
+    """One window: P16_ACCUM micro-batches of P16_MICRO x 1024 token ids
+    from ``seed`` (every model rank feeds the same rows)."""
+    from deepspeed_tpu_torch import GPT2Config
+
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, GPT2Config.small().vocab_size,
+                        (P16_MICRO * P16_ACCUM, 1024), generator=g).cuda()
+    return [(ids[i * P16_MICRO:(i + 1) * P16_MICRO],) * 2
+            for i in range(P16_ACCUM)]
+
+
+def p16_engine(seed, mp, optimizer, precision, dropout, lr):
+    """initialize() on GPT-2 small at full width and depth, at a model
+    axis of ``mp`` with the model's partition_specs (ZeRO stage 2, which
+    at data size 1 is stage 0, as in the JAX engine)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
+
+    model = GPT2LMHeadModel(GPT2Config.small(dropout=dropout), device="cuda",
+                            seed=seed)
+    cfg = p14_config(optimizer, precision, 2, P16_MICRO, 1,
+                     {"mesh": {"model_parallel_size": mp}})
+    cfg["optimizer"]["params"]["lr"] = lr
+    cfg.update(train_batch_size=P16_MICRO * P16_ACCUM,
+               gradient_accumulation_steps=P16_ACCUM)
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model, config_params=cfg,
+        param_specs=(deepspeed_tpu_torch.partition_specs(model) if mp > 1
+                     else None))
+    return engine
+
+
+def p16_windows(engine, seed):
+    """P16_WINDOWS windows on one batch: losses, launches, the seconds of
+    a window, and the memory held after initialize() and the peak."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    batches = p16_batches(seed)
+    zero_launches()
+    t0 = time.monotonic()
+    losses = [float(engine.train_batch(iter(batches)))
+              for _ in range(P16_WINDOWS)]
+    torch.cuda.synchronize()
+    return {"losses": losses, "launches": read_launches(),
+            "window_s": (time.monotonic() - t0) / P16_WINDOWS,
+            "held_gb": held / 1e9,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "skipped": engine.skipped_steps}
+
+
+def p16_fingerprint(engine, seed):
+    """The eval loss of a fixed batch (2 rows)."""
+    ids = p16_batches(seed + 1)[0][0]
+    engine.eval()
+    with torch.no_grad():
+        loss = float(engine(ids, ids).detach().float())
+    engine.train()
+    return loss
+
+
+def p16_check_kernels(engine, seed):
+    """This rank's kernels against their plain versions at its shapes: the
+    flash forward, dQ and dK/dV on [P16_MICRO, 12 / mp heads, 1024, 64]
+    (bf16, causal, dropout 0.1), and LAMB phase 1 over the rank's
+    parameter shards (float32 grads). Returns the max errors."""
+    from deepspeed_tpu_torch.ops import attention as A
+    from deepspeed_tpu_torch.ops.fused_lamb import (
+        lamb_phase1,
+        lamb_phase1_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    heads = 12 // engine.mp_world_size
+    shape = (P16_MICRO, heads, 1024, 64)
+    q, k, v, dout = (torch.randn(shape, device="cuda", generator=gen
+                                 ).to(torch.bfloat16) for _ in range(4))
+    seed_k = 4321 + 15_485_863 * engine.model_rank
+    args = (q, k, v, None, True, None, DROPOUT, seed_k)
+    out, lse = A.flash_fwd(*args)
+    ref, ref_lse = A.flash_fwd_plain(*args)
+    errs = {"shape": list(shape), "flash_fwd": check_close(
+        f"phase 16 rank {engine.model_rank} flash_fwd", out, ref,
+        torch.bfloat16)}
+    delta = (dout.float() * ref.float()).sum(dim=-1)
+    bargs = (q, k, v, None, dout, ref_lse, delta, True, None, DROPOUT,
+             seed_k)
+    dq = A.flash_bwd_dq(*bargs)
+    dk, dv = A.flash_bwd_dkv(*bargs)
+    want = (A.flash_bwd_dq_plain(*bargs), *A.flash_bwd_dkv_plain(*bargs))
+    for name, got, ref_g in zip(("flash_bwd_dq", "dk", "dv"), (dq, dk, dv),
+                                want):
+        key = "flash_bwd_dq" if name == "flash_bwd_dq" else "flash_bwd_dkv"
+        err = check_close(f"phase 16 rank {engine.model_rank} {name}", got,
+                          ref_g, torch.bfloat16, scaled=True)
+        errs[key] = max(errs.get(key, 0.0), err)
+    from deepspeed_tpu_torch.ops.optimizers import bias_corrections
+
+    ps = [p.detach().float() for p in engine.module_params.values()]
+
+    def noise(scale):
+        return [torch.randn(p.shape, device="cuda", generator=gen) * scale
+                for p in ps]
+
+    gs = noise(1e-3)
+    zeros = [torch.zeros_like(p) for p in ps]
+    # (name, m, v, step): every run's first step (zero moments, step 1's
+    # bias corrections); zero moments at step 3's corrections; and phase
+    # 3b's operands (lamb_operands: nonzero moments, step 3)
+    cases = [("first_step", zeros, zeros, 1), ("zero_moments_step3", zeros,
+                                                zeros, 3),
+             ("step3", noise(1e-4), [x * x for x in noise(1e-3)], 3)]
+    errs["lamb_cases"] = {}
+    worst_all = 0.0
+    for case, m0, v0, step in cases:
+        c1, c2 = bias_corrections(0.9, 0.999, step)
+        runs = []
+        for fn in (lamb_phase1, lamb_phase1_plain):
+            ms, vs = [m.clone() for m in m0], [v.clone() for v in v0]
+            us = [torch.empty_like(p) for p in ps]
+            wsq, usq = fn(ps, gs, ms, vs, us, c1, c2, 0.5, b1=0.9,
+                          b2=0.999, eps=1e-8, weight_decay=0.01,
+                          eps_inside_sqrt=False)
+            torch.cuda.synchronize()
+            runs.append((wsq, usq, ms, vs, us))
+        stats = {}
+        for i, what in ((2, "m"), (3, "v"), (4, "u")):
+            pairs = list(zip(runs[0][i], runs[1][i]))
+            rel = max(float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+                      for a, b in pairs)
+            unequal = sum(int((a != b).sum()) for a, b in pairs)
+            ulps = max(int((a.view(torch.int32).long()
+                            - b.view(torch.int32).long()).abs().max())
+                       for a, b in pairs)
+            stats[what] = {"max_rel_err": rel, "unequal": unequal,
+                           "max_ulps": ulps}
+        partial = max(float(((runs[0][i] - runs[1][i]).abs()
+                             / runs[1][i].abs().clamp_min(1e-30)).max())
+                      for i in (0, 1))
+        stats["partials_rel_err"] = partial
+        errs["lamb_cases"][case] = stats
+        log(f"  phase 16 rank {engine.model_rank} lamb_phase1 {case}: "
+            + "; ".join(f"{w} rel {stats[w]['max_rel_err']:.3e}, "
+                        f"{stats[w]['unequal']} unequal, max "
+                        f"{stats[w]['max_ulps']} ulps" for w in "mvu")
+            + f"; partials rel {partial:.3e}")
+        for what in ("m", "v", "u"):
+            if stats[what]["max_rel_err"] > LAMB_RTOL:
+                fail(f"phase 16 {case}: lamb_phase1 {what} rel err "
+                     f"{stats[what]['max_rel_err']:.3e} > {LAMB_RTOL}")
+        if partial > LAMB_RTOL:
+            fail(f"phase 16 {case}: lamb_phase1 block partials rel err "
+                 f"{partial:.3e}")
+        worst_all = max(worst_all, partial,
+                        *(stats[w]["max_rel_err"] for w in "mvu"))
+    # m, v and u are bitwise the plain version's on phase 3b's operands
+    # (the kernel repeats PyTorch's roundings: csrc/lamb_phase1.cu)
+    if any(errs["lamb_cases"]["step3"][w]["unequal"] for w in "mvu"):
+        fail("phase 16: lamb_phase1 m, v or u on the rank's shards is not "
+             "bitwise the plain version's on phase 3b's operands")
+    errs["lamb_phase1"] = worst_all
+    errs["lamb_tensors"] = len(ps)
+    return errs
+
+
+def p16_partition(engine, seed):
+    """GPT-2 small's blocks each through the activation API's
+    checkpoint (checkpointing.checkpoint), partition_activations off and
+    on: the loss and every gradient, and the peak memory above what the
+    step starts with."""
+    from deepspeed_tpu_torch import checkpointing as act
+    from deepspeed_tpu_torch.ops.cross_entropy import (
+        vocab_parallel_lm_head_loss,
+    )
+    from deepspeed_tpu_torch.ops.transformer import (
+        layer_norm_apply,
+        transformer_block_apply,
+    )
+    from deepspeed_tpu_torch.parallel.tensor import vocab_parallel_lookup
+
+    model = engine.module
+    tp = model.tensor_parallel
+    cfg = model.layer_config
+    ids = p16_batches(seed + 2)[0][0]
+    out = {}
+    for on in (False, True):
+        act.configure(engine.mpu, partition_activations=on)
+        for p in model.parameters():
+            p.grad = None
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        x = (vocab_parallel_lookup(ids, model.wte, tp)
+             + model.wpe[None, :ids.shape[1]])
+        for layer in model.h:
+            x = act.checkpoint(
+                lambda h, layer=layer: transformer_block_apply(
+                    cfg, layer, h, None, causal=True), x)
+        x = layer_norm_apply(cfg, x, model.ln_f.weight, model.ln_f.bias)
+        loss = vocab_parallel_lm_head_loss(
+            x[:, :-1], model.wte, ids[:, 1:], tp,
+            block_rows=model.config.ce_block_rows)
+        loss.backward()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        out[on] = (loss.item(), [p.grad.detach().clone()
+                                 for p in model.parameters()], peak)
+        del x, loss
+    act.configure(None, partition_activations=False)
+    (loss_off, g_off, peak_off), (loss_on, g_on, peak_on) = out[False], out[
+        True]
+    err = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+              for a, b in zip(g_on, g_off))
+    for p in model.parameters():
+        p.grad = None
+    return {"loss_off": loss_off, "loss_on": loss_on,
+            "grad_max_rel_err": err, "peak_off_gb": peak_off / 1e9,
+            "peak_on_gb": peak_on / 1e9}
+
+
+def phase16_rank(spec_path):
+    """One of phase 16's two ranks (a subprocess): a model line of the
+    gloo group the phase made. bf16 FusedLamb with dropout; the kernels at
+    this rank's shapes; float32 Adam at dropout 0 (its whole parameters
+    and a checkpoint saved for the phase); partition_activations off and
+    on. Writes its results as JSON."""
+    import torch.distributed as dist
+
+    spec = json.loads(Path(spec_path).read_text())
+    rank, seed = spec["rank"], spec["seed"]
+    root = Path(spec["out"]).parent
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{spec['port']}", rank=rank,
+        world_size=P16_MP)
+    out = {}
+    engine = p16_engine(seed, P16_MP, "FusedLamb", "bf16", DROPOUT, 1e-3)
+    out["bf16"] = p16_windows(engine, seed)
+    out["local_shapes"] = {n: list(p.shape)
+                           for n, p in engine.module.named_parameters()
+                           if n.startswith(("wte", "h.0."))}
+    out["kernels"] = p16_check_kernels(engine, seed + 11 + rank)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine = p16_engine(seed, P16_MP, "Adam", "fp32", 0.0, 1e-4)
+    out["fp32"] = p16_windows(engine, seed)
+    full = engine.full_parameters()
+    if rank == 0:
+        torch.save({n: t.detach().cpu() for n, t in full.items()},
+                   root / "params_mp2.pt")
+    del full
+    engine.save_checkpoint(str(root / "ckpt"), tag="mp2")
+    out["fp32"]["fingerprint"] = p16_fingerprint(engine, seed)
+    out["partition"] = p16_partition(engine, seed)
+    del engine
+    Path(spec["out"]).write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_model_parallel(seed, card):
+    """Phase 16. Returns ({kernel: {path: launches}}, stats)."""
+    t0 = time.monotonic()
+    root = Path("build") / "phase16"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    ranks = p14_spawn(seed, root, timeout_s=600, flag="--phase16-rank",
+                      phase="16", world=P16_MP)
+    launches = {name: {} for name in launch_counters()}
+    micro_steps = P16_WINDOWS * P16_ACCUM
+    for rank, r in enumerate(ranks):
+        for run in ("bf16", "fp32"):
+            got = r[run]
+            if not all(math.isfinite(v) for v in got["losses"]) or got[
+                    "skipped"]:
+                fail(f"phase 16 rank {rank} {run}: losses {got['losses']}")
+            for k in TRAIN_KERNELS:
+                if got["launches"][k] != N_LAYER * micro_steps:
+                    fail(f"phase 16 rank {rank} {run}: {k} launched "
+                         f"{got['launches'][k]} times, want "
+                         f"{N_LAYER * micro_steps} (12 a micro-step at "
+                         f"{12 // P16_MP} heads)")
+            for k, n in got["launches"].items():
+                path = f"mp2_rank{rank}"
+                launches[k][path] = launches[k].get(path, 0) + n
+        if r["bf16"]["launches"]["lamb_phase1"] != 6 * P16_WINDOWS:
+            fail(f"phase 16 rank {rank}: lamb_phase1 launched "
+                 f"{r['bf16']['launches']['lamb_phase1']} times, want 6 a "
+                 "step")
+        part = r["partition"]
+        if part["loss_on"] != part["loss_off"] or part[
+                "grad_max_rel_err"] > 1e-6:
+            fail(f"phase 16 rank {rank}: partition_activations changed the "
+                 f"numbers: {part}")
+        if not part["peak_on_gb"] < part["peak_off_gb"]:
+            fail(f"phase 16 rank {rank}: partition_activations peak "
+                 f"{part['peak_on_gb']} GB is not below "
+                 f"{part['peak_off_gb']} GB")
+    for run in ("bf16", "fp32"):
+        if ranks[0][run]["losses"] != ranks[1][run]["losses"]:
+            fail(f"phase 16 {run}: the model ranks return different losses")
+    for rank, r in enumerate(ranks):
+        log(f"  rank {rank} launches a micro-step: "
+            + ", ".join(f"{k} {r['bf16']['launches'][k] / micro_steps:g}"
+                        for k in TRAIN_KERNELS)
+            + f" (at {12 // P16_MP} heads); lamb_phase1 a step "
+            f"{r['bf16']['launches']['lamb_phase1'] / P16_WINDOWS:g}")
+        for case, st in r["kernels"]["lamb_cases"].items():
+            log(f"  rank {rank} lamb_phase1 vs plain, {case}: "
+                + "; ".join(f"{w} max rel {st[w]['max_rel_err']:.3e}, "
+                            f"{st[w]['unequal']} unequal, max "
+                            f"{st[w]['max_ulps']} ulps" for w in "mvu")
+                + f"; partials max rel {st['partials_rel_err']:.3e}")
+    log(f"  mp 2 bf16 FusedLamb (dropout 0.1): losses "
+        f"{ranks[0]['bf16']['losses']}; held GB "
+        f"{[r['bf16']['held_gb'] for r in ranks]}, peak GB "
+        f"{[r['bf16']['peak_gb'] for r in ranks]}; s/window "
+        f"{[r['bf16']['window_s'] for r in ranks]} (two ranks sharing one "
+        "card over gloo: not an mp 2 speed)")
+    # the mp 1 run of the same float32 steps, in this process
+    engine = p16_engine(seed, 1, "Adam", "fp32", 0.0, 1e-4)
+    ref = p16_windows(engine, seed)
+    p14_close("phase 16 float32 mp 2 vs mp 1 losses",
+              ranks[0]["fp32"]["losses"], ref["losses"])
+    mp2 = torch.load(root / "params_mp2.pt", weights_only=True)
+    worst = 0.0
+    for n, p in engine.module.named_parameters():
+        want = p.detach().float().cpu()
+        got = mp2[n]
+        if tuple(got.shape) != tuple(want.shape) or not torch.allclose(
+                got, want, rtol=P16_RTOL, atol=1e-5):
+            fail(f"phase 16: float32 mp 2 parameter {n} differs from mp 1's")
+        worst = max(worst, float((got - want).abs().max()))
+    del engine, mp2
+    torch.cuda.empty_cache()
+    # the mp 2 checkpoint at mp 1
+    engine = p16_engine(seed + 7, 1, "Adam", "fp32", 0.0, 1e-4)
+    path, _ = engine.load_checkpoint(str(root / "ckpt"))
+    fp1 = p16_fingerprint(engine, seed)
+    fp2 = ranks[0]["fp32"]["fingerprint"]
+    if path is None or not math.isclose(fp1, fp2, rel_tol=1e-5):
+        fail(f"phase 16: the mp 2 checkpoint at mp 1: fingerprint {fp1} != "
+             f"{fp2}")
+    del engine
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    stats = {"card": card, "micro_rows": P16_MICRO,
+             "accum": P16_ACCUM, "windows": P16_WINDOWS,
+             "bf16": [r["bf16"] for r in ranks],
+             "fp32_losses": ranks[0]["fp32"]["losses"],
+             "fp32_mp1_losses": ref["losses"],
+             "fp32_max_abs_param_diff": worst,
+             "fp32_held_gb": [r["fp32"]["held_gb"] for r in ranks],
+             "fp32_peak_gb": [r["fp32"]["peak_gb"] for r in ranks],
+             "mp1_held_gb": ref["held_gb"], "mp1_peak_gb": ref["peak_gb"],
+             "fingerprint_mp2": fp2, "fingerprint_mp1": fp1,
+             "partition": [r["partition"] for r in ranks],
+             "sharded_kernels": [r["kernels"] for r in ranks],
+             "local_shapes": ranks[1]["local_shapes"],
+             "wall_s": time.monotonic() - t0}
+    log(f"phase 16: float32 mp 2 = mp 1 (max |param diff| {worst:.3e}); "
+        f"fingerprint mp 2 {fp2} at mp 1 {fp1}; partition peaks "
+        f"{[(r['partition']['peak_off_gb'], r['partition']['peak_on_gb']) for r in ranks]} "
+        f"GB; {stats['wall_s']:.1f} s")
+    return launches, stats
+
+
 def only_flash(device, seed):
     """``--only-flash``: the flash kernels built alone (ptxas's registers
     and spills printed) and timed as time_flash times them (bf16, causal,
@@ -6566,7 +6980,13 @@ def main():
                         "(the launcher, and A6b: compensated masters and "
                         "adapters at dp 2, zero3_gathered, BERT LoRA and "
                         "use_flash=False, stochastic_mode)")
+    parser.add_argument("--only-phase16", action="store_true",
+                        help="build every kernel and run phase 16 alone "
+                        "(tensor parallelism: GPT-2 small at mp 2 on two "
+                        "ranks of the card)")
     parser.add_argument("--phase14-rank", metavar="SPEC",
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--phase16-rank", metavar="SPEC",
                         help=argparse.SUPPRESS)
     parser.add_argument("--phase15b-rank", metavar="SPEC",
                         help=argparse.SUPPRESS)
@@ -6585,6 +7005,9 @@ def main():
         return
     if args.phase15b_rank:
         phase15b_rank(args.phase15b_rank)
+        return
+    if args.phase16_rank:
+        phase16_rank(args.phase16_rank)
         return
     from deepspeed_tpu_torch.ops import kernel_lib
 
@@ -6654,6 +7077,13 @@ def main():
                           "card": smi}))
         return
 
+    if args.only_phase16:
+        kernel_lib.build()
+        launches, stats = phase_model_parallel(args.seed, smi)
+        print(json.dumps({"phase16": stats, "launches": launches,
+                          "card": smi}))
+        return
+
     if args.only_phase13:
         kernel_lib.build()
         launches, stats = phase_inference_rest(args.seed, smi)
@@ -6693,6 +7123,7 @@ def main():
     inf_launches, inf_stats = phase_inference_rest(args.seed, smi)
     dp_launches, dp_stats = phase_data_parallel(args.seed, smi)
     a6b_launches, a6b_stats = phase_launcher_and_refusals(args.seed, smi)
+    mp_launches, mp_stats = phase_model_parallel(args.seed, smi)
     for path, counts in [("serve", serve_launches),
                          *adapter_launches.items(), *hd_launches.items(),
                          *tel_launches.items(), *res_launches.items(),
@@ -6706,6 +7137,8 @@ def main():
     for name, by_path in dp_launches.items():
         launches[name].update(by_path)
     for name, by_path in a6b_launches.items():
+        launches[name].update(by_path)
+    for name, by_path in mp_launches.items():
         launches[name].update(by_path)
     for name, by_path in launches.items():
         kernels[name]["launches"] = sum(by_path.values())
@@ -6776,6 +7209,7 @@ def main():
                     "inference_rest": inf_stats,
                     "data_parallel": dp_stats,
                     "launcher_and_refusals": a6b_stats,
+                    "model_parallel": mp_stats,
                     "head_dims": {k: v for k, v in hd_stats.items()
                                   if k not in ("flash", "flash_wide",
                                                "flash_d128",

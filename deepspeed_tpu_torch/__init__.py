@@ -26,7 +26,9 @@ ZeRO stages 0-3 (``runtime/zero.py``, the stage-3 gather stack of
 ``models/stack.py``), with sharded checkpoints and sparse embedding
 gradients (``runtime/sparse.py``). ``python -m
 deepspeed_tpu_torch.launcher.runner`` starts such a run, one process per
-GPU of each host (``launcher/``); a script parses the launcher's
+GPU of each host (``launcher/``). A model axis above 1 with GPT-2's
+``partition_specs`` trains it Megatron-style, each rank holding its
+tensor-parallel shard (``parallel/tensor.py``) beside the data axis; a script parses the launcher's
 ``--deepspeed``/``--deepspeed_config`` with :func:`add_config_arguments`
 and hands the result to ``initialize(args=...)``. The package imports
 ``torch`` and never ``jax`` or ``deepspeed_tpu``.
@@ -40,7 +42,7 @@ from .config.config import DeepSpeedConfig, DeepSpeedConfigError
 from .convert import adapters_from_jax, bert_params_from_jax, params_from_jax
 from .inference.engine import InferenceEngine, init_inference
 from .models.bert import BertConfig, BertForPreTraining, BertForQuestionAnswering
-from .models.gpt2 import GPT2Config, GPT2LMHeadModel
+from .models.gpt2 import GPT2Config, GPT2LMHeadModel, partition_specs
 from .ops.optimizers import SGD, Adam, Lamb, Lion, Optimizer
 from .ops.transformer import (
     DeepSpeedTransformerConfig,
@@ -55,7 +57,7 @@ from .version import __version__
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                training_data=None, lr_scheduler=None, config_params=None,
                mesh=None, rng_seed=0, device=None, collate_fn=None, mpu=None,
-               dist_init_required=None):
+               dist_init_required=None, param_specs=None):
     """Build a training engine; returns the reference's 4-tuple
     ``(engine, optimizer, training_dataloader, lr_scheduler)``.
 
@@ -73,13 +75,20 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     torch.distributed group the caller made) every process calls this
     with its own device; ``mesh`` (a ``parallel.ProcessMesh``) or the
     config's ``mesh`` block sets the data-parallel size (default: the
-    world), and ``dist_init_required``/``mpu`` are the reference's."""
+    world), and ``dist_init_required``/``mpu`` are the reference's.
+
+    Tensor parallelism: with a ``model_parallel_size`` above 1 (the
+    ``mesh`` block or a ``mesh`` argument) and ``param_specs`` (GPT-2's
+    ``models.partition_specs(model)``), every rank of a model-axis line
+    holds and computes its Megatron shard of the model; without
+    ``param_specs`` the model is replicated over the model axis, every
+    model rank computing the whole step."""
     engine = DeepSpeedEngine(
         model=model, optimizer=optimizer, model_parameters=model_parameters,
         training_data=training_data, lr_scheduler=lr_scheduler,
         config_params=config_params, mesh=mesh, rng_seed=rng_seed,
         device=device, args=args, collate_fn=collate_fn, mpu=mpu,
-        dist_init_required=dist_init_required,
+        dist_init_required=dist_init_required, param_specs=param_specs,
     )
     return (engine, EngineOptimizerFacade(engine),
             engine.training_dataloader, engine.lr_scheduler)
@@ -152,6 +161,7 @@ __all__ = [
     "Lion",
     "Optimizer",
     "params_from_jax",
+    "partition_specs",
     "SGD",
     "__version__",
 ]

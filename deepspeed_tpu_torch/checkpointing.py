@@ -21,8 +21,17 @@ deepspeed_checkpointing.py). What each part maps to here:
   * ``profile`` -> ``torch.profiler.record_function("ds_checkpoint_segment")``
     around each segment.
   * ``partition_activations`` -> a no-op at model-parallel size 1 (there
-    is nothing to slice); above it, not ported (the port has no
-    model-parallel group yet, A6/A7).
+    is nothing to slice); above it each model rank keeps 1/mp of every
+    saved input of a checkpointed segment (the first dim mp divides, as
+    the JAX package shards it over the model axis) and the model group
+    all-gathers the inputs before the recompute. As in Megatron, the
+    inputs are activations of the replicated stream, the same on every
+    rank of the model group; a rank's own tensors (its weight shards)
+    reach the segment as its parameters, not as its arguments
+    (:class:`_PartitionedCheckpoint`, the reference's
+    ``partition_activations`` path of CheckpointFunction). The numbers
+    are unchanged; the memory kept between the forward and the backward
+    falls.
   * ``contiguous_memory_optimization`` / ``synchronize_checkpoint_boundary``
     -> accepted no-ops (PyTorch's caching allocator packs the buffers; a
     boundary sync would only stall the stream), with the reference's rule
@@ -36,7 +45,6 @@ import contextlib
 
 import torch
 
-from .config.config import not_ported
 from .utils.logging import logger
 
 _MODEL_PARALLEL_RNG_TRACKER_NAME = "model-parallel-rng"
@@ -154,15 +162,105 @@ def _model_parallel_size():
     return int(get()) if get is not None else 1
 
 
+def _partition_dim(t, mp):
+    """The first dim of ``t`` that ``mp`` divides (None: keep it whole)."""
+    for d in range(t.dim()):
+        if t.shape[d] >= mp and t.shape[d] % mp == 0:
+            return d
+    return None
+
+
+def _device_rng(tensors):
+    """The CUDA device whose generator the segment draws from, if any."""
+    for t in tensors:
+        if isinstance(t, torch.Tensor) and t.device.type == "cuda":
+            return t.device
+    return None
+
+
+class _PartitionedCheckpoint(torch.autograd.Function):
+    """A checkpointed segment whose saved inputs are partitioned over the
+    model group: the forward runs ``function`` without autograd and keeps
+    this rank's 1/mp slice of each tensor input (along
+    :func:`_partition_dim`); the backward all-gathers the inputs, replays
+    the default generators' states of the forward, runs ``function``
+    again with autograd and differentiates it."""
+
+    @staticmethod
+    def forward(ctx, function, mpu, *args):
+        group = mpu.get_model_parallel_group()
+        mp = int(mpu.get_model_parallel_world_size())
+        rank = int(mpu.get_model_parallel_rank())
+        ctx.function, ctx.group, ctx.mp = function, group, mp
+        device = _device_rng(args)
+        ctx.rng = (torch.get_rng_state(),
+                   None if device is None else
+                   (device, torch.cuda.get_rng_state(device)))
+        with torch.no_grad():
+            out = function(*args)
+        ctx.layout, kept = [], []
+        for a in args:
+            if not isinstance(a, torch.Tensor):
+                ctx.layout.append(("const", a))
+                continue
+            d = _partition_dim(a, mp)
+            piece = (a.detach() if d is None
+                     else a.detach().chunk(mp, d)[rank].clone())
+            ctx.layout.append(("tensor", d, a.requires_grad))
+            kept.append(piece)
+        ctx.save_for_backward(*kept)
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from .runtime import dist as dist_lib
+
+        kept = iter(ctx.saved_tensors)
+        inputs = []
+        for entry in ctx.layout:
+            if entry[0] == "const":
+                inputs.append(entry[1])
+                continue
+            _, d, wants_grad = entry
+            piece = next(kept)
+            if d is not None:
+                buf = torch.empty((ctx.mp,) + tuple(piece.shape),
+                                  dtype=piece.dtype, device=piece.device)
+                dist_lib.all_gather(buf.view(-1),
+                                    piece.contiguous().view(-1), ctx.group)
+                piece = torch.cat(list(buf), dim=d)
+            inputs.append(piece.detach().requires_grad_(wants_grad))
+        cpu_state, dev = ctx.rng
+        outer_cpu = torch.get_rng_state()
+        outer_dev = None if dev is None else torch.cuda.get_rng_state(dev[0])
+        torch.set_rng_state(cpu_state)
+        if dev is not None:
+            torch.cuda.set_rng_state(dev[1], dev[0])
+        try:
+            with torch.enable_grad():
+                out = ctx.function(*inputs)
+        finally:
+            torch.set_rng_state(outer_cpu)
+            if dev is not None:
+                torch.cuda.set_rng_state(outer_dev, dev[0])
+        outs = out if isinstance(out, tuple) else (out,)
+        pairs = [(o, g) for o, g in zip(outs, grads)
+                 if isinstance(o, torch.Tensor) and o.requires_grad
+                 and g is not None]
+        if pairs:
+            torch.autograd.backward([o for o, _ in pairs],
+                                    [g for _, g in pairs])
+        return (None, None, *[
+            x.grad if isinstance(x, torch.Tensor) else None
+            for x in inputs])
+
+
 def checkpoint(function, *args):
     """Checkpoint ``function(*args)``: the result is returned, and under
     autograd the activations inside ``function`` are recomputed in the
-    backward instead of kept."""
-    if PARTITION_ACTIVATIONS and _model_parallel_size() > 1:
-        raise not_ported(
-            "activation_checkpointing.partition_activations at "
-            "model-parallel size > 1 (ROADMAP A7a)"
-        )
+    backward instead of kept. With ``partition_activations`` at a model
+    axis above 1, the inputs kept for the recompute are partitioned over
+    the model group (:class:`_PartitionedCheckpoint`)."""
     # the recompute runs on the tracker's states as they were at the
     # forward (a fork inside ``function`` repeats its stream), and leaves
     # them as it found them
@@ -190,6 +288,9 @@ def checkpoint(function, *args):
     offload = (torch.autograd.graph.save_on_cpu(pin_memory=True)
                if CPU_CHECKPOINT else contextlib.nullcontext())
     with offload:
+        if (PARTITION_ACTIVATIONS and _model_parallel_size() > 1
+                and torch.is_grad_enabled()):
+            return _PartitionedCheckpoint.apply(fn, _MPU, *args)
         return torch.utils.checkpoint.checkpoint(
             fn, *args, use_reentrant=False)
 
@@ -260,11 +361,6 @@ def configure(
         raise AssertionError(
             "must specify the number of checkpoints with contiguous memory "
             "optimization"
-        )
-    if PARTITION_ACTIVATIONS and _model_parallel_size() > 1:
-        raise not_ported(
-            "activation_checkpointing.partition_activations at "
-            "model-parallel size > 1 (ROADMAP A7a)"
         )
     _CONFIGURED = True
 

@@ -16,10 +16,16 @@ does for GPT-2: ``bert/encoder/layer/<12 keys>`` unstacked into
 ``<target>_lora_a``/``_lora_b`` factors carried untransposed), flax's Dense
 ``kernel`` [in, out] into ``weight`` [out, in] and LayerNorm ``scale``
 into ``weight``.
+
+Tensor parallelism: ``params_from_jax(tree, specs, model_rank, mp)``
+gives one model rank's shards, cut by parallel/tensor.py (the strided qkv
+slice included) as the training engine and the checkpoints cut them.
 """
 
 import numpy as np
 import torch
+
+from .parallel.tensor import model_dim, shard_for_rank
 
 # block weight matrices: [L, in, out] in JAX, [out, in] per layer here
 _MATRICES = ("attn_qkvw", "attn_ow", "inter_w", "output_w")
@@ -40,10 +46,12 @@ def _unstack_blocks(stacked_tree, prefix, state):
             state[f"{prefix}.{i}.{name}"] = _tensor(leaf)
 
 
-def params_from_jax(tree):
+def params_from_jax(tree, specs=None, model_rank=0, mp=1):
     """JAX GPT-2 parameter tree (numpy leaves) -> a state dict for
     :class:`deepspeed_tpu_torch.models.gpt2.GPT2LMHeadModel` (float32 CPU
-    tensors; ``load_state_dict`` casts and moves them)."""
+    tensors; ``load_state_dict`` casts and moves them). With ``specs``
+    (the port's ``partition_specs``) and ``mp`` > 1: model rank
+    ``model_rank``'s shards (a LoRA factor without a spec stays whole)."""
     tp = tree["transformer"]
     state = {
         "wte": _tensor(tp["wte"]),
@@ -52,6 +60,10 @@ def params_from_jax(tree):
         "ln_f.bias": _tensor(tp["ln_f"]["bias"]),
     }
     _unstack_blocks(tp["h"], "h", state)
+    if specs is not None and mp > 1:
+        state = {n: shard_for_rank(n, t, model_dim(specs.get(n)), mp,
+                                   model_rank).contiguous()
+                 for n, t in state.items()}
     return state
 
 
@@ -87,19 +99,23 @@ def bert_params_from_jax(tree):
     return state
 
 
-def adapters_from_jax(tree):
+def adapters_from_jax(tree, specs=None, model_rank=0, mp=1):
     """JAX adapter tree (``init_lora_params`` output, or a LoRA fine-tune
     engine's ``engine.params``, as numpy) -> the port's adapter state dict
     ``{"h.<i>.<target>_lora_a": [in, r], "h.<i>.<target>_lora_b": [r,
     out]}`` (float32 CPU tensors): the layer stacks split per layer, the
-    factors untransposed."""
+    factors untransposed; with ``specs`` and ``mp`` > 1 model rank
+    ``model_rank``'s shards, as :func:`params_from_jax`."""
     state = {}
     for name, stacked in tree["transformer"]["h"].items():
         if not name.endswith(("_lora_a", "_lora_b")):
             continue
         stacked = np.asarray(stacked)
         for i in range(stacked.shape[0]):
-            state[f"h.{i}.{name}"] = torch.from_numpy(
-                np.array(stacked[i], dtype=np.float32)
-            )
+            n = f"h.{i}.{name}"
+            t = torch.from_numpy(np.array(stacked[i], dtype=np.float32))
+            if specs is not None and mp > 1:
+                t = shard_for_rank(n, t, model_dim(specs.get(n)), mp,
+                                   model_rank).contiguous()
+            state[n] = t
     return state

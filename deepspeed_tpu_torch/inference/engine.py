@@ -188,7 +188,8 @@ class InferenceEngine:
         else:  # JSON path
             raw = load_config_json(config)
         if mesh is not None or raw.get(C.MESH):
-            raise _not_ported("serving over a device mesh (ROADMAP A7a)")
+            raise _not_ported(
+                "serving over a device mesh (ROADMAP A7a-serve)")
         self.config = DeepSpeedConfig(None, param_dict=raw)
         cfg = self.config
 

@@ -6,7 +6,7 @@ from .bert import (
     BertForQuestionAnswering,
     BertModel,
 )
-from .gpt2 import GPT2Config, GPT2LMHeadModel
+from .gpt2 import GPT2Config, GPT2LMHeadModel, partition_specs
 
 __all__ = [
     "BertConfig",
@@ -15,4 +15,5 @@ __all__ = [
     "BertModel",
     "GPT2Config",
     "GPT2LMHeadModel",
+    "partition_specs",
 ]

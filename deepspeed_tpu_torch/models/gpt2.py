@@ -17,6 +17,15 @@ stack of models/stack.py, and with the engine's ``sparse_gradients`` the
 ``wte`` lookup's gradient goes through runtime/sparse.py. ``lora_rank > 0`` gives every block
 LoRA factors (ops/transformer.py:apply_lora), which the training and
 eval forward apply; the training engine's ``adapters`` block arms it.
+
+Tensor parallelism: :func:`partition_specs` gives the Megatron layout
+of the JAX package's ``partition_specs`` in the port's parameter names
+and orientation, and the training engine, given those specs at a model
+axis above 1, cuts every parameter to this rank's shard and arms
+:meth:`GPT2LMHeadModel.configure_model_parallel`. The forward then looks
+``wte`` up over the vocab shards, runs each block on its ``heads / mp``
+local heads (ops/transformer.py) and takes the loss as a vocab-parallel
+cross entropy (ops/cross_entropy.py:vocab_parallel_lm_head_loss).
 """
 
 import dataclasses
@@ -25,8 +34,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.cross_entropy import blocked_lm_head_loss, cross_entropy_ignore_index
+from ..ops.cross_entropy import (
+    blocked_lm_head_loss,
+    cross_entropy_ignore_index,
+    vocab_parallel_lm_head_loss,
+)
 from ..ops.transformer import (
+    LORA_TARGET_PARALLEL,
     DeepSpeedTransformerConfig,
     DeepSpeedTransformerLayer,
     DropoutRNG,
@@ -35,8 +49,52 @@ from ..ops.transformer import (
     transformer_block_apply,
 )
 from ..utils.device import resolve_device
+from ..parallel.tensor import (
+    MODEL_AXIS,
+    TensorParallel,
+    copy_to_region,
+    gather_from_region,
+    vocab_parallel_lookup,
+)
 from ..runtime.sparse import sparse_embedding_lookup
 from .stack import zero3_stack
+
+def _spec_for(name, ndim):
+    """One parameter's Megatron spec (a tuple, an axis name or None per
+    dim of the port's tensor): the rule of the JAX package's
+    ``partition_specs`` (deepspeed_tpu/models/gpt2.py:414-481) on the
+    port's layout, linear weights ``[out, in]`` and LoRA factors A ``[in,
+    r]``, B ``[r, out]``."""
+    leaf = name.rpartition(".")[2]
+    spec = [None] * ndim
+    if "_lora_" in leaf:
+        # the factors ride their base's axis: B's out dim for a column-
+        # parallel base, A's in dim for a row-parallel one
+        target, ab = leaf.rsplit("_lora_", 1)
+        parallel = LORA_TARGET_PARALLEL.get(target)
+        if parallel == "column" and ab == "b":
+            spec[1] = MODEL_AXIS
+        elif parallel == "row" and ab == "a":
+            spec[0] = MODEL_AXIS
+    elif leaf in ("wte", "attn_qkvb", "inter_b") or (
+            LORA_TARGET_PARALLEL.get(leaf) == "column"):
+        spec[0] = MODEL_AXIS
+    elif LORA_TARGET_PARALLEL.get(leaf) == "row":
+        spec[1] = MODEL_AXIS
+    return tuple(spec)
+
+
+def partition_specs(model):
+    """Megatron tensor-parallel specs for a :class:`GPT2LMHeadModel`:
+    ``{parameter name: spec}``, a spec holding an axis name or None per
+    dim of the parameter. Column-parallel (output dim): the qkv
+    projection and ``inter_w`` with their biases; row-parallel (input
+    dim): ``attn_ow`` and ``output_w``; ``wte`` over the vocab; LoRA
+    factors on their base's axis; everything else replicated. Pass it to
+    ``initialize(param_specs=...)`` with a ``mesh`` block whose
+    ``model_parallel_size`` is above 1."""
+    return {n: _spec_for(n, p.dim())
+            for n, p in model.named_parameters()}
 
 
 def _round_up(x, multiple):
@@ -146,6 +204,7 @@ class GPT2LMHeadModel(nn.Module):
             e, eps=config.layer_norm_eps, device=device, dtype=dtype
         )
         self.configure_data_parallel()
+        self.configure_model_parallel()
         self.reset_parameters(seed)
 
     #: the stage-3 stack's tensors: ``h.<i>.<block tensor>``
@@ -163,6 +222,17 @@ class GPT2LMHeadModel(nn.Module):
         self.count_fn = count_fn
         self.zero3_gather = zero3
         self.sparse_lookup = sparse
+
+    def configure_model_parallel(self, group=None, rank=0, size=1):
+        """The tensor-parallel settings the training engine hands a model
+        whose parameters it cut to Megatron shards (:func:`partition_
+        specs`): the model ``group``, this rank's index and the size. At
+        size 1 (the default) the model computes whole."""
+        size = int(size)
+        self.model_rank = int(rank) if size > 1 else 0
+        self.tensor_parallel = (TensorParallel(group, size, int(rank))
+                                if size > 1 else None)
+        self.layer_config.tensor_parallel = self.tensor_parallel
 
     @torch.no_grad()
     def reset_parameters(self, seed=0):
@@ -194,7 +264,16 @@ class GPT2LMHeadModel(nn.Module):
         x = layer_norm_apply(
             self.layer_config, x, self.ln_f.weight, self.ln_f.bias
         )
-        return F.linear(x, self.wte)
+        return self._logits(x)
+
+    def _logits(self, x):
+        """The tied head: every vocab row's logit (over vocab shards, the
+        rank's logits gathered from the model group)."""
+        tp = self.tensor_parallel
+        if tp is None:
+            return F.linear(x, self.wte)
+        return gather_from_region(F.linear(copy_to_region(x, tp), self.wte),
+                                  tp)
 
     def hidden_states(self, input_ids, train=False, dropout_rng=None):
         """Embeddings -> the blocks -> ``ln_f``: [B, S, n_embd]. In training
@@ -202,9 +281,17 @@ class GPT2LMHeadModel(nn.Module):
         three dropout streams are drawn from it."""
         s = input_ids.shape[1]
         rng = dropout_rng if train else None
-        emb = (self.wte[input_ids] if self.sparse_lookup is None
-               else sparse_embedding_lookup(self.wte, input_ids,
-                                            *self.sparse_lookup))
+        lookup = None
+        if self.sparse_lookup is not None:
+            def lookup(table, ids):
+                return sparse_embedding_lookup(table, ids,
+                                               *self.sparse_lookup)
+        if self.tensor_parallel is not None:
+            emb = vocab_parallel_lookup(input_ids, self.wte,
+                                        self.tensor_parallel, lookup)
+        else:
+            emb = (self.wte[input_ids] if lookup is None
+                   else lookup(self.wte, input_ids))
         x = dropout(emb + self.wpe[None, :s, :], self.config.dropout, rng)
         if self.zero3_gather is not None:
             x = zero3_stack(
@@ -232,13 +319,18 @@ class GPT2LMHeadModel(nn.Module):
         (:class:`~deepspeed_tpu_torch.ops.transformer.DropoutRNG`)."""
         if labels is None and not train:
             with torch.no_grad():
-                return F.linear(self.hidden_states(input_ids), self.wte)
+                return self._logits(self.hidden_states(input_ids))
         rng = None
         if train and dropout_seed is not None and self.config.dropout > 0:
-            rng = DropoutRNG(dropout_seed, input_ids.device, self.data_rank)
+            rng = DropoutRNG(dropout_seed, input_ids.device, self.data_rank,
+                             self.model_rank)
         x = self.hidden_states(input_ids, train, rng)
         if labels is None:
-            return F.linear(x, self.wte)
+            return self._logits(x)
+        if self.tensor_parallel is not None:
+            return vocab_parallel_lm_head_loss(
+                x[:, :-1], self.wte, labels[:, 1:], self.tensor_parallel,
+                block_rows=self.config.ce_block_rows, count_fn=self.count_fn)
         if self.config.ce_block_rows > 0:
             return blocked_lm_head_loss(
                 x[:, :-1], self.wte, labels[:, 1:],

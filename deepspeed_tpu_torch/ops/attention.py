@@ -24,6 +24,9 @@ Entry points:
   - ``flash_attention``: the JAX package's signature, differentiable.
   - ``attention``: dispatcher between the two (padding masks and
     ``FLASH_MIN_SEQ``, as in the JAX package).
+  - ``shard_seed``: a data x model rank's dropout seed; the block calls
+    ``attention`` on its shard [B/dp, H/mp, S, D] with it (the JAX
+    package's ``flash_attention_sharded``).
 
 Head dims: the kernels are compiled at D = 64, 128 and 256. On CUDA tensors the wrappers run any ``d <= 256`` at
 the next of the three (:func:`pad_head_dim`): q, k, v and dO are
@@ -549,6 +552,20 @@ def flash_attention(q, k, v, mask=None, kv_mask=None, causal=False,
         q.contiguous(), k.contiguous(), v.contiguous(), kv_mask, causal,
         float(sm_scale), float(dropout_rate), int(dropout_seed),
     )
+
+
+#: The offsets of a shard's dropout seed per data and per model rank (the
+#: JAX package's ``flash_attention_sharded``), so that the ranks' masks
+#: are not the same stream.
+DATA_RANK_SEED_STRIDE = 7_368_787
+MODEL_RANK_SEED_STRIDE = 15_485_863
+
+
+def shard_seed(seed, data_rank=0, model_rank=0):
+    """A shard's attention dropout seed: ``seed`` offset by its data and
+    model coordinates, in the kernels' 31-bit range."""
+    return (int(seed) + int(data_rank) * DATA_RANK_SEED_STRIDE
+            + int(model_rank) * MODEL_RANK_SEED_STRIDE) % (2**31 - 1)
 
 
 def routes_to_flash(mask, sq, sk):

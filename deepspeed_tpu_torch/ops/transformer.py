@@ -43,13 +43,16 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .attention import NEG_INF, attention, routes_to_flash
+from ..parallel.tensor import copy_to_region, reduce_from_region
+from .attention import (  # the seed strides are re-exported here
+    DATA_RANK_SEED_STRIDE,
+    MODEL_RANK_SEED_STRIDE,
+    NEG_INF,
+    attention,
+    routes_to_flash,
+    shard_seed,
+)
 from .decode_attention import lora_sgmv_add, paged_flash_decode
-
-
-#: The data rank's offset of the dropout seeds (the JAX package's sharded
-#: flash attention adds ``data_rank * 7_368_787`` to its kernel seed).
-DATA_RANK_SEED_STRIDE = 7_368_787
 
 
 class DropoutRNG:
@@ -64,18 +67,25 @@ class DropoutRNG:
     ``seed``: every attention seed is offset by ``data_rank *``
     :data:`DATA_RANK_SEED_STRIDE`, and the keep masks' generator starts
     from ``seed`` offset the same way (rank 0 draws what a single process
-    draws)."""
+    draws). ``model_rank`` (tensor parallelism) offsets the attention
+    seeds only, by ``model_rank *`` :data:`MODEL_RANK_SEED_STRIDE`: each
+    model rank drops its own heads' probabilities, while the hidden
+    dropouts act on the replicated residual stream after the row-parallel
+    reductions and must draw the same masks on every model rank
+    (Megatron's rule: only model-parallel regions use the model-parallel
+    stream)."""
 
-    def __init__(self, seed, device, data_rank=0):
-        self._offset = int(data_rank) * DATA_RANK_SEED_STRIDE
+    def __init__(self, seed, device, data_rank=0, model_rank=0):
+        self._data_rank = int(data_rank)
+        self._model_rank = int(model_rank)
         self._host = torch.Generator().manual_seed(int(seed))
         self._device = torch.Generator(device=device).manual_seed(
-            (int(seed) + self._offset) % 2**63)
+            (int(seed) + self._data_rank * DATA_RANK_SEED_STRIDE) % 2**63)
         self.device = torch.device(device)
 
     def attn_seed(self):
         drawn = int(torch.randint(0, 2**31 - 1, (), generator=self._host))
-        return (drawn + self._offset) % (2**31 - 1)
+        return shard_seed(drawn, self._data_rank, self._model_rank)
 
     def keep(self, shape, rate):
         """A keep mask: each element kept with probability 1 - rate."""
@@ -130,6 +140,11 @@ class DeepSpeedTransformerConfig:
     # LayerNorm statistics stay in bf16 (layer_norm_apply); a no-op
     # otherwise
     stochastic_mode: bool = False
+    # tensor parallelism (parallel/tensor.py:TensorParallel): the block's
+    # parameters are this rank's Megatron shards and it computes on its
+    # heads / mp local heads; None = the whole block on one rank
+    tensor_parallel: object = dataclasses.field(
+        default=None, compare=False, repr=False)
 
     @property
     def intermediate(self):
@@ -313,6 +328,13 @@ LORA_TARGET_DIMS = {
     "attn_ow": ("H", "H"),
     "inter_w": ("H", "I"),
     "output_w": ("I", "H"),
+}
+#: Each projection's Megatron split under tensor parallelism: a
+#: column-parallel weight shards its output dim, a row-parallel one its
+#: input dim (the JAX package's LORA_TARGET_PARALLEL)
+LORA_TARGET_PARALLEL = {
+    "attn_qkvw": "column", "inter_w": "column",
+    "attn_ow": "row", "output_w": "row",
 }
 
 
@@ -499,14 +521,64 @@ def _project(cfg, p, lora, name, x, bias):
     )
 
 
+def _tp_lora(cfg, p, lora, name):
+    """The per-layer LoRA factors of ``name`` under tensor parallelism, or
+    None. The serving pools have no model-parallel form here (the
+    inference engine over a mesh is ROADMAP A7a-serve)."""
+    if lora is not None:
+        raise ValueError("the batched adapter pool does not run under "
+                         "tensor parallelism (ROADMAP A7a-serve)")
+    if cfg.lora_rank <= 0 or getattr(p, f"{name}_lora_a", None) is None:
+        return None
+    return (getattr(p, f"{name}_lora_a"), getattr(p, f"{name}_lora_b"),
+            lora_scaling(cfg.lora_rank, cfg.lora_alpha))
+
+
+def _project_column(cfg, p, lora, name, x, bias):
+    """A column-parallel projection (the qkv and ``inter_w``): ``x``, the
+    replicated input, enters the region (its gradient is the model
+    group's sum) and each rank computes its slice of the outputs with its
+    weight and bias rows. A LoRA A factor [in, r] is replicated and used
+    inside the region, so its gradient is summed too; B holds the rank's
+    output columns."""
+    tp = cfg.tensor_parallel
+    if tp is None:
+        return _project(cfg, p, lora, name, x, bias)
+    x = copy_to_region(x, tp)
+    y = F.linear(x, getattr(p, name), bias)
+    f = _tp_lora(cfg, p, lora, name)
+    if f is None:
+        return y
+    a, b, scale = f
+    return y + (scale * ((x @ copy_to_region(a, tp)) @ b)).to(y.dtype)
+
+
+def _project_row(cfg, p, lora, name, x, bias):
+    """A row-parallel projection (``attn_ow``, ``output_w``): each rank's
+    partial product of its input columns, summed over the model group;
+    the replicated bias is added once, after the sum. A LoRA A factor
+    holds the rank's input rows and its delta joins the partial sum; B
+    [r, out] is replicated and used inside the region, so its gradient is
+    summed."""
+    tp = cfg.tensor_parallel
+    if tp is None:
+        return _project(cfg, p, lora, name, x, bias)
+    y = F.linear(x, getattr(p, name))
+    f = _tp_lora(cfg, p, lora, name)
+    if f is not None:
+        a, b, scale = f
+        y = y + (scale * ((x @ a) @ copy_to_region(b, tp))).to(y.dtype)
+    return reduce_from_region(y, tp) + bias
+
+
 def _ffn_sublayer(cfg, p, x, keep=None, lora=None):
     residual = x
     ff_in = (
         layer_norm_apply(cfg, x, p.norm_w, p.norm_b)
         if cfg.pre_layer_norm else x
     )
-    h = _gelu(_project(cfg, p, lora, "inter_w", ff_in, p.inter_b))
-    h = _apply_keep(_project(cfg, p, lora, "output_w", h, p.output_b),
+    h = _gelu(_project_column(cfg, p, lora, "inter_w", ff_in, p.inter_b))
+    h = _apply_keep(_project_row(cfg, p, lora, "output_w", h, p.output_b),
                     keep, cfg.hidden_dropout_ratio)
     x = residual + h
     if not cfg.pre_layer_norm:
@@ -549,12 +621,26 @@ def transformer_block_apply(cfg, p, hidden_states, attention_mask=None, *,
     adapter source of :func:`apply_lora` (serving prefill); per-layer
     factors in ``p`` cover the fine-tune path. ``use_flash=False`` sends
     attention to the plain reference at every length (the JAX block's
-    switch)."""
+    switch).
+
+    Under ``cfg.tensor_parallel`` the parameters are this rank's Megatron
+    shards (parallel/tensor.py): the qkv projection gives the rank's
+    ``heads / mp`` heads of q, k and v, attention runs on them through
+    the same kernels, and each row-parallel product (``attn_ow``,
+    ``output_w``) is summed over the model group before its bias and the
+    hidden dropout, so the residual stream stays the same on every model
+    rank."""
     H = cfg.hidden_size
-    heads = cfg.heads
-    head_dim = H // heads
-    if head_dim * heads != H:
+    head_dim = H // cfg.heads
+    if head_dim * cfg.heads != H:
         raise ValueError("hidden_size must divide into heads")
+    tp = cfg.tensor_parallel
+    mp = 1 if tp is None else tp.size
+    if cfg.heads % mp:
+        raise ValueError(f"{cfg.heads} heads do not split over a model "
+                         f"axis of {mp}")
+    heads = cfg.heads // mp  # this rank's
+    H_local = heads * head_dim
     b, s, _ = hidden_states.shape
     if cfg.stochastic_mode:
         _notice_stochastic_once(hidden_states.dtype == torch.bfloat16,
@@ -575,11 +661,12 @@ def transformer_block_apply(cfg, p, hidden_states, attention_mask=None, *,
             layer_norm_apply(cfg, x, q_p.attn_nw, q_p.attn_nb)
             if cfg.pre_layer_norm else x
         )
-        qkv = _project(cfg, q_p, lora, "attn_qkvw", attn_in, q_p.attn_qkvb)
+        qkv = _project_column(cfg, q_p, lora, "attn_qkvw", attn_in,
+                              q_p.attn_qkvb)
         # [B,S,H] -> [B,heads,S,hd], contiguous for the kernel
         return tuple(
             t.reshape(b, s, heads, head_dim).transpose(1, 2).contiguous()
-            for t in qkv.split(H, dim=-1)
+            for t in qkv.split(H_local, dim=-1)
         )
 
     def attend(qh, kh, vh):
@@ -590,9 +677,9 @@ def transformer_block_apply(cfg, p, hidden_states, attention_mask=None, *,
         )
 
     def finish(o_p, x, ctx, keep_a, keep_f):
-        ctx = ctx.transpose(1, 2).reshape(b, s, H)
+        ctx = ctx.transpose(1, 2).reshape(b, s, H_local)
         attn_out = _apply_keep(
-            _project(cfg, o_p, lora, "attn_ow", ctx, o_p.attn_ob),
+            _project_row(cfg, o_p, lora, "attn_ow", ctx, o_p.attn_ob),
             keep_a, cfg.hidden_dropout_ratio)
         x = x + attn_out
         if not cfg.pre_layer_norm:

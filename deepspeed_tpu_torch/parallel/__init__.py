@@ -1,8 +1,11 @@
-"""Parallelism: the process mesh and the mpu protocol over it.
+"""Parallelism: the process mesh, the mpu protocol over it, and the
+tensor-parallel collectives.
 
-Port of deepspeed_tpu/parallel/ (mesh.py, mpu.py): data parallelism
-across processes, one per device. The JAX package's sequence parallelism
-(ring attention, Ulysses) and SPMD pipeline are not ported (ROADMAP A7).
+Port of deepspeed_tpu/parallel/ (mesh.py, mpu.py): data and model
+(tensor) parallelism across processes, one per device; tensor.py holds
+the Megatron collectives that GSPMD inserts for the JAX package. The JAX
+package's sequence parallelism (ring attention, Ulysses; ROADMAP A7b) and
+SPMD pipeline (A7d) are not ported.
 """
 
 from .mesh import (

@@ -10,11 +10,13 @@ ranks in the same order, outermost first:
   sequence — sequence parallelism
   model    — tensor model parallelism (innermost)
 
-A rank's coordinates follow from its rank (row-major over the axes), and
-``data_group`` is the process group of its data-axis line: the ranks that
-differ from it in the data coordinate only. Only the data axis may exceed
-1 here; the other three (sequence/ring attention, the pipeline schedule,
-tensor parallelism) raise ``not_ported`` (ROADMAP A7).
+A rank's coordinates follow from its rank (row-major over the axes, the
+model axis innermost, as the JAX package orders its mesh), ``data_group``
+is the process group of its data-axis line (the ranks that differ from it
+in the data coordinate only) and ``model_group`` that of its model-axis
+line. The data and model axes may exceed 1; the sequence axis (ring and
+Ulysses attention, ROADMAP A7b) and the pipe axis (the pipeline
+schedule, A7d) raise ``not_ported``.
 """
 
 import dataclasses
@@ -75,13 +77,14 @@ def resolve_topology(
 @dataclasses.dataclass(frozen=True)
 class ProcessMesh:
     """This rank's place in the mesh: the topology, the rank, its
-    coordinates ``{axis: index}`` and its data-axis process group (None in
-    a single process)."""
+    coordinates ``{axis: index}`` and the process groups of its data-axis
+    and model-axis lines (None for an axis of size 1)."""
 
     topology: MeshTopology
     rank: int
     coords: dict
     data_group: object = None
+    model_group: object = None
 
     @property
     def shape(self):
@@ -97,6 +100,24 @@ class ProcessMesh:
     def data_rank(self):
         return self.coords[DATA_AXIS]
 
+    @property
+    def mp_size(self):
+        return self.topology.model
+
+    @property
+    def model_rank(self):
+        return self.coords[MODEL_AXIS]
+
+    @property
+    def world_group(self):
+        """The group of every rank of the mesh (None in one process): what
+        a decision every rank must share reduces over."""
+        if self.topology.world_size <= 1:
+            return None
+        import torch.distributed as dist
+
+        return dist.group.WORLD
+
 
 def _coords(rank, shape):
     out, rest = {}, rank
@@ -106,11 +127,41 @@ def _coords(rank, shape):
     return {a: out[a] for a in MESH_AXES}
 
 
+def _line_groups(shape, axis):
+    """One process group per line along ``axis`` (the ranks that differ in
+    that coordinate only), made on every rank in the same order, as
+    ``torch.distributed.new_group`` requires; returns this process's
+    line's group. A line that is the whole world is ``group.WORLD``."""
+    import torch.distributed as dist
+
+    world = 1
+    for a in MESH_AXES:
+        world *= shape[a]
+    if shape[axis] == world:
+        return dist.group.WORLD
+    strides, acc = {}, 1
+    for a in reversed(MESH_AXES):
+        strides[a] = acc
+        acc *= shape[a]
+    rank = dist.get_rank()
+    mine = None
+    for base in range(world):
+        if (base // strides[axis]) % shape[axis] != 0:
+            continue  # not the first rank of its line
+        members = [base + i * strides[axis] for i in range(shape[axis])]
+        group = dist.new_group(members)
+        if rank in members:
+            mine = group
+    return mine
+
+
 def build_mesh(world_size=None, rank=None, **topo_kwargs) -> ProcessMesh:
     """The process mesh over the initialised torch.distributed world (or
     ``world_size``/``rank`` given), sized by ``resolve_topology``'s
-    keywords. Raises ``not_ported`` for a model, sequence or pipeline
-    axis above 1."""
+    keywords. Raises ``not_ported`` for a sequence or pipeline axis above
+    1. Every rank makes the data-axis line groups, then the model-axis
+    ones, so this is a collective of the world when either axis is above
+    1."""
     import torch.distributed as dist
 
     live = dist.is_available() and dist.is_initialized()
@@ -118,29 +169,29 @@ def build_mesh(world_size=None, rank=None, **topo_kwargs) -> ProcessMesh:
         world_size = dist.get_world_size() if live else 1
     if rank is None:
         rank = dist.get_rank() if live else 0
-    for axis, key in ((MODEL_AXIS, "model_parallel_size"),
-                      (SEQ_AXIS, "sequence_parallel_size"),
-                      (PIPE_AXIS, "pipeline_parallel_size")):
+    for axis, key, item in ((SEQ_AXIS, "sequence_parallel_size", "A7b"),
+                            (PIPE_AXIS, "pipeline_parallel_size", "A7d")):
         size = topo_kwargs.get(key, 1)
         if size > 1:
             raise not_ported(
-                f"a {axis} mesh axis of {size} (ROADMAP A7: the "
-                "parallelism modes)"
+                f"a {axis} mesh axis of {size} (ROADMAP {item})"
             )
     topology = resolve_topology(world_size, **topo_kwargs)
-    group = None
-    if topology.data > 1:
+    shape = {PIPE_AXIS: topology.pipe, DATA_AXIS: topology.data,
+             SEQ_AXIS: topology.sequence, MODEL_AXIS: topology.model}
+    groups = {}
+    for axis in (DATA_AXIS, MODEL_AXIS):
+        if shape[axis] <= 1:
+            continue
         if not live:
             raise RuntimeError(
-                f"a data axis of {topology.data} needs an initialised "
+                f"a {axis} axis of {shape[axis]} needs an initialised "
                 "torch.distributed group (deepspeed_tpu_torch.runtime.dist."
                 "init_distributed)"
             )
-        # the only axis above 1: its one line is the whole world
-        group = dist.group.WORLD
-    shape = {PIPE_AXIS: topology.pipe, DATA_AXIS: topology.data,
-             SEQ_AXIS: topology.sequence, MODEL_AXIS: topology.model}
-    return ProcessMesh(topology, int(rank), _coords(int(rank), shape), group)
+        groups[axis] = _line_groups(shape, axis)
+    return ProcessMesh(topology, int(rank), _coords(int(rank), shape),
+                       groups.get(DATA_AXIS), groups.get(MODEL_AXIS))
 
 
 def mesh_from_config(config, world_size=None, rank=None) -> ProcessMesh:

@@ -5,8 +5,10 @@ Megatron-style ``mpu`` object exposing ``get_{model,data}_parallel_
 {rank,group,world_size}``; :class:`TorchMpu` implements that protocol on
 the process mesh (parallel/mesh.py). Where the JAX package's groups are
 axis names for its collectives, these are torch.distributed process
-groups (the data axis's line; None for an axis of size 1, whose only
-member is this rank), and the ranks are this process's mesh coordinates.
+groups (the data or model axis's line; None for an axis of size 1, whose
+only member is this rank), and the ranks are this process's mesh
+coordinates. ``checkpointing.model_parallel_seed`` and an external
+Megatron integration read the model-parallel rank and group.
 
 An external object with the same duck-type is accepted wherever an mpu
 is taken (:class:`ExternalMpuAdapter` wraps it), the reference's hook
@@ -37,10 +39,10 @@ class TorchMpu:
         return self.mesh.shape[mesh_lib.PIPE_AXIS]
 
     # --- groups ----------------------------------------------------------
-    # only the data axis can exceed 1 (mesh.build_mesh refuses the rest),
-    # so the other axes' groups hold this rank alone: None
+    # the sequence and pipe axes stay at 1 (mesh.build_mesh refuses the
+    # rest), so their groups hold this rank alone: None
     def get_model_parallel_group(self):
-        return None
+        return self.mesh.model_group
 
     def get_data_parallel_group(self):
         return self.mesh.data_group

@@ -50,6 +50,17 @@ A checkpoint is untrusted input: ``weights_only`` loading takes tensors,
 primitives and containers of them only, and ``save_checkpoint`` refuses a
 ``client_state`` that holds anything else.
 
+Under tensor parallelism checkpoints keep the global form the JAX
+engine writes, independent of the layout: the model file holds every
+tensor joined over the model group in the JAX package's element order
+(parallel/tensor.py undoes the strided qkv slice), and records
+``mp_world_size``; each model rank ``m`` writes
+``zero_pp_rank_<r>_mp_rank_<m>optim_states.pt`` with each leaf's model
+dim, and a load joins the model ranks' states into the global one before
+it cuts this engine's model shards, then its data shards, from it. So a
+checkpoint saved at one data x model layout loads at any other. The tag
+agreement, the barrier and the commit outcome span every rank.
+
 Across data-parallel ranks at ZeRO stage >= 1 (runtime/zero.py) every
 rank writes its own ``zero_pp_rank_<r>_mp_rank_00optim_states.pt``: its
 shards of the canonical ``{"master", "inner"}`` state, with
@@ -84,6 +95,7 @@ from ..resilience import atomic_io
 from ..resilience import manifest as manifest_lib
 from ..resilience import retention
 from ..resilience.manager import ResilienceManager
+from ..parallel import tensor as tp_lib
 from ..utils.logging import log_dist, warn_once
 from . import dist as dist_lib
 from .zero import from_chunks, shard_of
@@ -205,21 +217,88 @@ def _layout(engine):
     return zero if zero is not None and zero.sharded else None
 
 
+def _model_dims(engine):
+    """``{name: model dim}`` of the module's tensors (empty when the
+    engine holds no model shards)."""
+    return getattr(engine, "_model_dims", None) or {}
+
+
+def _world(engine):
+    """``(size, group)`` of every rank of the engine's mesh."""
+    mesh = getattr(engine, "mesh", None)
+    if mesh is None:
+        dp = int(getattr(engine, "dp_world_size", 1))
+        return dp, getattr(engine, "_dp_group", None)
+    return mesh.topology.world_size, mesh.world_group
+
+
 def _full_module_params(engine):
     """The module file's parameters in full: at stage 3 gathered from
-    every rank's shards (a collective: every rank calls it)."""
+    every rank's shards, and joined over the model group (a collective:
+    every rank calls it)."""
     params = _module_params(engine)
     zero = _layout(engine)
-    if zero is None or zero.stage < 3:
-        return params
-    return {n: zero.gather_full(n, p) for n, p in params.items()}
+    if zero is not None and zero.stage >= 3:
+        params = {n: zero.gather_full(n, p) for n, p in params.items()}
+    dims = _model_dims(engine)
+    if dims:
+        tp = engine._tp
+        params = {n: tp_lib.gather_shards(n, p, dims.get(n), tp)
+                  for n, p in params.items()}
+    return params
 
 
 def _full_shapes(engine):
+    """The global shapes of the module's tensors."""
     zero = getattr(engine, "_zero", None)
-    if zero is not None:
-        return dict(zero.shapes)
-    return {n: tuple(p.shape) for n, p in _module_params(engine).items()}
+    if zero is not None and zero.stage >= 3:
+        shapes = dict(zero.shapes)
+    else:
+        shapes = {n: tuple(p.shape)
+                  for n, p in _module_params(engine).items()}
+    mp = int(getattr(engine, "mp_world_size", 1))
+    for n, d in _model_dims(engine).items():
+        if d is not None and n in shapes:
+            s = list(shapes[n])
+            s[d] *= mp
+            shapes[n] = tuple(s)
+    return shapes
+
+
+def _model_local(engine, tree, module=False):
+    """A canonical (global) tree cut to this engine's model shards: the
+    tensors of dicts keyed by parameter names, by their model dims (the
+    module's with ``module``, else the optimizer's leaves'; a leaf the
+    optimizer steps whole stays whole)."""
+    dims = _model_dims(engine)
+    if not dims or not isinstance(tree, dict):
+        return tree
+    if tree and all(k in dims for k in tree):
+        mp, rank = engine.mp_world_size, engine.model_rank
+        out = {}
+        for k, v in tree.items():
+            d = dims[k] if module else engine._opt_model_dim(k)
+            out[k] = (tp_lib.shard_for_rank(k, v, d, mp, rank).contiguous()
+                      if isinstance(v, torch.Tensor) else v)
+        return out
+    return {k: _model_local(engine, v, module) for k, v in tree.items()}
+
+
+def _join_model_tree(dims, vals):
+    """Every model rank's copy of one canonical (sub)tree -> the global
+    tree: tensors of dicts keyed by parameter names joined along their
+    model dim (-1: whole on every rank, model rank 0's), anything else
+    model rank 0's."""
+    first = vals[0]
+    if isinstance(first, dict) and first and all(k in dims for k in first):
+        return {k: (tp_lib.join_shards(k, [v[k] for v in vals], dims[k])
+                    if dims[k] >= 0 and isinstance(first[k], torch.Tensor)
+                    else first[k])
+                for k in first}
+    if isinstance(first, dict):
+        return {k: _join_model_tree(dims, [v[k] for v in vals])
+                for k in first}
+    return first
 
 
 def _describe(zero):
@@ -361,7 +440,8 @@ def _commit(res, save_dir, ckpt_dir, tag, engine):
     # before the tag becomes reachable
     manifest_lib.write_manifest(
         ckpt_dir, tag,
-        meta={"global_steps": int(engine.global_steps)},
+        meta={"global_steps": int(engine.global_steps),
+              "mp_world_size": int(getattr(engine, "mp_world_size", 1))},
         fsync=res.fsync, retry=res.retry, on_retry=res.on_retry,
     )
     status, reason = manifest_lib.verify_checkpoint(ckpt_dir)
@@ -412,13 +492,15 @@ def save_checkpoint(engine, save_dir, tag=None, client_state=None):
     check_client_state(client_state)
     if tag is None:
         tag = f"global_step{engine.global_steps}"
-    mp_rank = 0
+    mp_rank = int(getattr(engine, "model_rank", 0))
+    mp = int(getattr(engine, "mp_world_size", 1))
     ckpt_dir = os.path.join(save_dir, str(tag))
     os.makedirs(ckpt_dir, exist_ok=True)
     zero = _layout(engine)
     dp = int(getattr(engine, "dp_world_size", 1))
     rank = int(getattr(engine, "data_rank", 0))
-    group = getattr(engine, "_dp_group", None)
+    world, group = _world(engine)
+    first = rank == 0 and mp_rank == 0
 
     # ---- model states file (rank 0) -----------------------------------
     scaler = engine.loss_scale_state
@@ -430,7 +512,7 @@ def save_checkpoint(engine, save_dir, tag=None, client_state=None):
         "skipped_steps": int(engine.skipped_steps),
         "micro_steps": int(engine.micro_steps),
         "dp_world_size": dp,
-        "mp_world_size": 1,
+        "mp_world_size": mp,
         "zero_stage": int(engine.zero_stage),
         "loss_scaler": {
             "loss_scale": float(scaler.loss_scale),
@@ -446,30 +528,38 @@ def save_checkpoint(engine, save_dir, tag=None, client_state=None):
         # draws the seeds the original run would have
         "rng_state": engine._rng.get_state(),
     }
-    if rank == 0:
-        model_path = os.path.join(ckpt_dir, MODEL_FILE.format(mp=mp_rank))
+    if first:
+        # the global module: one model file, whatever the layout
+        model_path = os.path.join(ckpt_dir, MODEL_FILE.format(mp=0))
         _write_blob(res, model_path, _serialize(state))
     del state, module
 
-    # ---- optimizer state files: one per rank over shards, else rank 0's
+    # ---- optimizer state files: one per rank over shards, else one per
+    # model rank; each with the model dims that join them
+    model = {}
+    if mp > 1:
+        model = {"model_dims": {
+            n: (-1 if engine._opt_model_dim(n) is None
+                else int(engine._opt_model_dim(n)))
+            for n in engine.params}}
     if zero is not None:
         payload = {"num_shards": dp, "rank": rank, "layout": _describe(zero),
-                   "optimizer_state": _canonical_opt_state(engine)}
+                   "optimizer_state": _canonical_opt_state(engine), **model}
         optim_path = os.path.join(ckpt_dir,
                                   OPTIM_FILE.format(dp=rank, mp=mp_rank))
         _write_blob(res, optim_path, _serialize(payload))
         del payload
     elif rank == 0:
         payload = {"num_shards": 1,
-                   "optimizer_state": _canonical_opt_state(engine)}
+                   "optimizer_state": _canonical_opt_state(engine), **model}
         optim_path = os.path.join(ckpt_dir,
                                   OPTIM_FILE.format(dp=0, mp=mp_rank))
         _write_blob(res, optim_path, _serialize(payload))
         del payload
-    if dp > 1:
+    if world > 1:
         # every rank's file is written before the manifest covers them
         dist_lib.barrier(group)
-    if rank != 0:
+    if not first:
         # rank 0 commits; the others wait for its outcome and fail alike
         _raise_commit_outcome(_share_commit_outcome(engine, group, 0),
                               ckpt_dir)
@@ -488,7 +578,7 @@ def save_checkpoint(engine, save_dir, tag=None, client_state=None):
         raise
     finally:
         # reached even when the commit raises, so no rank is left waiting
-        if dp > 1:
+        if world > 1:
             _share_commit_outcome(engine, group, outcome)
     if res.enabled and res.keep_last_n > 0:
         retention.prune_checkpoints(
@@ -521,7 +611,6 @@ def _stage_checkpoint(load_dir, tag, load_optimizer_states, res):
     Raises on any verification, read or parse failure; the engine is
     untouched either way."""
     ckpt_dir = os.path.join(load_dir, str(tag))
-    mp_rank = 0
     if res.enabled and res.verify_on_load:
         status, reason = manifest_lib.verify_checkpoint(ckpt_dir)
         if status in (manifest_lib.CORRUPT, manifest_lib.MISSING):
@@ -534,7 +623,7 @@ def _stage_checkpoint(load_dir, tag, load_optimizer_states, res):
                 "checkpoint %s has no manifest (saved with resilience "
                 "off); loading with parse-time validation only", ckpt_dir,
             )
-    model_path = os.path.join(ckpt_dir, MODEL_FILE.format(mp=mp_rank))
+    model_path = os.path.join(ckpt_dir, MODEL_FILE.format(mp=0))
     if not os.path.exists(model_path):
         raise manifest_lib.CheckpointCorruptionError(
             f"checkpoint {tag}: model-states file {model_path} not found"
@@ -552,26 +641,56 @@ def _stage_checkpoint(load_dir, tag, load_optimizer_states, res):
         saved_dp = (
             int(state["dp_world_size"]) if state["zero_stage"] >= 1 else 1
         )
-        rank0_path = os.path.join(ckpt_dir, OPTIM_FILE.format(dp=0, mp=mp_rank))
-        if os.path.exists(rank0_path):
-            shards = []
-            for rank in range(saved_dp):
-                p = os.path.join(ckpt_dir, OPTIM_FILE.format(dp=rank, mp=mp_rank))
-                if not os.path.exists(p):
-                    break
-                shards.append(_deserialize(_read_blob(res, p)))
-            num_shards = int(shards[0]["num_shards"])
-            if len(shards) < num_shards:
+        saved_mp = int(state.get("mp_world_size", 1))
+        per_model = []
+        for mp_rank in range(saved_mp):
+            merged = _stage_model_rank(ckpt_dir, tag, saved_dp, mp_rank, res)
+            if merged is None:
+                break
+            per_model.append(merged)
+        if per_model:
+            if len(per_model) < saved_mp:
                 raise manifest_lib.CheckpointCorruptionError(
-                    f"checkpoint {tag}: optimizer state declares "
-                    f"{num_shards} shard files but only {len(shards)} "
-                    "are present"
+                    f"checkpoint {tag}: {saved_mp} model ranks saved but "
+                    f"only {len(per_model)} have optimizer files"
                 )
-            if num_shards > 1:
-                # every rank's shards merged into one rank's layout; the
+            if saved_mp > 1:
+                # every model rank's state joined into the global one; the
                 # engine cuts its own shards from it at apply time
-                shards = [_merge_shards(shards[:num_shards])]
+                dims = per_model[0][1]
+                per_model = [({"num_shards": 1, "optimizer_state":
+                               _join_model_tree(dims, [
+                                   p["optimizer_state"]
+                                   for p, _ in per_model])}, dims)]
+            shards = [per_model[0][0]]
     return _Staged(str(tag), ckpt_dir, state, shards)
+
+
+def _stage_model_rank(ckpt_dir, tag, saved_dp, mp_rank, res):
+    """Model rank ``mp_rank``'s optimizer files merged over the data
+    ranks: ``(payload, model dims)``, or None when it has none."""
+    rank0_path = os.path.join(ckpt_dir, OPTIM_FILE.format(dp=0, mp=mp_rank))
+    if not os.path.exists(rank0_path):
+        return None
+    shards = []
+    for rank in range(saved_dp):
+        p = os.path.join(ckpt_dir, OPTIM_FILE.format(dp=rank, mp=mp_rank))
+        if not os.path.exists(p):
+            break
+        shards.append(_deserialize(_read_blob(res, p)))
+    num_shards = int(shards[0]["num_shards"])
+    if len(shards) < num_shards:
+        raise manifest_lib.CheckpointCorruptionError(
+            f"checkpoint {tag}: optimizer state declares "
+            f"{num_shards} shard files but only {len(shards)} "
+            "are present"
+        )
+    dims = shards[0].get("model_dims", {})
+    if num_shards > 1:
+        # every rank's shards merged into one rank's layout; the
+        # engine cuts its own shards from it at apply time
+        return _merge_shards(shards[:num_shards]), dims
+    return shards[0], dims
 
 
 def _check_tree(saved, current, where):
@@ -612,11 +731,14 @@ def _resharded(engine, staged, load_optimizer_states):
     if not (load_optimizer_states and staged.shards):
         return None, None
     master, inner = _split_optimizer_payload(staged)
+    master = _model_local(engine, master)
+    inner = _model_local(engine, inner)
     zero = _layout(engine)
     if zero is None:
         return master, inner
     if master is None:
-        master = {n: t.float() for n, t in staged.state["module"].items()}
+        master = _model_local(engine, {
+            n: t.float() for n, t in staged.state["module"].items()})
     return (_reshard_tree(zero, master, engine.params),
             _reshard_tree(zero, inner, engine.optimizer_state))
 
@@ -668,8 +790,11 @@ def _apply_checkpoint(engine, staged, load_optimizer_states,
             full = state["module"]
         if master is None:
             master = _reshard_tree(
-                zero, {n: t.float() for n, t in full.items()}, engine.params)
+                zero, _model_local(engine, {n: t.float()
+                                            for n, t in full.items()}),
+                engine.params)
         _copy_tree(engine.params, master)
+        full = _model_local(engine, full, module=True)
         with torch.no_grad():
             for n, p in engine.module_params.items():
                 p.copy_(full[n] if zero.stage < 3
@@ -678,7 +803,10 @@ def _apply_checkpoint(engine, staged, load_optimizer_states,
         # exact fp32 resume: the optimizer file's master, else the
         # module's (the same values; fp32 engines save no separate master)
         _copy_tree(engine.params, master if master is not None
-                   else state["module"])
+                   else _model_local(engine, state["module"]))
+        if getattr(engine, "_tp_full_opt", False):
+            # the module's shards from the whole masters
+            engine._publish_model_slices(engine.params)
     if getattr(engine, "host_offload", False):
         # the device's compute-dtype parameters from the restored masters
         engine.publish_params()
@@ -710,24 +838,25 @@ def _stage_with_fallback(load_dir, tag, load_optimizer_states, res,
     on host. The shared verified-load front half of ``load_checkpoint``
     and ``load_module_state``. Returns a ``_Staged`` or None.
 
-    Across data-parallel ranks (``engine`` at dp > 1) the ranks then
-    compare what they staged: on a flaky shared mount they can see
+    Across ranks (``engine`` in a mesh of more than one rank) the ranks
+    then compare what they staged: on a flaky shared mount they can see
     different corruption and fall back to different tags. Every rank
     gathers the first 8 bytes of each rank's tag's sha256 (a rank that
     staged nothing sends 0) and, if any differ, every rank logs the
     disagreement and returns None, as the JAX package does."""
     staged = _stage_walk(load_dir, tag, load_optimizer_states, res)
-    if int(getattr(engine, "dp_world_size", 1)) > 1:
+    world, group = (_world(engine) if engine is not None else (1, None))
+    if world > 1:
         mine = 0
         if staged is not None:
             mine = int.from_bytes(
                 hashlib.sha256(staged.tag.encode()).digest()[:8], "little",
                 signed=True)
-        dp = engine.dp_world_size
-        everyone = torch.empty(dp, dtype=torch.int64, device=engine.device)
+        everyone = torch.empty(world, dtype=torch.int64,
+                               device=engine.device)
         dist_lib.all_gather(
             everyone, torch.tensor([mine], dtype=torch.int64,
-                                   device=engine.device), engine._dp_group)
+                                   device=engine.device), group)
         if len(set(everyone.tolist())) > 1:
             log_dist(
                 f"checkpoint tag disagreement across ranks (this rank "

@@ -124,10 +124,26 @@ JAX engine: the factors are gathered at the forward). The adapters block
 takes optimizer offload and compensated masters, which then hold only
 the factors.
 
+Tensor parallelism (a ``model_parallel_size`` above 1, with
+``param_specs``, GPT-2's ``models.partition_specs``): the engine cuts
+every parameter to this rank's Megatron shard (parallel/tensor.py) and
+arms the model's ``configure_model_parallel``; ZeRO then runs over the
+data group on the model-local tensors, the data axis on a dim the model
+axis left free, as the JAX rule composes them. Every decision is the
+world's: the global norm sums the model-sharded tensors over the model
+group and counts each replicated one once, the fp16 overflow flag, LAMB's
+per-group norms and the drain flag reduce over every rank; the window
+loss is the data group's mean. Without ``param_specs`` the model is
+replicated over the model axis (the JAX engine's leaves without a spec):
+each model rank computes the whole step on its data rank's rows. With
+int8 moments the optimizer steps whole (model-gathered) tensors, as the
+JAX engine keeps its flat int8 leaves replicated over the model axis;
+at ZeRO stage 3 that combination is not ported.
+
 Not ported, refused with ``DeepSpeedConfigError("... not yet ported")``:
-a model, sequence or pipeline mesh axis above 1 and a model with MoE or
-pipeline stages (ROADMAP A7). Optimizer offload at data parallel > 1 is
-refused with the JAX engine's message.
+a sequence or pipeline mesh axis above 1 (ROADMAP A7b, A7d), a model
+with MoE experts (A7c) or pipeline stages (A7d). Optimizer offload at
+data parallel > 1 is refused with the JAX engine's message.
 """
 
 import functools
@@ -144,9 +160,12 @@ from ..config import constants as C
 from ..config.config import DeepSpeedConfig, DeepSpeedConfigError, not_ported
 from ..config.config_utils import load_config_json
 from ..ops.head_dims import check_head_dim, model_head_dim, model_max_positions
+from ..models.gpt2 import GPT2LMHeadModel
+from ..models.gpt2 import partition_specs as gpt2_partition_specs
 from ..models.stack import BLOCK_TENSORS, Zero3Arming, gather_tensors
 from ..ops.optimizers import Optimizer, build_optimizer, param_groups
 from ..ops.transformer import resolve_remat_policy
+from ..parallel import tensor as tp_lib
 from ..parallel.mesh import ProcessMesh, mesh_from_config
 from ..parallel.mpu import as_mpu
 from ..resilience import SupervisorEscalation, build_resilience
@@ -250,7 +269,8 @@ class DeepSpeedEngine:
     def __init__(self, model=None, optimizer=None, model_parameters=None,
                  training_data=None, lr_scheduler=None, config_params=None,
                  mesh=None, rng_seed=0, device=None, args=None,
-                 collate_fn=None, mpu=None, dist_init_required=None):
+                 collate_fn=None, mpu=None, dist_init_required=None,
+                 param_specs=None):
         # ---- config ---------------------------------------------------
         raw = config_params
         if raw is None and args is not None:
@@ -280,6 +300,10 @@ class DeepSpeedEngine:
         self.dp_world_size = mesh.dp_size
         self.data_rank = mesh.data_rank
         self._dp_group = mesh.data_group
+        self.mp_world_size = mesh.mp_size
+        self.model_rank = mesh.model_rank
+        self._mp_group = mesh.model_group
+        self._world_group = mesh.world_group
         self.config = DeepSpeedConfig(None, param_dict=raw, training=True,
                                       world_size=self.dp_world_size)
         cfg = self.config
@@ -290,16 +314,18 @@ class DeepSpeedEngine:
         # sets them
         from .. import checkpointing as act_ckpt
 
-        act_ckpt.configure(None, deepspeed_config=cfg)
+        act_ckpt.configure(self.mpu if self.mp_world_size > 1 else None,
+                           deepspeed_config=cfg)
 
         # ---- model ----------------------------------------------------
         if not isinstance(model, torch.nn.Module):
             raise TypeError("model must be a torch.nn.Module whose forward "
                             "returns the scalar loss")
-        for field, off in (("moe_experts", 0), ("pipeline_stages", 1)):
+        for field, off, item in (("moe_experts", 0, "A7c"),
+                                 ("pipeline_stages", 1, "A7d")):
             if getattr(mcfg, field, off) != off:
                 raise not_ported(f"a model with {field}="
-                                 f"{getattr(mcfg, field)!r} (ROADMAP A7)")
+                                 f"{getattr(mcfg, field)!r} (ROADMAP {item})")
         policy = getattr(mcfg, "remat_policy", "full")
         if getattr(mcfg, "remat", False) and policy != "full":
             # a typo or a policy the port cannot map fails here, not in
@@ -360,6 +386,13 @@ class DeepSpeedEngine:
         self.frozen_base_params = {}
         if cfg.adapters_enabled:
             self._configure_adapters(model_parameters, rng_seed)
+        # tensor parallelism: this rank's Megatron shards (None: the model
+        # is whole on every rank)
+        self._tp = None
+        self._model_dims = {}
+        self._tp_full_opt = False
+        self._full_masters = None
+        self._configure_model_parallel(param_specs)
         if self.compensated_master:
             self.module.to(dtype=self.compute_dtype)
 
@@ -377,6 +410,8 @@ class DeepSpeedEngine:
             p.numel() for p in self.module.parameters())
         if self.host_offload:
             self._offload_masters()
+        if self._tp_full_opt:
+            self._model_full_masters()
         # ZeRO's layout over the data group (None in one process), the
         # gradient shards of a window, and whether the fp32 masters are
         # the module's stage-3 shards themselves
@@ -392,6 +427,9 @@ class DeepSpeedEngine:
             # one process: the model's defaults, whatever an earlier
             # data-parallel engine set on it
             self.module.configure_data_parallel()
+        # the tensors each rank leaves out of a norm (another rank counts
+        # them), when the norms are the world's
+        self._norm_skip = self._norm_skip_set()
         self.optimizer_obj = self._configure_optimizer(optimizer)
         self.optimizer_state = self.optimizer_obj.init(self.params)
         if self.host_offload:
@@ -518,7 +556,8 @@ class DeepSpeedEngine:
             self.training_dataloader = self.deepspeed_io(training_data)
         log_dist(
             f"DeepSpeedEngine initialized: device={self.device} "
-            f"dp={self.dp_world_size} zero_stage={self.zero_stage} "
+            f"dp={self.dp_world_size} mp={self.mp_world_size} "
+            f"zero_stage={self.zero_stage} "
             f"dtype={self.compute_dtype} "
             f"optimizer={type(self.optimizer_obj).__name__}", ranks=[0],
         )
@@ -650,10 +689,15 @@ class DeepSpeedEngine:
         optimizers alike), as the JAX engine's policies: no chunked
         updates (a single-device memory measure; the shards already divide
         the working set by dp), and for LAMB the reduction of its per-group
-        norms over the data group, each replicated tensor counted on rank 0
-        only. FusedLamb's kernel runs on this rank's shards: the JAX
-        engine gathers the sharded state at its kernel's boundary and
-        warns; the port does not gather."""
+        norms over every rank, each tensor counted once (a replicated one
+        on the first rank of its line only; under tensor parallelism the
+        model shards of one JAX leaf summed into its ratio). FusedLamb's
+        kernel runs on this rank's shards: the JAX engine gathers the
+        sharded state at its kernel's boundary and warns; the port does
+        not gather."""
+        if self._distributed_norms() and hasattr(opt, "norm_reduce"):
+            opt.norm_reduce = self._all_reduce
+            opt.norm_skip = self._norm_skip
         if self._zero is None or not self._zero.sharded:
             return
         if hasattr(opt, "chunk_elements"):
@@ -664,10 +708,6 @@ class DeepSpeedEngine:
                 "layout in the JAX element order, blocks padded to a "
                 f"multiple of {max(256, self.dp_world_size)})", ranks=[0],
             )
-        if hasattr(opt, "norm_reduce"):
-            opt.norm_reduce = self._all_reduce
-            opt.norm_skip = (self._zero.replicated_leaves()
-                             if self.data_rank else frozenset())
         if type(opt).__name__ == "FusedLamb":
             log_dist(
                 "FusedLamb at ZeRO stage >= 1: the phase-1 kernel runs on "
@@ -676,7 +716,40 @@ class DeepSpeedEngine:
             )
 
     def _all_reduce(self, t):
-        dist_lib.all_reduce(t, self._dp_group)
+        """A sum over every rank (the world's norms)."""
+        dist_lib.all_reduce(t, self._world_group)
+
+    def _distributed_norms(self):
+        """Whether the gradient norm and LAMB's group norms are sums over
+        ranks: over ZeRO shards, and at any model axis above 1 (model
+        shards, or at least one overflow decision shared)."""
+        return ((self._zero is not None and self._zero.sharded)
+                or self.mp_world_size > 1)
+
+    def _norm_skip_set(self):
+        """The optimizer's leaves this rank leaves out of a world norm:
+        one replicated over the data group on a data rank other than 0,
+        one replicated over the model group on a model rank other than
+        0."""
+        if not self._distributed_norms():
+            return frozenset()
+        data_sharded = (self._zero is not None and self._zero.sharded)
+        skip = set()
+        for n in self.params:
+            over_data = data_sharded and not self._zero.leaves[n].replicated
+            over_model = self._opt_model_dim(n) is not None
+            if ((not over_data and self.data_rank)
+                    or (not over_model and self.model_rank)):
+                skip.add(n)
+        return frozenset(skip)
+
+    def _opt_model_dim(self, name):
+        """The model dim of optimizer leaf ``name`` (None: the leaf is
+        whole on every model rank: replicated, a flat int8 group, or any
+        tensor when the optimizer steps model-gathered tensors)."""
+        if self._tp_full_opt:
+            return None
+        return self._model_dims.get(name)
 
     def _global_count(self, count):
         """A loss's divisor on this rank: max(the data group's count of
@@ -698,7 +771,8 @@ class DeepSpeedEngine:
         zero = self._zero = ZeroLayout(
             {n: tuple(p.shape) for n, p in full.items()},
             self.dp_world_size, self.data_rank, self._dp_group, stage,
-            flat_groups=cfg.optimizer_state_dtype == "int8")
+            flat_groups=cfg.optimizer_state_dtype == "int8",
+            model_dims={n: self._opt_model_dim(n) for n in full})
         module = self.module
         zero3 = None
         if zero.sharded:
@@ -711,6 +785,106 @@ class DeepSpeedEngine:
                 zero3=zero3,
                 sparse=((self._dp_group, self.dp_world_size)
                         if cfg.sparse_gradients_enabled else None))
+
+    def _configure_model_parallel(self, param_specs):
+        """A model axis above 1: with ``param_specs``, cut every parameter
+        of the module (the frozen base too) to this rank's shard by its
+        spec (parallel/tensor.py; a parameter the specs leave out, such as
+        a LoRA factor the engine grew, takes GPT-2's
+        :func:`~deepspeed_tpu_torch.models.gpt2.partition_specs` rule,
+        else stays replicated) and arm the model's
+        seam; without, the model stays whole (replicated over the model
+        axis). At model size 1 the model's seam is reset, whatever an
+        earlier engine armed on it."""
+        module = self.module
+        if self.mp_world_size <= 1 or param_specs is None:
+            if param_specs is not None:
+                log_dist("param_specs at model_parallel_size 1: nothing to "
+                         "shard", ranks=[0])
+            elif self.mp_world_size > 1:
+                log_dist(
+                    f"model_parallel_size {self.mp_world_size} without "
+                    "param_specs: the model is replicated over the model "
+                    "axis (every model rank computes the whole step)",
+                    ranks=[0])
+            if hasattr(module, "configure_model_parallel"):
+                module.configure_model_parallel()
+            return
+        if not hasattr(module, "configure_model_parallel"):
+            raise DeepSpeedConfigError(
+                f"param_specs for a {type(module).__name__}: tensor "
+                "parallelism needs a model with the configure_model_parallel "
+                "seam (GPT2LMHeadModel); leave param_specs out to replicate "
+                "the model over the model axis")
+        mcfg = getattr(module, "config", None)
+        heads = getattr(mcfg, "n_head", None)
+        mp, rank = self.mp_world_size, self.model_rank
+        if heads is not None and heads % mp:
+            # the JAX dispatcher falls back to XLA here; there is no
+            # Megatron split of the heads to run the kernels on
+            raise DeepSpeedConfigError(
+                f"{heads} attention heads do not split over a model axis "
+                f"of {mp}: tensor parallelism shards whole heads")
+        own = (gpt2_partition_specs(module)
+               if isinstance(module, GPT2LMHeadModel) else {})
+        self._model_dims = {
+            n: tp_lib.model_dim(param_specs.get(n, own.get(n)))
+            for n, _ in module.named_parameters()}
+        with torch.no_grad():
+            for n, p in module.named_parameters():
+                d = self._model_dims[n]
+                if d is not None:
+                    p.data = tp_lib.shard_for_rank(
+                        n, p.data, d, mp, rank).contiguous().clone()
+            for n in list(self.frozen_base_params):
+                d = self._model_dims[n]
+                if d is not None:
+                    self.frozen_base_params[n] = tp_lib.shard_for_rank(
+                        n, self.frozen_base_params[n], d, mp,
+                        rank).contiguous().clone()
+        self._tp = tp_lib.TensorParallel(self._mp_group, mp, rank)
+        module.configure_model_parallel(self._mp_group, rank, mp)
+        if self.config.optimizer_state_dtype == "int8":
+            if self.host_offload:
+                raise not_ported(
+                    "int8 optimizer moments with optimizer offload at a "
+                    "model axis above 1 (ROADMAP A7a, what is left)")
+            if self.zero_stage >= ZERO_OPTIMIZATION_WEIGHTS and (
+                    self.dp_world_size > 1):
+                raise not_ported(
+                    "int8 optimizer moments at ZeRO stage 3 with a model "
+                    "axis above 1 (ROADMAP A7a, what is left)")
+            # the JAX engine's flat int8 leaves are whole over the model
+            # axis: their blocks cross the model split, so the optimizer
+            # steps the model-gathered tensors
+            self._tp_full_opt = True
+        log_dist(
+            f"tensor parallel: model axis {mp}, "
+            f"{sum(d is not None for d in self._model_dims.values())} of "
+            f"{len(self._model_dims)} parameters sharded"
+            + (" (the optimizer steps model-gathered tensors: int8 "
+               "moments)" if self._tp_full_opt else ""), ranks=[0])
+
+    def _model_full_masters(self):
+        """The model-gathered optimizer: float32 masters of the whole
+        tensors (a collective over the model group) beside the module's
+        shards, which compute; the module holds the compute dtype."""
+        local = self.params
+        self.params = {
+            n: tp_lib.gather_shards(n, p.detach(), self._model_dims.get(n),
+                                    self._tp).float().clone()
+            for n, p in local.items()}
+        self.module.to(dtype=self.compute_dtype)
+        self._compute_params = self._trainable_module_params()
+
+    @torch.no_grad()
+    def _publish_model_slices(self, full):
+        """The module's shards cut from whole tensors ``full`` (the
+        model-gathered optimizer's masters after an update)."""
+        for n, t in full.items():
+            self._compute_params[n].copy_(tp_lib.shard_for_rank(
+                n, t, self._model_dims.get(n), self.mp_world_size,
+                self.model_rank))
 
     def _shard_params(self, full):
         """From stage 1: this rank's master shards, the module's
@@ -865,8 +1039,10 @@ class DeepSpeedEngine:
 
     def full_parameters(self):
         """The module's trainable parameters in full, in the dtype it
-        computes with: at ZeRO stage 3 gathered from every rank's shards
-        (a collective: every rank calls it)."""
+        computes with: at ZeRO stage 3 gathered from every rank's shards,
+        and under tensor parallelism joined over the model group in the
+        JAX package's element order (a collective: every rank calls
+        it)."""
         from .checkpointing import _full_module_params
 
         return _full_module_params(self)
@@ -1142,7 +1318,7 @@ class DeepSpeedEngine:
         are cast; compensated and offloaded layouts already hold the
         compute dtype, and are used without a copy."""
         out = dict(self.frozen_base_params)
-        hook = (grad and self._zero is not None
+        hook = (grad and self._zero is not None and not self._tp_full_opt
                 and self.zero_stage == ZERO_OPTIMIZATION_GRADIENTS)
         for name, p in self.module_params.items():
             t = p.detach().to(self.compute_dtype)
@@ -1179,7 +1355,8 @@ class DeepSpeedEngine:
         # data parallel: each rank's share of the global batch's mean (the
         # collectives sum over the ranks)
         denom = self.gradient_accumulation_steps() * self.dp_world_size
-        hooked = self._zero is not None and self.zero_stage == 2
+        hooked = (self._zero is not None and self.zero_stage == 2
+                  and not self._tp_full_opt)
         if hooked:
             # what the stage-2 hooks reduced this micro-step, and whether
             # they copy into the shard buffer or add to it
@@ -1190,8 +1367,8 @@ class DeepSpeedEngine:
             # a parameter the loss does not reach reduces zeros, so that
             # every rank issues every collective
             self._zero.reduce_missing(
-                {n: t for n, t in params.items()
-                 if n not in self.frozen_base_params},
+                {n: torch.empty(self._zero.shapes[n], device="meta")
+                 for n in params if n not in self.frozen_base_params},
                 self._shards(), self._hooked)
             self._grad_buffer = self._shards()
             self.micro_steps += 1
@@ -1238,12 +1415,14 @@ class DeepSpeedEngine:
     def _reduce_at_boundary(self, grads):
         """The window's gradients summed over the data group: stage 0
         all-reduces the full buffer in place, stage 1 reduce-scatters it
-        to the shards; from stage 2 the buffer already is the shards."""
+        to the shards; from stage 2 the buffer already is the shards
+        (but for the model-gathered optimizer, whose stage 2 reduces as
+        stage 1 does)."""
         if self.zero_stage == 0:
             for g in grads.values():
                 dist_lib.all_reduce(g, self._dp_group)
             return grads
-        if self.zero_stage == 1:
+        if self.zero_stage == 1 or self._tp_full_opt:
             # fresh shards: only the full buffer persists between windows
             return self._zero.reduce_grads(grads, {}, True)
         return grads
@@ -1251,22 +1430,22 @@ class DeepSpeedEngine:
     def _norm_and_overflow(self, grads):
         """``(raw_norm, overflow)`` as device tensors: the global norm of
         the unscaled-by-nothing gradients (-1.0 when inf/nan) and the skip
-        flag (fp16: any inf/nan; else the norm's sentinel). Over shards
-        both are reduced over the data group, each replicated tensor
-        counted on rank 0 only, so every rank decides alike."""
-        if self._zero is None or not self._zero.sharded:
+        flag (fp16: any inf/nan; else the norm's sentinel). Over shards or
+        a model axis both are reduced over every rank, each tensor counted
+        once (:meth:`_norm_skip_set`), so every rank decides alike."""
+        if not self._distributed_norms():
             raw_norm = global_norm(grads.values())  # -1.0 if inf/nan
             if self.config.fp16_enabled:
                 return raw_norm, has_overflow(grads.values())
             return raw_norm, raw_norm < 0.0
-        skip = self._zero.replicated_leaves() if self.data_rank else ()
+        skip = self._norm_skip
         sq = torch.zeros((), dtype=torch.float32, device=self.device)
         for n, g in grads.items():
             if n not in skip:
                 g = g.float()
                 sq = sq + torch.sum(g * g)
         both = torch.stack([sq, has_overflow(grads.values()).float()])
-        dist_lib.all_reduce(both, self._dp_group)
+        dist_lib.all_reduce(both, self._world_group)
         norm = torch.sqrt(both[0])
         raw_norm = torch.where(torch.isfinite(norm), norm,
                                torch.full_like(norm, -1.0))
@@ -1281,7 +1460,15 @@ class DeepSpeedEngine:
         persistent shards, through the full tensors one leaf at a time
         where the layouts differ)."""
         zero = self._zero
-        if self.zero_stage < ZERO_OPTIMIZATION_WEIGHTS:
+        if self._tp_full_opt:
+            # whole tensors gathered over the data group, then the
+            # module's model shards cut from them
+            full = {n: torch.empty(shape, dtype=self.compute_dtype,
+                                   device=self.device)
+                    for n, shape in zero.shapes.items()}
+            zero.gather_into(self.params, full)
+            self._publish_model_slices(full)
+        elif self.zero_stage < ZERO_OPTIMIZATION_WEIGHTS:
             zero.gather_into(self.params, self._compute_params)
         elif self._masters_alias:
             return
@@ -1342,6 +1529,12 @@ class DeepSpeedEngine:
             # waits for them (a CPU engine's gradients are on the host)
             for n, g in grads.items():
                 self._host_grads[n].copy_(g, non_blocking=True)
+        if self._tp_full_opt:
+            # the window's model shards joined once over the model group,
+            # for the optimizer's whole tensors
+            grads = {n: tp_lib.gather_shards(n, g, self._model_dims.get(n),
+                                             self._tp)
+                     for n, g in grads.items()}
         if self._zero is not None:
             grads = self._reduce_at_boundary(grads)
         # the overflow test and the norm run where the gradients are, as
@@ -1390,6 +1583,8 @@ class DeepSpeedEngine:
                 self.publish_params()
             elif self._zero is not None and self._zero.sharded:
                 self._publish_shards()
+            elif self._tp_full_opt:
+                self._publish_model_slices(self.params)
             coeffs = aux.get("lamb_coeffs", [])
             self.lamb_coeffs = (torch.stack(coeffs) if coeffs
                                 else torch.zeros(0))
@@ -1484,7 +1679,7 @@ class DeepSpeedEngine:
         if res.preemption is None:
             return
         armed = res.preemption_armed
-        if self.dp_world_size > 1:
+        if self.mesh.topology.world_size > 1:
             # every rank sees the OR of the ranks' flags at the same step
             # boundary: a signal reaches one process, and a rank that
             # entered save_checkpoint alone would wait in its barrier while
@@ -1493,7 +1688,7 @@ class DeepSpeedEngine:
             # with the drain enabled)
             flag = torch.tensor([int(armed)], dtype=torch.int32,
                                 device=self.device)
-            dist_lib.all_reduce(flag, self._dp_group,
+            dist_lib.all_reduce(flag, self._world_group,
                                 op=torch.distributed.ReduceOp.MAX)
             armed = bool(flag.item())
             if armed and not res.preemption_armed:

@@ -18,7 +18,10 @@ process per device and issues them itself (runtime/dist.py):
 The per-tensor rule is the JAX package's (:func:`leaf_partition_spec`):
 shard the largest dimension the data-parallel size divides; with
 ``prefer_leading`` the earliest; a tensor with no such dimension stays
-replicated. The spec functions are pure functions of names and shapes
+replicated. Under tensor parallelism the data axis lands only on a
+dimension the model axis left free (the JAX rule's ``existing_spec``):
+the layout's shapes are then the rank's model shards, and the model dim
+of each (``model_dims``) is never a candidate. The spec functions are pure functions of names and shapes
 and return ``{name: shard dim or None}``. The port's parameters are per
 layer and its linear weights ``[out, in]`` where the JAX leaves are
 ``[L, in, out]``: a weight is ruled on its JAX orientation, so the rule
@@ -52,15 +55,16 @@ ZERO_OPTIMIZATION_GRADIENTS = 2
 ZERO_OPTIMIZATION_WEIGHTS = 3
 
 
-def leaf_partition_spec(shape, dp_size, prefer_leading=False):
+def leaf_partition_spec(shape, dp_size, prefer_leading=False, taken=None):
     """The dim of ``shape`` to shard over ``dp_size`` ranks, or None
     (replicated): the largest dim ``dp_size`` divides (ties: the first),
-    or with ``prefer_leading`` the earliest."""
+    or with ``prefer_leading`` the earliest; never ``taken``, the dim
+    another mesh axis (the model axis) already shards."""
     if dp_size <= 1:
         return None
     best_dim, best_size = None, 0
     for i, d in enumerate(shape):
-        if d % dp_size != 0:
+        if i == taken or d % dp_size != 0:
             continue
         if prefer_leading:
             return i
@@ -77,31 +81,37 @@ def gathered_spec(spec):
     return None
 
 
-def _spec(name, shape, dp_size, prefer_leading):
+def _spec(name, shape, dp_size, prefer_leading, model_dim=None):
     """The rule on the tensor as the JAX package lays it out: a linear
     weight (``[out, in]`` here, ``[in, out]`` there; ops/optimizers.py:
     jax_element_order) is ruled on its reversed shape, so that a tie
-    between equal dims falls on the JAX package's tensor dimension."""
+    between equal dims falls on the JAX package's tensor dimension.
+    ``model_dim``: the dim the model axis shards (left out)."""
     shape = tuple(shape)
     t = torch.empty(shape, device="meta")
     like = jax_element_order(name, t)
     if like is t:
-        return leaf_partition_spec(shape, dp_size, prefer_leading)
-    d = leaf_partition_spec(tuple(like.shape), dp_size, prefer_leading)
+        return leaf_partition_spec(shape, dp_size, prefer_leading,
+                                   model_dim)
+    d = leaf_partition_spec(tuple(like.shape), dp_size, prefer_leading,
+                            None if model_dim is None else 1 - model_dim)
     return None if d is None else 1 - d
 
 
-def _specs(shapes, dp_size, active, prefer_leading):
-    return {n: (_spec(n, s, dp_size, prefer_leading) if active else None)
+def _specs(shapes, dp_size, active, prefer_leading, model_dims=None):
+    model_dims = model_dims or {}
+    return {n: (_spec(n, s, dp_size, prefer_leading, model_dims.get(n))
+                if active else None)
             for n, s in shapes.items()}
 
 
-def zero_param_specs(shapes, dp_size, stage, prefer_leading=False):
+def zero_param_specs(shapes, dp_size, stage, prefer_leading=False,
+                     model_dims=None):
     """Specs of the persistent parameters (sharded only at stage 3). A
     stage-3 tensor with no dp-divisible dim stays replicated, warned once
     (the analog of the reference's ``zero_empty_partition`` case)."""
     specs = _specs(shapes, dp_size, stage >= ZERO_OPTIMIZATION_WEIGHTS,
-                   prefer_leading)
+                   prefer_leading, model_dims)
     if stage >= ZERO_OPTIMIZATION_WEIGHTS and dp_size > 1:
         for n, spec in specs.items():
             if spec is None and len(shapes[n]) > 0:
@@ -115,18 +125,20 @@ def zero_param_specs(shapes, dp_size, stage, prefer_leading=False):
     return specs
 
 
-def zero_grad_specs(shapes, dp_size, stage, prefer_leading=False):
+def zero_grad_specs(shapes, dp_size, stage, prefer_leading=False,
+                    model_dims=None):
     """Specs of the gradient accumulation buffer (sharded from stage 2)."""
     return _specs(shapes, dp_size, stage >= ZERO_OPTIMIZATION_GRADIENTS,
-                  prefer_leading)
+                  prefer_leading, model_dims)
 
 
-def zero_optstate_specs(shapes, dp_size, stage, prefer_leading=False):
+def zero_optstate_specs(shapes, dp_size, stage, prefer_leading=False,
+                        model_dims=None):
     """Specs of the fp32 masters and the per-tensor optimizer state
     (sharded from stage 1)."""
     return _specs(shapes, dp_size,
                   stage >= ZERO_OPTIMIZATION_OPTIMIZER_STATES,
-                  prefer_leading)
+                  prefer_leading, model_dims)
 
 
 # ---------------------------------------------------------------------------
@@ -181,9 +193,12 @@ class ZeroLayout:
     """ZeRO's placement of a model's trainable tensors over the data
     group: the optimizer's leaves (this rank's shards), the stage-3
     persistent shards, and the collectives between them and the full
-    tensors. ``shapes`` is ``{name: shape}`` in parameter order."""
+    tensors. ``shapes`` is ``{name: shape}`` in parameter order (under
+    tensor parallelism the rank's model shards, whose model dims
+    ``model_dims`` {name: dim} the data axis leaves alone)."""
 
-    def __init__(self, shapes, dp, rank, group, stage, flat_groups=False):
+    def __init__(self, shapes, dp, rank, group, stage, flat_groups=False,
+                 model_dims=None):
         self.dp = int(dp)
         self.rank = int(rank)
         self.group = group
@@ -191,8 +206,10 @@ class ZeroLayout:
         self.shapes = OrderedDict((n, tuple(s)) for n, s in shapes.items())
         self.flat_groups = flat_groups
         self.param_specs = zero_param_specs(self.shapes, self.dp, stage,
-                                            prefer_leading=flat_groups)
-        opt_specs = zero_optstate_specs(self.shapes, self.dp, stage)
+                                            prefer_leading=flat_groups,
+                                            model_dims=model_dims)
+        opt_specs = zero_optstate_specs(self.shapes, self.dp, stage,
+                                        model_dims=model_dims)
         self.leaves = OrderedDict()
         if flat_groups and stage >= ZERO_OPTIMIZATION_OPTIMIZER_STATES:
             pad = max(256, self.dp)
@@ -220,10 +237,6 @@ class ZeroLayout:
     def sharded(self):
         """True when the optimizer steps shards (stage >= 1 at dp > 1)."""
         return self.stage >= ZERO_OPTIMIZATION_OPTIMIZER_STATES and self.dp > 1
-
-    def replicated_leaves(self):
-        """The leaves every rank holds whole: a norm counts them once."""
-        return frozenset(n for n, lf in self.leaves.items() if lf.replicated)
 
     def _pack(self, leaf, tensors):
         """A leaf's ``dp`` chunks as one contiguous buffer (flat groups:

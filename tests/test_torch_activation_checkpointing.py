@@ -16,10 +16,7 @@ import torch
 import deepspeed_tpu_torch
 from deepspeed_tpu import checkpointing as jckpt
 from deepspeed_tpu_torch import checkpointing as ckpt
-from deepspeed_tpu_torch.config.config import (
-    DeepSpeedConfig,
-    DeepSpeedConfigError,
-)
+from deepspeed_tpu_torch.config.config import DeepSpeedConfig
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 
@@ -123,6 +120,9 @@ def test_cpu_checkpointing_keeps_the_inputs_through_save_on_cpu(
 
 
 def test_partition_activations_above_model_parallel_one_is_not_ported():
+    # the refusal is lifted: configure takes partition_activations at a
+    # model axis above 1 (the partitioned recompute itself runs on gloo
+    # ranks in tests/test_torch_model_parallel_pieces.py)
     class Mpu:
         def get_model_parallel_world_size(self):
             return 2
@@ -130,8 +130,12 @@ def test_partition_activations_above_model_parallel_one_is_not_ported():
         def get_model_parallel_rank(self):
             return 0
 
-    with pytest.raises(DeepSpeedConfigError, match="not yet ported"):
+    try:
         ckpt.configure(Mpu(), partition_activations=True)
+        assert ckpt.PARTITION_ACTIVATIONS
+        assert ckpt._model_parallel_size() == 2
+    finally:
+        ckpt.configure(None, partition_activations=False)
 
 
 def test_configure_from_a_config_matches_jax(tmp_path):

@@ -129,14 +129,16 @@ def _tiny():
 # and extra10 now hold model, sequence and pipeline axes, which stay
 # refused. The adapters block with offload or compensated masters is
 # ported too, as the JAX engine takes it: extra0, 1 and 5 now build, train
-# a step and leave the frozen base as it was
+# a step and leave the frozen base as it was. The model axis is ported
+# (tests/test_torch_model_parallel*.py): extra2, 8 and 9 now hold
+# sequence and pipeline axes
 @pytest.mark.parametrize("extra", [
     {"adapters": {"enabled": True, "rank": 4},
      "zero_optimization": {"stage": 1,
                            "offload_optimizer": {"device": "cpu"}}},
     {"adapters": {"enabled": True, "rank": 4}, "bf16": {"enabled": True},
      "data_types": {"master_dtype": "compensated"}},
-    {"mesh": {"model_parallel_size": 2},
+    {"mesh": {"sequence_parallel_size": 2},
      "activation_checkpointing": {"partition_activations": True}},
     {"mesh": {"sequence_parallel_size": 2}},
     {"mesh": {"pipeline_parallel_size": 2},
@@ -148,8 +150,8 @@ def _tiny():
     {"mesh": {"sequence_parallel_size": 2},
      "zero_optimization": {"stage": 2,
                            "offload_optimizer": {"device": "cpu"}}},
-    {"mesh": {"model_parallel_size": 2}},
-    {"mesh": {"model_parallel_size": 2},
+    {"mesh": {"pipeline_parallel_size": 2}},
+    {"mesh": {"pipeline_parallel_size": 2},
      "optimizer": {"type": "SGD", "params": {"lr": 0.1}}},
     {"mesh": {"sequence_parallel_size": 2},
      "optimizer": {"type": "Lion", "params": {"lr": 0.1}}},

@@ -12,7 +12,13 @@ without paying a torch start-up of its own.
 The data of every case is made here from seeds with numpy (the test
 process makes the same global batches for the JAX engine): a window is
 ``accum`` micro-batches of ``micro * dp`` rows, and rank ``r`` feeds rows
-``r*micro:(r+1)*micro`` of each.
+``r*micro:(r+1)*micro`` of each. The ``mp_*`` cases run a data x model
+mesh of the world (tensor parallelism, ``mp`` ranks a model line): the
+ranks of a line feed their data rank's rows.
+
+A spawn's rendezvous store is the test process's own, listening on a
+port the kernel picked, held until the spawn ends; the ranks join it as
+clients (:func:`start`).
 """
 
 import json
@@ -498,7 +504,280 @@ def case_commit_fail(case, rank, dp, workdir):
     return {"raised": raised, "latest": (ckpt / "latest").exists()}
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism: a data x model mesh of ``world`` ranks, ``mp`` of
+# them a model line (rank = data_rank * mp + model_rank); rows by data rank
+# ---------------------------------------------------------------------------
+def mp_config(case, dp, **over):
+    """The case's engine config at data size ``dp`` with its model axis."""
+    extra = dict(case.get("extra", {}))
+    extra["mesh"] = {"model_parallel_size": case["mp"]}
+    extra.update(over)
+    return config(case.get("stage", 0), case.get("opt", "Adam"),
+                  case.get("dtype", "fp32"), case.get("micro", 2),
+                  case.get("accum", 1), dp, lr=case.get("lr", 1e-2), **extra)
+
+
+def mp_engine(case, world, workdir, **over):
+    """A GPT-2 engine on a (world / mp) x mp mesh, with the model's
+    ``partition_specs`` unless the case says ``specs: False``."""
+    import torch
+
+    import deepspeed_tpu_torch as dst
+
+    model = _model(case, workdir)
+    specs = dst.partition_specs(model) if case.get("specs", True) else None
+    state = case.get("model_parameters")
+    engine, *_ = dst.initialize(
+        model=model, device="cpu", param_specs=specs,
+        model_parameters=(None if state is None else torch.load(
+            workdir / state, weights_only=True)),
+        config_params=mp_config(case, world // case["mp"], **over))
+    return engine
+
+
+def case_mp_train(case, rank, world, workdir):
+    """Train the case's windows on this rank's data rows; rank 0 returns
+    the whole (data- and model-gathered) trainable parameters."""
+    engine = mp_engine(case, world, workdir)
+    out = {"losses": _feed(engine, case, engine.data_rank,
+                           engine.dp_world_size),
+           "skipped": engine.skipped_steps,
+           "coeffs": [float(c) for c in engine.lamb_coeffs],
+           "local_shapes": {n: tuple(p.shape)
+                            for n, p in engine.module.named_parameters()},
+           "coords": (engine.data_rank, engine.model_rank)}
+    full = engine.full_parameters()
+    if rank == 0:
+        out["params"] = {n: p.detach().float().numpy().copy()
+                         for n, p in full.items()}
+    return out
+
+
+def mp_fingerprint(engine):
+    """The eval loss of a fixed global batch of 4 rows, averaged over the
+    data group (every model rank of a line computes the same)."""
+    import torch.distributed as dist
+
+    import torch
+
+    dp = engine.dp_world_size
+    ids = windows("gpt2", 1, 1, 4, seed=99)[0][0][0]
+    per = 4 // dp
+    d = engine.data_rank
+    mine = torch.from_numpy(ids[d * per:(d + 1) * per]).long()
+    engine.eval()
+    loss = engine(mine, mine).detach().clone()
+    engine.train()
+    if dp > 1:
+        dist.all_reduce(loss, group=engine._dp_group)
+    return float(loss) / dp
+
+
+def _mp_run(engine, win):
+    import torch
+
+    dp, d = engine.dp_world_size, engine.data_rank
+    rows = [tuple(torch.from_numpy(x) for x in rank_rows(b, d, dp))
+            for b in win]
+    return float(engine.train_batch(iter(rows)))
+
+
+def case_mp_checkpoint(case, rank, world, workdir):
+    """``save``: 2 windows then a save to ``dir``; ``load``: load it.
+    Either way the eval fingerprint and 2 more windows follow, whose
+    second loss reads the restored optimizer state. The global batches
+    are the same at every layout."""
+    case = dict(case, micro=case["micro_global"] // (world // case["mp"]))
+    engine = mp_engine(case, world, workdir,
+                       resilience={"enabled": True})
+    ckpt = Path(case["dir"])
+    data = windows("gpt2", 4, 1, case["micro_global"], 0)
+    out = {}
+    if case["mode"] == "save":
+        out["train"] = [_mp_run(engine, w) for w in data[:2]]
+        engine.save_checkpoint(str(ckpt), tag="t2")
+        out["files"] = sorted(os.listdir(ckpt / "t2"))
+    else:
+        path, _ = engine.load_checkpoint(str(ckpt))
+        out["loaded"] = path is not None
+        out["global_steps"] = engine.global_steps
+    out["fingerprint"] = mp_fingerprint(engine)
+    out["resume"] = [_mp_run(engine, w) for w in data[2:]]
+    return out
+
+
+def case_mp_dropout(case, rank, world, workdir):
+    """One window with dropout 0.1 at mp 2: the loss and every replicated
+    parameter after the step are the same on both model ranks (the hidden
+    dropouts draw one mask), while the attention seeds differ."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.transformer import DropoutRNG
+
+    engine = mp_engine(dict(case, dropout=0.1), world, workdir)
+    loss = _mp_run(engine, windows("gpt2", 1, 1, 2 * engine.dp_world_size,
+                                   3)[0])
+    rng = DropoutRNG(11, "cpu", engine.data_rank, engine.model_rank)
+    replicated = {n: p.detach().clone()
+                  for n, p in engine.module.named_parameters()
+                  if engine._model_dims.get(n) is None}
+    return {"loss": loss, "replicated": replicated,
+            "keep": rng.keep((4, 8, 64), 0.1),
+            "seed": rng.attn_seed()}
+
+
+def case_mp_pieces(case, rank, world, workdir):
+    """The tensor-parallel pieces on a model line of ``world`` ranks: the
+    vocab-parallel loss and its gradients, the copy/reduce collectives,
+    and partition_activations' partitioned recompute."""
+    import torch
+
+    from deepspeed_tpu_torch import checkpointing as act
+    from deepspeed_tpu_torch.ops.cross_entropy import (
+        vocab_parallel_lm_head_loss,
+    )
+    from deepspeed_tpu_torch.parallel import tensor as tpl
+    from deepspeed_tpu_torch.parallel.mesh import build_mesh
+    from deepspeed_tpu_torch.parallel.mpu import TorchMpu
+    from deepspeed_tpu_torch.runtime import dist as dist_lib
+
+    dist_lib.init_distributed(device="cpu")
+    mesh = build_mesh(model_parallel_size=world)
+    tp = tpl.TensorParallel(mesh.model_group, world, mesh.model_rank)
+    data = np.load(workdir / case["data"])
+    out = {}
+    # the loss over vocab shards, and the gradients of the hidden states
+    # and of this rank's table rows
+    h = torch.from_numpy(data["hidden"]).requires_grad_()
+    rows = data["table"].shape[0] // world
+    table = torch.from_numpy(
+        data["table"][rank * rows:(rank + 1) * rows]).requires_grad_()
+    loss = vocab_parallel_lm_head_loss(
+        h, table, torch.from_numpy(data["labels"]), tp,
+        block_rows=case["block_rows"])
+    loss.backward()
+    out["loss"] = float(loss)
+    out["grad_hidden"] = h.grad.numpy().copy()
+    out["grad_table"] = table.grad.numpy().copy()
+    # the eval logits gathered over the vocab shards
+    out["logits"] = tpl.gather_from_region(
+        h.detach() @ table.detach().t(), tp).numpy()
+    # partition_activations: a checkpointed segment through a parallel
+    # region, with and without partitioned inputs
+    x = torch.from_numpy(data["x"])
+    w = torch.from_numpy(data["w"][:, rank::world].copy())
+
+    kept = {}
+    for on in (False, True):
+        act.configure(TorchMpu(mesh), partition_activations=on)
+        xi = x.clone().requires_grad_()
+        wi = w.clone().requires_grad_()  # this rank's columns
+
+        def segment(x):
+            # the activation x is the same on every rank of the line (the
+            # partitioned inputs are), the weight is the rank's own
+            return tpl.reduce_from_region(torch.tanh(
+                tpl.copy_to_region(x, tp) @ wi) @ wi.t(), tp)
+
+        saved = []
+
+        def pack(t):
+            saved.append(t.numel() * t.element_size())
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            y = act.checkpoint(segment, xi)
+        (y * y).sum().backward()
+        kept[on] = (y.detach().numpy().copy(), xi.grad.numpy().copy(),
+                    wi.grad.numpy().copy(), sum(saved))
+    act.configure(None, partition_activations=False)
+    out["partition"] = kept
+    out["input_bytes"] = x.numel() * x.element_size()
+    return out
+
+
+def _mp_resilient(mp, **resilience):
+    """The case of a tensor-parallel GPT-2 engine (stage 1) with the
+    resilience block, on this spawn's weights."""
+    case = {"mp": mp, "model": "gpt2", "weights": "gpt2.pt", "stage": 1,
+            "extra": {"resilience": {"enabled": True, **resilience}}}
+    return case
+
+
+def case_mp_preempt(case, rank, world, workdir):
+    """At dp 2 x mp 2: a SIGTERM to one rank alone between two windows;
+    at the next step boundary every rank drains into the same tag."""
+    import signal
+
+    ckpt = workdir / case["dir"]
+    engine = mp_engine(_mp_resilient(case["mp"], preemption={
+        "enabled": True, "save_dir": str(ckpt), "exit_after_save": False}),
+        world, workdir)
+    data = windows("gpt2", 3, 1, 2 * engine.dp_world_size, 5)
+    losses = [_mp_run(engine, data[0])]
+    if rank == case["signalled"]:
+        os.kill(os.getpid(), signal.SIGTERM)
+    losses.append(_mp_run(engine, data[1]))
+    saved = sorted(os.listdir(ckpt)) if ckpt.exists() else []
+    losses.append(_mp_run(engine, data[2]))
+    return {"saved": saved, "losses": losses,
+            "latest": (ckpt / "latest").read_text() if saved else None,
+            "global_steps": engine.global_steps}
+
+
+def case_mp_load_disagree(case, rank, world, workdir):
+    """Two tags saved; a fresh engine on each rank loads 'latest', one
+    rank with a read fault (no retry) that makes it fall back to the
+    older tag: no rank loads. The fault spent, a second load takes the
+    newest tag everywhere."""
+    ckpt = workdir / case["dir"]
+    engine = mp_engine(_mp_resilient(case["mp"]), world, workdir)
+    data = windows("gpt2", 2, 1, 2 * engine.dp_world_size, 6)
+    for win, tag in zip(data, ("t1", "t2")):
+        _mp_run(engine, win)
+        engine.save_checkpoint(str(ckpt), tag=tag)
+    faults = {}
+    if rank == case["faulty"]:
+        faults = {"retry": {"max_attempts": 1}, "fault_injection": {
+            "enabled": True,
+            "faults": [{"site": "checkpoint.read", "times": 1}]}}
+    fresh = mp_engine(_mp_resilient(case["mp"], **faults), world,
+                      workdir)
+    path, _ = fresh.load_checkpoint(str(ckpt))
+    out = {"path": path, "steps": fresh.global_steps}
+    path, _ = fresh.load_checkpoint(str(ckpt))
+    out["again"] = Path(path).name if path else None
+    out["steps_again"] = fresh.global_steps
+    return out
+
+
+def case_mp_commit_fail(case, rank, world, workdir):
+    """Rank 0's post-save verification fails: every rank raises the same
+    class and 'latest' is not published."""
+    from deepspeed_tpu_torch.resilience import manifest
+
+    ckpt = workdir / case["dir"]
+    engine = mp_engine(_mp_resilient(case["mp"]), world, workdir)
+    _mp_run(engine, windows("gpt2", 1, 1, 2 * engine.dp_world_size, 7)[0])
+    verify = manifest.verify_checkpoint
+    if rank == 0:
+        manifest.verify_checkpoint = lambda d: (manifest.CORRUPT, "injected")
+    try:
+        engine.save_checkpoint(str(ckpt), tag="bad")
+        raised = None
+    except Exception as e:  # the class is the result
+        raised = type(e).__name__
+    finally:
+        manifest.verify_checkpoint = verify
+    return {"raised": raised, "latest": (ckpt / "latest").exists()}
+
+
 CASES = {
+    "mp_train": case_mp_train, "mp_checkpoint": case_mp_checkpoint,
+    "mp_dropout": case_mp_dropout, "mp_pieces": case_mp_pieces,
+    "mp_preempt": case_mp_preempt, "mp_load_disagree": case_mp_load_disagree,
+    "mp_commit_fail": case_mp_commit_fail,
     "train": case_train, "overflow": case_overflow, "dropout": case_dropout,
     "bert": case_bert, "checkpoint": case_checkpoint, "dist": case_dist,
     "sparse": case_sparse, "gather_order": case_gather_order,
@@ -529,35 +808,38 @@ def main(spec_path):
 # ---------------------------------------------------------------------------
 # the test process's side
 # ---------------------------------------------------------------------------
-_HANDED_OUT = set()  # ports given to spawns of this process
-
-
 def free_port():
-    """A free local port, never one handed out before in this process
-    (spawns started together must not share a rendezvous)."""
-    while True:
-        with socket.socket() as s:
-            s.bind(("localhost", 0))
-            port = s.getsockname()[1]
-        if port not in _HANDED_OUT:
-            _HANDED_OUT.add(port)
-            return port
+    """A free local port (for a launcher that takes ``--master_port``)."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
 
 
 def start(world, cases, workdir):
     """Start ``world`` rank processes running ``cases``; returns a handle
-    for :func:`finish` (the caller can compute meanwhile)."""
+    for :func:`finish` (the caller can compute meanwhile).
+
+    The rendezvous store is this process's: a ``TCPStore`` listening on a
+    port the kernel picks, held until :func:`finish`, and every rank
+    joins it as a client (torch.distributed's agent-store mode, as under
+    an elastic agent). No port is chosen, released and bound again, so
+    no other spawn, in this process or another, can take it between."""
+    import torch.distributed as dist
+
     workdir = Path(workdir)
     workdir.mkdir(parents=True, exist_ok=True)
     spec = workdir / "spec.json"
     spec.write_text(json.dumps({"workdir": str(workdir), "cases": cases}))
-    port = free_port()
+    store = dist.TCPStore("localhost", 0, world, is_master=True,
+                          wait_for_workers=False)
     procs = []
     for rank in range(world):
         env = dict(os.environ,
-                   DS_TPU_COORDINATOR_ADDRESS=f"localhost:{port}",
+                   DS_TPU_COORDINATOR_ADDRESS=f"localhost:{store.port}",
                    DS_TPU_NUM_PROCESSES=str(world),
                    DS_TPU_PROCESS_ID=str(rank),
+                   TORCHELASTIC_USE_AGENT_STORE="True",
+                   TORCHELASTIC_RESTART_COUNT="0",
                    PYTHONPATH=os.pathsep.join(
                        [str(ROOT), os.environ.get("PYTHONPATH", "")]),
                    OMP_NUM_THREADS="1")
@@ -565,22 +847,21 @@ def start(world, cases, workdir):
         procs.append((subprocess.Popen(
             [sys.executable, __file__, str(spec)], env=env, stdout=log,
             stderr=subprocess.STDOUT), log))
-    return world, workdir, procs, cases
+    return world, workdir, procs, store
 
 
-def finish(handle, timeout=120, retries=1):
+def finish(handle, timeout=120):
     """Wait for the ranks (killing them all past ``timeout`` seconds);
     returns ``[rank 0's results, rank 1's, ...]`` or raises with the
-    logs of the ranks that failed. A spawn whose rendezvous port was
-    taken meanwhile (another process bound it between ``free_port`` and
-    rank 0's listen) starts again on a new port, ``retries`` times."""
-    world, workdir, procs, cases = handle
+    logs of the ranks that failed."""
+    world, workdir, procs, _ = handle  # the store lives as long
     deadline = time.monotonic() + timeout
-    failed = []
+    failed, timed_out = [], False
     for rank, (proc, log) in enumerate(procs):
         try:
             proc.wait(timeout=max(1.0, deadline - time.monotonic()))
         except subprocess.TimeoutExpired:
+            timed_out = True
             for p, _ in procs:
                 p.kill()
             proc.wait()
@@ -591,9 +872,9 @@ def finish(handle, timeout=120, retries=1):
         logs = "\n".join(
             f"--- rank {r} ---\n"
             + (workdir / f"rank{r}.log").read_text()[-4000:] for r in failed)
-        if retries > 0 and "EADDRINUSE" in logs:
-            return finish(start(world, cases, workdir), timeout, retries - 1)
-        raise RuntimeError(f"ranks {failed} failed:\n{logs}")
+        what = (f"timed out after {timeout} s (all killed)" if timed_out
+                else "failed")
+        raise RuntimeError(f"ranks {failed} {what}:\n{logs}")
     import torch
 
     return [torch.load(workdir / f"rank{r}.pt", weights_only=False)

@@ -10,8 +10,8 @@ launcher exports. ``--mode``:
   rank's rows of the windows of tests/torch_dp_ranks.py; saves the
   losses, the final parameters (rank 0) and the launcher's variables to
   ``rank<RANK>.pt``.
-- ``fail``: rank 1 exits 3 at once; rank 0 writes ``started`` and sleeps
-  (a rank blocked on a peer that is gone).
+- ``fail``: rank 0 writes ``started`` and sleeps (a rank blocked on a
+  peer that is gone); rank 1 exits 3 as soon as rank 0 has started.
 - ``preempt``: an MLP engine with the preemption drain trains window
   after window; each rank writes ``ready<RANK>`` after its first window.
   A SIGTERM then drains every rank into one checkpoint under
@@ -75,6 +75,13 @@ def train(args, rank, dp, workdir):
 
 def fail(rank, workdir):
     if rank == 1:
+        # exit once rank 0 runs: the two start together, and a rank 0
+        # still importing when rank 1 exits would be ended before it
+        # could show that it ran
+        deadline = time.monotonic() + 60
+        while (not (workdir / "started").exists()
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
         sys.exit(3)
     (workdir / "started").write_text("0")
     time.sleep(120)
