@@ -314,9 +314,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                two ranks on one device), each a subprocess of this script
                loading the kernels phase 2 built, under a timeout: GPT-2
                small at full width and depth, micro-batch 4 a rank (8
-               rows a step), float32 Adam at stages 0-3 (3 windows),
-               bfloat16 Adam at stages 0-3 and FusedLamb at stages 1 and
-               3 (3 windows). Every rank returns the global loss; float32
+               rows a step), float32 Adam at stages 0-3, bfloat16 Adam at
+               stages 0-3 and FusedLamb at stages 1 and 3, P14_WINDOWS
+               windows each (2; 3 until phase 17 came). Every rank returns the global loss; float32
                stages 1-3 equal stage 0 and the dp = 2 run equals a dp = 1
                run over the same 8 rows (rtol 2e-4); bfloat16 losses fall;
                flash forward, dQ and dK/dV launch 12 times a micro-step on
@@ -341,8 +341,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                on the one card (``--phase15b-rank``): bf16 compensated
                masters at stages 1 and 2, the adapters block (rank 16,
                float32) at stages 0-3, and stage 3 with remat "full" and
-               "nothing_saveable+zero3_gathered" (float32), 3 windows
-               each (the remat runs launch the forward twice a layer);
+               "nothing_saveable+zero3_gathered" (float32), P14_WINDOWS
+               windows each (the remat runs launch the forward twice a
+               layer);
                each equals its dp = 1 run over the same 8 rows at
                P14_RTOL, the tagged stage-3 run "full"'s (paths
                "a6b_dp2_rank0/1"). (c) One process: BERT-large at seq 512
@@ -376,15 +377,42 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                fingerprint (rtol 1e-5); GPT-2's blocks through the
                activation API's checkpoint with partition_activations off
                and on: the same loss and gradients, the peak lower.
+  17. serving over the model axis and sequence parallelism — two ranks
+               on the one card over a gloo group the phase makes
+               (``--phase17-rank``). (a) GPT-2 small at full width and
+               depth served at mp 2 (``mesh: {"model_parallel_size":
+               2}``, 6 heads a rank; rank 0 leads, rank 1 follows its
+               plans): the paged pool with fused decode, three rank-16
+               adapters and the base in one batch of four prompts (40 to
+               200 tokens, 24 new), float32 and bf16; the flash forward,
+               paged decode and SGMV launched on each rank (paths
+               "serve_mp2_<dtype>_rank0/1"), the bytes a rank holds for
+               weights, KV pool and adapter pool; float32 tokens equal
+               the mp 1 engine's, bf16 may part only at a near-tie
+               (BF16_FLIP_TOL). (b) GPT-2 small at full width and depth,
+               seq 1024, trained at sp 2 on phase 16's batches (2 rows a
+               micro-step, 2 micro-steps, 3 windows): bf16 FusedLamb with
+               dropout 0.1 through Ulysses (12 launches of each attention
+               kernel a micro-step on each rank, all at [2, 6, 1024, 64])
+               and through the ring (no attention kernel: plain score
+               blocks), 6 LAMB launches a step (paths
+               "sp2_<run>_rank0/1"); float32 Adam at dropout 0 through
+               both, whose losses equal sp 1's in this process (P14_RTOL);
+               the held memory and peak a rank. Then each kernel at these
+               sharded shapes against its plain version (phase 3's
+               tolerances). The all-reduces, all-to-alls and hops go
+               through host memory (gloo), so no time here is an mp 2 or
+               sp 2 speed.
   9. report  — a JSON line of per-kernel numbers (the D = 256, decode
                tail and BERT (rows 1b-3b) variants in entries of their
-               own; the launches of every path, phases 10 to 16
+               own; the launches of every path, phases 10 to 17
                included), the nvidia-smi line, then the last line {"ok":
-               true, "device": {...}}. It comes after phase 16.
+               true, "device": {...}}. It comes after phase 17.
 
 ``--only-phase12`` builds every kernel and runs phase 12 alone, printing
 its numbers as one JSON line; ``--only-phase13``, ``--only-phase14``,
-``--only-phase15`` and ``--only-phase16`` the same for phases 13 to 16. ``--only-bert-attention`` builds the
+``--only-phase15``, ``--only-phase16`` and ``--only-phase17`` the same
+for phases 13 to 17. ``--only-bert-attention`` builds the
 flash kernels, checks them under BERT's padding mask and the mask
 patterns of phase 12a, and times rows 1b-3b (copy the script to the root
 of an unpacked parent under build/ to time both trees in one call).
@@ -5737,10 +5765,16 @@ def phase_inference_rest(seed, card):
 # ---------------------------------------------------------------------------
 P14_ROWS, P14_MICRO, P14_DP = 8, 4, 2
 # (name, optimizer, precision, ZeRO stage, windows)
+# the windows of each run of phases 14b and 15b and of their dp = 1
+# references (3 before phase 17 came; 2 since, to keep the script in its
+# time limit)
+P14_WINDOWS = 2
 P14_RUNS = (
-    [(f"adam-fp32-s{st}", "Adam", "fp32", st, 3) for st in range(4)]
-    + [(f"adam-bf16-s{st}", "Adam", "bf16", st, 3) for st in range(4)]
-    + [(f"fusedlamb-bf16-s{st}", "FusedLamb", "bf16", st, 3)
+    [(f"adam-fp32-s{st}", "Adam", "fp32", st, P14_WINDOWS)
+     for st in range(4)]
+    + [(f"adam-bf16-s{st}", "Adam", "bf16", st, P14_WINDOWS)
+       for st in range(4)]
+    + [(f"fusedlamb-bf16-s{st}", "FusedLamb", "bf16", st, P14_WINDOWS)
        for st in (1, 3)])
 P14_SAVE = "adam-fp32-s1"
 P14_RTOL = 2e-4
@@ -6000,8 +6034,8 @@ def phase_data_parallel(seed, card):
     root.mkdir(parents=True)
     ranks = p14_spawn(seed, root)
     # the dp = 1 run over the same 8 rows (micro-batch 8), float32 Adam
-    engine, model, ref = p14_train("dp1", "Adam", "fp32", 0, 3, seed, 0, 1,
-                                   P14_ROWS)
+    engine, model, ref = p14_train("dp1", "Adam", "fp32", 0, P14_WINDOWS,
+                                   seed, 0, 1, P14_ROWS)
     del engine, model
     torch.cuda.empty_cache()
     runs = {}
@@ -6081,11 +6115,11 @@ P15_ADAPTERS = {"adapters": {"enabled": True, "rank": LORA_RANK}}
 # (name, optimizer, precision, stage, windows, config blocks, GPT2Config
 # fields, the dp = 1 run it must equal)
 P15_RUNS = (
-    [(f"compensated-bf16-s{st}", "Adam", "bf16", st, 3, P15_COMPENSATED,
-      {}, "compensated") for st in (1, 2)]
-    + [(f"adapters-fp32-s{st}", "Adam", "fp32", st, 3, P15_ADAPTERS, {},
-        "adapters") for st in range(4)]
-    + [(f"remat-{p}-s3", "Adam", "fp32", 3, 3, {},
+    [(f"compensated-bf16-s{st}", "Adam", "bf16", st, P14_WINDOWS,
+      P15_COMPENSATED, {}, "compensated") for st in (1, 2)]
+    + [(f"adapters-fp32-s{st}", "Adam", "fp32", st, P14_WINDOWS,
+        P15_ADAPTERS, {}, "adapters") for st in range(4)]
+    + [(f"remat-{p}-s3", "Adam", "fp32", 3, P14_WINDOWS, {},
         {"remat": True, "remat_policy": p}, "remat")
        for p in ("full", P15_Z3G)])
 # the dp = 1 runs over the same 8 rows: (precision, config, model fields)
@@ -6243,8 +6277,8 @@ def phase15_refusals_dp2(seed, root):
     refs = {}
     for key, (precision, extra, mkw) in P15_REFS.items():
         engine, model, refs[key] = p14_train(
-            f"dp1-{key}", "Adam", precision, 0, 3, seed, 0, 1, P14_ROWS,
-            extra, mkw)
+            f"dp1-{key}", "Adam", precision, 0, P14_WINDOWS, seed, 0, 1,
+            P14_ROWS, extra, mkw)
         del engine, model
         torch.cuda.empty_cache()
     launches, runs = {}, {}
@@ -6855,6 +6889,339 @@ def phase_model_parallel(seed, card):
     return launches, stats
 
 
+# ---------------------------------------------------------------------------
+# phase 17: serving over the model axis and sequence parallelism in
+# training, each on two ranks of the card
+# ---------------------------------------------------------------------------
+P17_WORLD = 2
+P17_PROMPTS = (40, 77, 130, 200)
+P17_ADAPTERS = ("a", "b", "c", None)  # three adapters and the base
+P17_NEW = 24
+P17_UL_SHAPE = (P16_MICRO, 12 // P17_WORLD, 1024, 64)  # Ulysses' heads
+P17_SERVE_SLOTS, P17_PAGE = 4, 16
+
+
+def p17_serve_config(dtype):
+    return {"inference": {
+        "max_batch_slots": P17_SERVE_SLOTS, "kv_block_size": P17_PAGE,
+        "fused_decode": True, "dtype": dtype, "sampling": {"greedy": True}},
+        "adapters": {"enabled": True, "rank": LORA_RANK,
+                     "pool_slots": LORA_POOL_SLOTS}}
+
+
+def p17_serving_inputs(seed):
+    """GPT-2 small from ``seed`` (its state), three synthetic adapters and
+    the four prompts."""
+    from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
+
+    model = GPT2LMHeadModel(GPT2Config.small(dropout=0.0), device="cuda",
+                            seed=seed)
+    base = {n: t.detach().cpu() for n, t in model.state_dict().items()}
+    adapters = {n: synthetic_adapter(base, seed + 17 + i)
+                for i, n in enumerate(P17_ADAPTERS) if n is not None}
+    return model, adapters, p17_prompts(seed, model.config.vocab_size)
+
+
+def p17_prompts(seed, vocab):
+    g = torch.Generator().manual_seed(seed + 171)
+    return [random_tokens(g, n, vocab) for n in P17_PROMPTS]
+
+
+def p17_serve(seed, dtype, world):
+    """One serving run: every rank builds the engine (at a model axis of
+    ``world``, or one process), the leader loads the adapters and serves
+    the prompts in one batch, a follower follows. Returns the leader's
+    tokens, the launches and the bytes the engine holds on this rank."""
+    import deepspeed_tpu_torch
+
+    model, adapters, prompts = p17_serving_inputs(seed)
+    config = p17_serve_config(dtype)
+    if world > 1:
+        config["mesh"] = {"model_parallel_size": world}
+    engine = deepspeed_tpu_torch.init_inference(model=model, config=config)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    pool = engine._adapter_pool
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    out = {"weights_gb": nbytes(engine.model.parameters()) / 1e9,
+           "kv_pool_gb": nbytes((engine._cache.k, engine._cache.v)) / 1e9,
+           "adapter_pool_gb": nbytes(
+               [t for ab in pool.values() for t in ab]) / 1e9,
+           "kv_pool_shape": list(engine._cache.k.shape),
+           "held_gb": torch.cuda.memory_allocated() / 1e9}
+    zero_launches()
+    if engine.is_leader:
+        for name, state in adapters.items():
+            engine.load_adapter(name, adapter_state=state)
+        tokens, st = run_batch(engine, prompts, list(P17_ADAPTERS), P17_NEW)
+        out.update(tokens=tokens, stats=st)
+        engine.close()
+    else:
+        engine.serve_forever()
+    torch.cuda.synchronize()
+    out["launches"] = read_launches()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def p17_train_engine(seed, impl, optimizer, precision, dropout, lr, sp):
+    """initialize() on GPT-2 small at full width and depth at a sequence
+    axis of ``sp`` (``impl``: "ulysses" or "ring"), 2 rows x 1024 a
+    micro-step, 2 micro-steps a window (phase 16's batches)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
+
+    model = GPT2LMHeadModel(GPT2Config.small(dropout=dropout), device="cuda",
+                            seed=seed)
+    model.layer_config.seq_parallel_impl = impl
+    cfg = p14_config(optimizer, precision, 0, P16_MICRO, 1,
+                     {"mesh": {"sequence_parallel_size": sp}})
+    cfg["optimizer"]["params"]["lr"] = lr
+    cfg.update(train_batch_size=P16_MICRO * P16_ACCUM,
+               gradient_accumulation_steps=P16_ACCUM)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model,
+                                                config_params=cfg)
+    return engine
+
+
+def p17_record_shapes():
+    """Record the q shape of every attention kernel launch (through the
+    wrappers' shared argument check); returns the set it fills."""
+    from deepspeed_tpu_torch.ops import attention as A
+
+    shapes = set()
+    check = A._check_cuda
+
+    def recording(name, kernel, q, *rest):
+        shapes.add((name, tuple(q.shape)))
+        return check(name, kernel, q, *rest)
+
+    A._check_cuda = recording
+    return shapes
+
+
+def phase17_rank(spec_path):
+    """One of phase 17's two ranks (a subprocess) of the gloo group the
+    phase makes: (a) serving at a model axis of 2, float32 and bf16; (b)
+    training at a sequence axis of 2: bf16 FusedLamb with dropout through
+    Ulysses (the kernels' shapes recorded) and the ring, then float32
+    Adam at dropout 0 through both. Writes its results as JSON."""
+    import torch.distributed as dist
+
+    spec = json.loads(Path(spec_path).read_text())
+    rank, seed = spec["rank"], spec["seed"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{spec['port']}", rank=rank,
+        world_size=P17_WORLD)
+    out = {"serve": {dt: p17_serve(seed, dt, P17_WORLD)
+                     for dt in ("fp32", "bf16")}}
+    shapes = p17_record_shapes()
+    out["train"] = {}
+    for name, impl, optimizer, precision, dropout, lr in (
+            ("bf16_ulysses", "ulysses", "FusedLamb", "bf16", DROPOUT, 1e-3),
+            ("bf16_ring", "ring", "FusedLamb", "bf16", DROPOUT, 1e-3),
+            ("fp32_ulysses", "ulysses", "Adam", "fp32", 0.0, 1e-4),
+            ("fp32_ring", "ring", "Adam", "fp32", 0.0, 1e-4)):
+        shapes.clear()
+        engine = p17_train_engine(seed, impl, optimizer, precision, dropout,
+                                  lr, P17_WORLD)
+        got = p16_windows(engine, seed)
+        got["kernel_shapes"] = sorted([n, list(s)] for n, s in shapes)
+        got["coords"] = [engine.data_rank, engine.seq_rank]
+        out["train"][name] = got
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    Path(spec["out"]).write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def p17_check_kernels(seed):
+    """Each kernel of phase 17's paths against its plain version at the
+    shapes a rank gives it: the flash forward, dQ and dK/dV at Ulysses'
+    [2, 6, 1024, 64] (bf16, causal, dropout 0.1), paged decode at the
+    serving pool's 6 heads a rank, and SGMV on each target's factor
+    shards (the qkv and inter_w B's 1152 and 1536 output columns, the
+    attn_ow and output_w A's 384 and 1536 input rows), float32 and bf16.
+    Returns the max errors."""
+    from deepspeed_tpu_torch.ops import attention as A
+    from deepspeed_tpu_torch.ops.decode_attention import (
+        lora_sgmv,
+        lora_sgmv_plain,
+        paged_flash_decode,
+        paged_flash_decode_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 17)
+    q, k, v, dout = (torch.randn(P17_UL_SHAPE, device="cuda", generator=gen
+                                 ).to(torch.bfloat16) for _ in range(4))
+    args = (q, k, v, None, True, None, DROPOUT, 4321)
+    out, lse = A.flash_fwd(*args)
+    ref, ref_lse = A.flash_fwd_plain(*args)
+    errs = {"flash_fwd": check_close("phase 17 flash_fwd [2, 6, 1024, 64]",
+                                     out, ref, torch.bfloat16)}
+    delta = (dout.float() * ref.float()).sum(dim=-1)
+    bargs = (q, k, v, None, dout, ref_lse, delta, True, None, DROPOUT, 4321)
+    got = (A.flash_bwd_dq(*bargs), *A.flash_bwd_dkv(*bargs))
+    want = (A.flash_bwd_dq_plain(*bargs), *A.flash_bwd_dkv_plain(*bargs))
+    for name, a, b in zip(("flash_bwd_dq", "dk", "dv"), got, want):
+        key = "flash_bwd_dq" if name == "flash_bwd_dq" else "flash_bwd_dkv"
+        err = check_close(f"phase 17 {name} [2, 6, 1024, 64]", a, b,
+                          torch.bfloat16, scaled=True)
+        errs[key] = max(errs.get(key, 0.0), err)
+    heads = 12 // P17_WORLD
+    mb = 1024 // P17_PAGE
+    pages = P17_SERVE_SLOTS * mb + 1
+    for dtype in (torch.float32, torch.bfloat16):
+        qd = torch.randn(P17_SERVE_SLOTS, heads, 64, device="cuda",
+                         generator=gen).to(dtype)
+        kp, vp = (torch.randn(pages, P17_PAGE, heads, 64, device="cuda",
+                              generator=gen).to(dtype) for _ in range(2))
+        tables = (torch.randperm(pages - 1, device="cuda", generator=gen)
+                  + 1).reshape(P17_SERVE_SLOTS, mb).to(torch.int32)
+        positions = torch.tensor([39, 300, 1023, 0], dtype=torch.int32,
+                                 device="cuda")
+        tag = f"phase 17 paged_decode {str(dtype)[6:]} [{P17_SERVE_SLOTS}, {heads}, 64]"
+        errs[f"paged_decode {str(dtype)[6:]}"] = check_close(
+            tag, paged_flash_decode(qd, kp, vp, tables, positions),
+            paged_flash_decode_plain(qd, kp, vp, tables, positions), dtype)
+        for target, (din, dout_) in {
+                "attn_qkvw": (768, 2304 // P17_WORLD),
+                "inter_w": (768, 3072 // P17_WORLD),
+                "attn_ow": (768 // P17_WORLD, 768),
+                "output_w": (3072 // P17_WORLD, 768)}.items():
+            x, a_pool, b_pool, ids = sgmv_case("cuda", gen, dtype, din,
+                                               dout_, P17_SERVE_SLOTS)
+            tag = f"phase 17 sgmv {target} {str(dtype)[6:]} in {din} out {dout_}"
+            key = f"sgmv {str(dtype)[6:]}"
+            errs[key] = max(errs.get(key, 0.0), check_close(
+                tag, lora_sgmv(x, a_pool, b_pool, ids),
+                lora_sgmv_plain(x, a_pool, b_pool, ids), dtype,
+                scaled=dtype != torch.float32))
+    return errs
+
+
+def phase_serve_and_sequence(seed, card):
+    """Phase 17. Returns ({kernel: {path: launches}}, stats)."""
+    t0 = time.monotonic()
+    root = Path("build") / "phase17"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    ranks = p14_spawn(seed, root, timeout_s=600, flag="--phase17-rank",
+                      phase="17", world=P17_WORLD)
+    launches = {name: {} for name in launch_counters()}
+    # (a) serving at mp 2: rows 1, 6 and 7 on each rank
+    for rank, r in enumerate(ranks):
+        for dt, got in r["serve"].items():
+            for k in ("flash_fwd", "paged_decode", "sgmv"):
+                if got["launches"][k] <= 0:
+                    fail(f"phase 17 serving {dt} rank {rank}: {k} launched "
+                         f"no time ({got['launches']})")
+            if got["kv_pool_shape"][3] != 12 // P17_WORLD:
+                fail(f"phase 17 serving rank {rank}: pool {got['kv_pool_shape']}"
+                     " does not hold 6 heads")
+            for k, n in got["launches"].items():
+                path = f"serve_mp2_{dt}_rank{rank}"
+                launches[k][path] = n
+            log(f"  serving {dt} rank {rank}: launches "
+                + ", ".join(f"{k} {got['launches'][k]}" for k in
+                            ("flash_fwd", "paged_decode", "sgmv"))
+                + f"; holds weights {got['weights_gb']:.4f} GB, KV pool "
+                f"{got['kv_pool_gb']:.4f} GB {got['kv_pool_shape']}, adapter "
+                f"pool {got['adapter_pool_gb']:.4f} GB (allocated "
+                f"{got['held_gb']:.4f} GB)")
+    from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
+
+    vocab = GPT2Config.small().vocab_size
+    prompts = p17_prompts(seed, vocab)
+
+    serve_ref = {dt: p17_serve(seed, dt, 1) for dt in ("fp32", "bf16")}
+    ref_model = GPT2LMHeadModel(GPT2Config.small(dropout=0.0), device="cuda",
+                                seed=seed)
+    ref_model.eval()
+    # the flips are read on the base model's forward (the adapters'
+    # requests included: a gap of the base is what the check can read)
+    same_tokens("phase 17 float32 serving mp 2 vs mp 1", prompts,
+                ranks[0]["serve"]["fp32"]["tokens"],
+                serve_ref["fp32"]["tokens"], ref_model, vocab)
+    flip = bf16_divergence("phase 17 bf16 serving mp 2 vs mp 1", prompts,
+                           ranks[0]["serve"]["bf16"]["tokens"],
+                           serve_ref["bf16"]["tokens"], ref_model, vocab)
+    del ref_model
+    torch.cuda.empty_cache()
+    # (b) training at sp 2
+    micro_steps = P16_WINDOWS * P16_ACCUM
+    for rank, r in enumerate(ranks):
+        for run, got in r["train"].items():
+            if not all(math.isfinite(v) for v in got["losses"]) or got[
+                    "skipped"]:
+                fail(f"phase 17 rank {rank} {run}: losses {got['losses']}")
+            want = N_LAYER * micro_steps if "ulysses" in run else 0
+            for k in TRAIN_KERNELS:
+                if got["launches"][k] != want:
+                    fail(f"phase 17 rank {rank} {run}: {k} launched "
+                         f"{got['launches'][k]} times, want {want}")
+            if "ulysses" in run:
+                shapes = {tuple(s) for _, s in got["kernel_shapes"]}
+                if shapes != {P17_UL_SHAPE}:
+                    fail(f"phase 17 rank {rank} {run}: attention kernels "
+                         f"at {sorted(shapes)}, want {P17_UL_SHAPE}")
+            if run.startswith("bf16") and got["launches"][
+                    "lamb_phase1"] != 6 * P16_WINDOWS:
+                fail(f"phase 17 rank {rank} {run}: lamb_phase1 launched "
+                     f"{got['launches']['lamb_phase1']} times")
+            for k, n in got["launches"].items():
+                launches[k][f"sp2_{run}_rank{rank}"] = n
+            log(f"  training {run} rank {rank} (sequence rank "
+                f"{got['coords'][1]}): losses {got['losses']}; held "
+                f"{got['held_gb']:.4f} GB, peak {got['peak_gb']:.4f} GB; "
+                f"{got['window_s']:.3f} s a window (two ranks on one card "
+                "over gloo: not an sp 2 speed); launches "
+                + ", ".join(f"{k} {got['launches'][k]}" for k in
+                            (*TRAIN_KERNELS, "lamb_phase1")))
+    for run in ranks[0]["train"]:
+        if ranks[0]["train"][run]["losses"] != ranks[1]["train"][run][
+                "losses"]:
+            fail(f"phase 17 {run}: the sequence ranks return different "
+                 "losses")
+    engine = p16_engine(seed, 1, "Adam", "fp32", 0.0, 1e-4)
+    ref = p16_windows(engine, seed)
+    del engine
+    torch.cuda.empty_cache()
+    for run in ("fp32_ulysses", "fp32_ring"):
+        p14_close(f"phase 17 float32 sp 2 ({run}) vs sp 1 losses",
+                  ranks[0]["train"][run]["losses"], ref["losses"])
+    kernel_errs = p17_check_kernels(seed)
+    stats = {"card": card, "serving": {
+        "prompts": list(P17_PROMPTS), "adapters": list(P17_ADAPTERS),
+        "new_tokens": P17_NEW, "ranks": [
+            {dt: {k: v for k, v in got.items() if k != "tokens"}
+             for dt, got in r["serve"].items()} for r in ranks],
+        "mp1": {dt: {k: v for k, v in got.items() if k != "tokens"}
+                for dt, got in serve_ref.items()},
+        "bf16_flip": flip},
+        "training": {"ranks": [r["train"] for r in ranks],
+                     "fp32_sp1_losses": ref["losses"],
+                     "sp1_held_gb": ref["held_gb"],
+                     "sp1_peak_gb": ref["peak_gb"]},
+        "sharded_kernels": kernel_errs,
+        "wall_s": time.monotonic() - t0}
+    log(f"phase 17: float32 serving mp 2 = mp 1; bf16 flip {flip}; float32 "
+        f"sp 2 = sp 1 (ulysses {ranks[0]['train']['fp32_ulysses']['losses']},"
+        f" ring {ranks[0]['train']['fp32_ring']['losses']}, sp 1 "
+        f"{ref['losses']}); {stats['wall_s']:.1f} s")
+    return launches, stats
+
+
 def only_flash(device, seed):
     """``--only-flash``: the flash kernels built alone (ptxas's registers
     and spills printed) and timed as time_flash times them (bf16, causal,
@@ -6984,7 +7351,13 @@ def main():
                         help="build every kernel and run phase 16 alone "
                         "(tensor parallelism: GPT-2 small at mp 2 on two "
                         "ranks of the card)")
+    parser.add_argument("--only-phase17", action="store_true",
+                        help="build every kernel and run phase 17 alone "
+                        "(serving GPT-2 small at mp 2 and training it at "
+                        "sp 2, each on two ranks of the card)")
     parser.add_argument("--phase14-rank", metavar="SPEC",
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--phase17-rank", metavar="SPEC",
                         help=argparse.SUPPRESS)
     parser.add_argument("--phase16-rank", metavar="SPEC",
                         help=argparse.SUPPRESS)
@@ -7008,6 +7381,9 @@ def main():
         return
     if args.phase16_rank:
         phase16_rank(args.phase16_rank)
+        return
+    if args.phase17_rank:
+        phase17_rank(args.phase17_rank)
         return
     from deepspeed_tpu_torch.ops import kernel_lib
 
@@ -7084,6 +7460,13 @@ def main():
                           "card": smi}))
         return
 
+    if args.only_phase17:
+        kernel_lib.build()
+        launches, stats = phase_serve_and_sequence(args.seed, smi)
+        print(json.dumps({"phase17": stats, "launches": launches,
+                          "card": smi}))
+        return
+
     if args.only_phase13:
         kernel_lib.build()
         launches, stats = phase_inference_rest(args.seed, smi)
@@ -7124,6 +7507,7 @@ def main():
     dp_launches, dp_stats = phase_data_parallel(args.seed, smi)
     a6b_launches, a6b_stats = phase_launcher_and_refusals(args.seed, smi)
     mp_launches, mp_stats = phase_model_parallel(args.seed, smi)
+    sp_launches, sp_stats = phase_serve_and_sequence(args.seed, smi)
     for path, counts in [("serve", serve_launches),
                          *adapter_launches.items(), *hd_launches.items(),
                          *tel_launches.items(), *res_launches.items(),
@@ -7139,6 +7523,8 @@ def main():
     for name, by_path in a6b_launches.items():
         launches[name].update(by_path)
     for name, by_path in mp_launches.items():
+        launches[name].update(by_path)
+    for name, by_path in sp_launches.items():
         launches[name].update(by_path)
     for name, by_path in launches.items():
         kernels[name]["launches"] = sum(by_path.values())
@@ -7210,6 +7596,7 @@ def main():
                     "data_parallel": dp_stats,
                     "launcher_and_refusals": a6b_stats,
                     "model_parallel": mp_stats,
+                    "serve_mp_and_sequence": sp_stats,
                     "head_dims": {k: v for k, v in hd_stats.items()
                                   if k not in ("flash", "flash_wide",
                                                "flash_d128",

@@ -28,7 +28,11 @@ gradients (``runtime/sparse.py``). ``python -m
 deepspeed_tpu_torch.launcher.runner`` starts such a run, one process per
 GPU of each host (``launcher/``). A model axis above 1 with GPT-2's
 ``partition_specs`` trains it Megatron-style, each rank holding its
-tensor-parallel shard (``parallel/tensor.py``) beside the data axis; a script parses the launcher's
+tensor-parallel shard (``parallel/tensor.py``) beside the data axis,
+and ``init_inference`` serves it over the model axis (rank 0 leads, the
+other ranks follow its plans); a sequence axis above 1 trains GPT-2 with
+ring or Ulysses attention over the sequence (``parallel/sequence.py``).
+A script parses the launcher's
 ``--deepspeed``/``--deepspeed_config`` with :func:`add_config_arguments`
 and hands the result to ``initialize(args=...)``. The package imports
 ``torch`` and never ``jax`` or ``deepspeed_tpu``.
@@ -82,7 +86,12 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     ``models.partition_specs(model)``), every rank of a model-axis line
     holds and computes its Megatron shard of the model; without
     ``param_specs`` the model is replicated over the model axis, every
-    model rank computing the whole step."""
+    model rank computing the whole step.
+
+    Sequence parallelism: with a ``sequence_parallel_size`` above 1 every
+    rank of a sequence line is fed its data rank's rows and keeps its
+    chunk of the tokens (GPT-2: ring or Ulysses attention, the loss over
+    the whole sequence)."""
     engine = DeepSpeedEngine(
         model=model, optimizer=optimizer, model_parameters=model_parameters,
         training_data=training_data, lr_scheduler=lr_scheduler,

@@ -29,12 +29,26 @@ Multi-LoRA serving: every function takes an optional adapter pool
 hands its slice of the pool to the block as ``apply_lora``'s batched
 source, and decode routes those deltas through the SGMV kernel when
 ``fused``.
+
+Tensor parallelism (a model whose ``configure_model_parallel`` the
+serving engine armed): the caches and the adapter pool hold this model
+rank's shards (models/gpt2.py: ``kv_cache_partition_specs``,
+``kv_pool_partition_specs``, ``adapter_pool_partition_specs``; the
+``mp_size`` of the ``init_*`` functions), the token embeddings are looked
+up over the vocab shards (parallel/tensor.py:vocab_parallel_lookup), the
+blocks run on the rank's heads, and the logits come whole from the
+model's head (gathered over the model group).
 """
 
 import typing
 
 import torch
 
+from ..models.gpt2 import (
+    adapter_pool_partition_specs,
+    kv_cache_partition_specs,
+    kv_pool_partition_specs,
+)
 from ..ops.transformer import (
     resolve_lora_targets,
     transformer_block_apply,
@@ -42,7 +56,21 @@ from ..ops.transformer import (
     transformer_block_decode_paged,
     transformer_block_prefill_paged,
 )
+from ..parallel.tensor import MODEL_AXIS, vocab_parallel_lookup
 from ..utils.device import resolve_device
+
+
+def _local_shape(shape, spec, mp_size):
+    """``shape`` with every dim ``spec`` puts on the model axis divided by
+    ``mp_size`` (a model rank's share)."""
+    out = list(shape)
+    for d, axis in enumerate(spec):
+        if axis == MODEL_AXIS and mp_size > 1:
+            if out[d] % mp_size:
+                raise ValueError(f"dim {d} of {tuple(shape)} does not split "
+                                 f"over a model axis of {mp_size}")
+            out[d] //= mp_size
+    return tuple(out)
 
 
 class KVCache(typing.NamedTuple):
@@ -62,16 +90,17 @@ class KVCache(typing.NamedTuple):
 
 
 def init_kv_cache(config, num_slots, max_len, dtype=torch.float32,
-                  device=None):
+                  device=None, mp_size=1):
     """Zero-filled contiguous cache for a GPT2Config: ``[L, slots, heads,
-    max_len, hd]`` on ``device`` in ``dtype``."""
-    shape = (
+    max_len, hd]`` on ``device`` in ``dtype`` (``heads / mp_size`` of a
+    model rank)."""
+    shape = _local_shape((
         config.n_layer,
         int(num_slots),
         config.n_head,
         int(max_len),
         config.n_embd // config.n_head,
-    )
+    ), kv_cache_partition_specs(), mp_size)
     device = resolve_device(device)
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
@@ -97,16 +126,17 @@ class KVPool(typing.NamedTuple):
 
 
 def init_kv_pool(config, num_blocks, block_size, dtype=torch.float32,
-                 device=None):
+                 device=None, mp_size=1):
     """Zero-filled page pool for a GPT2Config: ``num_blocks`` usable pages
-    plus the null page at physical index 0."""
-    shape = (
+    plus the null page at physical index 0 (``heads / mp_size`` of a
+    model rank)."""
+    shape = _local_shape((
         config.n_layer,
         int(num_blocks) + 1,  # + the null page
         int(block_size),
         config.n_head,
         config.n_embd // config.n_head,
-    )
+    ), kv_pool_partition_specs(), mp_size)
     device = resolve_device(device)
     return KVPool(
         k=torch.zeros(shape, dtype=dtype, device=device),
@@ -115,27 +145,43 @@ def init_kv_pool(config, num_blocks, block_size, dtype=torch.float32,
 
 
 def init_adapter_pool(config, n_adapters, rank, targets=None,
-                      dtype=torch.float32, device=None):
+                      dtype=torch.float32, device=None, mp_size=1):
     """Zero-filled LoRA adapter pool for a GPT2Config: ``{target: (A [L,
     n_adapters+1, in, rank], B [L, n_adapters+1, rank, out])}`` on
     ``device`` in ``dtype``. Row 0 is the permanent all-zeros IDENTITY
     adapter (id 0 = no adapter; its delta is exactly 0.0); rows
     1..n_adapters are the loadable slots the engine's AdapterPool hands
-    out. The factors keep the JAX orientation (delta = ``(x @ A) @ B``)."""
+    out. The factors keep the JAX orientation (delta = ``(x @ A) @ B``).
+    A model rank's pool (``mp_size`` above 1) holds its shards of every
+    adapter: B's output columns of a column-parallel target, A's input
+    rows of a row-parallel one."""
     layer_cfg = config.layer_config()
     rank = int(rank)
     rows = int(n_adapters) + 1  # + the identity row
     device = resolve_device(device)
+    specs = adapter_pool_partition_specs(targets)
     out = {}
     for t in resolve_lora_targets(targets):
         din, dout = layer_cfg.lora_dims(t)
+        spec_a, spec_b = specs[t]
         out[t] = (
-            torch.zeros((config.n_layer, rows, din, rank), dtype=dtype,
-                        device=device),
-            torch.zeros((config.n_layer, rows, rank, dout), dtype=dtype,
-                        device=device),
+            torch.zeros(_local_shape((config.n_layer, rows, din, rank),
+                                     spec_a, mp_size),
+                        dtype=dtype, device=device),
+            torch.zeros(_local_shape((config.n_layer, rows, rank, dout),
+                                     spec_b, mp_size),
+                        dtype=dtype, device=device),
         )
     return out
+
+
+def _embed(model, tokens):
+    """``model.wte[tokens]``, over the vocab shards when the model is
+    tensor parallel (a collective of the model group)."""
+    tp = getattr(model, "tensor_parallel", None)
+    if tp is None:
+        return model.wte[tokens]
+    return vocab_parallel_lookup(tokens, model.wte, tp)
 
 
 def _layer_lora(adapters, adapter_ids, lora_scale, layer, fused=False):
@@ -160,7 +206,7 @@ def gpt2_prefill(model, tokens, adapters=None, adapter_ids=None,
     its tenant's adapter, so the pages seeding decode already carry the
     adapted k/v (id 0 = base model)."""
     s = tokens.shape[1]
-    x = model.wte[tokens.long()] + model.wpe[None, :s, :]
+    x = _embed(model, tokens.long()) + model.wpe[None, :s, :]
     ks, vs = [], []
     for i, layer in enumerate(model.h):
         x, (k, v) = transformer_block_apply(
@@ -203,7 +249,7 @@ def _embed_positions(model, tokens, positions):
     an out-of-bounds index (only the speculative draft's proposals near
     the length cap get there, and they are never committed)."""
     pos = torch.clamp(positions.long(), max=model.wpe.shape[0] - 1)
-    return (model.wte[tokens.long()] + model.wpe[pos])[:, None, :]
+    return (_embed(model, tokens.long()) + model.wpe[pos])[:, None, :]
 
 
 @torch.no_grad()
@@ -266,7 +312,7 @@ def gpt2_prefill_suffix(model, tokens, start_pos, pool, block_tables,
         s, device=tokens.device
     )[None, :]
     positions = torch.clamp(positions, max=model.wpe.shape[0] - 1)
-    x = model.wte[tokens.long()] + model.wpe[positions]
+    x = _embed(model, tokens.long()) + model.wpe[positions]
     for i, (layer, k_pool, v_pool) in enumerate(
         zip(model.h, pool.k, pool.v)
     ):

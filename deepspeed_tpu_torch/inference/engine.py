@@ -45,9 +45,38 @@ pages during decode and preempts under pressure; engines of one
 ``share_group`` share one tier. Speculative decoding
 (``inference.speculative`` with ``draft_model``): a small draft on its
 own contiguous cache proposes k greedy tokens and the target verifies
-them in one suffix-prefill step over the paged cache. Not yet ported,
-and refused with ``DeepSpeedConfigError``: a device mesh. The fleet's
-hooks (tracer injection, brownout) come with the fleet.
+them in one suffix-prefill step over the paged cache. The fleet's hooks
+(tracer injection, brownout) come with the fleet.
+
+Serving over the model axis (``mesh`` or a ``mesh`` block with a
+``model_parallel_size`` above 1, one process per GPU of a world of that
+many ranks, as the port's launcher starts them): every rank builds the
+engine from the same model and config; the weights are cut to the rank's
+Megatron shards by GPT-2's ``partition_specs`` (or ``param_specs``), the
+KV cache or page pool holds the rank's heads and the adapter pool its
+shards of every adapter (models/gpt2.py), and the blocks run on the
+rank's heads through the same kernels (ops/transformer.py), with the
+row-parallel all-reduces of the training blocks. Unlike the JAX engine,
+which drops fused decode to its XLA path under a model axis, the port
+keeps the paged decode and SGMV kernels: they run per rank. The
+speculative draft is whole on every rank, with its own cache, as the JAX
+engine replicates it.
+
+One controller: model rank 0 (the leader) owns the scheduler, the block
+pool, the prefix registry, the adapter registry and the host tier's
+decisions, and is the only rank that takes requests and samples. Before
+each device operation (a prefill, a decode step, a speculative cycle, a
+page or adapter row parked or promoted, an adapter's rows written, a
+reset) it broadcasts that operation's plan (its kind and the host arrays
+it reads: token ids, positions, block tables, slot adapter ids) to the
+model group over a gloo group of its own; the other ranks (followers)
+run :meth:`InferenceEngine.follow` (``serve_forever``), which executes
+each plan until the leader closes the engine. So every rank issues the
+same collectives in the same order, whatever the leader's clock and
+threads decide. A follower's host tier is a store of its own heads' rows
+keyed as the leader's tier keys them; the leader names what it parks,
+promotes and drops. A data, sequence or pipeline axis above 1 is refused
+(replicas are the serving fleet's, ROADMAP A8).
 
 Adapter pool rows are written IN PLACE (the JAX engine swaps in a new
 pool between steps). ``load_adapter`` runs on a caller's thread while
@@ -57,6 +86,7 @@ never between two layers of one.
 """
 
 import dataclasses
+import datetime
 import threading
 import time
 import types
@@ -76,10 +106,17 @@ from ..adapters.lora import (
     split_lora_params,
 )
 from ..adapters.pool import AdapterPool, AdapterPoolFull, AdapterUnavailable
-from ..models.gpt2 import GPT2LMHeadModel
+from ..models.gpt2 import (
+    GPT2LMHeadModel,
+    adapter_pool_partition_specs,
+    partition_specs,
+)
 from ..ops.decode_attention import SGMV_MAX_RANK
 from ..ops.head_dims import check_head_dim, model_head_dim
 from ..ops.transformer import lora_scaling, resolve_lora_targets
+from ..parallel import tensor as tp_lib
+from ..parallel.mesh import MODEL_AXIS, ProcessMesh, build_mesh
+from ..runtime import dist as dist_lib
 from ..resilience.manager import build_resilience
 from ..runtime.checkpointing import load_module_state
 from ..telemetry.manager import (
@@ -152,6 +189,24 @@ def _landed(placed):
     return placed.arrays
 
 
+#: The followers' parked rows per host-tier share group in this process,
+#: shared as the leaders' tiers are (HostTier.shared)
+_FOLLOWER_STORES = {}
+
+
+def _refuse_replica_axes(block):
+    """Refuse a data, sequence or pipeline axis above 1 in a ``mesh``
+    block (serving replicas are the fleet's)."""
+    for key, axis in ((C.MESH_DATA_PARALLEL_SIZE, "data"),
+                      (C.MESH_SEQUENCE_PARALLEL_SIZE, "sequence"),
+                      (C.MESH_PIPELINE_PARALLEL_SIZE, "pipe")):
+        size = block.get(key)
+        if size is not None and int(size) > 1:
+            raise _not_ported(
+                f"serving over a {axis} axis of {size} (replicas are the "
+                "serving fleet's, ROADMAP A8)")
+
+
 def _is_gpt2_config(cfg):
     return cfg is not None and all(
         hasattr(cfg, a) for a in ("n_layer", "n_head", "n_embd",
@@ -170,6 +225,7 @@ class InferenceEngine:
         device=None,
         draft_model=None,
         draft_parameters=None,
+        param_specs=None,
     ):
         mcfg = getattr(model, "config", None)
         if not _is_gpt2_config(mcfg):
@@ -187,9 +243,9 @@ class InferenceEngine:
             raw = dict(config)
         else:  # JSON path
             raw = load_config_json(config)
-        if mesh is not None or raw.get(C.MESH):
-            raise _not_ported(
-                "serving over a device mesh (ROADMAP A7a-serve)")
+        mesh_block = raw.get(C.MESH) or {}
+        if mesh is None:
+            _refuse_replica_axes(mesh_block)
         self.config = DeepSpeedConfig(None, param_dict=raw)
         cfg = self.config
 
@@ -327,6 +383,27 @@ class InferenceEngine:
         if dcfg is not None:
             check_head_dim(model_head_dim(dcfg), dcfg.n_positions, device)
         self.device = resolve_device(device)
+        # ---- the model axis (one controller: model rank 0 leads) --------
+        self.mesh = self._serving_mesh(mesh, mesh_block)
+        self.mp_size = 1 if self.mesh is None else self.mesh.mp_size
+        self.model_rank = 0 if self.mesh is None else self.mesh.model_rank
+        self.is_leader = self.model_rank == 0
+        self._ctrl_group = None
+        if self.mesh is not None:
+            ranks = self.mesh.line_ranks(MODEL_AXIS)
+            self._ctrl_src = ranks[0]
+            # plans wait as long as the leader idles
+            self._ctrl_group = torch.distributed.new_group(
+                list(ranks), backend="gloo",
+                timeout=datetime.timedelta(days=365))
+        # a follower's host tier: its own heads' rows under the leader's
+        # keys; the keys the leader has had followers park (to drop them
+        # when its tier does)
+        self._store = (_FOLLOWER_STORES.setdefault(
+            cfg.inference_host_tier_share_group, {})
+            if cfg.inference_host_tier_enabled
+            and cfg.inference_host_tier_peer_sharing else {})
+        self._parked = set()
 
         # ---- params ---------------------------------------------------
         state = (
@@ -336,7 +413,8 @@ class InferenceEngine:
 
         # ---- telemetry + metrics --------------------------------------
         self.telemetry = build_telemetry(
-            cfg, rank=0, n_params=sum(
+            cfg, rank=0 if self.mesh is None else self.mesh.rank,
+            n_params=sum(
                 int(np.prod(t.shape)) for t in state.values()),
             device=self.device,
         )
@@ -445,6 +523,11 @@ class InferenceEngine:
         self.model.load_state_dict(state)
         self.model.requires_grad_(False)
         self.model.eval()
+        # the whole tensors' shapes (an adapter checkpoint's template)
+        self._full_shapes = {n: tuple(t.shape)
+                             for n, t in self.model.state_dict().items()}
+        if self.mesh is not None:
+            self._shard_model(param_specs)
 
         # ---- KV cache + host-side allocator ---------------------------
         if self.paged:
@@ -479,6 +562,7 @@ class InferenceEngine:
             self._adapter_pool = init_adapter_pool(
                 mcfg, self.adapter_pool_slots, self.adapter_rank,
                 self.adapter_targets, self.compute_dtype, self.device,
+                mp_size=self.mp_size,
             )
             self.adapter_registry = AdapterPool(self.adapter_pool_slots)
             self._slot_adapters = np.zeros(self.num_slots, np.int32)
@@ -613,6 +697,9 @@ class InferenceEngine:
             f"max_seq_len {self.max_seq_len} (prefill window "
             f"{self.prefill_len}), dtype {cfg.inference_dtype} on "
             f"{self.device}, queue depth {cfg.inference_queue_depth}, "
+            + (f"model axis {self.mp_size} (rank 0 leads, "
+               f"{self.model_config.n_head // self.mp_size} heads a rank), "
+               if self.mesh is not None else "")
             + (
                 f"paged KV cache ({self.kv_pool_blocks} pages x "
                 f"{self.kv_block_size} tokens, prefix cache "
@@ -635,17 +722,59 @@ class InferenceEngine:
             ranks=[0],
         )
 
+    def _serving_mesh(self, mesh, block):
+        """The process mesh of a model axis above 1 (``mesh``, a
+        ``ProcessMesh``, or the config's ``mesh`` block over the
+        torch.distributed world, which the launcher's environment starts),
+        else None. Any other axis above 1 is refused (ROADMAP A8)."""
+        if mesh is None:
+            mp = int(block.get(C.MESH_MODEL_PARALLEL_SIZE) or 1)
+            if mp <= 1:
+                return None
+            dist_lib.init_distributed(device=self.device)
+            mesh = build_mesh(model_parallel_size=mp)
+        elif not isinstance(mesh, ProcessMesh):
+            raise _not_ported(
+                f"serving over a {type(mesh).__name__} mesh (the port takes "
+                "a deepspeed_tpu_torch.parallel.ProcessMesh or a mesh "
+                "config block)")
+        _refuse_replica_axes({
+            C.MESH_DATA_PARALLEL_SIZE: mesh.dp_size,
+            C.MESH_SEQUENCE_PARALLEL_SIZE: mesh.sp_size})
+        return mesh if mesh.mp_size > 1 else None
+
+    def _shard_model(self, param_specs):
+        """Cut the served model's parameters to this rank's Megatron
+        shards (``param_specs``, default GPT-2's ``partition_specs``; a
+        name the specs leave out takes that rule) and arm its
+        tensor-parallel seam, as the training engine does."""
+        mp, rank = self.mesh.mp_size, self.mesh.model_rank
+        heads = self.model_config.n_head
+        if heads % mp:
+            raise DeepSpeedConfigError(
+                f"{heads} attention heads do not split over a model axis "
+                f"of {mp}: tensor parallelism shards whole heads")
+        own = partition_specs(self.model)
+        specs = own if param_specs is None else param_specs
+        with torch.no_grad():
+            for n, p in self.model.named_parameters():
+                d = tp_lib.model_dim(specs.get(n, own.get(n)))
+                if d is not None:
+                    p.data = tp_lib.shard_for_rank(
+                        n, p.data, d, mp, rank).contiguous().clone()
+        self.model.configure_model_parallel(self.mesh.model_group, rank, mp)
+
     def _init_cache(self):
         """Fresh zeroed decode cache: the contiguous per-slot block or the
-        paged page pool, per the engine's mode."""
+        paged page pool, per the engine's mode (this rank's heads)."""
         if self.paged:
             return init_kv_pool(
                 self.model_config, self.kv_pool_blocks, self.kv_block_size,
-                self.compute_dtype, self.device,
+                self.compute_dtype, self.device, mp_size=self.mp_size,
             )
         return init_kv_cache(
             self.model_config, self.num_slots, self.max_seq_len,
-            self.compute_dtype, self.device,
+            self.compute_dtype, self.device, mp_size=self.mp_size,
         )
 
     def _init_draft_cache(self):
@@ -660,6 +789,141 @@ class InferenceEngine:
             spill_fn=(self._spill_kv_page if self.host_tier is not None
                       else None),
         )
+
+    # -- one controller: the leader's plans, the followers' loop ---------
+    def _tell(self, name, *args):
+        """Over a model axis, broadcast device operation ``name`` and its
+        host arguments to the followers (with the keys they parked that
+        the leader's tier has dropped since); a no-op in one process."""
+        if self._ctrl_group is None:
+            return
+        drops = []
+        if self._parked and self.host_tier is not None:
+            drops = [k for k in self._parked if not self.host_tier.contains(k)]
+            self._parked.difference_update(drops)
+        torch.distributed.broadcast_object_list(
+            [(name, args, drops)], src=self._ctrl_src,
+            group=self._ctrl_group)
+
+    def _run(self, name, *args):
+        """Device operation ``name`` on every rank: its plan told to the
+        followers, then run here; returns what it returns here."""
+        self._tell(name, *args)
+        return getattr(self, "_op_" + name)(*args)
+
+    def follow(self):
+        """A follower's loop: execute each plan the leader broadcasts,
+        until it closes the engine (then close this rank's engine). The
+        leader's ``serve_forever``/``generate`` drive it; a follower
+        takes no requests."""
+        if self.is_leader:
+            raise RuntimeError("follow() runs on the model ranks other than "
+                               "0; rank 0 serves")
+        while True:
+            box = [None]
+            torch.distributed.broadcast_object_list(
+                box, src=self._ctrl_src, group=self._ctrl_group)
+            name, args, drops = box[0]
+            for key in drops:
+                self._store.pop(key, None)
+            if name == "close":
+                break
+            with self._device_lock:
+                getattr(self, "_op_" + name)(*args)
+        self._close_local()
+
+    def _require_leader(self):
+        if not self.is_leader:
+            raise RuntimeError(
+                f"model rank {self.model_rank} follows rank 0's plans: call "
+                "serve_forever() (or follow()) on it; rank 0 takes the "
+                "requests")
+
+    def _lora_ids(self, ids):
+        """The decode functions' adapter arguments for the slot adapter ids
+        ``ids`` (a host array, or None on an adapter-free engine)."""
+        if ids is None:
+            return {}
+        if not torch.is_tensor(ids):
+            ids = self._to_device(ids)
+        return dict(adapters=self._adapter_pool, adapter_ids=ids,
+                    lora_scale=self.adapter_scale)
+
+    def _slot_ids(self, slots):
+        """A copy of the adapter ids of ``slots`` (None without adapters),
+        for a plan."""
+        if not self.multi_lora:
+            return None
+        return self._slot_adapters[slots].copy()
+
+    # the device operations: run by the leader and, from its plans, by
+    # every follower
+    def _op_prefill(self, padded, slot, block_ids, offsets, ids):
+        logits, ks, vs = gpt2_prefill(
+            self.model, self._to_device(padded), **self._lora_ids(ids))
+        if block_ids is not None:
+            write_prefill_to_pool(
+                self._cache, ks, vs, self._to_device(block_ids),
+                self._to_device(offsets))
+        else:
+            write_prefill_to_cache(self._cache, slot, ks, vs)
+        return logits
+
+    def _op_suffix(self, padded, prefix_len, table, ids):
+        logits, _ = gpt2_prefill_suffix(
+            self.model, self._to_device(padded),
+            self._to_device(np.full(1, prefix_len, np.int32)), self._cache,
+            self._to_device(table), **self._lora_ids(ids))
+        return logits
+
+    def _op_draft_prefill(self, padded, slot):
+        _, dks, dvs = gpt2_prefill(self.draft, self._to_device(padded))
+        write_prefill_to_cache(self._draft_cache, slot, dks, dvs)
+
+    def _op_decode(self, last_tokens, lengths, tables, ids):
+        tokens = self._to_device(last_tokens)
+        positions = self._to_device(lengths)
+        lora = self._lora_ids(ids)
+        if tables is not None:
+            logits, _ = gpt2_decode_step_paged(
+                self.model, tokens, positions, self._cache,
+                self._to_device(tables), fused=self.fused_decode, **lora)
+        else:
+            logits, _ = gpt2_decode_step(
+                self.model, tokens, positions, self._cache, **lora)
+        return logits
+
+    def _op_spill_kv(self, block_id, key):
+        # a follower parks its heads' rows of the page
+        self._store[key] = tuple(self._to_host(
+            (self._cache.k[:, block_id], self._cache.v[:, block_id])))
+
+    def _op_promote(self, pairs):
+        # a follower writes back its parked rows of each promoted page
+        with torch.no_grad():
+            for page, key in pairs:
+                k_rows, v_rows = self._store[key]
+                self._cache.k[:, page] = k_rows.to(self._cache.k.device,
+                                                   self._cache.k.dtype)
+                self._cache.v[:, page] = v_rows.to(self._cache.v.device,
+                                                   self._cache.v.dtype)
+
+    def _op_adapter_rows(self, idx, stacks):
+        self._write_adapter_rows(idx, self._shard_stacks(stacks))
+
+    def _op_spill_adapter(self, name, idx):
+        self._store[f"adapter/{name}"] = self._adapter_rows_to_host(idx)
+
+    def _op_restore_adapter(self, name, idx):
+        rows = self._store[f"adapter/{name}"]
+        targets = sorted(self._adapter_pool)
+        self._write_adapter_rows(idx, {
+            t: (rows[2 * i], rows[2 * i + 1]) for i, t in enumerate(targets)})
+
+    def _park(self, key):
+        """The leader has had the followers park ``key``."""
+        if self._ctrl_group is not None:
+            self._parked.add(key)
 
     def _to_device(self, array):
         return torch.from_numpy(np.ascontiguousarray(array)).to(self.device)
@@ -779,6 +1043,8 @@ class InferenceEngine:
             # stream at fetch; each waits here on its own event), then
             # publish their hashes
             with self._device_lock, torch.no_grad():
+                self._tell("promote", [(private[i], h) for i, (h, _, _)
+                                       in enumerate(promoted)])
                 for i, (_, (k_rows, v_rows), peer) in enumerate(promoted):
                     self._cache.k[:, private[i]] = k_rows.to(
                         self._cache.k.dtype)
@@ -831,6 +1097,8 @@ class InferenceEngine:
             )
             return
         with self._device_lock:
+            self._tell("spill_kv", block_id, chain_hash)
+            self._park(chain_hash)
             rows = self._to_host(
                 (self._cache.k[:, block_id], self._cache.v[:, block_id]))
         stored = self.host_tier.put(
@@ -1028,6 +1296,24 @@ class InferenceEngine:
                 "config block to serve LoRA adapters"
             )
 
+    def _shard_stacks(self, stacks):
+        """Adapter stacks ``{target: (A [L, in, r], B [L, r, out])}`` cut
+        to this model rank's shards, the adapter pool's layout
+        (models/gpt2.py:adapter_pool_partition_specs; the qkv B per q|k|v
+        column group); the stacks themselves in one process."""
+        if self.mesh is None:
+            return stacks
+        mp, rank = self.mp_size, self.model_rank
+        specs = adapter_pool_partition_specs(self.adapter_targets)
+        out = {}
+        for t, (a, b) in stacks.items():
+            # a stack has no adapter-row dim (the pool's dim 1)
+            dims = [tp_lib.model_dim(spec[:1] + spec[2:]) for spec in specs[t]]
+            out[t] = tuple(
+                tp_lib.shard_for_rank(f"{t}_lora_{ab}", x, d, mp, rank)
+                for ab, x, d in zip("ab", (a, b), dims))
+        return out
+
     def _check_adapter_rows(self, name, stacks):
         """Refuse adapter stacks that do not fit the pool rows."""
         for t, (a, b) in stacks.items():
@@ -1070,6 +1356,7 @@ class InferenceEngine:
         :class:`~deepspeed_tpu_torch.adapters.AdapterPoolFull`. The row is
         written in place under the engine lock, between decode steps."""
         self._require_multi_lora()
+        self._require_leader()
         if (adapter_state is None) == (load_dir is None):
             raise ValueError(
                 "pass exactly one of adapter_state (an adapter state dict "
@@ -1078,8 +1365,10 @@ class InferenceEngine:
             )
         if load_dir is not None:
             adapter_state = self._adapter_checkpoint(load_dir, tag)
-        stacks = adapter_layer_stacks(adapter_state, self.adapter_targets)
-        self._check_adapter_rows(name, stacks)
+        stacks = {t: (a.detach().cpu(), b.detach().cpu()) for t, (a, b) in
+                  adapter_layer_stacks(adapter_state,
+                                       self.adapter_targets).items()}
+        self._check_adapter_rows(name, self._shard_stacks(stacks))
         with self._device_lock:
             idx, evicted = self.adapter_registry.assign(name)
             if evicted is not None:
@@ -1094,7 +1383,7 @@ class InferenceEngine:
             self._adapter_generations[name] = (
                 self.adapter_registry.generation_of(name)
             )
-            self._write_adapter_rows(idx, stacks)
+            self._run("adapter_rows", idx, stacks)
         self._adapter_loads.inc()
         if evicted is not None:
             self._adapter_evictions.inc()
@@ -1114,11 +1403,12 @@ class InferenceEngine:
         """The adapter state dict of an adapter-only checkpoint, its
         geometry checked against the pool (DeepSpeedConfigError)."""
         if self._adapter_template is None:
-            # names only, from the served model's shapes; cached: the
-            # targets never change between loads
+            # names only, from the served model's (whole) shapes; cached:
+            # the targets never change between loads
             self._adapter_template = adapter_host_template(
-                self.model.state_dict(), self.adapter_rank,
-                self.adapter_targets,
+                {n: torch.empty(shape, device="meta")
+                 for n, shape in self._full_shapes.items()},
+                self.adapter_rank, self.adapter_targets,
             )
         state, client_state, ckpt_tag = load_module_state(
             load_dir, self._adapter_template, tag=tag,
@@ -1154,6 +1444,7 @@ class InferenceEngine:
         unload is intentional removal: any host-tier copy drops too, so
         the tenant cannot silently come back through auto-load."""
         self._require_multi_lora()
+        self._require_leader()
         idx = self.adapter_registry.remove(name)
         self._adapter_generations.pop(name, None)
         if self.host_tier is not None:
@@ -1179,13 +1470,11 @@ class InferenceEngine:
             )
             return
         targets = sorted(self._adapter_pool)
-        rows = []
-        for t in targets:
-            a, b = self._adapter_pool[t]
-            rows.extend((a[:, idx], b[:, idx]))
+        self._tell("spill_adapter", name, idx)
+        self._park(f"adapter/{name}")
         stored = self.host_tier.put(
             f"adapter/{name}",
-            self._to_host(rows),
+            self._adapter_rows_to_host(idx),
             meta={
                 "kind": "adapter",
                 "generation": self._adapter_generations.get(name),
@@ -1196,6 +1485,15 @@ class InferenceEngine:
         )
         if stored:
             self._ht_spills.inc()
+
+    def _adapter_rows_to_host(self, idx):
+        """Host copies of every target's A and B rows at pool row ``idx``
+        (the targets in sorted order)."""
+        rows = []
+        for t in sorted(self._adapter_pool):
+            a, b = self._adapter_pool[t]
+            rows.extend((a[:, idx], b[:, idx]))
+        return tuple(self._to_host(rows))
 
     def _auto_load_adapter_from_tier(self, name):
         """Re-install a spilled adapter from the host tier. Returns
@@ -1246,6 +1544,7 @@ class InferenceEngine:
             self._adapter_generations[name] = (
                 self.adapter_registry.generation_of(name)
             )
+            self._tell("restore_adapter", name, idx)
             self._write_adapter_rows(idx, stacks)
         # the host copy stays: it equals the rows just installed bit for
         # bit, and peers in the share group warm from it
@@ -1349,19 +1648,6 @@ class InferenceEngine:
             "adapter_requests": dict(reg.requests),
         }
 
-    def _lora_kwargs(self, slots, ids=None):
-        """The decode functions' adapter arguments for ``slots`` (a slice
-        of the slot table; ``ids`` the slot ids already on the device),
-        or none on an adapter-free engine."""
-        if not self.multi_lora:
-            return {}
-        return dict(
-            adapters=self._adapter_pool,
-            adapter_ids=(self._to_device(self._slot_adapters[slots])
-                         if ids is None else ids),
-            lora_scale=self.adapter_scale,
-        )
-
     # -- device hooks (called by the scheduler) -------------------------
     def prefill_request(self, slot, prompt_tokens, temperature):
         """Run one request's prefill into ``slot``: cache rows 0..P-1
@@ -1384,10 +1670,7 @@ class InferenceEngine:
         else:
             padded = np.zeros((1, self.prefill_len), np.int32)
             padded[0, :plen] = prompt_tokens
-            logits, ks, vs = gpt2_prefill(
-                self.model, self._to_device(padded),
-                **self._lora_kwargs(slice(slot, slot + 1)),
-            )
+            block_ids = offsets = None
             if self.paged:
                 # position j -> (its page, its offset); padding rows past
                 # the prompt carry the null page
@@ -1399,12 +1682,8 @@ class InferenceEngine:
                     np.arange(self.prefill_len, dtype=np.int32)
                     % self.kv_block_size
                 )
-                write_prefill_to_pool(
-                    self._cache, ks, vs,
-                    self._to_device(block_ids), self._to_device(offsets),
-                )
-            else:
-                write_prefill_to_cache(self._cache, slot, ks, vs)
+            logits = self._run("prefill", padded, slot, block_ids, offsets,
+                               self._slot_ids(slice(slot, slot + 1)))
             first = self._sample(
                 logits[:, plen - 1, :], np.full(1, temperature, np.float32)
             )
@@ -1415,8 +1694,7 @@ class InferenceEngine:
             # about the draft's cache)
             dpad = np.zeros((1, self.prefill_len), np.int32)
             dpad[0, :plen] = prompt_tokens
-            _, dks, dvs = gpt2_prefill(self.draft, self._to_device(dpad))
-            write_prefill_to_cache(self._draft_cache, slot, dks, dvs)
+            self._run("draft_prefill", dpad, slot)
             # index lengths-1 == the last PROMPT token (already cached by
             # the draft prefill; the sync rewrite is value-identical)
             self._spec_prev_tokens[slot] = int(prompt_tokens[-1])
@@ -1469,14 +1747,9 @@ class InferenceEngine:
         bucket = self._suffix_bucket(len(suffix), prefix_len)
         padded = np.zeros((1, bucket), np.int32)
         padded[0, : len(suffix)] = suffix
-        logits, _ = gpt2_prefill_suffix(
-            self.model,
-            self._to_device(padded),
-            self._to_device(np.full(1, prefix_len, np.int32)),
-            self._cache,
-            self._to_device(self._block_tables[slot:slot + 1]),
-            **self._lora_kwargs(slice(slot, slot + 1)),
-        )
+        logits = self._run("suffix", padded, int(prefix_len),
+                           self._block_tables[slot:slot + 1].copy(),
+                           self._slot_ids(slice(slot, slot + 1)))
         first = self._sample(
             logits[:, len(suffix) - 1, :], np.full(1, temperature, np.float32)
         )
@@ -1487,6 +1760,13 @@ class InferenceEngine:
         draft's cache, slot bookkeeping, block tables) from scratch; the
         weights are untouched — the driver auto-restart path after a
         decode crash."""
+        with self._device_lock:
+            self._run("reset")
+        log_dist(
+            "inference decode state reset (driver restart)", ranks=[0],
+        )
+
+    def _op_reset(self):
         self._cache = self._init_cache()
         if self.paged:
             self.block_pool = self._new_block_pool()
@@ -1507,9 +1787,6 @@ class InferenceEngine:
             # scheduler's crash recovery already released via release_slot
             self._slot_adapters[:] = 0
             self._slot_adapter_names.clear()
-        log_dist(
-            "inference decode state reset (driver restart)", ranks=[0],
-        )
 
     def decode_tokens(self, active_slots):
         """One fixed-shape decode step over ALL slots; commits length /
@@ -1525,19 +1802,10 @@ class InferenceEngine:
         if self.speculative:
             return self._decode_tokens_spec(active_slots)
         with self._device_lock:
-            tokens = self._to_device(self._last_tokens)
-            positions = self._to_device(self._lengths)
-            lora = self._lora_kwargs(slice(None))
-            if self.paged:
-                logits, _ = gpt2_decode_step_paged(
-                    self.model, tokens, positions, self._cache,
-                    self._to_device(self._block_tables),
-                    fused=self.fused_decode, **lora,
-                )
-            else:
-                logits, _ = gpt2_decode_step(
-                    self.model, tokens, positions, self._cache, **lora,
-                )
+            logits = self._run(
+                "decode", self._last_tokens.copy(), self._lengths.copy(),
+                self._block_tables.copy() if self.paged else None,
+                self._slot_ids(slice(None)))
             next_tokens = self._sample(logits, self._temps).cpu().numpy()
         out = []
         for slot in active_slots:
@@ -1572,6 +1840,31 @@ class InferenceEngine:
             positions = positions + 1
         return torch.stack(props, dim=1)
 
+    def _op_spec(self, host):
+        """One speculative cycle's device work from its host inputs
+        ``host`` (previous, last tokens, lengths, block tables and slot
+        adapter ids, concatenated): the draft's proposals (the leader's,
+        over a model axis) and the target's verify. Returns ``[slots,
+        2k+1]`` on the host: the proposals, then the greedy row."""
+        n = self.num_slots
+        dev = self._to_device(host)
+        prev, last, lengths = dev[:n], dev[n:2 * n], dev[2 * n:3 * n]
+        end = 3 * n + self._block_tables.size
+        tables = dev[3 * n:end].reshape(self._block_tables.shape)
+        lora = self._lora_ids(dev[end:] if self.multi_lora else None)
+        props = self._draft_propose(prev, last, lengths)
+        if self._ctrl_group is not None:
+            # every rank verifies the leader's proposals (the drafts are
+            # the same arithmetic on the same inputs; this makes it so)
+            box = [props.cpu() if self.is_leader else None]
+            torch.distributed.broadcast_object_list(
+                box, src=self._ctrl_src, group=self._ctrl_group)
+            props = box[0].to(self.device)
+        self._spec_t1 = time.monotonic()
+        greedy = self._spec_verify(
+            torch.cat([last[:, None], props], dim=1), lengths, tables, lora)
+        return torch.cat([props, greedy], dim=1).cpu().numpy()
+
     def _spec_verify(self, verify_tokens, start, tables, lora):
         """ONE fixed-shape batched target step over the k+1 verify tokens
         [last, d_1..d_k] per slot: suffix-prefill arithmetic against the
@@ -1600,7 +1893,6 @@ class InferenceEngine:
         sit at positions BEYOND the committed length, so the position
         mask hides them until a later cycle overwrites those rows."""
         k = self.spec_k
-        n = self.num_slots
         t0 = time.monotonic()
         with self._device_lock:
             host = np.concatenate([
@@ -1609,17 +1901,8 @@ class InferenceEngine:
                 self._slot_adapters if self.multi_lora
                 else np.zeros(0, np.int32),
             ]).astype(np.int32)
-            dev = self._to_device(host)
-            prev, last, lengths = dev[:n], dev[n:2 * n], dev[2 * n:3 * n]
-            end = 3 * n + self._block_tables.size
-            tables = dev[3 * n:end].reshape(self._block_tables.shape)
-            lora = self._lora_kwargs(slice(None), ids=dev[end:])
-            props = self._draft_propose(prev, last, lengths)
-            t1 = time.monotonic()
-            greedy = self._spec_verify(
-                torch.cat([last[:, None], props], dim=1), lengths, tables,
-                lora)
-            both = torch.cat([props, greedy], dim=1).cpu().numpy()
+            both = self._run("spec", host)
+            t1 = self._spec_t1
         props, greedy = both[:, :k], both[:, k:]
         t2 = time.monotonic()
         out = []
@@ -1668,6 +1951,7 @@ class InferenceEngine:
     def submit(self, prompt_tokens, **kwargs):
         """Front-door submission; see
         :meth:`ContinuousBatchingScheduler.submit`."""
+        self._require_leader()
         return self.scheduler.submit(prompt_tokens, **kwargs)
 
     def load_snapshot(self):
@@ -1682,6 +1966,7 @@ class InferenceEngine:
         generated token-id lists in prompt order. ``adapter`` names a
         loaded LoRA adapter applied to every prompt (None = base
         model)."""
+        self._require_leader()
         requests = []
         try:
             for p in prompts:
@@ -1710,10 +1995,25 @@ class InferenceEngine:
         return results
 
     def serve_forever(self):
+        """Rank 0 (or the only rank): the scheduler's driver loop; a
+        follower: :meth:`follow`, until rank 0 closes the engine."""
+        if not self.is_leader:
+            return self.follow()
         return self.scheduler.serve_forever()
 
     def close(self):
+        """Stop the scheduler and release the engine; over a model axis
+        the leader's close also ends the followers' loops (a follower
+        closes when its loop ends)."""
+        if not self.is_leader:
+            return
         self.scheduler.shutdown()
+        with self._device_lock:
+            self._tell("close")
+        self._close_local()
+
+    def _close_local(self):
+        self._store = {}
         if self.host_tier is not None:
             # drop this engine's share-group reference; the last engine
             # out closes the tier's worker and retires the group
@@ -1733,6 +2033,7 @@ def init_inference(
     device=None,
     draft_model=None,
     draft_parameters=None,
+    param_specs=None,
 ):
     """Build a serving engine around ``model`` (a
     :class:`~deepspeed_tpu_torch.models.gpt2.GPT2LMHeadModel`).
@@ -1749,8 +2050,14 @@ def init_inference(
     ``speculative.draft_checkpoint`` replaces the draft's weights through
     the verified load. ``device`` defaults to ``"cuda"`` and raises
     without a GPU; ``device="cpu"`` runs the kernels' plain PyTorch
-    versions. ``mesh`` is refused (not yet ported). Returns an
-    :class:`InferenceEngine`."""
+    versions. ``mesh`` (a ``parallel.ProcessMesh``) or the config's
+    ``mesh`` block with a ``model_parallel_size`` above 1 serves over the
+    model axis, every rank of the world calling this with the whole
+    model: ``param_specs`` (default GPT-2's ``partition_specs``) cut the
+    weights; rank 0 takes the requests and the others run
+    ``serve_forever()``, which follows rank 0's plans until it closes the
+    engine (see the module docstring). A data, sequence or pipeline axis
+    above 1 is refused. Returns an :class:`InferenceEngine`."""
     return InferenceEngine(
         model=model,
         config=config,
@@ -1760,4 +2067,5 @@ def init_inference(
         device=device,
         draft_model=draft_model,
         draft_parameters=draft_parameters,
+        param_specs=param_specs,
     )

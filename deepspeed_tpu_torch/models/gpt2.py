@@ -25,10 +25,26 @@ axis above 1, cuts every parameter to this rank's shard and arms
 :meth:`GPT2LMHeadModel.configure_model_parallel`. The forward then looks
 ``wte`` up over the vocab shards, runs each block on its ``heads / mp``
 local heads (ops/transformer.py) and takes the loss as a vocab-parallel
-cross entropy (ops/cross_entropy.py:vocab_parallel_lm_head_loss).
+cross entropy (ops/cross_entropy.py:vocab_parallel_lm_head_loss). The
+serving caches and the adapter pool shard heads and the LoRA factors'
+Megatron dims the same way (:func:`kv_cache_partition_specs`,
+:func:`kv_pool_partition_specs`, :func:`adapter_pool_partition_specs`).
+
+Sequence parallelism (:meth:`GPT2LMHeadModel.configure_sequence_parallel`,
+armed by the training engine at a sequence axis above 1): the model's
+inputs are this rank's chunk of the sequence (rank ``i`` of the line
+holds positions ``i*Sl:(i+1)*Sl``), the position embeddings are looked
+up at those global positions, each block's attention runs as ring or
+Ulysses attention over the line (ops/transformer.py,
+parallel/sequence.py), and the loss is the JAX model's over the whole
+sequence: ``logits[:, :-1]`` against ``labels[:, 1:]``, the label of a
+rank's last token being the next rank's first, the last global position
+without one; each rank sums its NLL, and the line's sum divided by the
+line's count of labels is the mean.
 """
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn as nn
@@ -46,6 +62,7 @@ from ..ops.transformer import (
     DropoutRNG,
     dropout,
     layer_norm_apply,
+    resolve_lora_targets,
     transformer_block_apply,
 )
 from ..utils.device import resolve_device
@@ -54,8 +71,10 @@ from ..parallel.tensor import (
     TensorParallel,
     copy_to_region,
     gather_from_region,
+    reduce_from_region,
     vocab_parallel_lookup,
 )
+from ..runtime import dist as dist_lib
 from ..runtime.sparse import sparse_embedding_lookup
 from .stack import zero3_stack
 
@@ -95,6 +114,45 @@ def partition_specs(model):
     ``model_parallel_size`` is above 1."""
     return {n: _spec_for(n, p.dim())
             for n, p in model.named_parameters()}
+
+
+def kv_cache_partition_specs():
+    """The spec of the contiguous decode cache ``[layers, slots, heads,
+    max_len, head_dim]`` (inference/decode.py): heads over the model
+    axis, the Megatron head split of the qkv projection that writes them
+    (the JAX package's ``kv_cache_partition_specs``). A rank holds its
+    heads' rows (inference/decode.py:init_kv_cache)."""
+    return (None, None, MODEL_AXIS, None, None)
+
+
+def kv_pool_partition_specs():
+    """The spec of the paged decode pool ``[layers, num_blocks + 1,
+    block_size, heads, head_dim]``: heads over the model axis, as
+    :func:`kv_cache_partition_specs`; a rank holds its heads' rows of
+    every page."""
+    return (None, None, None, MODEL_AXIS, None)
+
+
+def adapter_pool_partition_specs(targets=None):
+    """The specs of the serving adapter pool ``{target: (A [layers, n+1,
+    in, r], B [layers, n+1, r, out])}``: the factor that carries its base
+    matrix's Megatron dim rides the model axis, B's output columns for a
+    column-parallel target (the qkv B cut per q|k|v column group, as
+    ``attn_qkvw``: parallel/tensor.py:shard_for_rank), A's input rows for
+    a row-parallel one; the rest is whole on every rank (the JAX
+    package's ``adapter_pool_partition_specs``)."""
+    out = {}
+    for t in resolve_lora_targets(targets):
+        if LORA_TARGET_PARALLEL[t] == "row":
+            out[t] = ((None, None, MODEL_AXIS, None), (None,) * 4)
+        else:
+            out[t] = ((None,) * 4, (None, None, None, MODEL_AXIS))
+    return out
+
+
+#: The label of a position with none (the last global position under
+#: sequence parallelism): an ignore value of the loss.
+NO_LABEL = -100
 
 
 def _round_up(x, multiple):
@@ -205,6 +263,7 @@ class GPT2LMHeadModel(nn.Module):
         )
         self.configure_data_parallel()
         self.configure_model_parallel()
+        self.configure_sequence_parallel()
         self.reset_parameters(seed)
 
     #: the stage-3 stack's tensors: ``h.<i>.<block tensor>``
@@ -233,6 +292,31 @@ class GPT2LMHeadModel(nn.Module):
         self.tensor_parallel = (TensorParallel(group, size, int(rank))
                                 if size > 1 else None)
         self.layer_config.tensor_parallel = self.tensor_parallel
+
+    def configure_sequence_parallel(self, line=None):
+        """The sequence-parallel setting the training engine hands the
+        model: ``line`` (parallel/sequence.py:SequenceParallel, or None
+        for the whole sequence on this rank). The model's inputs are then
+        this rank's chunk of the sequence (see the module docstring).
+        Refused with pipeline stages, as the JAX model refuses them."""
+        if line is not None and line.size <= 1:
+            line = None
+        if line is not None and self.config.pipeline_stages > 1:
+            raise ValueError(
+                "pipeline_stages > 1 does not compose with a >1 sequence "
+                "axis yet; use sp or pp for the stack, not both"
+            )
+        self.sequence_parallel = line
+        self.layer_config.sequence_parallel = line
+
+    def _dropout_index(self):
+        """The index that decorrelates this rank's dropout from the other
+        data and sequence ranks' (the data rank at a sequence axis of
+        1)."""
+        line = self.sequence_parallel
+        if line is None:
+            return self.data_rank
+        return self.data_rank * line.size + line.rank
 
     @torch.no_grad()
     def reset_parameters(self, seed=0):
@@ -278,8 +362,16 @@ class GPT2LMHeadModel(nn.Module):
     def hidden_states(self, input_ids, train=False, dropout_rng=None):
         """Embeddings -> the blocks -> ``ln_f``: [B, S, n_embd]. In training
         with a ``dropout_rng``, the embedding dropout and each block's
-        three dropout streams are drawn from it."""
+        three dropout streams are drawn from it. Under sequence
+        parallelism ``input_ids`` is this rank's chunk of the sequence and
+        the position embeddings are those of its global positions."""
         s = input_ids.shape[1]
+        line = self.sequence_parallel
+        if line is None:
+            pos = self.wpe[None, :s, :]
+        else:
+            first = line.rank * s
+            pos = self.wpe[None, first:first + s, :]
         rng = dropout_rng if train else None
         lookup = None
         if self.sparse_lookup is not None:
@@ -292,7 +384,7 @@ class GPT2LMHeadModel(nn.Module):
         else:
             emb = (self.wte[input_ids] if lookup is None
                    else lookup(self.wte, input_ids))
-        x = dropout(emb + self.wpe[None, :s, :], self.config.dropout, rng)
+        x = dropout(emb + pos, self.config.dropout, rng)
         if self.zero3_gather is not None:
             x = zero3_stack(
                 self.zero3_gather, self.layer_config, list(self.h), x,
@@ -322,21 +414,53 @@ class GPT2LMHeadModel(nn.Module):
                 return self._logits(self.hidden_states(input_ids))
         rng = None
         if train and dropout_seed is not None and self.config.dropout > 0:
-            rng = DropoutRNG(dropout_seed, input_ids.device, self.data_rank,
-                             self.model_rank)
+            rng = DropoutRNG(dropout_seed, input_ids.device,
+                             self._dropout_index(), self.model_rank)
         x = self.hidden_states(input_ids, train, rng)
         if labels is None:
             return self._logits(x)
+        line = self.sequence_parallel
+        count_fn = self.count_fn
+        if line is None:
+            x, labels = x[:, :-1], labels[:, 1:]
+        else:
+            labels = self._next_labels(labels, line)
+            count_fn = functools.partial(self._line_count, line)
         if self.tensor_parallel is not None:
-            return vocab_parallel_lm_head_loss(
-                x[:, :-1], self.wte, labels[:, 1:], self.tensor_parallel,
-                block_rows=self.config.ce_block_rows, count_fn=self.count_fn)
-        if self.config.ce_block_rows > 0:
-            return blocked_lm_head_loss(
-                x[:, :-1], self.wte, labels[:, 1:],
-                block_rows=self.config.ce_block_rows, count_fn=self.count_fn,
+            loss = vocab_parallel_lm_head_loss(
+                x, self.wte, labels, self.tensor_parallel,
+                block_rows=self.config.ce_block_rows, count_fn=count_fn)
+        elif self.config.ce_block_rows > 0:
+            loss = blocked_lm_head_loss(
+                x, self.wte, labels, block_rows=self.config.ce_block_rows,
+                count_fn=count_fn,
             )
-        return cross_entropy_ignore_index(
-            F.linear(x[:, :-1], self.wte), labels[:, 1:],
-            count_fn=self.count_fn,
-        )
+        else:
+            loss = cross_entropy_ignore_index(
+                F.linear(x, self.wte), labels, count_fn=count_fn,
+            )
+        # the line's sum of its ranks' shares (each rank backpropagates
+        # the whole loss through its own tokens)
+        return loss if line is None else reduce_from_region(loss, line)
+
+    @staticmethod
+    def _next_labels(labels, line):
+        """Each local position's next-token label: ``labels[:, 1:]`` and
+        the next rank's first label (:data:`NO_LABEL` on the last rank)."""
+        first = labels[:, :1].contiguous()
+        flat = torch.empty(first.numel() * line.size, dtype=first.dtype,
+                           device=first.device)
+        dist_lib.all_gather(flat, first.reshape(-1), line.group)
+        firsts = flat.view(line.size, *first.shape)
+        nxt = (firsts[line.rank + 1] if line.rank + 1 < line.size
+               else torch.full_like(first, NO_LABEL))
+        return torch.cat([labels[:, 1:], nxt], dim=1)
+
+    def _line_count(self, line, count):
+        """The loss's divisor under sequence parallelism: the line's count
+        of labels, then the engine's ``count_fn`` (the data group's)."""
+        total = count.detach().clone()
+        dist_lib.all_reduce(total, line.group)
+        if self.count_fn is not None:
+            return self.count_fn(total)
+        return total.clamp(min=1)

@@ -34,6 +34,12 @@ LoRA factors keep the JAX orientation, A ``[in, r]`` and B ``[r, out]``
 
 The paged functions update the KV pool IN PLACE (the JAX package returns
 a new pool from ``.at[].set()``); they return only the hidden states.
+
+Tensor parallelism (``tensor_parallel``) runs every block, the training
+and the serving ones, on the rank's ``heads / mp`` heads; the batched
+adapter pool then holds the rank's factor shards. Sequence parallelism
+(``sequence_parallel``) runs the training block's attention as ring or
+Ulysses attention over the sequence line (parallel/sequence.py).
 """
 
 import dataclasses
@@ -43,11 +49,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.sequence import sequence_parallel_attention_local
 from ..parallel.tensor import copy_to_region, reduce_from_region
 from .attention import (  # the seed strides are re-exported here
     DATA_RANK_SEED_STRIDE,
     MODEL_RANK_SEED_STRIDE,
     NEG_INF,
+    additive_mask_to_kv_valid,
     attention,
     routes_to_flash,
     shard_seed,
@@ -145,6 +153,14 @@ class DeepSpeedTransformerConfig:
     # heads / mp local heads; None = the whole block on one rank
     tensor_parallel: object = dataclasses.field(
         default=None, compare=False, repr=False)
+    # sequence parallelism (parallel/sequence.py:SequenceParallel): the
+    # block's tokens are this rank's chunk of the sequence and attention
+    # runs as ring or Ulysses attention over the line (the JAX layer's
+    # ``mesh`` with a sequence axis above 1); None = the whole sequence
+    sequence_parallel: object = dataclasses.field(
+        default=None, compare=False, repr=False)
+    # "auto" | "ring" | "ulysses" (the JAX layer's seq_parallel_impl)
+    seq_parallel_impl: str = "auto"
 
     @property
     def intermediate(self):
@@ -521,13 +537,9 @@ def _project(cfg, p, lora, name, x, bias):
     )
 
 
-def _tp_lora(cfg, p, lora, name):
+def _tp_lora(cfg, p, name):
     """The per-layer LoRA factors of ``name`` under tensor parallelism, or
-    None. The serving pools have no model-parallel form here (the
-    inference engine over a mesh is ROADMAP A7a-serve)."""
-    if lora is not None:
-        raise ValueError("the batched adapter pool does not run under "
-                         "tensor parallelism (ROADMAP A7a-serve)")
+    None."""
     if cfg.lora_rank <= 0 or getattr(p, f"{name}_lora_a", None) is None:
         return None
     return (getattr(p, f"{name}_lora_a"), getattr(p, f"{name}_lora_b"),
@@ -540,13 +552,18 @@ def _project_column(cfg, p, lora, name, x, bias):
     group's sum) and each rank computes its slice of the outputs with its
     weight and bias rows. A LoRA A factor [in, r] is replicated and used
     inside the region, so its gradient is summed too; B holds the rank's
-    output columns."""
+    output columns. The batched serving pool (``lora``) holds the same
+    shards, A whole and B the rank's columns (models/gpt2.py:
+    adapter_pool_partition_specs), so its delta, and SGMV's epilogue,
+    land on the rank's own columns."""
     tp = cfg.tensor_parallel
     if tp is None:
         return _project(cfg, p, lora, name, x, bias)
     x = copy_to_region(x, tp)
     y = F.linear(x, getattr(p, name), bias)
-    f = _tp_lora(cfg, p, lora, name)
+    if lora is not None:
+        return apply_lora(cfg, p, lora, name, x, y)
+    f = _tp_lora(cfg, p, name)
     if f is None:
         return y
     a, b, scale = f
@@ -559,13 +576,18 @@ def _project_row(cfg, p, lora, name, x, bias):
     the replicated bias is added once, after the sum. A LoRA A factor
     holds the rank's input rows and its delta joins the partial sum; B
     [r, out] is replicated and used inside the region, so its gradient is
-    summed."""
+    summed. The batched serving pool (``lora``) holds A's rows of the
+    rank's inputs and B whole: its delta (SGMV's epilogue in fused
+    decode) is a partial sum too, added to the rank's partial product
+    before the reduction."""
     tp = cfg.tensor_parallel
     if tp is None:
         return _project(cfg, p, lora, name, x, bias)
     y = F.linear(x, getattr(p, name))
-    f = _tp_lora(cfg, p, lora, name)
-    if f is not None:
+    f = _tp_lora(cfg, p, name)
+    if lora is not None:
+        y = apply_lora(cfg, p, lora, name, x, y)
+    elif f is not None:
         a, b, scale = f
         y = y + (scale * ((x @ a) @ copy_to_region(b, tp))).to(y.dtype)
     return reduce_from_region(y, tp) + bias
@@ -629,7 +651,15 @@ def transformer_block_apply(cfg, p, hidden_states, attention_mask=None, *,
     the same kernels, and each row-parallel product (``attn_ow``,
     ``output_w``) is summed over the model group before its bias and the
     hidden dropout, so the residual stream stays the same on every model
-    rank."""
+    rank.
+
+    Under ``cfg.sequence_parallel`` (a line of more than one rank) the
+    block's tokens are this rank's chunk of the sequence and attention
+    runs as ring or Ulysses attention over the line
+    (parallel/sequence.py; ``cfg.seq_parallel_impl``, "auto" choosing by
+    the rank's heads), as the JAX block dispatches under a mesh with a
+    sequence axis: ``return_kv`` and masks other than a padding mask are
+    refused there, with the JAX block's messages."""
     H = cfg.hidden_size
     head_dim = H // cfg.heads
     if head_dim * cfg.heads != H:
@@ -669,11 +699,34 @@ def transformer_block_apply(cfg, p, hidden_states, attention_mask=None, *,
             for t in qkv.split(H_local, dim=-1)
         )
 
+    line = cfg.sequence_parallel
+    if line is not None and line.size <= 1:
+        line = None
+    kv_valid = None
+    if line is not None:
+        if return_kv:
+            raise ValueError(
+                "return_kv (KV-cache prefill) does not compose with "
+                "sequence-parallel attention; decode with a mesh whose "
+                "sequence axis is 1"
+            )
+        kv_valid = additive_mask_to_kv_valid(attention_mask)
+        if attention_mask is not None and kv_valid is None:
+            raise ValueError(
+                "sequence-parallel attention supports padding-style "
+                "masks only (broadcast over the query dim)"
+            )
+
     def attend(qh, kh, vh):
+        rate = cfg.attn_dropout_ratio if rng is not None else 0.0
+        if line is not None:
+            return sequence_parallel_attention_local(
+                qh, kh, vh, kv_valid, line=line, impl=cfg.seq_parallel_impl,
+                use_flash=use_flash, causal=causal, dropout_rate=rate,
+                dropout_seed=attn_seed)
         return attention(
             qh, kh, vh, mask=attention_mask, causal=causal,
-            dropout_rate=cfg.attn_dropout_ratio if rng is not None else 0.0,
-            dropout_seed=attn_seed, use_flash=use_flash,
+            dropout_rate=rate, dropout_seed=attn_seed, use_flash=use_flash,
         )
 
     def finish(o_p, x, ctx, keep_a, keep_f):
@@ -706,7 +759,7 @@ def transformer_block_apply(cfg, p, hidden_states, attention_mask=None, *,
         policy = resolve_remat_policy(cfg.remat_policy)
         kw["context_fn"] = policy.context_fn
     if policy is not None and policy.keep_flash and use_flash and (
-            routes_to_flash(attention_mask, s, s)):
+            line is None and routes_to_flash(attention_mask, s, s)):
         # attention outside the checkpointed segments: its autograd
         # Function keeps the kernel's out and lse, and the forward kernel
         # is not launched again
@@ -754,14 +807,26 @@ def _attend_gathered(q, k_full, v_full, positions, live=None):
     return ctx
 
 
+def _local_heads(cfg):
+    """``(heads, head_dim, heads * head_dim)`` of this rank: the block's
+    heads over the model axis (all of them without tensor
+    parallelism)."""
+    tp = cfg.tensor_parallel
+    mp = 1 if tp is None else tp.size
+    if cfg.heads % mp:
+        raise ValueError(f"{cfg.heads} heads do not split over a model "
+                         f"axis of {mp}")
+    heads, head_dim = cfg.heads // mp, cfg.hidden_size // cfg.heads
+    return heads, head_dim, heads * head_dim
+
+
 def _decode_block_core(cfg, p, hidden_states, attend, lora=None):
     """The shared single-token decode block: LN/qkv/attention/FFN, with
     the attention context behind ``attend(q, k_new, v_new) -> ctx``
-    (each [B, heads, hd]) and ``lora`` the batched adapter source of
-    :func:`apply_lora` (one adapter row per slot)."""
-    H = cfg.hidden_size
-    heads = cfg.heads
-    head_dim = H // heads
+    (each [B, heads, hd], this rank's heads under tensor parallelism)
+    and ``lora`` the batched adapter source of :func:`apply_lora` (one
+    adapter row per slot)."""
+    heads, head_dim, H = _local_heads(cfg)
     b = hidden_states.shape[0]
 
     residual = hidden_states
@@ -769,12 +834,12 @@ def _decode_block_core(cfg, p, hidden_states, attend, lora=None):
         layer_norm_apply(cfg, hidden_states, p.attn_nw, p.attn_nb)
         if cfg.pre_layer_norm else hidden_states
     )
-    qkv = _project(cfg, p, lora, "attn_qkvw", attn_in, p.attn_qkvb)
+    qkv = _project_column(cfg, p, lora, "attn_qkvw", attn_in, p.attn_qkvb)
     q, k_new, v_new = (
         t.reshape(b, heads, head_dim) for t in qkv.split(H, dim=-1)
     )
     ctx = attend(q.contiguous(), k_new, v_new).reshape(b, 1, H)
-    x = residual + _project(cfg, p, lora, "attn_ow", ctx, p.attn_ob)
+    x = residual + _project_row(cfg, p, lora, "attn_ow", ctx, p.attn_ob)
     if not cfg.pre_layer_norm:
         x = layer_norm_apply(cfg, x, p.attn_nw, p.attn_nb)
     return _ffn_sublayer(cfg, p, x, lora=lora)
@@ -860,10 +925,9 @@ def transformer_block_prefill_paged(cfg, p, hidden_states, k_pool, v_pool,
     PLACE (rows past the table's extent go to the NULL page), then runs
     causal attention over the whole gathered page view. Plain PyTorch, as
     the JAX package's path is plain XLA. ``lora``: the batched adapter
-    source of :func:`apply_lora`. Returns [B, S, H]."""
-    H = cfg.hidden_size
-    heads = cfg.heads
-    head_dim = H // heads
+    source of :func:`apply_lora`. Under tensor parallelism the pool holds
+    this rank's heads and the block runs on them. Returns [B, S, H]."""
+    heads, head_dim, H = _local_heads(cfg)
     b, s, _ = hidden_states.shape
     block_size = k_pool.shape[1]
     max_blocks = block_tables.shape[1]
@@ -875,7 +939,7 @@ def transformer_block_prefill_paged(cfg, p, hidden_states, k_pool, v_pool,
         layer_norm_apply(cfg, hidden_states, p.attn_nw, p.attn_nb)
         if cfg.pre_layer_norm else hidden_states
     )
-    qkv = _project(cfg, p, lora, "attn_qkvw", attn_in, p.attn_qkvb)
+    qkv = _project_column(cfg, p, lora, "attn_qkvw", attn_in, p.attn_qkvb)
     q, k_new, v_new = qkv.split(H, dim=-1)
     qh = q.reshape(b, s, heads, head_dim).transpose(1, 2)  # [B, heads, S, hd]
 
@@ -903,7 +967,7 @@ def transformer_block_prefill_paged(cfg, p, hidden_states, k_pool, v_pool,
         "bhsk,bhkd->bhsd", probs.to(v_full.dtype).float(), v_full.float()
     ).to(v_full.dtype)
     ctx = ctx.transpose(1, 2).reshape(b, s, H)
-    x = residual + _project(cfg, p, lora, "attn_ow", ctx, p.attn_ob)
+    x = residual + _project_row(cfg, p, lora, "attn_ow", ctx, p.attn_ob)
     if not cfg.pre_layer_norm:
         x = layer_norm_apply(cfg, x, p.attn_nw, p.attn_nb)
     return _ffn_sublayer(cfg, p, x, lora=lora)

@@ -1,11 +1,12 @@
-"""Parallelism: the process mesh, the mpu protocol over it, and the
-tensor-parallel collectives.
+"""Parallelism: the process mesh, the mpu protocol over it, the
+tensor-parallel collectives and sequence parallelism.
 
-Port of deepspeed_tpu/parallel/ (mesh.py, mpu.py): data and model
-(tensor) parallelism across processes, one per device; tensor.py holds
-the Megatron collectives that GSPMD inserts for the JAX package. The JAX
-package's sequence parallelism (ring attention, Ulysses; ROADMAP A7b) and
-SPMD pipeline (A7d) are not ported.
+Port of deepspeed_tpu/parallel/ (mesh.py, mpu.py, sequence.py): data,
+sequence and model (tensor) parallelism across processes, one per device;
+tensor.py holds the Megatron collectives that GSPMD inserts for the JAX
+package, sequence.py the ring and Ulysses attention over the sequence
+process group. The JAX package's SPMD pipeline (ROADMAP A7d) is not
+ported.
 """
 
 from .mesh import (
@@ -21,6 +22,15 @@ from .mesh import (
     resolve_topology,
 )
 from .mpu import ExternalMpuAdapter, TorchMpu, as_mpu
+from .sequence import (
+    SequenceParallel,
+    ring_attention,
+    ring_attention_local,
+    sequence_line,
+    sequence_parallel_attention,
+    ulysses_attention,
+    ulysses_attention_local,
+)
 
 __all__ = [
     "DATA_AXIS",
@@ -36,4 +46,11 @@ __all__ = [
     "ExternalMpuAdapter",
     "TorchMpu",
     "as_mpu",
+    "SequenceParallel",
+    "ring_attention",
+    "ring_attention_local",
+    "sequence_line",
+    "sequence_parallel_attention",
+    "ulysses_attention",
+    "ulysses_attention_local",
 ]

@@ -13,10 +13,11 @@ ranks in the same order, outermost first:
 A rank's coordinates follow from its rank (row-major over the axes, the
 model axis innermost, as the JAX package orders its mesh), ``data_group``
 is the process group of its data-axis line (the ranks that differ from it
-in the data coordinate only) and ``model_group`` that of its model-axis
-line. The data and model axes may exceed 1; the sequence axis (ring and
-Ulysses attention, ROADMAP A7b) and the pipe axis (the pipeline
-schedule, A7d) raise ``not_ported``.
+in the data coordinate only), ``seq_group`` that of its sequence-axis line
+(ring and Ulysses attention, parallel/sequence.py) and ``model_group``
+that of its model-axis line. The data, sequence and model axes may exceed
+1; the pipe axis (the pipeline schedule, ROADMAP A7d) raises
+``not_ported``.
 """
 
 import dataclasses
@@ -77,14 +78,15 @@ def resolve_topology(
 @dataclasses.dataclass(frozen=True)
 class ProcessMesh:
     """This rank's place in the mesh: the topology, the rank, its
-    coordinates ``{axis: index}`` and the process groups of its data-axis
-    and model-axis lines (None for an axis of size 1)."""
+    coordinates ``{axis: index}`` and the process groups of its data-,
+    sequence- and model-axis lines (None for an axis of size 1)."""
 
     topology: MeshTopology
     rank: int
     coords: dict
     data_group: object = None
     model_group: object = None
+    seq_group: object = None
 
     @property
     def shape(self):
@@ -99,6 +101,14 @@ class ProcessMesh:
     @property
     def data_rank(self):
         return self.coords[DATA_AXIS]
+
+    @property
+    def sp_size(self):
+        return self.topology.sequence
+
+    @property
+    def seq_rank(self):
+        return self.coords[SEQ_AXIS]
 
     @property
     def mp_size(self):
@@ -117,6 +127,18 @@ class ProcessMesh:
         import torch.distributed as dist
 
         return dist.group.WORLD
+
+    def line_ranks(self, axis):
+        """The global ranks of this rank's line along ``axis``, in the
+        order of that axis's coordinate."""
+        shape = self.shape
+        stride = 1
+        for a in reversed(MESH_AXES):
+            if a == axis:
+                break
+            stride *= shape[a]
+        base = self.rank - self.coords[axis] * stride
+        return tuple(base + i * stride for i in range(shape[axis]))
 
 
 def _coords(rank, shape):
@@ -158,10 +180,11 @@ def _line_groups(shape, axis):
 def build_mesh(world_size=None, rank=None, **topo_kwargs) -> ProcessMesh:
     """The process mesh over the initialised torch.distributed world (or
     ``world_size``/``rank`` given), sized by ``resolve_topology``'s
-    keywords. Raises ``not_ported`` for a sequence or pipeline axis above
-    1. Every rank makes the data-axis line groups, then the model-axis
-    ones, so this is a collective of the world when either axis is above
-    1."""
+    keywords. Raises ``not_ported`` for a pipeline axis above 1. Every
+    rank makes the data-axis line groups, then the sequence-axis ones,
+    then the model-axis ones (``new_group`` must be called in one order
+    on every rank), so this is a collective of the world when any of the
+    three is above 1."""
     import torch.distributed as dist
 
     live = dist.is_available() and dist.is_initialized()
@@ -169,18 +192,14 @@ def build_mesh(world_size=None, rank=None, **topo_kwargs) -> ProcessMesh:
         world_size = dist.get_world_size() if live else 1
     if rank is None:
         rank = dist.get_rank() if live else 0
-    for axis, key, item in ((SEQ_AXIS, "sequence_parallel_size", "A7b"),
-                            (PIPE_AXIS, "pipeline_parallel_size", "A7d")):
-        size = topo_kwargs.get(key, 1)
-        if size > 1:
-            raise not_ported(
-                f"a {axis} mesh axis of {size} (ROADMAP {item})"
-            )
+    size = topo_kwargs.get("pipeline_parallel_size", 1)
+    if size > 1:
+        raise not_ported(f"a {PIPE_AXIS} mesh axis of {size} (ROADMAP A7d)")
     topology = resolve_topology(world_size, **topo_kwargs)
     shape = {PIPE_AXIS: topology.pipe, DATA_AXIS: topology.data,
              SEQ_AXIS: topology.sequence, MODEL_AXIS: topology.model}
     groups = {}
-    for axis in (DATA_AXIS, MODEL_AXIS):
+    for axis in (DATA_AXIS, SEQ_AXIS, MODEL_AXIS):
         if shape[axis] <= 1:
             continue
         if not live:
@@ -191,7 +210,8 @@ def build_mesh(world_size=None, rank=None, **topo_kwargs) -> ProcessMesh:
             )
         groups[axis] = _line_groups(shape, axis)
     return ProcessMesh(topology, int(rank), _coords(int(rank), shape),
-                       groups.get(DATA_AXIS), groups.get(MODEL_AXIS))
+                       groups.get(DATA_AXIS), groups.get(MODEL_AXIS),
+                       groups.get(SEQ_AXIS))
 
 
 def mesh_from_config(config, world_size=None, rank=None) -> ProcessMesh:

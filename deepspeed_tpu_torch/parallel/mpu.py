@@ -2,10 +2,11 @@
 
 Port of deepspeed_tpu/parallel/mpu.py. The reference consumed a
 Megatron-style ``mpu`` object exposing ``get_{model,data}_parallel_
-{rank,group,world_size}``; :class:`TorchMpu` implements that protocol on
-the process mesh (parallel/mesh.py). Where the JAX package's groups are
-axis names for its collectives, these are torch.distributed process
-groups (the data or model axis's line; None for an axis of size 1, whose
+{rank,group,world_size}`` (and the sequence and pipeline forms);
+:class:`TorchMpu` implements that protocol on the process mesh
+(parallel/mesh.py). Where the JAX package's groups are axis names for
+its collectives, these are torch.distributed process groups (the data,
+sequence or model axis's line; None for an axis of size 1, whose
 only member is this rank), and the ranks are this process's mesh
 coordinates. ``checkpointing.model_parallel_seed`` and an external
 Megatron integration read the model-parallel rank and group.
@@ -39,8 +40,8 @@ class TorchMpu:
         return self.mesh.shape[mesh_lib.PIPE_AXIS]
 
     # --- groups ----------------------------------------------------------
-    # the sequence and pipe axes stay at 1 (mesh.build_mesh refuses the
-    # rest), so their groups hold this rank alone: None
+    # the pipe axis stays at 1 (mesh.build_mesh refuses the rest), so its
+    # group holds this rank alone: None
     def get_model_parallel_group(self):
         return self.mesh.model_group
 
@@ -48,7 +49,7 @@ class TorchMpu:
         return self.mesh.data_group
 
     def get_sequence_parallel_group(self):
-        return None
+        return self.mesh.seq_group
 
     def get_pipeline_parallel_group(self):
         return None

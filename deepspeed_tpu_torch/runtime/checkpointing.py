@@ -59,7 +59,10 @@ tensor joined over the model group in the JAX package's element order
 dim, and a load joins the model ranks' states into the global one before
 it cuts this engine's model shards, then its data shards, from it. So a
 checkpoint saved at one data x model layout loads at any other. The tag
-agreement, the barrier and the commit outcome span every rank.
+agreement, the barrier and the commit outcome span every rank. The ranks
+of a sequence line hold the same state, so only the line's first writes
+(the files are those of the layout without the sequence axis, and load
+at any sequence size).
 
 Across data-parallel ranks at ZeRO stage >= 1 (runtime/zero.py) every
 rank writes its own ``zero_pp_rank_<r>_mp_rank_00optim_states.pt``: its
@@ -500,7 +503,9 @@ def save_checkpoint(engine, save_dir, tag=None, client_state=None):
     dp = int(getattr(engine, "dp_world_size", 1))
     rank = int(getattr(engine, "data_rank", 0))
     world, group = _world(engine)
-    first = rank == 0 and mp_rank == 0
+    # the ranks of a sequence line hold the same state: its first writes
+    writer = int(getattr(engine, "seq_rank", 0)) == 0
+    first = rank == 0 and mp_rank == 0 and writer
 
     # ---- model states file (rank 0) -----------------------------------
     scaler = engine.loss_scale_state
@@ -542,14 +547,14 @@ def save_checkpoint(engine, save_dir, tag=None, client_state=None):
             n: (-1 if engine._opt_model_dim(n) is None
                 else int(engine._opt_model_dim(n)))
             for n in engine.params}}
-    if zero is not None:
+    if zero is not None and writer:
         payload = {"num_shards": dp, "rank": rank, "layout": _describe(zero),
                    "optimizer_state": _canonical_opt_state(engine), **model}
         optim_path = os.path.join(ckpt_dir,
                                   OPTIM_FILE.format(dp=rank, mp=mp_rank))
         _write_blob(res, optim_path, _serialize(payload))
         del payload
-    elif rank == 0:
+    elif zero is None and rank == 0 and writer:
         payload = {"num_shards": 1,
                    "optimizer_state": _canonical_opt_state(engine), **model}
         optim_path = os.path.join(ckpt_dir,

@@ -140,9 +140,23 @@ int8 moments the optimizer steps whole (model-gathered) tensors, as the
 JAX engine keeps its flat int8 leaves replicated over the model axis;
 at ZeRO stage 3 that combination is not ported.
 
+Sequence parallelism (a ``sequence_parallel_size`` above 1, GPT-2): the
+ranks of a sequence line read the same rows (the data rank's) and each
+keeps its chunk of the tokens (dim 1 of every input, cut in sequence
+order, as the JAX engine's sequence-sharded batch); the model arms
+:meth:`~deepspeed_tpu_torch.models.gpt2.GPT2LMHeadModel.configure_sequence_parallel`
+(ring or Ulysses attention, the loss over the whole sequence). Every
+parameter is replicated over the sequence axis, so each window's
+gradients are summed over the sequence group once, after the data
+group's reduction (ZeRO's shards are the same on every rank of a line:
+ZeRO partitions over the data axis only); the world norms count a
+sequence line once. Refused there with ``not_ported("... (ROADMAP A7b,
+what is left)")``: bf16 or int8 moments, compensated masters, optimizer
+offload, the adapters block and ``sparse_gradients``.
+
 Not ported, refused with ``DeepSpeedConfigError("... not yet ported")``:
-a sequence or pipeline mesh axis above 1 (ROADMAP A7b, A7d), a model
-with MoE experts (A7c) or pipeline stages (A7d). Optimizer offload at
+a pipeline mesh axis above 1 (ROADMAP A7d), a model with MoE experts
+(A7c) or pipeline stages (A7d). Optimizer offload at
 data parallel > 1 is refused with the JAX engine's message.
 """
 
@@ -167,6 +181,7 @@ from ..ops.optimizers import Optimizer, build_optimizer, param_groups
 from ..ops.transformer import resolve_remat_policy
 from ..parallel import tensor as tp_lib
 from ..parallel.mesh import ProcessMesh, mesh_from_config
+from ..parallel.sequence import sequence_line
 from ..parallel.mpu import as_mpu
 from ..resilience import SupervisorEscalation, build_resilience
 from ..resilience.supervisor import build_supervisor
@@ -303,6 +318,7 @@ class DeepSpeedEngine:
         self.mp_world_size = mesh.mp_size
         self.model_rank = mesh.model_rank
         self._mp_group = mesh.model_group
+        self.seq_rank = mesh.seq_rank
         self._world_group = mesh.world_group
         self.config = DeepSpeedConfig(None, param_dict=raw, training=True,
                                       world_size=self.dp_world_size)
@@ -389,10 +405,12 @@ class DeepSpeedEngine:
         # tensor parallelism: this rank's Megatron shards (None: the model
         # is whole on every rank)
         self._tp = None
+        self._sp_line = None
         self._model_dims = {}
         self._tp_full_opt = False
         self._full_masters = None
         self._configure_model_parallel(param_specs)
+        self._configure_sequence_parallel()
         if self.compensated_master:
             self.module.to(dtype=self.compute_dtype)
 
@@ -730,7 +748,8 @@ class DeepSpeedEngine:
         """The optimizer's leaves this rank leaves out of a world norm:
         one replicated over the data group on a data rank other than 0,
         one replicated over the model group on a model rank other than
-        0."""
+        0, and every leaf on a sequence rank other than 0 (the line's
+        gradients are the same on each of its ranks)."""
         if not self._distributed_norms():
             return frozenset()
         data_sharded = (self._zero is not None and self._zero.sharded)
@@ -739,7 +758,8 @@ class DeepSpeedEngine:
             over_data = data_sharded and not self._zero.leaves[n].replicated
             over_model = self._opt_model_dim(n) is not None
             if ((not over_data and self.data_rank)
-                    or (not over_model and self.model_rank)):
+                    or (not over_model and self.model_rank)
+                    or self.seq_rank):
                 skip.add(n)
         return frozenset(skip)
 
@@ -864,6 +884,40 @@ class DeepSpeedEngine:
             f"{len(self._model_dims)} parameters sharded"
             + (" (the optimizer steps model-gathered tensors: int8 "
                "moments)" if self._tp_full_opt else ""), ranks=[0])
+
+    def _configure_sequence_parallel(self):
+        """A sequence axis above 1: refuse what is not ported there and arm
+        the model's sequence-parallel seam; at sequence size 1 the seam is
+        reset, whatever an earlier engine armed on it."""
+        module = self.module
+        line = sequence_line(self.mesh)
+        if line is None:
+            if hasattr(module, "configure_sequence_parallel"):
+                module.configure_sequence_parallel(None)
+            return
+        cfg = self.config
+        for what, on in (
+                (f"{cfg.optimizer_state_dtype} optimizer moments",
+                 cfg.optimizer_state_dtype in ("bf16", "int8")),
+                ("compensated masters", self.compensated_master),
+                ("optimizer offload", self.host_offload),
+                ("the adapters block", cfg.adapters_enabled),
+                ("sparse_gradients", cfg.sparse_gradients_enabled)):
+            if on:
+                raise not_ported(
+                    f"{what} at a sequence axis above 1 (ROADMAP A7b, what "
+                    "is left)")
+        if not hasattr(module, "configure_sequence_parallel"):
+            raise not_ported(
+                f"a sequence axis above 1 for a {type(module).__name__} "
+                "(sequence parallelism needs a model with the "
+                "configure_sequence_parallel seam, GPT2LMHeadModel; ROADMAP "
+                "A7b, what is left)")
+        module.configure_sequence_parallel(line)
+        self._sp_line = line
+        log_dist(
+            f"sequence parallel: sequence axis {line.size} (attention "
+            f"{module.layer_config.seq_parallel_impl})", ranks=[0])
 
     def _model_full_masters(self):
         """The model-gathered optimizer: float32 masters of the whole
@@ -1220,12 +1274,22 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------
     def _batch(self, inputs):
         """Inputs on the engine's device; floating ones in the compute
-        dtype (integer ids and labels untouched)."""
+        dtype (integer ids and labels untouched). At a sequence axis above
+        1, this rank's chunk of dim 1 of every input with one (the
+        tokens), in sequence order."""
         out = []
+        line = self._sp_line
         for x in inputs:
             x = torch.as_tensor(x, device=self.device)
             if x.is_floating_point():
                 x = x.to(self.compute_dtype)
+            if line is not None and x.dim() >= 2:
+                if x.shape[1] % line.size:
+                    raise ValueError(
+                        f"an input of shape {tuple(x.shape)}: sequence "
+                        f"parallelism cuts dim 1 of every input over "
+                        f"{line.size} ranks")
+                x = x.chunk(line.size, dim=1)[line.rank]
             out.append(x)
         return tuple(out)
 
@@ -1537,6 +1601,12 @@ class DeepSpeedEngine:
                      for n, g in grads.items()}
         if self._zero is not None:
             grads = self._reduce_at_boundary(grads)
+        if self._sp_line is not None:
+            # every parameter is replicated over the sequence axis: the
+            # line's sum, on the data group's result (its shards are the
+            # same on every rank of the line)
+            for g in grads.values():
+                dist_lib.all_reduce(g, self._sp_line.group)
         # the overflow test and the norm run where the gradients are, as
         # on the on-device path, so that offload's clip factor is that
         # path's bit for bit

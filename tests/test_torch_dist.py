@@ -99,15 +99,16 @@ def test_init_distributed_return_values_and_errors(monkeypatch):
                                   "sequence_parallel_size",
                                   "pipeline_parallel_size"])
 def test_a_non_data_axis_is_refused_naming_a7(axis):
-    if axis == "model_parallel_size":
-        # the model axis is ported: in one process only the topology
-        # refuses it (tests/test_torch_model_parallel*.py run it on ranks)
+    if axis in ("model_parallel_size", "sequence_parallel_size"):
+        # the model and sequence axes are ported: in one process only the
+        # topology refuses them (tests/test_torch_model_parallel*.py and
+        # tests/test_torch_sequence_parallel.py run them on ranks)
         with pytest.raises(ValueError, match="not divisible by mp"):
             build_mesh(**{axis: 2})
         with pytest.raises(ValueError, match="not divisible by mp"):
             mesh_from_config({axis: 2})
         return
-    item = "A7b" if axis == "sequence_parallel_size" else "A7d"
+    item = "A7d"
     with pytest.raises(DeepSpeedConfigError, match=item):
         build_mesh(**{axis: 2})
     with pytest.raises(DeepSpeedConfigError, match="not yet ported"):

@@ -320,14 +320,17 @@ def test_sampled_decoding_is_seeded_and_in_vocab(models):
     ({"kv_block_size": 0, "host_tier": {"enabled": True}}, {}),
     ({"speculative": {"k": 2}}, {}),
     ({}, {"mesh": {"data_parallel_size": 2}}),
-    ({}, {"mesh": {"model_parallel_size": 2}}),
+    ({}, {"mesh": {"sequence_parallel_size": 2}}),
 ])
 def test_engine_refuses_what_is_not_yet_ported(models, inference, extra):
-    """A device mesh is not yet ported. The contiguous cache, the host
-    tier and speculative decoding are (since they came with the rest of
-    inference), so their cases hold what the JAX engine still refuses of
-    them, with its message: fused decode without pages, a host tier with
-    nothing to spill, speculation without a draft."""
+    """Serving over a data or sequence axis is not yet ported (replicas
+    are the serving fleet's, ROADMAP A8); the model axis is
+    (tests/test_torch_serving_model_parallel.py), so its case now holds a
+    sequence axis. The contiguous cache, the host tier and speculative
+    decoding are ported (since they came with the rest of inference), so
+    their cases hold what the JAX engine still refuses of them, with its
+    message: fused decode without pages, a host tier with nothing to
+    spill, speculation without a draft."""
     _, jmodel, params, model = models
     block = {k: v for k, v in dict(_BLOCK, **inference).items()
              if not (k == "kv_block_size" and v == 0)}
@@ -338,6 +341,7 @@ def test_engine_refuses_what_is_not_yet_ported(models, inference, extra):
         )
     if extra:
         assert "not yet ported" in str(got.value)
+        assert "ROADMAP A8" in str(got.value)
         return
     with pytest.raises(Exception) as want:
         deepspeed_tpu.init_inference(

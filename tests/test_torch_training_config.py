@@ -131,29 +131,32 @@ def _tiny():
 # ported too, as the JAX engine takes it: extra0, 1 and 5 now build, train
 # a step and leave the frozen base as it was. The model axis is ported
 # (tests/test_torch_model_parallel*.py): extra2, 8 and 9 now hold
-# sequence and pipeline axes
+# sequence and pipeline axes. The sequence axis is ported too
+# (tests/test_torch_sequence_parallel.py, which holds what it refuses on
+# ranks): extra2, 3, 7 and 10 now hold a pipeline axis, alone or with a
+# sequence axis
 @pytest.mark.parametrize("extra", [
     {"adapters": {"enabled": True, "rank": 4},
      "zero_optimization": {"stage": 1,
                            "offload_optimizer": {"device": "cpu"}}},
     {"adapters": {"enabled": True, "rank": 4}, "bf16": {"enabled": True},
      "data_types": {"master_dtype": "compensated"}},
-    {"mesh": {"sequence_parallel_size": 2},
+    {"mesh": {"pipeline_parallel_size": 2},
      "activation_checkpointing": {"partition_activations": True}},
-    {"mesh": {"sequence_parallel_size": 2}},
+    {"mesh": {"pipeline_parallel_size": 2, "sequence_parallel_size": 2}},
     {"mesh": {"pipeline_parallel_size": 2},
      "zero_optimization": {"stage": 2}},
     {"adapters": {"enabled": True, "rank": 4}, "fp16": {"enabled": True},
      "data_types": {"master_dtype": "compensated"}},
     {"mesh": {"pipeline_parallel_size": 2},
      "data_types": {"optimizer_state_dtype": "int8"}},
-    {"mesh": {"sequence_parallel_size": 2},
+    {"mesh": {"pipeline_parallel_size": 2},
      "zero_optimization": {"stage": 2,
                            "offload_optimizer": {"device": "cpu"}}},
     {"mesh": {"pipeline_parallel_size": 2}},
     {"mesh": {"pipeline_parallel_size": 2},
      "optimizer": {"type": "SGD", "params": {"lr": 0.1}}},
-    {"mesh": {"sequence_parallel_size": 2},
+    {"mesh": {"pipeline_parallel_size": 2, "sequence_parallel_size": 2},
      "optimizer": {"type": "Lion", "params": {"lr": 0.1}}},
 ])
 def test_engine_refuses_what_is_not_ported(extra):

@@ -14,7 +14,11 @@ process makes the same global batches for the JAX engine): a window is
 ``accum`` micro-batches of ``micro * dp`` rows, and rank ``r`` feeds rows
 ``r*micro:(r+1)*micro`` of each. The ``mp_*`` cases run a data x model
 mesh of the world (tensor parallelism, ``mp`` ranks a model line): the
-ranks of a line feed their data rank's rows.
+ranks of a line feed their data rank's rows. The ``sp_*`` cases run a
+sequence axis (ring and Ulysses attention, and GPT-2 whose engine keeps
+each rank's chunk of its data rank's rows), and ``serve_mp`` serves over
+a model axis of the world, rank 0 driving ``serve_traffic`` and the
+others following its plans.
 
 A spawn's rendezvous store is the test process's own, listening on a
 port the kernel picked, held until the spawn ends; the ranks join it as
@@ -773,6 +777,353 @@ def case_mp_commit_fail(case, rank, world, workdir):
     return {"raised": raised, "latest": (ckpt / "latest").exists()}
 
 
+# ---------------------------------------------------------------------------
+# sequence parallelism: the ring and Ulysses over a sequence line, and
+# GPT-2 trained at a sequence axis of 2 (the ranks of a line feed the
+# same rows, their data rank's; the engine keeps each rank's tokens)
+# ---------------------------------------------------------------------------
+SP_DROP = dict(b=2, h=2, s=32, d=8, seed=7)
+SP_DROP_RATE, SP_DROP_DRAWS = 0.3, 200
+
+
+def sp_qkv(b=2, h=4, s=64, d=16, seed=0):
+    """tests/unit/test_sequence_parallel.py's inputs: q, k, v [b, h, s,
+    d] float32 from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal((b, h, s, d)).astype(np.float32)
+                 for _ in range(3))
+
+
+def sp_valid(b=2, s=64, seed=1):
+    """A key validity vector [b, s] with the first key always valid."""
+    rng = np.random.default_rng(seed)
+    valid = (rng.random((b, s)) < 0.8).astype(np.int32)
+    valid[:, 0] = 1
+    return valid
+
+
+def _sp_mesh(**sizes):
+    from deepspeed_tpu_torch.parallel.mesh import build_mesh
+    from deepspeed_tpu_torch.runtime import dist as dist_lib
+
+    dist_lib.init_distributed(device="cpu")
+    return build_mesh(**sizes)
+
+
+def case_sp_attention(case, rank, world, workdir):
+    """The global forms over a sequence axis of the world: outputs (plain,
+    causal, padding, fully masked), gradients, the uneven-head dispatch
+    and refusal, and the ring's dropout (bits and distribution)."""
+    import torch
+
+    import deepspeed_tpu_torch.parallel as P
+    from deepspeed_tpu_torch.ops.attention import mha_reference
+
+    mesh = _sp_mesh(sequence_parallel_size=world)
+    q, k, v = (torch.from_numpy(x) for x in sp_qkv())
+    out = {}
+    for name, fn in (("ring", P.ring_attention),
+                     ("ulysses", P.ulysses_attention)):
+        for causal in (False, True):
+            out[f"{name}-causal{int(causal)}"] = fn(
+                q, k, v, mesh, causal=causal).numpy()
+        out[f"{name}-padding"] = fn(q, k, v, mesh,
+                                    torch.from_numpy(sp_valid())).numpy()
+        qs, ks, vs = (torch.from_numpy(x).requires_grad_()
+                      for x in sp_qkv(s=32))
+        (fn(qs, ks, vs, mesh, causal=True) ** 2).sum().backward()
+        out[f"{name}-grads"] = [x.grad.numpy() for x in (qs, ks, vs)]
+    out["ring-masked"] = P.ring_attention(
+        q, k, v, mesh, torch.zeros(2, 64, dtype=torch.int32)).numpy()
+    q3, k3, v3 = (torch.from_numpy(x) for x in sp_qkv(h=3))
+    out["auto-uneven"] = P.sequence_parallel_attention(
+        q3, k3, v3, mesh, causal=True).numpy()
+    try:
+        P.ulysses_attention(q3, k3, v3, mesh)
+        out["uneven-refused"] = None
+    except ValueError as e:
+        out["uneven-refused"] = str(e)
+    qd, kd, vd = (torch.from_numpy(x) for x in sp_qkv(**SP_DROP))
+
+    def ring(seed):
+        return P.ring_attention(qd, kd, vd, mesh, dropout_rate=SP_DROP_RATE,
+                                dropout_seed=seed)
+
+    first = ring(7)
+    out["drop-repeats"] = bool(torch.equal(first, ring(7)))
+    out["drop-seed-matters"] = not torch.allclose(first, ring(8))
+    out["drop-vs-one-device"] = not torch.allclose(first, mha_reference(
+        qd, kd, vd, dropout_rate=SP_DROP_RATE, dropout_seed=7), atol=1e-6)
+    draws = np.stack([ring(i).numpy() for i in range(SP_DROP_DRAWS)])
+    out["drop-mean"], out["drop-std"] = draws.mean(0), draws.std(0)
+    out["drop-clean"] = P.ring_attention(qd, kd, vd, mesh).numpy()
+    return out
+
+
+def case_sp_auto_mp(case, rank, world, workdir):
+    """At sequence 2 x model 2, H = 6 gives each model rank 3 heads: auto
+    must pick the ring (3 % 2), on this rank's heads of the sequence."""
+    import torch
+
+    import deepspeed_tpu_torch.parallel as P
+    from deepspeed_tpu_torch.parallel.sequence import choose_impl
+
+    mesh = _sp_mesh(sequence_parallel_size=2, model_parallel_size=2)
+    heads = 6 // mesh.mp_size
+    lo = mesh.model_rank * heads
+    q, k, v = (torch.from_numpy(x[:, lo:lo + heads]) for x in sp_qkv(h=6))
+    return {"model_rank": mesh.model_rank, "impl": choose_impl(heads, 2),
+            "out": P.sequence_parallel_attention(q, k, v, mesh,
+                                                 causal=True).numpy()}
+
+
+def sp_engine(case, world, workdir):
+    """A GPT-2 engine at the case's sequence axis (and model axis, with
+    the model's partition_specs), its data size the rest of the world."""
+    import deepspeed_tpu_torch as dst
+
+    model = _model(case, workdir)
+    if case.get("impl"):
+        model.layer_config.seq_parallel_impl = case["impl"]
+    sp, mp = case["sp"], case.get("mp", 1)
+    extra = dict(case.get("extra", {}))
+    extra["mesh"] = {"sequence_parallel_size": sp, "model_parallel_size": mp}
+    engine, *_ = dst.initialize(
+        model=model, device="cpu",
+        param_specs=dst.partition_specs(model) if mp > 1 else None,
+        config_params=config(case.get("stage", 0), case.get("opt", "Adam"),
+                             case.get("dtype", "fp32"), case["micro"],
+                             case["accum"], world // (sp * mp),
+                             lr=case.get("lr", 1e-2), **extra))
+    return engine
+
+
+def case_sp_train(case, rank, world, workdir):
+    """Train the case's windows on this rank's data rows (its sequence
+    chunk kept by the engine); rank 0 returns the whole parameters; with
+    ``save`` a checkpoint of the last state."""
+    engine = sp_engine(case, world, workdir)
+    out = {"losses": _feed(engine, case, engine.data_rank,
+                           engine.dp_world_size),
+           "skipped": engine.skipped_steps,
+           "coords": (engine.data_rank, engine.seq_rank, engine.model_rank)}
+    full = engine.full_parameters()
+    if rank == 0:
+        out["params"] = {n: p.detach().float().numpy().copy()
+                         for n, p in full.items()}
+    if case.get("save"):
+        engine.save_checkpoint(str(workdir / case["save"]), tag="sp")
+    return out
+
+
+def case_sp_refusals(case, rank, world, workdir):
+    """What a sequence axis above 1 refuses, each by its message."""
+    import torch
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.ops.transformer import (
+        DeepSpeedTransformerConfig,
+        DeepSpeedTransformerLayer,
+        transformer_block_apply,
+    )
+    from deepspeed_tpu_torch.parallel.sequence import sequence_line
+
+    out = {}
+    base = dict(case, model="gpt2", micro=2, accum=1, sp=world)
+    for name, extra in case["engine"].items():
+        try:
+            sp_engine(dict(base, extra=extra), world, workdir)
+            out[name] = None
+        except Exception as e:
+            out[name] = f"{type(e).__name__}: {e}"
+    try:
+        sp_engine(dict(base, model="bert", bert=case["bert"]), world,
+                  workdir)
+        out["bert"] = None
+    except Exception as e:
+        out["bert"] = f"{type(e).__name__}: {e}"
+    line = sequence_line(_sp_mesh(sequence_parallel_size=world))
+    cfg = DeepSpeedTransformerConfig(hidden_size=32, heads=4,
+                                     attn_dropout_ratio=0.0,
+                                     hidden_dropout_ratio=0.0)
+    cfg.sequence_parallel = line
+    layer = DeepSpeedTransformerLayer(cfg, device="cpu")
+    layer.reset_parameters(torch.Generator().manual_seed(0))
+    x = torch.zeros(2, 8, 32)
+    for name, kw in (("return_kv", dict(return_kv=True)),
+                     ("query_mask", dict(attention_mask=torch.zeros(
+                         2, 1, 8, 8)))):
+        try:
+            transformer_block_apply(cfg, layer, x, kw.pop(
+                "attention_mask", None), causal=True, **kw)
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+    piped = dst.GPT2LMHeadModel(dst.GPT2Config(
+        vocab_size=VOCAB, n_positions=SEQ, n_embd=32, n_layer=2, n_head=4,
+        pipeline_stages=2), device="cpu")
+    try:
+        piped.configure_sequence_parallel(line)
+        out["pipeline"] = None
+    except ValueError as e:
+        out["pipeline"] = str(e)
+    return out
+
+
+
+# ---------------------------------------------------------------------------
+# serving over the model axis: every rank builds the engine, rank 0 (the
+# leader) drives the case's traffic, the others follow its plans
+# ---------------------------------------------------------------------------
+SERVE_VOCAB = 128
+SERVE_BASE = {"max_batch_slots": 4, "max_seq_len": 48, "prefill_len": 32,
+              "kv_block_size": 8, "sampling": {"greedy": True}}
+SERVE_ADAPTERS = {"enabled": True, "rank": 2, "pool_slots": 4}
+#: traffic kind -> the engine's config (the JAX engine takes it too)
+SERVE_CONFIGS = {
+    "paged": {"inference": dict(SERVE_BASE, fused_decode=True)},
+    "prefix": {"inference": dict(SERVE_BASE, fused_decode=True)},
+    "contig": {"inference": {k: v for k, v in SERVE_BASE.items()
+                             if k != "kv_block_size"}},
+    "lora": {"inference": dict(SERVE_BASE, fused_decode=True),
+             "adapters": SERVE_ADAPTERS},
+    "tier": {"inference": dict(SERVE_BASE, kv_pool_blocks=4,
+                               max_batch_slots=2, host_tier={
+                                   "enabled": True, "share_group": "mp"})},
+    "tier_lora": {"inference": dict(SERVE_BASE, max_batch_slots=2,
+                                    host_tier={"enabled": True,
+                                               "share_group": "mpa"}),
+                  "adapters": dict(SERVE_ADAPTERS, pool_slots=2)},
+    "spec": {"inference": dict(SERVE_BASE, speculative={"k": 3})},
+    "deadline": {"inference": dict(SERVE_BASE, fused_decode=True)},
+}
+#: the metrics each traffic kind compares (where the engine has them)
+SERVE_COUNTERS = ("infer/prefix_hits", "infer/prefix_misses",
+                  "infer/spec_proposed", "infer/spec_accepted",
+                  "host_tier/spills", "host_tier/promotions",
+                  "host_tier/peer_fetches", "host_tier/preemptions",
+                  "adapters/loads", "adapters/evictions")
+
+
+def serve_prompts(n=3, seed=1, lengths=(8, 11, 5)):
+    rng = np.random.default_rng(seed)
+    return [[int(t) for t in rng.integers(0, SERVE_VOCAB, m)]
+            for m in lengths[:n]]
+
+
+def serve_traffic(engine, kind, adapters=None):
+    """Drive ``kind``'s traffic through ``engine`` (the port's leader or
+    the JAX engine, the same API): its greedy tokens (and, for the tier,
+    the engine's pool and tier counters)."""
+    ps = serve_prompts()
+    if kind in ("paged", "contig", "spec"):
+        return engine.generate(ps, max_new_tokens=8)
+    if kind == "prefix":
+        tmpl = serve_prompts(1, seed=3, lengths=(16,))[0]
+        return (engine.generate([tmpl + [1, 2, 3]], max_new_tokens=6)
+                + engine.generate([tmpl + [4, 5]], max_new_tokens=6))
+    if kind == "lora":
+        for name, state in adapters.items():
+            engine.load_adapter(name, adapter_state=state)
+        reqs = [engine.submit(ps[0], max_new_tokens=6, adapter="b"),
+                engine.submit(ps[1], max_new_tokens=6),
+                engine.submit(ps[2], max_new_tokens=6, adapter="a")]
+        engine.scheduler.run_until_idle()
+        return [r.result() for r in reqs]
+    if kind == "tier":
+        rng = np.random.default_rng(5)
+        tmpl = [int(t) for t in rng.integers(0, SERVE_VOCAB, 16)]
+        out = engine.generate([tmpl + [1, 2]], max_new_tokens=4)
+        for _ in range(2):
+            out += engine.generate(
+                [[int(t) for t in rng.integers(0, SERVE_VOCAB, 20)]],
+                max_new_tokens=4)
+        out += engine.generate([tmpl + [3, 4]], max_new_tokens=4)
+        snap = engine.kv_snapshot()
+        return out, {k: snap[k] for k in (
+            "prefix_hits", "host_tier_spills", "host_tier_promotions",
+            "host_tier_entries", "host_tier_occupancy_bytes")}
+    if kind == "tier_lora":
+        # a, b loaded; b served, a touched (b the LRU), c loaded (b
+        # evicted and parked), b served again (auto-loaded from the tier)
+        for name in ("a", "b"):
+            engine.load_adapter(name, adapter_state=adapters[name])
+        out = engine.generate([ps[0]], max_new_tokens=6, adapter="b")
+        out += engine.generate([ps[1]], max_new_tokens=6, adapter="a")
+        engine.load_adapter("c", adapter_state=adapters["c"])
+        out += engine.generate([ps[0]], max_new_tokens=6, adapter="b")
+        return out
+    raise ValueError(kind)
+
+
+def serve_model(workdir, name="serve.pt", n_layer=2):
+    import torch
+
+    import deepspeed_tpu_torch as dst
+
+    m = dst.GPT2LMHeadModel(dst.GPT2Config(
+        vocab_size=SERVE_VOCAB, n_positions=64, n_embd=32, n_layer=n_layer,
+        n_head=4, dropout=0.0), device="cpu")
+    m.load_state_dict(torch.load(workdir / name, weights_only=True))
+    return m
+
+
+def case_serve_mp(case, rank, world, workdir):
+    """One engine over a model axis of the world: the leader's tokens and
+    counters, every rank's local shapes; ``deadline`` slows the leader's
+    decode steps until a request's deadline expires mid-run."""
+    import time
+
+    import torch
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.inference.decode import gpt2_prefill
+
+    kind = case["traffic"]
+    cfg = dict(SERVE_CONFIGS[kind], mesh={"model_parallel_size": world})
+    draft = {}
+    if kind == "spec":
+        draft = dict(draft_model=serve_model(workdir, "draft.pt", 1))
+    engine = dst.init_inference(model=serve_model(workdir), config=cfg,
+                                device="cpu", **draft)
+    out = {"kv_shape": tuple(engine._cache.k.shape),
+           "fused": engine.fused_decode,
+           "adapter_shapes": {t: (tuple(a.shape), tuple(b.shape)) for t, (
+               a, b) in (engine._adapter_pool or {}).items()}}
+    if kind == "paged":
+        # the logits of a prompt, every rank calling the collective prefill
+        ids = torch.tensor([serve_prompts(1, seed=9, lengths=(12,))[0]])
+        out["logits"] = gpt2_prefill(engine.model, ids)[0].numpy()
+    if not engine.is_leader:
+        engine.serve_forever()
+        return out
+    adapters = None
+    if kind in ("lora", "tier_lora"):
+        adapters = {n: torch.load(workdir / f"adapter_{n}.pt",
+                                  weights_only=True) for n in "abc"}
+    if kind == "deadline":
+        decode = engine.decode_tokens
+
+        def slow(active):
+            time.sleep(0.05)
+            return decode(active)
+
+        engine.decode_tokens = slow
+        late = engine.submit(serve_prompts(1)[0], max_new_tokens=38,
+                             deadline_secs=0.6)
+        engine.scheduler.run_until_idle()
+        out["late"] = (late.finish_reason, len(late.result()))
+        engine.decode_tokens = decode
+        out["tokens"] = serve_traffic(engine, "paged")
+    else:
+        out["tokens"] = serve_traffic(engine, kind, adapters)
+    snap = engine.metrics.snapshot()
+    out["counters"] = {k: snap.get(k) for k in SERVE_COUNTERS}
+    out["fused_gauge"] = snap["infer/fused_decode"]
+    engine.close()
+    return out
+
+
 CASES = {
     "mp_train": case_mp_train, "mp_checkpoint": case_mp_checkpoint,
     "mp_dropout": case_mp_dropout, "mp_pieces": case_mp_pieces,
@@ -783,6 +1134,9 @@ CASES = {
     "sparse": case_sparse, "gather_order": case_gather_order,
     "preempt": case_preempt, "load_disagree": case_load_disagree,
     "commit_fail": case_commit_fail,
+    "sp_attention": case_sp_attention, "sp_auto_mp": case_sp_auto_mp,
+    "sp_train": case_sp_train, "sp_refusals": case_sp_refusals,
+    "serve_mp": case_serve_mp,
 }
 
 
