@@ -313,14 +313,16 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                one card over a gloo group this phase makes (NCCL refuses
                two ranks on one device), each a subprocess of this script
                loading the kernels phase 2 built, under a timeout: GPT-2
-               small at full width and depth, micro-batch 4 a rank (8
-               rows a step), float32 Adam at stages 0-3, bfloat16 Adam at
-               stages 0-3 and FusedLamb at stages 1 and 3, P14_WINDOWS
-               windows each (2; 3 until phase 17 came). Every rank returns the global loss; float32
+               small at full width and P14_LAYERS blocks (6; 12 until
+               phase 18 came), micro-batch 4 a rank (8 rows a step),
+               float32 Adam at stages 0-3, bfloat16 Adam at stages 0-3
+               and FusedLamb at stages 1 and 3, P14_WINDOWS windows each
+               (2; 3 until phase 17 came). Every rank returns the global loss; float32
                stages 1-3 equal stage 0 and the dp = 2 run equals a dp = 1
                run over the same 8 rows (rtol 2e-4); bfloat16 losses fall;
-               flash forward, dQ and dK/dV launch 12 times a micro-step on
-               each rank and lamb_phase1 on the shards under FusedLamb
+               flash forward, dQ and dK/dV launch once a block and
+               micro-step on each rank and lamb_phase1 on the shards under
+               FusedLamb
                (paths "dp2_rank0", "dp2_rank1"); the stage-3 gauges equal
                the accounting from the shapes; each rank's memory after
                initialize() and peak over the windows, per stage. The
@@ -342,8 +344,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                masters at stages 1 and 2, the adapters block (rank 16,
                float32) at stages 0-3, and stage 3 with remat "full" and
                "nothing_saveable+zero3_gathered" (float32), P14_WINDOWS
-               windows each (the remat runs launch the forward twice a
-               layer);
+               windows of P14_LAYERS blocks each (the remat runs launch
+               the forward twice a layer);
                each equals its dp = 1 run over the same 8 rows at
                P14_RTOL, the tagged stage-3 run "full"'s (paths
                "a6b_dp2_rank0/1"). (c) One process: BERT-large at seq 512
@@ -403,16 +405,40 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                tolerances). The all-reduces, all-to-alls and hops go
                through host memory (gloo), so no time here is an mp 2 or
                sp 2 speed.
+  18. mixture-of-experts and the pipeline — GPT-2 small at full width and
+               depth, seq 1024, one fixed batch of 8 rows, 3 windows of
+               one micro-step. (a) In this process, 8 MoE experts a
+               block, top-2, capacity 1.25 (320 slots a row and expert;
+               521.2 M parameters): bf16 FusedLamb with dropout 0.1 and
+               float32 Adam, each attention kernel launched 12 times a
+               micro-step at [8, 12, 1024, 64], LAMB 6 times a step,
+               ``last_aux`` finite with the router loss above 0 and the
+               loss falling; then the dense model's float32 Adam (pp 1's
+               reference). (b) and (c) on two ranks of the card over a
+               gloo group (``--phase18-rank``): float32 Adam on the MoE
+               model with its experts over a data axis of 2 (4 a rank,
+               the tokens through an all-to-all; 12 launches a
+               micro-step at [4, 12, 1024, 64]), whose losses equal (a)'s
+               float32 run (P18_RTOL); the pipe axis of 2 (6 blocks a
+               stage, 4 microbatches of 2 rows): float32 Adam at dropout
+               0, whose losses equal pp 1's, and bf16 FusedLamb with
+               dropout 0.1; each stage launches each attention kernel 24
+               times a micro-step at [2, 12, 1024, 64] (paths
+               "p18_<run>[_rank0/1]"). Then each kernel at these shapes
+               against its plain version (phase 3's tolerances; LAMB over
+               an expert rank's ``expert_in_w`` group). Gloo sends every
+               collective through host memory, so no time here is a dp 2
+               or pp 2 speed.
   9. report  — a JSON line of per-kernel numbers (the D = 256, decode
                tail and BERT (rows 1b-3b) variants in entries of their
-               own; the launches of every path, phases 10 to 17
+               own; the launches of every path, phases 10 to 18
                included), the nvidia-smi line, then the last line {"ok":
-               true, "device": {...}}. It comes after phase 17.
+               true, "device": {...}}. It comes after phase 18.
 
 ``--only-phase12`` builds every kernel and runs phase 12 alone, printing
 its numbers as one JSON line; ``--only-phase13``, ``--only-phase14``,
-``--only-phase15``, ``--only-phase16`` and ``--only-phase17`` the same
-for phases 13 to 17. ``--only-bert-attention`` builds the
+``--only-phase15``, ``--only-phase16``, ``--only-phase17`` and
+``--only-phase18`` the same for phases 13 to 18. ``--only-bert-attention`` builds the
 flash kernels, checks them under BERT's padding mask and the mask
 patterns of phase 12a, and times rows 1b-3b (copy the script to the root
 of an unpacked parent under build/ to time both trees in one call).
@@ -5769,6 +5795,9 @@ P14_ROWS, P14_MICRO, P14_DP = 8, 4, 2
 # references (3 before phase 17 came; 2 since, to keep the script in its
 # time limit)
 P14_WINDOWS = 2
+# the depth of those runs and references (12 before phase 18 came; 6 since,
+# to keep the script in its time limit); phase 14a keeps GPT-2 small's 12
+P14_LAYERS = 6
 P14_RUNS = (
     [(f"adam-fp32-s{st}", "Adam", "fp32", st, P14_WINDOWS)
      for st in range(4)]
@@ -5845,7 +5874,8 @@ def p14_train(name, optimizer, precision, stage, windows, seed, rank, dp,
 
     gc.collect()  # the last run's engine, before the memory is read
     torch.cuda.empty_cache()
-    model = GPT2LMHeadModel(GPT2Config.small(dropout=0.0, **(model_kw or {})),
+    model = GPT2LMHeadModel(GPT2Config.small(dropout=0.0, n_layer=P14_LAYERS,
+                                             **(model_kw or {})),
                             device="cuda", seed=seed)
     # from the full shapes, before stage 3 shards the module
     itemsize = 2 if precision == "bf16" else 4
@@ -6053,9 +6083,9 @@ def phase_data_parallel(seed, card):
         for rank, r in enumerate(per_rank):
             got = r["launches"]
             for k in TRAIN_KERNELS:
-                if got[k] != N_LAYER * windows:
+                if got[k] != P14_LAYERS * windows:
                     fail(f"phase 14: {name} rank {rank}: {k} launched "
-                         f"{got[k]} times, want {N_LAYER * windows}")
+                         f"{got[k]} times, want {P14_LAYERS * windows}")
             if optimizer == "FusedLamb" and got["lamb_phase1"] < windows:
                 fail(f"phase 14: {name} rank {rank}: lamb_phase1 launched "
                      f"{got['lamb_phase1']} times on the shards")
@@ -6080,8 +6110,8 @@ def phase_data_parallel(seed, card):
                   runs[f"adam-fp32-s{st}"]["losses"], base)
     p14_close("dp 2 vs dp 1 on the same 8 rows", base, ref["losses"])
     # a dp = 2 checkpoint loads at dp = 1 with an equal fingerprint
-    model = GPT2LMHeadModel(GPT2Config.small(dropout=0.0), device="cuda",
-                            seed=seed + 7)
+    model = GPT2LMHeadModel(GPT2Config.small(dropout=0.0, n_layer=P14_LAYERS),
+                            device="cuda", seed=seed + 7)
     engine, *_ = deepspeed_tpu_torch.initialize(
         model=model, config_params=p14_config("Adam", "fp32", 1, P14_ROWS,
                                               1))
@@ -6294,7 +6324,7 @@ def phase15_refusals_dp2(seed, root):
                   refs[ref]["losses"])
         # under remat at stage 3 the gather block is the checkpointed
         # region, so the backward runs the flash forward again
-        want = {k: N_LAYER * windows for k in TRAIN_KERNELS}
+        want = {k: P14_LAYERS * windows for k in TRAIN_KERNELS}
         if mkw.get("remat"):
             want["flash_fwd"] *= 2
         for rank, r in enumerate(per_rank):
@@ -7222,6 +7252,309 @@ def phase_serve_and_sequence(seed, card):
     return launches, stats
 
 
+# ---------------------------------------------------------------------------
+# phase 18: MoE with experts over the data axis (A7c), the pipe axis (A7d)
+# ---------------------------------------------------------------------------
+P18_WORLD = 2
+P18_EXPERTS, P18_TOP_K, P18_CAPACITY = 8, 2, 1.25
+P18_ROWS = 8  # a micro-step's global rows (ep 2: 4 a rank)
+P18_WINDOWS = 3  # one micro-step a window, one fixed batch
+P18_MICROBATCHES = 4  # pp 2: 4 microbatches of 2 rows
+P18_RTOL = 2e-4
+# the runs of phase 18's two ranks: (name, model kind, optimizer,
+# precision, dropout, lr, mesh block)
+P18_RANK_RUNS = (
+    ("ep2_fp32", "moe", "Adam", "fp32", 0.0, 1e-4,
+     {"data_parallel_size": P18_WORLD}),
+    ("pp2_fp32", "pp", "Adam", "fp32", 0.0, 1e-4,
+     {"pipeline_parallel_size": P18_WORLD}),
+    ("pp2_bf16", "pp", "FusedLamb", "bf16", DROPOUT, 1e-3,
+     {"pipeline_parallel_size": P18_WORLD}),
+)
+# the attention kernels' q shape a micro-step: one rank's 8 rows, an
+# expert rank's 4, a pipeline microbatch's 2
+P18_SHAPES = {"moe": (P18_ROWS, 12, 1024, 64),
+              "ep2": (P18_ROWS // P18_WORLD, 12, 1024, 64),
+              "pp2": (P18_ROWS // P18_MICROBATCHES, 12, 1024, 64)}
+
+
+def p18_batch(seed):
+    """One micro-step's global batch: P18_ROWS x 1024 token ids."""
+    from deepspeed_tpu_torch import GPT2Config
+
+    g = torch.Generator().manual_seed(seed + 18)
+    return torch.randint(0, GPT2Config.small().vocab_size, (P18_ROWS, 1024),
+                         generator=g).cuda()
+
+
+def p18_engine(seed, kind, optimizer, precision, dropout, lr, mesh=None):
+    """initialize() on GPT-2 small at full width and depth: ``kind`` "moe"
+    (8 experts, top-2, capacity 1.25: 320 slots a row and expert), "pp"
+    (2 stages of 6 blocks, 4 microbatches) or "dense"; ZeRO stage 1
+    (stage 0 at one data rank), one micro-step a window."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
+
+    fields = {}
+    if kind == "moe":
+        fields = dict(moe_experts=P18_EXPERTS, moe_top_k=P18_TOP_K,
+                      moe_capacity_factor=P18_CAPACITY)
+    elif kind == "pp":
+        fields = dict(pipeline_stages=P18_WORLD,
+                      pipeline_microbatches=P18_MICROBATCHES)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = GPT2LMHeadModel(GPT2Config.small(dropout=dropout, **fields),
+                            device="cuda", seed=seed)
+    dp = (mesh or {}).get("data_parallel_size", 1)
+    cfg = p14_config(optimizer, precision, 1, P18_ROWS // dp, dp,
+                     {"mesh": mesh} if mesh else None)
+    cfg["optimizer"]["params"]["lr"] = lr
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model,
+                                                config_params=cfg)
+    return engine
+
+
+def p18_windows(engine, seed):
+    """P18_WINDOWS windows on this rank's rows of one batch: losses,
+    launches, ``last_aux``, seconds a window, the parameters and bytes
+    the module holds, the memory held after initialize() and the peak."""
+    rows = p18_batch(seed)
+    dp = engine.dp_world_size
+    k = P18_ROWS // dp
+    rows = rows[engine.data_rank * k:(engine.data_rank + 1) * k]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.monotonic()
+    losses = [float(engine.train_batch(iter([(rows, rows)])))
+              for _ in range(P18_WINDOWS)]
+    torch.cuda.synchronize()
+    params = list(engine.module.parameters())
+    return {"losses": losses, "launches": read_launches(),
+            "window_s": (time.monotonic() - t0) / P18_WINDOWS,
+            "aux": [[float(x) for x in a.reshape(-1)]
+                    for a in engine.last_aux],
+            "params_m": sum(p.numel() for p in params) / 1e6,
+            "weights_gb": sum(p.numel() * p.element_size()
+                              for p in params) / 1e9,
+            "held_gb": held / 1e9,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "skipped": engine.skipped_steps,
+            "coords": [engine.pipe_rank, engine.data_rank]}
+
+
+def p18_run(seed, name, kind, optimizer, precision, dropout, lr, mesh,
+            shapes):
+    shapes.clear()
+    engine = p18_engine(seed, kind, optimizer, precision, dropout, lr, mesh)
+    got = p18_windows(engine, seed)
+    got["kernel_shapes"] = sorted([n, list(s)] for n, s in shapes)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got
+
+
+def phase18_rank(spec_path):
+    """One of phase 18's two ranks (a subprocess) of the gloo group the
+    phase makes: (b) float32 Adam on the MoE model with its experts over a
+    data axis of 2 (4 a rank); (c) the pipe axis of 2 (6 blocks a stage):
+    float32 Adam at dropout 0, then bf16 FusedLamb with dropout. Writes
+    its results as JSON."""
+    import torch.distributed as dist
+
+    spec = json.loads(Path(spec_path).read_text())
+    rank, seed = spec["rank"], spec["seed"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{spec['port']}", rank=rank,
+        world_size=P18_WORLD)
+    shapes = p17_record_shapes()
+    out = {run[0]: p18_run(seed, *run, shapes) for run in P18_RANK_RUNS}
+    Path(spec["out"]).write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def p18_check_run(tag, got, layers, micro_steps, lamb_steps, shape):
+    """A run's losses finite and no step skipped, each attention kernel
+    launched ``layers`` times a micro-step at ``shape``, LAMB 6 times a
+    step (5 large groups and one packed launch)."""
+    if not all(math.isfinite(v) for v in got["losses"]) or got["skipped"]:
+        fail(f"phase 18 {tag}: losses {got['losses']}, skipped "
+             f"{got['skipped']}")
+    for k in TRAIN_KERNELS:
+        if got["launches"][k] != layers * micro_steps:
+            fail(f"phase 18 {tag}: {k} launched {got['launches'][k]} times, "
+                 f"want {layers * micro_steps}")
+    if got["launches"]["lamb_phase1"] != 6 * lamb_steps:
+        fail(f"phase 18 {tag}: lamb_phase1 launched "
+             f"{got['launches']['lamb_phase1']} times, want "
+             f"{6 * lamb_steps}")
+    shapes = {tuple(s) for _, s in got["kernel_shapes"]}
+    if shapes != {shape}:
+        fail(f"phase 18 {tag}: attention kernels at {sorted(shapes)}, want "
+             f"{shape}")
+    log(f"  {tag}: losses {got['losses']}; {got['params_m']:.4f} M "
+        f"parameters, {got['weights_gb']:.4f} GB of weights; held "
+        f"{got['held_gb']:.4f} GB, peak {got['peak_gb']:.4f} GB; "
+        f"{got['window_s']:.3f} s a window; launches "
+        + ", ".join(f"{k} {got['launches'][k]}" for k in
+                    (*TRAIN_KERNELS, "lamb_phase1")))
+
+
+def p18_check_kernels(seed):
+    """Each kernel of phase 18's paths against its plain version at the
+    shapes the paths give it: the flash forward, dQ and dK/dV at an
+    expert rank's [4, 12, 1024, 64] and a pipeline microbatch's [2, 12,
+    1024, 64] (bf16, causal, dropout 0.1; float32 at the microbatch's),
+    and LAMB phase 1 over an expert rank's ``h.*.moe.expert_in_w`` group
+    (12 x [4, 768, 3072]) with bf16 grads: m, v and u bitwise, the block
+    partials within LAMB_RTOL. Returns the max errors."""
+    from deepspeed_tpu_torch.ops import attention as A
+    from deepspeed_tpu_torch.ops.fused_lamb import (
+        lamb_phase1,
+        lamb_phase1_plain,
+    )
+    from deepspeed_tpu_torch.ops.optimizers import bias_corrections
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 18)
+    errs = {}
+    for tag, shape, dtype in (("ep2", P18_SHAPES["ep2"], torch.bfloat16),
+                              ("pp2", P18_SHAPES["pp2"], torch.bfloat16),
+                              ("pp2", P18_SHAPES["pp2"], torch.float32)):
+        q, k, v, dout = (torch.randn(shape, device="cuda", generator=gen
+                                     ).to(dtype) for _ in range(4))
+        args = (q, k, v, None, True, None, DROPOUT, 1818)
+        out, _ = A.flash_fwd(*args)
+        ref, ref_lse = A.flash_fwd_plain(*args)
+        name = f"phase 18 {tag} {str(dtype)[6:]} {list(shape)}"
+        errs["flash_fwd"] = max(errs.get("flash_fwd", 0.0), check_close(
+            f"{name} flash_fwd", out, ref, dtype))
+        delta = (dout.float() * ref.float()).sum(dim=-1)
+        bargs = (q, k, v, None, dout, ref_lse, delta, True, None, DROPOUT,
+                 1818)
+        got = (A.flash_bwd_dq(*bargs), *A.flash_bwd_dkv(*bargs))
+        want = (A.flash_bwd_dq_plain(*bargs), *A.flash_bwd_dkv_plain(*bargs))
+        for what, a, b in zip(("flash_bwd_dq", "dk", "dv"), got, want):
+            key = "flash_bwd_dq" if what == "flash_bwd_dq" else "flash_bwd_dkv"
+            errs[key] = max(errs.get(key, 0.0), check_close(
+                f"{name} {what}", a, b, dtype,
+                scaled=dtype != torch.float32))
+        del q, k, v, dout, out, ref, got, want
+    shape = (P18_EXPERTS // P18_WORLD, 768, 3072)
+    ps = [torch.randn(shape, device="cuda", generator=gen) * 0.02
+          for _ in range(N_LAYER)]
+    gs = [(torch.randn(shape, device="cuda", generator=gen) * 1e-3
+           ).to(torch.bfloat16) for _ in range(N_LAYER)]
+    m0 = [torch.randn(shape, device="cuda", generator=gen) * 1e-4
+          for _ in range(N_LAYER)]
+    v0 = [(torch.randn(shape, device="cuda", generator=gen) * 1e-3) ** 2
+          for _ in range(N_LAYER)]
+    c1, c2 = bias_corrections(0.9, 0.999, 3)
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01,
+              eps_inside_sqrt=False)
+    runs = []
+    for fn in (lamb_phase1, lamb_phase1_plain):
+        ms, vs = [m.clone() for m in m0], [v.clone() for v in v0]
+        us = [torch.empty_like(p) for p in ps]
+        wsq, usq = fn(ps, gs, ms, vs, us, c1, c2, 0.5, **kw)
+        torch.cuda.synchronize()
+        runs.append((wsq, usq, ms, vs, us))
+    tag = "phase 18 lamb_phase1 h.*.moe.expert_in_w 12 x [4, 768, 3072]"
+    for what, i in (("m", 2), ("v", 3), ("u", 4)):
+        if not all(torch.equal(a, b) for a, b in zip(runs[0][i], runs[1][i])):
+            fail(f"{tag}: {what} is not bitwise the plain version's")
+    err = 0.0
+    for i in (0, 1):
+        want = runs[1][i]
+        err = max(err, float(((runs[0][i] - want).abs()
+                              / want.abs().clamp_min(1e-30)).max()))
+    log(f"  {tag}: m, v, u bitwise; block partials max rel err {err:.3e} "
+        f"(tol {LAMB_RTOL:g})")
+    if err > LAMB_RTOL:
+        fail(f"{tag}: the block partials disagree")
+    errs["lamb_phase1"] = err
+    return errs
+
+
+def phase_moe_and_pipeline(seed, card):
+    """Phase 18. Returns ({kernel: {path: launches}}, stats)."""
+    from deepspeed_tpu_torch.ops import attention as A
+
+    t0 = time.monotonic()
+    launches = {name: {} for name in launch_counters()}
+    check = A._check_cuda
+    shapes = p17_record_shapes()
+    # (a) MoE on one rank: bf16 FusedLamb with dropout, float32 Adam, and
+    # the dense model's float32 Adam (pp 1's reference)
+    one = {}
+    for name, kind, optimizer, precision, dropout, lr in (
+            ("moe_bf16", "moe", "FusedLamb", "bf16", DROPOUT, 1e-3),
+            ("moe_fp32", "moe", "Adam", "fp32", 0.0, 1e-4),
+            ("dense_fp32", "dense", "Adam", "fp32", 0.0, 1e-4)):
+        try:
+            got = one[name] = p18_run(seed, name, kind, optimizer, precision,
+                                      dropout, lr, None, shapes)
+        finally:
+            A._check_cuda = check
+        p18_check_run(name, got, N_LAYER, P18_WINDOWS,
+                      P18_WINDOWS if optimizer == "FusedLamb" else 0,
+                      P18_SHAPES["moe"])
+        for k, n in got["launches"].items():
+            launches[k][f"p18_{name}"] = n
+        if kind == "moe":
+            lm, aux = got["aux"]
+            if not (all(math.isfinite(v) for v in lm + aux)
+                    and all(v > 0 for v in aux) and len(aux) == 1):
+                fail(f"phase 18 {name}: last_aux {got['aux']}")
+            log(f"  {name}: last_aux (lm, aux) {got['aux']}")
+        if not got["losses"][-1] < got["losses"][0]:
+            fail(f"phase 18 {name}: the loss did not fall {got['losses']}")
+        shapes = p17_record_shapes()
+    A._check_cuda = check
+    root = Path("build") / "phase18"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    ranks = p14_spawn(seed, root, timeout_s=600, flag="--phase18-rank",
+                      phase="18", world=P18_WORLD)
+    for rank, r in enumerate(ranks):
+        for run, got in r.items():
+            kind = run.split("_")[0]
+            layers = N_LAYER if kind == "ep2" else N_LAYER // P18_WORLD
+            per_step = 1 if kind == "ep2" else P18_MICROBATCHES
+            p18_check_run(f"{run} rank {rank} (pipe, data "
+                          f"{tuple(got['coords'])})", got, layers,
+                          per_step * P18_WINDOWS,
+                          P18_WINDOWS if "bf16" in run else 0,
+                          P18_SHAPES[kind])
+            for k, n in got["launches"].items():
+                launches[k][f"p18_{run}_rank{rank}"] = n
+            if kind == "ep2" and not (
+                    all(math.isfinite(v) for a in got["aux"] for v in a)
+                    and all(v > 0 for v in got["aux"][1])):
+                fail(f"phase 18 {run} rank {rank}: last_aux {got['aux']}")
+    for run in ranks[0]:
+        if ranks[0][run]["losses"] != ranks[1][run]["losses"]:
+            fail(f"phase 18 {run}: the ranks return different losses")
+    p14_close("phase 18 float32 MoE ep 2 vs one rank losses",
+              ranks[0]["ep2_fp32"]["losses"], one["moe_fp32"]["losses"])
+    p14_close("phase 18 float32 pp 2 vs pp 1 losses",
+              ranks[0]["pp2_fp32"]["losses"], one["dense_fp32"]["losses"])
+    kernel_errs = p18_check_kernels(seed)
+    stats = {"card": card, "one_rank": one,
+             "ranks": ranks, "kernels_vs_plain": kernel_errs,
+             "wall_s": time.monotonic() - t0}
+    log(f"phase 18: MoE ep 2 = one rank ({ranks[0]['ep2_fp32']['losses']} "
+        f"vs {one['moe_fp32']['losses']}); pp 2 = pp 1 "
+        f"({ranks[0]['pp2_fp32']['losses']} vs "
+        f"{one['dense_fp32']['losses']}); {stats['wall_s']:.1f} s")
+    return launches, stats
+
+
 def only_flash(device, seed):
     """``--only-flash``: the flash kernels built alone (ptxas's registers
     and spills printed) and timed as time_flash times them (bf16, causal,
@@ -7355,7 +7688,13 @@ def main():
                         help="build every kernel and run phase 17 alone "
                         "(serving GPT-2 small at mp 2 and training it at "
                         "sp 2, each on two ranks of the card)")
+    parser.add_argument("--only-phase18", action="store_true",
+                        help="build every kernel and run phase 18 alone "
+                        "(GPT-2 small with 8 MoE experts on one rank and "
+                        "over a data axis of 2, and over a pipe axis of 2)")
     parser.add_argument("--phase14-rank", metavar="SPEC",
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--phase18-rank", metavar="SPEC",
                         help=argparse.SUPPRESS)
     parser.add_argument("--phase17-rank", metavar="SPEC",
                         help=argparse.SUPPRESS)
@@ -7384,6 +7723,9 @@ def main():
         return
     if args.phase17_rank:
         phase17_rank(args.phase17_rank)
+        return
+    if args.phase18_rank:
+        phase18_rank(args.phase18_rank)
         return
     from deepspeed_tpu_torch.ops import kernel_lib
 
@@ -7467,6 +7809,13 @@ def main():
                           "card": smi}))
         return
 
+    if args.only_phase18:
+        kernel_lib.build()
+        launches, stats = phase_moe_and_pipeline(args.seed, smi)
+        print(json.dumps({"phase18": stats, "launches": launches,
+                          "card": smi}))
+        return
+
     if args.only_phase13:
         kernel_lib.build()
         launches, stats = phase_inference_rest(args.seed, smi)
@@ -7508,6 +7857,7 @@ def main():
     a6b_launches, a6b_stats = phase_launcher_and_refusals(args.seed, smi)
     mp_launches, mp_stats = phase_model_parallel(args.seed, smi)
     sp_launches, sp_stats = phase_serve_and_sequence(args.seed, smi)
+    moe_launches, moe_stats = phase_moe_and_pipeline(args.seed, smi)
     for path, counts in [("serve", serve_launches),
                          *adapter_launches.items(), *hd_launches.items(),
                          *tel_launches.items(), *res_launches.items(),
@@ -7525,6 +7875,8 @@ def main():
     for name, by_path in mp_launches.items():
         launches[name].update(by_path)
     for name, by_path in sp_launches.items():
+        launches[name].update(by_path)
+    for name, by_path in moe_launches.items():
         launches[name].update(by_path)
     for name, by_path in launches.items():
         kernels[name]["launches"] = sum(by_path.values())
@@ -7597,6 +7949,7 @@ def main():
                     "launcher_and_refusals": a6b_stats,
                     "model_parallel": mp_stats,
                     "serve_mp_and_sequence": sp_stats,
+                    "moe_and_pipeline": moe_stats,
                     "head_dims": {k: v for k, v in hd_stats.items()
                                   if k not in ("flash", "flash_wide",
                                                "flash_d128",

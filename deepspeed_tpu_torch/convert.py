@@ -20,6 +20,13 @@ into ``weight``.
 Tensor parallelism: ``params_from_jax(tree, specs, model_rank, mp)``
 gives one model rank's shards, cut by parallel/tensor.py (the strided qkv
 slice included) as the training engine and the checkpoints cut them.
+
+Mixture-of-Experts: the JAX MoE block's ``h/moe/{gate_w, expert_in_w,
+expert_in_b, expert_out_w, expert_out_b}`` (stacked on the layers axis,
+``[L, E, ...]``) become ``h.<i>.moe.*`` in the JAX orientation (the expert
+products are batched matmuls of ``[E, M, I]``/``[E, I, M]``, not
+``F.linear``); ``params_from_jax(tree, data_rank=r, dp=n)`` keeps expert
+rank ``r``'s ``E / n`` experts, as the training engine cuts them.
 """
 
 import numpy as np
@@ -36,8 +43,16 @@ def _tensor(a):
 
 
 def _unstack_blocks(stacked_tree, prefix, state):
-    """A JAX block tree stacked over layers into ``prefix.<i>.<key>``."""
+    """A JAX block tree stacked over layers into ``prefix.<i>.<key>`` (a
+    sub-tree, the MoE block's ``moe``, into ``prefix.<i>.<sub>.<key>``,
+    untransposed)."""
     for name, stacked in stacked_tree.items():
+        if isinstance(stacked, dict):
+            for key, sub in stacked.items():
+                sub = np.asarray(sub)
+                for i in range(sub.shape[0]):
+                    state[f"{prefix}.{i}.{name}.{key}"] = _tensor(sub[i])
+            continue
         stacked = np.asarray(stacked)
         for i in range(stacked.shape[0]):
             leaf = stacked[i]
@@ -46,12 +61,15 @@ def _unstack_blocks(stacked_tree, prefix, state):
             state[f"{prefix}.{i}.{name}"] = _tensor(leaf)
 
 
-def params_from_jax(tree, specs=None, model_rank=0, mp=1):
+def params_from_jax(tree, specs=None, model_rank=0, mp=1, data_rank=0,
+                    dp=1):
     """JAX GPT-2 parameter tree (numpy leaves) -> a state dict for
     :class:`deepspeed_tpu_torch.models.gpt2.GPT2LMHeadModel` (float32 CPU
     tensors; ``load_state_dict`` casts and moves them). With ``specs``
     (the port's ``partition_specs``) and ``mp`` > 1: model rank
-    ``model_rank``'s shards (a LoRA factor without a spec stays whole)."""
+    ``model_rank``'s shards (a LoRA factor without a spec stays whole).
+    With ``dp`` > 1: expert rank ``data_rank``'s experts of every MoE
+    block."""
     tp = tree["transformer"]
     state = {
         "wte": _tensor(tp["wte"]),
@@ -64,6 +82,11 @@ def params_from_jax(tree, specs=None, model_rank=0, mp=1):
         state = {n: shard_for_rank(n, t, model_dim(specs.get(n)), mp,
                                    model_rank).contiguous()
                  for n, t in state.items()}
+    if dp > 1:
+        for n, t in state.items():
+            if n.rpartition(".")[2].startswith("expert_"):
+                k = t.shape[0] // dp
+                state[n] = t[data_rank * k:(data_rank + 1) * k].contiguous()
     return state
 
 

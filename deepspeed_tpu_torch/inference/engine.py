@@ -76,7 +76,9 @@ same collectives in the same order, whatever the leader's clock and
 threads decide. A follower's host tier is a store of its own heads' rows
 keyed as the leader's tier keys them; the leader names what it parks,
 promotes and drops. A data, sequence or pipeline axis above 1 is refused
-(replicas are the serving fleet's, ROADMAP A8).
+(replicas are the serving fleet's, ROADMAP A8), and so is a model with
+MoE experts or pipeline stages, with the JAX engine's
+``DeepSpeedConfigError``s: decode runs the dense stack.
 
 Adapter pool rows are written IN PLACE (the JAX engine swaps in a new
 pool between steps). ``load_adapter`` runs on a caller's thread while
@@ -233,6 +235,16 @@ class InferenceEngine:
                 "init_inference serves the GPT-2 family: pass a "
                 "GPT2LMHeadModel (a module whose .config carries "
                 "n_layer/n_head/n_embd/n_positions)"
+            )
+        if getattr(mcfg, "moe_experts", 0) > 0:
+            raise DeepSpeedConfigError(
+                "KV-cache decode does not support MoE layers yet "
+                "(moe_experts > 0)"
+            )
+        if getattr(mcfg, "pipeline_stages", 1) > 1:
+            raise DeepSpeedConfigError(
+                "KV-cache decode does not support the pipelined stack yet "
+                "(pipeline_stages > 1)"
             )
         self.model_config = mcfg
 

@@ -8,8 +8,7 @@ size presets, and a ``GPT2LMHeadModel`` whose forward is embeddings
 through the blocked LM-head cross-entropy (ops/cross_entropy.py).
 ``remat`` (with ``remat_policy``) checkpoints every block as the JAX
 model does (ops/transformer.py: the layer config's memory mode).
-``moe_experts`` and ``pipeline_stages`` are carried so that the training
-engine can refuse them (not ported). Data parallel
+Data parallel
 (:meth:`GPT2LMHeadModel.configure_data_parallel`, set by the training
 engine): the rank decorrelates dropout, the loss divides by the data
 group's token count, at ZeRO stage 3 the blocks run through the gather
@@ -41,6 +40,26 @@ sequence: ``logits[:, :-1]`` against ``labels[:, 1:]``, the label of a
 rank's last token being the next rank's first, the last global position
 without one; each rank sums its NLL, and the line's sum divided by the
 line's count of labels is the mean.
+
+Mixture-of-Experts (``moe_experts > 0``): every block is an MoE block
+(ops/moe.py: the attention sublayer of the dense block, the expert FFN in
+place of its MLP), and the forward with labels returns the JAX model's
+multi-output tuple ``(lm + aux, lm, aux)``, ``aux`` the blocks' summed
+router losses. The training engine cuts the experts over the data axis
+(:meth:`GPT2LMHeadModel.configure_expert_parallel`).
+
+Pipeline stages (``pipeline_stages > 1``, armed by the training engine
+at a pipe axis of that size: :meth:`GPT2LMHeadModel.configure_pipeline`):
+stage ``p`` holds only blocks ``p*L/P .. (p+1)*L/P - 1`` (the others'
+entries of ``h`` are empty modules) and runs them in the GPipe schedule of
+parallel/pipeline.py over ``pipeline_microbatches`` microbatches (0: 4*P
+when the rank's rows divide, else 2*P). Stage 0 looks up the embeddings;
+the last stage runs ``ln_f``, the tied head and the JAX model's loss over
+the whole batch (not a mean of the microbatches' means); the loss is
+broadcast, so every stage returns it. Dropout is drawn per (seed,
+microbatch, layer). ``wte``, ``wpe`` and ``ln_f`` are on every stage; the
+engine sums their gradients over the pipe group. MoE with pipeline
+stages is refused, as the JAX model refuses it.
 """
 
 import dataclasses
@@ -55,6 +74,7 @@ from ..ops.cross_entropy import (
     cross_entropy_ignore_index,
     vocab_parallel_lm_head_loss,
 )
+from ..ops.moe import DeepSpeedMoETransformerLayer, MoEConfig, moe_block_apply
 from ..ops.transformer import (
     LORA_TARGET_PARALLEL,
     DeepSpeedTransformerConfig,
@@ -74,6 +94,8 @@ from ..parallel.tensor import (
     reduce_from_region,
     vocab_parallel_lookup,
 )
+from ..parallel.mesh import DATA_AXIS
+from ..parallel.pipeline import gpipe, pipe_broadcast
 from ..runtime import dist as dist_lib
 from ..runtime.sparse import sparse_embedding_lookup
 from .stack import zero3_stack
@@ -86,7 +108,11 @@ def _spec_for(name, ndim):
     r]``, B ``[r, out]``."""
     leaf = name.rpartition(".")[2]
     spec = [None] * ndim
-    if "_lora_" in leaf:
+    if leaf.startswith("expert_"):
+        # MoE experts over the data axis (ops/moe.py), the JAX package's
+        # moe_leaf_spec
+        spec[0] = DATA_AXIS
+    elif "_lora_" in leaf:
         # the factors ride their base's axis: B's out dim for a column-
         # parallel base, A's in dim for a row-parallel one
         target, ab = leaf.rsplit("_lora_", 1)
@@ -109,7 +135,8 @@ def partition_specs(model):
     dim of the parameter. Column-parallel (output dim): the qkv
     projection and ``inter_w`` with their biases; row-parallel (input
     dim): ``attn_ow`` and ``output_w``; ``wte`` over the vocab; LoRA
-    factors on their base's axis; everything else replicated. Pass it to
+    factors on their base's axis; MoE experts (``h.<i>.moe.expert_*``,
+    dim 0) over the data axis; everything else replicated. Pass it to
     ``initialize(param_specs=...)`` with a ``mesh`` block whose
     ``model_parallel_size`` is above 1."""
     return {n: _spec_for(n, p.dim())
@@ -176,10 +203,20 @@ class GPT2Config:
     # resolve_remat_policy reads the policy)
     remat: bool = False
     remat_policy: str = "full"
-    # JAX-package features the port does not have yet (the training
-    # engine refuses a config that turns them on)
+    # Mixture-of-Experts: >0 replaces every block's FFN with an
+    # expert-parallel MoE of this many experts (ops/moe.py); experts shard
+    # over the data axis, the router losses join the objective and the
+    # forward returns the multi-output tuple
     moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_loss_weight: float = 1e-2
+    # Pipeline parallelism: the stack split into this many stages over the
+    # mesh's pipe axis (parallel/pipeline.py); n_layer must divide evenly
     pipeline_stages: int = 1
+    # microbatches a forward through the pipeline; 0 = 4*stages when the
+    # rank's rows divide, else 2*stages
+    pipeline_microbatches: int = 0
     # LoRA adapters (adapters/): rank-r A/B pairs beside the block's
     # projection matrices. 0 = off — the forward is then exactly the
     # adapter-free model's. Usually armed by the training engine's
@@ -228,13 +265,25 @@ class GPT2Config:
             lora_targets=tuple(self.lora_targets),
         )
 
+    def moe_config(self):
+        return MoEConfig(n_experts=self.moe_experts, top_k=self.moe_top_k,
+                         capacity_factor=self.moe_capacity_factor,
+                         aux_loss_weight=self.moe_aux_loss_weight)
+
+
+#: The pipeline's per-(microbatch, layer) dropout seed strides.
+MICROBATCH_SEED_STRIDE = 7_919
+LAYER_SEED_STRIDE = 104_729
+
 
 class GPT2LMHeadModel(nn.Module):
     """GPT-2 with a tied LM head. Parameters: ``wte`` [vocab_padded,
     n_embd], ``wpe`` [n_positions, n_embd], ``h.<i>.*`` (the 12-tensor
     block layout, weights [out, in]), ``ln_f.weight``/``ln_f.bias``, and
     with ``config.lora_rank > 0`` the blocks' ``h.<i>.<target>_lora_a``
-    [in, r] / ``_lora_b`` [r, out].
+    [in, r] / ``_lora_b`` [r, out]. An MoE block holds the attention and
+    norm tensors and ``h.<i>.moe.*`` (ops/moe.py:MoEMLP) in place of
+    ``inter_*``/``output_*``.
 
     ``device`` defaults to ``"cuda"`` and raises without a GPU; pass
     ``device="cpu"`` to run the plain PyTorch versions of the kernels.
@@ -244,6 +293,11 @@ class GPT2LMHeadModel(nn.Module):
 
     def __init__(self, config, device=None, dtype=torch.float32, seed=0):
         super().__init__()
+        if config.pipeline_stages > 1 and config.moe_experts > 0:
+            raise ValueError(
+                "pipeline_stages > 1 with moe_experts > 0 is not "
+                "supported yet; pick one of pp or ep for the stack"
+            )
         device = resolve_device(device)
         self.config = config
         self.layer_config = config.layer_config()
@@ -254,15 +308,23 @@ class GPT2LMHeadModel(nn.Module):
         self.wpe = nn.Parameter(torch.empty(
             config.n_positions, e, device=device, dtype=dtype
         ))
-        self.h = nn.ModuleList(
-            DeepSpeedTransformerLayer(self.layer_config, device, dtype)
-            for _ in range(config.n_layer)
-        )
+        if config.moe_experts > 0:
+            moe = config.moe_config()
+            self.h = nn.ModuleList(
+                DeepSpeedMoETransformerLayer(self.layer_config, moe, device,
+                                             dtype)
+                for _ in range(config.n_layer))
+        else:
+            self.h = nn.ModuleList(
+                DeepSpeedTransformerLayer(self.layer_config, device, dtype)
+                for _ in range(config.n_layer)
+            )
         self.ln_f = nn.LayerNorm(
             e, eps=config.layer_norm_eps, device=device, dtype=dtype
         )
         self.configure_data_parallel()
         self.configure_model_parallel()
+        self.pipeline = None
         self.configure_sequence_parallel()
         self.reset_parameters(seed)
 
@@ -301,13 +363,70 @@ class GPT2LMHeadModel(nn.Module):
         Refused with pipeline stages, as the JAX model refuses them."""
         if line is not None and line.size <= 1:
             line = None
-        if line is not None and self.config.pipeline_stages > 1:
+        if line is not None and (self.config.pipeline_stages > 1
+                                 or self.pipeline is not None):
             raise ValueError(
                 "pipeline_stages > 1 does not compose with a >1 sequence "
                 "axis yet; use sp or pp for the stack, not both"
             )
         self.sequence_parallel = line
         self.layer_config.sequence_parallel = line
+
+    def configure_expert_parallel(self, line):
+        """Keep this rank's experts of every MoE block and exchange tokens
+        over ``line`` (the data axis's line, parallel/sequence.py's form;
+        None keeps every expert)."""
+        for layer in self.h:
+            if isinstance(layer, DeepSpeedMoETransformerLayer):
+                layer.moe.configure_expert_parallel(line)
+
+    def expert_parameter_names(self):
+        """The names of the expert-stacked tensors (cut over the expert
+        axis)."""
+        return [n for n, _ in self.named_parameters()
+                if n.rpartition(".")[2].startswith("expert_")]
+
+    def configure_pipeline(self, stage):
+        """Keep this stage's blocks only and run them in the GPipe
+        schedule (``stage``: parallel/pipeline.py's
+        :class:`~deepspeed_tpu_torch.parallel.pipeline.PipelineStage`).
+        The JAX model's checks: the pipe size must be ``pipeline_stages``,
+        ``n_layer`` must divide into it, and a sequence axis above 1 does
+        not compose."""
+        cfg = self.config
+        n_stages = cfg.pipeline_stages
+        size = 1 if stage is None else stage.size
+        if n_stages > 1 or size > 1:
+            if size != n_stages:
+                raise ValueError(
+                    f"pipeline_stages={n_stages} needs a mesh whose 'pipe' "
+                    f"axis has that size (got a pipe axis of {size})")
+        if stage is None or size <= 1:
+            self.pipeline = None
+            return
+        if self.sequence_parallel is not None:
+            raise ValueError(
+                "pipeline_stages > 1 does not compose with a >1 sequence "
+                "axis yet; use sp or pp for the stack, not both"
+            )
+        if cfg.n_layer % n_stages:
+            raise ValueError(
+                f"n_layer={cfg.n_layer} must divide into "
+                f"pipeline_stages={n_stages}"
+            )
+        k = cfg.n_layer // n_stages
+        lo = stage.rank * k
+        for i in range(cfg.n_layer):
+            if not lo <= i < lo + k:
+                self.h[i] = nn.Module()  # another stage's block
+        self.stage_layers = tuple(range(lo, lo + k))
+        self.pipeline = stage
+
+    def pipeline_shared_parameters(self):
+        """The parameters every stage holds (the embeddings and ``ln_f``):
+        their gradients are summed over the pipe group."""
+        return [n for n, _ in self.named_parameters()
+                if not n.startswith("h.")]
 
     def _dropout_index(self):
         """The index that decorrelates this rank's dropout from the other
@@ -365,6 +484,10 @@ class GPT2LMHeadModel(nn.Module):
         three dropout streams are drawn from it. Under sequence
         parallelism ``input_ids`` is this rank's chunk of the sequence and
         the position embeddings are those of its global positions."""
+        return self._hidden_and_aux(input_ids, train, dropout_rng)[0]
+
+    def _embed(self, input_ids, rng):
+        """The token and position embeddings with the embedding dropout."""
         s = input_ids.shape[1]
         line = self.sequence_parallel
         if line is None:
@@ -372,7 +495,6 @@ class GPT2LMHeadModel(nn.Module):
         else:
             first = line.rank * s
             pos = self.wpe[None, first:first + s, :]
-        rng = dropout_rng if train else None
         lookup = None
         if self.sparse_lookup is not None:
             def lookup(table, ids):
@@ -384,8 +506,21 @@ class GPT2LMHeadModel(nn.Module):
         else:
             emb = (self.wte[input_ids] if lookup is None
                    else lookup(self.wte, input_ids))
-        x = dropout(emb + pos, self.config.dropout, rng)
-        if self.zero3_gather is not None:
+        return dropout(emb + pos, self.config.dropout, rng)
+
+    def _hidden_and_aux(self, input_ids, train=False, dropout_rng=None):
+        """:meth:`hidden_states` and the MoE blocks' summed router loss
+        (None for dense blocks)."""
+        rng = dropout_rng if train else None
+        x = self._embed(input_ids, rng)
+        aux = None
+        if self.config.moe_experts > 0:
+            for layer in self.h:
+                x, a = moe_block_apply(self.layer_config, layer, x, None,
+                                       causal=True, train=train,
+                                       dropout_rng=rng)
+                aux = a if aux is None else aux + a
+        elif self.zero3_gather is not None:
             x = zero3_stack(
                 self.zero3_gather, self.layer_config, list(self.h), x,
                 lambda cfg, p, h, r: transformer_block_apply(
@@ -400,15 +535,19 @@ class GPT2LMHeadModel(nn.Module):
                 )
         return layer_norm_apply(
             self.layer_config, x, self.ln_f.weight, self.ln_f.bias
-        )
+        ), aux
 
     def forward(self, input_ids, labels=None, train=False, dropout_seed=None):
         """``input_ids`` [B, S]. Without ``labels``: logits [B, S,
         vocab_padded] (eval mode runs without autograd, the serving
         path). With ``labels`` (usually ``input_ids``; the shift happens
         here): the scalar mean next-token loss, logits[:, :-1] against
-        labels[:, 1:]. ``train`` with a ``dropout_seed`` applies dropout
+        labels[:, 1:] (with MoE blocks the tuple ``(loss + aux, loss,
+        aux)``). ``train`` with a ``dropout_seed`` applies dropout
         (:class:`~deepspeed_tpu_torch.ops.transformer.DropoutRNG`)."""
+        if self.pipeline is not None:
+            return self._pipelined_forward(input_ids, labels, train,
+                                           dropout_seed)
         if labels is None and not train:
             with torch.no_grad():
                 return self._logits(self.hidden_states(input_ids))
@@ -416,9 +555,16 @@ class GPT2LMHeadModel(nn.Module):
         if train and dropout_seed is not None and self.config.dropout > 0:
             rng = DropoutRNG(dropout_seed, input_ids.device,
                              self._dropout_index(), self.model_rank)
-        x = self.hidden_states(input_ids, train, rng)
+        x, aux = self._hidden_and_aux(input_ids, train, rng)
         if labels is None:
             return self._logits(x)
+        loss = self._lm_loss(x, labels)
+        if aux is None:
+            return loss
+        return loss + aux, loss, aux
+
+    def _lm_loss(self, x, labels):
+        """The next-token loss of the final hidden states ``x``."""
         line = self.sequence_parallel
         count_fn = self.count_fn
         if line is None:
@@ -442,6 +588,62 @@ class GPT2LMHeadModel(nn.Module):
         # the line's sum of its ranks' shares (each rank backpropagates
         # the whole loss through its own tokens)
         return loss if line is None else reduce_from_region(loss, line)
+
+    def _pipelined_forward(self, input_ids, labels, train, dropout_seed):
+        """The stack as this stage's part of the GPipe schedule (see the
+        module docstring): the loss (or with no labels the logits) of the
+        whole batch, the same on every stage."""
+        cfg = self.config
+        stage = self.pipeline
+        b, s = input_ids.shape
+        n_micro = cfg.pipeline_microbatches
+        if not n_micro:
+            n_micro = (4 * stage.size if b % (4 * stage.size) == 0
+                       else 2 * stage.size)
+        if b % n_micro:
+            raise ValueError(
+                f"batch {b} must divide into pipeline microbatches {n_micro}"
+            )
+        seed = (dropout_seed if train and dropout_seed is not None
+                and cfg.dropout > 0 else None)
+        device = input_ids.device
+        dtype = self.wte.dtype
+        shape = (n_micro, b // n_micro, s, cfg.n_embd)
+        if stage.first:
+            rng = (None if seed is None else
+                   DropoutRNG(seed, device, self._dropout_index()))
+            microbatches = self._embed(input_ids, rng).reshape(shape)
+        else:
+            microbatches = torch.empty(shape, dtype=dtype, device="meta")
+        layers = [(i, self.h[i]) for i in self.stage_layers]
+
+        def stage_fn(params, h, mb, extras):
+            for i, layer in params:
+                rng = None
+                if seed is not None:
+                    rng = DropoutRNG(
+                        (seed + mb * MICROBATCH_SEED_STRIDE
+                         + i * LAYER_SEED_STRIDE) % (2**31 - 1),
+                        device, self._dropout_index())
+                h = transformer_block_apply(
+                    self.layer_config, layer, h, None, causal=True,
+                    train=train, dropout_rng=rng)
+            return h
+
+        out = gpipe(stage_fn, layers, microbatches, stage, broadcast=False,
+                    dtype=dtype, device=device)
+        if not stage.last:
+            # no value; the graph that runs this stage's backward
+            out = out.reshape(-1)[:1].float().sum() * 0.0
+            if labels is None:
+                out = out + torch.zeros(b, s, cfg.vocab_padded,
+                                        device=device)
+            return pipe_broadcast(out, stage)
+        x = layer_norm_apply(self.layer_config, out.reshape(b, s, -1),
+                             self.ln_f.weight, self.ln_f.bias)
+        if labels is None:
+            return pipe_broadcast(self._logits(x).float(), stage)
+        return pipe_broadcast(self._lm_loss(x, labels).float(), stage)
 
     @staticmethod
     def _next_labels(labels, line):

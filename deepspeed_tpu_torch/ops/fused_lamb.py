@@ -270,8 +270,9 @@ def lamb_multi_tensor_update(ps, gs, ms, vs, us, c1, c2, lr, grad_scale=None,
     p, m and v in place; returns the trust ratios, one 0-d tensor per
     group. Over ZeRO shards, ``skip`` (lists of bools like ``ps``) leaves
     out of the norms the tensors another rank counts, and ``norm_reduce``
-    sums the ``[groups, 2]`` partial squared norms over the data group
-    in place before the ratios."""
+    sums the ``[groups, 2]`` partial squared norms over the ranks a
+    group spans (the data group's shards and experts, the pipeline's
+    stages: the engine's world) in place before the ratios."""
     flat = [[t for grp in lst for t in grp] for lst in (ps, gs, ms, vs, us)]
     wsq, usq = lamb_phase1(
         *flat, c1, c2, grad_scale, b1=b1, b2=b2, eps=eps,

@@ -355,11 +355,14 @@ class Lamb(Optimizer, _Moments):
     ``aux['lamb_coeffs']`` holds the ratios in group order.
     ``state_dtype``: see the module docstring.
 
-    Over ZeRO shards (runtime/zero.py) the engine sets ``norm_reduce``, a
-    function that sums a ``[groups, 2]`` tensor of partial ``(||p||^2,
-    ||u||^2)`` over the data group in place, and ``norm_skip``, the
-    tensors another rank counts (replicated ones): every group's phase 1
-    runs first, one reduction follows, then the ratios and the updates."""
+    Over ZeRO shards (runtime/zero.py), and wherever one JAX leaf spans
+    ranks (model shards, a rank's MoE experts of ``h.*.moe.expert_*``, a
+    pipeline stage's part of ``h.*.<name>``), the engine sets
+    ``norm_reduce``, a function that sums a ``[groups, 2]`` tensor of
+    partial ``(||p||^2, ||u||^2)`` over every rank in place, and
+    ``norm_skip``, the tensors another rank counts (replicated ones):
+    every group's phase 1 runs first, one reduction follows, then the
+    ratios and the updates."""
 
     norm_reduce = None
     norm_skip = frozenset()

@@ -593,19 +593,28 @@ def _project_row(cfg, p, lora, name, x, bias):
     return reduce_from_region(y, tp) + bias
 
 
-def _ffn_sublayer(cfg, p, x, keep=None, lora=None):
+def _ffn_sublayer(cfg, p, x, keep=None, lora=None, ffn_fn=None):
+    """The FFN sublayer; ``ffn_fn(ff_in) -> h`` or ``-> (h, aux)``
+    replaces the dense FFN (pre-residual, pre-dropout), and with an aux
+    the sublayer returns ``(x, aux)``."""
     residual = x
     ff_in = (
         layer_norm_apply(cfg, x, p.norm_w, p.norm_b)
         if cfg.pre_layer_norm else x
     )
-    h = _gelu(_project_column(cfg, p, lora, "inter_w", ff_in, p.inter_b))
-    h = _apply_keep(_project_row(cfg, p, lora, "output_w", h, p.output_b),
-                    keep, cfg.hidden_dropout_ratio)
-    x = residual + h
+    aux = None
+    if ffn_fn is not None:
+        h = ffn_fn(ff_in)
+        if isinstance(h, tuple):
+            h, aux = h
+    else:
+        h = _gelu(_project_column(cfg, p, lora, "inter_w", ff_in,
+                                  p.inter_b))
+        h = _project_row(cfg, p, lora, "output_w", h, p.output_b)
+    x = residual + _apply_keep(h, keep, cfg.hidden_dropout_ratio)
     if not cfg.pre_layer_norm:
         x = layer_norm_apply(cfg, x, p.norm_w, p.norm_b)
-    return x
+    return x if aux is None else (x, aux)
 
 
 def _block_tensors(p):
@@ -621,7 +630,8 @@ def _block_tensors(p):
 
 def transformer_block_apply(cfg, p, hidden_states, attention_mask=None, *,
                             causal=False, return_kv=False, train=False,
-                            dropout_rng=None, lora=None, use_flash=True):
+                            dropout_rng=None, lora=None, use_flash=True,
+                            ffn_fn=None):
     """The block over ``p`` (a :class:`DeepSpeedTransformerLayer`, or a
     module whose tensors ``torch.func.functional_call`` swapped in).
 
@@ -643,7 +653,10 @@ def transformer_block_apply(cfg, p, hidden_states, attention_mask=None, *,
     adapter source of :func:`apply_lora` (serving prefill); per-layer
     factors in ``p`` cover the fine-tune path. ``use_flash=False`` sends
     attention to the plain reference at every length (the JAX block's
-    switch).
+    switch). ``ffn_fn(ff_in) -> h`` or ``-> (h, aux)`` replaces the dense
+    FFN sublayer's projections (pre-residual, pre-dropout; ops/moe.py's
+    expert FFN), as the JAX block's seam: with an aux the block returns
+    ``(out, aux)``, and ``return_kv`` is refused.
 
     Under ``cfg.tensor_parallel`` the parameters are this rank's Megatron
     shards (parallel/tensor.py): the qkv projection gives the rank's
@@ -672,6 +685,10 @@ def transformer_block_apply(cfg, p, hidden_states, attention_mask=None, *,
     heads = cfg.heads // mp  # this rank's
     H_local = heads * head_dim
     b, s, _ = hidden_states.shape
+    if return_kv and ffn_fn is not None:
+        raise ValueError(
+            "return_kv does not compose with an aux-returning ffn_fn (MoE "
+            "decode is not supported)")
     if cfg.stochastic_mode:
         _notice_stochastic_once(hidden_states.dtype == torch.bfloat16,
                                 hidden_states.dtype)
@@ -737,7 +754,7 @@ def transformer_block_apply(cfg, p, hidden_states, attention_mask=None, *,
         x = x + attn_out
         if not cfg.pre_layer_norm:
             x = layer_norm_apply(cfg, x, o_p.attn_nw, o_p.attn_nb)
-        return _ffn_sublayer(cfg, o_p, x, keep_f, lora)
+        return _ffn_sublayer(cfg, o_p, x, keep_f, lora, ffn_fn)
 
     remat = (cfg.use_remat and not return_kv and torch.is_grad_enabled())
     if not remat:

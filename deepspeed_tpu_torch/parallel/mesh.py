@@ -11,20 +11,19 @@ ranks in the same order, outermost first:
   model    — tensor model parallelism (innermost)
 
 A rank's coordinates follow from its rank (row-major over the axes, the
-model axis innermost, as the JAX package orders its mesh), ``data_group``
-is the process group of its data-axis line (the ranks that differ from it
-in the data coordinate only), ``seq_group`` that of its sequence-axis line
-(ring and Ulysses attention, parallel/sequence.py) and ``model_group``
-that of its model-axis line. The data, sequence and model axes may exceed
-1; the pipe axis (the pipeline schedule, ROADMAP A7d) raises
-``not_ported``.
+model axis innermost, as the JAX package orders its mesh), ``pipe_group``
+is the process group of its pipe-axis line (the ranks that differ from it
+in the pipe coordinate only: the stages of the GPipe schedule,
+parallel/pipeline.py), ``data_group`` that of its data-axis line (data
+parallelism, ZeRO and the experts of ops/moe.py), ``seq_group`` that of
+its sequence-axis line (ring and Ulysses attention, parallel/sequence.py)
+and ``model_group`` that of its model-axis line. Every axis may exceed 1.
 """
 
 import dataclasses
 from typing import Optional
 
 from ..config import constants as C
-from ..config.config import not_ported
 
 PIPE_AXIS = "pipe"
 DATA_AXIS = "data"
@@ -78,8 +77,8 @@ def resolve_topology(
 @dataclasses.dataclass(frozen=True)
 class ProcessMesh:
     """This rank's place in the mesh: the topology, the rank, its
-    coordinates ``{axis: index}`` and the process groups of its data-,
-    sequence- and model-axis lines (None for an axis of size 1)."""
+    coordinates ``{axis: index}`` and the process groups of its pipe-,
+    data-, sequence- and model-axis lines (None for an axis of size 1)."""
 
     topology: MeshTopology
     rank: int
@@ -87,12 +86,21 @@ class ProcessMesh:
     data_group: object = None
     model_group: object = None
     seq_group: object = None
+    pipe_group: object = None
 
     @property
     def shape(self):
         t = self.topology
         return {PIPE_AXIS: t.pipe, DATA_AXIS: t.data, SEQ_AXIS: t.sequence,
                 MODEL_AXIS: t.model}
+
+    @property
+    def pp_size(self):
+        return self.topology.pipe
+
+    @property
+    def pipe_rank(self):
+        return self.coords[PIPE_AXIS]
 
     @property
     def dp_size(self):
@@ -180,11 +188,10 @@ def _line_groups(shape, axis):
 def build_mesh(world_size=None, rank=None, **topo_kwargs) -> ProcessMesh:
     """The process mesh over the initialised torch.distributed world (or
     ``world_size``/``rank`` given), sized by ``resolve_topology``'s
-    keywords. Raises ``not_ported`` for a pipeline axis above 1. Every
-    rank makes the data-axis line groups, then the sequence-axis ones,
-    then the model-axis ones (``new_group`` must be called in one order
-    on every rank), so this is a collective of the world when any of the
-    three is above 1."""
+    keywords. Every rank makes the pipe-axis line groups, then the
+    data-axis ones, the sequence-axis ones and the model-axis ones
+    (``new_group`` must be called in one order on every rank), so this
+    is a collective of the world when any axis is above 1."""
     import torch.distributed as dist
 
     live = dist.is_available() and dist.is_initialized()
@@ -192,14 +199,11 @@ def build_mesh(world_size=None, rank=None, **topo_kwargs) -> ProcessMesh:
         world_size = dist.get_world_size() if live else 1
     if rank is None:
         rank = dist.get_rank() if live else 0
-    size = topo_kwargs.get("pipeline_parallel_size", 1)
-    if size > 1:
-        raise not_ported(f"a {PIPE_AXIS} mesh axis of {size} (ROADMAP A7d)")
     topology = resolve_topology(world_size, **topo_kwargs)
     shape = {PIPE_AXIS: topology.pipe, DATA_AXIS: topology.data,
              SEQ_AXIS: topology.sequence, MODEL_AXIS: topology.model}
     groups = {}
-    for axis in (DATA_AXIS, SEQ_AXIS, MODEL_AXIS):
+    for axis in MESH_AXES:
         if shape[axis] <= 1:
             continue
         if not live:
@@ -211,7 +215,7 @@ def build_mesh(world_size=None, rank=None, **topo_kwargs) -> ProcessMesh:
         groups[axis] = _line_groups(shape, axis)
     return ProcessMesh(topology, int(rank), _coords(int(rank), shape),
                        groups.get(DATA_AXIS), groups.get(MODEL_AXIS),
-                       groups.get(SEQ_AXIS))
+                       groups.get(SEQ_AXIS), groups.get(PIPE_AXIS))
 
 
 def mesh_from_config(config, world_size=None, rank=None) -> ProcessMesh:

@@ -39,9 +39,7 @@ class TorchMpu:
     def get_pipeline_parallel_world_size(self):
         return self.mesh.shape[mesh_lib.PIPE_AXIS]
 
-    # --- groups ----------------------------------------------------------
-    # the pipe axis stays at 1 (mesh.build_mesh refuses the rest), so its
-    # group holds this rank alone: None
+    # --- groups (None for an axis of size 1) ------------------------------
     def get_model_parallel_group(self):
         return self.mesh.model_group
 
@@ -52,7 +50,7 @@ class TorchMpu:
         return self.mesh.seq_group
 
     def get_pipeline_parallel_group(self):
-        return None
+        return self.mesh.pipe_group
 
     # --- ranks ---------------------------------------------------------
     def get_model_parallel_rank(self):

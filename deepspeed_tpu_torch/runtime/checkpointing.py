@@ -79,6 +79,16 @@ every saved shard into the canonical layout of one rank (the state a
 dp = 1 engine holds) and cuts this engine's shards from it, so a
 checkpoint saved at one data-parallel size loads at any other, and
 master and non-master layouts cross.
+
+MoE experts and pipeline stages keep the global form too (the JAX
+engine's pipelined tree equals its scanned one): before a save, every
+tensor keyed by an expert leaf's name is joined over the data group along
+its expert dim, and every pipe rank's part of each tree (its stage's
+blocks) is gathered onto the pipe line's first rank, which alone writes
+(the files are those of the layout without the pipe axis, the expert
+leaves whole in each shard file). A load keeps this rank's experts and
+its stage's blocks of the global state, so a checkpoint saved at one
+expert-data or pipe size loads at any other.
 """
 
 import dataclasses
@@ -235,9 +245,93 @@ def _world(engine):
     return mesh.topology.world_size, mesh.world_group
 
 
+def _param_keyed(engine, tree):
+    """Whether ``tree`` is a dict keyed by (global) parameter names."""
+    names = getattr(engine, "_global_names", None)
+    return (isinstance(tree, dict) and bool(tree) and names is not None
+            and set(tree) <= set(names))
+
+
+def _global_tree(engine, tree):
+    """A tree of this engine's layout -> the global form (a collective of
+    the data group with MoE experts, of the pipe group with stages):
+    expert tensors joined along dim 0 over the data group, then every
+    stage's entries gathered (on the host) and merged."""
+    experts = getattr(engine, "_expert_names", frozenset())
+    pipe = getattr(engine, "_pipe", None)
+    if experts:
+        tree = _join_experts(engine, tree, experts)
+    if pipe is None:
+        return tree
+    import torch.distributed as dist
+
+    parts = [None] * pipe.size
+    dist.all_gather_object(parts, _host_tree(tree), group=pipe.group)
+    return _merge_stages(engine, parts)
+
+
+def _join_experts(engine, tree, experts):
+    if _param_keyed(engine, tree):
+        out = {}
+        for k, v in tree.items():
+            if k in experts and isinstance(v, torch.Tensor):
+                # on the engine's device (NCCL gathers device memory)
+                home = v.device
+                v = v.detach().to(engine.device).contiguous()
+                buf = torch.empty((engine.dp_world_size,) + tuple(v.shape),
+                                  dtype=v.dtype, device=v.device)
+                dist_lib.all_gather(buf.view(-1), v.view(-1),
+                                    engine._dp_group)
+                v = buf.reshape((-1,) + tuple(v.shape[1:])).to(home)
+            out[k] = v
+        return out
+    if isinstance(tree, dict):
+        return {k: _join_experts(engine, v, experts) for k, v in tree.items()}
+    return tree
+
+
+def _merge_stages(engine, parts):
+    """Every stage's tree -> one: parameter-keyed dicts united in the
+    global names' order, anything else stage 0's."""
+    first = parts[0]
+    if _param_keyed(engine, first):
+        joined = {}
+        for p in parts:
+            joined.update(p)
+        return {n: joined[n] for n in engine._global_names if n in joined}
+    if isinstance(first, dict):
+        return {k: _merge_stages(engine, [p[k] for p in parts])
+                for k in first}
+    return first
+
+
+def _stage_local(engine, tree):
+    """A global tree cut to this rank's experts (dim 0 of each expert
+    tensor) and its stage's entries."""
+    experts = getattr(engine, "_expert_names", frozenset())
+    pipe = getattr(engine, "_pipe", None)
+    if not experts and pipe is None:
+        return tree
+    if _param_keyed(engine, tree):
+        local = {n for n, _ in engine.module.named_parameters()}
+        out = {}
+        for k, v in tree.items():
+            if k not in local:
+                continue  # another stage's
+            if k in experts and isinstance(v, torch.Tensor):
+                n = v.shape[0] // engine.dp_world_size
+                v = v[engine.data_rank * n:(engine.data_rank + 1) * n]
+            out[k] = v
+        return out
+    if isinstance(tree, dict):
+        return {k: _stage_local(engine, v) for k, v in tree.items()}
+    return tree
+
+
 def _full_module_params(engine):
     """The module file's parameters in full: at stage 3 gathered from
-    every rank's shards, and joined over the model group (a collective:
+    every rank's shards, joined over the model group, the experts over
+    the data group and the stages over the pipe group (a collective:
     every rank calls it)."""
     params = _module_params(engine)
     zero = _layout(engine)
@@ -248,7 +342,7 @@ def _full_module_params(engine):
         tp = engine._tp
         params = {n: tp_lib.gather_shards(n, p, dims.get(n), tp)
                   for n, p in params.items()}
-    return params
+    return _global_tree(engine, params)
 
 
 def _full_shapes(engine):
@@ -273,6 +367,7 @@ def _model_local(engine, tree, module=False):
     tensors of dicts keyed by parameter names, by their model dims (the
     module's with ``module``, else the optimizer's leaves'; a leaf the
     optimizer steps whole stays whole)."""
+    tree = _stage_local(engine, tree)
     dims = _model_dims(engine)
     if not dims or not isinstance(tree, dict):
         return tree
@@ -503,8 +598,10 @@ def save_checkpoint(engine, save_dir, tag=None, client_state=None):
     dp = int(getattr(engine, "dp_world_size", 1))
     rank = int(getattr(engine, "data_rank", 0))
     world, group = _world(engine)
-    # the ranks of a sequence line hold the same state: its first writes
-    writer = int(getattr(engine, "seq_rank", 0)) == 0
+    # the ranks of a sequence line hold the same state: its first writes;
+    # a pipe line's first writes its stages' gathered state
+    writer = (int(getattr(engine, "seq_rank", 0)) == 0
+              and int(getattr(engine, "pipe_rank", 0)) == 0)
     first = rank == 0 and mp_rank == 0 and writer
 
     # ---- model states file (rank 0) -----------------------------------
@@ -547,19 +644,20 @@ def save_checkpoint(engine, save_dir, tag=None, client_state=None):
             n: (-1 if engine._opt_model_dim(n) is None
                 else int(engine._opt_model_dim(n)))
             for n in engine.params}}
-    if zero is not None and writer:
-        payload = {"num_shards": dp, "rank": rank, "layout": _describe(zero),
-                   "optimizer_state": _canonical_opt_state(engine), **model}
-        optim_path = os.path.join(ckpt_dir,
-                                  OPTIM_FILE.format(dp=rank, mp=mp_rank))
-        _write_blob(res, optim_path, _serialize(payload))
-        del payload
-    elif zero is None and rank == 0 and writer:
-        payload = {"num_shards": 1,
-                   "optimizer_state": _canonical_opt_state(engine), **model}
-        optim_path = os.path.join(ckpt_dir,
-                                  OPTIM_FILE.format(dp=0, mp=mp_rank))
-        _write_blob(res, optim_path, _serialize(payload))
+    # a rank that writes an optimizer file, and every rank when the
+    # experts' or the stages' gathers make the file a collective
+    writes = writer and (zero is not None or rank == 0)
+    if writes or getattr(engine, "_expert_names", None) or (
+            getattr(engine, "_pipe", None) is not None):
+        payload = {"num_shards": 1, "optimizer_state": _global_tree(
+            engine, _canonical_opt_state(engine)), **model}
+        if zero is not None:
+            payload.update(num_shards=dp, rank=rank,
+                           layout=_global_tree(engine, _describe(zero)))
+        if writes:
+            optim_path = os.path.join(ckpt_dir, OPTIM_FILE.format(
+                dp=rank if zero is not None else 0, mp=mp_rank))
+            _write_blob(res, optim_path, _serialize(payload))
         del payload
     if world > 1:
         # every rank's file is written before the manifest covers them
@@ -751,7 +849,7 @@ def _resharded(engine, staged, load_optimizer_states):
 def _check_compatible(engine, staged, load_optimizer_states):
     """Every shape and key of the staged checkpoint against the engine,
     before anything is applied."""
-    module = staged.state["module"]
+    module = _stage_local(engine, staged.state["module"])
     _check_tree(module, {n: torch.empty(s, device="meta")
                          for n, s in _full_shapes(engine).items()}, "module")
     master, inner = _resharded(engine, staged, load_optimizer_states)

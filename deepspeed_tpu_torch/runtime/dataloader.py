@@ -32,6 +32,9 @@ rank computes the same seeded order, and rank ``r`` of ``n`` takes rows
 ``r*batch_size/n`` to ``(r+1)*batch_size/n`` of each batch, as the JAX
 loader's processes do (the reference's DistributedSampler contract). A
 ragged last batch cannot split evenly, so ``drop_last`` is forced on.
+Under a mesh the rows split over the data axis only: the ranks of a
+pipe, sequence or model line (the stages of one pipeline, say) load the
+same rows, their data rank's.
 """
 
 import weakref

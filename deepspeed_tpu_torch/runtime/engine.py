@@ -154,10 +154,45 @@ sequence line once. Refused there with ``not_ported("... (ROADMAP A7b,
 what is left)")``: bf16 or int8 moments, compensated masters, optimizer
 offload, the adapters block and ``sparse_gradients``.
 
-Not ported, refused with ``DeepSpeedConfigError("... not yet ported")``:
-a pipeline mesh axis above 1 (ROADMAP A7d), a model with MoE experts
-(A7c) or pipeline stages (A7d). Optimizer offload at
-data parallel > 1 is refused with the JAX engine's message.
+Multi-output models (the JAX engine's contract): a forward that returns
+a tuple trains on element 0, and ``last_aux`` holds the rest: the raw
+aux of the last micro-step between ``forward()`` and ``step()``, after a
+step the window's aux stacked ``[accum, ...]`` (both ``forward/backward/
+step`` and ``train_batch``), and in eval the raw aux; at data parallel
+> 1 each value is the data group's mean, as the loss is.
+
+Mixture-of-Experts (GPT-2 with ``moe_experts``, ops/moe.py): the experts
+shard over the data axis (each data rank keeps ``E / dp`` of every
+block's experts, the model's ``configure_expert_parallel``), and tokens
+reach them through an all-to-all over the data group. An expert leaf's
+gradient arrives whole from that all-to-all's backward, with the dense
+leaves' scaling, so it is never reduced over the data group and ZeRO does
+not partition it again (runtime/zero.py's ``local`` leaves); the router
+and the dense leaves are reduced as ever. The world norms count each
+rank's experts, and LAMB's ``h.*.moe.expert_*`` group sums its norms over
+the data ranks, one JAX leaf. At ZeRO stage 3 the layer-wise gather is
+not armed (the JAX engine disarms it for MoE too): every sharded dense
+tensor is gathered at the forward, and the experts stay whole on their
+rank. Refused with ``not_ported("... (ROADMAP A7c, what is left)")``: a
+model or sequence axis above 1, the adapters block, bf16 or int8
+moments, compensated masters and optimizer offload.
+
+Pipeline parallelism (a ``pipeline_parallel_size`` above 1, GPT-2 with
+``pipeline_stages`` of that size): each pipe rank keeps its stage's
+blocks (the model's ``configure_pipeline``) and runs them in the GPipe
+schedule of parallel/pipeline.py. Every stage reads the same rows (its
+data rank's) and returns the same loss. The embeddings and ``ln_f`` are
+on every stage: their gradients are summed over the pipe group once a
+window, after the data group's reduction, so every stage applies one
+update. The overflow skip, the clipping norm, LAMB's group norms (a
+``h.*`` group spans the stages) and the drain flag are the world's, each
+tensor counted once. Refused with ``not_ported("... (ROADMAP A7d, what
+is left)")``: ZeRO stage 3 at dp > 1, a model axis above 1, the adapters
+block, bf16 or int8 moments, compensated masters, optimizer offload and
+``sparse_gradients``.
+
+Optimizer offload at data parallel > 1 is refused with the JAX engine's
+message.
 """
 
 import functools
@@ -180,8 +215,9 @@ from ..models.stack import BLOCK_TENSORS, Zero3Arming, gather_tensors
 from ..ops.optimizers import Optimizer, build_optimizer, param_groups
 from ..ops.transformer import resolve_remat_policy
 from ..parallel import tensor as tp_lib
-from ..parallel.mesh import ProcessMesh, mesh_from_config
-from ..parallel.sequence import sequence_line
+from ..parallel.mesh import DATA_AXIS, ProcessMesh, mesh_from_config
+from ..parallel.pipeline import pipeline_line
+from ..parallel.sequence import SequenceParallel, sequence_line
 from ..parallel.mpu import as_mpu
 from ..resilience import SupervisorEscalation, build_resilience
 from ..resilience.supervisor import build_supervisor
@@ -235,6 +271,14 @@ def _poison_first_float_leaf(batch):
         "to poison — the injected fault had no effect",
     )
     return tuple(out)
+
+
+def _split_model_output(out):
+    """Multi-output contract: a tuple return trains on element 0; the
+    rest ride along as aux."""
+    if isinstance(out, (tuple, list)):
+        return out[0], tuple(out[1:])
+    return out, ()
 
 
 def _draw_seed(gen):
@@ -319,6 +363,9 @@ class DeepSpeedEngine:
         self.model_rank = mesh.model_rank
         self._mp_group = mesh.model_group
         self.seq_rank = mesh.seq_rank
+        self.pp_world_size = mesh.pp_size
+        self.pipe_rank = mesh.pipe_rank
+        self._pipe = pipeline_line(mesh)
         self._world_group = mesh.world_group
         self.config = DeepSpeedConfig(None, param_dict=raw, training=True,
                                       world_size=self.dp_world_size)
@@ -337,11 +384,6 @@ class DeepSpeedEngine:
         if not isinstance(model, torch.nn.Module):
             raise TypeError("model must be a torch.nn.Module whose forward "
                             "returns the scalar loss")
-        for field, off, item in (("moe_experts", 0, "A7c"),
-                                 ("pipeline_stages", 1, "A7d")):
-            if getattr(mcfg, field, off) != off:
-                raise not_ported(f"a model with {field}="
-                                 f"{getattr(mcfg, field)!r} (ROADMAP {item})")
         policy = getattr(mcfg, "remat_policy", "full")
         if getattr(mcfg, "remat", False) and policy != "full":
             # a typo or a policy the port cannot map fails here, not in
@@ -400,6 +442,7 @@ class DeepSpeedEngine:
                     "data_types.master_dtype='compensated' instead"
                 )
         self.frozen_base_params = {}
+        self._refuse_with_stages_or_experts()
         if cfg.adapters_enabled:
             self._configure_adapters(model_parameters, rng_seed)
         # tensor parallelism: this rank's Megatron shards (None: the model
@@ -409,6 +452,12 @@ class DeepSpeedEngine:
         self._model_dims = {}
         self._tp_full_opt = False
         self._full_masters = None
+        # the names of every trainable tensor before the pipeline keeps
+        # this stage's (the checkpoints' global form)
+        self._expert_names = frozenset()
+        self._pipe_shared = ()
+        self._global_names = tuple(n for n, _ in self.module.named_parameters())
+        self._configure_pipeline_and_experts()
         self._configure_model_parallel(param_specs)
         self._configure_sequence_parallel()
         if self.compensated_master:
@@ -471,12 +520,15 @@ class DeepSpeedEngine:
             )
 
         # ---- state ----------------------------------------------------
+        # the multi-output contract's extra outputs
+        self.last_aux = ()
+        self._window_aux = []
         self._rng = torch.Generator().manual_seed(int(rng_seed))
         self._grad_buffer = None
         # the accumulation buffer kept across windows when the gradients
         # are cast into it (compute dtype != accumulation dtype)
         self._grad_store = None
-        self._pending = None  # (loss, compute-dtype params) of a forward
+        self._pending = None  # (loss, compute-dtype params, aux) of a forward
         self._window_losses = []  # the window's unscaled losses (device)
         self._last_window_loss = None
         self.micro_steps = 0
@@ -575,6 +627,7 @@ class DeepSpeedEngine:
         log_dist(
             f"DeepSpeedEngine initialized: device={self.device} "
             f"dp={self.dp_world_size} mp={self.mp_world_size} "
+            f"pp={self.pp_world_size} "
             f"zero_stage={self.zero_stage} "
             f"dtype={self.compute_dtype} "
             f"optimizer={type(self.optimizer_obj).__name__}", ranks=[0],
@@ -742,23 +795,29 @@ class DeepSpeedEngine:
         ranks: over ZeRO shards, and at any model axis above 1 (model
         shards, or at least one overflow decision shared)."""
         return ((self._zero is not None and self._zero.sharded)
-                or self.mp_world_size > 1)
+                or self.mp_world_size > 1 or self._pipe is not None
+                or bool(self._expert_names))
 
     def _norm_skip_set(self):
         """The optimizer's leaves this rank leaves out of a world norm:
-        one replicated over the data group on a data rank other than 0,
-        one replicated over the model group on a model rank other than
-        0, and every leaf on a sequence rank other than 0 (the line's
-        gradients are the same on each of its ranks)."""
+        one replicated over the data group on a data rank other than 0
+        (a rank's experts are its own), one replicated over the model
+        group on a model rank other than 0, one every stage holds on a
+        pipe rank other than 0, and every leaf on a sequence rank other
+        than 0 (the line's gradients are the same on each of its
+        ranks)."""
         if not self._distributed_norms():
             return frozenset()
         data_sharded = (self._zero is not None and self._zero.sharded)
+        shared = set(self._pipe_shared)
         skip = set()
         for n in self.params:
-            over_data = data_sharded and not self._zero.leaves[n].replicated
+            over_data = (n in self._expert_names or (
+                data_sharded and not self._zero.leaves[n].replicated))
             over_model = self._opt_model_dim(n) is not None
             if ((not over_data and self.data_rank)
                     or (not over_model and self.model_rank)
+                    or (n in shared and self.pipe_rank)
                     or self.seq_rank):
                 skip.add(n)
         return frozenset(skip)
@@ -792,7 +851,8 @@ class DeepSpeedEngine:
             {n: tuple(p.shape) for n, p in full.items()},
             self.dp_world_size, self.data_rank, self._dp_group, stage,
             flat_groups=cfg.optimizer_state_dtype == "int8",
-            model_dims={n: self._opt_model_dim(n) for n in full})
+            model_dims={n: self._opt_model_dim(n) for n in full},
+            local=self._expert_names)
         module = self.module
         zero3 = None
         if zero.sharded:
@@ -919,6 +979,76 @@ class DeepSpeedEngine:
             f"sequence parallel: sequence axis {line.size} (attention "
             f"{module.layer_config.seq_parallel_impl})", ranks=[0])
 
+    def _refuse_with_stages_or_experts(self):
+        """What a pipe axis above 1 (or a model with pipeline stages) and
+        a model with MoE experts refuse: ``not_ported`` naming ROADMAP
+        A7d or A7c."""
+        module = self.module
+        cfg = self.config
+        mcfg = getattr(module, "config", None)
+        stages = getattr(mcfg, "pipeline_stages", 1)
+        experts = getattr(mcfg, "moe_experts", 0)
+        common = (
+            ("the adapters block", cfg.adapters_enabled),
+            (f"{cfg.optimizer_state_dtype} optimizer moments",
+             cfg.optimizer_state_dtype in ("bf16", "int8")),
+            ("compensated masters", self.compensated_master),
+            ("optimizer offload", self.host_offload))
+        if self._pipe is not None or stages > 1:
+            if not hasattr(module, "configure_pipeline"):
+                raise not_ported(
+                    f"a pipe axis above 1 for a {type(module).__name__} "
+                    "(the pipeline needs a model with the "
+                    "configure_pipeline seam, GPT2LMHeadModel; ROADMAP A7d, "
+                    "what is left)")
+            for what, on in common + (
+                    ("ZeRO stage 3",
+                     self.zero_stage >= ZERO_OPTIMIZATION_WEIGHTS
+                     and self.dp_world_size > 1),
+                    ("a model axis above 1", self.mp_world_size > 1),
+                    ("sparse_gradients", cfg.sparse_gradients_enabled)):
+                if on:
+                    raise not_ported(f"{what} at a pipe axis above 1 "
+                                     "(ROADMAP A7d, what is left)")
+        if experts > 0:
+            for what, on in common + (
+                    ("a model axis above 1", self.mp_world_size > 1),
+                    ("a sequence axis above 1", self.mesh.sp_size > 1)):
+                if on:
+                    raise not_ported(f"{what} with MoE experts (ROADMAP "
+                                     "A7c, what is left)")
+
+    def _configure_pipeline_and_experts(self):
+        """A pipe axis above 1: keep this stage's blocks (the model's
+        ``configure_pipeline``, which makes the JAX model's checks); MoE
+        experts at a data axis above 1: keep this rank's experts (the
+        model's ``configure_expert_parallel``)."""
+        module = self.module
+        mcfg = getattr(module, "config", None)
+        stages = getattr(mcfg, "pipeline_stages", 1)
+        experts = getattr(mcfg, "moe_experts", 0)
+        if self._pipe is not None or stages > 1:
+            module.configure_pipeline(self._pipe)
+            self._pipe_shared = tuple(module.pipeline_shared_parameters())
+            log_dist(
+                f"pipeline: {self.pp_world_size} stages, this stage's "
+                f"blocks {list(module.stage_layers)}", ranks=[-1])
+        elif hasattr(module, "configure_pipeline"):
+            module.configure_pipeline(None)
+        if hasattr(module, "configure_expert_parallel"):
+            line = None
+            if experts > 0 and self.dp_world_size > 1:
+                line = SequenceParallel(self._dp_group, self.dp_world_size,
+                                        self.data_rank,
+                                        self.mesh.line_ranks(DATA_AXIS))
+            module.configure_expert_parallel(line)
+            if line is not None:
+                self._expert_names = frozenset(
+                    module.expert_parameter_names())
+                log_dist(
+                    f"expert parallel: {experts // self.dp_world_size} of "
+                    f"{experts} experts a data rank", ranks=[0])
+
     def _model_full_masters(self):
         """The model-gathered optimizer: float32 masters of the whole
         tensors (a collective over the model group) beside the module's
@@ -997,14 +1127,15 @@ class DeepSpeedEngine:
         module = self.module
         seam = prefix = getattr(module, "zero3_block_prefix", None)
         if prefix is not None and (
-                self.frozen_base_params
+                self.frozen_base_params or self._expert_names
                 or getattr(getattr(module, "config", None), "lora_rank", 0)):
-            # the stack gathers the block layout only, not the factors
+            # the stack gathers the dense block layout only, not the
+            # factors or an MoE block (the JAX engine disarms it for both)
             log_dist(
                 "ZeRO-3: layer-wise gather seam not armed (LoRA adapters "
-                "do not compose with the zero3 stack yet); params stay "
-                "dp-sharded and every sharded parameter is gathered at "
-                "the forward", ranks=[0])
+                "and MoE blocks do not compose with the zero3 stack yet); "
+                "params stay dp-sharded and every sharded parameter is "
+                "gathered at the forward", ranks=[0])
             prefix = None
         dims, shapes, block = {}, {}, set()
         if prefix is not None:
@@ -1263,6 +1394,7 @@ class DeepSpeedEngine:
         self._pending = None
         self._grad_buffer = None
         self._window_losses = []
+        self._window_aux = []
         self._window_seeds = []
         self._window_open = False
         if self._window_timed:
@@ -1312,8 +1444,9 @@ class DeepSpeedEngine:
         return functional_call(self.module, params, batch, kwargs)
 
     def forward(self, *inputs):
-        """Run the model on one micro-batch and return its loss. In train
-        mode the graph is kept for the following ``backward()``."""
+        """Run the model on one micro-batch and return its loss (a tuple
+        output's element 0; the rest goes to ``last_aux``). In train mode
+        the graph is kept for the following ``backward()``."""
         if self._training and self._pending is not None:
             raise RuntimeError(
                 "two forward() calls without backward() inside an "
@@ -1332,16 +1465,36 @@ class DeepSpeedEngine:
         batch = self._batch(inputs)
         if not self._training:
             with torch.no_grad():
-                loss = self._call(self._cast_params(grad=False), batch)
+                loss, aux = _split_model_output(
+                    self._call(self._cast_params(grad=False), batch))
         else:
             params = self._cast_params(grad=True)
-            loss = self._call(params, batch)
-            self._pending = (loss, params)
+            loss, aux = _split_model_output(self._call(params, batch))
+            self._pending = (loss, params, aux)
+        if aux:
+            self.last_aux = self._data_mean(aux)
         if self.wall_clock_breakdown:
             self.timers(FORWARD_TIMER).stop()
         return loss
 
     __call__ = forward
+
+    def _data_mean(self, aux):
+        """The aux outputs (detached) averaged over the data group, as the
+        window loss is."""
+        aux = tuple(a.detach() if isinstance(a, torch.Tensor) else a
+                    for a in aux)
+        if self.dp_world_size <= 1 or not all(
+                isinstance(a, torch.Tensor) for a in aux):
+            return aux
+        flat = torch.cat([a.float().reshape(-1) for a in aux])
+        dist_lib.all_reduce(flat, self._dp_group)
+        flat = flat / self.dp_world_size
+        out, off = [], 0
+        for a in aux:
+            out.append(flat[off:off + a.numel()].view(a.shape).to(a.dtype))
+            off += a.numel()
+        return tuple(out)
 
     def _open_window(self):
         """The telemetry's window start, once a window, at its first
@@ -1412,9 +1565,11 @@ class DeepSpeedEngine:
             )
         if self.wall_clock_breakdown:
             self.timers(BACKWARD_TIMER).start()
-        loss, params = self._pending
+        loss, params, aux = self._pending
         self._pending = None
         self._window_losses.append(loss.detach().float())
+        if aux:
+            self._window_aux.append(self.last_aux)
         scale = self.loss_scale_state.loss_scale
         # data parallel: each rank's share of the global batch's mean (the
         # collectives sum over the ranks)
@@ -1483,8 +1638,9 @@ class DeepSpeedEngine:
         (but for the model-gathered optimizer, whose stage 2 reduces as
         stage 1 does)."""
         if self.zero_stage == 0:
-            for g in grads.values():
-                dist_lib.all_reduce(g, self._dp_group)
+            for n, g in grads.items():
+                if n not in self._expert_names:
+                    dist_lib.all_reduce(g, self._dp_group)
             return grads
         if self.zero_stage == 1 or self._tp_full_opt:
             # fresh shards: only the full buffer persists between windows
@@ -1552,6 +1708,7 @@ class DeepSpeedEngine:
     def zero_grad(self):
         self._grad_buffer = None
         self._window_losses = []
+        self._window_aux = []
 
     @torch.no_grad()
     def step(self):
@@ -1587,6 +1744,12 @@ class DeepSpeedEngine:
         if self._window_losses:
             window_loss = torch.stack(self._window_losses).mean()
         self._window_losses = []
+        if self._window_aux:
+            # the window's aux [accum]-stacked, the layout on both train
+            # paths
+            self.last_aux = tuple(torch.stack(list(xs))
+                                  for xs in zip(*self._window_aux))
+            self._window_aux = []
         if self._host_grads is not None:
             # offload on the card: the gradients' copies to pinned host
             # buffers are queued first, and the step's one sync below
@@ -1607,6 +1770,10 @@ class DeepSpeedEngine:
             # same on every rank of the line)
             for g in grads.values():
                 dist_lib.all_reduce(g, self._sp_line.group)
+        for n in self._pipe_shared:
+            # the embeddings and ln_f are on every stage, each stage's
+            # gradient its own part: the pipe line's sum
+            dist_lib.all_reduce(grads[n], self._pipe.group)
         # the overflow test and the norm run where the gradients are, as
         # on the on-device path, so that offload's clip factor is that
         # path's bit for bit

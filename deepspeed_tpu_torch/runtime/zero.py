@@ -38,6 +38,12 @@ tensors flattened in the JAX package's element order
 (ops/optimizers.py:jax_element_order), padded to a multiple of
 ``max(256, dp)`` quantization blocks, and cut into ``dp`` contiguous
 block ranges, which are the JAX engine's shards of its flat int8 leaves.
+
+Tensors already partitioned over the data axis (``local``: the MoE
+experts of ops/moe.py, whose gradients arrive whole from the token
+all-to-all's backward) are not partitioned again, as the JAX rule leaves a
+spec that holds the data axis alone: each is one whole leaf on its rank,
+and its gradient is never reduced over the data group.
 """
 
 import math
@@ -170,9 +176,12 @@ class _Leaf:
     parameter (``dim``), the whole of a replicated one (``dim`` None), or
     a block range of a flat int8 group (``members``)."""
 
-    __slots__ = ("name", "members", "dim", "shape", "numel", "pad_to")
+    __slots__ = ("name", "members", "dim", "shape", "numel", "pad_to",
+                 "local")
 
-    def __init__(self, name, members, dim, shape, numel, pad_to=0):
+    def __init__(self, name, members, dim, shape, numel, pad_to=0,
+                 local=False):
+        self.local = local  # partitioned over the data axis already
         self.name = name
         self.members = members  # [(param name, shape)]
         self.dim = dim
@@ -195,21 +204,26 @@ class ZeroLayout:
     persistent shards, and the collectives between them and the full
     tensors. ``shapes`` is ``{name: shape}`` in parameter order (under
     tensor parallelism the rank's model shards, whose model dims
-    ``model_dims`` {name: dim} the data axis leaves alone)."""
+    ``model_dims`` {name: dim} the data axis leaves alone). ``local``: the
+    names already partitioned over the data axis (whole leaves here,
+    never reduced)."""
 
     def __init__(self, shapes, dp, rank, group, stage, flat_groups=False,
-                 model_dims=None):
+                 model_dims=None, local=()):
         self.dp = int(dp)
         self.rank = int(rank)
         self.group = group
         self.stage = int(stage)
         self.shapes = OrderedDict((n, tuple(s)) for n, s in shapes.items())
         self.flat_groups = flat_groups
+        self.local = frozenset(local)
         self.param_specs = zero_param_specs(self.shapes, self.dp, stage,
                                             prefer_leading=flat_groups,
                                             model_dims=model_dims)
         opt_specs = zero_optstate_specs(self.shapes, self.dp, stage,
                                         model_dims=model_dims)
+        for n in self.local:
+            self.param_specs[n] = opt_specs[n] = None
         self.leaves = OrderedDict()
         if flat_groups and stage >= ZERO_OPTIMIZATION_OPTIMIZER_STATES:
             pad = max(256, self.dp)
@@ -227,7 +241,8 @@ class ZeroLayout:
                 shape = s if d is None else (s[d] // self.dp,) + tuple(
                     x for i, x in enumerate(s) if i != d)
                 self.leaves[n] = _Leaf(n, [(n, s)], d, shape,
-                                       math.prod(shape))
+                                       math.prod(shape),
+                                       local=n in self.local)
         # each parameter's leaf (a flat group's for its members)
         self._member_leaf = {n: lf for lf in self.leaves.values()
                              for n, _ in lf.members}
@@ -317,7 +332,9 @@ class ZeroLayout:
         for name, leaf in self.leaves.items():
             if names is not None and name not in names:
                 continue
-            if leaf.replicated:
+            if leaf.local:
+                g = full_grads[name]
+            elif leaf.replicated:
                 g = full_grads[name].clone()
                 dist_lib.all_reduce(g, self.group)
             else:
@@ -334,10 +351,13 @@ class ZeroLayout:
         flat group when its last member arrives. ``state`` holds the
         micro-step's ``first`` flag, the names ``done`` and the flat
         groups' ``pending`` members."""
+        # a parameter whose gradient comes in parts (the pipeline's
+        # microbatch backward passes) adds the later ones
+        first = state["first"] and name not in state["done"]
         state["done"].add(name)
         leaf = self._member_leaf[name]
         if not leaf.flat:
-            self.reduce_grads({name: g}, out, state["first"], (leaf.name,))
+            self.reduce_grads({name: g}, out, first, (leaf.name,))
             return
         members = state["pending"].setdefault(leaf.name, {})
         members[name] = g
@@ -350,9 +370,9 @@ class ZeroLayout:
         never came (the loss does not reach it), in parameter order."""
         for name, t in params.items():
             if name not in state["done"]:
+                buf = out[self._member_leaf[name].name]
                 self.reduce_one(name, torch.zeros(
-                    t.shape, dtype=out[self._member_leaf[name].name].dtype,
-                    device=t.device), out, state)
+                    t.shape, dtype=buf.dtype, device=buf.device), out, state)
 
     def add_persistent_grads(self, grads, out, first=True):
         """Stage 3: gradients of the persistent tensors (a shard's already
@@ -362,7 +382,7 @@ class ZeroLayout:
         tensors."""
         summed = OrderedDict()
         for n, g in grads.items():
-            if self.param_specs[n] is None:
+            if self.param_specs[n] is None and n not in self.local:
                 g = g.clone()
                 dist_lib.all_reduce(g, self.group)
             summed[n] = g

@@ -8,7 +8,8 @@ gloo group of 2 or 4 ranks; each rank reports the group, its mesh
 coordinates, the mpu's sizes, ranks and groups, and the port's three
 collectives on known values. In this process: ``init_distributed``'s
 return value and its two errors (deepspeed_tpu/runtime/dist.py:112-138),
-a refused model, sequence or pipeline axis, and the loader's per-rank
+a model, sequence or pipe axis that the topology of one process
+refuses, and the loader's per-rank
 rows against the JAX loader's per-process rows (its multi-process
 slicing, run here by giving it the process count and index).
 """
@@ -20,7 +21,6 @@ import jax
 
 import torch_dp_ranks as ranks
 from deepspeed_tpu.runtime import dataloader as jloader_mod
-from deepspeed_tpu_torch.config.config import DeepSpeedConfigError
 from deepspeed_tpu_torch.parallel import (
     MeshTopology,
     ProcessMesh,
@@ -99,19 +99,13 @@ def test_init_distributed_return_values_and_errors(monkeypatch):
                                   "sequence_parallel_size",
                                   "pipeline_parallel_size"])
 def test_a_non_data_axis_is_refused_naming_a7(axis):
-    if axis in ("model_parallel_size", "sequence_parallel_size"):
-        # the model and sequence axes are ported: in one process only the
-        # topology refuses them (tests/test_torch_model_parallel*.py and
-        # tests/test_torch_sequence_parallel.py run them on ranks)
-        with pytest.raises(ValueError, match="not divisible by mp"):
-            build_mesh(**{axis: 2})
-        with pytest.raises(ValueError, match="not divisible by mp"):
-            mesh_from_config({axis: 2})
-        return
-    item = "A7d"
-    with pytest.raises(DeepSpeedConfigError, match=item):
+    # the model, sequence and pipe axes are ported: in one process only the
+    # topology refuses them (tests/test_torch_model_parallel*.py,
+    # tests/test_torch_sequence_parallel.py and tests/test_torch_pipeline*.py
+    # run them on ranks)
+    with pytest.raises(ValueError, match="not divisible by mp"):
         build_mesh(**{axis: 2})
-    with pytest.raises(DeepSpeedConfigError, match="not yet ported"):
+    with pytest.raises(ValueError, match="not divisible by mp"):
         mesh_from_config({axis: 2})
 
 

@@ -5,6 +5,8 @@ ZeRO stage, steps_per_print, data_types), with the rows of
 tests/unit/test_config.py for those keys; and the engine's refusals of
 what the port does not have yet."""
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -134,7 +136,9 @@ def _tiny():
 # sequence and pipeline axes. The sequence axis is ported too
 # (tests/test_torch_sequence_parallel.py, which holds what it refuses on
 # ranks): extra2, 3, 7 and 10 now hold a pipeline axis, alone or with a
-# sequence axis
+# sequence axis. The pipe axis is ported too (tests/test_torch_pipeline*.py
+# hold what it refuses on ranks): in one process the topology refuses a
+# pipe axis of 2 before the engine sees the rest of the config
 @pytest.mark.parametrize("extra", [
     {"adapters": {"enabled": True, "rank": 4},
      "zero_optimization": {"stage": 1,
@@ -174,6 +178,11 @@ def test_engine_refuses_what_is_not_ported(extra):
         assert set(engine.params) == set(engine.adapter_state_dict())
         assert all(torch.equal(base[n], t)
                    for n, t in engine.frozen_base_params.items())
+        return
+    if "pipeline_parallel_size" in extra.get("mesh", {}):
+        with pytest.raises(ValueError, match="not divisible by mp"):
+            deepspeed_tpu_torch.initialize(model=_tiny(), config_params=cfg,
+                                           device="cpu")
         return
     with pytest.raises(DeepSpeedConfigError, match="not yet ported"):
         deepspeed_tpu_torch.initialize(model=_tiny(), config_params=cfg,
@@ -227,6 +236,24 @@ def test_engine_accepts_and_arms_the_resilience_block(block, armed):
 def test_engine_refuses_model_features_that_are_not_ported(field, value):
     model = _tiny()
     setattr(model.config, field, value)
+    if field == "moe_experts":
+        # MoE is ported (tests/test_torch_moe*.py); what it refuses, as the
+        # JAX layer does: the block memory modes
+        cfg = dataclasses.replace(model.config, remat=True)
+        with pytest.raises(ValueError, match="does not support the layer "
+                                             "memory modes"):
+            GPT2LMHeadModel(cfg, device="cpu")
+        return
+    if field == "pipeline_stages":
+        # pipeline stages are ported (tests/test_torch_pipeline*.py); a
+        # pipelined model needs a pipe axis of its stage count, as the JAX
+        # model requires
+        with pytest.raises(ValueError, match="pipeline_stages=2 needs a "
+                                             "mesh whose 'pipe' axis"):
+            deepspeed_tpu_torch.initialize(
+                model=model, config_params={"train_batch_size": 2},
+                device="cpu")
+        return
     if field == "remat":
         # remat is ported; a policy factory is refused with the JAX
         # package's error class (TypeError), where the JAX package raises

@@ -16,7 +16,10 @@ process makes the same global batches for the JAX engine): a window is
 mesh of the world (tensor parallelism, ``mp`` ranks a model line): the
 ranks of a line feed their data rank's rows. The ``sp_*`` cases run a
 sequence axis (ring and Ulysses attention, and GPT-2 whose engine keeps
-each rank's chunk of its data rank's rows), and ``serve_mp`` serves over
+each rank's chunk of its data rank's rows), the ``moe_*`` cases an MoE
+GPT-2 whose experts shard over the data axis, the ``pp_*`` cases the
+GPipe schedule and GPT-2 over a pipe axis (every stage of a line feeds
+its data rank's rows), and ``serve_mp`` serves over
 a model axis of the world, rank 0 driving ``serve_traffic`` and the
 others following its plans.
 
@@ -59,9 +62,9 @@ def mlp_weights(seed=0):
     }
 
 
-def windows(model, steps, accum, rows, seed=0):
+def windows(model, steps, accum, rows, seed=0, vocab=VOCAB):
     """``steps`` windows of ``accum`` global micro-batches (``rows`` rows
-    each): MLP ``(x, y)``, GPT-2 ``(ids, ids)``."""
+    each): MLP ``(x, y)``, GPT-2 ``(ids, ids)`` (ids below ``vocab``)."""
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(steps):
@@ -71,7 +74,7 @@ def windows(model, steps, accum, rows, seed=0):
                 win.append((rng.normal(size=(rows, IN_DIM)).astype(np.float32),
                             rng.integers(0, CLASSES, (rows,)).astype(np.int32)))
             else:
-                ids = rng.integers(0, VOCAB, (rows, SEQ)).astype(np.int32)
+                ids = rng.integers(0, vocab, (rows, SEQ)).astype(np.int32)
                 win.append((ids, ids))
         out.append(win)
     return out
@@ -1124,6 +1127,205 @@ def case_serve_mp(case, rank, world, workdir):
     return out
 
 
+# ---------------------------------------------------------------------------
+# MoE experts over the data axis, and the pipe axis
+# ---------------------------------------------------------------------------
+MOE_VOCAB = 128
+
+
+def moe_pp_model(case, workdir):
+    """The small GPT-2 of the MoE and pipeline cases (vocab 128, width 64,
+    4 heads) with the case's ``experts`` / ``pp`` / ``n_layer`` /
+    ``n_micro`` / ``dropout`` / ``remat``, its weights from ``workdir /
+    case["weights"]`` (whole: the engine cuts them)."""
+    import torch
+
+    import deepspeed_tpu_torch as dst
+
+    m = dst.GPT2LMHeadModel(dst.GPT2Config(
+        vocab_size=MOE_VOCAB, n_positions=SEQ, n_embd=64,
+        n_layer=case.get("n_layer", 2), n_head=4,
+        dropout=case.get("dropout", 0.0),
+        moe_experts=case.get("experts", 0),
+        pipeline_stages=case.get("pp", 1),
+        pipeline_microbatches=case.get("n_micro", 0),
+        remat=case.get("remat", False)), device="cpu")
+    if case.get("weights"):
+        m.load_state_dict(torch.load(workdir / case["weights"],
+                                     weights_only=True))
+    return m
+
+
+def moe_pp_engine(case, world, workdir, **over):
+    """The case's engine: a pipe axis of ``pp`` (the data axis the rest of
+    the world)."""
+    import deepspeed_tpu_torch as dst
+
+    pp = case.get("pp", 1)
+    extra = dict(case.get("extra", {}))
+    extra.update(over)
+    extra["mesh"] = dict({"pipeline_parallel_size": pp},
+                         **extra.get("mesh", {}))
+    mesh = extra["mesh"]
+    dp = world // (mesh.get("pipeline_parallel_size", 1)
+                   * mesh.get("model_parallel_size", 1)
+                   * mesh.get("sequence_parallel_size", 1))
+    engine, *_ = dst.initialize(
+        model=moe_pp_model(case, workdir), device="cpu",
+        rng_seed=case.get("rng_seed", 0),
+        config_params=config(case.get("stage", 0), case.get("opt", "Adam"),
+                             case.get("dtype", "fp32"), case["micro"],
+                             case.get("accum", 1), dp,
+                             lr=case.get("lr", 1e-4), **extra))
+    return engine
+
+
+def _moe_pp_windows(case, dp):
+    return windows("gpt2", case["steps"], case.get("accum", 1),
+                   case["micro"] * dp, case.get("data_seed", 0),
+                   vocab=MOE_VOCAB)
+
+
+def _moe_pp_run(engine, win):
+    import torch
+
+    dp, d = engine.dp_world_size, engine.data_rank
+    rows = [tuple(torch.from_numpy(x) for x in rank_rows(b, d, dp))
+            for b in win]
+    return float(engine.train_batch(iter(rows)))
+
+
+def case_moe_pp_train(case, rank, world, workdir):
+    """Train the case's windows; rank 0 returns the whole (expert- and
+    stage-gathered) parameters; every rank its losses, ``last_aux`` and
+    the names and shapes it holds."""
+    engine = moe_pp_engine(case, world, workdir)
+    losses = [_moe_pp_run(engine, w)
+              for w in _moe_pp_windows(case, engine.dp_world_size)]
+    out = {"losses": losses, "skipped": engine.skipped_steps,
+           "aux": [a.numpy().copy() for a in engine.last_aux],
+           "coeffs": [float(c) for c in engine.lamb_coeffs],
+           "local_shapes": {n: tuple(p.shape)
+                            for n, p in engine.module.named_parameters()},
+           "coords": (engine.pipe_rank, engine.data_rank)}
+    full = engine.full_parameters()
+    if rank == 0:
+        out["params"] = {n: p.detach().float().numpy().copy()
+                         for n, p in full.items()}
+    return out
+
+
+def moe_pp_fingerprint(engine):
+    """The eval loss of a fixed global batch of 4 rows, averaged over the
+    data group (every stage returns the same)."""
+    import torch
+    import torch.distributed as dist
+
+    dp, d = engine.dp_world_size, engine.data_rank
+    ids = windows("gpt2", 1, 1, 4, seed=99, vocab=MOE_VOCAB)[0][0][0]
+    per = 4 // dp
+    mine = torch.from_numpy(ids[d * per:(d + 1) * per]).long()
+    engine.eval()
+    loss = engine(mine, mine).detach().clone()
+    engine.train()
+    if dp > 1:
+        dist.all_reduce(loss, group=engine._dp_group)
+    return float(loss) / dp
+
+
+def case_moe_pp_checkpoint(case, rank, world, workdir):
+    """``save``: 2 windows then a save to ``dir``; ``load``: load it.
+    Either way the eval fingerprint and 2 more windows follow (the second
+    reads the restored optimizer state)."""
+    engine = moe_pp_engine(case, world, workdir,
+                           resilience={"enabled": True})
+    data = windows("gpt2", 4, 1, case["micro"] * engine.dp_world_size, 0,
+                   vocab=MOE_VOCAB)
+    ckpt = Path(case["dir"])
+    out = {}
+    if case["mode"] == "save":
+        out["train"] = [_moe_pp_run(engine, w) for w in data[:2]]
+        engine.save_checkpoint(str(ckpt), tag="t2")
+        out["files"] = sorted(os.listdir(ckpt / "t2"))
+    else:
+        path, _ = engine.load_checkpoint(str(ckpt))
+        out["loaded"] = path is not None
+        out["global_steps"] = engine.global_steps
+    out["fingerprint"] = moe_pp_fingerprint(engine)
+    out["resume"] = [_moe_pp_run(engine, w) for w in data[2:]]
+    return out
+
+
+def case_moe_pp_refusals(case, rank, world, workdir):
+    """Each of the case's ``refusals`` ({name: engine config changes}):
+    the message the engine raised, or None."""
+    out = {}
+    for name, over in case["refusals"].items():
+        sub = dict(case, **over.pop("case", {}))
+        try:
+            moe_pp_engine(sub, world, workdir, **over)
+            out[name] = None
+        except Exception as exc:  # the message is the result
+            out[name] = f"{type(exc).__name__}: {exc}"
+    return out
+
+
+def toy_pipeline(n_stages=2, per_stage=3, n_micro=4, mb=2, s=8, h=16):
+    """tests/unit/test_pipeline.py's toy: W [L, h, h], X [M, mb, s, h]."""
+    rng = np.random.default_rng(0)
+    W = (rng.normal(size=(n_stages * per_stage, h, h)) * 0.2
+         ).astype(np.float32)
+    X = rng.normal(size=(n_micro, mb, s, h)).astype(np.float32)
+    return W, X
+
+
+def case_pp_gpipe(case, rank, world, workdir):
+    """The GPipe schedule on the toy stage (``tanh(x @ w)``, 3 layers a
+    stage) over a pipe line of the world: outputs and the gradients of
+    ``sum(out ** 2)`` (this stage's weights, the inputs on stage 0), the
+    per-microbatch scalars of a ``last_stage_fn`` and their gradients,
+    and an exp-amplifying stage's finiteness."""
+    import torch
+
+    from deepspeed_tpu_torch.parallel.mesh import build_mesh
+    from deepspeed_tpu_torch.parallel.pipeline import gpipe, pipeline_line
+    from deepspeed_tpu_torch.runtime import dist as dist_lib
+
+    dist_lib.init_distributed(True)
+    line = pipeline_line(build_mesh(pipeline_parallel_size=world))
+    W, X = toy_pipeline(n_stages=world)
+    per = W.shape[0] // world
+    out = {}
+
+    def tanh_stage(w, x, m, extras):
+        for i in range(w.shape[0]):
+            x = torch.tanh(x @ w[i])
+        return x
+
+    def exp_stage(w, x, m, extras):
+        for i in range(w.shape[0]):
+            x = torch.exp(torch.clamp(x @ w[i], -50.0, 50.0)) * 1e-2
+        return x
+
+    def head(y, m, extras):
+        return torch.mean(y * y) + 0.5 * m
+
+    for name, fn, last in (("plain", tanh_stage, None),
+                           ("head", tanh_stage, head),
+                           ("exp", exp_stage, None)):
+        w = torch.from_numpy(W[rank * per:(rank + 1) * per]).requires_grad_()
+        x = torch.from_numpy(X).requires_grad_()
+        y = gpipe(fn, w, x, line, last_stage_fn=last)
+        loss = torch.sum(y) if last is not None else torch.sum(y ** 2)
+        loss.backward()
+        out[name] = {"out": y.detach().numpy().copy(),
+                     "loss": float(loss),
+                     "grad_w": w.grad.numpy().copy(),
+                     "grad_x": (x.grad.numpy().copy() if x.grad is not None
+                                else None)}
+    return out
+
+
 CASES = {
     "mp_train": case_mp_train, "mp_checkpoint": case_mp_checkpoint,
     "mp_dropout": case_mp_dropout, "mp_pieces": case_mp_pieces,
@@ -1137,6 +1339,10 @@ CASES = {
     "sp_attention": case_sp_attention, "sp_auto_mp": case_sp_auto_mp,
     "sp_train": case_sp_train, "sp_refusals": case_sp_refusals,
     "serve_mp": case_serve_mp,
+    "moe_pp_train": case_moe_pp_train,
+    "moe_pp_checkpoint": case_moe_pp_checkpoint,
+    "moe_pp_refusals": case_moe_pp_refusals,
+    "pp_gpipe": case_pp_gpipe,
 }
 
 
