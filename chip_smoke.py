@@ -429,16 +429,39 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                an expert rank's ``expert_in_w`` group). Gloo sends every
                collective through host memory, so no time here is a dp 2
                or pp 2 speed.
+  19. what a sequence and a model axis lifted, and the tile autotuner —
+               on two ranks of the card over a gloo group
+               (``--phase19-rank``): (a) BERT-large pretraining (1024
+               wide, 16 heads, seq 512, phase 12's padded batches, cut to
+               P19_BERT_LAYERS = 4 layers) at a sequence axis of 2:
+               float32 Adam, whose losses equal sp 1's in this process,
+               and bf16 FusedLamb with dropout 0.1, whose loss falls;
+               Ulysses runs rows 1b-3b once a layer a micro-step at [8, 8,
+               512, 64], LAMB 6 launches a step; (b) phase 18's MoE GPT-2
+               small at a model axis of 2 (dp 1), float32 Adam, whose
+               losses equal one rank's, 12 launches a micro-step at [8,
+               6, 1024, 64]; (c) GPT-2 small at a sequence axis of 2 with
+               int8 moments (float32 Adam, equal to sp 1) and with int8
+               moments and compensated masters (bf16, dropout 0.1, the
+               loss falling) (paths "p19_<run>_rank0/1"). Then the
+               kernels at (a)'s and (b)'s shapes against their plain
+               versions, and (d) the tile autotuner
+               (ops/autotune.py) at [8, 12, 1024, 64] and [8, 6, 1024,
+               128] (bf16, causal): its table, each forward form against
+               the plain version (phase 3's tolerances) and timed. No
+               time of (a)-(c) is an sp 2 or mp 2 speed (gloo).
   9. report  — a JSON line of per-kernel numbers (the D = 256, decode
                tail and BERT (rows 1b-3b) variants in entries of their
-               own; the launches of every path, phases 10 to 18
+               own; the forward's tile forms in "tile_forms" of rows 1
+               and 1m; the launches of every path, phases 10 to 19
                included), the nvidia-smi line, then the last line {"ok":
-               true, "device": {...}}. It comes after phase 18.
+               true, "device": {...}}. It comes after phase 19.
 
 ``--only-phase12`` builds every kernel and runs phase 12 alone, printing
 its numbers as one JSON line; ``--only-phase13``, ``--only-phase14``,
-``--only-phase15``, ``--only-phase16``, ``--only-phase17`` and
-``--only-phase18`` the same for phases 13 to 18. ``--only-bert-attention`` builds the
+``--only-phase15``, ``--only-phase16``, ``--only-phase17``,
+``--only-phase18`` and ``--only-phase19`` the same for phases 13 to
+19. ``--only-bert-attention`` builds the
 flash kernels, checks them under BERT's padding mask and the mask
 patterns of phase 12a, and times rows 1b-3b (copy the script to the root
 of an unpacked parent under build/ to time both trees in one call).
@@ -568,18 +591,31 @@ class Timer:
         return total / iters
 
 
+def plain_flash_fwd(*args, block_k=None):
+    """``flash_fwd``'s plain version under ``flash_fwd``'s signature, for
+    the swaps that run a model's attention through the plain versions
+    (the key tile is the kernel's and changes nothing there)."""
+    from deepspeed_tpu_torch.ops import attention as A
+
+    del block_k
+    return A.flash_fwd_plain(*args)
+
+
 # the kernels that must run on the tensor cores, by library, and how many
 # instantiations of each: every bfloat16/float16 one (2 dtypes x the head
-# dims of its tensor-core route, ops/attention.py:flash_route) holds wgmma
-# (HGMMA) and TMA loads (UTMALDG)
-TC_KERNELS = {"flash_fwd": {"flash_fwd_kernel_tc": 2 * 3},
+# dims of its tensor-core route, ops/attention.py:flash_route; the forward
+# x its five tile forms: 128- and 64-key at D = 64 and 128, 64-key at
+# D = 256) holds wgmma (HGMMA) and TMA loads (UTMALDG)
+TC_KERNELS = {"flash_fwd": {"flash_fwd_kernel_tc": 2 * 5},
               "flash_bwd": {"flash_bwd_dkv_kernel_tc": 2 * 3,
                             "flash_bwd_dq_kernel_tc": 2 * 3}}
 # the tensor-core instantiations whose ptxas report must show no spill
-# (mangled-name fragments: the forward, dQ and dK/dV at D = 128, dK/dV at
-# D = 256)
-NO_SPILL = {"flash_fwd": ("flash_fwd_kernel_tcI13__nv_bfloat16Li128E",
-                          "flash_fwd_kernel_tcI6__halfLi128E"),
+# (mangled-name fragments: the forward in both tile forms, dQ and dK/dV at
+# D = 128, dK/dV at D = 256)
+NO_SPILL = {"flash_fwd": ("flash_fwd_kernel_tcI13__nv_bfloat16Li128ELi128E",
+                          "flash_fwd_kernel_tcI6__halfLi128ELi128E",
+                          "flash_fwd_kernel_tcI13__nv_bfloat16Li128ELi64E",
+                          "flash_fwd_kernel_tcI6__halfLi128ELi64E"),
             "flash_bwd": ("flash_bwd_dq_kernel_tcI13__nv_bfloat16Li128E",
                           "flash_bwd_dq_kernel_tcI6__halfLi128E",
                           "flash_bwd_dkv_kernel_tcI13__nv_bfloat16Li128E",
@@ -1979,7 +2015,7 @@ def grads_kernels_vs_plain(seed, cfg=None, dtype=torch.float32):
         kernels = (A.flash_fwd, A.flash_bwd_dq, A.flash_bwd_dkv)
         if plain:
             A.flash_fwd, A.flash_bwd_dq, A.flash_bwd_dkv = (
-                A.flash_fwd_plain, A.flash_bwd_dq_plain,
+                plain_flash_fwd, A.flash_bwd_dq_plain,
                 A.flash_bwd_dkv_plain)
         try:
             loss = m(ids, ids, train=True)
@@ -4791,7 +4827,7 @@ def bert_grads_kernels_vs_plain(seed):
         kernels = (A.flash_fwd, A.flash_bwd_dq, A.flash_bwd_dkv)
         if plain:
             A.flash_fwd, A.flash_bwd_dq, A.flash_bwd_dkv = (
-                A.flash_fwd_plain, A.flash_bwd_dq_plain,
+                plain_flash_fwd, A.flash_bwd_dq_plain,
                 A.flash_bwd_dkv_plain)
         try:
             loss = model(*batch, train=True)
@@ -4834,7 +4870,7 @@ def bert_qa_logits_vs_plain(engine, micro):
         got = model(ids, mask, tt, train=False)
         torch.cuda.synchronize()
         launches = read_launches()
-        A.flash_fwd = A.flash_fwd_plain
+        A.flash_fwd = plain_flash_fwd
         try:
             want = model(ids, mask, tt, train=False)
         finally:
@@ -6385,7 +6421,7 @@ def p15_grads(model, batch, plain, names=None):
     kernels = (A.flash_fwd, A.flash_bwd_dq, A.flash_bwd_dkv)
     if plain:
         A.flash_fwd, A.flash_bwd_dq, A.flash_bwd_dkv = (
-            A.flash_fwd_plain, A.flash_bwd_dq_plain, A.flash_bwd_dkv_plain)
+            plain_flash_fwd, A.flash_bwd_dq_plain, A.flash_bwd_dkv_plain)
     try:
         with torch.set_grad_enabled(bool(params)):
             loss = model(*batch, train=True)
@@ -7555,6 +7591,407 @@ def phase_moe_and_pipeline(seed, card):
     return launches, stats
 
 
+# ---------------------------------------------------------------------------
+# phase 19: what a sequence and model axis lifted (A7f), the flash tile
+# autotuner (A7e)
+# ---------------------------------------------------------------------------
+P19_WORLD = 2
+P19_INT8 = {"data_types": {"optimizer_state_dtype": "int8"}}
+P19_INT8_COMPENSATED = {"data_types": {"optimizer_state_dtype": "int8",
+                                       "master_dtype": "compensated"}}
+# the runs of phase 19's two ranks at a sequence axis of 2 (GPT-2 small,
+# phase 16's batches): (name, optimizer, precision, dropout, lr, config)
+P19_SP_RUNS = (
+    ("int8_fp32", "Adam", "fp32", 0.0, 1e-4, P19_INT8),
+    ("int8_compensated_bf16", "Adam", "bf16", DROPOUT, 1e-3,
+     P19_INT8_COMPENSATED),
+)
+# the autotuner's shapes: GPT-2 small's training shape, and D = 128
+P19_TUNE_SHAPES = {"d64": TRAIN_SHAPE, "d128": FLASH_SHAPES["d128"]}
+# how much slower on the device (Timer's spin reading) the autotuner's
+# choice may be than the fastest form: two readings of the device clock
+# (medians of 10 and a mean of 10)
+P19_TUNE_SLACK = 0.05
+# (b) the MoE model at a model axis of 2: its attention kernels' q shape
+# (a rank's 6 of 12 heads)
+P19_MOE_MP_SHAPE = (P18_ROWS, 12 // P19_WORLD, 1024, 64)
+# (a) BERT-large at a sequence axis of 2, cut to 4 of its 24 layers:
+# Ulysses runs rows 1b-3b on a rank's 8 of 16 heads over the whole
+# sequence; float32 Adam (2 windows) against sp 1, bf16 FusedLamb with
+# dropout 0.1 (3 windows)
+P19_BERT_LAYERS = 4
+P19_BERT_SHAPE = (8, 16 // P19_WORLD, BERT_SEQ, 64)
+P19_BERT_RUNS = (("fp32", "Adam", 1e-4, 2), ("bf16", "FusedLamb", BERT_LR,
+                                             3))
+
+
+def p19_bert(seed, sp, precision, optimizer, lr, windows):
+    """BERT-large pretraining (P19_BERT_LAYERS layers, seq 512, phase 12's
+    padded batches: 2 micro-steps of 8 rows a window) at a sequence axis
+    of ``sp``: losses, launches (counts set to 0 just before the windows),
+    LAMB's launches a step, the memory held and the peak."""
+    import dataclasses
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import BertConfig, BertForPreTraining
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    over = {} if precision == "bf16" else dict(
+        hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    cfg = dataclasses.replace(
+        BertConfig.bert_large(max_position_embeddings=BERT_SEQ, **over),
+        num_hidden_layers=P19_BERT_LAYERS)
+    model = BertForPreTraining(cfg, device="cuda", seed=seed)
+    config = dict(bert_config(optimizer, lr),
+                  mesh={"sequence_parallel_size": sp})
+    if precision != "bf16":
+        del config["bf16"]
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model, config_params=config, rng_seed=seed)
+    micro = bert_batches(seed, cfg, BERT_SEQ, "pretraining")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.monotonic()
+    losses = [float(engine.train_batch(iter(micro))) for _ in range(windows)]
+    torch.cuda.synchronize()
+    out = {"losses": losses, "launches": read_launches(),
+           "window_s": (time.monotonic() - t0) / windows,
+           "held_gb": held / 1e9,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "skipped": engine.skipped_steps,
+           "micro_steps": engine.micro_steps,
+           "lamb_per_step": (lamb_launches_per_step(engine)
+                             if optimizer == "FusedLamb" else 0)}
+    del engine, model
+    return out
+
+
+def p19_moe_mp_engine(seed, mp):
+    """initialize() on phase 18's MoE GPT-2 small (8 experts, top-2,
+    capacity 1.25) at a model axis of ``mp`` with the model's Megatron
+    partition_specs (dp 1: every expert on each model rank), float32
+    Adam at dropout 0, one micro-step of P18_ROWS rows a window."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = GPT2LMHeadModel(GPT2Config.small(
+        dropout=0.0, moe_experts=P18_EXPERTS, moe_top_k=P18_TOP_K,
+        moe_capacity_factor=P18_CAPACITY), device="cuda", seed=seed)
+    cfg = p14_config("Adam", "fp32", 1, P18_ROWS, 1,
+                     {"mesh": {"model_parallel_size": mp}})
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model, config_params=cfg,
+        param_specs=(deepspeed_tpu_torch.partition_specs(model) if mp > 1
+                     else None))
+    return engine
+
+
+def p19_sp_engine(seed, optimizer, precision, dropout, lr, sp, extra):
+    """initialize() on GPT-2 small at full width and depth at a sequence
+    axis of ``sp`` with the optimizer-state layout of ``extra`` (phase
+    16's micro-batches and windows, ZeRO stage 0)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = GPT2LMHeadModel(GPT2Config.small(dropout=dropout), device="cuda",
+                            seed=seed)
+    model.layer_config.seq_parallel_impl = "ulysses"
+    cfg = p14_config(optimizer, precision, 0, P16_MICRO, 1,
+                     dict(extra, mesh={"sequence_parallel_size": sp}))
+    cfg["optimizer"]["params"]["lr"] = lr
+    cfg.update(train_batch_size=P16_MICRO * P16_ACCUM,
+               gradient_accumulation_steps=P16_ACCUM)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model,
+                                                config_params=cfg)
+    return engine
+
+
+def phase19_rank(spec_path):
+    """One of phase 19's two ranks (a subprocess) of the gloo group the
+    phase makes: (a) BERT-large pretraining at a sequence axis of 2
+    (float32 Adam, then bf16 FusedLamb with dropout); (b) the MoE GPT-2
+    small at a model axis of 2 (float32 Adam); (c) GPT-2 small at a
+    sequence axis of 2 with int8 moments
+    (float32 Adam), then int8 moments with compensated masters (bf16,
+    dropout). Writes its results as JSON."""
+    import torch.distributed as dist
+
+    spec = json.loads(Path(spec_path).read_text())
+    rank, seed = spec["rank"], spec["seed"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{spec['port']}", rank=rank,
+        world_size=P19_WORLD)
+    shapes = p17_record_shapes()
+    out = {}
+    for precision, optimizer, lr, windows in P19_BERT_RUNS:
+        shapes.clear()
+        got = p19_bert(seed, P19_WORLD, precision, optimizer, lr, windows)
+        got["kernel_shapes"] = sorted([n, list(s)] for n, s in shapes)
+        out[f"bert_sp2_{precision}"] = got
+    shapes.clear()
+    engine = p19_moe_mp_engine(seed, P19_WORLD)
+    got = p18_windows(engine, seed)
+    got["kernel_shapes"] = sorted([n, list(s)] for n, s in shapes)
+    got["coords"] = [engine.data_rank, engine.model_rank]
+    out["mp2_moe_fp32"] = got
+    del engine
+    for name, optimizer, precision, dropout, lr, extra in P19_SP_RUNS:
+        shapes.clear()
+        engine = p19_sp_engine(seed, optimizer, precision, dropout, lr,
+                               P19_WORLD, extra)
+        got = p16_windows(engine, seed)
+        got["kernel_shapes"] = sorted([n, list(s)] for n, s in shapes)
+        got["coords"] = [engine.data_rank, engine.seq_rank]
+        out[f"sp2_{name}"] = got
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    Path(spec["out"]).write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def p19_check_kernels(seed):
+    """The attention kernels of phase 19's paths against their plain
+    versions at their shapes: the MoE path's (a model rank's [8, 6, 1024,
+    64], causal) in float32 as it runs them and bf16 with dropout 0.1;
+    BERT's at sp 2 (a rank's [8, 8, 512, 64] after Ulysses' all-to-all,
+    non-causal, the padding mask of BERT_LENGTHS) in float32 and bf16
+    with dropout 0.1. Returns the max errors."""
+    from deepspeed_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1919)
+    errs = {}
+    mask = bert_mask(torch.device("cuda"), BERT_LENGTHS, BERT_SEQ)
+    for tag, shape, kv_mask, causal, dtype, rate in (
+            ("mp2", P19_MOE_MP_SHAPE, None, True, torch.float32, 0.0),
+            ("mp2", P19_MOE_MP_SHAPE, None, True, torch.bfloat16, DROPOUT),
+            ("bert sp2", P19_BERT_SHAPE, mask, False, torch.float32, 0.0),
+            ("bert sp2", P19_BERT_SHAPE, mask, False, torch.bfloat16,
+             DROPOUT)):
+        q, k, v, dout = (torch.randn(shape, device="cuda",
+                                     generator=gen).to(dtype)
+                         for _ in range(4))
+        args = (q, k, v, kv_mask, causal, None, rate, 1919)
+        out, _ = A.flash_fwd(*args)
+        ref, ref_lse = A.flash_fwd_plain(*args)
+        name = f"phase 19 {tag} {str(dtype)[6:]} {list(shape)}"
+        errs["flash_fwd"] = max(errs.get("flash_fwd", 0.0), check_close(
+            f"{name} flash_fwd", out, ref, dtype))
+        delta = (dout.float() * ref.float()).sum(dim=-1)
+        bargs = (q, k, v, kv_mask, dout, ref_lse, delta, causal, None, rate,
+                 1919)
+        got = (A.flash_bwd_dq(*bargs), *A.flash_bwd_dkv(*bargs))
+        want = (A.flash_bwd_dq_plain(*bargs), *A.flash_bwd_dkv_plain(*bargs))
+        for what, a, b in zip(("flash_bwd_dq", "dk", "dv"), got, want):
+            key = "flash_bwd_dq" if what == "flash_bwd_dq" else "flash_bwd_dkv"
+            errs[key] = max(errs.get(key, 0.0), check_close(
+                f"{name} {what}", a, b, dtype,
+                scaled=dtype != torch.float32))
+        del q, k, v, dout, out, ref, got, want
+    return errs
+
+
+def p19_autotune(seed):
+    """(d) The flash tile autotuner at GPT-2 small's training shape and at
+    D = 128 (bf16, causal, forward and backward): its table; each tile
+    form of the forward against the plain version (phase 3's tolerances,
+    dropout 0.1) and timed by Timer (``ms``, and ``device_ms`` behind a
+    spin), beside the bound; fails if the autotuner's choice is more than
+    P19_TUNE_SLACK slower on the device than the fastest form. Returns
+    {shape: entry}."""
+    from deepspeed_tpu_torch.ops import attention as A
+    from deepspeed_tpu_torch.ops.autotune import autotune_flash_blocks
+
+    timer = Timer(torch.device("cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 19)
+    out = {}
+    for tag, shape in P19_TUNE_SHAPES.items():
+        best, table = autotune_flash_blocks(*shape, causal=True,
+                                            dtype=torch.bfloat16, steps=10)
+        log(f"  autotune {tag} {list(shape)}: best {best}; "
+            + ", ".join(f"{bq}x{bk} {t * 1e3:.4f} ms (fwd+bwd, device)"
+                        for (bq, bk), t in sorted(table.items())))
+        q, k, v = (torch.randn(shape, device="cuda", generator=gen
+                               ).to(torch.bfloat16) for _ in range(3))
+        args = (q, k, v, None, True, None, DROPOUT, 1919)
+        ref, ref_lse = A.flash_fwd_plain(*args)
+        nbytes, flops = flash_work(q, None, True, "fwd")
+        b_ms, b_by = bound(nbytes, flops, torch.bfloat16)
+        forms = {}
+        for bq, bk in A.flash_block_forms(torch.bfloat16, shape[-1]):
+            o, lse = A.flash_fwd(*args, block_k=bk)
+            name = f"phase 19 flash_fwd {bq}x{bk} {list(shape)}"
+            err = check_close(name, o, ref, torch.bfloat16)
+            rows = ref_lse > -1e29
+            check_close(f"{name} lse", lse[rows], ref_lse[rows],
+                        torch.float32)
+            call = lambda bq=bq, bk=bk: A.flash_fwd(
+                q, k, v, None, True, block_k=bk)
+            forms[f"{bq}x{bk}"] = dict(
+                max_abs_err=err, ms=timer.ms(call, iters=10),
+                device_ms=timer.ms(call, iters=10, spin=True,
+                                   spin_cycles=20_000_000))
+            log(f"  {name}: {forms[f'{bq}x{bk}']['ms']:.5f} ms, device "
+                f"{forms[f'{bq}x{bk}']['device_ms']:.5f} ms (bound "
+                f"{b_ms:.5f} ms, {b_by})")
+        chosen = f"{best[0]}x{best[1]}"
+        fastest = min(forms, key=lambda f: forms[f]["device_ms"])
+        log(f"  autotune {tag}: chose {chosen}, Timer's device ms rank "
+            f"{fastest} first")
+        if (forms[chosen]["device_ms"]
+                > (1 + P19_TUNE_SLACK) * forms[fastest]["device_ms"]):
+            fail(f"phase 19 autotune {tag} chose {chosen}, "
+                 f"{forms[chosen]['device_ms']:.5f} ms on the device, where "
+                 f"{fastest} takes {forms[fastest]['device_ms']:.5f} ms")
+        out[tag] = {"shape": list(shape), "best": list(best),
+                    "table_s": {f"{bq}x{bk}": t
+                                for (bq, bk), t in table.items()},
+                    "forms": forms, "bound_ms": b_ms, "bound_by": b_by}
+        del q, k, v, ref, ref_lse
+    return out
+
+
+def phase_parallel_lifted_and_autotune(seed, card):
+    """Phase 19. Returns ({kernel: {path: launches}}, stats)."""
+    t0 = time.monotonic()
+    root = Path("build") / "phase19"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    ranks = p14_spawn(seed, root, timeout_s=600, flag="--phase19-rank",
+                      phase="19", world=P19_WORLD)
+    launches = {name: {} for name in launch_counters()}
+    micro_steps = P16_WINDOWS * P16_ACCUM
+    # (a) BERT-large at a sequence axis of 2
+    for rank, r in enumerate(ranks):
+        for precision, _, _, windows in P19_BERT_RUNS:
+            run = f"bert_sp2_{precision}"
+            got = r[run]
+            if not all(math.isfinite(v) for v in got["losses"]) or got[
+                    "skipped"]:
+                fail(f"phase 19 rank {rank} {run}: losses {got['losses']}")
+            want = P19_BERT_LAYERS * got["micro_steps"]
+            for kname in TRAIN_KERNELS:
+                if got["launches"][kname] != want:
+                    fail(f"phase 19 rank {rank} {run}: {kname} launched "
+                         f"{got['launches'][kname]} times, want {want}")
+            if got["launches"]["lamb_phase1"] != got["lamb_per_step"] * (
+                    windows):
+                fail(f"phase 19 rank {rank} {run}: lamb_phase1 launched "
+                     f"{got['launches']['lamb_phase1']} times")
+            shapes = {tuple(s) for _, s in got["kernel_shapes"]}
+            if shapes != {P19_BERT_SHAPE}:
+                fail(f"phase 19 rank {rank} {run}: attention kernels at "
+                     f"{sorted(shapes)}, want {P19_BERT_SHAPE}")
+            for kname, n in got["launches"].items():
+                launches[kname][f"p19_{run}_rank{rank}"] = n
+            log(f"  BERT-large ({P19_BERT_LAYERS} layers) sp 2 {precision} "
+                f"rank {rank}: losses {got['losses']}; held "
+                f"{got['held_gb']:.4f} GB, peak {got['peak_gb']:.4f} GB; "
+                f"{got['window_s']:.3f} s a window; launches "
+                + ", ".join(f"{k} {got['launches'][k]}" for k in
+                            (*TRAIN_KERNELS, "lamb_phase1")))
+    bert_bf16 = ranks[0]["bert_sp2_bf16"]["losses"]
+    if not bert_bf16[-1] < bert_bf16[0]:
+        fail("phase 19 BERT-large bf16 at sp 2: the loss did not fall "
+             f"{bert_bf16}")
+    precision, optimizer, lr, windows = P19_BERT_RUNS[0]
+    bert_ref = p19_bert(seed, 1, precision, optimizer, lr, windows)
+    p14_close("phase 19 float32 BERT-large sp 2 vs sp 1 losses",
+              ranks[0]["bert_sp2_fp32"]["losses"], bert_ref["losses"])
+    # (b) the MoE model at a model axis of 2
+    for rank, r in enumerate(ranks):
+        got = r["mp2_moe_fp32"]
+        p18_check_run(f"phase 19 MoE mp 2 rank {rank} (model rank "
+                      f"{got['coords'][1]})", got, N_LAYER, P18_WINDOWS, 0,
+                      P19_MOE_MP_SHAPE)
+        for kname, n in got["launches"].items():
+            launches[kname][f"p19_mp2_moe_fp32_rank{rank}"] = n
+    if ranks[0]["mp2_moe_fp32"]["losses"] != ranks[1]["mp2_moe_fp32"][
+            "losses"]:
+        fail("phase 19 MoE mp 2: the model ranks return different losses")
+    engine = p19_moe_mp_engine(seed, 1)
+    moe_ref = p18_windows(engine, seed)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    p14_close("phase 19 float32 MoE mp 2 vs one rank losses",
+              ranks[0]["mp2_moe_fp32"]["losses"], moe_ref["losses"])
+    # (c) int8 moments (and compensated masters) at a sequence axis of 2
+    for rank, r in enumerate(ranks):
+        for run, got in r.items():
+            if not run.startswith("sp2_"):
+                continue
+            if not all(math.isfinite(v) for v in got["losses"]) or got[
+                    "skipped"]:
+                fail(f"phase 19 rank {rank} {run}: losses {got['losses']}")
+            for kname in TRAIN_KERNELS:
+                if got["launches"][kname] != N_LAYER * micro_steps:
+                    fail(f"phase 19 rank {rank} {run}: {kname} launched "
+                         f"{got['launches'][kname]} times, want "
+                         f"{N_LAYER * micro_steps}")
+            shapes = {tuple(s) for _, s in got["kernel_shapes"]}
+            if shapes != {P17_UL_SHAPE}:
+                fail(f"phase 19 rank {rank} {run}: attention kernels at "
+                     f"{sorted(shapes)}, want {P17_UL_SHAPE}")
+            for kname, n in got["launches"].items():
+                launches[kname][f"p19_{run}_rank{rank}"] = n
+            log(f"  {run} rank {rank} (sequence rank {got['coords'][1]}): "
+                f"losses {got['losses']}; held {got['held_gb']:.4f} GB, "
+                f"peak {got['peak_gb']:.4f} GB; {got['window_s']:.3f} s a "
+                "window (two ranks on one card over gloo: not an sp 2 "
+                "speed); launches "
+                + ", ".join(f"{k} {got['launches'][k]}" for k in
+                            (*TRAIN_KERNELS, "lamb_phase1")))
+    for run in ranks[0]:
+        if ranks[0][run]["losses"] != ranks[1][run]["losses"]:
+            fail(f"phase 19 {run}: the ranks return different losses")
+    bf16 = ranks[0]["sp2_int8_compensated_bf16"]["losses"]
+    if not bf16[-1] < bf16[0]:
+        fail(f"phase 19 int8 + compensated bf16 at sp 2: the loss did not "
+             f"fall {bf16}")
+    name, optimizer, precision, dropout, lr, extra = P19_SP_RUNS[0]
+    engine = p19_sp_engine(seed, optimizer, precision, dropout, lr, 1, extra)
+    ref = p16_windows(engine, seed)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    p14_close("phase 19 float32 int8 moments sp 2 vs sp 1 losses",
+              ranks[0]["sp2_int8_fp32"]["losses"], ref["losses"])
+    kernel_errs = p19_check_kernels(seed)
+    # (d) the autotuner and the forward's tile forms
+    tune = p19_autotune(seed)
+    stats = {"card": card, "ranks": ranks,
+             "bert_fp32_sp1": {k: bert_ref[k] for k in
+                               ("losses", "held_gb", "peak_gb")},
+             "moe_fp32_mp1": {k: moe_ref[k] for k in
+                              ("losses", "held_gb", "peak_gb", "params_m",
+                               "weights_gb")},
+             "int8_fp32_sp1": {k: ref[k] for k in
+                               ("losses", "held_gb", "peak_gb")},
+             "kernels_vs_plain": kernel_errs,
+             "autotune": tune, "wall_s": time.monotonic() - t0}
+    log(f"phase 19: float32 BERT-large sp 2 = sp 1 "
+        f"({ranks[0]['bert_sp2_fp32']['losses']} vs {bert_ref['losses']}); "
+        f"bf16 {bert_bf16}; float32 MoE mp 2 = one rank "
+        f"({ranks[0]['mp2_moe_fp32']['losses']} vs {moe_ref['losses']}); "
+        f"float32 int8 sp 2 = sp 1 "
+        f"({ranks[0]['sp2_int8_fp32']['losses']} vs {ref['losses']}); "
+        f"int8 + compensated bf16 {bf16}; autotune best "
+        + ", ".join(f"{t} {e['best']}" for t, e in tune.items())
+        + f"; {stats['wall_s']:.1f} s")
+    return launches, stats
+
+
 def only_flash(device, seed):
     """``--only-flash``: the flash kernels built alone (ptxas's registers
     and spills printed) and timed as time_flash times them (bf16, causal,
@@ -7692,7 +8129,14 @@ def main():
                         help="build every kernel and run phase 18 alone "
                         "(GPT-2 small with 8 MoE experts on one rank and "
                         "over a data axis of 2, and over a pipe axis of 2)")
+    parser.add_argument("--only-phase19", action="store_true",
+                        help="build every kernel and run phase 19 alone "
+                        "(int8 moments and compensated masters at sp 2 on "
+                        "two ranks of the card; the flash tile autotuner "
+                        "and the forward's tile forms)")
     parser.add_argument("--phase14-rank", metavar="SPEC",
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--phase19-rank", metavar="SPEC",
                         help=argparse.SUPPRESS)
     parser.add_argument("--phase18-rank", metavar="SPEC",
                         help=argparse.SUPPRESS)
@@ -7726,6 +8170,9 @@ def main():
         return
     if args.phase18_rank:
         phase18_rank(args.phase18_rank)
+        return
+    if args.phase19_rank:
+        phase19_rank(args.phase19_rank)
         return
     from deepspeed_tpu_torch.ops import kernel_lib
 
@@ -7816,6 +8263,13 @@ def main():
                           "card": smi}))
         return
 
+    if args.only_phase19:
+        kernel_lib.build()
+        launches, stats = phase_parallel_lifted_and_autotune(args.seed, smi)
+        print(json.dumps({"phase19": stats, "launches": launches,
+                          "card": smi}))
+        return
+
     if args.only_phase13:
         kernel_lib.build()
         launches, stats = phase_inference_rest(args.seed, smi)
@@ -7858,6 +8312,8 @@ def main():
     mp_launches, mp_stats = phase_model_parallel(args.seed, smi)
     sp_launches, sp_stats = phase_serve_and_sequence(args.seed, smi)
     moe_launches, moe_stats = phase_moe_and_pipeline(args.seed, smi)
+    a7f_launches, a7f_stats = phase_parallel_lifted_and_autotune(args.seed,
+                                                                 smi)
     for path, counts in [("serve", serve_launches),
                          *adapter_launches.items(), *hd_launches.items(),
                          *tel_launches.items(), *res_launches.items(),
@@ -7877,6 +8333,8 @@ def main():
     for name, by_path in sp_launches.items():
         launches[name].update(by_path)
     for name, by_path in moe_launches.items():
+        launches[name].update(by_path)
+    for name, by_path in a7f_launches.items():
         launches[name].update(by_path)
     for name, by_path in launches.items():
         kernels[name]["launches"] = sum(by_path.values())
@@ -7926,6 +8384,10 @@ def main():
             launches=sum(by_path.values()), launches_by_path=by_path,
             **hd_stats["flash_wide"][256][name],
             d192=hd_stats["flash_wide"][192][name])
+    # the forward's tile forms (phase 19): each form's times and error at
+    # the autotuner's shapes, the default form first
+    for name, tag in (("flash_fwd", "d64"), ("flash_fwd d128", "d128")):
+        kernels[name]["tile_forms"] = a7f_stats["autotune"][tag]
     tail = hd_stats["paged_decode"]
     kernels["paged_decode tail"] = dict(
         name="paged_decode tail", route="cuda",
@@ -7950,6 +8412,7 @@ def main():
                     "model_parallel": mp_stats,
                     "serve_mp_and_sequence": sp_stats,
                     "moe_and_pipeline": moe_stats,
+                    "parallel_lifted_and_autotune": a7f_stats,
                     "head_dims": {k: v for k, v in hd_stats.items()
                                   if k not in ("flash", "flash_wide",
                                                "flash_d128",

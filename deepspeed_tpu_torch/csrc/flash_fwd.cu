@@ -53,11 +53,12 @@
 // (not the mask from device memory per score element), and a row with no
 // valid key walks none and takes the epilogue's zeros.
 //
-// The tiles depend on the head dim (tc::Cfg): at D = 64, 128-key tiles in
-// a three-stage ring fed by a third, producer warpgroup, whose registers
-// go to the consumers (setmaxnreg 24 / 240). A 384-thread block gets 168
-// registers a thread at compile time, whatever setmaxnreg gives at run
-// time: at D = 128 a thread's O (64 float32 registers), S of a 128-key
+// The tiles depend on the head dim (tc::Cfg; tc::Tile adds a 64-key form
+// at D = 64 and 128, chosen by the caller's block_k): at D = 64, 128-key
+// tiles in a three-stage ring fed by a third, producer warpgroup, whose
+// registers go to the consumers (setmaxnreg 24 / 240). A 384-thread block
+// gets 168 registers a thread at compile time, whatever setmaxnreg gives
+// at run time: at D = 128 a thread's O (64 float32 registers), S of a 128-key
 // tile (64) and P of the previous tile (32) spilled there and serialised
 // the wgmmas. So at D = 128 and 256 the block has no producer warpgroup
 // (256 threads, up to 255 registers each) and consumer thread 0 issues
@@ -312,26 +313,34 @@ struct Cfg<256> {
   static constexpr int kThreads = kConsumers;
   static constexpr int kMaskKeys = 16384;
 };
+// A form of the kernel: the head dim's configuration with BN keys a K/V
+// tile. Cfg<D>::kBN is the default form; D = 64 and D = 128 also have a
+// 64-key form (the same ring depth, half the bytes a stage), for the
+// tile autotuner (ops/autotune.py) to choose between.
+template <int D, int BN>
+struct Tile : Cfg<D> {
+  static constexpr int kBN = BN;
+};
 
 // shared memory, byte offsets from a 1024-aligned base: the Q tile, the
 // K and V rings, the key tiles (key_tiles.cuh), the mbarriers (q_full,
 // k_full[kStages], v_full[kStages], k_empty[kStages], v_empty[kStages])
-template <int D>
+template <int D, int BN>
 struct Layout {
   static constexpr int kStages = Cfg<D>::kStages;
-  static constexpr int kQT = kBM * D * 2;          // the Q tile
-  static constexpr int kKV = Cfg<D>::kBN * D * 2;  // a K or V tile
+  static constexpr int kQT = kBM * D * 2;  // the Q tile
+  static constexpr int kKV = BN * D * 2;   // a K or V tile
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + kQT;  // stage s at kK + s * kKV
   static constexpr int kV = kK + kStages * kKV;
   static constexpr int kTiles = kV + kStages * kKV;
-  using Tiles = key_tiles::Smem<Cfg<D>::kBN, Cfg<D>::kMaskKeys>;
+  using Tiles = key_tiles::Smem<BN, Cfg<D>::kMaskKeys>;
   static constexpr int kBars = kTiles + Tiles::kBytes;
   static constexpr int kBytes = kBars + 8 * (1 + 4 * kStages) + 1024;
   static_assert(kBytes <= 232448, "a block has 227 KB of shared memory");
 };
 
-template <typename T, int D>
+template <typename T, int D, int BN>
 __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
 flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
@@ -340,8 +349,8 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
                     float* __restrict__ lse, int H, int Sq, int Sk, int causal,
                     float scale_log2, int dropout, uint32_t threshold,
                     float inv_keep, uint32_t seed) {
-  using C = Cfg<D>;
-  using L = Layout<D>;
+  using C = Tile<D, BN>;
+  using L = Layout<D, BN>;
   constexpr int kBN = C::kBN;
   constexpr int kStages = C::kStages;
   constexpr bool kHalf = std::is_same<T, __half>::value;
@@ -667,23 +676,24 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int BN>
 int launch(const void* q, const void* k, const void* v, const int* kv_mask,
            void* out, float* lse, int B, int H, int Sq, int Sk, int dtype,
            int causal, float sm_scale, int dropout, uint32_t threshold,
            float keep, uint32_t seed, cudaStream_t stream) {
-  using C = Cfg<D>;
+  using C = Tile<D, BN>;
+  using L = Layout<D, BN>;
   CUtensorMap tq, tk, tv;
   int err = sm90::make_map(&tq, q, dtype, B * H, Sq, D, kBM);
   if (err == 0) err = sm90::make_map(&tk, k, dtype, B * H, Sk, D, C::kBN);
   if (err == 0) err = sm90::make_map(&tv, v, dtype, B * H, Sk, D, C::kBN);
   if (err != 0) return err;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel_tc<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Layout<D>::kBytes);
+      flash_fwd_kernel_tc<T, D, BN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(B * H, (Sq + kBM - 1) / kBM);
-  flash_fwd_kernel_tc<T, D><<<grid, C::kThreads, Layout<D>::kBytes, stream>>>(
+  flash_fwd_kernel_tc<T, D, BN><<<grid, C::kThreads, L::kBytes, stream>>>(
       tq, tk, tv, kv_mask, static_cast<T*>(out), lse, H, Sq, Sk, causal,
       sm_scale * kLog2e, dropout, threshold, 1.f / keep, seed);
   return static_cast<int>(cudaGetLastError());
@@ -694,33 +704,49 @@ int launch(const void* q, const void* k, const void* v, const int* kv_mask,
 // dtype: 0 float32 (the FMA kernel), 1 bfloat16, 2 float16 (the
 // tensor-core kernel). D must be 64, 128 or 256 (the wrapper checks).
 // dropout: 0 off; else keep a pair when its bits >= threshold and divide
-// the kept probabilities by keep = 1 - rate.
+// the kept probabilities by keep = 1 - rate. block_k: the keys a K/V tile
+// holds, 0 for the head dim's default form; the tensor-core kernel also
+// has 64 at D = 64 and 128, the FMA kernel only its one tile (64, 32, 16
+// keys at D = 64, 128, 256). Any other value returns cudaErrorInvalidValue.
 extern "C" int ds_flash_fwd(const void* q, const void* k, const void* v,
                             const int* kv_mask, void* out, float* lse, int B,
                             int H, int Sq, int Sk, int D, int dtype,
                             int causal, float sm_scale, int dropout,
                             unsigned int threshold, float keep,
-                            unsigned int seed, void* stream) {
+                            unsigned int seed, int block_k, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Sq <= 0 || B * H <= 0) return static_cast<int>(cudaGetLastError());
-#define DS_FLASH_FWD_TC(T, DIM)                                              \
-  return tc::launch<T, DIM>(q, k, v, kv_mask, out, lse, B, H, Sq, Sk, dtype, \
-                            causal, sm_scale, dropout, threshold, keep, seed, \
-                            s)
-  if (dtype == 1 && D == 64) DS_FLASH_FWD_TC(__nv_bfloat16, 64);
-  if (dtype == 1 && D == 128) DS_FLASH_FWD_TC(__nv_bfloat16, 128);
-  if (dtype == 1 && D == 256) DS_FLASH_FWD_TC(__nv_bfloat16, 256);
-  if (dtype == 2 && D == 64) DS_FLASH_FWD_TC(__half, 64);
-  if (dtype == 2 && D == 128) DS_FLASH_FWD_TC(__half, 128);
-  if (dtype == 2 && D == 256) DS_FLASH_FWD_TC(__half, 256);
+#define DS_FLASH_FWD_TC(T, DIM, BN)                                        \
+  if (D == DIM && block_k == BN)                                           \
+  return tc::launch<T, DIM, BN>(q, k, v, kv_mask, out, lse, B, H, Sq, Sk, \
+                                dtype, causal, sm_scale, dropout, threshold, \
+                                keep, seed, s)
+#define DS_FLASH_FWD_TC_FORMS(T)  \
+  DS_FLASH_FWD_TC(T, 64, 128);    \
+  DS_FLASH_FWD_TC(T, 64, 64);     \
+  DS_FLASH_FWD_TC(T, 128, 128);   \
+  DS_FLASH_FWD_TC(T, 128, 64);    \
+  DS_FLASH_FWD_TC(T, 256, 64)
+  if (dtype == 1 || dtype == 2) {
+    if (block_k == 0) block_k = D == 256 ? tc::Cfg<256>::kBN : 128;
+    if (dtype == 1) {
+      DS_FLASH_FWD_TC_FORMS(__nv_bfloat16);
+    } else {
+      DS_FLASH_FWD_TC_FORMS(__half);
+    }
+  }
+#undef DS_FLASH_FWD_TC_FORMS
 #undef DS_FLASH_FWD_TC
-#define DS_FLASH_FWD_FMA(DIM, BK, G)                                  \
-  return launch<DIM, BK, G>(q, k, v, kv_mask, out, lse, B, H, Sq, Sk, \
+#define DS_FLASH_FWD_FMA(DIM, BK, G)                                    \
+  if (D == DIM && (block_k == 0 || block_k == BK))                      \
+  return launch<DIM, BK, G>(q, k, v, kv_mask, out, lse, B, H, Sq, Sk,   \
                             causal, sm_scale, dropout, threshold, keep, \
                             seed, s)
-  if (dtype == 0 && D == 64) DS_FLASH_FWD_FMA(64, 64, 4);
-  if (dtype == 0 && D == 128) DS_FLASH_FWD_FMA(128, 32, 4);
-  if (dtype == 0 && D == 256) DS_FLASH_FWD_FMA(256, 16, 8);
+  if (dtype == 0) {
+    DS_FLASH_FWD_FMA(64, 64, 4);
+    DS_FLASH_FWD_FMA(128, 32, 4);
+    DS_FLASH_FWD_FMA(256, 16, 8);
+  }
 #undef DS_FLASH_FWD_FMA
   return static_cast<int>(cudaErrorInvalidValue);
 }

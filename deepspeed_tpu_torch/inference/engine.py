@@ -746,10 +746,12 @@ class InferenceEngine:
             dist_lib.init_distributed(device=self.device)
             mesh = build_mesh(model_parallel_size=mp)
         elif not isinstance(mesh, ProcessMesh):
-            raise _not_ported(
-                f"serving over a {type(mesh).__name__} mesh (the port takes "
-                "a deepspeed_tpu_torch.parallel.ProcessMesh or a mesh "
-                "config block)")
+            raise DeepSpeedConfigError(
+                f"serving over a {type(mesh).__name__} mesh: the port runs "
+                "one process a rank and takes a deepspeed_tpu_torch."
+                "parallel.ProcessMesh or a mesh config block (a "
+                "jax.sharding.Mesh lays one process's arrays over its "
+                "devices, which has no counterpart here)")
         _refuse_replica_axes({
             C.MESH_DATA_PARALLEL_SIZE: mesh.dp_size,
             C.MESH_SEQUENCE_PARALLEL_SIZE: mesh.sp_size})

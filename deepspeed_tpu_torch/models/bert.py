@@ -39,9 +39,20 @@ blocks run through the gather stack of models/stack.py, and with the
 engine's ``sparse_gradients`` the word table's lookup gradient goes
 through runtime/sparse.py.
 
-Refused when the model is built: the config fields ``sparse_gradients``
-and ``zero3_gather`` (the training engine arms both itself, through
-``configure_data_parallel``) and ``mesh`` (a model axis, ROADMAP A7).
+Sequence parallelism (``configure_sequence_parallel`` of the task
+models, set by the training engine at a sequence axis above 1): the
+inputs are a rank's chunk of the tokens, the positions offset by the
+chunk, attention runs over the line (ring or Ulysses) with the padding
+mask's key validity, the masked-LM loss divides by the line's and data
+group's count of labels, and the next-sentence loss is rank 0's (it
+holds the [CLS] position); the line sums the shares. Question answering
+joins the span logits over the line, and each rank takes the whole span
+cross-entropy (its backward keeps the rank's positions).
+
+Refused when the model is built: the config fields ``sparse_gradients``,
+``zero3_gather`` and ``mesh`` (the training engine arms all three
+itself: through ``configure_data_parallel`` and
+``configure_sequence_parallel``).
 """
 
 import dataclasses
@@ -50,7 +61,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..config.config import not_ported
+from ..config.config import DeepSpeedConfigError
 from ..ops.attention import NEG_INF
 from ..ops.cross_entropy import cross_entropy_ignore_index
 from ..ops.transformer import (
@@ -61,8 +72,10 @@ from ..ops.transformer import (
     layer_norm_apply,
     transformer_block_apply,
 )
-from ..utils.device import resolve_device
+from ..parallel.tensor import gather_from_region, reduce_from_region
+from ..runtime import dist as dist_lib
 from ..runtime.sparse import sparse_embedding_lookup
+from ..utils.device import resolve_device
 from .stack import zero3_stack
 
 
@@ -142,20 +155,29 @@ class BertConfig:
         )
 
     def check_ported(self):
-        """Raise ``not_ported`` for a field that needs a later part of the
-        port."""
+        """Raise for a JAX config field the port's BERT takes from the
+        training engine instead (``sparse_gradients``, ``zero3_gather``,
+        ``mesh``)."""
         if self.sparse_gradients:
-            raise not_ported(
-                "BERT with sparse_gradients set on its config (the JAX "
-                "model's device-mesh seam, ROADMAP A7; the training "
-                "engine's sparse_gradients key arms the port's)")
+            raise DeepSpeedConfigError(
+                "BERT with sparse_gradients set on its config: the port's "
+                "training engine arms the word table's sparse gradient from "
+                "its own sparse_gradients key (the JAX config field rides "
+                "the JAX model's device mesh, which the port's models do "
+                "not hold)")
         if self.zero3_gather is not None:
-            raise not_ported(
-                "BERT with zero3_gather set on its config (the JAX model's "
-                "device-mesh seam, ROADMAP A7; ZeRO stage 3 in the training "
-                "engine arms the port's)")
+            raise DeepSpeedConfigError(
+                "BERT with zero3_gather set on its config: ZeRO stage 3 in "
+                "the port's training engine arms the encoder's gather itself "
+                "(the JAX config field rides the JAX model's device mesh, "
+                "which the port's models do not hold)")
         if self.mesh is not None:
-            raise not_ported("BERT over a device mesh (ROADMAP A7)")
+            raise DeepSpeedConfigError(
+                "BERT with a mesh set on its config: the port's training "
+                "engine arms the sequence axis itself "
+                "(configure_sequence_parallel; the JAX config field holds "
+                "a jax.sharding.Mesh, which the port's models do not "
+                "hold)")
 
 
 class _LayerNorm(nn.Module):
@@ -198,14 +220,16 @@ class BertEmbeddings(nn.Module):
         self.LayerNorm = _LayerNorm(h, device, dtype)
         self.sparse_lookup = None
 
-    def forward(self, layer_cfg, input_ids, token_type_ids=None, rng=None):
-        """[B, S] ids -> [B, S, H]: word + position (+ token type), the
-        LayerNorm, then the hidden dropout from ``rng``."""
+    def forward(self, layer_cfg, input_ids, token_type_ids=None, rng=None,
+                first=0):
+        """[B, S] ids -> [B, S, H]: word + position (from position
+        ``first``: a sequence rank's chunk) (+ token type), the LayerNorm,
+        then the hidden dropout from ``rng``."""
         s = input_ids.shape[1]
         word = (self.word_embeddings[input_ids] if self.sparse_lookup is None
                 else sparse_embedding_lookup(self.word_embeddings, input_ids,
                                              *self.sparse_lookup))
-        x = word + self.position_embeddings[None, :s]
+        x = word + self.position_embeddings[None, first:first + s]
         if token_type_ids is not None:
             x = x + self.token_type_embeddings[token_type_ids]
         x = layer_norm_apply(layer_cfg, x, self.LayerNorm.weight,
@@ -278,9 +302,15 @@ class BertModel(nn.Module):
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
                 train=False, rng=None):
-        """``(sequence output [B, S, H], pooled [B, H], word table)``."""
+        """``(sequence output [B, S, H], pooled [B, H], word table)``; at a
+        sequence axis the rank's chunk of the tokens, and the pooled first
+        token is meaningful on the line's rank 0 only (it holds the
+        [CLS] position)."""
         rng = rng if train else None
-        x = self.embeddings(self.layer_config, input_ids, token_type_ids, rng)
+        line = self.layer_config.sequence_parallel
+        first = 0 if line is None else line.rank * input_ids.shape[1]
+        x = self.embeddings(self.layer_config, input_ids, token_type_ids, rng,
+                            first)
         x = self.encoder(self.layer_config, x, additive_mask(attention_mask),
                          train, rng, self.config.use_flash)
         pooled = torch.tanh(self.pooler(x[:, 0]))
@@ -296,6 +326,7 @@ class _BertHead(nn.Module):
     zero3_block_prefix = "bert.encoder.layer."
     data_rank = 0
     count_fn = None
+    sequence_parallel = None
 
     def configure_data_parallel(self, data_rank=0, count_fn=None,
                                 zero3=None, sparse=None):
@@ -307,13 +338,39 @@ class _BertHead(nn.Module):
         self.bert.encoder.zero3_gather = zero3
         self.bert.embeddings.sparse_lookup = sparse
 
+    def configure_sequence_parallel(self, line=None):
+        """The sequence-parallel setting the training engine hands the
+        model: ``line`` (parallel/sequence.py:SequenceParallel, or None):
+        the inputs are then this rank's chunk of the tokens, attention runs
+        over the line (ring or Ulysses, with the padding mask's key
+        validity) and the losses are the line's (the JAX BERT runs
+        sequence-parallel attention through its mesh)."""
+        if line is not None and line.size <= 1:
+            line = None
+        self.sequence_parallel = line
+        self.bert.layer_config.sequence_parallel = line
+
     def _rng(self, input_ids, train, dropout_seed):
         cfg = self.config
         if (train and dropout_seed is not None
                 and (cfg.hidden_dropout_prob > 0
                      or cfg.attention_probs_dropout_prob > 0)):
-            return DropoutRNG(dropout_seed, input_ids.device, self.data_rank)
+            # decorrelated from the other data and sequence ranks'
+            line = self.sequence_parallel
+            index = (self.data_rank if line is None
+                     else self.data_rank * line.size + line.rank)
+            return DropoutRNG(dropout_seed, input_ids.device, index)
         return None
+
+    def _line_count(self, count):
+        """The masked-LM loss's divisor at a sequence axis: the line's
+        count of labels, then the engine's ``count_fn`` (the data
+        group's)."""
+        total = count.detach().clone()
+        dist_lib.all_reduce(total, self.sequence_parallel.group)
+        if self.count_fn is not None:
+            return self.count_fn(total)
+        return total.clamp(min=1)
 
     @torch.no_grad()
     def _reset_dense(self, gen, *denses):
@@ -365,15 +422,21 @@ class BertForPreTraining(_BertHead):
         h = layer_norm_apply(self.bert.layer_config, h,
                              self.transform_ln.weight, self.transform_ln.bias)
         logits = F.linear(h, word, self.mlm_bias)
+        line = self.sequence_parallel
         loss = torch.zeros((), dtype=torch.float32, device=input_ids.device)
         if masked_lm_labels is not None:
             loss = loss + cross_entropy_ignore_index(
-                logits, masked_lm_labels, count_fn=self.count_fn)
-        if next_sentence_label is not None:
+                logits, masked_lm_labels, count_fn=(
+                    self.count_fn if line is None else self._line_count))
+        if next_sentence_label is not None and (line is None
+                                                or line.rank == 0):
+            # at a sequence axis rank 0 holds the [CLS] position
             loss = loss + cross_entropy_ignore_index(
                 self.nsp(pooled), next_sentence_label,
                 count_fn=self.count_fn)
-        return loss
+        # the line's sum of its ranks' shares (each rank backpropagates
+        # the whole loss through its own tokens)
+        return loss if line is None else reduce_from_region(loss, line)
 
 
 class BertForQuestionAnswering(_BertHead):
@@ -406,7 +469,12 @@ class BertForQuestionAnswering(_BertHead):
             input_ids, attention_mask, token_type_ids, train,
             self._rng(input_ids, train, dropout_seed))
         logits = self.qa_outputs(seq_out)  # [B, S, 2]
-        start_logits, end_logits = logits[..., 0], logits[..., 1]
+        # at a sequence axis the line's logits joined in sequence order
+        # (the backward keeps this rank's positions): every rank takes the
+        # whole span cross-entropy
+        start_logits, end_logits = (
+            gather_from_region(logits[..., i].contiguous(),
+                               self.sequence_parallel) for i in (0, 1))
         if start_positions is None or end_positions is None:
             return start_logits, end_logits
         return 0.5 * (

@@ -52,8 +52,12 @@ Pipeline stages (``pipeline_stages > 1``, armed by the training engine
 at a pipe axis of that size: :meth:`GPT2LMHeadModel.configure_pipeline`):
 stage ``p`` holds only blocks ``p*L/P .. (p+1)*L/P - 1`` (the others'
 entries of ``h`` are empty modules) and runs them in the GPipe schedule of
-parallel/pipeline.py over ``pipeline_microbatches`` microbatches (0: 4*P
-when the rank's rows divide, else 2*P). Stage 0 looks up the embeddings;
+parallel/pipeline.py over ``pipeline_microbatches`` microbatches of the
+global batch (a rank's rows times the data size; 0: 4*P when they
+divide, else 2*P), as the JAX model splits its global batch. A data rank
+runs its share of every microbatch when a microbatch's rows divide over
+the data axis, else the whole microbatches its rows hold
+(:func:`pipeline_plan`). Stage 0 looks up the embeddings;
 the last stage runs ``ln_f``, the tied head and the JAX model's loss over
 the whole batch (not a mean of the microbatches' means); the loss is
 broadcast, so every stage returns it. Dropout is drawn per (seed,
@@ -214,8 +218,8 @@ class GPT2Config:
     # Pipeline parallelism: the stack split into this many stages over the
     # mesh's pipe axis (parallel/pipeline.py); n_layer must divide evenly
     pipeline_stages: int = 1
-    # microbatches a forward through the pipeline; 0 = 4*stages when the
-    # rank's rows divide, else 2*stages
+    # microbatches of the global batch a forward through the pipeline;
+    # 0 = 4*stages when the global rows divide, else 2*stages
     pipeline_microbatches: int = 0
     # LoRA adapters (adapters/): rank-r A/B pairs beside the block's
     # projection matrices. 0 = off — the forward is then exactly the
@@ -276,6 +280,36 @@ MICROBATCH_SEED_STRIDE = 7_919
 LAYER_SEED_STRIDE = 104_729
 
 
+def pipeline_plan(rows, stages, n_micro=0, data_size=1, data_rank=0):
+    """How a data rank of ``rows`` rows runs the pipeline's microbatches of
+    the global batch (``rows * data_size`` rows), as the JAX model splits
+    it: ``(n_micro, local, first, mb)``, the global microbatch count (0
+    resolves as the JAX model: 4*stages when the global rows divide, else
+    2*stages), how many this rank runs, the global index of its first and
+    the rows of each. A microbatch whose rows divide over the data axis
+    is run in shares (every rank, every microbatch); else a rank runs the
+    whole microbatches its rows hold."""
+    total = rows * data_size
+    if not n_micro:
+        n_micro = 4 * stages if total % (4 * stages) == 0 else 2 * stages
+    if total % n_micro:
+        raise ValueError(
+            f"batch {total} must divide into pipeline microbatches {n_micro}"
+        )
+    per = total // n_micro
+    if per % data_size == 0:
+        return n_micro, n_micro, 0, per // data_size
+    if rows % per == 0:
+        local = rows // per
+        return n_micro, local, data_rank * local, per
+    raise ValueError(
+        f"pipeline microbatches of {per} rows (a global batch of {total} "
+        f"in {n_micro}) neither divide over a data axis of {data_size} nor "
+        f"fit whole into a data rank's {rows} rows; the JAX engine leaves "
+        "this split to GSPMD, the port runs whole or evenly shared "
+        "microbatches only")
+
+
 class GPT2LMHeadModel(nn.Module):
     """GPT-2 with a tied LM head. Parameters: ``wte`` [vocab_padded,
     n_embd], ``wpe`` [n_positions, n_embd], ``h.<i>.*`` (the 12-tensor
@@ -325,6 +359,8 @@ class GPT2LMHeadModel(nn.Module):
         self.configure_data_parallel()
         self.configure_model_parallel()
         self.pipeline = None
+        # the last pipelined forward's pipeline_plan
+        self.last_pipeline_plan = None
         self.configure_sequence_parallel()
         self.reset_parameters(seed)
 
@@ -386,11 +422,13 @@ class GPT2LMHeadModel(nn.Module):
         return [n for n, _ in self.named_parameters()
                 if n.rpartition(".")[2].startswith("expert_")]
 
-    def configure_pipeline(self, stage):
+    def configure_pipeline(self, stage, data_size=1, data_rank=0):
         """Keep this stage's blocks only and run them in the GPipe
         schedule (``stage``: parallel/pipeline.py's
-        :class:`~deepspeed_tpu_torch.parallel.pipeline.PipelineStage`).
-        The JAX model's checks: the pipe size must be ``pipeline_stages``,
+        :class:`~deepspeed_tpu_torch.parallel.pipeline.PipelineStage`),
+        this rank the ``data_rank`` of ``data_size`` (the microbatches
+        split the global batch: :func:`pipeline_plan`). The JAX model's
+        checks: the pipe size must be ``pipeline_stages``,
         ``n_layer`` must divide into it, and a sequence axis above 1 does
         not compose."""
         cfg = self.config
@@ -401,6 +439,7 @@ class GPT2LMHeadModel(nn.Module):
                 raise ValueError(
                     f"pipeline_stages={n_stages} needs a mesh whose 'pipe' "
                     f"axis has that size (got a pipe axis of {size})")
+        self.pipeline_data = (int(data_size), int(data_rank))
         if stage is None or size <= 1:
             self.pipeline = None
             return
@@ -596,19 +635,14 @@ class GPT2LMHeadModel(nn.Module):
         cfg = self.config
         stage = self.pipeline
         b, s = input_ids.shape
-        n_micro = cfg.pipeline_microbatches
-        if not n_micro:
-            n_micro = (4 * stage.size if b % (4 * stage.size) == 0
-                       else 2 * stage.size)
-        if b % n_micro:
-            raise ValueError(
-                f"batch {b} must divide into pipeline microbatches {n_micro}"
-            )
+        n_micro, local, first, mb_rows = pipeline_plan(
+            b, stage.size, cfg.pipeline_microbatches, *self.pipeline_data)
+        self.last_pipeline_plan = (n_micro, local, first, mb_rows)
         seed = (dropout_seed if train and dropout_seed is not None
                 and cfg.dropout > 0 else None)
         device = input_ids.device
         dtype = self.wte.dtype
-        shape = (n_micro, b // n_micro, s, cfg.n_embd)
+        shape = (local, mb_rows, s, cfg.n_embd)
         if stage.first:
             rng = (None if seed is None else
                    DropoutRNG(seed, device, self._dropout_index()))
@@ -622,7 +656,7 @@ class GPT2LMHeadModel(nn.Module):
                 rng = None
                 if seed is not None:
                     rng = DropoutRNG(
-                        (seed + mb * MICROBATCH_SEED_STRIDE
+                        (seed + (first + mb) * MICROBATCH_SEED_STRIDE
                          + i * LAYER_SEED_STRIDE) % (2**31 - 1),
                         device, self._dropout_index())
                 h = transformer_block_apply(

@@ -386,11 +386,37 @@ def _launch(device, fn, *args):
         return fn(*args)
 
 
+def flash_block_forms(dtype, head_dim):
+    """The ``(block_q, block_k)`` tile forms the CUDA forward has for
+    ``dtype`` at ``head_dim`` (its kernel width): the tensor-core kernel's
+    128 query rows a block with 128- or 64-key tiles (64 only at D = 256),
+    the float32 FMA kernel's one tile. The first is the default form."""
+    d = kernel_head_dim(head_dim)
+    if dtype == torch.float32:
+        return ((32, {64: 64, 128: 32, 256: 16}[d]),)
+    return ((128, 64),) if d == 256 else ((128, 128), (128, 64))
+
+
+def _block_k_arg(dtype, head_dim, block_k):
+    """The kernel's ``block_k`` argument: 0 (the default form) for None,
+    else the keys of a tile; raises if the kernels have no form of
+    ``block_k`` keys."""
+    if block_k is None:
+        return 0
+    keys = [bk for _, bk in flash_block_forms(dtype, head_dim)]
+    if int(block_k) not in keys:
+        raise ValueError(
+            f"the flash forward has no block_k = {block_k} form for {dtype} "
+            f"at head_dim {head_dim}; its key tiles are {keys}")
+    return int(block_k)
+
+
 def _flash_fwd_cuda(q, k, v, kv_mask, causal, sm_scale, dropout_rate=0.0,
-                    dropout_seed=0):
+                    dropout_seed=0, block_k=0):
     """Launch csrc/flash_fwd.cu on CUDA tensors at a compiled head dim
-    (64, 128 or 256; :func:`pad_head_dim` brings the others there). Raises on
-    anything the kernel does not take; never runs the plain version."""
+    (64, 128 or 256; :func:`pad_head_dim` brings the others there) in the
+    form of ``block_k`` keys a tile (0: the default). Raises on anything
+    the kernel does not take; never runs the plain version."""
     from . import kernel_lib
 
     b, h, sq, sk, d, mask_ptr = _check_cuda("flash_fwd", "fwd", q, k, v,
@@ -404,7 +430,8 @@ def _flash_fwd_cuda(q, k, v, kv_mask, causal, sm_scale, dropout_rate=0.0,
         out.data_ptr(), lse.data_ptr(),
         b, h, sq, sk, d, kernel_lib.dtype_code(q.dtype),
         int(bool(causal)), ctypes.c_float(sm_scale),
-        *_dropout_args(dropout_rate, dropout_seed), _stream(q.device),
+        *_dropout_args(dropout_rate, dropout_seed), int(block_k),
+        _stream(q.device),
     )
     kernel_lib.check(err, "flash_fwd")
     flash_fwd.launches += 1
@@ -412,13 +439,14 @@ def _flash_fwd_cuda(q, k, v, kv_mask, causal, sm_scale, dropout_rate=0.0,
 
 
 def flash_fwd(q, k, v, kv_mask=None, causal=False, sm_scale=None,
-              dropout_rate=0.0, dropout_seed=0):
+              dropout_rate=0.0, dropout_seed=0, block_k=None):
     """Flash-attention forward (replaces the JAX package's Pallas
     ``_fwd_kernel``). q,k,v: [B, H, S, D]; ``kv_mask`` [B, Sk] int32
     (nonzero = attend) or None; attention dropout at ``dropout_rate``
-    with the mask of ``dropout_seed``. Returns ``(out, lse)``. CPU
-    tensors run :func:`flash_fwd_plain`; CUDA tensors launch the
-    kernel."""
+    with the mask of ``dropout_seed``; ``block_k`` picks the key tile of
+    one of :func:`flash_block_forms` (None: the default form). Returns
+    ``(out, lse)``. CPU tensors run :func:`flash_fwd_plain`, which has no
+    tiles; CUDA tensors launch the kernel."""
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
     if q.device.type == "cpu":
@@ -426,7 +454,8 @@ def flash_fwd(q, k, v, kv_mask=None, causal=False, sm_scale=None,
                                dropout_rate, dropout_seed)
     return pad_head_dim(_flash_fwd_cuda, q, k, v, kv_mask, causal,
                         sm_scale=float(sm_scale), dropout_rate=dropout_rate,
-                        dropout_seed=dropout_seed)
+                        dropout_seed=dropout_seed, block_k=_block_k_arg(
+                            q.dtype, q.shape[-1], block_k))
 
 
 def _flash_bwd_cuda(which, q, k, v, kv_mask, dout, lse, delta, causal,
@@ -509,9 +538,9 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, causal, sm_scale, dropout_rate,
-                dropout_seed):
+                dropout_seed, block_k=None):
         out, lse = flash_fwd(q, k, v, kv_mask, causal, sm_scale,
-                             dropout_rate, dropout_seed)
+                             dropout_rate, dropout_seed, block_k=block_k)
         ctx.save_for_backward(q, k, v, kv_mask, out, lse)
         ctx.args = (causal, sm_scale, dropout_rate, dropout_seed)
         return out
@@ -526,15 +555,21 @@ class FlashAttention(torch.autograd.Function):
                           sm_scale, rate, seed)
         dk, dv = flash_bwd_dkv(q, k, v, kv_mask, dout, lse, delta, causal,
                                sm_scale, rate, seed)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention(q, k, v, mask=None, kv_mask=None, causal=False,
-                    sm_scale=None, dropout_rate=0.0, dropout_seed=0):
+                    sm_scale=None, dropout_rate=0.0, dropout_seed=0,
+                    block_q=None, block_k=None):
     """Blockwise flash attention, differentiable in q, k and v. q,k,v:
     [B, H, S, D]. Masking: ``kv_mask`` [B, Sk] (nonzero = attend) or a
     padding-style additive ``mask`` (converted). Attention dropout at
-    ``dropout_rate`` with the mask of ``dropout_seed``."""
+    ``dropout_rate`` with the mask of ``dropout_seed``. ``block_k`` picks
+    the forward's key tile on the card (:func:`flash_block_forms`; None:
+    the default); ``block_q`` is taken for the JAX signature and not used,
+    since the kernels have one query tile a dtype. The backward has one
+    form a head dim."""
+    del block_q
     if sm_scale is None:
         sm_scale = 1.0 / (q.shape[-1] ** 0.5)
     if kv_mask is None and mask is not None:
@@ -550,7 +585,7 @@ def flash_attention(q, k, v, mask=None, kv_mask=None, causal=False,
     dropout_threshold(dropout_rate)  # validates the rate
     return FlashAttention.apply(
         q.contiguous(), k.contiguous(), v.contiguous(), kv_mask, causal,
-        float(sm_scale), float(dropout_rate), int(dropout_seed),
+        float(sm_scale), float(dropout_rate), int(dropout_seed), block_k,
     )
 
 

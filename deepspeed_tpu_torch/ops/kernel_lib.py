@@ -44,9 +44,10 @@ _DROPOUT = [_I, _U, _F, _U]
 SIGNATURES = {
     "flash_fwd": {
         # q, k, v, kv_mask (or NULL), out, lse, B, H, Sq, Sk, D, dtype,
-        # causal, sm_scale, dropout..., stream
+        # causal, sm_scale, dropout..., block_k (0: the default form),
+        # stream
         "ds_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _I, _F, *_DROPOUT, _P],
+                         _I, _F, *_DROPOUT, _I, _P],
     },
     "flash_bwd": {
         # q, k, v, kv_mask (or NULL), dout, lse, delta, dq, B, H, Sq, Sk,

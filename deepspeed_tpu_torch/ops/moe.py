@@ -41,6 +41,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..parallel.sequence import _AllToAll
+from ..runtime import dist as dist_lib
 
 #: The expert-stacked tensors (sharded over the expert axis); the router's
 #: ``gate_w`` is replicated.
@@ -153,12 +154,51 @@ def _slot_rows(r, n_experts):
                        torch.full_like(rows, n_experts * G * C))
 
 
-def moe_apply(cfg, p, x, line=None):
+class _GatherRows(torch.autograd.Function):
+    """A sequence line's chunks of ``[G, Sl, M]`` joined along dim 1 in
+    sequence order; the backward sums every rank's gradient of the whole
+    row and keeps this rank's chunk (each rank's computation over the
+    whole row may reach every token)."""
+
+    @staticmethod
+    def forward(ctx, x, line):
+        ctx.line = line
+        x = x.contiguous()
+        buf = torch.empty((line.size,) + tuple(x.shape), dtype=x.dtype,
+                          device=x.device)
+        dist_lib.all_gather(buf.view(-1), x.reshape(-1), line.group)
+        return torch.cat(list(buf), dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        line = ctx.line
+        g = g.contiguous().clone()
+        dist_lib.all_reduce(g, line.group)
+        return g.chunk(line.size, dim=1)[line.rank].contiguous(), None
+
+
+def _line_share(aux, line):
+    """``aux`` in value, its gradient divided by the line's size: every
+    rank of a sequence line computes the whole rows' router loss, and the
+    line's sum of their gradients is its gradient once."""
+    share = aux / line.size
+    return share + (aux - share).detach()
+
+
+def moe_apply(cfg, p, x, line=None, seq_line=None):
     """The expert FFN over ``x`` [G, S, M] with the parameters of ``p``
     (an :class:`MoEMLP`, or a module whose tensors ``functional_call``
     swapped in): ``(y [G, S, M], aux_loss_weight * aux)``. ``line`` (a
     data-axis line, parallel/sequence.py's ``SequenceParallel`` form)
-    holds ``E / line.size`` experts a rank; None holds them all."""
+    holds ``E / line.size`` experts a rank; None holds them all. At a
+    sequence line ``seq_line`` (``x`` a rank's chunk of each row) the rows
+    are routed whole, as the JAX layer routes the global row: the chunks
+    are gathered over the line, every rank routes and runs the whole rows,
+    and keeps its chunk of the output."""
+    if seq_line is not None:
+        y, aux = moe_apply(cfg, p, _GatherRows.apply(x, seq_line), line)
+        return (y.chunk(seq_line.size, dim=1)[seq_line.rank],
+                _line_share(aux, seq_line))
     G, S, M = x.shape
     E = cfg.n_experts
     dp = 1 if line is None else line.size
@@ -302,7 +342,11 @@ def moe_block_apply(cfg, p, hidden_states, attention_mask=None, *,
     from .transformer import transformer_block_apply
 
     moe = p.moe
+    seq_line = cfg.sequence_parallel
+    if seq_line is not None and seq_line.size <= 1:
+        seq_line = None
     return transformer_block_apply(
         cfg, p, hidden_states, attention_mask, causal=causal, train=train,
         dropout_rng=dropout_rng, use_flash=use_flash,
-        ffn_fn=lambda ff_in: moe_apply(moe.cfg, moe, ff_in, moe.line))
+        ffn_fn=lambda ff_in: moe_apply(moe.cfg, moe, ff_in, moe.line,
+                                       seq_line))

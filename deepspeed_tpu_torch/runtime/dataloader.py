@@ -42,7 +42,7 @@ import weakref
 import numpy as np
 import torch
 
-from ..config.config import not_ported
+from ..config.config import DeepSpeedConfigError
 from ..utils.device import resolve_device
 from . import host_ops
 
@@ -113,11 +113,13 @@ class DeepSpeedDataLoader:
         from ..parallel.mesh import ProcessMesh
 
         if mesh is not None and not isinstance(mesh, ProcessMesh):
-            raise not_ported(
+            raise DeepSpeedConfigError(
                 f"a data loader that places batches on a "
-                f"{type(mesh).__name__} mesh (the port takes a "
-                "deepspeed_tpu_torch.parallel.ProcessMesh; device meshes "
-                "come with ROADMAP A7)")
+                f"{type(mesh).__name__} mesh: the port's loader takes a "
+                "deepspeed_tpu_torch.parallel.ProcessMesh and yields this "
+                "rank's rows (the JAX loader places one process's global "
+                "batch over a jax.sharding.Mesh, which has no counterpart "
+                "here)")
         if mesh is not None:
             self.rank, self.num_ranks = mesh.data_rank, mesh.dp_size
         elif dist.is_available() and dist.is_initialized():

@@ -140,7 +140,8 @@ int8 moments the optimizer steps whole (model-gathered) tensors, as the
 JAX engine keeps its flat int8 leaves replicated over the model axis;
 at ZeRO stage 3 that combination is not ported.
 
-Sequence parallelism (a ``sequence_parallel_size`` above 1, GPT-2): the
+Sequence parallelism (a ``sequence_parallel_size`` above 1, GPT-2 and
+BERT's task models): the
 ranks of a sequence line read the same rows (the data rank's) and each
 keeps its chunk of the tokens (dim 1 of every input, cut in sequence
 order, as the JAX engine's sequence-sharded batch); the model arms
@@ -150,9 +151,15 @@ parameter is replicated over the sequence axis, so each window's
 gradients are summed over the sequence group once, after the data
 group's reduction (ZeRO's shards are the same on every rank of a line:
 ZeRO partitions over the data axis only); the world norms count a
-sequence line once. Refused there with ``not_ported("... (ROADMAP A7b,
-what is left)")``: bf16 or int8 moments, compensated masters, optimizer
-offload, the adapters block and ``sparse_gradients``.
+sequence line once; the optimizer state (bf16 or int8 moments,
+compensated masters included) steps the summed gradients, the same on
+every rank of a line; under the adapters block only the LoRA factors'
+gradients are summed; ``sparse_gradients`` reduces the lookup's CSR
+pairs over the data group first, as at a sequence axis of 1; offload's
+host masters step the line's sum. A model without the sequence seam
+(``configure_sequence_parallel``) is replicated over the sequence axis,
+as the JAX engine runs it; so is a model without stages over a pipe
+axis.
 
 Multi-output models (the JAX engine's contract): a forward that returns
 a tuple trains on element 0, and ``last_aux`` holds the rest: the raw
@@ -173,9 +180,16 @@ rank's experts, and LAMB's ``h.*.moe.expert_*`` group sums its norms over
 the data ranks, one JAX leaf. At ZeRO stage 3 the layer-wise gather is
 not armed (the JAX engine disarms it for MoE too): every sharded dense
 tensor is gathered at the forward, and the experts stay whole on their
-rank. Refused with ``not_ported("... (ROADMAP A7c, what is left)")``: a
-model or sequence axis above 1, the adapters block, bf16 or int8
-moments, compensated masters and optimizer offload.
+rank. At a model axis above 1 the attention is Megatron-sharded and the
+experts are not (the JAX layer shards only the expert dim): each model
+rank routes every token of its data rank. bf16 moments and compensated
+masters step the experts as any leaf. Refused with ``not_ported("...
+(ROADMAP A7f, what is left)")``: int8 moments (an expert rank's blocks
+are not the JAX leaf's). At a sequence axis above 1 each MoE layer
+gathers its rows over the line and routes them whole, as the JAX layer
+routes the global row (ops/moe.py). The adapters
+block is refused with the reason: the JAX MoE blocks run without their
+factors.
 
 Pipeline parallelism (a ``pipeline_parallel_size`` above 1, GPT-2 with
 ``pipeline_stages`` of that size): each pipe rank keeps its stage's
@@ -186,10 +200,17 @@ on every stage: their gradients are summed over the pipe group once a
 window, after the data group's reduction, so every stage applies one
 update. The overflow skip, the clipping norm, LAMB's group norms (a
 ``h.*`` group spans the stages) and the drain flag are the world's, each
-tensor counted once. Refused with ``not_ported("... (ROADMAP A7d, what
-is left)")``: ZeRO stage 3 at dp > 1, a model axis above 1, the adapters
-block, bf16 or int8 moments, compensated masters, optimizer offload and
-``sparse_gradients``.
+tensor counted once. The microbatches split the global batch (a rank's
+rows times the data size), as the JAX model's do: a data rank runs its
+share of each, or the whole ones its rows hold (models/gpt2.py:
+pipeline_plan). At ZeRO stage 3 the layer-wise gather is not armed (the
+JAX engine disarms it with stages): every sharded tensor is gathered at
+the forward. A model axis composes (the pipe group is a (data, model)
+coordinate's stages). ``sparse_gradients`` reduces stage 0's lookup
+over its data group. Refused with ``not_ported("... (ROADMAP A7f, what
+is left)")``: int8 moments (the JAX engine's blocks straddle the
+stages). The adapters block is refused with the reason: the JAX
+pipelined stack runs the blocks without their factors.
 
 Optimizer offload at data parallel > 1 is refused with the JAX engine's
 message.
@@ -350,10 +371,12 @@ class DeepSpeedEngine:
         if mesh is None:
             mesh = mesh_from_config(raw.get(C.MESH) or {})
         elif not isinstance(mesh, ProcessMesh):
-            raise not_ported(
-                f"training over a {type(mesh).__name__} mesh (the port "
-                "takes a deepspeed_tpu_torch.parallel.ProcessMesh; device "
-                "meshes come with ROADMAP A7)")
+            raise DeepSpeedConfigError(
+                f"training over a {type(mesh).__name__} mesh: the port runs "
+                "one process a rank and takes a deepspeed_tpu_torch.parallel."
+                "ProcessMesh (build_mesh, or the config's mesh block); the "
+                "JAX engine's jax.sharding.Mesh lays one process's arrays "
+                "over its devices, which has no counterpart here")
         self.mesh = mesh
         self.mpu = as_mpu(mpu, mesh)
         self.dp_world_size = mesh.dp_size
@@ -804,8 +827,9 @@ class DeepSpeedEngine:
         (a rank's experts are its own), one replicated over the model
         group on a model rank other than 0, one every stage holds on a
         pipe rank other than 0, and every leaf on a sequence rank other
-        than 0 (the line's gradients are the same on each of its
-        ranks)."""
+        than 0 (the line's gradients are the same on each of its ranks)
+        and on a pipe rank other than 0 of a model without stages (it is
+        replicated over the pipe axis)."""
         if not self._distributed_norms():
             return frozenset()
         data_sharded = (self._zero is not None and self._zero.sharded)
@@ -818,6 +842,7 @@ class DeepSpeedEngine:
             if ((not over_data and self.data_rank)
                     or (not over_model and self.model_rank)
                     or (n in shared and self.pipe_rank)
+                    or (self._pipe is None and self.pipe_rank)
                     or self.seq_rank):
                 skip.add(n)
         return frozenset(skip)
@@ -928,12 +953,12 @@ class DeepSpeedEngine:
             if self.host_offload:
                 raise not_ported(
                     "int8 optimizer moments with optimizer offload at a "
-                    "model axis above 1 (ROADMAP A7a, what is left)")
+                    "model axis above 1 (ROADMAP A7f, what is left)")
             if self.zero_stage >= ZERO_OPTIMIZATION_WEIGHTS and (
                     self.dp_world_size > 1):
                 raise not_ported(
                     "int8 optimizer moments at ZeRO stage 3 with a model "
-                    "axis above 1 (ROADMAP A7a, what is left)")
+                    "axis above 1 (ROADMAP A7f, what is left)")
             # the JAX engine's flat int8 leaves are whole over the model
             # axis: their blocks cross the model split, so the optimizer
             # steps the model-gathered tensors
@@ -955,68 +980,60 @@ class DeepSpeedEngine:
             if hasattr(module, "configure_sequence_parallel"):
                 module.configure_sequence_parallel(None)
             return
-        cfg = self.config
-        for what, on in (
-                (f"{cfg.optimizer_state_dtype} optimizer moments",
-                 cfg.optimizer_state_dtype in ("bf16", "int8")),
-                ("compensated masters", self.compensated_master),
-                ("optimizer offload", self.host_offload),
-                ("the adapters block", cfg.adapters_enabled),
-                ("sparse_gradients", cfg.sparse_gradients_enabled)):
-            if on:
-                raise not_ported(
-                    f"{what} at a sequence axis above 1 (ROADMAP A7b, what "
-                    "is left)")
         if not hasattr(module, "configure_sequence_parallel"):
-            raise not_ported(
-                f"a sequence axis above 1 for a {type(module).__name__} "
-                "(sequence parallelism needs a model with the "
-                "configure_sequence_parallel seam, GPT2LMHeadModel; ROADMAP "
-                "A7b, what is left)")
+            # replicated over the sequence axis, as the JAX engine runs a
+            # model without a sequence-parallel layer: every sequence rank
+            # computes the whole step on its data rank's rows
+            log_dist(
+                f"sequence axis {line.size}: a {type(module).__name__} has "
+                "no sequence-parallel seam; it is replicated over the "
+                "sequence axis", ranks=[0])
+            return
         module.configure_sequence_parallel(line)
         self._sp_line = line
-        log_dist(
-            f"sequence parallel: sequence axis {line.size} (attention "
-            f"{module.layer_config.seq_parallel_impl})", ranks=[0])
+        log_dist(f"sequence parallel: sequence axis {line.size}", ranks=[0])
 
     def _refuse_with_stages_or_experts(self):
         """What a pipe axis above 1 (or a model with pipeline stages) and
-        a model with MoE experts refuse: ``not_ported`` naming ROADMAP
-        A7d or A7c."""
+        a model with MoE experts refuse: the adapters block, with the JAX
+        engine's behaviour as the reason, and int8 moments, ``not_ported``
+        naming ROADMAP A7f."""
         module = self.module
         cfg = self.config
         mcfg = getattr(module, "config", None)
         stages = getattr(mcfg, "pipeline_stages", 1)
         experts = getattr(mcfg, "moe_experts", 0)
-        common = (
-            ("the adapters block", cfg.adapters_enabled),
-            (f"{cfg.optimizer_state_dtype} optimizer moments",
-             cfg.optimizer_state_dtype in ("bf16", "int8")),
-            ("compensated masters", self.compensated_master),
-            ("optimizer offload", self.host_offload))
-        if self._pipe is not None or stages > 1:
-            if not hasattr(module, "configure_pipeline"):
-                raise not_ported(
-                    f"a pipe axis above 1 for a {type(module).__name__} "
-                    "(the pipeline needs a model with the "
-                    "configure_pipeline seam, GPT2LMHeadModel; ROADMAP A7d, "
-                    "what is left)")
-            for what, on in common + (
-                    ("ZeRO stage 3",
-                     self.zero_stage >= ZERO_OPTIMIZATION_WEIGHTS
-                     and self.dp_world_size > 1),
-                    ("a model axis above 1", self.mp_world_size > 1),
-                    ("sparse_gradients", cfg.sparse_gradients_enabled)):
-                if on:
-                    raise not_ported(f"{what} at a pipe axis above 1 "
-                                     "(ROADMAP A7d, what is left)")
+        # the JAX engine's int8 leaf of a group runs over its layers (and
+        # its experts) in order, so a block can straddle two stages (or
+        # two expert ranks)
+        int8 = cfg.optimizer_state_dtype == "int8"
+        # a model without stages is replicated over a pipe axis
+        # (_configure_pipeline_and_experts)
+        if stages > 1 or (self._pipe is not None
+                          and hasattr(module, "configure_pipeline")):
+            if cfg.adapters_enabled:
+                # the JAX pipelined stack runs its blocks without their
+                # factors: the JAX engine trains nothing there
+                raise DeepSpeedConfigError(
+                    "the adapters block at a pipe axis above 1: the JAX "
+                    "engine's pipelined stack runs the blocks without their "
+                    "LoRA factors, so its fine-tune leaves them as they "
+                    "were; the port refuses it rather than train something "
+                    "else")
+            if int8:
+                raise not_ported("int8 optimizer moments at a pipe axis "
+                                 "above 1 (ROADMAP A7f, what is left)")
         if experts > 0:
-            for what, on in common + (
-                    ("a model axis above 1", self.mp_world_size > 1),
-                    ("a sequence axis above 1", self.mesh.sp_size > 1)):
-                if on:
-                    raise not_ported(f"{what} with MoE experts (ROADMAP "
-                                     "A7c, what is left)")
+            if cfg.adapters_enabled:
+                # the JAX MoE block runs its attention without the factors
+                raise DeepSpeedConfigError(
+                    "the adapters block with MoE experts: the JAX engine's "
+                    "MoE blocks run without their LoRA factors, so its "
+                    "fine-tune leaves them as they were; the port refuses "
+                    "it rather than train something else")
+            if int8:
+                raise not_ported("int8 optimizer moments with MoE experts "
+                                 "(ROADMAP A7f, what is left)")
 
     def _configure_pipeline_and_experts(self):
         """A pipe axis above 1: keep this stage's blocks (the model's
@@ -1027,8 +1044,19 @@ class DeepSpeedEngine:
         mcfg = getattr(module, "config", None)
         stages = getattr(mcfg, "pipeline_stages", 1)
         experts = getattr(mcfg, "moe_experts", 0)
+        if self._pipe is not None and not hasattr(module,
+                                                  "configure_pipeline"):
+            # a model without stages: replicated over the pipe axis, as
+            # the JAX engine runs it (every pipe rank computes the whole
+            # step on its data rank's rows)
+            log_dist(
+                f"pipe axis {self.pp_world_size}: a "
+                f"{type(module).__name__} has no pipeline stages; it is "
+                "replicated over the pipe axis", ranks=[0])
+            self._pipe = None
         if self._pipe is not None or stages > 1:
-            module.configure_pipeline(self._pipe)
+            module.configure_pipeline(self._pipe, self.dp_world_size,
+                                      self.data_rank)
             self._pipe_shared = tuple(module.pipeline_shared_parameters())
             log_dist(
                 f"pipeline: {self.pp_world_size} stages, this stage's "
@@ -1128,14 +1156,16 @@ class DeepSpeedEngine:
         seam = prefix = getattr(module, "zero3_block_prefix", None)
         if prefix is not None and (
                 self.frozen_base_params or self._expert_names
+                or self._pipe is not None
                 or getattr(getattr(module, "config", None), "lora_rank", 0)):
             # the stack gathers the dense block layout only, not the
-            # factors or an MoE block (the JAX engine disarms it for both)
+            # factors, an MoE block or a stage's blocks inside the pipeline
+            # schedule (the JAX engine disarms it for all three)
             log_dist(
-                "ZeRO-3: layer-wise gather seam not armed (LoRA adapters "
-                "and MoE blocks do not compose with the zero3 stack yet); "
-                "params stay dp-sharded and every sharded parameter is "
-                "gathered at the forward", ranks=[0])
+                "ZeRO-3: layer-wise gather seam not armed (LoRA adapters, "
+                "MoE blocks and pipeline stages do not compose with the "
+                "zero3 stack yet); params stay dp-sharded and every sharded "
+                "parameter is gathered at the forward", ranks=[0])
             prefix = None
         dims, shapes, block = {}, {}, set()
         if prefix is not None:
@@ -1750,12 +1780,6 @@ class DeepSpeedEngine:
             self.last_aux = tuple(torch.stack(list(xs))
                                   for xs in zip(*self._window_aux))
             self._window_aux = []
-        if self._host_grads is not None:
-            # offload on the card: the gradients' copies to pinned host
-            # buffers are queued first, and the step's one sync below
-            # waits for them (a CPU engine's gradients are on the host)
-            for n, g in grads.items():
-                self._host_grads[n].copy_(g, non_blocking=True)
         if self._tp_full_opt:
             # the window's model shards joined once over the model group,
             # for the optimizer's whole tensors
@@ -1774,6 +1798,12 @@ class DeepSpeedEngine:
             # the embeddings and ln_f are on every stage, each stage's
             # gradient its own part: the pipe line's sum
             dist_lib.all_reduce(grads[n], self._pipe.group)
+        if self._host_grads is not None:
+            # offload on the card: the summed gradients' copies to pinned
+            # host buffers are queued here, and the step's one sync below
+            # waits for them (a CPU engine's gradients are on the host)
+            for n, g in grads.items():
+                self._host_grads[n].copy_(g, non_blocking=True)
         # the overflow test and the norm run where the gradients are, as
         # on the on-device path, so that offload's clip factor is that
         # path's bit for bit

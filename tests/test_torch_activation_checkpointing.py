@@ -17,6 +17,7 @@ import deepspeed_tpu_torch
 from deepspeed_tpu import checkpointing as jckpt
 from deepspeed_tpu_torch import checkpointing as ckpt
 from deepspeed_tpu_torch.config.config import DeepSpeedConfig
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 

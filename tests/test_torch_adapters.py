@@ -51,6 +51,7 @@ from deepspeed_tpu_torch.config import DeepSpeedConfig, DeepSpeedConfigError
 from deepspeed_tpu_torch.inference import decode as tdecode
 from deepspeed_tpu_torch.ops import decode_attention as tda
 from deepspeed_tpu_torch.ops import transformer as tops
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 jda = importlib.import_module("deepspeed_tpu.ops.decode_attention")
 jops = importlib.import_module("deepspeed_tpu.ops.transformer")

@@ -44,6 +44,7 @@ from deepspeed_tpu_torch.resilience import (
     atomic_io,
     manifest,
 )
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 VOCAB = 256
 SEQ = 32

@@ -8,6 +8,7 @@ import pytest
 from deepspeed_tpu.config import DeepSpeedConfig as JConfig
 from deepspeed_tpu.config import DeepSpeedConfigError as JConfigError
 from deepspeed_tpu_torch.config import DeepSpeedConfig, DeepSpeedConfigError
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 
 def _both(block):

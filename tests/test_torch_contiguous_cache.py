@@ -35,6 +35,7 @@ from deepspeed_tpu_torch import (
 from deepspeed_tpu_torch.config.config import DeepSpeedConfigError
 from deepspeed_tpu_torch.inference import decode as tdecode
 from deepspeed_tpu_torch.ops import transformer as tops
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 jops = importlib.import_module("deepspeed_tpu.ops.transformer")
 

@@ -141,6 +141,31 @@ def test_flash_fwd_kernel_matches_plain(cuda, dtype, d, sq, sk, causal,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,sk,causal,masked,rate", [
+    (1024, 1024, True, False, 0.0),
+    (200, 333, True, True, 0.0),
+    (333, 200, True, True, 0.1),
+    (256, 256, False, True, 0.1),
+])
+def test_flash_fwd_64_key_form_matches_plain(cuda, dtype, d, sq, sk, causal,
+                                             masked, rate):
+    """The forward's 64-key tile form (the autotuner's second candidate)
+    against the plain version, dropout included."""
+    q, k, v, _, kv_mask = _attention_case(cuda, dtype, d, sq, sk, masked, 3)
+    before = flash_fwd.launches
+    out, lse = flash_fwd(q, k, v, kv_mask, causal, None, rate, 5,
+                         block_k=64)
+    torch.cuda.synchronize()
+    assert flash_fwd.launches == before + 1
+    ref, ref_lse = flash_fwd_plain(q, k, v, kv_mask, causal, None, rate, 5)
+    _close(out, ref, dtype)
+    rows = ref_lse > -1e29
+    _close(lse[rows], ref_lse[rows], torch.float32)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd,bs", [(64, 16), (128, 8), (64, 5), (16, 16),
                                    (32, 16), (48, 16), (80, 16), (96, 8),

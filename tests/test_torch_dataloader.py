@@ -12,6 +12,7 @@ import torch
 from deepspeed_tpu.runtime.dataloader import DeepSpeedDataLoader as JLoader
 from deepspeed_tpu_torch.config.config import DeepSpeedConfigError
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 
 def _arrays(n=22):
@@ -117,7 +118,10 @@ def test_collate_fn_batches_a_map_dataset():
 
 
 def test_a_mesh_is_refused_as_not_ported():
-    with pytest.raises(DeepSpeedConfigError, match="not yet ported"):
+    """Any mesh but the port's ProcessMesh, with the reason the port
+    differs."""
+    with pytest.raises(DeepSpeedConfigError, match="takes a deepspeed_tpu_"
+                                                   "torch.parallel.ProcessMesh"):
         DeepSpeedDataLoader(_arrays(), batch_size=4, mesh=object())
 
 

@@ -18,6 +18,7 @@ from deepspeed_tpu_torch.ops.decode_attention import (
     paged_flash_decode,
     paged_flash_decode_plain,
 )
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

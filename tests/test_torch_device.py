@@ -12,6 +12,7 @@ from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
 from deepspeed_tpu_torch.inference.decode import init_kv_pool
 from deepspeed_tpu_torch.ops import attention, decode_attention, fused_lamb
 from deepspeed_tpu_torch.ops import kernel_lib
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 TINY = GPT2Config(vocab_size=97, n_positions=64, n_embd=32, n_layer=2,
                   n_head=4)

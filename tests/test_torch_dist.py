@@ -33,6 +33,7 @@ from deepspeed_tpu_torch.parallel import (
 from deepspeed_tpu_torch.parallel.mpu import ExternalMpuAdapter
 from deepspeed_tpu_torch.runtime import dist as dist_lib
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 
 @pytest.fixture(scope="module")

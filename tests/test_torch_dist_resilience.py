@@ -21,6 +21,7 @@ tests/test_torch_dist_resilience.py -q`` (about 20 s).
 import pytest
 
 import torch_dp_ranks as ranks
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 CASES = [
     {"name": "preempt", "kind": "preempt", "dir": "preempt"},

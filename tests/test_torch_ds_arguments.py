@@ -12,6 +12,7 @@ import torch
 import deepspeed_tpu
 import deepspeed_tpu_torch
 import torch_dp_ranks as ranks
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 
 def basic_parser():

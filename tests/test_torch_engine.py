@@ -29,6 +29,7 @@ from deepspeed_tpu.models.gpt2 import GPT2Config as JGPT2Config
 from deepspeed_tpu.models.gpt2 import GPT2LMHeadModel as JGPT2LMHeadModel
 from deepspeed_tpu.parallel.mesh import build_mesh
 from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel, params_from_jax
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 jattn = importlib.import_module("deepspeed_tpu.ops.attention")
 

@@ -26,6 +26,8 @@ noise). Within the port: offload against the on-device run, resumes and
 layout crossings bit for bit.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -42,6 +44,7 @@ from deepspeed_tpu.parallel.mesh import build_mesh
 from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel, params_from_jax
 from deepspeed_tpu_torch.config.config import DeepSpeedConfigError
 from deepspeed_tpu_torch.ops import quant as tq
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 VOCAB, SEQ, WINDOWS, ACCUM = 256, 64, 4, 2
 LOSS_TOL = dict(rtol=1e-5, atol=0.0)
@@ -54,14 +57,24 @@ BF16_PARAM_TOL = dict(rtol=2.0 ** -7, atol=1e-2 * LR * WINDOWS)
 LION_OUTLIERS, COMPENSATED_OUTLIERS = 1e-3, 5e-3
 
 
-def _jax_params(seed=0):
-    jcfg = JGPT2Config(vocab_size=VOCAB, n_positions=SEQ, n_embd=64,
-                       n_layer=2, n_head=4, dropout=0.0)
-    jmodel = JGPT2LMHeadModel(jcfg)
+def _jmodel():
+    return JGPT2LMHeadModel(JGPT2Config(
+        vocab_size=VOCAB, n_positions=SEQ, n_embd=64, n_layer=2, n_head=4,
+        dropout=0.0))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_init(seed):
+    """The JAX model's weights from PRNGKey(seed), made once a module."""
     ids0 = jnp.zeros((1, 8), jnp.int32)
-    params = jmodel.init({"params": jax.random.PRNGKey(seed)}, ids0,
-                         ids0)["params"]
-    return jmodel, params
+    return jax.device_get(_jmodel().init(
+        {"params": jax.random.PRNGKey(seed)}, ids0, ids0)["params"])
+
+
+def _jax_params(seed=0):
+    """A fresh JAX model (an engine arms its config) and the shared
+    weights."""
+    return _jmodel(), _jax_init(seed)
 
 
 def _port_model(params=None, seed=0):

@@ -24,6 +24,7 @@ from deepspeed_tpu.models.gpt2 import GPT2LMHeadModel as JGPT2LMHeadModel
 from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel, params_from_jax
 from deepspeed_tpu_torch.config.config import DeepSpeedConfigError
 from deepspeed_tpu_torch.inference import decode as tdecode
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 VOCAB = 97
 LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)

@@ -12,6 +12,7 @@ import pytest
 
 from deepspeed_tpu.runtime import host_ops as jhost
 from deepspeed_tpu_torch.runtime import host_ops
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 
 @pytest.mark.parametrize("n", [0, 1, 7, 1000])

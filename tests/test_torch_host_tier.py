@@ -38,6 +38,7 @@ from deepspeed_tpu_torch.config import DeepSpeedConfig, DeepSpeedConfigError
 from deepspeed_tpu_torch.inference import BlockPool, HostTier
 from deepspeed_tpu_torch.inference import host_tier as thost_tier
 from deepspeed_tpu_torch.telemetry import manager as tmanager
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 VOCAB = 97
 TIER_KEYS = ("host_tier_spills", "host_tier_promotions",

@@ -5,6 +5,7 @@ import ast
 from pathlib import Path
 
 import pytest
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "deepspeed_tpu")

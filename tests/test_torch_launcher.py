@@ -41,6 +41,7 @@ from deepspeed_tpu_torch.config import constants as tconstants
 from deepspeed_tpu_torch.launcher import launch as tlaunch
 from deepspeed_tpu_torch.launcher import runner as trunner
 from deepspeed_tpu_torch.runtime import dist as tdist
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 SCRIPT = ROOT / "tests" / "torch_launched.py"

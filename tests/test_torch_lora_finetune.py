@@ -39,6 +39,7 @@ from deepspeed_tpu_torch import (
 )
 from deepspeed_tpu_torch.adapters import adapter_num_params, init_lora_params
 from deepspeed_tpu_torch.config import DeepSpeedConfigError
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 jattn = importlib.import_module("deepspeed_tpu.ops.attention")
 

@@ -23,6 +23,7 @@ import jax
 import jax.numpy as jnp
 
 from deepspeed_tpu_torch.ops import attention as tattn
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 jattn = importlib.import_module("deepspeed_tpu.ops.attention")
 

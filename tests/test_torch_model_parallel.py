@@ -20,6 +20,7 @@ tests/test_torch_model_parallel_dp2.py.
 import pytest
 
 import torch_mp_gpt2 as mpg
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 DP = 1
 

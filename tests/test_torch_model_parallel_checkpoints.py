@@ -46,6 +46,7 @@ from deepspeed_tpu_torch.ops.attention import (
     MODEL_RANK_SEED_STRIDE,
     dropout_keep_mask,
 )
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 FP_TOL = dict(rtol=1e-5, atol=1e-6)
 MICRO_GLOBAL = 4

@@ -22,6 +22,7 @@ the model shards.
 import pytest
 
 import torch_mp_gpt2 as mpg
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 DP = 2
 

@@ -52,6 +52,7 @@ from deepspeed_tpu_torch.parallel.mesh import (
     ProcessMesh,
 )
 from deepspeed_tpu_torch.runtime import zero as tzero
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 jattn = importlib.import_module("deepspeed_tpu.ops.attention")
 jlora = importlib.import_module("deepspeed_tpu.adapters.lora")

@@ -36,6 +36,7 @@ import torch_dp_ranks as ranks
 import torch_mp_gpt2 as mpg
 from deepspeed_tpu.adapters import lora as jlora
 from deepspeed_tpu_torch import adapters_from_jax, params_from_jax
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 MP = 2
 LORA_RANK = 4

@@ -14,6 +14,7 @@ import pytest
 
 import torch_dp_ranks as ranks
 import torch_moe_pp as mp
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 DP = 4
 OPT_KEYS = {"adam": "Adam", "fusedlamb": "FusedLamb"}

@@ -35,6 +35,7 @@ from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel, params_from_jax
 from deepspeed_tpu_torch.runtime import engine as tengine_mod
 from deepspeed_tpu_torch.utils import monitor as tmonitor
 from deepspeed_tpu_torch.utils.logging import logger as tlogger
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 VOCAB = 256
 SEQ = 64

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 import deepspeed_tpu
 import deepspeed_tpu_torch as dst
 from deepspeed_tpu.parallel.mesh import build_mesh
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 HIDDEN, W1, W2 = 16, 1.0, 0.5
 CONFIG = {"train_batch_size": 32, "train_micro_batch_size_per_gpu": 16,

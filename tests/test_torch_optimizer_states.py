@@ -33,6 +33,7 @@ import jax.numpy as jnp
 from deepspeed_tpu.ops import optimizers as jopt
 from deepspeed_tpu_torch.ops import optimizers as topt
 from deepspeed_tpu_torch.ops import quant as tq
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 TOL = dict(atol=1e-6, rtol=1e-6)
 BF16_TOL = dict(atol=1e-12, rtol=2.0 ** -8)

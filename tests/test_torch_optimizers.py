@@ -31,6 +31,7 @@ from deepspeed_tpu_torch.ops import optimizers as topt
 from deepspeed_tpu_torch.runtime import lr_schedules as tsched
 from deepspeed_tpu_torch.runtime import precision as tprec
 from deepspeed_tpu_torch.utils import numerics as tnum
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 jce = importlib.import_module("deepspeed_tpu.ops.cross_entropy")
 

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 
 from deepspeed_tpu.ops import quant as jq
 from deepspeed_tpu_torch.ops import quant as tq
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 FP16_MIN_NORMAL = 2.0 ** -14
 

@@ -43,7 +43,6 @@ import deepspeed_tpu
 import deepspeed_tpu_torch
 import torch_dp_gpt2 as g
 import torch_dp_ranks as ranks
-from deepspeed_tpu.adapters import lora as jlora
 from deepspeed_tpu.models import bert as jbert
 from deepspeed_tpu.models.gpt2 import GPT2Config as JGPT2Config
 from deepspeed_tpu.models.gpt2 import GPT2LMHeadModel as JGPT2LMHeadModel
@@ -59,6 +58,7 @@ from deepspeed_tpu_torch import (
 )
 from deepspeed_tpu_torch.ops import attention as tattn
 from deepspeed_tpu_torch.ops import transformer as ttr
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 jattn = importlib.import_module("deepspeed_tpu.ops.attention")
 jtr = importlib.import_module("deepspeed_tpu.ops.transformer")
@@ -85,23 +85,6 @@ ONE_PROCESS = {
 # ---------------------------------------------------------------------------
 # the JAX engine's runs
 # ---------------------------------------------------------------------------
-def jadapters(params, seed=7):
-    """A rank-4 adapter for the JAX GPT-2's weights: A from the JAX
-    initializer, B noised so that both factors train from the first
-    window (numpy leaves)."""
-    tree = jax.device_get(jlora.init_lora_params(
-        params, LORA_RANK, rng=jax.random.PRNGKey(seed)))
-    rng = np.random.default_rng(seed)
-
-    def noise(path, leaf):
-        leaf = np.asarray(leaf, np.float32)
-        if jax.tree_util.keystr(path).endswith("_lora_b']"):
-            return (0.02 * rng.normal(size=leaf.shape)).astype(np.float32)
-        return leaf
-
-    return jax.tree_util.tree_map_with_path(noise, tree)
-
-
 def jax_run(model, model_parameters, dp, stage, opt, dtype, factors=False,
             **extra):
     """The JAX engine's window losses and final trainable parameters (in
@@ -126,17 +109,12 @@ def z3g_jmodel():
         n_head=4, dropout=0.0, remat=True, remat_policy=Z3G))
 
 
-def _merged(params, adapters):
-    return jlora.merge_lora_params(
-        jax.tree_util.tree_map(np.asarray, jax.device_get(params)), adapters)
-
-
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """One 2-rank spawn with every dp-2 case, beside the JAX oracles (the
     one-process ones too), each in a thread of its own."""
     _, params = g.jmodel()
-    adapters = jadapters(params)
+    adapters = g.jadapters(params, LORA_RANK)
     workdir = tmp_path_factory.mktemp("lifted")
     base = params_from_jax(jax.device_get(params))
     torch.save(base, workdir / "gpt2.pt")
@@ -160,13 +138,13 @@ def runs(tmp_path_factory):
     runs = {
         "compensated": (g.fresh_jmodel(), params, 2, 1, "Adam", "bf16",
                         False, COMPENSATED),
-        "adapters": (g.fresh_jmodel(), _merged(params, adapters), 2, 0,
+        "adapters": (g.fresh_jmodel(), g.merged(params, adapters), 2, 0,
                      "Adam", "fp32", True, ADAPTERS),
         "z3": (z3g_jmodel(), params, 2, 3, "Adam", "fp32", False, {}),
     }
     for layout, (stage, dtype, extra) in ONE_PROCESS.items():
         runs[f"adapters-{layout}"] = (g.fresh_jmodel(),
-                                      _merged(params, adapters), 1,
+                                      g.merged(params, adapters), 1,
                                       stage, "Adam", dtype, True, extra)
     with ThreadPoolExecutor(len(runs)) as pool:
         futures = {k: pool.submit(jax_run, *a[:7], **a[7])

@@ -40,6 +40,7 @@ from deepspeed_tpu_torch.ops.transformer import (
     DeepSpeedTransformerConfig,
     resolve_remat_policy,
 )
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 jattn = importlib.import_module("deepspeed_tpu.ops.attention")
 jtransformer = importlib.import_module("deepspeed_tpu.ops.transformer")

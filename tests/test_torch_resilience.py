@@ -17,6 +17,7 @@ import types
 
 import numpy as np
 import pytest
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 PACKAGES = ("deepspeed_tpu", "deepspeed_tpu_torch")
 

@@ -16,6 +16,7 @@ import jax
 import jax.numpy as jnp
 
 from deepspeed_tpu_torch.inference import sampling as tsamp
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 jsamp = importlib.import_module("deepspeed_tpu.inference.sampling")
 

@@ -39,6 +39,7 @@ from deepspeed_tpu.models.gpt2 import GPT2LMHeadModel as JGPT2LMHeadModel
 from deepspeed_tpu.models.gpt2 import partition_specs as jpartition_specs
 from deepspeed_tpu.parallel.mesh import build_mesh
 from deepspeed_tpu_torch import adapters_from_jax, params_from_jax
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 MP = 2
 KINDS = ("paged", "prefix", "contig", "lora", "tier", "tier_lora", "spec",

@@ -24,6 +24,7 @@ from deepspeed_tpu_torch.runtime.sparse import (
     CSRTensor,
     sparse_embedding_lookup,
 )
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 TOL = dict(rtol=2e-4, atol=1e-5)
 

@@ -26,6 +26,7 @@ from deepspeed_tpu.models.gpt2 import GPT2Config as JGPT2Config
 from deepspeed_tpu.models.gpt2 import GPT2LMHeadModel as JGPT2LMHeadModel
 from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel, params_from_jax
 from deepspeed_tpu_torch.config.config import DeepSpeedConfigError
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 VOCAB = 97
 _BLOCK = {"max_batch_slots": 4, "max_seq_len": 48, "prefill_len": 32,

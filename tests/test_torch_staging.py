@@ -35,6 +35,7 @@ from deepspeed_tpu_torch.runtime.staging import (
     WindowStager,
     ragged_window_error,
 )
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 VOCAB = 64
 SEQ = 16

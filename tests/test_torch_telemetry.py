@@ -32,6 +32,7 @@ from deepspeed_tpu_torch.utils.timers import (
     ThroughputTimer,
     device_fence,
 )
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 ABSENT_BY_DESIGN = {"jax/recompiles", "jax/compile_cache_hits",
                     "jax/compile_cache_misses"}

@@ -35,6 +35,7 @@ from deepspeed_tpu.parallel.mesh import build_mesh
 from deepspeed_tpu.telemetry.tracing import load_chrome_trace as jload
 from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel, params_from_jax
 from deepspeed_tpu_torch.telemetry.tracing import load_chrome_trace
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 ABSENT_BY_DESIGN = {"jax/recompiles", "jax/compile_cache_hits",
                     "jax/compile_cache_misses"}

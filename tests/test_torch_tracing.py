@@ -20,6 +20,7 @@ from deepspeed_tpu.telemetry import tracing as jtracing
 from deepspeed_tpu_torch import DeepSpeedConfig
 from deepspeed_tpu_torch.telemetry import tracing as ttracing
 from deepspeed_tpu_torch.telemetry.manager import Telemetry
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 
 def _pinned(mod, monkeypatch, tracer_kwargs, seed=0):

@@ -11,6 +11,7 @@ import torch
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
 from deepspeed_tpu_torch.ops.transformer import DropoutRNG, dropout
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 
 def _model(dropout_rate=0.0, seq=32, seed=0):

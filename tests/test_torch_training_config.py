@@ -15,6 +15,7 @@ from deepspeed_tpu.config import DeepSpeedConfigError as JConfigError
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
 from deepspeed_tpu_torch.config import DeepSpeedConfig, DeepSpeedConfigError
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 TRAINING_ATTRS = (
     "train_batch_size", "train_micro_batch_size_per_gpu",
@@ -276,13 +277,15 @@ def test_engine_refuses_data_checkpoints_and_a_second_device(tmp_path):
     from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
 
     cfg = {"train_batch_size": 2}
-    with pytest.raises(DeepSpeedConfigError, match="not yet ported"):
+    with pytest.raises(DeepSpeedConfigError, match="takes a deepspeed_tpu_"
+                                                   "torch.parallel.ProcessMesh"):
         DeepSpeedDataLoader([1, 2], batch_size=1, mesh=object())
     _, _, loader, _ = deepspeed_tpu_torch.initialize(
         model=_tiny(), config_params=cfg, training_data=[1, 2],
         device="cpu")
     assert isinstance(loader, DeepSpeedDataLoader) and len(loader) == 1
-    with pytest.raises(DeepSpeedConfigError, match="not yet ported"):
+    with pytest.raises(DeepSpeedConfigError, match="takes a deepspeed_tpu_"
+                                                   "torch.parallel.ProcessMesh"):
         deepspeed_tpu_torch.initialize(model=_tiny(), config_params=cfg,
                                        mesh=object(), device="cpu")
     engine, *_ = deepspeed_tpu_torch.initialize(

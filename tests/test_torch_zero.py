@@ -32,6 +32,7 @@ import jax
 import deepspeed_tpu
 import torch_dp_ranks as ranks
 from deepspeed_tpu.parallel.mesh import build_mesh
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 sys.path.insert(0, str(Path(__file__).parent / "unit"))
 from simple_model import SimpleModel  # noqa: E402

@@ -34,6 +34,7 @@ from deepspeed_tpu_torch.ops.transformer import (
     DATA_RANK_SEED_STRIDE,
     DropoutRNG,
 )
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 SEQ, MICRO, DP = 16, 2, 2
 BERT = dict(vocab_size=100, hidden_size=64, num_hidden_layers=2,

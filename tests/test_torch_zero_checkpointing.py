@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 import torch_dp_ranks as ranks
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 FP_TOL = dict(rtol=1e-5, atol=0.0)
 RESUME_TOL = dict(rtol=2e-4, atol=1e-5)

@@ -25,6 +25,7 @@ all held to the same oracle; its gauges equal the JAX engine's.
 import pytest
 
 import torch_dp_gpt2 as g
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 ORACLES = {(2, "adam"): 3, (2, "lamb"): 2, (4, "adam"): 1}
 # stage-3 variants, each held to the Adam oracle

@@ -11,6 +11,7 @@ each group in the JAX element order.
 import pytest
 
 import torch_dp_gpt2 as g
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 ORACLES = {(2, "fusedlamb"): 1, (2, "int8"): 3}
 

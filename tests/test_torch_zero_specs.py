@@ -27,6 +27,7 @@ from deepspeed_tpu.runtime import zero as jzero
 from deepspeed_tpu_torch.models.stack import resolve_gather_block
 from deepspeed_tpu_torch.ops import quant
 from deepspeed_tpu_torch.runtime import zero
+from torch_test_env import jax_compile_cache  # noqa: F401
 
 SHAPES = {
     "odd": (3, 5), "ok": (8, 16), "col": (16, 48), "row": (16, 16),

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 
 import deepspeed_tpu
 import torch_dp_ranks as ranks
+from deepspeed_tpu.adapters import lora as jlora
 from deepspeed_tpu.models.gpt2 import GPT2Config as JGPT2Config
 from deepspeed_tpu.models.gpt2 import GPT2LMHeadModel as JGPT2LMHeadModel
 from deepspeed_tpu.parallel.mesh import build_mesh
@@ -46,6 +47,30 @@ def jmodel():
     params = model.init({"params": jax.random.PRNGKey(0),
                          "dropout": jax.random.PRNGKey(1)}, ids, ids)["params"]
     return model, params
+
+
+def jadapters(params, rank, seed=7):
+    """A rank-``rank`` adapter for the JAX GPT-2's weights: A from the
+    JAX initializer, B noised so that both factors train from the first
+    window (numpy leaves)."""
+    tree = jax.device_get(jlora.init_lora_params(
+        params, rank, rng=jax.random.PRNGKey(seed)))
+    rng = np.random.default_rng(seed)
+
+    def noise(path, leaf):
+        leaf = np.asarray(leaf, np.float32)
+        if jax.tree_util.keystr(path).endswith("_lora_b']"):
+            return (0.02 * rng.normal(size=leaf.shape)).astype(np.float32)
+        return leaf
+
+    return jax.tree_util.tree_map_with_path(noise, tree)
+
+
+def merged(params, adapters):
+    """The JAX weights with the adapter's factors merged in (the JAX
+    engine's ``model_parameters`` for a fine-tune from them)."""
+    return jlora.merge_lora_params(
+        jax.tree_util.tree_map(np.asarray, jax.device_get(params)), adapters)
 
 
 def cases(keys, variants=None):

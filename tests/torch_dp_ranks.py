@@ -62,9 +62,37 @@ def mlp_weights(seed=0):
     }
 
 
+def bert_rows(rng, rows, vocab):
+    """BERT pretraining rows: ``(ids, padding mask, token types, masked-LM
+    labels (-100 where none), next-sentence labels (-1 ignored))``, each
+    row padded from a length of its own, about one masked-LM label in
+    six."""
+    ids = rng.integers(0, vocab, (rows, SEQ)).astype(np.int32)
+    lengths = rng.integers(SEQ // 2, SEQ + 1, rows)
+    mask = (np.arange(SEQ)[None, :] < lengths[:, None]).astype(np.int32)
+    types = np.zeros((rows, SEQ), np.int32)
+    types[:, SEQ // 2:] = 1
+    mlm = np.where((rng.random((rows, SEQ)) < 1 / 6) & (mask > 0), ids,
+                   -100).astype(np.int32)
+    nsp = rng.integers(-1, 2, rows).astype(np.int32)
+    return ids, mask, types, mlm, nsp
+
+
+def bert_qa_rows(rng, rows, vocab):
+    """BERT question-answering rows: ``(ids, padding mask, token types,
+    start positions, end positions)``, the span inside each row's
+    unpadded part."""
+    ids, mask, types, _, _ = bert_rows(rng, rows, vocab)
+    lengths = mask.sum(axis=1)
+    start = (rng.random(rows) * (lengths - 4)).astype(np.int32)
+    end = (start + rng.integers(0, 4, rows)).astype(np.int32)
+    return ids, mask, types, start, end
+
+
 def windows(model, steps, accum, rows, seed=0, vocab=VOCAB):
     """``steps`` windows of ``accum`` global micro-batches (``rows`` rows
-    each): MLP ``(x, y)``, GPT-2 ``(ids, ids)`` (ids below ``vocab``)."""
+    each): MLP ``(x, y)``, GPT-2 ``(ids, ids)`` (ids below ``vocab``),
+    BERT :func:`bert_rows` and :func:`bert_qa_rows`."""
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(steps):
@@ -73,6 +101,10 @@ def windows(model, steps, accum, rows, seed=0, vocab=VOCAB):
             if model == "mlp":
                 win.append((rng.normal(size=(rows, IN_DIM)).astype(np.float32),
                             rng.integers(0, CLASSES, (rows,)).astype(np.int32)))
+            elif model == "bert":
+                win.append(bert_rows(rng, rows, vocab))
+            elif model == "bert_qa":
+                win.append(bert_qa_rows(rng, rows, vocab))
             else:
                 ids = rng.integers(0, vocab, (rows, SEQ)).astype(np.int32)
                 win.append((ids, ids))
@@ -150,7 +182,9 @@ def _model(case, workdir):
     else:
         from deepspeed_tpu_torch.models.bert import BertConfig
 
-        m = dst.BertForPreTraining(BertConfig(**case["bert"]), device="cpu")
+        cls = (dst.BertForQuestionAnswering if case["model"] == "bert_qa"
+               else dst.BertForPreTraining)
+        m = cls(BertConfig(**case["bert"]), device="cpu")
     state = workdir / case.get("weights", "none")
     if state.exists():
         m.load_state_dict(torch.load(state, weights_only=True))
@@ -162,7 +196,8 @@ def _feed(engine, case, rank, dp):
 
     losses = []
     for win in windows(case["model"], case["steps"], case["accum"],
-                       case["micro"] * dp, case.get("data_seed", 0)):
+                       case["micro"] * dp, case.get("data_seed", 0),
+                       vocab=case.get("vocab", VOCAB)):
         mine = [tuple(torch.from_numpy(x) for x in rank_rows(b, rank, dp))
                 for b in win]
         losses.append(float(engine.train_batch(iter(mine))))
@@ -881,22 +916,29 @@ def case_sp_auto_mp(case, rank, world, workdir):
 
 
 def sp_engine(case, world, workdir):
-    """A GPT-2 engine at the case's sequence axis (and model axis, with
-    the model's partition_specs), its data size the rest of the world."""
+    """The case's model (GPT-2, BERT or the MLP) at its sequence axis (and
+    model axis, with GPT-2's partition_specs, and pipe axis), its data
+    size the rest of the world."""
     import deepspeed_tpu_torch as dst
+
+    import torch
 
     model = _model(case, workdir)
     if case.get("impl"):
         model.layer_config.seq_parallel_impl = case["impl"]
-    sp, mp = case["sp"], case.get("mp", 1)
+    sp, mp, pp = case["sp"], case.get("mp", 1), case.get("pp", 1)
     extra = dict(case.get("extra", {}))
-    extra["mesh"] = {"sequence_parallel_size": sp, "model_parallel_size": mp}
+    extra["mesh"] = {"sequence_parallel_size": sp, "model_parallel_size": mp,
+                     "pipeline_parallel_size": pp}
+    state = case.get("model_parameters")
     engine, *_ = dst.initialize(
         model=model, device="cpu",
+        model_parameters=(None if state is None else torch.load(
+            workdir / state, weights_only=True)),
         param_specs=dst.partition_specs(model) if mp > 1 else None,
         config_params=config(case.get("stage", 0), case.get("opt", "Adam"),
                              case.get("dtype", "fp32"), case["micro"],
-                             case["accum"], world // (sp * mp),
+                             case["accum"], world // (sp * mp * pp),
                              lr=case.get("lr", 1e-2), **extra))
     return engine
 
@@ -1157,8 +1199,9 @@ def moe_pp_model(case, workdir):
 
 
 def moe_pp_engine(case, world, workdir, **over):
-    """The case's engine: a pipe axis of ``pp`` (the data axis the rest of
-    the world)."""
+    """The case's engine: a pipe axis of ``pp`` and the mesh of the case's
+    ``extra`` (the data axis the rest of the world; at a model axis above 1
+    the model's Megatron ``partition_specs``)."""
     import deepspeed_tpu_torch as dst
 
     pp = case.get("pp", 1)
@@ -1170,9 +1213,11 @@ def moe_pp_engine(case, world, workdir, **over):
     dp = world // (mesh.get("pipeline_parallel_size", 1)
                    * mesh.get("model_parallel_size", 1)
                    * mesh.get("sequence_parallel_size", 1))
+    model = moe_pp_model(case, workdir)
     engine, *_ = dst.initialize(
-        model=moe_pp_model(case, workdir), device="cpu",
-        rng_seed=case.get("rng_seed", 0),
+        model=model, device="cpu", rng_seed=case.get("rng_seed", 0),
+        param_specs=(dst.partition_specs(model)
+                     if mesh.get("model_parallel_size", 1) > 1 else None),
         config_params=config(case.get("stage", 0), case.get("opt", "Adam"),
                              case.get("dtype", "fp32"), case["micro"],
                              case.get("accum", 1), dp,
@@ -1207,7 +1252,8 @@ def case_moe_pp_train(case, rank, world, workdir):
            "coeffs": [float(c) for c in engine.lamb_coeffs],
            "local_shapes": {n: tuple(p.shape)
                             for n, p in engine.module.named_parameters()},
-           "coords": (engine.pipe_rank, engine.data_rank)}
+           "coords": (engine.pipe_rank, engine.data_rank),
+           "plan": getattr(engine.module, "last_pipeline_plan", None)}
     full = engine.full_parameters()
     if rank == 0:
         out["params"] = {n: p.detach().float().numpy().copy()

@@ -42,8 +42,8 @@ def jconfig(kind, **over):
     if kind == "moe":
         fields["moe_experts"] = EXPERTS
     elif kind == "pp":
-        fields.update(pipeline_stages=STAGES,
-                      pipeline_microbatches=PP_MICRO_BATCHES)
+        fields["pipeline_stages"] = STAGES
+        fields.setdefault("pipeline_microbatches", PP_MICRO_BATCHES)
     return JGPT2Config(**fields)
 
 
@@ -62,25 +62,31 @@ def save_port_weights(params, path):
 
 
 def jax_run(kind, params, dp, stage, opt, dtype="fp32", steps=STEPS,
-            rows=None):
+            rows=None, n_micro=PP_MICRO_BATCHES, mp=1, extra=None, sp=1):
     """The JAX engine's window losses, its last ``last_aux`` and its final
     float32 parameters in the port's names; ``rows`` global rows a
-    micro-step (default: a data rank's times dp)."""
+    micro-step (default: a data rank's times dp); ``n_micro`` the
+    pipeline's microbatches; ``mp`` a model axis (the Megatron specs),
+    ``sp`` a sequence axis (MoE); ``extra`` more engine config."""
     micro = MOE_MICRO if kind == "moe" else PP_MICRO
     if rows is not None:
         micro = rows // dp
     if kind == "moe":
-        mesh = build_mesh(data_parallel_size=dp, devices=jax.devices()[:dp])
+        mesh = build_mesh(data_parallel_size=dp, model_parallel_size=mp,
+                          sequence_parallel_size=sp,
+                          devices=jax.devices()[:dp * mp * sp])
         specs = partition_specs(params)
     else:
-        mesh = build_mesh(data_parallel_size=dp,
+        mesh = build_mesh(data_parallel_size=dp, model_parallel_size=mp,
                           pipeline_parallel_size=STAGES,
-                          devices=jax.devices()[:STAGES * dp])
+                          devices=jax.devices()[:STAGES * dp * mp])
         specs = partition_specs(params, pipeline=True)
     engine, *_ = deepspeed_tpu.initialize(
-        model=JGPT2LMHeadModel(jconfig(kind)), model_parameters=params,
+        model=JGPT2LMHeadModel(jconfig(kind) if kind == "moe" else jconfig(
+            kind, pipeline_microbatches=n_micro)),
+        model_parameters=params,
         config_params=ranks.config(stage, opt, dtype, micro, ACCUM, dp,
-                                   lr=LR),
+                                   lr=LR, **(extra or {})),
         mesh=mesh, param_specs=specs)
     losses = [float(engine.train_batch(iter(win))) for win in ranks.windows(
         "gpt2", steps, ACCUM, micro * dp, vocab=ranks.MOE_VOCAB)]
@@ -113,6 +119,35 @@ def check(got, want_losses, want_params, tol=TOL):
         np.testing.assert_allclose(got["params"][n], want, err_msg=n, **tol)
 
 
+# compensated masters (bfloat16 compute): all but 0.5% of the parameters
+# within one bf16 ulp (2**-7 relative) and 1% of the most the windows
+# can move an element, as tests/test_torch_engine_state_layouts.py holds
+# them; losses rtol 2e-4
+BF16_OUTLIERS = 5e-3
+
+
+def check_bf16(got, want_losses, want_params, lr=LR, windows=STEPS,
+               outliers=BF16_OUTLIERS):
+    """A bfloat16-compute case's losses and parameters against the
+    oracle's, at the bf16 tolerances above. ``outliers=None`` holds every
+    element instead within one bf16 ulp plus 2 lr a window (Lion's bound
+    in tests/test_torch_engine_state_layouts.py): Adam turns the last
+    bits of a near-zero gradient into a step of +-lr, and an MoE expert
+    sees few tokens a step."""
+    np.testing.assert_allclose(got["losses"], want_losses, rtol=2e-4)
+    assert set(got["params"]) == set(want_params)
+    atol = 1e-2 * lr * windows if outliers is not None else 2 * lr * windows
+    beyond = total = 0
+    for n, want in want_params.items():
+        diff = np.abs(got["params"][n] - want)
+        bad = diff > atol + 2.0 ** -7 * np.abs(want)
+        if outliers is None:
+            assert not bad.any(), (n, float(diff.max()))
+        beyond += int(bad.sum())
+        total += want.size
+    assert beyond <= (outliers or 0.0) * total, (beyond, total)
+
+
 def same_on_every_rank(results, name):
     """Every rank's losses are rank 0's."""
     for r in results[1:]:
@@ -120,12 +155,7 @@ def same_on_every_rank(results, name):
 
 
 def in_process(fn, case, workdir):
-    """Rank case ``fn`` run in this process at world size 1, on one torch
-    thread as the rank processes run (the model is too small to gain
-    from threads, and the test workers share the cores)."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        return fn(case, 0, 1, workdir)
-    finally:
-        torch.set_num_threads(prev)
+    """Rank case ``fn`` run in this process at world size 1 (on one torch
+    thread, as tests/torch_test_env.py sets it for the test processes and
+    the rank processes run)."""
+    return fn(case, 0, 1, workdir)
