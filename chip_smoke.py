@@ -313,8 +313,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                one card over a gloo group this phase makes (NCCL refuses
                two ranks on one device), each a subprocess of this script
                loading the kernels phase 2 built, under a timeout: GPT-2
-               small at full width and P14_LAYERS blocks (6; 12 until
-               phase 18 came), micro-batch 4 a rank (8 rows a step),
+               small at full width and P14_LAYERS blocks (4; 12 until
+               phase 18 came, 6 until phase 20), micro-batch 4 a rank
+               (8 rows a step),
                float32 Adam at stages 0-3, bfloat16 Adam at stages 0-3
                and FusedLamb at stages 1 and 3, P14_WINDOWS windows each
                (2; 3 until phase 17 came). Every rank returns the global loss; float32
@@ -433,7 +434,7 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                on two ranks of the card over a gloo group
                (``--phase19-rank``): (a) BERT-large pretraining (1024
                wide, 16 heads, seq 512, phase 12's padded batches, cut to
-               P19_BERT_LAYERS = 4 layers) at a sequence axis of 2:
+               P19_BERT_LAYERS = 2 layers) at a sequence axis of 2:
                float32 Adam, whose losses equal sp 1's in this process,
                and bf16 FusedLamb with dropout 0.1, whose loss falls;
                Ulysses runs rows 1b-3b once a layer a micro-step at [8, 8,
@@ -450,18 +451,61 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                128] (bf16, causal): its table, each forward form against
                the plain version (phase 3's tolerances) and timed. No
                time of (a)-(c) is an sp 2 or mp 2 speed (gloo).
+  20. the serving fleet on one host (serving/) — GPT-2 small at full
+               width and depth (random N(0, 0.02) weights from --seed),
+               paged KV with fused decode and the prefix cache, prefill
+               window 256 (the flash forward). (a) init_fleet with 2
+               in-process replicas and prefix affinity serves 16 requests
+               (4 templates of 2-3 pages x 3 tails, 4 of their own, 24
+               new tokens), bf16 and float32: float32 tokens equal one
+               engine's, bf16 part only at a near-tie (BF16_FLIP_TOL);
+               affinity hits above 0; every fleet/* stream of
+               SERVING_METRICS present; the flash forward's and paged
+               decode's launches through the fleet equal 12 a cold
+               prefill and 12 a decode step of its engines' own counts.
+               (f) serve_http on 127.0.0.1:0 in front of (a)'s float32
+               router: 2 SSE streams, the first event while the request
+               still holds its slot, the tokens (a)'s. (b) a rolling
+               restart of (a)'s router under 8 clients' 16 requests at
+               capacity_floor 0.5: each answered once with (a)'s tokens,
+               fleet/replicas_available never under 1, the card's peak
+               printed. (c) brownout (a FleetRouter of 2 slots and a
+               queue of 8 a replica, band 0.25-0.9, its periodic refresh
+               off): priority-1 requests clamped to 4 tokens, priority 0
+               not, no prefix page registered in the band while a
+               template's hit still serves, registration back after it.
+               (d) adapter affinity: replica 0 holds adapters a, b and
+               replica 1 c, d (synthetic rank 16); each adapter request
+               served by its holder, SGMV 48 launches a decode step,
+               float32 tokens equal one engine's with the four adapters.
+               (e) the subprocess backend: the weights saved through the
+               port's checkpoint, one worker process serving them on the
+               card from inference.checkpoint.load_dir: float32 tokens
+               equal (a)'s, its log reporting cuda, the process reaped;
+               the launches it logs at exit equal 12 a cold prefill and
+               12 a decode step of its engine's counts, read over the
+               pipe before shutdown; its round trip a request against
+               (a)'s. Every sub-phase fails on an eviction, reroute,
+               breaker open or zombie restart it did not cause and on a
+               request served off the card (paths "p20<sub-phase>_*").
+               Then each kernel against its plain version at the phase's
+               shapes (phase 3's tolerances), float32 and bf16: the flash
+               forward at [1, 12, 256, 64] causal, without a mask and
+               with padding keys masked; paged decode at 8 slots over 32
+               pages a slot; SGMV and its epilogue form at rank 16 over
+               4 adapters on each of the 4 targets.
   9. report  — a JSON line of per-kernel numbers (the D = 256, decode
                tail and BERT (rows 1b-3b) variants in entries of their
                own; the forward's tile forms in "tile_forms" of rows 1
-               and 1m; the launches of every path, phases 10 to 19
+               and 1m; the launches of every path, phases 10 to 20
                included), the nvidia-smi line, then the last line {"ok":
-               true, "device": {...}}. It comes after phase 19.
+               true, "device": {...}}. It comes after phase 20.
 
 ``--only-phase12`` builds every kernel and runs phase 12 alone, printing
 its numbers as one JSON line; ``--only-phase13``, ``--only-phase14``,
 ``--only-phase15``, ``--only-phase16``, ``--only-phase17``,
-``--only-phase18`` and ``--only-phase19`` the same for phases 13 to
-19. ``--only-bert-attention`` builds the
+``--only-phase18``, ``--only-phase19`` and ``--only-phase20`` the same
+for phases 13 to 20. ``--only-bert-attention`` builds the
 flash kernels, checks them under BERT's padding mask and the mask
 patterns of phase 12a, and times rows 1b-3b (copy the script to the root
 of an unpacked parent under build/ to time both trees in one call).
@@ -501,6 +545,7 @@ ulp of y) and bit for bit against PyTorch's ops on the kernel's delta.
 """
 
 import argparse
+import collections
 import gc
 import importlib.util
 import json
@@ -545,13 +590,24 @@ LORA_SHAPES = {"attn_qkvw": (768, 2304), "attn_ow": (768, 768),
                "inter_w": (768, 3072), "output_w": (3072, 768)}
 
 
+# the last lines log() printed, repeated on stderr by fail()
+RECENT = collections.deque(maxlen=40)
+
+
 def fail(msg):
+    """Report ``msg`` on stdout, where the phases log, and on stderr after
+    the last lines the phases logged, so that a caller who keeps only the
+    end of stderr still sees where and why the script failed; then exit
+    1."""
     print(f"FAIL: {msg}", flush=True)
+    tail = "\n".join(line[-2000:] for line in RECENT)
+    print(f"{tail}\nFAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
 def log(msg):
     print(msg, flush=True)
+    RECENT.append(str(msg))
 
 
 # ---------------------------------------------------------------------------
@@ -5831,9 +5887,10 @@ P14_ROWS, P14_MICRO, P14_DP = 8, 4, 2
 # references (3 before phase 17 came; 2 since, to keep the script in its
 # time limit)
 P14_WINDOWS = 2
-# the depth of those runs and references (12 before phase 18 came; 6 since,
-# to keep the script in its time limit); phase 14a keeps GPT-2 small's 12
-P14_LAYERS = 6
+# the depth of those runs and references (12 before phase 18 came, 6
+# before phase 20; 4 since, to keep the script in its time limit); phase
+# 14a keeps GPT-2 small's 12
+P14_LAYERS = 4
 P14_RUNS = (
     [(f"adam-fp32-s{st}", "Adam", "fp32", st, P14_WINDOWS)
      for st in range(4)]
@@ -7615,11 +7672,12 @@ P19_TUNE_SLACK = 0.05
 # (b) the MoE model at a model axis of 2: its attention kernels' q shape
 # (a rank's 6 of 12 heads)
 P19_MOE_MP_SHAPE = (P18_ROWS, 12 // P19_WORLD, 1024, 64)
-# (a) BERT-large at a sequence axis of 2, cut to 4 of its 24 layers:
+# (a) BERT-large at a sequence axis of 2, cut to 2 of its 24 layers (4
+# until phase 20 came):
 # Ulysses runs rows 1b-3b on a rank's 8 of 16 heads over the whole
 # sequence; float32 Adam (2 windows) against sp 1, bf16 FusedLamb with
 # dropout 0.1 (3 windows)
-P19_BERT_LAYERS = 4
+P19_BERT_LAYERS = 2
 P19_BERT_SHAPE = (8, 16 // P19_WORLD, BERT_SEQ, 64)
 P19_BERT_RUNS = (("fp32", "Adam", 1e-4, 2), ("bf16", "FusedLamb", BERT_LR,
                                              3))
@@ -7992,6 +8050,702 @@ def phase_parallel_lifted_and_autotune(seed, card):
     return launches, stats
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the serving fleet on one host (serving/)
+# ---------------------------------------------------------------------------
+P20_REPLICAS = 2
+P20_PREFILL = 256   # the cold prefill's window, so that it takes the flash forward
+P20_MAX_SEQ = 512
+P20_NEW = 24
+P20_AFFINITY = 32   # prompt tokens prefix affinity hashes (2 pages)
+P20_TEMPLATES = (48, 32, 48, 32)  # shared prefixes: 3 or 2 pages of 16
+P20_SERIAL = 2      # requests of (e) and of (a)'s one-at-a-time round trips
+P20_STREAMS = 2     # (f)'s SSE streams
+P20_CLIENTS = 8     # (b)'s client threads, 2 requests each
+P20_BROWNOUT = {"queue_ratio": 0.25, "max_new_tokens": 4}
+P20_LOAD_NEW = 96   # (c)'s load: new tokens a request
+P20_ADAPTERS = {"0": ("a", "b"), "1": ("c", "d")}
+# the fleet's own ways to hide a failure, each expected 0 unless the
+# sub-phase causes it
+P20_HIDDEN = ("fleet/replicas_evicted", "fleet/requests_rerouted",
+              "fleet/breaker_opens", "fleet/zombie_restarts")
+
+
+def p20_block(dtype, **extra):
+    block = {"max_batch_slots": INF_SLOTS, "max_seq_len": P20_MAX_SEQ,
+             "prefill_len": P20_PREFILL, "kv_block_size": 16,
+             "fused_decode": True, "dtype": dtype,
+             "sampling": {"greedy": True}}
+    block.update(extra)
+    return block
+
+
+def p20_factory(model, dtype, extra=None, **inference):
+    """An engine factory over ``model`` (each call a fresh engine, as the
+    fleet's replicas and their restarts build them)."""
+    import deepspeed_tpu_torch
+
+    def build():
+        return deepspeed_tpu_torch.init_inference(
+            model=model, config={"inference": p20_block(dtype, **inference),
+                                 **(extra or {})})
+
+    return build
+
+
+def p20_prompts(seed, vocab):
+    """16 prompts: 4 templates of 2-3 pages with 3 tails each, then 4 of
+    their own, interleaved so that a template's later requests follow
+    its first."""
+    g = torch.Generator().manual_seed(seed + 200)
+    heads = [random_tokens(g, n, vocab) for n in P20_TEMPLATES]
+    templated = [[h + random_tokens(g, k, vocab) for h in heads]
+                 for k in (5, 11, 17)]
+    own = [random_tokens(g, n, vocab) for n in (9, 40, 77, 120)]
+    return [p for row in templated for p in row] + own
+
+
+def p20_engines(router):
+    return [router._replicas[rid].engine for rid in router.replica_ids]
+
+
+def p20_clean(tag, router, reqs, restarts=0):
+    """Nothing hid a failure: no eviction, reroute, breaker open or zombie
+    restart, ``restarts`` replica restarts, every request finished with its
+    budget, and (in process) on a replica whose engine runs on the card.
+    Returns the fleet's metrics snapshot."""
+    router.refresh_telemetry()
+    snap = router.metrics.snapshot()
+    for key in P20_HIDDEN:
+        if snap[key]:
+            fail(f"{tag}: {key} = {snap[key]}: the router hid a replica's "
+                 "failure")
+    if snap["fleet/replica_restarts"] != restarts:
+        fail(f"{tag}: {snap['fleet/replica_restarts']} replica restarts, "
+             f"expected {restarts}")
+    if router.evicted_ids:
+        fail(f"{tag}: replicas {sorted(router.evicted_ids)} evicted")
+    for r in reqs:
+        if r.reroutes or r.finish_reason != "max_new_tokens":
+            fail(f"{tag}: request {r.request_id} finished "
+                 f"{r.finish_reason!r} after {r.reroutes} reroutes")
+        engine = getattr(router._replicas[r.replica_id], "engine", None)
+        if engine is not None and torch.device(engine.device).type != "cuda":
+            fail(f"{tag}: replica {r.replica_id} serves on {engine.device}")
+    return snap
+
+
+def p20_fleet_stats(router, wall):
+    st = [engine_stats(e, wall) for e in p20_engines(router)]
+    total = {k: sum(s[k] for s in st) for k in
+             ("cold_prefills", "prefix_hits", "decode_steps",
+              "decode_ms_sum", "tokens", "requests")}
+    total["wall_s"] = wall
+    return total
+
+
+def p20_check_launches(tag, got, st, sgmv=False):
+    """The fleet's launches equal its engines' own counts: the flash
+    forward 12 a cold prefill, paged decode (and SGMV's 4 targets) 12 a
+    decode step."""
+    want = {"flash_fwd": N_LAYER * st["cold_prefills"],
+            "paged_decode": N_LAYER * st["decode_steps"]}
+    if sgmv:
+        want["sgmv"] = 4 * N_LAYER * st["decode_steps"]
+    for name, n in want.items():
+        if got.get(name, 0) != n or n <= 0:
+            fail(f"{tag}: {name} launched {got.get(name, 0)} times through the "
+                 f"fleet, its engines count {n} ({st})")
+
+
+def p20_serial_ms(router, prompts):
+    """Mean wall ms a request, one at a time, prompt to last token; and
+    the requests."""
+    t0 = time.monotonic()
+    reqs = []
+    for p in prompts:
+        reqs.append(router.submit(p, max_new_tokens=P20_NEW))
+        reqs[-1].result(300.0)
+    torch.cuda.synchronize()
+    return (time.monotonic() - t0) * 1e3 / len(prompts), reqs
+
+
+def p20_fleet(model, dtype, prompts, vocab, card):
+    """(a) one dtype: the fleet's tokens against one engine's, the
+    launches against the engines' counts. Returns (router, stats,
+    launches, reference tokens); the caller shuts the router down."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.telemetry.manager import SERVING_METRICS
+
+    tag = f"phase 20(a) {dtype}"
+    held = torch.cuda.memory_allocated()
+    single = p20_factory(model, dtype)()
+    engine_bytes = torch.cuda.memory_allocated() - held
+    try:
+        want = single.generate(prompts, max_new_tokens=P20_NEW)
+    finally:
+        single.close()
+        del single
+    torch.cuda.synchronize()
+    router = deepspeed_tpu_torch.init_fleet(
+        engine_factory=p20_factory(model, dtype),
+        config={"serving": {"replicas": P20_REPLICAS,
+                            "placement": "prefix_affinity",
+                            "affinity_prefix_tokens": P20_AFFINITY}})
+    zero_launches()
+    t0 = time.monotonic()
+    reqs = [router.submit(p, max_new_tokens=P20_NEW) for p in prompts]
+    got = [r.result(300.0) for r in reqs]
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = read_launches()
+    st = p20_fleet_stats(router, wall)
+    if dtype == "fp32":
+        same_tokens(tag, prompts, got, want, model, vocab)
+        flip = None
+    else:
+        flip = bf16_divergence(tag, prompts, got, want, model, vocab)
+    snap = p20_clean(tag, router, reqs)
+    p20_check_launches(tag, launches, st)
+    if snap["fleet/affinity_hits"] <= 0:
+        fail(f"{tag}: no affinity hit")
+    missing = [name for _, name, _ in SERVING_METRICS
+               if name not in snap and f"{name}/count" not in snap]
+    if missing:
+        fail(f"{tag}: fleet/* streams missing: {missing}")
+    served = {r.replica_id for r in reqs}
+    stats = {
+        "card": card, "requests": len(reqs), "replicas_serving":
+        sorted(served), "ttft_p50_ms": snap["fleet/ttft_p50_ms"],
+        "ttft_p99_ms": snap["fleet/ttft_p99_ms"],
+        "affinity_hits": snap["fleet/affinity_hits"],
+        "prefix_hits": st["prefix_hits"], "cold_prefills":
+        st["cold_prefills"], "decode_steps": st["decode_steps"],
+        "tokens_per_s": st["tokens"] / wall,
+        "engine_decode_tokens_per_s": (st["tokens"] - st["requests"])
+        / (st["decode_ms_sum"] / 1e3),
+        "wall_s": wall, "engine_bytes": engine_bytes, "bf16_flip": flip,
+    }
+    log(f"  {tag}: {len(reqs)} requests on replicas {sorted(served)}, "
+        f"TTFT p50 {stats['ttft_p50_ms']:.3f} ms p99 "
+        f"{stats['ttft_p99_ms']:.3f} ms, {stats['tokens_per_s']:.1f} "
+        f"tokens/s over the fleet's wall, "
+        f"{stats['engine_decode_tokens_per_s']:.1f} tokens/s over the "
+        f"engines' decode steps, affinity hits "
+        f"{stats['affinity_hits']}, prefix hits {st['prefix_hits']}, "
+        f"launches {launches} ({card})")
+    return router, stats, launches, want
+
+
+def p20_restart(router, prompts, want, model, vocab, card):
+    """(b) a rolling restart under traffic at capacity_floor 0.5: every
+    request answered exactly once with the single engine's tokens, never
+    fewer than one routable replica; the card's peak while the replicas
+    rebuild."""
+    import threading
+
+    tag = "phase 20(b) rolling restart"
+    available = router.metrics.gauge("fleet/replicas_available")
+    results, errors, floor = {}, [], []
+    torch.cuda.synchronize()
+    completed = router.metrics.counter("fleet/requests_completed").value
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+
+    def client(i):
+        for j in (i, i + P20_CLIENTS):
+            try:
+                req = router.submit(prompts[j], max_new_tokens=P20_NEW)
+                results.setdefault(j, []).append(req)
+                req.result(300.0)
+            except Exception as e:
+                errors.append((j, repr(e)))
+
+    watching = threading.Event()
+
+    def watch():
+        while not watching.is_set():
+            if available.value < 1.0:
+                floor.append(available.value)
+            time.sleep(0.001)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(P20_CLIENTS)]
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    router.rolling_restart(wait_timeout=120.0)
+    for t in threads:
+        t.join(300.0)
+    watching.set()
+    watcher.join(5.0)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    gc.collect()
+    after = torch.cuda.memory_allocated()
+    if errors:
+        fail(f"{tag}: {errors}")
+    if sorted(results) != list(range(len(prompts))) or any(
+            len(v) != 1 for v in results.values()):
+        fail(f"{tag}: not every request answered exactly once "
+             f"({ {j: len(v) for j, v in results.items()} })")
+    reqs = [results[j][0] for j in range(len(prompts))]
+    same_tokens(tag, prompts, [r.tokens for r in reqs], want, model, vocab)
+    if floor:
+        fail(f"{tag}: fleet/replicas_available fell to {min(floor)} under "
+             "the floor of 1")
+    snap = p20_clean(tag, router, reqs, restarts=P20_REPLICAS)
+    if snap["fleet/requests_completed"] - completed != len(reqs):
+        fail(f"{tag}: {snap['fleet/requests_completed'] - completed} "
+             f"completions for {len(reqs)} requests")
+    for name in ("flash_fwd", "paged_decode"):
+        if launches[name] <= 0:
+            fail(f"{tag}: {name} launched no time ({launches})")
+    stats = {"card": card, "requests": len(reqs), "wall_s": wall,
+             "held_before_gb": before / 1e9, "peak_gb": peak / 1e9,
+             "held_after_gb": after / 1e9,
+             "peak_over_before_gb": (peak - before) / 1e9}
+    log(f"  {tag}: {len(reqs)} requests from {P20_CLIENTS} clients "
+        f"answered once each in {wall:.2f} s; card memory {before / 1e9:.3f}"
+        f" GB before, peak {peak / 1e9:.3f} GB, {after / 1e9:.3f} GB after; "
+        f"launches {launches} ({card})")
+    return stats, launches
+
+
+def p20_door(router, prompts, want, card):
+    """(f) serve_http on 127.0.0.1:0 in front of (a)'s float32 router:
+    P20_STREAMS SSE streams, each token its own event, the first event
+    before the request's last token, the tokens (a)'s."""
+    import socket
+
+    from deepspeed_tpu_torch.serving import serve_http
+
+    tag = "phase 20(f) HTTP door"
+    door = serve_http(router, host="127.0.0.1", port=0)
+    host, port = door.address
+    engines = p20_engines(router)
+    out = []
+    zero_launches()
+    try:
+        for j in range(P20_STREAMS):
+            body = json.dumps({"prompt": prompts[j], "stream": True,
+                               "max_new_tokens": P20_NEW}).encode()
+            sock = socket.create_connection((host, port))
+            sock.settimeout(120.0)
+            t0 = time.monotonic()
+            sock.sendall(b"POST /v1/generate HTTP/1.1\r\nHost: door\r\n"
+                         b"Content-Length: %d\r\n\r\n%s" % (len(body), body))
+            buf, first_at, live = b"", None, None
+            while b"event: done" not in buf:
+                chunk = sock.recv(65536)
+                if not chunk:
+                    break
+                buf += chunk
+                if first_at is None and b"event: token" in buf:
+                    first_at = time.monotonic() - t0
+                    live = sum(len(e.scheduler.active_slots)
+                               for e in engines)
+            done_at = time.monotonic() - t0
+            sock.close()
+            tokens, done = [], None
+            for block in buf.split(b"\n\n"):
+                if b"event: token" in block:
+                    tokens.append(json.loads(block.split(b"data: ", 1)[1]))
+                elif b"event: done" in block:
+                    done = json.loads(block.split(b"data: ", 1)[1])
+            if not buf.startswith(b"HTTP/1.1 200") or done is None:
+                fail(f"{tag}: stream {j}: {buf[:300]!r}")
+            if [t["t"] for t in tokens] != want[j] or done["tokens"] != \
+                    want[j]:
+                fail(f"{tag}: stream {j} streamed {[t['t'] for t in tokens]}"
+                     f", done {done['tokens']}, (a) {want[j]}")
+            if not live:
+                fail(f"{tag}: stream {j}'s first event came after its "
+                     "request left its slot")
+            out.append({"first_event_s": first_at, "done_s": done_at})
+    finally:
+        door.shutdown()
+    launches = read_launches()
+    log(f"  {tag}: {P20_STREAMS} streams of {P20_NEW} token events, first "
+        f"event at {[round(o['first_event_s'] * 1e3, 3) for o in out]} ms, "
+        f"done at {[round(o['done_s'] * 1e3, 3) for o in out]} ms; launches "
+        f"{launches} ({card})")
+    return {"card": card, "streams": out}, launches
+
+
+def p20_brownout(model, vocab, seed, card):
+    """(c) between the thresholds sheddable requests are clamped to
+    brownout_max_new_tokens and the engines stop registering prefixes
+    while their hits go on. The router's periodic refresh is off, so the
+    band holds from the submit that enters it to the explicit refresh
+    that leaves it."""
+    from deepspeed_tpu_torch.serving import FleetRouter, InProcessReplica
+
+    tag = "phase 20(c) brownout"
+    g = torch.Generator().manual_seed(seed + 201)
+    template = random_tokens(g, 48, vocab)
+    fresh = random_tokens(g, 48, vocab)
+    factory = p20_factory(model, "bf16", max_batch_slots=2, queue_depth=8)
+    router = FleetRouter(
+        [InProcessReplica(str(i), factory) for i in range(P20_REPLICAS)],
+        placement="prefix_affinity", affinity_prefix_tokens=P20_AFFINITY,
+        shed_queue_ratio=0.9,
+        brownout_queue_ratio=P20_BROWNOUT["queue_ratio"],
+        brownout_max_new_tokens=P20_BROWNOUT["max_new_tokens"],
+        telemetry_refresh_secs=3600.0).start()
+    try:
+        engines = p20_engines(router)
+
+        def counts():
+            snaps = [e.metrics.snapshot() for e in engines]
+            return (sum(s["infer/prefix_hits"] for s in snaps),
+                    sum(s["infer/prefix_misses"] for s in snaps),
+                    sum(len(e.block_pool._registry) for e in engines))
+
+        router.submit(template + random_tokens(g, 7, vocab),
+                      max_new_tokens=4).result(300.0)
+        before = counts()
+        zero_launches()
+        # 8 long requests with prompts under a page (nothing to register
+        # at prefill) fill the 4 slots and queue 4: fill 4/16 = 0.25
+        load = [router.submit(random_tokens(g, 8, vocab),
+                              max_new_tokens=P20_LOAD_NEW)
+                for _ in range(8)]
+        hit = router.submit(template + random_tokens(g, 9, vocab),
+                            priority=1, max_new_tokens=32)
+        cold = router.submit(fresh + random_tokens(g, 9, vocab),
+                             priority=1, max_new_tokens=32)
+        full = router.submit(random_tokens(g, 40, vocab), priority=0,
+                             max_new_tokens=8)
+        if not router.brownout:
+            fail(f"{tag}: the fleet did not enter brownout")
+        reqs = load + [hit, cold, full]
+        for r in reqs:
+            r.result(300.0)
+        torch.cuda.synchronize()
+        during = counts()
+        launches = read_launches()
+        if not router.brownout:
+            fail(f"{tag}: the fleet left brownout without a refresh")
+        clamped = [r.kwargs["max_new_tokens"] for r in (hit, cold, full)]
+        lengths = [len(r.tokens) for r in (hit, cold, full)]
+        if clamped != [4, 4, 8] or lengths != [4, 4, 8]:
+            fail(f"{tag}: budgets {clamped}, tokens {lengths}; expected the "
+                 "two priority-1 requests clamped to 4, priority 0 at 8")
+        if during[2] != before[2]:
+            fail(f"{tag}: {during[2] - before[2]} prefix pages registered "
+                 "under brownout")
+        if during[0] <= before[0]:
+            fail(f"{tag}: the template's hit was not served under brownout "
+                 f"(prefix hits {before[0]} -> {during[0]})")
+        router.refresh_telemetry()  # empty queues: leave the band
+        if router.brownout:
+            fail(f"{tag}: the fleet stayed in brownout with empty queues")
+        after_req = router.submit(fresh + random_tokens(g, 3, vocab),
+                                  priority=1, max_new_tokens=8)
+        after_req.result(300.0)
+        after = counts()
+        if len(after_req.tokens) != 8 or after[2] <= during[2] \
+                or after[1] <= during[1]:
+            fail(f"{tag}: after brownout the fresh template should miss and "
+                 f"register (counts {during} -> {after}, "
+                 f"{len(after_req.tokens)} tokens)")
+        snap = p20_clean(tag, router, reqs + [after_req])
+        if snap["fleet/requests_browned_out"] != 2:
+            fail(f"{tag}: fleet/requests_browned_out "
+                 f"{snap['fleet/requests_browned_out']}, expected 2")
+    finally:
+        router.shutdown()
+    stats = {"card": card, "hits_misses_registered_before": before,
+             "during": during, "after": after}
+    log(f"  {tag}: prefix hits, misses, registered pages {before} before, "
+        f"{during} under brownout, {after} after; budgets {clamped}; "
+        f"launches {launches} ({card})")
+    return stats, launches
+
+
+def p20_adapters(model, vocab, seed, card):
+    """(d) two replicas each load two synthetic rank-16 adapters; with
+    adapter affinity every adapter request lands on its holder, SGMV
+    launches 48 times a decode step, and the float32 tokens equal one
+    engine's with the same adapters."""
+    import deepspeed_tpu_torch
+
+    tag = "phase 20(d) multi-LoRA"
+    base = {k: v for k, v in model.state_dict().items()}
+    states = {n: synthetic_adapter(base, seed + 210 + i)
+              for i, n in enumerate(("a", "b", "c", "d"))}
+    extra = {"adapters": {"enabled": True, "rank": LORA_RANK,
+                          "pool_slots": LORA_POOL_SLOTS}}
+    g = torch.Generator().manual_seed(seed + 202)
+    prompts = [random_tokens(g, n, vocab) for n in (12, 40, 77, 25, 60, 33,
+                                                    90, 18)]
+    names = ["a", "c", "b", "d", None, "a", "d", None]
+    single = p20_factory(model, "fp32", extra)()
+    try:
+        for n, s in states.items():
+            single.load_adapter(n, adapter_state=s)
+        want, _ = run_batch(single, prompts, names, P20_NEW)
+    finally:
+        single.close()
+        del single
+    router = deepspeed_tpu_torch.init_fleet(
+        engine_factory=p20_factory(model, "fp32", extra),
+        config={"serving": {"replicas": P20_REPLICAS,
+                            "placement": "adapter_affinity"}})
+    try:
+        for rid, held in P20_ADAPTERS.items():
+            for n in held:
+                router.load_adapter(n, replica_ids=[rid],
+                                    adapter_state=states[n])
+        holder = {n: rid for rid, held in P20_ADAPTERS.items()
+                  for n in held}
+        zero_launches()
+        t0 = time.monotonic()
+        reqs = [router.submit(p, max_new_tokens=P20_NEW, adapter=n)
+                for p, n in zip(prompts, names)]
+        got = [r.result(300.0) for r in reqs]
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = read_launches()
+        st = p20_fleet_stats(router, wall)
+        for r, n in zip(reqs, names):
+            if n is not None and r.replica_id != holder[n]:
+                fail(f"{tag}: adapter {n} served by replica {r.replica_id}, "
+                     f"held by {holder[n]}")
+        same_tokens(tag, prompts, got, want, model, vocab)
+        p20_check_launches(tag, launches, st, sgmv=True)
+        p20_clean(tag, router, reqs)
+    finally:
+        router.shutdown()
+    log(f"  {tag}: adapters {P20_ADAPTERS} over 2 replicas, {len(reqs)} "
+        f"requests; launches {launches} ({card})")
+    return {"card": card, "wall_s": wall, **st}, launches
+
+
+def p20_checkpoint(model, root):
+    """The fleet's weights through the port's checkpoint: a CPU copy of
+    the model in a training engine (SGD, nothing trained) saves them."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
+
+    cpu = GPT2LMHeadModel(GPT2Config.small(dropout=0.0), device="cpu")
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=cpu,
+        model_parameters={k: v.cpu() for k, v in model.state_dict().items()},
+        config_params={"train_batch_size": 1,
+                       "optimizer": {"type": "SGD", "params": {"lr": 0.0}}},
+        device="cpu")
+    engine.save_checkpoint(str(root))
+
+
+def p20_worker(model, prompts, want, serial_ms, card, root):
+    """(e) the subprocess backend: one worker process builds GPT-2 small
+    on the card from the checkpoint and serves (a)'s first prompts (after
+    one untimed request); its float32 tokens equal (a)'s, and shutdown
+    reaps it. The worker's launches, which it logs at exit, equal its
+    engine's counts over its life, read from the worker before shutdown:
+    the flash forward 12 a cold prefill, paged decode 12 a decode step.
+    The worker's stderr (its log) goes to a file, printed on failure.
+    Returns (stats, the worker's launches)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.telemetry.registry import wire_scalars
+
+    tag = "phase 20(e) subprocess worker"
+    t0 = time.monotonic()
+    p20_checkpoint(model, root / "ckpt")
+    save_s = time.monotonic() - t0
+    spec = {"model": {}, "config": {"inference": dict(
+        p20_block("fp32"), checkpoint={"load_dir": str(root / "ckpt")})}}
+    log_path = root / "worker.log"
+    saved = os.dup(2)
+    with open(log_path, "w") as f:
+        os.dup2(f.fileno(), 2)
+        try:
+            t0 = time.monotonic()
+            router = deepspeed_tpu_torch.init_fleet(
+                worker_spec=spec,
+                config={"serving": {"backend": "subprocess",
+                                    "replicas": 1}})
+            start_s = time.monotonic() - t0
+        except Exception as e:
+            os.dup2(saved, 2)
+            log(log_path.read_text()[-4000:])
+            fail(f"{tag}: the worker did not start: {e!r}")
+        finally:
+            os.dup2(saved, 2)
+            os.close(saved)
+    replica = router._replicas["0"]
+    proc = replica._proc
+    try:
+        # the worker's first request pays its process's first launches
+        # (in process, (a) paid them): not timed
+        warm = router.submit(prompts[P20_SERIAL], max_new_tokens=P20_NEW)
+        if warm.result(300.0) != want[P20_SERIAL]:
+            log(log_path.read_text()[-4000:])
+            fail(f"{tag}: the warm-up request's tokens differ from (a)'s")
+        ms, reqs = p20_serial_ms(router, prompts[:P20_SERIAL])
+        got = [r.tokens for r in reqs]
+        reqs_ok = got == want[:P20_SERIAL]
+        snap = p20_clean(tag, router, reqs)
+        counts = wire_scalars(
+            replica._call({"op": "metrics_snapshot"})["metrics"])
+    finally:
+        router.shutdown()
+    text = log_path.read_text()
+    if proc.poll() is None:
+        fail(f"{tag}: the worker process was not reaped")
+    if not reqs_ok:
+        log(text[-4000:])
+        fail(f"{tag}: tokens {got} differ from (a)'s {want[:P20_SERIAL]}")
+    if "dtype fp32 on cuda" not in text:
+        log(text[-4000:])
+        fail(f"{tag}: the worker's engine did not report serving on cuda")
+    mark = "worker: kernel launches "
+    lines = [ln for ln in text.splitlines() if ln.startswith(mark)]
+    if len(lines) != 1:
+        log(text[-4000:])
+        fail(f"{tag}: the worker logged {len(lines)} launch lines")
+    launches = json.loads(lines[0][len(mark):])
+    st = {"cold_prefills": int(counts["infer/prefix_misses"]),
+          "decode_steps": int(counts["infer/token_latency_ms/count"])}
+    p20_check_launches(tag, launches, st)
+    stats = {"card": card, "checkpoint_save_s": save_s,
+             "worker_start_s": start_s, "ms_a_request": ms,
+             "in_process_ms_a_request": serial_ms,
+             "requests_completed": snap["fleet/requests_completed"],
+             "launches": launches, **st}
+    log(f"  {tag}: checkpoint saved in {save_s:.2f} s, worker ready in "
+        f"{start_s:.2f} s; {ms:.3f} ms a request one at a time, against "
+        f"{serial_ms:.3f} ms in process ({card}); the worker's launches "
+        f"over its life {launches}, its engine's cold prefills "
+        f"{st['cold_prefills']}, decode steps {st['decode_steps']}")
+    return stats, launches
+
+
+def p20_check_kernels(seed):
+    """Each kernel of phase 20's paths against its plain version at the
+    shapes the fleet's engines give it, float32 and bf16: the flash
+    forward at the cold prefill's [1, 12, P20_PREFILL, 64] (causal, no
+    mask, as the engine calls it; and with the prompt's padding keys
+    masked), paged decode at INF_SLOTS slots over P20_MAX_SEQ / 16 pages
+    a slot, and SGMV (its delta and the epilogue form decode runs) at
+    rank 16 over 4 adapters on each target. Returns the max errors."""
+    from deepspeed_tpu_torch.ops import attention as A
+    from deepspeed_tpu_torch.ops.decode_attention import (
+        lora_sgmv,
+        lora_sgmv_plain,
+        paged_flash_decode,
+        paged_flash_decode_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 20)
+    shape = (1, 12, P20_PREFILL, 64)
+    padded = torch.ones(1, P20_PREFILL, dtype=torch.int32, device="cuda")
+    padded[0, 77:] = 0
+    page, heads = 16, 12
+    mb = P20_MAX_SEQ // page
+    pages = INF_SLOTS * mb + 1
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        q, k, v = (torch.randn(shape, device="cuda", generator=gen).to(dtype)
+                   for _ in range(3))
+        for case, mask in (("causal", None), ("causal+padding", padded)):
+            args = (q, k, v, mask, True)
+            key = f"flash_fwd {name}"
+            errs[key] = max(errs.get(key, 0.0), check_close(
+                f"phase 20 flash_fwd {case} {name} {list(shape)}",
+                A.flash_fwd(*args)[0], A.flash_fwd_plain(*args)[0], dtype))
+        qd = torch.randn(INF_SLOTS, heads, 64, device="cuda",
+                         generator=gen).to(dtype)
+        kp, vp = (torch.randn(pages, page, heads, 64, device="cuda",
+                              generator=gen).to(dtype) for _ in range(2))
+        tables = (torch.randperm(pages - 1, device="cuda", generator=gen)
+                  + 1).reshape(INF_SLOTS, mb).to(torch.int32)
+        positions = torch.tensor([0, 15, 16, 40, 129, 256, 400,
+                                  P20_MAX_SEQ - 1][:INF_SLOTS],
+                                 dtype=torch.int32, device="cuda")
+        errs[f"paged_decode {name}"] = check_close(
+            f"phase 20 paged_decode {name} [{INF_SLOTS}, {heads}, 64] over "
+            f"{mb} pages a slot",
+            paged_flash_decode(qd, kp, vp, tables, positions),
+            paged_flash_decode_plain(qd, kp, vp, tables, positions), dtype)
+        for target, (din, dout) in LORA_SHAPES.items():
+            x, a_pool, b_pool, ids = sgmv_case("cuda", gen, dtype, din, dout,
+                                               INF_SLOTS)
+            tag = f"phase 20 sgmv {target} {name} in {din} out {dout}"
+            delta = lora_sgmv(x, a_pool, b_pool, ids)
+            key = f"sgmv {name}"
+            errs[key] = max(errs.get(key, 0.0), check_close(
+                tag, delta, lora_sgmv_plain(x, a_pool, b_pool, ids), dtype,
+                scaled=dtype != torch.float32),
+                check_sgmv_add(tag, x, a_pool, b_pool, ids, delta))
+    return errs
+
+
+def phase_fleet(seed, card):
+    """Phase 20. Returns ({kernel: {path: launches}}, stats)."""
+    from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
+
+    t_phase = time.monotonic()
+    root = Path("build") / "phase20"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    cfg = GPT2Config.small()
+    model = GPT2LMHeadModel(cfg, device="cuda", seed=seed)
+    model.requires_grad_(False)
+    vocab = cfg.vocab_size
+    prompts = p20_prompts(seed, vocab)
+    launches = {name: {} for name in launch_counters()}
+    stats = {"card": card}
+
+    def keep(path, got):
+        for name, n in got.items():
+            if n:
+                launches[name][path] = n
+
+    log(f"phase 20: the serving fleet, GPT-2 small ({cfg.n_layer} x "
+        f"{cfg.n_embd}, vocab {cfg.vocab_padded}), {P20_REPLICAS} in-process "
+        "replicas")
+    router, stats["a_bf16"], got, _ = p20_fleet(model, "bf16", prompts,
+                                                vocab, card)
+    router.shutdown()
+    keep("p20a_bf16", got)
+    router, stats["a_fp32"], got, want = p20_fleet(model, "fp32", prompts,
+                                                   vocab, card)
+    keep("p20a_fp32", got)
+    try:
+        serial_ms, _ = p20_serial_ms(router, prompts[:P20_SERIAL])
+        stats["f"], got = p20_door(router, prompts, want, card)
+        keep("p20f_door", got)
+        stats["b"], got = p20_restart(router, prompts, want, model,
+                                      vocab, card)
+        keep("p20b_restart", got)
+    finally:
+        router.shutdown()
+    stats["c"], got = p20_brownout(model, vocab, seed, card)
+    keep("p20c_brownout", got)
+    stats["d"], got = p20_adapters(model, vocab, seed, card)
+    keep("p20d_adapters", got)
+    stats["e"], got = p20_worker(model, prompts, want, serial_ms, card,
+                                 root)
+    keep("p20e_worker", got)
+    stats["kernels_vs_plain"] = p20_check_kernels(seed)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    stats["wall_s"] = time.monotonic() - t_phase
+    log(f"phase 20: {stats['wall_s']:.1f} s ({card})")
+    return launches, stats
+
+
 def only_flash(device, seed):
     """``--only-flash``: the flash kernels built alone (ptxas's registers
     and spills printed) and timed as time_flash times them (bf16, causal,
@@ -8134,6 +8888,11 @@ def main():
                         "(int8 moments and compensated masters at sp 2 on "
                         "two ranks of the card; the flash tile autotuner "
                         "and the forward's tile forms)")
+    parser.add_argument("--only-phase20", action="store_true",
+                        help="build every kernel and run phase 20 alone "
+                        "(the serving fleet on one host: in-process and "
+                        "subprocess replicas, rolling restart, brownout, "
+                        "multi-LoRA and the HTTP door)")
     parser.add_argument("--phase14-rank", metavar="SPEC",
                         help=argparse.SUPPRESS)
     parser.add_argument("--phase19-rank", metavar="SPEC",
@@ -8270,6 +9029,13 @@ def main():
                           "card": smi}))
         return
 
+    if args.only_phase20:
+        kernel_lib.build()
+        launches, stats = phase_fleet(args.seed, smi)
+        print(json.dumps({"phase20": stats, "launches": launches,
+                          "card": smi}))
+        return
+
     if args.only_phase13:
         kernel_lib.build()
         launches, stats = phase_inference_rest(args.seed, smi)
@@ -8314,6 +9080,7 @@ def main():
     moe_launches, moe_stats = phase_moe_and_pipeline(args.seed, smi)
     a7f_launches, a7f_stats = phase_parallel_lifted_and_autotune(args.seed,
                                                                  smi)
+    fleet_launches, fleet_stats = phase_fleet(args.seed, smi)
     for path, counts in [("serve", serve_launches),
                          *adapter_launches.items(), *hd_launches.items(),
                          *tel_launches.items(), *res_launches.items(),
@@ -8335,6 +9102,8 @@ def main():
     for name, by_path in moe_launches.items():
         launches[name].update(by_path)
     for name, by_path in a7f_launches.items():
+        launches[name].update(by_path)
+    for name, by_path in fleet_launches.items():
         launches[name].update(by_path)
     for name, by_path in launches.items():
         kernels[name]["launches"] = sum(by_path.values())
@@ -8413,6 +9182,7 @@ def main():
                     "serve_mp_and_sequence": sp_stats,
                     "moe_and_pipeline": moe_stats,
                     "parallel_lifted_and_autotune": a7f_stats,
+                    "fleet": fleet_stats,
                     "head_dims": {k: v for k, v in hd_stats.items()
                                   if k not in ("flash", "flash_wide",
                                                "flash_d128",

@@ -34,7 +34,10 @@ other ranks follow its plans); a sequence axis above 1 trains GPT-2 with
 ring or Ulysses attention over the sequence (``parallel/sequence.py``).
 A script parses the launcher's
 ``--deepspeed``/``--deepspeed_config`` with :func:`add_config_arguments`
-and hands the result to ``initialize(args=...)``. The package imports
+and hands the result to ``initialize(args=...)``. :func:`init_fleet`
+puts a fleet router (``serving/``) in front of several serving engines,
+in this process or one worker process each, with an HTTP door
+(``serving.serve_http``) before it. The package imports
 ``torch`` and never ``jax`` or ``deepspeed_tpu``.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``,
@@ -143,6 +146,35 @@ def add_config_arguments(parser):
     return _add_core_arguments(parser)
 
 
+def init_fleet(
+    engine_factory=None,
+    worker_spec=None,
+    nodes=None,
+    config=None,
+    registry=None,
+    start=True,
+):
+    """Build a multi-replica serving fleet (serving/, docs/serving.md): a
+    ``FleetRouter`` spreading requests over N inference-engine replicas
+    with per-tenant rate limits, pluggable placement (least-loaded /
+    round-robin / prefix-affinity / adapter-affinity), circuit breakers,
+    brownout and rolling-restart lifecycle. Pass ``engine_factory``
+    (in-process replicas) or ``worker_spec`` (one engine per worker
+    subprocess); the ``"serving"`` config block sizes the fleet. The
+    socket backend (``nodes``) is ROADMAP A8b and raises. Put an HTTP
+    door in front of the router with ``serving.serve_http``."""
+    from .serving import init_fleet as _init_fleet
+
+    return _init_fleet(
+        engine_factory=engine_factory,
+        worker_spec=worker_spec,
+        nodes=nodes,
+        config=config,
+        registry=registry,
+        start=start,
+    )
+
+
 __all__ = [
     "adapters",
     "adapters_from_jax",
@@ -163,6 +195,7 @@ __all__ = [
     "GPT2LMHeadModel",
     "InferenceEngine",
     "init_distributed",
+    "init_fleet",
     "init_inference",
     "initialize",
     "Adam",

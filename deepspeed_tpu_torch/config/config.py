@@ -8,8 +8,10 @@ The ``inference`` block, the ``adapters`` block, the training blocks
 ``steps_per_print``, ``data_types``), the observability blocks
 (``tensorboard``, ``wall_clock_breakdown``, ``memory_breakdown``,
 ``telemetry`` with its ``tracing`` sub-block), the ``resilience`` block
-(with its ``fault_injection`` and ``supervisor`` sub-blocks) and the
-``data_pipeline`` and ``compile_cache`` blocks of the JAX package's
+(with its ``fault_injection`` and ``supervisor`` sub-blocks), the
+``data_pipeline`` and ``compile_cache`` blocks and the fleet's
+``serving`` block (every key, the parts that come with ROADMAP A8b
+included) of the JAX package's
 DeepSpeedConfig (deepspeed_tpu/config/config.py), with the same keys,
 defaults and rejections, error text included: a config the JAX package
 refuses, this one refuses too. The batch triangle is resolved only for a training
@@ -77,6 +79,7 @@ class DeepSpeedConfig:
         self._check_data_pipeline()
         self._check_inference()
         self._check_adapters()
+        self._check_serving()
         self._do_warning_check()
 
     def _initialize(self, pd):
@@ -104,6 +107,7 @@ class DeepSpeedConfig:
         self._initialize_observability(pd)
         self._initialize_resilience(pd)
         self._initialize_data_pipeline(pd)
+        self._initialize_serving(pd)
 
         # inference block (docs/inference.md)
         inf_dict = get_dict_param(pd, C.INFERENCE)
@@ -229,6 +233,303 @@ class DeepSpeedConfig:
         self.inference_checkpoint_tag = get_scalar_param(
             ckpt_dict, C.INFERENCE_CHECKPOINT_TAG,
             C.INFERENCE_CHECKPOINT_TAG_DEFAULT,
+        )
+
+    def _initialize_serving(self, pd):
+        """The ``serving`` block (serving/, docs/serving.md), as the JAX
+        parser reads it: every key, the networked fleet's, the
+        journal's, the autoscaler's, the hub's and the provisioner's
+        included, so that a config validates alike in both packages."""
+        srv_dict = get_dict_param(pd, C.SERVING)
+        self.serving_replicas = get_scalar_param(
+            srv_dict, C.SERVING_REPLICAS, C.SERVING_REPLICAS_DEFAULT
+        )
+        self.serving_backend = get_scalar_param(
+            srv_dict, C.SERVING_BACKEND, C.SERVING_BACKEND_DEFAULT
+        )
+        self.serving_placement = get_scalar_param(
+            srv_dict, C.SERVING_PLACEMENT, C.SERVING_PLACEMENT_DEFAULT
+        )
+        self.serving_affinity_prefix_tokens = get_scalar_param(
+            srv_dict, C.SERVING_AFFINITY_PREFIX_TOKENS,
+            C.SERVING_AFFINITY_PREFIX_TOKENS_DEFAULT,
+        )
+        self.serving_capacity_floor = get_scalar_param(
+            srv_dict, C.SERVING_CAPACITY_FLOOR,
+            C.SERVING_CAPACITY_FLOOR_DEFAULT,
+        )
+        self.serving_shed_queue_ratio = get_scalar_param(
+            srv_dict, C.SERVING_SHED_QUEUE_RATIO,
+            C.SERVING_SHED_QUEUE_RATIO_DEFAULT,
+        )
+        self.serving_max_reroutes = get_scalar_param(
+            srv_dict, C.SERVING_MAX_REROUTES, C.SERVING_MAX_REROUTES_DEFAULT
+        )
+        self.serving_drain_on_preemption = get_scalar_param(
+            srv_dict, C.SERVING_DRAIN_ON_PREEMPTION,
+            C.SERVING_DRAIN_ON_PREEMPTION_DEFAULT,
+        )
+        rl_dict = get_dict_param(srv_dict, C.SERVING_RATE_LIMIT)
+        self.serving_rate_limit_rps = get_scalar_param(
+            rl_dict, C.SERVING_RATE_LIMIT_RPS, C.SERVING_RATE_LIMIT_RPS_DEFAULT
+        )
+        self.serving_rate_limit_burst = get_scalar_param(
+            rl_dict, C.SERVING_RATE_LIMIT_BURST,
+            C.SERVING_RATE_LIMIT_BURST_DEFAULT,
+        )
+        per_tenant = rl_dict.get(
+            C.SERVING_RATE_LIMIT_PER_TENANT,
+            C.SERVING_RATE_LIMIT_PER_TENANT_DEFAULT,
+        )
+        # keep non-dict values for _check_serving to reject loudly
+        self.serving_rate_limit_per_tenant = (
+            dict(per_tenant) if isinstance(per_tenant, dict)
+            else {} if per_tenant is None else per_tenant
+        )
+        self.serving_rpc_timeout_secs = get_scalar_param(
+            srv_dict, C.SERVING_RPC_TIMEOUT_SECS,
+            C.SERVING_RPC_TIMEOUT_SECS_DEFAULT,
+        )
+        self.serving_rpc_retries = get_scalar_param(
+            srv_dict, C.SERVING_RPC_RETRIES, C.SERVING_RPC_RETRIES_DEFAULT
+        )
+        self.serving_rpc_backoff_secs = get_scalar_param(
+            srv_dict, C.SERVING_RPC_BACKOFF_SECS,
+            C.SERVING_RPC_BACKOFF_SECS_DEFAULT,
+        )
+        self.serving_zombie_secs = get_scalar_param(
+            srv_dict, C.SERVING_ZOMBIE_SECS, C.SERVING_ZOMBIE_SECS_DEFAULT
+        )
+        self.serving_zombie_restart_budget = get_scalar_param(
+            srv_dict, C.SERVING_ZOMBIE_RESTART_BUDGET,
+            C.SERVING_ZOMBIE_RESTART_BUDGET_DEFAULT,
+        )
+        cb_dict = get_dict_param(srv_dict, C.SERVING_CIRCUIT_BREAKER)
+        self.serving_cb_failure_threshold = get_scalar_param(
+            cb_dict, C.SERVING_CB_FAILURE_THRESHOLD,
+            C.SERVING_CB_FAILURE_THRESHOLD_DEFAULT,
+        )
+        self.serving_cb_backoff_secs = get_scalar_param(
+            cb_dict, C.SERVING_CB_BACKOFF_SECS,
+            C.SERVING_CB_BACKOFF_SECS_DEFAULT,
+        )
+        self.serving_cb_backoff_max_secs = get_scalar_param(
+            cb_dict, C.SERVING_CB_BACKOFF_MAX_SECS,
+            C.SERVING_CB_BACKOFF_MAX_SECS_DEFAULT,
+        )
+        bo_dict = get_dict_param(srv_dict, C.SERVING_BROWNOUT)
+        self.serving_brownout_queue_ratio = get_scalar_param(
+            bo_dict, C.SERVING_BROWNOUT_QUEUE_RATIO,
+            C.SERVING_BROWNOUT_QUEUE_RATIO_DEFAULT,
+        )
+        self.serving_brownout_max_new_tokens = get_scalar_param(
+            bo_dict, C.SERVING_BROWNOUT_MAX_NEW_TOKENS,
+            C.SERVING_BROWNOUT_MAX_NEW_TOKENS_DEFAULT,
+        )
+        sock_dict = get_dict_param(srv_dict, C.SERVING_SOCKET)
+        self.serving_socket_lease_secs = get_scalar_param(
+            sock_dict, C.SERVING_SOCKET_LEASE_SECS,
+            C.SERVING_SOCKET_LEASE_SECS_DEFAULT,
+        )
+        self.serving_socket_reconnect_attempts = get_scalar_param(
+            sock_dict, C.SERVING_SOCKET_RECONNECT_ATTEMPTS,
+            C.SERVING_SOCKET_RECONNECT_ATTEMPTS_DEFAULT,
+        )
+        self.serving_socket_reconnect_backoff_secs = get_scalar_param(
+            sock_dict, C.SERVING_SOCKET_RECONNECT_BACKOFF_SECS,
+            C.SERVING_SOCKET_RECONNECT_BACKOFF_SECS_DEFAULT,
+        )
+        self.serving_socket_connect_timeout_secs = get_scalar_param(
+            sock_dict, C.SERVING_SOCKET_CONNECT_TIMEOUT_SECS,
+            C.SERVING_SOCKET_CONNECT_TIMEOUT_SECS_DEFAULT,
+        )
+        self.serving_socket_connect_retries = get_scalar_param(
+            sock_dict, C.SERVING_SOCKET_CONNECT_RETRIES,
+            C.SERVING_SOCKET_CONNECT_RETRIES_DEFAULT,
+        )
+        http_dict = get_dict_param(srv_dict, C.SERVING_HTTP)
+        self.serving_http_host = get_scalar_param(
+            http_dict, C.SERVING_HTTP_HOST, C.SERVING_HTTP_HOST_DEFAULT
+        )
+        self.serving_http_port = get_scalar_param(
+            http_dict, C.SERVING_HTTP_PORT, C.SERVING_HTTP_PORT_DEFAULT
+        )
+        self.serving_http_max_buffer_bytes = get_scalar_param(
+            http_dict, C.SERVING_HTTP_MAX_BUFFER_BYTES,
+            C.SERVING_HTTP_MAX_BUFFER_BYTES_DEFAULT,
+        )
+        self.serving_http_overrun_policy = get_scalar_param(
+            http_dict, C.SERVING_HTTP_OVERRUN_POLICY,
+            C.SERVING_HTTP_OVERRUN_POLICY_DEFAULT,
+        )
+        # the bearer secret is held on an underscored attribute so
+        # config.print's attribute walk (which skips "_" names) can
+        # never log it; readers go through the property below
+        self._serving_http_auth_token = get_scalar_param(
+            http_dict, C.SERVING_HTTP_AUTH_TOKEN,
+            C.SERVING_HTTP_AUTH_TOKEN_DEFAULT,
+        )
+        slo_dict = get_dict_param(srv_dict, C.SERVING_SLO)
+        self.serving_slo_ttft_p99_ms = get_scalar_param(
+            slo_dict, C.SERVING_SLO_TTFT_P99_MS,
+            C.SERVING_SLO_TTFT_P99_MS_DEFAULT,
+        )
+        self.serving_slo_token_p99_ms = get_scalar_param(
+            slo_dict, C.SERVING_SLO_TOKEN_P99_MS,
+            C.SERVING_SLO_TOKEN_P99_MS_DEFAULT,
+        )
+        self.serving_slo_eval_window_secs = get_scalar_param(
+            slo_dict, C.SERVING_SLO_EVAL_WINDOW_SECS,
+            C.SERVING_SLO_EVAL_WINDOW_SECS_DEFAULT,
+        )
+        asc_dict = get_dict_param(srv_dict, C.SERVING_AUTOSCALE)
+        self.serving_autoscale_enabled = get_scalar_param(
+            asc_dict, C.SERVING_AUTOSCALE_ENABLED,
+            C.SERVING_AUTOSCALE_ENABLED_DEFAULT,
+        )
+        self.serving_autoscale_min_replicas = get_scalar_param(
+            asc_dict, C.SERVING_AUTOSCALE_MIN_REPLICAS,
+            C.SERVING_AUTOSCALE_MIN_REPLICAS_DEFAULT,
+        )
+        self.serving_autoscale_max_replicas = get_scalar_param(
+            asc_dict, C.SERVING_AUTOSCALE_MAX_REPLICAS,
+            C.SERVING_AUTOSCALE_MAX_REPLICAS_DEFAULT,
+        )
+        self.serving_autoscale_cooldown_secs = get_scalar_param(
+            asc_dict, C.SERVING_AUTOSCALE_COOLDOWN_SECS,
+            C.SERVING_AUTOSCALE_COOLDOWN_SECS_DEFAULT,
+        )
+        self.serving_autoscale_hysteresis_secs = get_scalar_param(
+            asc_dict, C.SERVING_AUTOSCALE_HYSTERESIS_SECS,
+            C.SERVING_AUTOSCALE_HYSTERESIS_SECS_DEFAULT,
+        )
+        self.serving_autoscale_flap_budget = get_scalar_param(
+            asc_dict, C.SERVING_AUTOSCALE_FLAP_BUDGET,
+            C.SERVING_AUTOSCALE_FLAP_BUDGET_DEFAULT,
+        )
+        self.serving_autoscale_flap_window_secs = get_scalar_param(
+            asc_dict, C.SERVING_AUTOSCALE_FLAP_WINDOW_SECS,
+            C.SERVING_AUTOSCALE_FLAP_WINDOW_SECS_DEFAULT,
+        )
+        self.serving_autoscale_up_utilization = get_scalar_param(
+            asc_dict, C.SERVING_AUTOSCALE_UP_UTILIZATION,
+            C.SERVING_AUTOSCALE_UP_UTILIZATION_DEFAULT,
+        )
+        self.serving_autoscale_down_utilization = get_scalar_param(
+            asc_dict, C.SERVING_AUTOSCALE_DOWN_UTILIZATION,
+            C.SERVING_AUTOSCALE_DOWN_UTILIZATION_DEFAULT,
+        )
+        self.serving_autoscale_interval_secs = get_scalar_param(
+            asc_dict, C.SERVING_AUTOSCALE_INTERVAL_SECS,
+            C.SERVING_AUTOSCALE_INTERVAL_SECS_DEFAULT,
+        )
+        self.serving_autoscale_drain_timeout_secs = get_scalar_param(
+            asc_dict, C.SERVING_AUTOSCALE_DRAIN_TIMEOUT_SECS,
+            C.SERVING_AUTOSCALE_DRAIN_TIMEOUT_SECS_DEFAULT,
+        )
+        hub_dict = get_dict_param(srv_dict, C.SERVING_HUB)
+        self.serving_hub_enabled = get_scalar_param(
+            hub_dict, C.SERVING_HUB_ENABLED,
+            C.SERVING_HUB_ENABLED_DEFAULT,
+        )
+        self.serving_hub_interval_secs = get_scalar_param(
+            hub_dict, C.SERVING_HUB_INTERVAL_SECS,
+            C.SERVING_HUB_INTERVAL_SECS_DEFAULT,
+        )
+        self.serving_hub_retention_points = get_scalar_param(
+            hub_dict, C.SERVING_HUB_RETENTION_POINTS,
+            C.SERVING_HUB_RETENTION_POINTS_DEFAULT,
+        )
+        self.serving_hub_drain_interval_secs = get_scalar_param(
+            hub_dict, C.SERVING_HUB_DRAIN_INTERVAL_SECS,
+            C.SERVING_HUB_DRAIN_INTERVAL_SECS_DEFAULT,
+        )
+        self.serving_hub_op_timeout_secs = get_scalar_param(
+            hub_dict, C.SERVING_HUB_OP_TIMEOUT_SECS,
+            C.SERVING_HUB_OP_TIMEOUT_SECS_DEFAULT,
+        )
+        self.serving_hub_node_backoff_secs = get_scalar_param(
+            hub_dict, C.SERVING_HUB_NODE_BACKOFF_SECS,
+            C.SERVING_HUB_NODE_BACKOFF_SECS_DEFAULT,
+        )
+        self.serving_hub_auth_exempt = tuple(get_scalar_param(
+            hub_dict, C.SERVING_HUB_AUTH_EXEMPT,
+            C.SERVING_HUB_AUTH_EXEMPT_DEFAULT,
+        ) or ())
+        hub_alerts = get_dict_param(hub_dict, C.SERVING_HUB_ALERTS)
+        self.serving_hub_alerts_slo_target = get_scalar_param(
+            hub_alerts, C.SERVING_HUB_ALERTS_SLO_TARGET,
+            C.SERVING_HUB_ALERTS_SLO_TARGET_DEFAULT,
+        )
+        self.serving_hub_alerts_fast_window_secs = get_scalar_param(
+            hub_alerts, C.SERVING_HUB_ALERTS_FAST_WINDOW_SECS,
+            C.SERVING_HUB_ALERTS_FAST_WINDOW_SECS_DEFAULT,
+        )
+        self.serving_hub_alerts_slow_window_secs = get_scalar_param(
+            hub_alerts, C.SERVING_HUB_ALERTS_SLOW_WINDOW_SECS,
+            C.SERVING_HUB_ALERTS_SLOW_WINDOW_SECS_DEFAULT,
+        )
+        self.serving_hub_alerts_fast_burn = get_scalar_param(
+            hub_alerts, C.SERVING_HUB_ALERTS_FAST_BURN,
+            C.SERVING_HUB_ALERTS_FAST_BURN_DEFAULT,
+        )
+        self.serving_hub_alerts_slow_burn = get_scalar_param(
+            hub_alerts, C.SERVING_HUB_ALERTS_SLOW_BURN,
+            C.SERVING_HUB_ALERTS_SLOW_BURN_DEFAULT,
+        )
+        self.serving_hub_alerts_breaker_flood = get_scalar_param(
+            hub_alerts, C.SERVING_HUB_ALERTS_BREAKER_FLOOD,
+            C.SERVING_HUB_ALERTS_BREAKER_FLOOD_DEFAULT,
+        )
+        self.serving_hub_alerts_suppressed_growth = get_scalar_param(
+            hub_alerts, C.SERVING_HUB_ALERTS_SUPPRESSED_GROWTH,
+            C.SERVING_HUB_ALERTS_SUPPRESSED_GROWTH_DEFAULT,
+        )
+        jrn_dict = get_dict_param(srv_dict, C.SERVING_JOURNAL)
+        self.serving_journal_enabled = get_scalar_param(
+            jrn_dict, C.SERVING_JOURNAL_ENABLED,
+            C.SERVING_JOURNAL_ENABLED_DEFAULT,
+        )
+        self.serving_journal_dir = get_scalar_param(
+            jrn_dict, C.SERVING_JOURNAL_DIR,
+            C.SERVING_JOURNAL_DIR_DEFAULT,
+        )
+        self.serving_journal_fsync = get_scalar_param(
+            jrn_dict, C.SERVING_JOURNAL_FSYNC,
+            C.SERVING_JOURNAL_FSYNC_DEFAULT,
+        )
+        self.serving_journal_keep_segments = get_scalar_param(
+            jrn_dict, C.SERVING_JOURNAL_KEEP_SEGMENTS,
+            C.SERVING_JOURNAL_KEEP_SEGMENTS_DEFAULT,
+        )
+        self.serving_journal_max_inflight = get_scalar_param(
+            jrn_dict, C.SERVING_JOURNAL_MAX_INFLIGHT,
+            C.SERVING_JOURNAL_MAX_INFLIGHT_DEFAULT,
+        )
+        prov_dict = get_dict_param(srv_dict, C.SERVING_PROVISIONER)
+        self.serving_provisioner_enabled = get_scalar_param(
+            prov_dict, C.SERVING_PROVISIONER_ENABLED,
+            C.SERVING_PROVISIONER_ENABLED_DEFAULT,
+        )
+        self.serving_provisioner_node_spec = get_scalar_param(
+            prov_dict, C.SERVING_PROVISIONER_NODE_SPEC,
+            C.SERVING_PROVISIONER_NODE_SPEC_DEFAULT,
+        )
+        self.serving_provisioner_max_nodes = get_scalar_param(
+            prov_dict, C.SERVING_PROVISIONER_MAX_NODES,
+            C.SERVING_PROVISIONER_MAX_NODES_DEFAULT,
+        )
+        self.serving_provisioner_max_replicas_per_node = get_scalar_param(
+            prov_dict, C.SERVING_PROVISIONER_MAX_REPLICAS_PER_NODE,
+            C.SERVING_PROVISIONER_MAX_REPLICAS_PER_NODE_DEFAULT,
+        )
+        self.serving_provisioner_launch_timeout_secs = get_scalar_param(
+            prov_dict, C.SERVING_PROVISIONER_LAUNCH_TIMEOUT_SECS,
+            C.SERVING_PROVISIONER_LAUNCH_TIMEOUT_SECS_DEFAULT,
+        )
+        self.serving_provisioner_terminate_grace_secs = get_scalar_param(
+            prov_dict, C.SERVING_PROVISIONER_TERMINATE_GRACE_SECS,
+            C.SERVING_PROVISIONER_TERMINATE_GRACE_SECS_DEFAULT,
         )
 
     def _initialize_resilience(self, pd):
@@ -1484,6 +1785,758 @@ class DeepSpeedConfig:
                 f"loadable adapters, got {slots!r}"
             )
 
+    def _check_serving(self):
+        """Validate the serving block (docs/serving.md): a typo'd backend
+        or a capacity floor no rolling restart can satisfy must fail at
+        init_fleet(), not mid-restart with live traffic on the fleet."""
+        replicas = self.serving_replicas
+        if (
+            not isinstance(replicas, int)
+            or isinstance(replicas, bool)
+            or replicas < 1
+        ):
+            raise DeepSpeedConfigError(
+                f"{C.SERVING}.{C.SERVING_REPLICAS} must be an integer >= 1, "
+                f"got {replicas!r}"
+            )
+        if self.serving_backend not in C.SERVING_VALID_BACKENDS:
+            raise DeepSpeedConfigError(
+                f"{C.SERVING}.{C.SERVING_BACKEND} must be one of "
+                f"{list(C.SERVING_VALID_BACKENDS)}, got "
+                f"{self.serving_backend!r}"
+            )
+        if self.serving_placement not in C.SERVING_VALID_PLACEMENTS:
+            raise DeepSpeedConfigError(
+                f"{C.SERVING}.{C.SERVING_PLACEMENT} must be one of "
+                f"{list(C.SERVING_VALID_PLACEMENTS)}, got "
+                f"{self.serving_placement!r}"
+            )
+        affinity = self.serving_affinity_prefix_tokens
+        if (
+            not isinstance(affinity, int)
+            or isinstance(affinity, bool)
+            or affinity < 1
+        ):
+            raise DeepSpeedConfigError(
+                f"{C.SERVING}.{C.SERVING_AFFINITY_PREFIX_TOKENS} must be an "
+                f"integer >= 1, got {affinity!r}"
+            )
+        floor = self.serving_capacity_floor
+        if (
+            not isinstance(floor, (int, float))
+            or isinstance(floor, bool)
+            or not 0 <= floor < 1
+        ):
+            raise DeepSpeedConfigError(
+                f"{C.SERVING}.{C.SERVING_CAPACITY_FLOOR} must be a number "
+                f"in [0, 1) — the fraction of replicas that must stay "
+                f"routable (< 1, or no replica could ever drain), got "
+                f"{floor!r}"
+            )
+        shed = self.serving_shed_queue_ratio
+        if (
+            not isinstance(shed, (int, float))
+            or isinstance(shed, bool)
+            or not 0 < shed <= 1
+        ):
+            raise DeepSpeedConfigError(
+                f"{C.SERVING}.{C.SERVING_SHED_QUEUE_RATIO} must be a number "
+                f"in (0, 1], got {shed!r}"
+            )
+        reroutes = self.serving_max_reroutes
+        if (
+            not isinstance(reroutes, int)
+            or isinstance(reroutes, bool)
+            or reroutes < 0
+        ):
+            raise DeepSpeedConfigError(
+                f"{C.SERVING}.{C.SERVING_MAX_REROUTES} must be an integer "
+                f">= 0 (0 = fail a request with its replica), got "
+                f"{reroutes!r}"
+            )
+        if not isinstance(self.serving_drain_on_preemption, bool):
+            raise DeepSpeedConfigError(
+                f"{C.SERVING}.{C.SERVING_DRAIN_ON_PREEMPTION} must be a "
+                f"boolean, got {self.serving_drain_on_preemption!r}"
+            )
+        rl = f"{C.SERVING}.{C.SERVING_RATE_LIMIT}"
+        rl_dict = get_dict_param(
+            get_dict_param(self._param_dict, C.SERVING), C.SERVING_RATE_LIMIT
+        )
+        unknown = set(rl_dict) - {
+            C.SERVING_RATE_LIMIT_RPS, C.SERVING_RATE_LIMIT_BURST,
+            C.SERVING_RATE_LIMIT_PER_TENANT,
+        }
+        if unknown:
+            # a typo'd requests_per_sec would otherwise mean "unlimited"
+            # in production — the exact silent misconfiguration this
+            # validator exists to catch
+            raise DeepSpeedConfigError(
+                f"{rl}: unknown keys {sorted(unknown)}; valid: "
+                f"['{C.SERVING_RATE_LIMIT_BURST}', "
+                f"'{C.SERVING_RATE_LIMIT_PER_TENANT}', "
+                f"'{C.SERVING_RATE_LIMIT_RPS}']"
+            )
+        if not isinstance(self.serving_rate_limit_per_tenant, dict):
+            raise DeepSpeedConfigError(
+                f"{rl}.{C.SERVING_RATE_LIMIT_PER_TENANT} must be an object "
+                f"mapping tenant -> limits, got "
+                f"{self.serving_rate_limit_per_tenant!r}"
+            )
+        limits = [(
+            f"{rl}", self.serving_rate_limit_rps,
+            self.serving_rate_limit_burst,
+        )]
+        for tenant, block in self.serving_rate_limit_per_tenant.items():
+            where = f"{rl}.{C.SERVING_RATE_LIMIT_PER_TENANT}.{tenant}"
+            if not isinstance(block, dict):
+                raise DeepSpeedConfigError(
+                    f"{where} must be an object, got {block!r}"
+                )
+            unknown = set(block) - {
+                C.SERVING_RATE_LIMIT_RPS, C.SERVING_RATE_LIMIT_BURST,
+            }
+            if unknown:
+                raise DeepSpeedConfigError(
+                    f"{where}: unknown keys {sorted(unknown)}; valid: "
+                    f"['{C.SERVING_RATE_LIMIT_BURST}', "
+                    f"'{C.SERVING_RATE_LIMIT_RPS}']"
+                )
+            limits.append((
+                where,
+                block.get(C.SERVING_RATE_LIMIT_RPS,
+                          self.serving_rate_limit_rps),
+                block.get(C.SERVING_RATE_LIMIT_BURST,
+                          self.serving_rate_limit_burst),
+            ))
+        for where, rps, burst in limits:
+            if rps is not None and (
+                not isinstance(rps, (int, float))
+                or isinstance(rps, bool)
+                or rps <= 0
+            ):
+                raise DeepSpeedConfigError(
+                    f"{where}.{C.SERVING_RATE_LIMIT_RPS} must be a number "
+                    f"> 0 or null (null = unlimited), got {rps!r}"
+                )
+            if (
+                not isinstance(burst, int)
+                or isinstance(burst, bool)
+                or burst < 1
+            ):
+                raise DeepSpeedConfigError(
+                    f"{where}.{C.SERVING_RATE_LIMIT_BURST} must be an "
+                    f"integer >= 1, got {burst!r}"
+                )
+        for key, value in (
+            (C.SERVING_RPC_TIMEOUT_SECS, self.serving_rpc_timeout_secs),
+            (C.SERVING_RPC_BACKOFF_SECS, self.serving_rpc_backoff_secs),
+        ):
+            if (
+                not isinstance(value, (int, float))
+                or isinstance(value, bool)
+                or value <= 0
+            ):
+                raise DeepSpeedConfigError(
+                    f"{C.SERVING}.{key} must be a number > 0, got {value!r}"
+                )
+        retries = self.serving_rpc_retries
+        if not isinstance(retries, int) or isinstance(retries, bool) or (
+            retries < 0
+        ):
+            raise DeepSpeedConfigError(
+                f"{C.SERVING}.{C.SERVING_RPC_RETRIES} must be an integer "
+                f">= 0 (0 = no retries), got {retries!r}"
+            )
+        zombie = self.serving_zombie_secs
+        if (
+            not isinstance(zombie, (int, float))
+            or isinstance(zombie, bool)
+            or zombie < 0
+        ):
+            raise DeepSpeedConfigError(
+                f"{C.SERVING}.{C.SERVING_ZOMBIE_SECS} must be a number "
+                f">= 0 (0 disables zombie detection), got {zombie!r}"
+            )
+        zbudget = self.serving_zombie_restart_budget
+        if not isinstance(zbudget, int) or isinstance(zbudget, bool) or (
+            zbudget < 0
+        ):
+            raise DeepSpeedConfigError(
+                f"{C.SERVING}.{C.SERVING_ZOMBIE_RESTART_BUDGET} must be "
+                f"an integer >= 0 (0 = evict on first zombie detection), "
+                f"got {zbudget!r}"
+            )
+        cb = f"{C.SERVING}.{C.SERVING_CIRCUIT_BREAKER}"
+        cb_dict = get_dict_param(
+            get_dict_param(self._param_dict, C.SERVING),
+            C.SERVING_CIRCUIT_BREAKER,
+        )
+        unknown = set(cb_dict) - {
+            C.SERVING_CB_FAILURE_THRESHOLD, C.SERVING_CB_BACKOFF_SECS,
+            C.SERVING_CB_BACKOFF_MAX_SECS,
+        }
+        if unknown:
+            raise DeepSpeedConfigError(
+                f"{cb}: unknown keys {sorted(unknown)}; valid: "
+                f"['{C.SERVING_CB_BACKOFF_MAX_SECS}', "
+                f"'{C.SERVING_CB_BACKOFF_SECS}', "
+                f"'{C.SERVING_CB_FAILURE_THRESHOLD}']"
+            )
+        threshold = self.serving_cb_failure_threshold
+        if not isinstance(threshold, int) or isinstance(threshold, bool) or (
+            threshold < 1
+        ):
+            raise DeepSpeedConfigError(
+                f"{cb}.{C.SERVING_CB_FAILURE_THRESHOLD} must be an "
+                f"integer >= 1, got {threshold!r}"
+            )
+        for key, value in (
+            (C.SERVING_CB_BACKOFF_SECS, self.serving_cb_backoff_secs),
+            (C.SERVING_CB_BACKOFF_MAX_SECS,
+             self.serving_cb_backoff_max_secs),
+        ):
+            if (
+                not isinstance(value, (int, float))
+                or isinstance(value, bool)
+                or value <= 0
+            ):
+                raise DeepSpeedConfigError(
+                    f"{cb}.{key} must be a number > 0, got {value!r}"
+                )
+        if self.serving_cb_backoff_max_secs < self.serving_cb_backoff_secs:
+            raise DeepSpeedConfigError(
+                f"{cb}.{C.SERVING_CB_BACKOFF_MAX_SECS} "
+                f"({self.serving_cb_backoff_max_secs!r}) must be >= "
+                f"{C.SERVING_CB_BACKOFF_SECS} "
+                f"({self.serving_cb_backoff_secs!r})"
+            )
+        bo = f"{C.SERVING}.{C.SERVING_BROWNOUT}"
+        bo_dict = get_dict_param(
+            get_dict_param(self._param_dict, C.SERVING), C.SERVING_BROWNOUT
+        )
+        unknown = set(bo_dict) - {
+            C.SERVING_BROWNOUT_QUEUE_RATIO,
+            C.SERVING_BROWNOUT_MAX_NEW_TOKENS,
+        }
+        if unknown:
+            # a typo'd queue_ratio would silently mean "brownout off"
+            raise DeepSpeedConfigError(
+                f"{bo}: unknown keys {sorted(unknown)}; valid: "
+                f"['{C.SERVING_BROWNOUT_MAX_NEW_TOKENS}', "
+                f"'{C.SERVING_BROWNOUT_QUEUE_RATIO}']"
+            )
+        ratio = self.serving_brownout_queue_ratio
+        if ratio is not None:
+            if (
+                not isinstance(ratio, (int, float))
+                or isinstance(ratio, bool)
+                or not 0 < ratio < 1
+            ):
+                raise DeepSpeedConfigError(
+                    f"{bo}.{C.SERVING_BROWNOUT_QUEUE_RATIO} must be a "
+                    f"number in (0, 1) or null (null = brownout off), "
+                    f"got {ratio!r}"
+                )
+            if ratio >= self.serving_shed_queue_ratio:
+                # the brownout band sits BELOW the shed cliff; an
+                # inverted pair would be a brownout that can never engage
+                # before rejection does
+                raise DeepSpeedConfigError(
+                    f"{bo}.{C.SERVING_BROWNOUT_QUEUE_RATIO} ({ratio!r}) "
+                    f"must be below {C.SERVING}."
+                    f"{C.SERVING_SHED_QUEUE_RATIO} "
+                    f"({self.serving_shed_queue_ratio!r}) — degradation "
+                    f"engages before the rejection cliff"
+                )
+        floor = self.serving_brownout_max_new_tokens
+        if not isinstance(floor, int) or isinstance(floor, bool) or (
+            floor < 1
+        ):
+            raise DeepSpeedConfigError(
+                f"{bo}.{C.SERVING_BROWNOUT_MAX_NEW_TOKENS} must be an "
+                f"integer >= 1, got {floor!r}"
+            )
+        sk = f"{C.SERVING}.{C.SERVING_SOCKET}"
+        sock_dict = get_dict_param(
+            get_dict_param(self._param_dict, C.SERVING), C.SERVING_SOCKET
+        )
+        valid_sock = {
+            C.SERVING_SOCKET_LEASE_SECS,
+            C.SERVING_SOCKET_RECONNECT_ATTEMPTS,
+            C.SERVING_SOCKET_RECONNECT_BACKOFF_SECS,
+            C.SERVING_SOCKET_CONNECT_TIMEOUT_SECS,
+            C.SERVING_SOCKET_CONNECT_RETRIES,
+        }
+        unknown = set(sock_dict) - valid_sock
+        if unknown:
+            # a typo'd lease_secs would silently mean "default lease"
+            raise DeepSpeedConfigError(
+                f"{sk}: unknown keys {sorted(unknown)}; valid: "
+                f"{sorted(valid_sock)}"
+            )
+        for key, value in (
+            (C.SERVING_SOCKET_LEASE_SECS, self.serving_socket_lease_secs),
+            (C.SERVING_SOCKET_RECONNECT_BACKOFF_SECS,
+             self.serving_socket_reconnect_backoff_secs),
+            (C.SERVING_SOCKET_CONNECT_TIMEOUT_SECS,
+             self.serving_socket_connect_timeout_secs),
+        ):
+            if (
+                not isinstance(value, (int, float))
+                or isinstance(value, bool)
+                or value <= 0
+            ):
+                raise DeepSpeedConfigError(
+                    f"{sk}.{key} must be a number > 0, got {value!r}"
+                )
+        for key, value, floor_v in (
+            (C.SERVING_SOCKET_RECONNECT_ATTEMPTS,
+             self.serving_socket_reconnect_attempts, 0),
+            (C.SERVING_SOCKET_CONNECT_RETRIES,
+             self.serving_socket_connect_retries, 1),
+        ):
+            if not isinstance(value, int) or isinstance(value, bool) or (
+                value < floor_v
+            ):
+                raise DeepSpeedConfigError(
+                    f"{sk}.{key} must be an integer >= {floor_v}, got "
+                    f"{value!r}"
+                )
+        ht = f"{C.SERVING}.{C.SERVING_HTTP}"
+        http_dict = get_dict_param(
+            get_dict_param(self._param_dict, C.SERVING), C.SERVING_HTTP
+        )
+        valid_http = {
+            C.SERVING_HTTP_HOST, C.SERVING_HTTP_PORT,
+            C.SERVING_HTTP_MAX_BUFFER_BYTES, C.SERVING_HTTP_OVERRUN_POLICY,
+            C.SERVING_HTTP_AUTH_TOKEN,
+        }
+        unknown = set(http_dict) - valid_http
+        if unknown:
+            raise DeepSpeedConfigError(
+                f"{ht}: unknown keys {sorted(unknown)}; valid: "
+                f"{sorted(valid_http)}"
+            )
+        if not isinstance(self.serving_http_host, str):
+            raise DeepSpeedConfigError(
+                f"{ht}.{C.SERVING_HTTP_HOST} must be a string, got "
+                f"{self.serving_http_host!r}"
+            )
+        port = self.serving_http_port
+        if not isinstance(port, int) or isinstance(port, bool) or (
+            not 0 <= port <= 65535
+        ):
+            raise DeepSpeedConfigError(
+                f"{ht}.{C.SERVING_HTTP_PORT} must be an integer in "
+                f"[0, 65535] (0 = ephemeral), got {port!r}"
+            )
+        buf = self.serving_http_max_buffer_bytes
+        if not isinstance(buf, int) or isinstance(buf, bool) or buf < 1024:
+            raise DeepSpeedConfigError(
+                f"{ht}.{C.SERVING_HTTP_MAX_BUFFER_BYTES} must be an "
+                f"integer >= 1024 (one SSE event must fit), got {buf!r}"
+            )
+        if (
+            self.serving_http_overrun_policy
+            not in C.SERVING_HTTP_VALID_OVERRUN_POLICIES
+        ):
+            raise DeepSpeedConfigError(
+                f"{ht}.{C.SERVING_HTTP_OVERRUN_POLICY} must be one of "
+                f"{C.SERVING_HTTP_VALID_OVERRUN_POLICIES}, got "
+                f"{self.serving_http_overrun_policy!r}"
+            )
+        token = self._serving_http_auth_token
+        if token is not None and (
+            not isinstance(token, str) or not token
+        ):
+            # the VALUE is deliberately absent from this message — a
+            # config error must not leak the secret into logs either
+            raise DeepSpeedConfigError(
+                f"{ht}.{C.SERVING_HTTP_AUTH_TOKEN} must be a non-empty "
+                f"string or null (null = open door)"
+            )
+        sl = f"{C.SERVING}.{C.SERVING_SLO}"
+        slo_dict = get_dict_param(
+            get_dict_param(self._param_dict, C.SERVING), C.SERVING_SLO
+        )
+        valid_slo = {
+            C.SERVING_SLO_TTFT_P99_MS, C.SERVING_SLO_TOKEN_P99_MS,
+            C.SERVING_SLO_EVAL_WINDOW_SECS,
+        }
+        unknown = set(slo_dict) - valid_slo
+        if unknown:
+            # a typo'd ttft_p99_ms would silently mean "no TTFT SLO"
+            raise DeepSpeedConfigError(
+                f"{sl}: unknown keys {sorted(unknown)}; valid: "
+                f"{sorted(valid_slo)}"
+            )
+        for key, value in (
+            (C.SERVING_SLO_TTFT_P99_MS, self.serving_slo_ttft_p99_ms),
+            (C.SERVING_SLO_TOKEN_P99_MS, self.serving_slo_token_p99_ms),
+        ):
+            if value is not None and (
+                not isinstance(value, (int, float))
+                or isinstance(value, bool)
+                or value <= 0
+            ):
+                raise DeepSpeedConfigError(
+                    f"{sl}.{key} must be a number > 0 or null (null = "
+                    f"no target on that axis), got {value!r}"
+                )
+        window = self.serving_slo_eval_window_secs
+        if (
+            not isinstance(window, (int, float))
+            or isinstance(window, bool)
+            or window <= 0
+        ):
+            raise DeepSpeedConfigError(
+                f"{sl}.{C.SERVING_SLO_EVAL_WINDOW_SECS} must be a number "
+                f"> 0, got {window!r}"
+            )
+        asc = f"{C.SERVING}.{C.SERVING_AUTOSCALE}"
+        asc_dict = get_dict_param(
+            get_dict_param(self._param_dict, C.SERVING), C.SERVING_AUTOSCALE
+        )
+        valid_asc = {
+            C.SERVING_AUTOSCALE_ENABLED, C.SERVING_AUTOSCALE_MIN_REPLICAS,
+            C.SERVING_AUTOSCALE_MAX_REPLICAS,
+            C.SERVING_AUTOSCALE_COOLDOWN_SECS,
+            C.SERVING_AUTOSCALE_HYSTERESIS_SECS,
+            C.SERVING_AUTOSCALE_FLAP_BUDGET,
+            C.SERVING_AUTOSCALE_FLAP_WINDOW_SECS,
+            C.SERVING_AUTOSCALE_UP_UTILIZATION,
+            C.SERVING_AUTOSCALE_DOWN_UTILIZATION,
+            C.SERVING_AUTOSCALE_INTERVAL_SECS,
+            C.SERVING_AUTOSCALE_DRAIN_TIMEOUT_SECS,
+        }
+        unknown = set(asc_dict) - valid_asc
+        if unknown:
+            # a typo'd max_replicas must not silently mean its default
+            raise DeepSpeedConfigError(
+                f"{asc}: unknown keys {sorted(unknown)}; valid: "
+                f"{sorted(valid_asc)}"
+            )
+        if not isinstance(self.serving_autoscale_enabled, bool):
+            raise DeepSpeedConfigError(
+                f"{asc}.{C.SERVING_AUTOSCALE_ENABLED} must be a boolean, "
+                f"got {self.serving_autoscale_enabled!r}"
+            )
+        mn = self.serving_autoscale_min_replicas
+        mx = self.serving_autoscale_max_replicas
+        for key, value in (
+            (C.SERVING_AUTOSCALE_MIN_REPLICAS, mn),
+            (C.SERVING_AUTOSCALE_MAX_REPLICAS, mx),
+        ):
+            if not isinstance(value, int) or isinstance(value, bool) or (
+                value < 1
+            ):
+                raise DeepSpeedConfigError(
+                    f"{asc}.{key} must be an integer >= 1, got {value!r}"
+                )
+        if mx < mn:
+            raise DeepSpeedConfigError(
+                f"{asc}.{C.SERVING_AUTOSCALE_MAX_REPLICAS} ({mx!r}) must "
+                f"be >= {C.SERVING_AUTOSCALE_MIN_REPLICAS} ({mn!r})"
+            )
+        for key, value in (
+            (C.SERVING_AUTOSCALE_COOLDOWN_SECS,
+             self.serving_autoscale_cooldown_secs),
+            (C.SERVING_AUTOSCALE_FLAP_WINDOW_SECS,
+             self.serving_autoscale_flap_window_secs),
+            (C.SERVING_AUTOSCALE_INTERVAL_SECS,
+             self.serving_autoscale_interval_secs),
+            (C.SERVING_AUTOSCALE_DRAIN_TIMEOUT_SECS,
+             self.serving_autoscale_drain_timeout_secs),
+        ):
+            if (
+                not isinstance(value, (int, float))
+                or isinstance(value, bool)
+                or value <= 0
+            ):
+                raise DeepSpeedConfigError(
+                    f"{asc}.{key} must be a number > 0, got {value!r}"
+                )
+        hyst = self.serving_autoscale_hysteresis_secs
+        if (
+            not isinstance(hyst, (int, float))
+            or isinstance(hyst, bool)
+            or hyst < 0
+        ):
+            raise DeepSpeedConfigError(
+                f"{asc}.{C.SERVING_AUTOSCALE_HYSTERESIS_SECS} must be a "
+                f"number >= 0, got {hyst!r}"
+            )
+        flap = self.serving_autoscale_flap_budget
+        if not isinstance(flap, int) or isinstance(flap, bool) or flap < 0:
+            raise DeepSpeedConfigError(
+                f"{asc}.{C.SERVING_AUTOSCALE_FLAP_BUDGET} must be an "
+                f"integer >= 0 (0 = no direction reversals allowed "
+                f"inside the window), got {flap!r}"
+            )
+        up = self.serving_autoscale_up_utilization
+        down = self.serving_autoscale_down_utilization
+        for key, value in (
+            (C.SERVING_AUTOSCALE_UP_UTILIZATION, up),
+            (C.SERVING_AUTOSCALE_DOWN_UTILIZATION, down),
+        ):
+            if (
+                not isinstance(value, (int, float))
+                or isinstance(value, bool)
+                or not 0 < value <= 1
+            ):
+                raise DeepSpeedConfigError(
+                    f"{asc}.{key} must be a number in (0, 1], got "
+                    f"{value!r}"
+                )
+        if down >= up:
+            # an inverted pair would oscillate on every tick: scale-down
+            # headroom would begin inside the scale-up region
+            raise DeepSpeedConfigError(
+                f"{asc}.{C.SERVING_AUTOSCALE_DOWN_UTILIZATION} ({down!r}) "
+                f"must be below {C.SERVING_AUTOSCALE_UP_UTILIZATION} "
+                f"({up!r}) — the bands must not overlap"
+            )
+        hub = f"{C.SERVING}.{C.SERVING_HUB}"
+        hub_dict = get_dict_param(
+            get_dict_param(self._param_dict, C.SERVING), C.SERVING_HUB
+        )
+        valid_hub = {
+            C.SERVING_HUB_ENABLED, C.SERVING_HUB_INTERVAL_SECS,
+            C.SERVING_HUB_RETENTION_POINTS,
+            C.SERVING_HUB_DRAIN_INTERVAL_SECS,
+            C.SERVING_HUB_OP_TIMEOUT_SECS,
+            C.SERVING_HUB_NODE_BACKOFF_SECS,
+            C.SERVING_HUB_AUTH_EXEMPT, C.SERVING_HUB_ALERTS,
+        }
+        unknown = set(hub_dict) - valid_hub
+        if unknown:
+            raise DeepSpeedConfigError(
+                f"{hub}: unknown keys {sorted(unknown)}; valid: "
+                f"{sorted(valid_hub)}"
+            )
+        if not isinstance(self.serving_hub_enabled, bool):
+            raise DeepSpeedConfigError(
+                f"{hub}.{C.SERVING_HUB_ENABLED} must be a boolean, got "
+                f"{self.serving_hub_enabled!r}"
+            )
+        for key, value in (
+            (C.SERVING_HUB_INTERVAL_SECS, self.serving_hub_interval_secs),
+            (C.SERVING_HUB_OP_TIMEOUT_SECS,
+             self.serving_hub_op_timeout_secs),
+        ):
+            if (
+                not isinstance(value, (int, float))
+                or isinstance(value, bool)
+                or value <= 0
+            ):
+                raise DeepSpeedConfigError(
+                    f"{hub}.{key} must be a number > 0, got {value!r}"
+                )
+        for key, value in (
+            (C.SERVING_HUB_DRAIN_INTERVAL_SECS,
+             self.serving_hub_drain_interval_secs),
+            (C.SERVING_HUB_NODE_BACKOFF_SECS,
+             self.serving_hub_node_backoff_secs),
+        ):
+            # 0 is meaningful: drain on every tick / no scrape backoff
+            if (
+                not isinstance(value, (int, float))
+                or isinstance(value, bool)
+                or value < 0
+            ):
+                raise DeepSpeedConfigError(
+                    f"{hub}.{key} must be a number >= 0, got {value!r}"
+                )
+        retention = self.serving_hub_retention_points
+        if (
+            not isinstance(retention, int) or isinstance(retention, bool)
+            or retention < 2
+        ):
+            raise DeepSpeedConfigError(
+                f"{hub}.{C.SERVING_HUB_RETENTION_POINTS} must be an "
+                f"integer >= 2 (window queries need two points), got "
+                f"{retention!r}"
+            )
+        exempt_raw = hub_dict.get(
+            C.SERVING_HUB_AUTH_EXEMPT, C.SERVING_HUB_AUTH_EXEMPT_DEFAULT
+        )
+        if not isinstance(exempt_raw, (list, tuple)) or any(
+            not isinstance(p, str) for p in exempt_raw
+        ):
+            raise DeepSpeedConfigError(
+                f"{hub}.{C.SERVING_HUB_AUTH_EXEMPT} must be a list of "
+                f"path strings, got {exempt_raw!r}"
+            )
+        bad = set(exempt_raw) - set(C.SERVING_HUB_VALID_AUTH_EXEMPT)
+        if bad:
+            # only hub-served paths may be exempted: a typo here must
+            # not silently leave /v1/generate behind the token while the
+            # operator believes it opened a metrics path
+            raise DeepSpeedConfigError(
+                f"{hub}.{C.SERVING_HUB_AUTH_EXEMPT}: unknown paths "
+                f"{sorted(bad)}; valid: "
+                f"{list(C.SERVING_HUB_VALID_AUTH_EXEMPT)}"
+            )
+        alerts = f"{hub}.{C.SERVING_HUB_ALERTS}"
+        alerts_dict = get_dict_param(hub_dict, C.SERVING_HUB_ALERTS)
+        valid_alerts = {
+            C.SERVING_HUB_ALERTS_SLO_TARGET,
+            C.SERVING_HUB_ALERTS_FAST_WINDOW_SECS,
+            C.SERVING_HUB_ALERTS_SLOW_WINDOW_SECS,
+            C.SERVING_HUB_ALERTS_FAST_BURN,
+            C.SERVING_HUB_ALERTS_SLOW_BURN,
+            C.SERVING_HUB_ALERTS_BREAKER_FLOOD,
+            C.SERVING_HUB_ALERTS_SUPPRESSED_GROWTH,
+        }
+        unknown = set(alerts_dict) - valid_alerts
+        if unknown:
+            raise DeepSpeedConfigError(
+                f"{alerts}: unknown keys {sorted(unknown)}; valid: "
+                f"{sorted(valid_alerts)}"
+            )
+        target = self.serving_hub_alerts_slo_target
+        if (
+            not isinstance(target, (int, float))
+            or isinstance(target, bool)
+            or not 0 < target < 1
+        ):
+            raise DeepSpeedConfigError(
+                f"{alerts}.{C.SERVING_HUB_ALERTS_SLO_TARGET} must be a "
+                f"number in (0, 1), got {target!r}"
+            )
+        for key, value in (
+            (C.SERVING_HUB_ALERTS_FAST_WINDOW_SECS,
+             self.serving_hub_alerts_fast_window_secs),
+            (C.SERVING_HUB_ALERTS_SLOW_WINDOW_SECS,
+             self.serving_hub_alerts_slow_window_secs),
+            (C.SERVING_HUB_ALERTS_FAST_BURN,
+             self.serving_hub_alerts_fast_burn),
+            (C.SERVING_HUB_ALERTS_SLOW_BURN,
+             self.serving_hub_alerts_slow_burn),
+            (C.SERVING_HUB_ALERTS_BREAKER_FLOOD,
+             self.serving_hub_alerts_breaker_flood),
+            (C.SERVING_HUB_ALERTS_SUPPRESSED_GROWTH,
+             self.serving_hub_alerts_suppressed_growth),
+        ):
+            if (
+                not isinstance(value, (int, float))
+                or isinstance(value, bool)
+                or value <= 0
+            ):
+                raise DeepSpeedConfigError(
+                    f"{alerts}.{key} must be a number > 0, got {value!r}"
+                )
+        if (
+            self.serving_hub_alerts_fast_window_secs
+            >= self.serving_hub_alerts_slow_window_secs
+        ):
+            raise DeepSpeedConfigError(
+                f"{alerts}.{C.SERVING_HUB_ALERTS_FAST_WINDOW_SECS} must "
+                f"be below {C.SERVING_HUB_ALERTS_SLOW_WINDOW_SECS} — the "
+                f"multiwindow burn rule needs a short and a long window"
+            )
+        jr = f"{C.SERVING}.{C.SERVING_JOURNAL}"
+        jrn_dict = get_dict_param(
+            get_dict_param(self._param_dict, C.SERVING), C.SERVING_JOURNAL
+        )
+        valid_jrn = {
+            C.SERVING_JOURNAL_ENABLED, C.SERVING_JOURNAL_DIR,
+            C.SERVING_JOURNAL_FSYNC, C.SERVING_JOURNAL_KEEP_SEGMENTS,
+            C.SERVING_JOURNAL_MAX_INFLIGHT,
+        }
+        unknown = set(jrn_dict) - valid_jrn
+        if unknown:
+            # a typo'd enabled would silently mean "no durability" — the
+            # operator learns only at the first router crash
+            raise DeepSpeedConfigError(
+                f"{jr}: unknown keys {sorted(unknown)}; valid: "
+                f"{sorted(valid_jrn)}"
+            )
+        for key, value in (
+            (C.SERVING_JOURNAL_ENABLED, self.serving_journal_enabled),
+            (C.SERVING_JOURNAL_FSYNC, self.serving_journal_fsync),
+        ):
+            if not isinstance(value, bool):
+                raise DeepSpeedConfigError(
+                    f"{jr}.{key} must be a boolean, got {value!r}"
+                )
+        jdir = self.serving_journal_dir
+        if not isinstance(jdir, str) or not jdir:
+            raise DeepSpeedConfigError(
+                f"{jr}.{C.SERVING_JOURNAL_DIR} must be a non-empty "
+                f"directory path, got {jdir!r}"
+            )
+        for key, value in (
+            (C.SERVING_JOURNAL_KEEP_SEGMENTS,
+             self.serving_journal_keep_segments),
+            (C.SERVING_JOURNAL_MAX_INFLIGHT,
+             self.serving_journal_max_inflight),
+        ):
+            if (
+                not isinstance(value, int) or isinstance(value, bool)
+                or value < 1
+            ):
+                raise DeepSpeedConfigError(
+                    f"{jr}.{key} must be an integer >= 1, got {value!r}"
+                )
+        pr = f"{C.SERVING}.{C.SERVING_PROVISIONER}"
+        prov_dict = get_dict_param(
+            get_dict_param(self._param_dict, C.SERVING),
+            C.SERVING_PROVISIONER,
+        )
+        valid_prov = {
+            C.SERVING_PROVISIONER_ENABLED,
+            C.SERVING_PROVISIONER_NODE_SPEC,
+            C.SERVING_PROVISIONER_MAX_NODES,
+            C.SERVING_PROVISIONER_MAX_REPLICAS_PER_NODE,
+            C.SERVING_PROVISIONER_LAUNCH_TIMEOUT_SECS,
+            C.SERVING_PROVISIONER_TERMINATE_GRACE_SECS,
+        }
+        unknown = set(prov_dict) - valid_prov
+        if unknown:
+            raise DeepSpeedConfigError(
+                f"{pr}: unknown keys {sorted(unknown)}; valid: "
+                f"{sorted(valid_prov)}"
+            )
+        if not isinstance(self.serving_provisioner_enabled, bool):
+            raise DeepSpeedConfigError(
+                f"{pr}.{C.SERVING_PROVISIONER_ENABLED} must be a "
+                f"boolean, got {self.serving_provisioner_enabled!r}"
+            )
+        spec = self.serving_provisioner_node_spec
+        if spec is not None and not isinstance(spec, dict):
+            raise DeepSpeedConfigError(
+                f"{pr}.{C.SERVING_PROVISIONER_NODE_SPEC} must be a "
+                f"node.py spec object (or null), got {spec!r}"
+            )
+        for key, value in (
+            (C.SERVING_PROVISIONER_MAX_NODES,
+             self.serving_provisioner_max_nodes),
+            (C.SERVING_PROVISIONER_MAX_REPLICAS_PER_NODE,
+             self.serving_provisioner_max_replicas_per_node),
+        ):
+            if (
+                not isinstance(value, int) or isinstance(value, bool)
+                or value < 1
+            ):
+                raise DeepSpeedConfigError(
+                    f"{pr}.{key} must be an integer >= 1, got {value!r}"
+                )
+        for key, value in (
+            (C.SERVING_PROVISIONER_LAUNCH_TIMEOUT_SECS,
+             self.serving_provisioner_launch_timeout_secs),
+            (C.SERVING_PROVISIONER_TERMINATE_GRACE_SECS,
+             self.serving_provisioner_terminate_grace_secs),
+        ):
+            if (
+                not isinstance(value, (int, float))
+                or isinstance(value, bool) or value <= 0
+            ):
+                raise DeepSpeedConfigError(
+                    f"{pr}.{key} must be a positive number, got {value!r}"
+                )
+
     def _do_warning_check(self):
         if self.zero_enabled and not (self.fp16_enabled or self.bf16_enabled):
             # DeepSpeed hard-errored here (ZeRO required fp16); the JAX
@@ -1503,6 +2556,13 @@ class DeepSpeedConfig:
             logger.warning(
                 "max_grad_norm is deprecated; use gradient_clipping instead"
             )
+
+    @property
+    def serving_http_auth_token(self):
+        """The door's bearer secret (``serving.http.auth_token``) —
+        stored on an underscored attribute so :meth:`print`'s attribute
+        walk (which skips ``_`` names) can never log it."""
+        return self._serving_http_auth_token
 
     def print(self, name="DeepSpeedConfig"):
         logger.info("%s:", name)

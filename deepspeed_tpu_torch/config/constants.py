@@ -568,6 +568,282 @@ ADAPTERS_POOL_SLOTS = "pool_slots"
 ADAPTERS_POOL_SLOTS_DEFAULT = 8
 
 #############################################
+# Multi-replica serving tier (serving/, docs/serving.md):
+# a FleetRouter in front of N inference-engine replicas — placement,
+# per-tenant admission, and rolling-restart lifecycle. The DeepSpeed-
+# Inference "serving at scale" act on top of the per-replica Orca-style
+# scheduler the "inference" block configures.
+#############################################
+SERVING = "serving"
+# Engine replicas behind the router. Each replica is one full
+# InferenceEngine (own KV cache, own scheduler, own driver thread).
+SERVING_REPLICAS = "replicas"
+SERVING_REPLICAS_DEFAULT = 1
+# Replica isolation backend: "in_process" (N engines in this process —
+# zero-copy, shares the host) or "subprocess" (one engine per worker
+# process, newline-JSON RPC over pipes — a crashed replica cannot take
+# the router down).
+SERVING_BACKEND = "backend"
+SERVING_BACKEND_DEFAULT = "in_process"
+SERVING_VALID_BACKENDS = ("in_process", "subprocess", "socket")
+# Placement policy: "least_loaded" scores queue depth + slot occupancy,
+# "prefix_affinity" routes identical templated prompt prefixes to the
+# replica that served them (the hook a cross-request prefix cache plugs
+# into) falling back to least-loaded, "round_robin" ignores load.
+SERVING_PLACEMENT = "placement"
+SERVING_PLACEMENT_DEFAULT = "least_loaded"
+SERVING_VALID_PLACEMENTS = (
+    "least_loaded", "prefix_affinity", "round_robin", "adapter_affinity",
+)
+# Prompt tokens hashed for prefix affinity (the templated-system-prompt
+# span; prompts shorter than this hash whole).
+SERVING_AFFINITY_PREFIX_TOKENS = "affinity_prefix_tokens"
+SERVING_AFFINITY_PREFIX_TOKENS_DEFAULT = 16
+# Fraction of replicas that must stay routable during lifecycle
+# operations: rolling_restart() refuses to start when draining one more
+# replica would leave fewer than ceil(floor * replicas) serving.
+SERVING_CAPACITY_FLOOR = "capacity_floor"
+SERVING_CAPACITY_FLOOR_DEFAULT = 0.5
+# Fleet-wide queue-fill fraction past which priority > 0 submissions are
+# shed at the ROUTER's door (before any replica queue is touched).
+SERVING_SHED_QUEUE_RATIO = "shed_queue_ratio"
+SERVING_SHED_QUEUE_RATIO_DEFAULT = 0.75
+# Re-route attempts for a request whose replica died under it before the
+# router fails the request to its caller.
+SERVING_MAX_REROUTES = "max_reroutes"
+SERVING_MAX_REROUTES_DEFAULT = 2
+# Install the resilience PreemptionHandler so SIGTERM/SIGINT drains the
+# whole fleet gracefully (in-flight requests finish, new traffic sheds)
+# instead of killing mid-decode.
+SERVING_DRAIN_ON_PREEMPTION = "drain_on_preemption"
+SERVING_DRAIN_ON_PREEMPTION_DEFAULT = False
+# Per-tenant token-bucket admission. "rate_limit" sets the default
+# bucket (requests_per_sec null = unlimited); "per_tenant" maps tenant
+# name -> {requests_per_sec, burst} overrides.
+SERVING_RATE_LIMIT = "rate_limit"
+SERVING_RATE_LIMIT_RPS = "requests_per_sec"
+SERVING_RATE_LIMIT_RPS_DEFAULT = None
+SERVING_RATE_LIMIT_BURST = "burst"
+SERVING_RATE_LIMIT_BURST_DEFAULT = 1
+SERVING_RATE_LIMIT_PER_TENANT = "per_tenant"
+SERVING_RATE_LIMIT_PER_TENANT_DEFAULT = None  # None => {} (no overrides)
+# Subprocess-replica RPC transport: per-op timeout, and retry-with-
+# backoff for IDEMPOTENT control ops (snapshot/drain/adapter management
+# — generate submissions never retry; docs/serving.md "RPC retries").
+SERVING_RPC_TIMEOUT_SECS = "rpc_timeout_secs"
+SERVING_RPC_TIMEOUT_SECS_DEFAULT = 10.0
+SERVING_RPC_RETRIES = "rpc_retries"
+SERVING_RPC_RETRIES_DEFAULT = 2
+SERVING_RPC_BACKOFF_SECS = "rpc_backoff_secs"
+SERVING_RPC_BACKOFF_SECS_DEFAULT = 0.05
+# Zombie detection (docs/serving.md): a replica with work in flight but
+# frozen completion counters (or a live-but-unresponsive worker) for
+# zombie_secs is drained-then-restarted, zombie_restart_budget times;
+# 0 disables the sweep.
+SERVING_ZOMBIE_SECS = "zombie_secs"
+SERVING_ZOMBIE_SECS_DEFAULT = 0.0
+SERVING_ZOMBIE_RESTART_BUDGET = "zombie_restart_budget"
+SERVING_ZOMBIE_RESTART_BUDGET_DEFAULT = 2
+# Per-replica circuit breakers (serving/breaker.py): N consecutive RPC
+# failures open the circuit for an exponentially-backed-off window with
+# a single half-open probe.
+SERVING_CIRCUIT_BREAKER = "circuit_breaker"
+SERVING_CB_FAILURE_THRESHOLD = "failure_threshold"
+SERVING_CB_FAILURE_THRESHOLD_DEFAULT = 3
+SERVING_CB_BACKOFF_SECS = "backoff_secs"
+SERVING_CB_BACKOFF_SECS_DEFAULT = 0.5
+SERVING_CB_BACKOFF_MAX_SECS = "backoff_max_secs"
+SERVING_CB_BACKOFF_MAX_SECS_DEFAULT = 30.0
+# Brownout degradation (docs/serving.md): between queue_ratio and the
+# shed ratio the fleet clamps sheddable requests' max_new_tokens to the
+# configured floor (and replicas skip prefix-miss registration work)
+# instead of letting fill climb to the rejection cliff. queue_ratio
+# null = feature off.
+SERVING_BROWNOUT = "brownout"
+SERVING_BROWNOUT_QUEUE_RATIO = "queue_ratio"
+SERVING_BROWNOUT_QUEUE_RATIO_DEFAULT = None
+SERVING_BROWNOUT_MAX_NEW_TOKENS = "max_new_tokens"
+SERVING_BROWNOUT_MAX_NEW_TOKENS_DEFAULT = 16
+# Socket replica transport (serving/transport.py + node.py,
+# docs/serving.md "Networked fleet"): heartbeat lease window (a
+# connection without a pong for lease_secs is torn down and
+# reconnected), reconnect-with-resume budget + backoff, and the dial
+# timeout/retry for the initial connect (a dropped accept costs a
+# retry, not a replica).
+SERVING_SOCKET = "socket"
+SERVING_SOCKET_LEASE_SECS = "lease_secs"
+SERVING_SOCKET_LEASE_SECS_DEFAULT = 10.0
+SERVING_SOCKET_RECONNECT_ATTEMPTS = "reconnect_attempts"
+SERVING_SOCKET_RECONNECT_ATTEMPTS_DEFAULT = 3
+SERVING_SOCKET_RECONNECT_BACKOFF_SECS = "reconnect_backoff_secs"
+SERVING_SOCKET_RECONNECT_BACKOFF_SECS_DEFAULT = 0.1
+SERVING_SOCKET_CONNECT_TIMEOUT_SECS = "connect_timeout_secs"
+SERVING_SOCKET_CONNECT_TIMEOUT_SECS_DEFAULT = 10.0
+SERVING_SOCKET_CONNECT_RETRIES = "connect_retries"
+SERVING_SOCKET_CONNECT_RETRIES_DEFAULT = 3
+# HTTP/SSE front door (serving/http.py): bind address, the per-stream
+# write-buffer bound, and the slow-client overrun policy ("drop" closes
+# the stream and cancels the request — the slot frees like a
+# disconnect; "block" backpressures the stream on the client's drain).
+SERVING_HTTP = "http"
+SERVING_HTTP_HOST = "host"
+SERVING_HTTP_HOST_DEFAULT = "127.0.0.1"
+SERVING_HTTP_PORT = "port"
+SERVING_HTTP_PORT_DEFAULT = 0
+SERVING_HTTP_MAX_BUFFER_BYTES = "max_buffer_bytes"
+SERVING_HTTP_MAX_BUFFER_BYTES_DEFAULT = 65536
+SERVING_HTTP_OVERRUN_POLICY = "overrun_policy"
+SERVING_HTTP_OVERRUN_POLICY_DEFAULT = "drop"
+SERVING_HTTP_VALID_OVERRUN_POLICIES = ("drop", "block")
+# bearer secret for the door (docs/serving.md): every route except the
+# /healthz and /readyz probes demands `Authorization: Bearer <token>`;
+# None = open door. The resolved value is NEVER logged (config.print
+# redacts it).
+SERVING_HTTP_AUTH_TOKEN = "auth_token"
+SERVING_HTTP_AUTH_TOKEN_DEFAULT = None
+
+# "slo": the latency targets the fleet promises (docs/serving.md "SLO
+# autoscaling") — p99 TTFT and per-token-latency ceilings in ms (None =
+# no target on that axis) plus the sliding window the error budget
+# (fleet/slo_error_budget_remaining) evaluates over.
+SERVING_SLO = "slo"
+SERVING_SLO_TTFT_P99_MS = "ttft_p99_ms"
+SERVING_SLO_TTFT_P99_MS_DEFAULT = None
+SERVING_SLO_TOKEN_P99_MS = "token_p99_ms"
+SERVING_SLO_TOKEN_P99_MS_DEFAULT = None
+SERVING_SLO_EVAL_WINDOW_SECS = "eval_window_secs"
+SERVING_SLO_EVAL_WINDOW_SECS_DEFAULT = 60.0
+
+# "autoscale": elastic replica capacity driven by the predictive cost
+# model (serving/autoscaler.py) — scale up BEFORE the brownout cliff,
+# drain-then-retire on sustained headroom, re-provision capacity chaos
+# takes away; clamped by min/max replicas, a scale cooldown, and a
+# direction-reversal flap budget. Disabled = zero-overhead passthrough.
+SERVING_AUTOSCALE = "autoscale"
+SERVING_AUTOSCALE_ENABLED = "enabled"
+SERVING_AUTOSCALE_ENABLED_DEFAULT = False
+SERVING_AUTOSCALE_MIN_REPLICAS = "min_replicas"
+SERVING_AUTOSCALE_MIN_REPLICAS_DEFAULT = 1
+SERVING_AUTOSCALE_MAX_REPLICAS = "max_replicas"
+SERVING_AUTOSCALE_MAX_REPLICAS_DEFAULT = 4
+SERVING_AUTOSCALE_COOLDOWN_SECS = "cooldown_secs"
+SERVING_AUTOSCALE_COOLDOWN_SECS_DEFAULT = 30.0
+SERVING_AUTOSCALE_HYSTERESIS_SECS = "hysteresis_secs"
+SERVING_AUTOSCALE_HYSTERESIS_SECS_DEFAULT = 60.0
+SERVING_AUTOSCALE_FLAP_BUDGET = "flap_budget"
+SERVING_AUTOSCALE_FLAP_BUDGET_DEFAULT = 4
+SERVING_AUTOSCALE_FLAP_WINDOW_SECS = "flap_window_secs"
+SERVING_AUTOSCALE_FLAP_WINDOW_SECS_DEFAULT = 600.0
+SERVING_AUTOSCALE_UP_UTILIZATION = "scale_up_utilization"
+SERVING_AUTOSCALE_UP_UTILIZATION_DEFAULT = 0.85
+SERVING_AUTOSCALE_DOWN_UTILIZATION = "scale_down_utilization"
+SERVING_AUTOSCALE_DOWN_UTILIZATION_DEFAULT = 0.30
+SERVING_AUTOSCALE_INTERVAL_SECS = "interval_secs"
+SERVING_AUTOSCALE_INTERVAL_SECS_DEFAULT = 1.0
+SERVING_AUTOSCALE_DRAIN_TIMEOUT_SECS = "drain_timeout_secs"
+SERVING_AUTOSCALE_DRAIN_TIMEOUT_SECS_DEFAULT = 30.0
+
+# "hub": the fleet observability plane (telemetry/hub.py,
+# docs/observability.md "fleet-wide view") — the router-side
+# TelemetryHub scrapes every node agent's registries over the
+# metrics_snapshot control op on this cadence, retains each series in a
+# fixed-size time-series ring, pulls sampled spans / flight rings home
+# over drain_telemetry, evaluates the alert rules, and serves
+# /metrics //statz //dashboard on the HTTP door. Disabled (the default)
+# = zero-overhead passthrough: no hub object, no threads, the door
+# routes 404.
+SERVING_HUB = "hub"
+SERVING_HUB_ENABLED = "enabled"
+SERVING_HUB_ENABLED_DEFAULT = False
+SERVING_HUB_INTERVAL_SECS = "interval_secs"
+SERVING_HUB_INTERVAL_SECS_DEFAULT = 2.0
+SERVING_HUB_RETENTION_POINTS = "retention_points"
+SERVING_HUB_RETENTION_POINTS_DEFAULT = 512
+SERVING_HUB_DRAIN_INTERVAL_SECS = "drain_interval_secs"
+SERVING_HUB_DRAIN_INTERVAL_SECS_DEFAULT = 10.0
+SERVING_HUB_OP_TIMEOUT_SECS = "op_timeout_secs"
+SERVING_HUB_OP_TIMEOUT_SECS_DEFAULT = 5.0
+SERVING_HUB_NODE_BACKOFF_SECS = "node_backoff_secs"
+SERVING_HUB_NODE_BACKOFF_SECS_DEFAULT = 10.0
+# door paths served WITHOUT the bearer token when serving.http.auth_token
+# is set (an in-cluster Prometheus scraper carries no tenant
+# credentials); empty default = everything hub-served is protected
+SERVING_HUB_AUTH_EXEMPT = "auth_exempt"
+SERVING_HUB_AUTH_EXEMPT_DEFAULT = ()
+SERVING_HUB_VALID_AUTH_EXEMPT = (
+    "/metrics", "/statz", "/dashboard",
+)
+# "alerts" sub-block: the rule thresholds the hub evaluates over its
+# ring. slo_target + fast/slow burn multipliers follow the SRE-workbook
+# multiwindow form (burn = observed error rate / (1 - slo_target));
+# breaker_flood and suppressed_growth are windowed counter-delta floors.
+SERVING_HUB_ALERTS = "alerts"
+SERVING_HUB_ALERTS_SLO_TARGET = "slo_target"
+SERVING_HUB_ALERTS_SLO_TARGET_DEFAULT = 0.99
+SERVING_HUB_ALERTS_FAST_WINDOW_SECS = "fast_window_secs"
+SERVING_HUB_ALERTS_FAST_WINDOW_SECS_DEFAULT = 60.0
+SERVING_HUB_ALERTS_SLOW_WINDOW_SECS = "slow_window_secs"
+SERVING_HUB_ALERTS_SLOW_WINDOW_SECS_DEFAULT = 600.0
+SERVING_HUB_ALERTS_FAST_BURN = "fast_burn"
+SERVING_HUB_ALERTS_FAST_BURN_DEFAULT = 14.4
+SERVING_HUB_ALERTS_SLOW_BURN = "slow_burn"
+SERVING_HUB_ALERTS_SLOW_BURN_DEFAULT = 6.0
+SERVING_HUB_ALERTS_BREAKER_FLOOD = "breaker_flood"
+SERVING_HUB_ALERTS_BREAKER_FLOOD_DEFAULT = 3
+SERVING_HUB_ALERTS_SUPPRESSED_GROWTH = "suppressed_growth"
+SERVING_HUB_ALERTS_SUPPRESSED_GROWTH_DEFAULT = 10
+
+# "journal": the durable control plane (serving/journal.py,
+# docs/serving.md "Control-plane durability") — a write-ahead
+# fleet-state journal under ``dir``: node addresses, replica
+# memberships, fleet adapter registry, autoscaler target/cooldown,
+# brownout state, and a bounded in-flight request table, each mutation
+# committed (atomic tmp+fsync+rename snapshot segment) BEFORE it takes
+# effect. A restarting router finds the journal, re-dials node control
+# sessions, and adopts still-running generations instead of dropping
+# them. Disabled (the default) = zero-overhead passthrough: no journal
+# object, no directory, no write on any request path.
+SERVING_JOURNAL = "journal"
+SERVING_JOURNAL_ENABLED = "enabled"
+SERVING_JOURNAL_ENABLED_DEFAULT = False
+SERVING_JOURNAL_DIR = "dir"
+SERVING_JOURNAL_DIR_DEFAULT = "fleet_journal"
+# fsync=False trades durability-across-power-loss for latency; the
+# atomic rename still protects against torn segments either way
+SERVING_JOURNAL_FSYNC = "fsync"
+SERVING_JOURNAL_FSYNC_DEFAULT = True
+SERVING_JOURNAL_KEEP_SEGMENTS = "keep_segments"
+SERVING_JOURNAL_KEEP_SEGMENTS_DEFAULT = 3
+# ceiling on the journaled in-flight request table (oldest evicted
+# first) — bounds segment size under open-stream floods
+SERVING_JOURNAL_MAX_INFLIGHT = "max_inflight"
+SERVING_JOURNAL_MAX_INFLIGHT_DEFAULT = 256
+
+# "provisioner": the whole-node lifecycle tier (serving/provisioner.py,
+# docs/serving.md "Node failure domain"). Enabled gives the autoscaler's
+# socket backend a node tier: a replica target past every live node's
+# ceiling launches a NEW node agent (local subprocess), a dead node is
+# re-provisioned under the same name, and a provisioner-owned node left
+# empty by scale-down is terminated whole. Disabled (the default) =
+# today's behavior: the nodes map IS the fleet; zero placeable capacity
+# raises a typed refusal instead.
+SERVING_PROVISIONER = "provisioner"
+SERVING_PROVISIONER_ENABLED = "enabled"
+SERVING_PROVISIONER_ENABLED_DEFAULT = False
+# node.py spec template each launch instantiates (node_id is forced to
+# the requested name; engines/replicas come from this template)
+SERVING_PROVISIONER_NODE_SPEC = "node_spec"
+SERVING_PROVISIONER_NODE_SPEC_DEFAULT = None
+SERVING_PROVISIONER_MAX_NODES = "max_nodes"
+SERVING_PROVISIONER_MAX_NODES_DEFAULT = 4
+SERVING_PROVISIONER_MAX_REPLICAS_PER_NODE = "max_replicas_per_node"
+SERVING_PROVISIONER_MAX_REPLICAS_PER_NODE_DEFAULT = 4
+SERVING_PROVISIONER_LAUNCH_TIMEOUT_SECS = "launch_timeout_secs"
+SERVING_PROVISIONER_LAUNCH_TIMEOUT_SECS_DEFAULT = 120.0
+SERVING_PROVISIONER_TERMINATE_GRACE_SECS = "terminate_grace_secs"
+SERVING_PROVISIONER_TERMINATE_GRACE_SECS_DEFAULT = 5.0
+
+#############################################
 # The process mesh (parallel/mesh.py): data parallel across processes;
 # the model, sequence and pipeline axes are refused (not yet ported).
 #############################################

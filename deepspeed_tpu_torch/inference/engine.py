@@ -46,7 +46,10 @@ pages during decode and preempts under pressure; engines of one
 (``inference.speculative`` with ``draft_model``): a small draft on its
 own contiguous cache proposes k greedy tokens and the target verifies
 them in one suffix-prefill step over the paged cache. The fleet's hooks
-(tracer injection, brownout) come with the fleet.
+(serving/): :meth:`InferenceEngine.use_tracer` adopts the router's
+tracer, and :meth:`InferenceEngine.set_brownout` stops prefix
+registration (prefill's and decode's) while prefix hits go on serving
+suffix-only.
 
 Serving over the model axis (``mesh`` or a ``mesh`` block with a
 ``model_parallel_size`` above 1, one process per GPU of a world of that
@@ -76,7 +79,7 @@ same collectives in the same order, whatever the leader's clock and
 threads decide. A follower's host tier is a store of its own heads' rows
 keyed as the leader's tier keys them; the leader names what it parks,
 promotes and drops. A data, sequence or pipeline axis above 1 is refused
-(replicas are the serving fleet's, ROADMAP A8), and so is a model with
+(replicas are the serving fleet's, ROADMAP A8b), and so is a model with
 MoE experts or pipeline stages, with the JAX engine's
 ``DeepSpeedConfigError``s: decode runs the dense stack.
 
@@ -206,7 +209,7 @@ def _refuse_replica_axes(block):
         if size is not None and int(size) > 1:
             raise _not_ported(
                 f"serving over a {axis} axis of {size} (replicas are the "
-                "serving fleet's, ROADMAP A8)")
+                "serving fleet's, ROADMAP A8b)")
 
 
 def _is_gpt2_config(cfg):
@@ -523,7 +526,10 @@ class InferenceEngine:
             self.adapter_pool_slots = 0
 
         # request tracer: the telemetry.tracing block's, or the no-op one
+        # (a fleet swaps in its own: use_tracer)
         self.tracer = self.telemetry.tracer
+        # fleet brownout (set_brownout): prefix registration stops
+        self._brownout = False
         # per-slot span attrs captured at prefill time (prefix hit or
         # cold, suffix bucket, adapter) for the scheduler's prefill span
         self._slot_trace_attrs = {}
@@ -738,7 +744,7 @@ class InferenceEngine:
         """The process mesh of a model axis above 1 (``mesh``, a
         ``ProcessMesh``, or the config's ``mesh`` block over the
         torch.distributed world, which the launcher's environment starts),
-        else None. Any other axis above 1 is refused (ROADMAP A8)."""
+        else None. Any other axis above 1 is refused (ROADMAP A8b)."""
         if mesh is None:
             mp = int(block.get(C.MESH_MODEL_PARALLEL_SIZE) or 1)
             if mp <= 1:
@@ -1214,8 +1220,9 @@ class InferenceEngine:
         shareable (and spillable) prefixes — and a preempted request's
         resume matches everything but its final partial page. Runs before
         the slot's pages release and before its adapter pin drops (the
-        chain salt needs the adapter identity)."""
-        if not self.prefix_cache_enabled:
+        chain salt needs the adapter identity). Skipped under fleet
+        brownout (set_brownout)."""
+        if not self.prefix_cache_enabled or self._brownout:
             return
         blocks = self._slot_blocks.get(slot)
         if not blocks:
@@ -1712,9 +1719,13 @@ class InferenceEngine:
             # index lengths-1 == the last PROMPT token (already cached by
             # the draft prefill; the sync rewrite is value-identical)
             self._spec_prev_tokens[slot] = int(prompt_tokens[-1])
-        if self.paged and self.prefix_cache_enabled:
+        if self.paged and self.prefix_cache_enabled and not self._brownout:
             # publish this prompt's full pages so later requests share
-            # them (no-op for pages already in the registry)
+            # them (no-op for pages already in the registry). Skipped
+            # under fleet brownout (set_brownout): a prefix miss's
+            # registration (hashing, registry churn, pages parked
+            # unfreeable in the LRU) is load the degraded window cannot
+            # afford; hits still serve suffix-only.
             self.block_pool.register_prefix(
                 prompt_tokens, self._slot_blocks[slot],
                 hashes=self._slot_hashes.get(slot),
@@ -1743,6 +1754,21 @@ class InferenceEngine:
         prefill (prefix hit or cold, suffix bucket, adapter name), the
         facts only the engine knows."""
         return self._slot_trace_attrs.pop(slot, {})
+
+    def set_brownout(self, on):
+        """Fleet brownout toggle (docs/serving.md "Brownout"): while on,
+        cold prefills and finished decodes skip prefix REGISTRATION (the
+        prefix-miss speculative work); hits keep serving suffix-only. A
+        mode flag, reversible at once."""
+        self._brownout = bool(on)
+
+    def use_tracer(self, tracer):
+        """Adopt a caller-owned tracer (the fleet router injects its own
+        into in-process replicas, so scheduler spans land in the same
+        trace file as the router's root spans). The tracer stays its
+        owner's: :meth:`close` never closes it."""
+        self.tracer = tracer
+        self.scheduler._tracer = tracer
 
     def _suffix_bucket(self, suffix_len, prefix_len):
         """Smallest suffix width that holds the suffix and keeps every
@@ -2028,6 +2054,12 @@ class InferenceEngine:
 
     def _close_local(self):
         self._store = {}
+        # give the KV pool back now: the engine and its scheduler refer to
+        # each other, so without this the pool would wait for the cycle
+        # collector, and a fleet's restart would build the next engine's
+        # pool beside it
+        self._cache = None
+        self._draft_cache = None
         if self.host_tier is not None:
             # drop this engine's share-group reference; the last engine
             # out closes the tier's worker and retires the group

@@ -47,6 +47,12 @@ def is_initialized():
     return dist.is_available() and dist.is_initialized()
 
 
+def process_index():
+    """This process's global rank: its rank in the initialised group, 0
+    without one (the JAX package's ``jax.process_index()``)."""
+    return dist.get_rank() if is_initialized() else 0
+
+
 def local_device_index(process_id):
     """The CUDA device a process binds: ``LOCAL_RANK`` when the launcher
     exported it (its index among its host's slots, which its

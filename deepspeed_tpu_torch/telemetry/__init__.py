@@ -2,9 +2,10 @@
 step-heartbeat watchdog, the request/step tracer, and the engines'
 metric catalogs (ported from the JAX package's telemetry/).
 
-``manager.build_telemetry`` wires all of it from an engine's config. The
-JAX package's fleet hub and time-series store come with the serving
-fleet.
+``manager.build_telemetry`` wires all of it from an engine's config, and
+``manager.register_serving_metrics`` gives the fleet router its
+``fleet/*`` catalog. The JAX package's fleet hub and time-series store
+come with the networked fleet (ROADMAP A8b).
 """
 
 from .exporters import (

@@ -150,6 +150,91 @@ def register_inference_metrics(registry):
     return registry
 
 
+# The fleet router's catalog (serving/router.py, docs/serving.md): the
+# JAX package's golden set, the streams of the networked fleet, the
+# autoscaler and the journal included (they stay 0 until those parts
+# of the fleet are ported). Per-replica gauges ride dynamically as
+# fleet/replica{i}/*.
+SERVING_METRICS = (
+    ("histogram", "fleet/ttft_ms", "fleet-level time to first token: router admission through the serving replica's first sampled token"),
+    ("gauge", "fleet/ttft_p50_ms", "p50 TTFT interpolated from the fleet/ttft_ms buckets at the last telemetry refresh"),
+    ("gauge", "fleet/ttft_p99_ms", "p99 TTFT interpolated from the fleet/ttft_ms buckets at the last telemetry refresh"),
+    ("gauge", "fleet/replicas_total", "replicas registered with the router (evicted replicas leave this count)"),
+    ("gauge", "fleet/replicas_available", "replicas currently routable (not draining, not restarting, not failed)"),
+    ("gauge", "fleet/queue_depth", "requests waiting across every replica's admission queue"),
+    ("gauge", "fleet/slot_occupancy", "decode slots serving a request across the fleet"),
+    ("counter", "fleet/requests_routed", "requests placed onto a replica by the router"),
+    ("counter", "fleet/requests_rerouted", "requests re-placed after their replica failed under them"),
+    ("counter", "fleet/requests_completed", "fleet requests finished with a terminal answer"),
+    ("counter", "fleet/requests_rate_limited", "submissions rejected by a tenant's token bucket (RateLimited)"),
+    ("counter", "fleet/requests_rejected", "submissions rejected at the router door for any reason (rate limit, overload, draining)"),
+    ("counter", "fleet/affinity_hits", "placements that landed on the prompt prefix's affinity replica"),
+    ("counter", "fleet/replica_restarts", "replica restarts driven by the router (rolling_restart or explicit restart)"),
+    ("counter", "fleet/replicas_evicted", "replicas evicted after their decode driver failed past its restart budget"),
+    ("gauge", "fleet/prefix_hit_rate", "fleet-wide prefix-cache hit rate (sum of replica hits / lookups at the last refresh; 0 with no paged replicas)"),
+    ("counter", "fleet/adapter_loads", "per-replica LoRA adapter installs driven through the router's load_adapter"),
+    ("gauge", "fleet/adapters_loaded", "distinct LoRA adapters resident across the fleet at the last refresh"),
+    # chaos hardening (docs/serving.md "Circuit breakers" / "Zombie
+    # detection" / "Brownout degradation"); per-replica circuit_state
+    # gauges ride dynamically as fleet/replica{i}/circuit_state
+    ("counter", "fleet/breaker_opens", "circuit-breaker trips: a replica hit its consecutive-RPC-failure threshold and left every placement candidate set"),
+    ("counter", "fleet/breaker_probes", "half-open probe submissions (exactly one per open backoff window)"),
+    ("counter", "fleet/zombie_restarts", "replicas drained-then-restarted by zombie detection (active slots with frozen completion counters, or a live-but-unresponsive worker)"),
+    ("gauge", "fleet/brownout", "1 while the fleet queue fill sits in the brownout band (sheddable requests degrade instead of queueing toward the shed cliff)"),
+    ("counter", "fleet/requests_browned_out", "priority > 0 submissions admitted with max_new_tokens clamped to the brownout floor"),
+    # networked fleet (docs/serving.md "Networked fleet"): the socket
+    # transport's failure envelope + the HTTP/SSE door's stream health
+    ("counter", "fleet/net_reconnects", "socket-transport reconnect-with-resume successes: a dropped connection re-attached to the node's in-flight session instead of burning a re-route"),
+    ("counter", "fleet/net_lease_expiries", "socket connections torn down after a silent heartbeat-lease window (the half-open-link detector)"),
+    ("counter", "fleet/net_frames_corrupt", "received socket frames dropped for failing the length check or JSON decode (idempotent-RPC retry re-asks; submits fall through placement)"),
+    ("counter", "fleet/net_slow_client_drops", "HTTP streams dropped by the overrun policy: the client drained slower than its tokens arrived, so the request cancelled and the slot freed"),
+    # SLO autoscaling (docs/serving.md "SLO autoscaling"): the predictive
+    # cost-model view and the elastic-capacity transitions it drives
+    ("gauge", "fleet/requests_shed", "requests shed at replica doors fleet-wide (sum of the live replicas' shed counters at the last refresh)"),
+    ("gauge", "fleet/slo_ttft_p99_ms", "configured serving.slo.ttft_p99_ms target (0 = no TTFT SLO configured)"),
+    ("gauge", "fleet/slo_token_p99_ms", "configured serving.slo.token_p99_ms target (0 = no token-latency SLO configured)"),
+    ("gauge", "fleet/slo_predicted_ttft_ms", "cost-model-predicted TTFT under the current arrival rate and fleet capacity (the autoscaler's scale-up signal)"),
+    ("gauge", "fleet/slo_predicted_token_ms", "cost-model-predicted per-token decode latency at the current occupancy"),
+    ("gauge", "fleet/slo_utilization", "predicted fleet utilization: observed arrival rate over the cost model's sustainable request rate"),
+    ("gauge", "fleet/slo_error_budget_remaining", "fraction of the serving.slo.eval_window_secs window's samples meeting the SLO (1.0 = full budget; decays as observed p99 breaches the target)"),
+    ("counter", "fleet/slo_violations", "autoscaler evaluation samples where the observed fleet TTFT p99 exceeded the configured SLO target"),
+    ("gauge", "fleet/autoscale_target_replicas", "the autoscaler's current desired replica count (live capacity below this triggers re-provisioning)"),
+    ("counter", "fleet/autoscale_ups", "scale-up transitions executed (a new replica spawned and registered behind its half-open probe)"),
+    ("counter", "fleet/autoscale_downs", "scale-down transitions executed (a replica drained, retired, and its gauges removed)"),
+    ("counter", "fleet/autoscale_reprovisions", "replicas re-provisioned after chaos took capacity away (eviction, node death) — live count restored to the target"),
+    ("counter", "fleet/autoscale_refusals", "autoscale decisions refused by a clamp or a typed capacity refusal: cooldown, flap budget, the min/max replica bounds, or zero placeable capacity (per-reason fleet/autoscale_refusals/<code> counters register dynamically)"),
+    ("counter", "fleet/autoscale_failures", "scale operations that failed mid-execution (spawn raised, node unreachable, retire refused)"),
+    ("counter", "fleet/nodes_provisioned", "node agents launched by the provisioner seam (fresh mints and re-provisions of a dead node under its own name alike)"),
+    ("counter", "fleet/nodes_terminated", "provisioner-owned node agents terminated whole after scale-down drained their last replica"),
+    ("counter", "door/requests", "HTTP requests accepted by the front door"),
+    ("gauge", "door/open_streams", "SSE token streams currently open on the door"),
+    ("histogram", "door/stream_ttft_ms", "door-observed time to first streamed token event (request receipt to the first SSE token flush)"),
+    ("counter", "door/client_disconnects", "streams abandoned by the client before completion; their fleet requests cancel and the replica slot frees within one decode step"),
+    # durable control plane (docs/serving.md "Control-plane
+    # durability"): the fleet-state journal + crash-recovery envelope.
+    # fleet/journal_* counters register dynamically when the journal
+    # block arms (the disabled fleet builds no journal and exports
+    # nothing): journal_writes (segments committed), journal_recoveries
+    # (startups that adopted a prior incarnation's snapshot),
+    # journal_corruptions (segments rejected by the checksum/decode
+    # walk), journal_inflight_evicted (in-flight descriptors dropped
+    # past serving.journal.max_inflight).
+    ("gauge", "fleet/adopted_replicas", "replicas adopted from a prior router incarnation's journal at the last recovery (0 after a cold start)"),
+    ("counter", "door/streams_resumed", "SSE streams re-attached by a reconnecting client via Idempotency-Key + Last-Event-ID (the committed prefix replayed from the event id forward)"),
+    ("counter", "door/idempotent_replays", "requests answered from the door's idempotency cache without re-submitting to the fleet (terminal result replayed verbatim)"),
+)
+
+
+def register_serving_metrics(registry):
+    """Pre-register the fleet-level fleet/* catalog on ``registry`` (the
+    same golden-set contract ENGINE_METRICS / INFERENCE_METRICS give the
+    engines: an absent stream means a broken emitter, not an idle
+    fleet)."""
+    for kind, name, help_text in SERVING_METRICS:
+        getattr(registry, kind)(name, help=help_text)
+    return registry
+
+
 # Multi-tenant LoRA serving (adapters/). Registered by InferenceEngine
 # ONLY when the adapters block is enabled — adapter-free engines keep
 # their exports at the INFERENCE_METRICS set. Per-adapter request

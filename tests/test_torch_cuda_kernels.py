@@ -1480,3 +1480,46 @@ def test_speculative_equals_nonspeculative_on_the_card(cuda, draft):
     finally:
         ref.close()
         spec.close()
+
+
+@pytest.mark.cuda
+def test_two_replica_fleet_equals_one_engine_on_the_card(cuda):
+    """Float32: an in-process fleet of two engines on the card (one
+    driver thread each, prefix affinity) answers every request with the
+    greedy tokens of one engine alone, through the flash forward at
+    prefill (prefill_len 256) and the paged decode kernel."""
+    model = _serving_model(cuda, n_head=4)
+    model.requires_grad_(False)
+    block = {"max_batch_slots": 4, "max_seq_len": 256, "prefill_len": 256,
+             "kv_block_size": 16, "fused_decode": True,
+             "sampling": {"greedy": True}}
+
+    def factory():
+        return deepspeed_tpu_torch.init_inference(
+            model=model, config={"inference": dict(block)})
+
+    gen = torch.Generator().manual_seed(11)
+    head = torch.randint(0, 512, (48,), generator=gen).tolist()
+    prompts = [head + torch.randint(0, 512, (n,), generator=gen).tolist()
+               for n in (5, 9, 14)]
+    prompts += [torch.randint(0, 512, (n,), generator=gen).tolist()
+                for n in (20, 33, 7)]
+    single = factory()
+    try:
+        want = single.generate(prompts, max_new_tokens=16)
+    finally:
+        single.close()
+    flash_fwd.launches = paged_flash_decode.launches = 0
+    router = deepspeed_tpu_torch.init_fleet(
+        engine_factory=factory,
+        config={"serving": {"replicas": 2, "placement": "prefix_affinity",
+                            "affinity_prefix_tokens": 32}})
+    try:
+        reqs = [router.submit(p, max_new_tokens=16) for p in prompts]
+        assert [r.result(120.0) for r in reqs] == want
+        assert {r.replica_id for r in reqs} <= {"0", "1"}
+        assert all(r.reroutes == 0 for r in reqs)
+        assert router.evicted_ids == set()
+    finally:
+        router.shutdown()
+    assert flash_fwd.launches > 0 and paged_flash_decode.launches > 0
