@@ -275,15 +275,15 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                reported (request, step, the target's top-2 logit gap
                there) and the gap must lie under BF16_FLIP_TOL. (a) The
                contiguous cache (kv_block_size 0, 8 slots, max_seq_len
-               1024): 8 prompts of 128-512 tokens, 64 new tokens each,
+               1024): 8 prompts of 128-512 tokens, 32 new tokens each,
                the last joining mid-decode; float32 tokens equal the
                paged engine's (fused decode) and the full forward's
                greedy rollout; bf16: flash_fwd 12 launches a cold
                prefill, no paged decode, TTFT, decode tokens/s and the
                cache's bytes. (b) The host tier (kv_block_size 16, fused
-               decode, lazy_alloc, max_bytes 2 GiB, a 256-page pool): 24
+               decode, lazy_alloc, max_bytes 2 GiB, a 144-page pool): 24
                requests in 3 waves over three 512-token templates with
-               32-128-token suffixes, 384 new tokens each; spills,
+               32-128-token suffixes, 192 new tokens each; spills,
                promotions and preemptions each > 0, every promoted page
                (up to 64) equal to its spilled bytes bit for bit, float32
                tokens equal to a 512-page pool's; a second engine in the
@@ -298,7 +298,7 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                512): the GPT-2 small target with blocks 3-12's output
                projections and biases zero, with the agreeing draft (its
                first 2 blocks) and an independent random 2 x 768 draft; 8
-               prompts of 128-256 tokens, 128 new tokens each; float32
+               prompts of 128-256 tokens, 64 new tokens each; float32
                tokens equal the non-speculative engine's; bf16:
                acceptance, tokens a target step, decode tokens/s against
                the non-speculative engine, and the draft's flash_fwd
@@ -337,7 +337,7 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                arguments with add_config_arguments and calls
                initialize(args=...): bound to cuda:0 from LOCAL_RANK, an
                NCCL group, GPT-2 small at full width and depth (bf16,
-               FusedLamb, ZeRO stage 2, 3 windows; launches as phase 14a:
+               FusedLamb, ZeRO stage 2, 2 windows; launches as phase 14a:
                12 of each attention kernel a micro-step, 6 LAMB a step;
                path "launcher_rank0"); a second launch whose rank exits 3
                must make the runner exit 3. (b) Phase 14b's two gloo ranks
@@ -365,7 +365,7 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                small at full width and depth at mp 2 (6 heads and 25,152
                vocab rows a rank, initialize(param_specs=partition_specs(
                model))), 2 rows x 1024 a micro-step, 2 micro-steps a
-               window, 3 windows: (a) bf16 FusedLamb, dropout 0.1, ZeRO
+               window, 2 windows: (a) bf16 FusedLamb, dropout 0.1, ZeRO
                stage 2: the same losses on both ranks, 12 launches of each
                attention kernel a micro-step and 6 of LAMB a step on each
                rank (paths "mp2_rank0", "mp2_rank1"), the memory a rank
@@ -394,7 +394,7 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                the mp 1 engine's, bf16 may part only at a near-tie
                (BF16_FLIP_TOL). (b) GPT-2 small at full width and depth,
                seq 1024, trained at sp 2 on phase 16's batches (2 rows a
-               micro-step, 2 micro-steps, 3 windows): bf16 FusedLamb with
+               micro-step, 2 micro-steps, 2 windows): bf16 FusedLamb with
                dropout 0.1 through Ulysses (12 launches of each attention
                kernel a micro-step on each rank, all at [2, 6, 1024, 64])
                and through the ring (no attention kernel: plain score
@@ -407,7 +407,7 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                through host memory (gloo), so no time here is an mp 2 or
                sp 2 speed.
   18. mixture-of-experts and the pipeline — GPT-2 small at full width and
-               depth, seq 1024, one fixed batch of 8 rows, 3 windows of
+               depth, seq 1024, one fixed batch of 8 rows, 2 windows of
                one micro-step. (a) In this process, 8 MoE experts a
                block, top-2, capacity 1.25 (320 slots a row and expert;
                521.2 M parameters): bf16 FusedLamb with dropout 0.1 and
@@ -494,19 +494,55 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                with padding keys masked; paged decode at 8 slots over 32
                pages a slot; SGMV and its epilogue form at rank 16 over
                4 adapters on each of the 4 targets.
+  21. the networked fleet and its control plane (serving/transport.py,
+               node.py, journal.py, autoscaler.py, telemetry/hub.py) —
+               GPT-2 small at full width and depth in float32, its
+               weights through the port's checkpoint, paged KV with
+               fused decode and the prefix cache, prefill window 256.
+               One node agent process (``python -m
+               deepspeed_tpu_torch.serving.node --spec-file ... --port
+               0``, its stderr in a file printed on failure) hosts r0 and
+               r1 on the card. (a) init_fleet's socket backend with
+               prefix affinity serves phase 20's 16 requests: each
+               answered once (the node's own counts agree) with one
+               in-process engine's tokens; TTFT, tokens/s and a
+               request's round trip over the socket. (b) conn.reset and
+               frame.corrupt, each once, while 8 requests stream: none
+               lost, none run twice on the node, tokens (a)'s. (c)
+               serving.journal, and router.crash (SIGKILL) in a router
+               process of its own once its 4 requests stream; a second
+               init_fleet on the journal comes up at epoch + 1, adopts r0
+               and r1 with no engine built, the old epoch's control op
+               is fenced out, and the journalled requests finish with
+               (a)'s tokens, each run once on the node. (d)
+               serving.autoscale (min 1, max 2, the socket provider)
+               from r0 alone: a burst spawns a GPT-2 engine inside the
+               node on the card, idle retires it; the node's allocated
+               memory (its log) after its start, the spawn and the
+               retire, where the retire must leave less than one
+               engine's weights held, and the card's used memory before,
+               after the spawn and after the retire (nvidia-smi's row for
+               the node where it lists one). (e) serving.hub: the door's
+               /metrics and /statz answer 200 with the node's replica
+               series. The node's launches, logged at its exit, equal 12
+               a cold prefill and 12 a decode step of its engines'
+               counts (path "p21"); no node process is left. Then the
+               flash forward and paged decode against their plain
+               versions at phase 20's shapes.
   9. report  — a JSON line of per-kernel numbers (the D = 256, decode
                tail and BERT (rows 1b-3b) variants in entries of their
                own; the forward's tile forms in "tile_forms" of rows 1
-               and 1m; the launches of every path, phases 10 to 20
+               and 1m; the launches of every path, phases 10 to 21
                included), the nvidia-smi line, then the last line {"ok":
-               true, "device": {...}}. It comes after phase 20.
+               true, "device": {...}}. It comes after phase 21, and the
+               line before the kernels' logs each phase's seconds.
 
 ``--only-phase12`` builds every kernel and runs phase 12 alone, printing
 its numbers as one JSON line; ``--only-phase13``, ``--only-phase14``,
 ``--only-phase15``, ``--only-phase16``, ``--only-phase17``,
-``--only-phase18``, ``--only-phase19`` and ``--only-phase20`` the same
-for phases 13 to 20. ``--only-bert-attention`` builds the
-flash kernels, checks them under BERT's padding mask and the mask
+``--only-phase18``, ``--only-phase19``, ``--only-phase20`` and
+``--only-phase21`` the same for phases 13 to 21. ``--only-bert-attention``
+builds the flash kernels, checks them under BERT's padding mask and the mask
 patterns of phase 12a, and times rows 1b-3b (copy the script to the root
 of an unpacked parent under build/ to time both trees in one call).
 
@@ -552,8 +588,10 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -592,6 +630,7 @@ LORA_SHAPES = {"attn_qkvw": (768, 2304), "attn_ow": (768, 768),
 
 # the last lines log() printed, repeated on stderr by fail()
 RECENT = collections.deque(maxlen=40)
+T_START = time.monotonic()
 
 
 def fail(msg):
@@ -5219,16 +5258,19 @@ def phase_bert_layouts(seed, card):
 # ---------------------------------------------------------------------------
 INF_SLOTS = 8
 CONTIG_LENGTHS = (128, 183, 238, 293, 348, 403, 457, 512)
-CONTIG_NEW = 64
-TIER_POOL = 256          # pages; 8 slots x 64 pages would need 512
+CONTIG_NEW = 32
+# the tier's pool and new tokens: 8 requests of a wave need ~168 pages
+# (their shared 32-page template and ~17 pages each), over the pool's
+# 144, so the wave preempts; a pool of 8 slots x 64 pages holds all
+TIER_POOL = 144
 TIER_BYTES = 2 << 30
-TIER_NEW = 384
+TIER_NEW = 192
 TIER_SUFFIXES = (32, 46, 59, 73, 87, 101, 114, 128)
 TIER_WAVES = ((0,) * 8, (1,) * 8, (2,) * 4 + (0,) * 4)  # template per slot
 TIER_PAGE_CHECKS = 64    # promoted pages held bit for bit against the tier
 SPEC_K = 4
 SPEC_LENGTHS = (128, 146, 164, 183, 201, 219, 238, 256)
-SPEC_NEW = 128
+SPEC_NEW = 64
 SPEC_MAX_SEQ = 512
 # a bfloat16 greedy trajectory may leave another route's at a near-tie:
 # the target's top-2 logit gap at the first divergence must lie under
@@ -6231,7 +6273,7 @@ def phase_data_parallel(seed, card):
 # ---------------------------------------------------------------------------
 # phase 15: the launcher, and what the engine took over from the JAX one
 # ---------------------------------------------------------------------------
-P15_LAUNCH_WINDOWS = 3
+P15_LAUNCH_WINDOWS = 2
 P15_Z3G = "nothing_saveable+zero3_gathered"
 P15_COMPENSATED = {"data_types": {"master_dtype": "compensated"}}
 P15_ADAPTERS = {"adapters": {"enabled": True, "rank": LORA_RANK}}
@@ -6636,7 +6678,7 @@ def phase_launcher_and_refusals(seed, card):
 # phase 16: tensor parallelism (the model axis) on two ranks of the card
 # ---------------------------------------------------------------------------
 P16_MP = 2
-P16_MICRO, P16_ACCUM, P16_WINDOWS = 2, 2, 3
+P16_MICRO, P16_ACCUM, P16_WINDOWS = 2, 2, 2
 P16_RTOL = 2e-4
 
 
@@ -7351,7 +7393,7 @@ def phase_serve_and_sequence(seed, card):
 P18_WORLD = 2
 P18_EXPERTS, P18_TOP_K, P18_CAPACITY = 8, 2, 1.25
 P18_ROWS = 8  # a micro-step's global rows (ep 2: 4 a rank)
-P18_WINDOWS = 3  # one micro-step a window, one fixed batch
+P18_WINDOWS = 2  # one micro-step a window, one fixed batch
 P18_MICROBATCHES = 4  # pp 2: 4 microbatches of 2 rows
 P18_RTOL = 2e-4
 # the runs of phase 18's two ranks: (name, model kind, optimizer,
@@ -8628,14 +8670,16 @@ def p20_worker(model, prompts, want, serial_ms, card, root):
     return stats, launches
 
 
-def p20_check_kernels(seed):
-    """Each kernel of phase 20's paths against its plain version at the
+def p20_check_kernels(seed, phase=20, sgmv=True):
+    """Each kernel of phase 20's paths (and of phase 21's, which serve the
+    same engines from a node agent) against its plain version at the
     shapes the fleet's engines give it, float32 and bf16: the flash
     forward at the cold prefill's [1, 12, P20_PREFILL, 64] (causal, no
     mask, as the engine calls it; and with the prompt's padding keys
     masked), paged decode at INF_SLOTS slots over P20_MAX_SEQ / 16 pages
-    a slot, and SGMV (its delta and the epilogue form decode runs) at
-    rank 16 over 4 adapters on each target. Returns the max errors."""
+    a slot, and with ``sgmv`` SGMV (its delta and the epilogue form
+    decode runs) at rank 16 over 4 adapters on each target. Returns the
+    max errors."""
     from deepspeed_tpu_torch.ops import attention as A
     from deepspeed_tpu_torch.ops.decode_attention import (
         lora_sgmv,
@@ -8644,7 +8688,7 @@ def p20_check_kernels(seed):
         paged_flash_decode_plain,
     )
 
-    gen = torch.Generator(device="cuda").manual_seed(seed + 20)
+    gen = torch.Generator(device="cuda").manual_seed(seed + phase)
     shape = (1, 12, P20_PREFILL, 64)
     padded = torch.ones(1, P20_PREFILL, dtype=torch.int32, device="cuda")
     padded[0, 77:] = 0
@@ -8660,7 +8704,7 @@ def p20_check_kernels(seed):
             args = (q, k, v, mask, True)
             key = f"flash_fwd {name}"
             errs[key] = max(errs.get(key, 0.0), check_close(
-                f"phase 20 flash_fwd {case} {name} {list(shape)}",
+                f"phase {phase} flash_fwd {case} {name} {list(shape)}",
                 A.flash_fwd(*args)[0], A.flash_fwd_plain(*args)[0], dtype))
         qd = torch.randn(INF_SLOTS, heads, 64, device="cuda",
                          generator=gen).to(dtype)
@@ -8672,11 +8716,11 @@ def p20_check_kernels(seed):
                                   P20_MAX_SEQ - 1][:INF_SLOTS],
                                  dtype=torch.int32, device="cuda")
         errs[f"paged_decode {name}"] = check_close(
-            f"phase 20 paged_decode {name} [{INF_SLOTS}, {heads}, 64] over "
-            f"{mb} pages a slot",
+            f"phase {phase} paged_decode {name} [{INF_SLOTS}, {heads}, 64] "
+            f"over {mb} pages a slot",
             paged_flash_decode(qd, kp, vp, tables, positions),
             paged_flash_decode_plain(qd, kp, vp, tables, positions), dtype)
-        for target, (din, dout) in LORA_SHAPES.items():
+        for target, (din, dout) in (LORA_SHAPES.items() if sgmv else ()):
             x, a_pool, b_pool, ids = sgmv_case("cuda", gen, dtype, din, dout,
                                                INF_SLOTS)
             tag = f"phase 20 sgmv {target} {name} in {din} out {dout}"
@@ -8744,6 +8788,667 @@ def phase_fleet(seed, card):
     stats["wall_s"] = time.monotonic() - t_phase
     log(f"phase 20: {stats['wall_s']:.1f} s ({card})")
     return launches, stats
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the networked fleet and its control plane (serving/transport.py,
+# node.py, journal.py, autoscaler.py, telemetry/hub.py)
+# ---------------------------------------------------------------------------
+P21_NODE = "n0"
+P21_REPLICAS = ("r0", "r1")
+P21_MAX_REPLICAS = 3   # r0, r1 and the autoscaler's spawn
+P21_CHAOS = 8          # (b)'s requests, under conn.reset and frame.corrupt
+P21_CRASH = 4          # (c)'s journalled requests
+P21_STREAMED = 2       # tokens each (c) request streams before the crash
+P21_RPC_TIMEOUT = 3.0  # (b)/(c): a frame the chaos eats costs this much
+P21_AUTOSCALE = {"enabled": True, "min_replicas": 1, "max_replicas": 2,
+                 "interval_secs": 0.1, "cooldown_secs": 1.0,
+                 "hysteresis_secs": 2.0, "scale_up_utilization": 0.05,
+                 "scale_down_utilization": 0.02, "drain_timeout_secs": 60.0}
+P21_LAUNCH_MARK = "node: kernel launches "
+
+
+class P21Node:
+    """The node agent subprocess (``python -m
+    deepspeed_tpu_torch.serving.node --spec-file ... --port 0``) hosting
+    r0 and r1, its stderr in a file; ``fail`` prints the file's tail
+    first."""
+
+    def __init__(self, root, engine_spec):
+        self.root = root
+        self.log_path = root / "node.log"
+        spec = {"node_id": P21_NODE,
+                "replicas": {name: engine_spec for name in P21_REPLICAS},
+                "max_replicas": P21_MAX_REPLICAS, "lease_secs": 30.0,
+                "resume_grace_secs": 120.0}
+        spec_path = root / "node_spec.json"
+        spec_path.write_text(json.dumps(spec))
+        self._log = open(self.log_path, "w")
+        checkout = Path(__file__).resolve().parent
+        t0 = time.monotonic()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "deepspeed_tpu_torch.serving.node",
+             "--spec-file", str(spec_path), "--port", "0"],
+            cwd=str(checkout), stdout=subprocess.PIPE, stderr=self._log,
+            text=True)
+        box = {}
+        reader = threading.Thread(
+            target=lambda: box.update(line=self.proc.stdout.readline()),
+            daemon=True)
+        reader.start()
+        reader.join(300.0)
+        line = box.get("line") or ""
+        try:
+            info = json.loads(line)
+        except ValueError:
+            info = {}
+        if info.get("event") != "listening":
+            self.fail(f"phase 21: the node agent announced {line!r} "
+                      f"(exit code {self.proc.poll()})")
+        self.start_s = time.monotonic() - t0
+        self.address = (info["host"], int(info["port"]))
+        self.announce = info
+
+    @property
+    def addr(self):
+        return f"{self.address[0]}:{self.address[1]}"
+
+    def nodes(self, replicas=P21_REPLICAS):
+        return {P21_NODE: {"address": self.addr, "replicas": list(replicas)}}
+
+    def text(self):
+        self._log.flush()
+        return self.log_path.read_text()
+
+    def fail(self, msg):
+        log(self.text()[-6000:])
+        self.stop()
+        fail(msg)
+
+    def counts(self):
+        """Each hosted replica's engine counts over the control session:
+        cold prefills, decode steps, requests completed."""
+        from deepspeed_tpu_torch.serving.transport import NodeControlClient
+        from deepspeed_tpu_torch.telemetry.registry import wire_scalars
+
+        reply = NodeControlClient(self.address).metrics_snapshot()
+        out = {}
+        for rep, entries in reply["replicas"].items():
+            s = wire_scalars(entries)
+            out[rep] = {"cold_prefills": int(s["infer/prefix_misses"]),
+                        "decode_steps": int(s["infer/token_latency_ms/count"]),
+                        "decode_ms_sum": s["infer/token_latency_ms/sum"],
+                        "ttft_count": int(s["infer/ttft_ms/count"]),
+                        "ttft_ms_sum": s["infer/ttft_ms/sum"],
+                        "completed": int(s["infer/requests_completed"])}
+        return out
+
+    def memory(self):
+        """The node process's card memory as ``nvidia-smi
+        --query-compute-apps`` reports it (None where it lists no row for
+        the node's pid, as in a container whose pids it cannot see), and
+        the card's used memory from the driver (``cudaMemGetInfo``), MiB;
+        this process allocates nothing while phase 21 measures, so a
+        change of the latter is the node's."""
+        rows = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, check=True).stdout
+        node = None
+        for row in rows.strip().splitlines():
+            pid, mib = (x.strip() for x in row.split(","))
+            if pid.isdigit() and int(pid) == self.proc.pid:
+                node = float(mib)
+        free, total = torch.cuda.mem_get_info()
+        return {"node_mib": node, "card_used_mib": (total - free) / 2 ** 20,
+                "smi_rows": len(rows.strip().splitlines())}
+
+    def stop(self):
+        """SIGTERM (the node shuts down and logs its launches), then
+        SIGKILL if it outlives 60 s."""
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(60.0)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self._log.close()
+
+
+def p21_completed(counts):
+    return sum(c["completed"] for c in counts.values())
+
+
+def p21_fleet(node, prompts, want, model, vocab, card):
+    """(a) init_fleet's socket backend over the node's r0 and r1 with
+    prefix affinity: 16 requests, each answered once with the single
+    engine's tokens; then a request's round trip one at a time over the
+    socket."""
+    import deepspeed_tpu_torch
+
+    from deepspeed_tpu_torch.serving.transport import SocketReplica
+
+    tag = "phase 21(a) socket fleet"
+    # each engine's first request pays its process's first launches (in
+    # process, phase 20 paid them): one request a replica, not timed
+    g = torch.Generator().manual_seed(P20_NEW)
+    for name in P21_REPLICAS:
+        replica = SocketReplica(f"warm:{name}", node.address,
+                                remote_name=name).start()
+        try:
+            replica.submit(random_tokens(g, 40, vocab),
+                           max_new_tokens=4).result(300.0)
+        finally:
+            replica.shutdown()
+    counts0 = node.counts()
+    before = p21_completed(counts0)
+    router = deepspeed_tpu_torch.init_fleet(
+        nodes=node.nodes(),
+        config={"serving": {"backend": "socket",
+                            "placement": "prefix_affinity",
+                            "affinity_prefix_tokens": P20_AFFINITY}})
+    try:
+        t0 = time.monotonic()
+        reqs = [router.submit(p, max_new_tokens=P20_NEW) for p in prompts]
+        submit_s = time.monotonic() - t0
+        got = [r.result(300.0) for r in reqs]
+        wall = time.monotonic() - t0
+        same_tokens(tag, prompts, got, want, model, vocab)
+        snap = p20_clean(tag, router, reqs)
+        serial_ms, serial = p20_serial_ms(router, prompts[:P20_SERIAL])
+        if [r.tokens for r in serial] != want[:P20_SERIAL]:
+            node.fail(f"{tag}: the one-at-a-time requests' tokens differ")
+    finally:
+        router.shutdown()
+    counts1 = node.counts()
+    done = p21_completed(counts1) - before
+
+    def delta(key):
+        return sum(counts1[r][key] - counts0[r][key] for r in counts1)
+
+    # the engines' own view inside the node: their mean TTFT and decode
+    # step over (a), the one-at-a-time requests included
+    engine_ttft_ms = delta("ttft_ms_sum") / max(delta("ttft_count"), 1)
+    engine_step_ms = delta("decode_ms_sum") / max(delta("decode_steps"), 1)
+    if snap["fleet/requests_completed"] != len(prompts) or done != len(
+            prompts) + P20_SERIAL:
+        node.fail(f"{tag}: the fleet completed "
+                  f"{snap['fleet/requests_completed']} and the node {done} "
+                  f"requests for {len(prompts)} + {P20_SERIAL} sent")
+    served = sorted({r.replica_id for r in reqs})
+    stats = {"card": card, "requests": len(reqs), "replicas_serving": served,
+             "ttft_p50_ms": snap["fleet/ttft_p50_ms"],
+             "ttft_p99_ms": snap["fleet/ttft_p99_ms"],
+             "affinity_hits": snap["fleet/affinity_hits"],
+             "tokens_per_s": len(prompts) * P20_NEW / wall, "wall_s": wall,
+             "submit_s": submit_s, "ms_a_request": serial_ms,
+             "engine_ttft_ms_mean": engine_ttft_ms,
+             "engine_decode_step_ms_mean": engine_step_ms}
+    log(f"  {tag}: {len(reqs)} requests on {served}, each answered once "
+        f"with the single engine's float32 tokens; TTFT p50 "
+        f"{stats['ttft_p50_ms']:.3f} ms p99 {stats['ttft_p99_ms']:.3f} ms, "
+        f"{stats['tokens_per_s']:.1f} tokens/s over the fleet's wall (the "
+        f"{len(prompts)} submits took {submit_s:.3f} s), {serial_ms:.3f} ms "
+        f"a request one at a time over the socket; inside the node the "
+        f"engines' mean TTFT {engine_ttft_ms:.3f} ms and decode step "
+        f"{engine_step_ms:.3f} ms ({card})")
+    return stats
+
+
+def p21_chaos(node, prompts, want, model, vocab, card):
+    """(b) conn.reset once and frame.corrupt once on the router's sends
+    while 8 requests stream: each answered once with (a)'s tokens, and
+    the node ran each exactly once."""
+    import deepspeed_tpu_torch
+
+    tag = "phase 21(b) conn.reset + frame.corrupt"
+    prompts, want = prompts[:P21_CHAOS], want[:P21_CHAOS]
+    before = p21_completed(node.counts())
+    router = deepspeed_tpu_torch.init_fleet(
+        nodes=node.nodes(),
+        config={"serving": {"backend": "socket",
+                            "placement": "prefix_affinity",
+                            "affinity_prefix_tokens": P20_AFFINITY,
+                            "rpc_timeout_secs": P21_RPC_TIMEOUT},
+                "resilience": {"fault_injection": {
+                    "enabled": True, "seed": 0, "faults": [
+                        {"site": "conn.reset", "after": 4, "times": 1},
+                        {"site": "frame.corrupt", "after": 7,
+                         "times": 1}]}}})
+    try:
+        reqs = [router.submit(p, max_new_tokens=P20_NEW) for p in prompts]
+        got = [r.result(300.0) for r in reqs]
+        injected = dict(router._faults.injected)
+        router.refresh_telemetry()
+        snap = router.metrics.snapshot()
+    finally:
+        router.shutdown()
+    same_tokens(tag, prompts, got, want, model, vocab)
+    done = p21_completed(node.counts()) - before
+    bad = [r.request_id for r in reqs if r.finish_reason != "max_new_tokens"]
+    if injected != {"conn.reset": 1, "frame.corrupt": 1}:
+        node.fail(f"{tag}: injected {injected}")
+    if bad or done != len(prompts) or snap[
+            "fleet/requests_completed"] != len(prompts):
+        node.fail(f"{tag}: requests {bad} unfinished; the node completed "
+                  f"{done}, the fleet {snap['fleet/requests_completed']}, "
+                  f"of {len(prompts)}")
+    net = {k: v for k, v in snap.items() if k.startswith("fleet/net_")}
+    stats = {"card": card, "injected": injected, "net": net,
+             "rerouted": snap["fleet/requests_rerouted"],
+             "node_completed": done}
+    log(f"  {tag}: {len(prompts)} requests, zero lost, zero doubled (the "
+        f"node completed {done}), tokens equal (a)'s; injected {injected}, "
+        f"{net}, rerouted {stats['rerouted']}")
+    return stats
+
+
+def phase21_router(spec_path):
+    """(c)'s first router, in a process of its own: init_fleet over the
+    node with the journal armed, P21_CRASH requests with idempotency keys;
+    once each has streamed P21_STREAMED tokens the router.crash site is
+    armed for the next monitor tick, which SIGKILLs this process. Prints
+    one JSON line a finished request and one at submission."""
+    import deepspeed_tpu_torch
+
+    spec = json.loads(Path(spec_path).read_text())
+    router = deepspeed_tpu_torch.init_fleet(
+        nodes=spec["nodes"],
+        config={"serving": {"backend": "socket",
+                            "placement": "prefix_affinity",
+                            "affinity_prefix_tokens": P20_AFFINITY,
+                            "rpc_timeout_secs": P21_RPC_TIMEOUT,
+                            "journal": {"enabled": True,
+                                        "dir": spec["journal"]}},
+                "resilience": {"fault_injection": {
+                    "enabled": True, "faults": [
+                        {"site": "router.crash", "after": 10 ** 9,
+                         "times": 1}]}}})
+    lock = threading.Lock()
+
+    def say(obj):
+        # one whole line at a time: the reporting threads share stdout
+        with lock:
+            sys.stdout.write(json.dumps(obj) + "\n")
+            sys.stdout.flush()
+
+    reqs = [router.submit(p, max_new_tokens=P20_NEW,
+                          idempotency_key=f"p21c-{i}")
+            for i, p in enumerate(spec["prompts"])]
+    say({"event": "submitted", "epoch": router._journal.incarnation})
+
+    def report(i, r):
+        r._done.wait()
+        say({"event": "answered", "key": f"p21c-{i}", "tokens": r.tokens,
+             "reason": r.finish_reason})
+
+    for i, r in enumerate(reqs):
+        threading.Thread(target=report, args=(i, r), daemon=True).start()
+
+    def streamed(r):
+        entry = router._outstanding.get(r.request_id)
+        return r.done or (entry is not None
+                          and len(entry[1].tokens) >= P21_STREAMED)
+
+    deadline = time.monotonic() + 120.0
+    while not all(streamed(r) for r in reqs):
+        if time.monotonic() > deadline:
+            say({"event": "no stream"})
+            sys.exit(1)
+        time.sleep(0.002)
+    faults = router._faults
+    with faults._lock:
+        for f in faults._specs:
+            f.after = faults._passes.get("router.crash", 0)
+    say({"event": "armed"})
+    time.sleep(120.0)
+    sys.exit(1)  # the crash site never fired
+
+
+def p21_crash(node, prompts, want, model, vocab, card, root):
+    """(c) serving.journal, router.crash mid-stream in a router process,
+    and a second init_fleet on the same journal: epoch + 1, r0 and r1
+    adopted with no engine built, the old epoch's late op fenced out, the
+    journalled requests finished with (a)'s tokens (those answered before
+    the crash too), and each run once on the node."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.serving.replica import FencedOut
+    from deepspeed_tpu_torch.serving.transport import NodeControlClient
+
+    tag = "phase 21(c) router.crash + journal recovery"
+    prompts, want = prompts[:P21_CRASH], want[:P21_CRASH]
+    journal = root / "journal"
+    spec = root / "router_spec.json"
+    spec.write_text(json.dumps({"nodes": node.nodes(), "prompts": prompts,
+                                "journal": str(journal)}))
+    before = p21_completed(node.counts())
+    builds = node.text().count("init_inference:")
+    checkout = Path(__file__).resolve().parent
+    t0 = time.monotonic()
+    with open(root / "router.log", "w") as err:
+        child = subprocess.run(
+            [sys.executable, str(checkout / "chip_smoke.py"),
+             "--phase21-router", str(spec)],
+            cwd=str(checkout), stdout=subprocess.PIPE, stderr=err,
+            text=True, timeout=300)
+    child_s = time.monotonic() - t0
+    events = [json.loads(ln) for ln in child.stdout.splitlines()
+              if ln.startswith("{")]
+    kinds = [e["event"] for e in events]
+    if child.returncode != -signal.SIGKILL or "armed" not in kinds:
+        log((root / "router.log").read_text()[-4000:])
+        node.fail(f"{tag}: the router process exited {child.returncode} "
+                  f"after {kinds}, not by the router.crash site")
+    old_epoch = events[0]["epoch"]
+    answered = {e["key"]: e for e in events if e["event"] == "answered"}
+    t0 = time.monotonic()
+    router = deepspeed_tpu_torch.init_fleet(
+        nodes=node.nodes(),
+        config={"serving": {"backend": "socket",
+                            "placement": "prefix_affinity",
+                            "affinity_prefix_tokens": P20_AFFINITY,
+                            "rpc_timeout_secs": P21_RPC_TIMEOUT,
+                            "journal": {"enabled": True,
+                                        "dir": str(journal)}}})
+    recover_s = time.monotonic() - t0
+    try:
+        epoch = router._journal.incarnation
+        adopted = router.metrics.gauge("fleet/adopted_replicas").value
+        finished, results = [], {}
+        for i, p in enumerate(prompts):
+            key = f"p21c-{i}"
+            fr = router.find_inflight(key)
+            if fr is not None:
+                results[key] = fr.result(300.0)
+                finished.append(key)
+            elif key in answered and answered[key]["reason"] == \
+                    "max_new_tokens":
+                results[key] = answered[key]["tokens"]
+            else:
+                node.fail(f"{tag}: {key} was neither journalled nor "
+                          "answered before the crash")
+        try:
+            NodeControlClient(node.address, epoch=old_epoch).node_info()
+            fenced = None
+        except FencedOut as e:
+            fenced = (e.epoch, e.high_water)
+        roster = NodeControlClient(node.address).node_info()["replicas"]
+    finally:
+        router.shutdown()
+    got = [results[f"p21c-{i}"] for i in range(len(prompts))]
+    same_tokens(tag, prompts, got, want, model, vocab)
+    done = p21_completed(node.counts()) - before
+    if epoch != old_epoch + 1 or adopted != len(P21_REPLICAS):
+        node.fail(f"{tag}: recovered at epoch {epoch} (the crashed router "
+                  f"{old_epoch}) adopting {adopted} replicas")
+    if fenced != (old_epoch, epoch):
+        node.fail(f"{tag}: the old router's late op gave {fenced}")
+    if roster != list(P21_REPLICAS) or node.text().count(
+            "init_inference:") != builds:
+        node.fail(f"{tag}: the node's roster {roster}; engines built since "
+                  "the crash")
+    if not finished or done != len(prompts):
+        node.fail(f"{tag}: {len(finished)} requests finished after the "
+                  f"crash; the node completed {done} of {len(prompts)}")
+    stats = {"card": card, "epoch": [old_epoch, epoch], "adopted": adopted,
+             "finished_after_crash": len(finished),
+             "answered_before_crash": len(prompts) - len(finished),
+             "fenced": fenced, "router_process_s": child_s,
+             "recover_s": recover_s}
+    log(f"  {tag}: the router process died by the site after {kinds}; the "
+        f"second init_fleet came up at epoch {epoch} in {recover_s:.3f} s "
+        f"adopting {adopted} replicas (no engine built), fenced the old "
+        f"epoch {fenced}, finished {len(finished)} journalled requests "
+        f"({stats['answered_before_crash']} answered before the crash); "
+        f"the node ran each once; tokens equal (a)'s")
+    return stats
+
+
+def p21_autoscale(node, prompts, want, model, vocab, card):
+    """(d) serving.autoscale (min 1, max 2, the socket provider) from one
+    replica: a burst scales up, spawn_replica builds a GPT-2 engine inside
+    the node on the card; idle past the cooldown retires it. The node
+    process's card memory before, after the spawn and after the retire."""
+    import deepspeed_tpu_torch
+
+    tag = "phase 21(d) autoscale"
+    builds = node.text().count("dtype fp32 on cuda")
+    mem = {"before": node.memory()}
+    router = deepspeed_tpu_torch.init_fleet(
+        nodes=node.nodes(("r0",)),
+        config={"serving": {"backend": "socket",
+                            "autoscale": P21_AUTOSCALE}})
+    scaler = router._autoscaler
+    try:
+        t0 = time.monotonic()
+        reqs = [router.submit(p, max_new_tokens=P20_NEW) for p in prompts]
+        t_decide = None
+        while len(router.live_replica_ids()) < 2:
+            if t_decide is None and scaler.state.op_in_flight:
+                t_decide = time.monotonic()
+            if time.monotonic() - t0 > 300.0:
+                node.fail(f"{tag}: the burst never scaled the fleet up")
+            time.sleep(0.005)
+        t_join = time.monotonic()
+        spawned = sorted(set(router.live_replica_ids()) - {f"{P21_NODE}:r0"})
+        got = [r.result(300.0) for r in reqs]
+        mem["spawned"] = node.memory()
+        # the spawned engine's counts, read before the idle window
+        # (hysteresis_secs) ends and the retire takes them away
+        spawn_counts = node.counts()
+        roster_up = sorted(spawn_counts)
+        while len(router.live_replica_ids()) > 1:
+            if time.monotonic() - t_join > 300.0:
+                node.fail(f"{tag}: idle never scaled the fleet down")
+            time.sleep(0.02)
+        t_down = time.monotonic()
+        deadline = time.monotonic() + 60.0
+        while sorted(node.counts()) != list(P21_REPLICAS):
+            if time.monotonic() > deadline:
+                node.fail(f"{tag}: the node still hosts "
+                          f"{sorted(node.counts())}")
+            time.sleep(0.05)
+        # the counter moves once the provider's retire returns
+        downs = router.metrics.counter("fleet/autoscale_downs")
+        while downs.value < 1 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        snap = router.metrics.snapshot()
+    finally:
+        router.shutdown()
+    mem["retired"] = node.memory()
+    same_tokens(tag, prompts, got, want, model, vocab)
+    if roster_up != sorted([*P21_REPLICAS, spawned[0].split(":")[1]]) or (
+            node.text().count("dtype fp32 on cuda") != builds + 1):
+        node.fail(f"{tag}: the node's roster {roster_up} after the spawn "
+                  f"of {spawned}")
+    if snap["fleet/autoscale_ups"] < 1 or snap["fleet/autoscale_downs"] < 1:
+        node.fail(f"{tag}: ups {snap['fleet/autoscale_ups']}, downs "
+                  f"{snap['fleet/autoscale_downs']}")
+    key = "node_mib" if all(m["node_mib"] is not None
+                            for m in mem.values()) else "card_used_mib"
+    engine_mib = mem["spawned"][key] - mem["before"][key]
+    held_mib = mem["retired"][key] - mem["before"][key]
+    if engine_mib <= 0 or held_mib >= engine_mib:
+        node.fail(f"{tag}: card memory {mem} MiB: the retire freed nothing")
+    spawned_name = spawned[0].split(":")[1]
+    # the node's own allocator after its start, the spawn and the retire
+    # (its log): the retire must free the spawned engine, not leave one
+    # engine's weights held
+    held = {}
+    for line in node.text().splitlines():
+        for what, mark in (("start", "replica(s) on"),
+                           ("spawned", "spawned replica"),
+                           ("retired", "retired replica")):
+            if mark in line and "GB allocated" in line:
+                log(f"  node: {line.split('] ')[-1]}")
+                held[what] = float(line.split("; ")[-1].split(" GB")[0])
+    weights_gb = sum(p.numel() * p.element_size()
+                     for p in model.parameters()) / 1e9
+    if len(held) != 3 or held["retired"] - held["start"] >= weights_gb:
+        node.fail(f"{tag}: the node's allocated GB {held}: the retire left "
+                  f"one engine's weights ({weights_gb:.3f} GB) held")
+    stats = {"card": card, "spawned": spawned,
+             "decide_s": None if t_decide is None else t_decide - t0,
+             "spawn_s": t_join - (t_decide or t0), "burst_to_join_s":
+             t_join - t0, "join_to_retire_s": t_down - t_join,
+             "memory_mib": mem, "memory_read": key, "engine_mib": engine_mib,
+             "node_allocated_gb": held, "weights_gb": weights_gb,
+             "held_after_retire_mib": held_mib,
+             "ups": snap["fleet/autoscale_ups"],
+             "downs": snap["fleet/autoscale_downs"],
+             "spawned_counts": spawn_counts[spawned_name]}
+    log(f"  {tag}: the burst of {len(prompts)} requests scaled up to "
+        f"{spawned} (decided at {stats['decide_s']} s, joined "
+        f"{stats['spawn_s']:.3f} s later, the engine built inside the node "
+        f"on the card), idle retired it {stats['join_to_retire_s']:.3f} s "
+        f"after the join; the node's allocated GB {held} (an engine's "
+        f"weights {weights_gb:.3f}); the card's memory {mem} MiB (by {key}:"
+        f" the spawn {engine_mib:.0f}, held after the retire "
+        f"{held_mib:.0f}); tokens equal (a)'s ({card})")
+    return stats
+
+
+def p21_hub(node, prompt, card):
+    """(e) serving.hub armed: the door's /metrics and /statz answer 200
+    and carry the node's replica series."""
+    import http.client
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.serving import serve_http
+
+    tag = "phase 21(e) hub"
+    router = deepspeed_tpu_torch.init_fleet(
+        nodes=node.nodes(),
+        config={"serving": {"backend": "socket",
+                            "hub": {"enabled": True,
+                                    "interval_secs": 0.25}}})
+    door = serve_http(router, host="127.0.0.1", port=0)
+    out = {}
+    try:
+        router.submit(prompt, max_new_tokens=4).result(300.0)
+        router.hub.scrape_once()
+        host, port = door.address
+        for path in ("/metrics", "/statz"):
+            conn = http.client.HTTPConnection(host, port, timeout=60.0)
+            conn.request("GET", path)
+            resp = conn.getresponse()
+            out[path] = (resp.status, resp.read().decode())
+            conn.close()
+    finally:
+        door.shutdown()
+        router.shutdown()
+    metrics, statz = out["/metrics"], out["/statz"]
+    series = [ln for ln in metrics[1].splitlines()
+              if ln.startswith("infer_requests_completed{")]
+    want = {f'node="{P21_NODE}",replica="{r}"' for r in P21_REPLICAS}
+    replicas = sorted(json.loads(statz[1])["replicas"]) if statz[0] == 200 \
+        else []
+    if metrics[0] != 200 or not all(any(w in s for s in series)
+                                    for w in want):
+        node.fail(f"{tag}: /metrics {metrics[0]}, series {series}")
+    if statz[0] != 200 or replicas != [f"{P21_NODE}/{r}"
+                                       for r in P21_REPLICAS]:
+        node.fail(f"{tag}: /statz {statz[0]}, replicas {replicas}")
+    log(f"  {tag}: /metrics 200 with {series}; /statz 200 with replicas "
+        f"{replicas}")
+    return {"card": card, "series": series, "statz_replicas": replicas}
+
+
+def p21_leftover_nodes():
+    """Pids of node agent processes still running on this machine."""
+    out = []
+    for entry in Path("/proc").iterdir():
+        if not entry.name.isdigit():
+            continue
+        try:
+            cmd = (entry / "cmdline").read_bytes()
+        except OSError:
+            continue
+        if b"deepspeed_tpu_torch.serving.node" in cmd:
+            out.append(int(entry.name))
+    return out
+
+
+def phase_fleet_net(seed, card):
+    """Phase 21. Returns ({kernel: {path: launches}}, stats)."""
+    import deepspeed_tpu_torch  # noqa: F401
+    from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
+
+    t_phase = time.monotonic()
+    # absolute: the node and router processes run from the checkout
+    root = (Path("build") / "phase21").resolve()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    cfg = GPT2Config.small()
+    model = GPT2LMHeadModel(cfg, device="cuda", seed=seed)
+    model.requires_grad_(False)
+    vocab = cfg.vocab_size
+    prompts = p20_prompts(seed, vocab)
+    log(f"phase 21: the networked fleet, GPT-2 small ({cfg.n_layer} x "
+        f"{cfg.n_embd}, vocab {cfg.vocab_padded}), float32, one node agent "
+        f"process hosting {list(P21_REPLICAS)}")
+    single = p20_factory(model, "fp32")()
+    try:
+        want = single.generate(prompts, max_new_tokens=P20_NEW)
+    finally:
+        single.close()
+        del single
+    t0 = time.monotonic()
+    p20_checkpoint(model, root / "ckpt")
+    save_s = time.monotonic() - t0
+    engine_spec = {"model": {}, "config": {"inference": dict(
+        p20_block("fp32"), checkpoint={"load_dir": str(root / "ckpt")})}}
+    node = P21Node(root, engine_spec)
+    stats = {"card": card, "checkpoint_save_s": save_s,
+             "node_start_s": node.start_s}
+    log(f"  the node agent announced {node.announce} after "
+        f"{node.start_s:.2f} s (its engines built from the checkpoint, "
+        f"saved in {save_s:.2f} s)")
+    try:
+        stats["a"] = p21_fleet(node, prompts, want, model, vocab, card)
+        stats["b"] = p21_chaos(node, prompts, want, model, vocab, card)
+        stats["c"] = p21_crash(node, prompts, want, model, vocab, card, root)
+        stats["d"] = p21_autoscale(node, prompts, want, model, vocab, card)
+        stats["e"] = p21_hub(node, prompts[0], card)
+        final = node.counts()
+    except BaseException:
+        if node.proc.poll() is None:
+            log(node.text()[-6000:])
+        node.stop()
+        raise
+    node.stop()
+    text = node.log_path.read_text()
+    lines = [ln for ln in text.splitlines() if ln.startswith(P21_LAUNCH_MARK)]
+    if len(lines) != 1:
+        log(text[-6000:])
+        fail(f"phase 21: the node logged {len(lines)} launch lines (exit "
+             f"code {node.proc.returncode})")
+    launches = json.loads(lines[0][len(P21_LAUNCH_MARK):])
+    spawned = stats["d"]["spawned_counts"]
+    st = {k: sum(c[k] for c in final.values()) + spawned[k]
+          for k in ("cold_prefills", "decode_steps")}
+    p20_check_launches("phase 21 node", launches, st)
+    left = p21_leftover_nodes()
+    if node.proc.returncode is None or left:
+        fail(f"phase 21: node agent processes left: {left}")
+    stats["launches"] = launches
+    stats["engine_counts"] = st
+    stats["kernels_vs_plain"] = p20_check_kernels(seed, phase=21,
+                                                  sgmv=False)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    stats["wall_s"] = time.monotonic() - t_phase
+    log(f"phase 21: the node's launches over its life {launches} = 12 x "
+        f"its engines' {st}; no node process left; {stats['wall_s']:.1f} s "
+        f"({card})")
+    out = {name: {} for name in launch_counters()}
+    for name, n in launches.items():
+        if n:
+            out[name]["p21"] = n
+    return out, stats
 
 
 def only_flash(device, seed):
@@ -8893,6 +9598,13 @@ def main():
                         "(the serving fleet on one host: in-process and "
                         "subprocess replicas, rolling restart, brownout, "
                         "multi-LoRA and the HTTP door)")
+    parser.add_argument("--only-phase21", action="store_true",
+                        help="build every kernel and run phase 21 alone "
+                        "(the networked fleet: a node agent process over "
+                        "TCP, chaos, the journal's recovery, the "
+                        "autoscaler and the hub)")
+    parser.add_argument("--phase21-router", metavar="SPEC",
+                        help=argparse.SUPPRESS)
     parser.add_argument("--phase14-rank", metavar="SPEC",
                         help=argparse.SUPPRESS)
     parser.add_argument("--phase19-rank", metavar="SPEC",
@@ -8932,6 +9644,9 @@ def main():
         return
     if args.phase19_rank:
         phase19_rank(args.phase19_rank)
+        return
+    if args.phase21_router:
+        phase21_router(args.phase21_router)
         return
     from deepspeed_tpu_torch.ops import kernel_lib
 
@@ -9036,6 +9751,13 @@ def main():
                           "card": smi}))
         return
 
+    if args.only_phase21:
+        kernel_lib.build()
+        launches, stats = phase_fleet_net(args.seed, smi)
+        print(json.dumps({"phase21": stats, "launches": launches,
+                          "card": smi}))
+        return
+
     if args.only_phase13:
         kernel_lib.build()
         launches, stats = phase_inference_rest(args.seed, smi)
@@ -9061,26 +9783,44 @@ def main():
     log("phase 2: the kernel each D = 256 call launches (torch.profiler)")
     routes = check_wide_routes(device)
 
-    kernels = phase_kernels(device, args.seed)
-    phase_train_kernels(device, args.seed, kernels)
-    phase_sgmv_kernels(device, args.seed, kernels)
-    serve_launches, slice_stats = phase_slice(args.seed, smi)
-    launches, train_stats = phase_train(args.seed, smi)
-    adapter_launches, adapter_stats = phase_adapters(args.seed, smi)
-    hd_launches, hd_stats = phase_head_dims(args.seed, smi)
-    tel_launches, tel_stats = phase_telemetry(args.seed, smi)
-    res_launches, res_stats = phase_resilience(args.seed, smi)
-    data_launches, data_stats = phase_data_remat(args.seed, smi)
-    bert_launches, bert_stats, bert_rows = phase_bert_layouts(args.seed, smi)
-    inf_launches, inf_stats = phase_inference_rest(args.seed, smi)
-    dp_launches, dp_stats = phase_data_parallel(args.seed, smi)
-    a6b_launches, a6b_stats = phase_launcher_and_refusals(args.seed, smi)
-    mp_launches, mp_stats = phase_model_parallel(args.seed, smi)
-    sp_launches, sp_stats = phase_serve_and_sequence(args.seed, smi)
-    moe_launches, moe_stats = phase_moe_and_pipeline(args.seed, smi)
-    a7f_launches, a7f_stats = phase_parallel_lifted_and_autotune(args.seed,
-                                                                 smi)
-    fleet_launches, fleet_stats = phase_fleet(args.seed, smi)
+    seconds = {"1-2": time.monotonic() - T_START}
+
+    def timed(tag, fn, *fn_args):
+        t_fn = time.monotonic()
+        out = fn(*fn_args)
+        seconds[tag] = time.monotonic() - t_fn
+        return out
+
+    kernels = timed("3", phase_kernels, device, args.seed)
+    timed("3b", phase_train_kernels, device, args.seed, kernels)
+    timed("3c", phase_sgmv_kernels, device, args.seed, kernels)
+    serve_launches, slice_stats = timed("4", phase_slice, args.seed, smi)
+    launches, train_stats = timed("5", phase_train, args.seed, smi)
+    adapter_launches, adapter_stats = timed("6", phase_adapters, args.seed,
+                                            smi)
+    hd_launches, hd_stats = timed("7", phase_head_dims, args.seed, smi)
+    tel_launches, tel_stats = timed("8", phase_telemetry, args.seed, smi)
+    res_launches, res_stats = timed("10", phase_resilience, args.seed, smi)
+    data_launches, data_stats = timed("11", phase_data_remat, args.seed, smi)
+    bert_launches, bert_stats, bert_rows = timed(
+        "12", phase_bert_layouts, args.seed, smi)
+    inf_launches, inf_stats = timed("13", phase_inference_rest, args.seed,
+                                    smi)
+    dp_launches, dp_stats = timed("14", phase_data_parallel, args.seed, smi)
+    a6b_launches, a6b_stats = timed("15", phase_launcher_and_refusals,
+                                    args.seed, smi)
+    mp_launches, mp_stats = timed("16", phase_model_parallel, args.seed, smi)
+    sp_launches, sp_stats = timed("17", phase_serve_and_sequence, args.seed,
+                                  smi)
+    moe_launches, moe_stats = timed("18", phase_moe_and_pipeline, args.seed,
+                                    smi)
+    a7f_launches, a7f_stats = timed(
+        "19", phase_parallel_lifted_and_autotune, args.seed, smi)
+    fleet_launches, fleet_stats = timed("20", phase_fleet, args.seed, smi)
+    net_launches, net_stats = timed("21", phase_fleet_net, args.seed, smi)
+    by_phase = {k: round(v, 1) for k, v in seconds.items()}
+    log(f"seconds by phase: {json.dumps(by_phase)}; "
+        f"{time.monotonic() - T_START:.1f} s in all ({smi})")
     for path, counts in [("serve", serve_launches),
                          *adapter_launches.items(), *hd_launches.items(),
                          *tel_launches.items(), *res_launches.items(),
@@ -9104,6 +9844,8 @@ def main():
     for name, by_path in a7f_launches.items():
         launches[name].update(by_path)
     for name, by_path in fleet_launches.items():
+        launches[name].update(by_path)
+    for name, by_path in net_launches.items():
         launches[name].update(by_path)
     for name, by_path in launches.items():
         kernels[name]["launches"] = sum(by_path.values())
@@ -9183,6 +9925,8 @@ def main():
                     "moe_and_pipeline": moe_stats,
                     "parallel_lifted_and_autotune": a7f_stats,
                     "fleet": fleet_stats,
+                    "fleet_net": net_stats,
+                    "seconds_by_phase": seconds,
                     "head_dims": {k: v for k, v in hd_stats.items()
                                   if k not in ("flash", "flash_wide",
                                                "flash_d128",

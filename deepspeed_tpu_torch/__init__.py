@@ -160,9 +160,12 @@ def init_fleet(
     round-robin / prefix-affinity / adapter-affinity), circuit breakers,
     brownout and rolling-restart lifecycle. Pass ``engine_factory``
     (in-process replicas) or ``worker_spec`` (one engine per worker
-    subprocess); the ``"serving"`` config block sizes the fleet. The
-    socket backend (``nodes``) is ROADMAP A8b and raises. Put an HTTP
-    door in front of the router with ``serving.serve_http``."""
+    subprocess), or ``nodes`` (the socket backend's fleet map — one
+    ``SocketReplica`` per (node, replica) pair against running node
+    agents, ``python -m deepspeed_tpu_torch.serving.node``); the
+    ``"serving"`` config block sizes the fleet and arms its journal,
+    autoscaler and hub. Put an HTTP door in front of the router with
+    ``serving.serve_http``."""
     from .serving import init_fleet as _init_fleet
 
     return _init_fleet(

@@ -10,8 +10,7 @@ The ``inference`` block, the ``adapters`` block, the training blocks
 ``telemetry`` with its ``tracing`` sub-block), the ``resilience`` block
 (with its ``fault_injection`` and ``supervisor`` sub-blocks), the
 ``data_pipeline`` and ``compile_cache`` blocks and the fleet's
-``serving`` block (every key, the parts that come with ROADMAP A8b
-included) of the JAX package's
+``serving`` block (every key) of the JAX package's
 DeepSpeedConfig (deepspeed_tpu/config/config.py), with the same keys,
 defaults and rejections, error text included: a config the JAX package
 refuses, this one refuses too. The batch triangle is resolved only for a training

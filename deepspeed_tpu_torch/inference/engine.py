@@ -79,7 +79,7 @@ same collectives in the same order, whatever the leader's clock and
 threads decide. A follower's host tier is a store of its own heads' rows
 keyed as the leader's tier keys them; the leader names what it parks,
 promotes and drops. A data, sequence or pipeline axis above 1 is refused
-(replicas are the serving fleet's, ROADMAP A8b), and so is a model with
+(serving over a data axis is ROADMAP A8c), and so is a model with
 MoE experts or pipeline stages, with the JAX engine's
 ``DeepSpeedConfigError``s: decode runs the dense stack.
 
@@ -209,7 +209,7 @@ def _refuse_replica_axes(block):
         if size is not None and int(size) > 1:
             raise _not_ported(
                 f"serving over a {axis} axis of {size} (replicas are the "
-                "serving fleet's, ROADMAP A8b)")
+                "serving fleet's, ROADMAP A8c)")
 
 
 def _is_gpt2_config(cfg):
@@ -744,7 +744,7 @@ class InferenceEngine:
         """The process mesh of a model axis above 1 (``mesh``, a
         ``ProcessMesh``, or the config's ``mesh`` block over the
         torch.distributed world, which the launcher's environment starts),
-        else None. Any other axis above 1 is refused (ROADMAP A8b)."""
+        else None. Any other axis above 1 is refused (ROADMAP A8c)."""
         if mesh is None:
             mp = int(block.get(C.MESH_MODEL_PARALLEL_SIZE) or 1)
             if mp <= 1:

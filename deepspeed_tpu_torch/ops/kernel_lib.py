@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 from pathlib import Path
 
@@ -150,6 +151,10 @@ def build(names=None):
             ),
             tmp, out,
         )
+    if procs:
+        # on stderr: a node agent's or worker's stdout is its protocol
+        print(f"kernel_lib: building {', '.join(procs)} in {BUILD_DIR}",
+              file=sys.stderr, flush=True)
     report, failed = {}, []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()

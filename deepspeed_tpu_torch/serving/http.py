@@ -2,8 +2,7 @@
 
 Port of deepspeed_tpu/serving/http.py. The fleet hub's routes
 (``/metrics``, ``/statz``, ``/dashboard``) answer 404 while no hub is
-passed, as the JAX door's do with the hub off; the hub itself is
-ROADMAP A8b.
+passed (telemetry/hub.py, armed by ``serving.hub``).
 
 ``HTTPDoor`` puts an asyncio HTTP server (stdlib only — no framework
 import at serving time) in front of a :class:`FleetRouter`, streaming

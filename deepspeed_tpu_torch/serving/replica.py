@@ -2,9 +2,8 @@
 
 Port of deepspeed_tpu/serving/replica.py. The fleet router (router.py)
 never touches an ``InferenceEngine`` directly — it speaks to
-:class:`InProcessReplica` / :class:`SubprocessReplica` (and, in the JAX
-package, ``SocketReplica``; its port is ROADMAP A8b), all exposing the
-same contract:
+:class:`InProcessReplica` / :class:`SubprocessReplica` /
+:class:`SocketReplica` (transport.py), all exposing the same contract:
 
     submit(prompt, **kw) -> request handle   (.done/.tokens/.finish_reason
                                               /.first_token_at/.result())

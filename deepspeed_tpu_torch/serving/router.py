@@ -1,8 +1,6 @@
 """FleetRouter: placement, admission, and lifecycle over N replicas.
 
-Port of deepspeed_tpu/serving/router.py, with its autoscaler, hub,
-journal and recovery seams kept (``None`` until ROADMAP A8b ports those
-parts). The serving tier's brain (docs/serving.md). A submission passes
+Port of deepspeed_tpu/serving/router.py. The serving tier's brain (docs/serving.md). A submission passes
 three gates, in order, before any replica queue is touched:
 
   1. admission  — per-tenant token bucket (admission.py): RateLimited.

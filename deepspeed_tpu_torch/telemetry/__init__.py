@@ -4,8 +4,8 @@ metric catalogs (ported from the JAX package's telemetry/).
 
 ``manager.build_telemetry`` wires all of it from an engine's config, and
 ``manager.register_serving_metrics`` gives the fleet router its
-``fleet/*`` catalog. The JAX package's fleet hub and time-series store
-come with the networked fleet (ROADMAP A8b).
+``fleet/*`` catalog. ``hub.TelemetryHub`` (over ``timeseries``) is the
+networked fleet's observability plane.
 """
 
 from .exporters import (
@@ -16,6 +16,7 @@ from .exporters import (
     prometheus_name,
     render_prometheus,
 )
+from .hub import HUB_HTTP_PATHS, TelemetryHub
 from .manager import (
     ENGINE_METRICS,
     INFERENCE_METRICS,
@@ -33,12 +34,14 @@ from .tracing import (
     build_tracer,
     load_chrome_trace,
 )
+from .timeseries import TimeSeriesStore
 from .watchdog import StepHeartbeatWatchdog
 
 __all__ = [
     "Counter",
     "ENGINE_METRICS",
     "Gauge",
+    "HUB_HTTP_PATHS",
     "Histogram",
     "INFERENCE_METRICS",
     "JsonlExporter",
@@ -52,6 +55,8 @@ __all__ = [
     "StepHeartbeatWatchdog",
     "SummaryWriterExporter",
     "Telemetry",
+    "TelemetryHub",
+    "TimeSeriesStore",
     "TraceContext",
     "build_telemetry",
     "build_tracer",

@@ -215,25 +215,80 @@ def test_the_walk_reaches_every_rejection_site():
     assert sites - hit == set(), sorted(sites - hit)
 
 
-@pytest.mark.parametrize("case", ["socket", "nodes", "journal", "autoscale",
-                                  "hub"])
-def test_init_fleet_refuses_the_networked_fleet_naming_a8b(case):
-    """The socket backend and the journal, autoscaler and hub blocks are
-    the networked fleet's (ROADMAP A8b): init_fleet refuses them before
-    it builds anything."""
-    import deepspeed_tpu_torch
+def _fleet_outcome(P, case, tmp_path):
+    """What ``init_fleet`` of package ``P`` does with the case's config:
+    ``(error type, text)``, or what the fleet it built serves on stub
+    engines (the replicas, the armed parts, one answer)."""
+    from torch_fleet import host_engine, stub_node
+
+    node = None
 
     def factory():
-        raise AssertionError("no replica may be built")
+        return host_engine(P)
 
     sources = {"engine_factory": factory}
     serving = {"backend": "socket"} if case == "socket" else {}
     if case == "nodes":
-        sources = {"nodes": {"n0": {"address": "127.0.0.1:1",
+        node = stub_node(P, delay=0.0)
+        node.start()
+        host, port = node.address
+        sources = {"nodes": {"n0": {"address": f"{host}:{port}",
                                     "replicas": ["r0"]}}}
         serving = {"backend": "socket"}
     elif case != "socket":
         serving = {case: {"enabled": True}}
-    with pytest.raises(DeepSpeedConfigError, match="ROADMAP A8b"):
-        deepspeed_tpu_torch.init_fleet(config={"serving": serving},
-                                       **sources)
+        if case == "journal":
+            serving[case]["dir"] = str(tmp_path / P.name)
+    router = None
+    try:
+        router = P.serving.init_fleet(
+            config={"train_batch_size": 1, "serving": serving}, **sources)
+        return (type(router).__name__, sorted(router.replica_ids),
+                router._journal is not None, router._autoscaler is not None,
+                router.hub is not None,
+                router.submit([3], max_new_tokens=2).result(30.0))
+    except Exception as e:  # noqa: BLE001 - the comparison is the point
+        return type(e).__name__, str(e)
+    finally:
+        if router is not None:
+            router.shutdown()
+        if node is not None:
+            node.shutdown()
+
+
+@pytest.mark.parametrize("case", ["socket", "nodes", "journal", "autoscale",
+                                  "hub"])
+def test_init_fleet_refuses_the_networked_fleet_naming_a8b(case, tmp_path):
+    """The socket backend and the journal, autoscaler and hub blocks (the
+    networked fleet, ROADMAP A8b) are ported: each config does in
+    init_fleet what it does in the JAX package's, the same error (the
+    socket backend without a nodes map) or a fleet that builds and
+    serves on stub engines with the same parts armed."""
+    from torch_fleet import package
+
+    got = _fleet_outcome(package("torch"), case, tmp_path)
+    assert got == _fleet_outcome(package("jax"), case, tmp_path)
+    if case == "socket":
+        assert got[0] == "ValueError" and "nodes was not passed" in got[1]
+    else:
+        assert got[0] == "FleetRouter" and got[-1] == [4, 5]
+        armed = {"journal": 2, "autoscale": 3, "hub": 4}.get(case)
+        if armed is not None:
+            assert got[armed] is True
+        assert "A8b" not in repr(got)
+
+
+def test_serving_over_a_data_axis_names_a8c():
+    """Serving over a data axis stays refused, and names ROADMAP A8c."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
+
+    model = GPT2LMHeadModel(GPT2Config(vocab_size=32, n_positions=16,
+                                       n_embd=8, n_layer=1, n_head=2),
+                            device="cpu")
+    with pytest.raises(DeepSpeedConfigError, match="ROADMAP A8c") as got:
+        deepspeed_tpu_torch.init_inference(
+            model=model, device="cpu",
+            config={"inference": {"max_batch_slots": 1, "max_seq_len": 8},
+                    "mesh": {"data_parallel_size": 2}})
+    assert "serving over a data axis of 2" in str(got.value)
