@@ -529,19 +529,43 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                counts (path "p21"); no node process is left. Then the
                flash forward and paged decode against their plain
                versions at phase 20's shapes.
+  22. int8 moments across ranks, uneven microbatches, serving over a
+               data axis — GPT-2 small at full width, float32, gloo ranks
+               of the card (``--phase22-rank``, ``--phase22c-rank``). (a)
+               Adam with int8 moments at a pipe axis of 2 and with the
+               MoE experts over a data axis of 2 (phase 18's models,
+               batch and windows): losses equal one rank's int8 run
+               (P18_RTOL), and rank 0's int8 first moment after the
+               first window, joined into the whole JAX leaves through
+               the checkpoint's join, equals one rank's (P22_SCALE_RTOL,
+               P22_CODE_FLIPS); (b) int8 moments at a model axis of 2
+               with the optimizer offloaded, against mp 1 (the same
+               checks; the card's and the host's bytes a rank holds);
+               (c) a pipe axis of 2 by a data axis of 4 (eight ranks), 2
+               blocks, 12 global rows in 2 microbatches (each rank runs
+               a 3-row piece of one), one window, against pp 1 on the
+               same batch, each rank's plan checked; (d) serving at a
+               data axis of 2 (phase 20's block, one rank-16 adapter, 8
+               requests of two templates, the later six hitting their
+               pages): float32 tokens equal one engine's, each rank's
+               launches of rows 1, 6 and 7 equal 12 (SGMV 48) times the
+               leader's cold prefills and decode steps, the bytes a rank
+               holds (paths "p22_*"). Then rows 1-3 at (a)-(c)'s float32
+               shapes and rows 1, 6, 7 at the serving shapes against
+               plain. No time here is a dp, pp or mp speed (gloo).
   9. report  — a JSON line of per-kernel numbers (the D = 256, decode
                tail and BERT (rows 1b-3b) variants in entries of their
                own; the forward's tile forms in "tile_forms" of rows 1
-               and 1m; the launches of every path, phases 10 to 21
+               and 1m; the launches of every path, phases 10 to 22
                included), the nvidia-smi line, then the last line {"ok":
-               true, "device": {...}}. It comes after phase 21, and the
+               true, "device": {...}}. It comes after phase 22, and the
                line before the kernels' logs each phase's seconds.
 
 ``--only-phase12`` builds every kernel and runs phase 12 alone, printing
 its numbers as one JSON line; ``--only-phase13``, ``--only-phase14``,
 ``--only-phase15``, ``--only-phase16``, ``--only-phase17``,
-``--only-phase18``, ``--only-phase19``, ``--only-phase20`` and
-``--only-phase21`` the same for phases 13 to 21. ``--only-bert-attention``
+``--only-phase18``, ``--only-phase19``, ``--only-phase20``,
+``--only-phase21`` and ``--only-phase22`` the same for phases 13 to 22. ``--only-bert-attention``
 builds the flash kernels, checks them under BERT's padding mask and the mask
 patterns of phase 12a, and times rows 1b-3b (copy the script to the root
 of an unpacked parent under build/ to time both trees in one call).
@@ -6715,20 +6739,35 @@ def p16_engine(seed, mp, optimizer, precision, dropout, lr):
     return engine
 
 
-def p16_windows(engine, seed):
+def windows_with_hook(engine, batches, n, after_first=None):
+    """``n`` windows of ``engine.train_batch(batches())``: their losses,
+    and the seconds ``after_first(engine)`` took after the first."""
+    losses, hook_s = [], 0.0
+    for w in range(n):
+        losses.append(float(engine.train_batch(batches())))
+        if w == 0 and after_first is not None:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            after_first(engine)
+            hook_s = time.monotonic() - t0
+    return losses, hook_s
+
+
+def p16_windows(engine, seed, after_first=None):
     """P16_WINDOWS windows on one batch: losses, launches, the seconds of
-    a window, and the memory held after initialize() and the peak."""
+    a window, and the memory held after initialize() and the peak;
+    ``after_first`` as in p18_windows."""
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     batches = p16_batches(seed)
     zero_launches()
     t0 = time.monotonic()
-    losses = [float(engine.train_batch(iter(batches)))
-              for _ in range(P16_WINDOWS)]
+    losses, hook_s = windows_with_hook(engine, lambda: iter(batches),
+                                       P16_WINDOWS, after_first)
     torch.cuda.synchronize()
     return {"losses": losses, "launches": read_launches(),
-            "window_s": (time.monotonic() - t0) / P16_WINDOWS,
+            "window_s": (time.monotonic() - t0 - hook_s) / P16_WINDOWS,
             "held_gb": held / 1e9,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
             "skipped": engine.skipped_steps}
@@ -7422,11 +7461,13 @@ def p18_batch(seed):
                          generator=g).cuda()
 
 
-def p18_engine(seed, kind, optimizer, precision, dropout, lr, mesh=None):
+def p18_engine(seed, kind, optimizer, precision, dropout, lr, mesh=None,
+               extra=None):
     """initialize() on GPT-2 small at full width and depth: ``kind`` "moe"
     (8 experts, top-2, capacity 1.25: 320 slots a row and expert), "pp"
     (2 stages of 6 blocks, 4 microbatches) or "dense"; ZeRO stage 1
-    (stage 0 at one data rank), one micro-step a window."""
+    (stage 0 at one data rank), one micro-step a window; ``extra`` more
+    engine config (phase 22: int8 moments)."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
 
@@ -7443,17 +7484,19 @@ def p18_engine(seed, kind, optimizer, precision, dropout, lr, mesh=None):
                             device="cuda", seed=seed)
     dp = (mesh or {}).get("data_parallel_size", 1)
     cfg = p14_config(optimizer, precision, 1, P18_ROWS // dp, dp,
-                     {"mesh": mesh} if mesh else None)
+                     dict(extra or {}, **({"mesh": mesh} if mesh else {})))
     cfg["optimizer"]["params"]["lr"] = lr
     engine, *_ = deepspeed_tpu_torch.initialize(model=model,
                                                 config_params=cfg)
     return engine
 
 
-def p18_windows(engine, seed):
+def p18_windows(engine, seed, after_first=None):
     """P18_WINDOWS windows on this rank's rows of one batch: losses,
     launches, ``last_aux``, seconds a window, the parameters and bytes
-    the module holds, the memory held after initialize() and the peak."""
+    the module holds, the memory held after initialize() and the peak;
+    ``after_first(engine)`` after the first window (phase 22: the int8
+    state), out of the seconds."""
     rows = p18_batch(seed)
     dp = engine.dp_world_size
     k = P18_ROWS // dp
@@ -7463,12 +7506,12 @@ def p18_windows(engine, seed):
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
     t0 = time.monotonic()
-    losses = [float(engine.train_batch(iter([(rows, rows)])))
-              for _ in range(P18_WINDOWS)]
+    losses, hook_s = windows_with_hook(
+        engine, lambda: iter([(rows, rows)]), P18_WINDOWS, after_first)
     torch.cuda.synchronize()
     params = list(engine.module.parameters())
     return {"losses": losses, "launches": read_launches(),
-            "window_s": (time.monotonic() - t0) / P18_WINDOWS,
+            "window_s": (time.monotonic() - t0 - hook_s) / P18_WINDOWS,
             "aux": [[float(x) for x in a.reshape(-1)]
                     for a in engine.last_aux],
             "params_m": sum(p.numel() for p in params) / 1e6,
@@ -7481,10 +7524,13 @@ def p18_windows(engine, seed):
 
 
 def p18_run(seed, name, kind, optimizer, precision, dropout, lr, mesh,
-            shapes):
+            shapes, extra=None, after_first=None):
+    """One run: the engine, its windows (``after_first`` as in
+    p18_windows), the attention kernels' shapes."""
     shapes.clear()
-    engine = p18_engine(seed, kind, optimizer, precision, dropout, lr, mesh)
-    got = p18_windows(engine, seed)
+    engine = p18_engine(seed, kind, optimizer, precision, dropout, lr, mesh,
+                        extra)
+    got = p18_windows(engine, seed, after_first)
     got["kernel_shapes"] = sorted([n, list(s)] for n, s in shapes)
     del engine
     gc.collect()
@@ -7514,25 +7560,26 @@ def phase18_rank(spec_path):
     dist.destroy_process_group()
 
 
-def p18_check_run(tag, got, layers, micro_steps, lamb_steps, shape):
+def p18_check_run(tag, got, layers, micro_steps, lamb_steps, shape,
+                  phase="18"):
     """A run's losses finite and no step skipped, each attention kernel
     launched ``layers`` times a micro-step at ``shape``, LAMB 6 times a
     step (5 large groups and one packed launch)."""
     if not all(math.isfinite(v) for v in got["losses"]) or got["skipped"]:
-        fail(f"phase 18 {tag}: losses {got['losses']}, skipped "
+        fail(f"phase {phase} {tag}: losses {got['losses']}, skipped "
              f"{got['skipped']}")
     for k in TRAIN_KERNELS:
         if got["launches"][k] != layers * micro_steps:
-            fail(f"phase 18 {tag}: {k} launched {got['launches'][k]} times, "
-                 f"want {layers * micro_steps}")
+            fail(f"phase {phase} {tag}: {k} launched {got['launches'][k]} "
+                 f"times, want {layers * micro_steps}")
     if got["launches"]["lamb_phase1"] != 6 * lamb_steps:
-        fail(f"phase 18 {tag}: lamb_phase1 launched "
+        fail(f"phase {phase} {tag}: lamb_phase1 launched "
              f"{got['launches']['lamb_phase1']} times, want "
              f"{6 * lamb_steps}")
     shapes = {tuple(s) for _, s in got["kernel_shapes"]}
     if shapes != {shape}:
-        fail(f"phase 18 {tag}: attention kernels at {sorted(shapes)}, want "
-             f"{shape}")
+        fail(f"phase {phase} {tag}: attention kernels at {sorted(shapes)}, "
+             f"want {shape}")
     log(f"  {tag}: losses {got['losses']}; {got['params_m']:.4f} M "
         f"parameters, {got['weights_gb']:.4f} GB of weights; held "
         f"{got['held_gb']:.4f} GB, peak {got['peak_gb']:.4f} GB; "
@@ -9451,6 +9498,593 @@ def phase_fleet_net(seed, card):
     return out, stats
 
 
+# ---------------------------------------------------------------------------
+# phase 22: int8 moments across stages, experts and a model axis with
+# offload (A7f 1-2), uneven pipeline microbatches (A7f 3), serving over a
+# data axis (A8c)
+# ---------------------------------------------------------------------------
+P22_WORLD = 2
+P22_INT8 = {"data_types": {"optimizer_state_dtype": "int8"}}
+P22_OFFLOAD = {"zero_optimization": {"stage": 0, "offload_optimizer": {
+    "device": "cpu"}}}
+# (a) the int8 runs of the two ranks on phase 18's batch and windows:
+# (name, model kind, mesh block, the kind of one rank's reference)
+P22_INT8_RUNS = (
+    ("pp2_int8", "pp", {"pipeline_parallel_size": P22_WORLD}, "dense"),
+    ("ep2_int8", "moe", {"data_parallel_size": P22_WORLD}, "moe"),
+)
+# (b) a model rank's attention q shape: 6 of 12 heads on phase 16's rows
+P22_MP_SHAPE = (P16_MICRO, 12 // P22_WORLD, 1024, 64)
+# (c) the uneven split: pp 2 x dp 4 (8 ranks), 12 global rows a micro-step
+# in 2 microbatches of 6, so each data rank runs a 3-row piece of one;
+# GPT-2 small at full width cut to 2 blocks (one a stage), one window
+P22_PP, P22_DP = 2, 4
+P22_ROWS, P22_MICROBATCHES, P22_LAYERS = 12, 2, 2
+P22_UNEVEN_SHAPE = (P22_ROWS // P22_DP, 12, 1024, 64)
+# (a), (b): how far a rank's int8 first moment after the first window
+# (joined into the whole JAX leaves) may sit from one rank's: scales
+# relative, and the share of codes one step apart. The float32 gradients
+# of the two layouts differ by ~2e-5 of their norm on an H100 (summation
+# order), so a code on a rounding edge may flip; from the second step a
+# flipped code feeds the next moment, and scales then part by up to
+# 4.7e-3 and codes by 2 steps (measured on an H100 80GB HBM3 at 700 W),
+# so the state is read after one step. A layout fault moves whole
+# blocks, by far more.
+P22_SCALE_RTOL = 1e-3
+P22_CODE_FLIPS = 1e-3
+# (d) serving at dp 2: 2 templates of 3 and 2 pages, 3 tails each, then 2
+# prompts of their own; the rank-16 adapter on every third request
+P22_TEMPLATES = (48, 32)
+P22_NEW = 24
+P22_ADAPTER = "a"
+
+
+def p22_prompts(seed, vocab):
+    """(d)'s 8 prompts and the adapter of each: the two templates' first
+    tails lead, then their other tails, then 2 prompts of their own."""
+    g = torch.Generator().manual_seed(seed + 220)
+    heads = [random_tokens(g, n, vocab) for n in P22_TEMPLATES]
+    prompts = [h + random_tokens(g, k, vocab) for k in (5, 11, 17)
+               for h in heads]
+    prompts += [random_tokens(g, n, vocab) for n in (40, 77)]
+    names = [P22_ADAPTER if i % 3 == 0 else None
+             for i in range(len(prompts))]
+    return prompts, names
+
+
+def p22_serve(seed, world):
+    """(d) One float32 serving run, paged KV with fused decode and the
+    prefix cache, the adapters block with one rank-16 adapter: every rank
+    builds the engine (over a data axis of ``world``, or one process);
+    the leader loads the adapter, admits the templates' first requests,
+    one scheduler step later the other six (which hit their pages), and
+    serves them; a follower follows. Returns the leader's tokens and
+    counts, this rank's launches and coordinates, and the bytes the
+    engine holds on it."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
+
+    model = GPT2LMHeadModel(GPT2Config.small(dropout=0.0), device="cuda",
+                            seed=seed)
+    base = {n: t.detach().cpu() for n, t in model.state_dict().items()}
+    adapter = synthetic_adapter(base, seed + 22)
+    prompts, names = p22_prompts(seed, model.config.vocab_size)
+    config = {"inference": p20_block("fp32"),
+              "adapters": {"enabled": True, "rank": LORA_RANK,
+                           "pool_slots": LORA_POOL_SLOTS}}
+    if world > 1:
+        config["mesh"] = {"data_parallel_size": world}
+    engine = deepspeed_tpu_torch.init_inference(model=model, config=config)
+    del model, base
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    mesh = engine.mesh
+    out = {"weights_gb": nbytes(engine.model.parameters()) / 1e9,
+           "kv_pool_gb": nbytes((engine._cache.k, engine._cache.v)) / 1e9,
+           "adapter_pool_gb": nbytes(
+               [t for ab in engine._adapter_pool.values() for t in ab]) / 1e9,
+           "kv_pool_shape": list(engine._cache.k.shape),
+           "held_gb": torch.cuda.memory_allocated() / 1e9,
+           "coords": ([engine.rank, mesh.data_rank, mesh.model_rank]
+                      if mesh is not None else [0, 0, 0]),
+           "leader": engine.is_leader}
+    zero_launches()
+    if engine.is_leader:
+        engine.load_adapter(P22_ADAPTER, adapter_state=adapter)
+        t0 = time.monotonic()
+        reqs = [engine.submit(p, max_new_tokens=P22_NEW, adapter=n)
+                for p, n in zip(prompts[:2], names[:2])]
+        engine.scheduler.step()
+        reqs += [engine.submit(p, max_new_tokens=P22_NEW, adapter=n)
+                 for p, n in zip(prompts[2:], names[2:])]
+        engine.scheduler.run_until_idle()
+        torch.cuda.synchronize()
+        out.update(tokens=[r.result() for r in reqs],
+                   stats=engine_stats(engine, time.monotonic() - t0))
+        engine.close()
+    else:
+        engine.serve_forever()
+    torch.cuda.synchronize()
+    out["launches"] = read_launches()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def p22_offload_engine(seed, mp):
+    """(b) initialize() on GPT-2 small at full width and depth at a model
+    axis of ``mp`` (the model's partition_specs) with int8 moments and the
+    optimizer offloaded to the host (ZeRO stage 0): float32 Adam at
+    dropout 0 on phase 16's batches and windows."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = GPT2LMHeadModel(GPT2Config.small(dropout=0.0), device="cuda",
+                            seed=seed)
+    cfg = p14_config("Adam", "fp32", 0, P16_MICRO, 1, dict(
+        P22_INT8, **P22_OFFLOAD, mesh={"model_parallel_size": mp}))
+    cfg.update(train_batch_size=P16_MICRO * P16_ACCUM,
+               gradient_accumulation_steps=P16_ACCUM)
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model, config_params=cfg,
+        param_specs=(deepspeed_tpu_torch.partition_specs(model) if mp > 1
+                     else None))
+    return engine
+
+
+def p22_int8_leaves(engine):
+    """The engine's int8 first moment on the host as the whole JAX leaves:
+    a group whose leaf spans ranks joined over the world (a collective of
+    every rank), the others as this rank holds them."""
+    from deepspeed_tpu_torch.runtime import checkpointing
+
+    # copies: on the host (offload) .cpu() would alias the live state
+    mu = {g: {k: t.detach().cpu().clone() for k, t in leaf.items()}
+          for g, leaf in engine.optimizer_state["mu"].items()}
+    return checkpointing.whole_int8_moments(engine, mu)
+
+
+def p22_save_int8(path):
+    """An ``after_first`` hook for a rank's run: its whole int8 leaves
+    (through the checkpoint's join, runtime/checkpointing.py), written to
+    ``path`` by rank 0."""
+    import torch.distributed as dist
+
+    def save(engine):
+        leaves = p22_int8_leaves(engine)
+        if dist.get_rank() == 0:
+            torch.save(leaves, path)
+
+    return save
+
+
+def p22_compare_int8(tag, got, want):
+    """Each group of ``got`` (rank 0's whole int8 leaves) against one
+    rank's ``want``: the blocks past the shorter leaf zero, the scales
+    within P22_SCALE_RTOL, the codes at most one step apart on at most
+    P22_CODE_FLIPS of them. Returns the measured gaps."""
+    from deepspeed_tpu_torch.ops.quant import BLOCK
+
+    worst, flips, steps, total, where = 0.0, 0, 0, 0, None
+    for g, leaf in got.items():
+        ref = want[g]
+        nb = min(leaf["scale"].numel(), ref["scale"].numel())
+        for t, n in ((leaf["q"], nb * BLOCK), (ref["q"], nb * BLOCK),
+                     (leaf["scale"], nb), (ref["scale"], nb)):
+            if t[n:].any():
+                fail(f"phase 22 {tag} {g}: nonzero past the shared blocks")
+        a, b = leaf["scale"][:nb].double(), ref["scale"][:nb].double()
+        rel = float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+        if rel >= worst:
+            worst, where = rel, g
+        step = (leaf["q"][:nb * BLOCK].int() - ref["q"][:nb * BLOCK].int()
+                ).abs()
+        flips += int((step > 0).sum())
+        steps = max(steps, int(step.max()))
+        total += step.numel()
+    out = {"groups": len(got), "scale_rel_max": worst, "worst_group": where,
+           "code_flips": flips, "codes": total, "max_step": steps}
+    log(f"  {tag}: int8 first moment after one window vs one rank's over "
+        f"{len(got)} groups: scales max rel {worst:.3e} ({where}; tol "
+        f"{P22_SCALE_RTOL:g}), {flips} of {total} codes apart, at most "
+        f"{steps} step")
+    if worst > P22_SCALE_RTOL or steps > 1 or flips > P22_CODE_FLIPS * total:
+        fail(f"phase 22 {tag}: the int8 state is not one rank's ({out})")
+    return out
+
+
+def p22_host_gb(engine):
+    """The host bytes (GB) of the optimizer's masters and moments."""
+    def walk(x):
+        if torch.is_tensor(x):
+            return (x.numel() * x.element_size()
+                    if x.device.type == "cpu" else 0)
+        if isinstance(x, dict):
+            return sum(walk(v) for v in x.values())
+        if isinstance(x, (list, tuple)):
+            return sum(walk(v) for v in x)
+        return 0
+
+    return (walk(engine.params) + walk(engine.optimizer_state)) / 1e9
+
+
+def p22_uneven_engine(seed, pp, dp):
+    """(c) initialize() on GPT-2 small at full width and P22_LAYERS blocks:
+    at ``pp`` above 1 the pipelined model (P22_MICROBATCHES microbatches
+    of the global batch) over a pipe axis of ``pp`` and a data axis of
+    ``dp``; float32 Adam at dropout 0, ZeRO stage 0, one micro-step of
+    P22_ROWS global rows a window."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
+
+    fields = (dict(pipeline_stages=pp, pipeline_microbatches=P22_MICROBATCHES)
+              if pp > 1 else {})
+    model = GPT2LMHeadModel(GPT2Config.small(dropout=0.0, n_layer=P22_LAYERS,
+                                             **fields),
+                            device="cuda", seed=seed)
+    cfg = p14_config("Adam", "fp32", 0, P22_ROWS // dp, dp,
+                     {"mesh": {"pipeline_parallel_size": pp}} if pp > 1
+                     else None)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model,
+                                                config_params=cfg)
+    return engine
+
+
+def p22_uneven_window(engine, seed):
+    """One window on this data rank's rows of the global batch: its loss,
+    launches, the pipeline plan it ran, the memory held and the peak."""
+    from deepspeed_tpu_torch import GPT2Config
+
+    g = torch.Generator().manual_seed(seed + 2203)
+    rows = torch.randint(0, GPT2Config.small().vocab_size, (P22_ROWS, 1024),
+                         generator=g).cuda()
+    k = P22_ROWS // engine.dp_world_size
+    rows = rows[engine.data_rank * k:(engine.data_rank + 1) * k]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.monotonic()
+    loss = float(engine.train_batch(iter([(rows, rows)])))
+    torch.cuda.synchronize()
+    plan = getattr(engine.module, "last_pipeline_plan", None)
+    return {"losses": [loss], "launches": read_launches(),
+            "window_s": time.monotonic() - t0, "held_gb": held / 1e9,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "skipped": engine.skipped_steps,
+            "coords": [engine.pipe_rank, engine.data_rank],
+            "plan": None if plan is None else json.loads(json.dumps(plan))}
+
+
+def phase22_rank(spec_path):
+    """One of phase 22's two ranks (a subprocess) of the gloo group the
+    phase makes: (a) int8 moments at a pipe axis of 2 and with the MoE
+    experts over a data axis of 2 (float32 Adam, phase 18's batch); (b)
+    int8 moments at a model axis of 2 with the optimizer offloaded; (d)
+    serving at a data axis of 2. Writes its results as JSON."""
+    import torch.distributed as dist
+
+    spec = json.loads(Path(spec_path).read_text())
+    rank, seed = spec["rank"], spec["seed"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{spec['port']}", rank=rank,
+        world_size=P22_WORLD)
+    shapes = p17_record_shapes()
+    root = Path(spec["out"]).parent
+    out = {name: p18_run(seed, name, kind, "Adam", "fp32", 0.0, 1e-4, mesh,
+                         shapes, extra=P22_INT8,
+                         after_first=p22_save_int8(root / f"int8_{name}.pt"))
+           for name, kind, mesh, _ in P22_INT8_RUNS}
+    shapes.clear()
+    engine = p22_offload_engine(seed, P22_WORLD)
+    got = p16_windows(engine, seed, p22_save_int8(
+        root / "int8_mp2_int8_offload.pt"))
+    got["kernel_shapes"] = sorted([n, list(s)] for n, s in shapes)
+    got["host_gb"] = p22_host_gb(engine)
+    got["coords"] = [engine.data_rank, engine.model_rank]
+    out["mp2_int8_offload"] = got
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["serve"] = p22_serve(seed, P22_WORLD)
+    Path(spec["out"]).write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase22c_rank(spec_path):
+    """One of phase 22(c)'s eight ranks (pp 2 x dp 4) of the gloo group
+    the phase makes: one window of the uneven split. Writes its results
+    as JSON."""
+    import torch.distributed as dist
+
+    spec = json.loads(Path(spec_path).read_text())
+    rank, seed = spec["rank"], spec["seed"]
+    torch.set_num_threads(1)  # eight processes on the host's cores
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{spec['port']}", rank=rank,
+        world_size=P22_PP * P22_DP)
+    shapes = p17_record_shapes()
+    engine = p22_uneven_engine(seed, P22_PP, P22_DP)
+    got = p22_uneven_window(engine, seed)
+    got["kernel_shapes"] = sorted([n, list(s)] for n, s in shapes)
+    Path(spec["out"]).write_text(json.dumps(got))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def p22_close(tag, got, want):
+    ok = len(got) == len(want) and all(
+        math.isclose(a, b, rel_tol=P18_RTOL) for a, b in zip(got, want))
+    if not ok:
+        fail(f"phase 22 {tag}: {got} != {want} (rtol {P18_RTOL})")
+
+
+def p22_check_kernels(seed):
+    """The attention kernels of phase 22's training paths against their
+    plain versions, float32 as the paths run them (causal, dropout 0): an
+    expert rank's [4, 12, 1024, 64], a model rank's [2, 6, 1024, 64] and
+    (c)'s 3-row piece [3, 12, 1024, 64]. Returns the max errors."""
+    from deepspeed_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2222)
+    errs = {}
+    for tag, shape in (("ep2", P18_SHAPES["ep2"]), ("mp2", P22_MP_SHAPE),
+                       ("pp2 x dp4", P22_UNEVEN_SHAPE)):
+        q, k, v, dout = (torch.randn(shape, device="cuda", generator=gen)
+                         for _ in range(4))
+        args = (q, k, v, None, True, None, 0.0, 2222)
+        out, _ = A.flash_fwd(*args)
+        ref, ref_lse = A.flash_fwd_plain(*args)
+        name = f"phase 22 {tag} float32 {list(shape)}"
+        errs["flash_fwd"] = max(errs.get("flash_fwd", 0.0), check_close(
+            f"{name} flash_fwd", out, ref, torch.float32))
+        delta = (dout * ref).sum(dim=-1)
+        bargs = (q, k, v, None, dout, ref_lse, delta, True, None, 0.0, 2222)
+        got = (A.flash_bwd_dq(*bargs), *A.flash_bwd_dkv(*bargs))
+        want = (A.flash_bwd_dq_plain(*bargs), *A.flash_bwd_dkv_plain(*bargs))
+        for what, a, b in zip(("flash_bwd_dq", "dk", "dv"), got, want):
+            key = "flash_bwd_dq" if what == "flash_bwd_dq" else "flash_bwd_dkv"
+            errs[key] = max(errs.get(key, 0.0), check_close(
+                f"{name} {what}", a, b, torch.float32))
+        del q, k, v, dout, out, ref, got, want
+    return errs
+
+
+def p22_int8(seed, ranks, launches, root):
+    """(a): each rank's int8 runs against one rank's int8 run of the same
+    model (launches at the paths' shapes, losses within P18_RTOL, the int8
+    first moment joined over the ranks against one rank's)."""
+    from deepspeed_tpu_torch.ops import attention as A
+
+    check = A._check_cuda
+    one = {}
+    for name, kind, _, ref_kind in P22_INT8_RUNS:
+        shapes = p17_record_shapes()
+        leaves = {}
+        try:
+            got = one[name] = p18_run(
+                seed, f"{ref_kind}_int8", ref_kind, "Adam", "fp32", 0.0, 1e-4,
+                None, shapes, extra=P22_INT8,
+                after_first=lambda e: leaves.update(p22_int8_leaves(e)))
+        finally:
+            A._check_cuda = check
+        path = root / f"int8_{name}.pt"
+        got["int8_vs_one_rank"] = p22_compare_int8(
+            f"{name} rank 0", torch.load(path), leaves)
+        path.unlink()
+        del leaves
+        p18_check_run(f"{ref_kind} int8 one rank", got, N_LAYER, P18_WINDOWS,
+                      0, P18_SHAPES["moe"], phase="22")
+        for k, n in got["launches"].items():
+            launches[k][f"p22_{ref_kind}_int8"] = n
+        for rank, r in enumerate(ranks):
+            mine = r[name]
+            pp = kind == "pp"
+            p18_check_run(f"{name} rank {rank} (pipe, data "
+                          f"{tuple(mine['coords'])})", mine,
+                          N_LAYER // P22_WORLD if pp else N_LAYER,
+                          (P18_MICROBATCHES if pp else 1) * P18_WINDOWS, 0,
+                          P18_SHAPES["pp2" if pp else "ep2"], phase="22")
+            for k, n in mine["launches"].items():
+                launches[k][f"p22_{name}_rank{rank}"] = n
+        if ranks[0][name]["losses"] != ranks[1][name]["losses"]:
+            fail(f"phase 22 {name}: the ranks return different losses")
+        p22_close(f"float32 {name} vs one rank's int8 losses",
+                  ranks[0][name]["losses"], got["losses"])
+    return one
+
+
+def p22_offload(seed, ranks, launches, root):
+    """(b): int8 moments at mp 2 with offload against mp 1's."""
+    micro_steps = P16_WINDOWS * P16_ACCUM
+    for rank, r in enumerate(ranks):
+        got = r["mp2_int8_offload"]
+        if not all(math.isfinite(v) for v in got["losses"]) or got["skipped"]:
+            fail(f"phase 22 mp 2 int8 offload rank {rank}: losses "
+                 f"{got['losses']}")
+        for k in TRAIN_KERNELS:
+            if got["launches"][k] != N_LAYER * micro_steps:
+                fail(f"phase 22 mp 2 int8 offload rank {rank}: {k} launched "
+                     f"{got['launches'][k]} times, want "
+                     f"{N_LAYER * micro_steps}")
+        shapes = {tuple(s) for _, s in got["kernel_shapes"]}
+        if shapes != {P22_MP_SHAPE}:
+            fail(f"phase 22 mp 2 int8 offload rank {rank}: attention "
+                 f"kernels at {sorted(shapes)}, want {P22_MP_SHAPE}")
+        for k, n in got["launches"].items():
+            launches[k][f"p22_mp2_int8_offload_rank{rank}"] = n
+        log(f"  int8 offload mp 2 rank {rank} (model rank "
+            f"{got['coords'][1]}): losses {got['losses']}; the card holds "
+            f"{got['held_gb']:.4f} GB, peak {got['peak_gb']:.4f} GB; the "
+            f"host's masters and moments {got['host_gb']:.4f} GB; "
+            f"{got['window_s']:.3f} s a window")
+    if ranks[0]["mp2_int8_offload"]["losses"] != ranks[1][
+            "mp2_int8_offload"]["losses"]:
+        fail("phase 22 mp 2 int8 offload: the model ranks return different "
+             "losses")
+    engine = p22_offload_engine(seed, 1)
+    leaves = {}
+    ref = p16_windows(engine, seed,
+                      lambda e: leaves.update(p22_int8_leaves(e)))
+    ref["host_gb"] = p22_host_gb(engine)
+    path = root / "int8_mp2_int8_offload.pt"
+    ref["int8_vs_mp1"] = p22_compare_int8("mp 2 int8 offload rank 0",
+                                          torch.load(path), leaves)
+    path.unlink()
+    del engine, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k, n in ref["launches"].items():
+        launches[k]["p22_mp1_int8_offload"] = n
+    log(f"  int8 offload mp 1: losses {ref['losses']}; the card holds "
+        f"{ref['held_gb']:.4f} GB, peak {ref['peak_gb']:.4f} GB; the host "
+        f"{ref['host_gb']:.4f} GB; {ref['window_s']:.3f} s a window")
+    p22_close("float32 int8 offload mp 2 vs mp 1 losses",
+              ranks[0]["mp2_int8_offload"]["losses"], ref["losses"])
+    return {k: ref[k] for k in ("losses", "held_gb", "peak_gb", "host_gb",
+                                "window_s", "int8_vs_mp1")}
+
+
+def p22_uneven(seed, root, launches):
+    """(c): pp 2 x dp 4 on eight ranks of the card against pp 1 on the
+    same global batch."""
+    t0 = time.monotonic()
+    ranks = p14_spawn(seed, root, timeout_s=420, flag="--phase22c-rank",
+                      phase="22(c)", world=P22_PP * P22_DP)
+    spawn_s = time.monotonic() - t0
+    per = P22_ROWS // P22_MICROBATCHES
+    for rank, got in enumerate(ranks):
+        pipe, data = got["coords"]
+        if (pipe, data) != (rank // P22_DP, rank % P22_DP):
+            fail(f"phase 22(c) rank {rank}: coordinates {got['coords']}")
+        first = data * (P22_ROWS // P22_DP) // per
+        want_plan = [P22_MICROBATCHES, 1, first, [P22_ROWS // P22_DP]]
+        if got["plan"] != want_plan:
+            fail(f"phase 22(c) rank {rank}: plan {got['plan']}, want "
+                 f"{want_plan}")
+        if not all(math.isfinite(v) for v in got["losses"]) or got["skipped"]:
+            fail(f"phase 22(c) rank {rank}: losses {got['losses']}")
+        for k in TRAIN_KERNELS:
+            if got["launches"][k] != P22_LAYERS // P22_PP:
+                fail(f"phase 22(c) rank {rank}: {k} launched "
+                     f"{got['launches'][k]} times, want "
+                     f"{P22_LAYERS // P22_PP}")
+        shapes = {tuple(s) for _, s in got["kernel_shapes"]}
+        if shapes != {P22_UNEVEN_SHAPE}:
+            fail(f"phase 22(c) rank {rank}: attention kernels at "
+                 f"{sorted(shapes)}, want {P22_UNEVEN_SHAPE}")
+        for k, n in got["launches"].items():
+            launches[k][f"p22c_rank{rank}"] = n
+    if any(r["losses"] != ranks[0]["losses"] for r in ranks):
+        fail(f"phase 22(c): the ranks return different losses "
+             f"{[r['losses'] for r in ranks]}")
+    engine = p22_uneven_engine(seed, 1, 1)
+    ref = p22_uneven_window(engine, seed)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    p22_close("(c) float32 pp 2 x dp 4 vs pp 1 losses", ranks[0]["losses"],
+              ref["losses"])
+    log(f"  (c) pp 2 x dp 4, {P22_ROWS} rows in {P22_MICROBATCHES} "
+        f"microbatches (3-row pieces): loss {ranks[0]['losses']} vs pp 1 "
+        f"{ref['losses']}; a rank held {max(r['held_gb'] for r in ranks):.4f}"
+        f" GB, peak {max(r['peak_gb'] for r in ranks):.4f} GB; the window "
+        f"{max(r['window_s'] for r in ranks):.3f} s; the eight ranks "
+        f"{spawn_s:.1f} s from spawn to exit")
+    return {"ranks": ranks, "pp1": ref, "spawn_s": spawn_s}
+
+
+def p22_serving(seed, ranks, launches):
+    """(d): serving at dp 2 against one engine."""
+    from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
+
+    lead = ranks[0]["serve"]
+    st = lead["stats"]
+    if [r["serve"]["coords"] for r in ranks] != [[0, 0, 0], [1, 1, 0]] or (
+            [r["serve"]["leader"] for r in ranks] != [True, False]):
+        fail(f"phase 22 serving dp 2: coordinates "
+             f"{[r['serve']['coords'] for r in ranks]}")
+    ref = p22_serve(seed, 1)
+    vocab = GPT2Config.small().vocab_size
+    prompts, _ = p22_prompts(seed, vocab)
+    model = GPT2LMHeadModel(GPT2Config.small(dropout=0.0), device="cuda",
+                            seed=seed)
+    model.eval()
+    same_tokens("phase 22 float32 serving dp 2 vs one engine", prompts,
+                lead["tokens"], ref["tokens"], model, vocab)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if st["prefix_hits"] < 1:
+        fail(f"phase 22 serving dp 2: no prefix hit ({st})")
+    p20_check_launches("phase 22 one engine", ref["launches"], ref["stats"],
+                       sgmv=True)
+    for k, n in ref["launches"].items():
+        launches[k]["p22_serve_dp1"] = n
+    for rank, r in enumerate(ranks):
+        got = r["serve"]
+        # every rank runs the leader's plans: its launches are 12 a cold
+        # prefill and 12 (SGMV 48) a decode step of the leader's counts
+        p20_check_launches(f"phase 22 serving dp 2 rank {rank}",
+                           got["launches"], st, sgmv=True)
+        for k, n in got["launches"].items():
+            launches[k][f"p22_serve_dp2_rank{rank}"] = n
+        log(f"  serving dp 2 rank {rank}: launches "
+            + ", ".join(f"{k} {got['launches'][k]}" for k in
+                        ("flash_fwd", "paged_decode", "sgmv"))
+            + f"; holds weights {got['weights_gb']:.4f} GB, KV pool "
+            f"{got['kv_pool_gb']:.4f} GB {got['kv_pool_shape']}, adapter "
+            f"pool {got['adapter_pool_gb']:.4f} GB (allocated "
+            f"{got['held_gb']:.4f} GB; one engine {ref['held_gb']:.4f} GB)")
+    log(f"  serving dp 2: {st['cold_prefills']} cold prefills, "
+        f"{st['prefix_hits']} prefix hits, {st['decode_steps']} decode "
+        f"steps; float32 tokens equal one engine's")
+    return {"ranks": [{k: v for k, v in r["serve"].items() if k != "tokens"}
+                      for r in ranks],
+            "dp1": {k: v for k, v in ref.items() if k != "tokens"}}
+
+
+def phase_int8_uneven_serve_dp(seed, card):
+    """Phase 22. Returns ({kernel: {path: launches}}, stats)."""
+    t0 = time.monotonic()
+    root = Path("build") / "phase22"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "c").mkdir(parents=True)
+    launches = {name: {} for name in launch_counters()}
+    ranks = p14_spawn(seed, root, timeout_s=600, flag="--phase22-rank",
+                      phase="22", world=P22_WORLD)
+    stats = {"card": card, "ranks": ranks}
+    stats["one_rank_int8"] = p22_int8(seed, ranks, launches, root)
+    stats["offload_mp1"] = p22_offload(seed, ranks, launches, root)
+    stats["serving"] = p22_serving(seed, ranks, launches)
+    stats["uneven"] = p22_uneven(seed, root / "c", launches)
+    stats["kernels_vs_plain"] = dict(
+        p22_check_kernels(seed),
+        **p20_check_kernels(seed, phase=22, sgmv=True))
+    stats["wall_s"] = time.monotonic() - t0
+    one = stats["one_rank_int8"]
+    log(f"phase 22: int8 pp 2 = one rank ({ranks[0]['pp2_int8']['losses']} "
+        f"vs {one['pp2_int8']['losses']}); int8 ep 2 = one rank "
+        f"({ranks[0]['ep2_int8']['losses']} vs {one['ep2_int8']['losses']});"
+        f" int8 offload mp 2 = mp 1 "
+        f"({ranks[0]['mp2_int8_offload']['losses']} vs "
+        f"{stats['offload_mp1']['losses']}); pp 2 x dp 4 = pp 1; serving "
+        f"dp 2 = one engine; {stats['wall_s']:.1f} s ({card})")
+    return launches, stats
+
+
 def only_flash(device, seed):
     """``--only-flash``: the flash kernels built alone (ptxas's registers
     and spills printed) and timed as time_flash times them (bf16, causal,
@@ -9603,6 +10237,15 @@ def main():
                         "(the networked fleet: a node agent process over "
                         "TCP, chaos, the journal's recovery, the "
                         "autoscaler and the hub)")
+    parser.add_argument("--only-phase22", action="store_true",
+                        help="build every kernel and run phase 22 alone "
+                        "(int8 moments at pp 2, at MoE ep 2 and at mp 2 "
+                        "with offload; pp 2 x dp 4 with uneven "
+                        "microbatches on eight ranks; serving at dp 2)")
+    parser.add_argument("--phase22-rank", metavar="SPEC",
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--phase22c-rank", metavar="SPEC",
+                        help=argparse.SUPPRESS)
     parser.add_argument("--phase21-router", metavar="SPEC",
                         help=argparse.SUPPRESS)
     parser.add_argument("--phase14-rank", metavar="SPEC",
@@ -9647,6 +10290,12 @@ def main():
         return
     if args.phase21_router:
         phase21_router(args.phase21_router)
+        return
+    if args.phase22_rank:
+        phase22_rank(args.phase22_rank)
+        return
+    if args.phase22c_rank:
+        phase22c_rank(args.phase22c_rank)
         return
     from deepspeed_tpu_torch.ops import kernel_lib
 
@@ -9758,6 +10407,13 @@ def main():
                           "card": smi}))
         return
 
+    if args.only_phase22:
+        kernel_lib.build()
+        launches, stats = phase_int8_uneven_serve_dp(args.seed, smi)
+        print(json.dumps({"phase22": stats, "launches": launches,
+                          "card": smi}))
+        return
+
     if args.only_phase13:
         kernel_lib.build()
         launches, stats = phase_inference_rest(args.seed, smi)
@@ -9818,6 +10474,8 @@ def main():
         "19", phase_parallel_lifted_and_autotune, args.seed, smi)
     fleet_launches, fleet_stats = timed("20", phase_fleet, args.seed, smi)
     net_launches, net_stats = timed("21", phase_fleet_net, args.seed, smi)
+    p22_launches, p22_stats = timed("22", phase_int8_uneven_serve_dp,
+                                    args.seed, smi)
     by_phase = {k: round(v, 1) for k, v in seconds.items()}
     log(f"seconds by phase: {json.dumps(by_phase)}; "
         f"{time.monotonic() - T_START:.1f} s in all ({smi})")
@@ -9846,6 +10504,8 @@ def main():
     for name, by_path in fleet_launches.items():
         launches[name].update(by_path)
     for name, by_path in net_launches.items():
+        launches[name].update(by_path)
+    for name, by_path in p22_launches.items():
         launches[name].update(by_path)
     for name, by_path in launches.items():
         kernels[name]["launches"] = sum(by_path.values())
@@ -9926,6 +10586,7 @@ def main():
                     "parallel_lifted_and_autotune": a7f_stats,
                     "fleet": fleet_stats,
                     "fleet_net": net_stats,
+                    "int8_uneven_serve_dp": p22_stats,
                     "seconds_by_phase": seconds,
                     "head_dims": {k: v for k, v in hd_stats.items()
                                   if k not in ("flash", "flash_wide",

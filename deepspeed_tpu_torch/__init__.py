@@ -29,9 +29,11 @@ deepspeed_tpu_torch.launcher.runner`` starts such a run, one process per
 GPU of each host (``launcher/``). A model axis above 1 with GPT-2's
 ``partition_specs`` trains it Megatron-style, each rank holding its
 tensor-parallel shard (``parallel/tensor.py``) beside the data axis,
-and ``init_inference`` serves it over the model axis (rank 0 leads, the
-other ranks follow its plans); a sequence axis above 1 trains GPT-2 with
-ring or Ulysses attention over the sequence (``parallel/sequence.py``).
+and ``init_inference`` serves it over the model axis and a data axis of
+replicas (global rank 0 leads, the other ranks follow its plans); a
+sequence axis above 1 trains GPT-2 with ring or Ulysses attention over
+the sequence (``parallel/sequence.py``), a pipe axis with GPipe and MoE
+experts over the data axis, with every optimizer-state layout.
 A script parses the launcher's
 ``--deepspeed``/``--deepspeed_config`` with :func:`add_config_arguments`
 and hands the result to ``initialize(args=...)``. :func:`init_fleet`

@@ -37,13 +37,6 @@ class DeepSpeedConfigError(Exception):
     pass
 
 
-def not_ported(what):
-    """The error for a part of the JAX package the port does not have yet."""
-    return DeepSpeedConfigError(
-        f"{what} is not yet ported to deepspeed_tpu_torch (see ROADMAP.md)"
-    )
-
-
 def _default_world_size():
     import torch.distributed as dist
 

@@ -844,8 +844,8 @@ SERVING_PROVISIONER_TERMINATE_GRACE_SECS = "terminate_grace_secs"
 SERVING_PROVISIONER_TERMINATE_GRACE_SECS_DEFAULT = 5.0
 
 #############################################
-# The process mesh (parallel/mesh.py): data parallel across processes;
-# the model, sequence and pipeline axes are refused (not yet ported).
+# The process mesh (parallel/mesh.py): the pipe, data, sequence and
+# model axes over the processes.
 #############################################
 MESH = "mesh"
 MESH_DATA_PARALLEL_SIZE = "data_parallel_size"

@@ -65,23 +65,33 @@ keeps the paged decode and SGMV kernels: they run per rank. The
 speculative draft is whole on every rank, with its own cache, as the JAX
 engine replicates it.
 
-One controller: model rank 0 (the leader) owns the scheduler, the block
+Serving over a data axis (``data_parallel_size`` above 1 in the block,
+or a mesh with a data axis): the JAX engine builds its serving mesh from
+``data_parallel_size`` and ``model_parallel_size`` alone (an unset data
+size takes every device the model axis leaves; a sequence or pipe size
+in the block is not read) and replicates the weights and the KV pool
+over every axis but ``model``; so does the port. Every data replica holds
+the whole pool at its model shard and runs every plan, as each of the
+JAX engine's data devices computes the replicated step. A ``ProcessMesh``
+with a sequence or pipe axis above 1 is served the same way: those axes
+replicate the engine too, as the JAX engine serves on such a mesh.
+
+One controller: global rank 0 (the leader) owns the scheduler, the block
 pool, the prefix registry, the adapter registry and the host tier's
 decisions, and is the only rank that takes requests and samples. Before
 each device operation (a prefill, a decode step, a speculative cycle, a
 page or adapter row parked or promoted, an adapter's rows written, a
 reset) it broadcasts that operation's plan (its kind and the host arrays
-it reads: token ids, positions, block tables, slot adapter ids) to the
-model group over a gloo group of its own; the other ranks (followers)
-run :meth:`InferenceEngine.follow` (``serve_forever``), which executes
-each plan until the leader closes the engine. So every rank issues the
-same collectives in the same order, whatever the leader's clock and
-threads decide. A follower's host tier is a store of its own heads' rows
-keyed as the leader's tier keys them; the leader names what it parks,
-promotes and drops. A data, sequence or pipeline axis above 1 is refused
-(serving over a data axis is ROADMAP A8c), and so is a model with
-MoE experts or pipeline stages, with the JAX engine's
-``DeepSpeedConfigError``s: decode runs the dense stack.
+it reads: token ids, positions, block tables, slot adapter ids) to every
+rank of the serving mesh over a gloo group of its own; the other ranks
+(followers, of any data or model coordinate) run
+:meth:`InferenceEngine.follow` (``serve_forever``), which executes each
+plan until the leader closes the engine. So every rank issues the same
+collectives in the same order, whatever the leader's clock and threads
+decide. A follower's host tier is a store of its own heads' rows keyed
+as the leader's tier keys them; the leader names what it parks, promotes
+and drops. A model with MoE experts or pipeline stages is refused, with
+the JAX engine's ``DeepSpeedConfigError``s: decode runs the dense stack.
 
 Adapter pool rows are written IN PLACE (the JAX engine swaps in a new
 pool between steps). ``load_adapter`` runs on a caller's thread while
@@ -103,7 +113,6 @@ import torch
 
 from ..config import constants as C
 from ..config.config import DeepSpeedConfig, DeepSpeedConfigError
-from ..config.config import not_ported as _not_ported
 from ..config.config_utils import load_config_json
 from ..adapters.lora import (
     adapter_host_template,
@@ -120,7 +129,7 @@ from ..ops.decode_attention import SGMV_MAX_RANK
 from ..ops.head_dims import check_head_dim, model_head_dim
 from ..ops.transformer import lora_scaling, resolve_lora_targets
 from ..parallel import tensor as tp_lib
-from ..parallel.mesh import MODEL_AXIS, ProcessMesh, build_mesh
+from ..parallel.mesh import ProcessMesh, build_mesh
 from ..runtime import dist as dist_lib
 from ..resilience.manager import build_resilience
 from ..runtime.checkpointing import load_module_state
@@ -199,19 +208,6 @@ def _landed(placed):
 _FOLLOWER_STORES = {}
 
 
-def _refuse_replica_axes(block):
-    """Refuse a data, sequence or pipeline axis above 1 in a ``mesh``
-    block (serving replicas are the fleet's)."""
-    for key, axis in ((C.MESH_DATA_PARALLEL_SIZE, "data"),
-                      (C.MESH_SEQUENCE_PARALLEL_SIZE, "sequence"),
-                      (C.MESH_PIPELINE_PARALLEL_SIZE, "pipe")):
-        size = block.get(key)
-        if size is not None and int(size) > 1:
-            raise _not_ported(
-                f"serving over a {axis} axis of {size} (replicas are the "
-                "serving fleet's, ROADMAP A8c)")
-
-
 def _is_gpt2_config(cfg):
     return cfg is not None and all(
         hasattr(cfg, a) for a in ("n_layer", "n_head", "n_embd",
@@ -259,8 +255,6 @@ class InferenceEngine:
         else:  # JSON path
             raw = load_config_json(config)
         mesh_block = raw.get(C.MESH) or {}
-        if mesh is None:
-            _refuse_replica_axes(mesh_block)
         self.config = DeepSpeedConfig(None, param_dict=raw)
         cfg = self.config
 
@@ -398,18 +392,19 @@ class InferenceEngine:
         if dcfg is not None:
             check_head_dim(model_head_dim(dcfg), dcfg.n_positions, device)
         self.device = resolve_device(device)
-        # ---- the model axis (one controller: model rank 0 leads) --------
+        # ---- the serving mesh (one controller: global rank 0 leads) -----
         self.mesh = self._serving_mesh(mesh, mesh_block)
         self.mp_size = 1 if self.mesh is None else self.mesh.mp_size
         self.model_rank = 0 if self.mesh is None else self.mesh.model_rank
-        self.is_leader = self.model_rank == 0
+        self.rank = 0 if self.mesh is None else self.mesh.rank
+        self.is_leader = self.rank == 0
         self._ctrl_group = None
         if self.mesh is not None:
-            ranks = self.mesh.line_ranks(MODEL_AXIS)
-            self._ctrl_src = ranks[0]
-            # plans wait as long as the leader idles
+            self._ctrl_src = 0
+            # every rank of the mesh, whatever its coordinates; plans wait
+            # as long as the leader idles
             self._ctrl_group = torch.distributed.new_group(
-                list(ranks), backend="gloo",
+                list(range(self.mesh.topology.world_size)), backend="gloo",
                 timeout=datetime.timedelta(days=365))
         # a follower's host tier: its own heads' rows under the leader's
         # keys; the keys the leader has had followers park (to drop them
@@ -544,7 +539,7 @@ class InferenceEngine:
         # the whole tensors' shapes (an adapter checkpoint's template)
         self._full_shapes = {n: tuple(t.shape)
                              for n, t in self.model.state_dict().items()}
-        if self.mesh is not None:
+        if self.mp_size > 1:
             self._shard_model(param_specs)
 
         # ---- KV cache + host-side allocator ---------------------------
@@ -715,7 +710,9 @@ class InferenceEngine:
             f"max_seq_len {self.max_seq_len} (prefill window "
             f"{self.prefill_len}), dtype {cfg.inference_dtype} on "
             f"{self.device}, queue depth {cfg.inference_queue_depth}, "
-            + (f"model axis {self.mp_size} (rank 0 leads, "
+            + (f"model axis {self.mp_size} x "
+               f"{self.mesh.topology.world_size // self.mp_size} replicas "
+               f"(rank 0 leads, "
                f"{self.model_config.n_head // self.mp_size} heads a rank), "
                if self.mesh is not None else "")
             + (
@@ -741,16 +738,24 @@ class InferenceEngine:
         )
 
     def _serving_mesh(self, mesh, block):
-        """The process mesh of a model axis above 1 (``mesh``, a
-        ``ProcessMesh``, or the config's ``mesh`` block over the
-        torch.distributed world, which the launcher's environment starts),
-        else None. Any other axis above 1 is refused (ROADMAP A8c)."""
+        """The process mesh this engine serves over, or None in one
+        process. A config ``mesh`` block gives the JAX engine's serving
+        mesh: ``data_parallel_size`` and ``model_parallel_size`` alone
+        (a sequence or pipe size there is not read, as the JAX engine
+        reads none; an unset data size takes every rank the model axis
+        leaves) over the torch.distributed world, which the launcher's
+        environment starts; without a data or model size above 1 the
+        engine serves in this process alone. A ``ProcessMesh`` is served
+        as it is: every axis but ``model`` replicates the engine, as the
+        JAX engine replicates weights and KV pool over them."""
         if mesh is None:
+            dp = block.get(C.MESH_DATA_PARALLEL_SIZE)
+            dp = None if dp is None else int(dp)
             mp = int(block.get(C.MESH_MODEL_PARALLEL_SIZE) or 1)
-            if mp <= 1:
+            if mp <= 1 and (dp is None or dp <= 1):
                 return None
             dist_lib.init_distributed(device=self.device)
-            mesh = build_mesh(model_parallel_size=mp)
+            mesh = build_mesh(data_parallel_size=dp, model_parallel_size=mp)
         elif not isinstance(mesh, ProcessMesh):
             raise DeepSpeedConfigError(
                 f"serving over a {type(mesh).__name__} mesh: the port runs "
@@ -758,10 +763,7 @@ class InferenceEngine:
                 "parallel.ProcessMesh or a mesh config block (a "
                 "jax.sharding.Mesh lays one process's arrays over its "
                 "devices, which has no counterpart here)")
-        _refuse_replica_axes({
-            C.MESH_DATA_PARALLEL_SIZE: mesh.dp_size,
-            C.MESH_SEQUENCE_PARALLEL_SIZE: mesh.sp_size})
-        return mesh if mesh.mp_size > 1 else None
+        return mesh if mesh.topology.world_size > 1 else None
 
     def _shard_model(self, param_specs):
         """Cut the served model's parameters to this rank's Megatron
@@ -837,8 +839,8 @@ class InferenceEngine:
         leader's ``serve_forever``/``generate`` drive it; a follower
         takes no requests."""
         if self.is_leader:
-            raise RuntimeError("follow() runs on the model ranks other than "
-                               "0; rank 0 serves")
+            raise RuntimeError("follow() runs on the ranks other than 0; "
+                               "rank 0 serves")
         while True:
             box = [None]
             torch.distributed.broadcast_object_list(
@@ -855,7 +857,7 @@ class InferenceEngine:
     def _require_leader(self):
         if not self.is_leader:
             raise RuntimeError(
-                f"model rank {self.model_rank} follows rank 0's plans: call "
+                f"rank {self.rank} follows rank 0's plans: call "
                 "serve_forever() (or follow()) on it; rank 0 takes the "
                 "requests")
 
@@ -2042,8 +2044,8 @@ class InferenceEngine:
         return self.scheduler.serve_forever()
 
     def close(self):
-        """Stop the scheduler and release the engine; over a model axis
-        the leader's close also ends the followers' loops (a follower
+        """Stop the scheduler and release the engine; over a mesh the
+        leader's close also ends the followers' loops (a follower
         closes when its loop ends)."""
         if not self.is_leader:
             return
@@ -2097,13 +2099,15 @@ def init_inference(
     the verified load. ``device`` defaults to ``"cuda"`` and raises
     without a GPU; ``device="cpu"`` runs the kernels' plain PyTorch
     versions. ``mesh`` (a ``parallel.ProcessMesh``) or the config's
-    ``mesh`` block with a ``model_parallel_size`` above 1 serves over the
-    model axis, every rank of the world calling this with the whole
-    model: ``param_specs`` (default GPT-2's ``partition_specs``) cut the
-    weights; rank 0 takes the requests and the others run
-    ``serve_forever()``, which follows rank 0's plans until it closes the
-    engine (see the module docstring). A data, sequence or pipeline axis
-    above 1 is refused. Returns an :class:`InferenceEngine`."""
+    ``mesh`` block with a ``model_parallel_size`` or
+    ``data_parallel_size`` above 1 serves over the mesh, every rank of
+    the world calling this with the whole model: ``param_specs`` (default
+    GPT-2's ``partition_specs``) cut the weights over the model axis, and
+    every other axis replicates the engine, as the JAX engine replicates
+    over its data axis; global rank 0 takes the requests and the others
+    run ``serve_forever()``, which follows rank 0's plans until it closes
+    the engine (see the module docstring). Returns an
+    :class:`InferenceEngine`."""
     return InferenceEngine(
         model=model,
         config=config,

@@ -56,8 +56,8 @@ parallel/pipeline.py over ``pipeline_microbatches`` microbatches of the
 global batch (a rank's rows times the data size; 0: 4*P when they
 divide, else 2*P), as the JAX model splits its global batch. A data rank
 runs its share of every microbatch when a microbatch's rows divide over
-the data axis, else the whole microbatches its rows hold
-(:func:`pipeline_plan`). Stage 0 looks up the embeddings;
+the data axis, else the whole microbatches its rows hold, else the
+pieces of the microbatches its rows cut (:func:`pipeline_plan`). Stage 0 looks up the embeddings;
 the last stage runs ``ln_f``, the tied head and the JAX model's loss over
 the whole batch (not a mean of the microbatches' means); the loss is
 broadcast, so every stage returns it. Dropout is drawn per (seed,
@@ -288,7 +288,11 @@ def pipeline_plan(rows, stages, n_micro=0, data_size=1, data_rank=0):
     2*stages), how many this rank runs, the global index of its first and
     the rows of each. A microbatch whose rows divide over the data axis
     is run in shares (every rank, every microbatch); else a rank runs the
-    whole microbatches its rows hold."""
+    whole microbatches its rows hold. Any other split (the JAX model
+    leaves it to GSPMD) runs the pieces of the microbatches that the
+    rank's rows cut: ``mb`` is then the tuple of the pieces' row counts,
+    consecutive microbatches from ``first`` (a rank's rows may hold parts
+    of two microbatches, of different sizes)."""
     total = rows * data_size
     if not n_micro:
         n_micro = 4 * stages if total % (4 * stages) == 0 else 2 * stages
@@ -302,12 +306,11 @@ def pipeline_plan(rows, stages, n_micro=0, data_size=1, data_rank=0):
     if rows % per == 0:
         local = rows // per
         return n_micro, local, data_rank * local, per
-    raise ValueError(
-        f"pipeline microbatches of {per} rows (a global batch of {total} "
-        f"in {n_micro}) neither divide over a data axis of {data_size} nor "
-        f"fit whole into a data rank's {rows} rows; the JAX engine leaves "
-        "this split to GSPMD, the port runs whole or evenly shared "
-        "microbatches only")
+    start, stop = data_rank * rows, (data_rank + 1) * rows
+    first = start // per
+    sizes = tuple(min(stop, (m + 1) * per) - max(start, m * per)
+                  for m in range(first, (stop - 1) // per + 1))
+    return n_micro, len(sizes), first, sizes
 
 
 class GPT2LMHeadModel(nn.Module):
@@ -642,7 +645,10 @@ class GPT2LMHeadModel(nn.Module):
                 and cfg.dropout > 0 else None)
         device = input_ids.device
         dtype = self.wte.dtype
-        shape = (local, mb_rows, s, cfg.n_embd)
+        # pieces of different sizes run concatenated along the rows
+        sizes = mb_rows if isinstance(mb_rows, tuple) else None
+        shape = ((b, s, cfg.n_embd) if sizes is not None
+                 else (local, mb_rows, s, cfg.n_embd))
         if stage.first:
             rng = (None if seed is None else
                    DropoutRNG(seed, device, self._dropout_index()))
@@ -665,7 +671,7 @@ class GPT2LMHeadModel(nn.Module):
             return h
 
         out = gpipe(stage_fn, layers, microbatches, stage, broadcast=False,
-                    dtype=dtype, device=device)
+                    dtype=dtype, device=device, sizes=sizes)
         if not stage.last:
             # no value; the graph that runs this stage's backward
             out = out.reshape(-1)[:1].float().sum() * 0.0

@@ -197,7 +197,38 @@ def _scaled_f32(g, grad_scale):
 
 
 class _Moments:
-    """Moment storage for Adam and Lamb (``state_dtype``)."""
+    """Moment storage for Adam and Lamb (``state_dtype``). ``quant_maps``
+    (``{group: quant.BlockMap}``, set by the engine) places an int8
+    group that spans ranks (a pipeline stage's layers, a data rank's
+    experts) on the whole JAX leaf's block grid."""
+
+    quant_maps = None
+
+    def _quant_map(self, group):
+        return (self.quant_maps or {}).get(group)
+
+    def _flat_moment(self, group, names, params, state):
+        """An int8 group's working first moment: ``(float32 flat values,
+        a zero buffer of the same size for the new ones, each member's
+        offset in them)``."""
+        bmap = self._quant_map(group)
+        stored = state["mu"][group]
+        if bmap is not None:
+            m_flat = quant.dequantize(stored, (bmap.numel,))
+            return m_flat, torch.zeros_like(m_flat), bmap.offsets
+        offsets, off = {}, 0
+        for n in names:
+            offsets[n] = off
+            off += params[n].numel()
+        m_flat = quant.dequantize(stored, (off,))
+        return m_flat, torch.empty_like(m_flat), offsets
+
+    def _store_flat_moment(self, group, state, m_new_flat):
+        bmap = self._quant_map(group)
+        if bmap is not None:
+            bmap.quantize_into(state["mu"][group], m_new_flat)
+        else:
+            quant.quantize_into(state["mu"][group], m_new_flat)
 
     def _init_moments(self, params):
         if self.state_dtype not in ("fp32", "bf16", "int8"):
@@ -210,9 +241,11 @@ class _Moments:
         # one quantized first moment per group, over its tensors in order
         mu = {}
         for group, names in param_groups(params).items():
-            mu[group] = quant.quantized_zeros_like(
-                params[names[0]],
-                numel=sum(params[n].numel() for n in names))
+            bmap = self._quant_map(group)
+            mu[group] = (bmap.zeros(params[names[0]].device)
+                         if bmap is not None else quant.quantized_zeros_like(
+                             params[names[0]],
+                             numel=sum(params[n].numel() for n in names)))
         return mu, nu
 
 
@@ -304,7 +337,8 @@ class Adam(Optimizer, _Moments):
         over its flat storage, each tensor updated from its slice, and the
         new first moment encoded over the group."""
         stored = state["mu"][group]
-        if len(names) == 1 and not self.flat_quant_update:
+        if (len(names) == 1 and not self.flat_quant_update
+                and self._quant_map(group) is None):
             n = names[0]
             p = params[n]
             spans = chunk_rows(p, self.chunk_elements, quantized=True)
@@ -321,19 +355,15 @@ class Adam(Optimizer, _Moments):
                                  None if code is None else code[a:b])
                     quant.quantize_into(sub, m_new)
                 return
-        total = sum(params[n].numel() for n in names)
-        m_flat = quant.dequantize(stored, (total,))
-        m_new_flat = torch.empty_like(m_flat)
-        off = 0
+        m_flat, m_new_flat, offsets = self._flat_moment(group, names,
+                                                        params, state)
         for n in names:
             p = params[n]
-            k = p.numel()
-            m = _group_slice(n, p, m_flat, off)
+            m = _group_slice(n, p, m_flat, offsets[n])
             m_new = leaf(p, grads[n], m, state["nu"][n],
                          comp[n] if comp is not None else None)
-            _group_slice(n, p, m_new_flat, off).copy_(m_new)
-            off += k
-        quant.quantize_into(stored, m_new_flat)
+            _group_slice(n, p, m_new_flat, offsets[n]).copy_(m_new)
+        self._store_flat_moment(group, state, m_new_flat)
 
 
 def trust_ratio(w_norm, u_norm, min_coeff, max_coeff):
@@ -404,25 +434,22 @@ class Lamb(Optimizer, _Moments):
         """One group's moments (written) and updates ``u`` (returned)."""
         quantized = self.state_dtype == "int8"
         if quantized:
-            total = sum(params[n].numel() for n in names)
-            m_flat = quant.dequantize(state["mu"][group], (total,))
-            m_new_flat = torch.empty_like(m_flat)
-        updates, off = [], 0
+            m_flat, m_new_flat, offsets = self._flat_moment(
+                group, names, params, state)
+        updates = []
         for n in names:
             p = params[n]
-            k = p.numel()
-            m = (_group_slice(n, p, m_flat, off) if quantized
+            m = (_group_slice(n, p, m_flat, offsets[n]) if quantized
                  else state["mu"][n].float())
             m_new, u = self._update(p, _scaled_f32(grads[n], grad_scale),
                                     m, state["nu"][n], b1, divisors)
             if quantized:
-                _group_slice(n, p, m_new_flat, off).copy_(m_new)
+                _group_slice(n, p, m_new_flat, offsets[n]).copy_(m_new)
             else:
                 state["mu"][n].copy_(m_new)
             updates.append(u)
-            off += k
         if quantized:
-            quant.quantize_into(state["mu"][group], m_new_flat)
+            self._store_flat_moment(group, state, m_new_flat)
         return updates
 
     def _apply_ratio(self, names, params, updates, w_sq, u_sq, lr):

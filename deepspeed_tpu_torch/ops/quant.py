@@ -71,7 +71,11 @@ def quantize(x, nb=None):
     if nb * BLOCK > n:
         flat = torch.cat([flat, flat.new_zeros(nb * BLOCK - n)])
     blocks = flat.reshape(nb, BLOCK)
-    absmax = blocks.abs().amax(dim=1)
+    return _encode(blocks, blocks.abs().amax(dim=1))
+
+
+def _encode(blocks, absmax):
+    """Blocks ``[nb, BLOCK]`` float32 and their absmax -> the leaf."""
     scale = absmax / 127.0
     positive = scale > 0
     inv = torch.where(positive, 1.0 / torch.where(positive, scale, 1.0),
@@ -86,6 +90,119 @@ def quantize_into(leaf, x):
     new = quantize(x, nb=leaf["scale"].numel())
     leaf["q"].copy_(new["q"])
     leaf["scale"].copy_(new["scale"])
+
+
+class BlockMap:
+    """A rank's part of one group's flat int8 leaf, on the whole (JAX)
+    leaf's block grid. The JAX engine's leaf of a stacked group runs over
+    all its layers and experts, so where a pipeline stage holds some of
+    the layers or a data rank some of the experts, a block can hold
+    elements of two ranks. ``members`` ``[(name, numel, global offset)]``
+    are this rank's tensors of the group, each a contiguous run of the
+    whole leaf (``total`` elements) in the JAX element order; ``shared``
+    the sorted global blocks that hold elements of more than one rank
+    (the same list on every rank); ``reduce`` a function that takes the
+    max of a float32 vector over every rank in place.
+
+    The rank's leaf holds the maximal runs of consecutive global blocks
+    its members touch (the elements it does not hold stay zero), so every
+    local block is one global block: ``offsets`` gives each member's
+    local element offset, ``global_blocks`` each local block's global
+    index. A shared block takes its scale from the max of its ranks'
+    absmax (one ``reduce`` of the shared blocks a step), so the codes and
+    scales are the whole leaf's."""
+
+    def __init__(self, members, total, shared=(), reduce=None):
+        self.total = int(total)
+        windows = []  # [first global block, end global block)
+        for a, b in sorted((off, off + n) for _, n, off in members):
+            first, end = a // BLOCK, -(-b // BLOCK)
+            if windows and first <= windows[-1][1]:
+                windows[-1][1] = max(windows[-1][1], end)
+            else:
+                windows.append([first, end])
+        starts, blocks = [], []
+        for first, end in windows:
+            starts.append((first, len(blocks)))
+            blocks.extend(range(first, end))
+        self.global_blocks = blocks
+        self.nb = len(blocks)
+        self.numel = self.nb * BLOCK
+        self.offsets = {}
+        for name, _, off in members:
+            first, local = max(w for w in starts if w[0] * BLOCK <= off)
+            self.offsets[name] = (local - first) * BLOCK + off
+        self.members = [(name, n, off) for name, n, off in members]
+        slot = {g: i for i, g in enumerate(shared)}
+        self.n_shared = len(slot)
+        self._pairs = [(k, slot[g]) for k, g in enumerate(blocks)
+                       if g in slot]
+        self.reduce = reduce
+        self._index = {}
+
+    def zeros(self, device):
+        return {"q": torch.zeros(self.numel, dtype=torch.int8, device=device),
+                "scale": torch.zeros(self.nb, dtype=torch.float32,
+                                     device=device)}
+
+    def _indices(self, device):
+        if device not in self._index:
+            local, slots = zip(*self._pairs) if self._pairs else ((), ())
+            self._index[device] = tuple(
+                torch.tensor(x, dtype=torch.long, device=device)
+                for x in (local, slots))
+        return self._index[device]
+
+    def quantize_into(self, leaf, x):
+        """Encode the rank's flat working values ``x`` (``numel``
+        elements, zero where the rank holds none) into ``leaf`` in place,
+        the shared blocks' absmax first maxed over every rank."""
+        blocks = x.reshape(self.nb, BLOCK).float()
+        absmax = blocks.abs().amax(dim=1)
+        if self.n_shared:
+            local, slots = self._indices(absmax.device)
+            vec = absmax.new_zeros(self.n_shared)
+            vec[slots] = absmax[local]
+            self.reduce(vec)
+            absmax[local] = vec[slots]
+        new = _encode(blocks, absmax)
+        leaf["q"].copy_(new["q"])
+        leaf["scale"].copy_(new["scale"])
+
+    def to_pieces(self, leaf):
+        """This rank's codes and scales as whole-leaf pieces (host):
+        ``([(global offset, codes)], [(global block, scale)])``."""
+        q, scale = leaf["q"].detach().cpu(), leaf["scale"].detach().cpu()
+        return ([(off, q[self.offsets[name]:self.offsets[name] + n].clone())
+                 for name, n, off in self.members],
+                [(g, float(scale[k]))
+                 for k, g in enumerate(self.global_blocks)])
+
+    def from_whole(self, whole):
+        """This rank's leaf cut from the whole leaf ``whole`` (host)."""
+        out = self.zeros("cpu")
+        for name, n, off in self.members:
+            local = self.offsets[name]
+            out["q"][local:local + n] = whole["q"][off:off + n]
+        out["scale"].copy_(whole["scale"][torch.tensor(
+            self.global_blocks, dtype=torch.long)])
+        return out
+
+
+def whole_from_pieces(total, parts):
+    """The whole leaf of ``total`` elements from every rank's
+    :meth:`BlockMap.to_pieces` (ranks that hold the same elements hold the
+    same codes)."""
+    nb = max(1, math.ceil(total / BLOCK))
+    q = torch.zeros(nb * BLOCK, dtype=torch.int8)
+    scale = torch.zeros(nb, dtype=torch.float32)
+    for codes, scales in parts:
+        for off, c in codes:
+            q[off:off + c.numel()] = c
+        for g, v in scales:
+            if g < nb:
+                scale[g] = v
+    return {"q": q, "scale": scale}
 
 
 def moments_zeros_like(params, state_dtype, role="mu", pad_blocks=1):

@@ -110,16 +110,25 @@ class _GPipe(torch.autograd.Function):
     @staticmethod
     def forward(ctx, anchor, microbatches, run):
         del anchor
-        line, n_micro = run["line"], run["n_micro"]
-        shape = tuple(microbatches.shape[1:])
+        line, n_micro, sizes = run["line"], run["n_micro"], run["sizes"]
+        rest = tuple(microbatches.shape[1:])
+        if sizes is None:
+            shapes = [rest] * n_micro
+        else:
+            # pieces of different row counts, concatenated along dim 0
+            shapes = [(k,) + rest for k in sizes]
         dtype, device = run["dtype"], run["device"]
+        pieces = microbatches
+        if line.first and sizes is not None:
+            pieces = torch.split(microbatches, list(sizes))
         pending, graphs, outs = [], [], []
         with torch.set_grad_enabled(run["record"]):
             for m in range(n_micro):
                 if line.first:
-                    x = microbatches[m].detach()
+                    x = pieces[m].detach()
                 else:
-                    x = _recv(shape, dtype, device, line, line.rank - 1, m)
+                    x = _recv(shapes[m], dtype, device, line, line.rank - 1,
+                              m)
                 if run["record"]:
                     x.requires_grad_()
                 y = run["stage_fn"](x, m)
@@ -133,14 +142,19 @@ class _GPipe(torch.autograd.Function):
                 outs.append(y.detach())
         _wait(pending)
         ctx.run, ctx.graphs = run, graphs
-        ctx.shape = (n_micro,) + (() if run["last_stage_fn"] is not None
-                                  else shape)
+        scalars = run["last_stage_fn"] is not None
+        if scalars:
+            ctx.shape = (n_micro,)
+        elif sizes is None:
+            ctx.shape = (n_micro,) + shapes[0]
+        else:
+            ctx.shape = (sum(sizes),) + rest
         if line.last:
-            out = torch.stack(outs)
+            out = (torch.cat(outs) if sizes is not None and not scalars
+                   else torch.stack(outs))
         else:
             out = torch.zeros(ctx.shape, dtype=(
-                torch.float32 if run["last_stage_fn"] is not None
-                else dtype), device=device)
+                torch.float32 if scalars else dtype), device=device)
         if run["broadcast"] and line.size > 1:
             # the last stage's outputs on every stage (the others add
             # zeros)
@@ -155,7 +169,9 @@ class _GPipe(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         run, graphs = ctx.run, ctx.graphs
-        line, n_micro = run["line"], run["n_micro"]
+        line, n_micro, sizes = run["line"], run["n_micro"], run["sizes"]
+        if sizes is not None and run["last_stage_fn"] is None:
+            g = torch.split(g, list(sizes))
         pending, dx = [], [None] * n_micro
         for m in reversed(range(n_micro)):
             x, y = graphs[m]
@@ -172,14 +188,19 @@ class _GPipe(torch.autograd.Function):
                 _send(gx, line, line.rank - 1, n_micro + m, pending)
         _wait(pending)
         ctx.graphs = None
-        grad_in = torch.stack(dx) if line.first else None
+        grad_in = None
+        if line.first:
+            grad_in = torch.cat(dx) if sizes is not None else torch.stack(dx)
         return None, grad_in, None
 
 
 def gpipe(stage_fn, stage_params, microbatches, line, extras=None,
-          last_stage_fn=None, broadcast=True, dtype=None, device=None):
+          last_stage_fn=None, broadcast=True, dtype=None, device=None,
+          sizes=None):
     """Run ``microbatches`` ``[M, mb, ...]`` through the stages of
-    ``line`` (a :class:`PipelineStage`).
+    ``line`` (a :class:`PipelineStage`). With ``sizes`` (M row counts)
+    the microbatches are pieces of different sizes instead, concatenated
+    along dim 0 (``[sum(sizes), ...]``), and so are the outputs.
 
     ``stage_fn(stage_params, x, mb_idx, extras) -> y`` is this stage's
     compute on one microbatch (y shaped and typed like x: it feeds the
@@ -200,7 +221,8 @@ def gpipe(stage_fn, stage_params, microbatches, line, extras=None,
     if device is None:
         device = microbatches.device
     record = torch.is_grad_enabled()
-    run = {"line": line, "n_micro": microbatches.shape[0], "dtype": dtype,
+    n_micro = microbatches.shape[0] if sizes is None else len(sizes)
+    run = {"line": line, "n_micro": n_micro, "sizes": sizes, "dtype": dtype,
            "device": device, "record": record, "broadcast": broadcast,
            "stage_fn": lambda x, m: stage_fn(stage_params, x, m, extras),
            "last_stage_fn": (None if last_stage_fn is None else

@@ -349,7 +349,7 @@ def _full_shapes(engine):
     """The global shapes of the module's tensors."""
     zero = getattr(engine, "_zero", None)
     if zero is not None and zero.stage >= 3:
-        shapes = dict(zero.shapes)
+        shapes = dict(zero.persist_shapes)
     else:
         shapes = {n: tuple(p.shape)
                   for n, p in _module_params(engine).items()}
@@ -505,12 +505,48 @@ def _reshard_tree(zero, canonical, template):
     return canonical
 
 
+def whole_int8_moments(engine, mu):
+    """``mu`` (an int8 first moment keyed by group) with every group that
+    spans ranks (the engine's ``_quant_maps``: a stage's layers, a data
+    rank's experts) as the whole JAX leaf, the one a single rank holds (a
+    collective of every rank of the world)."""
+    maps = getattr(engine, "_quant_maps", None)
+    if not maps:
+        return mu
+    import torch.distributed as dist
+
+    mine = {g: maps[g].to_pieces(mu[g]) for g in maps}
+    world, group = _world(engine)
+    parts = [None] * world
+    dist.all_gather_object(parts, mine, group=group)
+    out = dict(mu)
+    for g, bmap in maps.items():
+        out[g] = quant.whole_from_pieces(bmap.total, [p[g] for p in parts])
+    return out
+
+
+def _local_int8_moments(engine, inner):
+    """A canonical inner state's whole int8 leaves cut to this rank's part
+    of each group that spans ranks (:func:`whole_int8_moments`'s
+    inverse)."""
+    maps = getattr(engine, "_quant_maps", None)
+    if not maps or not isinstance(inner, dict) or "mu" not in inner:
+        return inner
+    mu = dict(inner["mu"])
+    for g, bmap in maps.items():
+        mu[g] = bmap.from_whole(mu[g])
+    return dict(inner, mu=mu)
+
+
 def _canonical_opt_state(engine):
     """The optimizer file's payload: ``{"master", "inner"}`` when the fp32
     masters differ from what the module computes with (or are this rank's
     shards), the bare inner state for an fp32 engine without offload (its
-    module file is the master)."""
+    module file is the master). An int8 group that spans ranks is the
+    whole JAX leaf (:func:`whole_int8_moments`)."""
     inner = _host_tree(engine.optimizer_state)
+    if getattr(engine, "_quant_maps", None):
+        inner = dict(inner, mu=whole_int8_moments(engine, inner["mu"]))
     if (engine.compute_dtype == torch.float32
             and not getattr(engine, "host_offload", False)
             and _layout(engine) is None):
@@ -835,7 +871,7 @@ def _resharded(engine, staged, load_optimizer_states):
         return None, None
     master, inner = _split_optimizer_payload(staged)
     master = _model_local(engine, master)
-    inner = _model_local(engine, inner)
+    inner = _local_int8_moments(engine, _model_local(engine, inner))
     zero = _layout(engine)
     if zero is None:
         return master, inner

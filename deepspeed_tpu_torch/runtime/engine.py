@@ -183,9 +183,11 @@ tensor is gathered at the forward, and the experts stay whole on their
 rank. At a model axis above 1 the attention is Megatron-sharded and the
 experts are not (the JAX layer shards only the expert dim): each model
 rank routes every token of its data rank. bf16 moments and compensated
-masters step the experts as any leaf. Refused with ``not_ported("...
-(ROADMAP A7f, what is left)")``: int8 moments (an expert rank's blocks
-are not the JAX leaf's). At a sequence axis above 1 each MoE layer
+masters step the experts as any leaf. int8 moments keep each
+``h.*.moe.expert_*`` group on the JAX leaf's block grid: a rank holds its
+experts' runs of the whole leaf, and a block that holds elements of two
+ranks takes the max of their absmax (ops/quant.py:BlockMap); over a data
+axis the optimizer state keeps stage 0's layout. At a sequence axis above 1 each MoE layer
 gathers its rows over the line and routes them whole, as the JAX layer
 routes the global row (ops/moe.py). The adapters
 block is refused with the reason: the JAX MoE blocks run without their
@@ -207,10 +209,10 @@ pipeline_plan). At ZeRO stage 3 the layer-wise gather is not armed (the
 JAX engine disarms it with stages): every sharded tensor is gathered at
 the forward. A model axis composes (the pipe group is a (data, model)
 coordinate's stages). ``sparse_gradients`` reduces stage 0's lookup
-over its data group. Refused with ``not_ported("... (ROADMAP A7f, what
-is left)")``: int8 moments (the JAX engine's blocks straddle the
-stages). The adapters block is refused with the reason: the JAX
-pipelined stack runs the blocks without their factors.
+over its data group. int8 moments keep each ``h.*`` group on the JAX
+leaf's block grid, as with experts (a block straddling two stages takes
+the max of their absmax). The adapters block is refused with the reason:
+the JAX pipelined stack runs the blocks without their factors.
 
 Optimizer offload at data parallel > 1 is refused with the JAX engine's
 message.
@@ -227,12 +229,13 @@ from torch.func import functional_call
 
 from ..adapters import lora as lora_lib
 from ..config import constants as C
-from ..config.config import DeepSpeedConfig, DeepSpeedConfigError, not_ported
+from ..config.config import DeepSpeedConfig, DeepSpeedConfigError
 from ..config.config_utils import load_config_json
 from ..ops.head_dims import check_head_dim, model_head_dim, model_max_positions
 from ..models.gpt2 import GPT2LMHeadModel
 from ..models.gpt2 import partition_specs as gpt2_partition_specs
 from ..models.stack import BLOCK_TENSORS, Zero3Arming, gather_tensors
+from ..ops import quant as quant_lib
 from ..ops.optimizers import Optimizer, build_optimizer, param_groups
 from ..ops.transformer import resolve_remat_policy
 from ..parallel import tensor as tp_lib
@@ -480,6 +483,8 @@ class DeepSpeedEngine:
         self._expert_names = frozenset()
         self._pipe_shared = ()
         self._global_names = tuple(n for n, _ in self.module.named_parameters())
+        self._global_shapes = {n: tuple(p.shape)
+                               for n, p in self.module.named_parameters()}
         self._configure_pipeline_and_experts()
         self._configure_model_parallel(param_specs)
         self._configure_sequence_parallel()
@@ -498,10 +503,12 @@ class DeepSpeedEngine:
         self._host_grads = self._host_out = None
         self._n_params = sum(
             p.numel() for p in self.module.parameters())
-        if self.host_offload:
-            self._offload_masters()
         if self._tp_full_opt:
             self._model_full_masters()
+        if self.host_offload:
+            # after the model gather: the host masters and moments hold
+            # the model-gathered tensors of int8 moments at mp > 1
+            self._offload_masters()
         # ZeRO's layout over the data group (None in one process), the
         # gradient shards of a window, and whether the fp32 masters are
         # the module's stage-3 shards themselves
@@ -521,6 +528,9 @@ class DeepSpeedEngine:
         # them), when the norms are the world's
         self._norm_skip = self._norm_skip_set()
         self.optimizer_obj = self._configure_optimizer(optimizer)
+        self._quant_maps = self._int8_block_maps()
+        if self._quant_maps:
+            self.optimizer_obj.quant_maps = self._quant_maps
         self.optimizer_state = self.optimizer_obj.init(self.params)
         if self.host_offload:
             self.optimizer_state = self._pinned(self.optimizer_state)
@@ -872,12 +882,20 @@ class DeepSpeedEngine:
         cfg = self.config
         stage = self.zero_stage
         full = self.params
+        persist = {}
+        if self._tp_full_opt:
+            # the module's model shards persist (stage 3: their data
+            # shards); the optimizer's leaves cut the whole tensors
+            persist = dict(
+                persist_shapes={n: tuple(p.shape) for n, p
+                                in self._compute_params.items()},
+                persist_model_dims=dict(self._model_dims))
         zero = self._zero = ZeroLayout(
             {n: tuple(p.shape) for n, p in full.items()},
             self.dp_world_size, self.data_rank, self._dp_group, stage,
             flat_groups=cfg.optimizer_state_dtype == "int8",
             model_dims={n: self._opt_model_dim(n) for n in full},
-            local=self._expert_names)
+            local=self._expert_names, **persist)
         module = self.module
         zero3 = None
         if zero.sharded:
@@ -950,18 +968,11 @@ class DeepSpeedEngine:
         self._tp = tp_lib.TensorParallel(self._mp_group, mp, rank)
         module.configure_model_parallel(self._mp_group, rank, mp)
         if self.config.optimizer_state_dtype == "int8":
-            if self.host_offload:
-                raise not_ported(
-                    "int8 optimizer moments with optimizer offload at a "
-                    "model axis above 1 (ROADMAP A7f, what is left)")
-            if self.zero_stage >= ZERO_OPTIMIZATION_WEIGHTS and (
-                    self.dp_world_size > 1):
-                raise not_ported(
-                    "int8 optimizer moments at ZeRO stage 3 with a model "
-                    "axis above 1 (ROADMAP A7f, what is left)")
             # the JAX engine's flat int8 leaves are whole over the model
             # axis: their blocks cross the model split, so the optimizer
-            # steps the model-gathered tensors
+            # steps the model-gathered tensors (under offload on the host;
+            # at ZeRO stage 3 each rank's data shard of them, while the
+            # module keeps its persistent shards of its model shards)
             self._tp_full_opt = True
         log_dist(
             f"tensor parallel: model axis {mp}, "
@@ -996,21 +1007,30 @@ class DeepSpeedEngine:
     def _refuse_with_stages_or_experts(self):
         """What a pipe axis above 1 (or a model with pipeline stages) and
         a model with MoE experts refuse: the adapters block, with the JAX
-        engine's behaviour as the reason, and int8 moments, ``not_ported``
-        naming ROADMAP A7f."""
+        engine's behaviour as the reason. int8 moments train there on the
+        whole JAX leaf's block grid (:meth:`_int8_block_maps`); over a
+        data axis above 1 their optimizer state keeps stage 0's layout,
+        replicated over the data group, whatever the ZeRO stage (the same
+        values; the JAX engine also shards its flat leaves over the data
+        axis, a memory saving the port does not make here)."""
         module = self.module
         cfg = self.config
         mcfg = getattr(module, "config", None)
         stages = getattr(mcfg, "pipeline_stages", 1)
         experts = getattr(mcfg, "moe_experts", 0)
-        # the JAX engine's int8 leaf of a group runs over its layers (and
-        # its experts) in order, so a block can straddle two stages (or
-        # two expert ranks)
-        int8 = cfg.optimizer_state_dtype == "int8"
+        staged = stages > 1 or (self._pipe is not None
+                                and hasattr(module, "configure_pipeline"))
+        if (cfg.optimizer_state_dtype == "int8" and (staged or experts > 0)
+                and self.zero_stage >= 1 and self.dp_world_size > 1):
+            what = "pipeline stages" if staged else "MoE experts"
+            log_dist(
+                f"int8 moments with {what}: ZeRO stage {self.zero_stage} "
+                "runs stage 0's layout (the optimizer state replicated "
+                "over the data group)", ranks=[0])
+            self.zero_stage = 0
         # a model without stages is replicated over a pipe axis
         # (_configure_pipeline_and_experts)
-        if stages > 1 or (self._pipe is not None
-                          and hasattr(module, "configure_pipeline")):
+        if staged:
             if cfg.adapters_enabled:
                 # the JAX pipelined stack runs its blocks without their
                 # factors: the JAX engine trains nothing there
@@ -1020,9 +1040,6 @@ class DeepSpeedEngine:
                     "LoRA factors, so its fine-tune leaves them as they "
                     "were; the port refuses it rather than train something "
                     "else")
-            if int8:
-                raise not_ported("int8 optimizer moments at a pipe axis "
-                                 "above 1 (ROADMAP A7f, what is left)")
         if experts > 0:
             if cfg.adapters_enabled:
                 # the JAX MoE block runs its attention without the factors
@@ -1031,9 +1048,56 @@ class DeepSpeedEngine:
                     "MoE blocks run without their LoRA factors, so its "
                     "fine-tune leaves them as they were; the port refuses "
                     "it rather than train something else")
-            if int8:
-                raise not_ported("int8 optimizer moments with MoE experts "
-                                 "(ROADMAP A7f, what is left)")
+
+    def _int8_block_maps(self):
+        """int8 moments whose JAX leaf spans ranks: ``{group: BlockMap}``
+        (ops/quant.py) of each group that a pipeline stage holds part of
+        (``h.*`` over the layers) or a data rank (``h.*.moe.expert_*``
+        over the layers and experts), else None. The whole leaf runs over
+        the group's tensors in layer order (and expert order within a
+        tensor), each in the JAX element order; a block that holds
+        elements of two ranks is shared, and its scale is the max of their
+        absmax over every rank of the world."""
+        if getattr(self.optimizer_obj, "state_dtype", "fp32") != "int8":
+            return None
+        module = self.module
+        stage_of = None
+        if self._pipe is not None and hasattr(module, "stage_layers"):
+            per = module.config.n_layer // self.pp_world_size
+            stage_of = {i: i // per for i in range(module.config.n_layer)}
+        experts = self._expert_names
+        if stage_of is None and not experts:
+            return None
+        dp, maps = self.dp_world_size, {}
+        for group, names in param_groups(
+                [n for n in self._global_names
+                 if n not in self.frozen_base_params]).items():
+            pieces, mine, off = [], [], 0
+            for n in names:
+                k = int(np.prod(self._global_shapes[n]))
+                if n in experts:
+                    each = k // dp
+                    pieces += [(off + r * each, r) for r in range(dp)]
+                    mine.append((n, each, off + self.data_rank * each))
+                elif stage_of is not None and n.startswith("h."):
+                    owner = stage_of[int(n.split(".")[1])]
+                    pieces.append((off, owner))
+                    if owner == self.pipe_rank:
+                        mine.append((n, k, off))
+                else:
+                    pieces.append((off, None))
+                    mine.append((n, k, off))
+                off += k
+            if all(owner is None for _, owner in pieces):
+                continue
+            shared = sorted({b // quant_lib.BLOCK for (b, o), (_, prev)
+                             in zip(pieces[1:], pieces) if o != prev
+                             and b % quant_lib.BLOCK})
+            maps[group] = quant_lib.BlockMap(
+                mine, off, shared, functools.partial(
+                    dist_lib.all_reduce, group=self._world_group,
+                    op=torch.distributed.ReduceOp.MAX))
+        return maps or None
 
     def _configure_pipeline_and_experts(self):
         """A pipe axis above 1: keep this stage's blocks (the model's
@@ -1089,14 +1153,22 @@ class DeepSpeedEngine:
         self.module.to(dtype=self.compute_dtype)
         self._compute_params = self._trainable_module_params()
 
+    def _model_gathered(self, name, t):
+        """Model shard ``t`` of ``name`` joined over the model group."""
+        return tp_lib.gather_shards(name, t, self._model_dims.get(name),
+                                    self._tp)
+
+    def _model_slice(self, name, t):
+        """This model rank's shard of the whole tensor ``t``."""
+        return tp_lib.shard_for_rank(name, t, self._model_dims.get(name),
+                                     self.mp_world_size, self.model_rank)
+
     @torch.no_grad()
     def _publish_model_slices(self, full):
         """The module's shards cut from whole tensors ``full`` (the
         model-gathered optimizer's masters after an update)."""
         for n, t in full.items():
-            self._compute_params[n].copy_(tp_lib.shard_for_rank(
-                n, t, self._model_dims.get(n), self.mp_world_size,
-                self.model_rank))
+            self._compute_params[n].copy_(self._model_slice(n, t))
 
     def _shard_params(self, full):
         """From stage 1: this rank's master shards, the module's
@@ -1111,8 +1183,11 @@ class DeepSpeedEngine:
             full, dtype=(self.compute_dtype if self.compensated_master
                          else torch.float32))
         if stage >= ZERO_OPTIMIZATION_WEIGHTS:
+            # the module's tensors (apart from the masters when the
+            # optimizer steps model-gathered ones)
+            held = self._compute_params if self._tp_full_opt else full
             with torch.no_grad():
-                for n, p in full.items():
+                for n, p in held.items():
                     p.data = zero.persistent_shard(n, p.data)
         module.to(dtype=self.compute_dtype)
         self._compute_params = self._trainable_module_params()
@@ -1169,7 +1244,7 @@ class DeepSpeedEngine:
             prefix = None
         dims, shapes, block = {}, {}, set()
         if prefix is not None:
-            for n, shape in zero.shapes.items():
+            for n, shape in zero.persist_shapes.items():
                 tensor = n.rpartition(".")[2]
                 if n.startswith(prefix) and tensor in BLOCK_TENSORS:
                     d = zero.param_specs[n]
@@ -1195,12 +1270,12 @@ class DeepSpeedEngine:
                 "ZeRO-3: model exposes no layer-gather seam "
                 "(zero3_block_prefix); every sharded parameter is gathered "
                 "at the forward", ranks=[0])
-        rest = [n for n in zero.shapes
+        rest = [n for n in zero.persist_shapes
                 if n not in block and zero.param_specs[n] is not None]
         if rest:
             self._engine_gather = Zero3Arming(
                 {n: zero.param_specs[n] for n in rest},
-                {n: zero.shapes[n] for n in rest}, self._dp_group,
+                {n: zero.persist_shapes[n] for n in rest}, self._dp_group,
                 self.dp_world_size,
                 latency_hiding=bool(zc.stage3_latency_hiding))
         return arming
@@ -1228,7 +1303,7 @@ class DeepSpeedEngine:
             self._host_out = {
                 n: torch.empty(p.shape, dtype=self.compute_dtype,
                                pin_memory=True)
-                for n, p in masters.items()}
+                for n, p in self._compute_params.items()}
         log_dist(
             "ZeRO-Offload: fp32 master + optimizer moments on host cpu; "
             "accelerator holds compute-dtype params/grads (per-step d2h "
@@ -1277,6 +1352,9 @@ class DeepSpeedEngine:
         waiting, on a CUDA engine)."""
         for n, master in self.params.items():
             dst = self._compute_params[n]
+            if self._tp_full_opt:
+                # the model-gathered master's shard for this rank
+                master = self._model_slice(n, master)
             if self._host_out is not None:
                 staged = self._host_out[n]
                 staged.copy_(master)
@@ -1629,10 +1707,12 @@ class DeepSpeedEngine:
             for n, t in params.items() if n not in self.frozen_base_params
         }
         if self._zero is not None and self.zero_stage >= 3:
-            # the accumulation buffer is this rank's shards
+            # the accumulation buffer is this rank's shards (of the
+            # model-gathered tensors, for int8 moments at mp > 1)
             self._grad_buffer = self._zero.add_persistent_grads(
                 {n: g.to(self.grad_accum_dtype) for n, g in grads.items()},
-                self._shards(), self._grad_buffer is None)
+                self._shards(), self._grad_buffer is None,
+                to_full=self._model_gathered if self._tp_full_opt else None)
         elif self._grad_buffer is not None:
             for n, g in grads.items():
                 self._grad_buffer[n].add_(g)
@@ -1672,7 +1752,8 @@ class DeepSpeedEngine:
                 if n not in self._expert_names:
                     dist_lib.all_reduce(g, self._dp_group)
             return grads
-        if self.zero_stage == 1 or self._tp_full_opt:
+        if self.zero_stage == 1 or (self._tp_full_opt
+                                    and self.zero_stage < 3):
             # fresh shards: only the full buffer persists between windows
             return self._zero.reduce_grads(grads, {}, True)
         return grads
@@ -1712,12 +1793,19 @@ class DeepSpeedEngine:
         zero = self._zero
         if self._tp_full_opt:
             # whole tensors gathered over the data group, then the
-            # module's model shards cut from them
+            # module's model shards cut from them (stage 3: their
+            # persistent shards)
             full = {n: torch.empty(shape, dtype=self.compute_dtype,
                                    device=self.device)
                     for n, shape in zero.shapes.items()}
             zero.gather_into(self.params, full)
-            self._publish_model_slices(full)
+            if self.zero_stage >= ZERO_OPTIMIZATION_WEIGHTS:
+                full = {n: zero.persistent_shard(n, self._model_slice(n, t))
+                        for n, t in full.items()}
+                for n, t in full.items():
+                    self._compute_params[n].copy_(t)
+            else:
+                self._publish_model_slices(full)
         elif self.zero_stage < ZERO_OPTIMIZATION_WEIGHTS:
             zero.gather_into(self.params, self._compute_params)
         elif self._masters_alias:
@@ -1780,12 +1868,11 @@ class DeepSpeedEngine:
             self.last_aux = tuple(torch.stack(list(xs))
                                   for xs in zip(*self._window_aux))
             self._window_aux = []
-        if self._tp_full_opt:
+        if self._tp_full_opt and self.zero_stage < 3:
             # the window's model shards joined once over the model group,
-            # for the optimizer's whole tensors
-            grads = {n: tp_lib.gather_shards(n, g, self._model_dims.get(n),
-                                             self._tp)
-                     for n, g in grads.items()}
+            # for the optimizer's whole tensors (stage 3's buffer already
+            # holds the leaves)
+            grads = {n: self._model_gathered(n, g) for n, g in grads.items()}
         if self._zero is not None:
             grads = self._reduce_at_boundary(grads)
         if self._sp_line is not None:

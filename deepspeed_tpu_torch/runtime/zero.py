@@ -206,20 +206,29 @@ class ZeroLayout:
     tensor parallelism the rank's model shards, whose model dims
     ``model_dims`` {name: dim} the data axis leaves alone). ``local``: the
     names already partitioned over the data axis (whole leaves here,
-    never reduced)."""
+    never reduced). ``persist_shapes`` and ``persist_model_dims``: the
+    stage-3 persistent tensors' shapes and model dims where they differ
+    from the optimizer's (the model-gathered optimizer of int8 moments at
+    a model axis above 1 steps whole tensors while the module holds model
+    shards); by default ``shapes`` and ``model_dims``."""
 
     def __init__(self, shapes, dp, rank, group, stage, flat_groups=False,
-                 model_dims=None, local=()):
+                 model_dims=None, local=(), persist_shapes=None,
+                 persist_model_dims=None):
         self.dp = int(dp)
         self.rank = int(rank)
         self.group = group
         self.stage = int(stage)
         self.shapes = OrderedDict((n, tuple(s)) for n, s in shapes.items())
+        self.persist_shapes = (self.shapes if persist_shapes is None else
+                               OrderedDict((n, tuple(s)) for n, s
+                                           in persist_shapes.items()))
         self.flat_groups = flat_groups
         self.local = frozenset(local)
-        self.param_specs = zero_param_specs(self.shapes, self.dp, stage,
-                                            prefer_leading=flat_groups,
-                                            model_dims=model_dims)
+        self.param_specs = zero_param_specs(
+            self.persist_shapes, self.dp, stage, prefer_leading=flat_groups,
+            model_dims=(model_dims if persist_shapes is None
+                        else persist_model_dims))
         opt_specs = zero_optstate_specs(self.shapes, self.dp, stage,
                                         model_dims=model_dims)
         for n in self.local:
@@ -374,12 +383,13 @@ class ZeroLayout:
                 self.reduce_one(name, torch.zeros(
                     t.shape, dtype=buf.dtype, device=buf.device), out, state)
 
-    def add_persistent_grads(self, grads, out, first=True):
+    def add_persistent_grads(self, grads, out, first=True, to_full=None):
         """Stage 3: gradients of the persistent tensors (a shard's already
         summed over the data group by the gather's backward; a replicated
         tensor's local, all-reduced here) into this rank's leaves ``out``.
         Where the layouts differ (flat int8 groups), through the full
-        tensors."""
+        tensors (``to_full(name, t)``: a persistent tensor's whole one
+        when the optimizer's tensors are model-gathered)."""
         summed = OrderedDict()
         for n, g in grads.items():
             if self.param_specs[n] is None and n not in self.local:
@@ -387,10 +397,14 @@ class ZeroLayout:
                 dist_lib.all_reduce(g, self.group)
             summed[n] = g
         if not self.persistent_matches_leaves():
-            summed = self.shard_leaves(OrderedDict(
+            full = OrderedDict(
                 (n, self.gather_full(n, g)
                  if self.param_specs[n] is not None else g)
-                for n, g in summed.items()))
+                for n, g in summed.items())
+            if to_full is not None:
+                full = OrderedDict((n, to_full(n, g))
+                                   for n, g in full.items())
+            summed = self.shard_leaves(full)
         for name in self.leaves:
             self._store(out, name, summed[name], first)
         return out
@@ -431,7 +445,7 @@ class ZeroLayout:
         buf = torch.empty(shard.numel() * self.dp, dtype=shard.dtype,
                           device=shard.device)
         dist_lib.all_gather(buf, shard.reshape(-1).contiguous(), self.group)
-        return from_chunks(buf, self.shapes[name], d)
+        return from_chunks(buf, self.persist_shapes[name], d)
 
     def persistent_shard(self, name, full):
         d = self.param_specs[name]
@@ -447,7 +461,7 @@ class ZeroLayout:
         engine's ``_zero3_account_bytes`` at ``itemsize`` bytes an
         element."""
         resident = gather = 0
-        for name, s in self.shapes.items():
+        for name, s in self.persist_shapes.items():
             nbytes = math.prod(s) * itemsize
             if self.param_specs[name] is None:
                 resident += nbytes

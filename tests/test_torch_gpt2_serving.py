@@ -324,26 +324,47 @@ def test_sampled_decoding_is_seeded_and_in_vocab(models):
     ({}, {"mesh": {"sequence_parallel_size": 2}}),
 ])
 def test_engine_refuses_what_is_not_yet_ported(models, inference, extra):
-    """Serving over a data or sequence axis is not yet ported (replicas
-    are the serving fleet's, ROADMAP A8); the model axis is
-    (tests/test_torch_serving_model_parallel.py), so its case now holds a
-    sequence axis. The contiguous cache, the host tier and speculative
-    decoding are ported (since they came with the rest of inference), so
-    their cases hold what the JAX engine still refuses of them, with its
-    message: fused decode without pages, a host tier with nothing to
-    spill, speculation without a draft."""
+    """Serving over a data axis is ported (ROADMAP A8c,
+    tests/test_torch_serving_data_axis.py), as is the model axis
+    (tests/test_torch_serving_model_parallel.py): their cases hold what the
+    JAX engine does with the same block, a data axis that does not cover
+    the world refused with its ``ValueError`` and a sequence size not read
+    (both serve, with equal greedy tokens). The contiguous cache, the host
+    tier and speculative decoding are ported (since they came with the
+    rest of inference), so their cases hold what the JAX engine still
+    refuses of them, with its message: fused decode without pages, a host
+    tier with nothing to spill, speculation without a draft."""
     _, jmodel, params, model = models
     block = {k: v for k, v in dict(_BLOCK, **inference).items()
              if not (k == "kv_block_size" and v == 0)}
+    if extra:
+        config = {"inference": block, **extra}
+        if "data_parallel_size" in extra["mesh"]:
+            with pytest.raises(ValueError, match="covers 2 devices but 8"):
+                deepspeed_tpu.init_inference(
+                    model=jmodel, model_parameters=params, config=config)
+            with pytest.raises(ValueError, match="covers 2 devices but 1"):
+                deepspeed_tpu_torch.init_inference(
+                    model=model, device="cpu", config=config)
+            return
+        want = deepspeed_tpu.init_inference(
+            model=jmodel, model_parameters=params, config=config)
+        got = deepspeed_tpu_torch.init_inference(
+            model=model, device="cpu", config=config)
+        try:
+            assert got.mesh is None
+            prompt = [_prompt(6, 14)]
+            assert got.generate(prompt, max_new_tokens=4) == want.generate(
+                prompt, max_new_tokens=4)
+        finally:
+            got.close()
+            want.close()
+        return
     with pytest.raises(DeepSpeedConfigError) as got:
         deepspeed_tpu_torch.init_inference(
             model=model, device="cpu",
             config={"inference": block, **extra},
         )
-    if extra:
-        assert "not yet ported" in str(got.value)
-        assert "ROADMAP A8" in str(got.value)
-        return
     with pytest.raises(Exception) as want:
         deepspeed_tpu.init_inference(
             model=jmodel, model_parameters=params,

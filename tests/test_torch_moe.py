@@ -208,7 +208,7 @@ def test_one_expert_is_the_dense_mlp():
 # what the engine refuses with MoE experts in one process
 # ---------------------------------------------------------------------------
 LIFTED_WITH_EXPERTS = ("bf16 optimizer moments", "compensated masters",
-                       "optimizer offload")
+                       "optimizer offload", "int8 optimizer moments")
 
 
 @pytest.mark.parametrize("extra,what", [
@@ -225,16 +225,17 @@ LIFTED_WITH_EXPERTS = ("bf16 optimizer moments", "compensated masters",
 ])
 def test_moe_refusals(extra, what):
     """What an MoE model refuses in one process; bf16 moments,
-    compensated masters and offload are lifted and build (the first two's
-    parity: tests/test_torch_moe_dp2.py; offload steps the same update on
-    the host)."""
+    compensated masters, offload and int8 moments are lifted and build
+    (the first two's parity: tests/test_torch_moe_dp2.py; offload steps
+    the same update on the host; int8 at dp 2 against the JAX engine:
+    tests/test_torch_int8_spans.py)."""
     m = dst.GPT2LMHeadModel(dst.GPT2Config(**mp.SIZES, moe_experts=4),
                             device="cpu")
     config = dict({"train_batch_size": 2}, **extra)
     if what in LIFTED_WITH_EXPERTS:
         engine, *_ = dst.initialize(model=m, device="cpu",
                                     config_params=config)
-        assert (engine.config.optimizer_state_dtype == "bf16"
+        assert (engine.config.optimizer_state_dtype in ("bf16", "int8")
                 or engine.compensated_master or engine.host_offload)
         return
     # the adapters block: refused with the JAX engine's behaviour

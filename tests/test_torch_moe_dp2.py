@@ -33,12 +33,14 @@ OPT_KEYS = {"adam": "Adam", "fusedlamb": "FusedLamb"}
 MP = SP = 2
 BF16_MOMENTS = {"data_types": {"optimizer_state_dtype": "bf16"}}
 COMPENSATED = {"data_types": {"master_dtype": "compensated"}}
-# lifted (they build): their parity is test_moe_engine_at_a_model_axis_*
-# and test_moe_engine_at_a_sequence_axis_*
-LIFTED = ("model_axis", "sequence_axis")
+# lifted (they build): their parity is test_moe_engine_at_a_model_axis_*,
+# test_moe_engine_at_a_sequence_axis_* and (int8 moments over the expert
+# ranks) tests/test_torch_int8_spans.py
+LIFTED = ("model_axis", "sequence_axis", "int8")
 REFUSED_ON_RANKS = {
     "model_axis": {"mesh": {"model_parallel_size": MP}},
     "sequence_axis": {"mesh": {"sequence_parallel_size": 2}},
+    "int8": {"data_types": {"optimizer_state_dtype": "int8"}},
     "experts_split": {"case": {"experts": 3, "weights": None}},
 }
 
@@ -211,11 +213,15 @@ def test_moe_state_layouts_match_jax(runs, name):
                       "A7c"),
     ("experts_split", "moe_experts=3 must divide over the expert axis "
                       "(data) of 2"),
+    ("int8", "int8 optimizer moments with MoE experts (ROADMAP A7f"),
 ])
 def test_moe_refusals_on_ranks(runs, name, message):
+    """The lifted cases build where they were refused with ``message``
+    (their parity: see LIFTED); a split the JAX model refuses keeps its
+    message."""
     results, _, _, _, _ = runs
     for r in results:
         if name in LIFTED:
             assert r["refusals"][name] is None, message
-        else:  # the open items moved to ROADMAP A7f
-            assert message.replace("A7c", "A7f") in r["refusals"][name]
+        else:
+            assert message in r["refusals"][name]

@@ -579,11 +579,9 @@ def test_checkpoint_at_a_sequence_axis_loads_in_one_process(runs):
 def test_what_a_sequence_axis_refuses(runs, what):
     port, _, _ = runs
     got = port[2][0]["refusals"][what]
-    if what in LIFTED:
-        assert got is None  # builds; trained in STATES
-        return
-    assert got is not None and "not yet ported" in got
-    assert "ROADMAP A7f, what is left" in got
+    # every case builds (trained in STATES, ADAPTERS and SPARSE); nothing
+    # is left refused at a sequence axis
+    assert what in LIFTED and got is None, got
 
 
 def test_the_block_refuses_return_kv_and_query_masks(runs):

@@ -279,16 +279,56 @@ def test_init_fleet_refuses_the_networked_fleet_naming_a8b(case, tmp_path):
 
 
 def test_serving_over_a_data_axis_names_a8c():
-    """Serving over a data axis stays refused, and names ROADMAP A8c."""
-    import deepspeed_tpu_torch
-    from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
+    """Serving over a data axis (ROADMAP A8c) builds its mesh as the JAX
+    engine does, from the block's data and model sizes alone: a data size
+    that does not cover the world is refused with the JAX engine's
+    ``ValueError`` (its world the 8 CPU devices, the port's this one
+    process), and a sequence or pipe size in the block is not read (both
+    engines serve, with equal greedy tokens)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
 
-    model = GPT2LMHeadModel(GPT2Config(vocab_size=32, n_positions=16,
-                                       n_embd=8, n_layer=1, n_head=2),
-                            device="cpu")
-    with pytest.raises(DeepSpeedConfigError, match="ROADMAP A8c") as got:
+    import deepspeed_tpu
+    import deepspeed_tpu_torch
+    from deepspeed_tpu.models.gpt2 import GPT2Config as JGPT2Config
+    from deepspeed_tpu.models.gpt2 import GPT2LMHeadModel as JGPT2LMHeadModel
+    from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
+    from deepspeed_tpu_torch import params_from_jax
+
+    sizes = dict(vocab_size=32, n_positions=16, n_embd=8, n_layer=1,
+                 n_head=2, dropout=0.0)
+    jmodel = JGPT2LMHeadModel(JGPT2Config(**sizes, use_flash=False))
+    ids = jnp.zeros((1, 4), jnp.int32)
+    params = jax.tree_util.tree_map(np.asarray, jmodel.init(
+        {"params": jax.random.PRNGKey(0)}, ids, ids)["params"])
+    model = GPT2LMHeadModel(GPT2Config(**sizes), device="cpu")
+    model.load_state_dict(params_from_jax(params))
+    inference = {"max_batch_slots": 1, "max_seq_len": 8,
+                 "sampling": {"greedy": True}}
+    with pytest.raises(ValueError, match="covers 2 devices but 8 are "
+                                         "available"):
+        deepspeed_tpu.init_inference(
+            model=jmodel, model_parameters=params,
+            config={"inference": inference,
+                    "mesh": {"data_parallel_size": 2}})
+    with pytest.raises(ValueError, match="covers 2 devices but 1 are "
+                                         "available"):
         deepspeed_tpu_torch.init_inference(
             model=model, device="cpu",
-            config={"inference": {"max_batch_slots": 1, "max_seq_len": 8},
+            config={"inference": inference,
                     "mesh": {"data_parallel_size": 2}})
-    assert "serving over a data axis of 2" in str(got.value)
+    for block in ({"sequence_parallel_size": 2},
+                  {"pipeline_parallel_size": 2}):
+        cfg = {"inference": inference, "mesh": block}
+        jengine = deepspeed_tpu.init_inference(
+            model=jmodel, model_parameters=params, config=dict(cfg))
+        engine = deepspeed_tpu_torch.init_inference(
+            model=model, device="cpu", config=dict(cfg))
+        try:
+            assert engine.mesh is None and engine.is_leader
+            assert engine.generate([[3, 1, 4]], max_new_tokens=4) == (
+                jengine.generate([[3, 1, 4]], max_new_tokens=4))
+        finally:
+            engine.close()
+            jengine.close()

@@ -340,8 +340,28 @@ def _node_scalars(P, node, name="r0"):
     return P.registry.wire_scalars(snap["replicas"][name])
 
 
+# A stub token every TOKEN_DELAY s: the crash comes right after the first
+# token is seen, so 20 or 30 tokens leave 1.9 s or more before the last.
+TOKEN_DELAY = 0.1
+
+
+def _wait_mid_stream(node, timeout=20.0):
+    """Block until one of the node's tracked requests has streamed a token
+    and is not finished: the state both packages' runs crash in."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        with node._sessions_lock:
+            sessions = list(node._sessions.values())
+        for session in sessions:
+            for req, _, _ in list(session.tracked.values()):
+                if req.tokens and not req.done:
+                    return
+        time.sleep(0.002)
+    raise AssertionError("no request streamed a token in time")
+
+
 def _recovery_cycle(P, path):
-    node = stub_node(P, token_delay=0.05, node_id="nA",
+    node = stub_node(P, token_delay=TOKEN_DELAY, node_id="nA",
                      resume_grace_secs=10.0)
     node.start()
     router2 = None
@@ -355,10 +375,17 @@ def _recovery_cycle(P, path):
         router1.start()
         req = router1.submit([5], max_new_tokens=20,
                              idempotency_key="cycle-key")
+
+        def relative(ids):
+            # request ids come from a process-wide counter, which the
+            # other tests of a worker advance unequally in the two
+            # packages: each id as its distance from this request's
+            return sorted(int(i) - req.request_id for i in ids)
+
         inflight = j1.state()["inflight"]
-        out.append(("journaled", sorted(inflight),
+        out.append(("journaled", relative(inflight),
                     sorted(inflight[str(req.request_id)])))
-        time.sleep(0.2)  # mid-stream: 20 tokens take 1 s
+        _wait_mid_stream(node)
         # the crash: the monitor stops cold and the socket is severed
         router1._stop.set()
         router1._monitor.join(5.0)
@@ -366,7 +393,7 @@ def _recovery_cycle(P, path):
 
         state, info = P.journal.load_journal_state(str(path))
         out.append(("loaded", info["status"], state["incarnation"],
-                    sorted(state["replicas"]), sorted(state["inflight"])))
+                    sorted(state["replicas"]), relative(state["inflight"])))
         epoch = int(state["incarnation"]) + 1
         plan = P.journal.plan_adoption(
             state, socket_kwargs=dict(SOCKET_KW, epoch=epoch))
@@ -466,7 +493,7 @@ def test_init_fleet_recovers_the_journal_alike(tmp_path):
     the router, in both packages."""
     out = {}
     for P in _both():
-        node = stub_node(P, token_delay=0.05, node_id="nB")
+        node = stub_node(P, token_delay=TOKEN_DELAY, node_id="nB")
         node.start()
         path = tmp_path / P.name
         host, port = node.address
@@ -481,7 +508,7 @@ def test_init_fleet_recovers_the_journal_alike(tmp_path):
             rec.append(r1.submit([4], max_new_tokens=3).result(30.0))
             req = r1.submit([6], max_new_tokens=30,
                             idempotency_key="k")
-            time.sleep(0.2)  # mid-stream: 30 tokens take 1.5 s
+            _wait_mid_stream(node)
             r1._stop.set()
             r1._monitor.join(5.0)
             for rep in r1._replicas.values():

@@ -1114,9 +1114,11 @@ def serve_model(workdir, name="serve.pt", n_layer=2):
 
 
 def case_serve_mp(case, rank, world, workdir):
-    """One engine over a model axis of the world: the leader's tokens and
-    counters, every rank's local shapes; ``deadline`` slows the leader's
-    decode steps until a request's deadline expires mid-run."""
+    """One engine over a model axis of the world (or the case's ``mesh``
+    block: data replicas too): the leader's tokens and counters, every
+    rank's local shapes, mesh coordinates and KV pool bytes; ``deadline``
+    slows the leader's decode steps until a request's deadline expires
+    mid-run."""
     import time
 
     import torch
@@ -1125,13 +1127,18 @@ def case_serve_mp(case, rank, world, workdir):
     from deepspeed_tpu_torch.inference.decode import gpt2_prefill
 
     kind = case["traffic"]
-    cfg = dict(SERVE_CONFIGS[kind], mesh={"model_parallel_size": world})
+    cfg = dict(SERVE_CONFIGS[kind],
+               mesh=case.get("mesh", {"model_parallel_size": world}))
     draft = {}
     if kind == "spec":
         draft = dict(draft_model=serve_model(workdir, "draft.pt", 1))
     engine = dst.init_inference(model=serve_model(workdir), config=cfg,
                                 device="cpu", **draft)
     out = {"kv_shape": tuple(engine._cache.k.shape),
+           "kv_bytes": sum(t.numel() * t.element_size()
+                           for t in (engine._cache.k, engine._cache.v)),
+           "coords": (engine.rank, engine.mesh.data_rank,
+                      engine.mesh.model_rank, engine.is_leader),
            "fused": engine.fused_decode,
            "adapter_shapes": {t: (tuple(a.shape), tuple(b.shape)) for t, (
                a, b) in (engine._adapter_pool or {}).items()}}
@@ -1258,7 +1265,34 @@ def case_moe_pp_train(case, rank, world, workdir):
     if rank == 0:
         out["params"] = {n: p.detach().float().numpy().copy()
                          for n, p in full.items()}
+    if engine.config.optimizer_state_dtype == "int8":
+        out["int8"] = int8_state(engine)
     return out
+
+
+def int8_state(engine):
+    """The engine's int8 first moment as the whole JAX leaves, keyed by
+    group (a collective: a pipeline stage's, a data rank's experts' and a
+    ZeRO rank's parts joined), numpy ``{"q", "scale"}`` each."""
+    import torch
+
+    from deepspeed_tpu_torch.runtime import checkpointing
+
+    state = checkpointing._canonical_opt_state(engine)
+    inner = state["inner"] if "inner" in state else state
+    mu = inner["mu"]
+    zero = checkpointing._layout(engine)
+    if zero is not None:
+        # every data rank's block range of each flat leaf
+        import torch.distributed as dist
+
+        parts = [None] * engine.dp_world_size
+        dist.all_gather_object(parts, mu, group=engine._dp_group)
+        mu = {g: {k: torch.cat([p[g][k] for p in parts]) for k in ("q",
+                                                                  "scale")}
+              for g in mu}
+    return {g: {k: v.numpy().copy() for k, v in leaf.items()}
+            for g, leaf in mu.items()}
 
 
 def moe_pp_fingerprint(engine):

@@ -62,16 +62,20 @@ def save_port_weights(params, path):
 
 
 def jax_run(kind, params, dp, stage, opt, dtype="fp32", steps=STEPS,
-            rows=None, n_micro=PP_MICRO_BATCHES, mp=1, extra=None, sp=1):
+            rows=None, n_micro=PP_MICRO_BATCHES, mp=1, extra=None, sp=1,
+            int8_state=False):
     """The JAX engine's window losses, its last ``last_aux`` and its final
     float32 parameters in the port's names; ``rows`` global rows a
     micro-step (default: a data rank's times dp); ``n_micro`` the
     pipeline's microbatches; ``mp`` a model axis (the Megatron specs),
-    ``sp`` a sequence axis (MoE); ``extra`` more engine config."""
+    ``sp`` a sequence axis (MoE); ``extra`` more engine config. Kind
+    ``dense``: the dense model on a ``data x model`` mesh. With
+    ``int8_state`` a fourth element: the int8 first moment's leaves keyed
+    by the port's group names (:func:`int8_groups`)."""
     micro = MOE_MICRO if kind == "moe" else PP_MICRO
     if rows is not None:
         micro = rows // dp
-    if kind == "moe":
+    if kind in ("moe", "dense"):
         mesh = build_mesh(data_parallel_size=dp, model_parallel_size=mp,
                           sequence_parallel_size=sp,
                           devices=jax.devices()[:dp * mp * sp])
@@ -82,7 +86,7 @@ def jax_run(kind, params, dp, stage, opt, dtype="fp32", steps=STEPS,
                           devices=jax.devices()[:STAGES * dp * mp])
         specs = partition_specs(params, pipeline=True)
     engine, *_ = deepspeed_tpu.initialize(
-        model=JGPT2LMHeadModel(jconfig(kind) if kind == "moe" else jconfig(
+        model=JGPT2LMHeadModel(jconfig(kind) if kind != "pp" else jconfig(
             kind, pipeline_microbatches=n_micro)),
         model_parameters=params,
         config_params=ranks.config(stage, opt, dtype, micro, ACCUM, dp,
@@ -94,8 +98,31 @@ def jax_run(kind, params, dp, stage, opt, dtype="fp32", steps=STEPS,
     if engine.master_in_opt:
         final = jax.device_get(engine.optimizer_state["master"])
     aux = [np.asarray(a) for a in jax.device_get(engine.last_aux)]
-    return losses, aux, {n: t.float().numpy()
-                         for n, t in params_from_jax(final).items()}
+    out = (losses, aux, {n: t.float().numpy()
+                         for n, t in params_from_jax(final).items()})
+    if int8_state:
+        state = jax.device_get(engine.optimizer_state)
+        while "mu" not in state:  # under offload: {master, inner}
+            state = state["inner"]
+        out += (int8_groups(state["mu"]),)
+    return out
+
+
+def int8_groups(mu):
+    """A JAX int8 first moment (``{"q", "scale"}`` leaves) keyed by the
+    port's group names (``h.*.<key>``, ``h.*.moe.<key>``, ``wte``,
+    ``ln_f.weight``, ...), as numpy arrays."""
+    tp = mu["transformer"]
+    out = {"wte": tp["wte"], "wpe": tp["wpe"],
+           "ln_f.weight": tp["ln_f"]["scale"], "ln_f.bias": tp["ln_f"]["bias"]}
+    for name, leaf in tp["h"].items():
+        if set(leaf) == {"q", "scale"}:
+            out[f"h.*.{name}"] = leaf
+        else:
+            for key, sub in leaf.items():
+                out[f"h.*.{name}.{key}"] = sub
+    return {g: {k: np.asarray(v) for k, v in leaf.items()}
+            for g, leaf in out.items()}
 
 
 def case(kind, name, **fields):
