@@ -533,18 +533,24 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
                data axis — GPT-2 small at full width, float32, gloo ranks
                of the card (``--phase22-rank``, ``--phase22c-rank``). (a)
                Adam with int8 moments at a pipe axis of 2 and with the
-               MoE experts over a data axis of 2 (phase 18's models,
-               batch and windows): losses equal one rank's int8 run
-               (P18_RTOL), and rank 0's int8 first moment after the
-               first window, joined into the whole JAX leaves through
-               the checkpoint's join, equals one rank's (P22_SCALE_RTOL,
-               P22_CODE_FLIPS); (b) int8 moments at a model axis of 2
+               MoE experts over a data axis of 2 at ZeRO stages 0 and 3
+               (phase 18's models, batch and windows): losses equal one
+               rank's int8 run (P18_RTOL), and rank 0's int8 first moment
+               after the first window, joined into the whole JAX leaves
+               through the checkpoint's join, equals one rank's
+               (P22_SCALE_RTOL, P22_CODE_FLIPS); the card bytes an
+               expert rank holds for parameters, gradients and moments
+               at stage 3 beside stage 0's; (b) int8 moments at a model axis of 2
                with the optimizer offloaded, against mp 1 (the same
                checks; the card's and the host's bytes a rank holds);
                (c) a pipe axis of 2 by a data axis of 4 (eight ranks), 2
                blocks, 12 global rows in 2 microbatches (each rank runs
                a 3-row piece of one), one window, against pp 1 on the
-               same batch, each rank's plan checked; (d) serving at a
+               same batch, each rank's plan checked, then again in the
+               same processes with int8 moments at ZeRO stage 3 against
+               pp 1's int8 run (losses and the joined int8 state as in
+               (a)), each rank's card bytes beside the float32 stage-0
+               run's; (d) serving at a
                data axis of 2 (phase 20's block, one rank-16 adapter, 8
                requests of two templates, the later six hitting their
                pages): float32 tokens equal one engine's, each rank's
@@ -7524,14 +7530,17 @@ def p18_windows(engine, seed, after_first=None):
 
 
 def p18_run(seed, name, kind, optimizer, precision, dropout, lr, mesh,
-            shapes, extra=None, after_first=None):
+            shapes, extra=None, after_first=None, read=None):
     """One run: the engine, its windows (``after_first`` as in
-    p18_windows), the attention kernels' shapes."""
+    p18_windows), the attention kernels' shapes (and ``read(engine)``'s
+    entries after the windows, phase 22's bytes)."""
     shapes.clear()
     engine = p18_engine(seed, kind, optimizer, precision, dropout, lr, mesh,
                         extra)
     got = p18_windows(engine, seed, after_first)
     got["kernel_shapes"] = sorted([n, list(s)] for n, s in shapes)
+    if read is not None:
+        got["held"] = read(engine)
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -9508,10 +9517,12 @@ P22_INT8 = {"data_types": {"optimizer_state_dtype": "int8"}}
 P22_OFFLOAD = {"zero_optimization": {"stage": 0, "offload_optimizer": {
     "device": "cpu"}}}
 # (a) the int8 runs of the two ranks on phase 18's batch and windows:
-# (name, model kind, mesh block, the kind of one rank's reference)
+# (name, model kind, mesh block, the kind of one rank's reference, ZeRO
+# stage)
 P22_INT8_RUNS = (
-    ("pp2_int8", "pp", {"pipeline_parallel_size": P22_WORLD}, "dense"),
-    ("ep2_int8", "moe", {"data_parallel_size": P22_WORLD}, "moe"),
+    ("pp2_int8", "pp", {"pipeline_parallel_size": P22_WORLD}, "dense", 1),
+    ("ep2_int8", "moe", {"data_parallel_size": P22_WORLD}, "moe", 0),
+    ("ep2_int8_z3", "moe", {"data_parallel_size": P22_WORLD}, "moe", 3),
 )
 # (b) a model rank's attention q shape: 6 of 12 heads on phase 16's rows
 P22_MP_SHAPE = (P16_MICRO, 12 // P22_WORLD, 1024, 64)
@@ -9521,6 +9532,8 @@ P22_MP_SHAPE = (P16_MICRO, 12 // P22_WORLD, 1024, 64)
 P22_PP, P22_DP = 2, 4
 P22_ROWS, P22_MICROBATCHES, P22_LAYERS = 12, 2, 2
 P22_UNEVEN_SHAPE = (P22_ROWS // P22_DP, 12, 1024, 64)
+# (c)'s second run: int8 moments at ZeRO stage 3
+P22_INT8_Z3 = dict(P22_INT8, zero_optimization={"stage": 3})
 # (a), (b): how far a rank's int8 first moment after the first window
 # (joined into the whole JAX leaves) may sit from one rank's: scales
 # relative, and the share of codes one step apart. The float32 gradients
@@ -9715,12 +9728,76 @@ def p22_host_gb(engine):
     return (walk(engine.params) + walk(engine.optimizer_state)) / 1e9
 
 
-def p22_uneven_engine(seed, pp, dp):
+class P22Held:
+    """The card bytes (GB) a rank's engine holds: ``arm(engine)`` before a
+    window records the gradient buffer at its update, ``read(engine)``
+    adds the parameters (the module's, and the masters that are not its
+    tensors or views of them) and the optimizer state's tensors (int8
+    codes and scales, bf16 or float32 moments)."""
+
+    def __init__(self):
+        self.grads_gb = None
+
+    @staticmethod
+    def _gb(ts):
+        return sum(t.numel() * t.element_size() for t in ts
+                   if t.device.type == "cuda") / 1e9
+
+    def arm(self, engine):
+        update = engine._update
+
+        def once():
+            self.grads_gb = self._gb(engine._grad_buffer.values())
+            del engine._update
+            return update()
+
+        engine._update = once
+
+    def read(self, engine):
+        module = [p.data for p in engine.module.parameters()]
+        storages = {p.untyped_storage().data_ptr() for p in module}
+        masters = [t for t in engine.params.values()
+                   if t.untyped_storage().data_ptr() not in storages]
+
+        def tensors(x):
+            if torch.is_tensor(x):
+                yield x
+            elif isinstance(x, dict):
+                for v in x.values():
+                    yield from tensors(v)
+
+        return {"zero_stage": engine.zero_stage,
+                "params_gb": self._gb(module) + self._gb(masters),
+                "grads_gb": self.grads_gb,
+                "moments_gb": self._gb(tensors(engine.optimizer_state))}
+
+
+def p22_held_line(tag, got, ref):
+    """A log line of the bytes ``got`` holds beside ``ref``'s (stage 0)."""
+    return (f"  {tag}: ZeRO stage {got['zero_stage']} holds parameters "
+            f"{got['params_gb']:.4f} GB, gradients {got['grads_gb']:.4f} GB"
+            f", moments {got['moments_gb']:.4f} GB; stage "
+            f"{ref['zero_stage']} {ref['params_gb']:.4f}, "
+            f"{ref['grads_gb']:.4f}, {ref['moments_gb']:.4f} GB")
+
+
+def p22_check_held(tag, got, ref):
+    """Fail unless ``got`` (ZeRO stage 3) holds fewer parameter, gradient
+    and moment bytes than ``ref`` (stage 0): at stage 3 the parameters are
+    the persistent shards, with no masters beside them."""
+    for key in ("params_gb", "grads_gb", "moments_gb"):
+        if not got[key] < ref[key]:
+            fail(f"phase 22 {tag}: {key} {got[key]:.4f} at ZeRO stage "
+                 f"{got['zero_stage']}, not under stage {ref['zero_stage']}'s"
+                 f" {ref[key]:.4f}")
+
+
+def p22_uneven_engine(seed, pp, dp, extra=None):
     """(c) initialize() on GPT-2 small at full width and P22_LAYERS blocks:
     at ``pp`` above 1 the pipelined model (P22_MICROBATCHES microbatches
     of the global batch) over a pipe axis of ``pp`` and a data axis of
-    ``dp``; float32 Adam at dropout 0, ZeRO stage 0, one micro-step of
-    P22_ROWS global rows a window."""
+    ``dp``; float32 Adam at dropout 0, ZeRO stage 0 (``extra``: more
+    engine config), one micro-step of P22_ROWS global rows a window."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch import GPT2Config, GPT2LMHeadModel
 
@@ -9729,9 +9806,9 @@ def p22_uneven_engine(seed, pp, dp):
     model = GPT2LMHeadModel(GPT2Config.small(dropout=0.0, n_layer=P22_LAYERS,
                                              **fields),
                             device="cuda", seed=seed)
-    cfg = p14_config("Adam", "fp32", 0, P22_ROWS // dp, dp,
-                     {"mesh": {"pipeline_parallel_size": pp}} if pp > 1
-                     else None)
+    cfg = p14_config("Adam", "fp32", 0, P22_ROWS // dp, dp, dict(
+        extra or {}, **({"mesh": {"pipeline_parallel_size": pp}} if pp > 1
+                        else {})))
     engine, *_ = deepspeed_tpu_torch.initialize(model=model,
                                                 config_params=cfg)
     return engine
@@ -9780,10 +9857,19 @@ def phase22_rank(spec_path):
         world_size=P22_WORLD)
     shapes = p17_record_shapes()
     root = Path(spec["out"]).parent
-    out = {name: p18_run(seed, name, kind, "Adam", "fp32", 0.0, 1e-4, mesh,
-                         shapes, extra=P22_INT8,
-                         after_first=p22_save_int8(root / f"int8_{name}.pt"))
-           for name, kind, mesh, _ in P22_INT8_RUNS}
+    out = {}
+    for name, kind, mesh, _, stage in P22_INT8_RUNS:
+        held = P22Held()
+        save = p22_save_int8(root / f"int8_{name}.pt")
+
+        def after_first(engine, held=held, save=save):
+            save(engine)
+            held.arm(engine)  # the second window's update
+
+        out[name] = p18_run(
+            seed, name, kind, "Adam", "fp32", 0.0, 1e-4, mesh, shapes,
+            extra=dict(P22_INT8, zero_optimization={"stage": stage}),
+            after_first=after_first, read=held.read)
     shapes.clear()
     engine = p22_offload_engine(seed, P22_WORLD)
     got = p16_windows(engine, seed, p22_save_int8(
@@ -9803,8 +9889,9 @@ def phase22_rank(spec_path):
 
 def phase22c_rank(spec_path):
     """One of phase 22(c)'s eight ranks (pp 2 x dp 4) of the gloo group
-    the phase makes: one window of the uneven split. Writes its results
-    as JSON."""
+    the phase makes: one window of the uneven split, float32 Adam at ZeRO
+    stage 0, then one with int8 moments at ZeRO stage 3 (rank 0 writes
+    its joined int8 state). Writes its results as JSON."""
     import torch.distributed as dist
 
     spec = json.loads(Path(spec_path).read_text())
@@ -9816,8 +9903,19 @@ def phase22c_rank(spec_path):
         "gloo", init_method=f"tcp://localhost:{spec['port']}", rank=rank,
         world_size=P22_PP * P22_DP)
     shapes = p17_record_shapes()
-    engine = p22_uneven_engine(seed, P22_PP, P22_DP)
-    got = p22_uneven_window(engine, seed)
+    runs = []
+    for extra in (None, P22_INT8_Z3):
+        engine = p22_uneven_engine(seed, P22_PP, P22_DP, extra)
+        held = P22Held()
+        held.arm(engine)
+        runs.append(p22_uneven_window(engine, seed))
+        runs[-1]["held"] = held.read(engine)
+        if extra is not None:
+            p22_save_int8(Path(spec["out"]).parent / "int8_c.pt")(engine)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    got, got["int8_z3"] = runs
     got["kernel_shapes"] = sorted([n, list(s)] for n, s in shapes)
     Path(spec["out"]).write_text(json.dumps(got))
     dist.barrier()
@@ -9865,30 +9963,33 @@ def p22_check_kernels(seed):
 def p22_int8(seed, ranks, launches, root):
     """(a): each rank's int8 runs against one rank's int8 run of the same
     model (launches at the paths' shapes, losses within P18_RTOL, the int8
-    first moment joined over the ranks against one rank's)."""
+    first moment joined over the ranks against one rank's; the bytes an
+    expert rank holds at ZeRO stage 3 beside stage 0's, each under it)."""
     from deepspeed_tpu_torch.ops import attention as A
 
     check = A._check_cuda
-    one = {}
-    for name, kind, _, ref_kind in P22_INT8_RUNS:
-        shapes = p17_record_shapes()
-        leaves = {}
-        try:
-            got = one[name] = p18_run(
-                seed, f"{ref_kind}_int8", ref_kind, "Adam", "fp32", 0.0, 1e-4,
-                None, shapes, extra=P22_INT8,
-                after_first=lambda e: leaves.update(p22_int8_leaves(e)))
-        finally:
-            A._check_cuda = check
+    one, refs = {}, {}
+    for name, kind, _, ref_kind, _ in P22_INT8_RUNS:
+        if ref_kind not in refs:
+            shapes = p17_record_shapes()
+            leaves = {}
+            try:
+                got = p18_run(
+                    seed, f"{ref_kind}_int8", ref_kind, "Adam", "fp32", 0.0,
+                    1e-4, None, shapes, extra=P22_INT8,
+                    after_first=lambda e: leaves.update(p22_int8_leaves(e)))
+            finally:
+                A._check_cuda = check
+            refs[ref_kind] = got, leaves
+            p18_check_run(f"{ref_kind} int8 one rank", got, N_LAYER,
+                          P18_WINDOWS, 0, P18_SHAPES["moe"], phase="22")
+            for k, n in got["launches"].items():
+                launches[k][f"p22_{ref_kind}_int8"] = n
+        got, leaves = refs[ref_kind]
         path = root / f"int8_{name}.pt"
-        got["int8_vs_one_rank"] = p22_compare_int8(
-            f"{name} rank 0", torch.load(path), leaves)
+        one[name] = dict(got, int8_vs_one_rank=p22_compare_int8(
+            f"{name} rank 0", torch.load(path), leaves))
         path.unlink()
-        del leaves
-        p18_check_run(f"{ref_kind} int8 one rank", got, N_LAYER, P18_WINDOWS,
-                      0, P18_SHAPES["moe"], phase="22")
-        for k, n in got["launches"].items():
-            launches[k][f"p22_{ref_kind}_int8"] = n
         for rank, r in enumerate(ranks):
             mine = r[name]
             pp = kind == "pp"
@@ -9903,6 +10004,13 @@ def p22_int8(seed, ranks, launches, root):
             fail(f"phase 22 {name}: the ranks return different losses")
         p22_close(f"float32 {name} vs one rank's int8 losses",
                   ranks[0][name]["losses"], got["losses"])
+    for rank, r in enumerate(ranks):
+        z3, z0 = r["ep2_int8_z3"]["held"], r["ep2_int8"]["held"]
+        if (z3["zero_stage"], z0["zero_stage"]) != (3, 0):
+            fail(f"phase 22 ep2 int8 rank {rank}: ZeRO stages "
+                 f"{z3['zero_stage']}, {z0['zero_stage']}, want 3, 0")
+        log(p22_held_line(f"ep2 int8 rank {rank}", z3, z0))
+        p22_check_held(f"ep2 int8 rank {rank}", z3, z0)
     return one
 
 
@@ -9965,31 +10073,35 @@ def p22_uneven(seed, root, launches):
                       phase="22(c)", world=P22_PP * P22_DP)
     spawn_s = time.monotonic() - t0
     per = P22_ROWS // P22_MICROBATCHES
-    for rank, got in enumerate(ranks):
-        pipe, data = got["coords"]
-        if (pipe, data) != (rank // P22_DP, rank % P22_DP):
-            fail(f"phase 22(c) rank {rank}: coordinates {got['coords']}")
-        first = data * (P22_ROWS // P22_DP) // per
-        want_plan = [P22_MICROBATCHES, 1, first, [P22_ROWS // P22_DP]]
-        if got["plan"] != want_plan:
-            fail(f"phase 22(c) rank {rank}: plan {got['plan']}, want "
-                 f"{want_plan}")
-        if not all(math.isfinite(v) for v in got["losses"]) or got["skipped"]:
-            fail(f"phase 22(c) rank {rank}: losses {got['losses']}")
-        for k in TRAIN_KERNELS:
-            if got["launches"][k] != P22_LAYERS // P22_PP:
-                fail(f"phase 22(c) rank {rank}: {k} launched "
-                     f"{got['launches'][k]} times, want "
-                     f"{P22_LAYERS // P22_PP}")
-        shapes = {tuple(s) for _, s in got["kernel_shapes"]}
+    for rank, both in enumerate(ranks):
+        shapes = {tuple(s) for _, s in both["kernel_shapes"]}
         if shapes != {P22_UNEVEN_SHAPE}:
             fail(f"phase 22(c) rank {rank}: attention kernels at "
                  f"{sorted(shapes)}, want {P22_UNEVEN_SHAPE}")
-        for k, n in got["launches"].items():
-            launches[k][f"p22c_rank{rank}"] = n
-    if any(r["losses"] != ranks[0]["losses"] for r in ranks):
-        fail(f"phase 22(c): the ranks return different losses "
-             f"{[r['losses'] for r in ranks]}")
+        for tag, got in (("", both), ("int8_", both["int8_z3"])):
+            pipe, data = got["coords"]
+            if (pipe, data) != (rank // P22_DP, rank % P22_DP):
+                fail(f"phase 22(c) rank {rank}: coordinates {got['coords']}")
+            first = data * (P22_ROWS // P22_DP) // per
+            want_plan = [P22_MICROBATCHES, 1, first, [P22_ROWS // P22_DP]]
+            if got["plan"] != want_plan:
+                fail(f"phase 22(c) {tag}rank {rank}: plan {got['plan']}, "
+                     f"want {want_plan}")
+            if (not all(math.isfinite(v) for v in got["losses"])
+                    or got["skipped"]):
+                fail(f"phase 22(c) {tag}rank {rank}: losses {got['losses']}")
+            for k in TRAIN_KERNELS:
+                if got["launches"][k] != P22_LAYERS // P22_PP:
+                    fail(f"phase 22(c) {tag}rank {rank}: {k} launched "
+                         f"{got['launches'][k]} times, want "
+                         f"{P22_LAYERS // P22_PP}")
+            for k, n in got["launches"].items():
+                launches[k][f"p22c_{tag}rank{rank}"] = n
+    for tag, runs in (("", ranks), (" int8 ZeRO 3", [r["int8_z3"]
+                                                     for r in ranks])):
+        if any(r["losses"] != runs[0]["losses"] for r in runs):
+            fail(f"phase 22(c){tag}: the ranks return different losses "
+                 f"{[r['losses'] for r in runs]}")
     engine = p22_uneven_engine(seed, 1, 1)
     ref = p22_uneven_window(engine, seed)
     del engine
@@ -9997,13 +10109,37 @@ def p22_uneven(seed, root, launches):
     torch.cuda.empty_cache()
     p22_close("(c) float32 pp 2 x dp 4 vs pp 1 losses", ranks[0]["losses"],
               ref["losses"])
+    engine = p22_uneven_engine(seed, 1, 1, P22_INT8)
+    ref_int8 = p22_uneven_window(engine, seed)
+    ref_int8["int8_vs_pp1"] = p22_compare_int8(
+        "(c) int8 ZeRO 3 rank 0", torch.load(root / "int8_c.pt"),
+        p22_int8_leaves(engine))
+    (root / "int8_c.pt").unlink()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    p22_close("(c) float32 int8 ZeRO 3 pp 2 x dp 4 vs pp 1 int8 losses",
+              ranks[0]["int8_z3"]["losses"], ref_int8["losses"])
+    for rank, got in enumerate(ranks):
+        z3 = got["int8_z3"]
+        if z3["held"]["zero_stage"] != 3 or got["held"]["zero_stage"] != 0:
+            fail(f"phase 22(c) rank {rank}: ZeRO stages "
+                 f"{z3['held']['zero_stage']}, {got['held']['zero_stage']}")
+        log(p22_held_line(f"(c) rank {rank} (pipe, data {tuple(z3['coords'])})"
+                          f" int8", z3["held"], got["held"]))
+        p22_check_held(f"(c) rank {rank}", z3["held"], got["held"])
     log(f"  (c) pp 2 x dp 4, {P22_ROWS} rows in {P22_MICROBATCHES} "
         f"microbatches (3-row pieces): loss {ranks[0]['losses']} vs pp 1 "
         f"{ref['losses']}; a rank held {max(r['held_gb'] for r in ranks):.4f}"
         f" GB, peak {max(r['peak_gb'] for r in ranks):.4f} GB; the window "
-        f"{max(r['window_s'] for r in ranks):.3f} s; the eight ranks "
-        f"{spawn_s:.1f} s from spawn to exit")
-    return {"ranks": ranks, "pp1": ref, "spawn_s": spawn_s}
+        f"{max(r['window_s'] for r in ranks):.3f} s; int8 ZeRO 3 loss "
+        f"{ranks[0]['int8_z3']['losses']} vs pp 1 int8 "
+        f"{ref_int8['losses']}, a rank's peak "
+        f"{max(r['int8_z3']['peak_gb'] for r in ranks):.4f} GB, the window "
+        f"{max(r['int8_z3']['window_s'] for r in ranks):.3f} s; the eight "
+        f"ranks {spawn_s:.1f} s from spawn to exit")
+    return {"ranks": ranks, "pp1": ref, "pp1_int8": ref_int8,
+            "spawn_s": spawn_s}
 
 
 def p22_serving(seed, ranks, launches):
@@ -10078,10 +10214,11 @@ def phase_int8_uneven_serve_dp(seed, card):
     log(f"phase 22: int8 pp 2 = one rank ({ranks[0]['pp2_int8']['losses']} "
         f"vs {one['pp2_int8']['losses']}); int8 ep 2 = one rank "
         f"({ranks[0]['ep2_int8']['losses']} vs {one['ep2_int8']['losses']});"
-        f" int8 offload mp 2 = mp 1 "
-        f"({ranks[0]['mp2_int8_offload']['losses']} vs "
-        f"{stats['offload_mp1']['losses']}); pp 2 x dp 4 = pp 1; serving "
-        f"dp 2 = one engine; {stats['wall_s']:.1f} s ({card})")
+        f" at ZeRO 3 ({ranks[0]['ep2_int8_z3']['losses']}); int8 offload "
+        f"mp 2 = mp 1 ({ranks[0]['mp2_int8_offload']['losses']} vs "
+        f"{stats['offload_mp1']['losses']}); pp 2 x dp 4 = pp 1, with int8 "
+        f"at ZeRO 3 too; serving dp 2 = one engine; {stats['wall_s']:.1f} s "
+        f"({card})")
     return launches, stats
 
 

@@ -104,15 +104,25 @@ class BlockMap:
     (the same list on every rank); ``reduce`` a function that takes the
     max of a float32 vector over every rank in place.
 
-    The rank's leaf holds the maximal runs of consecutive global blocks
-    its members touch (the elements it does not hold stay zero), so every
-    local block is one global block: ``offsets`` gives each member's
-    local element offset, ``global_blocks`` each local block's global
-    index. A shared block takes its scale from the max of its ranks'
+    The members' runs are the maximal runs of consecutive global blocks
+    they touch, laid end to end (``run_offsets``: each member's element
+    offset there; the elements no member holds stay zero). Without
+    ``shard`` the rank's leaf is those runs, and the optimizer steps each
+    member at its run offset. With ``shard`` ``(rank, dp, name)`` (ZeRO
+    over the data group) the runs' block count is padded to a multiple of
+    ``dp`` and the rank's leaf is its ``rank``-th contiguous ``1/dp`` of
+    the blocks, cut on block boundaries as the JAX engine cuts its flat
+    leaves over the data axis, and the optimizer steps it as one flat
+    tensor ``name`` (a ZeRO leaf); ``first`` is that share's first
+    element in the runs. ``offsets`` gives the offset in the rank's leaf
+    of each tensor the optimizer steps. Every local block is one global
+    block (``global_blocks``, None for a padding block), ``segments``
+    ``[(local offset, global offset, numel)]`` the members' elements the
+    leaf holds. A shared block takes its scale from the max of its ranks'
     absmax (one ``reduce`` of the shared blocks a step), so the codes and
     scales are the whole leaf's."""
 
-    def __init__(self, members, total, shared=(), reduce=None):
+    def __init__(self, members, total, shared=(), reduce=None, shard=None):
         self.total = int(total)
         windows = []  # [first global block, end global block)
         for a, b in sorted((off, off + n) for _, n, off in members):
@@ -125,17 +135,28 @@ class BlockMap:
         for first, end in windows:
             starts.append((first, len(blocks)))
             blocks.extend(range(first, end))
-        self.global_blocks = blocks
-        self.nb = len(blocks)
-        self.numel = self.nb * BLOCK
-        self.offsets = {}
+        self.run_offsets = {}
         for name, _, off in members:
             first, local = max(w for w in starts if w[0] * BLOCK <= off)
-            self.offsets[name] = (local - first) * BLOCK + off
-        self.members = [(name, n, off) for name, n, off in members]
+            self.run_offsets[name] = (local - first) * BLOCK + off
+        rank, dp, flat = shard or (0, 1, None)
+        self.nb = -(-len(blocks) // dp)
+        self.run_numel = self.nb * dp * BLOCK
+        self.first = rank * self.nb * BLOCK
+        mine = blocks[rank * self.nb:(rank + 1) * self.nb]
+        self.global_blocks = mine + [None] * (self.nb - len(mine))
+        self.numel = self.nb * BLOCK
+        self.segments = []
+        for name, n, off in members:
+            ro = self.run_offsets[name]
+            a, b = max(ro, self.first), min(ro + n, self.first + self.numel)
+            if a < b:
+                self.segments.append((a - self.first, off + a - ro, b - a))
+        self.offsets = ({flat: 0} if shard is not None
+                        else dict(self.run_offsets))
         slot = {g: i for i, g in enumerate(shared)}
         self.n_shared = len(slot)
-        self._pairs = [(k, slot[g]) for k, g in enumerate(blocks)
+        self._pairs = [(k, slot[g]) for k, g in enumerate(self.global_blocks)
                        if g in slot]
         self.reduce = reduce
         self._index = {}
@@ -173,19 +194,21 @@ class BlockMap:
         """This rank's codes and scales as whole-leaf pieces (host):
         ``([(global offset, codes)], [(global block, scale)])``."""
         q, scale = leaf["q"].detach().cpu(), leaf["scale"].detach().cpu()
-        return ([(off, q[self.offsets[name]:self.offsets[name] + n].clone())
-                 for name, n, off in self.members],
+        return ([(off, q[local:local + n].clone())
+                 for local, off, n in self.segments],
                 [(g, float(scale[k]))
-                 for k, g in enumerate(self.global_blocks)])
+                 for k, g in enumerate(self.global_blocks) if g is not None])
 
     def from_whole(self, whole):
         """This rank's leaf cut from the whole leaf ``whole`` (host)."""
         out = self.zeros("cpu")
-        for name, n, off in self.members:
-            local = self.offsets[name]
+        for local, off, n in self.segments:
             out["q"][local:local + n] = whole["q"][off:off + n]
-        out["scale"].copy_(whole["scale"][torch.tensor(
-            self.global_blocks, dtype=torch.long)])
+        held = [(k, g) for k, g in enumerate(self.global_blocks)
+                if g is not None]
+        if held:
+            local, glob = zip(*held)
+            out["scale"][list(local)] = whole["scale"][list(glob)]
         return out
 
 

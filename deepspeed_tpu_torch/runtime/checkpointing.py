@@ -89,6 +89,13 @@ blocks) is gathered onto the pipe line's first rank, which alone writes
 leaves whole in each shard file). A load keeps this rank's experts and
 its stage's blocks of the global state, so a checkpoint saved at one
 expert-data or pipe size loads at any other.
+
+int8 moments whose JAX leaf spans ranks (a stage's layers, a data rank's
+experts: the engine's block maps) save the whole JAX leaf, joined from
+every rank's runs, and a load cuts this rank's runs from it. Over ZeRO
+shards such an engine writes the files of ZeRO stage 0's layout (one
+optimizer file, its data group's first rank's; :func:`_file_layout` says
+why), each leaf joined over the data group one at a time.
 """
 
 import dataclasses
@@ -228,6 +235,34 @@ def _layout(engine):
     None (one rank, or stage 0)."""
     zero = getattr(engine, "_zero", None)
     return zero if zero is not None and zero.sharded else None
+
+
+def _file_layout(engine):
+    """The layout the optimizer files are cut by: the ZeRO layout, but
+    None for an engine whose int8 leaves span ranks, which writes one
+    rank's state (:func:`_one_rank_opt_state`). A shard file holds each
+    leaf's block range of one flat order, which a load joins by
+    concatenating the ranks' ranges, and a pipe line's first rank writes
+    its stages' leaves united by parameter name. A stage's int8 group is
+    one leaf named by its group on every stage, each its share of that
+    stage's runs: the stages' leaves would meet under one name, and their
+    ranges are not ranges of one flat order (a block two stages share is
+    in both)."""
+    return None if getattr(engine, "_quant_maps", None) else _layout(engine)
+
+
+def _leaf_names(engine):
+    """The names of the optimizer's leaves (the masters', held or cut
+    from the stage-3 shards)."""
+    zero = getattr(engine, "_zero", None)
+    return list(zero.leaves) if zero is not None else list(engine.params)
+
+
+def _host_masters(engine):
+    """The float32 masters on the host, one leaf at a time (a leaf cut
+    from the stage-3 shards is a collective of the data group)."""
+    leaf = getattr(engine, "_master_leaf", engine.params.__getitem__)
+    return {n: _host(leaf(n)).float() for n in _leaf_names(engine)}
 
 
 def _model_dims(engine):
@@ -473,7 +508,10 @@ def _merge_shards(payloads):
 
 def _shard_leaf(zero, name, canonical, template):
     """This rank's shard of leaf ``name`` from the canonical entries."""
-    leaf = zero.leaves[name]
+    leaf = zero.leaves.get(name)
+    if _is_quantized(template) and (leaf is None or leaf.runs is not None):
+        # a group that spans ranks: this rank's runs (_local_int8_moments)
+        return canonical[name]
     if _is_quantized(template):
         c = canonical[name]
         q = torch.zeros(leaf.pad_to, dtype=c["q"].dtype)
@@ -492,37 +530,98 @@ def _shard_leaf(zero, name, canonical, template):
     return shard_of(canonical[name], leaf.dim, zero.dp, zero.rank)
 
 
-def _reshard_tree(zero, canonical, template):
+def _reshard_tree(zero, canonical, template, groups=()):
     """The canonical tree cut to this rank's shards, in the shape of the
-    engine's ``template``."""
+    engine's ``template`` (``groups``: the int8 groups whose leaves span
+    ranks, keys of a first moment beside the leaves')."""
     if (isinstance(template, dict) and template
-            and set(template) <= set(zero.leaves)):
+            and set(template) <= set(zero.leaves) | set(groups)):
         return {n: _shard_leaf(zero, n, canonical, t)
                 for n, t in template.items()}
     if isinstance(template, dict):
-        return {k: _reshard_tree(zero, canonical[k], t)
+        return {k: _reshard_tree(zero, canonical[k], t, groups)
                 for k, t in template.items()}
     return canonical
 
 
+def _data_joined(engine, t):
+    """This data rank's block range ``t`` of a flat leaf joined with every
+    data rank's (a collective of the data group), on the host."""
+    v = t.detach().to(engine.device).contiguous()
+    buf = torch.empty(engine.dp_world_size * v.numel(), dtype=v.dtype,
+                      device=v.device)
+    dist_lib.all_gather(buf, v, engine._dp_group)
+    return buf.cpu()
+
+
 def whole_int8_moments(engine, mu):
-    """``mu`` (an int8 first moment keyed by group) with every group that
-    spans ranks (the engine's ``_quant_maps``: a stage's layers, a data
-    rank's experts) as the whole JAX leaf, the one a single rank holds (a
-    collective of every rank of the world)."""
-    maps = getattr(engine, "_quant_maps", None)
+    """``mu`` (an int8 first moment keyed by group, on the host) as the
+    whole JAX leaves, the ones a single rank holds: a group that spans
+    ranks (the engine's ``_quant_maps``: a stage's layers, a data rank's
+    experts) joined from every rank's runs (a collective of the world),
+    and over ZeRO shards every other group's block ranges joined over the
+    data group (a collective of the data group), trimmed to the leaf's
+    blocks."""
+    maps = getattr(engine, "_quant_maps", None) or {}
+    zero = _layout(engine)
+    out = dict(mu)
+    for g, leaf in (zero.leaves.items() if zero is not None else ()):
+        if g in maps or not leaf.flat:
+            continue
+        total = sum(math.prod(s) for _, s in leaf.members)
+        nb = max(1, math.ceil(total / quant.BLOCK))
+        out[g] = {k: _data_joined(engine, mu[g][k])[:n]
+                  for k, n in (("q", nb * quant.BLOCK), ("scale", nb))}
     if not maps:
-        return mu
+        return out
     import torch.distributed as dist
 
     mine = {g: maps[g].to_pieces(mu[g]) for g in maps}
     world, group = _world(engine)
     parts = [None] * world
     dist.all_gather_object(parts, mine, group=group)
-    out = dict(mu)
     for g, bmap in maps.items():
         out[g] = quant.whole_from_pieces(bmap.total, [p[g] for p in parts])
     return out
+
+
+def _one_rank_opt_state(engine):
+    """The optimizer file's payload of an engine over ZeRO shards whose
+    int8 leaves span ranks, as one rank of its stage (or its data rank's
+    experts) at ZeRO stage 0 holds it (:func:`_canonical_opt_state`'s
+    form): the int8 first moment as the whole JAX leaves, every other
+    leaf joined over the data group into its tensors one leaf at a time,
+    on the host of the data group's first rank, which writes (the other
+    ranks take part in the collectives and keep only their experts, which
+    the experts' join reads)."""
+    zero = engine._zero
+    keep = engine.data_rank == 0
+
+    def joined(leaf_of):
+        out = {}
+        for name, leaf in zero.leaves.items():
+            src = leaf_of(name)
+            full = {n: torch.empty(s, dtype=src.dtype, device=src.device)
+                    for n, s in leaf.members}
+            zero.gather_into({name: src}, full, names=(name,))
+            if keep or leaf.local:
+                out.update(_host_tree(full))
+            del full
+        return out
+
+    inner = {}
+    for k, v in engine.optimizer_state.items():
+        if k == "mu":
+            inner[k] = whole_int8_moments(engine, _host_tree(v))
+        elif isinstance(v, dict) and v and set(v) <= set(zero.leaves):
+            inner[k] = joined(v.__getitem__)
+        else:
+            inner[k] = _host_tree(v)
+    if engine.compute_dtype == torch.float32:
+        return inner  # the module file is the master
+    master = joined(engine._master_leaf)
+    return {"master": {n: t.float() for n, t in master.items()},
+            "inner": inner}
 
 
 def _local_int8_moments(engine, inner):
@@ -543,7 +642,10 @@ def _canonical_opt_state(engine):
     masters differ from what the module computes with (or are this rank's
     shards), the bare inner state for an fp32 engine without offload (its
     module file is the master). An int8 group that spans ranks is the
-    whole JAX leaf (:func:`whole_int8_moments`)."""
+    whole JAX leaf (:func:`whole_int8_moments`); over ZeRO shards the
+    whole state is one rank's then (:func:`_one_rank_opt_state`)."""
+    if getattr(engine, "_quant_maps", None) and _layout(engine) is not None:
+        return _one_rank_opt_state(engine)
     inner = _host_tree(engine.optimizer_state)
     if getattr(engine, "_quant_maps", None):
         inner = dict(inner, mu=whole_int8_moments(engine, inner["mu"]))
@@ -551,8 +653,7 @@ def _canonical_opt_state(engine):
             and not getattr(engine, "host_offload", False)
             and _layout(engine) is None):
         return inner
-    return {"master": {n: _host(p).float() for n, p in engine.params.items()},
-            "inner": inner}
+    return {"master": _host_masters(engine), "inner": inner}
 
 
 # rank 0's commit outcome, all-reduced to the other ranks at dp > 1
@@ -630,7 +731,7 @@ def save_checkpoint(engine, save_dir, tag=None, client_state=None):
     mp = int(getattr(engine, "mp_world_size", 1))
     ckpt_dir = os.path.join(save_dir, str(tag))
     os.makedirs(ckpt_dir, exist_ok=True)
-    zero = _layout(engine)
+    zero = _file_layout(engine)
     dp = int(getattr(engine, "dp_world_size", 1))
     rank = int(getattr(engine, "data_rank", 0))
     world, group = _world(engine)
@@ -679,7 +780,7 @@ def save_checkpoint(engine, save_dir, tag=None, client_state=None):
         model = {"model_dims": {
             n: (-1 if engine._opt_model_dim(n) is None
                 else int(engine._opt_model_dim(n)))
-            for n in engine.params}}
+            for n in _leaf_names(engine)}}
     # a rank that writes an optimizer file, and every rank when the
     # experts' or the stages' gathers make the file a collective
     writes = writer and (zero is not None or rank == 0)
@@ -879,7 +980,8 @@ def _resharded(engine, staged, load_optimizer_states):
         master = _model_local(engine, {
             n: t.float() for n, t in staged.state["module"].items()})
     return (_reshard_tree(zero, master, engine.params),
-            _reshard_tree(zero, inner, engine.optimizer_state))
+            _reshard_tree(zero, inner, engine.optimizer_state,
+                          getattr(engine, "_quant_maps", None) or ()))
 
 
 def _check_compatible(engine, staged, load_optimizer_states):

@@ -137,8 +137,8 @@ loss is the data group's mean. Without ``param_specs`` the model is
 replicated over the model axis (the JAX engine's leaves without a spec):
 each model rank computes the whole step on its data rank's rows. With
 int8 moments the optimizer steps whole (model-gathered) tensors, as the
-JAX engine keeps its flat int8 leaves replicated over the model axis;
-at ZeRO stage 3 that combination is not ported.
+JAX engine keeps its flat int8 leaves replicated over the model axis
+(at ZeRO stage 3 each rank steps its data shard of them).
 
 Sequence parallelism (a ``sequence_parallel_size`` above 1, GPT-2 and
 BERT's task models): the
@@ -186,8 +186,10 @@ rank routes every token of its data rank. bf16 moments and compensated
 masters step the experts as any leaf. int8 moments keep each
 ``h.*.moe.expert_*`` group on the JAX leaf's block grid: a rank holds its
 experts' runs of the whole leaf, and a block that holds elements of two
-ranks takes the max of their absmax (ops/quant.py:BlockMap); over a data
-axis the optimizer state keeps stage 0's layout. At a sequence axis above 1 each MoE layer
+ranks takes the max of their absmax (ops/quant.py:BlockMap); at ZeRO
+stage 1 and above the rank's runs are its int8 leaf, never reduced over
+the data group, while the dense groups shard as without experts. At a
+sequence axis above 1 each MoE layer
 gathers its rows over the line and routes them whole, as the JAX layer
 routes the global row (ops/moe.py). The adapters
 block is refused with the reason: the JAX MoE blocks run without their
@@ -211,7 +213,10 @@ the forward. A model axis composes (the pipe group is a (data, model)
 coordinate's stages). ``sparse_gradients`` reduces stage 0's lookup
 over its data group. int8 moments keep each ``h.*`` group on the JAX
 leaf's block grid, as with experts (a block straddling two stages takes
-the max of their absmax). The adapters block is refused with the reason:
+the max of their absmax); at ZeRO stage 1 and above each data rank of a
+stage holds its contiguous ``1/dp`` of the stage's blocks, as the JAX
+engine cuts its flat leaves over the data axis. The adapters block is
+refused with the reason:
 the JAX pipelined stack runs the blocks without their factors.
 
 Optimizer offload at data parallel > 1 is refused with the JAX engine's
@@ -263,6 +268,7 @@ from .precision import loss_scale_state_from_config, update_scale
 from .staging import WindowStager, ragged_window_error
 from .zero import (
     ZERO_OPTIMIZATION_GRADIENTS,
+    ZERO_OPTIMIZATION_OPTIMIZER_STATES,
     ZERO_OPTIMIZATION_WEIGHTS,
     ZeroLayout,
 )
@@ -440,6 +446,10 @@ class DeepSpeedEngine:
         )
         self.loss_scale_state = loss_scale_state_from_config(cfg)
         self.zero_stage = cfg.zero_optimization_stage
+        # int8 moments: the client optimizer's storage, else the config's
+        self._int8_moments = (
+            getattr(optimizer, "state_dtype", "fp32") if optimizer is not None
+            else cfg.optimizer_state_dtype) == "int8"
         # the masters' layout, by the JAX engine's rules. Compensated
         # masters (data_types.master_dtype): the parameters stored in the
         # compute dtype with an int8 rounding-error code each in the
@@ -509,15 +519,17 @@ class DeepSpeedEngine:
             # after the model gather: the host masters and moments hold
             # the model-gathered tensors of int8 moments at mp > 1
             self._offload_masters()
-        # ZeRO's layout over the data group (None in one process), the
-        # gradient shards of a window, and whether the fp32 masters are
-        # the module's stage-3 shards themselves
+        # ZeRO's layout over the data group (None in one process) and the
+        # gradient shards of a window
         self._zero = None
         self._shard_store = None
-        self._masters_alias = False
+        # the optimizer leaves that are the module's tensors themselves,
+        # and at stage 3 those cut from its shards at each update
+        self._masters_alias = self._cut_masters = frozenset()
         self.zero3_gather_enabled = False
         self._zero3_shard_bytes = self._zero3_gather_bytes = 0
         self._engine_gather = None
+        self._quant_maps = self._int8_block_maps()
         if self.dp_world_size > 1:
             self._shard_over_data()
         elif hasattr(self.module, "configure_data_parallel"):
@@ -528,13 +540,14 @@ class DeepSpeedEngine:
         # them), when the norms are the world's
         self._norm_skip = self._norm_skip_set()
         self.optimizer_obj = self._configure_optimizer(optimizer)
-        self._quant_maps = self._int8_block_maps()
         if self._quant_maps:
             self.optimizer_obj.quant_maps = self._quant_maps
-        self.optimizer_state = self.optimizer_obj.init(self.params)
+        masters = self._masters()
+        self.optimizer_state = self.optimizer_obj.init(masters)
         if self.host_offload:
             self.optimizer_state = self._pinned(self.optimizer_state)
-        self._n_groups = len(param_groups(self.params))
+        self._n_groups = len(param_groups(masters))
+        del masters
         self.lr_scheduler = lr_scheduler
         if lr_scheduler is None and cfg.scheduler_name is not None:
             self.lr_scheduler = build_lr_scheduler(
@@ -845,7 +858,8 @@ class DeepSpeedEngine:
         data_sharded = (self._zero is not None and self._zero.sharded)
         shared = set(self._pipe_shared)
         skip = set()
-        for n in self.params:
+        for n in (self._zero.leaves if self._zero is not None
+                  else self.params):
             over_data = (n in self._expert_names or (
                 data_sharded and not self._zero.leaves[n].replicated))
             over_model = self._opt_model_dim(n) is not None
@@ -893,9 +907,9 @@ class DeepSpeedEngine:
         zero = self._zero = ZeroLayout(
             {n: tuple(p.shape) for n, p in full.items()},
             self.dp_world_size, self.data_rank, self._dp_group, stage,
-            flat_groups=cfg.optimizer_state_dtype == "int8",
+            flat_groups=self._int8_moments,
             model_dims={n: self._opt_model_dim(n) for n in full},
-            local=self._expert_names, **persist)
+            local=self._expert_names, quant_maps=self._quant_maps, **persist)
         module = self.module
         zero3 = None
         if zero.sharded:
@@ -967,7 +981,7 @@ class DeepSpeedEngine:
                         rank).contiguous().clone()
         self._tp = tp_lib.TensorParallel(self._mp_group, mp, rank)
         module.configure_model_parallel(self._mp_group, rank, mp)
-        if self.config.optimizer_state_dtype == "int8":
+        if self._int8_moments:
             # the JAX engine's flat int8 leaves are whole over the model
             # axis: their blocks cross the model split, so the optimizer
             # steps the model-gathered tensors (under offload on the host;
@@ -1008,11 +1022,8 @@ class DeepSpeedEngine:
         """What a pipe axis above 1 (or a model with pipeline stages) and
         a model with MoE experts refuse: the adapters block, with the JAX
         engine's behaviour as the reason. int8 moments train there on the
-        whole JAX leaf's block grid (:meth:`_int8_block_maps`); over a
-        data axis above 1 their optimizer state keeps stage 0's layout,
-        replicated over the data group, whatever the ZeRO stage (the same
-        values; the JAX engine also shards its flat leaves over the data
-        axis, a memory saving the port does not make here)."""
+        whole JAX leaf's block grid (:meth:`_int8_block_maps`), at every
+        ZeRO stage."""
         module = self.module
         cfg = self.config
         mcfg = getattr(module, "config", None)
@@ -1020,14 +1031,6 @@ class DeepSpeedEngine:
         experts = getattr(mcfg, "moe_experts", 0)
         staged = stages > 1 or (self._pipe is not None
                                 and hasattr(module, "configure_pipeline"))
-        if (cfg.optimizer_state_dtype == "int8" and (staged or experts > 0)
-                and self.zero_stage >= 1 and self.dp_world_size > 1):
-            what = "pipeline stages" if staged else "MoE experts"
-            log_dist(
-                f"int8 moments with {what}: ZeRO stage {self.zero_stage} "
-                "runs stage 0's layout (the optimizer state replicated "
-                "over the data group)", ranks=[0])
-            self.zero_stage = 0
         # a model without stages is replicated over a pipe axis
         # (_configure_pipeline_and_experts)
         if staged:
@@ -1057,8 +1060,12 @@ class DeepSpeedEngine:
         the group's tensors in layer order (and expert order within a
         tensor), each in the JAX element order; a block that holds
         elements of two ranks is shared, and its scale is the max of their
-        absmax over every rank of the world."""
-        if getattr(self.optimizer_obj, "state_dtype", "fp32") != "int8":
+        absmax over every rank of the world. Over ZeRO shards (stage 1
+        and above at a data axis above 1) the optimizer steps a stage's
+        map as one flat tensor named by its group, its runs cut to this
+        data rank's contiguous share of their blocks; an expert group's
+        runs are this data rank's already, its tensors stepped whole."""
+        if not self._int8_moments:
             return None
         module = self.module
         stage_of = None
@@ -1069,6 +1076,8 @@ class DeepSpeedEngine:
         if stage_of is None and not experts:
             return None
         dp, maps = self.dp_world_size, {}
+        sharded = (self.zero_stage >= ZERO_OPTIMIZATION_OPTIMIZER_STATES
+                   and dp > 1)
         for group, names in param_groups(
                 [n for n in self._global_names
                  if n not in self.frozen_base_params]).items():
@@ -1093,10 +1102,12 @@ class DeepSpeedEngine:
             shared = sorted({b // quant_lib.BLOCK for (b, o), (_, prev)
                              in zip(pieces[1:], pieces) if o != prev
                              and b % quant_lib.BLOCK})
+            cut = sharded and not any(n in experts for n in names)
             maps[group] = quant_lib.BlockMap(
                 mine, off, shared, functools.partial(
                     dist_lib.all_reduce, group=self._world_group,
-                    op=torch.distributed.ReduceOp.MAX))
+                    op=torch.distributed.ReduceOp.MAX),
+                shard=(self.data_rank, dp, group) if cut else None)
         return maps or None
 
     def _configure_pipeline_and_experts(self):
@@ -1192,14 +1203,19 @@ class DeepSpeedEngine:
         module.to(dtype=self.compute_dtype)
         self._compute_params = self._trainable_module_params()
         if self.compute_dtype == torch.float32 or self.compensated_master:
-            if (stage >= ZERO_OPTIMIZATION_WEIGHTS
-                    and zero.persistent_matches_leaves()):
-                # the shards are the masters themselves, as the JAX
-                # engine's sharded fp32 (or compensated) params are
-                masters = {n: p.data
-                           for n, p in self._compute_params.items()}
-                self._masters_alias = True
-            elif stage < ZERO_OPTIMIZATION_WEIGHTS:
+            if stage >= ZERO_OPTIMIZATION_WEIGHTS:
+                # the persistent shards are the masters, as the JAX
+                # engine's sharded fp32 (or compensated) params are: a
+                # leaf of their layout is the shard itself, any other (a
+                # flat int8 group, a model-gathered tensor's data shard)
+                # is cut from the shards at each update and not kept
+                # (:meth:`_master_leaf`)
+                self._masters_alias = frozenset(
+                    n for n in masters if zero.persistent_leaf(n))
+                self._cut_masters = frozenset(masters) - self._masters_alias
+                masters = {n: self._compute_params[n].data for n in masters
+                           if n in self._masters_alias}
+            else:
                 # stages 1-2 in fp32 (or compensated): a master that is a
                 # contiguous part of the module's parameter (a dim-0
                 # shard, a replicated tensor) is a view of it, not a copy;
@@ -1218,6 +1234,29 @@ class DeepSpeedEngine:
         (self._zero3_shard_bytes,
          self._zero3_gather_bytes) = zero.zero3_bytes(itemsize)
         return self._arm_zero3_gather()
+
+    def _master_leaf(self, name):
+        """Master leaf ``name``: the one held, or at stage 3 one cut from
+        the module's persistent shards through the full tensors (a
+        collective of the data group, and of the model group when the
+        optimizer steps model-gathered tensors)."""
+        if name not in self._cut_masters:
+            return self.params[name]
+        zero = self._zero
+        full = {}
+        for n, _ in zero.leaves[name].members:
+            t = zero.gather_full(n, self._compute_params[n].data)
+            full[n] = self._model_gathered(n, t) if self._tp_full_opt else t
+        return zero.shard_leaves(
+            full, dtype=(self.compute_dtype if self.compensated_master
+                         else torch.float32), names=(name,))[name]
+
+    def _masters(self):
+        """Every master leaf, in the optimizer's order: ``params``, with
+        the leaves cut from the stage-3 shards (:meth:`_master_leaf`)."""
+        if not self._cut_masters:
+            return self.params
+        return {n: self._master_leaf(n) for n in self._zero.leaves}
 
     def _arm_zero3_gather(self):
         """The arming of the model's stage-3 stack (models/stack.py) over
@@ -1688,7 +1727,7 @@ class DeepSpeedEngine:
             # what the stage-2 hooks reduced this micro-step, and whether
             # they copy into the shard buffer or add to it
             self._hooked = {"first": self._grad_buffer is None, "done": set(),
-                            "pending": {}}
+                            "pending": {}, "flushed": set()}
         (loss.float() * scale / denom).backward()
         if hooked:
             # a parameter the loss does not reach reduces zeros, so that
@@ -1785,11 +1824,11 @@ class DeepSpeedEngine:
         return raw_norm, raw_norm < 0.0
 
     @torch.no_grad()
-    def _publish_shards(self):
+    def _publish_shards(self, params):
         """After an update over shards: the module's parameters from the
-        new masters (all-gathered at stages 1-2; at stage 3 this rank's
-        persistent shards, through the full tensors one leaf at a time
-        where the layouts differ)."""
+        new masters ``params`` (all-gathered at stages 1-2; at stage 3
+        this rank's persistent shards, through the full tensors one leaf
+        at a time where the layouts differ)."""
         zero = self._zero
         if self._tp_full_opt:
             # whole tensors gathered over the data group, then the
@@ -1798,7 +1837,7 @@ class DeepSpeedEngine:
             full = {n: torch.empty(shape, dtype=self.compute_dtype,
                                    device=self.device)
                     for n, shape in zero.shapes.items()}
-            zero.gather_into(self.params, full)
+            zero.gather_into(params, full)
             if self.zero_stage >= ZERO_OPTIMIZATION_WEIGHTS:
                 full = {n: zero.persistent_shard(n, self._model_slice(n, t))
                         for n, t in full.items()}
@@ -1807,18 +1846,19 @@ class DeepSpeedEngine:
             else:
                 self._publish_model_slices(full)
         elif self.zero_stage < ZERO_OPTIMIZATION_WEIGHTS:
-            zero.gather_into(self.params, self._compute_params)
-        elif self._masters_alias:
-            return
+            zero.gather_into(params, self._compute_params)
         elif zero.persistent_matches_leaves():
-            for n, master in self.params.items():
-                self._compute_params[n].copy_(master)
+            for n, master in params.items():
+                if n not in self._masters_alias:
+                    self._compute_params[n].copy_(master)
         else:
             for name, leaf in zero.leaves.items():
+                if name in self._masters_alias:
+                    continue
                 full = {n: torch.empty(shape, dtype=self.compute_dtype,
                                        device=self.device)
                         for n, shape in leaf.members}
-                zero.gather_into(self.params, full, names=(name,))
+                zero.gather_into(params, full, names=(name,))
                 for n, t in full.items():
                     self._compute_params[n].copy_(
                         zero.persistent_shard(n, t))
@@ -1927,8 +1967,9 @@ class DeepSpeedEngine:
             kw = {"mom": self._current_mom()} if self._use_mom else {}
             if self._host_grads is not None:
                 grads = self._host_grads
+            params = self._masters()
             aux = self.optimizer_obj.apply(
-                self.params, grads, self.optimizer_state,
+                params, grads, self.optimizer_state,
                 self._current_lr(), grad_scale=float(gscale), **kw,
             )
             if self.host_offload:
@@ -1936,7 +1977,7 @@ class DeepSpeedEngine:
                 # after a step that was taken
                 self.publish_params()
             elif self._zero is not None and self._zero.sharded:
-                self._publish_shards()
+                self._publish_shards(params)
             elif self._tp_full_opt:
                 self._publish_model_slices(self.params)
             coeffs = aux.get("lamb_coeffs", [])

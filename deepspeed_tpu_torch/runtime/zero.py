@@ -14,6 +14,9 @@ process per device and issues them itself (runtime/dist.py):
             micro-step's gradients are reduce-scattered into it.
   stage 3 — the persistent parameters are shards as well; the model
             gathers them one block of layers at a time (models/stack.py).
+            In float32 they are the masters: a flat int8 group's master
+            is cut from them at each update (the engine's
+            ``_master_leaf``).
 
 The per-tensor rule is the JAX package's (:func:`leaf_partition_spec`):
 shard the largest dimension the data-parallel size divides; with
@@ -38,6 +41,12 @@ tensors flattened in the JAX package's element order
 (ops/optimizers.py:jax_element_order), padded to a multiple of
 ``max(256, dp)`` quantization blocks, and cut into ``dp`` contiguous
 block ranges, which are the JAX engine's shards of its flat int8 leaves.
+A group whose JAX leaf spans pipeline stages (a stage's layers of
+``h.*.<name>``) has a block map instead (ops/quant.py:BlockMap): its
+leaf is the stage's runs of the whole leaf's blocks, cut into ``dp``
+contiguous block ranges. An expert group (``h.*.moe.expert_*``) keeps
+its tensors as ``local`` leaves (below): its int8 leaf is the rank's
+runs of the whole leaf's blocks, whole on the rank.
 
 Tensors already partitioned over the data axis (``local``: the MoE
 experts of ops/moe.py, whose gradients arrive whole from the token
@@ -174,13 +183,14 @@ def shard_of(t, dim, dp, rank):
 class _Leaf:
     """One tensor the optimizer steps on this rank: a dim shard of a
     parameter (``dim``), the whole of a replicated one (``dim`` None), or
-    a block range of a flat int8 group (``members``)."""
+    a block range of a flat int8 group (``members``; with ``runs``, the
+    group's block map, of the rank's runs of the whole leaf)."""
 
     __slots__ = ("name", "members", "dim", "shape", "numel", "pad_to",
-                 "local")
+                 "local", "runs")
 
     def __init__(self, name, members, dim, shape, numel, pad_to=0,
-                 local=False):
+                 local=False, runs=None):
         self.local = local  # partitioned over the data axis already
         self.name = name
         self.members = members  # [(param name, shape)]
@@ -188,6 +198,7 @@ class _Leaf:
         self.shape = shape  # this rank's tensor shape
         self.numel = numel  # its element count
         self.pad_to = pad_to  # flat groups: the padded element count
+        self.runs = runs
 
     @property
     def flat(self):
@@ -210,11 +221,13 @@ class ZeroLayout:
     stage-3 persistent tensors' shapes and model dims where they differ
     from the optimizer's (the model-gathered optimizer of int8 moments at
     a model axis above 1 steps whole tensors while the module holds model
-    shards); by default ``shapes`` and ``model_dims``."""
+    shards); by default ``shapes`` and ``model_dims``. ``quant_maps``
+    ``{group: BlockMap}``: the engine's block maps; a flat group that has
+    one (a stage's layers) is its map's data share (``shard``)."""
 
     def __init__(self, shapes, dp, rank, group, stage, flat_groups=False,
                  model_dims=None, local=(), persist_shapes=None,
-                 persist_model_dims=None):
+                 persist_model_dims=None, quant_maps=None):
         self.dp = int(dp)
         self.rank = int(rank)
         self.group = group
@@ -237,13 +250,26 @@ class ZeroLayout:
         if flat_groups and stage >= ZERO_OPTIMIZATION_OPTIMIZER_STATES:
             pad = max(256, self.dp)
             for group_name, names in param_groups(self.shapes).items():
+                members = [(n, self.shapes[n]) for n in names]
+                if all(n in self.local for n in names):
+                    # experts: whole tensors on their rank, never reduced
+                    for n, shape in members:
+                        self.leaves[n] = _Leaf(n, [(n, shape)], None, shape,
+                                               math.prod(shape), local=True)
+                    continue
+                bmap = (quant_maps or {}).get(group_name)
+                if bmap is not None:
+                    self.leaves[group_name] = _Leaf(
+                        group_name, members, None, (bmap.numel,),
+                        bmap.numel, pad_to=bmap.run_numel, runs=bmap)
+                    continue
                 total = sum(math.prod(self.shapes[n]) for n in names)
                 nb = max(1, math.ceil(total / quant.BLOCK))
                 nb = -(-nb // pad) * pad
                 per_rank = nb // self.dp * quant.BLOCK
                 self.leaves[group_name] = _Leaf(
-                    group_name, [(n, self.shapes[n]) for n in names], None,
-                    (per_rank,), per_rank, pad_to=nb * quant.BLOCK)
+                    group_name, members, None, (per_rank,), per_rank,
+                    pad_to=nb * quant.BLOCK)
         else:
             for n, s in self.shapes.items():
                 d = opt_specs[n]
@@ -264,9 +290,17 @@ class ZeroLayout:
 
     def _pack(self, leaf, tensors):
         """A leaf's ``dp`` chunks as one contiguous buffer (flat groups:
-        the members in JAX element order, zero-padded)."""
+        the members in JAX element order, zero-padded; a mapped group's
+        at their offsets in the rank's runs)."""
         if not leaf.flat:
             return to_chunks(tensors[leaf.name], leaf.dim)
+        if leaf.runs is not None:
+            offsets = leaf.runs.run_offsets
+            buf = tensors[leaf.members[0][0]].new_zeros(leaf.pad_to)
+            for n, _ in leaf.members:
+                t = jax_element_order(n, tensors[n]).reshape(-1)
+                buf[offsets[n]:offsets[n] + t.numel()] = t
+            return buf
         parts = [jax_element_order(n, tensors[n]).reshape(-1)
                  for n, _ in leaf.members]
         used = sum(p.numel() for p in parts)
@@ -284,14 +318,18 @@ class ZeroLayout:
             dst = out[n]
             view = jax_element_order(n, dst)
             k = dst.numel()
+            if leaf.runs is not None:
+                off = leaf.runs.run_offsets[n]
             view.copy_(buf[off:off + k].view(view.shape))
             off += k
 
-    def shard_leaves(self, full, dtype=None):
-        """This rank's leaves cut from the full tensors ``full`` (copies,
-        in ``dtype`` or the tensors' own)."""
+    def shard_leaves(self, full, dtype=None, names=None):
+        """This rank's leaves (or those in ``names``) cut from the full
+        tensors ``full`` (copies, in ``dtype`` or the tensors' own)."""
         out = OrderedDict()
         for name, leaf in self.leaves.items():
+            if names is not None and name not in names:
+                continue
             if leaf.replicated:
                 t = full[name].detach().clone()
             else:
@@ -359,7 +397,8 @@ class ZeroLayout:
         as it exists (stage 2's hook): a dim or replicated leaf at once, a
         flat group when its last member arrives. ``state`` holds the
         micro-step's ``first`` flag, the names ``done`` and the flat
-        groups' ``pending`` members."""
+        groups' ``pending`` members and the groups already reduced
+        (``flushed``)."""
         # a parameter whose gradient comes in parts (the pipeline's
         # microbatch backward passes) adds the later ones
         first = state["first"] and name not in state["done"]
@@ -372,7 +411,9 @@ class ZeroLayout:
         members[name] = g
         if len(members) == len(leaf.members):
             del state["pending"][leaf.name]
-            self.reduce_grads(members, out, state["first"], (leaf.name,))
+            first = state["first"] and leaf.name not in state["flushed"]
+            state["flushed"].add(leaf.name)
+            self.reduce_grads(members, out, first, (leaf.name,))
 
     def reduce_missing(self, params, out, state):
         """After the backward: zeros for every parameter whose gradient
@@ -428,13 +469,18 @@ class ZeroLayout:
             self._unpack_into(leaf, buf, full)
 
     # ---- stage 3: the persistent shards --------------------------------------
+    def persistent_leaf(self, name):
+        """True when the stage-3 persistent shard of ``name`` is the
+        optimizer leaf of the same name (not a flat int8 group's member)."""
+        leaf = self.leaves.get(name)
+        return (leaf is not None and not leaf.flat
+                and leaf.dim == self.param_specs[name]
+                and self.persist_shapes[name] == self.shapes[name])
+
     def persistent_matches_leaves(self):
         """True when every stage-3 persistent shard is the optimizer leaf
         of the same name (the layouts agree; not with flat int8 groups)."""
-        return all(
-            name in self.leaves and not self.leaves[name].flat
-            and self.leaves[name].dim == d
-            for name, d in self.param_specs.items())
+        return all(self.persistent_leaf(n) for n in self.param_specs)
 
     def gather_full(self, name, shard):
         """The full tensor of persistent shard ``shard`` (a new tensor)."""

@@ -1223,6 +1223,8 @@ def moe_pp_engine(case, world, workdir, **over):
     model = moe_pp_model(case, workdir)
     engine, *_ = dst.initialize(
         model=model, device="cpu", rng_seed=case.get("rng_seed", 0),
+        optimizer=(dst.Adam(state_dtype="int8") if case.get("client_int8")
+                   else None),
         param_specs=(dst.partition_specs(model)
                      if mesh.get("model_parallel_size", 1) > 1 else None),
         config_params=config(case.get("stage", 0), case.get("opt", "Adam"),
@@ -1250,7 +1252,7 @@ def _moe_pp_run(engine, win):
 def case_moe_pp_train(case, rank, world, workdir):
     """Train the case's windows; rank 0 returns the whole (expert- and
     stage-gathered) parameters; every rank its losses, ``last_aux`` and
-    the names and shapes it holds."""
+    the names and shapes it holds (with ``held``, :func:`held_state`)."""
     engine = moe_pp_engine(case, world, workdir)
     losses = [_moe_pp_run(engine, w)
               for w in _moe_pp_windows(case, engine.dp_world_size)]
@@ -1265,32 +1267,70 @@ def case_moe_pp_train(case, rank, world, workdir):
     if rank == 0:
         out["params"] = {n: p.detach().float().numpy().copy()
                          for n, p in full.items()}
-    if engine.config.optimizer_state_dtype == "int8":
+    if getattr(engine.optimizer_obj, "state_dtype", "fp32") == "int8":
         out["int8"] = int8_state(engine)
+    if case.get("held"):
+        out["held"] = held_state(engine, _moe_pp_windows(
+            case, engine.dp_world_size)[0][0])
     return out
+
+
+def held_state(engine, batch):
+    """What an int8 rank holds: its ZeRO stage; each int8 first-moment
+    group's element count; the model elements whose optimizer state it
+    steps (a flat ZeRO leaf's real ones, its padding left out) beside
+    those of its trainable tensors, stage 0's count; its module's
+    parameter elements and the masters' that are not the module's
+    tensors; and, after one more micro-step's backward on the global
+    ``batch``, the gradient buffer's elements beside its optimizer
+    leaves'."""
+    import math
+
+    import torch
+
+    zero = engine._zero
+    shapes = (zero.shapes if zero is not None else
+              {n: tuple(p.shape) for n, p in engine.params.items()})
+    whole = sum(math.prod(s) for s in shapes.values())
+    stepped = whole
+    if zero is not None and zero.sharded:
+        stepped = 0
+        for leaf in zero.leaves.values():
+            if leaf.runs is not None:
+                stepped += sum(n for *_, n in leaf.runs.segments)
+            elif leaf.flat:
+                total = sum(math.prod(s) for _, s in leaf.members)
+                stepped += max(0, min(leaf.numel,
+                                      total - zero.rank * leaf.numel))
+            else:
+                stepped += leaf.numel
+    module = {p.untyped_storage().data_ptr()
+              for p in engine.module.parameters()}
+    rows = rank_rows(batch, engine.data_rank, engine.dp_world_size)
+    ids, labels = (torch.from_numpy(x) for x in rows)
+    engine.backward(engine(ids, labels))
+    grads = sum(g.numel() for g in engine._grad_buffer.values())
+    engine.zero_grad()
+    return {"zero_stage": engine.zero_stage,
+            "mu": {g: int(leaf["q"].numel())
+                   for g, leaf in engine.optimizer_state["mu"].items()},
+            "stepped": stepped, "whole": whole,
+            "module": sum(p.numel() for p in engine.module.parameters()),
+            "masters": sum(p.numel() for p in engine.params.values()
+                           if p.untyped_storage().data_ptr() not in module),
+            "grads": grads,
+            "leaves": (sum(lf.numel for lf in zero.leaves.values())
+                       if zero is not None else whole)}
 
 
 def int8_state(engine):
     """The engine's int8 first moment as the whole JAX leaves, keyed by
     group (a collective: a pipeline stage's, a data rank's experts' and a
     ZeRO rank's parts joined), numpy ``{"q", "scale"}`` each."""
-    import torch
-
     from deepspeed_tpu_torch.runtime import checkpointing
 
-    state = checkpointing._canonical_opt_state(engine)
-    inner = state["inner"] if "inner" in state else state
-    mu = inner["mu"]
-    zero = checkpointing._layout(engine)
-    if zero is not None:
-        # every data rank's block range of each flat leaf
-        import torch.distributed as dist
-
-        parts = [None] * engine.dp_world_size
-        dist.all_gather_object(parts, mu, group=engine._dp_group)
-        mu = {g: {k: torch.cat([p[g][k] for p in parts]) for k in ("q",
-                                                                  "scale")}
-              for g in mu}
+    mu = checkpointing.whole_int8_moments(
+        engine, checkpointing._host_tree(engine.optimizer_state["mu"]))
     return {g: {k: v.numpy().copy() for k, v in leaf.items()}
             for g, leaf in mu.items()}
 

@@ -63,7 +63,7 @@ def save_port_weights(params, path):
 
 def jax_run(kind, params, dp, stage, opt, dtype="fp32", steps=STEPS,
             rows=None, n_micro=PP_MICRO_BATCHES, mp=1, extra=None, sp=1,
-            int8_state=False):
+            int8_state=False, client_int8=False):
     """The JAX engine's window losses, its last ``last_aux`` and its final
     float32 parameters in the port's names; ``rows`` global rows a
     micro-step (default: a data rank's times dp); ``n_micro`` the
@@ -71,7 +71,8 @@ def jax_run(kind, params, dp, stage, opt, dtype="fp32", steps=STEPS,
     ``sp`` a sequence axis (MoE); ``extra`` more engine config. Kind
     ``dense``: the dense model on a ``data x model`` mesh. With
     ``int8_state`` a fourth element: the int8 first moment's leaves keyed
-    by the port's group names (:func:`int8_groups`)."""
+    by the port's group names (:func:`int8_groups`). ``client_int8``: a
+    client ``Adam(state_dtype="int8")`` in place of the config's."""
     micro = MOE_MICRO if kind == "moe" else PP_MICRO
     if rows is not None:
         micro = rows // dp
@@ -88,6 +89,8 @@ def jax_run(kind, params, dp, stage, opt, dtype="fp32", steps=STEPS,
     engine, *_ = deepspeed_tpu.initialize(
         model=JGPT2LMHeadModel(jconfig(kind) if kind != "pp" else jconfig(
             kind, pipeline_microbatches=n_micro)),
+        optimizer=(deepspeed_tpu.ops.optimizers.Adam(state_dtype="int8")
+                   if client_int8 else None),
         model_parameters=params,
         config_params=ranks.config(stage, opt, dtype, micro, ACCUM, dp,
                                    lr=LR, **(extra or {})),
